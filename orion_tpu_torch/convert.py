@@ -1,0 +1,92 @@
+"""Weights from the JAX package's ``TransformerLM`` into the port's.
+
+The input is the flax parameter tree as nested dicts of numpy arrays (what
+``jax.device_get(model.init(...))`` or a restored checkpoint gives), with or
+without its top ``"params"`` level. Nothing here imports JAX.
+
+Mapping (flax path -> torch state_dict key):
+
+- ``embed/embedding``, ``pos_embed/embedding`` -> ``embed.weight``,
+  ``pos_embed.weight``; the head stays tied to ``embed``;
+- ``block_{i}/norm1/scale``, ``norm2/scale``, ``final_norm/scale`` -> the
+  norms' ``weight``;
+- every ``Dense`` ``kernel`` [in, out] -> ``Linear``-style ``weight``
+  [out, in], transposed: ``block_{i}/attn/{wq,wk,wv,wo}`` and
+  ``block_{i}/mlp/{gate,up,down}``.
+
+A missing or unexpected key, or a shape that disagrees with ``cfg``, raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from orion_tpu_torch.models.configs import ModelConfig
+from orion_tpu_torch.models.transformer import check_supported
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+def expected_params(cfg: ModelConfig) -> Dict[str, tuple]:
+    """flax path -> (torch key, torch shape, transpose?) for ``cfg``."""
+    check_supported(cfg)
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    hd, hid = cfg.n_heads * dh, cfg.resolved_mlp_hidden
+    spec = {
+        "embed/embedding": ("embed.weight", (cfg.vocab_size, d), False),
+        "pos_embed/embedding": ("pos_embed.weight", (cfg.max_seq_len, d), False),
+        "final_norm/scale": ("final_norm.weight", (d,), False),
+    }
+    dense = {"attn/wq": (hd, d), "attn/wk": (hd, d), "attn/wv": (hd, d),
+             "attn/wo": (d, hd), "mlp/up": (hid, d), "mlp/down": (d, hid)}
+    if cfg.mlp == "swiglu":
+        dense["mlp/gate"] = (hid, d)
+    for i in range(cfg.n_layers):
+        for norm in ("norm1", "norm2"):
+            spec[f"block_{i}/{norm}/scale"] = (f"blocks.{i}.{norm}.weight", (d,), False)
+        for path, shape in dense.items():
+            key = f"blocks.{i}.{path.replace('/', '.')}.weight"
+            spec[f"block_{i}/{path}/kernel"] = (key, shape, True)
+    return spec
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """flax param tree (numpy leaves) -> the port's fp32 state_dict (CPU)."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    flat = _flatten(tree)
+    spec = expected_params(cfg)
+    missing = sorted(set(spec) - set(flat))
+    unexpected = sorted(set(flat) - set(spec))
+    if missing or unexpected:
+        raise KeyError(f"param tree mismatch: missing {missing}, unexpected {unexpected}")
+    state = {}
+    for path, (key, shape, transpose) in spec.items():
+        arr = np.asarray(flat[path], dtype=np.float32)
+        if transpose:
+            arr = arr.T
+        if arr.shape != shape:
+            raise ValueError(f"{path}: shape {arr.shape} (torch layout), want {shape}")
+        state[key] = torch.tensor(arr)  # a copy: device_get arrays are read-only
+    return state
+
+
+def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.Module:
+    """Copy a flax param tree into ``model`` in place (strict); returns it."""
+    model.load_state_dict(params_from_jax(tree, model.cfg), strict=True)
+    return model
+
+
+__all__ = ["params_from_jax", "load_jax_params", "expected_params"]

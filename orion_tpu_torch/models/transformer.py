@@ -1,0 +1,388 @@
+"""TransformerLM in PyTorch: the linear-attention slice of
+``orion_tpu/models/transformer.py``.
+
+Decoder LM with causal linear attention (elu+1 phi by default), SwiGLU or
+GELU MLP, RMSNorm, learned positions and a tied head. Three entry methods,
+as in the JAX package:
+
+- ``forward(tokens)``            -- the parallel forward -> logits [B, T, V];
+- ``prefill(tokens)`` / ``prefill_last(tokens)`` -- the same forward, also
+  returning each layer's decode state (S, z); every layer's attention runs
+  through ``ops.linear_attention`` and so through the fused CUDA kernel on
+  the card;
+- ``decode_step(token, states, t)`` -- one O(1)-state recurrent step.
+
+Numerics follow the flax model (these are where parity breaks first):
+dense layers run in the compute dtype on weights rounded to it (flax
+``Dense(dtype=bf16, param_dtype=f32)`` rounds the fp32 kernel at each call,
+so rounding once, ``generate.cast_params_for_inference``, is bitwise the
+same); RMSNorm takes its statistics in fp32 and casts the result; the two
+embeddings add in fp32 and then cast; the head multiplies bf16-rounded
+operands with fp32 accumulation into fp32 logits; (S, z) stay fp32.
+
+Not ported yet (they raise ``NotImplementedError`` naming ROADMAP.md's
+item): softmax and sliding-window layers, LayerNorm, an untied head, MoE,
+quantized weights, meshes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from orion_tpu_torch.models.configs import ModelConfig
+from orion_tpu_torch.ops.feature_maps import make_feature_map
+from orion_tpu_torch.ops.linear_attention import linear_attention, recurrent_step
+from orion_tpu_torch.utils.device import resolve_device
+
+Tensor = torch.Tensor
+State = Dict[str, Tensor]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# flax lecun_normal: a normal truncated at two standard deviations, rescaled
+# by this constant so the variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def _dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to orion_tpu_torch yet (ROADMAP.md queue A, {item})"
+    )
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice of the port lacks."""
+    for lt in cfg.resolved_layer_types:
+        if lt != "linear":
+            raise _not_ported(f"layer type {lt!r}", "item 6 (hybrid slice)")
+    if cfg.n_experts:
+        raise _not_ported("mixture-of-experts", "item 10 (MoE)")
+    if cfg.norm != "rmsnorm":
+        raise _not_ported(f"norm {cfg.norm!r}", "item 11 (LRA)")
+    if not cfg.tie_embeddings:
+        raise _not_ported("an untied head", "item 3 (model)")
+    if cfg.n_classes:
+        raise _not_ported("the classifier head", "item 11 (LRA)")
+
+
+class Dense(nn.Module):
+    """Bias-free dense layer in the compute dtype: ``x @ W^T`` with
+    ``weight`` [out, in] (the flax kernel [in, out], transposed)."""
+
+    def __init__(self, d_in: int, d_out: int, cdt: torch.dtype, device=None):
+        super().__init__()
+        self.cdt = cdt
+        self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.linear(x.to(self.cdt), self.weight.to(self.cdt))
+
+
+class Embed(nn.Module):
+    """Lookup table ``weight`` [rows, D], fp32 (flax ``nn.Embed``)."""
+
+    def __init__(self, rows: int, d: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(rows, d, device=device))
+
+    def forward(self, ids) -> Tensor:
+        return self.weight[ids]
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm``: fp32 statistics, eps 1e-6, scale multiplied
+    into the reciprocal root first, result cast to the compute dtype."""
+
+    def __init__(self, d: int, cdt: torch.dtype, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.cdt = cdt
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(d, device=device))
+
+    def forward(self, x: Tensor) -> Tensor:
+        xf = x.float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (xf * mul).to(self.cdt)
+
+
+class Attention(nn.Module):
+    """One causal linear-attention layer."""
+
+    def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None):
+        super().__init__()
+        if layer_type != "linear":
+            raise _not_ported(f"layer type {layer_type!r}", "item 6 (hybrid slice)")
+        self.cfg = cfg
+        h, dh = cfg.n_heads, cfg.resolved_head_dim
+        cdt = _dtype(cfg.dtype)
+        self.wq = Dense(cfg.d_model, h * dh, cdt, device)
+        self.wk = Dense(cfg.d_model, h * dh, cdt, device)
+        self.wv = Dense(cfg.d_model, h * dh, cdt, device)
+        self.wo = Dense(h * dh, cfg.d_model, cdt, device)
+        self._phi = make_feature_map(cfg.feature_map)
+
+    def _heads(self, x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        """x [B, T, D] -> q, k, v [B, H, T, Dh]; x [B, D] -> [B, H, Dh]."""
+        h, dh = self.cfg.n_heads, self.cfg.resolved_head_dim
+        single = x.dim() == 2
+
+        def split(y):
+            y = y.reshape(*y.shape[:-1], h, dh)
+            return y if single else y.transpose(-3, -2)
+
+        return split(self.wq(x)), split(self.wk(x)), split(self.wv(x))
+
+    def _phi_map(self, x: Tensor) -> Tensor:
+        return self._phi(x)
+
+    def _merge(self, out: Tensor, single: bool) -> Tensor:
+        if not single:
+            out = out.transpose(-3, -2)  # [B, T, H, Dh]
+        return self.wo(out.reshape(*out.shape[:-2], -1))
+
+    def forward(self, x: Tensor) -> Tensor:
+        q, k, v = self._heads(x)
+        out = linear_attention(
+            self._phi_map(q), self._phi_map(k), v,
+            backend=self.cfg.backend, chunk=self.cfg.chunk,
+        )
+        return self._merge(out, single=False)
+
+    def prefill(
+        self, x: Tensor, length: Optional[Union[int, Tensor]] = None
+    ) -> Tuple[Tensor, State]:
+        """Forward plus the decode state. ``length``: the real prompt length
+        when ``x`` is right-padded; pad rows' phi(k) and v are zeroed before
+        the kv-cumsum, so (S, z) hold only the real rows."""
+        q, k, v = self._heads(x)
+        qf, kf = self._phi_map(q), self._phi_map(k)
+        if length is not None:
+            t = x.shape[-2]
+            real = (torch.arange(t, device=x.device) < length)[None, None, :, None]
+            # where, not multiply: 0 * nan from a degenerate phi must not
+            # poison the masked state
+            kf = torch.where(real, kf, torch.zeros_like(kf))
+            v = torch.where(real, v, torch.zeros_like(v))
+        out, (s, z) = linear_attention(
+            qf, kf, v, backend=self.cfg.backend, chunk=self.cfg.chunk,
+            return_state=True,
+        )
+        return self._merge(out, single=False), {"s": s, "z": z}
+
+    def decode_step(self, x: Tensor, state: State, t=None) -> Tuple[Tensor, State]:
+        """x [B, D], one token per row -> (out [B, D], new state). ``t`` (the
+        position) is unused by linear layers; it is kept for the signature
+        the other layer types share in the JAX package."""
+        del t
+        q, k, v = self._heads(x)
+        out, (s, z) = recurrent_step(
+            self._phi_map(q), self._phi_map(k), v, (state["s"], state["z"])
+        )
+        return self._merge(out, single=True), {"s": s, "z": z}
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        cdt = _dtype(cfg.dtype)
+        d, h = cfg.d_model, cfg.resolved_mlp_hidden
+        if cfg.mlp == "swiglu":
+            self.gate = Dense(d, h, cdt, device)
+        elif cfg.mlp != "gelu":
+            raise ValueError(f"unknown mlp {cfg.mlp!r}")
+        self.up = Dense(d, h, cdt, device)
+        self.down = Dense(h, d, cdt, device)
+
+    def forward(self, x: Tensor) -> Tensor:
+        if self.cfg.mlp == "swiglu":
+            y = F.silu(self.gate(x)) * self.up(x)
+        else:
+            y = F.gelu(self.up(x), approximate="tanh")  # jax.nn.gelu's default
+        return self.down(y)
+
+
+class Block(nn.Module):
+    """Pre-norm residual block: x + attn(norm(x)); x + mlp(norm(x))."""
+
+    def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None):
+        super().__init__()
+        cdt = _dtype(cfg.dtype)
+        self.norm1 = RMSNorm(cfg.d_model, cdt, device=device)
+        self.attn = Attention(cfg, layer_type, device)
+        self.norm2 = RMSNorm(cfg.d_model, cdt, device=device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x: Tensor) -> Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+    def prefill(self, x: Tensor, length=None) -> Tuple[Tensor, State]:
+        h, state = self.attn.prefill(self.norm1(x), length)
+        x = x + h
+        return x + self.mlp(self.norm2(x)), state
+
+    def decode_step(self, x: Tensor, state: State, t) -> Tuple[Tensor, State]:
+        h, state = self.attn.decode_step(self.norm1(x), state, t)
+        x = x + h
+        return x + self.mlp(self.norm2(x)), state
+
+
+class TransformerLM(nn.Module):
+    """Decoder LM over token ids; see the module docstring.
+
+    Parameters are fp32 (``param_dtype``) and drawn from ``generator`` (a
+    fresh generator seeded 0 on ``device`` by default) with the flax model's
+    default initializers: lecun_normal for dense kernels, normal(1/sqrt(D))
+    for the embedding tables, ones for norm scales. ``device`` defaults to
+    ``"cuda"`` and raises if CUDA is absent. ``mesh`` and ``quant`` are
+    the JAX model's, not ported yet: anything but their defaults raises.
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        *,
+        device: Optional[Union[str, torch.device]] = None,
+        generator: Optional[torch.Generator] = None,
+        mesh=None,
+        quant: str = "",
+    ):
+        super().__init__()
+        if mesh is not None:
+            raise _not_ported("a device mesh", "item 12 (parallelism)")
+        if quant:
+            raise _not_ported(f"quant={quant!r}", "item 7 (quantized decode)")
+        check_supported(cfg)
+        if cfg.param_dtype != "float32":
+            raise ValueError(f"param_dtype must be float32, got {cfg.param_dtype!r}")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.cdt = _dtype(cfg.dtype)
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, dev)
+        self.pos_embed = Embed(cfg.max_seq_len, cfg.d_model, dev)
+        self.blocks = nn.ModuleList(
+            Block(cfg, lt, dev) for lt in cfg.resolved_layer_types
+        )
+        self.final_norm = RMSNorm(cfg.d_model, self.cdt, device=dev)
+        self._head_cache = None
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw every parameter from ``generator`` (flax default inits)."""
+        std = 1.0 / math.sqrt(self.cfg.d_model)
+        for table in (self.embed.weight, self.pos_embed.weight):
+            table.normal_(0.0, std, generator=generator)
+        for m in self.modules():
+            if isinstance(m, Dense):
+                s = math.sqrt(1.0 / m.weight.shape[1]) / _TRUNC_STD
+                nn.init.trunc_normal_(
+                    m.weight, 0.0, s, -2.0 * s, 2.0 * s, generator=generator
+                )
+            elif isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.weight.device
+
+    def _embed(self, tokens: Tensor, positions) -> Tensor:
+        return (self.embed(tokens) + self.pos_embed(positions)).to(self.cdt)
+
+    def _head_operand(self) -> Tensor:
+        """The tied table rounded to the compute dtype, held in fp32 so the
+        head runs bf16 operands with fp32 accumulation. Cached; a change to
+        the table (load, in-place update, move) rebuilds it."""
+        w = self.embed.weight
+        if self.cdt == torch.float32:
+            return w
+        if w.is_inference():  # made under inference_mode: no version counter
+            return w.to(self.cdt).float()
+        key = (w.data_ptr(), w._version)
+        if self._head_cache is None or self._head_cache[0] != key:
+            self._head_cache = (key, w.detach().to(self.cdt).float())
+        return self._head_cache[1]
+
+    def _head_matmul(self, x: Tensor) -> Tensor:
+        """fp32 logits from compute-dtype operands (a plain bf16 matmul would
+        round the logits to bf16 and flip greedy tokens)."""
+        return x.to(self.cdt).float() @ self._head_operand().t()
+
+    def _head(self, x: Tensor) -> Tensor:
+        return self._head_matmul(self.final_norm(x))
+
+    def features(self, tokens: Tensor) -> Tensor:
+        """tokens [B, T] -> final-normed hidden states [B, T, D]."""
+        x = self._embed(tokens, torch.arange(tokens.shape[-1], device=tokens.device))
+        for blk in self.blocks:
+            x = blk(x)
+        return self.final_norm(x)
+
+    def forward(self, tokens: Tensor) -> Tensor:
+        """tokens [B, T] -> logits [B, T, V] (fp32)."""
+        return self._head_matmul(self.features(tokens))
+
+    def _prefill_trunk(self, tokens: Tensor, length=None) -> Tuple[Tensor, List[State]]:
+        x = self._embed(tokens, torch.arange(tokens.shape[-1], device=tokens.device))
+        states = []
+        for blk in self.blocks:
+            x, st = blk.prefill(x, length)
+            states.append(st)
+        return x, states
+
+    def prefill(self, tokens: Tensor, length=None) -> Tuple[Tensor, List[State]]:
+        """tokens [B, T] -> (logits [B, T, V], per-layer decode states)."""
+        x, states = self._prefill_trunk(tokens, length)
+        return self._head(x), states
+
+    def prefill_last(self, tokens: Tensor, length=None) -> Tuple[Tensor, List[State]]:
+        """prefill with the head on the last (real) position only ->
+        (logits [B, V], states)."""
+        x, states = self._prefill_trunk(tokens, length)
+        last = tokens.shape[-1] if length is None else length
+        return self._head(x[:, last - 1]), states
+
+    def decode_step(
+        self, token: Tensor, states: List[State], t
+    ) -> Tuple[Tensor, List[State]]:
+        """token [B] at position ``t`` -> (logits [B, V], updated states)."""
+        x = self._embed(token, t)
+        new_states = []
+        for blk, st in zip(self.blocks, states):
+            x, st = blk.decode_step(x, st, t)
+            new_states.append(st)
+        return self._head(x), new_states
+
+
+def init_decode_state(
+    cfg: ModelConfig, batch_size: int, device=None
+) -> List[State]:
+    """Zero per-layer decode state (fp32 S, z), prefill's structure."""
+    check_supported(cfg)
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    dev = resolve_device(device)
+    return [
+        {
+            "s": torch.zeros(batch_size, h, dh, dh, dtype=torch.float32, device=dev),
+            "z": torch.zeros(batch_size, h, dh, dtype=torch.float32, device=dev),
+        }
+        for _ in cfg.resolved_layer_types
+    ]
+
+
+__all__ = [
+    "TransformerLM", "Attention", "Block", "MLP", "Dense", "Embed", "RMSNorm",
+    "init_decode_state", "check_supported",
+]

@@ -1,0 +1,112 @@
+"""Where the port's lm_1b3 generate path spends the card's time.
+
+    python3 profile_port.py
+
+On a machine with one CUDA card. Builds ``lm_1b3`` at full width from
+seeded random weights, then traces with ``torch.profiler`` (a) one prefill
+of 4 prompts of 1024 tokens and (b) 8 decode steps at batch 4. For each it
+prints the device time by kernel (largest first, grouped into the attention
+kernel, dense products, and everything else), the number of kernel
+launches, the window's wall time and
+the device's idle share of it (1 - summed kernel time / wall time; the port
+runs on one stream, so kernels do not overlap), then all of it as one JSON
+line. Imports nothing of JAX.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+
+def _device_us(evt):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def _group(name):
+    low = name.lower()
+    if "causal_dot_norm" in low:
+        return "causal_dot_norm kernel"
+    if any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
+        return "dense products (cuBLAS)"
+    return "other (elementwise, norms, copies, sampling)"
+
+
+def trace(fn):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = _device_us(evt)
+            if us > 0:
+                kernels[evt.key] = (us, evt.count)
+    busy = sum(us for us, _ in kernels.values())
+    groups = {}
+    for name, (us, _) in kernels.items():
+        groups[_group(name)] = groups.get(_group(name), 0.0) + us
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "kernel_launches": sum(c for _, c in kernels.values()),
+        "idle_share": (1.0 - busy / wall_us) if busy else None,
+        "groups_ms": {g: us / 1e3 for g, us in sorted(groups.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [{"name": n[:120], "ms": us / 1e3, "count": c} for n, (us, c) in top],
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_port: needs a CUDA card", file=sys.stderr)
+        return 1
+    from orion_tpu_torch.generate import cast_params_for_inference, generate, SampleConfig
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.models.transformer import TransformerLM
+
+    dev = torch.device("cuda", 0)
+    model = cast_params_for_inference(TransformerLM(get_config("lm_1b3"), device=dev))
+    prompts = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (4, 1024), dtype=np.int64)
+    ).to(dev)
+    generate(model, prompts[:, :128], 4, SampleConfig(temperature=0.0))  # warm-up
+    with torch.inference_mode():
+        result = {"prefill_B4_T1024": trace(lambda: model.prefill_last(prompts))}
+        _, states = model.prefill_last(prompts)
+        tok = torch.zeros(4, dtype=torch.long, device=dev)
+
+        def decode():
+            st = states
+            for i in range(8):
+                _, st = model.decode_step(tok, st, 1024 + i)
+
+        result["decode_8_steps_B4"] = trace(decode)
+    for phase, r in result.items():
+        print(f"{phase}: wall {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
+              f"idle share {r['idle_share']}, {r['kernel_launches']} kernel launches")
+        for g, ms in r["groups_ms"].items():
+            print(f"  {g}: {ms:.3f} ms")
+        for k in r["top_kernels"]:
+            print(f"    {k['ms']:8.3f} ms  x{k['count']:<5} {k['name']}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(card)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
