@@ -8,8 +8,8 @@ package. Phases, each of which raises on failure (the exit code is then
 nonzero and no result line is printed):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every kernel of the port from the sources in the checkout, one
-   ``nvcc`` per source, all started together, and time the build;
+2. build the kernel library from the source in the checkout, and time
+   the build;
 3. hold each kernel against its plain PyTorch version on the card, at the
    main path's shape and at ragged and one-token lengths, and time both;
 4. the main path: ``orion_tpu_torch.generate.generate`` on ``lm_1b3`` at
@@ -28,7 +28,6 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -36,8 +35,21 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
-FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM
 ROOT = Path(__file__).resolve().parent
+
+# causal_dot_norm against its plain version. ``out`` (bf16): both divide in
+# fp32 and round once to bf16; their fp32 quotients differ only by the order
+# of the sums, so they round to the same bf16 value or to neighbours, and a
+# bf16 step is at most 2^-7 of the value. The absolute term covers elements
+# near zero, where the order of the fp32 sums alone moves the quotient: at
+# most about (terms summed) x 2^-24 x |v| ~ 1e-4 for 1280 terms of |v| < 2.
+# S, z (fp32): sums of exact products in another order. ``kernel_mutants.py``
+# shows which wrong kernels these limits reject.
+OUT_RTOL, OUT_ATOL = 2**-7, 1e-4
+STATE_RTOL = 1e-4  # of the state's largest magnitude
+# lm_1b3's per-layer S after the kernel-backed prefill against the plain
+# one: each layer's input differs by the bf16 roundings of the layers below
+LAYER_S_RTOL = 5e-3
 
 
 def log(*a):
@@ -74,37 +86,34 @@ def card_info():
     log(line)
 
 
-def build_all(modules):
+def build(cd):
     t = time.perf_counter()
-    with ThreadPoolExecutor(len(modules)) as pool:
-        results = list(pool.map(lambda m: m.build(), modules))
-    secs = time.perf_counter() - t
-    for m, (path, out) in zip(modules, results):
-        log(f"built {path.name} from {m.SOURCE.relative_to(ROOT)}")
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log("  ptxas:", line.strip())
-    log(f"build: {secs:.1f} s for {len(modules)} source(s)")
+    path, out = cd.build()
+    log(f"built {path.name} from {cd.SOURCE.relative_to(ROOT)} in {time.perf_counter() - t:.1f} s")
+    for line in out.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log("  ptxas:", line.strip())
 
 
-def _errs(got, ref):
-    g, r = got.float(), ref.float()
-    d = (g - r).abs()
-    return float(d.max()), float(d.max() / r.abs().max().clamp_min(1e-30))
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-def check_causal_dot(cd, dev):
-    """Kernel vs plain version on the card. Tolerances: ``out`` (bf16) within
-    2e-2 absolute + 2e-2 relative elementwise -- both divide in fp32 and
-    round once to bf16, so a value near a rounding boundary lands on either
-    neighbour (2^-8 relative) -- and S, z (fp32, sums in another order)
-    within 1e-4 of their largest magnitude."""
+def compare_causal_dot(cd, dev):
+    """The kernel against its plain version on the card, at the main path's
+    width (B 4, H 16, D 128, bf16): T 1024, a ragged 1000 and 1, each with
+    the state a 256-token prefix leaves, and T 1024 from a zero state (what
+    prefill gives the kernel). Returns one reading per case and the last
+    case's inputs. ``out_over_limit`` is the largest |out - ref| as a share
+    of its limit ``OUT_ATOL + OUT_RTOL |ref|`` (above 1 fails);
+    ``out_atol_needed`` the smallest absolute term that this case alone
+    would need beside ``OUT_RTOL``."""
     g = torch.Generator(device=dev).manual_seed(0)
 
     def phi(x):
         return torch.nn.functional.elu(x) + 1.0
 
-    worst = 0.0
+    readings = []
     for b, h, t, with_state in [(4, 16, 1024, True), (4, 16, 1000, True), (4, 16, 1, True),
                                 (4, 16, 1024, False)]:
         bh, d = b * h, 128
@@ -119,18 +128,33 @@ def check_causal_dot(cd, dev):
         out, sf, zf = cd.causal_dot_norm_cuda(q, k, v, s0, z0)
         torch.cuda.synchronize()
         r_out, r_s, r_z = cd.causal_dot_norm_plain(q, k, v, s0, z0)
-        ok_out = bool(((out.float() - r_out.float()).abs()
-                       <= 2e-2 + 2e-2 * r_out.float().abs()).all())
-        e_out, e_s, e_z = _errs(out, r_out), _errs(sf, r_s), _errs(zf, r_z)
-        log(f"causal_dot_norm B{b} H{h} T{t} D{d} bf16 state={with_state}: "
-            f"out abs {e_out[0]:.3e} rel {e_out[1]:.3e} (tol 2e-2 + 2e-2|ref|); "
-            f"S abs {e_s[0]:.3e} rel {e_s[1]:.3e}; z abs {e_z[0]:.3e} rel {e_z[1]:.3e} "
-            "(tol rel 1e-4)")
-        if not (ok_out and e_s[1] <= 1e-4 and e_z[1] <= 1e-4):
-            raise AssertionError(f"causal_dot_norm disagrees with its plain version at T={t}")
-        if out.shape != v.shape or out.dtype != torch.bfloat16 or not torch.isfinite(out.float()).all():
-            raise AssertionError("causal_dot_norm output has the wrong shape, dtype or values")
-        worst = max(worst, e_out[0])
+        diff, ref = (out.float() - r_out.float()).abs(), r_out.float().abs()
+        readings.append({
+            "case": f"B{b} H{h} T{t} D{d} bf16 state={with_state}",
+            "out_max_abs": float(diff.max()), "ref_max_abs": float(ref.max()),
+            "out_over_limit": float((diff / (OUT_ATOL + OUT_RTOL * ref)).max()),
+            "out_atol_needed": float((diff - OUT_RTOL * ref).clamp_min(0).max()),
+            "s_rel": _rel(sf, r_s), "z_rel": _rel(zf, r_z),
+            "well_formed": out.shape == v.shape and out.dtype == torch.bfloat16
+            and bool(torch.isfinite(out.float()).all()),
+        })
+    return readings, (q, k, v)
+
+
+def agrees(r):
+    return (r["well_formed"] and r["out_over_limit"] <= 1.0
+            and r["s_rel"] <= STATE_RTOL and r["z_rel"] <= STATE_RTOL)
+
+
+def check_causal_dot(cd, dev):
+    readings, (q, k, v) = compare_causal_dot(cd, dev)
+    for r in readings:
+        log(f"causal_dot_norm {r['case']}: out max abs {r['out_max_abs']:.3e} "
+            f"(max |ref| {r['ref_max_abs']:.3f}), {r['out_over_limit']:.3f} of its limit "
+            f"{OUT_ATOL:g} + 2^-7|ref|, needs atol {r['out_atol_needed']:.3e}; "
+            f"S rel {r['s_rel']:.3e}, z rel {r['z_rel']:.3e} (limit {STATE_RTOL:g})")
+        if not agrees(r):
+            raise AssertionError(f"causal_dot_norm disagrees with its plain version: {r}")
 
     # timing at the main path's shape: B 4, H 16, T 1024, D 128, bf16, no
     # initial state (what prefill gives the kernel)
@@ -143,14 +167,13 @@ def check_causal_dot(cd, dev):
     flops = 2 * bh * t * (chunk * dk + chunk * dv + 2 * dk * dv)
     bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     log(f"causal_dot_norm timing B4 H16 T1024 D128 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {max(bytes_ms, ops_ms):.4f} ms ({moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
-        f"fp32 CUDA-core time for the same FLOPs {flops / FP32_FLOPS * 1e3:.4f} ms); "
+        f"bound {max(bytes_ms, ops_ms):.4f} ms ({moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
         "library_ms: none (no single PyTorch call computes this function)")
     return {
         "name": "causal_dot_norm", "route": "cuda",
         "source": "orion_tpu_torch/csrc/causal_dot_norm.cu",
         "replaces": "orion_tpu/ops/pallas/causal_dot.py:537",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": max(r["out_max_abs"] for r in readings), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
@@ -216,8 +239,8 @@ def main_path(dev, kernel_modules):
     # scale
     log(f"lm_1b3 prefill logits, kernel vs backend='torch': max abs {err:.4e} (tol 0.125), "
         f"max |logit| {float(ref_logits.abs().max()):.3f}, greedy agree {agree}/4; "
-        f"per-layer S max rel {s_err:.3e} (tol 5e-2)")
-    if err > 0.125 or s_err > 5e-2:
+        f"per-layer S max rel {s_err:.3e} (tol {LAYER_S_RTOL:g})")
+    if err > 0.125 or s_err > LAYER_S_RTOL:
         raise AssertionError("kernel-backed prefill disagrees with the plain version")
 
     # a small model end to end: the card against the CPU's plain path
@@ -255,7 +278,7 @@ def main() -> int:
     card_info()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     kernel_modules = [causal_dot]
-    build_all(kernel_modules)
+    build(causal_dot)
     kernels = [check_causal_dot(causal_dot, dev)]
     path = main_path(dev, kernel_modules)
     for k in kernels:

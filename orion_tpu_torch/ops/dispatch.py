@@ -1,8 +1,9 @@
-"""Backend names for the port's kernel-backed ops.
+"""Backend choice for the port's kernel-backed ops.
 
-``"auto"`` takes the kernel for CUDA tensors and the plain PyTorch version
-for CPU tensors, ``"torch"`` the plain version anywhere, ``"cuda"`` the
-kernel (which raises for CPU tensors). The JAX package's chunk defaults
+``resolve`` makes the one choice between the CUDA kernel and its plain
+PyTorch version. ``"auto"`` takes the kernel for CUDA tensors and the plain
+version for CPU tensors, ``"torch"`` the plain version anywhere, ``"cuda"``
+the kernel (which raises for CPU tensors). The JAX package's chunk defaults
 (``orion_tpu/ops/dispatch.py``) were tuned for the TPU's matrix unit and are
 not copied: the kernel's chunk is a constant of the kernel source, and the
 plain chunked form takes ``DEFAULT_CHUNK`` unless the caller names one.
@@ -12,6 +13,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from orion_tpu_torch.models.configs import BACKENDS
 
 # Plain chunked form's default chunk: equal to the CUDA kernel's own chunk
@@ -19,10 +22,13 @@ from orion_tpu_torch.models.configs import BACKENDS
 DEFAULT_CHUNK = 64
 
 
-def resolve(backend: str) -> str:
-    """Validate a backend name (``"auto" | "torch" | "cuda"``)."""
+def resolve(backend: str, device: torch.device) -> str:
+    """``"torch"`` (plain version) or ``"cuda"`` (kernel) for tensors on
+    ``device``, from a backend name (``"auto" | "torch" | "cuda"``)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "auto":
+        return "torch" if device.type == "cpu" else "cuda"
     return backend
 
 

@@ -15,10 +15,11 @@ The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
 edited source is rebuilt) and loaded with ``ctypes``. Nothing here touches
 CUDA while the module is imported.
 
-``causal_dot_norm`` is what ``backend="auto"`` calls: the plain version for
-CPU tensors, the kernel for CUDA tensors. ``causal_dot_norm_cuda`` launches
-the kernel or raises; ``causal_dot_norm_plain`` is the plain version on any
-device. ``launches`` counts kernel launches and nothing else.
+``causal_dot_norm_cuda`` launches the kernel or raises;
+``causal_dot_norm_plain`` is the plain version on any device.
+``ops/linear_attention.py::linear_attention`` chooses between them
+(``ops/dispatch.py::resolve``). ``launches`` counts kernel launches and
+nothing else.
 """
 
 from __future__ import annotations
@@ -136,15 +137,13 @@ def _check(q: Tensor, k: Tensor, v: Tensor, s0: Optional[Tensor], z0: Optional[T
 def causal_dot_norm_cuda(
     q: Tensor, k: Tensor, v: Tensor,
     s0: Optional[Tensor] = None, z0: Optional[Tensor] = None,
-    *, eps: float = 1e-6, chunk: Optional[int] = None,
+    *, eps: float = 1e-6,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch the kernel on the current stream -> (out, S, z). Raises on
     anything it does not take: CPU tensors, mixed devices, a dtype other
-    than bf16/fp32, non-contiguous inputs, Dk > 128. ``chunk`` is accepted
-    for signature parity with the plain version and ignored: the kernel's
-    chunk is a constant of its source."""
+    than bf16/fp32, non-contiguous inputs, Dk > 128. The kernel's chunk is
+    a constant of its source."""
     global launches
-    del chunk
     _check(q, k, v, s0, z0)
     tensors = [q, k, v] + ([s0, z0] if s0 is not None else [])
     if q.device.type != "cuda":
@@ -200,17 +199,4 @@ def causal_dot_norm_plain(
     return (num / (den + eps)).to(q.dtype), sf, zf
 
 
-def causal_dot_norm(
-    q: Tensor, k: Tensor, v: Tensor,
-    s0: Optional[Tensor] = None, z0: Optional[Tensor] = None,
-    *, eps: float = 1e-6, chunk: Optional[int] = None,
-) -> Tuple[Tensor, Tensor, Tensor]:
-    """The plain version for a CPU tensor, the kernel otherwise."""
-    fn = causal_dot_norm_plain if q.device.type == "cpu" else causal_dot_norm_cuda
-    return fn(q, k, v, s0, z0, eps=eps, chunk=chunk)
-
-
-__all__ = [
-    "causal_dot_norm", "causal_dot_norm_cuda", "causal_dot_norm_plain",
-    "build", "launches", "SOURCE",
-]
+__all__ = ["causal_dot_norm_cuda", "causal_dot_norm_plain", "build", "launches", "SOURCE"]

@@ -180,7 +180,6 @@ def linear_attention(
     """
     from orion_tpu_torch.ops.kernels import causal_dot
 
-    b = resolve(backend)
     batch_shape = q.shape[:-2]
     t, dk, dv = q.shape[-2], q.shape[-1], v.shape[-1]
     qf = q.reshape(-1, t, dk).contiguous()
@@ -191,13 +190,10 @@ def linear_attention(
         s0 = initial_state[0].float().reshape(-1, dk, dv).contiguous()
         z0 = initial_state[1].float().reshape(-1, dk).contiguous()
 
-    if b == "torch":
-        fn = causal_dot.causal_dot_norm_plain
-    elif b == "cuda":
-        fn = causal_dot.causal_dot_norm_cuda
+    if resolve(backend, q.device) == "torch":
+        out, sf, zf = causal_dot.causal_dot_norm_plain(qf, kf, vf, s0, z0, eps=eps, chunk=chunk)
     else:
-        fn = causal_dot.causal_dot_norm
-    out, sf, zf = fn(qf, kf, vf, s0, z0, eps=eps, chunk=chunk)
+        out, sf, zf = causal_dot.causal_dot_norm_cuda(qf, kf, vf, s0, z0, eps=eps)
     out = out.reshape(*batch_shape, t, dv)
     if return_state:
         return out, (sf.reshape(*batch_shape, dk, dv), zf.reshape(*batch_shape, dk))

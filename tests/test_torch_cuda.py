@@ -6,7 +6,8 @@ fixture, never at import). On a machine with one:
     python -m pytest tests/test_torch_cuda.py -m cuda
 
 Tolerances: fp32 outputs to 1e-4 relative (sums in another order); bf16
-outputs to one bf16 rounding step plus 2e-2 absolute; fp32 states to 1e-4 of
+outputs to one bf16 rounding step (2^-7 relative) plus 1e-4 absolute for
+elements near zero, the limits of ``chip_smoke.py``; fp32 states to 1e-4 of
 their largest magnitude.
 """
 
@@ -46,11 +47,11 @@ def test_causal_dot_norm_matches_plain(dev, dtype, bh, t, dk, dv, state):
         s0 = torch.randn(bh, dk, dv, device=dev, generator=g)
         z0 = torch.rand(bh, dk, device=dev, generator=g) * 10
     before = causal_dot.launches
-    out, s, z = causal_dot.causal_dot_norm(q, k, v, s0, z0)
+    out, s, z = causal_dot.causal_dot_norm_cuda(q, k, v, s0, z0)
     assert causal_dot.launches == before + 1
     r_out, r_s, r_z = causal_dot.causal_dot_norm_plain(q, k, v, s0, z0)
     if dtype == torch.bfloat16:
-        torch.testing.assert_close(out.float(), r_out.float(), rtol=2**-7, atol=2e-2)
+        torch.testing.assert_close(out.float(), r_out.float(), rtol=2**-7, atol=1e-4)
     else:
         torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
     for got, ref in ((s, r_s), (z, r_z)):
