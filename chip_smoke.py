@@ -8,18 +8,31 @@ package. Phases, each of which raises on failure (the exit code is then
 nonzero and no result line is printed):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the kernel library from the source in the checkout, and time
-   the build;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shape and at ragged and one-token lengths, and time both;
-4. the main path: ``orion_tpu_torch.generate.generate`` on ``lm_1b3`` at
-   full width (seeded random weights), 4 prompts of 1024 byte tokens, 32
+2. build the kernel libraries from the sources in the checkout, one nvcc
+   for each source, all started together; print ptxas' register and spill
+   lines;
+3. hold each kernel against its plain PyTorch version on the card: the
+   forward at the generate path's shape (B 4), then the forward with its
+   training outputs and the two backward kernels at the training shape
+   (B 8), each at T 1024, a ragged 1000 and 1, with and without an initial
+   state and final-state cotangents; time every kernel and its plain
+   version and print the bound;
+4. the generate path: ``orion_tpu_torch.generate.generate`` on ``lm_1b3``
+   at full width (seeded random weights), 4 prompts of 1024 byte tokens, 32
    greedy new tokens, with every kernel's launch count reset just before and
    read just after; the prefill's logits against a ``backend="torch"`` run
    of the same weights on the card; and ``tiny`` on the card against the
    same model on the CPU, whose plain path the CPU tests hold against the
    JAX package;
-5. a ``kernels`` JSON line, then the result line
+5. the training path: ``Trainer`` on ``lm_1b3`` at full width, synthetic
+   data, batch 8 x 1024, AdamW, remat as the config sets it, 1 warm-up and
+   3 timed steps, with the counts reset just before and read after every
+   step (each step must launch the forward 24 + 20 times, the last for the
+   rematerialized blocks, and each backward kernel 24 times); then one
+   batch's loss and gradients through the kernels against
+   ``backend="torch"`` on the same weights (every parameter must get a
+   gradient); then 3 ``tiny`` fp32 steps on the card against the CPU;
+6. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -28,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +64,29 @@ STATE_RTOL = 1e-4  # of the state's largest magnitude
 # lm_1b3's per-layer S after the kernel-backed prefill against the plain
 # one: each layer's input differs by the bf16 roundings of the layers below
 LAYER_S_RTOL = 5e-3
+# The backward kernels against their plain versions, on the same inputs.
+# dq, dk, dv (bf16): both sum exact products in fp32 and round once, so a
+# value lands on the plain version's bf16 neighbour at worst (2^-7 |ref|).
+# Beside it an absolute term for elements near zero, where the numerator's
+# and the denominator's parts cancel: the fp32 sums run over some 200 terms
+# that may be 100x the result, so the order of summation moves them by
+# about sqrt(200) x 2^-24 x 100 max|ref| ~ 1e-5 max|ref|; the limit allows
+# 1e-4 max|ref|. num, den, dS0, dz0 (fp32): sums in another order, within
+# 1e-4 of their largest magnitude. ``kernel_mutants.py`` shows which wrong
+# kernels these limits reject.
+GRAD_RTOL, GRAD_ATOL_OF_MAX = 2**-7, 1e-4
+# lm_1b3's loss and parameter gradients through the kernels against
+# backend="torch" (autograd through the plain chunked form) on one batch.
+# The kernel path rounds each layer's attention output to bf16 from sums in
+# another order (forward), and rounds d out / d num to bf16 before the
+# backward products, as the JAX package does (the plain path keeps it
+# fp32): about 2^-9 relative per element, averaged over the 8192 tokens
+# each weight gradient sums, and carried through 24 layers. Limits: the
+# loss within 1e-2 absolute (a mean of 8192 token losses near 10.4), every
+# parameter's gradient within 5e-2 of its norm (relative L2 error).
+LM_LOSS_ATOL, LM_GRAD_REL_L2 = 1e-2, 5e-2
+# tiny fp32, 3 training steps: the card's loss sequence against the CPU's
+TINY_LOSS_ATOL = 1e-4
 
 
 def log(*a):
@@ -86,13 +123,22 @@ def card_info():
     log(line)
 
 
-def build(cd):
-    t = time.perf_counter()
-    path, out = cd.build()
-    log(f"built {path.name} from {cd.SOURCE.relative_to(ROOT)} in {time.perf_counter() - t:.1f} s")
-    for line in out.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("  ptxas:", line.strip())
+def build(cd, names=None):
+    """Build the kernel libraries, one nvcc for each source, all started
+    together; print each build's time and ptxas lines."""
+    names = list(cd.SOURCES) if names is None else names
+
+    def one(name):
+        t = time.perf_counter()
+        path, out = cd.build(cd.SOURCES[name])
+        return name, path, out, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        for name, path, out, sec in pool.map(one, names):
+            log(f"built {path.name} from {cd.SOURCES[name].relative_to(ROOT)} in {sec:.1f} s")
+            for line in out.splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log("  ptxas:", line.strip())
 
 
 def _rel(got, ref):
@@ -146,6 +192,11 @@ def agrees(r):
             and r["s_rel"] <= STATE_RTOL and r["z_rel"] <= STATE_RTOL)
 
 
+def _bound(moved, flops):
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def check_causal_dot(cd, dev):
     readings, (q, k, v) = compare_causal_dot(cd, dev)
     for r in readings:
@@ -165,22 +216,165 @@ def check_causal_dot(cd, dev):
     moved = 3 * q.numel() * q.element_size() + v.numel() * 2 + bh * dk * dv * 4 + bh * dk * 4
     chunk = 64
     flops = 2 * bh * t * (chunk * dk + chunk * dv + 2 * dk * dv)
-    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    log(f"causal_dot_norm timing B4 H16 T1024 D128 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {max(bytes_ms, ops_ms):.4f} ms ({moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
-        "library_ms: none (no single PyTorch call computes this function)")
+    bound_ms, bound_by = _bound(moved, flops)
+    log(f"causal_dot_norm timing B4 H16 T1024 D128 bf16 (generate): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP); library_ms: none (no single PyTorch call computes this "
+        "function)")
+
+
+def _grad_reading(got, ref):
+    """A bf16 gradient against its plain version: the largest |got - ref|,
+    and as a share of the limit GRAD_ATOL_OF_MAX max|ref| + GRAD_RTOL |ref|
+    (above 1 fails); ``atol_needed``: the smallest absolute term, as a share
+    of max|ref|, that this tensor alone would need beside GRAD_RTOL."""
+    diff, r = (got.float() - ref.float()).abs(), ref.float().abs()
+    rmax = float(r.max().clamp_min(1e-30))
     return {
-        "name": "causal_dot_norm", "route": "cuda",
-        "source": "orion_tpu_torch/csrc/causal_dot_norm.cu",
-        "replaces": "orion_tpu/ops/pallas/causal_dot.py:537",
-        "max_abs_err": max(r["out_max_abs"] for r in readings), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        "max_abs": float(diff.max()), "ref_max_abs": rmax,
+        "over_limit": float((diff / (GRAD_ATOL_OF_MAX * rmax + GRAD_RTOL * r)).max()),
+        "atol_needed": float((diff - GRAD_RTOL * r).clamp_min(0).max()) / rmax,
+        "well_formed": got.shape == ref.shape and got.dtype == ref.dtype
+        and bool(torch.isfinite(got.float()).all()),
     }
 
 
-def main_path(dev, kernel_modules):
+def _training_case(g, dev, b, h, t, with_state):
+    """Inputs of one linear layer's training step at D 128, bf16: q, k
+    phi-mapped, v, the output's cotangent; with ``with_state`` also an
+    initial state (a 256-token prefix's) and cotangents of the final state
+    at the scale of what the walk itself accumulates (about 0.05)."""
+    bh, d = b * h, 128
+
+    def phi(x):
+        return torch.nn.functional.elu(x) + 1.0
+
+    q = phi(torch.randn(bh, t, d, device=dev, generator=g)).bfloat16()
+    k = phi(torch.randn(bh, t, d, device=dev, generator=g)).bfloat16()
+    v = torch.randn(bh, t, d, device=dev, generator=g).bfloat16()
+    gout = torch.randn(bh, t, d, device=dev, generator=g).bfloat16()
+    s0 = z0 = gsf = gzf = None
+    if with_state:
+        kp = phi(torch.randn(bh, 256, d, device=dev, generator=g)).bfloat16().float()
+        vp = torch.randn(bh, 256, d, device=dev, generator=g).bfloat16().float()
+        s0, z0 = kp.transpose(1, 2) @ vp, kp.sum(1)
+        gsf = 0.05 * torch.randn(bh, d, d, device=dev, generator=g)
+        gzf = 0.05 * torch.randn(bh, d, device=dev, generator=g)
+    return q, k, v, gout, s0, z0, gsf, gzf
+
+
+def compare_training_kernels(cd, dev):
+    """Rows 1 (with its training outputs num, den), 3 and 4 against their
+    plain versions on the card, at the lm_1b3 training shape (B 8, H 16, D
+    128, bf16): T 1024, a ragged 1000 and 1, each without and with an
+    initial state and final-state cotangents. The backward kernels and their
+    plain versions take the same inputs: the plain forward's num and den
+    through ``quotient_rule``. Returns one reading per case and the first
+    case's backward inputs."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    readings, first = [], None
+    for t in (1024, 1000, 1):
+        for with_state in (False, True):
+            q, k, v, gout, s0, z0, gsf, gzf = _training_case(g, dev, 8, 16, t, with_state)
+            out, sf, zf, num, den = cd.causal_dot_norm_cuda(q, k, v, s0, z0, with_parts=True)
+            r_out, r_sf, r_zf, r_num, r_den = cd.causal_dot_norm_plain(
+                q, k, v, s0, z0, with_parts=True)
+            gnum, gden = cd.quotient_rule(gout, r_num, r_den, 1e-6, q.dtype)
+            dq = cd.causal_dot_dq_den_cuda(gnum, v, k, gden, s0, z0)
+            dk, dv, ds0, dz0 = cd.causal_dot_rev_den_cuda(q, k, v, gnum, gden, gsf, gzf)
+            torch.cuda.synchronize()
+            r_dq = cd.causal_dot_dq_den_plain(gnum, v, k, gden, s0, z0)
+            r_dk, r_dv, r_ds0, r_dz0 = cd.causal_dot_rev_den_plain(q, k, v, gnum, gden, gsf, gzf)
+            readings.append({
+                "case": f"B8 H16 T{t} D128 bf16 state={with_state}",
+                "out": _grad_reading(out, r_out),
+                "num_rel": _rel(num, r_num), "den_rel": _rel(den, r_den),
+                "dq": _grad_reading(dq, r_dq), "dk": _grad_reading(dk, r_dk),
+                "dv": _grad_reading(dv, r_dv),
+                "ds0_rel": _rel(ds0, r_ds0), "dz0_rel": _rel(dz0, r_dz0),
+                "states_finite": all(bool(torch.isfinite(x).all()) for x in (num, den, ds0, dz0)),
+            })
+            if first is None:
+                first = (q, k, v, gnum, gden)
+    return readings, first
+
+
+def agrees_training(r):
+    return (r["states_finite"] and r["out"]["well_formed"]
+            and all(r[n]["well_formed"] and r[n]["over_limit"] <= 1.0 for n in ("dq", "dk", "dv"))
+            and r["out"]["max_abs"] <= OUT_ATOL + OUT_RTOL * r["out"]["ref_max_abs"]
+            and max(r["num_rel"], r["den_rel"], r["ds0_rel"], r["dz0_rel"]) <= STATE_RTOL)
+
+
+def check_training_kernels(cd, dev):
+    readings, (q, k, v, gnum, gden) = compare_training_kernels(cd, dev)
+    for r in readings:
+        log(f"training kernels {r['case']}: "
+            + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
+                        f"limit, needs atol {r[n]['atol_needed']:.2e} max|ref|)"
+                        for n in ("dq", "dk", "dv"))
+            + f"; out max abs {r['out']['max_abs']:.3e}; rel: num {r['num_rel']:.2e} "
+            f"den {r['den_rel']:.2e} dS0 {r['ds0_rel']:.2e} dz0 {r['dz0_rel']:.2e} "
+            f"(limit {STATE_RTOL:g})")
+        if not agrees_training(r):
+            raise AssertionError(f"a training kernel disagrees with its plain version: {r}")
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    c, act, f32 = 64, q.numel() * q.element_size(), 4
+    ops = 2 * bh * t * (c * dk + c * dv + 2 * dk * dv)  # one chunk walk's products
+    lines = []
+    with torch.no_grad():
+        specs = [
+            ("causal_dot_norm", "orion_tpu_torch/csrc/causal_dot_norm.cu",
+             "orion_tpu/ops/pallas/causal_dot.py:537",
+             lambda: cd.causal_dot_norm_cuda(q, k, v, with_parts=True),
+             lambda: cd.causal_dot_norm_plain(q, k, v, with_parts=True),
+             # q, k, v read; out, S, z, num, den written
+             4 * act + bh * dk * dv * f32 + bh * dk * f32 + bh * t * dv * f32 + bh * t * f32,
+             ops),
+            ("causal_dot_dq_den", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
+             "orion_tpu/ops/pallas/causal_dot.py:298",
+             lambda: cd.causal_dot_dq_den_cuda(gnum, v, k, gden),
+             lambda: cd.causal_dot_dq_den_plain(gnum, v, k, gden),
+             # g, v, k, gden read; dq written
+             4 * act + bh * t * f32, ops),
+            ("causal_dot_rev_den", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
+             "orion_tpu/ops/pallas/causal_dot.py:335",
+             lambda: cd.causal_dot_rev_den_cuda(q, k, v, gnum, gden),
+             lambda: cd.causal_dot_rev_den_plain(q, k, v, gnum, gden),
+             # q, k, v, g, gden read; dk, dv, dS0, dz0 written
+             6 * act + bh * t * f32 + bh * dk * dv * f32 + bh * dk * f32, 2 * ops),
+        ]
+        for name, source, replaces, kernel, plain, moved, flops in specs:
+            ms = cuda_ms(kernel, 20)
+            plain_ms = cuda_ms(plain, 3)
+            bound_ms, bound_by = _bound(moved, flops)
+            log(f"{name} timing B8 H16 T1024 D128 bf16 (training): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                f"({moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+                "library_ms: none (no single PyTorch call computes this function)")
+            lines.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "max_abs_err": max(
+                    r[n]["max_abs"] for r in readings
+                    for n in ({"causal_dot_norm": ("out",), "causal_dot_dq_den": ("dq",)}
+                              .get(name, ("dk", "dv")))),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None,
+            })
+    return lines
+
+
+def _counts(cd):
+    return {"causal_dot_norm": cd.launches, "causal_dot_dq_den": cd.launches_dq,
+            "causal_dot_rev_den": cd.launches_rev}
+
+
+def _reset_counts(cd):
+    cd.launches = cd.launches_dq = cd.launches_rev = 0
+
+
+def main_path(dev, cd):
     from orion_tpu_torch.generate import SampleConfig, cast_params_for_inference, generate
     from orion_tpu_torch.models.configs import TINY, get_config
     from orion_tpu_torch.models.transformer import TransformerLM
@@ -202,14 +396,14 @@ def main_path(dev, kernel_modules):
     generate(model, prompts[:, :128], 2, greedy)  # warm-up: cuBLAS plans, allocator
     prefill_runs = [wall_ms(lambda: generate(model, prompts, 1, greedy))[0] for _ in range(3)]
 
-    for m in kernel_modules:
-        m.launches = 0
+    _reset_counts(cd)
     gen_ms, out = wall_ms(lambda: generate(model, prompts, 32, greedy))
-    counts = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in kernel_modules}
-    log(f"main path launches: {counts}")
-    if counts["causal_dot"] != cfg.n_layers:
-        raise AssertionError(f"causal_dot_norm launched {counts['causal_dot']} times "
-                             f"in the prefill, want {cfg.n_layers} (one per layer)")
+    counts = _counts(cd)
+    log(f"generate path launches: {counts}")
+    want = {"causal_dot_norm": cfg.n_layers, "causal_dot_dq_den": 0, "causal_dot_rev_den": 0}
+    if counts != want:
+        raise AssertionError(f"generate launched {counts}, want {want} (the forward once "
+                             "per layer, in the prefill)")
     if out.shape != (4, 32) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"generate returned {tuple(out.shape)} / out-of-vocab tokens")
     prefill_ms = float(np.median(prefill_runs))
@@ -266,6 +460,130 @@ def main_path(dev, kernel_modules):
     }
 
 
+def train_path(dev, cd):
+    """lm_1b3 training at full width: 1 warm-up and 3 timed steps, with
+    exact launch counts per step."""
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.training.data import DataLoader, SyntheticDataset
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(model=get_config("lm_1b3"), steps=4, batch_size=8, seq_len=1024)
+    m = cfg.model
+    want = {"causal_dot_norm": m.n_layers + (m.n_layers - m.remat_skip),
+            "causal_dot_dq_den": m.n_layers, "causal_dot_rev_den": m.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"lm_1b3 trainer: {sum(p.numel() for p in trainer.params.values()) / 1e9:.3f} B fp32 "
+        f"params + AdamW state, init {time.perf_counter() - t0:.1f} s")
+    loader = DataLoader(SyntheticDataset(m.vocab_size, cfg.seq_len), cfg.batch_size,
+                        seed=cfg.seed, device=dev)
+    steps_ms, losses = [], []
+    _reset_counts(cd)
+    per_step, before = [], _counts(cd)
+    try:
+        for _ in range(4):
+            batch = next(loader)
+            ms, metrics = wall_ms(lambda: trainer.step(batch))
+            after = _counts(cd)
+            per_step.append({k: after[k] - before[k] for k in after})
+            before = after
+            steps_ms.append(ms)
+            losses.append(metrics["loss"])
+    finally:
+        loader.close()
+    counts = _counts(cd)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    timed = steps_ms[1:]
+    step_ms = float(np.mean(timed))
+    tokens_per_s = cfg.batch_size * cfg.seq_len / (step_ms / 1e3)
+    log(f"lm_1b3 train B8 T1024: step ms {[round(x, 2) for x in steps_ms]} (first is the "
+        f"warm-up), mean of the timed {step_ms:.2f} ms, {tokens_per_s:.0f} tokens/s, "
+        f"max memory allocated {peak_gib:.2f} GiB; losses {[round(x, 4) for x in losses]}")
+    log(f"train path launches per step: {per_step} (want {want} each)")
+    if any(s != want for s in per_step):
+        raise AssertionError(f"launches per training step {per_step}, want {want}")
+    if not all(np.isfinite(x) and 0.0 < x < 20.0 for x in losses):
+        raise AssertionError(f"training losses not finite or out of range: {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": counts, "per_step": per_step, "steps_ms": steps_ms, "step_ms": step_ms,
+            "tokens_per_s": tokens_per_s, "max_memory_gib": peak_gib, "losses": losses}
+
+
+def grad_check(dev):
+    """One batch's loss and every parameter's gradient through the kernels
+    (backend="cuda") against backend="torch", same weights, on the card."""
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.models.transformer import TransformerLM
+    from orion_tpu_torch.training.data import SyntheticDataset, device_batch
+    from orion_tpu_torch.training.trainer import lm_loss
+
+    cfg = get_config("lm_1b3")
+    batch = device_batch(SyntheticDataset(cfg.vocab_size, 1024), 0, 99, 8, dev)
+    grads, losses = {}, {}
+    weights = None
+    for backend in ("cuda", "torch"):
+        model = TransformerLM(dataclasses.replace(cfg, backend=backend), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(3))
+        if weights is None:
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        loss = lm_loss(model, batch)
+        loss.backward()
+        losses[backend] = float(loss.detach())
+        missing = [n for n, p in model.named_parameters() if p.grad is None]
+        if missing:
+            raise AssertionError(f"backend={backend}: no gradient for {missing[:5]} "
+                                 f"({len(missing)} params)")
+        grads[backend] = {n: p.grad for n, p in model.named_parameters()}
+        del model
+    rel = {n: float((g - grads["torch"][n]).norm() / grads["torch"][n].norm().clamp_min(1e-30))
+           for n, g in grads["cuda"].items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads["cuda"].values())
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    loss_err = abs(losses["cuda"] - losses["torch"])
+    by_kind = {}
+    for n, r in rel.items():
+        kind = n.split(".", 2)[-1] if n.startswith("blocks.") else n
+        by_kind[kind] = max(by_kind.get(kind, 0.0), r)
+    log(f"lm_1b3 grad check, kernels vs backend='torch': loss {losses['cuda']:.6f} vs "
+        f"{losses['torch']:.6f} (diff {loss_err:.3e}, limit {LM_LOSS_ATOL:g}); every one of "
+        f"{len(rel)} params has a gradient; relative L2 error, largest per kind "
+        f"{ {k: float(f'{v:.3e}') for k, v in by_kind.items()} } (limit {LM_GRAD_REL_L2:g}); "
+        f"worst {[(n, float(f'{r:.3e}')) for n, r in worst]}")
+    del grads
+    torch.cuda.empty_cache()
+    if not finite or loss_err > LM_LOSS_ATOL or worst[0][1] > LM_GRAD_REL_L2:
+        raise AssertionError("lm_1b3 gradients through the kernels disagree with backend='torch'")
+    return {"loss_abs_err": loss_err, "grad_rel_l2_max": worst[0][1], "by_kind": by_kind}
+
+
+def tiny_train(dev):
+    """3 fp32 training steps of ``tiny`` on the card and on the CPU from the
+    same weights and batches: the loss sequences must agree."""
+    from orion_tpu_torch.models.configs import TINY
+    from orion_tpu_torch.training.data import SyntheticDataset
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(model=TINY, steps=3, batch_size=4, seq_len=128, warmup_steps=1, lr=1e-3)
+    cpu, gpu = Trainer(cfg, device="cpu"), Trainer(cfg, device=dev)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    ds = SyntheticDataset(TINY.vocab_size, cfg.seq_len)
+    got, ref = [], []
+    for step in range(3):
+        b = torch.from_numpy(ds.batch(0, step, cfg.batch_size)).long()
+        got.append(gpu.step(b.to(dev))["loss"])
+        ref.append(cpu.step(b)["loss"])
+    err = max(abs(a - b) for a, b in zip(got, ref))
+    log(f"tiny fp32 train, card vs CPU: losses {got} vs {ref}, max diff {err:.3e} "
+        f"(limit {TINY_LOSS_ATOL:g})")
+    if err > TINY_LOSS_ATOL:
+        raise AssertionError("tiny training on the card disagrees with the CPU")
+    return {"loss_max_abs_err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -277,19 +595,22 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card_info()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    kernel_modules = [causal_dot]
     build(causal_dot)
-    kernels = [check_causal_dot(causal_dot, dev)]
-    path = main_path(dev, kernel_modules)
+    check_causal_dot(causal_dot, dev)
+    kernels = check_training_kernels(causal_dot, dev)
+    generate_path = main_path(dev, causal_dot)
+    train = train_path(dev, causal_dot)
+    grad_check(dev)
+    tiny_train(dev)
     for k in kernels:
-        k["launches"] = path["launches"]["causal_dot"]
-    line = {"kernels": [
+        k["launches"] = train["launches"][k["name"]]
+    kernels[0]["launches_generate"] = generate_path["launches"]["causal_dot_norm"]
+    log(json.dumps({"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces", "launches",
                                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")}
+                                 "library_ms", "launches_generate") if key in k}
         for k in kernels
-    ]}
-    log(json.dumps(line))
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,8 +9,11 @@
 //     S_T = S0 + sum_t k_t (x) v_t,  z_T = z0 + sum_t k_t   (fp32)
 //
 // with S_t, z_t the states through position t. The division is fused into
-// the epilogue: no fp32 numerator or denominator goes to device memory (the
-// TPU kernel writes both and divides in a second pass).
+// the epilogue. For inference no fp32 numerator or denominator goes to
+// device memory; training asks for them (optional fp32 num [BH, T, Dv] and
+// den [BH, T] = q_t . z_t, before eps, as the TPU kernel writes them), since
+// the backward (causal_dot_bwd.cu) takes them as its residuals. With null
+// num and den pointers the launch is the inference one.
 //
 // Design. On the TPU the chunk axis is a sequential grid axis and VMEM
 // scratch carries S from one grid step to the next. Blocks on an H100 run
@@ -73,6 +76,7 @@ __global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ s0, const float* __restrict__ z0,
     T* __restrict__ out, float* __restrict__ sf, float* __restrict__ zf,
+    float* __restrict__ num_out, float* __restrict__ den_out,
     int t_len, int dk, int dv, int n_tiles, float eps) {
   extern __shared__ float smem[];
   float* qs = smem;               // [C][LDQ]
@@ -187,17 +191,22 @@ __global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
     }
     __syncthreads();  // dens complete; every read of S and z is done
 
-    // 3c. epilogue: the division, in the input dtype
+    // 3c. epilogue: the division, in the input dtype; for training also
+    // the fp32 numerator (every tile) and denominator (tile 0)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int t = ty + 16 * i, col = tx + 16 * j;
         if (t < rows && col < dvt) {
-          out[v_base + (size_t)(c0 + t) * dv + j0 + col] =
-              from_f<T>(num[i][j] / (dens[t] + eps));
+          const size_t o = v_base + (size_t)(c0 + t) * dv + j0 + col;
+          out[o] = from_f<T>(num[i][j] / (dens[t] + eps));
+          if (num_out != nullptr) num_out[o] = num[i][j];
         }
       }
+    if (den_out != nullptr && tile == 0 && tid < rows) {
+      den_out[(size_t)bh * t_len + c0 + tid] = dens[tid];
+    }
 
     // 4. S += k^T v (rows ty + 16i of S, columns tx + 16j), z += sum_s k_s
     {
@@ -237,8 +246,9 @@ __global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* s0,
-                   const float* z0, void* out, float* sf, float* zf, int bh, int t,
-                   int dk, int dv, float eps, cudaStream_t stream) {
+                   const float* z0, void* out, float* sf, float* zf, float* num,
+                   float* den, int bh, int t, int dk, int dv, float eps,
+                   cudaStream_t stream) {
   const int n_tiles = (dv + DVT - 1) / DVT;
   const long long blocks = (long long)bh * n_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -248,26 +258,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* s0,
   if (err != cudaSuccess) return err;
   causal_dot_norm_kernel<T><<<(unsigned)blocks, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      s0, z0, static_cast<T*>(out), sf, zf, t, dk, dv, n_tiles, eps);
+      s0, z0, static_cast<T*>(out), sf, zf, num, den, t, dk, dv, n_tiles, eps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, out: bf16 when is_bf16 else fp32. s0, z0: nullptr for a zero
-// initial state. Returns the cudaError_t of the launch (0 on success).
+// initial state. num [BH, T, Dv], den [BH, T] (fp32): nullptr unless the
+// caller trains. Returns the cudaError_t of the launch (0 on success).
 extern "C" int causal_dot_norm_fwd(const void* q, const void* k, const void* v,
                                    const void* s0, const void* z0, void* out, void* sf,
-                                   void* zf, int bh, int t, int dk, int dv, int is_bf16,
-                                   float eps, void* stream) {
+                                   void* zf, void* num, void* den, int bh, int t, int dk,
+                                   int dv, int is_bf16, float eps, void* stream) {
   if (bh < 1 || t < 1 || dk < 1 || dk > DK_MAX || dv < 1) return (int)cudaErrorInvalidValue;
   const float* s0f = static_cast<const float*>(s0);
   const float* z0f = static_cast<const float*>(z0);
   float* sff = static_cast<float*>(sf);
   float* zff = static_cast<float*>(zf);
+  float* numf = static_cast<float*>(num);
+  float* denf = static_cast<float*>(den);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, s0f, z0f, out, sff, zff, bh, t, dk, dv, eps, st)
-              : launch<float>(q, k, v, s0f, z0f, out, sff, zff, bh, t, dk, dv, eps, st);
+      is_bf16 ? launch<__nv_bfloat16>(q, k, v, s0f, z0f, out, sff, zff, numf, denf, bh, t,
+                                      dk, dv, eps, st)
+              : launch<float>(q, k, v, s0f, z0f, out, sff, zff, numf, denf, bh, t, dk, dv,
+                              eps, st);
   return (int)err;
 }

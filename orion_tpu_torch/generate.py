@@ -12,9 +12,10 @@ The port's counterpart of ``orion_tpu/generate.py``:
    so sampled tokens match the JAX package's only in distribution; greedy
    tokens match exactly.
 
-Without a checkpoint the weights come from a seeded init (loading a
-checkpoint arrives with the training slice; ``convert.load_jax_params``
-takes a flax parameter tree).
+Without a checkpoint the weights come from a seeded init. Loading one is
+not ported yet (ROADMAP.md queue A, item 5: the JAX package's orbax
+checkpoints, and the port's own from ``orion_tpu_torch.train``);
+``convert.load_jax_params`` takes a flax parameter tree.
 """
 
 from __future__ import annotations

@@ -6,6 +6,13 @@ GELU MLP, RMSNorm, learned positions and a tied head. Three entry methods,
 as in the JAX package:
 
 - ``forward(tokens)``            -- the parallel forward -> logits [B, T, V];
+  ``features(tokens)`` is its input to the head, which the fused-CE training
+  loss (``ops/fused_ce.py``) takes with ``head_weight()``; with grad enabled
+  every layer's attention runs the kernel pair forward/backward
+  (``ops.linear_attention`` -> ``LinearAttentionFn``), blocks before the
+  last ``remat_skip`` are recomputed in the backward when ``cfg.remat``
+  (``torch.utils.checkpoint``), and ``deterministic=False`` applies block
+  dropout drawn from generators seeded per layer from ``dropout_seed``;
 - ``prefill(tokens)`` / ``prefill_last(tokens)`` -- the same forward, also
   returning each layer's decode state (S, z); every layer's attention runs
   through ``ops.linear_attention`` and so through the fused CUDA kernel on
@@ -16,13 +23,14 @@ Numerics follow the flax model (these are where parity breaks first):
 dense layers run in the compute dtype on weights rounded to it (flax
 ``Dense(dtype=bf16, param_dtype=f32)`` rounds the fp32 kernel at each call,
 so rounding once, ``generate.cast_params_for_inference``, is bitwise the
-same); RMSNorm takes its statistics in fp32 and casts the result; the two
+same; training keeps the fp32 params and rounds at each call, as flax
+does); RMSNorm takes its statistics in fp32 and casts the result; the two
 embeddings add in fp32 and then cast; the head multiplies bf16-rounded
 operands with fp32 accumulation into fp32 logits; (S, z) stay fp32.
 
 Not ported yet (they raise ``NotImplementedError`` naming ROADMAP.md's
 item): softmax and sliding-window layers, LayerNorm, an untied head, MoE,
-quantized weights, meshes.
+quantized weights, meshes, ``remat_policy="dots"``.
 """
 
 from __future__ import annotations
@@ -33,10 +41,12 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.ops.feature_maps import make_feature_map
 from orion_tpu_torch.ops.linear_attention import linear_attention, recurrent_step
+from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -211,20 +221,37 @@ class MLP(nn.Module):
         return self.down(y)
 
 
+def _dropout(x: Tensor, rate: float, gen: torch.Generator) -> Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale the
+    kept values by 1 / (1 - rate); a select, so a dropped inf is 0."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Block(nn.Module):
-    """Pre-norm residual block: x + attn(norm(x)); x + mlp(norm(x))."""
+    """Pre-norm residual block: x + drop(attn(norm(x))); x + drop(mlp(norm(x))).
+
+    Dropout (``cfg.dropout``) applies when ``dropout_seed`` is given: both
+    masks come from one generator seeded with it, so a recomputation under
+    ``checkpoint`` redraws the same masks."""
 
     def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None):
         super().__init__()
         cdt = _dtype(cfg.dtype)
+        self.rate = cfg.dropout
         self.norm1 = RMSNorm(cfg.d_model, cdt, device=device)
         self.attn = Attention(cfg, layer_type, device)
         self.norm2 = RMSNorm(cfg.d_model, cdt, device=device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x: Tensor) -> Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: Tensor, dropout_seed: Optional[int] = None) -> Tensor:
+        if dropout_seed is None or self.rate == 0.0:
+            x = x + self.attn(self.norm1(x))
+            return x + self.mlp(self.norm2(x))
+        gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
+        x = x + _dropout(self.attn(self.norm1(x)), self.rate, gen)
+        return x + _dropout(self.mlp(self.norm2(x)), self.rate, gen)
 
     def prefill(self, x: Tensor, length=None) -> Tuple[Tensor, State]:
         h, state = self.attn.prefill(self.norm1(x), length)
@@ -303,11 +330,15 @@ class TransformerLM(nn.Module):
 
     def _head_operand(self) -> Tensor:
         """The tied table rounded to the compute dtype, held in fp32 so the
-        head runs bf16 operands with fp32 accumulation. Cached; a change to
-        the table (load, in-place update, move) rebuilds it."""
+        head runs bf16 operands with fp32 accumulation. Cached for
+        inference; a change to the table (load, in-place update, move)
+        rebuilds it. When a gradient is wanted it is computed afresh, so the
+        gradient reaches the table."""
         w = self.embed.weight
         if self.cdt == torch.float32:
             return w
+        if torch.is_grad_enabled() and w.requires_grad:
+            return w.to(self.cdt).float()
         if w.is_inference():  # made under inference_mode: no version counter
             return w.to(self.cdt).float()
         key = (w.data_ptr(), w._version)
@@ -323,16 +354,43 @@ class TransformerLM(nn.Module):
     def _head(self, x: Tensor) -> Tensor:
         return self._head_matmul(self.final_norm(x))
 
-    def features(self, tokens: Tensor) -> Tensor:
-        """tokens [B, T] -> final-normed hidden states [B, T, D]."""
+    def features(
+        self, tokens: Tensor, deterministic: bool = True, dropout_seed: Optional[int] = None
+    ) -> Tensor:
+        """tokens [B, T] -> final-normed hidden states [B, T, D], the head's
+        input. ``deterministic=False`` applies dropout (``cfg.dropout``),
+        block i drawing from ``rng.fold(dropout_seed, i)``. With grad enabled
+        and ``cfg.remat``, blocks ``i < n_layers - remat_skip`` keep only
+        their input and are recomputed in the backward (the JAX model's
+        ``nn.remat`` with the "full" policy)."""
+        cfg = self.cfg
+        use_dropout = not deterministic and cfg.dropout > 0.0
+        if use_dropout and dropout_seed is None:
+            raise ValueError("deterministic=False needs a dropout_seed")
+        first_remat = cfg.n_layers - max(0, cfg.remat_skip) if cfg.remat else 0
+        if first_remat > 0 and torch.is_grad_enabled() and cfg.remat_policy != "full":
+            raise _not_ported(f"remat_policy={cfg.remat_policy!r}", "item 5 (training)")
         x = self._embed(tokens, torch.arange(tokens.shape[-1], device=tokens.device))
-        for blk in self.blocks:
-            x = blk(x)
+        for i, blk in enumerate(self.blocks):
+            seed = rngs.fold(dropout_seed, i) if use_dropout else None
+            if i < first_remat and torch.is_grad_enabled():
+                # the masks come from ``seed``, not the global RNG, so there
+                # is no RNG state to preserve for the recomputation
+                x = checkpoint(blk, x, seed, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = blk(x, seed)
         return self.final_norm(x)
 
-    def forward(self, tokens: Tensor) -> Tensor:
+    def head_weight(self) -> Tuple[Tensor, bool]:
+        """(head weight, w_is_vd) for ``ops/fused_ce.py``: the tied
+        embedding table [V, D] (the untied head is not ported)."""
+        return self.embed.weight, True
+
+    def forward(
+        self, tokens: Tensor, deterministic: bool = True, dropout_seed: Optional[int] = None
+    ) -> Tensor:
         """tokens [B, T] -> logits [B, T, V] (fp32)."""
-        return self._head_matmul(self.features(tokens))
+        return self._head_matmul(self.features(tokens, deterministic, dropout_seed))
 
     def _prefill_trunk(self, tokens: Tensor, length=None) -> Tuple[Tensor, List[State]]:
         x = self._embed(tokens, torch.arange(tokens.shape[-1], device=tokens.device))

@@ -1,25 +1,37 @@
-"""Fused normalized causal linear attention: the CUDA kernel's wrapper, its
-build, and its plain PyTorch version.
+"""Fused normalized causal linear attention: the CUDA kernels' wrappers,
+their builds, their plain PyTorch versions, and the autograd Function that
+joins forward and backward.
 
-The kernel (``orion_tpu_torch/csrc/causal_dot_norm.cu``) replaces the TPU
-kernel ``orion_tpu/ops/pallas/causal_dot.py::_kernel_norm`` (launched by
-``_cdpn_flat``): for phi-mapped q, k [BH, T, Dk] and v [BH, T, Dv] it writes
+Three kernels, each replacing a TPU kernel of
+``orion_tpu/ops/pallas/causal_dot.py``:
 
-    out[t] = q_t . S_t / (q_t . z_t + eps)      (input dtype)
-    S, z   = the final kv-cumsum state           (fp32)
+- ``causal_dot_norm_cuda`` (``csrc/causal_dot_norm.cu``) <- ``_kernel_norm``
+  (``_cdpn_flat``): for phi-mapped q, k [BH, T, Dk] and v [BH, T, Dv]
 
-seeded by an optional fp32 (S0 [BH, Dk, Dv], z0 [BH, Dk]).
+      out[t] = q_t . S_t / (q_t . z_t + eps)      (input dtype)
+      S, z   = the final kv-cumsum state           (fp32)
 
-The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``orion_tpu_torch/_build/`` (its name carries a hash of the source, so an
-edited source is rebuilt) and loaded with ``ctypes``. Nothing here touches
-CUDA while the module is imported.
+  seeded by an optional fp32 (S0 [BH, Dk, Dv], z0 [BH, Dk]); with
+  ``with_parts`` also the fp32 numerator [BH, T, Dv] and denominator
+  [BH, T] (before eps), the residuals of the backward;
+- ``causal_dot_dq_den_cuda`` (``csrc/causal_dot_bwd.cu``) <-
+  ``_bwd_dq_den_kernel`` (``_cdp_dq_den_flat``): dq;
+- ``causal_dot_rev_den_cuda`` (same source) <- ``_bwd_rev_core``
+  (``_cdp_rev_den_flat``): dk, dv, dS0, dz0.
 
-``causal_dot_norm_cuda`` launches the kernel or raises;
-``causal_dot_norm_plain`` is the plain version on any device.
-``ops/linear_attention.py::linear_attention`` chooses between them
-(``ops/dispatch.py::resolve``). ``launches`` counts kernel launches and
-nothing else.
+``LinearAttentionFn`` is the counterpart of the JAX package's
+``_lin_attn_fused`` custom VJP: the forward kernel, then in the backward the
+quotient rule in plain torch and the two backward kernels
+(``_fused_bwd_core``). The public functions keep the JAX layouts: S0, dS0
+[BH, Dk, Dv] and z0, dz0 [BH, Dk], fp32.
+
+Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
+launches (``launches``, ``launches_dq``, ``launches_rev``: kernel launches
+and nothing else). Each ``*_plain`` function is its kernel's function in
+plain PyTorch, on any device. The libraries are compiled with ``nvcc`` for
+``sm_90a`` at first use into ``orion_tpu_torch/_build/`` (a name carrying a
+hash of the source, so an edited source is rebuilt) and loaded with
+``ctypes``. Nothing here touches CUDA while the module is imported.
 """
 
 from __future__ import annotations
@@ -35,19 +47,34 @@ from typing import Optional, Tuple
 
 import torch
 
-from orion_tpu_torch.ops.dispatch import resolve_chunk
-from orion_tpu_torch.ops.linear_attention import causal_dot_product_chunked
+from orion_tpu_torch.ops.dispatch import DEFAULT_CHUNK, resolve_chunk
+from orion_tpu_torch.ops.linear_attention import _pad_chunks, causal_dot_product_chunked
 
 Tensor = torch.Tensor
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "causal_dot_norm.cu"
+# one library per source; "fwd" holds row 1, "bwd" rows 3 and 4
+SOURCES = {
+    "fwd": _PKG / "csrc" / "causal_dot_norm.cu",
+    "bwd": _PKG / "csrc" / "causal_dot_bwd.cu",
+}
 BUILD_DIR = _PKG / "_build"
-# kernel limits, as in the source: head width of q/k at most DK_MAX
-DK_MAX = 128
+# kernel limits, as in the sources: head widths of at most D_MAX
+D_MAX = 128
 
-launches = 0  # kernel launches since import (or since a caller reset it)
-_lib = None
+launches = 0  # forward kernel launches since import (or since a caller reset it)
+launches_dq = 0  # dq-pass kernel launches
+launches_rev = 0  # reverse-pass kernel launches
+_libs: dict = {}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "fwd": {"causal_dot_norm_fwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P]},
+    "bwd": {
+        "causal_dot_dq_den": [_P] * 7 + [_I] * 5 + [_P],
+        "causal_dot_rev_den": [_P] * 11 + [_I] * 5 + [_P],
+    },
+}
 
 
 def _nvcc() -> str:
@@ -57,27 +84,28 @@ def _nvcc() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the kernel builds on the card's host")
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the kernels build on the card's host")
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libcausal_dot_norm-{digest}.so"
+def _library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
-def _build_command(out: Path) -> list:
+def _build_command(source: Path, out: Path) -> list:
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(out), str(SOURCE),
+        "-o", str(out), str(source),
     ]
 
 
-def build() -> Tuple[Path, str]:
-    """Compile the library if this source has no build yet. Returns (path,
-    compiler output); the output is empty when the build already existed.
-    Writes to a temporary name and renames, so concurrent builds are safe."""
-    path = _library_path()
+def build(source: Path) -> Tuple[Path, str]:
+    """Compile ``source`` into a library if it has no build yet. Returns
+    (path, compiler output); the output is empty when the build already
+    existed. Writes to a temporary name and renames, so concurrent builds
+    are safe."""
+    path = _library_path(source)
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,11 +113,11 @@ def build() -> Tuple[Path, str]:
     os.close(fd)
     try:
         proc = subprocess.run(
-            _build_command(Path(tmp)), capture_output=True, text=True, timeout=600
+            _build_command(source, Path(tmp)), capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stdout}{proc.stderr}"
+                f"nvcc failed ({proc.returncode}) on {source}:\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, path)
     finally:
@@ -98,18 +126,59 @@ def build() -> Tuple[Path, str]:
     return path, proc.stdout + proc.stderr
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        path, _ = build()
+def _library(name: str):
+    if name not in _libs:
+        path, _ = build(SOURCES[name])
         lib = ctypes.CDLL(str(path))
-        fn = lib.causal_dot_norm_fwd
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _ptr(x: Optional[Tensor]):
+    return x.data_ptr() if x is not None else None
+
+
+def _raise_if_grad(*tensors):
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors):
+        raise RuntimeError(
+            "a CUDA kernel's output carries no gradient: call the kernel with grad "
+            "disabled, or go through ops.linear_attention.linear_attention / "
+            "LinearAttentionFn, whose backward runs the backward kernels"
+        )
+
+
+def _check_launch(fn_name: str, acts, fp32s):
+    """Checks every kernel wrapper makes before a launch: ``acts`` (the
+    activations) share bf16 or fp32, ``fp32s`` (states, gden; None for
+    absent ones) are fp32, all lie on one CUDA device, all contiguous."""
+    fp32s = [x for x in fp32s if x is not None]
+    tensors = list(acts) + fp32s
+    first = tensors[0]
+    if first.device.type != "cuda":
+        raise RuntimeError(
+            f"{fn_name} needs CUDA tensors; got {first.device} "
+            "(backend='torch' runs the plain version anywhere)"
+        )
+    if any(x.device != first.device for x in tensors):
+        raise ValueError("all inputs must lie on one device")
+    dt = acts[0].dtype
+    if dt not in (torch.bfloat16, torch.float32) or any(x.dtype != dt for x in acts):
+        raise TypeError(
+            f"{fn_name}: the activations must share dtype bf16 or fp32; got "
+            f"{[x.dtype for x in acts]}"
+        )
+    if any(x.dtype != torch.float32 for x in fp32s):
+        raise TypeError(f"{fn_name}: states and gden must be float32")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("inputs must be contiguous")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, s0: Optional[Tensor], z0: Optional[Tensor]):
@@ -122,71 +191,79 @@ def _check(q: Tensor, k: Tensor, v: Tensor, s0: Optional[Tensor], z0: Optional[T
     dv = v.shape[-1]
     if min(bh, t, dk, dv) < 1:
         raise ValueError(f"empty input {tuple(q.shape)}, {tuple(v.shape)}")
-    if (s0 is None) != (z0 is None):
-        raise ValueError("pass both of (s0, z0) or neither")
-    if s0 is not None:
-        if s0.shape != (bh, dk, dv) or z0.shape != (bh, dk):
+    _check_state(s0, z0, bh, dk, dv, "s0", "z0")
+
+
+def _check_state(s, z, bh, dk, dv, s_name, z_name):
+    if (s is None) != (z is None):
+        raise ValueError(f"pass both of ({s_name}, {z_name}) or neither")
+    if s is not None:
+        if s.shape != (bh, dk, dv) or z.shape != (bh, dk):
             raise ValueError(
-                f"want s0 {(bh, dk, dv)} and z0 {(bh, dk)}; got "
-                f"{tuple(s0.shape)}, {tuple(z0.shape)}"
+                f"want {s_name} {(bh, dk, dv)} and {z_name} {(bh, dk)}; got "
+                f"{tuple(s.shape)}, {tuple(z.shape)}"
             )
-        if s0.dtype != torch.float32 or z0.dtype != torch.float32:
-            raise TypeError("s0 and z0 must be float32")
+        if s.dtype != torch.float32 or z.dtype != torch.float32:
+            raise TypeError(f"{s_name} and {z_name} must be float32")
+
+
+def _check_gden(gden: Tensor, bh: int, t: int):
+    if gden.shape != (bh, t) or gden.dtype != torch.float32:
+        raise ValueError(f"want gden float32 {(bh, t)}; got {gden.dtype} {tuple(gden.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# Row 1: the forward
+# ---------------------------------------------------------------------------
 
 
 def causal_dot_norm_cuda(
     q: Tensor, k: Tensor, v: Tensor,
     s0: Optional[Tensor] = None, z0: Optional[Tensor] = None,
-    *, eps: float = 1e-6,
-) -> Tuple[Tensor, Tensor, Tensor]:
-    """Launch the kernel on the current stream -> (out, S, z). Raises on
-    anything it does not take: CPU tensors, mixed devices, a dtype other
-    than bf16/fp32, non-contiguous inputs, Dk > 128. The kernel's chunk is
-    a constant of its source."""
+    *, eps: float = 1e-6, with_parts: bool = False,
+):
+    """Launch the forward kernel on the current stream -> (out, S, z), and
+    with ``with_parts`` also (num, den). Raises on anything it does not
+    take: an input that requires grad while grad is enabled (the outputs
+    would carry none), CPU tensors, mixed devices, a dtype other than
+    bf16/fp32, non-contiguous inputs, Dk > 128. The kernel's chunk is a
+    constant of its source."""
     global launches
+    _raise_if_grad(q, k, v, s0, z0)
     _check(q, k, v, s0, z0)
-    tensors = [q, k, v] + ([s0, z0] if s0 is not None else [])
-    if q.device.type != "cuda":
-        raise RuntimeError(
-            f"causal_dot_norm_cuda needs CUDA tensors; got {q.device} "
-            "(backend='torch' runs the plain version anywhere)"
-        )
-    if any(x.device != q.device for x in tensors):
-        raise ValueError("all inputs must lie on one device")
-    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share dtype bf16 or fp32; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("inputs must be contiguous")
+    _check_launch("causal_dot_norm_cuda", [q, k, v], [s0, z0])
     bh, t, dk = q.shape
     dv = v.shape[-1]
-    if dk > DK_MAX:
-        raise ValueError(f"Dk {dk} > {DK_MAX}, the kernel's limit")
+    if dk > D_MAX:
+        raise ValueError(f"Dk {dk} > {D_MAX}, the kernel's limit")
     out = torch.empty_like(v)
     sf = torch.empty(bh, dk, dv, dtype=torch.float32, device=q.device)
     zf = torch.empty(bh, dk, dtype=torch.float32, device=q.device)
-    lib = _library()
+    num = den = None
+    if with_parts:
+        num = torch.empty(bh, t, dv, dtype=torch.float32, device=q.device)
+        den = torch.empty(bh, t, dtype=torch.float32, device=q.device)
+    lib = _library("fwd")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.causal_dot_norm_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            s0.data_ptr() if s0 is not None else None,
-            z0.data_ptr() if z0 is not None else None,
-            out.data_ptr(), sf.data_ptr(), zf.data_ptr(),
-            bh, t, dk, dv, int(q.dtype == torch.bfloat16), eps, stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(s0), _ptr(z0),
+            out.data_ptr(), sf.data_ptr(), zf.data_ptr(), _ptr(num), _ptr(den),
+            bh, t, dk, dv, int(q.dtype == torch.bfloat16), eps, _stream(q.device),
         )
     if err != 0:
         raise RuntimeError(f"causal_dot_norm kernel failed: cudaError_t {err}")
     launches += 1
-    return out, sf, zf
+    return (out, sf, zf, num, den) if with_parts else (out, sf, zf)
 
 
 def causal_dot_norm_plain(
     q: Tensor, k: Tensor, v: Tensor,
     s0: Optional[Tensor] = None, z0: Optional[Tensor] = None,
-    *, eps: float = 1e-6, chunk: Optional[int] = None,
-) -> Tuple[Tensor, Tensor, Tensor]:
-    """The kernel's function in plain PyTorch (the chunked form with the
-    strict-left-fold normalizer), on any device -> (out, S, z)."""
+    *, eps: float = 1e-6, chunk: Optional[int] = None, with_parts: bool = False,
+):
+    """The forward kernel's function in plain PyTorch (the chunked form with
+    the strict-left-fold normalizer), on any device -> (out, S, z), and
+    with ``with_parts`` also (num, den). Differentiable by autograd."""
     _check(q, k, v, s0, z0)
     qf = q.float()
     # fp32 operands, so the numerator stays fp32 up to the one final
@@ -195,8 +272,227 @@ def causal_dot_norm_plain(
         qf, k.float(), v.float(), chunk=resolve_chunk(chunk),
         initial_state=s0, initial_z=z0, return_zcum=True,
     )
-    den = (qf * zcum).sum(dim=-1, keepdim=True)
-    return (num / (den + eps)).to(q.dtype), sf, zf
+    den = (qf * zcum).sum(dim=-1)
+    out = (num / (den[..., None] + eps)).to(q.dtype)
+    return (out, sf, zf, num, den) if with_parts else (out, sf, zf)
 
 
-__all__ = ["causal_dot_norm_cuda", "causal_dot_norm_plain", "build", "launches", "SOURCE"]
+# ---------------------------------------------------------------------------
+# Rows 3 and 4: the backward passes
+# ---------------------------------------------------------------------------
+
+
+def _check_bwd(g, v, k, q=None):
+    if g.dim() != 3 or v.shape != g.shape or k.dim() != 3 or k.shape[:2] != g.shape[:2]:
+        raise ValueError(
+            f"want g, v [BH, T, Dv] and k [BH, T, Dk]; got {tuple(g.shape)}, "
+            f"{tuple(v.shape)}, {tuple(k.shape)}"
+        )
+    if q is not None and q.shape != k.shape:
+        raise ValueError(f"want q like k {tuple(k.shape)}; got {tuple(q.shape)}")
+    bh, t, dv = g.shape
+    dk = k.shape[-1]
+    if min(bh, t, dk, dv) < 1:
+        raise ValueError(f"empty input {tuple(g.shape)}, {tuple(k.shape)}")
+    return bh, t, dk, dv
+
+
+def causal_dot_dq_den_cuda(
+    g: Tensor, v: Tensor, k: Tensor, gden: Tensor,
+    s0: Optional[Tensor] = None, z0: Optional[Tensor] = None,
+) -> Tensor:
+    """Launch the dq-pass kernel on the current stream -> dq [BH, T, Dk] in
+    g's dtype: g = d out / d num in the input dtype [BH, T, Dv], gden =
+    d out / d den [BH, T] fp32, (s0, z0) the forward's initial state. Raises
+    on anything it does not take, as ``causal_dot_norm_cuda``."""
+    global launches_dq
+    bh, t, dk, dv = _check_bwd(g, v, k)
+    _check_gden(gden, bh, t)
+    _check_state(s0, z0, bh, dk, dv, "s0", "z0")
+    _check_launch("causal_dot_dq_den_cuda", [g, v, k], [gden, s0, z0])
+    if dv > D_MAX:
+        raise ValueError(f"Dv {dv} > {D_MAX}, the kernel's limit")
+    dq = torch.empty_like(k)
+    lib = _library("bwd")
+    with torch.cuda.device(g.device):
+        err = lib.causal_dot_dq_den(
+            g.data_ptr(), v.data_ptr(), k.data_ptr(), gden.data_ptr(), _ptr(s0), _ptr(z0),
+            dq.data_ptr(), bh, t, dk, dv, int(g.dtype == torch.bfloat16), _stream(g.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"causal_dot_dq_den kernel failed: cudaError_t {err}")
+    launches_dq += 1
+    return dq
+
+
+def causal_dot_rev_den_cuda(
+    q: Tensor, k: Tensor, v: Tensor, g: Tensor, gden: Tensor,
+    gsf: Optional[Tensor] = None, gzf: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Launch the reverse-pass kernel on the current stream -> (dk, dv in
+    the input dtype, dS0 [BH, Dk, Dv], dz0 [BH, Dk] fp32). (gsf, gzf) are
+    the cotangents of the forward's final state, None for zeros. Raises on
+    anything it does not take, as ``causal_dot_norm_cuda``."""
+    global launches_rev
+    bh, t, dk, dv = _check_bwd(g, v, k, q)
+    _check_gden(gden, bh, t)
+    _check_state(gsf, gzf, bh, dk, dv, "gsf", "gzf")
+    _check_launch("causal_dot_rev_den_cuda", [q, k, v, g], [gden, gsf, gzf])
+    if dk > D_MAX or dv > D_MAX:
+        raise ValueError(f"Dk {dk} or Dv {dv} > {D_MAX}, the kernel's limit")
+    dk_out, dv_out = torch.empty_like(k), torch.empty_like(v)
+    ds0 = torch.empty(bh, dk, dv, dtype=torch.float32, device=q.device)
+    dz0 = torch.empty(bh, dk, dtype=torch.float32, device=q.device)
+    lib = _library("bwd")
+    with torch.cuda.device(q.device):
+        err = lib.causal_dot_rev_den(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), gden.data_ptr(),
+            _ptr(gsf), _ptr(gzf), dk_out.data_ptr(), dv_out.data_ptr(), ds0.data_ptr(),
+            dz0.data_ptr(), bh, t, dk, dv, int(q.dtype == torch.bfloat16), _stream(q.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"causal_dot_rev_den kernel failed: cudaError_t {err}")
+    launches_rev += 1
+    return dk_out, dv_out, ds0, dz0
+
+
+def _chunks(t: int, chunk: int):
+    return [slice(c, c + chunk) for c in range(0, t, chunk)]
+
+
+def causal_dot_dq_den_plain(
+    g: Tensor, v: Tensor, k: Tensor, gden: Tensor,
+    s0: Optional[Tensor] = None, z0: Optional[Tensor] = None,
+) -> Tensor:
+    """The dq-pass kernel's function in plain PyTorch, on any device: the
+    forward-walking chunk recurrence of ``_bwd_dq_den_kernel``,
+
+        dq[t] = sum_{s<=t} (g_t . v_s) k_s + g_t S_t^T + gden_t (z0 + sum_{s<=t} k_s)
+
+    with S carried from S0 over earlier chunks; fp32 sums, dq in g's dtype."""
+    bh, t, dk, dv = _check_bwd(g, v, k)
+    _check_gden(gden, bh, t)
+    _check_state(s0, z0, bh, dk, dv, "s0", "z0")
+    c = DEFAULT_CHUNK
+    gf, vf, kf = (_pad_chunks(x.float(), c) for x in (g, v, k))
+    gd = _pad_chunks(gden[..., None], c)
+    causal = torch.tril(torch.ones(c, c, dtype=torch.bool, device=g.device))
+    st = torch.zeros(bh, dv, dk, device=g.device) if s0 is None else s0.transpose(1, 2)
+    z = torch.zeros(bh, dk, device=g.device) if z0 is None else z0
+    outs = []
+    for sl in _chunks(gf.shape[1], c):
+        gc, vc, kc = gf[:, sl], vf[:, sl], kf[:, sl]
+        scores = torch.where(causal, gc @ vc.transpose(1, 2), 0.0)
+        zcum = z[:, None, :] + torch.cumsum(kc, dim=1)
+        outs.append(scores @ kc + gc @ st + gd[:, sl] * zcum)
+        st = st + vc.transpose(1, 2) @ kc
+        z = zcum[:, -1]
+    return torch.cat(outs, dim=1)[:, :t].to(g.dtype)
+
+
+def causal_dot_rev_den_plain(
+    q: Tensor, k: Tensor, v: Tensor, g: Tensor, gden: Tensor,
+    gsf: Optional[Tensor] = None, gzf: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The reverse-pass kernel's function in plain PyTorch, on any device:
+    the last-to-first chunk recurrence of ``_bwd_rev_core``, carrying
+    R = gsf^T + sum_{s>=t} g_s (x) q_s and zr = gzf + sum_{s>=t} gden_s q_s,
+
+        dk[t] = sum_{s>=t} (v_t . g_s) q_s + v_t R + zr + (in-chunk suffix of gden q)
+        dv[t] = sum_{s>=t} (k_t . q_s) g_s + k_t R^T
+
+    -> (dk, dv in the input dtype, dS0 = R_final^T, dz0 = zr_final, fp32)."""
+    bh, t, dk, dv = _check_bwd(g, v, k, q)
+    _check_gden(gden, bh, t)
+    _check_state(gsf, gzf, bh, dk, dv, "gsf", "gzf")
+    c = DEFAULT_CHUNK
+    qf, kf, vf, gf = (_pad_chunks(x.float(), c) for x in (q, k, v, g))
+    gd = _pad_chunks(gden[..., None], c)
+    anti = torch.triu(torch.ones(c, c, dtype=torch.bool, device=q.device))  # s >= t
+    anti_f = anti.float()
+    r = torch.zeros(bh, dv, dk, device=q.device) if gsf is None else gsf.transpose(1, 2)
+    zr = torch.zeros(bh, dk, device=q.device) if gzf is None else gzf
+    dks, dvs = [], []
+    for sl in reversed(_chunks(qf.shape[1], c)):
+        qc, kc, vc, gc = qf[:, sl], kf[:, sl], vf[:, sl], gf[:, sl]
+        gq = gd[:, sl] * qc
+        svg = torch.where(anti, vc @ gc.transpose(1, 2), 0.0)
+        skq = torch.where(anti, kc @ qc.transpose(1, 2), 0.0)
+        dks.append(svg @ qc + vc @ r + zr[:, None, :] + anti_f @ gq)
+        dvs.append(skq @ gc + kc @ r.transpose(1, 2))
+        r = r + gc.transpose(1, 2) @ qc
+        zr = zr + gq.sum(dim=1)
+    dk_out = torch.cat(dks[::-1], dim=1)[:, :t].to(k.dtype)
+    dv_out = torch.cat(dvs[::-1], dim=1)[:, :t].to(v.dtype)
+    return dk_out, dv_out, r.transpose(1, 2).contiguous(), zr
+
+
+# ---------------------------------------------------------------------------
+# The autograd Function
+# ---------------------------------------------------------------------------
+
+
+def quotient_rule(
+    gout: Tensor, num: Tensor, den: Tensor, eps: float, dtype: torch.dtype
+) -> Tuple[Tensor, Tensor]:
+    """The cotangents of the forward's fp32 parts from that of its output
+    out = num / (den + eps), as ``_lin_attn_fused_bwd``: gnum = gout / d
+    cast to the input dtype (the backward kernels' operand), and gden =
+    -(gout . num) / d^2 in fp32 [BH, T]."""
+    d = den + eps
+    g32 = gout.float()
+    gnum = (g32 / d[..., None]).to(dtype).contiguous()
+    gden = (-(g32 * num).sum(dim=-1) / (d * d)).contiguous()
+    return gnum, gden
+
+
+class LinearAttentionFn(torch.autograd.Function):
+    """Normalized causal linear attention with its backward on the kernels:
+    the counterpart of the JAX package's ``_lin_attn_fused`` custom VJP.
+
+    ``apply(q, k, v, s0, z0, eps)`` on flat contiguous q, k [BH, T, Dk],
+    v [BH, T, Dv] and an optional fp32 (S0, z0) -> (out, S, z). The forward
+    launches the forward kernel and saves (q, k, v, s0, z0, num, den); the
+    backward does the quotient rule of ``_lin_attn_fused_bwd`` in plain
+    torch (as XLA does in the reference), then launches the dq pass and the
+    reverse pass (``_fused_bwd_core``). It returns grads for q, k, v, and
+    for S0 and z0 when they were given. It calls the three ``*_cuda``
+    wrappers by their module names, so a test can stand their plain
+    versions in for them on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, s0, z0, eps):
+        out, sf, zf, num, den = causal_dot_norm_cuda(q, k, v, s0, z0, eps=eps, with_parts=True)
+        ctx.save_for_backward(q, k, v, s0, z0, num, den)
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        return out, sf, zf
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout, gsf, gzf):
+        q, k, v, s0, z0, num, den = ctx.saved_tensors
+        bh, _, dk = q.shape
+        dv = v.shape[-1]
+        if gout is None:
+            gout = torch.zeros_like(v)
+        gnum, gden = quotient_rule(gout, num, den, ctx.eps, q.dtype)
+        if gsf is not None or gzf is not None:  # the final state's cotangents
+            zeros = lambda *shape: torch.zeros(*shape, device=q.device)  # noqa: E731
+            gsf = zeros(bh, dk, dv) if gsf is None else gsf.float().contiguous()
+            gzf = zeros(bh, dk) if gzf is None else gzf.float().contiguous()
+        dq = causal_dot_dq_den_cuda(gnum, v, k, gden, s0, z0)
+        dk_, dv_, ds0, dz0 = causal_dot_rev_den_cuda(q, k, v, gnum, gden, gsf, gzf)
+        return (
+            dq, dk_, dv_,
+            ds0 if s0 is not None else None, dz0 if z0 is not None else None,
+            None,
+        )
+
+
+__all__ = [
+    "causal_dot_norm_cuda", "causal_dot_norm_plain",
+    "causal_dot_dq_den_cuda", "causal_dot_dq_den_plain",
+    "causal_dot_rev_den_cuda", "causal_dot_rev_den_plain",
+    "LinearAttentionFn", "quotient_rule", "build", "SOURCES",
+]

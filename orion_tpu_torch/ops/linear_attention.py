@@ -12,8 +12,10 @@ The port's counterpart of ``orion_tpu/ops/linear_attention.py``:
 3. ``recurrent_step``             -- the O(1)-state decode update.
 
 ``linear_attention`` is the normalized op: on CUDA tensors it runs the fused
-kernel ``ops/kernels/causal_dot.py`` (``csrc/causal_dot_norm.cu``); its plain
-version is the chunked form of 2.
+kernel ``ops/kernels/causal_dot.py`` (``csrc/causal_dot_norm.cu``), and when
+a gradient is wanted it goes through ``causal_dot.LinearAttentionFn``, whose
+backward runs the two backward kernels (``csrc/causal_dot_bwd.cu``); its
+plain version is the chunked form of 2, differentiated by autograd.
 
 Conventions as in the JAX package: q, k are post-feature-map with shape
 [..., T, Dk]; v is [..., T, Dv]; states S [..., Dk, Dv] and z [..., Dk] are
@@ -175,8 +177,11 @@ def linear_attention(
     out[t] = (q_t . S_t) / (q_t . z_t + eps), S_t = sum_{s<=t} k_s (x) v_s,
     z_t = sum_{s<=t} k_s, optionally seeded by ``initial_state=(S0, z0)``;
     ``return_state`` also returns the final fp32 (S, z). ``backend`` picks
-    the fused CUDA kernel or its plain version (ops/dispatch.py); ``chunk``
-    sizes only the plain version.
+    the fused CUDA kernels or their plain version (ops/dispatch.py); ``chunk``
+    sizes only the plain version. Differentiable through q, k, v, the
+    initial state and the returned state on either backend: with grad
+    enabled and an input that requires it, the kernel backend runs
+    ``LinearAttentionFn`` (forward kernel, then the backward kernels).
     """
     from orion_tpu_torch.ops.kernels import causal_dot
 
@@ -192,6 +197,10 @@ def linear_attention(
 
     if resolve(backend, q.device) == "torch":
         out, sf, zf = causal_dot.causal_dot_norm_plain(qf, kf, vf, s0, z0, eps=eps, chunk=chunk)
+    elif torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in (qf, kf, vf, s0, z0)
+    ):
+        out, sf, zf = causal_dot.LinearAttentionFn.apply(qf, kf, vf, s0, z0, eps)
     else:
         out, sf, zf = causal_dot.causal_dot_norm_cuda(qf, kf, vf, s0, z0, eps=eps)
     out = out.reshape(*batch_shape, t, dv)

@@ -1,12 +1,15 @@
-"""Config overrides for the CLIs' ``--set KEY=VALUE`` flag.
+"""Config overrides for the CLIs' ``--set KEY=VALUE`` and ``--config-json``
+flags.
 
 The port's copy of ``orion_tpu/utils/config.py``: ``apply_overrides(cfg,
 {"n_layers": 4})`` returns a new frozen dataclass with dotted-path fields
-replaced; values are coerced to the field's existing type."""
+replaced; values are coerced to the field's existing type. JSON override
+files are dicts of the same dotted (or nested) form."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, Mapping
 
 
@@ -60,6 +63,11 @@ def apply_overrides(cfg: Any, overrides: Mapping[str, Any]) -> Any:
     return dataclasses.replace(cfg, **updates)
 
 
+def load_json_overrides(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)
+
+
 def parse_set_overrides(pairs) -> Dict[str, Any]:
     """['k=v', ...] (the CLIs' repeated --set flag) -> override mapping."""
     overrides: Dict[str, Any] = {}
@@ -71,4 +79,4 @@ def parse_set_overrides(pairs) -> Dict[str, Any]:
     return overrides
 
 
-__all__ = ["apply_overrides", "parse_set_overrides"]
+__all__ = ["apply_overrides", "load_json_overrides", "parse_set_overrides"]

@@ -1,13 +1,15 @@
-"""Where the port's lm_1b3 generate path spends the card's time.
+"""Where the port's lm_1b3 generate and training paths spend the card's time.
 
     python3 profile_port.py
 
 On a machine with one CUDA card. Builds ``lm_1b3`` at full width from
 seeded random weights, then traces with ``torch.profiler`` (a) one prefill
-of 4 prompts of 1024 tokens and (b) 8 decode steps at batch 4. For each it
-prints the device time by kernel (largest first, grouped into the attention
-kernel, dense products, and everything else), the number of kernel
-launches, the window's wall time and
+of 4 prompts of 1024 tokens, (b) 8 decode steps at batch 4 and (c) one
+training step (``Trainer.step``, batch 8 x 1024 tokens, AdamW, remat as the
+config sets it) after a warm-up step. For each it prints the device time by
+kernel (largest first, grouped into the three attention kernels, dense
+products, and everything else), the number of kernel launches, the
+window's wall time and
 the device's idle share of it (1 - summed kernel time / wall time; the port
 runs on one stream, so kernels do not overlap), then all of it as one JSON
 line. Imports nothing of JAX.
@@ -32,8 +34,9 @@ def _device_us(evt):
 
 def _group(name):
     low = name.lower()
-    if "causal_dot_norm" in low:
-        return "causal_dot_norm kernel"
+    for kernel in ("causal_dot_norm", "causal_dot_dq_den", "causal_dot_rev_den"):
+        if kernel in low:
+            return f"{kernel} kernel"
     if any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
         return "dense products (cuBLAS)"
     return "other (elementwise, norms, copies, sampling)"
@@ -92,6 +95,16 @@ def main() -> int:
                 _, st = model.decode_step(tok, st, 1024 + i)
 
         result["decode_8_steps_B4"] = trace(decode)
+    del model, states
+    from orion_tpu_torch.training.data import SyntheticDataset, device_batch
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(model=get_config("lm_1b3"), batch_size=8, seq_len=1024)
+    trainer = Trainer(cfg, device=dev)
+    ds = SyntheticDataset(cfg.model.vocab_size, cfg.seq_len)
+    trainer.step(device_batch(ds, 0, 0, cfg.batch_size, dev))  # warm-up
+    batch = device_batch(ds, 0, 1, cfg.batch_size, dev)
+    result["train_step_B8_T1024"] = trace(lambda: trainer.step(batch))
     for phase, r in result.items():
         print(f"{phase}: wall {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
               f"idle share {r['idle_share']}, {r['kernel_launches']} kernel launches")

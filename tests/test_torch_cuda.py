@@ -7,15 +7,25 @@ fixture, never at import). On a machine with one:
 
 Tolerances: fp32 outputs to 1e-4 relative (sums in another order); bf16
 outputs to one bf16 rounding step (2^-7 relative) plus 1e-4 absolute for
-elements near zero, the limits of ``chip_smoke.py``; fp32 states to 1e-4 of
-their largest magnitude.
+elements near zero (the backward's gradients: 1e-4 of their largest
+magnitude, where its numerator and denominator parts cancel), the limits of
+``chip_smoke.py``; fp32 states, num and den to 1e-4 of their largest
+magnitude. A model's backward through the kernels against
+``backend="torch"``: fp32 as the CPU parity tests (loss 1e-5 relative,
+gradients 1e-4 relative plus 1e-5 of their largest magnitude); bf16 within
+``chip_smoke.py``'s lm_1b3 limits (loss 1e-2, gradients 5e-2 relative L2).
 """
+
+import dataclasses
 
 import pytest
 import torch
 
+from orion_tpu_torch.models.configs import TINY
+from orion_tpu_torch.models.transformer import TransformerLM
 from orion_tpu_torch.ops import linear_attention as la
 from orion_tpu_torch.ops.kernels import causal_dot
+from orion_tpu_torch.training.trainer import lm_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -78,3 +88,79 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     big = torch.rand(1, 4, 256, device=dev)
     with pytest.raises(ValueError, match="Dk"):
         causal_dot.causal_dot_norm_cuda(big, big, big)
+
+
+def _max_close(got, ref, rtol):
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=1e-4 * float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize(
+    "dtype,bh,t,dk,dv,state",
+    [
+        (torch.float32, 3, 70, 32, 24, False),
+        (torch.float32, 2, 129, 128, 100, True),
+        (torch.bfloat16, 5, 1, 16, 64, True),
+        (torch.bfloat16, 4, 333, 128, 128, True),
+        (torch.bfloat16, 2, 64, 100, 72, False),
+    ],
+)
+def test_backward_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
+    g = torch.Generator(device=dev).manual_seed(t + 1)
+    phi = lambda x: (torch.nn.functional.elu(x) + 1).to(dtype)  # noqa: E731
+    q = phi(torch.randn(bh, t, dk, device=dev, generator=g))
+    k = phi(torch.randn(bh, t, dk, device=dev, generator=g))
+    v = torch.randn(bh, t, dv, device=dev, generator=g).to(dtype)
+    gout = torch.randn(bh, t, dv, device=dev, generator=g).to(dtype)
+    s0 = z0 = gsf = gzf = None
+    if state:
+        s0 = torch.randn(bh, dk, dv, device=dev, generator=g)
+        z0 = torch.rand(bh, dk, device=dev, generator=g) * 10
+        gsf = 0.05 * torch.randn(bh, dk, dv, device=dev, generator=g)
+        gzf = 0.05 * torch.randn(bh, dk, device=dev, generator=g)
+    before = (causal_dot.launches, causal_dot.launches_dq, causal_dot.launches_rev)
+    _, _, _, num, den = causal_dot.causal_dot_norm_cuda(q, k, v, s0, z0, with_parts=True)
+    _, _, _, r_num, r_den = causal_dot.causal_dot_norm_plain(q, k, v, s0, z0, with_parts=True)
+    _max_close(num, r_num, 1e-4)
+    _max_close(den, r_den, 1e-4)
+    gnum, gden = causal_dot.quotient_rule(gout, r_num, r_den, 1e-6, dtype)
+    got = (causal_dot.causal_dot_dq_den_cuda(gnum, v, k, gden, s0, z0),
+           *causal_dot.causal_dot_rev_den_cuda(q, k, v, gnum, gden, gsf, gzf))
+    assert (causal_dot.launches, causal_dot.launches_dq, causal_dot.launches_rev) == tuple(
+        n + 1 for n in before)
+    ref = (causal_dot.causal_dot_dq_den_plain(gnum, v, k, gden, s0, z0),
+           *causal_dot.causal_dot_rev_den_plain(q, k, v, gnum, gden, gsf, gzf))
+    for x, r in zip(got[:3], ref[:3]):
+        assert x.dtype == dtype and x.shape == r.shape
+        _max_close(x, r, 2**-7 if dtype == torch.bfloat16 else 1e-4)
+    for x, r in zip(got[3:], ref[3:]):
+        assert x.dtype == torch.float32
+        _max_close(x, r, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_backward_through_the_kernels_matches_torch(dev, dtype):
+    cfg = dataclasses.replace(TINY, dtype=dtype, n_layers=3, remat=True, remat_skip=1)
+    batch = torch.randint(0, cfg.vocab_size, (2, 200), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    results = {}
+    for backend in ("cuda", "torch"):
+        model = TransformerLM(dataclasses.replace(cfg, backend=backend), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(1))
+        before = (causal_dot.launches, causal_dot.launches_dq, causal_dot.launches_rev)
+        loss = lm_loss(model, batch)
+        loss.backward()
+        counts = tuple(a - b for a, b in zip(
+            (causal_dot.launches, causal_dot.launches_dq, causal_dot.launches_rev), before))
+        results[backend] = (float(loss), {n: p.grad for n, p in model.named_parameters()}, counts)
+    assert results["cuda"][2] == (3 + 2, 3, 3)  # the forward again for the 2 rematted blocks
+    assert results["torch"][2] == (0, 0, 0)
+    (loss_k, grads_k, _), (loss_t, grads_t, _) = results["cuda"], results["torch"]
+    for n, ref in grads_t.items():
+        assert grads_k[n] is not None, n
+        if dtype == "float32":
+            torch.testing.assert_close(grads_k[n], ref, rtol=1e-4,
+                                       atol=1e-5 * float(ref.abs().max()))
+        else:
+            assert float((grads_k[n] - ref).norm() / ref.norm()) <= 5e-2, n
+    assert abs(loss_k - loss_t) <= (1e-5 * abs(loss_t) if dtype == "float32" else 1e-2)

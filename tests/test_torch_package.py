@@ -109,6 +109,35 @@ def test_model_config_mirrors_the_jax_package():
         configs.get_config("nope")
 
 
+def test_train_config_mirrors_the_jax_package():
+    from orion_tpu.parallel.mesh import MeshConfig as JaxMeshConfig
+    from orion_tpu.training.trainer import TrainConfig as JaxTrainConfig
+    from orion_tpu_torch.training.trainer import MeshConfig, TrainConfig
+
+    for ours, theirs in ((TrainConfig, JaxTrainConfig), (MeshConfig, JaxMeshConfig)):
+        assert [f.name for f in dataclasses.fields(ours)] == [
+            f.name for f in dataclasses.fields(theirs)]
+        assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs()), ours.__name__
+    pairs = ["lr=1e-3", "model.n_layers=3", "mesh.tp=2", "mu_dtype=bfloat16"]
+    ours = config_utils.apply_overrides(TrainConfig(), config_utils.parse_set_overrides(pairs))
+    theirs = jax_config_utils.apply_overrides(
+        JaxTrainConfig(), jax_config_utils.parse_set_overrides(pairs))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+
+
+def test_json_overrides_mirror_the_jax_package(tmp_path):
+    from orion_tpu.training.trainer import TrainConfig as JaxTrainConfig
+    from orion_tpu_torch.training.trainer import TrainConfig
+
+    path = tmp_path / "o.json"
+    path.write_text('{"lr": 0.001, "model": {"n_layers": 3, "dtype": "float32"}, "mesh.sp": 1}')
+    ours = config_utils.apply_overrides(TrainConfig(), config_utils.load_json_overrides(str(path)))
+    theirs = jax_config_utils.apply_overrides(
+        JaxTrainConfig(), jax_config_utils.load_json_overrides(str(path)))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.lr == 0.001 and ours.model.n_layers == 3
+
+
 def test_set_overrides_mirror_the_jax_package():
     pairs = ["n_layers=3", "dtype=float32", "tie_embeddings=false", "moe_aux_weight=0.5"]
     ours = config_utils.apply_overrides(configs.TINY, config_utils.parse_set_overrides(pairs))
