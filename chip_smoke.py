@@ -9,27 +9,37 @@ nonzero and no result line is printed):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernel libraries from the sources in the checkout, one nvcc
-   for each source, all started together; print ptxas' register and spill
-   lines;
-3. hold each kernel against its plain PyTorch version on the card: the
-   forward at the generate path's shape (B 4), then the forward with its
-   training outputs and the two backward kernels at the training shape
-   (B 8), each at T 1024, a ragged 1000 and 1, with and without an initial
-   state and final-state cotangents; time every kernel and its plain
-   version and print the bound;
-4. the generate path: ``orion_tpu_torch.generate.generate`` on ``lm_1b3``
-   at full width (seeded random weights), 4 prompts of 1024 byte tokens, 32
-   greedy new tokens, with every kernel's launch count reset just before and
-   read just after; the prefill's logits against a ``backend="torch"`` run
-   of the same weights on the card; and ``tiny`` on the card against the
-   same model on the CPU, whose plain path the CPU tests hold against the
-   JAX package;
-5. the training path: ``Trainer`` on ``lm_1b3`` at full width, synthetic
-   data, batch 8 x 1024, AdamW, remat as the config sets it, 1 warm-up and
-   3 timed steps, with the counts reset just before and read after every
-   step (each step must launch the forward 24 + 20 times, the last for the
-   rematerialized blocks, and each backward kernel 24 times); then one
-   batch's loss and gradients through the kernels against
+   for each of the four sources, all started together; print ptxas'
+   register, spill and shared-memory lines;
+3. hold each kernel against its plain PyTorch version on the card:
+   - linear attention (rows 1, 3, 4): the forward at the generate path's
+     shape (B 4), then the forward with its training outputs and the two
+     backward kernels at the training shape (B 8), each at T 1024, a ragged
+     1000 and 1, with and without an initial state and final-state
+     cotangents;
+   - flash attention (rows 6, 7, 8): forward, dq and dk/dv at hybrid_1b3's
+     generate shape (B 4, H 16, T 1536, D 128, bf16, window 1024) and
+     training shape (B 8, T 2048), a ragged T 2000, T 1, T 512 (below the
+     window), causal without a window, bidirectional, and the tiny widths
+     (D 32, fp32);
+   time every kernel, its plain version and, where one PyTorch call computes
+   the same function, that call (``scaled_dot_product_attention``); print
+   each kernel's bound beside its time;
+4. the generate path, for ``lm_1b3`` (4 prompts of 1024 byte tokens, 32
+   greedy new tokens) and for ``hybrid_1b3`` (4 prompts of 1536, longer than
+   its window, 64 tokens): ``orion_tpu_torch.generate.generate`` at full
+   width (seeded random weights), with every kernel's launch count reset
+   just before and read just after; the prefill's logits and every layer's
+   decode state against a ``backend="torch"`` run of the same weights on the
+   card; and a ``tiny`` model of the same layer kinds on the card against
+   the same model on the CPU, whose plain path the CPU tests hold against
+   the JAX package;
+5. the training path, for ``lm_1b3`` (batch 8 x 1024) and ``hybrid_1b3``
+   (batch 8 x 2048): ``Trainer`` at full width, synthetic data, AdamW, remat
+   as the config sets it, 1 warm-up and 3 timed steps, with the counts reset
+   just before and read after every step (exact counts per step, from the
+   layer kinds and the rematerialized blocks); then one batch's loss and
+   every parameter's gradient through the kernels against
    ``backend="torch"`` on the same weights (every parameter must get a
    gradient); then 3 ``tiny`` fp32 steps on the card against the CPU;
 6. a ``kernels`` JSON line, then the result line
@@ -61,9 +71,13 @@ ROOT = Path(__file__).resolve().parent
 # shows which wrong kernels these limits reject.
 OUT_RTOL, OUT_ATOL = 2**-7, 1e-4
 STATE_RTOL = 1e-4  # of the state's largest magnitude
-# lm_1b3's per-layer S after the kernel-backed prefill against the plain
-# one: each layer's input differs by the bf16 roundings of the layers below
-LAYER_S_RTOL = 5e-3
+# A layer's decode state after the kernel-backed prefill against the plain
+# one, relative to its largest element: each layer's input differs by the
+# bf16 roundings of the layers below. S sums k (x) v over the prompt, which
+# averages those differences out; a K or V element is one bf16 projection
+# of the layer's input and keeps them, as the logits at the top of the same
+# stack do (0.125 of logits near 4: 3 %)
+LAYER_S_RTOL, LAYER_KV_RTOL = 5e-3, 3e-2
 # The backward kernels against their plain versions, on the same inputs.
 # dq, dk, dv (bf16): both sum exact products in fp32 and round once, so a
 # value lands on the plain version's bf16 neighbour at worst (2^-7 |ref|).
@@ -75,18 +89,40 @@ LAYER_S_RTOL = 5e-3
 # 1e-4 of their largest magnitude. ``kernel_mutants.py`` shows which wrong
 # kernels these limits reject.
 GRAD_RTOL, GRAD_ATOL_OF_MAX = 2**-7, 1e-4
-# lm_1b3's loss and parameter gradients through the kernels against
-# backend="torch" (autograd through the plain chunked form) on one batch.
-# The kernel path rounds each layer's attention output to bf16 from sums in
-# another order (forward), and rounds d out / d num to bf16 before the
-# backward products, as the JAX package does (the plain path keeps it
-# fp32): about 2^-9 relative per element, averaged over the 8192 tokens
-# each weight gradient sums, and carried through 24 layers. Limits: the
-# loss within 1e-2 absolute (a mean of 8192 token losses near 10.4), every
+# Flash attention (rows 6-8) against its plain version, on the same inputs.
+# out, dq, dk, dv: in bf16 one bf16 step (2^-7 |ref|), as above: both sum
+# exact products in fp32 and round once; in fp32 1e-4 |ref| (sums in
+# another order). Beside it 1e-4 max|ref| for elements near zero (in dS =
+# P (dP - delta) the two terms cancel), and for the gradients a floor of
+# 1e-5: where a gradient vanishes in exact arithmetic (T 1: a row's only key
+# gives dP = delta), the kernel's dP and torch's delta are two fp32 dot
+# products of unit-scale inputs summed in other orders, about 1e-6 apart
+# at D 128.
+# lse (fp32): within 1e-5 of max(1, |lse|): a sum of up to 1024 exps in
+# another order moves it by about 1e-6.
+FLASH_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
+FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR, LSE_RTOL = 1e-4, 1e-5, 1e-5
+# The loss and parameter gradients through the kernels against
+# backend="torch" (autograd through the plain forms) on one batch. The
+# kernel path rounds each layer's attention output to bf16 from sums in
+# another order (forward), and the linear layers round d out / d num to
+# bf16 before the backward products, as the JAX package does (the plain
+# path keeps it fp32): about 2^-9 relative per element, averaged over the
+# tokens each weight gradient sums, and carried through 24 layers. Limits:
+# the loss within 1e-2 absolute (a mean of token losses near 10.4), every
 # parameter's gradient within 5e-2 of its norm (relative L2 error).
 LM_LOSS_ATOL, LM_GRAD_REL_L2 = 1e-2, 5e-2
-# tiny fp32, 3 training steps: the card's loss sequence against the CPU's
-TINY_LOSS_ATOL = 1e-4
+# The prefill's logits through the kernels against backend="torch": each
+# layer's attention output is rounded to bf16 from fp32 sums taken in
+# different orders; a value near a rounding boundary flips by one bf16 step
+# (2^-8 relative) and the flips carry through 24 residual layers into
+# logits of unit scale
+LOGITS_ATOL = 0.125
+# tiny fp32: the card's logits and 3 training losses against the CPU's
+TINY_LOGITS_ATOL, TINY_LOSS_ATOL = 1e-4, 1e-4
+
+KERNELS = ("causal_dot_norm", "causal_dot_dq_den", "causal_dot_rev_den",
+           "flash_fwd", "flash_dq", "flash_dkv")
 
 
 def log(*a):
@@ -121,21 +157,25 @@ def card_info():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     log(line)
+    return line
 
 
-def build(cd, names=None):
-    """Build the kernel libraries, one nvcc for each source, all started
-    together; print each build's time and ptxas lines."""
-    names = list(cd.SOURCES) if names is None else names
+def build(modules):
+    """Build the kernel libraries of ``modules`` (each with ``SOURCES``),
+    one nvcc for each source, all started together; print each build's time
+    and ptxas lines."""
+    from orion_tpu_torch.ops.kernels import library
 
-    def one(name):
+    sources = [src for m in modules for src in m.SOURCES.values()]
+
+    def one(src):
         t = time.perf_counter()
-        path, out = cd.build(cd.SOURCES[name])
-        return name, path, out, time.perf_counter() - t
+        path, out = library.build(src)
+        return src, path, out, time.perf_counter() - t
 
-    with ThreadPoolExecutor(len(names)) as pool:
-        for name, path, out, sec in pool.map(one, names):
-            log(f"built {path.name} from {cd.SOURCES[name].relative_to(ROOT)} in {sec:.1f} s")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for src, path, out, sec in pool.map(one, sources):
+            log(f"built {path.name} from {src.relative_to(ROOT)} in {sec:.1f} s")
             for line in out.splitlines():
                 if "registers" in line or "spill" in line or "smem" in line:
                     log("  ptxas:", line.strip())
@@ -143,6 +183,16 @@ def build(cd, names=None):
 
 def _rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _bound(moved, flops, peak=BF16_FLOPS):
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+# ---------------------------------------------------------------------------
+# Linear attention: rows 1, 3, 4
+# ---------------------------------------------------------------------------
 
 
 def compare_causal_dot(cd, dev):
@@ -192,11 +242,6 @@ def agrees(r):
             and r["s_rel"] <= STATE_RTOL and r["z_rel"] <= STATE_RTOL)
 
 
-def _bound(moved, flops):
-    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
-
-
 def check_causal_dot(cd, dev):
     readings, (q, k, v) = compare_causal_dot(cd, dev)
     for r in readings:
@@ -223,17 +268,17 @@ def check_causal_dot(cd, dev):
         "function)")
 
 
-def _grad_reading(got, ref):
-    """A bf16 gradient against its plain version: the largest |got - ref|,
-    and as a share of the limit GRAD_ATOL_OF_MAX max|ref| + GRAD_RTOL |ref|
-    (above 1 fails); ``atol_needed``: the smallest absolute term, as a share
-    of max|ref|, that this tensor alone would need beside GRAD_RTOL."""
+def _grad_reading(got, ref, rtol=GRAD_RTOL, atol_of_max=GRAD_ATOL_OF_MAX, floor=0.0):
+    """A gradient against its plain version: the largest |got - ref|, and as
+    a share of the limit floor + atol_of_max max|ref| + rtol |ref| (above 1
+    fails); ``atol_needed``: the smallest absolute term, as a share of
+    max|ref|, that this tensor alone would need beside ``rtol``."""
     diff, r = (got.float() - ref.float()).abs(), ref.float().abs()
     rmax = float(r.max().clamp_min(1e-30))
     return {
         "max_abs": float(diff.max()), "ref_max_abs": rmax,
-        "over_limit": float((diff / (GRAD_ATOL_OF_MAX * rmax + GRAD_RTOL * r)).max()),
-        "atol_needed": float((diff - GRAD_RTOL * r).clamp_min(0).max()) / rmax,
+        "over_limit": float((diff / (floor + atol_of_max * rmax + rtol * r)).max()),
+        "atol_needed": float((diff - rtol * r).clamp_min(0).max()) / rmax,
         "well_formed": got.shape == ref.shape and got.dtype == ref.dtype
         and bool(torch.isfinite(got.float()).all()),
     }
@@ -365,52 +410,253 @@ def check_training_kernels(cd, dev):
     return lines
 
 
-def _counts(cd):
+# ---------------------------------------------------------------------------
+# Flash attention: rows 6, 7, 8
+# ---------------------------------------------------------------------------
+
+# (label, B, H, T, D, dtype, causal, window): hybrid_1b3's shapes and the
+# edges of the kernels' loops
+FLASH_CASES = [
+    ("generate", 4, 16, 1536, 128, torch.bfloat16, True, 1024),
+    ("training", 8, 16, 2048, 128, torch.bfloat16, True, 1024),
+    ("ragged", 2, 16, 2000, 128, torch.bfloat16, True, 1024),
+    ("T1", 8, 16, 1, 128, torch.bfloat16, True, 1024),
+    ("below the window", 8, 16, 512, 128, torch.bfloat16, True, 1024),
+    ("causal, no window", 4, 16, 2048, 128, torch.bfloat16, True, None),
+    ("bidirectional", 4, 16, 1024, 128, torch.bfloat16, False, None),
+    ("tiny widths", 2, 4, 300, 32, torch.float32, True, 16),
+]
+
+
+def _flash_inputs(g, dev, b, h, t, d, dtype):
+    """q, k, v at unit scale and the output's cotangent, [B*H, T, D]."""
+    return [torch.randn(b * h, t, d, device=dev, generator=g).to(dtype) for _ in range(4)]
+
+
+def _pairs(t, causal, window):
+    """The (q, k) pairs a [t, t] mask keeps: the work of each kernel."""
+    rows = np.arange(t)
+    lo = np.maximum(0, rows - window + 1) if window is not None else np.zeros(t, np.int64)
+    hi = rows + 1 if causal else np.full(t, t)
+    return int((hi - lo).sum())
+
+
+def compare_flash(fa, dev):
+    """Rows 6-8 against their plain versions on the card. The backward
+    kernels and their plain versions take the same inputs: the plain
+    forward's lse and delta = rowsum(g . out). Returns one reading per case
+    and the inputs of each case by label."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    readings, inputs = [], {}
+    for label, b, h, t, d, dtype, causal, window in FLASH_CASES:
+        q, k, v, gout = _flash_inputs(g, dev, b, h, t, d, dtype)
+        opts = dict(causal=causal, window=window)
+        out, lse = fa.flash_fwd_cuda(q, k, v, **opts)
+        r_out, r_lse = fa.flash_fwd_plain(q, k, v, **opts)
+        delta = (gout.float() * r_out.float()).sum(-1, keepdim=True)
+        dq = fa.flash_dq_cuda(q, k, v, gout, r_lse, delta, **opts)
+        dk, dv = fa.flash_dkv_cuda(q, k, v, gout, r_lse, delta, **opts)
+        torch.cuda.synchronize()
+        r_dq = fa.flash_dq_plain(q, k, v, gout, r_lse, delta, **opts)
+        r_dk, r_dv = fa.flash_dkv_plain(q, k, v, gout, r_lse, delta, **opts)
+        rtol = FLASH_RTOL[dtype]
+        lse_diff = (lse - r_lse).abs()
+        readings.append({
+            "case": f"{label}: B{b} H{h} T{t} D{d} {str(dtype)[6:]} causal={causal} "
+                    f"window={window}",
+            "out": _grad_reading(out, r_out, rtol, FLASH_ATOL_OF_MAX),
+            "dq": _grad_reading(dq, r_dq, rtol, FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR),
+            "dk": _grad_reading(dk, r_dk, rtol, FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR),
+            "dv": _grad_reading(dv, r_dv, rtol, FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR),
+            "lse_max_abs": float(lse_diff.max()),
+            "lse_over_limit": float((lse_diff / (LSE_RTOL * r_lse.abs().clamp_min(1.0))).max()),
+            "lse_well_formed": lse.shape == (b * h, t, 1) and lse.dtype == torch.float32
+            and bool(torch.isfinite(lse).all()),
+        })
+        inputs[label] = (q, k, v, gout, r_lse, delta, opts)
+        del out, lse, r_out, dq, dk, dv, r_dq, r_dk, r_dv
+    return readings, inputs
+
+
+def agrees_flash(r):
+    return (r["lse_well_formed"] and r["lse_over_limit"] <= 1.0
+            and all(r[n]["well_formed"] and r[n]["over_limit"] <= 1.0
+                    for n in ("out", "dq", "dk", "dv")))
+
+
+def _sdpa_mask(t, causal, window, dev):
+    """The boolean mask scaled_dot_product_attention takes for a band (True =
+    attend), or None with ``is_causal`` for plain causal."""
+    if window is None:
+        return None
+    rows = torch.arange(t, device=dev)[:, None]
+    cols = torch.arange(t, device=dev)[None, :]
+    m = (rows - cols) < window
+    return m & (rows >= cols) if causal else m
+
+
+def check_flash(fa, dev):
+    """Rows 6-8: agreement on every case, then timings at hybrid_1b3's
+    generate shape (row 6) and training shape (rows 6-8), each beside its
+    bound, its plain version and scaled_dot_product_attention under the same
+    mask (the backward timed as one call, for rows 7 and 8 together)."""
+    readings, inputs = compare_flash(fa, dev)
+    for r in readings:
+        log(f"flash {r['case']}: "
+            + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
+                        f"limit, needs atol {r[n]['atol_needed']:.2e} max|ref|)"
+                        for n in ("out", "dq", "dk", "dv"))
+            + f"; lse max abs {r['lse_max_abs']:.3e} ({r['lse_over_limit']:.3f} of its limit)")
+    bad = [r for r in readings if not agrees_flash(r)]
+    if bad:
+        raise AssertionError(f"a flash kernel disagrees with its plain version: {bad}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timings = {}
+    with torch.no_grad():
+        for label in ("generate", "training", "causal, no window"):
+            q, k, v, gout, lse, delta, opts = inputs[label]
+            bh, t, d = q.shape
+            b = bh // 16
+            q4, k4, v4 = (x.view(b, bh // b, t, d) for x in (q, k, v))
+            mask = _sdpa_mask(t, opts["causal"], opts["window"], dev)
+            lib = (lambda: sdpa(q4, k4, v4, attn_mask=mask)) if mask is not None else (
+                lambda: sdpa(q4, k4, v4, is_causal=True))
+            act = q.numel() * q.element_size()
+            pairs = bh * _pairs(t, opts["causal"], opts["window"])
+            row = {"fwd": dict(
+                ms=cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **opts), 10),
+                plain_ms=cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **opts), 2),
+                library_ms=cuda_ms(lib, 10),
+                # q, k, v read; out, lse written
+                moved=4 * act + bh * t * 4, flops=4 * d * pairs)}
+            if label == "training":
+                row["dq"] = dict(
+                    ms=cuda_ms(lambda: fa.flash_dq_cuda(q, k, v, gout, lse, delta, **opts), 5),
+                    plain_ms=cuda_ms(lambda: fa.flash_dq_plain(q, k, v, gout, lse, delta, **opts), 2),
+                    # q, k, v, g, lse, delta read; dq written
+                    moved=5 * act + 2 * bh * t * 4, flops=6 * d * pairs)
+                row["dkv"] = dict(
+                    ms=cuda_ms(lambda: fa.flash_dkv_cuda(q, k, v, gout, lse, delta, **opts), 5),
+                    plain_ms=cuda_ms(lambda: fa.flash_dkv_plain(q, k, v, gout, lse, delta, **opts), 2),
+                    # q, k, v, g, lse, delta read; dk, dv written
+                    moved=6 * act + 2 * bh * t * 4, flops=8 * d * pairs)
+                with torch.enable_grad():
+                    qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+                    o = sdpa(qg, kg, vg, attn_mask=mask)
+                    g4 = gout.view_as(o)
+                    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                        o, (qg, kg, vg), g4, retain_graph=True), 5)
+                row["dq"]["library_ms"] = row["dkv"]["library_ms"] = bwd_ms
+            for part, x in row.items():
+                x["bound_ms"], x["bound_by"] = _bound(x["moved"], x["flops"])
+                log(f"flash {part} timing {label} B{b} H{bh // b} T{t} D{d} window "
+                    f"{opts['window']}: kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, "
+                    f"bound {x['bound_ms']:.4f} ms by {x['bound_by']} ({x['moved'] / 1e6:.1f} MB, "
+                    f"{x['flops'] / 1e9:.2f} GFLOP, {pairs / 1e6:.1f} M pairs); "
+                    f"scaled_dot_product_attention {x['library_ms']:.4f} ms"
+                    + (" (its backward: dq, dk and dv in one call; kernels dq + dk/dv "
+                       f"{row['dq']['ms'] + row['dkv']['ms']:.4f} ms)" if part != "fwd" else ""))
+            timings[label] = row
+    del inputs
+    torch.cuda.empty_cache()
+    tr = timings["training"]
+    errs = {n: max(r[n]["max_abs"] for r in readings) for n in ("out", "dq", "dk", "dv")}
+    spec = [("flash_fwd", "orion_tpu_torch/csrc/flash_attention.cu",
+             "orion_tpu/ops/pallas/flash_attention.py:211", tr["fwd"], errs["out"]),
+            ("flash_dq", "orion_tpu_torch/csrc/flash_attention_bwd.cu",
+             "orion_tpu/ops/pallas/flash_attention.py:384", tr["dq"], errs["dq"]),
+            ("flash_dkv", "orion_tpu_torch/csrc/flash_attention_bwd.cu",
+             "orion_tpu/ops/pallas/flash_attention.py:418", tr["dkv"], max(errs["dk"], errs["dv"]))]
+    lines = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+              "max_abs_err": err, **{key: x[key] for key in (
+                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+             for name, source, replaces, x, err in spec]
+    gen = timings["generate"]["fwd"]
+    lines[0]["generate_shape"] = {key: gen[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# The main paths
+# ---------------------------------------------------------------------------
+
+
+def _counts(cd, fa):
     return {"causal_dot_norm": cd.launches, "causal_dot_dq_den": cd.launches_dq,
-            "causal_dot_rev_den": cd.launches_rev}
+            "causal_dot_rev_den": cd.launches_rev, "flash_fwd": fa.launches_fwd,
+            "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv}
 
 
-def _reset_counts(cd):
+def _reset_counts(cd, fa):
     cd.launches = cd.launches_dq = cd.launches_rev = 0
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
 
 
-def main_path(dev, cd):
+def _layer_counts(cfg):
+    """(linear, softmax/swa) layers in all blocks and in the rematerialized
+    ones (the first n_layers - remat_skip when cfg.remat)."""
+    kinds = cfg.resolved_layer_types
+    first_remat = cfg.n_layers - max(0, cfg.remat_skip) if cfg.remat else 0
+    lin = sum(lt == "linear" for lt in kinds)
+    lin_remat = sum(lt == "linear" for lt in kinds[:first_remat])
+    return lin, len(kinds) - lin, lin_remat, first_remat - lin_remat
+
+
+def _state_err(states, ref_states):
+    """The largest relative error of a layer's decode state against its
+    reference: (S of the linear layers, the K and V caches of the others);
+    None where the model has no such layer."""
+    errs = {"s": [], "kv": []}
+    for a, b in zip(states, ref_states):
+        for key in ("s",) if "s" in a else ("k", "v"):
+            errs["s" if key == "s" else "kv"].append(float(
+                (a[key].float() - b[key].float()).abs().max() / b[key].float().abs().max()))
+    return tuple(max(e) if e else None for e in (errs["s"], errs["kv"]))
+
+
+def generate_phase(dev, cd, fa, name, prompt_len, new_tokens):
+    """``generate`` on ``name`` at full width: prefill and decode times,
+    exact launch counts, the prefill's logits and states against
+    backend="torch" on the same weights."""
     from orion_tpu_torch.generate import SampleConfig, cast_params_for_inference, generate
-    from orion_tpu_torch.models.configs import TINY, get_config
+    from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.models.transformer import TransformerLM
 
-    cfg = get_config("lm_1b3")
+    cfg = get_config(name)
     t0 = time.perf_counter()
     model = cast_params_for_inference(
         TransformerLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     )
     torch.cuda.synchronize()
-    log(f"lm_1b3: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+    log(f"{name}: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
         f"init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     prompts = torch.from_numpy(
-        np.random.default_rng(0).integers(0, 256, (4, 1024), dtype=np.int64)
+        np.random.default_rng(0).integers(0, 256, (4, prompt_len), dtype=np.int64)
     ).to(dev)
     greedy = SampleConfig(temperature=0.0)
 
     generate(model, prompts[:, :128], 2, greedy)  # warm-up: cuBLAS plans, allocator
     prefill_runs = [wall_ms(lambda: generate(model, prompts, 1, greedy))[0] for _ in range(3)]
 
-    _reset_counts(cd)
-    gen_ms, out = wall_ms(lambda: generate(model, prompts, 32, greedy))
-    counts = _counts(cd)
-    log(f"generate path launches: {counts}")
-    want = {"causal_dot_norm": cfg.n_layers, "causal_dot_dq_den": 0, "causal_dot_rev_den": 0}
+    _reset_counts(cd, fa)
+    gen_ms, out = wall_ms(lambda: generate(model, prompts, new_tokens, greedy))
+    counts = _counts(cd, fa)
+    lin, attn, _, _ = _layer_counts(cfg)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(causal_dot_norm=lin, flash_fwd=attn)
+    log(f"{name} generate launches: {counts}")
     if counts != want:
-        raise AssertionError(f"generate launched {counts}, want {want} (the forward once "
-                             "per layer, in the prefill)")
-    if out.shape != (4, 32) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{name} generate launched {counts}, want {want} (each layer's "
+                             "forward kernel once, in the prefill)")
+    if out.shape != (4, new_tokens) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"generate returned {tuple(out.shape)} / out-of-vocab tokens")
     prefill_ms = float(np.median(prefill_runs))
-    decode_ms = (gen_ms - prefill_ms) / 31
-    log(f"lm_1b3 B4 T1024: prefill (generate with 1 new token) {prefill_ms:.2f} ms "
-        f"(runs {[round(x, 2) for x in prefill_runs]}); generate 32 tokens {gen_ms:.2f} ms; "
-        f"decode {decode_ms:.3f} ms/token at batch 4")
+    decode_ms = (gen_ms - prefill_ms) / (new_tokens - 1)
+    log(f"{name} B4 T{prompt_len}: prefill (generate with 1 new token) {prefill_ms:.2f} ms "
+        f"(runs {[round(x, 2) for x in prefill_runs]}); generate {new_tokens} tokens "
+        f"{gen_ms:.2f} ms; decode {decode_ms:.3f} ms/token at batch 4")
     log(f"first tokens: {out[:, :8].tolist()}")
 
     # the kernel-backed prefill against the plain version, same weights
@@ -420,26 +666,37 @@ def main_path(dev, cd):
     with torch.inference_mode():
         logits, states = model.prefill_last(prompts)
         ref_logits, ref_states = ref_model.prefill_last(prompts)
-    del ref_model
+    del ref_model, model
     if logits.shape != (4, cfg.vocab_size) or logits.dtype != torch.float32 or not torch.isfinite(logits).all():
         raise AssertionError("prefill logits have the wrong shape, dtype or values")
     err = float((logits - ref_logits).abs().max())
-    s_err = max(float((a["s"] - b["s"]).abs().max() / b["s"].abs().max()) for a, b in zip(states, ref_states))
+    s_err, kv_err = _state_err(states, ref_states)
     agree = int((logits.argmax(-1) == ref_logits.argmax(-1)).sum())
-    # tolerance: the kernel and the plain version round each layer's
-    # attention output to bf16 from fp32 sums taken in different orders; a
-    # value near a rounding boundary flips by one bf16 step (2^-8 relative)
-    # and the flips carry through 24 residual layers into logits of unit
-    # scale
-    log(f"lm_1b3 prefill logits, kernel vs backend='torch': max abs {err:.4e} (tol 0.125), "
-        f"max |logit| {float(ref_logits.abs().max()):.3f}, greedy agree {agree}/4; "
-        f"per-layer S max rel {s_err:.3e} (tol {LAYER_S_RTOL:g})")
-    if err > 0.125 or s_err > LAYER_S_RTOL:
-        raise AssertionError("kernel-backed prefill disagrees with the plain version")
+    log(f"{name} prefill logits, kernel vs backend='torch': max abs {err:.4e} (tol "
+        f"{LOGITS_ATOL}), max |logit| {float(ref_logits.abs().max()):.3f}, greedy agree "
+        f"{agree}/4; per-layer state max rel: S {s_err} (tol {LAYER_S_RTOL:g}), K/V {kv_err} "
+        f"(tol {LAYER_KV_RTOL:g})")
+    del states, ref_states
+    torch.cuda.empty_cache()
+    if (err > LOGITS_ATOL or (s_err or 0.0) > LAYER_S_RTOL
+            or (kv_err or 0.0) > LAYER_KV_RTOL):
+        raise AssertionError(f"{name}: kernel-backed prefill disagrees with the plain version")
+    return {
+        "launches": counts, "prefill_ms": prefill_ms, "prefill_runs_ms": prefill_runs,
+        "generate_ms": gen_ms, "decode_ms_per_token": decode_ms,
+        "logits_max_abs_err": err, "s_max_rel_err": s_err, "kv_max_rel_err": kv_err,
+        "greedy_agree": agree,
+    }
 
-    # a small model end to end: the card against the CPU's plain path
-    tiny_cpu = TransformerLM(TINY, device="cpu", generator=torch.Generator().manual_seed(1))
-    tiny_gpu = TransformerLM(TINY, device=dev)
+
+def tiny_generate(dev, cfg, label):
+    """A small model end to end: the card against the CPU's plain path."""
+    from orion_tpu_torch.generate import SampleConfig, generate
+    from orion_tpu_torch.models.transformer import TransformerLM
+
+    greedy = SampleConfig(temperature=0.0)
+    tiny_cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    tiny_gpu = TransformerLM(cfg, device=dev)
     tiny_gpu.load_state_dict(tiny_cpu.state_dict())
     tp = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 100), dtype=np.int64))
     got = generate(tiny_gpu, tp.to(dev), 16, greedy)
@@ -448,60 +705,57 @@ def main_path(dev, cd):
         lg = tiny_gpu.prefill_last(tp.to(dev))[0].cpu()
         lc = tiny_cpu.prefill_last(tp)[0]
     tiny_err = float((lg - lc).abs().max())
-    log(f"tiny fp32, card vs CPU: greedy tokens equal {bool(torch.equal(got.cpu(), ref))}, "
-        f"logits max abs {tiny_err:.3e} (tol 1e-4)")
-    if not torch.equal(got.cpu(), ref) or tiny_err > 1e-4:
-        raise AssertionError("tiny on the card disagrees with the CPU path")
-    return {
-        "launches": counts, "prefill_ms": prefill_ms, "prefill_runs_ms": prefill_runs,
-        "generate_32_ms": gen_ms, "decode_ms_per_token": decode_ms,
-        "logits_max_abs_err": err, "state_max_rel_err": s_err, "greedy_agree": agree,
-        "tiny_logits_max_abs_err": tiny_err,
-    }
+    log(f"{label} fp32, card vs CPU: greedy tokens equal {bool(torch.equal(got.cpu(), ref))}, "
+        f"logits max abs {tiny_err:.3e} (tol {TINY_LOGITS_ATOL:g})")
+    if not torch.equal(got.cpu(), ref) or tiny_err > TINY_LOGITS_ATOL:
+        raise AssertionError(f"{label} on the card disagrees with the CPU path")
+    return tiny_err
 
 
-def train_path(dev, cd):
-    """lm_1b3 training at full width: 1 warm-up and 3 timed steps, with
+def train_phase(dev, cd, fa, name, seq_len):
+    """``name`` training at full width: 1 warm-up and 3 timed steps, with
     exact launch counts per step."""
     from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.training.data import DataLoader, SyntheticDataset
     from orion_tpu_torch.training.trainer import TrainConfig, Trainer
 
-    cfg = TrainConfig(model=get_config("lm_1b3"), steps=4, batch_size=8, seq_len=1024)
+    cfg = TrainConfig(model=get_config(name), steps=4, batch_size=8, seq_len=seq_len)
     m = cfg.model
-    want = {"causal_dot_norm": m.n_layers + (m.n_layers - m.remat_skip),
-            "causal_dot_dq_den": m.n_layers, "causal_dot_rev_den": m.n_layers}
+    lin, attn, lin_remat, attn_remat = _layer_counts(m)
+    want = {"causal_dot_norm": lin + lin_remat, "causal_dot_dq_den": lin,
+            "causal_dot_rev_den": lin, "flash_fwd": attn + attn_remat, "flash_dq": attn,
+            "flash_dkv": attn}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=dev)
     torch.cuda.synchronize()
-    log(f"lm_1b3 trainer: {sum(p.numel() for p in trainer.params.values()) / 1e9:.3f} B fp32 "
+    log(f"{name} trainer: {sum(p.numel() for p in trainer.params.values()) / 1e9:.3f} B fp32 "
         f"params + AdamW state, init {time.perf_counter() - t0:.1f} s")
     loader = DataLoader(SyntheticDataset(m.vocab_size, cfg.seq_len), cfg.batch_size,
                         seed=cfg.seed, device=dev)
     steps_ms, losses = [], []
-    _reset_counts(cd)
-    per_step, before = [], _counts(cd)
+    _reset_counts(cd, fa)
+    per_step, before = [], _counts(cd, fa)
     try:
         for _ in range(4):
             batch = next(loader)
             ms, metrics = wall_ms(lambda: trainer.step(batch))
-            after = _counts(cd)
+            after = _counts(cd, fa)
             per_step.append({k: after[k] - before[k] for k in after})
             before = after
             steps_ms.append(ms)
             losses.append(metrics["loss"])
     finally:
         loader.close()
-    counts = _counts(cd)
+    counts = _counts(cd, fa)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     timed = steps_ms[1:]
     step_ms = float(np.mean(timed))
     tokens_per_s = cfg.batch_size * cfg.seq_len / (step_ms / 1e3)
-    log(f"lm_1b3 train B8 T1024: step ms {[round(x, 2) for x in steps_ms]} (first is the "
+    log(f"{name} train B8 T{seq_len}: step ms {[round(x, 2) for x in steps_ms]} (first is the "
         f"warm-up), mean of the timed {step_ms:.2f} ms, {tokens_per_s:.0f} tokens/s, "
         f"max memory allocated {peak_gib:.2f} GiB; losses {[round(x, 4) for x in losses]}")
-    log(f"train path launches per step: {per_step} (want {want} each)")
+    log(f"{name} train launches per step: {per_step} (want {want} each)")
     if any(s != want for s in per_step):
         raise AssertionError(f"launches per training step {per_step}, want {want}")
     if not all(np.isfinite(x) and 0.0 < x < 20.0 for x in losses):
@@ -512,7 +766,7 @@ def train_path(dev, cd):
             "tokens_per_s": tokens_per_s, "max_memory_gib": peak_gib, "losses": losses}
 
 
-def grad_check(dev):
+def grad_check(dev, name, seq_len, batch_size=8):
     """One batch's loss and every parameter's gradient through the kernels
     (backend="cuda") against backend="torch", same weights, on the card."""
     from orion_tpu_torch.models.configs import get_config
@@ -520,8 +774,8 @@ def grad_check(dev):
     from orion_tpu_torch.training.data import SyntheticDataset, device_batch
     from orion_tpu_torch.training.trainer import lm_loss
 
-    cfg = get_config("lm_1b3")
-    batch = device_batch(SyntheticDataset(cfg.vocab_size, 1024), 0, 99, 8, dev)
+    cfg = get_config(name)
+    batch = device_batch(SyntheticDataset(cfg.vocab_size, seq_len), 0, 99, batch_size, dev)
     grads, losses = {}, {}
     weights = None
     for backend in ("cuda", "torch"):
@@ -538,7 +792,8 @@ def grad_check(dev):
             raise AssertionError(f"backend={backend}: no gradient for {missing[:5]} "
                                  f"({len(missing)} params)")
         grads[backend] = {n: p.grad for n, p in model.named_parameters()}
-        del model
+        del model, loss
+        torch.cuda.empty_cache()
     rel = {n: float((g - grads["torch"][n]).norm() / grads["torch"][n].norm().clamp_min(1e-30))
            for n, g in grads["cuda"].items()}
     finite = all(bool(torch.isfinite(g).all()) for g in grads["cuda"].values())
@@ -548,39 +803,39 @@ def grad_check(dev):
     for n, r in rel.items():
         kind = n.split(".", 2)[-1] if n.startswith("blocks.") else n
         by_kind[kind] = max(by_kind.get(kind, 0.0), r)
-    log(f"lm_1b3 grad check, kernels vs backend='torch': loss {losses['cuda']:.6f} vs "
-        f"{losses['torch']:.6f} (diff {loss_err:.3e}, limit {LM_LOSS_ATOL:g}); every one of "
-        f"{len(rel)} params has a gradient; relative L2 error, largest per kind "
-        f"{ {k: float(f'{v:.3e}') for k, v in by_kind.items()} } (limit {LM_GRAD_REL_L2:g}); "
-        f"worst {[(n, float(f'{r:.3e}')) for n, r in worst]}")
-    del grads
+    log(f"{name} grad check B{batch_size} T{seq_len}, kernels vs backend='torch': loss "
+        f"{losses['cuda']:.6f} vs {losses['torch']:.6f} (diff {loss_err:.3e}, limit "
+        f"{LM_LOSS_ATOL:g}); every one of {len(rel)} params has a gradient; relative L2 error, "
+        f"largest per kind { {k: float(f'{v:.3e}') for k, v in by_kind.items()} } (limit "
+        f"{LM_GRAD_REL_L2:g}); worst {[(n, float(f'{r:.3e}')) for n, r in worst]}")
+    del grads, weights
     torch.cuda.empty_cache()
     if not finite or loss_err > LM_LOSS_ATOL or worst[0][1] > LM_GRAD_REL_L2:
-        raise AssertionError("lm_1b3 gradients through the kernels disagree with backend='torch'")
+        raise AssertionError(f"{name} gradients through the kernels disagree with backend='torch'")
     return {"loss_abs_err": loss_err, "grad_rel_l2_max": worst[0][1], "by_kind": by_kind}
 
 
-def tiny_train(dev):
-    """3 fp32 training steps of ``tiny`` on the card and on the CPU from the
-    same weights and batches: the loss sequences must agree."""
-    from orion_tpu_torch.models.configs import TINY
+def tiny_train(dev, model_cfg, label):
+    """3 fp32 training steps of a small model on the card and on the CPU
+    from the same weights and batches: the loss sequences must agree."""
     from orion_tpu_torch.training.data import SyntheticDataset
     from orion_tpu_torch.training.trainer import TrainConfig, Trainer
 
-    cfg = TrainConfig(model=TINY, steps=3, batch_size=4, seq_len=128, warmup_steps=1, lr=1e-3)
+    cfg = TrainConfig(model=model_cfg, steps=3, batch_size=4, seq_len=128, warmup_steps=1,
+                      lr=1e-3)
     cpu, gpu = Trainer(cfg, device="cpu"), Trainer(cfg, device=dev)
     gpu.model.load_state_dict(cpu.model.state_dict())
-    ds = SyntheticDataset(TINY.vocab_size, cfg.seq_len)
+    ds = SyntheticDataset(model_cfg.vocab_size, cfg.seq_len)
     got, ref = [], []
     for step in range(3):
         b = torch.from_numpy(ds.batch(0, step, cfg.batch_size)).long()
         got.append(gpu.step(b.to(dev))["loss"])
         ref.append(cpu.step(b)["loss"])
     err = max(abs(a - b) for a, b in zip(got, ref))
-    log(f"tiny fp32 train, card vs CPU: losses {got} vs {ref}, max diff {err:.3e} "
+    log(f"{label} fp32 train, card vs CPU: losses {got} vs {ref}, max diff {err:.3e} "
         f"(limit {TINY_LOSS_ATOL:g})")
     if err > TINY_LOSS_ATOL:
-        raise AssertionError("tiny training on the card disagrees with the CPU")
+        raise AssertionError(f"{label} training on the card disagrees with the CPU")
     return {"loss_max_abs_err": err}
 
 
@@ -588,29 +843,45 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
         return 1
-    from orion_tpu_torch.ops.kernels import causal_dot
+    from orion_tpu_torch.models.configs import TINY
+    from orion_tpu_torch.ops.kernels import causal_dot, flash_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    card_info()
+    card = card_info()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    build(causal_dot)
+    t0 = time.perf_counter()
+    build([causal_dot, flash_attention])
     check_causal_dot(causal_dot, dev)
     kernels = check_training_kernels(causal_dot, dev)
-    generate_path = main_path(dev, causal_dot)
-    train = train_path(dev, causal_dot)
-    grad_check(dev)
-    tiny_train(dev)
+    kernels += check_flash(flash_attention, dev)
+    log(f"kernel phases done in {time.perf_counter() - t0:.1f} s")
+    tiny_hybrid = dataclasses.replace(TINY, layer_types=("swa", "linear"), window=16)
+
+    lm_gen = generate_phase(dev, causal_dot, flash_attention, "lm_1b3", 1024, 32)
+    tiny_generate(dev, TINY, "tiny")
+    lm_train = train_phase(dev, causal_dot, flash_attention, "lm_1b3", 1024)
+    grad_check(dev, "lm_1b3", 1024)
+    tiny_train(dev, TINY, "tiny")
+    log(f"lm_1b3 phases done at {time.perf_counter() - t0:.1f} s")
+
+    hy_gen = generate_phase(dev, causal_dot, flash_attention, "hybrid_1b3", 1536, 64)
+    tiny_generate(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16)")
+    hy_train = train_phase(dev, causal_dot, flash_attention, "hybrid_1b3", 2048)
+    grad_check(dev, "hybrid_1b3", 2048)
+    tiny_train(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16)")
+    log(f"hybrid_1b3 phases done at {time.perf_counter() - t0:.1f} s")
+
     for k in kernels:
-        k["launches"] = train["launches"][k["name"]]
-    kernels[0]["launches_generate"] = generate_path["launches"]["causal_dot_norm"]
-    log(json.dumps({"kernels": [
-        {key: k[key] for key in ("name", "route", "source", "replaces", "launches",
-                                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "launches_generate") if key in k}
-        for k in kernels
-    ]}))
+        k["launches"] = hy_train["launches"][k["name"]]
+        k["launches_generate"] = hy_gen["launches"][k["name"]]
+        k["launches_per_step"] = hy_train["per_step"][0][k["name"]]
+        if k["name"].startswith("causal_dot"):
+            k["launches_lm_1b3"] = {"train": lm_train["launches"][k["name"]],
+                                    "generate": lm_gen["launches"][k["name"]]}
+    log(f"card: {card}")
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,18 +3,21 @@
     python3 kernel_mutants.py
 
 On a machine with one CUDA card and ``nvcc``. Builds the sound kernels and
-deliberately wrong copies of them, each made by one textual edit of
-``orion_tpu_torch/csrc/causal_dot_norm.cu`` (the forward) or
-``causal_dot_bwd.cu`` (the two backward kernels), written under
+deliberately wrong copies of them, each made by one textual edit of a
+source in ``orion_tpu_torch/csrc/``: ``causal_dot_norm.cu`` ("fwd", the
+linear forward), ``causal_dot_bwd.cu`` ("bwd", its two backward kernels),
+``flash_attention.cu`` ("flash_fwd") or ``flash_attention_bwd.cu``
+("flash_bwd", dq and dk/dv), written under
 ``orion_tpu_torch/_build/mutants/`` (the sources in the checkout are never
 changed); all the builds start together, one nvcc each. Then it holds each
 copy against the plain versions with ``chip_smoke.compare_causal_dot``
-(forward copies, at the generate path's shape) or
-``chip_smoke.compare_training_kernels`` (backward copies, at the training
-shape), prints, per kernel, its readings and whether ``chip_smoke.agrees`` /
-``chip_smoke.agrees_training`` accepts it, then all of it as one JSON line.
-Exits nonzero if a sound kernel is rejected or a kernel that must be
-rejected is not. Imports nothing of JAX.
+(linear forward copies, at the generate path's shape),
+``chip_smoke.compare_training_kernels`` (linear backward copies, at the
+training shape) or ``chip_smoke.compare_flash`` (flash copies, on all its
+cases), prints, per kernel, its readings and whether ``chip_smoke.agrees`` /
+``agrees_training`` / ``agrees_flash`` accepts it, then all of it as one
+JSON line. Exits nonzero if a sound kernel is rejected or a kernel that
+must be rejected is not. Imports nothing of JAX.
 """
 
 import json
@@ -24,7 +27,11 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 import chip_smoke
-from orion_tpu_torch.ops.kernels import causal_dot
+from orion_tpu_torch.ops.kernels import causal_dot, flash_attention, library
+
+# source name -> (wrapper module, its SOURCES key)
+SOURCES = {"fwd": (causal_dot, "fwd"), "bwd": (causal_dot, "bwd"),
+           "flash_fwd": (flash_attention, "fwd"), "flash_bwd": (flash_attention, "bwd")}
 
 # (name, source, what it breaks, text of the source, its replacement, must be rejected)
 MUTANTS = [
@@ -68,12 +75,44 @@ MUTANTS = [
     ("dq_z0_ignored", "bwd", "starts dq's prefix z from zero instead of z0",
      "zs[j] = (p.z0 != nullptr && j < dwt)",
      "zs[j] = (ROLE == ROLE_DK && p.z0 != nullptr && j < dwt)", True),
+    ("flash_window_off_by_one", "flash_fwd",
+     "lets each query see w + 1 keys: t - s <= w for t - s < w",
+     "(window <= 0 || row - col < window);", "(window <= 0 || row - col <= window);", True),
+    ("flash_bwd_window_off_by_one", "flash_bwd", "the same in both backward kernels' mask",
+     "(window <= 0 || row - col < window);", "(window <= 0 || row - col <= window);", True),
+    ("flash_causal_dropped", "flash_fwd",
+     "drops the causal mask: the diagonal tile's later keys leak in",
+     "(!causal || row >= col)", "(true)", True),
+    ("flash_alpha_one", "flash_fwd",
+     "never rescales l and the accumulator when the running max grows (alpha = 1)",
+     "const float alpha = expf(m[i] - m_new);", "const float alpha = 1.f;", True),
+    ("flash_bf16_probs", "flash_fwd",
+     "rounds P to bf16 before P v (the TPU kernel keeps it fp32)",
+     "ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;",
+     "ps[(ty + 16 * i) * LDP + tx + 16 * j] = __bfloat162float(__float2bfloat16_rn(p));", True),
+    ("flash_dq_no_delta", "flash_bwd", "drops - delta from dq's dS",
+     "const float ds = p * (dp[i][j] - dl[i]) * scale;",
+     "const float ds = p * dp[i][j] * scale;", True),
+    ("flash_dkv_stops_at_diagonal", "flash_bwd",
+     "ends dk/dv's q-tile loop at the diagonal tile instead of the band's end",
+     "hi = min(hi, (k0 + BK - 1 + window - 1) / BQ);", "hi = min(hi, (k0 + BK - 1) / BQ);",
+     True),
 ]
 
 
 def run(name, source, dev):
-    causal_dot._libs.clear()  # load the libraries built from causal_dot.SOURCES
-    if source == "fwd":
+    causal_dot._libs.clear()  # load the libraries built from the modules' SOURCES
+    flash_attention._libs.clear()
+    if source.startswith("flash"):
+        readings, _ = chip_smoke.compare_flash(flash_attention, dev)
+        accepted = all(chip_smoke.agrees_flash(r) for r in readings)
+        for r in readings:
+            chip_smoke.log(
+                f"  {r['case']}: " + "; ".join(
+                    f"{n} {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3g} of its limit)"
+                    for n in ("out", "dq", "dk", "dv"))
+                + f"; lse {r['lse_max_abs']:.3e} ({r['lse_over_limit']:.3g} of its limit)")
+    elif source == "fwd":
         readings, _ = chip_smoke.compare_causal_dot(causal_dot, dev)
         accepted = all(chip_smoke.agrees(r) for r in readings)
         for r in readings:
@@ -105,9 +144,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     chip_smoke.card_info()
-    sound = dict(causal_dot.SOURCES)
+    sound = {k: mod.SOURCES[key] for k, (mod, key) in SOURCES.items()}
     texts = {k: p.read_text() for k, p in sound.items()}
-    mutant_dir = causal_dot.BUILD_DIR / "mutants"
+    mutant_dir = library.BUILD_DIR / "mutants"
     mutant_dir.mkdir(parents=True, exist_ok=True)
     paths = {}
     for name, source, _, old, new, _ in MUTANTS:
@@ -117,23 +156,29 @@ def main() -> int:
         paths[name].write_text(texts[source].replace(old, new))
     builds = list(sound.values()) + list(paths.values())
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc for each source, all at once
-        list(pool.map(causal_dot.build, builds))
+        list(pool.map(library.build, builds))
 
-    results = [run("sound", "fwd", dev), run("sound", "bwd", dev)]
+    results = [run("sound", src, dev) for src in ("fwd", "bwd", "flash_fwd")]
     ok = all(r["accepted"] for r in results)
     for name, source, breaks, _, _, must_reject in MUTANTS:
-        causal_dot.SOURCES[source] = paths[name]
+        mod, key = SOURCES[source]
+        mod.SOURCES[key] = paths[name]
         chip_smoke.log(f"{name} ({breaks}):")
         r = run(name, source, dev)
         r.update(breaks=breaks, must_reject=must_reject)
         results.append(r)
         ok = ok and not (must_reject and r["accepted"])
-        causal_dot.SOURCES[source] = sound[source]
+        mod.SOURCES[key] = sound[source]
     causal_dot._libs.clear()
+    flash_attention._libs.clear()
     chip_smoke.log(json.dumps({
         "limits": {"out_rtol": chip_smoke.OUT_RTOL, "out_atol": chip_smoke.OUT_ATOL,
                    "state_rtol": chip_smoke.STATE_RTOL, "grad_rtol": chip_smoke.GRAD_RTOL,
-                   "grad_atol_of_max": chip_smoke.GRAD_ATOL_OF_MAX},
+                   "grad_atol_of_max": chip_smoke.GRAD_ATOL_OF_MAX,
+                   "flash_rtol": {str(k): v for k, v in chip_smoke.FLASH_RTOL.items()},
+                   "flash_atol_of_max": chip_smoke.FLASH_ATOL_OF_MAX,
+                   "flash_grad_floor": chip_smoke.FLASH_GRAD_FLOOR,
+                   "lse_rtol": chip_smoke.LSE_RTOL},
         "kernels": results,
     }))
     return 0 if ok else 1

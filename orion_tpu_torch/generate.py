@@ -3,10 +3,13 @@
 The port's counterpart of ``orion_tpu/generate.py``:
 
 1. **prefill** -- ``TransformerLM.prefill_last`` over the prompt: the
-   parallel forward (each layer's attention through the fused CUDA kernel on
-   the card) returning the last position's logits and each layer's (S, z);
+   parallel forward (each layer's attention through its forward CUDA kernel
+   on the card) returning the last position's logits and each layer's
+   decode state: (S, z) for a linear layer, a KV cache for a softmax layer,
+   a ring of the last ``window`` keys and values for a swa layer;
 2. **decode** -- a Python loop of ``decode_step``, one token at a time, with
-   O(1) state per layer;
+   O(1) state per linear layer and one query over the cache per softmax /
+   swa layer;
 3. **sampling** -- greedy / temperature / top-k / top-p, drawn from a
    ``torch.Generator``. torch's and JAX's generators draw different numbers,
    so sampled tokens match the JAX package's only in distribution; greedy

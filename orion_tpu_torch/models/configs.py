@@ -12,7 +12,9 @@ PyTorch version, and takes
 - ``"cuda"``  -- the kernel, raising on CPU tensors.
 
 ``chunk`` sizes only the plain chunked form; the kernel's chunk is a
-constant of the kernel (``csrc/causal_dot_norm.cu``).
+constant of the kernel (``csrc/causal_dot_norm.cu``). ``attn_block_q`` /
+``attn_block_k`` size the JAX package's TPU flash tiles and are not read:
+the flash kernels' tile is a constant of ``csrc/flash_attention*.cu``.
 """
 
 from __future__ import annotations

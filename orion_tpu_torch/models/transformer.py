@@ -1,23 +1,32 @@
-"""TransformerLM in PyTorch: the linear-attention slice of
-``orion_tpu/models/transformer.py``.
+"""TransformerLM in PyTorch: the linear, softmax and sliding-window layers
+of ``orion_tpu/models/transformer.py``.
 
-Decoder LM with causal linear attention (elu+1 phi by default), SwiGLU or
-GELU MLP, RMSNorm, learned positions and a tied head. Three entry methods,
-as in the JAX package:
+Decoder LM with per-layer attention of type ``"linear"`` (causal linear
+attention, elu+1 phi by default), ``"softmax"`` (full causal softmax) or
+``"swa"`` (sliding-window softmax over ``cfg.window`` keys) -- the hybrid
+family mixes the last two kinds with linear layers -- plus SwiGLU or GELU
+MLP, RMSNorm, learned positions and a tied head. Softmax and swa layers
+rotate q and k (RoPE, ``ops/rotary.py``). Three entry methods, as in the JAX
+package:
 
 - ``forward(tokens)``            -- the parallel forward -> logits [B, T, V];
   ``features(tokens)`` is its input to the head, which the fused-CE training
   loss (``ops/fused_ce.py``) takes with ``head_weight()``; with grad enabled
-  every layer's attention runs the kernel pair forward/backward
-  (``ops.linear_attention`` -> ``LinearAttentionFn``), blocks before the
+  every layer's attention runs its kernels forward and backward (linear:
+  ``ops.linear_attention`` -> ``LinearAttentionFn``; softmax / swa:
+  ``ops.softmax_attention`` -> ``FlashAttentionFn``), blocks before the
   last ``remat_skip`` are recomputed in the backward when ``cfg.remat``
   (``torch.utils.checkpoint``), and ``deterministic=False`` applies block
   dropout drawn from generators seeded per layer from ``dropout_seed``;
 - ``prefill(tokens)`` / ``prefill_last(tokens)`` -- the same forward, also
-  returning each layer's decode state (S, z); every layer's attention runs
-  through ``ops.linear_attention`` and so through the fused CUDA kernel on
-  the card;
-- ``decode_step(token, states, t)`` -- one O(1)-state recurrent step.
+  returning each layer's decode state: (S, z) for a linear layer, a KV
+  cache for a softmax layer (capacity ``max_seq_len``) and a ring of the
+  last ``window`` keys and values for a swa layer, both in the compute
+  dtype; on the card every attention runs its forward kernel;
+- ``decode_step(token, states, t)`` -- one step: O(1) state for linear
+  layers, one query over the cache for softmax / swa (plain torch, as the
+  JAX package leaves it to XLA). ``t`` is a scalar position or one per
+  sequence [B]. The caches are new tensors each step, as in JAX.
 
 Numerics follow the flax model (these are where parity breaks first):
 dense layers run in the compute dtype on weights rounded to it (flax
@@ -29,8 +38,9 @@ embeddings add in fp32 and then cast; the head multiplies bf16-rounded
 operands with fp32 accumulation into fp32 logits; (S, z) stay fp32.
 
 Not ported yet (they raise ``NotImplementedError`` naming ROADMAP.md's
-item): softmax and sliding-window layers, LayerNorm, an untied head, MoE,
-quantized weights, meshes, ``remat_policy="dots"``.
+item): LayerNorm, an untied head, MoE, quantized weights, meshes,
+``remat_policy="dots"``. The JAX package's ``attn_block_q`` /
+``attn_block_k`` size TPU tiles and are not read.
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ from torch.utils.checkpoint import checkpoint
 from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.ops.feature_maps import make_feature_map
 from orion_tpu_torch.ops.linear_attention import linear_attention, recurrent_step
+from orion_tpu_torch.ops.rotary import apply_rotary, apply_rotary_at, rotary_freqs
+from orion_tpu_torch.ops.softmax_attention import cached_attention, softmax_attention
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
 
@@ -69,10 +81,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice of the port lacks."""
-    for lt in cfg.resolved_layer_types:
-        if lt != "linear":
-            raise _not_ported(f"layer type {lt!r}", "item 6 (hybrid slice)")
+    """Raise ``NotImplementedError`` for what the port lacks so far (and
+    ``ValueError`` for an unknown layer type)."""
+    cfg.resolved_layer_types  # noqa: B018 -- raises on an unknown layer type
     if cfg.n_experts:
         raise _not_ported("mixture-of-experts", "item 10 (MoE)")
     if cfg.norm != "rmsnorm":
@@ -125,20 +136,30 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    """One causal linear-attention layer."""
+    """One causal attention layer of type ``"linear"``, ``"softmax"`` or
+    ``"swa"``."""
 
     def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None):
         super().__init__()
-        if layer_type != "linear":
-            raise _not_ported(f"layer type {layer_type!r}", "item 6 (hybrid slice)")
+        if layer_type not in ("linear", "softmax", "swa"):
+            raise ValueError(f"unknown layer type {layer_type!r}")
         self.cfg = cfg
+        self.layer_type = layer_type
         h, dh = cfg.n_heads, cfg.resolved_head_dim
         cdt = _dtype(cfg.dtype)
         self.wq = Dense(cfg.d_model, h * dh, cdt, device)
         self.wk = Dense(cfg.d_model, h * dh, cdt, device)
         self.wv = Dense(cfg.d_model, h * dh, cdt, device)
         self.wo = Dense(h * dh, cfg.d_model, cdt, device)
-        self._phi = make_feature_map(cfg.feature_map)
+        if layer_type == "linear":
+            self._phi = make_feature_map(cfg.feature_map)
+        else:
+            # the rotary angle table: a buffer that is not saved, so the
+            # state_dict (convert.py, checkpoints) holds parameters only
+            self.register_buffer(
+                "freqs", rotary_freqs(dh, cfg.max_seq_len, device=device), persistent=False
+            )
+            self.window = cfg.window if layer_type == "swa" else None
 
     def _heads(self, x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
         """x [B, T, D] -> q, k, v [B, H, T, Dh]; x [B, D] -> [B, H, Dh]."""
@@ -159,24 +180,51 @@ class Attention(nn.Module):
             out = out.transpose(-3, -2)  # [B, T, H, Dh]
         return self.wo(out.reshape(*out.shape[:-2], -1))
 
+    def _softmax(self, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+        """Causal softmax / sliding-window attention over rotated q, k."""
+        return softmax_attention(q, k, v, causal=True, window=self.window,
+                                 backend=self.cfg.backend)
+
     def forward(self, x: Tensor) -> Tensor:
         q, k, v = self._heads(x)
-        out = linear_attention(
-            self._phi_map(q), self._phi_map(k), v,
-            backend=self.cfg.backend, chunk=self.cfg.chunk,
-        )
+        if self.layer_type == "linear":
+            out = linear_attention(
+                self._phi_map(q), self._phi_map(k), v,
+                backend=self.cfg.backend, chunk=self.cfg.chunk,
+            )
+        else:
+            ang = self.freqs[: x.shape[-2]]
+            out = self._softmax(apply_rotary(q, ang), apply_rotary(k, ang), v)
         return self._merge(out, single=False)
 
     def prefill(
         self, x: Tensor, length: Optional[Union[int, Tensor]] = None
     ) -> Tuple[Tensor, State]:
         """Forward plus the decode state. ``length``: the real prompt length
-        when ``x`` is right-padded; pad rows' phi(k) and v are zeroed before
-        the kv-cumsum, so (S, z) hold only the real rows."""
+        when ``x`` is right-padded. The state holds only the real rows:
+
+        - linear: pad rows' phi(k) and v are zeroed before the kv-cumsum;
+        - softmax: pad rows land at cache slots >= length, which decode
+          never reads (step t writes slot t before it attends and masks the
+          slots past t);
+        - swa: the ring is built from the last ``window`` real positions.
+        """
         q, k, v = self._heads(x)
+        t = x.shape[-2]
+        if self.layer_type != "linear":
+            ang = self.freqs[:t]
+            qr, kr = apply_rotary(q, ang), apply_rotary(k, ang)
+            out = self._softmax(qr, kr, v)
+            if self.layer_type == "softmax":
+                pad = (0, 0, 0, self.cfg.max_seq_len - t)
+                state = {"k": F.pad(kr, pad), "v": F.pad(v, pad)}
+            elif length is None:
+                state = _swa_cache_from_prefill(kr, v, t, self.window)
+            else:
+                state = _swa_cache_from_prefill_dynamic(kr, v, length, self.window)
+            return self._merge(out, single=False), state
         qf, kf = self._phi_map(q), self._phi_map(k)
         if length is not None:
-            t = x.shape[-2]
             real = (torch.arange(t, device=x.device) < length)[None, None, :, None]
             # where, not multiply: 0 * nan from a degenerate phi must not
             # poison the masked state
@@ -189,15 +237,72 @@ class Attention(nn.Module):
         return self._merge(out, single=False), {"s": s, "z": z}
 
     def decode_step(self, x: Tensor, state: State, t=None) -> Tuple[Tensor, State]:
-        """x [B, D], one token per row -> (out [B, D], new state). ``t`` (the
-        position) is unused by linear layers; it is kept for the signature
-        the other layer types share in the JAX package."""
-        del t
+        """x [B, D], one token per row -> (out [B, D], new state). ``t``: the
+        absolute position, a scalar (the whole batch in lockstep) or one per
+        sequence [B]; unused by linear layers."""
         q, k, v = self._heads(x)
-        out, (s, z) = recurrent_step(
-            self._phi_map(q), self._phi_map(k), v, (state["s"], state["z"])
-        )
-        return self._merge(out, single=True), {"s": s, "z": z}
+        if self.layer_type == "linear":
+            out, (s, z) = recurrent_step(
+                self._phi_map(q), self._phi_map(k), v, (state["s"], state["z"])
+            )
+            return self._merge(out, single=True), {"s": s, "z": z}
+        t = torch.as_tensor(t, device=x.device).long()
+        per_seq = t.dim() == 1
+        # per-sequence angles [B, 1, Dh/2] broadcast over the heads
+        pos = t[:, None] if per_seq else t
+        qr = apply_rotary_at(q, self.freqs, pos)
+        kr = apply_rotary_at(k, self.freqs, pos)
+        cap = state["k"].shape[-2]  # window W or max_seq_len
+        slot = t % cap if self.layer_type == "swa" else t
+        if per_seq:
+            rows = torch.arange(x.shape[0], device=x.device)
+            kc, vc = state["k"].clone(), state["v"].clone()
+            kc[rows, :, slot] = kr.to(kc.dtype)
+            vc[rows, :, slot] = v.to(vc.dtype)
+            valid = torch.arange(cap, device=x.device)[None, None, :] <= t[:, None, None]
+        else:
+            idx = slot.reshape(1)
+            kc = state["k"].index_copy(2, idx, kr[:, :, None].to(state["k"].dtype))
+            vc = state["v"].index_copy(2, idx, v[:, :, None].to(state["v"].dtype))
+            # ring slots hold positions (t - W, t] once warm; before that the
+            # slots past t are unwritten: either way exactly the slots <= t
+            # are valid
+            valid = (torch.arange(cap, device=x.device) <= t)[None, None, :]
+        out = cached_attention(qr, kc, vc, valid)
+        return self._merge(out, single=True), {"k": kc, "v": vc}
+
+
+def _swa_cache_from_prefill(kr: Tensor, v: Tensor, t: int, window: int) -> State:
+    """The ring cache from the last ``window`` prompt positions, each at slot
+    (position % window); unwritten slots stay zero (decode's slot <= t rule
+    masks them)."""
+    b, h, _, dh = kr.shape
+    start = max(0, t - window)
+    slots = torch.arange(start, t, device=kr.device) % window
+    kc = kr.new_zeros(b, h, window, dh)
+    vc = v.new_zeros(b, h, window, v.shape[-1])
+    kc[:, :, slots] = kr[:, :, start:t]
+    vc[:, :, slots] = v[:, :, start:t]
+    return {"k": kc, "v": vc}
+
+
+def _swa_cache_from_prefill_dynamic(kr: Tensor, v: Tensor, length, window: int) -> State:
+    """``_swa_cache_from_prefill`` for a right-padded prompt of real length
+    ``length`` (an int or a 0-d tensor): the ring holds the ``window``
+    positions before ``length``. Positions < 0 (a prompt shorter than the
+    window) write a clipped row into their slot; decode never reads it
+    before the step that overwrites it, so the readable entries equal those
+    ``_swa_cache_from_prefill`` makes from the unpadded prompt."""
+    b, h, t_pad, dh = kr.shape
+    positions = torch.as_tensor(length, device=kr.device) - window + torch.arange(
+        window, device=kr.device)
+    slots = positions % window
+    safe = positions.clamp(0, t_pad - 1)
+    kc = kr.new_zeros(b, h, window, dh)
+    vc = v.new_zeros(b, h, window, v.shape[-1])
+    kc[:, :, slots] = kr[:, :, safe]
+    vc[:, :, slots] = v[:, :, safe]
+    return {"k": kc, "v": vc}
 
 
 class MLP(nn.Module):
@@ -427,17 +532,27 @@ class TransformerLM(nn.Module):
 def init_decode_state(
     cfg: ModelConfig, batch_size: int, device=None
 ) -> List[State]:
-    """Zero per-layer decode state (fp32 S, z), prefill's structure."""
+    """Zero per-layer decode state, prefill's structure: fp32 (S, z) for a
+    linear layer; KV caches [B, H, cap, Dh] in the compute dtype for the
+    others, of capacity ``window`` (swa) or ``max_seq_len`` (softmax)."""
     check_supported(cfg)
     h, dh = cfg.n_heads, cfg.resolved_head_dim
     dev = resolve_device(device)
-    return [
-        {
-            "s": torch.zeros(batch_size, h, dh, dh, dtype=torch.float32, device=dev),
-            "z": torch.zeros(batch_size, h, dh, dtype=torch.float32, device=dev),
-        }
-        for _ in cfg.resolved_layer_types
-    ]
+    states: List[State] = []
+    for lt in cfg.resolved_layer_types:
+        if lt == "linear":
+            states.append({
+                "s": torch.zeros(batch_size, h, dh, dh, dtype=torch.float32, device=dev),
+                "z": torch.zeros(batch_size, h, dh, dtype=torch.float32, device=dev),
+            })
+        else:
+            cap = cfg.window if lt == "swa" else cfg.max_seq_len
+            shape = (batch_size, h, cap, dh)
+            states.append({
+                "k": torch.zeros(shape, dtype=_dtype(cfg.dtype), device=dev),
+                "v": torch.zeros(shape, dtype=_dtype(cfg.dtype), device=dev),
+            })
+    return states
 
 
 __all__ = [

@@ -1,12 +1,15 @@
 """Backend choice for the port's kernel-backed ops.
 
-``resolve`` makes the one choice between the CUDA kernel and its plain
-PyTorch version. ``"auto"`` takes the kernel for CUDA tensors and the plain
-version for CPU tensors, ``"torch"`` the plain version anywhere, ``"cuda"``
-the kernel (which raises for CPU tensors). The JAX package's chunk defaults
-(``orion_tpu/ops/dispatch.py``) were tuned for the TPU's matrix unit and are
-not copied: the kernel's chunk is a constant of the kernel source, and the
-plain chunked form takes ``DEFAULT_CHUNK`` unless the caller names one.
+``resolve`` makes the one choice between a CUDA kernel and its plain
+PyTorch version, for linear attention (``ops/linear_attention.py``) and
+softmax attention (``ops/softmax_attention.py``) alike. ``"auto"`` takes the
+kernel for CUDA tensors and the plain version for CPU tensors, ``"torch"``
+the plain version anywhere, ``"cuda"`` the kernel (which raises for CPU
+tensors). The JAX package's chunk and block defaults
+(``orion_tpu/ops/dispatch.py``, ``attn_block_q`` / ``attn_block_k``) were
+tuned for the TPU's matrix unit and are not copied: a kernel's chunk or
+tile is a constant of its source, and the plain chunked form takes
+``DEFAULT_CHUNK`` unless the caller names one.
 """
 
 from __future__ import annotations

@@ -29,36 +29,30 @@ Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
 launches (``launches``, ``launches_dq``, ``launches_rev``: kernel launches
 and nothing else). Each ``*_plain`` function is its kernel's function in
 plain PyTorch, on any device. The libraries are compiled with ``nvcc`` for
-``sm_90a`` at first use into ``orion_tpu_torch/_build/`` (a name carrying a
-hash of the source, so an edited source is rebuilt) and loaded with
-``ctypes``. Nothing here touches CUDA while the module is imported.
+``sm_90a`` at first use (``library.py``: into ``orion_tpu_torch/_build/``,
+under a name carrying a hash of the source) and loaded with ``ctypes``.
+Nothing here touches CUDA while the module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
 from orion_tpu_torch.ops.dispatch import DEFAULT_CHUNK, resolve_chunk
+from orion_tpu_torch.ops.kernels.library import CSRC, check_launch, load, raise_if_grad
+from orion_tpu_torch.ops.kernels.library import stream as _stream
 from orion_tpu_torch.ops.linear_attention import _pad_chunks, causal_dot_product_chunked
 
 Tensor = torch.Tensor
 
-_PKG = Path(__file__).resolve().parents[2]
 # one library per source; "fwd" holds row 1, "bwd" rows 3 and 4
 SOURCES = {
-    "fwd": _PKG / "csrc" / "causal_dot_norm.cu",
-    "bwd": _PKG / "csrc" / "causal_dot_bwd.cu",
+    "fwd": CSRC / "causal_dot_norm.cu",
+    "bwd": CSRC / "causal_dot_bwd.cu",
 }
-BUILD_DIR = _PKG / "_build"
 # kernel limits, as in the sources: head widths of at most D_MAX
 D_MAX = 128
 
@@ -66,6 +60,8 @@ launches = 0  # forward kernel launches since import (or since a caller reset it
 launches_dq = 0  # dq-pass kernel launches
 launches_rev = 0  # reverse-pass kernel launches
 _libs: dict = {}
+# where a caller that wants gradients goes instead of the bare forward kernel
+_GRAD_PATH = "ops.linear_attention.linear_attention / LinearAttentionFn"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -77,108 +73,14 @@ _SIGNATURES = {
 }
 
 
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the kernels build on the card's host")
-
-
-def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
-
-
-def _build_command(source: Path, out: Path) -> list:
-    return [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(out), str(source),
-    ]
-
-
-def build(source: Path) -> Tuple[Path, str]:
-    """Compile ``source`` into a library if it has no build yet. Returns
-    (path, compiler output); the output is empty when the build already
-    existed. Writes to a temporary name and renames, so concurrent builds
-    are safe."""
-    path = _library_path(source)
-    if path.exists():
-        return path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            _build_command(source, Path(tmp)), capture_output=True, text=True, timeout=600,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {source}:\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, proc.stdout + proc.stderr
-
-
 def _library(name: str):
     if name not in _libs:
-        path, _ = build(SOURCES[name])
-        lib = ctypes.CDLL(str(path))
-        for fn_name, argtypes in _SIGNATURES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[name] = load(SOURCES[name], _SIGNATURES[name])
     return _libs[name]
 
 
 def _ptr(x: Optional[Tensor]):
     return x.data_ptr() if x is not None else None
-
-
-def _raise_if_grad(*tensors):
-    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors):
-        raise RuntimeError(
-            "a CUDA kernel's output carries no gradient: call the kernel with grad "
-            "disabled, or go through ops.linear_attention.linear_attention / "
-            "LinearAttentionFn, whose backward runs the backward kernels"
-        )
-
-
-def _check_launch(fn_name: str, acts, fp32s):
-    """Checks every kernel wrapper makes before a launch: ``acts`` (the
-    activations) share bf16 or fp32, ``fp32s`` (states, gden; None for
-    absent ones) are fp32, all lie on one CUDA device, all contiguous."""
-    fp32s = [x for x in fp32s if x is not None]
-    tensors = list(acts) + fp32s
-    first = tensors[0]
-    if first.device.type != "cuda":
-        raise RuntimeError(
-            f"{fn_name} needs CUDA tensors; got {first.device} "
-            "(backend='torch' runs the plain version anywhere)"
-        )
-    if any(x.device != first.device for x in tensors):
-        raise ValueError("all inputs must lie on one device")
-    dt = acts[0].dtype
-    if dt not in (torch.bfloat16, torch.float32) or any(x.dtype != dt for x in acts):
-        raise TypeError(
-            f"{fn_name}: the activations must share dtype bf16 or fp32; got "
-            f"{[x.dtype for x in acts]}"
-        )
-    if any(x.dtype != torch.float32 for x in fp32s):
-        raise TypeError(f"{fn_name}: states and gden must be float32")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("inputs must be contiguous")
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, s0: Optional[Tensor], z0: Optional[Tensor]):
@@ -229,9 +131,9 @@ def causal_dot_norm_cuda(
     bf16/fp32, non-contiguous inputs, Dk > 128. The kernel's chunk is a
     constant of its source."""
     global launches
-    _raise_if_grad(q, k, v, s0, z0)
+    raise_if_grad([q, k, v, s0, z0], _GRAD_PATH)
     _check(q, k, v, s0, z0)
-    _check_launch("causal_dot_norm_cuda", [q, k, v], [s0, z0])
+    check_launch("causal_dot_norm_cuda", [q, k, v], [s0, z0])
     bh, t, dk = q.shape
     dv = v.shape[-1]
     if dk > D_MAX:
@@ -309,7 +211,7 @@ def causal_dot_dq_den_cuda(
     bh, t, dk, dv = _check_bwd(g, v, k)
     _check_gden(gden, bh, t)
     _check_state(s0, z0, bh, dk, dv, "s0", "z0")
-    _check_launch("causal_dot_dq_den_cuda", [g, v, k], [gden, s0, z0])
+    check_launch("causal_dot_dq_den_cuda", [g, v, k], [gden, s0, z0])
     if dv > D_MAX:
         raise ValueError(f"Dv {dv} > {D_MAX}, the kernel's limit")
     dq = torch.empty_like(k)
@@ -337,7 +239,7 @@ def causal_dot_rev_den_cuda(
     bh, t, dk, dv = _check_bwd(g, v, k, q)
     _check_gden(gden, bh, t)
     _check_state(gsf, gzf, bh, dk, dv, "gsf", "gzf")
-    _check_launch("causal_dot_rev_den_cuda", [q, k, v, g], [gden, gsf, gzf])
+    check_launch("causal_dot_rev_den_cuda", [q, k, v, g], [gden, gsf, gzf])
     if dk > D_MAX or dv > D_MAX:
         raise ValueError(f"Dk {dk} or Dv {dv} > {D_MAX}, the kernel's limit")
     dk_out, dv_out = torch.empty_like(k), torch.empty_like(v)
@@ -494,5 +396,5 @@ __all__ = [
     "causal_dot_norm_cuda", "causal_dot_norm_plain",
     "causal_dot_dq_den_cuda", "causal_dot_dq_den_plain",
     "causal_dot_rev_den_cuda", "causal_dot_rev_den_plain",
-    "LinearAttentionFn", "quotient_rule", "build", "SOURCES",
+    "LinearAttentionFn", "quotient_rule", "SOURCES",
 ]

@@ -4,9 +4,10 @@ checkpoint glue.
 
 The port's counterpart of ``orion_tpu/training/trainer.py`` on one card (or
 the CPU). Mixed precision as the reference: fp32 params, activations in the
-model's compute dtype, fp32 logits, loss and grads. Every linear layer's
-attention runs its forward kernel and its two backward kernels
-(``ops/kernels/causal_dot.py``); blocks are recomputed in the backward per
+model's compute dtype, fp32 logits, loss and grads. Every layer's
+attention runs its forward kernel and its two backward kernels (linear
+layers: ``ops/kernels/causal_dot.py``; softmax / swa layers:
+``ops/kernels/flash_attention.py``); blocks are recomputed in the backward per
 ``cfg.model.remat`` / ``remat_skip``; the loss goes through the fused head +
 cross entropy (``ops/fused_ce.py``).
 

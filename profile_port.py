@@ -1,15 +1,15 @@
-"""Where the port's lm_1b3 generate and training paths spend the card's time.
+"""Where the port's generate and training paths spend the card's time.
 
     python3 profile_port.py
 
-On a machine with one CUDA card. Builds ``lm_1b3`` at full width from
-seeded random weights, then traces with ``torch.profiler`` (a) one prefill
-of 4 prompts of 1024 tokens, (b) 8 decode steps at batch 4 and (c) one
-training step (``Trainer.step``, batch 8 x 1024 tokens, AdamW, remat as the
-config sets it) after a warm-up step. For each it prints the device time by
-kernel (largest first, grouped into the three attention kernels, dense
-products, and everything else), the number of kernel launches, the
-window's wall time and
+On a machine with one CUDA card. For ``lm_1b3`` (prompts of 1024 tokens,
+training at 8 x 1024) and ``hybrid_1b3`` (prompts of 1536, training at 8 x
+2048), each at full width from seeded random weights, it traces with
+``torch.profiler`` (a) one prefill of 4 prompts, (b) 8 decode steps at batch
+4 and (c) one training step (``Trainer.step``, AdamW, remat as the config
+sets it) after a warm-up step. For each it prints the device time by kernel
+(largest first, grouped into the six attention kernels, dense products, and
+everything else), the number of kernel launches, the window's wall time and
 the device's idle share of it (1 - summed kernel time / wall time; the port
 runs on one stream, so kernels do not overlap), then all of it as one JSON
 line. Imports nothing of JAX.
@@ -34,7 +34,8 @@ def _device_us(evt):
 
 def _group(name):
     low = name.lower()
-    for kernel in ("causal_dot_norm", "causal_dot_dq_den", "causal_dot_rev_den"):
+    for kernel in ("causal_dot_norm", "causal_dot_dq_den", "causal_dot_rev_den",
+                   "flash_fwd", "flash_dq", "flash_dkv"):
         if kernel in low:
             return f"{kernel} kernel"
     if any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
@@ -70,41 +71,50 @@ def trace(fn):
     }
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_port: needs a CUDA card", file=sys.stderr)
-        return 1
-    from orion_tpu_torch.generate import cast_params_for_inference, generate, SampleConfig
+def profile_config(name, prompt_len, seq_len, dev):
+    """Prefill, 8 decode steps and one training step of ``name``."""
+    from orion_tpu_torch.generate import SampleConfig, cast_params_for_inference, generate
     from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.models.transformer import TransformerLM
+    from orion_tpu_torch.training.data import SyntheticDataset, device_batch
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
 
-    dev = torch.device("cuda", 0)
-    model = cast_params_for_inference(TransformerLM(get_config("lm_1b3"), device=dev))
+    model = cast_params_for_inference(TransformerLM(get_config(name), device=dev))
     prompts = torch.from_numpy(
-        np.random.default_rng(0).integers(0, 256, (4, 1024), dtype=np.int64)
+        np.random.default_rng(0).integers(0, 256, (4, prompt_len), dtype=np.int64)
     ).to(dev)
     generate(model, prompts[:, :128], 4, SampleConfig(temperature=0.0))  # warm-up
+    result = {}
     with torch.inference_mode():
-        result = {"prefill_B4_T1024": trace(lambda: model.prefill_last(prompts))}
+        result[f"{name}_prefill_B4_T{prompt_len}"] = trace(lambda: model.prefill_last(prompts))
         _, states = model.prefill_last(prompts)
         tok = torch.zeros(4, dtype=torch.long, device=dev)
 
         def decode():
             st = states
             for i in range(8):
-                _, st = model.decode_step(tok, st, 1024 + i)
+                _, st = model.decode_step(tok, st, prompt_len + i)
 
-        result["decode_8_steps_B4"] = trace(decode)
+        result[f"{name}_decode_8_steps_B4"] = trace(decode)
     del model, states
-    from orion_tpu_torch.training.data import SyntheticDataset, device_batch
-    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
-
-    cfg = TrainConfig(model=get_config("lm_1b3"), batch_size=8, seq_len=1024)
+    cfg = TrainConfig(model=get_config(name), batch_size=8, seq_len=seq_len)
     trainer = Trainer(cfg, device=dev)
     ds = SyntheticDataset(cfg.model.vocab_size, cfg.seq_len)
     trainer.step(device_batch(ds, 0, 0, cfg.batch_size, dev))  # warm-up
     batch = device_batch(ds, 0, 1, cfg.batch_size, dev)
-    result["train_step_B8_T1024"] = trace(lambda: trainer.step(batch))
+    result[f"{name}_train_step_B8_T{seq_len}"] = trace(lambda: trainer.step(batch))
+    del trainer
+    torch.cuda.empty_cache()
+    return result
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_port: needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    result = profile_config("lm_1b3", 1024, 1024, dev)
+    result.update(profile_config("hybrid_1b3", 1536, 2048, dev))
     for phase, r in result.items():
         print(f"{phase}: wall {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
               f"idle share {r['idle_share']}, {r['kernel_launches']} kernel launches")

@@ -14,6 +14,14 @@ magnitude. A model's backward through the kernels against
 ``backend="torch"``: fp32 as the CPU parity tests (loss 1e-5 relative,
 gradients 1e-4 relative plus 1e-5 of their largest magnitude); bf16 within
 ``chip_smoke.py``'s lm_1b3 limits (loss 1e-2, gradients 5e-2 relative L2).
+Flash attention (rows 6-8): out, dq, dk, dv as the bf16 / fp32 outputs
+above, with the absolute term 1e-4 of the largest magnitude (where dP and
+delta cancel in dS) and, for the gradients, a floor of 1e-5: where a
+gradient vanishes in exact arithmetic (T = 1: a row's only key gives
+dS = P (dP - delta) = 0), the kernel's dP and torch's delta are two fp32 dot
+products of unit-scale inputs summed in different orders, about 1e-7 apart
+at D 64 (1e-6 at D 128). lse to 1e-5 of max(1, |lse|) (fp32 sums of exp in
+another order, through one log).
 """
 
 import dataclasses
@@ -24,10 +32,13 @@ import torch
 from orion_tpu_torch.models.configs import TINY
 from orion_tpu_torch.models.transformer import TransformerLM
 from orion_tpu_torch.ops import linear_attention as la
+from orion_tpu_torch.ops import softmax_attention as sa
 from orion_tpu_torch.ops.kernels import causal_dot
+from orion_tpu_torch.ops.kernels import flash_attention as fa
 from orion_tpu_torch.training.trainer import lm_loss
 
 pytestmark = pytest.mark.cuda
+FLASH_GRAD_FLOOR = 1e-5
 
 
 @pytest.fixture
@@ -90,9 +101,9 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         causal_dot.causal_dot_norm_cuda(big, big, big)
 
 
-def _max_close(got, ref, rtol):
+def _max_close(got, ref, rtol, floor=0.0):
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
-                               atol=1e-4 * float(ref.float().abs().max()))
+                               atol=floor + 1e-4 * float(ref.float().abs().max()))
 
 
 @pytest.mark.parametrize(
@@ -164,3 +175,71 @@ def test_model_backward_through_the_kernels_matches_torch(dev, dtype):
         else:
             assert float((grads_k[n] - ref).norm() / ref.norm()) <= 5e-2, n
     assert abs(loss_k - loss_t) <= (1e-5 * abs(loss_t) if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize(
+    "dtype,bh,tq,tk,d,causal,window",
+    [
+        (torch.float32, 3, 70, 70, 32, True, None),
+        (torch.float32, 2, 129, 129, 128, True, 40),
+        (torch.float32, 2, 50, 90, 64, True, 8),  # more keys than queries
+        (torch.bfloat16, 5, 1, 1, 64, True, 16),
+        (torch.bfloat16, 4, 333, 333, 128, True, 100),
+        (torch.bfloat16, 2, 200, 200, 128, False, None),  # bidirectional
+        (torch.bfloat16, 2, 100, 100, 32, True, 1024),  # the band covers everything
+        (torch.bfloat16, 2, 96, 96, 64, False, 20),  # a bidirectional band
+    ],
+)
+def test_flash_kernels_match_plain(dev, dtype, bh, tq, tk, d, causal, window):
+    g = torch.Generator(device=dev).manual_seed(tq + d)
+    q = torch.randn(bh, tq, d, device=dev, generator=g).to(dtype)
+    k = torch.randn(bh, tk, d, device=dev, generator=g).to(dtype)
+    v = torch.randn(bh, tk, d, device=dev, generator=g).to(dtype)
+    gout = torch.randn(bh, tq, d, device=dev, generator=g).to(dtype)
+    opts = dict(causal=causal, window=window)
+    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    out, lse = fa.flash_fwd_cuda(q, k, v, **opts)
+    r_out, r_lse = fa.flash_fwd_plain(q, k, v, **opts)
+    delta = (gout.float() * r_out.float()).sum(-1, keepdim=True)
+    got = (fa.flash_dq_cuda(q, k, v, gout, r_lse, delta, **opts),
+           *fa.flash_dkv_cuda(q, k, v, gout, r_lse, delta, **opts))
+    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == tuple(n + 1 for n in before)
+    ref = (fa.flash_dq_plain(q, k, v, gout, r_lse, delta, **opts),
+           *fa.flash_dkv_plain(q, k, v, gout, r_lse, delta, **opts))
+    rtol = 2**-7 if dtype == torch.bfloat16 else 1e-4
+    assert out.dtype == dtype and lse.shape == (bh, tq, 1)
+    _max_close(out, r_out, rtol)
+    torch.testing.assert_close(lse, r_lse, rtol=1e-5, atol=1e-5)
+    for x, r in zip(got, ref):
+        assert x.dtype == dtype and x.shape == r.shape
+        _max_close(x, r, rtol, floor=FLASH_GRAD_FLOOR)
+
+
+def test_flash_fn_through_softmax_attention_matches_torch(dev):
+    """The model's path: softmax_attention on CUDA tensors with grad runs
+    FlashAttentionFn (one launch of each kernel) and agrees with autograd
+    through the plain form."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(2, 4, 150, 64, device=dev, generator=g).requires_grad_()
+               for _ in range(3))
+    w = torch.randn(2, 4, 150, 64, device=dev, generator=g)
+    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    out = sa.softmax_attention(q, k, v, window=33)
+    grads = torch.autograd.grad((out * w).sum(), (q, k, v))
+    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == tuple(n + 1 for n in before)
+    out_r = sa.softmax_attention(q, k, v, window=33, backend="torch")
+    grads_r = torch.autograd.grad((out_r * w).sum(), (q, k, v))
+    _max_close(out, out_r, 1e-4)
+    for x, r in zip(grads, grads_r):
+        _max_close(x, r, 1e-4)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(dev):
+    q = torch.rand(2, 8, 16, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd_cuda(q.transpose(0, 1).contiguous().transpose(0, 1), q, q)
+    with pytest.raises(TypeError):
+        fa.flash_fwd_cuda(q.half(), q.half(), q.half())
+    big = torch.rand(1, 4, 256, device=dev)
+    with pytest.raises(ValueError, match="D 256"):
+        fa.flash_fwd_cuda(big, big, big)

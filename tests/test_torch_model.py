@@ -181,8 +181,15 @@ def test_converter_rejects_bad_trees():
 def test_unported_configs_raise():
     from orion_tpu_torch.models.configs import get_config
 
-    for name, match in [("hybrid_1b3", "hybrid"), ("moe_1b3_4e", "MoE"),
-                        ("lra_text_linear", "LRA")]:
+    # hybrid_1b3 is ported: its 24 layers of swa and linear attention build
+    # on the CPU (narrowed, so that the test stays small)
+    hybrid = dataclasses.replace(get_config("hybrid_1b3"), d_model=128, n_heads=4)
+    model = TransformerLM(hybrid, device="cpu")
+    kinds = [blk.attn.layer_type for blk in model.blocks]
+    assert kinds == list(get_config("hybrid_1b3").layer_types)
+    assert kinds.count("swa") == 18 and kinds.count("linear") == 6
+    assert all(not k.endswith("freqs") for k in model.state_dict())
+    for name, match in [("moe_1b3_4e", "MoE"), ("lra_text_linear", "LRA")]:
         with pytest.raises(NotImplementedError, match=match):
             TransformerLM(get_config(name), device="cpu")
     with pytest.raises(NotImplementedError, match="quantized"):

@@ -49,7 +49,8 @@ def test_every_module_imports_with_jax_and_orion_tpu_blocked():
 
 @pytest.mark.parametrize(
     "path",
-    [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py", ROOT / "profile_port.py"],
+    [*sorted(PKG.rglob("*.py")), *(ROOT / f for f in ("chip_smoke.py", "profile_port.py",
+                                                 "kernel_mutants.py"))],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_import_of_jax_or_the_jax_package(path):
