@@ -9,7 +9,7 @@ nonzero and no result line is printed):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernel libraries from the sources in the checkout, one nvcc
-   for each of the four sources, all started together; print ptxas'
+   for each of the five sources, all started together; print ptxas'
    register, spill and shared-memory lines;
 3. hold each kernel against its plain PyTorch version on the card:
    - linear attention (rows 1, 3, 4): the forward at the generate path's
@@ -22,26 +22,36 @@ nonzero and no result line is printed):
      training shape (B 8, T 2048), a ragged T 2000, T 1, T 512 (below the
      window), causal without a window, bidirectional, and the tiny widths
      (D 32, fp32);
+   - the grouped expert matmul (rows 9, 10): forward, dx (against w^T) and
+     dw at moe_1b3_4e's training shape (8192 routed rows, d 2048, h 5504, 4
+     experts) for the gate/up and the down products, the prefill shape (4096
+     rows), top-2 routing, an expert without rows, N and K past the tiles
+     (d 100, h 200), and fp32 at the tiny widths;
    time every kernel, its plain version and, where one PyTorch call computes
-   the same function, that call (``scaled_dot_product_attention``); print
-   each kernel's bound beside its time;
+   the same function, that call (``scaled_dot_product_attention``,
+   ``torch._grouped_mm``); print each kernel's bound beside its time;
 4. the generate path, for ``lm_1b3`` (4 prompts of 1024 byte tokens, 32
-   greedy new tokens) and for ``hybrid_1b3`` (4 prompts of 1536, longer than
-   its window, 64 tokens): ``orion_tpu_torch.generate.generate`` at full
+   greedy new tokens), for ``hybrid_1b3`` (4 prompts of 1536, longer than
+   its window, 64 tokens) and for ``moe_1b3_4e`` with ``moe_dropless=True``
+   (4 prompts of 1024, 32 tokens): ``orion_tpu_torch.generate.generate`` at full
    width (seeded random weights), with every kernel's launch count reset
    just before and read just after; the prefill's logits and every layer's
    decode state against a ``backend="torch"`` run of the same weights on the
    card; and a ``tiny`` model of the same layer kinds on the card against
    the same model on the CPU, whose plain path the CPU tests hold against
    the JAX package;
-5. the training path, for ``lm_1b3`` (batch 8 x 1024) and ``hybrid_1b3``
-   (batch 8 x 2048): ``Trainer`` at full width, synthetic data, AdamW, remat
+5. the training path, for ``lm_1b3`` (batch 8 x 1024), ``hybrid_1b3``
+   (batch 8 x 2048) and the dropless ``moe_1b3_4e`` (batch 8 x 1024):
+   ``Trainer`` at full width, synthetic data, AdamW, remat
    as the config sets it, 1 warm-up and 3 timed steps, with the counts reset
    just before and read after every step (exact counts per step, from the
    layer kinds and the rematerialized blocks); then one batch's loss and
    every parameter's gradient through the kernels against
    ``backend="torch"`` on the same weights (every parameter must get a
-   gradient); then 3 ``tiny`` fp32 steps on the card against the CPU;
+   gradient); then 3 ``tiny`` fp32 steps on the card against the CPU (for
+   the MoE a tiny MoE in its capacity and its dropless form, the latter at
+   1024 routed rows, so the card takes the gmm kernels in fp32 and the CPU
+   the ragged form);
 6. a ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -120,9 +130,22 @@ LM_LOSS_ATOL, LM_GRAD_REL_L2 = 1e-2, 5e-2
 LOGITS_ATOL = 0.125
 # tiny fp32: the card's logits and 3 training losses against the CPU's
 TINY_LOGITS_ATOL, TINY_LOSS_ATOL = 1e-4, 1e-4
+# The grouped matmul (rows 9, 10) against its plain version, on the same
+# inputs. y and dx (bf16): both sum exact products in fp32 and round once, so
+# a value lands on the plain version's bf16 neighbour at worst (2^-7 |ref|;
+# fp32 inputs: 1e-4 |ref|, sums in another order). Beside it an absolute term
+# for elements near zero: a sum over K <= 5504 products in another order
+# moves by about K x 2^-24 times a product's typical size, |y| / sqrt(K):
+# 4.4e-6 of |y| at K 5504; the limit allows 1e-4 max|ref|. dw (fp32): sums
+# of exact products over an expert's rows in another order, within 1e-4 of
+# the expert's largest magnitude; an expert without rows exactly 0 (its
+# output's memory held NaN before the call). ``kernel_mutants.py`` shows
+# which wrong kernels these limits reject.
+GMM_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
+GMM_ATOL_OF_MAX, GMM_DW_RTOL_OF_MAX = 1e-4, 1e-4
 
 KERNELS = ("causal_dot_norm", "causal_dot_dq_den", "causal_dot_rev_den",
-           "flash_fwd", "flash_dq", "flash_dkv")
+           "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd", "gmm_dw")
 
 
 def log(*a):
@@ -578,19 +601,192 @@ def check_flash(fa, dev):
 
 
 # ---------------------------------------------------------------------------
+# The grouped expert matmul: rows 9, 10
+# ---------------------------------------------------------------------------
+
+# (label, routed rows per expert, d, h, dtype): moe_1b3_4e's shapes and the
+# edges of the kernels' loops
+GMM_CASES = [
+    ("training", (3277, 2458, 1638, 819), 2048, 5504, torch.bfloat16),  # B 8 x 1024, top-1
+    ("prefill", (1229, 1434, 819, 614), 2048, 5504, torch.bfloat16),  # B 4 x 1024
+    ("top-2", (2150, 2048, 1990, 2004), 2048, 5504, torch.bfloat16),  # 4096 tokens x 2
+    ("an expert without rows", (1700, 0, 900, 1496), 512, 1024, torch.bfloat16),
+    ("N, K past the tiles", (300, 37, 0, 250), 100, 200, torch.bfloat16),
+    ("tiny widths", (300, 0, 500, 224), 128, 384, torch.float32),
+]
+
+
+def gmm_problem(g, dev, counts, d, dtype):
+    """Rows scattered into tile-aligned expert segments as the dropless
+    layer scatters them (zero padding rows, M = ceil((m + E 128) / 128) 128)
+    -> (x [M, d], the real rows' positions, the tile table, the segment
+    sizes)."""
+    from orion_tpu_torch.models.moe import GMM_TILE_ROWS as tm
+    from orion_tpu_torch.ops.kernels import gmm as gm
+
+    counts_t = torch.tensor(counts, dtype=torch.int32, device=dev)
+    seg, starts = gm.pad_group_sizes(counts_t, tm)
+    m = sum(counts)
+    m2 = -(-(m + len(counts) * tm) // tm) * tm
+    real = torch.cat([torch.arange(c, device=dev) + int(s) for c, s in zip(counts, starts)])
+    x = torch.zeros(m2, d, device=dev, dtype=dtype)
+    x[real] = torch.randn(m, d, device=dev, generator=g).to(dtype)
+    return x, real, gm.tile_expert_table(seg, m2 // tm, tm), seg
+
+
+def _dw_reading(got, ref, te):
+    """dw against its plain version: the largest |got - ref| of each expert
+    as a share of its limit GMM_DW_RTOL_OF_MAX max|ref_e| (above 1 fails);
+    an expert without tiles must be exactly 0."""
+    over, absent_zero = [], True
+    for e in range(ref.shape[0]):
+        if int((te == e).sum()) == 0:
+            absent_zero = absent_zero and bool((got[e] == 0).all())
+            continue
+        rmax = float(ref[e].abs().max().clamp_min(1e-30))
+        over.append(float((got[e] - ref[e]).abs().max()) / (GMM_DW_RTOL_OF_MAX * rmax))
+    return {"max_abs": float((got - ref).abs().max()), "over_limit": max(over),
+            "absent_zero": absent_zero, "well_formed": got.shape == ref.shape
+            and got.dtype == torch.float32 and bool(torch.isfinite(got).all())}
+
+
+def compare_gmm(gm, dev):
+    """Rows 9 and 10 against their plain versions on the card, on every case
+    of GMM_CASES: the gate/up product (x [M, d] @ w [E, d, h]), its dx
+    against w^T and its dw; at d 2048 also the down product (mid [M, h] @ w
+    [E, h, d]), its dx and dw. Returns one reading per case and product, and
+    the training case's inputs."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    readings, inputs = [], None
+    for label, counts, d, h, dtype in GMM_CASES:
+        x, real, te, seg = gmm_problem(g, dev, counts, d, dtype)
+        e = len(counts)
+        for kind, (k_in, n_out) in (("gate/up", (d, h)), ("down", (h, d))):
+            if kind == "down" and d < 2048:
+                continue
+            a = x if kind == "gate/up" else gmm_problem(g, dev, counts, h, dtype)[0]
+            w = (torch.randn(e, k_in, n_out, device=dev, generator=g) / k_in**0.5).to(dtype)
+            gy = torch.zeros(a.shape[0], n_out, device=dev, dtype=dtype)
+            gy[real] = torch.randn(len(real), n_out, device=dev, generator=g).to(dtype)
+            y = gm.gmm_cuda(a, w, te)
+            dx = gm.gmm_cuda(gy, w, te, transpose_w=True)
+            junk = torch.full((e * k_in * n_out,), float("nan"), device=dev)
+            del junk  # the allocator hands this block to dw: an unwritten element shows
+            dw = gm.gmm_dw_cuda(a, gy, te, e)
+            torch.cuda.synchronize()
+            rtol = GMM_RTOL[dtype]
+            readings.append({
+                "case": f"{label} {kind}: rows {counts} (M {a.shape[0]}), K {k_in}, N {n_out}, "
+                        f"{str(dtype)[6:]}",
+                "y": _grad_reading(y, gm.gmm_torch(a, w, te), rtol, GMM_ATOL_OF_MAX),
+                "dx": _grad_reading(dx, gm.gmm_torch(gy, w, te, transpose_w=True), rtol,
+                                    GMM_ATOL_OF_MAX),
+                "dw": _dw_reading(dw, gm.gmm_dw_torch(a, gy, te, e), te),
+            })
+            if label == "training" and kind == "gate/up":
+                inputs = (a, w, gy, te, seg, sum(counts))
+            del y, dx, dw
+        torch.cuda.empty_cache()
+    return readings, inputs
+
+
+def agrees_gmm(r):
+    return (all(r[n]["well_formed"] and r[n]["over_limit"] <= 1.0 for n in ("y", "dx", "dw"))
+            and r["dw"]["absent_zero"])
+
+
+def _library_ms(candidates):
+    """The first of ``candidates`` ((label, fn)) that runs, timed: (ms,
+    label); (None, the errors) when none does."""
+    errors = []
+    for label, fn in candidates:
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError, AttributeError, NotImplementedError) as exc:
+            errors.append(f"{label}: {str(exc).splitlines()[0][:160]}")
+            continue
+        return cuda_ms(fn, 10), label
+    return None, "; ".join(errors)
+
+
+def check_gmm(gm, dev):
+    """Rows 9, 10: agreement on every case, then timings at the training
+    shape (gate/up: x [8704, 2048] @ w [4, 2048, 5504]; its dx against w^T
+    and the down product timed beside it), each beside its bound, its plain
+    version and ``torch._grouped_mm`` (its dw with an fp32 output where the
+    card's torch takes one, else bf16)."""
+    readings, (x, w, gy, te, seg, m) = compare_gmm(gm, dev)
+    for r in readings:
+        log(f"gmm {r['case']}: "
+            + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
+                        "limit)" for n in ("y", "dx", "dw"))
+            + f"; absent expert's dw exactly 0: {r['dw']['absent_zero']}")
+    bad = [r for r in readings if not agrees_gmm(r)]
+    if bad:
+        raise AssertionError(f"a gmm kernel disagrees with its plain version: {bad}")
+    e, d, h = w.shape
+    offs = torch.cumsum(seg, 0).int()  # each segment's end, tile-aligned
+    with torch.no_grad():
+        fwd = dict(
+            ms=cuda_ms(lambda: gm.gmm_cuda(x, w, te), 10),
+            plain_ms=cuda_ms(lambda: gm.gmm_torch(x, w, te), 2),
+            # x's real rows and w read, y's real rows written; 2 m d h operations
+            moved=m * d * 2 + e * d * h * 2 + m * h * 2, flops=2 * m * d * h)
+        fwd["dx_ms"] = cuda_ms(lambda: gm.gmm_cuda(gy, w, te, transpose_w=True), 10)
+        fwd["library_ms"], fwd["library"] = _library_ms([
+            ("torch._grouped_mm", lambda: torch._grouped_mm(x, w, offs=offs))])
+        dw = dict(
+            ms=cuda_ms(lambda: gm.gmm_dw_cuda(x, gy, te, e), 10),
+            plain_ms=cuda_ms(lambda: gm.gmm_dw_torch(x, gy, te, e), 2),
+            # x's and g's real rows read, dw [E, d, h] fp32 written
+            moved=m * d * 2 + m * h * 2 + e * d * h * 4, flops=2 * m * d * h)
+        xt = x.t()
+        dw["library_ms"], dw["library"] = _library_ms([
+            ("torch._grouped_mm (fp32 out)",
+             lambda: torch._grouped_mm(xt, gy, offs=offs, out_dtype=torch.float32)),
+            ("torch._grouped_mm (bf16 out)", lambda: torch._grouped_mm(xt, gy, offs=offs))])
+    for part, t in (("fwd", fwd), ("dw", dw)):
+        t["bound_ms"], t["bound_by"] = _bound(t["moved"], t["flops"])
+        lib = (f"{t['library']} {t['library_ms']:.4f} ms" if t["library_ms"] is not None
+               else f"library_ms none ({t['library']})")
+        log(f"gmm {part} timing, training shape M {x.shape[0]} ({m} routed rows) d {d} h {h} "
+            f"E {e} bf16: kernel {t['ms']:.4f} ms"
+            + (f" (dx against w^T {t['dx_ms']:.4f} ms)" if part == "fwd" else "")
+            + f", plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+            f"({t['moved'] / 1e6:.1f} MB, {t['flops'] / 1e9:.2f} GFLOP of the routed rows); "
+            f"{lib}")
+    errs = {n: max(r[n]["max_abs"] for r in readings) for n in ("y", "dx", "dw")}
+    lines = []
+    for name, replaces, t, err in (
+            ("gmm_fwd", "orion_tpu/ops/pallas/gmm.py:104", fwd, max(errs["y"], errs["dx"])),
+            ("gmm_dw", "orion_tpu/ops/pallas/gmm.py:157", dw, errs["dw"])):
+        lines.append({"name": name, "route": "cuda", "source": "orion_tpu_torch/csrc/gmm.cu",
+                      "replaces": replaces, "max_abs_err": err,
+                      **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "library")}})
+    lines[0]["dx_ms"] = fwd["dx_ms"]
+    return lines
+
+
+# ---------------------------------------------------------------------------
 # The main paths
 # ---------------------------------------------------------------------------
 
 
-def _counts(cd, fa):
+def _counts(mods):
+    cd, fa, gm = mods
     return {"causal_dot_norm": cd.launches, "causal_dot_dq_den": cd.launches_dq,
             "causal_dot_rev_den": cd.launches_rev, "flash_fwd": fa.launches_fwd,
-            "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv}
+            "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv,
+            "gmm_fwd": gm.launches_fwd, "gmm_dw": gm.launches_dw}
 
 
-def _reset_counts(cd, fa):
+def _reset_counts(mods):
+    cd, fa, gm = mods
     cd.launches = cd.launches_dq = cd.launches_rev = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    gm.launches_fwd = gm.launches_dw = 0
 
 
 def _layer_counts(cfg):
@@ -601,6 +797,18 @@ def _layer_counts(cfg):
     lin = sum(lt == "linear" for lt in kinds)
     lin_remat = sum(lt == "linear" for lt in kinds[:first_remat])
     return lin, len(kinds) - lin, lin_remat, first_remat - lin_remat
+
+
+def _gmm_counts(cfg):
+    """(gmm products of the dropless MoE layers in all blocks, in the
+    rematerialized ones): 3 a layer for SwiGLU, 2 for GELU; 0 for the
+    capacity form, which runs no kernel."""
+    if not (cfg.n_experts and cfg.moe_dropless):
+        return 0, 0
+    first_remat = cfg.n_layers - max(0, cfg.remat_skip) if cfg.remat else 0
+    per = 3 if cfg.mlp == "swiglu" else 2
+    moe = [i for i in range(cfg.n_layers) if cfg.moe_at(i)]
+    return per * len(moe), per * sum(i < first_remat for i in moe)
 
 
 def _state_err(states, ref_states):
@@ -615,15 +823,63 @@ def _state_err(states, ref_states):
     return tuple(max(e) if e else None for e in (errs["s"], errs["kv"]))
 
 
-def generate_phase(dev, cd, fa, name, prompt_len, new_tokens):
-    """``generate`` on ``name`` at full width: prefill and decode times,
-    exact launch counts, the prefill's logits and states against
-    backend="torch" on the same weights."""
+class PinnedRouting:
+    """The kernel run's expert choices, replayed in the reference run.
+
+    A MoE model's kernel path and its ``backend="torch"`` reference differ by
+    bf16 roundings in every layer (about 1e-3 in a router logit); where a
+    token's top two router logits lie closer than that, the two paths send
+    it to different experts, and its whole contribution moves between
+    experts: a discontinuity that no numeric limit bounds. So, within
+    ``with pin:``, ``moe.top_k_choice`` records each MoE layer's choices the
+    first time the layer routes (the kernel run) and replays them on every
+    later call of that layer (the recomputation, the reference run), the
+    gates taken from the calling run's own probabilities. ``flips`` counts
+    the token choices the reference would have made otherwise."""
+
+    def __init__(self):
+        from orion_tpu_torch.models import moe
+
+        self.moe, self.real = moe, moe.top_k_choice
+        self.routes, self.current, self.flips, self.choices = {}, None, 0, 0
+
+    def attach(self, model):
+        """Name each MoE layer of ``model`` by its block while it runs."""
+        for i, blk in enumerate(model.blocks):
+            if isinstance(blk.mlp, self.moe.MoEMLP):
+                blk.mlp.register_forward_pre_hook(lambda mod, args, i=i: setattr(
+                    self, "current", i))
+        return model
+
+    def choice(self, probs, k):
+        """``top_k_choice`` at the pinned experts. Every call takes the same
+        ops, so a recomputation saves what its forward saved; the gates equal
+        ``top_k_choice``'s (a gather for its product with a one-hot)."""
+        ids, _ = self.real(probs, k)
+        pinned = self.routes.setdefault(self.current, ids)
+        if pinned is not ids:
+            self.flips += int((pinned != ids).any(-1).sum())
+            self.choices += ids.shape[0]
+        g = probs.gather(-1, pinned)
+        return pinned, g / g.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    def __enter__(self):
+        self.moe.top_k_choice = self.choice
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k_choice = self.real
+
+
+def generate_phase(dev, mods, name, prompt_len, new_tokens, overrides=None):
+    """``generate`` on ``name`` (with ``overrides``) at full width: prefill
+    and decode times, exact launch counts, the prefill's logits and states
+    against backend="torch" on the same weights."""
     from orion_tpu_torch.generate import SampleConfig, cast_params_for_inference, generate
     from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.models.transformer import TransformerLM
 
-    cfg = get_config(name)
+    cfg = get_config(name, **(overrides or {}))
     t0 = time.perf_counter()
     model = cast_params_for_inference(
         TransformerLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
@@ -640,16 +896,17 @@ def generate_phase(dev, cd, fa, name, prompt_len, new_tokens):
     generate(model, prompts[:, :128], 2, greedy)  # warm-up: cuBLAS plans, allocator
     prefill_runs = [wall_ms(lambda: generate(model, prompts, 1, greedy))[0] for _ in range(3)]
 
-    _reset_counts(cd, fa)
+    _reset_counts(mods)
     gen_ms, out = wall_ms(lambda: generate(model, prompts, new_tokens, greedy))
-    counts = _counts(cd, fa)
+    counts = _counts(mods)
     lin, attn, _, _ = _layer_counts(cfg)
     want = dict.fromkeys(KERNELS, 0)
-    want.update(causal_dot_norm=lin, flash_fwd=attn)
+    # decode's few rows take the dense per-expert form: gmm in the prefill only
+    want.update(causal_dot_norm=lin, flash_fwd=attn, gmm_fwd=_gmm_counts(cfg)[0])
     log(f"{name} generate launches: {counts}")
     if counts != want:
         raise AssertionError(f"{name} generate launched {counts}, want {want} (each layer's "
-                             "forward kernel once, in the prefill)")
+                             "forward kernels once, in the prefill)")
     if out.shape != (4, new_tokens) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"generate returned {tuple(out.shape)} / out-of-vocab tokens")
     prefill_ms = float(np.median(prefill_runs))
@@ -659,13 +916,17 @@ def generate_phase(dev, cd, fa, name, prompt_len, new_tokens):
         f"{gen_ms:.2f} ms; decode {decode_ms:.3f} ms/token at batch 4")
     log(f"first tokens: {out[:, :8].tolist()}")
 
-    # the kernel-backed prefill against the plain version, same weights
+    # the kernel-backed prefill against the plain version, same weights and,
+    # for a MoE model, the same expert choices (PinnedRouting)
     ref_model = TransformerLM(dataclasses.replace(cfg, backend="torch"), device=dev)
     ref_model = cast_params_for_inference(ref_model)
     ref_model.load_state_dict(model.state_dict())
-    with torch.inference_mode():
-        logits, states = model.prefill_last(prompts)
-        ref_logits, ref_states = ref_model.prefill_last(prompts)
+    with torch.inference_mode(), PinnedRouting() as pin:
+        logits, states = pin.attach(model).prefill_last(prompts)
+        ref_logits, ref_states = pin.attach(ref_model).prefill_last(prompts)
+    if pin.choices:
+        log(f"{name} prefill routing: the reference would have sent {pin.flips} of "
+            f"{pin.choices} tokens to other experts; it takes the kernel run's")
     del ref_model, model
     if logits.shape != (4, cfg.vocab_size) or logits.dtype != torch.float32 or not torch.isfinite(logits).all():
         raise AssertionError("prefill logits have the wrong shape, dtype or values")
@@ -712,19 +973,23 @@ def tiny_generate(dev, cfg, label):
     return tiny_err
 
 
-def train_phase(dev, cd, fa, name, seq_len):
-    """``name`` training at full width: 1 warm-up and 3 timed steps, with
-    exact launch counts per step."""
+def train_phase(dev, mods, name, seq_len, overrides=None):
+    """``name`` (with ``overrides``) training at full width: 1 warm-up and 3
+    timed steps, with exact launch counts per step."""
     from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.training.data import DataLoader, SyntheticDataset
     from orion_tpu_torch.training.trainer import TrainConfig, Trainer
 
-    cfg = TrainConfig(model=get_config(name), steps=4, batch_size=8, seq_len=seq_len)
+    cfg = TrainConfig(model=get_config(name, **(overrides or {})), steps=4, batch_size=8,
+                      seq_len=seq_len)
     m = cfg.model
     lin, attn, lin_remat, attn_remat = _layer_counts(m)
+    products, products_remat = _gmm_counts(m)
     want = {"causal_dot_norm": lin + lin_remat, "causal_dot_dq_den": lin,
             "causal_dot_rev_den": lin, "flash_fwd": attn + attn_remat, "flash_dq": attn,
-            "flash_dkv": attn}
+            "flash_dkv": attn,
+            # forward, recomputation, and dx by the forward kernel against w^T
+            "gmm_fwd": 2 * products + products_remat, "gmm_dw": products}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=dev)
@@ -734,20 +999,20 @@ def train_phase(dev, cd, fa, name, seq_len):
     loader = DataLoader(SyntheticDataset(m.vocab_size, cfg.seq_len), cfg.batch_size,
                         seed=cfg.seed, device=dev)
     steps_ms, losses = [], []
-    _reset_counts(cd, fa)
-    per_step, before = [], _counts(cd, fa)
+    _reset_counts(mods)
+    per_step, before = [], _counts(mods)
     try:
         for _ in range(4):
             batch = next(loader)
             ms, metrics = wall_ms(lambda: trainer.step(batch))
-            after = _counts(cd, fa)
+            after = _counts(mods)
             per_step.append({k: after[k] - before[k] for k in after})
             before = after
             steps_ms.append(ms)
             losses.append(metrics["loss"])
     finally:
         loader.close()
-    counts = _counts(cd, fa)
+    counts = _counts(mods)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     timed = steps_ms[1:]
     step_ms = float(np.mean(timed))
@@ -766,27 +1031,32 @@ def train_phase(dev, cd, fa, name, seq_len):
             "tokens_per_s": tokens_per_s, "max_memory_gib": peak_gib, "losses": losses}
 
 
-def grad_check(dev, name, seq_len, batch_size=8):
+def grad_check(dev, name, seq_len, batch_size=8, overrides=None):
     """One batch's loss and every parameter's gradient through the kernels
-    (backend="cuda") against backend="torch", same weights, on the card."""
+    (backend="cuda") against backend="torch", same weights and, for a MoE
+    model, the same expert choices (``PinnedRouting``), on the card."""
     from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.models.transformer import TransformerLM
     from orion_tpu_torch.training.data import SyntheticDataset, device_batch
     from orion_tpu_torch.training.trainer import lm_loss
 
-    cfg = get_config(name)
+    cfg = get_config(name, **(overrides or {}))
     batch = device_batch(SyntheticDataset(cfg.vocab_size, seq_len), 0, 99, batch_size, dev)
     grads, losses = {}, {}
     weights = None
+    pin = PinnedRouting()
     for backend in ("cuda", "torch"):
         model = TransformerLM(dataclasses.replace(cfg, backend=backend), device=dev,
                               generator=torch.Generator(device=dev).manual_seed(3))
         if weights is None:
             weights = {k: v.clone() for k, v in model.state_dict().items()}
         model.load_state_dict(weights)
-        loss = lm_loss(model, batch)
-        loss.backward()
+        with pin:  # the backward's recomputation routes inside it too
+            loss = lm_loss(pin.attach(model), batch)
+            loss.backward()
         losses[backend] = float(loss.detach())
+        if backend == "cuda":
+            pin.flips = pin.choices = 0  # count the reference's choices only
         missing = [n for n, p in model.named_parameters() if p.grad is None]
         if missing:
             raise AssertionError(f"backend={backend}: no gradient for {missing[:5]} "
@@ -808,21 +1078,26 @@ def grad_check(dev, name, seq_len, batch_size=8):
         f"{LM_LOSS_ATOL:g}); every one of {len(rel)} params has a gradient; relative L2 error, "
         f"largest per kind { {k: float(f'{v:.3e}') for k, v in by_kind.items()} } (limit "
         f"{LM_GRAD_REL_L2:g}); worst {[(n, float(f'{r:.3e}')) for n, r in worst]}")
+    if pin.choices:
+        log(f"{name} grad check routing: the reference would have sent {pin.flips} of "
+            f"{pin.choices} token choices (forward and recomputation) to other experts; it "
+            "takes the kernel run's")
     del grads, weights
     torch.cuda.empty_cache()
     if not finite or loss_err > LM_LOSS_ATOL or worst[0][1] > LM_GRAD_REL_L2:
         raise AssertionError(f"{name} gradients through the kernels disagree with backend='torch'")
-    return {"loss_abs_err": loss_err, "grad_rel_l2_max": worst[0][1], "by_kind": by_kind}
+    return {"loss_abs_err": loss_err, "grad_rel_l2_max": worst[0][1], "by_kind": by_kind,
+            "routing_flips": pin.flips}
 
 
-def tiny_train(dev, model_cfg, label):
+def tiny_train(dev, model_cfg, label, batch_size=4):
     """3 fp32 training steps of a small model on the card and on the CPU
     from the same weights and batches: the loss sequences must agree."""
     from orion_tpu_torch.training.data import SyntheticDataset
     from orion_tpu_torch.training.trainer import TrainConfig, Trainer
 
-    cfg = TrainConfig(model=model_cfg, steps=3, batch_size=4, seq_len=128, warmup_steps=1,
-                      lr=1e-3)
+    cfg = TrainConfig(model=model_cfg, steps=3, batch_size=batch_size, seq_len=128,
+                      warmup_steps=1, lr=1e-3)
     cpu, gpu = Trainer(cfg, device="cpu"), Trainer(cfg, device=dev)
     gpu.model.load_state_dict(cpu.model.state_dict())
     ds = SyntheticDataset(model_cfg.vocab_size, cfg.seq_len)
@@ -844,7 +1119,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
         return 1
     from orion_tpu_torch.models.configs import TINY
-    from orion_tpu_torch.ops.kernels import causal_dot, flash_attention
+    from orion_tpu_torch.ops.kernels import causal_dot, flash_attention, gmm
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -852,34 +1127,56 @@ def main() -> int:
     card = card_info()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    build([causal_dot, flash_attention])
+    mods = (causal_dot, flash_attention, gmm)
+    build(mods)
     check_causal_dot(causal_dot, dev)
     kernels = check_training_kernels(causal_dot, dev)
     kernels += check_flash(flash_attention, dev)
+    kernels += check_gmm(gmm, dev)
     log(f"kernel phases done in {time.perf_counter() - t0:.1f} s")
     tiny_hybrid = dataclasses.replace(TINY, layer_types=("swa", "linear"), window=16)
 
-    lm_gen = generate_phase(dev, causal_dot, flash_attention, "lm_1b3", 1024, 32)
+    lm_gen = generate_phase(dev, mods, "lm_1b3", 1024, 32)
     tiny_generate(dev, TINY, "tiny")
-    lm_train = train_phase(dev, causal_dot, flash_attention, "lm_1b3", 1024)
+    lm_train = train_phase(dev, mods, "lm_1b3", 1024)
     grad_check(dev, "lm_1b3", 1024)
     tiny_train(dev, TINY, "tiny")
     log(f"lm_1b3 phases done at {time.perf_counter() - t0:.1f} s")
 
-    hy_gen = generate_phase(dev, causal_dot, flash_attention, "hybrid_1b3", 1536, 64)
+    hy_gen = generate_phase(dev, mods, "hybrid_1b3", 1536, 64)
     tiny_generate(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16)")
-    hy_train = train_phase(dev, causal_dot, flash_attention, "hybrid_1b3", 2048)
+    hy_train = train_phase(dev, mods, "hybrid_1b3", 2048)
     grad_check(dev, "hybrid_1b3", 2048)
     tiny_train(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16)")
     log(f"hybrid_1b3 phases done at {time.perf_counter() - t0:.1f} s")
 
+    dropless = {"moe_dropless": True}
+    moe_gen = generate_phase(dev, mods, "moe_1b3_4e", 1024, 32, dropless)
+    moe_train = train_phase(dev, mods, "moe_1b3_4e", 1024, dropless)
+    grad_check(dev, "moe_1b3_4e", 1024, overrides=dropless)
+    tiny_moe = dataclasses.replace(TINY, n_experts=4, moe_period=2)
+    for form, over in (("capacity", {}), ("dropless", dropless)):
+        label = f"tiny MoE (4 experts in block 1, {form})"
+        tiny_generate(dev, dataclasses.replace(tiny_moe, **over), label)
+        before = gmm.launches_fwd
+        # batch 8 x 128: 1024 routed rows, the card's tile-aligned form in fp32
+        tiny_train(dev, dataclasses.replace(tiny_moe, **over), label, batch_size=8)
+        if form == "dropless" and gmm.launches_fwd == before:
+            raise AssertionError("the tiny dropless MoE trained on the card without the gmm "
+                                 "kernels")
+    log(f"moe_1b3_4e phases done at {time.perf_counter() - t0:.1f} s")
+
     for k in kernels:
-        k["launches"] = hy_train["launches"][k["name"]]
-        k["launches_generate"] = hy_gen["launches"][k["name"]]
-        k["launches_per_step"] = hy_train["per_step"][0][k["name"]]
+        main_train, main_gen = (moe_train, moe_gen) if k["name"].startswith("gmm") else (
+            hy_train, hy_gen)
+        k["launches"] = main_train["launches"][k["name"]]
+        k["launches_generate"] = main_gen["launches"][k["name"]]
+        k["launches_per_step"] = main_train["per_step"][0][k["name"]]
         if k["name"].startswith("causal_dot"):
             k["launches_lm_1b3"] = {"train": lm_train["launches"][k["name"]],
                                     "generate": lm_gen["launches"][k["name"]]}
+            k["launches_moe_1b3_4e"] = {"train": moe_train["launches"][k["name"]],
+                                        "generate": moe_gen["launches"][k["name"]]}
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

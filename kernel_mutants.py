@@ -6,16 +6,19 @@ On a machine with one CUDA card and ``nvcc``. Builds the sound kernels and
 deliberately wrong copies of them, each made by one textual edit of a
 source in ``orion_tpu_torch/csrc/``: ``causal_dot_norm.cu`` ("fwd", the
 linear forward), ``causal_dot_bwd.cu`` ("bwd", its two backward kernels),
-``flash_attention.cu`` ("flash_fwd") or ``flash_attention_bwd.cu``
-("flash_bwd", dq and dk/dv), written under
+``flash_attention.cu`` ("flash_fwd"), ``flash_attention_bwd.cu``
+("flash_bwd", dq and dk/dv) or ``gmm.cu`` ("gmm", the grouped matmul's
+forward and dw), written under
 ``orion_tpu_torch/_build/mutants/`` (the sources in the checkout are never
 changed); all the builds start together, one nvcc each. Then it holds each
 copy against the plain versions with ``chip_smoke.compare_causal_dot``
 (linear forward copies, at the generate path's shape),
 ``chip_smoke.compare_training_kernels`` (linear backward copies, at the
-training shape) or ``chip_smoke.compare_flash`` (flash copies, on all its
-cases), prints, per kernel, its readings and whether ``chip_smoke.agrees`` /
-``agrees_training`` / ``agrees_flash`` accepts it, then all of it as one
+training shape), ``chip_smoke.compare_flash`` (flash copies, on all its
+cases) or ``chip_smoke.compare_gmm`` (gmm copies, on all its cases), prints,
+per kernel, its readings and whether ``chip_smoke.agrees`` /
+``agrees_training`` / ``agrees_flash`` / ``agrees_gmm`` accepts it, then all
+of it as one
 JSON line. Exits nonzero if a sound kernel is rejected or a kernel that
 must be rejected is not. Imports nothing of JAX.
 """
@@ -27,11 +30,13 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 import chip_smoke
-from orion_tpu_torch.ops.kernels import causal_dot, flash_attention, library
+from orion_tpu_torch.ops.kernels import causal_dot, flash_attention, gmm, library
 
 # source name -> (wrapper module, its SOURCES key)
 SOURCES = {"fwd": (causal_dot, "fwd"), "bwd": (causal_dot, "bwd"),
-           "flash_fwd": (flash_attention, "fwd"), "flash_bwd": (flash_attention, "bwd")}
+           "flash_fwd": (flash_attention, "fwd"), "flash_bwd": (flash_attention, "bwd"),
+           "gmm": (gmm, "gmm")}
+_DW_ROWS = "const int n_rows = tile_count[e] * tile_rows;"
 
 # (name, source, what it breaks, text of the source, its replacement, must be rejected)
 MUTANTS = [
@@ -97,13 +102,43 @@ MUTANTS = [
      "ends dk/dv's q-tile loop at the diagonal tile instead of the band's end",
      "hi = min(hi, (k0 + BK - 1 + window - 1) / BQ);", "hi = min(hi, (k0 + BK - 1) / BQ);",
      True),
+    ("gmm_expert_off_by_one", "gmm", "reads each row tile's expert from the next tile's entry",
+     "tile_expert[row0 / tile_rows]", "tile_expert[min(row0 / tile_rows + 1, m / tile_rows - 1)]",
+     True),
+    ("gmm_transpose_w_ignored", "gmm", "reads w[e] as [K, N] where dx asks for w[e]^T (bf16)",
+     "err = transpose_w ? launch_fwd<bf16, true>", "err = false ? launch_fwd<bf16, true>", True),
+    ("gmm_k_tail_dropped", "gmm", "drops the last K-step when K is not a multiple of 32",
+     "for (int k0 = 0; k0 < k; k0 += BK)", "for (int k0 = 0; k0 + BK <= k; k0 += BK)", True),
+    ("gmm_dw_last_tile_missed", "gmm", "walks one row tile fewer of each expert in dw",
+     _DW_ROWS, "const int n_rows = (tile_count[e] - 1) * tile_rows;", True),
+    ("gmm_dw_absent_unwritten", "gmm", "returns early for an expert without tiles, leaving its "
+     "dw unwritten", _DW_ROWS, _DW_ROWS + "\n  if (n_rows == 0) return;", True),
+    ("gmm_bf16_accumulator", "gmm", "rounds the fp32 accumulators to bf16 after every 16-deep "
+     "product (the TPU kernel accumulates in fp32)",
+     "wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);",
+     "wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);\n          for (int t = 0; t < "
+     "c[i][j].num_elements; ++t) c[i][j].x[t] = "
+     "__bfloat162float(__float2bfloat16_rn(c[i][j].x[t]));", True),
 ]
 
 
+def _clear_libs():
+    for mod in (causal_dot, flash_attention, gmm):  # load the libraries of the modules' SOURCES
+        mod._libs.clear()
+
+
 def run(name, source, dev):
-    causal_dot._libs.clear()  # load the libraries built from the modules' SOURCES
-    flash_attention._libs.clear()
-    if source.startswith("flash"):
+    _clear_libs()
+    if source == "gmm":
+        readings, _ = chip_smoke.compare_gmm(gmm, dev)
+        accepted = all(chip_smoke.agrees_gmm(r) for r in readings)
+        for r in readings:
+            chip_smoke.log(
+                f"  {r['case']}: " + "; ".join(
+                    f"{n} {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3g} of its limit)"
+                    for n in ("y", "dx", "dw"))
+                + f"; absent expert's dw exactly 0: {r['dw']['absent_zero']}")
+    elif source.startswith("flash"):
         readings, _ = chip_smoke.compare_flash(flash_attention, dev)
         accepted = all(chip_smoke.agrees_flash(r) for r in readings)
         for r in readings:
@@ -158,7 +193,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc for each source, all at once
         list(pool.map(library.build, builds))
 
-    results = [run("sound", src, dev) for src in ("fwd", "bwd", "flash_fwd")]
+    results = [run("sound", src, dev) for src in ("fwd", "bwd", "flash_fwd", "gmm")]
     ok = all(r["accepted"] for r in results)
     for name, source, breaks, _, _, must_reject in MUTANTS:
         mod, key = SOURCES[source]
@@ -169,8 +204,7 @@ def main() -> int:
         results.append(r)
         ok = ok and not (must_reject and r["accepted"])
         mod.SOURCES[key] = sound[source]
-    causal_dot._libs.clear()
-    flash_attention._libs.clear()
+    _clear_libs()
     chip_smoke.log(json.dumps({
         "limits": {"out_rtol": chip_smoke.OUT_RTOL, "out_atol": chip_smoke.OUT_ATOL,
                    "state_rtol": chip_smoke.STATE_RTOL, "grad_rtol": chip_smoke.GRAD_RTOL,
@@ -178,7 +212,10 @@ def main() -> int:
                    "flash_rtol": {str(k): v for k, v in chip_smoke.FLASH_RTOL.items()},
                    "flash_atol_of_max": chip_smoke.FLASH_ATOL_OF_MAX,
                    "flash_grad_floor": chip_smoke.FLASH_GRAD_FLOOR,
-                   "lse_rtol": chip_smoke.LSE_RTOL},
+                   "lse_rtol": chip_smoke.LSE_RTOL,
+                   "gmm_rtol": {str(k): v for k, v in chip_smoke.GMM_RTOL.items()},
+                   "gmm_atol_of_max": chip_smoke.GMM_ATOL_OF_MAX,
+                   "gmm_dw_rtol_of_max": chip_smoke.GMM_DW_RTOL_OF_MAX},
         "kernels": results,
     }))
     return 0 if ok else 1

@@ -12,7 +12,10 @@ Mapping (flax path -> torch state_dict key):
   norms' ``weight``;
 - every ``Dense`` ``kernel`` [in, out] -> ``Linear``-style ``weight``
   [out, in], transposed: ``block_{i}/attn/{wq,wk,wv,wo}`` and
-  ``block_{i}/mlp/{gate,up,down}``.
+  ``block_{i}/mlp/{gate,up,down}``;
+- in a MoE block (``cfg.moe_at(i)``): ``block_{i}/mlp/router/kernel`` [d, E]
+  -> ``blocks.{i}.mlp.router`` [E, d], transposed, and the expert stacks
+  ``block_{i}/mlp/experts_{gate,up,down}`` as they are.
 
 A missing or unexpected key, or a shape that disagrees with ``cfg``, raises.
 """
@@ -49,16 +52,24 @@ def expected_params(cfg: ModelConfig) -> Dict[str, tuple]:
         "pos_embed/embedding": ("pos_embed.weight", (cfg.max_seq_len, d), False),
         "final_norm/scale": ("final_norm.weight", (d,), False),
     }
-    dense = {"attn/wq": (hd, d), "attn/wk": (hd, d), "attn/wv": (hd, d),
-             "attn/wo": (d, hd), "mlp/up": (hid, d), "mlp/down": (d, hid)}
+    attn = {"attn/wq": (hd, d), "attn/wk": (hd, d), "attn/wv": (hd, d), "attn/wo": (d, hd)}
+    mlp = {"mlp/up": (hid, d), "mlp/down": (d, hid)}
+    e = cfg.n_experts
+    experts = {"experts_up": (e, d, hid), "experts_down": (e, hid, d)}
     if cfg.mlp == "swiglu":
-        dense["mlp/gate"] = (hid, d)
+        mlp["mlp/gate"] = (hid, d)
+        experts["experts_gate"] = (e, d, hid)
     for i in range(cfg.n_layers):
         for norm in ("norm1", "norm2"):
             spec[f"block_{i}/{norm}/scale"] = (f"blocks.{i}.{norm}.weight", (d,), False)
-        for path, shape in dense.items():
+        moe = cfg.moe_at(i)
+        for path, shape in {**attn, **({} if moe else mlp)}.items():
             key = f"blocks.{i}.{path.replace('/', '.')}.weight"
             spec[f"block_{i}/{path}/kernel"] = (key, shape, True)
+        if moe:
+            spec[f"block_{i}/mlp/router/kernel"] = (f"blocks.{i}.mlp.router", (e, d), True)
+            for name, shape in experts.items():
+                spec[f"block_{i}/mlp/{name}"] = (f"blocks.{i}.mlp.{name}", shape, False)
     return spec
 
 
@@ -76,7 +87,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torc
     for path, (key, shape, transpose) in spec.items():
         arr = np.asarray(flat[path], dtype=np.float32)
         if transpose:
-            arr = arr.T
+            arr = arr.T  # 2-D kernels only: the expert stacks keep their layout
         if arr.shape != shape:
             raise ValueError(f"{path}: shape {arr.shape} (torch layout), want {shape}")
         state[key] = torch.tensor(arr)  # a copy: device_get arrays are read-only

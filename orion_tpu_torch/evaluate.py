@@ -24,10 +24,11 @@ Tensor = torch.Tensor
 def lm_eval_sums(model: TransformerLM, batch: Tensor) -> Tuple[Tensor, Tensor]:
     """batch [B, T+1] -> (sum of next-token cross entropy, token count),
     through the fused head + CE (no [B, T, V] fp32 logits) where it
-    applies."""
+    applies. The MoE layers' auxiliary loss is left out, as in the JAX
+    package's eval."""
     x, y = batch[:, :-1], batch[:, 1:]
     if fused_ce_ok(model):
-        losses = model_token_losses(model, x, y)
+        losses, _ = model_token_losses(model, x, y)
     else:
         losses = torch.nn.functional.cross_entropy(
             model(x).transpose(1, 2), y.long(), reduction="none")

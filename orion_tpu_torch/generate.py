@@ -15,6 +15,11 @@ The port's counterpart of ``orion_tpu/generate.py``:
    so sampled tokens match the JAX package's only in distribution; greedy
    tokens match exactly.
 
+A capacity-dispatch MoE model is served with its capacity factor raised to
+E / k for the call (the JAX package's no-drop serving rule): decode never
+drops a token, so the prompt's prefill must not either. The dropless form
+has no capacity to raise.
+
 Without a checkpoint the weights come from a seeded init. Loading one is
 not ported yet (ROADMAP.md queue A, item 5: the JAX package's orbax
 checkpoints, and the port's own from ``orion_tpu_torch.train``);
@@ -24,6 +29,7 @@ checkpoints, and the port's own from ``orion_tpu_torch.train``);
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 from typing import List, Optional
@@ -31,6 +37,7 @@ from typing import List, Optional
 import torch
 
 from orion_tpu_torch.models.configs import get_config
+from orion_tpu_torch.models.moe import MoEMLP
 from orion_tpu_torch.models.transformer import Dense, TransformerLM
 from orion_tpu_torch.utils.device import resolve_device
 
@@ -80,15 +87,40 @@ def sample_logits(
 
 @torch.no_grad()
 def cast_params_for_inference(model: TransformerLM) -> TransformerLM:
-    """Round every dense weight to the compute dtype once, in place (bf16 on
-    the large configs). flax's ``Dense(dtype=bf16)`` rounds its fp32 kernel
-    at every call, so this is bitwise the same and halves the weights' bytes
-    on the card. Embedding tables and norm scales stay fp32: the lookups and
-    the norm read them in fp32."""
+    """Round every dense weight and expert stack to the compute dtype once,
+    in place (bf16 on the large configs). flax's ``Dense(dtype=bf16)`` and
+    the MoE layer's ``w.astype(dt)`` round the fp32 weight at every call, so
+    this is bitwise the same and halves the weights' bytes on the card.
+    Embedding tables, norm scales and MoE routers stay fp32: the lookups,
+    the norm and the router read them in fp32."""
     for m in model.modules():
         if isinstance(m, Dense) and m.weight.dtype != m.cdt:
             m.weight = torch.nn.Parameter(m.weight.to(m.cdt), requires_grad=False)
+        elif isinstance(m, MoEMLP):
+            for name, w in list(m.named_parameters()):
+                if name != "router" and w.dtype != m.cdt:
+                    setattr(m, name, torch.nn.Parameter(w.to(m.cdt), requires_grad=False))
     return model
+
+
+@contextlib.contextmanager
+def no_drop_capacity(model: TransformerLM):
+    """Raise each capacity-dispatch MoE layer's capacity factor to E / k
+    (capacity = group size: the parallel forward then keeps every token)
+    while the block runs, and restore it after."""
+    cfg = model.cfg
+    serving = float(cfg.n_experts) / max(cfg.moe_top_k, 1)
+    layers = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    if cfg.moe_dropless or cfg.moe_capacity_factor >= serving:
+        layers = []
+    saved = [m.capacity_factor for m in layers]
+    for m in layers:
+        m.capacity_factor = serving
+    try:
+        yield model
+    finally:
+        for m, cf in zip(layers, saved):
+            m.capacity_factor = cf
 
 
 @torch.inference_mode()
@@ -105,7 +137,13 @@ def generate(
     sampled from the prefill, then one token per decode step; with an
     ``eos_token`` a row emits its EOS and pads after it. The JAX scan also
     runs one last decode step whose sample it drops; this loop skips it.
+    A capacity-dispatch MoE model runs under ``no_drop_capacity``.
     """
+    with no_drop_capacity(model):
+        return _generate(model, prompt, max_new_tokens, sample, generator)
+
+
+def _generate(model, prompt, max_new_tokens, sample, generator) -> Tensor:
     sample = sample or SampleConfig()
     prompt = torch.as_tensor(prompt, device=model.device).long()
     if prompt.dim() == 1:

@@ -5,16 +5,18 @@ Decoder LM with per-layer attention of type ``"linear"`` (causal linear
 attention, elu+1 phi by default), ``"softmax"`` (full causal softmax) or
 ``"swa"`` (sliding-window softmax over ``cfg.window`` keys) -- the hybrid
 family mixes the last two kinds with linear layers -- plus SwiGLU or GELU
-MLP, RMSNorm, learned positions and a tied head. Softmax and swa layers
-rotate q and k (RoPE, ``ops/rotary.py``). Three entry methods, as in the JAX
-package:
+MLP (a routed-expert ``MoEMLP``, ``models/moe.py``, in the blocks
+``cfg.moe_at`` names), RMSNorm, learned positions and a tied head. Softmax
+and swa layers rotate q and k (RoPE, ``ops/rotary.py``). Three entry
+methods, as in the JAX package:
 
 - ``forward(tokens)``            -- the parallel forward -> logits [B, T, V];
   ``features(tokens)`` is its input to the head, which the fused-CE training
   loss (``ops/fused_ce.py``) takes with ``head_weight()``; with grad enabled
   every layer's attention runs its kernels forward and backward (linear:
   ``ops.linear_attention`` -> ``LinearAttentionFn``; softmax / swa:
-  ``ops.softmax_attention`` -> ``FlashAttentionFn``), blocks before the
+  ``ops.softmax_attention`` -> ``FlashAttentionFn``; a dropless MoE layer's
+  expert products: ``ops/kernels/gmm.py`` -> ``GmmFn``), blocks before the
   last ``remat_skip`` are recomputed in the backward when ``cfg.remat``
   (``torch.utils.checkpoint``), and ``deterministic=False`` applies block
   dropout drawn from generators seeded per layer from ``dropout_seed``;
@@ -37,10 +39,14 @@ does); RMSNorm takes its statistics in fp32 and casts the result; the two
 embeddings add in fp32 and then cast; the head multiplies bf16-rounded
 operands with fp32 accumulation into fp32 logits; (S, z) stay fp32.
 
+``features`` also returns the summed auxiliary loss of the MoE layers
+(0 without them), which the training loss adds and the eval loss leaves out,
+as the JAX package does with its ``"losses"`` collection.
+
 Not ported yet (they raise ``NotImplementedError`` naming ROADMAP.md's
-item): LayerNorm, an untied head, MoE, quantized weights, meshes,
-``remat_policy="dots"``. The JAX package's ``attn_block_q`` /
-``attn_block_k`` size TPU tiles and are not read.
+item): LayerNorm, an untied head, quantized weights, meshes (and with them
+the expert-parallel MoE forms), ``remat_policy="dots"``. The JAX package's
+``attn_block_q`` / ``attn_block_k`` size TPU tiles and are not read.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from orion_tpu_torch.models.configs import ModelConfig
+from orion_tpu_torch.models.moe import MoEMLP
 from orion_tpu_torch.ops.feature_maps import make_feature_map
 from orion_tpu_torch.ops.linear_attention import linear_attention, recurrent_step
 from orion_tpu_torch.ops.rotary import apply_rotary, apply_rotary_at, rotary_freqs
@@ -84,8 +91,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port lacks so far (and
     ``ValueError`` for an unknown layer type)."""
     cfg.resolved_layer_types  # noqa: B018 -- raises on an unknown layer type
-    if cfg.n_experts:
-        raise _not_ported("mixture-of-experts", "item 10 (MoE)")
     if cfg.norm != "rmsnorm":
         raise _not_ported(f"norm {cfg.norm!r}", "item 11 (LRA)")
     if not cfg.tie_embeddings:
@@ -335,28 +340,42 @@ def _dropout(x: Tensor, rate: float, gen: torch.Generator) -> Tensor:
 
 
 class Block(nn.Module):
-    """Pre-norm residual block: x + drop(attn(norm(x))); x + drop(mlp(norm(x))).
+    """Pre-norm residual block: x + drop(attn(norm(x))); x + drop(mlp(norm(x))),
+    the MLP a ``MoEMLP`` when ``use_moe``.
 
     Dropout (``cfg.dropout``) applies when ``dropout_seed`` is given: both
     masks come from one generator seeded with it, so a recomputation under
     ``checkpoint`` redraws the same masks."""
 
-    def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None):
+    def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None,
+                 use_moe: bool = False):
         super().__init__()
         cdt = _dtype(cfg.dtype)
         self.rate = cfg.dropout
         self.norm1 = RMSNorm(cfg.d_model, cdt, device=device)
         self.attn = Attention(cfg, layer_type, device)
         self.norm2 = RMSNorm(cfg.d_model, cdt, device=device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MoEMLP(cfg, cdt, device) if use_moe else MLP(cfg, device)
 
-    def forward(self, x: Tensor, dropout_seed: Optional[int] = None) -> Tensor:
+    def _mlp_aux(self, x: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+        if isinstance(self.mlp, MoEMLP):
+            return self.mlp(x, with_aux=True)
+        return self.mlp(x), None
+
+    def forward(
+        self, x: Tensor, dropout_seed: Optional[int] = None
+    ) -> Tuple[Tensor, Optional[Tensor]]:
+        """-> (output, the MoE layer's auxiliary loss or None). The loss
+        leaves as an output, so ``checkpoint`` carries it and a
+        recomputation cannot add it twice."""
         if dropout_seed is None or self.rate == 0.0:
             x = x + self.attn(self.norm1(x))
-            return x + self.mlp(self.norm2(x))
+            h, aux = self._mlp_aux(self.norm2(x))
+            return x + h, aux
         gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
         x = x + _dropout(self.attn(self.norm1(x)), self.rate, gen)
-        return x + _dropout(self.mlp(self.norm2(x)), self.rate, gen)
+        h, aux = self._mlp_aux(self.norm2(x))
+        return x + _dropout(h, self.rate, gen), aux
 
     def prefill(self, x: Tensor, length=None) -> Tuple[Tensor, State]:
         h, state = self.attn.prefill(self.norm1(x), length)
@@ -403,7 +422,8 @@ class TransformerLM(nn.Module):
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dev)
         self.pos_embed = Embed(cfg.max_seq_len, cfg.d_model, dev)
         self.blocks = nn.ModuleList(
-            Block(cfg, lt, dev) for lt in cfg.resolved_layer_types
+            Block(cfg, lt, dev, use_moe=cfg.moe_at(i))
+            for i, lt in enumerate(cfg.resolved_layer_types)
         )
         self.final_norm = RMSNorm(cfg.d_model, self.cdt, device=dev)
         self._head_cache = None
@@ -413,16 +433,23 @@ class TransformerLM(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Draw every parameter from ``generator`` (flax default inits)."""
+        """Draw every parameter from ``generator`` (flax default inits; an
+        expert stack [E, in, out] as the JAX package's ``_expert_init``:
+        lecun_normal over (in, out) with the expert as the batch axis)."""
         std = 1.0 / math.sqrt(self.cfg.d_model)
         for table in (self.embed.weight, self.pos_embed.weight):
             table.normal_(0.0, std, generator=generator)
+
+        def lecun_normal(w: Tensor, fan_in: int) -> None:
+            s = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            nn.init.trunc_normal_(w, 0.0, s, -2.0 * s, 2.0 * s, generator=generator)
+
         for m in self.modules():
             if isinstance(m, Dense):
-                s = math.sqrt(1.0 / m.weight.shape[1]) / _TRUNC_STD
-                nn.init.trunc_normal_(
-                    m.weight, 0.0, s, -2.0 * s, 2.0 * s, generator=generator
-                )
+                lecun_normal(m.weight, m.weight.shape[1])
+            elif isinstance(m, MoEMLP):  # the router [E, d]; the stacks [E, in, out]
+                for w in m.parameters():
+                    lecun_normal(w, w.shape[-2] if w.dim() == 3 else w.shape[1])
             elif isinstance(m, RMSNorm):
                 m.weight.fill_(1.0)
 
@@ -461,9 +488,10 @@ class TransformerLM(nn.Module):
 
     def features(
         self, tokens: Tensor, deterministic: bool = True, dropout_seed: Optional[int] = None
-    ) -> Tensor:
-        """tokens [B, T] -> final-normed hidden states [B, T, D], the head's
-        input. ``deterministic=False`` applies dropout (``cfg.dropout``),
+    ) -> Tuple[Tensor, Tensor]:
+        """tokens [B, T] -> (final-normed hidden states [B, T, D], the head's
+        input; the MoE layers' summed auxiliary loss, an fp32 scalar, 0
+        without them). ``deterministic=False`` applies dropout (``cfg.dropout``),
         block i drawing from ``rng.fold(dropout_seed, i)``. With grad enabled
         and ``cfg.remat``, blocks ``i < n_layers - remat_skip`` keep only
         their input and are recomputed in the backward (the JAX model's
@@ -476,15 +504,18 @@ class TransformerLM(nn.Module):
         if first_remat > 0 and torch.is_grad_enabled() and cfg.remat_policy != "full":
             raise _not_ported(f"remat_policy={cfg.remat_policy!r}", "item 5 (training)")
         x = self._embed(tokens, torch.arange(tokens.shape[-1], device=tokens.device))
+        aux_total = torch.zeros((), device=tokens.device)
         for i, blk in enumerate(self.blocks):
             seed = rngs.fold(dropout_seed, i) if use_dropout else None
             if i < first_remat and torch.is_grad_enabled():
                 # the masks come from ``seed``, not the global RNG, so there
                 # is no RNG state to preserve for the recomputation
-                x = checkpoint(blk, x, seed, use_reentrant=False, preserve_rng_state=False)
+                x, aux = checkpoint(blk, x, seed, use_reentrant=False, preserve_rng_state=False)
             else:
-                x = blk(x, seed)
-        return self.final_norm(x)
+                x, aux = blk(x, seed)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return self.final_norm(x), aux_total
 
     def head_weight(self) -> Tuple[Tensor, bool]:
         """(head weight, w_is_vd) for ``ops/fused_ce.py``: the tied
@@ -492,10 +523,14 @@ class TransformerLM(nn.Module):
         return self.embed.weight, True
 
     def forward(
-        self, tokens: Tensor, deterministic: bool = True, dropout_seed: Optional[int] = None
-    ) -> Tensor:
-        """tokens [B, T] -> logits [B, T, V] (fp32)."""
-        return self._head_matmul(self.features(tokens, deterministic, dropout_seed))
+        self, tokens: Tensor, deterministic: bool = True, dropout_seed: Optional[int] = None,
+        return_aux: bool = False,
+    ):
+        """tokens [B, T] -> logits [B, T, V] (fp32); with ``return_aux`` also
+        the MoE layers' auxiliary loss (``features``)."""
+        feats, aux = self.features(tokens, deterministic, dropout_seed)
+        logits = self._head_matmul(feats)
+        return (logits, aux) if return_aux else logits
 
     def _prefill_trunk(self, tokens: Tensor, length=None) -> Tuple[Tensor, List[State]]:
         x = self._embed(tokens, torch.arange(tokens.shape[-1], device=tokens.device))

@@ -1,8 +1,9 @@
 """Backend choice for the port's kernel-backed ops.
 
 ``resolve`` makes the one choice between a CUDA kernel and its plain
-PyTorch version, for linear attention (``ops/linear_attention.py``) and
-softmax attention (``ops/softmax_attention.py``) alike. ``"auto"`` takes the
+PyTorch version, for linear attention (``ops/linear_attention.py``),
+softmax attention (``ops/softmax_attention.py``) and the dropless MoE
+layer's grouped matmul (``models/moe.py``, ``ops/kernels/gmm.py``) alike. ``"auto"`` takes the
 kernel for CUDA tensors and the plain version for CPU tensors, ``"torch"``
 the plain version anywhere, ``"cuda"`` the kernel (which raises for CPU
 tensors). The JAX package's chunk and block defaults

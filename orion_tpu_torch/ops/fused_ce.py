@@ -151,14 +151,15 @@ def _padded_fused_ce(x: Tensor, w: Tensor, labels: Tensor) -> Tensor:
 def model_token_losses(
     model, x: Tensor, y: Tensor, deterministic: bool = True,
     dropout_seed: Optional[int] = None,
-) -> Tensor:
-    """Per-token next-token CE [B, T] through the fused head: the one
-    invocation of this path, shared by the training loss
-    (``training/trainer.py::lm_loss``) and the eval loss
-    (``evaluate.py::lm_eval_sums``) so the two cannot drift."""
-    feats = model.features(x, deterministic=deterministic, dropout_seed=dropout_seed)
+) -> Tuple[Tensor, Tensor]:
+    """(per-token next-token CE [B, T] through the fused head, the MoE
+    layers' auxiliary loss): the one invocation of this path, shared by the
+    training loss (``training/trainer.py::lm_loss``, which adds the
+    auxiliary loss) and the eval loss (``evaluate.py::lm_eval_sums``, which
+    leaves it out) so the two cannot drift."""
+    feats, aux = model.features(x, deterministic=deterministic, dropout_seed=dropout_seed)
     w, _ = model.head_weight()
-    return _padded_fused_ce(feats.to(model.cdt), w, y)
+    return _padded_fused_ce(feats.to(model.cdt), w, y), aux
 
 
 __all__ = [

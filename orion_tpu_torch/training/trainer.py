@@ -258,7 +258,8 @@ def lm_loss(
     model: TransformerLM, batch: Tensor, dropout_seed: Optional[int] = None,
     fused_ce: Optional[bool] = None,
 ) -> Tensor:
-    """batch [B, T+1] -> mean next-token cross entropy (fp32). With
+    """batch [B, T+1] -> mean next-token cross entropy (fp32) plus the MoE
+    layers' auxiliary loss (the JAX package's ``"losses"`` collection). With
     ``dropout_seed`` the blocks apply dropout (``cfg.dropout``). ``fused_ce``
     (None = ``fused_ce_ok``) computes the same loss without the [B, T, V]
     fp32 logits (``ops/fused_ce.py``)."""
@@ -267,12 +268,12 @@ def lm_loss(
     if fused_ce is None:
         fused_ce = fused_ce_ok(model)
     if fused_ce:
-        losses = model_token_losses(model, x, y, deterministic, dropout_seed)
+        losses, aux = model_token_losses(model, x, y, deterministic, dropout_seed)
     else:
-        logits = model(x, deterministic, dropout_seed)
+        logits, aux = model(x, deterministic, dropout_seed, return_aux=True)
         losses = torch.nn.functional.cross_entropy(
             logits.transpose(1, 2), y.long(), reduction="none")
-    return losses.mean()
+    return losses.mean() + aux
 
 
 def _i64(x: int) -> Tensor:

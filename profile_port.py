@@ -3,13 +3,15 @@
     python3 profile_port.py
 
 On a machine with one CUDA card. For ``lm_1b3`` (prompts of 1024 tokens,
-training at 8 x 1024) and ``hybrid_1b3`` (prompts of 1536, training at 8 x
-2048), each at full width from seeded random weights, it traces with
+training at 8 x 1024), ``hybrid_1b3`` (prompts of 1536, training at 8 x
+2048) and the dropless ``moe_1b3_4e`` (prompts of 1024, training at 8 x
+1024), each at full width from seeded random weights, it traces with
 ``torch.profiler`` (a) one prefill of 4 prompts, (b) 8 decode steps at batch
 4 and (c) one training step (``Trainer.step``, AdamW, remat as the config
 sets it) after a warm-up step. For each it prints the device time by kernel
-(largest first, grouped into the six attention kernels, dense products, and
-everything else), the number of kernel launches, the window's wall time and
+(largest first, grouped into the six attention kernels, the two grouped
+expert matmul kernels, dense products, and everything else), the number of
+kernel launches, the window's wall time and
 the device's idle share of it (1 - summed kernel time / wall time; the port
 runs on one stream, so kernels do not overlap), then all of it as one JSON
 line. Imports nothing of JAX.
@@ -35,7 +37,7 @@ def _device_us(evt):
 def _group(name):
     low = name.lower()
     for kernel in ("causal_dot_norm", "causal_dot_dq_den", "causal_dot_rev_den",
-                   "flash_fwd", "flash_dq", "flash_dkv"):
+                   "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd", "gmm_dw"):
         if kernel in low:
             return f"{kernel} kernel"
     if any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
@@ -71,15 +73,17 @@ def trace(fn):
     }
 
 
-def profile_config(name, prompt_len, seq_len, dev):
-    """Prefill, 8 decode steps and one training step of ``name``."""
+def profile_config(name, prompt_len, seq_len, dev, overrides=None):
+    """Prefill, 8 decode steps and one training step of ``name`` (with
+    ``overrides``)."""
     from orion_tpu_torch.generate import SampleConfig, cast_params_for_inference, generate
     from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.models.transformer import TransformerLM
     from orion_tpu_torch.training.data import SyntheticDataset, device_batch
     from orion_tpu_torch.training.trainer import TrainConfig, Trainer
 
-    model = cast_params_for_inference(TransformerLM(get_config(name), device=dev))
+    mcfg = get_config(name, **(overrides or {}))
+    model = cast_params_for_inference(TransformerLM(mcfg, device=dev))
     prompts = torch.from_numpy(
         np.random.default_rng(0).integers(0, 256, (4, prompt_len), dtype=np.int64)
     ).to(dev)
@@ -97,7 +101,7 @@ def profile_config(name, prompt_len, seq_len, dev):
 
         result[f"{name}_decode_8_steps_B4"] = trace(decode)
     del model, states
-    cfg = TrainConfig(model=get_config(name), batch_size=8, seq_len=seq_len)
+    cfg = TrainConfig(model=mcfg, batch_size=8, seq_len=seq_len)
     trainer = Trainer(cfg, device=dev)
     ds = SyntheticDataset(cfg.model.vocab_size, cfg.seq_len)
     trainer.step(device_batch(ds, 0, 0, cfg.batch_size, dev))  # warm-up
@@ -115,6 +119,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     result = profile_config("lm_1b3", 1024, 1024, dev)
     result.update(profile_config("hybrid_1b3", 1536, 2048, dev))
+    result.update(profile_config("moe_1b3_4e", 1024, 1024, dev, {"moe_dropless": True}))
     for phase, r in result.items():
         print(f"{phase}: wall {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
               f"idle share {r['idle_share']}, {r['kernel_launches']} kernel launches")

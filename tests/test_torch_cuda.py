@@ -21,7 +21,11 @@ gradient vanishes in exact arithmetic (T = 1: a row's only key gives
 dS = P (dP - delta) = 0), the kernel's dP and torch's delta are two fp32 dot
 products of unit-scale inputs summed in different orders, about 1e-7 apart
 at D 64 (1e-6 at D 128). lse to 1e-5 of max(1, |lse|) (fp32 sums of exp in
-another order, through one log).
+another order, through one log). The grouped matmul (rows 9, 10): y and dx
+as the bf16 / fp32 outputs above with 1e-4 of the largest magnitude beside
+the relative term (a sum over K products in another order); dw, fp32 sums
+of exact products in another order, within 1e-4 of each expert's largest
+magnitude, and exactly 0 for an expert without tiles.
 """
 
 import dataclasses
@@ -35,6 +39,7 @@ from orion_tpu_torch.ops import linear_attention as la
 from orion_tpu_torch.ops import softmax_attention as sa
 from orion_tpu_torch.ops.kernels import causal_dot
 from orion_tpu_torch.ops.kernels import flash_attention as fa
+from orion_tpu_torch.ops.kernels import gmm as gm
 from orion_tpu_torch.training.trainer import lm_loss
 
 pytestmark = pytest.mark.cuda
@@ -243,3 +248,99 @@ def test_flash_kernel_rejects_what_it_does_not_take(dev):
     big = torch.rand(1, 4, 256, device=dev)
     with pytest.raises(ValueError, match="D 256"):
         fa.flash_fwd_cuda(big, big, big)
+
+
+def _gmm_problem(g, dev, dtype, counts, d, tm=128):
+    """Rows of x scattered into tile-aligned expert segments, as the dropless
+    layer scatters them: ``counts`` real rows per expert, zero padding rows,
+    the tile table on the device."""
+    counts_t = torch.tensor(counts, dtype=torch.int32, device=dev)
+    seg, starts = gm.pad_group_sizes(counts_t, tm)
+    m = sum(counts)
+    m2 = -(-(m + len(counts) * tm) // tm) * tm
+    real = torch.cat([torch.arange(c, device=dev) + int(s) for c, s in zip(counts, starts)])
+    x = torch.zeros(m2, d, device=dev)
+    x[real] = torch.randn(m, d, device=dev, generator=g)
+    return x.to(dtype), real, gm.tile_expert_table(seg, m2 // tm, tm)
+
+
+@pytest.mark.parametrize(
+    "dtype,counts,d,h",
+    [
+        (torch.bfloat16, (300, 0, 517, 64), 256, 384),  # an expert without rows
+        (torch.bfloat16, (100, 37, 0, 250), 96, 200),  # N and K past the 128 / 32 tiles
+        (torch.bfloat16, (129, 1, 255, 7), 100, 72),
+        (torch.float32, (40, 0, 90, 3), 32, 48),
+    ],
+)
+def test_gmm_kernels_match_plain(dev, dtype, counts, d, h):
+    """Row 9 (forward, and dx against w^T) and row 10 (dw) against their plain
+    versions: y, dx as one bf16 step (fp32: 1e-4 relative) plus 1e-4 of the
+    largest magnitude; dw (fp32 sums of exact products in another order)
+    within 1e-4 of each expert's largest magnitude, and exactly 0 for an
+    expert without tiles even where the output's memory held NaN."""
+    g = torch.Generator(device=dev).manual_seed(d + h)
+    e = len(counts)
+    x, real, te = _gmm_problem(g, dev, dtype, counts, d)
+    w = (torch.randn(e, d, h, device=dev, generator=g) / d**0.5).to(dtype)
+    gy = torch.zeros(x.shape[0], h, device=dev)
+    gy[real] = torch.randn(len(real), h, device=dev, generator=g)
+    gy = gy.to(dtype)
+    before = (gm.launches_fwd, gm.launches_dw)
+    y = gm.gmm_cuda(x, w, te)
+    dx = gm.gmm_cuda(gy, w, te, transpose_w=True)
+    junk = torch.full((e * d * h,), float("nan"), device=dev)
+    del junk  # the allocator hands this block to dw: an unwritten element shows
+    dw = gm.gmm_dw_cuda(x, gy, te, e)
+    assert (gm.launches_fwd, gm.launches_dw) == (before[0] + 2, before[1] + 1)
+    rtol = 2**-7 if dtype == torch.bfloat16 else 1e-4
+    for got, ref in ((y, gm.gmm_torch(x, w, te)), (dx, gm.gmm_torch(gy, w, te, transpose_w=True))):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _max_close(got, ref, rtol)
+    ref_dw = gm.gmm_dw_torch(x, gy, te, e)
+    assert dw.dtype == torch.float32 and dw.shape == (e, d, h)
+    for i, c in enumerate(counts):
+        if int((te == i).sum()) == 0:
+            assert bool((dw[i] == 0).all()), i
+        else:
+            torch.testing.assert_close(dw[i], ref_dw[i], rtol=0,
+                                       atol=1e-4 * float(ref_dw[i].abs().max()))
+
+
+def test_gmm_fn_through_gmm_matches_torch(dev):
+    """The model's path: gmm on CUDA tensors with grad runs GmmFn (the
+    forward kernel twice, the dw kernel once), on fp32 weights cast to bf16
+    as the layer does. y and dx agree with autograd through the plain
+    version; dw, which GmmFn returns in fp32 as the JAX package's gmm VJP
+    does, with the plain dw function (autograd through the plain version
+    rounds it to bf16 at the weight's cast, as the JAX ragged form does)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x, _, te = _gmm_problem(g, dev, torch.bfloat16, (200, 0, 310, 90), 128)
+    x.requires_grad_()
+    w = (torch.randn(4, 128, 160, device=dev, generator=g) / 128**0.5).requires_grad_()
+    cot = torch.randn(x.shape[0], 160, device=dev, generator=g).bfloat16()
+    before = (gm.launches_fwd, gm.launches_dw)
+    y = gm.gmm(x, w, te)
+    dx, dw = torch.autograd.grad(y, (x, w), cot)
+    assert (gm.launches_fwd, gm.launches_dw) == (before[0] + 2, before[1] + 1)
+    y_r = gm.gmm(x, w, te, backend="torch")
+    (dx_r,) = torch.autograd.grad(y_r, (x,), cot)
+    dw_r = gm.gmm_dw_torch(x.detach(), cot, te, 4)
+    assert dw.dtype == torch.float32 and dx.dtype == torch.bfloat16
+    _max_close(y.detach(), y_r.detach(), 2**-7)
+    _max_close(dx, dx_r, 2**-7)
+    torch.testing.assert_close(dw, dw_r, rtol=0, atol=1e-4 * float(dw_r.abs().max()))
+
+
+def test_gmm_kernel_rejects_what_it_does_not_take(dev):
+    x = torch.rand(256, 16, device=dev)
+    w = torch.rand(2, 16, 8, device=dev)
+    te = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        gm.gmm_cuda(x, w, torch.zeros(4, dtype=torch.int32, device=dev))
+    with pytest.raises(TypeError, match="int32"):
+        gm.gmm_cuda(x, w, te.long())
+    with pytest.raises(TypeError):
+        gm.gmm_cuda(x.half(), w.half(), te)
+    with pytest.raises(ValueError, match="against"):
+        gm.gmm_cuda(x, w, te, transpose_w=True)

@@ -189,9 +189,13 @@ def test_unported_configs_raise():
     assert kinds == list(get_config("hybrid_1b3").layer_types)
     assert kinds.count("swa") == 18 and kinds.count("linear") == 6
     assert all(not k.endswith("freqs") for k in model.state_dict())
-    for name, match in [("moe_1b3_4e", "MoE"), ("lra_text_linear", "LRA")]:
-        with pytest.raises(NotImplementedError, match=match):
-            TransformerLM(get_config(name), device="cpu")
+    # moe_1b3_4e is ported: blocks 3, 7, ..., 23 route over 4 experts
+    moe = dataclasses.replace(get_config("moe_1b3_4e"), d_model=128, n_heads=4)
+    routed = [i for i, blk in enumerate(TransformerLM(moe, device="cpu").blocks)
+              if hasattr(blk.mlp, "router")]
+    assert routed == [3, 7, 11, 15, 19, 23]
+    with pytest.raises(NotImplementedError, match="LRA"):
+        TransformerLM(get_config("lra_text_linear"), device="cpu")
     with pytest.raises(NotImplementedError, match="quantized"):
         TransformerLM(TINY, device="cpu", quant="int8")
     with pytest.raises(NotImplementedError, match="parallelism"):
