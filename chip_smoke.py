@@ -9,7 +9,7 @@ nonzero and no result line is printed):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernel libraries from the sources in the checkout, one nvcc
-   for each of the five sources, all started together; print ptxas'
+   for each of the seven sources, all started together; print ptxas'
    register, spill and shared-memory lines;
 3. hold each kernel against its plain PyTorch version on the card:
    - linear attention (rows 1, 3, 4): the forward at the generate path's
@@ -27,9 +27,20 @@ nonzero and no result line is printed):
      experts) for the gate/up and the down products, the prefill shape (4096
      rows), top-2 routing, an expert without rows, N and K past the tiles
      (d 100, h 200), and fp32 at the tiny widths;
+   - the int4 dequant-matmul (row 14): lm_1b3's decode shapes (x [4, 2048]
+     against p [1024, 2048] and [1024, 5504], x [4, 5504] against p [2752,
+     2048]), B 1, B 64, an out of 200 (no whole strip), a ragged d 100, and
+     fp32;
+   - the fused Adafactor passes (rows 11-13): sums, squared sum and apply at
+     lm_1b3's factored shapes ([32000, 2048], [5504, 2048], [2048, 5504],
+     [2048, 2048]) and ragged m and n, each gradient with an all-zero row and
+     column, apply with the flag 0 (p bitwise untouched);
    time every kernel, its plain version and, where one PyTorch call computes
    the same function, that call (``scaled_dot_product_attention``,
-   ``torch._grouped_mm``); print each kernel's bound beside its time;
+   ``torch._grouped_mm``; none for rows 11-14), each by CUDA events over
+   calls back to back (``cuda_ms``), and for rows 11-14 also the kernel's
+   device time alone (``graph_ms``); print each kernel's bound beside its
+   time;
 4. the generate path, for ``lm_1b3`` (4 prompts of 1024 byte tokens, 32
    greedy new tokens), for ``hybrid_1b3`` (4 prompts of 1536, longer than
    its window, 64 tokens) and for ``moe_1b3_4e`` with ``moe_dropless=True``
@@ -52,7 +63,23 @@ nonzero and no result line is printed):
    the MoE a tiny MoE in its capacity and its dropless form, the latter at
    1024 routed rows, so the card takes the gmm kernels in fp32 and the CPU
    the ragged form);
-6. a ``kernels`` JSON line, then the result line
+6. quantized serving: ``generate(..., quant=...)`` of ``lm_1b3`` at int4 and
+   int8 and of the dropless ``moe_1b3_4e`` at int4 (4 prompts of 1024, 32
+   greedy tokens; weights quantized once from seeded fp32 ones), exact launch
+   counts (one q4 launch per int4 layer and decode step: 168 for lm_1b3, 150
+   for the MoE, whose expert stacks stay int8; none in the prefill or at
+   int8), the prefill's and 8 decode steps' logits against
+   ``backend="torch"`` on the same quantized weights; ``tiny`` and a tiny
+   hybrid at int4 in fp32, the card (the kernel) against the CPU (the split
+   form);
+7. Adafactor: ``lm_1b3`` training with ``optimizer="adafactor_fused"`` (batch
+   8 x 1024, 1 warm-up and 3 timed steps; each pass once for each of the 170
+   large matrices a step, the sums and the squared sum two launches a call:
+   340, 340 and 170 launches), one update through the kernels against the
+   plain formulas on the same params and gradients, and 3 ``tiny`` fp32
+   steps on the card against the CPU with every factored leaf sent through
+   the kernels;
+8. a ``kernels`` JSON line (12 kernels), then the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -69,6 +96,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
+FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM
 ROOT = Path(__file__).resolve().parent
 
 # causal_dot_norm against its plain version. ``out`` (bf16): both divide in
@@ -144,8 +172,47 @@ TINY_LOGITS_ATOL, TINY_LOSS_ATOL = 1e-4, 1e-4
 GMM_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
 GMM_ATOL_OF_MAX, GMM_DW_RTOL_OF_MAX = 1e-4, 1e-4
 
+# The int4 dequant-matmul (row 14) against its plain version, on the same
+# inputs. Both sum exact products (an int4 value times a bf16 or fp32 x is
+# exact in fp32) in fp32 and round once to x's dtype, so a bf16 output lands
+# on the plain version's bf16 neighbour at worst (2^-7 |ref|; fp32 outputs:
+# 1e-4 |ref|, sums in another order). Beside it 1e-4 max|ref| for outputs
+# near zero: a sum of d <= 5504 products in another order moves by about
+# sqrt(d) 2^-24 times a product's size, |y| / sqrt(d): 6e-8 of max|y|. Every
+# output is written (its memory held NaN before the call).
+Q4_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
+Q4_ATOL_OF_MAX = 1e-4
+# Fused Adafactor (rows 11-13) against the plain versions, on the same inputs.
+# The sums of q = g g s2 + eps are positive fp32 sums of up to 32000 terms in
+# another order: each within 1e-4 relative of the plain sum (the kernel's
+# sequential runs of at most 122 rows and 263 partials bound the error by
+# about 400 x 2^-24 = 2.4e-5); an all-zero row's or column's sum is eps x n
+# alone, which a kernel dropping eps would make 0, a relative error of 1. The
+# squared sum within 1e-4 relative, likewise. apply rounds as the plain
+# version does ((g r) c, then p + u, no FMA): within 1e-6 relative of it (0
+# expected); with the flag 0, p stays bitwise as it was.
+AF_SUM_RTOL, AF_RMS_RTOL, AF_APPLY_RTOL = 1e-4, 1e-4, 1e-6
+# A quantized model's logits through the kernels against backend="torch" on
+# the same quantized weights, after the prefill and after each of 8 decode
+# steps fed the kernel run's tokens: the int4 layers' kernel sums both halves
+# in fp32 and rounds once, the split form rounds each half product and their
+# sum to bf16 (about 2^-8 relative each), and the attention kernels differ as
+# in the bf16 model: the same limit as its prefill logits.
+QUANT_LOGITS_ATOL = LOGITS_ATOL
+# One Adafactor update of lm_1b3's params through the kernels against the
+# plain formulas (optimizer="adafactor") on the same params, gradients and
+# state: the JAX package's own tolerance for its fused form against optax
+# (sums in another order, rsqrt for ** -0.5): params within 2e-5 relative
+# plus 1e-7. The statistics within 2e-5 relative plus 1e-6 of the leaf's
+# largest value: a clipped gradient of lm_1b3's 1.3 G params has a mean
+# square near 1e-9, so a fixed absolute term would be as large as the values
+# it holds (and the params cannot stand in: update clipping cancels a
+# uniform error in v wherever it binds).
+AF_PARAM_RTOL, AF_PARAM_ATOL, AF_STAT_ATOL_OF_MAX = 2e-5, 1e-7, 1e-6
+
 KERNELS = ("causal_dot_norm", "causal_dot_dq_den", "causal_dot_rev_den",
-           "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd", "gmm_dw")
+           "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd", "gmm_dw", "q4_matmul",
+           "adafactor_sums", "adafactor_rms", "adafactor_apply")
 
 
 def log(*a):
@@ -164,6 +231,43 @@ def cuda_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters):
+    """Mean device time of ``fn(i)`` over calls i = 0 .. iters - 1 captured
+    in one CUDA graph and replayed: no host work between the launches. A
+    field beside ``ms`` (``cuda_ms``, every row's time) for rows 11-14, whose
+    wrappers' host time can exceed the kernel's. ``fn`` picks its inputs by
+    ``i`` from ``cold_copies``, so each launch finds them in HBM, as the main
+    path does. Warmed up on the capture stream first."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+L2_BYTES = 50 * 2**20  # H100 SXM
+
+
+def cold_copies(t):
+    """``t`` and clones of it, together at least twice the L2 cache: calls
+    that cycle through them read each from HBM."""
+    k = max(1, -(-2 * L2_BYTES // (t.numel() * t.element_size())))
+    return [t] + [t.clone() for _ in range(k - 1)]
 
 
 def wall_ms(fn):
@@ -770,23 +874,283 @@ def check_gmm(gm, dev):
 
 
 # ---------------------------------------------------------------------------
+# The int4 dequant-matmul: row 14
+# ---------------------------------------------------------------------------
+
+# (label, rows, d, out, dtype): lm_1b3's decode shapes (4 rows) and the edges
+# of the kernel's loops
+Q4_CASES = [
+    ("wq..wo", 4, 2048, 2048, torch.bfloat16),
+    ("gate/up", 4, 2048, 5504, torch.bfloat16),
+    ("down", 4, 5504, 2048, torch.bfloat16),
+    ("B 1", 1, 2048, 2048, torch.bfloat16),
+    ("B 64", 64, 2048, 5504, torch.bfloat16),
+    ("out 200 (no whole strip)", 4, 2048, 200, torch.bfloat16),
+    ("ragged d 100", 4, 100, 384, torch.bfloat16),
+    ("fp32 (tiny's widths)", 2, 128, 384, torch.float32),
+    ("fp32, out % 4 != 0", 3, 64, 33, torch.float32),
+]
+Q4_PER_STEP = {"wq..wo": 4 * 24, "gate/up": 2 * 24, "down": 24}  # lm_1b3's calls a decode step
+
+
+def compare_q4(q4, dev):
+    """Row 14 against its plain version on the card, on every case of
+    Q4_CASES: random packed bytes (every nibble -8..7 at both positions) and
+    per-channel scales of a quantized weight's size. Returns one reading per
+    case and the inputs by label."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    readings, inputs = [], {}
+    for label, b, d, out, dtype in Q4_CASES:
+        x = torch.randn(b, d, device=dev, generator=g).to(dtype)
+        p = torch.randint(-128, 128, (d // 2, out), device=dev, generator=g).to(torch.int8)
+        s = (torch.rand(out, device=dev, generator=g) + 0.5) * 0.01
+        junk = torch.full((b, out), float("nan"), device=dev, dtype=dtype)
+        del junk  # the allocator hands this block to y: an unwritten element shows
+        y = q4.q4_matmul_cuda(x, p, s)
+        torch.cuda.synchronize()
+        readings.append({"case": f"{label}: x [{b}, {d}] {str(dtype)[6:]}, p [{d // 2}, {out}]",
+                         "y": _grad_reading(y, q4.q4_matmul_torch(x, p, s), Q4_RTOL[dtype],
+                                            Q4_ATOL_OF_MAX)})
+        inputs[label] = (x, p, s)
+    return readings, inputs
+
+
+def agrees_q4(r):
+    return r["y"]["well_formed"] and r["y"]["over_limit"] <= 1.0
+
+
+def check_q4(q4, dev):
+    """Row 14: agreement on every case, then timings at lm_1b3's three decode
+    shapes, each beside its bound (by bytes: the packed weight) and its plain
+    version, by ``cuda_ms`` as every row; beside them the kernel's device
+    time alone (``graph_ms``, over cold weights) and, as a yardstick that is
+    not the same function, the bf16 dense product of the same shape
+    (cuBLAS), timed so too."""
+    readings, inputs = compare_q4(q4, dev)
+    for r in readings:
+        log(f"q4_matmul {r['case']}: y max abs {r['y']['max_abs']:.3e} ({r['y']['over_limit']:.3f} "
+            f"of its limit, needs atol {r['y']['atol_needed']:.2e} max|ref|)")
+    bad = [r for r in readings if not agrees_q4(r)]
+    if bad:
+        raise AssertionError(f"q4_matmul disagrees with its plain version: {bad}")
+    per_shape = {}
+    with torch.no_grad():
+        for label in Q4_PER_STEP:
+            x, p, s = inputs[label]
+            (b, d), out = x.shape, p.shape[1]
+            ps = cold_copies(p)
+            ws = cold_copies(torch.randn(d, out, device=dev).to(torch.bfloat16))
+            # ms, plain_ms: calls back to back, the wrapper's host time
+            # included (as each decode step's calls pay it); graph_ms: the
+            # kernel's device time alone
+            t = dict(ms=cuda_ms(lambda: q4.q4_matmul_cuda(x, p, s), 200),
+                     plain_ms=cuda_ms(lambda: q4.q4_matmul_torch(x, p, s), 20),
+                     graph_ms=graph_ms(lambda i: q4.q4_matmul_cuda(x, ps[i % len(ps)], s), 200),
+                     dense_bf16_graph_ms=graph_ms(lambda i: x @ ws[i % len(ws)], 200),
+                     # x, p, s read; y written; 2 b d out operations
+                     moved=b * d * 2 + p.numel() + out * 4 + b * out * 2, flops=2 * b * d * out)
+            t["bound_ms"], t["bound_by"] = _bound(t["moved"], t["flops"])
+            per_shape[label] = t
+            log(f"q4_matmul timing {label}: x [{b}, {d}] bf16 @ p [{d // 2}, {out}]: kernel "
+                f"{t['ms']:.4f} ms a call with the wrapper's host time ({t['graph_ms']:.4f} device "
+                f"time alone), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by "
+                f"{t['bound_by']} ({t['moved'] / 1e6:.2f} MB); library_ms: none (no PyTorch call "
+                "takes this packed int4 layout: torch._weight_int4pack_mm wants its own tiled "
+                "packing and group-wise zero points); yardstick, not the same function: bf16 "
+                f"dense x @ W, device time alone, {t['dense_bf16_graph_ms']:.4f} ms "
+                f"({d * out * 2 / 1e6:.2f} MB of weights)")
+    fields = ("ms", "plain_ms", "graph_ms", "bound_ms", "dense_bf16_graph_ms")
+    step = {k: sum(per_shape[s][k] * n for s, n in Q4_PER_STEP.items()) for k in fields}
+    log(f"q4_matmul over one lm_1b3 decode step's 168 calls (each shape's time x its count): "
+        f"kernel {step['ms']:.3f} ms with the wrapper's host time ({step['graph_ms']:.3f} device "
+        f"time alone), plain {step['plain_ms']:.3f} ms, bound {step['bound_ms']:.4f} ms, bf16 "
+        f"dense device time {step['dense_bf16_graph_ms']:.3f} ms")
+    t = per_shape["gate/up"]
+    return [{"name": "q4_matmul", "route": "cuda", "source": "orion_tpu_torch/csrc/q4_matmul.cu",
+             "replaces": "orion_tpu/quant.py:183",
+             "max_abs_err": max(r["y"]["max_abs"] for r in readings),
+             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+             "graph_ms": t["graph_ms"],
+             "shape": "x [4, 2048] @ p [1024, 5504] (lm_1b3's gate / up at decode)",
+             "per_shape": {k: {f: v[f] for f in fields} for k, v in per_shape.items()},
+             "per_decode_step": step}]
+
+
+# ---------------------------------------------------------------------------
+# Fused Adafactor: rows 11, 12, 13
+# ---------------------------------------------------------------------------
+
+# (label, m, n): lm_1b3's factored matrices in the port's [out, in] layout,
+# and ragged edges; every case's gradient has an all-zero row and column
+AF_CASES = [("embed", 32000, 2048), ("gate/up", 5504, 2048), ("down", 2048, 5504),
+            ("square", 2048, 2048), ("ragged m, n", 1000, 1001), ("ragged, n < 1024", 777, 300)]
+# lm_1b3's 170 factored leaves by shape: the embedding; gate and up of 24
+# blocks; down; wq, wk, wv, wo of 24 blocks and pos_embed
+AF_PER_STEP = {"embed": 1, "gate/up": 48, "down": 24, "square": 97}
+
+
+def _nan_junk(dev, *numels):
+    """Blocks of NaN that the allocator hands to the next allocations of
+    these sizes (a kernel's scratch and outputs): an unwritten element
+    shows."""
+    junk = [torch.full((k,), float("nan"), device=dev) for k in numels]
+    del junk
+
+
+def compare_adafactor(af, dev):
+    """Rows 11-13 against their plain versions on the card, on every case of
+    AF_CASES: a gradient-sized g (an all-zero row and column: their sums are
+    eps alone), the squared clip scale, row and column factors, params. The
+    sums by each element's relative error, the squared sum, apply with the
+    flag 1 against the plain version and with the flag 0 (p bitwise as it
+    was). Returns one reading per case and the inputs by label."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    readings, inputs = [], {}
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    for label, m, n in AF_CASES:
+        grad = torch.randn(m, n, device=dev, generator=g) * 1e-3
+        grad[m // 2] = 0.0
+        grad[:, n // 3] = 0.0
+        s2 = torch.tensor([0.37 ** 2], device=dev)
+        r = torch.rand(m, device=dev, generator=g) + 0.5
+        c = torch.rand(n, device=dev, generator=g) + 0.5
+        p0 = torch.randn(m, n, device=dev, generator=g) * 0.02
+        n_ct, n_rc, _ = af.tiling(m, n)
+        _nan_junk(dev, n_ct * m, n_rc * n, m + n)
+        s0, s1 = af.adafactor_sums_cuda(grad, s2, 1e-30)
+        _nan_junk(dev, n_ct * n_rc)
+        rms = af.adafactor_rms_cuda(grad, r, c)
+        r_apply = r * -1e-3  # the apply pass's row factor folds -lr
+        p, p_off = p0.clone(), p0.clone()
+        af.adafactor_apply_cuda(grad, p, r_apply, c, one)
+        af.adafactor_apply_cuda(grad, p_off, r_apply, c, torch.zeros_like(one))
+        torch.cuda.synchronize()
+        r0, r1 = af.adafactor_sums_torch(grad, s2, 1e-30)
+        r_rms = float(af.adafactor_rms_torch(grad, r, c))
+        p_ref = af.adafactor_apply_torch(grad, p0.clone(), r_apply, c, one)
+        sums_rel = max(float(((a - b).abs() / b).max()) for a, b in ((s0, r0), (s1, r1)))
+        diff = (p - p_ref).abs()
+        readings.append({
+            "case": f"{label} [{m}, {n}]",
+            "sums_rel": sums_rel, "rms_rel": abs(float(rms) - r_rms) / r_rms,
+            "sums_max_abs": max(float((a - b).abs().max()) for a, b in ((s0, r0), (s1, r1))),
+            "rms_max_abs": abs(float(rms) - r_rms),
+            "apply_max_abs": float(diff.max()),
+            "apply_over_limit": float((diff / (AF_APPLY_RTOL * p_ref.abs())).nan_to_num(
+                posinf=1e30).max()),
+            "flag_off_untouched": bool(torch.equal(p_off, p0)),
+            "well_formed": s0.shape == (n,) and s1.shape == (m,) and rms.shape == ()
+            and bool(torch.isfinite(s0).all() and torch.isfinite(s1).all()),
+        })
+        inputs[label] = (grad, s2, r, c, p0)
+        del p, p_off, p_ref, s0, s1, r0, r1
+    torch.cuda.empty_cache()
+    return readings, inputs
+
+
+def agrees_adafactor(r):
+    return (r["well_formed"] and r["flag_off_untouched"] and r["sums_rel"] <= AF_SUM_RTOL
+            and r["rms_rel"] <= AF_RMS_RTOL and r["apply_over_limit"] <= 1.0)
+
+
+def check_adafactor(af, dev):
+    """Rows 11-13: agreement on every case, then each pass timed at lm_1b3's
+    four shapes beside its bound (by bytes) and its plain version, by
+    ``cuda_ms`` as every row, and its device time alone (``graph_ms``, over
+    cold inputs); no PyTorch call computes any of the three (each is several
+    elementwise and reduction calls)."""
+    readings, inputs = compare_adafactor(af, dev)
+    for r in readings:
+        log(f"adafactor {r['case']}: sums max rel {r['sums_rel']:.3e} (limit {AF_SUM_RTOL:g}), "
+            f"squared sum rel {r['rms_rel']:.3e} (limit {AF_RMS_RTOL:g}), apply max abs "
+            f"{r['apply_max_abs']:.3e} ({r['apply_over_limit']:.3f} of its limit), flag 0 leaves "
+            f"p bitwise: {r['flag_off_untouched']}")
+    bad = [r for r in readings if not agrees_adafactor(r)]
+    if bad:
+        raise AssertionError(f"a fused Adafactor kernel disagrees with its plain version: {bad}")
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    per_shape = {}
+    with torch.no_grad():
+        for label in AF_PER_STEP:
+            grad, s2, r, c, p0 = inputs[label]
+            m, n = grad.shape
+            gs, ps = cold_copies(grad), cold_copies(p0.clone())  # each call's g, p from HBM
+            k = len(gs)
+            r_apply = r * -1e-9  # repeated applies move p by little
+            vec = 4 * (m + n)
+            rows = {
+                "sums": (lambda i: af.adafactor_sums_cuda(gs[i % k], s2, 1e-30),
+                         lambda i: af.adafactor_sums_torch(gs[i % k], s2, 1e-30),
+                         4 * m * n + 4 + vec, 3 * m * n),  # g read; both sums written
+                "rms": (lambda i: af.adafactor_rms_cuda(gs[i % k], r, c),
+                        lambda i: af.adafactor_rms_torch(gs[i % k], r, c),
+                        4 * m * n + vec + 4, 4 * m * n),  # g, r, c read; one sum written
+                "apply": (lambda i: af.adafactor_apply_cuda(gs[i % k], ps[i % k], r_apply, c, one),
+                          lambda i: af.adafactor_apply_torch(gs[i % k], ps[i % k], r_apply, c, one),
+                          12 * m * n + vec + 4, 3 * m * n),  # g, p, r, c read; p written
+            }
+            per_shape[label] = {}
+            for part, (kernel, plain, moved, flops) in rows.items():
+                # ms, plain_ms: calls back to back, the wrapper's host time
+                # included; graph_ms: the kernels' device time alone
+                t = dict(ms=cuda_ms(lambda: kernel(0), 20), plain_ms=cuda_ms(lambda: plain(0), 5),
+                         graph_ms=graph_ms(kernel, 20), moved=moved)
+                t["bound_ms"], t["bound_by"] = _bound(moved, flops, FP32_FLOPS)
+                per_shape[label][part] = t
+                log(f"adafactor_{part} timing {label} [{m}, {n}] fp32: kernel {t['ms']:.4f} ms a "
+                    f"call with the wrapper's host time ({t['graph_ms']:.4f} device time alone), "
+                    f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+                    f"{t['bound_by']} ({moved / 1e6:.1f} MB); library_ms: none (no single "
+                    "PyTorch call computes it)")
+    lines = []
+    for part, replaces in (("sums", "orion_tpu/ops/pallas/adafactor.py:156"),
+                           ("rms", "orion_tpu/ops/pallas/adafactor.py:179"),
+                           ("apply", "orion_tpu/ops/pallas/adafactor.py:198")):
+        fields = ("ms", "plain_ms", "graph_ms", "bound_ms")
+        step = {k: sum(per_shape[s][part][k] * n for s, n in AF_PER_STEP.items()) for k in fields}
+        log(f"adafactor_{part} over one lm_1b3 step's 170 calls (each shape's time x its count): "
+            f"kernel {step['ms']:.3f} ms with the wrapper's host time ({step['graph_ms']:.3f} "
+            f"device time alone), plain {step['plain_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms")
+        t = per_shape["embed"][part]
+        err = max(r[{"sums": "sums_max_abs", "rms": "rms_max_abs", "apply": "apply_max_abs"}[part]]
+                  for r in readings)
+        lines.append({"name": f"adafactor_{part}", "route": "cuda",
+                      "source": "orion_tpu_torch/csrc/adafactor.cu", "replaces": replaces,
+                      "max_abs_err": err,
+                      **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                      "library_ms": None, "graph_ms": t["graph_ms"],
+                      "launches_per_call": 1 if part == "apply" else 2,
+                      "shape": "[32000, 2048] fp32 (lm_1b3's embedding)",
+                      "per_shape": {s: {k: v[part][k] for k in fields}
+                                    for s, v in per_shape.items()},
+                      "per_step": step})
+    del inputs
+    torch.cuda.empty_cache()
+    return lines
+
+
+# ---------------------------------------------------------------------------
 # The main paths
 # ---------------------------------------------------------------------------
 
 
 def _counts(mods):
-    cd, fa, gm = mods
+    cd, fa, gm, q4, af = mods
     return {"causal_dot_norm": cd.launches, "causal_dot_dq_den": cd.launches_dq,
             "causal_dot_rev_den": cd.launches_rev, "flash_fwd": fa.launches_fwd,
             "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv,
-            "gmm_fwd": gm.launches_fwd, "gmm_dw": gm.launches_dw}
+            "gmm_fwd": gm.launches_fwd, "gmm_dw": gm.launches_dw, "q4_matmul": q4.launches,
+            "adafactor_sums": af.launches_sums, "adafactor_rms": af.launches_rms,
+            "adafactor_apply": af.launches_apply}
 
 
 def _reset_counts(mods):
-    cd, fa, gm = mods
+    cd, fa, gm, q4, af = mods
     cd.launches = cd.launches_dq = cd.launches_rev = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
     gm.launches_fwd = gm.launches_dw = 0
+    q4.launches = 0
+    af.launches_sums = af.launches_rms = af.launches_apply = 0
 
 
 def _layer_counts(cfg):
@@ -809,6 +1173,24 @@ def _gmm_counts(cfg):
     per = 3 if cfg.mlp == "swiglu" else 2
     moe = [i for i in range(cfg.n_layers) if cfg.moe_at(i)]
     return per * len(moe), per * sum(i < first_remat for i in moe)
+
+
+def _q4_per_step(cfg):
+    """Int4 dense layers a decode step runs (each launches the q4 kernel once
+    at decode's rows): wq, wk, wv, wo in every block, and gate, up, down (up,
+    down for GELU) in every block whose MLP is not routed (expert stacks stay
+    int8)."""
+    mlp = 3 if cfg.mlp == "swiglu" else 2
+    return sum(4 + (0 if cfg.moe_at(i) else mlp) for i in range(cfg.n_layers))
+
+
+def _af_kernel_leaves(params):
+    """The parameters whose update takes the three fused kernels: factored
+    2-D fp32 matrices of at least _MIN_KERNEL_ELEMS elements."""
+    from orion_tpu_torch.ops.kernels import adafactor as af
+
+    return sum(1 for p in params.values()
+               if af.factored_dims(p.shape) is not None and af.kernel_ok(p))
 
 
 def _state_err(states, ref_states):
@@ -950,18 +1332,108 @@ def generate_phase(dev, mods, name, prompt_len, new_tokens, overrides=None):
     }
 
 
-def tiny_generate(dev, cfg, label):
-    """A small model end to end: the card against the CPU's plain path."""
-    from orion_tpu_torch.generate import SampleConfig, generate
+def quant_generate_phase(dev, mods, name, prompt_len, new_tokens, mode, overrides=None):
+    """``generate(..., quant=mode)`` on ``name`` (with ``overrides``) at full
+    width: the model quantized once from seeded fp32 weights
+    (``quantize_for_decode``), prefill and decode times, exact launch counts
+    (in int4 one q4 launch per int4 layer and decode step; the prefill's
+    rows stay on the split form), then the prefill's logits and 8 decode
+    steps' logits against backend="torch" on the same quantized weights, the
+    decode steps fed the kernel run's tokens (a MoE's routing pinned to the
+    kernel run's, step by step)."""
+    from orion_tpu_torch.generate import SampleConfig, generate, quantize_for_decode
+    from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.models.transformer import TransformerLM
+
+    cfg = get_config(name, **(overrides or {}))
+    t0 = time.perf_counter()
+    fp = TransformerLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    model = quantize_for_decode(fp, mode)
+    del fp
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"{name} {mode}: quantized in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(t.numel() * t.element_size() for t in model.state_dict().values()) / 2**30:.2f} "
+        f"GiB of weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompts = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (4, prompt_len), dtype=np.int64)
+    ).to(dev)
+    greedy = SampleConfig(temperature=0.0)
+    generate(model, prompts[:, :128], 2, greedy, quant=mode)  # warm-up
+    prefill_runs = [wall_ms(lambda: generate(model, prompts, 1, greedy, quant=mode))[0]
+                    for _ in range(3)]
+    _reset_counts(mods)
+    gen_ms, out = wall_ms(lambda: generate(model, prompts, new_tokens, greedy, quant=mode))
+    counts = _counts(mods)
+    lin, attn, _, _ = _layer_counts(cfg)
+    want = dict.fromkeys(KERNELS, 0)
+    # a quantized MoE never takes the gmm kernels
+    want.update(causal_dot_norm=lin, flash_fwd=attn,
+                q4_matmul=_q4_per_step(cfg) * (new_tokens - 1) if mode == "int4" else 0)
+    log(f"{name} {mode} generate launches: {counts}")
+    if counts != want:
+        raise AssertionError(f"{name} {mode} generate launched {counts}, want {want}")
+    if out.shape != (4, new_tokens) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError("generate returned the wrong shape / out-of-vocab tokens")
+    prefill_ms = float(np.median(prefill_runs))
+    decode_ms = (gen_ms - prefill_ms) / (new_tokens - 1)
+    log(f"{name} {mode} B4 T{prompt_len}: prefill {prefill_ms:.2f} ms (runs "
+        f"{[round(x, 2) for x in prefill_runs]}); generate {new_tokens} tokens {gen_ms:.2f} ms; "
+        f"decode {decode_ms:.3f} ms/token at batch 4")
+
+    ref = TransformerLM(dataclasses.replace(cfg, backend="torch"), device=dev, quant=mode)
+    ref.load_state_dict(model.state_dict())
+    pin = PinnedRouting()
+    pin.attach(model)
+    pin.attach(ref)
+    errs = []
+    with torch.inference_mode():
+        with pin:
+            lg, st = model.prefill_last(prompts)
+            rlg, rst = ref.prefill_last(prompts)
+        errs.append(float((lg - rlg).abs().max()))
+        for i in range(8):
+            pin.routes.clear()
+            with pin:
+                lg, st = model.decode_step(out[:, i], st, prompt_len + i)
+                rlg, rst = ref.decode_step(out[:, i], rst, prompt_len + i)
+            errs.append(float((lg - rlg).abs().max()))
+        finite = bool(torch.isfinite(lg).all()) and lg.dtype == torch.float32
+    del ref, model, st, rst
+    torch.cuda.empty_cache()
+    log(f"{name} {mode} logits, kernels vs backend='torch' on the same quantized weights: max abs "
+        f"after the prefill {errs[0]:.4e}, after decode steps 1-8 "
+        f"{[float(f'{e:.3e}') for e in errs[1:]]} (limit {QUANT_LOGITS_ATOL})"
+        + (f"; routing pinned, the reference would have sent {pin.flips} of {pin.choices} "
+           "token choices elsewhere" if pin.choices else ""))
+    if not finite or max(errs) > QUANT_LOGITS_ATOL:
+        raise AssertionError(f"{name} {mode}: the kernel path disagrees with backend='torch'")
+    return {"launches": counts, "prefill_ms": prefill_ms, "prefill_runs_ms": prefill_runs,
+            "generate_ms": gen_ms, "decode_ms_per_token": decode_ms, "logits_max_abs_err": errs,
+            "q4_per_step": _q4_per_step(cfg)}
+
+
+def tiny_generate(dev, cfg, label, quant=""):
+    """A small model end to end: the card against the CPU's plain path
+    (``quant``: both quantized from the same fp32 weights; the card's int4
+    decode rows take the kernel, the CPU's the split form)."""
+    from orion_tpu_torch.generate import SampleConfig, generate, quantize_for_decode
+    from orion_tpu_torch.models.transformer import TransformerLM
+    from orion_tpu_torch.ops.kernels import q4_matmul
 
     greedy = SampleConfig(temperature=0.0)
     tiny_cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
-    tiny_gpu = TransformerLM(cfg, device=dev)
+    if quant:
+        tiny_cpu = quantize_for_decode(tiny_cpu, quant)
+    tiny_gpu = TransformerLM(cfg, device=dev, quant=quant)
     tiny_gpu.load_state_dict(tiny_cpu.state_dict())
     tp = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 100), dtype=np.int64))
-    got = generate(tiny_gpu, tp.to(dev), 16, greedy)
-    ref = generate(tiny_cpu, tp, 16, greedy)
+    before = q4_matmul.launches
+    got = generate(tiny_gpu, tp.to(dev), 16, greedy, quant=quant)
+    if quant == "int4" and q4_matmul.launches != before + 15 * _q4_per_step(cfg):
+        raise AssertionError(f"{label}: {q4_matmul.launches - before} q4 launches, want "
+                             f"{15 * _q4_per_step(cfg)}")
+    ref = generate(tiny_cpu, tp, 16, greedy, quant=quant)
     with torch.inference_mode():
         lg = tiny_gpu.prefill_last(tp.to(dev))[0].cpu()
         lc = tiny_cpu.prefill_last(tp)[0]
@@ -973,29 +1445,35 @@ def tiny_generate(dev, cfg, label):
     return tiny_err
 
 
-def train_phase(dev, mods, name, seq_len, overrides=None):
+def train_phase(dev, mods, name, seq_len, overrides=None, optimizer="adamw"):
     """``name`` (with ``overrides``) training at full width: 1 warm-up and 3
-    timed steps, with exact launch counts per step."""
+    timed steps, with exact launch counts per step; with
+    ``optimizer="adafactor_fused"`` then one update through the kernels
+    against the plain formulas (``adafactor_update_check``)."""
     from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.training.data import DataLoader, SyntheticDataset
     from orion_tpu_torch.training.trainer import TrainConfig, Trainer
 
     cfg = TrainConfig(model=get_config(name, **(overrides or {})), steps=4, batch_size=8,
-                      seq_len=seq_len)
+                      seq_len=seq_len, optimizer=optimizer)
     m = cfg.model
     lin, attn, lin_remat, attn_remat = _layer_counts(m)
     products, products_remat = _gmm_counts(m)
-    want = {"causal_dot_norm": lin + lin_remat, "causal_dot_dq_den": lin,
-            "causal_dot_rev_den": lin, "flash_fwd": attn + attn_remat, "flash_dq": attn,
-            "flash_dkv": attn,
-            # forward, recomputation, and dx by the forward kernel against w^T
-            "gmm_fwd": 2 * products + products_remat, "gmm_dw": products}
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"causal_dot_norm": lin + lin_remat, "causal_dot_dq_den": lin,
+                 "causal_dot_rev_den": lin, "flash_fwd": attn + attn_remat, "flash_dq": attn,
+                 "flash_dkv": attn,
+                 # forward, recomputation, and dx by the forward kernel against w^T
+                 "gmm_fwd": 2 * products + products_remat, "gmm_dw": products})
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=dev)
     torch.cuda.synchronize()
+    if optimizer == "adafactor_fused":  # each pass once for every kernel leaf; the sums
+        n_af = _af_kernel_leaves(trainer.params)  # and the squared sum launch twice a call
+        want.update(adafactor_sums=2 * n_af, adafactor_rms=2 * n_af, adafactor_apply=n_af)
     log(f"{name} trainer: {sum(p.numel() for p in trainer.params.values()) / 1e9:.3f} B fp32 "
-        f"params + AdamW state, init {time.perf_counter() - t0:.1f} s")
+        f"params + {optimizer} state, init {time.perf_counter() - t0:.1f} s")
     loader = DataLoader(SyntheticDataset(m.vocab_size, cfg.seq_len), cfg.batch_size,
                         seed=cfg.seed, device=dev)
     steps_ms, losses = [], []
@@ -1017,7 +1495,7 @@ def train_phase(dev, mods, name, seq_len, overrides=None):
     timed = steps_ms[1:]
     step_ms = float(np.mean(timed))
     tokens_per_s = cfg.batch_size * cfg.seq_len / (step_ms / 1e3)
-    log(f"{name} train B8 T{seq_len}: step ms {[round(x, 2) for x in steps_ms]} (first is the "
+    log(f"{name} train B8 T{seq_len}, {optimizer}: step ms {[round(x, 2) for x in steps_ms]} (first is the "
         f"warm-up), mean of the timed {step_ms:.2f} ms, {tokens_per_s:.0f} tokens/s, "
         f"max memory allocated {peak_gib:.2f} GiB; losses {[round(x, 4) for x in losses]}")
     log(f"{name} train launches per step: {per_step} (want {want} each)")
@@ -1025,10 +1503,96 @@ def train_phase(dev, mods, name, seq_len, overrides=None):
         raise AssertionError(f"launches per training step {per_step}, want {want}")
     if not all(np.isfinite(x) and 0.0 < x < 20.0 for x in losses):
         raise AssertionError(f"training losses not finite or out of range: {losses}")
+    check = adafactor_update_check(trainer, batch) if optimizer == "adafactor_fused" else None
     del trainer
     torch.cuda.empty_cache()
     return {"launches": counts, "per_step": per_step, "steps_ms": steps_ms, "step_ms": step_ms,
-            "tokens_per_s": tokens_per_s, "max_memory_gib": peak_gib, "losses": losses}
+            "tokens_per_s": tokens_per_s, "max_memory_gib": peak_gib, "losses": losses,
+            "update_check": check}
+
+
+def adafactor_update_reading(af, grads, params, state, dims, scale):
+    """One Adafactor update of ``params`` on ``grads`` from ``state`` at lr
+    1e-3, through the kernels (adafactor_fused) and through the plain
+    formulas (optimizer="adafactor"), each on copies: the worst share of its
+    limit of the params and of the statistics (v_row, v_col, v), and the
+    apply launches of each."""
+    out = {}
+    for use_kernel in (True, False):
+        ps = {n: p.detach().clone() for n, p in params.items()}
+        st = af.FusedAdafactorState(state.count, *({n: t.clone() for n, t in d.items()}
+                                                   for d in (state.v_row, state.v_col, state.v)))
+        before = af.launches_apply
+        st = af.apply_updates(grads, ps, st, lr=1e-3, scale=scale, finite=True, dims=dims,
+                              use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        out[use_kernel] = (ps, st, af.launches_apply - before)
+    (pk, sk, nk), (pp, sp, npl) = out[True], out[False]
+
+    def share(got, ref, atol):  # 0 where equal: a [1] placeholder holds 0 on both sides
+        diff = (got - ref).abs()
+        return float(torch.where(diff == 0, 0.0, diff / (AF_PARAM_RTOL * ref.abs() + atol)).max())
+
+    stats = [(getattr(sk, key)[n], getattr(sp, key)[n]) for key in ("v_row", "v_col", "v")
+             for n in pk]
+    return {"params_over_limit": max(share(pk[n], pp[n], AF_PARAM_ATOL) for n in pk),
+            "params_max_abs": max(float((pk[n] - pp[n]).abs().max()) for n in pk),
+            "stats_over_limit": max(share(a, b, AF_STAT_ATOL_OF_MAX * float(b.abs().max()))
+                                    for a, b in stats),
+            "stats_max_rel": max(float(((a - b).abs() / b.abs().max().clamp_min(1e-30)).max())
+                                 for a, b in stats),
+            "stats_max_abs": max(float((a - b).abs().max()) for a, b in stats),
+            "kernel_leaves": nk, "plain_launches": npl}
+
+
+def agrees_adafactor_update(r, leaves):
+    return (r["plain_launches"] == 0 and r["kernel_leaves"] == leaves
+            and r["params_over_limit"] <= 1.0 and r["stats_over_limit"] <= 1.0)
+
+
+def _log_update(label, r):
+    log(f"{label}: kernels ({r['kernel_leaves']} leaves) vs plain formulas "
+        f"({r['plain_launches']} kernel launches): params max abs {r['params_max_abs']:.3e}, "
+        f"worst {r['params_over_limit']:.3f} of the limit {AF_PARAM_RTOL:g} |ref| + "
+        f"{AF_PARAM_ATOL:g}; v_row / v_col / v max abs {r['stats_max_abs']:.3e} (of the leaf's "
+        f"largest value {r['stats_max_rel']:.3e}), worst {r['stats_over_limit']:.3f} of the "
+        f"limit {AF_PARAM_RTOL:g} |ref| + {AF_STAT_ATOL_OF_MAX:g} max|ref|")
+
+
+def adafactor_update_check(trainer, batch):
+    """One Adafactor update of the trainer's params on one batch's clipped
+    gradients, through the kernels and through the plain formulas on the
+    card, from the same params and state: within the stated limits."""
+    from orion_tpu_torch.ops.kernels import adafactor as af
+
+    trainer._loss_and_grads(batch.to(trainer.device), 0)
+    grads = {n: p.grad for n, p in trainer.params.items()}
+    gnorm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
+    scale = torch.clamp(trainer.cfg.clip_norm / gnorm, max=1.0)
+    r = adafactor_update_reading(af, grads, trainer.params, trainer.opt.state, trainer.opt.dims,
+                                 scale)
+    for p in trainer.params.values():
+        p.grad = None
+    _log_update("adafactor update", r)
+    if not agrees_adafactor_update(r, _af_kernel_leaves(trainer.params)):
+        raise AssertionError("the fused Adafactor update disagrees with the plain formulas")
+    return r
+
+
+def compare_adafactor_update(af, dev):
+    """One update of one leaf of each of lm_1b3's factored shapes and a norm
+    scale, zero state, through the kernels and the plain formulas: gradients
+    at the scale of lm_1b3's after its clip (norm 1 over 1.3 G params, rms
+    2.8e-5), so the statistics are as small as the main path's."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    shapes = {label: (m, n) for label, m, n in AF_CASES if label in AF_PER_STEP}
+    shapes["norm"] = (2048,)
+    params = {k: torch.randn(s, device=dev, generator=g) * 0.02 for k, s in shapes.items()}
+    grads = {k: torch.randn(s, device=dev, generator=g) * 2.8e-5 for k, s in shapes.items()}
+    dims = {k: af.factored_dims(s, transposed=len(s) == 2) for k, s in shapes.items()}
+    r = adafactor_update_reading(af, grads, params, af.init(params, dims), dims, 1.0)
+    r["agrees"] = agrees_adafactor_update(r, len(AF_PER_STEP))
+    return r
 
 
 def grad_check(dev, name, seq_len, batch_size=8, overrides=None):
@@ -1090,22 +1654,35 @@ def grad_check(dev, name, seq_len, batch_size=8, overrides=None):
             "routing_flips": pin.flips}
 
 
-def tiny_train(dev, model_cfg, label, batch_size=4):
+def tiny_train(dev, model_cfg, label, batch_size=4, optimizer="adamw"):
     """3 fp32 training steps of a small model on the card and on the CPU
-    from the same weights and batches: the loss sequences must agree."""
+    from the same weights and batches: the loss sequences must agree. With
+    ``adafactor_fused`` the kernels' gate is lowered so that every factored
+    leaf takes them on the card (on the CPU, their plain versions)."""
+    from orion_tpu_torch.ops.kernels import adafactor as af
     from orion_tpu_torch.training.data import SyntheticDataset
     from orion_tpu_torch.training.trainer import TrainConfig, Trainer
 
     cfg = TrainConfig(model=model_cfg, steps=3, batch_size=batch_size, seq_len=128,
-                      warmup_steps=1, lr=1e-3)
+                      warmup_steps=1, lr=1e-3, optimizer=optimizer)
     cpu, gpu = Trainer(cfg, device="cpu"), Trainer(cfg, device=dev)
     gpu.model.load_state_dict(cpu.model.state_dict())
     ds = SyntheticDataset(model_cfg.vocab_size, cfg.seq_len)
     got, ref = [], []
-    for step in range(3):
-        b = torch.from_numpy(ds.batch(0, step, cfg.batch_size)).long()
-        got.append(gpu.step(b.to(dev))["loss"])
-        ref.append(cpu.step(b)["loss"])
+    gate, before = af._MIN_KERNEL_ELEMS, af.launches_apply
+    if optimizer == "adafactor_fused":
+        af._MIN_KERNEL_ELEMS = 0
+    try:
+        for step in range(3):
+            b = torch.from_numpy(ds.batch(0, step, cfg.batch_size)).long()
+            got.append(gpu.step(b.to(dev))["loss"])
+            ref.append(cpu.step(b)["loss"])
+    finally:
+        af._MIN_KERNEL_ELEMS = gate
+    if optimizer == "adafactor_fused":
+        want = 3 * sum(p.dim() == 2 for p in gpu.params.values())
+        if af.launches_apply - before != want:
+            raise AssertionError(f"{label}: {af.launches_apply - before} apply launches, want {want}")
     err = max(abs(a - b) for a, b in zip(got, ref))
     log(f"{label} fp32 train, card vs CPU: losses {got} vs {ref}, max diff {err:.3e} "
         f"(limit {TINY_LOSS_ATOL:g})")
@@ -1119,7 +1696,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
         return 1
     from orion_tpu_torch.models.configs import TINY
-    from orion_tpu_torch.ops.kernels import causal_dot, flash_attention, gmm
+    from orion_tpu_torch.ops.kernels import adafactor, causal_dot, flash_attention, gmm, q4_matmul
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1127,12 +1704,14 @@ def main() -> int:
     card = card_info()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    mods = (causal_dot, flash_attention, gmm)
+    mods = (causal_dot, flash_attention, gmm, q4_matmul, adafactor)
     build(mods)
     check_causal_dot(causal_dot, dev)
     kernels = check_training_kernels(causal_dot, dev)
     kernels += check_flash(flash_attention, dev)
     kernels += check_gmm(gmm, dev)
+    kernels += check_q4(q4_matmul, dev)
+    kernels += check_adafactor(adafactor, dev)
     log(f"kernel phases done in {time.perf_counter() - t0:.1f} s")
     tiny_hybrid = dataclasses.replace(TINY, layer_types=("swa", "linear"), window=16)
 
@@ -1166,7 +1745,29 @@ def main() -> int:
                                  "kernels")
     log(f"moe_1b3_4e phases done at {time.perf_counter() - t0:.1f} s")
 
+    lm_int4 = quant_generate_phase(dev, mods, "lm_1b3", 1024, 32, "int4")
+    quant_generate_phase(dev, mods, "lm_1b3", 1024, 32, "int8")
+    moe_int4 = quant_generate_phase(dev, mods, "moe_1b3_4e", 1024, 32, "int4", dropless)
+    tiny_generate(dev, TINY, "tiny int4", quant="int4")
+    tiny_generate(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16) int4", quant="int4")
+    log(f"lm_1b3 int4 decode {lm_int4['decode_ms_per_token']:.3f} ms/token against bf16's "
+        f"{lm_gen['decode_ms_per_token']:.3f} in this run")
+    af_train = train_phase(dev, mods, "lm_1b3", 1024, optimizer="adafactor_fused")
+    tiny_train(dev, TINY, "tiny adafactor_fused", optimizer="adafactor_fused")
+    log(f"lm_1b3 adafactor_fused step {af_train['step_ms']:.2f} ms against AdamW's "
+        f"{lm_train['step_ms']:.2f} in this run")
+    log(f"quantized serving and Adafactor phases done at {time.perf_counter() - t0:.1f} s")
+
     for k in kernels:
+        if k["name"].startswith("q4"):  # the main path: lm_1b3 int4 generate
+            k["launches"] = lm_int4["launches"][k["name"]]
+            k["launches_moe_1b3_4e_int4"] = moe_int4["launches"][k["name"]]
+            k["launches_per_decode_step"] = lm_int4["q4_per_step"]
+            continue
+        if k["name"].startswith("adafactor"):  # the main path: lm_1b3 adafactor_fused training
+            k["launches"] = af_train["launches"][k["name"]]
+            k["launches_per_step"] = af_train["per_step"][0][k["name"]]
+            continue
         main_train, main_gen = (moe_train, moe_gen) if k["name"].startswith("gmm") else (
             hy_train, hy_gen)
         k["launches"] = main_train["launches"][k["name"]]

@@ -7,19 +7,22 @@ deliberately wrong copies of them, each made by one textual edit of a
 source in ``orion_tpu_torch/csrc/``: ``causal_dot_norm.cu`` ("fwd", the
 linear forward), ``causal_dot_bwd.cu`` ("bwd", its two backward kernels),
 ``flash_attention.cu`` ("flash_fwd"), ``flash_attention_bwd.cu``
-("flash_bwd", dq and dk/dv) or ``gmm.cu`` ("gmm", the grouped matmul's
-forward and dw), written under
+("flash_bwd", dq and dk/dv), ``gmm.cu`` ("gmm", the grouped matmul's
+forward and dw), ``q4_matmul.cu`` ("q4", the int4 dequant-matmul) or
+``adafactor.cu`` ("adafactor", the fused Adafactor's three passes), written
+under
 ``orion_tpu_torch/_build/mutants/`` (the sources in the checkout are never
 changed); all the builds start together, one nvcc each. Then it holds each
 copy against the plain versions with ``chip_smoke.compare_causal_dot``
 (linear forward copies, at the generate path's shape),
 ``chip_smoke.compare_training_kernels`` (linear backward copies, at the
 training shape), ``chip_smoke.compare_flash`` (flash copies, on all its
-cases) or ``chip_smoke.compare_gmm`` (gmm copies, on all its cases), prints,
-per kernel, its readings and whether ``chip_smoke.agrees`` /
-``agrees_training`` / ``agrees_flash`` / ``agrees_gmm`` accepts it, then all
-of it as one
-JSON line. Exits nonzero if a sound kernel is rejected or a kernel that
+cases), ``chip_smoke.compare_gmm`` (gmm copies, on all its cases),
+``chip_smoke.compare_q4`` or ``chip_smoke.compare_adafactor`` (on all their
+cases; Adafactor copies also through ``chip_smoke.compare_adafactor_update``,
+one update against the plain formulas), prints, per kernel, its readings and whether ``chip_smoke.agrees`` /
+``agrees_training`` / ``agrees_flash`` / ``agrees_gmm`` / ``agrees_q4`` /
+``agrees_adafactor`` accepts it, then all of it as one JSON line. Exits nonzero if a sound kernel is rejected or a kernel that
 must be rejected is not. Imports nothing of JAX.
 """
 
@@ -30,13 +33,19 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 import chip_smoke
-from orion_tpu_torch.ops.kernels import causal_dot, flash_attention, gmm, library
+from orion_tpu_torch.ops.kernels import adafactor, causal_dot, flash_attention, gmm, library
+from orion_tpu_torch.ops.kernels import q4_matmul
 
 # source name -> (wrapper module, its SOURCES key)
 SOURCES = {"fwd": (causal_dot, "fwd"), "bwd": (causal_dot, "bwd"),
            "flash_fwd": (flash_attention, "fwd"), "flash_bwd": (flash_attention, "bwd"),
-           "gmm": (gmm, "gmm")}
+           "gmm": (gmm, "gmm"), "q4": (q4_matmul, "q4"), "adafactor": (adafactor, "adafactor")}
 _DW_ROWS = "const int n_rows = tile_count[e] * tile_rows;"
+_AF_FINAL = ("    sums[n + i] = t;\n  } else if (i < m + n) {\n    const int j = i - m;\n"
+             "    float t = 0.f;\n    for (int rc = 0; rc < n_rc; ++rc) t += colpart[(size_t)rc * n + j];\n"
+             "    sums[j] = t;")
+_Q4_UNPACK = ("const float lo = (float)((int)(w << (28 - 8 * c)) >> 28);\n"
+              "            const float hi = (float)((int)(w << (24 - 8 * c)) >> 28);")
 
 # (name, source, what it breaks, text of the source, its replacement, must be rejected)
 MUTANTS = [
@@ -119,17 +128,69 @@ MUTANTS = [
      "wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);\n          for (int t = 0; t < "
      "c[i][j].num_elements; ++t) c[i][j].x[t] = "
      "__bfloat162float(__float2bfloat16_rn(c[i][j].x[t]));", True),
+    ("q4_lo_hi_swapped", "q4", "takes the low nibble for the odd input row and the high one for "
+     "the even", _Q4_UNPACK,
+     _Q4_UNPACK.replace("(28 - 8 * c)", "(XX)").replace("(24 - 8 * c)", "(28 - 8 * c)")
+     .replace("(XX)", "(24 - 8 * c)"), True),
+    ("q4_logical_shift", "q4", "shifts the nibbles down logically: -1 reads as 15, -8 as 8",
+     _Q4_UNPACK, _Q4_UNPACK.replace("(int)(w << ", "(w << "), True),
+    ("q4_scale_on_rows", "q4", "multiplies by the scale of the row's index, not the channel's",
+     "from_f<T>(sum * s[oc])", "from_f<T>(sum * s[r0 + r])", True),
+    ("q4_scale_dropped", "q4", "never multiplies by the scale", "from_f<T>(sum * s[oc])",
+     "from_f<T>(sum)", True),
+    ("q4_k_tail_dropped", "q4", "drops the packed rows past the last whole 512-row chunk",
+     "for (int kb = 0; kb < kp; kb += KC)", "for (int kb = 0; kb + KC <= kp; kb += KC)", True),
+    ("q4_last_strip_dropped", "q4", "launches no block for a last strip of fewer than 32 channels",
+     "const dim3 grid((out + COLS - 1) / COLS);", "const dim3 grid(out / COLS);", True),
+    ("af_sums_swapped", "adafactor", "writes the row sums where the column sums go and back",
+     _AF_FINAL, _AF_FINAL.replace("sums[n + i]", "sums[i]").replace("sums[j]", "sums[m + j]"),
+     True),
+    ("af_eps_dropped", "adafactor", "drops eps from q = g g s2 + eps",
+     "__fadd_rn(__fmul_rn(__fmul_rn(v[k][i], v[k][i]), s2), eps)",
+     "__fmul_rn(__fmul_rn(v[k][i], v[k][i]), s2)", True),
+    ("af_sums_last_chunk_missed", "adafactor", "leaves the last row chunk out of the column sums",
+     "t.n_ct, t.n_rc);\n", "t.n_ct, t.n_rc - 1);\n", True),
+    ("af_rms_last_chunk_missed", "adafactor", "leaves the last row chunk's partials out of the "
+     "squared sum", "af_rms_finalize<<<1, NT, 0, st>>>(part, t.n_ct * t.n_rc,",
+     "af_rms_finalize<<<1, NT, 0, st>>>(part, t.n_ct * (t.n_rc - 1),", True),
+    ("af_sums_scaled", "adafactor", "writes every row and column sum 1 % too large (a constant "
+     "factor: the row and column factors' ratios, and so the update's direction, unchanged)",
+     _AF_FINAL, _AF_FINAL.replace("sums[n + i] = t;", "sums[n + i] = t * 1.01f;")
+     .replace("sums[j] = t;", "sums[j] = t * 1.01f;"), True),
+    ("af_flag_ignored", "adafactor", "applies the update on a non-finite step",
+     "  if (*flag == 0) return;  // a non-finite step: p stays as it was\n", "", True),
 ]
 
 
 def _clear_libs():
-    for mod in (causal_dot, flash_attention, gmm):  # load the libraries of the modules' SOURCES
-        mod._libs.clear()
+    for mod in (causal_dot, flash_attention, gmm, q4_matmul, adafactor):
+        mod._libs.clear()  # load the libraries of the modules' SOURCES anew
 
 
 def run(name, source, dev):
     _clear_libs()
-    if source == "gmm":
+    if source == "q4":
+        readings, _ = chip_smoke.compare_q4(q4_matmul, dev)
+        accepted = all(chip_smoke.agrees_q4(r) for r in readings)
+        for r in readings:
+            chip_smoke.log(f"  {r['case']}: y {r['y']['max_abs']:.3e} "
+                           f"({r['y']['over_limit']:.3g} of its limit)")
+    elif source == "adafactor":
+        readings, _ = chip_smoke.compare_adafactor(adafactor, dev)
+        accepted = all(chip_smoke.agrees_adafactor(r) for r in readings)
+        for r in readings:
+            chip_smoke.log(
+                f"  {r['case']}: sums rel {r['sums_rel']:.3g} "
+                f"({r['sums_rel'] / chip_smoke.AF_SUM_RTOL:.3g} of its limit), squared sum rel "
+                f"{r['rms_rel']:.3g} ({r['rms_rel'] / chip_smoke.AF_RMS_RTOL:.3g} of its limit), "
+                f"apply {r['apply_over_limit']:.3g} of its limit, flag 0 leaves p bitwise: "
+                f"{r['flag_off_untouched']}")
+        # the main path's end-to-end check, one update at lm_1b3's shapes
+        update = chip_smoke.compare_adafactor_update(adafactor, dev)
+        chip_smoke._log_update("  one update", update)
+        readings = readings + [{"case": "one update", **update}]
+        accepted = accepted and update["agrees"]
+    elif source == "gmm":
         readings, _ = chip_smoke.compare_gmm(gmm, dev)
         accepted = all(chip_smoke.agrees_gmm(r) for r in readings)
         for r in readings:
@@ -193,7 +254,8 @@ def main() -> int:
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc for each source, all at once
         list(pool.map(library.build, builds))
 
-    results = [run("sound", src, dev) for src in ("fwd", "bwd", "flash_fwd", "gmm")]
+    results = [run("sound", src, dev) for src in ("fwd", "bwd", "flash_fwd", "gmm", "q4",
+                                                  "adafactor")]
     ok = all(r["accepted"] for r in results)
     for name, source, breaks, _, _, must_reject in MUTANTS:
         mod, key = SOURCES[source]
@@ -215,7 +277,14 @@ def main() -> int:
                    "lse_rtol": chip_smoke.LSE_RTOL,
                    "gmm_rtol": {str(k): v for k, v in chip_smoke.GMM_RTOL.items()},
                    "gmm_atol_of_max": chip_smoke.GMM_ATOL_OF_MAX,
-                   "gmm_dw_rtol_of_max": chip_smoke.GMM_DW_RTOL_OF_MAX},
+                   "gmm_dw_rtol_of_max": chip_smoke.GMM_DW_RTOL_OF_MAX,
+                   "q4_rtol": {str(k): v for k, v in chip_smoke.Q4_RTOL.items()},
+                   "q4_atol_of_max": chip_smoke.Q4_ATOL_OF_MAX,
+                   "af_sum_rtol": chip_smoke.AF_SUM_RTOL, "af_rms_rtol": chip_smoke.AF_RMS_RTOL,
+                   "af_apply_rtol": chip_smoke.AF_APPLY_RTOL,
+                   "af_param_rtol": chip_smoke.AF_PARAM_RTOL,
+                   "af_param_atol": chip_smoke.AF_PARAM_ATOL,
+                   "af_stat_atol_of_max": chip_smoke.AF_STAT_ATOL_OF_MAX},
         "kernels": results,
     }))
     return 0 if ok else 1

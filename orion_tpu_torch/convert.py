@@ -17,6 +17,20 @@ Mapping (flax path -> torch state_dict key):
   -> ``blocks.{i}.mlp.router`` [E, d], transposed, and the expert stacks
   ``block_{i}/mlp/experts_{gate,up,down}`` as they are.
 
+A quantized tree (``quant="int8"`` / ``"int4"``: the tree the JAX
+package's ``quantize_params_for_decode`` returns) maps onto the port's
+quantized model (``orion_tpu_torch/quant.py``), its int8 tensors kept int8:
+
+- ``embed/embedding_q`` [V, D], ``embedding_s`` [V] -> ``embed.weight_q``,
+  ``embed.weight_s`` as they are;
+- a dense layer's ``kernel_q`` [in, out] -> ``weight_q`` [out, in],
+  transposed as every dense weight; ``kernel_p4`` [in/2, out] (int4) ->
+  ``weight_p4`` in the same layout: the kernel (``csrc/q4_matmul.cu``) reads
+  it so, each packed row's bytes of neighbouring output channels together;
+  ``kernel_s`` [out] -> ``weight_s``;
+- ``block_{i}/mlp/experts_{gate,up,down}_q`` [E, in, out] and ``_s`` [E,
+  out] as they are.
+
 A missing or unexpected key, or a shape that disagrees with ``cfg``, raises.
 """
 
@@ -29,6 +43,7 @@ import torch
 
 from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.models.transformer import check_supported
+from orion_tpu_torch.quant import check_mode
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -42,9 +57,37 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def expected_params(cfg: ModelConfig) -> Dict[str, tuple]:
-    """flax path -> (torch key, torch shape, transpose?) for ``cfg``."""
+def _quantized(spec: Dict[str, tuple], quant: str) -> Dict[str, tuple]:
+    """The full-precision spec -> the quantized tree's: each dense kernel as
+    ``kernel_q`` (or ``kernel_p4``) + ``kernel_s``, the embedding table and
+    the expert stacks as ``_q`` + ``_s``."""
+    out = {}
+    for path, (key, shape, transpose) in spec.items():
+        base = key[: -len(".weight")] if key.endswith(".weight") else key
+        if path == "embed/embedding":
+            out["embed/embedding_q"] = ("embed.weight_q", shape, False)
+            out["embed/embedding_s"] = ("embed.weight_s", shape[:1], False)
+        elif transpose and not path.endswith("router/kernel"):  # a dense layer [out, in]
+            d_out, d_in = shape
+            prefix = path[: -len("kernel")]
+            if quant == "int4":
+                out[prefix + "kernel_p4"] = (base + ".weight_p4", (d_in // 2, d_out), False)
+            else:
+                out[prefix + "kernel_q"] = (base + ".weight_q", shape, True)
+            out[prefix + "kernel_s"] = (base + ".weight_s", (d_out,), False)
+        elif len(shape) == 3:  # an expert stack [E, in, out]
+            out[path + "_q"] = (key + "_q", shape, False)
+            out[path + "_s"] = (key + "_s", (shape[0], shape[2]), False)
+        else:
+            out[path] = (key, shape, transpose)
+    return out
+
+
+def expected_params(cfg: ModelConfig, quant: str = "") -> Dict[str, tuple]:
+    """flax path -> (torch key, torch shape, transpose?) for ``cfg`` (and the
+    quantized tree of ``quant``; its ``_q`` / ``_p4`` leaves are int8)."""
     check_supported(cfg)
+    check_mode(quant)
     d, dh = cfg.d_model, cfg.resolved_head_dim
     hd, hid = cfg.n_heads * dh, cfg.resolved_mlp_hidden
     spec = {
@@ -70,22 +113,25 @@ def expected_params(cfg: ModelConfig) -> Dict[str, tuple]:
             spec[f"block_{i}/mlp/router/kernel"] = (f"blocks.{i}.mlp.router", (e, d), True)
             for name, shape in experts.items():
                 spec[f"block_{i}/mlp/{name}"] = (f"blocks.{i}.mlp.{name}", shape, False)
-    return spec
+    return _quantized(spec, quant) if quant else spec
 
 
-def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """flax param tree (numpy leaves) -> the port's fp32 state_dict (CPU)."""
+def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
+                    quant: str = "") -> Dict[str, torch.Tensor]:
+    """flax param tree (numpy leaves) -> the port's state_dict (CPU): fp32,
+    and int8 for a quantized tree's ``_q`` / ``_p4`` leaves."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     flat = _flatten(tree)
-    spec = expected_params(cfg)
+    spec = expected_params(cfg, quant)
     missing = sorted(set(spec) - set(flat))
     unexpected = sorted(set(flat) - set(spec))
     if missing or unexpected:
         raise KeyError(f"param tree mismatch: missing {missing}, unexpected {unexpected}")
     state = {}
     for path, (key, shape, transpose) in spec.items():
-        arr = np.asarray(flat[path], dtype=np.float32)
+        int8 = path.endswith(("_q", "_p4"))
+        arr = np.asarray(flat[path], dtype=np.int8 if int8 else np.float32)
         if transpose:
             arr = arr.T  # 2-D kernels only: the expert stacks keep their layout
         if arr.shape != shape:
@@ -95,8 +141,9 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torc
 
 
 def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.Module:
-    """Copy a flax param tree into ``model`` in place (strict); returns it."""
-    model.load_state_dict(params_from_jax(tree, model.cfg), strict=True)
+    """Copy a flax param tree into ``model`` in place (strict; a quantized
+    model takes the quantized tree of its mode); returns it."""
+    model.load_state_dict(params_from_jax(tree, model.cfg, model.quant), strict=True)
     return model
 
 

@@ -20,6 +20,11 @@ E / k for the call (the JAX package's no-drop serving rule): decode never
 drops a token, so the prompt's prefill must not either. The dropless form
 has no capacity to raise.
 
+Quantized serving (``quant="int8"`` / ``"int4"``, CLI ``--quant``):
+``quantize_for_decode`` builds the int8 (or int4-packed) model from a
+full-precision one (``orion_tpu_torch/quant.py``); in int4 every decode
+step's dense products run the hand-written ``q4_matmul`` kernel on the card.
+
 Without a checkpoint the weights come from a seeded init. Loading one is
 not ported yet (ROADMAP.md queue A, item 5: the JAX package's orbax
 checkpoints, and the port's own from ``orion_tpu_torch.train``);
@@ -39,6 +44,7 @@ import torch
 from orion_tpu_torch.models.configs import get_config
 from orion_tpu_torch.models.moe import MoEMLP
 from orion_tpu_torch.models.transformer import Dense, TransformerLM
+from orion_tpu_torch.quant import MODES, check_mode, quantize_params_for_decode
 from orion_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -92,7 +98,10 @@ def cast_params_for_inference(model: TransformerLM) -> TransformerLM:
     the MoE layer's ``w.astype(dt)`` round the fp32 weight at every call, so
     this is bitwise the same and halves the weights' bytes on the card.
     Embedding tables, norm scales and MoE routers stay fp32: the lookups,
-    the norm and the router read them in fp32."""
+    the norm and the router read them in fp32. A quantized model is left
+    alone: its scales stay fp32, the exact per-channel dequantization."""
+    if model.quant:
+        return model
     for m in model.modules():
         if isinstance(m, Dense) and m.weight.dtype != m.cdt:
             m.weight = torch.nn.Parameter(m.weight.to(m.cdt), requires_grad=False)
@@ -101,6 +110,20 @@ def cast_params_for_inference(model: TransformerLM) -> TransformerLM:
                 if name != "router" and w.dtype != m.cdt:
                     setattr(m, name, torch.nn.Parameter(w.to(m.cdt), requires_grad=False))
     return model
+
+
+@torch.no_grad()
+def quantize_for_decode(model: TransformerLM, mode: str = "int8") -> TransformerLM:
+    """A full-precision model -> its quantized counterpart on the same
+    device: every dense weight int8 (or nibble-packed int4 with
+    ``mode="int4"``) with per-out-channel scales, the embedding table and
+    the expert stacks int8 in both modes. Quantize once, serve many."""
+    if check_mode(mode) == "" or model.quant:
+        raise ValueError(f"quantize_for_decode takes a full-precision model and a mode "
+                         f"'int8' / 'int4'; got quant={model.quant!r}, mode={mode!r}")
+    qmodel = TransformerLM(model.cfg, device=model.device, quant=mode)
+    qmodel.load_state_dict(quantize_params_for_decode(qmodel, model.state_dict()), strict=True)
+    return qmodel
 
 
 @contextlib.contextmanager
@@ -130,8 +153,14 @@ def generate(
     max_new_tokens: int,
     sample: Optional[SampleConfig] = None,
     generator: Optional[torch.Generator] = None,
+    quant: str = "",
 ) -> Tensor:
     """prompt [B, T0] (or [T0]) -> generated tokens [B, max_new_tokens].
+
+    ``quant="int8"`` / ``"int4"``: quantize a full-precision model for this
+    call (to serve many calls, ``quantize_for_decode`` once and pass its
+    model); a model already quantized must carry the same mode, or this
+    raises.
 
     The emitted sequence is the JAX package's ``_generate_jit``: the token
     sampled from the prefill, then one token per decode step; with an
@@ -139,6 +168,14 @@ def generate(
     runs one last decode step whose sample it drops; this loop skips it.
     A capacity-dispatch MoE model runs under ``no_drop_capacity``.
     """
+    if check_mode(quant):
+        if not model.quant:
+            model = quantize_for_decode(model, quant)
+        elif model.quant != quant:
+            # serving another precision than the one asked for would corrupt
+            # every latency and quality measurement
+            raise ValueError(f"the model is already quantized as {model.quant!r}; "
+                             f"requested quant={quant!r}")
     with no_drop_capacity(model):
         return _generate(model, prompt, max_new_tokens, sample, generator)
 
@@ -185,6 +222,9 @@ def main(argv=None) -> int:
         help="ModelConfig override, e.g. --set n_layers=4",
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--quant", default="", choices=list(MODES),
+                   help="weight-streamed decode: int8 quarters the weight bytes of fp32, int4 "
+                        "halves them again (orion_tpu_torch/quant.py)")
     args = p.parse_args(argv)
 
     cfg = get_config(args.config)
@@ -198,7 +238,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     # weights from a fixed init seed (as the JAX CLI's PRNGKey(0)); --seed
     # seeds only the sampler
-    model = cast_params_for_inference(TransformerLM(cfg, device=device))
+    model = TransformerLM(cfg, device=device)
+    model = quantize_for_decode(model, args.quant) if args.quant else cast_params_for_inference(model)
     print("no checkpoint: random params (smoke test)", file=sys.stderr)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     out = generate(

@@ -35,12 +35,20 @@ Two dispatch rules, as in the JAX package:
     are the ones the ragged form computes;
   * ``_dropless_ragged`` (the JAX ragged_dot form): rows sorted by expert
     (``counting_sort_perm``) and one product per expert segment. Taken for
-    CPU tensors and for ``backend="torch"`` on the card above 1024 rows; it
-    reads the segment sizes on the host.
+    CPU tensors; it reads the segment sizes on the host.
+
+Quantized (``quant="int8"`` or ``"int4"``: the expert stacks are int8 in
+both modes, as in the JAX package): ``experts_{gate,up,down}_q`` [E, in,
+out] int8 buffers with per-(expert, output channel) fp32 scales ``_s`` [E,
+out]; every product runs in the compute dtype on the int8 values and its
+fp32 output is multiplied by its expert's scales, then rounded (the capacity
+form's einsums, the ragged form's segments, the dense form's experts). A
+quantized layer never takes the gmm kernels, as in JAX: on the card its
+dropless rows take the dense form at any row count.
 
 Not ported (each raises ``NotImplementedError`` naming ROADMAP.md's item):
 the expert-parallel forms (``_dropless_ep``, ``_dropless_ep_gmm``, the
-``ep`` layout constraint: item 12) and int8 / int4 expert stacks (item 7).
+``ep`` layout constraint: item 12).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ import torch.nn.functional as F
 from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.ops.dispatch import resolve
 from orion_tpu_torch.ops.kernels.gmm import gmm, pad_group_sizes, tile_expert_table
+from orion_tpu_torch.quant import check_mode
 
 Tensor = torch.Tensor
 
@@ -149,9 +158,7 @@ class MoEMLP(nn.Module):
         if mesh is not None:
             raise _not_ported("expert parallelism (the ep forms of MoEMLP)",
                               "item 12 (parallelism)")
-        if quant:
-            raise _not_ported(f"quantized expert stacks (quant={quant!r})",
-                              "item 7 (quantized decode)")
+        self.quant = check_mode(quant)
         e, k, h, d = cfg.n_experts, cfg.moe_top_k, cfg.resolved_mlp_hidden, cfg.d_model
         if not 1 <= k <= e:
             raise ValueError(f"moe_top_k={k} must be in [1, n_experts={e}]")
@@ -162,10 +169,16 @@ class MoEMLP(nn.Module):
         # the capacity form's factor; generate() raises it for serving
         self.capacity_factor = cfg.moe_capacity_factor
         self.router = nn.Parameter(torch.empty(e, d, device=device))
+        stacks = {"experts_up": (d, h), "experts_down": (h, d)}
         if cfg.mlp == "swiglu":
-            self.experts_gate = nn.Parameter(torch.empty(e, d, h, device=device))
-        self.experts_up = nn.Parameter(torch.empty(e, d, h, device=device))
-        self.experts_down = nn.Parameter(torch.empty(e, h, d, device=device))
+            stacks = {"experts_gate": (d, h), **stacks}
+        for name, (d_in, d_out) in stacks.items():
+            if quant:  # int8 in both modes, with per-(expert, out-channel) scales
+                self.register_buffer(name + "_q", torch.zeros(e, d_in, d_out, dtype=torch.int8,
+                                                              device=device))
+                self.register_buffer(name + "_s", torch.ones(e, d_out, device=device))
+            else:
+                setattr(self, name, nn.Parameter(torch.empty(e, d_in, d_out, device=device)))
 
     def forward(self, x: Tensor, with_aux: bool = False):
         """x [B, T, D] (or [B, D] for decode) -> y like x in the compute
@@ -185,14 +198,26 @@ class MoEMLP(nn.Module):
         z = (torch.logsumexp(logits, -1) ** 2).mean()
         return cfg.moe_aux_weight * aux + cfg.moe_zloss_weight * z
 
-    def _ffn(self, lhs: Tensor, mm: Callable[[Tensor, Tensor], Tensor]) -> Tensor:
-        """The expert FFN on ``lhs`` with ``mm(rows, weight stack)`` as each
-        of its products."""
+    def _ffn(self, lhs: Tensor, mm: Callable[[Tensor, str], Tensor]) -> Tensor:
+        """The expert FFN on ``lhs`` with ``mm(rows, stack name)`` as each of
+        its products."""
         if self.cfg.mlp == "swiglu":
-            mid = F.silu(mm(lhs, self.experts_gate)) * mm(lhs, self.experts_up)
+            mid = F.silu(mm(lhs, "experts_gate")) * mm(lhs, "experts_up")
         else:
-            mid = F.gelu(mm(lhs, self.experts_up), approximate="tanh")  # jax.nn.gelu
-        return mm(mid, self.experts_down)
+            mid = F.gelu(mm(lhs, "experts_up"), approximate="tanh")  # jax.nn.gelu
+        return mm(mid, "experts_down")
+
+    def _stack(self, name: str) -> Tuple[Tensor, Optional[Tensor]]:
+        """(the stack [E, in, out] in the compute dtype, its int8 scales [E,
+        out] or None)."""
+        if self.quant:
+            return getattr(self, name + "_q").to(self.cdt), getattr(self, name + "_s")
+        return getattr(self, name).to(self.cdt), None
+
+    def _scaled(self, y: Tensor, s: Optional[Tensor]) -> Tensor:
+        """An int8 product's fp32 output times its scales, rounded to the
+        compute dtype (no scales: y as it is)."""
+        return y if s is None else (y.float() * s).to(self.cdt)
 
     # -- capacity dispatch ---------------------------------------------------
 
@@ -212,7 +237,13 @@ class MoEMLP(nn.Module):
         if with_aux:
             aux = self._weighted_aux(assign.mean((0, 1)), probs.mean((0, 1)), logits)
         xe = torch.einsum("gsd,gsec->gecd", xg.to(dt), dispatch.to(dt))
-        ye = self._ffn(xe, lambda a, w: torch.einsum("gecd,edh->gech", a, w.to(dt)))
+
+        def mm(a: Tensor, name: str) -> Tensor:
+            w, s = self._stack(name)
+            return self._scaled(torch.einsum("gecd,edh->gech", a, w),
+                                None if s is None else s[None, :, None, :])
+
+        ye = self._ffn(xe, mm)
         y = torch.einsum("gecd,gsec->gsd", ye, combine.to(dt))
         return y.reshape(x.shape).to(dt), aux
 
@@ -229,7 +260,8 @@ class MoEMLP(nn.Module):
         if with_aux:
             f = F.one_hot(ids, e).float().mean((0, 1))
             aux = self._weighted_aux(f, probs.mean(0), logits)
-        if resolve(cfg.backend, x.device) == "cuda" and ids.numel() >= GMM_MIN_ROWS:
+        if (resolve(cfg.backend, x.device) == "cuda" and ids.numel() >= GMM_MIN_ROWS
+                and not self.quant):
             y = self._dropless_gmm(x2, ids, gates)
         elif x.is_cuda:
             y = self._dropless_dense(x2, ids, gates)
@@ -251,9 +283,11 @@ class MoEMLP(nn.Module):
         sizes = counts.tolist()
         xs = x2.to(dt).index_select(0, order // k)
 
-        def segments(lhs: Tensor, w: Tensor) -> Tensor:
+        def segments(lhs: Tensor, name: str) -> Tensor:
+            w, s = self._stack(name)
             parts = lhs.split(sizes)
-            return torch.cat([p @ w[i].to(dt) for i, p in enumerate(parts)])
+            return torch.cat([self._scaled(p @ w[i], None if s is None else s[i])
+                              for i, p in enumerate(parts)])
 
         ys = self._ffn(xs, segments)
         return self._combine(ys.index_select(0, rank).reshape(n, k, -1), gates)
@@ -265,8 +299,16 @@ class MoEMLP(nn.Module):
         n, dt = x2.shape[0], self.cdt
         xd = x2.to(dt)
 
+        stacks: dict = {}  # each stack cast to the compute dtype once, not once per expert
+
         def expert(i: int) -> Tensor:
-            return self._ffn(xd, lambda a, w: a @ w[i].to(dt))
+            def mm(a: Tensor, name: str) -> Tensor:
+                if name not in stacks:
+                    stacks[name] = self._stack(name)
+                w, s = stacks[name]
+                return self._scaled(a @ w[i], None if s is None else s[i])
+
+            return self._ffn(xd, mm)
 
         ye = torch.stack([expert(i) for i in range(self.cfg.n_experts)])  # [E, N, d]
         rows = torch.arange(n, device=x2.device)[:, None]
@@ -291,7 +333,7 @@ class MoEMLP(nn.Module):
         src = x2.to(dt).repeat_interleave(k, 0)  # row r of flat is token r // k
         xs = torch.zeros(m2, d, dtype=dt, device=x2.device).index_copy(0, pos, src)
         te = tile_expert_table(seg, m2 // tm, tm)
-        ys = self._ffn(xs, lambda a, w: gmm(a, w, te, backend=cfg.backend))
+        ys = self._ffn(xs, lambda a, name: gmm(a, getattr(self, name), te, backend=cfg.backend))
         return self._combine(ys.index_select(0, pos).reshape(n, k, d), gates)
 
 

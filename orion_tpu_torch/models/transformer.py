@@ -43,10 +43,18 @@ operands with fp32 accumulation into fp32 logits; (S, z) stay fp32.
 (0 without them), which the training loss adds and the eval loss leaves out,
 as the JAX package does with its ``"losses"`` collection.
 
+``quant="int8"`` / ``"int4"`` builds the decode-only quantized model of the
+JAX package's ``quant`` attribute (``orion_tpu_torch/quant.py``): every dense
+layer ``Int8Dense`` (``"int8"``) or nibble-packed ``Int4Dense`` (``"int4"``,
+whose decode rows run the hand-written ``q4_matmul`` kernel on the card),
+and in both modes the embedding table ``Int8Embed``, serving the tied head
+through ``attend`` (fp32 logits), and a MoE layer's expert stacks int8.
+``generate.quantize_for_decode`` fills one from a full-precision model.
+
 Not ported yet (they raise ``NotImplementedError`` naming ROADMAP.md's
-item): LayerNorm, an untied head, quantized weights, meshes (and with them
-the expert-parallel MoE forms), ``remat_policy="dots"``. The JAX package's
-``attn_block_q`` / ``attn_block_k`` size TPU tiles and are not read.
+item): LayerNorm, an untied head, meshes (and with them the expert-parallel
+MoE forms), ``remat_policy="dots"``. The JAX package's ``attn_block_q`` /
+``attn_block_k`` size TPU tiles and are not read.
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ from orion_tpu_torch.ops.feature_maps import make_feature_map
 from orion_tpu_torch.ops.linear_attention import linear_attention, recurrent_step
 from orion_tpu_torch.ops.rotary import apply_rotary, apply_rotary_at, rotary_freqs
 from orion_tpu_torch.ops.softmax_attention import cached_attention, softmax_attention
+from orion_tpu_torch.quant import Int4Dense, Int8Dense, Int8Embed, check_mode
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
 
@@ -112,6 +121,17 @@ class Dense(nn.Module):
         return F.linear(x.to(self.cdt), self.weight.to(self.cdt))
 
 
+def _qdense_factory(quant: str, cdt: torch.dtype, backend: str):
+    """The dense-layer constructor ``(d_in, d_out, device)`` of a quant mode:
+    ``Dense`` for full precision, ``Int8Dense`` for ``"int8"``, ``Int4Dense``
+    for ``"int4"`` (whose kernel gate reads the model's ``backend``)."""
+    if quant == "int4":
+        return lambda d_in, d_out, device: Int4Dense(d_in, d_out, cdt, backend, device)
+    if quant == "int8":
+        return lambda d_in, d_out, device: Int8Dense(d_in, d_out, cdt, device)
+    return lambda d_in, d_out, device: Dense(d_in, d_out, cdt, device)
+
+
 class Embed(nn.Module):
     """Lookup table ``weight`` [rows, D], fp32 (flax ``nn.Embed``)."""
 
@@ -144,18 +164,19 @@ class Attention(nn.Module):
     """One causal attention layer of type ``"linear"``, ``"softmax"`` or
     ``"swa"``."""
 
-    def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None):
+    def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None,
+                 quant: str = ""):
         super().__init__()
         if layer_type not in ("linear", "softmax", "swa"):
             raise ValueError(f"unknown layer type {layer_type!r}")
         self.cfg = cfg
         self.layer_type = layer_type
         h, dh = cfg.n_heads, cfg.resolved_head_dim
-        cdt = _dtype(cfg.dtype)
-        self.wq = Dense(cfg.d_model, h * dh, cdt, device)
-        self.wk = Dense(cfg.d_model, h * dh, cdt, device)
-        self.wv = Dense(cfg.d_model, h * dh, cdt, device)
-        self.wo = Dense(h * dh, cfg.d_model, cdt, device)
+        dense = _qdense_factory(quant, _dtype(cfg.dtype), cfg.backend)
+        self.wq = dense(cfg.d_model, h * dh, device)
+        self.wk = dense(cfg.d_model, h * dh, device)
+        self.wv = dense(cfg.d_model, h * dh, device)
+        self.wo = dense(h * dh, cfg.d_model, device)
         if layer_type == "linear":
             self._phi = make_feature_map(cfg.feature_map)
         else:
@@ -311,17 +332,17 @@ def _swa_cache_from_prefill_dynamic(kr: Tensor, v: Tensor, length, window: int) 
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, quant: str = ""):
         super().__init__()
         self.cfg = cfg
-        cdt = _dtype(cfg.dtype)
+        dense = _qdense_factory(quant, _dtype(cfg.dtype), cfg.backend)
         d, h = cfg.d_model, cfg.resolved_mlp_hidden
         if cfg.mlp == "swiglu":
-            self.gate = Dense(d, h, cdt, device)
+            self.gate = dense(d, h, device)
         elif cfg.mlp != "gelu":
             raise ValueError(f"unknown mlp {cfg.mlp!r}")
-        self.up = Dense(d, h, cdt, device)
-        self.down = Dense(h, d, cdt, device)
+        self.up = dense(d, h, device)
+        self.down = dense(h, d, device)
 
     def forward(self, x: Tensor) -> Tensor:
         if self.cfg.mlp == "swiglu":
@@ -348,14 +369,15 @@ class Block(nn.Module):
     ``checkpoint`` redraws the same masks."""
 
     def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None,
-                 use_moe: bool = False):
+                 use_moe: bool = False, quant: str = ""):
         super().__init__()
         cdt = _dtype(cfg.dtype)
         self.rate = cfg.dropout
         self.norm1 = RMSNorm(cfg.d_model, cdt, device=device)
-        self.attn = Attention(cfg, layer_type, device)
+        self.attn = Attention(cfg, layer_type, device, quant)
         self.norm2 = RMSNorm(cfg.d_model, cdt, device=device)
-        self.mlp = MoEMLP(cfg, cdt, device) if use_moe else MLP(cfg, device)
+        self.mlp = (MoEMLP(cfg, cdt, device, quant=quant) if use_moe
+                    else MLP(cfg, device, quant))
 
     def _mlp_aux(self, x: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
         if isinstance(self.mlp, MoEMLP):
@@ -395,8 +417,12 @@ class TransformerLM(nn.Module):
     fresh generator seeded 0 on ``device`` by default) with the flax model's
     default initializers: lecun_normal for dense kernels, normal(1/sqrt(D))
     for the embedding tables, ones for norm scales. ``device`` defaults to
-    ``"cuda"`` and raises if CUDA is absent. ``mesh`` and ``quant`` are
-    the JAX model's, not ported yet: anything but their defaults raises.
+    ``"cuda"`` and raises if CUDA is absent. ``quant`` (``""``, ``"int8"``,
+    ``"int4"``): the quantized decode model (see the module docstring); its
+    int8 / int4 tensors start at zero, with unit scales, until
+    ``generate.quantize_for_decode`` or ``convert.load_jax_params`` fills
+    them. ``mesh`` is the JAX model's, not ported yet: anything but None
+    raises.
     """
 
     def __init__(
@@ -411,18 +437,19 @@ class TransformerLM(nn.Module):
         super().__init__()
         if mesh is not None:
             raise _not_ported("a device mesh", "item 12 (parallelism)")
-        if quant:
-            raise _not_ported(f"quant={quant!r}", "item 7 (quantized decode)")
+        self.quant = check_mode(quant)
         check_supported(cfg)
         if cfg.param_dtype != "float32":
             raise ValueError(f"param_dtype must be float32, got {cfg.param_dtype!r}")
         dev = resolve_device(device)
         self.cfg = cfg
         self.cdt = _dtype(cfg.dtype)
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, dev)
+        # an int8 table in both quant modes: the head's logits set greedy fidelity
+        self.embed = (Int8Embed(cfg.vocab_size, cfg.d_model, dev) if quant
+                      else Embed(cfg.vocab_size, cfg.d_model, dev))
         self.pos_embed = Embed(cfg.max_seq_len, cfg.d_model, dev)
         self.blocks = nn.ModuleList(
-            Block(cfg, lt, dev, use_moe=cfg.moe_at(i))
+            Block(cfg, lt, dev, use_moe=cfg.moe_at(i), quant=quant)
             for i, lt in enumerate(cfg.resolved_layer_types)
         )
         self.final_norm = RMSNorm(cfg.d_model, self.cdt, device=dev)
@@ -435,10 +462,12 @@ class TransformerLM(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every parameter from ``generator`` (flax default inits; an
         expert stack [E, in, out] as the JAX package's ``_expert_init``:
-        lecun_normal over (in, out) with the expert as the batch axis)."""
+        lecun_normal over (in, out) with the expert as the batch axis). A
+        quantized model's int8 / int4 buffers are not drawn."""
         std = 1.0 / math.sqrt(self.cfg.d_model)
-        for table in (self.embed.weight, self.pos_embed.weight):
-            table.normal_(0.0, std, generator=generator)
+        for table in (self.embed, self.pos_embed):
+            if isinstance(table, Embed):
+                table.weight.normal_(0.0, std, generator=generator)
 
         def lecun_normal(w: Tensor, fan_in: int) -> None:
             s = math.sqrt(1.0 / fan_in) / _TRUNC_STD
@@ -455,7 +484,7 @@ class TransformerLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.weight.device
+        return self.pos_embed.weight.device
 
     def _embed(self, tokens: Tensor, positions) -> Tensor:
         return (self.embed(tokens) + self.pos_embed(positions)).to(self.cdt)
@@ -480,7 +509,10 @@ class TransformerLM(nn.Module):
 
     def _head_matmul(self, x: Tensor) -> Tensor:
         """fp32 logits from compute-dtype operands (a plain bf16 matmul would
-        round the logits to bf16 and flip greedy tokens)."""
+        round the logits to bf16 and flip greedy tokens); a quantized model's
+        through the int8 table's ``attend``."""
+        if self.quant:
+            return self.embed.attend(x, self.cdt)
         return x.to(self.cdt).float() @ self._head_operand().t()
 
     def _head(self, x: Tensor) -> Tensor:
@@ -519,7 +551,10 @@ class TransformerLM(nn.Module):
 
     def head_weight(self) -> Tuple[Tensor, bool]:
         """(head weight, w_is_vd) for ``ops/fused_ce.py``: the tied
-        embedding table [V, D] (the untied head is not ported)."""
+        embedding table [V, D] (the untied head is not ported). A quantized
+        model serves only."""
+        if self.quant:
+            raise ValueError(f"a quantized model (quant={self.quant!r}) is not trained")
         return self.embed.weight, True
 
     def forward(

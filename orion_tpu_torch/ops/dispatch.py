@@ -2,8 +2,10 @@
 
 ``resolve`` makes the one choice between a CUDA kernel and its plain
 PyTorch version, for linear attention (``ops/linear_attention.py``),
-softmax attention (``ops/softmax_attention.py``) and the dropless MoE
-layer's grouped matmul (``models/moe.py``, ``ops/kernels/gmm.py``) alike. ``"auto"`` takes the
+softmax attention (``ops/softmax_attention.py``), the dropless MoE
+layer's grouped matmul (``models/moe.py``, ``ops/kernels/gmm.py``), the int4
+layers' dequant-matmul (``quant.py``) and the fused Adafactor passes
+(``ops/kernels/adafactor.py``) alike. ``"auto"`` takes the
 kernel for CUDA tensors and the plain version for CPU tensors, ``"torch"``
 the plain version anywhere, ``"cuda"`` the kernel (which raises for CPU
 tensors). The JAX package's chunk and block defaults

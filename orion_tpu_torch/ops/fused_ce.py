@@ -33,7 +33,7 @@ _TARGET_ROWS = 2048
 
 def fused_ce_ok(model) -> bool:
     """Is the fused head+CE path applicable to this model? Everywhere
-    except quantized models (the decode-only path, not ported yet)."""
+    except quantized models (decode only: ``orion_tpu_torch/quant.py``)."""
     return not getattr(model, "quant", "")
 
 

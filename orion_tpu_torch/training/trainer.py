@@ -22,10 +22,16 @@ optimizer state (its count with them) stay as they were and ``nonfinite``
 counts the step, so the lr is indexed by the good-step count, ``step -
 nonfinite``.
 
+Adafactor (``Adafactor``): ``optimizer="adafactor"`` is optax's adafactor
+in plain PyTorch; ``"adafactor_fused"`` runs each factored fp32 matrix
+through the three fused kernels (``ops/kernels/adafactor.py``), which fold
+the clip-and-guard scale and the skip policy, as the JAX package's Trainer
+does.
+
 Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-item): device meshes (any axis > 1), ``param_storage="bfloat16_sr"``,
-``optimizer="adafactor"`` / ``"adafactor_fused"``. ``preempt_grace`` and
-``step_timeout`` are kept for the config's shape and not wired (item 9).
+item): device meshes (any axis > 1), ``param_storage="bfloat16_sr"``.
+``preempt_grace`` and ``step_timeout`` are kept for the config's shape and
+not wired (item 9).
 """
 
 from __future__ import annotations
@@ -37,9 +43,11 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from orion_tpu_torch.convert import expected_params
 from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.models.transformer import TransformerLM
 from orion_tpu_torch.ops.fused_ce import fused_ce_ok, model_token_losses
+from orion_tpu_torch.ops.kernels import adafactor as af
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
 
@@ -82,7 +90,7 @@ class TrainConfig:
     batch_size: int = 8  # global
     seq_len: int = 256
     # optimizer
-    optimizer: str = "adamw"  # "adamw" | "lion"
+    optimizer: str = "adamw"  # "adamw" | "lion" | "adafactor" | "adafactor_fused"
     mu_dtype: Optional[str] = None  # e.g. "bfloat16": halve first-moment memory
     lr: float = 3e-4
     b1: float = 0.9
@@ -190,11 +198,9 @@ class Optimizer:
     place. State: ``count`` (updates applied so far), ``mu`` (in
     ``mu_dtype``) and, for AdamW, ``nu`` (fp32)."""
 
+    fused = False  # the trainer scales the gradients and skips bad steps itself
+
     def __init__(self, cfg: TrainConfig, params: Dict[str, Tensor]):
-        if cfg.optimizer in ("adafactor", "adafactor_fused"):
-            raise _not_ported(
-                f"optimizer={cfg.optimizer!r}",
-                "item 5 (training; the fused variant is queue B rows 11-13)")
         if cfg.optimizer not in ("adamw", "lion"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         self.cfg = cfg
@@ -243,9 +249,63 @@ class Optimizer:
             self.nu[n].copy_(t)
 
 
-def make_optimizer(cfg: TrainConfig, params: Dict[str, Tensor]) -> Optimizer:
+class Adafactor:
+    """optax ``adafactor(sched, min_dim_size_to_factor=128,
+    multiply_by_parameter_scale=False)`` over named fp32 params, updating
+    them in place (``ops/kernels/adafactor.py``): decay 0.8, eps 1e-30,
+    update clipping 1.0, no weight decay, the lr the schedule at the
+    optimizer's own (good-step) count.
+
+    ``"adafactor"``: the plain formulas on every leaf; the trainer scales the
+    gradients and skips a bad step, as for AdamW. ``"adafactor_fused"``
+    (``fused``): the factored fp32 matrices take the three kernels, into
+    which the trainer's clip-and-guard ``scale`` and the finite flag fold
+    (the skip policy rides in the apply kernel), on every step.
+
+    ``transposed`` names the params stored as the transpose of the JAX
+    package's leaf, so each leaf is factored over optax's axes."""
+
+    def __init__(self, cfg: TrainConfig, params: Dict[str, Tensor],
+                 transposed: Optional[Dict[str, bool]] = None):
+        self.fused = cfg.optimizer == "adafactor_fused"
+        self.sched = make_schedule(cfg)
+        self.backend = cfg.model.backend
+        transposed = transposed or {}
+        self.dims = {n: af.factored_dims(p.shape, transposed.get(n, False))
+                     for n, p in params.items()}
+        self.state = af.init(params, self.dims)
+
+    @property
+    def count(self) -> int:
+        return self.state.count
+
+    def update(self, params: Dict[str, Tensor], grads: Dict[str, Tensor], scale=1.0,
+               finite=True) -> None:
+        self.state = af.apply_updates(
+            grads, params, self.state, lr=self.sched(self.state.count), scale=scale,
+            finite=finite, dims=self.dims, use_kernel=self.fused, backend=self.backend)
+
+    def state_dict(self) -> Dict[str, object]:
+        s = self.state
+        return {"count": torch.tensor(s.count, dtype=torch.int64),
+                "v_row": dict(s.v_row), "v_col": dict(s.v_col), "v": dict(s.v)}
+
+    def load_state_dict(self, state) -> None:
+        self.state.count = int(state["count"])
+        for key in ("v_row", "v_col", "v"):
+            mine = getattr(self.state, key)
+            for n, t in state[key].items():
+                mine[n].copy_(t)
+
+
+def make_optimizer(cfg: TrainConfig, params: Dict[str, Tensor],
+                   transposed: Optional[Dict[str, bool]] = None):
     """The optimizer ``cfg`` names over ``params`` (clipping is the
-    trainer's, fused with its finite guard)."""
+    trainer's, fused with its finite guard). ``transposed``: the params
+    stored as the transpose of the JAX package's leaf (Adafactor factors
+    them on the JAX orientation)."""
+    if cfg.optimizer in ("adafactor", "adafactor_fused"):
+        return Adafactor(cfg, params, transposed)
     return Optimizer(cfg, params)
 
 
@@ -309,7 +369,8 @@ class Trainer:
             generator=rngs.generator(rngs.stream(root, "init"), self.device),
         )
         self.params = dict(self.model.named_parameters())
-        self.opt = make_optimizer(cfg, self.params)
+        transposed = {key: t for key, _, t in expected_params(cfg.model).values()}
+        self.opt = make_optimizer(cfg, self.params, transposed)
         self.sched = self.opt.sched
         self.rng = rngs.stream(root, "dropout")
         self.step_count = 0  # steps taken, good or not
@@ -347,14 +408,22 @@ class Trainer:
         grads = {n: p.grad for n, p in self.params.items()}
         gnorm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
-        finite = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
-        if finite:
-            if cfg.clip_norm and cfg.clip_norm > 0:
-                scale = torch.clamp(cfg.clip_norm / gnorm, max=1.0)
+        finite_t = torch.isfinite(loss) & torch.isfinite(gnorm)
+        clip = (torch.clamp(cfg.clip_norm / gnorm, max=1.0)
+                if cfg.clip_norm and cfg.clip_norm > 0 else 1.0)
+        if self.opt.fused:
+            # the kernels fold the scale and the skip policy, so the update is
+            # queued before the host reads the flag (a NaN norm gives scale 0)
+            scale = (torch.where(finite_t, clip, 0.0) if torch.is_tensor(clip)
+                     else finite_t.float())
+            self.opt.update(self.params, grads, scale=scale, finite=finite_t)
+        finite = bool(finite_t)
+        if finite and not self.opt.fused:
+            if not isinstance(clip, float):
                 for g in grads.values():
-                    g.mul_(scale)
+                    g.mul_(clip)
             self.opt.update(self.params, grads)
-        else:  # skip: params and optimizer state keep their values
+        if not finite:  # skipped: params and optimizer state keep their values
             self.nonfinite += 1
         for p in self.params.values():
             p.grad = None

@@ -8,9 +8,12 @@ training at 8 x 1024), ``hybrid_1b3`` (prompts of 1536, training at 8 x
 1024), each at full width from seeded random weights, it traces with
 ``torch.profiler`` (a) one prefill of 4 prompts, (b) 8 decode steps at batch
 4 and (c) one training step (``Trainer.step``, AdamW, remat as the config
-sets it) after a warm-up step. For each it prints the device time by kernel
-(largest first, grouped into the six attention kernels, the two grouped
-expert matmul kernels, dense products, and everything else), the number of
+sets it) after a warm-up step; then, for ``lm_1b3``, (d) 8 decode steps of
+the int4-quantized model and (e) one training step with
+``optimizer="adafactor_fused"``. For each it prints the device time by
+kernel (largest first, grouped into the six attention kernels, the two
+grouped expert matmul kernels, the int4 dequant-matmul, the three fused
+Adafactor passes, dense products, and everything else), the number of
 kernel launches, the window's wall time and
 the device's idle share of it (1 - summed kernel time / wall time; the port
 runs on one stream, so kernels do not overlap), then all of it as one JSON
@@ -37,7 +40,8 @@ def _device_us(evt):
 def _group(name):
     low = name.lower()
     for kernel in ("causal_dot_norm", "causal_dot_dq_den", "causal_dot_rev_den",
-                   "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd", "gmm_dw"):
+                   "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd", "gmm_dw", "q4_matmul",
+                   "af_sums", "af_rms", "af_apply"):
         if kernel in low:
             return f"{kernel} kernel"
     if any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
@@ -112,6 +116,45 @@ def profile_config(name, prompt_len, seq_len, dev, overrides=None):
     return result
 
 
+def profile_int4_and_adafactor(dev):
+    """lm_1b3: 8 int4 decode steps at batch 4 (after a 1024-token prefill)
+    and one adafactor_fused training step (B 8 x 1024) after a warm-up."""
+    from orion_tpu_torch.generate import SampleConfig, generate, quantize_for_decode
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.models.transformer import TransformerLM
+    from orion_tpu_torch.training.data import SyntheticDataset, device_batch
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    mcfg = get_config("lm_1b3")
+    model = quantize_for_decode(TransformerLM(mcfg, device=dev), "int4")
+    prompts = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (4, 1024), dtype=np.int64)).to(dev)
+    generate(model, prompts[:, :128], 4, SampleConfig(temperature=0.0))  # warm-up
+    result = {}
+    with torch.inference_mode():
+        _, states = model.prefill_last(prompts)
+        tok = torch.zeros(4, dtype=torch.long, device=dev)
+
+        def decode():
+            st = states
+            for i in range(8):
+                _, st = model.decode_step(tok, st, 1024 + i)
+
+        decode()  # warm-up at these positions
+        result["lm_1b3_int4_decode_8_steps_B4"] = trace(decode)
+    del model, states
+    torch.cuda.empty_cache()
+    trainer = Trainer(TrainConfig(model=mcfg, batch_size=8, seq_len=1024,
+                                  optimizer="adafactor_fused"), device=dev)
+    ds = SyntheticDataset(mcfg.vocab_size, 1024)
+    trainer.step(device_batch(ds, 0, 0, 8, dev))  # warm-up
+    batch = device_batch(ds, 0, 1, 8, dev)
+    result["lm_1b3_adafactor_fused_train_step_B8_T1024"] = trace(lambda: trainer.step(batch))
+    del trainer
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA card", file=sys.stderr)
@@ -120,6 +163,7 @@ def main() -> int:
     result = profile_config("lm_1b3", 1024, 1024, dev)
     result.update(profile_config("hybrid_1b3", 1536, 2048, dev))
     result.update(profile_config("moe_1b3_4e", 1024, 1024, dev, {"moe_dropless": True}))
+    result.update(profile_int4_and_adafactor(dev))
     for phase, r in result.items():
         print(f"{phase}: wall {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
               f"idle share {r['idle_share']}, {r['kernel_launches']} kernel launches")

@@ -25,11 +25,18 @@ another order, through one log). The grouped matmul (rows 9, 10): y and dx
 as the bf16 / fp32 outputs above with 1e-4 of the largest magnitude beside
 the relative term (a sum over K products in another order); dw, fp32 sums
 of exact products in another order, within 1e-4 of each expert's largest
-magnitude, and exactly 0 for an expert without tiles.
+magnitude, and exactly 0 for an expert without tiles. The int4
+dequant-matmul (row 14) as the bf16 / fp32 outputs above with 1e-4 of the
+largest magnitude beside the relative term; the fused Adafactor passes
+(rows 11-13): the sums and the squared sum within 1e-4 relative (positive
+fp32 sums in another order), apply bitwise (the same roundings in the same
+order), a tiny fp32 model's adafactor_fused steps against the plain
+formulas within JAX's own fused-vs-optax tolerance.
 """
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,9 +44,11 @@ from orion_tpu_torch.models.configs import TINY
 from orion_tpu_torch.models.transformer import TransformerLM
 from orion_tpu_torch.ops import linear_attention as la
 from orion_tpu_torch.ops import softmax_attention as sa
+from orion_tpu_torch.ops.kernels import adafactor as af
 from orion_tpu_torch.ops.kernels import causal_dot
 from orion_tpu_torch.ops.kernels import flash_attention as fa
 from orion_tpu_torch.ops.kernels import gmm as gm
+from orion_tpu_torch.ops.kernels import q4_matmul as q4m
 from orion_tpu_torch.training.trainer import lm_loss
 
 pytestmark = pytest.mark.cuda
@@ -344,3 +353,160 @@ def test_gmm_kernel_rejects_what_it_does_not_take(dev):
         gm.gmm_cuda(x.half(), w.half(), te)
     with pytest.raises(ValueError, match="against"):
         gm.gmm_cuda(x, w, te, transpose_w=True)
+
+
+def _q4_problem(g, dev, b, d, out, dtype):
+    """x [b, d] and a random packed int4 weight [d/2, out] with per-channel
+    scales; the nibbles cover -8..7 at both positions."""
+    x = torch.randn(b, d, device=dev, generator=g).to(dtype)
+    p = torch.randint(-128, 128, (d // 2, out), device=dev, generator=g).to(torch.int8)
+    s = torch.rand(out, device=dev, generator=g) * 0.1 + 0.01
+    return x, p, s
+
+
+@pytest.mark.parametrize(
+    "dtype,b,d,out",
+    [
+        (torch.bfloat16, 4, 2048, 2048),  # lm_1b3's wq..wo at decode's 4 rows
+        (torch.bfloat16, 4, 5504, 2048),  # its down projection: a K tail past 512 packed rows
+        (torch.bfloat16, 1, 2048, 200),  # an out that fits no 32-channel strip
+        (torch.bfloat16, 64, 100, 130),  # the most rows the kernel takes, a ragged d
+        (torch.float32, 3, 128, 384),  # tiny's widths in fp32
+        (torch.float32, 7, 64, 33),  # out % 4 != 0: byte loads
+    ],
+)
+def test_q4_matmul_kernel_matches_plain(dev, dtype, b, d, out):
+    """Row 14 against its plain version: bf16 to one bf16 step plus 1e-4 of
+    the largest magnitude (fp32 sums of exact products in another order, one
+    rounding); fp32 to 1e-4 relative plus the same absolute term. Every
+    output is written (its memory held NaN before the call)."""
+    g = torch.Generator(device=dev).manual_seed(b * d + out)
+    x, p, s = _q4_problem(g, dev, b, d, out, dtype)
+    before = q4m.launches
+    junk = torch.full((b * out * 4,), float("nan"), device=dev)
+    del junk  # the allocator hands this block to y: an unwritten element shows
+    y = q4m.q4_matmul_cuda(x, p, s)
+    assert q4m.launches == before + 1
+    ref = q4m.q4_matmul_torch(x, p, s)
+    assert y.dtype == dtype and y.shape == (b, out) and bool(torch.isfinite(y.float()).all())
+    _max_close(y, ref, 2**-7 if dtype == torch.bfloat16 else 1e-4)
+
+
+def test_int4_model_decode_uses_the_kernel(dev):
+    """An int4 tiny model's decode step on the card: one q4 launch per dense
+    layer (4 attention + 3 MLP per block), logits within 1e-4 of the CPU's
+    split form; the prefill's 2 x 40 rows stay on the split form."""
+    from orion_tpu_torch.generate import quantize_for_decode
+
+    cpu = quantize_for_decode(TransformerLM(TINY, device="cpu"), "int4")
+    gpu = TransformerLM(TINY, device=dev, quant="int4")
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, 256, (2, 40), generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        before = q4m.launches
+        lg, st = gpu.prefill_last(tokens.to(dev))
+        assert q4m.launches == before
+        lg2, _ = gpu.decode_step(tokens[:, -1].to(dev), st, 40)
+        assert q4m.launches == before + 7 * TINY.n_layers
+        lc, stc = cpu.prefill_last(tokens)
+        lc2, _ = cpu.decode_step(tokens[:, -1], stc, 40)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lg2.cpu(), lc2, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,n", [(2048, 2048), (1000, 1001), (300, 4100), (9, 128)])
+def test_adafactor_kernels_match_plain(dev, m, n):
+    """Rows 11-13 against their plain versions: the sums (positive fp32 sums
+    in another order) within 1e-4 relative of each element, an all-zero row
+    and column included (their sums are eps alone); the squared sum within
+    1e-4 relative; apply exactly as the plain version (the same roundings in
+    the same order), and with the flag 0 nothing changes, bitwise."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    grad = torch.randn(m, n, device=dev, generator=g) * 1e-3
+    grad[m // 2] = 0.0
+    grad[:, n // 3] = 0.0
+    s2 = torch.tensor([0.37], device=dev)
+    before = (af.launches_sums, af.launches_rms, af.launches_apply)
+    s0, s1 = af.adafactor_sums_cuda(grad, s2, 1e-30)
+    r0, r1 = af.adafactor_sums_torch(grad, s2, 1e-30)
+    for got, ref in ((s0, r0), (s1, r1)):
+        assert got.shape == ref.shape
+        assert float(((got - ref).abs() / ref).max()) <= 1e-4
+    r = torch.rand(m, device=dev, generator=g) + 0.5
+    c = torch.rand(n, device=dev, generator=g) + 0.5
+    rms = af.adafactor_rms_cuda(grad, r, c)
+    assert abs(float(rms) - float(af.adafactor_rms_torch(grad, r, c))) <= 1e-4 * float(
+        af.adafactor_rms_torch(grad, r, c))
+    p = torch.randn(m, n, device=dev, generator=g)
+    p_ref = p.clone()
+    for flag in (0, 1):
+        f = torch.tensor([flag], dtype=torch.int32, device=dev)
+        got = af.adafactor_apply_cuda(grad, p, r * -1e-2, c, f)
+        assert got.data_ptr() == p.data_ptr()  # in place
+        af.adafactor_apply_torch(grad, p_ref, r * -1e-2, c, f)
+        assert torch.equal(p, p_ref), flag
+    # the sums and the squared sum are two launches a call (tiles, then their sum)
+    assert (af.launches_sums, af.launches_rms, af.launches_apply) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+
+
+def test_adafactor_tiling_covers_every_row_and_column(dev):
+    """The source's tiling: 1024-column strips over all n, row chunks over
+    all m, each chunk at least 8 rows (one a warp) where m allows."""
+    for m, n in ((32000, 2048), (2048, 5504), (5504, 2048), (2048, 2048), (9, 128), (1, 1),
+                 (1000, 1001)):
+        n_ct, n_rc, rows = af.tiling(m, n)
+        assert n_ct * 1024 >= n > (n_ct - 1) * 1024
+        assert n_rc * rows >= m > (n_rc - 1) * rows and n_rc <= -(-m // 8)
+
+
+def test_adafactor_strided_gradient_launches_and_strided_param_raises(dev, monkeypatch):
+    """The kernels' gate has no layout condition, as the JAX package's: a
+    gradient that is a transposed view launches all three passes and updates
+    p bitwise as its contiguous copy does; a strided p, which apply writes in
+    place, raises in the wrapper."""
+    monkeypatch.setattr(af, "_MIN_KERNEL_ELEMS", 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    grad_t = torch.randn(384, 256, device=dev, generator=g) * 1e-3  # the JAX [in, out]
+    p0 = torch.randn(256, 384, device=dev, generator=g) * 0.02
+    dims = {"w": af.factored_dims((256, 384), transposed=True)}
+    got = []
+    for grad in (grad_t.t(), grad_t.t().contiguous()):
+        p = {"w": p0.clone()}
+        before = (af.launches_sums, af.launches_rms, af.launches_apply)
+        af.apply_updates({"w": grad}, p, af.init(p, dims), lr=1e-2, scale=1.0, finite=True,
+                         dims=dims)
+        assert (af.launches_sums, af.launches_rms, af.launches_apply) == (
+            before[0] + 2, before[1] + 2, before[2] + 1)
+        got.append(p["w"])
+    assert torch.equal(got[0], got[1])
+    p = {"w": p0.t().contiguous().t()}  # [256, 384], strided
+    with pytest.raises(ValueError, match="contiguous"):
+        af.apply_updates({"w": grad_t.t()}, p, af.init(p, dims), lr=1e-2, scale=1.0, finite=True,
+                         dims=dims)
+
+
+def test_adafactor_fused_trainer_matches_plain_on_the_card(dev, monkeypatch):
+    """3 fp32 steps of a tiny model with adafactor_fused, its leaves lowered
+    into the kernels' gate, against optimizer='adafactor' (the plain
+    formulas) on the same card: losses within 1e-5, params within 2e-5
+    relative plus 1e-7 (JAX's own fused-vs-optax tolerance)."""
+    from orion_tpu_torch.training.data import SyntheticDataset
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    monkeypatch.setattr(af, "_MIN_KERNEL_ELEMS", 0)
+    runs = {}
+    for opt in ("adafactor", "adafactor_fused"):
+        cfg = TrainConfig(model=TINY, steps=3, batch_size=2, seq_len=64, lr=1e-3,
+                          warmup_steps=1, optimizer=opt)
+        tr = Trainer(cfg, device=dev)
+        ds = SyntheticDataset(TINY.vocab_size, 64)
+        before = af.launches_apply
+        losses = [tr.step(torch.from_numpy(ds.batch(0, i, 2)).long())["loss"] for i in range(3)]
+        runs[opt] = (losses, {n: p.detach().clone() for n, p in tr.params.items()},
+                     af.launches_apply - before)
+    factored = sum(p.dim() == 2 for p in runs["adafactor"][1].values())
+    assert runs["adafactor"][2] == 0 and runs["adafactor_fused"][2] == 3 * factored
+    np.testing.assert_allclose(runs["adafactor_fused"][0], runs["adafactor"][0], rtol=0, atol=1e-5)
+    for n, ref in runs["adafactor"][1].items():
+        torch.testing.assert_close(runs["adafactor_fused"][1][n], ref, rtol=2e-5, atol=1e-7)

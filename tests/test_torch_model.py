@@ -196,7 +196,9 @@ def test_unported_configs_raise():
     assert routed == [3, 7, 11, 15, 19, 23]
     with pytest.raises(NotImplementedError, match="LRA"):
         TransformerLM(get_config("lra_text_linear"), device="cpu")
-    with pytest.raises(NotImplementedError, match="quantized"):
-        TransformerLM(TINY, device="cpu", quant="int8")
+    # quantized serving is ported (tests/test_torch_quant_model.py): only an
+    # unknown mode raises
+    with pytest.raises(ValueError, match="quant must be"):
+        TransformerLM(TINY, device="cpu", quant="int2")
     with pytest.raises(NotImplementedError, match="parallelism"):
         TransformerLM(TINY, device="cpu", mesh=object())

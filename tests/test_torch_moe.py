@@ -318,7 +318,10 @@ def test_unported_forms_raise():
     cfg, _ = _cfgs()
     with pytest.raises(NotImplementedError, match="item 12"):
         moe.MoEMLP(cfg, torch.float32, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        moe.MoEMLP(cfg, torch.float32, device="cpu", quant="int8")
+    # int8 expert stacks are ported (tests/test_torch_quant_model.py)
+    assert moe.MoEMLP(cfg, torch.float32, device="cpu", quant="int8").experts_up_q.dtype == \
+        torch.int8
+    with pytest.raises(ValueError, match="quant must be"):
+        moe.MoEMLP(cfg, torch.float32, device="cpu", quant="int2")
     with pytest.raises(ValueError, match="moe_top_k"):
         moe.MoEMLP(dataclasses.replace(cfg, moe_top_k=5), torch.float32, device="cpu")

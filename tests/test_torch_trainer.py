@@ -194,9 +194,10 @@ def test_what_is_not_ported_raises():
         Trainer(_cfg(mesh=MeshConfig(dp=2)), device="cpu")
     with pytest.raises(NotImplementedError, match="bfloat16_sr"):
         Trainer(_cfg(param_storage="bfloat16_sr"), device="cpu")
-    for opt in ("adafactor", "adafactor_fused"):
-        with pytest.raises(NotImplementedError, match="adafactor"):
-            Trainer(_cfg(optimizer=opt), device="cpu")
+    # Adafactor is ported (tests/test_torch_adafactor*.py): only an unknown
+    # optimizer raises
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        Trainer(_cfg(optimizer="sgd"), device="cpu")
     model = TransformerLM(dataclasses.replace(TINY, remat=True, remat_policy="dots"),
                           device="cpu")
     with pytest.raises(NotImplementedError, match="dots"):
