@@ -17,6 +17,11 @@ nonzero and no result line is printed):
      backward kernels at the training shape (B 8), each at T 1024, a ragged
      1000 and 1, with and without an initial state and final-state
      cotangents;
+   - the public op ``causal_dot_product``'s kernels (rows 2, 5): the raw
+     forward, its use as the dq pass on (g, v, k, S0^T), and the reverse
+     pass, at lm_1b3's per-layer shape [B*H, T, D] = [128, 1024, 128] bf16,
+     a ragged T 1000, T 1 and fp32 at D 32, with and without S0 and a
+     cotangent on the final state, every output written over NaN;
    - flash attention (rows 6, 7, 8): forward, dq and dk/dv at hybrid_1b3's
      generate shape (B 4, H 16, T 1536, D 128, bf16, window 1024) and
      training shape (B 8, T 2048), a ragged T 2000, T 1, T 512 (below the
@@ -37,11 +42,16 @@ nonzero and no result line is printed):
      column, apply with the flag 0 (p bitwise untouched);
    time every kernel, its plain version and, where one PyTorch call computes
    the same function, that call (``scaled_dot_product_attention``,
-   ``torch._grouped_mm``; none for rows 11-14), each by CUDA events over
+   ``torch._grouped_mm``; none for rows 1-5 and 11-14), each by CUDA events over
    calls back to back (``cuda_ms``), and for rows 11-14 also the kernel's
    device time alone (``graph_ms``); print each kernel's bound beside its
    time;
-4. the generate path, for ``lm_1b3`` (4 prompts of 1024 byte tokens, 32
+4. the public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
+   backward through ``CausalDotProductFn`` at [B 8, H 16, T 1024, D 128]
+   bf16 with an initial state and the returned state: exact launches (row 2
+   twice, row 5 once, with every count set to 0 just before), out, S and
+   every gradient against the plain form differentiated by autograd;
+5. the generate path, for ``lm_1b3`` (4 prompts of 1024 byte tokens, 32
    greedy new tokens), for ``hybrid_1b3`` (4 prompts of 1536, longer than
    its window, 64 tokens) and for ``moe_1b3_4e`` with ``moe_dropless=True``
    (4 prompts of 1024, 32 tokens): ``orion_tpu_torch.generate.generate`` at full
@@ -51,7 +61,7 @@ nonzero and no result line is printed):
    card; and a ``tiny`` model of the same layer kinds on the card against
    the same model on the CPU, whose plain path the CPU tests hold against
    the JAX package;
-5. the training path, for ``lm_1b3`` (batch 8 x 1024), ``hybrid_1b3``
+6. the training path, for ``lm_1b3`` (batch 8 x 1024), ``hybrid_1b3``
    (batch 8 x 2048) and the dropless ``moe_1b3_4e`` (batch 8 x 1024):
    ``Trainer`` at full width, synthetic data, AdamW, remat
    as the config sets it, 1 warm-up and 3 timed steps, with the counts reset
@@ -63,7 +73,7 @@ nonzero and no result line is printed):
    the MoE a tiny MoE in its capacity and its dropless form, the latter at
    1024 routed rows, so the card takes the gmm kernels in fp32 and the CPU
    the ragged form);
-6. quantized serving: ``generate(..., quant=...)`` of ``lm_1b3`` at int4 and
+7. quantized serving: ``generate(..., quant=...)`` of ``lm_1b3`` at int4 and
    int8 and of the dropless ``moe_1b3_4e`` at int4 (4 prompts of 1024, 32
    greedy tokens; weights quantized once from seeded fp32 ones), exact launch
    counts (one q4 launch per int4 layer and decode step: 168 for lm_1b3, 150
@@ -72,14 +82,22 @@ nonzero and no result line is printed):
    ``backend="torch"`` on the same quantized weights; ``tiny`` and a tiny
    hybrid at int4 in fp32, the card (the kernel) against the CPU (the split
    form);
-7. Adafactor: ``lm_1b3`` training with ``optimizer="adafactor_fused"`` (batch
+8. Adafactor: ``lm_1b3`` training with ``optimizer="adafactor_fused"`` (batch
    8 x 1024, 1 warm-up and 3 timed steps; each pass once for each of the 170
    large matrices a step, the sums and the squared sum two launches a call:
    340, 340 and 170 launches), one update through the kernels against the
    plain formulas on the same params and gradients, and 3 ``tiny`` fp32
    steps on the card against the CPU with every factored leaf sent through
    the kernels;
-8. a ``kernels`` JSON line (12 kernels), then the result line
+9. train -> checkpoint -> generate: that trainer's whole state saved with
+   the Trainer's ``Checkpointer`` into a temporary directory (free disk
+   checked first; removed after), its params loaded with
+   ``generate.load_model`` (memory-mapped, manifest-verified), and
+   ``generate`` of 4 x 1024 prompts for 32 greedy tokens from the loaded
+   model, in bf16 and at int4, against the same from the in-memory trained
+   model: tokens and prefill logits bitwise, exact launches (row 14 at
+   int4); save and load seconds;
+10. a ``kernels`` JSON line (14 kernels), then the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -209,9 +227,23 @@ QUANT_LOGITS_ATOL = LOGITS_ATOL
 # it holds (and the params cannot stand in: update clipping cancels a
 # uniform error in v wherever it binds).
 AF_PARAM_RTOL, AF_PARAM_ATOL, AF_STAT_ATOL_OF_MAX = 2e-5, 1e-7, 1e-6
+# The public op's kernels (rows 2, 5) against their plain versions, on the
+# same inputs, and the op's forward + backward through them against the plain
+# form differentiated by autograd. out and dq (the input dtype): both sum
+# exact products in fp32 and round once, so a value lands on the plain
+# version's neighbour at worst: one step of the dtype, 2^-7 |ref| in bf16
+# (1e-4 |ref| in fp32, sums in another order). dk, dv (fp32, rows 5's
+# outputs): 1e-4 |ref|. Beside each, 1e-4 max|ref| for elements near zero:
+# an element sums up to 1024 terms of random sign that may be 30x the result,
+# and the order of summation moves it by about sqrt(1024) x 2^-24 x 30
+# max|ref| ~ 6e-6 max|ref|. S, dS0 (fp32): within STATE_RTOL of their
+# largest magnitude. Every output is written (its memory held NaN before the
+# call). ``kernel_mutants.py`` shows which wrong kernels these limits reject.
+RAW_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
+RAW_ATOL_OF_MAX = 1e-4
 
-KERNELS = ("causal_dot_norm", "causal_dot_dq_den", "causal_dot_rev_den",
-           "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd", "gmm_dw", "q4_matmul",
+KERNELS = ("causal_dot_norm", "causal_dot", "causal_dot_dq_den", "causal_dot_rev_den",
+           "causal_dot_rev", "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd", "gmm_dw", "q4_matmul",
            "adafactor_sums", "adafactor_rms", "adafactor_apply")
 
 
@@ -535,6 +567,203 @@ def check_training_kernels(cd, dev):
                 "library_ms": None,
             })
     return lines
+
+
+# ---------------------------------------------------------------------------
+# The public op causal_dot_product: rows 2, 5
+# ---------------------------------------------------------------------------
+
+# (label, B, H, T, D, dtype, initial state S0, cotangent dSf of the final
+# state): lm_1b3's per-layer shape [B*H, T, D] = [128, 1024, 128] and the
+# edges of the kernels' loops
+RAW_CASES = [
+    ("B8 H16 T1024 D128 bf16", 8, 16, 1024, 128, torch.bfloat16, False, False),
+    ("B8 H16 T1024 D128 bf16 S0 dSf", 8, 16, 1024, 128, torch.bfloat16, True, True),
+    ("B8 H16 T1000 D128 bf16 S0 (ragged)", 8, 16, 1000, 128, torch.bfloat16, True, False),
+    ("B8 H16 T1 D128 bf16 dSf", 8, 16, 1, 128, torch.bfloat16, False, True),
+    ("B2 H4 T200 D32 fp32 S0 dSf", 2, 4, 200, 32, torch.float32, True, True),
+    ("B2 H4 T70 D32 fp32", 2, 4, 70, 32, torch.float32, False, False),
+]
+
+
+def _raw_inputs(g, dev, b, h, t, d, dtype, with_s0, with_gsf):
+    """q, k phi-mapped, v, the output's cotangent; S0 the state a 256-token
+    prefix leaves; dSf at the scale of what the reverse walk itself sums
+    (R grows as sqrt(T) per element)."""
+    bh = b * h
+
+    def phi(x):
+        return torch.nn.functional.elu(x) + 1.0
+
+    q = phi(torch.randn(bh, t, d, device=dev, generator=g)).to(dtype)
+    k = phi(torch.randn(bh, t, d, device=dev, generator=g)).to(dtype)
+    v = torch.randn(bh, t, d, device=dev, generator=g).to(dtype)
+    gout = torch.randn(bh, t, d, device=dev, generator=g).to(dtype)
+    s0 = gsf = None
+    if with_s0:
+        kp = phi(torch.randn(bh, 256, d, device=dev, generator=g)).to(dtype).float()
+        vp = torch.randn(bh, 256, d, device=dev, generator=g).to(dtype).float()
+        s0 = kp.transpose(1, 2) @ vp
+    if with_gsf:
+        gsf = 8.0 * torch.randn(bh, d, d, device=dev, generator=g)
+    return q, k, v, gout, s0, gsf
+
+
+def _nan_junk(dev, *shapes_dtypes):
+    """Empty the allocator's cache, then hand it NaN blocks of these shapes
+    and dtypes, in the order a wrapper allocates its scratch and outputs:
+    the wrapper's ``torch.empty`` calls then take exactly these blocks, so an
+    element the kernel leaves unwritten reads NaN."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = [torch.full(s, float("nan"), dtype=dt, device=dev) for s, dt in shapes_dtypes]
+    del junk
+
+
+def compare_raw(cd, dev):
+    """Rows 2 and 5 against their plain versions on the card, on
+    ``RAW_CASES``: the forward (out, S), the dq pass (row 2 on (g, v, k)
+    with S0^T carried in, as the op's backward runs it) and the reverse pass
+    (dk, dv, dS0, seeded by dSf^T or zeros). Returns one reading per case
+    and the first case's inputs."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    readings, first = [], None
+    for label, b, h, t, d, dtype, with_s0, with_gsf in RAW_CASES:
+        q, k, v, gout, s0, gsf = _raw_inputs(g, dev, b, h, t, d, dtype, with_s0, with_gsf)
+        bh, f32 = b * h, torch.float32
+        s0t = s0.transpose(1, 2).contiguous() if s0 is not None else None
+        _nan_junk(dev, ((bh, t, d), dtype), ((bh, d, d), f32))
+        out, sf = cd.causal_dot_cuda(q, k, v, s0)
+        _nan_junk(dev, ((bh, t, d), dtype), ((bh, d, d), f32))
+        dq, _ = cd.causal_dot_cuda(gout, v, k, s0t)
+        _nan_junk(dev, ((bh, t, d), f32), ((bh, t, d), f32), ((bh, d, d), f32))
+        dk, dv, ds0 = cd.causal_dot_rev_cuda(q, k, v, gout, gsf)
+        torch.cuda.synchronize()
+        r_out, r_sf = cd.causal_dot_plain(q, k, v, s0)
+        r_dq, _ = cd.causal_dot_plain(gout, v, k, s0t)
+        r_dk, r_dv, r_ds0 = cd.causal_dot_rev_plain(q, k, v, gout, gsf)
+        rt = RAW_RTOL[dtype]
+        readings.append({
+            "case": label,
+            "out": _grad_reading(out, r_out, rt, RAW_ATOL_OF_MAX),
+            "dq": _grad_reading(dq, r_dq, rt, RAW_ATOL_OF_MAX),
+            "dk": _grad_reading(dk, r_dk, RAW_RTOL[f32], RAW_ATOL_OF_MAX),
+            "dv": _grad_reading(dv, r_dv, RAW_RTOL[f32], RAW_ATOL_OF_MAX),
+            "s_rel": _rel(sf, r_sf), "ds0_rel": _rel(ds0, r_ds0),
+            "states_finite": bool(torch.isfinite(sf).all() and torch.isfinite(ds0).all()),
+        })
+        if first is None:
+            first = (q, k, v, gout)
+    return readings, first
+
+
+def agrees_raw(r):
+    return (r["states_finite"] and max(r["s_rel"], r["ds0_rel"]) <= STATE_RTOL
+            and all(r[n]["well_formed"] and r[n]["over_limit"] <= 1.0
+                    for n in ("out", "dq", "dk", "dv")))
+
+
+def check_raw(cd, dev):
+    """Rows 2 and 5 against their plain versions, then each timed at the
+    main path's shape [128, 1024, 128] bf16: row 2 as the op's forward (no
+    initial state), row 5 seeded by dSf. Returns their ``kernels`` lines."""
+    readings, (q, k, v, gout) = compare_raw(cd, dev)
+    for r in readings:
+        log(f"causal_dot / causal_dot_rev {r['case']}: "
+            + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
+                        f"limit, needs atol {r[n]['atol_needed']:.2e} max|ref|)"
+                        for n in ("out", "dq", "dk", "dv"))
+            + f"; rel: S {r['s_rel']:.2e} dS0 {r['ds0_rel']:.2e} (limit {STATE_RTOL:g})")
+        if not agrees_raw(r):
+            raise AssertionError(f"a raw causal_dot kernel disagrees with its plain version: {r}")
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    act, f32 = q.numel() * q.element_size(), 4
+    gsf = 8.0 * torch.randn(bh, dk, dv, device=dev)
+    ops = 2 * bh * t * (64 * dk + 64 * dv + 2 * dk * dv)  # one chunk walk's products
+    specs = [
+        ("causal_dot", "orion_tpu_torch/csrc/causal_dot_norm.cu",
+         "orion_tpu/ops/pallas/causal_dot.py:123",
+         lambda: cd.causal_dot_cuda(q, k, v), lambda: cd.causal_dot_plain(q, k, v),
+         # q, k, v read; out, S written
+         4 * act + bh * dk * dv * f32, ops, ("out", "dq")),
+        ("causal_dot_rev", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
+         "orion_tpu/ops/pallas/causal_dot.py:377",
+         lambda: cd.causal_dot_rev_cuda(q, k, v, gout, gsf),
+         lambda: cd.causal_dot_rev_plain(q, k, v, gout, gsf),
+         # q, k, v, g, dSf read; fp32 dk, dv, dS0 written
+         4 * act + 2 * bh * dk * dv * f32 + bh * t * (dk + dv) * f32, 2 * ops, ("dk", "dv")),
+    ]
+    lines = []
+    for name, source, replaces, kernel, plain, moved, flops, outs in specs:
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 3)
+        bound_ms, bound_by = _bound(moved, flops)
+        log(f"{name} timing B8 H16 T1024 D128 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, {flops / 1e9:.2f} "
+            "GFLOP); library_ms: none (no single PyTorch call computes this function)")
+        lines.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": max(r[n]["max_abs"] for r in readings for n in outs),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
+    return lines
+
+
+def op_phase(dev, mods):
+    """The public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
+    backward, at lm_1b3's per-layer shape [B 8, H 16, T 1024, D 128] bf16
+    with an initial state and the returned state: exact launches (row 2
+    twice, row 5 once; the counts set to 0 just before), then the same
+    through the plain form differentiated by autograd (backend="torch"):
+    out, S and every gradient within the kernels' limits; both timed."""
+    from orion_tpu_torch.ops import causal_dot_product
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    b, h, t, d = 8, 16, 1024, 128
+    q0, k0, v0, gout, s00, gsf = (
+        x.reshape(b, h, *x.shape[1:])
+        for x in _raw_inputs(g, dev, b, h, t, d, torch.bfloat16, True, True))
+
+    def run(backend):
+        q, k, v, s0 = (x.clone().requires_grad_() for x in (q0, k0, v0, s00))
+        out, sf = causal_dot_product(q, k, v, backend=backend, return_state=True,
+                                     initial_state=s0)
+        ((out.float() * gout.float()).sum() + (sf * gsf).sum()).backward()
+        return [x.detach() for x in (out, sf, q.grad, k.grad, v.grad, s0.grad)]
+
+    _reset_counts(mods)
+    got = run("cuda")
+    torch.cuda.synchronize()
+    counts = _counts(mods)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(causal_dot=2, causal_dot_rev=1)
+    log(f"causal_dot_product forward + backward launches: {counts}")
+    if counts != want:
+        raise AssertionError(f"the public op launched {counts}, want {want}")
+    ref = run("torch")
+    errs = {}
+    for name, x, r in zip(("out", "S", "dq", "dk", "dv", "dS0"), got, ref):
+        if x.dtype == torch.bfloat16:
+            errs[name] = _grad_reading(x, r, RAW_RTOL[torch.bfloat16], RAW_ATOL_OF_MAX)
+        else:
+            errs[name] = {"max_abs": float((x - r).abs().max()), "rel": _rel(x, r),
+                          "well_formed": x.shape == r.shape and bool(torch.isfinite(x).all())}
+    ms = cuda_ms(lambda: run("cuda"), 5)
+    plain_ms = cuda_ms(lambda: run("torch"), 3)
+    log("causal_dot_product fwd + bwd through the kernels vs backend='torch' (autograd of the "
+        "plain form): " + "; ".join(
+            f"{n} max abs {e['max_abs']:.3e} ("
+            + (f"{e['over_limit']:.3f} of its limit" if "over_limit" in e
+               else f"rel {e['rel']:.2e}, limit {STATE_RTOL:g}") + ")"
+            for n, e in errs.items())
+        + f"; {ms:.3f} ms against the plain form's {plain_ms:.3f} ms (fwd + bwd, B8 H16 T1024 "
+        "D128 bf16)")
+    if not all(e["well_formed"] and e.get("over_limit", 0.0) <= 1.0
+               and e.get("rel", 0.0) <= STATE_RTOL for e in errs.values()):
+        raise AssertionError(f"the public op disagrees with backend='torch': {errs}")
+    return {"launches": counts, "errs": errs, "ms": ms, "plain_ms": plain_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -989,14 +1218,6 @@ AF_CASES = [("embed", 32000, 2048), ("gate/up", 5504, 2048), ("down", 2048, 5504
 AF_PER_STEP = {"embed": 1, "gate/up": 48, "down": 24, "square": 97}
 
 
-def _nan_junk(dev, *numels):
-    """Blocks of NaN that the allocator hands to the next allocations of
-    these sizes (a kernel's scratch and outputs): an unwritten element
-    shows."""
-    junk = [torch.full((k,), float("nan"), device=dev) for k in numels]
-    del junk
-
-
 def compare_adafactor(af, dev):
     """Rows 11-13 against their plain versions on the card, on every case of
     AF_CASES: a gradient-sized g (an all-zero row and column: their sums are
@@ -1016,9 +1237,9 @@ def compare_adafactor(af, dev):
         c = torch.rand(n, device=dev, generator=g) + 0.5
         p0 = torch.randn(m, n, device=dev, generator=g) * 0.02
         n_ct, n_rc, _ = af.tiling(m, n)
-        _nan_junk(dev, n_ct * m, n_rc * n, m + n)
+        _nan_junk(dev, *(((k,), torch.float32) for k in (n_ct * m, n_rc * n, m + n)))
         s0, s1 = af.adafactor_sums_cuda(grad, s2, 1e-30)
-        _nan_junk(dev, n_ct * n_rc)
+        _nan_junk(dev, ((n_ct * n_rc,), torch.float32))
         rms = af.adafactor_rms_cuda(grad, r, c)
         r_apply = r * -1e-3  # the apply pass's row factor folds -lr
         p, p_off = p0.clone(), p0.clone()
@@ -1136,8 +1357,9 @@ def check_adafactor(af, dev):
 
 def _counts(mods):
     cd, fa, gm, q4, af = mods
-    return {"causal_dot_norm": cd.launches, "causal_dot_dq_den": cd.launches_dq,
-            "causal_dot_rev_den": cd.launches_rev, "flash_fwd": fa.launches_fwd,
+    return {"causal_dot_norm": cd.launches, "causal_dot": cd.launches_raw,
+            "causal_dot_dq_den": cd.launches_dq, "causal_dot_rev_den": cd.launches_rev,
+            "causal_dot_rev": cd.launches_raw_rev, "flash_fwd": fa.launches_fwd,
             "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv,
             "gmm_fwd": gm.launches_fwd, "gmm_dw": gm.launches_dw, "q4_matmul": q4.launches,
             "adafactor_sums": af.launches_sums, "adafactor_rms": af.launches_rms,
@@ -1146,7 +1368,7 @@ def _counts(mods):
 
 def _reset_counts(mods):
     cd, fa, gm, q4, af = mods
-    cd.launches = cd.launches_dq = cd.launches_rev = 0
+    cd.launches = cd.launches_dq = cd.launches_rev = cd.launches_raw = cd.launches_raw_rev = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
     gm.launches_fwd = gm.launches_dw = 0
     q4.launches = 0
@@ -1445,11 +1667,12 @@ def tiny_generate(dev, cfg, label, quant=""):
     return tiny_err
 
 
-def train_phase(dev, mods, name, seq_len, overrides=None, optimizer="adamw"):
+def train_phase(dev, mods, name, seq_len, overrides=None, optimizer="adamw", then=None):
     """``name`` (with ``overrides``) training at full width: 1 warm-up and 3
     timed steps, with exact launch counts per step; with
     ``optimizer="adafactor_fused"`` then one update through the kernels
-    against the plain formulas (``adafactor_update_check``)."""
+    against the plain formulas (``adafactor_update_check``); then
+    ``then(trainer)``, whose result the returned dict holds as "then"."""
     from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.training.data import DataLoader, SyntheticDataset
     from orion_tpu_torch.training.trainer import TrainConfig, Trainer
@@ -1504,11 +1727,99 @@ def train_phase(dev, mods, name, seq_len, overrides=None, optimizer="adamw"):
     if not all(np.isfinite(x) and 0.0 < x < 20.0 for x in losses):
         raise AssertionError(f"training losses not finite or out of range: {losses}")
     check = adafactor_update_check(trainer, batch) if optimizer == "adafactor_fused" else None
+    after = then(trainer) if then is not None else None
     del trainer
     torch.cuda.empty_cache()
     return {"launches": counts, "per_step": per_step, "steps_ms": steps_ms, "step_ms": step_ms,
             "tokens_per_s": tokens_per_s, "max_memory_gib": peak_gib, "losses": losses,
-            "update_check": check}
+            "update_check": check, "then": after}
+
+
+def load_phase(dev, mods, trainer, prompt_len=1024, new_tokens=32):
+    """Train -> checkpoint -> generate at full width: the trainer's whole
+    state saved with the Trainer's ``Checkpointer`` into a temporary
+    directory (free space checked first), its params loaded back with
+    ``generate.load_model`` (``load_params``: memory-mapped, verified against
+    the manifest), and ``generate`` of 4 x ``prompt_len`` prompts for
+    ``new_tokens`` greedy tokens from the loaded model against the same
+    from the in-memory trained model: tokens and prefill logits bitwise
+    (the same card, kernels and casts), in bf16 and at int4 (row 14
+    launched, its count read; the counts set to 0 just before each)."""
+    import os
+    import shutil
+    import tempfile
+
+    from orion_tpu_torch.generate import (
+        SampleConfig, cast_params_for_inference, generate, load_model, quantize_for_decode)
+    from orion_tpu_torch.models.transformer import TransformerLM
+    from orion_tpu_torch.training.checkpoint import Checkpointer, step_path
+
+    cfg = trainer.model.cfg
+    state = trainer.state_dict()
+    need = sum(t.numel() * t.element_size()
+               for t in _tree_leaves(state))  # the file, and its manifest's bytes beside
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"load phase: checkpoint of {need / 1e9:.3f} GB into {tmp} ({free / 1e9:.1f} GB free)")
+        if free < need + 2**30:
+            raise RuntimeError(f"{tmp} has {free / 1e9:.1f} GB free; the checkpoint needs "
+                               f"{need / 1e9:.1f} GB and 1 GiB to spare")
+        t0 = time.perf_counter()
+        Checkpointer(tmp, max_to_keep=1).maybe_save(trainer.step_count, state, force=True)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(step_path(tmp, trainer.step_count))
+        del state
+        t0 = time.perf_counter()
+        loaded, step = load_model(cfg, tmp, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        log(f"load phase: saved step {step} ({size / 1e9:.3f} GB on disk, "
+            f"{trainer.opt.__class__.__name__} state beside the params) in {save_s:.1f} s; "
+            f"loaded its params in {load_s:.1f} s")
+        memory = TransformerLM(cfg, device=dev)
+        memory.load_state_dict({n: p.detach() for n, p in trainer.params.items()})
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, prompt_len), dtype=np.int64)).to(dev)
+        greedy = SampleConfig(temperature=0.0)
+        res = {"save_s": save_s, "load_s": load_s, "bytes": size, "step": step}
+        # int4 first: quantize_for_decode takes the fp32 weights, as the CLI
+        for mode in ("int4", ""):
+            if mode:
+                models = [quantize_for_decode(m, mode) for m in (loaded, memory)]
+            else:
+                models = [cast_params_for_inference(m) for m in (loaded, memory)]
+            _reset_counts(mods)
+            got = generate(models[0], prompts, new_tokens, greedy)
+            counts = _counts(mods)
+            ref = generate(models[1], prompts, new_tokens, greedy)
+            with torch.inference_mode():
+                lg, rlg = (m.prefill_last(prompts)[0] for m in models)
+            want = dict.fromkeys(KERNELS, 0)
+            want.update(causal_dot_norm=_layer_counts(cfg)[0],
+                        q4_matmul=(new_tokens - 1) * _q4_per_step(cfg) if mode else 0)
+            label = mode or "bf16"
+            log(f"load phase {label}: generate from the loaded params launched {counts}; "
+                f"tokens equal the in-memory model's: {bool(torch.equal(got, ref))}; prefill "
+                f"logits bitwise equal: {bool(torch.equal(lg, rlg))}")
+            if counts != want:
+                raise AssertionError(f"loaded {label} generate launched {counts}, want {want}")
+            if not (torch.equal(got, ref) and torch.equal(lg, rlg)
+                    and bool(torch.isfinite(lg).all())):
+                raise AssertionError(f"the loaded {label} model disagrees with the in-memory one")
+            res[label] = {"launches": counts, "first_tokens": got[:, :8].tolist()}
+            del models, lg, rlg
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
 
 
 def adafactor_update_reading(af, grads, params, state, dims, scale):
@@ -1708,11 +2019,13 @@ def main() -> int:
     build(mods)
     check_causal_dot(causal_dot, dev)
     kernels = check_training_kernels(causal_dot, dev)
+    kernels += check_raw(causal_dot, dev)
     kernels += check_flash(flash_attention, dev)
     kernels += check_gmm(gmm, dev)
     kernels += check_q4(q4_matmul, dev)
     kernels += check_adafactor(adafactor, dev)
     log(f"kernel phases done in {time.perf_counter() - t0:.1f} s")
+    op = op_phase(dev, mods)
     tiny_hybrid = dataclasses.replace(TINY, layer_types=("swa", "linear"), window=16)
 
     lm_gen = generate_phase(dev, mods, "lm_1b3", 1024, 32)
@@ -1752,15 +2065,21 @@ def main() -> int:
     tiny_generate(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16) int4", quant="int4")
     log(f"lm_1b3 int4 decode {lm_int4['decode_ms_per_token']:.3f} ms/token against bf16's "
         f"{lm_gen['decode_ms_per_token']:.3f} in this run")
-    af_train = train_phase(dev, mods, "lm_1b3", 1024, optimizer="adafactor_fused")
+    af_train = train_phase(dev, mods, "lm_1b3", 1024, optimizer="adafactor_fused",
+                           then=lambda trainer: load_phase(dev, mods, trainer))
+    loaded = af_train["then"]
     tiny_train(dev, TINY, "tiny adafactor_fused", optimizer="adafactor_fused")
     log(f"lm_1b3 adafactor_fused step {af_train['step_ms']:.2f} ms against AdamW's "
         f"{lm_train['step_ms']:.2f} in this run")
     log(f"quantized serving and Adafactor phases done at {time.perf_counter() - t0:.1f} s")
 
     for k in kernels:
+        if k["name"] in ("causal_dot", "causal_dot_rev"):  # the public op, fwd + bwd
+            k["launches"] = op["launches"][k["name"]]
+            continue
         if k["name"].startswith("q4"):  # the main path: lm_1b3 int4 generate
             k["launches"] = lm_int4["launches"][k["name"]]
+            k["launches_loaded_int4_generate"] = loaded["int4"]["launches"][k["name"]]
             k["launches_moe_1b3_4e_int4"] = moe_int4["launches"][k["name"]]
             k["launches_per_decode_step"] = lm_int4["q4_per_step"]
             continue
@@ -1778,6 +2097,7 @@ def main() -> int:
                                     "generate": lm_gen["launches"][k["name"]]}
             k["launches_moe_1b3_4e"] = {"train": moe_train["launches"][k["name"]],
                                         "generate": moe_gen["launches"][k["name"]]}
+            k["launches_loaded_generate"] = loaded["bf16"]["launches"][k["name"]]
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

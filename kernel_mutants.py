@@ -5,7 +5,8 @@
 On a machine with one CUDA card and ``nvcc``. Builds the sound kernels and
 deliberately wrong copies of them, each made by one textual edit of a
 source in ``orion_tpu_torch/csrc/``: ``causal_dot_norm.cu`` ("fwd", the
-linear forward), ``causal_dot_bwd.cu`` ("bwd", its two backward kernels),
+linear forward and the public op's raw forward), ``causal_dot_bwd.cu``
+("bwd", the backward kernels of both),
 ``flash_attention.cu`` ("flash_fwd"), ``flash_attention_bwd.cu``
 ("flash_bwd", dq and dk/dv), ``gmm.cu`` ("gmm", the grouped matmul's
 forward and dw), ``q4_matmul.cu`` ("q4", the int4 dequant-matmul) or
@@ -15,13 +16,15 @@ under
 changed); all the builds start together, one nvcc each. Then it holds each
 copy against the plain versions with ``chip_smoke.compare_causal_dot``
 (linear forward copies, at the generate path's shape),
+``chip_smoke.compare_raw`` (the copies named ``raw_*``, of the public op's
+two kernels, on all its cases),
 ``chip_smoke.compare_training_kernels`` (linear backward copies, at the
 training shape), ``chip_smoke.compare_flash`` (flash copies, on all its
 cases), ``chip_smoke.compare_gmm`` (gmm copies, on all its cases),
 ``chip_smoke.compare_q4`` or ``chip_smoke.compare_adafactor`` (on all their
 cases; Adafactor copies also through ``chip_smoke.compare_adafactor_update``,
 one update against the plain formulas), prints, per kernel, its readings and whether ``chip_smoke.agrees`` /
-``agrees_training`` / ``agrees_flash`` / ``agrees_gmm`` / ``agrees_q4`` /
+``agrees_training`` / ``agrees_raw`` / ``agrees_flash`` / ``agrees_gmm`` / ``agrees_q4`` /
 ``agrees_adafactor`` accepts it, then all of it as one JSON line. Exits nonzero if a sound kernel is rejected or a kernel that
 must be rejected is not. Imports nothing of JAX.
 """
@@ -75,20 +78,37 @@ MUTANTS = [
      "const bool keep = REV ? (s >= t) : (s < t);", True),
     ("gzf_dropped", "bwd",
      "drops the gzf broadcast: dk and dz0 start the suffix sum from zero",
-     "make_walk<T>(v, g, q, gden, gsf, 1, gzf, dk_out, nullptr, dz0, dv, dk);",
-     "make_walk<T>(v, g, q, gden, gsf, 1, nullptr, dk_out, nullptr, dz0, dv, dk);", True),
+     "make_walk<T, T>(v, g, q, gden, gsf, 1, gzf, dk_out, nullptr, dz0, dv, dk);",
+     "make_walk<T, T>(v, g, q, gden, gsf, 1, nullptr, dk_out, nullptr, dz0, dv, dk);", True),
     ("dsf_not_seeded", "bwd", "does not seed R with dSf^T in the reverse pass",
      "if (p.st0 != nullptr && d < p.dx && j < dwt) {",
      "if (ROLE == ROLE_DQ && p.st0 != nullptr && d < p.dx && j < dwt) {", True),
     ("dq_gden_dropped", "bwd",
      "drops the in-chunk denominator term gden_t sum_{s<=t} k_s from dq",
-     "if (ROLE == ROLE_DQ) v += gds[t];", "", True),
+     "if (DEN && ROLE == ROLE_DQ) v += gds[t];", "", True),
     ("dk_gden_dropped", "bwd",
      "drops the in-chunk denominator term sum_{s>=t} gden_s q_s from dk",
-     "if (ROLE == ROLE_DK) v += gds[s];", "", True),
+     "if (DEN && ROLE == ROLE_DK) v += gds[s];", "", True),
     ("dq_z0_ignored", "bwd", "starts dq's prefix z from zero instead of z0",
      "zs[j] = (p.z0 != nullptr && j < dwt)",
      "zs[j] = (ROLE == ROLE_DK && p.z0 != nullptr && j < dwt)", True),
+    ("raw_no_diagonal", "fwd",
+     "masks the raw kernel's scores to s < t: each token's own (q_t . k_t) v_t leaves out",
+     "as[t * LDA + s] = (s <= t) ? acc[i][j] : 0.f;",
+     "as[t * LDA + s] = (NORM ? s <= t : s < t) ? acc[i][j] : 0.f;", True),
+    ("raw_s0_ignored", "fwd", "starts the raw kernel's S from zero instead of S0",
+     "ss[e] = (s0 != nullptr && d < dk && j < dvt)",
+     "ss[e] = (NORM && s0 != nullptr && d < dk && j < dvt)", True),
+    ("raw_sf_unwritten", "fwd", "never writes the raw kernel's final S",
+     "if (j < dvt) sf[s_base + (size_t)d * dv + j0 + j] = ss[e];",
+     "if (NORM && j < dvt) sf[s_base + (size_t)d * dv + j0 + j] = ss[e];", True),
+    ("raw_rev_seed_dropped", "bwd", "does not seed the raw reverse pass's R with dSf^T",
+     "if (p.st0 != nullptr && d < p.dx && j < dwt) {",
+     "if ((DEN || ROLE == ROLE_DQ) && p.st0 != nullptr && d < p.dx && j < dwt) {", True),
+    ("raw_rev_walks_forward", "bwd",
+     "walks the raw reverse pass's chunks first to last (its masks stay anti-causal)",
+     "const int c0 = (REV ? n_chunks - 1 - ci : ci) * C;",
+     "const int c0 = (REV && DEN ? n_chunks - 1 - ci : ci) * C;", True),
     ("flash_window_off_by_one", "flash_fwd",
      "lets each query see w + 1 keys: t - s <= w for t - s < w",
      "(window <= 0 || row - col < window);", "(window <= 0 || row - col <= window);", True),
@@ -169,7 +189,16 @@ def _clear_libs():
 
 def run(name, source, dev):
     _clear_libs()
-    if source == "q4":
+    if name.startswith("raw_") or source == "raw":
+        readings, _ = chip_smoke.compare_raw(causal_dot, dev)
+        accepted = all(chip_smoke.agrees_raw(r) for r in readings)
+        for r in readings:
+            chip_smoke.log(
+                f"  {r['case']}: " + "; ".join(
+                    f"{n} {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3g} of its limit)"
+                    for n in ("out", "dq", "dk", "dv"))
+                + f"; S rel {r['s_rel']:.3e}, dS0 rel {r['ds0_rel']:.3e}")
+    elif source == "q4":
         readings, _ = chip_smoke.compare_q4(q4_matmul, dev)
         accepted = all(chip_smoke.agrees_q4(r) for r in readings)
         for r in readings:
@@ -254,7 +283,7 @@ def main() -> int:
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc for each source, all at once
         list(pool.map(library.build, builds))
 
-    results = [run("sound", src, dev) for src in ("fwd", "bwd", "flash_fwd", "gmm", "q4",
+    results = [run("sound", src, dev) for src in ("fwd", "bwd", "raw", "flash_fwd", "gmm", "q4",
                                                   "adafactor")]
     ok = all(r["accepted"] for r in results)
     for name, source, breaks, _, _, must_reject in MUTANTS:
@@ -270,6 +299,8 @@ def main() -> int:
     chip_smoke.log(json.dumps({
         "limits": {"out_rtol": chip_smoke.OUT_RTOL, "out_atol": chip_smoke.OUT_ATOL,
                    "state_rtol": chip_smoke.STATE_RTOL, "grad_rtol": chip_smoke.GRAD_RTOL,
+                   "raw_rtol": {str(k): v for k, v in chip_smoke.RAW_RTOL.items()},
+                   "raw_atol_of_max": chip_smoke.RAW_ATOL_OF_MAX,
                    "grad_atol_of_max": chip_smoke.GRAD_ATOL_OF_MAX,
                    "flash_rtol": {str(k): v for k, v in chip_smoke.FLASH_RTOL.items()},
                    "flash_atol_of_max": chip_smoke.FLASH_ATOL_OF_MAX,

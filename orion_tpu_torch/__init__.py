@@ -14,5 +14,9 @@ prefill through the attention kernels (``csrc/causal_dot_norm.cu``,
 decode products through ``csrc/q4_matmul.cu``); and the training path
 (``python -m orion_tpu_torch.train``), with the attention and expert
 backward kernels, AdamW, Lion and Adafactor (``adafactor_fused``: the three
-passes of ``csrc/adafactor.cu``).
+passes of ``csrc/adafactor.cu``); checkpoints that ``generate`` and
+``evaluate`` load (``--ckpt-dir``; ``export_jax_checkpoint.py`` converts the
+JAX package's), the BPE tokenizer and ``prepare_data``; and the public op
+``ops.causal_dot_product``, forward and backward on the raw kernels of
+``csrc/causal_dot_norm.cu`` and ``csrc/causal_dot_bwd.cu``.
 """

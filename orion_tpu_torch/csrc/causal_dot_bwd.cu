@@ -1,11 +1,19 @@
-// Fused normalized causal linear attention, backward, for Hopper (sm_90a):
-// two kernels, one per pass of the TPU backward.
+// Causal linear attention, backward, for Hopper (sm_90a): three kernels,
+// one per pass of the TPU backwards.
 //
-// Replaces, in orion_tpu/ops/pallas/causal_dot.py (glued by _fused_bwd_core):
+// Replaces, in orion_tpu/ops/pallas/causal_dot.py (the normalized ones glued
+// by _fused_bwd_core):
 //   - causal_dot_dq_den_kernel  <- _bwd_dq_den_kernel (launched by
-//     _cdp_dq_den_flat), the forward-walking dq pass;
+//     _cdp_dq_den_flat), the normalized forward-walking dq pass;
 //   - causal_dot_rev_den_kernel <- _bwd_rev_core (launched by
-//     _cdp_rev_den_flat), the reverse-walking dk / dv / dS0 / dz0 pass.
+//     _cdp_rev_den_flat), the normalized reverse-walking dk / dv / dS0 /
+//     dz0 pass;
+//   - causal_dot_rev_raw_kernel <- _bwd_rev_kernel (launched by
+//     _cdp_rev_flat), the unnormalized public op's reverse pass: the same
+//     walk with the denominator terms compiled out (no gden, no zr, no dz0),
+//     writing fp32 dk, dv and dS0 (_cdp_rev_flat's out_shape). The raw op's
+//     dq pass is its forward kernel (causal_dot_norm.cu, causal_dot_raw_kernel)
+//     on (g, v, k) with S0^T carried in, as in _cdp_bwd.
 //
 // With g = d out / d num (cast to the input dtype), gden = d out / d den
 // (fp32 [BH, T]), the forward's initial state (S0 [BH, Dk, Dv], z0 [BH, Dk])
@@ -53,6 +61,9 @@
 // 48 KB default, so the launchers raise the limit with cudaFuncSetAttribute.
 //
 // Bounds at B 8, H 16, T 1024, D 128, bf16 (the lm_1b3 training shape):
+//   raw rev:  reads q, k, v, g (134.2 MB) and dSf (8.4 MB), writes fp32 dk,
+//             dv (134.2 MB) and dS0 (8.4 MB): 285.2 MB, 0.085 ms; 25.8
+//             GFLOP, 0.026 ms. Bound by bytes.
 //   dq pass:  reads g, v, k (100.7 MB) and gden (0.5 MB), writes dq (33.6
 //             MB): 134.7 MB, 0.040 ms at 3.35 TB/s; 12.9 GFLOP, 0.013 ms
 //             at the 989 TFLOP/s bf16 peak. Bound by bytes.
@@ -90,7 +101,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 // One role's operands. x, y: [BH, T, dx]; w, out: [BH, T, dw]; gd: [BH, T].
-template <typename T>
+// T: the inputs' type; TO: out's (T, or fp32 for the raw reverse pass).
+template <typename T, typename TO>
 struct Walk {
   const T* x;
   const T* y;
@@ -99,14 +111,16 @@ struct Walk {
   const float* st0;  // initial state, null = zeros
   int st0_t;         // 1: st0 is [BH, dw, dx], read transposed; 0: [BH, dx, dw]
   const float* z0;   // [BH, dw] initial z, null = zeros
-  T* out;
+  TO* out;
   float* st_out;     // [BH, dx, dw] final state, or null
   float* z_out;      // [BH, dw] final z, or null
   int dx, dw, n_tiles;
 };
 
-template <typename T, int ROLE>
-__device__ __forceinline__ void walk(const Walk<T>& p, int bh, int tile, int t_len,
+// DEN: the normalized backward's denominator terms (gden, z); compiled out
+// for the raw reverse pass.
+template <typename T, typename TO, int ROLE, bool DEN>
+__device__ __forceinline__ void walk(const Walk<T, TO>& p, int bh, int tile, int t_len,
                                      float* smem) {
   constexpr bool REV = ROLE != ROLE_DQ;
   float* xs = smem;               // [C][LDX]
@@ -134,7 +148,7 @@ __device__ __forceinline__ void walk(const Walk<T>& p, int bh, int tile, int t_l
     }
     ss[e] = s;
   }
-  for (int j = tid; j < DWT; j += NT) {
+  for (int j = tid; DEN && j < DWT; j += NT) {
     zs[j] = (p.z0 != nullptr && j < dwt) ? p.z0[(size_t)bh * p.dw + j0 + j] : 0.f;
   }
 
@@ -161,7 +175,7 @@ __device__ __forceinline__ void walk(const Walk<T>& p, int bh, int tile, int t_l
       if (r < rows && j < dwt) wv = to_f(p.w[w_base + (size_t)(c0 + r) * p.dw + j0 + j]);
       ws[r * LDW + j] = wv;
     }
-    if (tid < C) {
+    if (DEN && tid < C) {
       gds[tid] = (p.gd != nullptr && tid < rows) ? p.gd[(size_t)bh * t_len + c0 + tid] : 0.f;
     }
     __syncthreads();
@@ -186,8 +200,8 @@ __device__ __forceinline__ void walk(const Walk<T>& p, int bh, int tile, int t_l
         for (int j = 0; j < 4; ++j) {
           const int t = ty + 16 * i, s = tx + 16 * j;
           float v = acc[i][j];
-          if (ROLE == ROLE_DQ) v += gds[t];
-          if (ROLE == ROLE_DK) v += gds[s];
+          if (DEN && ROLE == ROLE_DQ) v += gds[t];
+          if (DEN && ROLE == ROLE_DK) v += gds[s];
           const bool keep = REV ? (s >= t) : (s <= t);
           as[t * LDA + s] = keep ? v : 0.f;
         }
@@ -226,9 +240,9 @@ __device__ __forceinline__ void walk(const Walk<T>& p, int bh, int tile, int t_l
           const int t = ty + 16 * i, col = tx + 16 * j;
           if (t < rows && col < dwt) {
             float v = o[i][j];
-            if (ROLE == ROLE_DQ) v = fmaf(gds[t], zs[col], v);
-            if (ROLE == ROLE_DK) v += zs[col];
-            p.out[w_base + (size_t)(c0 + t) * p.dw + j0 + col] = from_f<T>(v);
+            if (DEN && ROLE == ROLE_DQ) v = fmaf(gds[t], zs[col], v);
+            if (DEN && ROLE == ROLE_DK) v += zs[col];
+            p.out[w_base + (size_t)(c0 + t) * p.dw + j0 + col] = from_f<TO>(v);
           }
         }
     }
@@ -253,7 +267,7 @@ __device__ __forceinline__ void walk(const Walk<T>& p, int bh, int tile, int t_l
 #pragma unroll
         for (int j = 0; j < 4; ++j) ss[(ty + 16 * i) * DWT + tx + 16 * j] += acc[i][j];
     }
-    if (ROLE != ROLE_DV && tid < DWT) {
+    if (DEN && ROLE != ROLE_DV && tid < DWT) {
       float acc = 0.f;
       for (int s = 0; s < rows; ++s) {
         acc = fmaf(ROLE == ROLE_DK ? gds[s] : 1.f, ws[s * LDW + tid], acc);
@@ -269,36 +283,50 @@ __device__ __forceinline__ void walk(const Walk<T>& p, int bh, int tile, int t_l
       if (d < p.dx && j < dwt) p.st_out[s_base + (size_t)d * p.dw + j0 + j] = ss[e];
     }
   }
-  if (p.z_out != nullptr) {
+  if (DEN && p.z_out != nullptr) {
     for (int j = tid; j < dwt; j += NT) p.z_out[(size_t)bh * p.dw + j0 + j] = zs[j];
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NT) causal_dot_dq_den_kernel(Walk<T> p, int t_len) {
+__global__ void __launch_bounds__(NT) causal_dot_dq_den_kernel(Walk<T, T> p, int t_len) {
   extern __shared__ float smem[];
-  walk<T, ROLE_DQ>(p, blockIdx.x / p.n_tiles, blockIdx.x % p.n_tiles, t_len, smem);
+  walk<T, T, ROLE_DQ, true>(p, blockIdx.x / p.n_tiles, blockIdx.x % p.n_tiles, t_len, smem);
 }
 
 // blocks [0, bh * pk.n_tiles) make dk (and dz0); the rest make dv (and dS0)
-template <typename T>
-__global__ void __launch_bounds__(NT) causal_dot_rev_den_kernel(Walk<T> pk, Walk<T> pv,
-                                                                int bh, int t_len) {
-  extern __shared__ float smem[];
+template <typename T, typename TO, bool DEN>
+__device__ __forceinline__ void rev_walks(const Walk<T, TO>& pk, const Walk<T, TO>& pv, int bh,
+                                          int t_len, float* smem) {
   const int nk = bh * pk.n_tiles;
   const int b = blockIdx.x;
   if (b < nk) {
-    walk<T, ROLE_DK>(pk, b / pk.n_tiles, b % pk.n_tiles, t_len, smem);
+    walk<T, TO, ROLE_DK, DEN>(pk, b / pk.n_tiles, b % pk.n_tiles, t_len, smem);
   } else {
-    walk<T, ROLE_DV>(pv, (b - nk) / pv.n_tiles, (b - nk) % pv.n_tiles, t_len, smem);
+    walk<T, TO, ROLE_DV, DEN>(pv, (b - nk) / pv.n_tiles, (b - nk) % pv.n_tiles, t_len, smem);
   }
 }
 
 template <typename T>
-Walk<T> make_walk(const void* x, const void* y, const void* w, const void* gd,
-                  const void* st0, int st0_t, const void* z0, void* out, void* st_out,
-                  void* z_out, int dx, int dw) {
-  Walk<T> p;
+__global__ void __launch_bounds__(NT) causal_dot_rev_den_kernel(Walk<T, T> pk, Walk<T, T> pv,
+                                                                int bh, int t_len) {
+  extern __shared__ float smem[];
+  rev_walks<T, T, true>(pk, pv, bh, t_len, smem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) causal_dot_rev_raw_kernel(Walk<T, float> pk,
+                                                                Walk<T, float> pv, int bh,
+                                                                int t_len) {
+  extern __shared__ float smem[];
+  rev_walks<T, float, false>(pk, pv, bh, t_len, smem);
+}
+
+template <typename T, typename TO>
+Walk<T, TO> make_walk(const void* x, const void* y, const void* w, const void* gd,
+                      const void* st0, int st0_t, const void* z0, void* out, void* st_out,
+                      void* z_out, int dx, int dw) {
+  Walk<T, TO> p;
   p.x = static_cast<const T*>(x);
   p.y = static_cast<const T*>(y);
   p.w = static_cast<const T*>(w);
@@ -306,7 +334,7 @@ Walk<T> make_walk(const void* x, const void* y, const void* w, const void* gd,
   p.st0 = static_cast<const float*>(st0);
   p.st0_t = st0_t;
   p.z0 = static_cast<const float*>(z0);
-  p.out = static_cast<T*>(out);
+  p.out = static_cast<TO*>(out);
   p.st_out = static_cast<float*>(st_out);
   p.z_out = static_cast<float*>(z_out);
   p.dx = dx;
@@ -320,7 +348,8 @@ cudaError_t launch_dq(const void* g, const void* v, const void* k, const void* g
                       const void* s0, const void* z0, void* dq, int bh, int t, int dk,
                       int dv, cudaStream_t stream) {
   // x = g, y = v [.., Dv]; w = k, out = dq [.., Dk]; S0 [BH, Dk, Dv] read as S0^T
-  const Walk<T> p = make_walk<T>(g, v, k, gden, s0, 1, z0, dq, nullptr, nullptr, dv, dk);
+  const Walk<T, T> p =
+      make_walk<T, T>(g, v, k, gden, s0, 1, z0, dq, nullptr, nullptr, dv, dk);
   const long long blocks = (long long)bh * p.n_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int smem = SMEM_FLOATS * (int)sizeof(float);
@@ -337,11 +366,11 @@ cudaError_t launch_rev(const void* q, const void* k, const void* v, const void* 
                        void* dv_out, void* ds0, void* dz0, int bh, int t, int dk, int dv,
                        cudaStream_t stream) {
   // dk: x = v, y = g [.., Dv]; w = q [.., Dk]; R = gsf^T read from [BH, Dk, Dv]
-  const Walk<T> pk =
-      make_walk<T>(v, g, q, gden, gsf, 1, gzf, dk_out, nullptr, dz0, dv, dk);
+  const Walk<T, T> pk =
+      make_walk<T, T>(v, g, q, gden, gsf, 1, gzf, dk_out, nullptr, dz0, dv, dk);
   // dv: x = k, y = q [.., Dk]; w = g [.., Dv]; R^T = gsf as laid out, dS0 likewise
-  const Walk<T> pv =
-      make_walk<T>(k, q, g, nullptr, gsf, 0, nullptr, dv_out, ds0, nullptr, dk, dv);
+  const Walk<T, T> pv =
+      make_walk<T, T>(k, q, g, nullptr, gsf, 0, nullptr, dv_out, ds0, nullptr, dk, dv);
   const long long blocks = (long long)bh * (pk.n_tiles + pv.n_tiles);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int smem = SMEM_FLOATS * (int)sizeof(float);
@@ -349,6 +378,26 @@ cudaError_t launch_rev(const void* q, const void* k, const void* v, const void* 
       causal_dot_rev_den_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   causal_dot_rev_den_kernel<T><<<(unsigned)blocks, NT, smem, stream>>>(pk, pv, bh, t);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_rev_raw(const void* q, const void* k, const void* v, const void* g,
+                           const void* gsf, void* dk_out, void* dv_out, void* ds0, int bh,
+                           int t, int dk, int dv, cudaStream_t stream) {
+  // the roles of launch_rev with the denominator terms compiled out and
+  // fp32 outputs; R = gsf^T seeds the walk (zeros when gsf is null)
+  const Walk<T, float> pk =
+      make_walk<T, float>(v, g, q, nullptr, gsf, 1, nullptr, dk_out, nullptr, nullptr, dv, dk);
+  const Walk<T, float> pv =
+      make_walk<T, float>(k, q, g, nullptr, gsf, 0, nullptr, dv_out, ds0, nullptr, dk, dv);
+  const long long blocks = (long long)bh * (pk.n_tiles + pv.n_tiles);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int smem = SMEM_FLOATS * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      causal_dot_rev_raw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  causal_dot_rev_raw_kernel<T><<<(unsigned)blocks, NT, smem, stream>>>(pk, pv, bh, t);
   return cudaGetLastError();
 }
 
@@ -385,5 +434,24 @@ extern "C" int causal_dot_rev_den(const void* q, const void* k, const void* v, c
                                           dz0, bh, t, dk, dv, st)
               : launch_rev<float>(q, k, v, g, gden, gsf, gzf, dk_out, dv_out, ds0, dz0, bh,
                                   t, dk, dv, st);
+  return (int)err;
+}
+
+// The raw reverse pass. q, k [BH, T, Dk], v, g [BH, T, Dv]: bf16 when
+// is_bf16 else fp32. gsf [BH, Dk, Dv] fp32, the cotangent of the final state
+// (R = gsf^T), nullptr for zeros. dk_out [BH, T, Dk], dv_out [BH, T, Dv] and
+// ds0 [BH, Dk, Dv]: fp32 outputs. Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int causal_dot_rev(const void* q, const void* k, const void* v, const void* g,
+                              const void* gsf, void* dk_out, void* dv_out, void* ds0, int bh,
+                              int t, int dk, int dv, int is_bf16, void* stream) {
+  if (bh < 1 || t < 1 || dk < 1 || dk > DX_MAX || dv < 1 || dv > DX_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_rev_raw<__nv_bfloat16>(q, k, v, g, gsf, dk_out, dv_out, ds0, bh, t, dk,
+                                              dv, st)
+              : launch_rev_raw<float>(q, k, v, g, gsf, dk_out, dv_out, ds0, bh, t, dk, dv, st);
   return (int)err;
 }

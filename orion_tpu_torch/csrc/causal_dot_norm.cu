@@ -1,9 +1,11 @@
-// Fused normalized causal linear attention, forward, for Hopper (sm_90a).
+// Causal linear attention, forward, for Hopper (sm_90a): one chunk walk, two
+// kernels.
 //
-// Replaces the TPU kernel orion_tpu/ops/pallas/causal_dot.py::_kernel_norm
-// (launched by _cdpn_flat). For phi-mapped q, k [BH, T, Dk] and v [BH, T, Dv]
-// (bf16 or fp32, contiguous) and an optional fp32 state (S0 [BH, Dk, Dv],
-// z0 [BH, Dk]) it writes
+// causal_dot_norm_kernel replaces the TPU kernel
+// orion_tpu/ops/pallas/causal_dot.py::_kernel_norm (launched by _cdpn_flat).
+// For phi-mapped q, k [BH, T, Dk] and v [BH, T, Dv] (bf16 or fp32,
+// contiguous) and an optional fp32 state (S0 [BH, Dk, Dv], z0 [BH, Dk]) it
+// writes
 //
 //     out[t] = q_t . S_t / (q_t . z_t + eps)          (input dtype)
 //     S_T = S0 + sum_t k_t (x) v_t,  z_T = z0 + sum_t k_t   (fp32)
@@ -15,6 +17,18 @@
 // the backward (causal_dot_bwd.cu) takes them as its residuals. With null
 // num and den pointers the launch is the inference one.
 //
+// causal_dot_raw_kernel replaces the TPU kernel _kernel (launched by
+// _cdp_flat), the unnormalized causal dot product of the public op
+// causal_dot_product: with an optional fp32 S0 [BH, Dk, Dv] it writes
+//
+//     out[t] = sum_{s<=t} (q_t . k_s) v_s + q_t . S0   (input dtype)
+//     S_T    = S0 + sum_t k_t (x) v_t                   (fp32)
+//
+// with no z, no denominator and no division. Its backward runs it again as
+// the dq pass, on (g, v, k) with S0^T carried in (_cdp_bwd). Both kernels
+// are the one body below (walk<T, NORM>), so the numerator recurrence
+// cannot drift between them, as the TPU kernels share _tri_mask.
+//
 // Design. On the TPU the chunk axis is a sequential grid axis and VMEM
 // scratch carries S from one grid step to the next. Blocks on an H100 run
 // in no order, so here one block owns one (b*h, 64-column tile of Dv) and
@@ -22,11 +36,12 @@
 // 32 KB) and z in shared memory for the whole walk. Per chunk of C tokens:
 //   1. load q, k (C x Dk) and the v tile (C x 64) into shared memory as fp32;
 //      rows past T are zeros, so the ragged tail needs no host padding;
-//   2. A = q k^T, masked to s <= t and kept in fp32 (as _kernel_norm does);
-//   3. den[t] = sum_s A[t, s] + q_t . z ;  num = A v + q S ;
-//      out = num / (den + eps), written in the input dtype;
-//   4. S += k^T v, z += sum_s k_s.
-// Every tile of a (b*h) recomputes A and den: Dk*C extra multiply-adds per
+//   2. A = q k^T, masked to s <= t by a select (a non-finite masked entry
+//      becomes 0, not NaN) and kept in fp32 (as the TPU kernels do);
+//   3. num = A v + q S; normalized: den[t] = sum_s A[t, s] + q_t . z and
+//      out = num / (den + eps); raw: out = num; written in the input dtype;
+//   4. S += k^T v (normalized: z += sum_s k_s).
+// Every tile of a (b*h) recomputes A (and den): Dk*C extra multiply-adds per
 // token, cheap beside the loads. All products accumulate in fp32 on the
 // CUDA cores; bf16 products are exact in fp32, so the result matches the
 // fp32 plain version up to summation order.
@@ -37,16 +52,18 @@
 // cudaFuncSetAttribute. One block per SM; at B 4, H 16, Dv 128 the grid is
 // 128 blocks on 132 SMs, one wave.
 //
-// Bound at B 4, H 16, T 1024, D 128, bf16, no initial state: the kernel must
-// read q, k, v (50.3 MB) and write out (16.8 MB) and S (4.2 MB): 71.3 MB,
-// 21.3 us at 3.35 TB/s. Its arithmetic is 6.4 GFLOP (C = 64, with the full
-// C x C score block), 6.5 us at the 989 TFLOP/s bf16 tensor-core peak. So the
-// function is bound by bytes. This kernel is not: it does its 3.2 G
-// multiply-adds on the fp32 CUDA cores, fed from shared memory with a 4 x 4
-// (4 x 8 for the state update) register tile per thread, so shared-memory
-// load issue limits it. Moving the four products onto mma.sync / wgmma and
-// the loads onto TMA with a pipelined producer is the work that brings it
-// toward the byte bound (ROADMAP.md queue B).
+// Bound of the normalized kernel at B 4, H 16, T 1024, D 128, bf16, no
+// initial state: the kernel must read q, k, v (50.3 MB) and write out (16.8
+// MB) and S (4.2 MB): 71.3 MB, 21.3 us at 3.35 TB/s. Its arithmetic is 6.4
+// GFLOP (C = 64, with the full C x C score block), 6.5 us at the 989
+// TFLOP/s bf16 tensor-core peak. So the function is bound by bytes; so is
+// the raw one (at B 8: 142.6 MB, 43 us, against 12.9 GFLOP, 13 us). These
+// kernels are not: they do their multiply-adds on the fp32 CUDA cores, fed
+// from shared memory with a 4 x 4 (4 x 8 for the state update) register tile
+// per thread, so shared-memory load issue limits them. Moving the four
+// products onto mma.sync / wgmma and the loads onto TMA with a pipelined
+// producer is the work that brings them toward the byte bound (ROADMAP.md
+// queue B).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,14 +88,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
+// One block's walk. NORM: the normalized kernel (z, den, the division);
+// else the raw one, which reads no z0 and writes no zf, num or den.
+template <typename T, bool NORM>
+__device__ __forceinline__ void walk(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ s0, const float* __restrict__ z0,
     T* __restrict__ out, float* __restrict__ sf, float* __restrict__ zf,
     float* __restrict__ num_out, float* __restrict__ den_out,
-    int t_len, int dk, int dv, int n_tiles, float eps) {
-  extern __shared__ float smem[];
+    int t_len, int dk, int dv, int n_tiles, float eps, float* smem) {
   float* qs = smem;               // [C][LDQ]
   float* ks = qs + C * LDQ;       // [C][LDQ]
   float* vs = ks + C * LDQ;       // [C][LDV]
@@ -101,7 +119,7 @@ __global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
     const int d = e / DVT, j = e % DVT;
     ss[e] = (s0 != nullptr && d < dk && j < dvt) ? s0[s_base + (size_t)d * dv + j0 + j] : 0.f;
   }
-  for (int d = tid; d < DK_MAX; d += NT) {
+  for (int d = tid; NORM && d < DK_MAX; d += NT) {
     zs[d] = (z0 != nullptr && d < dk) ? z0[(size_t)bh * dk + d] : 0.f;
   }
 
@@ -153,7 +171,7 @@ __global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
     __syncthreads();
 
     // 3a. den[t] = sum_s A[t, s] + q_t . z: one warp per row, lanes split the sums
-    {
+    if (NORM) {
       const int warp = tid / 32, lane = tid % 32;
       for (int r = warp; r < C; r += NT / 32) {
         float acc = 0.f;
@@ -191,8 +209,8 @@ __global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
     }
     __syncthreads();  // dens complete; every read of S and z is done
 
-    // 3c. epilogue: the division, in the input dtype; for training also
-    // the fp32 numerator (every tile) and denominator (tile 0)
+    // 3c. epilogue: the division (normalized), in the input dtype; for
+    // training also the fp32 numerator (every tile) and denominator (tile 0)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -200,7 +218,7 @@ __global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
         const int t = ty + 16 * i, col = tx + 16 * j;
         if (t < rows && col < dvt) {
           const size_t o = v_base + (size_t)(c0 + t) * dv + j0 + col;
-          out[o] = from_f<T>(num[i][j] / (dens[t] + eps));
+          out[o] = from_f<T>(NORM ? num[i][j] / (dens[t] + eps) : num[i][j]);
           if (num_out != nullptr) num_out[o] = num[i][j];
         }
       }
@@ -208,7 +226,7 @@ __global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
       den_out[(size_t)bh * t_len + c0 + tid] = dens[tid];
     }
 
-    // 4. S += k^T v (rows ty + 16i of S, columns tx + 16j), z += sum_s k_s
+    // 4. S += k^T v (rows ty + 16i of S, columns tx + 16j); normalized: z += sum_s k_s
     {
       float acc[8][4] = {};
       for (int s = 0; s < rows; ++s) {
@@ -227,7 +245,7 @@ __global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
 #pragma unroll
         for (int j = 0; j < 4; ++j) ss[(ty + 16 * i) * DVT + tx + 16 * j] += acc[i][j];
     }
-    if (tid < dk) {
+    if (NORM && tid < dk) {
       float acc = 0.f;
       for (int s = 0; s < rows; ++s) acc += ks[s * LDQ + tid];
       zs[tid] += acc;
@@ -239,27 +257,77 @@ __global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
     const int d = e / DVT, j = e % DVT;
     if (j < dvt) sf[s_base + (size_t)d * dv + j0 + j] = ss[e];
   }
-  if (tile == 0) {
+  if (NORM && tile == 0) {
     for (int d = tid; d < dk; d += NT) zf[(size_t)bh * dk + d] = zs[d];
   }
 }
 
 template <typename T>
+__global__ void __launch_bounds__(NT) causal_dot_norm_kernel(
+    const T* q, const T* k, const T* v, const float* s0, const float* z0, T* out, float* sf,
+    float* zf, float* num_out, float* den_out, int t_len, int dk, int dv, int n_tiles,
+    float eps) {
+  extern __shared__ float smem[];
+  walk<T, true>(q, k, v, s0, z0, out, sf, zf, num_out, den_out, t_len, dk, dv, n_tiles, eps,
+                smem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) causal_dot_raw_kernel(
+    const T* q, const T* k, const T* v, const float* s0, T* out, float* sf, int t_len, int dk,
+    int dv, int n_tiles) {
+  extern __shared__ float smem[];
+  walk<T, false>(q, k, v, s0, nullptr, out, sf, nullptr, nullptr, nullptr, t_len, dk, dv,
+                 n_tiles, 0.f, smem);
+}
+
+template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* s0,
                    const float* z0, void* out, float* sf, float* zf, float* num,
-                   float* den, int bh, int t, int dk, int dv, float eps,
+                   float* den, int bh, int t, int dk, int dv, float eps, bool norm,
                    cudaStream_t stream) {
   const int n_tiles = (dv + DVT - 1) / DVT;
   const long long blocks = (long long)bh * n_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int smem = SMEM_FLOATS * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      causal_dot_norm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  causal_dot_norm_kernel<T><<<(unsigned)blocks, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      s0, z0, static_cast<T*>(out), sf, zf, num, den, t, dk, dv, n_tiles, eps);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  cudaError_t err;
+  if (norm) {
+    err = cudaFuncSetAttribute(causal_dot_norm_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    causal_dot_norm_kernel<T><<<(unsigned)blocks, NT, smem, stream>>>(
+        qt, kt, vt, s0, z0, ot, sf, zf, num, den, t, dk, dv, n_tiles, eps);
+  } else {
+    err = cudaFuncSetAttribute(causal_dot_raw_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    causal_dot_raw_kernel<T><<<(unsigned)blocks, NT, smem, stream>>>(
+        qt, kt, vt, s0, ot, sf, t, dk, dv, n_tiles);
+  }
   return cudaGetLastError();
+}
+
+int run(const void* q, const void* k, const void* v, const void* s0, const void* z0, void* out,
+        void* sf, void* zf, void* num, void* den, int bh, int t, int dk, int dv, int is_bf16,
+        float eps, bool norm, void* stream) {
+  if (bh < 1 || t < 1 || dk < 1 || dk > DK_MAX || dv < 1) return (int)cudaErrorInvalidValue;
+  const float* s0f = static_cast<const float*>(s0);
+  const float* z0f = static_cast<const float*>(z0);
+  float* sff = static_cast<float*>(sf);
+  float* zff = static_cast<float*>(zf);
+  float* numf = static_cast<float*>(num);
+  float* denf = static_cast<float*>(den);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch<__nv_bfloat16>(q, k, v, s0f, z0f, out, sff, zff, numf, denf, bh, t,
+                                      dk, dv, eps, norm, st)
+              : launch<float>(q, k, v, s0f, z0f, out, sff, zff, numf, denf, bh, t, dk, dv,
+                              eps, norm, st);
+  return (int)err;
 }
 
 }  // namespace
@@ -271,18 +339,16 @@ extern "C" int causal_dot_norm_fwd(const void* q, const void* k, const void* v,
                                    const void* s0, const void* z0, void* out, void* sf,
                                    void* zf, void* num, void* den, int bh, int t, int dk,
                                    int dv, int is_bf16, float eps, void* stream) {
-  if (bh < 1 || t < 1 || dk < 1 || dk > DK_MAX || dv < 1) return (int)cudaErrorInvalidValue;
-  const float* s0f = static_cast<const float*>(s0);
-  const float* z0f = static_cast<const float*>(z0);
-  float* sff = static_cast<float*>(sf);
-  float* zff = static_cast<float*>(zf);
-  float* numf = static_cast<float*>(num);
-  float* denf = static_cast<float*>(den);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, s0f, z0f, out, sff, zff, numf, denf, bh, t,
-                                      dk, dv, eps, st)
-              : launch<float>(q, k, v, s0f, z0f, out, sff, zff, numf, denf, bh, t, dk, dv,
-                              eps, st);
-  return (int)err;
+  return run(q, k, v, s0, z0, out, sf, zf, num, den, bh, t, dk, dv, is_bf16, eps, true,
+             stream);
+}
+
+// The raw kernel. q, k [BH, T, Dk], v, out [BH, T, Dv]: bf16 when is_bf16
+// else fp32. s0 [BH, Dk, Dv] fp32, nullptr for a zero initial state; sf
+// [BH, Dk, Dv] fp32 out. Returns the cudaError_t of the launch (0 on success).
+extern "C" int causal_dot_fwd(const void* q, const void* k, const void* v, const void* s0,
+                              void* out, void* sf, int bh, int t, int dk, int dv, int is_bf16,
+                              void* stream) {
+  return run(q, k, v, s0, nullptr, out, sf, nullptr, nullptr, nullptr, bh, t, dk, dv, is_bf16,
+             0.f, false, stream);
 }

@@ -25,10 +25,13 @@ Quantized serving (``quant="int8"`` / ``"int4"``, CLI ``--quant``):
 full-precision one (``orion_tpu_torch/quant.py``); in int4 every decode
 step's dense products run the hand-written ``q4_matmul`` kernel on the card.
 
-Without a checkpoint the weights come from a seeded init. Loading one is
-not ported yet (ROADMAP.md queue A, item 5: the JAX package's orbax
-checkpoints, and the port's own from ``orion_tpu_torch.train``);
-``convert.load_jax_params`` takes a flax parameter tree.
+Weights: ``--ckpt-dir`` loads the params of a checkpoint that
+``orion_tpu_torch.train`` wrote, or that ``export_jax_checkpoint.py`` made
+from one of the JAX package's (``load_params``, from
+``training/checkpoint.py``: memory-mapped, manifest-verified, retried, with
+a fallback to the newest intact step unless a step is pinned), and
+``adapt_config_to_params`` fits the named config to the stored tables.
+Without a checkpoint the weights come from a seeded init.
 """
 
 from __future__ import annotations
@@ -41,10 +44,12 @@ from typing import List, Optional
 
 import torch
 
-from orion_tpu_torch.models.configs import get_config
+from orion_tpu_torch.models.configs import ModelConfig, get_config
 from orion_tpu_torch.models.moe import MoEMLP
 from orion_tpu_torch.models.transformer import Dense, TransformerLM
 from orion_tpu_torch.quant import MODES, check_mode, quantize_params_for_decode
+from orion_tpu_torch.resilience.retry import RetryPolicy
+from orion_tpu_torch.training.checkpoint import load_params
 from orion_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -180,6 +185,44 @@ def generate(
         return _generate(model, prompt, max_new_tokens, sample, generator)
 
 
+def generate_unconditional(model: TransformerLM, batch_size: int, max_new_tokens: int,
+                           bos_token: int = 0, **kw) -> Tensor:
+    """``generate`` from a one-token prompt of ``bos_token`` per row."""
+    prompt = torch.full((batch_size, 1), bos_token, dtype=torch.long, device=model.device)
+    return generate(model, prompt, max_new_tokens, **kw)
+
+
+def adapt_config_to_params(cfg: ModelConfig, params) -> ModelConfig:
+    """Fit a named config to a checkpoint's stored tables, as the JAX
+    package's ``adapt_config_to_params``: ``max_seq_len`` from the rows of
+    ``pos_embed.weight`` (the train CLI raises it when ``--seq-len`` reaches
+    it) and ``vocab_size`` from those of ``embed.weight``. A layout without
+    these keys passes through as it is."""
+    try:
+        pos_rows = params["pos_embed.weight"].shape[0]
+        vocab = params["embed.weight"].shape[0]
+    except (KeyError, TypeError):
+        return cfg
+    if pos_rows != cfg.max_seq_len:
+        cfg = dataclasses.replace(cfg, max_seq_len=pos_rows)
+    if vocab != cfg.vocab_size:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
+    return cfg
+
+
+def load_model(cfg: ModelConfig, ckpt_dir: str, device, step: Optional[int] = None,
+               attempts: int = 4):
+    """The model of a checkpoint's params (``load_params`` with
+    ``attempts`` tries of each read), its config fitted to them
+    (``adapt_config_to_params``) -> (model, step). Its weights stay fp32,
+    as trained."""
+    params, step = load_params(ckpt_dir, step, retry=RetryPolicy(attempts=max(attempts, 1)))
+    cfg = adapt_config_to_params(cfg, params)
+    model = TransformerLM(cfg, device=device)
+    model.load_state_dict(params, strict=True)
+    return model, step
+
+
 def _generate(model, prompt, max_new_tokens, sample, generator) -> Tensor:
     sample = sample or SampleConfig()
     prompt = torch.as_tensor(prompt, device=model.device).long()
@@ -211,12 +254,21 @@ def _generate(model, prompt, max_new_tokens, sample, generator) -> Tensor:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("orion_tpu_torch.generate")
     p.add_argument("--config", default="tiny")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint directory (orion_tpu_torch.train or export_jax_checkpoint.py); "
+                        "default: random params")
     p.add_argument("--prompt", default="Hello")
     p.add_argument("--max-new-tokens", type=int, default=128)
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--top-p", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0, help="sampling seed")
+    p.add_argument("--tokenizer", default=None,
+                   help="BPE tokenizer JSON (prepare_data --train-tokenizer); default byte-level")
+    p.add_argument("--eos", action="store_true", help="stop sequences at the tokenizer's <eos>")
+    p.add_argument("--ckpt-attempts", type=int, default=4,
+                   help="total tries for each checkpoint read (transient I/O retried with "
+                        "jittered backoff; 1 = no retry)")
     p.add_argument(
         "--set", action="append", default=[], metavar="KEY=VALUE",
         help="ModelConfig override, e.g. --set n_layers=4",
@@ -232,24 +284,41 @@ def main(argv=None) -> int:
         from orion_tpu_torch.utils.config import apply_overrides, parse_set_overrides
 
         cfg = apply_overrides(cfg, parse_set_overrides(args.set))
-    from orion_tpu_torch.utils.tokenizer import ByteTokenizer
+    eos_token = -1
+    if args.tokenizer:
+        from orion_tpu_torch.utils.bpe import BPETokenizer
 
-    tok = ByteTokenizer()
+        tok = BPETokenizer.load(args.tokenizer)
+        if tok.vocab_size > cfg.vocab_size:
+            raise ValueError(f"tokenizer vocab {tok.vocab_size} > model vocab {cfg.vocab_size}")
+        if args.eos:
+            eos_token = tok.eos
+    else:
+        from orion_tpu_torch.utils.tokenizer import ByteTokenizer
+
+        tok = ByteTokenizer()
     device = resolve_device(args.device)
-    # weights from a fixed init seed (as the JAX CLI's PRNGKey(0)); --seed
-    # seeds only the sampler
-    model = TransformerLM(cfg, device=device)
+    if args.ckpt_dir:
+        model, step = load_model(cfg, args.ckpt_dir, device, attempts=args.ckpt_attempts)
+        print(f"loaded step {step} from {args.ckpt_dir}", file=sys.stderr)
+    else:
+        # weights from a fixed init seed (as the JAX CLI's PRNGKey(0));
+        # --seed seeds only the sampler
+        model = TransformerLM(cfg, device=device)
+        print("no --ckpt-dir: random params (smoke test)", file=sys.stderr)
     model = quantize_for_decode(model, args.quant) if args.quant else cast_params_for_inference(model)
-    print("no checkpoint: random params (smoke test)", file=sys.stderr)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     out = generate(
         model,
         torch.tensor([tok.encode(args.prompt)], device=device),
         args.max_new_tokens,
-        SampleConfig(args.temperature, args.top_k, args.top_p),
+        SampleConfig(args.temperature, args.top_k, args.top_p, eos_token=eos_token),
         gen,
     )
-    print(args.prompt + tok.decode([int(t) for t in out[0]]))
+    ids = [int(t) for t in out[0]]
+    if eos_token >= 0 and eos_token in ids:
+        ids = ids[: ids.index(eos_token)]
+    print(args.prompt + tok.decode(ids))
     return 0
 
 

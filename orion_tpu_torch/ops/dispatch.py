@@ -1,4 +1,5 @@
-"""Backend choice for the port's kernel-backed ops.
+"""Backend choice for the port's kernel-backed ops, and the public op
+``causal_dot_product``.
 
 ``resolve`` makes the one choice between a CUDA kernel and its plain
 PyTorch version, for linear attention (``ops/linear_attention.py``),
@@ -47,4 +48,55 @@ def resolve_chunk(chunk: Optional[int]) -> int:
     return chunk
 
 
-__all__ = ["DEFAULT_CHUNK", "resolve", "resolve_chunk"]
+def causal_dot_product(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    backend: str = "auto",
+    chunk: Optional[int] = None,
+    return_state: bool = False,
+    initial_state: Optional[torch.Tensor] = None,
+):
+    """``out[t] = sum_{s<=t} (q_t . k_s) v_s`` (+ ``q_t . S0`` for a
+    carried-in ``initial_state`` [..., Dk, Dv]) on the chosen backend: the
+    counterpart of ``orion_tpu/ops/dispatch.py::causal_dot_product``.
+
+    q, k [..., T, Dk], v [..., T, Dv], any batch dims and any T. Returns out
+    [..., T, Dv] in q's dtype, and with ``return_state`` also the final S =
+    S0 + sum_s k_s (x) v_s [..., Dk, Dv] in fp32. Differentiable through q,
+    k, v, ``initial_state`` and the returned state on either backend:
+    ``"cuda"`` runs the kernels (``ops/kernels/causal_dot.py``; with grad
+    enabled and an input that requires it, through ``CausalDotProductFn``,
+    whose backward runs the kernels too); ``"torch"`` the plain chunked form
+    (``ops/linear_attention.py``, differentiated by autograd), whose chunk
+    ``chunk`` sets; ``"auto"`` picks by device (``resolve``).
+    """
+    from orion_tpu_torch.ops.kernels import causal_dot
+    from orion_tpu_torch.ops.linear_attention import causal_dot_product_chunked
+
+    if resolve(backend, q.device) == "torch":
+        return causal_dot_product_chunked(
+            q, k, v, chunk=resolve_chunk(chunk), return_state=return_state,
+            initial_state=initial_state)
+    batch_shape = q.shape[:-2]
+    t, dk, dv = q.shape[-2], q.shape[-1], v.shape[-1]
+    qf = q.reshape(-1, t, dk).contiguous()
+    kf = k.reshape(-1, t, dk).contiguous()
+    vf = v.reshape(-1, t, dv).contiguous()
+    s0 = None
+    if initial_state is not None:
+        s0 = initial_state.float().reshape(-1, dk, dv).contiguous()
+    if torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in (qf, kf, vf, s0)
+    ):
+        out, sf = causal_dot.CausalDotProductFn.apply(qf, kf, vf, s0)
+    else:
+        out, sf = causal_dot.causal_dot_cuda(qf, kf, vf, s0)
+    out = out.reshape(*batch_shape, t, dv)
+    if return_state:
+        return out, sf.reshape(*batch_shape, dk, dv)
+    return out
+
+
+__all__ = ["DEFAULT_CHUNK", "causal_dot_product", "resolve", "resolve_chunk"]

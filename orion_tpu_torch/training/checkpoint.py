@@ -16,8 +16,15 @@ Each save writes
 (``verify_manifest``); with no step pinned it falls back, with a warning, to
 the newest step that loads and verifies. A pinned step never falls back.
 Retention keeps the newest ``max_to_keep`` steps and their manifests. Saves
-are synchronous. The reference's I/O retries and fault-injection hooks
-(``resilience/``) are not ported yet (ROADMAP.md queue A, item 9).
+are synchronous.
+
+``load_params`` is the serving side's restore, the counterpart of
+``orion_tpu/generate.py::load_params``: just the ``params`` subtree of a
+step, memory-mapped (an optimizer state beside it is never read), verified
+against the manifest's ``params/...`` leaves, with I/O retried
+(``resilience/retry.py``) and the same fallback policy. The reference's
+fault-injection hooks (``resilience/inject.py``) are not ported yet
+(ROADMAP.md queue A, item 9).
 """
 
 from __future__ import annotations
@@ -27,9 +34,11 @@ import os
 import re
 import warnings
 import zlib
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
+
+from orion_tpu_torch.resilience.retry import RetryPolicy, call_with_retries
 
 MANIFEST_DIRNAME = "manifests"
 MANIFEST_VERSION = 1
@@ -102,24 +111,126 @@ def verify_manifest(state: Mapping[str, Any], manifest: Dict[str, Any]) -> None:
         )
 
 
+def step_path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"step-{step:08d}.pt")
+
+
+def manifest_path(directory: str, step: int) -> str:
+    return os.path.join(directory, MANIFEST_DIRNAME, f"manifest-{step}.json")
+
+
+def all_steps(directory: str) -> List[int]:
+    """The steps with a ``step-<N>.pt`` file in ``directory``, ascending."""
+    return sorted(int(m.group(1)) for m in map(_STEP_FILE.match, os.listdir(directory)) if m)
+
+
+def read_manifest(directory: str, step: int) -> Optional[Dict[str, Any]]:
+    """Step ``step``'s manifest, or None when it has none; an unreadable one
+    raises :class:`CheckpointIntegrityError`."""
+    path = manifest_path(directory, step)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError) as e:
+        raise CheckpointIntegrityError(f"step {step}: manifest unreadable ({e})") from e
+
+
+def manifest_subtree(manifest: Dict[str, Any], prefix: str) -> Optional[Dict[str, Any]]:
+    """The manifest of one subtree (``state[prefix]``), its leaf paths
+    re-rooted so that the subtree on its own verifies against it: the port's
+    counterpart of ``orion_tpu/training/checkpoint.py::manifest_subtree``.
+    None when the manifest has no leaf under ``prefix``."""
+    head = prefix + "/"
+    leaves = [dict(e, path=e["path"][len(head):]) for e in manifest.get("leaves", ())
+              if e["path"].startswith(head)]
+    if not leaves:
+        return None
+    return {**manifest, "leaves": leaves, "n_leaves": len(leaves)}
+
+
+def _newest_intact(directory: str, steps: List[int], load: Callable[[int], Any],
+                   what: str) -> Tuple[Any, int]:
+    """``load(s)`` of the newest of ``steps`` that loads and verifies,
+    warning for each one skipped; raises when none does."""
+    failures = []
+    for s in sorted(steps, reverse=True):
+        try:
+            out = load(s)
+        except Exception as e:  # a torn or corrupt file surfaces as many types
+            failures.append((s, e))
+            warnings.warn(f"checkpoint step {s} is corrupt or incomplete "
+                          f"({type(e).__name__}: {str(e)[:200]}); {what} falls back to the "
+                          "next retained step", stacklevel=3)
+            continue
+        if failures:
+            warnings.warn(f"{what} from step {s} after skipping corrupt step(s) "
+                          f"{[f[0] for f in failures]}", stacklevel=3)
+        return out, s
+    if not failures:
+        raise FileNotFoundError(f"no checkpoint in {directory}")
+    raise CheckpointIntegrityError(
+        f"no intact checkpoint in {directory}; tried "
+        + ", ".join(f"{s} ({type(e).__name__})" for s, e in failures)
+    ) from failures[-1][1]
+
+
+def _load_step_params(directory: str, step: int, retry: RetryPolicy, verify: bool):
+    def load():
+        # memory-mapped: only the params' bytes are read, when verified or
+        # copied to the device
+        return torch.load(step_path(directory, step), map_location="cpu", weights_only=True,
+                          mmap=True)
+
+    state = call_with_retries(load, retry, describe=f"param load (step {step})")
+    params = state["params"]
+    if verify:
+        manifest = read_manifest(directory, step)
+        sub = None if manifest is None else manifest_subtree(manifest, "params")
+        if sub is None:
+            warnings.warn(f"checkpoint step {step} has no params integrity manifest; "
+                          "serving it unverified", stacklevel=3)
+        else:
+            verify_manifest(params, sub)
+    return params
+
+
+def load_params(ckpt_dir: str, step: Optional[int] = None, retry: Optional[RetryPolicy] = None,
+                verify: bool = True) -> Tuple[Dict[str, torch.Tensor], int]:
+    """The ``params`` subtree of a checkpoint step (CPU tensors, memory-
+    mapped) and its step number: a default-latest load falls back, with a
+    warning, to the newest intact step when the latest is torn or corrupt;
+    a pinned ``step`` never falls back. File reads are retried under
+    ``retry`` (default ``RetryPolicy()``: OSError only, jittered backoff);
+    the params are re-checksummed against the step's manifest unless
+    ``verify`` is False."""
+    directory = os.path.abspath(ckpt_dir)
+    policy = retry if retry is not None else RetryPolicy()
+    if step is not None:
+        return _load_step_params(directory, step, policy, verify), step
+    if not os.path.isdir(directory):
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    return _newest_intact(directory, all_steps(directory),
+                          lambda s: _load_step_params(directory, s, policy, verify),
+                          "serving params")
+
+
 class Checkpointer:
     def __init__(self, directory: str, max_to_keep: int = 3, save_every: int = 1000):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_every = save_every
-        self._manifest_dir = os.path.join(self.directory, MANIFEST_DIRNAME)
-        os.makedirs(self._manifest_dir, exist_ok=True)
+        os.makedirs(os.path.join(self.directory, MANIFEST_DIRNAME), exist_ok=True)
 
     def _path(self, step: int) -> str:
-        return os.path.join(self.directory, f"step-{step:08d}.pt")
+        return step_path(self.directory, step)
 
     def _manifest_path(self, step: int) -> str:
-        return os.path.join(self._manifest_dir, f"manifest-{step}.json")
+        return manifest_path(self.directory, step)
 
     def all_steps(self) -> List[int]:
-        return sorted(
-            int(m.group(1)) for m in map(_STEP_FILE.match, os.listdir(self.directory)) if m
-        )
+        return all_steps(self.directory)
 
     @property
     def latest_step(self) -> Optional[int]:
@@ -159,40 +270,17 @@ class Checkpointer:
         back: corruption there raises."""
         if step is not None:
             return self._restore_step(step, map_location)
-        steps = self.all_steps()[::-1]
-        if not steps:
-            raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        failures = []
-        for s in steps:
-            try:
-                state = self._restore_step(s, map_location)
-            except Exception as e:  # a torn or corrupt file surfaces as many types
-                failures.append((s, e))
-                warnings.warn(f"checkpoint step {s} is corrupt or incomplete "
-                              f"({type(e).__name__}: {str(e)[:200]}); falling back to the "
-                              "next retained step", stacklevel=2)
-                continue
-            if failures:
-                warnings.warn(f"restored step {s} after skipping corrupt step(s) "
-                              f"{[f[0] for f in failures]}", stacklevel=2)
-            return state
-        raise CheckpointIntegrityError(
-            f"no intact checkpoint in {self.directory}; tried "
-            + ", ".join(f"{s} ({type(e).__name__})" for s, e in failures)
-        ) from failures[-1][1]
+        state, _ = _newest_intact(self.directory, self.all_steps(),
+                                  lambda s: self._restore_step(s, map_location), "restore")
+        return state
 
     def _restore_step(self, step: int, map_location) -> Dict[str, Any]:
         state = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        mpath = self._manifest_path(step)
-        if not os.path.exists(mpath):
+        manifest = read_manifest(self.directory, step)
+        if manifest is None:
             warnings.warn(f"checkpoint step {step} has no integrity manifest; "
                           "restoring unverified", stacklevel=2)
         else:
-            try:
-                with open(mpath) as f:
-                    manifest = json.load(f)
-            except (OSError, ValueError) as e:
-                raise CheckpointIntegrityError(f"step {step}: manifest unreadable ({e})") from e
             verify_manifest(state, manifest)
         return _to_device(state, map_location) if map_location is not None else state
 
@@ -211,5 +299,5 @@ def _to_device(tree, device):
 
 __all__ = [
     "Checkpointer", "CheckpointIntegrityError", "build_manifest", "verify_manifest",
-    "atomic_write_json",
+    "atomic_write_json", "load_params", "manifest_subtree", "read_manifest",
 ]

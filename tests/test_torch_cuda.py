@@ -10,7 +10,10 @@ outputs to one bf16 rounding step (2^-7 relative) plus 1e-4 absolute for
 elements near zero (the backward's gradients: 1e-4 of their largest
 magnitude, where its numerator and denominator parts cancel), the limits of
 ``chip_smoke.py``; fp32 states, num and den to 1e-4 of their largest
-magnitude. A model's backward through the kernels against
+magnitude; the public op's kernels (rows 2, 5) alike, their fp32 dk, dv
+and dS0 to 1e-4 relative plus 1e-4 of their largest magnitude, and the op's
+forward + backward through ``CausalDotProductFn`` against autograd of the
+plain form within the same limits. A model's backward through the kernels against
 ``backend="torch"``: fp32 as the CPU parity tests (loss 1e-5 relative,
 gradients 1e-4 relative plus 1e-5 of their largest magnitude); bf16 within
 ``chip_smoke.py``'s lm_1b3 limits (loss 1e-2, gradients 5e-2 relative L2).
@@ -161,6 +164,80 @@ def test_backward_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
     for x, r in zip(got[3:], ref[3:]):
         assert x.dtype == torch.float32
         _max_close(x, r, 1e-4)
+
+
+@pytest.mark.parametrize(
+    "dtype,bh,t,dk,dv,state",
+    [
+        (torch.float32, 3, 70, 32, 24, False),
+        (torch.float32, 2, 129, 128, 100, True),
+        (torch.bfloat16, 5, 1, 16, 64, True),
+        (torch.bfloat16, 4, 333, 128, 128, True),
+        (torch.bfloat16, 2, 64, 100, 72, False),
+    ],
+)
+def test_raw_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
+    """Rows 2 and 5 (the public op's forward and reverse pass) against their
+    plain versions; ``state`` gives both an S0 and a dSf seed."""
+    g = torch.Generator(device=dev).manual_seed(t + 2)
+    phi = lambda x: (torch.nn.functional.elu(x) + 1).to(dtype)  # noqa: E731
+    q = phi(torch.randn(bh, t, dk, device=dev, generator=g))
+    k = phi(torch.randn(bh, t, dk, device=dev, generator=g))
+    v = torch.randn(bh, t, dv, device=dev, generator=g).to(dtype)
+    gout = torch.randn(bh, t, dv, device=dev, generator=g).to(dtype)
+    s0 = gsf = None
+    if state:
+        s0 = torch.randn(bh, dk, dv, device=dev, generator=g)
+        gsf = torch.randn(bh, dk, dv, device=dev, generator=g)
+    before = (causal_dot.launches_raw, causal_dot.launches_raw_rev)
+    out, sf = causal_dot.causal_dot_cuda(q, k, v, s0)
+    dk_, dv_, ds0 = causal_dot.causal_dot_rev_cuda(q, k, v, gout, gsf)
+    assert (causal_dot.launches_raw, causal_dot.launches_raw_rev) == tuple(n + 1 for n in before)
+    r_out, r_sf = causal_dot.causal_dot_plain(q, k, v, s0)
+    assert out.dtype == dtype and out.shape == r_out.shape
+    _max_close(out, r_out, 2**-7 if dtype == torch.bfloat16 else 1e-4)
+    _max_close(sf, r_sf, 1e-4)
+    for x, r in zip((dk_, dv_, ds0), causal_dot.causal_dot_rev_plain(q, k, v, gout, gsf)):
+        assert x.dtype == torch.float32 and x.shape == r.shape
+        _max_close(x, r, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state,return_state", [(True, True), (False, False)])
+def test_causal_dot_product_fn_matches_autograd_of_plain(dev, dtype, with_state, return_state):
+    """The public op's forward + backward through ``CausalDotProductFn``
+    against the plain chunked form differentiated by autograd: out and S as
+    above, the gradients within one step of their dtype plus 1e-4 of their
+    largest magnitude; the forward kernel twice, the reverse pass once."""
+    from orion_tpu_torch.ops import causal_dot_product
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    phi = lambda x: (torch.nn.functional.elu(x) + 1).to(dtype)  # noqa: E731
+    q0 = phi(torch.randn(2, 3, 200, 64, device=dev, generator=g))
+    k0 = phi(torch.randn(2, 3, 200, 64, device=dev, generator=g))
+    v0 = torch.randn(2, 3, 200, 96, device=dev, generator=g).to(dtype)
+    s00 = torch.randn(2, 3, 64, 96, device=dev, generator=g)
+    gout = torch.randn(2, 3, 200, 96, device=dev, generator=g).to(dtype)
+    gsf = torch.randn(2, 3, 64, 96, device=dev, generator=g)
+    res = {}
+    for backend in ("cuda", "torch"):
+        q, k, v, s0 = (x.clone().requires_grad_() for x in (q0, k0, v0, s00))
+        before = (causal_dot.launches_raw, causal_dot.launches_raw_rev)
+        r = causal_dot_product(q, k, v, backend=backend, return_state=return_state,
+                               initial_state=s0 if with_state else None)
+        out = r[0] if return_state else r
+        loss = (out.float() * gout.float()).sum()
+        if return_state:
+            loss = loss + (r[1] * gsf).sum()
+        loss.backward()
+        launched = (causal_dot.launches_raw - before[0], causal_dot.launches_raw_rev - before[1])
+        assert launched == ((2, 1) if backend == "cuda" else (0, 0))
+        res[backend] = [x.detach() for x in (out, *(r[1:] if return_state else []), q.grad,
+                                             k.grad, v.grad, *([s0.grad] if with_state else []))]
+    rtol = 2**-7 if dtype == torch.bfloat16 else 1e-4
+    for x, ref in zip(res["cuda"], res["torch"]):
+        assert x.dtype == ref.dtype and x.shape == ref.shape
+        _max_close(x, ref, rtol if x.dtype == dtype else 1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -65,6 +65,25 @@ def test_no_import_of_jax_or_the_jax_package(path):
             assert name.split(".")[0] not in _BANNED, f"{path}: imports {name}"
 
 
+def _imports(path):
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+    return names
+
+
+def test_only_the_export_script_imports_both_packages():
+    """The repo-root scripts that use the port import nothing of JAX, but
+    ``export_jax_checkpoint.py``, which turns a JAX package checkpoint into
+    one of the port's."""
+    both = sorted(p.name for p in ROOT.glob("*.py")
+                  if "orion_tpu_torch" in _imports(p) and _imports(p) & set(_BANNED))
+    assert both == ["export_jax_checkpoint.py"]
+
+
 def test_cuda_requested_without_cuda_raises(monkeypatch):
     from orion_tpu_torch.models.transformer import TransformerLM, init_decode_state
     from orion_tpu_torch.utils.device import resolve_device
