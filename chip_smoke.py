@@ -31,7 +31,11 @@ nonzero and no result line is printed):
      dw at moe_1b3_4e's training shape (8192 routed rows, d 2048, h 5504, 4
      experts) for the gate/up and the down products, the prefill shape (4096
      rows), top-2 routing, an expert without rows, N and K past the tiles
-     (d 100, h 200), and fp32 at the tiny widths;
+     (d 100, h 200), fp32 at the tiny widths, and d 200, h 328 with an expert
+     without rows (the wgmma route's zero-filled tails); each case logs the
+     variant each product took (wgmma for bf16 at widths a multiple of 8,
+     simt for the rest); the wgmma kernels are timed at the training shape,
+     the simt kernels at the tiny widths in fp32 (their path);
    - the int4 dequant-matmul (row 14): lm_1b3's decode shapes (x [4, 2048]
      against p [1024, 2048] and [1024, 5504], x [4, 5504] against p [2752,
      2048]), B 1, B 64, an out of 200 (no whole strip), a ragged d 100, and
@@ -45,7 +49,8 @@ nonzero and no result line is printed):
    ``torch._grouped_mm``; none for rows 1-5 and 11-14), each by CUDA events over
    calls back to back (``cuda_ms``), and for rows 11-14 also the kernel's
    device time alone (``graph_ms``); print each kernel's bound beside its
-   time;
+   time; for rows 9-10 also the forward wrapper's host time a call
+   (``host_us``: the wgmma variant encodes its tensor maps at each call);
 4. the public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
    backward through ``CausalDotProductFn`` at [B 8, H 16, T 1024, D 128]
    bf16 with an initial state and the returned state: exact launches (row 2
@@ -66,13 +71,14 @@ nonzero and no result line is printed):
    ``Trainer`` at full width, synthetic data, AdamW, remat
    as the config sets it, 1 warm-up and 3 timed steps, with the counts reset
    just before and read after every step (exact counts per step, from the
-   layer kinds and the rematerialized blocks); then one batch's loss and
+   layer kinds and the rematerialized blocks; the MoE's gmm launches all of
+   the wgmma variant, none of the simt); then one batch's loss and
    every parameter's gradient through the kernels against
    ``backend="torch"`` on the same weights (every parameter must get a
    gradient); then 3 ``tiny`` fp32 steps on the card against the CPU (for
    the MoE a tiny MoE in its capacity and its dropless form, the latter at
-   1024 routed rows, so the card takes the gmm kernels in fp32 and the CPU
-   the ragged form);
+   1024 routed rows, so the card takes the simt gmm kernels in fp32, their
+   launches counted from 0, and the CPU the ragged form);
 7. quantized serving: ``generate(..., quant=...)`` of ``lm_1b3`` at int4 and
    int8 and of the dropless ``moe_1b3_4e`` at int4 (4 prompts of 1024, 32
    greedy tokens; weights quantized once from seeded fp32 ones), exact launch
@@ -97,7 +103,8 @@ nonzero and no result line is printed):
    model, in bf16 and at int4, against the same from the in-memory trained
    model: tokens and prefill logits bitwise, exact launches (row 14 at
    int4); save and load seconds;
-10. a ``kernels`` JSON line (14 kernels), then the result line
+10. a ``kernels`` JSON line (16 entries: the 14 rows, rows 9 and 10 once
+   for each variant), then the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -243,8 +250,9 @@ RAW_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
 RAW_ATOL_OF_MAX = 1e-4
 
 KERNELS = ("causal_dot_norm", "causal_dot", "causal_dot_dq_den", "causal_dot_rev_den",
-           "causal_dot_rev", "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd", "gmm_dw", "q4_matmul",
-           "adafactor_sums", "adafactor_rms", "adafactor_apply")
+           "causal_dot_rev", "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd_wgmma", "gmm_dw_wgmma",
+           "gmm_fwd_simt", "gmm_dw_simt", "q4_matmul", "adafactor_sums", "adafactor_rms",
+           "adafactor_apply")
 
 
 def log(*a):
@@ -336,7 +344,7 @@ def build(modules):
         for src, path, out, sec in pool.map(one, sources):
             log(f"built {path.name} from {src.relative_to(ROOT)} in {sec:.1f} s")
             for line in out.splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
+                if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                     log("  ptxas:", line.strip())
 
 
@@ -946,6 +954,9 @@ GMM_CASES = [
     ("an expert without rows", (1700, 0, 900, 1496), 512, 1024, torch.bfloat16),
     ("N, K past the tiles", (300, 37, 0, 250), 100, 200, torch.bfloat16),
     ("tiny widths", (300, 0, 500, 224), 128, 384, torch.float32),
+    # the wgmma route's tails: K and N multiples of 8 but not of its 64 / 256
+    # tiles (TMA's zero fill inside an expert), an expert without rows
+    ("wgmma tails", (130, 0, 77, 300), 200, 328, torch.bfloat16),
 ]
 
 
@@ -987,10 +998,11 @@ def compare_gmm(gm, dev):
     """Rows 9 and 10 against their plain versions on the card, on every case
     of GMM_CASES: the gate/up product (x [M, d] @ w [E, d, h]), its dx
     against w^T and its dw; at d 2048 also the down product (mid [M, h] @ w
-    [E, h, d]), its dx and dw. Returns one reading per case and product, and
-    the training case's inputs."""
+    [E, h, d]), its dx and dw. Returns one reading per case and product (with
+    the variant each of y, dx and dw took), and the inputs of the training
+    and the tiny-widths cases by (label, product)."""
     g = torch.Generator(device=dev).manual_seed(9)
-    readings, inputs = [], None
+    readings, inputs = [], {}
     for label, counts, d, h, dtype in GMM_CASES:
         x, real, te, seg = gmm_problem(g, dev, counts, d, dtype)
         e = len(counts)
@@ -1011,13 +1023,15 @@ def compare_gmm(gm, dev):
             readings.append({
                 "case": f"{label} {kind}: rows {counts} (M {a.shape[0]}), K {k_in}, N {n_out}, "
                         f"{str(dtype)[6:]}",
+                "variants": {"y": gm.gmm_variant(a, w), "dx": gm.gmm_variant(gy, w, True),
+                             "dw": gm.gmm_dw_variant(a, gy)},
                 "y": _grad_reading(y, gm.gmm_torch(a, w, te), rtol, GMM_ATOL_OF_MAX),
                 "dx": _grad_reading(dx, gm.gmm_torch(gy, w, te, transpose_w=True), rtol,
                                     GMM_ATOL_OF_MAX),
                 "dw": _dw_reading(dw, gm.gmm_dw_torch(a, gy, te, e), te),
             })
-            if label == "training" and kind == "gate/up":
-                inputs = (a, w, gy, te, seg, sum(counts))
+            if label in ("training", "tiny widths"):
+                inputs[(label, kind)] = (a, w, gy, te, seg, sum(counts))
             del y, dx, dw
         torch.cuda.empty_cache()
     return readings, inputs
@@ -1043,62 +1057,119 @@ def _library_ms(candidates):
     return None, "; ".join(errors)
 
 
+def host_us(fn, iters=20):
+    """Host time of one call of ``fn`` (its enqueue; the card works behind),
+    mean over ``iters`` calls after a warm-up, in microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _gmm_times(gm, inputs):
+    """One product's timings: y, dx and dw ms of the kernels the wrappers
+    choose for these inputs (and which they are), the forward wrapper's host
+    microseconds, the plain versions, ``torch._grouped_mm`` (dw with an fp32
+    output where the card's torch takes one, else bf16; none for fp32
+    operands, which it refuses) and the bounds."""
+    x, w, gy, te, seg, m = inputs
+    e, k, n = w.shape
+    offs = torch.cumsum(seg, 0).int()  # each segment's end, tile-aligned
+    t = {"shape": f"x [{x.shape[0]}, {k}] ({m} routed rows) @ w [{e}, {k}, {n}] "
+                  f"{str(x.dtype)[6:]}",
+         "variants": {"y": gm.gmm_variant(x, w), "dx": gm.gmm_variant(gy, w, True),
+                      "dw": gm.gmm_dw_variant(x, gy)}}
+    with torch.no_grad():
+        t["y_ms"] = cuda_ms(lambda: gm.gmm_cuda(x, w, te), 10)
+        t["dx_ms"] = cuda_ms(lambda: gm.gmm_cuda(gy, w, te, transpose_w=True), 10)
+        t["dw_ms"] = cuda_ms(lambda: gm.gmm_dw_cuda(x, gy, te, e), 10)
+        t["host_us"] = host_us(lambda: gm.gmm_cuda(x, w, te))
+        t["plain_y_ms"] = cuda_ms(lambda: gm.gmm_torch(x, w, te), 2)
+        t["plain_dw_ms"] = cuda_ms(lambda: gm.gmm_dw_torch(x, gy, te, e), 2)
+        t["library_y_ms"], t["library_y"] = _library_ms([
+            ("torch._grouped_mm", lambda: torch._grouped_mm(x, w, offs=offs))])
+        xt = x.t()
+        t["library_dw_ms"], t["library_dw"] = _library_ms([
+            ("torch._grouped_mm (fp32 out)",
+             lambda: torch._grouped_mm(xt, gy, offs=offs, out_dtype=torch.float32)),
+            ("torch._grouped_mm (bf16 out)", lambda: torch._grouped_mm(xt, gy, offs=offs))])
+    # y: x's real rows and w read, y's real rows written; dw: x's and g's real
+    # rows read, dw [E, k, n] fp32 written; each 2 m k n operations, on the
+    # tensor cores in bf16, on the CUDA cores in fp32
+    es, flops = x.element_size(), 2 * m * k * n
+    peak = BF16_FLOPS if x.dtype == torch.bfloat16 else FP32_FLOPS
+    t["bound_y_ms"], t["bound_y_by"] = _bound((m * k + e * k * n + m * n) * es, flops, peak)
+    t["bound_dw_ms"], t["bound_dw_by"] = _bound((m * k + m * n) * es + e * k * n * 4, flops,
+                                                peak)
+    return t
+
+
 def check_gmm(gm, dev):
-    """Rows 9, 10: agreement on every case, then timings at the training
-    shape (gate/up: x [8704, 2048] @ w [4, 2048, 5504]; its dx against w^T
-    and the down product timed beside it), each beside its bound, its plain
-    version and ``torch._grouped_mm`` (its dw with an fp32 output where the
-    card's torch takes one, else bf16)."""
-    readings, (x, w, gy, te, seg, m) = compare_gmm(gm, dev)
+    """Rows 9, 10: agreement on every case, each case's variants logged (the
+    wgmma kernels where ``gmm_variant`` / ``gmm_dw_variant`` choose them, the
+    simt kernels elsewhere), then ``_gmm_times`` where each variant's path
+    takes it: the wgmma kernels at the training shape, the gate/up product
+    (x [8704, 2048] @ w [4, 2048, 5504], its dx against w^T, its dw) with the
+    down product beside it; the simt kernels at the tiny MoE's fp32 widths.
+    The kernels line has one entry for each of the four kernels."""
+    readings, inputs = compare_gmm(gm, dev)
     for r in readings:
         log(f"gmm {r['case']}: "
-            + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
-                        "limit)" for n in ("y", "dx", "dw"))
+            + "; ".join(f"{n} ({r['variants'][n]}) max abs {r[n]['max_abs']:.3e} "
+                        f"({r[n]['over_limit']:.3f} of its limit)" for n in ("y", "dx", "dw"))
             + f"; absent expert's dw exactly 0: {r['dw']['absent_zero']}")
     bad = [r for r in readings if not agrees_gmm(r)]
     if bad:
         raise AssertionError(f"a gmm kernel disagrees with its plain version: {bad}")
-    e, d, h = w.shape
-    offs = torch.cumsum(seg, 0).int()  # each segment's end, tile-aligned
-    with torch.no_grad():
-        fwd = dict(
-            ms=cuda_ms(lambda: gm.gmm_cuda(x, w, te), 10),
-            plain_ms=cuda_ms(lambda: gm.gmm_torch(x, w, te), 2),
-            # x's real rows and w read, y's real rows written; 2 m d h operations
-            moved=m * d * 2 + e * d * h * 2 + m * h * 2, flops=2 * m * d * h)
-        fwd["dx_ms"] = cuda_ms(lambda: gm.gmm_cuda(gy, w, te, transpose_w=True), 10)
-        fwd["library_ms"], fwd["library"] = _library_ms([
-            ("torch._grouped_mm", lambda: torch._grouped_mm(x, w, offs=offs))])
-        dw = dict(
-            ms=cuda_ms(lambda: gm.gmm_dw_cuda(x, gy, te, e), 10),
-            plain_ms=cuda_ms(lambda: gm.gmm_dw_torch(x, gy, te, e), 2),
-            # x's and g's real rows read, dw [E, d, h] fp32 written
-            moved=m * d * 2 + m * h * 2 + e * d * h * 4, flops=2 * m * d * h)
-        xt = x.t()
-        dw["library_ms"], dw["library"] = _library_ms([
-            ("torch._grouped_mm (fp32 out)",
-             lambda: torch._grouped_mm(xt, gy, offs=offs, out_dtype=torch.float32)),
-            ("torch._grouped_mm (bf16 out)", lambda: torch._grouped_mm(xt, gy, offs=offs))])
-    for part, t in (("fwd", fwd), ("dw", dw)):
-        t["bound_ms"], t["bound_by"] = _bound(t["moved"], t["flops"])
-        lib = (f"{t['library']} {t['library_ms']:.4f} ms" if t["library_ms"] is not None
-               else f"library_ms none ({t['library']})")
-        log(f"gmm {part} timing, training shape M {x.shape[0]} ({m} routed rows) d {d} h {h} "
-            f"E {e} bf16: kernel {t['ms']:.4f} ms"
-            + (f" (dx against w^T {t['dx_ms']:.4f} ms)" if part == "fwd" else "")
-            + f", plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
-            f"({t['moved'] / 1e6:.1f} MB, {t['flops'] / 1e9:.2f} GFLOP of the routed rows); "
-            f"{lib}")
-    errs = {n: max(r[n]["max_abs"] for r in readings) for n in ("y", "dx", "dw")}
+    # the largest error of each kernel over the cases it ran
+    errs = {(v, part): 0.0 for v in ("wgmma", "simt") for part in ("fwd", "dw")}
+    for r in readings:
+        for n, part in (("y", "fwd"), ("dx", "fwd"), ("dw", "dw")):
+            key = (r["variants"][n], part)
+            errs[key] = max(errs[key], r[n]["max_abs"])
+    ran = {v: sum(r["variants"][n] == v for r in readings for n in ("y", "dx", "dw"))
+           for v in ("wgmma", "simt")}
+    log(f"gmm variants run over the {len(readings)} cases (y, dx, dw each): {ran}")
+    if not all(ran.values()):
+        raise AssertionError(f"a gmm variant ran on no case: {ran}")
+    times = {key: _gmm_times(gm, inputs[key]) for key in (
+        ("training", "gate/up"), ("training", "down"), ("tiny widths", "gate/up"))}
+    for (label, kind), t in times.items():
+        want = "simt" if label == "tiny widths" else "wgmma"
+        if set(t["variants"].values()) != {want}:
+            raise AssertionError(f"gmm {label} {kind} took {t['variants']}, want {want}")
+        lib = {p: (f"{t['library_' + p]} {t['library_' + p + '_ms']:.4f} ms"
+                   if t["library_" + p + "_ms"] is not None else f"none ({t['library_' + p]})")
+               for p in ("y", "dw")}
+        log(f"gmm {label} {kind} timing, {t['shape']}, {want}: y {t['y_ms']:.4f} ms, dx against "
+            f"w^T {t['dx_ms']:.4f} ms, dw {t['dw_ms']:.4f} ms; bound {t['bound_y_ms']:.4f} (y, "
+            f"by {t['bound_y_by']}) / {t['bound_dw_ms']:.4f} ms (dw, by {t['bound_dw_by']}); "
+            f"plain y {t['plain_y_ms']:.4f}, dw {t['plain_dw_ms']:.4f} ms; library y "
+            f"{lib['y']}, dw {lib['dw']}; host {t['host_us']:.1f} us a forward call")
     lines = []
-    for name, replaces, t, err in (
-            ("gmm_fwd", "orion_tpu/ops/pallas/gmm.py:104", fwd, max(errs["y"], errs["dx"])),
-            ("gmm_dw", "orion_tpu/ops/pallas/gmm.py:157", dw, errs["dw"])):
-        lines.append({"name": name, "route": "cuda", "source": "orion_tpu_torch/csrc/gmm.cu",
-                      "replaces": replaces, "max_abs_err": err,
-                      **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms", "library")}})
-    lines[0]["dx_ms"] = fwd["dx_ms"]
+    for v, main, beside in (("wgmma", times[("training", "gate/up")], times[("training", "down")]),
+                            ("simt", times[("tiny widths", "gate/up")], None)):
+        for part, replaces in (("fwd", "orion_tpu/ops/pallas/gmm.py:104"),
+                               ("dw", "orion_tpu/ops/pallas/gmm.py:157")):
+            p = "y" if part == "fwd" else "dw"
+            line = {"name": f"gmm_{part}_{v}", "route": "cuda",
+                    "source": "orion_tpu_torch/csrc/gmm.cu", "replaces": replaces,
+                    "max_abs_err": errs[(v, part)], "ms": main[p + "_ms"],
+                    "plain_ms": main[f"plain_{p}_ms"], "bound_ms": main[f"bound_{p}_ms"],
+                    "bound_by": main[f"bound_{p}_by"], "library_ms": main[f"library_{p}_ms"],
+                    "library": main[f"library_{p}"], "shape": main["shape"]}
+            if part == "fwd":
+                line.update(dx_ms=main["dx_ms"], host_us=main["host_us"])
+            if beside is not None:
+                line["down"] = {key: beside[key] for key in (
+                    f"{p}_ms", f"plain_{p}_ms", f"bound_{p}_ms", f"library_{p}_ms", "shape")}
+                if part == "fwd":
+                    line["down"].update(dx_ms=beside["dx_ms"], host_us=beside["host_us"])
+            lines.append(line)
     return lines
 
 
@@ -1361,7 +1432,9 @@ def _counts(mods):
             "causal_dot_dq_den": cd.launches_dq, "causal_dot_rev_den": cd.launches_rev,
             "causal_dot_rev": cd.launches_raw_rev, "flash_fwd": fa.launches_fwd,
             "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv,
-            "gmm_fwd": gm.launches_fwd, "gmm_dw": gm.launches_dw, "q4_matmul": q4.launches,
+            "gmm_fwd_wgmma": gm.launches_fwd_wgmma, "gmm_dw_wgmma": gm.launches_dw_wgmma,
+            "gmm_fwd_simt": gm.launches_fwd_simt, "gmm_dw_simt": gm.launches_dw_simt,
+            "q4_matmul": q4.launches,
             "adafactor_sums": af.launches_sums, "adafactor_rms": af.launches_rms,
             "adafactor_apply": af.launches_apply}
 
@@ -1371,6 +1444,7 @@ def _reset_counts(mods):
     cd.launches = cd.launches_dq = cd.launches_rev = cd.launches_raw = cd.launches_raw_rev = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
     gm.launches_fwd = gm.launches_dw = 0
+    gm.launches_fwd_wgmma = gm.launches_fwd_simt = gm.launches_dw_wgmma = gm.launches_dw_simt = 0
     q4.launches = 0
     af.launches_sums = af.launches_rms = af.launches_apply = 0
 
@@ -1506,7 +1580,7 @@ def generate_phase(dev, mods, name, prompt_len, new_tokens, overrides=None):
     lin, attn, _, _ = _layer_counts(cfg)
     want = dict.fromkeys(KERNELS, 0)
     # decode's few rows take the dense per-expert form: gmm in the prefill only
-    want.update(causal_dot_norm=lin, flash_fwd=attn, gmm_fwd=_gmm_counts(cfg)[0])
+    want.update(causal_dot_norm=lin, flash_fwd=attn, gmm_fwd_wgmma=_gmm_counts(cfg)[0])
     log(f"{name} generate launches: {counts}")
     if counts != want:
         raise AssertionError(f"{name} generate launched {counts}, want {want} (each layer's "
@@ -1686,8 +1760,9 @@ def train_phase(dev, mods, name, seq_len, overrides=None, optimizer="adamw", the
     want.update({"causal_dot_norm": lin + lin_remat, "causal_dot_dq_den": lin,
                  "causal_dot_rev_den": lin, "flash_fwd": attn + attn_remat, "flash_dq": attn,
                  "flash_dkv": attn,
-                 # forward, recomputation, and dx by the forward kernel against w^T
-                 "gmm_fwd": 2 * products + products_remat, "gmm_dw": products})
+                 # forward, recomputation, and dx by the forward kernel against w^T;
+                 # bf16 at the model's widths: the wgmma kernels, none of the simt
+                 "gmm_fwd_wgmma": 2 * products + products_remat, "gmm_dw_wgmma": products})
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=dev)
@@ -2050,12 +2125,17 @@ def main() -> int:
     for form, over in (("capacity", {}), ("dropless", dropless)):
         label = f"tiny MoE (4 experts in block 1, {form})"
         tiny_generate(dev, dataclasses.replace(tiny_moe, **over), label)
-        before = gmm.launches_fwd
+        _reset_counts(mods)
         # batch 8 x 128: 1024 routed rows, the card's tile-aligned form in fp32
         tiny_train(dev, dataclasses.replace(tiny_moe, **over), label, batch_size=8)
-        if form == "dropless" and gmm.launches_fwd == before:
-            raise AssertionError("the tiny dropless MoE trained on the card without the gmm "
-                                 "kernels")
+        tiny_counts = _counts(mods)
+        if form == "dropless":  # the simt kernels' path: fp32
+            simt = {k: tiny_counts[k] for k in KERNELS if k.startswith("gmm")}
+            log(f"{label} fp32 train launches: {simt}")
+            if not (simt["gmm_fwd_simt"] and simt["gmm_dw_simt"]) or simt["gmm_fwd_wgmma"] or \
+                    simt["gmm_dw_wgmma"]:
+                raise AssertionError(f"the tiny dropless MoE trained on the card in fp32 without "
+                                     f"the simt gmm kernels, or with the wgmma ones: {simt}")
     log(f"moe_1b3_4e phases done at {time.perf_counter() - t0:.1f} s")
 
     lm_int4 = quant_generate_phase(dev, mods, "lm_1b3", 1024, 32, "int4")
@@ -2086,6 +2166,11 @@ def main() -> int:
         if k["name"].startswith("adafactor"):  # the main path: lm_1b3 adafactor_fused training
             k["launches"] = af_train["launches"][k["name"]]
             k["launches_per_step"] = af_train["per_step"][0][k["name"]]
+            continue
+        if k["name"].endswith("_simt"):  # the main path: the tiny dropless MoE's fp32 training
+            k["launches"] = simt[k["name"]]
+            k["launches_moe_1b3_4e"] = {"train": moe_train["launches"][k["name"]],
+                                        "generate": moe_gen["launches"][k["name"]]}
             continue
         main_train, main_gen = (moe_train, moe_gen) if k["name"].startswith("gmm") else (
             hy_train, hy_gen)

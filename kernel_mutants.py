@@ -9,7 +9,9 @@ linear forward and the public op's raw forward), ``causal_dot_bwd.cu``
 ("bwd", the backward kernels of both),
 ``flash_attention.cu`` ("flash_fwd"), ``flash_attention_bwd.cu``
 ("flash_bwd", dq and dk/dv), ``gmm.cu`` ("gmm", the grouped matmul's
-forward and dw), ``q4_matmul.cu`` ("q4", the int4 dequant-matmul) or
+forward and dw: the wgmma kernels' copies named ``gmm_wgmma_*``, faults of
+their data and of their TMA / mbarrier / wgmma pipeline, the simt kernels'
+the other ``gmm_*``), ``q4_matmul.cu`` ("q4", the int4 dequant-matmul) or
 ``adafactor.cu`` ("adafactor", the fused Adafactor's three passes), written
 under
 ``orion_tpu_torch/_build/mutants/`` (the sources in the checkout are never
@@ -44,6 +46,10 @@ SOURCES = {"fwd": (causal_dot, "fwd"), "bwd": (causal_dot, "bwd"),
            "flash_fwd": (flash_attention, "fwd"), "flash_bwd": (flash_attention, "bwd"),
            "gmm": (gmm, "gmm"), "q4": (q4_matmul, "q4"), "adafactor": (adafactor, "adafactor")}
 _DW_ROWS = "const int n_rows = tile_count[e] * tile_rows;"
+_DW_STEPS = "const int n_k = tile_count[e] * (tile_rows / WK);"
+_WAIT_STEP = "    wgmma_wait<1>();  // the step before is done: release its stage"
+_FWD_CONSUME = "consume<0, 1, KMAJOR_LBO, KMAJOR_STEP, MNMAJOR_LBO, MNMAJOR_STEP>(r, n_k, acc);"
+_DW_CONSUME = "consume<1, 1, MNMAJOR_LBO, MNMAJOR_STEP, MNMAJOR_LBO, MNMAJOR_STEP>(r, n_k, acc);"
 _AF_FINAL = ("    sums[n + i] = t;\n  } else if (i < m + n) {\n    const int j = i - m;\n"
              "    float t = 0.f;\n    for (int rc = 0; rc < n_rc; ++rc) t += colpart[(size_t)rc * n + j];\n"
              "    sums[j] = t;")
@@ -148,6 +154,42 @@ MUTANTS = [
      "wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);\n          for (int t = 0; t < "
      "c[i][j].num_elements; ++t) c[i][j].x[t] = "
      "__bfloat162float(__float2bfloat16_rn(c[i][j].x[t]));", True),
+    # the wgmma route (bf16 at widths a multiple of 8: every model width)
+    ("gmm_wgmma_expert_off_by_one", "gmm",
+     "reads each row tile's expert from the next tile's entry (wgmma)",
+     "const int e = min(max(tile_expert[tile], 0), n_experts - 1);",
+     "const int e = min(max(tile_expert[min(tile + 1, (int)gridDim.x * WM / tile_rows - 1)], 0), "
+     "n_experts - 1);", True),
+    ("gmm_wgmma_transpose_w_ignored", "gmm",
+     "encodes and reads w[e] as [K, N] where dx asks for w[e]^T (wgmma)",
+     "transpose_w ? launch_fwd_wgmma<true>", "false ? launch_fwd_wgmma<true>", True),
+    ("gmm_wgmma_k_tail_dropped", "gmm", "drops the last K-step when K is not a multiple of 64 "
+     "(wgmma)", "const int n_k = (k + WK - 1) / WK;", "const int n_k = k / WK;", True),
+    ("gmm_wgmma_dw_last_tile_missed", "gmm", "walks one row tile fewer of each expert in dw "
+     "(wgmma)", _DW_STEPS, "const int n_k = (tile_count[e] - 1) * (tile_rows / WK);", True),
+    ("gmm_wgmma_dw_absent_unwritten", "gmm", "returns early for an expert without tiles, "
+     "leaving its dw unwritten (wgmma)", _DW_STEPS, _DW_STEPS + "\n  if (n_k == 0) return;", True),
+    ("gmm_wgmma_bf16_accumulator", "gmm", "rounds the fp32 accumulators to bf16 after every "
+     "64-deep step (wgmma)", _WAIT_STEP,
+     "    wgmma_wait<0>();\n    for (int i = 0; i < 128; ++i) acc[i] = "
+     "__bfloat162float(__float2bfloat16_rn(acc[i]));", True),
+    ("gmm_wgmma_ring_off_by_one", "gmm", "reads the ring's stage before the one whose barrier "
+     "it waited on", "const uint32_t a = r.a(s) + wg * CHUNK_BYTES, b = r.b(s);",
+     "const int s2 = (s + STAGES - 1) % STAGES;\n"
+     "    const uint32_t a = r.a(s2) + wg * CHUNK_BYTES, b = r.b(s2);", True),
+    ("gmm_wgmma_swizzle_mismatch", "gmm", "lands the operands unswizzled while the wgmma "
+     "descriptors read them 128-byte swizzled", "CU_TENSOR_MAP_SWIZZLE_128B",
+     "CU_TENSOR_MAP_SWIZZLE_NONE", True),
+    # an operand's transpose bit cleared, with the K-major offsets beside it (the
+    # MN-major ones would read past the last stage: a fault, not a reading)
+    ("gmm_wgmma_b_transpose_cleared", "gmm", "reads the forward's N-major B as K-major (the "
+     "transpose bit on B cleared)", _FWD_CONSUME,
+     _FWD_CONSUME.replace("<0, 1, KMAJOR_LBO, KMAJOR_STEP, MNMAJOR_LBO, MNMAJOR_STEP>",
+                          "<0, 0, KMAJOR_LBO, KMAJOR_STEP, KMAJOR_LBO, KMAJOR_STEP>"), True),
+    ("gmm_wgmma_dw_a_transpose_cleared", "gmm", "reads dw's M-major A = x^T as K-major (the "
+     "transpose bit on A cleared)", _DW_CONSUME,
+     _DW_CONSUME.replace("<1, 1, MNMAJOR_LBO, MNMAJOR_STEP,", "<0, 1, KMAJOR_LBO, KMAJOR_STEP,"),
+     True),
     ("q4_lo_hi_swapped", "q4", "takes the low nibble for the odd input row and the high one for "
      "the even", _Q4_UNPACK,
      _Q4_UNPACK.replace("(28 - 8 * c)", "(XX)").replace("(24 - 8 * c)", "(28 - 8 * c)")

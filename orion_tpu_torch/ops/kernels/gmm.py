@@ -12,14 +12,24 @@ tiles past the last segment name the last expert, and their rows are zero
 padding the caller never gathers back). Two kernels, each replacing a TPU
 kernel:
 
-- ``gmm_cuda`` (``csrc/gmm.cu``, ``gmm_fwd_kernel``) <- ``_fwd_kernel``
-  (``_gmm_call``): ``y[r] = x[r] @ w[te[r // tile_rows]]`` for w [E, K, N],
-  accumulated in fp32 and rounded once to x's dtype; with ``transpose_w``,
-  w [E, N, K] is read as ``w[e]^T`` in place (the backward's dx, where the
-  TPU path builds ``swapaxes(w, 1, 2)``);
-- ``gmm_dw_cuda`` (same source, ``gmm_dw_kernel``) <- ``_dw_kernel``
-  (``_dw_call``): ``dw[e] = sum over e's tiles of x_tile^T g_tile``, fp32
-  [E, D, H], zero for an expert without tiles.
+- ``gmm_cuda`` (``csrc/gmm.cu``, ``gmm_fwd_wgmma_kernel`` or
+  ``gmm_fwd_kernel``) <- ``_fwd_kernel`` (``_gmm_call``):
+  ``y[r] = x[r] @ w[te[r // tile_rows]]`` for w [E, K, N], accumulated in
+  fp32 and rounded once to x's dtype; with ``transpose_w``, w [E, N, K] is
+  read as ``w[e]^T`` in place (the backward's dx, where the TPU path builds
+  ``swapaxes(w, 1, 2)``);
+- ``gmm_dw_cuda`` (same source, ``gmm_dw_wgmma_kernel`` or
+  ``gmm_dw_kernel``) <- ``_dw_kernel`` (``_dw_call``):
+  ``dw[e] = sum over e's tiles of x_tile^T g_tile``, fp32 [E, D, H], zero
+  for an expert without tiles.
+
+Each has two variants, chosen before the launch by ``gmm_variant`` /
+``gmm_dw_variant`` from dtype, widths and alignment alone: "wgmma" (TMA into
+a ring of shared-memory stages, Hopper's ``wgmma`` from there) for bf16
+operands whose widths are multiples of 8 and whose bases are 16-byte
+aligned, which is what a TMA tensor map can describe and every model width
+satisfies; "simt" (synchronous loads, wmma bf16 or fp32 FMAs) for the rest:
+fp32 (the tiny models) and bf16 at other widths.
 
 ``GmmFn`` is the counterpart of the JAX package's ``gmm`` custom VJP: the
 forward kernel on w cast to x's dtype, then in the backward the forward
@@ -29,8 +39,9 @@ kernels for CUDA tensors. The tile table stays on the device and the kernels
 read it there, so no count reaches the host.
 
 Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
-launches (``launches_fwd``, ``launches_dw``: kernel launches and nothing
-else). ``gmm_torch`` and ``gmm_dw_torch`` are the kernels' functions in plain
+launches (``launches_fwd``, ``launches_dw``: kernel launches of either
+variant and nothing else; ``launches_{fwd,dw}_{wgmma,simt}`` by variant).
+``gmm_torch`` and ``gmm_dw_torch`` are the kernels' functions in plain
 PyTorch on any device: one fp32 product per row tile.
 """
 
@@ -52,6 +63,8 @@ TILE_MULTIPLE = 128  # the kernels' output tile: tile_rows must be a multiple of
 
 launches_fwd = 0  # forward kernel launches since import (or since a caller reset it)
 launches_dw = 0  # dw kernel launches
+launches_fwd_wgmma = launches_fwd_simt = 0  # the same by variant
+launches_dw_wgmma = launches_dw_simt = 0
 _libs: dict = {}
 _GRAD_PATH = "ops.kernels.gmm.gmm / GmmFn"
 
@@ -60,6 +73,8 @@ _SIGNATURES = {
     "gmm": {
         "gmm_fwd": [_P] * 4 + [_I] * 7 + [_P],
         "gmm_dw": [_P] * 5 + [_I] * 5 + [_P],
+        "gmm_fwd_wgmma": [_P] * 4 + [_I] * 6 + [_P],
+        "gmm_dw_wgmma": [_P] * 5 + [_I] * 5 + [_P],
     },
 }
 
@@ -132,6 +147,29 @@ def _check_table(tile_expert: Tensor, x: Tensor, tile_rows: int) -> None:
         raise ValueError(f"tile_rows {tile_rows} is not a multiple of {TILE_MULTIPLE}")
 
 
+def _tma_takes(tensors, widths) -> bool:
+    """Whether a TMA tensor map describes these operands: bf16, every width
+    (a row's elements) a multiple of 8 so each row stride is a multiple of
+    16 bytes, every base 16-byte aligned."""
+    return (all(t.dtype == torch.bfloat16 for t in tensors) and all(n % 8 == 0 for n in widths)
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def gmm_variant(x: Tensor, w: Tensor, transpose_w: bool = False) -> str:
+    """The forward kernel that takes x [M, K] @ w[e] (w [E, K, N]; with
+    ``transpose_w`` w [E, N, K], read as w[e]^T): "wgmma" when x and w are
+    bf16, K and N multiples of 8 and both bases 16-byte aligned, else
+    "simt". From dtype, shape and alignment alone, before any launch."""
+    return "wgmma" if _tma_takes([x, w], (w.shape[1], w.shape[2])) else "simt"
+
+
+def gmm_dw_variant(x: Tensor, g: Tensor) -> str:
+    """The dw kernel that takes x [M, D], g [M, H]: "wgmma" when both are
+    bf16, D and H multiples of 8 and both bases 16-byte aligned, else
+    "simt"."""
+    return "wgmma" if _tma_takes([x, g], (x.shape[1], g.shape[1])) else "simt"
+
+
 # ---------------------------------------------------------------------------
 # Row 9: the forward (and dx)
 # ---------------------------------------------------------------------------
@@ -141,25 +179,32 @@ def gmm_cuda(x: Tensor, w: Tensor, tile_expert: Tensor, transpose_w: bool = Fals
     """Launch the forward kernel on the current stream -> y [M, N] in x's
     dtype. x [M, K] and w [E, K, N] (``transpose_w``: [E, N, K], read as
     w[e]^T) share bf16 or fp32; tile_expert int32 [M / tile_rows] with
-    tile_rows a multiple of 128. Raises on anything it does not take: an input
-    that requires grad while grad is enabled, CPU tensors, mixed devices or
-    dtypes, non-contiguous inputs, other tilings."""
-    global launches_fwd
+    tile_rows a multiple of 128. The kernel is ``gmm_variant``'s choice.
+    Raises on anything it does not take: an input that requires grad while
+    grad is enabled, CPU tensors, mixed devices or dtypes, non-contiguous
+    inputs, other tilings."""
+    global launches_fwd, launches_fwd_wgmma, launches_fwd_simt
     raise_if_grad([x, w], _GRAD_PATH)
     nt, tm = _tiling(x, tile_expert)
     e, n = _weight_shape(x, w, transpose_w)
     check_launch("gmm_cuda", [x, w], [])
     _check_table(tile_expert, x, tm)
+    chosen = gmm_variant(x, w, transpose_w)
     y = torch.empty(x.shape[0], n, dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(), y.data_ptr(), x.shape[0],
+            x.shape[1], n, e, tm, int(transpose_w))
     with torch.cuda.device(x.device):
-        err = _library().gmm_fwd(
-            x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(), y.data_ptr(), x.shape[0],
-            x.shape[1], n, e, tm, int(transpose_w), int(x.dtype == torch.bfloat16),
-            _stream(x.device),
-        )
+        if chosen == "wgmma":
+            err = _library().gmm_fwd_wgmma(*args, _stream(x.device))
+        else:
+            err = _library().gmm_fwd(*args, int(x.dtype == torch.bfloat16), _stream(x.device))
     if err != 0:
-        raise RuntimeError(f"gmm forward kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"gmm forward kernel ({chosen}) failed: cudaError_t {err}")
     launches_fwd += 1
+    if chosen == "wgmma":
+        launches_fwd_wgmma += 1
+    else:
+        launches_fwd_simt += 1
     return y
 
 
@@ -193,24 +238,32 @@ def _check_dw(x: Tensor, g: Tensor, tile_expert: Tensor, n_experts: int) -> Tupl
 def gmm_dw_cuda(x: Tensor, g: Tensor, tile_expert: Tensor, n_experts: int) -> Tensor:
     """Launch the dw kernel on the current stream -> dw [E, D, H] fp32 for x
     [M, D] and g [M, H] (bf16 or fp32, one dtype) under a non-decreasing tile
-    table. Every element is written (an expert without tiles gets 0). Raises
-    on anything it does not take, as ``gmm_cuda``."""
-    global launches_dw
+    table. Every element is written (an expert without tiles gets 0). The
+    kernel is ``gmm_dw_variant``'s choice. Raises on anything it does not
+    take, as ``gmm_cuda``."""
+    global launches_dw, launches_dw_wgmma, launches_dw_simt
     raise_if_grad([x, g], _GRAD_PATH)
     _, tm = _check_dw(x, g, tile_expert, n_experts)
     check_launch("gmm_dw_cuda", [x, g], [])
     _check_table(tile_expert, x, tm)
+    chosen = gmm_dw_variant(x, g)
     start, count = expert_tiles(tile_expert, n_experts)
     dw = torch.empty(n_experts, x.shape[1], g.shape[1], dtype=torch.float32, device=x.device)
+    ptrs = (x.data_ptr(), g.data_ptr(), start.data_ptr(), count.data_ptr(), dw.data_ptr())
     with torch.cuda.device(x.device):
-        err = _library().gmm_dw(
-            x.data_ptr(), g.data_ptr(), start.data_ptr(), count.data_ptr(), dw.data_ptr(),
-            x.shape[1], g.shape[1], n_experts, tm, int(x.dtype == torch.bfloat16),
-            _stream(x.device),
-        )
+        if chosen == "wgmma":
+            err = _library().gmm_dw_wgmma(*ptrs, x.shape[0], x.shape[1], g.shape[1], n_experts,
+                                          tm, _stream(x.device))
+        else:
+            err = _library().gmm_dw(*ptrs, x.shape[1], g.shape[1], n_experts, tm,
+                                    int(x.dtype == torch.bfloat16), _stream(x.device))
     if err != 0:
-        raise RuntimeError(f"gmm dw kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"gmm dw kernel ({chosen}) failed: cudaError_t {err}")
     launches_dw += 1
+    if chosen == "wgmma":
+        launches_dw_wgmma += 1
+    else:
+        launches_dw_simt += 1
     return dw
 
 
@@ -278,6 +331,7 @@ def gmm(x: Tensor, w: Tensor, tile_expert: Tensor, backend: str = "auto") -> Ten
 
 
 __all__ = [
-    "gmm", "gmm_cuda", "gmm_torch", "gmm_dw_cuda", "gmm_dw_torch", "GmmFn",
-    "pad_group_sizes", "tile_expert_table", "expert_tiles", "SOURCES", "TILE_MULTIPLE",
+    "gmm", "gmm_cuda", "gmm_torch", "gmm_dw_cuda", "gmm_dw_torch", "GmmFn", "gmm_variant",
+    "gmm_dw_variant", "pad_group_sizes", "tile_expert_table", "expert_tiles", "SOURCES",
+    "TILE_MULTIPLE",
 ]

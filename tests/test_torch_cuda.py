@@ -355,6 +355,8 @@ def _gmm_problem(g, dev, dtype, counts, d, tm=128):
     [
         (torch.bfloat16, (300, 0, 517, 64), 256, 384),  # an expert without rows
         (torch.bfloat16, (100, 37, 0, 250), 96, 200),  # N and K past the 128 / 32 tiles
+        # wgmma: K, N past its 64 / 256 tiles (TMA's zero fill), an expert without rows
+        (torch.bfloat16, (130, 0, 77, 300), 200, 328),
         (torch.bfloat16, (129, 1, 255, 7), 100, 72),
         (torch.float32, (40, 0, 90, 3), 32, 48),
     ],
@@ -391,6 +393,31 @@ def test_gmm_kernels_match_plain(dev, dtype, counts, d, h):
         else:
             torch.testing.assert_close(dw[i], ref_dw[i], rtol=0,
                                        atol=1e-4 * float(ref_dw[i].abs().max()))
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+@pytest.mark.parametrize("kind", ["y", "dx", "dw"])
+def test_gmm_wgmma_layouts_on_one_tile(dev, kind, steps):
+    """Each of the wgmma kernels' three shared-memory layouts on one 128 x
+    256 output tile of one expert: y (B = w[e] [K, N], N-major), dx (B =
+    w[e] [N, K], K-major) at one and two 64-deep steps, and dw (A = x^T,
+    M-major) over one and two row tiles. Within one bf16 step of the plain
+    version plus 1e-4 of the largest magnitude; dw within 1e-4 of it."""
+    g = torch.Generator(device=dev).manual_seed(steps)
+    rows = 128 * (steps if kind == "dw" else 1)
+    k = 64 * steps if kind != "dw" else 128
+    te = torch.zeros(rows // 128, dtype=torch.int32, device=dev)
+    x = torch.randn(rows, k, device=dev, generator=g).bfloat16()
+    if kind == "dw":
+        gy = torch.randn(rows, 256, device=dev, generator=g).bfloat16()
+        assert gm.gmm_dw_variant(x, gy) == "wgmma"
+        got, ref = gm.gmm_dw_cuda(x, gy, te, 1), gm.gmm_dw_torch(x, gy, te, 1)
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+        return
+    t = kind == "dx"
+    w = torch.randn(1, *((256, k) if t else (k, 256)), device=dev, generator=g).bfloat16()
+    assert gm.gmm_variant(x, w, t) == "wgmma"
+    _max_close(gm.gmm_cuda(x, w, te, transpose_w=t), gm.gmm_torch(x, w, te, transpose_w=t), 2**-7)
 
 
 def test_gmm_fn_through_gmm_matches_torch(dev):
@@ -430,6 +457,31 @@ def test_gmm_kernel_rejects_what_it_does_not_take(dev):
         gm.gmm_cuda(x.half(), w.half(), te)
     with pytest.raises(ValueError, match="against"):
         gm.gmm_cuda(x, w, te, transpose_w=True)
+
+
+def test_gmm_bf16_aligned_call_takes_wgmma(dev):
+    """bf16 with widths a multiple of 8 launches the wgmma kernels and moves
+    their counters, not the simt ones; fp32 the simt kernels only."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x, real, te = _gmm_problem(g, dev, torch.bfloat16, (200, 0, 310, 90), 128)
+    w = (torch.randn(4, 128, 160, device=dev, generator=g) / 128**0.5).bfloat16()
+    gy = torch.randn(x.shape[0], 160, device=dev, generator=g).bfloat16()
+
+    def counts():
+        return (gm.launches_fwd_wgmma, gm.launches_fwd_simt, gm.launches_dw_wgmma,
+                gm.launches_dw_simt, gm.launches_fwd, gm.launches_dw)
+
+    before = counts()
+    gm.gmm_cuda(x, w, te)
+    gm.gmm_cuda(gy, w, te, transpose_w=True)
+    gm.gmm_dw_cuda(x, gy, te, 4)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [2, 0, 1, 0, 2, 1]
+    before = counts()
+    gm.gmm_cuda(x.float(), w.float(), te)
+    gm.gmm_dw_cuda(x.float(), gy.float(), te, 4)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [0, 1, 0, 1, 1, 1]
 
 
 def _q4_problem(g, dev, b, d, out, dtype):
