@@ -25,8 +25,11 @@ nonzero and no result line is printed):
    - flash attention (rows 6, 7, 8): forward, dq and dk/dv at hybrid_1b3's
      generate shape (B 4, H 16, T 1536, D 128, bf16, window 1024) and
      training shape (B 8, T 2048), a ragged T 2000, T 1, T 512 (below the
-     window), causal without a window, bidirectional, and the tiny widths
-     (D 32, fp32);
+     window), causal without a window, bidirectional, Tq 1000 against Tk
+     1500, D 64 in bf16 and the tiny widths (D 32, fp32); each case logs the
+     variant the backward took (wgmma for bf16 at D 128, simt for the
+     rest); the wgmma backward is timed at the training shape, the simt
+     backward at the tiny fp32 widths (its path);
    - the grouped expert matmul (rows 9, 10): forward, dx (against w^T) and
      dw at moe_1b3_4e's training shape (8192 routed rows, d 2048, h 5504, 4
      experts) for the gate/up and the down products, the prefill shape (4096
@@ -71,11 +74,14 @@ nonzero and no result line is printed):
    ``Trainer`` at full width, synthetic data, AdamW, remat
    as the config sets it, 1 warm-up and 3 timed steps, with the counts reset
    just before and read after every step (exact counts per step, from the
-   layer kinds and the rematerialized blocks; the MoE's gmm launches all of
-   the wgmma variant, none of the simt); then one batch's loss and
+   layer kinds and the rematerialized blocks; the hybrid's flash backward
+   launches and the MoE's gmm launches all of the wgmma variant, none of
+   the simt); then one batch's loss and
    every parameter's gradient through the kernels against
    ``backend="torch"`` on the same weights (every parameter must get a
    gradient); then 3 ``tiny`` fp32 steps on the card against the CPU (for
+   the hybrid a tiny hybrid, whose fp32 D 32 attention takes the simt
+   flash backward kernels, their launches counted from 0; for
    the MoE a tiny MoE in its capacity and its dropless form, the latter at
    1024 routed rows, so the card takes the simt gmm kernels in fp32, their
    launches counted from 0, and the CPU the ragged form);
@@ -103,8 +109,8 @@ nonzero and no result line is printed):
    model, in bf16 and at int4, against the same from the in-memory trained
    model: tokens and prefill logits bitwise, exact launches (row 14 at
    int4); save and load seconds;
-10. a ``kernels`` JSON line (16 entries: the 14 rows, rows 9 and 10 once
-   for each variant), then the result line
+10. a ``kernels`` JSON line (18 entries: the 14 rows, rows 7, 8, 9 and 10
+   once for each variant), then the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -250,9 +256,9 @@ RAW_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
 RAW_ATOL_OF_MAX = 1e-4
 
 KERNELS = ("causal_dot_norm", "causal_dot", "causal_dot_dq_den", "causal_dot_rev_den",
-           "causal_dot_rev", "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd_wgmma", "gmm_dw_wgmma",
-           "gmm_fwd_simt", "gmm_dw_simt", "q4_matmul", "adafactor_sums", "adafactor_rms",
-           "adafactor_apply")
+           "causal_dot_rev", "flash_fwd", "flash_dq_wgmma", "flash_dkv_wgmma", "flash_dq_simt",
+           "flash_dkv_simt", "gmm_fwd_wgmma", "gmm_dw_wgmma", "gmm_fwd_simt", "gmm_dw_simt",
+           "q4_matmul", "adafactor_sums", "adafactor_rms", "adafactor_apply")
 
 
 def log(*a):
@@ -779,7 +785,8 @@ def op_phase(dev, mods):
 # ---------------------------------------------------------------------------
 
 # (label, B, H, T, D, dtype, causal, window): hybrid_1b3's shapes and the
-# edges of the kernels' loops
+# edges of the kernels' loops; T an int, or (Tq, Tk). The backward takes the
+# wgmma kernels for bf16 at D 128, the simt kernels for the rest (the last two)
 FLASH_CASES = [
     ("generate", 4, 16, 1536, 128, torch.bfloat16, True, 1024),
     ("training", 8, 16, 2048, 128, torch.bfloat16, True, 1024),
@@ -788,13 +795,18 @@ FLASH_CASES = [
     ("below the window", 8, 16, 512, 128, torch.bfloat16, True, 1024),
     ("causal, no window", 4, 16, 2048, 128, torch.bfloat16, True, None),
     ("bidirectional", 4, 16, 1024, 128, torch.bfloat16, False, None),
+    ("more keys than queries", 2, 16, (1000, 1500), 128, torch.bfloat16, True, 512),
+    ("D 64", 2, 8, 1000, 64, torch.bfloat16, True, 256),
     ("tiny widths", 2, 4, 300, 32, torch.float32, True, 16),
 ]
 
 
 def _flash_inputs(g, dev, b, h, t, d, dtype):
-    """q, k, v at unit scale and the output's cotangent, [B*H, T, D]."""
-    return [torch.randn(b * h, t, d, device=dev, generator=g).to(dtype) for _ in range(4)]
+    """q, k, v at unit scale and the output's cotangent, [B*H, T, D]; ``t``
+    an int, or (Tq, Tk)."""
+    t_q, t_k = t if isinstance(t, tuple) else (t, t)
+    return [torch.randn(b * h, n, d, device=dev, generator=g).to(dtype)
+            for n in (t_q, t_k, t_k, t_q)]
 
 
 def _pairs(t, causal, window):
@@ -809,7 +821,8 @@ def compare_flash(fa, dev):
     """Rows 6-8 against their plain versions on the card. The backward
     kernels and their plain versions take the same inputs: the plain
     forward's lse and delta = rowsum(g . out). Returns one reading per case
-    and the inputs of each case by label."""
+    (with the backward variant it took) and the inputs of each case by
+    label."""
     g = torch.Generator(device=dev).manual_seed(6)
     readings, inputs = [], {}
     for label, b, h, t, d, dtype, causal, window in FLASH_CASES:
@@ -828,16 +841,17 @@ def compare_flash(fa, dev):
         readings.append({
             "case": f"{label}: B{b} H{h} T{t} D{d} {str(dtype)[6:]} causal={causal} "
                     f"window={window}",
+            "variant": fa.flash_bwd_variant(q, k, v, gout),
             "out": _grad_reading(out, r_out, rtol, FLASH_ATOL_OF_MAX),
             "dq": _grad_reading(dq, r_dq, rtol, FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR),
             "dk": _grad_reading(dk, r_dk, rtol, FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR),
             "dv": _grad_reading(dv, r_dv, rtol, FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR),
             "lse_max_abs": float(lse_diff.max()),
             "lse_over_limit": float((lse_diff / (LSE_RTOL * r_lse.abs().clamp_min(1.0))).max()),
-            "lse_well_formed": lse.shape == (b * h, t, 1) and lse.dtype == torch.float32
-            and bool(torch.isfinite(lse).all()),
+            "lse_well_formed": lse.shape == (q.shape[0], q.shape[1], 1)
+            and lse.dtype == torch.float32 and bool(torch.isfinite(lse).all()),
         })
-        inputs[label] = (q, k, v, gout, r_lse, delta, opts)
+        inputs[label] = (b, h, q, k, v, gout, r_lse, delta, opts)
         del out, lse, r_out, dq, dk, dv, r_dq, r_dk, r_dv
     return readings, inputs
 
@@ -860,13 +874,18 @@ def _sdpa_mask(t, causal, window, dev):
 
 
 def check_flash(fa, dev):
-    """Rows 6-8: agreement on every case, then timings at hybrid_1b3's
-    generate shape (row 6) and training shape (rows 6-8), each beside its
-    bound, its plain version and scaled_dot_product_attention under the same
-    mask (the backward timed as one call, for rows 7 and 8 together)."""
+    """Rows 6-8: agreement on every case, each case's backward variant
+    logged, then timings: row 6 at hybrid_1b3's generate and training shapes
+    and causal without a window; rows 7 and 8 where each variant's path
+    takes them: the wgmma kernels at hybrid_1b3's training shape, the simt
+    kernels at the tiny fp32 widths. Each beside its bound (at the bf16 or
+    the fp32 peak), its plain version and scaled_dot_product_attention under
+    the same mask (the backward timed as one call, for rows 7 and 8
+    together). The kernels line has one entry for row 6 and one for each
+    variant of rows 7 and 8."""
     readings, inputs = compare_flash(fa, dev)
     for r in readings:
-        log(f"flash {r['case']}: "
+        log(f"flash {r['case']} (backward {r['variant']}): "
             + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
                         f"limit, needs atol {r[n]['atol_needed']:.2e} max|ref|)"
                         for n in ("out", "dq", "dk", "dv"))
@@ -874,33 +893,42 @@ def check_flash(fa, dev):
     bad = [r for r in readings if not agrees_flash(r)]
     if bad:
         raise AssertionError(f"a flash kernel disagrees with its plain version: {bad}")
+    ran = {v: sum(r["variant"] == v for r in readings) for v in ("wgmma", "simt")}
+    log(f"flash backward variants over the {len(readings)} cases: {ran}")
+    if not all(ran.values()):
+        raise AssertionError(f"a flash backward variant ran on no case: {ran}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timings = {}
     with torch.no_grad():
-        for label in ("generate", "training", "causal, no window"):
-            q, k, v, gout, lse, delta, opts = inputs[label]
+        for label in ("generate", "training", "causal, no window", "tiny widths"):
+            b, h, q, k, v, gout, lse, delta, opts = inputs[label]
             bh, t, d = q.shape
-            b = bh // 16
-            q4, k4, v4 = (x.view(b, bh // b, t, d) for x in (q, k, v))
+            peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+            q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
             mask = _sdpa_mask(t, opts["causal"], opts["window"], dev)
             lib = (lambda: sdpa(q4, k4, v4, attn_mask=mask)) if mask is not None else (
                 lambda: sdpa(q4, k4, v4, is_causal=True))
             act = q.numel() * q.element_size()
             pairs = bh * _pairs(t, opts["causal"], opts["window"])
-            row = {"fwd": dict(
-                ms=cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **opts), 10),
-                plain_ms=cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **opts), 2),
-                library_ms=cuda_ms(lib, 10),
-                # q, k, v read; out, lse written
-                moved=4 * act + bh * t * 4, flops=4 * d * pairs)}
-            if label == "training":
+            row = {}
+            if label != "tiny widths":
+                row["fwd"] = dict(
+                    ms=cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **opts), 10),
+                    plain_ms=cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **opts), 2),
+                    library_ms=cuda_ms(lib, 10),
+                    # q, k, v read; out, lse written
+                    moved=4 * act + bh * t * 4, flops=4 * d * pairs)
+            if label in ("training", "tiny widths"):
+                variant = fa.flash_bwd_variant(q, k, v, gout)
+                if variant != ("simt" if label == "tiny widths" else "wgmma"):
+                    raise AssertionError(f"flash backward at {label} took {variant}")
                 row["dq"] = dict(
-                    ms=cuda_ms(lambda: fa.flash_dq_cuda(q, k, v, gout, lse, delta, **opts), 5),
+                    ms=cuda_ms(lambda: fa.flash_dq_cuda(q, k, v, gout, lse, delta, **opts), 10),
                     plain_ms=cuda_ms(lambda: fa.flash_dq_plain(q, k, v, gout, lse, delta, **opts), 2),
                     # q, k, v, g, lse, delta read; dq written
                     moved=5 * act + 2 * bh * t * 4, flops=6 * d * pairs)
                 row["dkv"] = dict(
-                    ms=cuda_ms(lambda: fa.flash_dkv_cuda(q, k, v, gout, lse, delta, **opts), 5),
+                    ms=cuda_ms(lambda: fa.flash_dkv_cuda(q, k, v, gout, lse, delta, **opts), 10),
                     plain_ms=cuda_ms(lambda: fa.flash_dkv_plain(q, k, v, gout, lse, delta, **opts), 2),
                     # q, k, v, g, lse, delta read; dk, dv written
                     moved=6 * act + 2 * bh * t * 4, flops=8 * d * pairs)
@@ -909,12 +937,15 @@ def check_flash(fa, dev):
                     o = sdpa(qg, kg, vg, attn_mask=mask)
                     g4 = gout.view_as(o)
                     bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-                        o, (qg, kg, vg), g4, retain_graph=True), 5)
-                row["dq"]["library_ms"] = row["dkv"]["library_ms"] = bwd_ms
+                        o, (qg, kg, vg), g4, retain_graph=True), 10)
+                for part in ("dq", "dkv"):
+                    row[part].update(library_ms=bwd_ms, variant=variant)
             for part, x in row.items():
-                x["bound_ms"], x["bound_by"] = _bound(x["moved"], x["flops"])
-                log(f"flash {part} timing {label} B{b} H{bh // b} T{t} D{d} window "
-                    f"{opts['window']}: kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, "
+                x["bound_ms"], x["bound_by"] = _bound(x["moved"], x["flops"], peak)
+                x["shape"] = (f"B{b} H{h} T{t} D{d} {str(q.dtype)[6:]} causal={opts['causal']} "
+                              f"window={opts['window']}")
+                log(f"flash {part}{' ' + x['variant'] if 'variant' in x else ''} timing {label} "
+                    f"{x['shape']}: kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, "
                     f"bound {x['bound_ms']:.4f} ms by {x['bound_by']} ({x['moved'] / 1e6:.1f} MB, "
                     f"{x['flops'] / 1e9:.2f} GFLOP, {pairs / 1e6:.1f} M pairs); "
                     f"scaled_dot_product_attention {x['library_ms']:.4f} ms"
@@ -923,21 +954,26 @@ def check_flash(fa, dev):
             timings[label] = row
     del inputs
     torch.cuda.empty_cache()
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    out_err = max(r["out"]["max_abs"] for r in readings)
     tr = timings["training"]
-    errs = {n: max(r[n]["max_abs"] for r in readings) for n in ("out", "dq", "dk", "dv")}
-    spec = [("flash_fwd", "orion_tpu_torch/csrc/flash_attention.cu",
-             "orion_tpu/ops/pallas/flash_attention.py:211", tr["fwd"], errs["out"]),
-            ("flash_dq", "orion_tpu_torch/csrc/flash_attention_bwd.cu",
-             "orion_tpu/ops/pallas/flash_attention.py:384", tr["dq"], errs["dq"]),
-            ("flash_dkv", "orion_tpu_torch/csrc/flash_attention_bwd.cu",
-             "orion_tpu/ops/pallas/flash_attention.py:418", tr["dkv"], max(errs["dk"], errs["dv"]))]
-    lines = [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
-              "max_abs_err": err, **{key: x[key] for key in (
-                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-             for name, source, replaces, x, err in spec]
-    gen = timings["generate"]["fwd"]
-    lines[0]["generate_shape"] = {key: gen[key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    lines = [{"name": "flash_fwd", "route": "cuda",
+              "source": "orion_tpu_torch/csrc/flash_attention.cu",
+              "replaces": "orion_tpu/ops/pallas/flash_attention.py:211", "max_abs_err": out_err,
+              **{key: tr["fwd"][key] for key in keys},
+              "generate_shape": {key: timings["generate"]["fwd"][key] for key in keys}}]
+    for v, row in (("wgmma", tr), ("simt", timings["tiny widths"])):
+        for part, replaces, names in (("dq", ":384", ("dq",)), ("dkv", ":418", ("dk", "dv"))):
+            lines.append({
+                "name": f"flash_{part}_{v}", "route": "cuda",
+                "source": "orion_tpu_torch/csrc/flash_attention_bwd.cu",
+                "replaces": "orion_tpu/ops/pallas/flash_attention.py" + replaces,
+                # the largest error of this kernel over the cases it ran
+                "max_abs_err": max(r[n]["max_abs"] for r in readings if r["variant"] == v
+                                   for n in names),
+                "over_limit": max(r[n]["over_limit"] for r in readings if r["variant"] == v
+                                  for n in names),
+                **{key: row[part][key] for key in keys}})
     return lines
 
 
@@ -1431,7 +1467,8 @@ def _counts(mods):
     return {"causal_dot_norm": cd.launches, "causal_dot": cd.launches_raw,
             "causal_dot_dq_den": cd.launches_dq, "causal_dot_rev_den": cd.launches_rev,
             "causal_dot_rev": cd.launches_raw_rev, "flash_fwd": fa.launches_fwd,
-            "flash_dq": fa.launches_dq, "flash_dkv": fa.launches_dkv,
+            "flash_dq_wgmma": fa.launches_dq_wgmma, "flash_dkv_wgmma": fa.launches_dkv_wgmma,
+            "flash_dq_simt": fa.launches_dq_simt, "flash_dkv_simt": fa.launches_dkv_simt,
             "gmm_fwd_wgmma": gm.launches_fwd_wgmma, "gmm_dw_wgmma": gm.launches_dw_wgmma,
             "gmm_fwd_simt": gm.launches_fwd_simt, "gmm_dw_simt": gm.launches_dw_simt,
             "q4_matmul": q4.launches,
@@ -1443,6 +1480,7 @@ def _reset_counts(mods):
     cd, fa, gm, q4, af = mods
     cd.launches = cd.launches_dq = cd.launches_rev = cd.launches_raw = cd.launches_raw_rev = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    fa.launches_dq_wgmma = fa.launches_dq_simt = fa.launches_dkv_wgmma = fa.launches_dkv_simt = 0
     gm.launches_fwd = gm.launches_dw = 0
     gm.launches_fwd_wgmma = gm.launches_fwd_simt = gm.launches_dw_wgmma = gm.launches_dw_simt = 0
     q4.launches = 0
@@ -1758,8 +1796,9 @@ def train_phase(dev, mods, name, seq_len, overrides=None, optimizer="adamw", the
     products, products_remat = _gmm_counts(m)
     want = dict.fromkeys(KERNELS, 0)
     want.update({"causal_dot_norm": lin + lin_remat, "causal_dot_dq_den": lin,
-                 "causal_dot_rev_den": lin, "flash_fwd": attn + attn_remat, "flash_dq": attn,
-                 "flash_dkv": attn,
+                 "causal_dot_rev_den": lin, "flash_fwd": attn + attn_remat,
+                 # bf16 at D 128: the wgmma backward kernels, none of the simt
+                 "flash_dq_wgmma": attn, "flash_dkv_wgmma": attn,
                  # forward, recomputation, and dx by the forward kernel against w^T;
                  # bf16 at the model's widths: the wgmma kernels, none of the simt
                  "gmm_fwd_wgmma": 2 * products + products_remat, "gmm_dw_wgmma": products})
@@ -2114,7 +2153,15 @@ def main() -> int:
     tiny_generate(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16)")
     hy_train = train_phase(dev, mods, "hybrid_1b3", 2048)
     grad_check(dev, "hybrid_1b3", 2048)
+    _reset_counts(mods)
+    # fp32 at D 32: the simt backward kernels' path, their launches counted from 0
     tiny_train(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16)")
+    flash_simt = {k: v for k, v in _counts(mods).items() if k.startswith("flash_d")}
+    log(f"tiny hybrid fp32 train launches: {flash_simt}")
+    if not (flash_simt["flash_dq_simt"] and flash_simt["flash_dkv_simt"]) or \
+            flash_simt["flash_dq_wgmma"] or flash_simt["flash_dkv_wgmma"]:
+        raise AssertionError(f"the tiny hybrid trained on the card in fp32 without the simt flash "
+                             f"backward kernels, or with the wgmma ones: {flash_simt}")
     log(f"hybrid_1b3 phases done at {time.perf_counter() - t0:.1f} s")
 
     dropless = {"moe_dropless": True}
@@ -2166,6 +2213,11 @@ def main() -> int:
         if k["name"].startswith("adafactor"):  # the main path: lm_1b3 adafactor_fused training
             k["launches"] = af_train["launches"][k["name"]]
             k["launches_per_step"] = af_train["per_step"][0][k["name"]]
+            continue
+        if k["name"].startswith("flash") and k["name"].endswith("_simt"):
+            # the main path: the tiny hybrid's fp32 training
+            k["launches"] = flash_simt[k["name"]]
+            k["launches_hybrid_1b3"] = {"train": hy_train["launches"][k["name"]]}
             continue
         if k["name"].endswith("_simt"):  # the main path: the tiny dropless MoE's fp32 training
             k["launches"] = simt[k["name"]]

@@ -8,7 +8,9 @@ source in ``orion_tpu_torch/csrc/``: ``causal_dot_norm.cu`` ("fwd", the
 linear forward and the public op's raw forward), ``causal_dot_bwd.cu``
 ("bwd", the backward kernels of both),
 ``flash_attention.cu`` ("flash_fwd"), ``flash_attention_bwd.cu``
-("flash_bwd", dq and dk/dv), ``gmm.cu`` ("gmm", the grouped matmul's
+("flash_bwd", dq and dk/dv: the wgmma kernels' copies named
+``flash_wgmma_*``, faults of their data, masks, loops and pipeline, the
+simt kernels' the other ``flash_*``), ``gmm.cu`` ("gmm", the grouped matmul's
 forward and dw: the wgmma kernels' copies named ``gmm_wgmma_*``, faults of
 their data and of their TMA / mbarrier / wgmma pipeline, the simt kernels'
 the other ``gmm_*``), ``q4_matmul.cu`` ("q4", the int4 dequant-matmul) or
@@ -53,6 +55,11 @@ _DW_CONSUME = "consume<1, 1, MNMAJOR_LBO, MNMAJOR_STEP, MNMAJOR_LBO, MNMAJOR_STE
 _AF_FINAL = ("    sums[n + i] = t;\n  } else if (i < m + n) {\n    const int j = i - m;\n"
              "    float t = 0.f;\n    for (int rc = 0; rc < n_rc; ++rc) t += colpart[(size_t)rc * n + j];\n"
              "    sums[j] = t;")
+_DQ_DS = ("split_pair(p0 * (dp[j] - dl[h]) * scale, p1 * (dp[j + 1] - dl[h]) * scale, "
+          "dhi[j / 2],")
+_DKV_DS = ("split_pair(p0 * (dp[j] - dl.x) * scale, p1 * (dp[j + 1] - dl.y) * scale, "
+           "dhi[j / 2],")
+_DV_HI = "wgmma_m64n128k16<1>(acc_dv, phi + 4 * kk, mnmajor(gs, kk));"
 _Q4_UNPACK = ("const float lo = (float)((int)(w << (28 - 8 * c)) >> 28);\n"
               "            const float hi = (float)((int)(w << (24 - 8 * c)) >> 28);")
 
@@ -137,6 +144,38 @@ MUTANTS = [
      "ends dk/dv's q-tile loop at the diagonal tile instead of the band's end",
      "hi = min(hi, (k0 + BK - 1 + window - 1) / BQ);", "hi = min(hi, (k0 + BK - 1) / BQ);",
      True),
+    # the wgmma route (bf16 at D 128: every model's training shape)
+    ("flash_wgmma_lo_dropped", "flash_bwd",
+     "drops the low bf16 half of P and dS: both rounded once to bf16 before the second products",
+     "const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);",
+     "const __nv_bfloat162 l = __floats2bfloat162_rn(0.f * hf.x, 0.f * hf.y);", True),
+    # the transpose bit cleared, with the K-major offsets beside it (the
+    # MN-major ones would read past the block's shared memory: a fault)
+    ("flash_wgmma_dv_transpose_cleared", "flash_bwd",
+     "reads dv's MN-major g as K-major in the high half's product (the transpose bit cleared)",
+     _DV_HI, _DV_HI.replace("<1>", "<0>").replace("mnmajor(", "kmajor("), True),
+    ("flash_wgmma_ring_off_by_one", "flash_bwd",
+     "reads the ring's stage before the one whose barrier it waited on (dq)",
+     "const uint32_t ks = r.a(s), vs = r.b(s);",
+     "const int s2 = (s + STAGES - 1) % STAGES;\n      const uint32_t ks = r.a(s2), vs = r.b(s2);",
+     True),
+    ("flash_wgmma_window_off_by_one", "flash_bwd",
+     "lets each query see w + 1 keys in the wgmma kernels' mask: t - s <= w for t - s < w",
+     "(window <= 0 || t - s < window);", "(window <= 0 || t - s <= window);", True),
+    ("flash_wgmma_diagonal_as_interior", "flash_bwd",
+     "treats the diagonal tile as wholly inside the band, so its mask is skipped",
+     "(!causal || s0 + 63 <= t0)", "(!causal || s0 <= t0)", True),
+    ("flash_wgmma_dkv_stops_at_diagonal", "flash_bwd",
+     "ends dk/dv's q-tile loop at the diagonal tile instead of the band's end (wgmma)",
+     "hi = min(hi, (k0 + WROWS - 1 + window - 1) / WT);", "hi = min(hi, (k0 + WROWS - 1) / WT);",
+     True),
+    ("flash_wgmma_dq_no_delta", "flash_bwd", "drops - delta from dq's dS (wgmma)",
+     _DQ_DS, _DQ_DS.replace(" - dl[h]", ""), True),
+    ("flash_wgmma_dkv_no_delta", "flash_bwd", "drops - delta from dk's dS^T (wgmma)",
+     _DKV_DS, _DKV_DS.replace(" - dl.x", "").replace(" - dl.y", ""), True),
+    ("flash_wgmma_lse_row_off", "flash_bwd", "reads each query's lse from the next row (dq)",
+     "lse2[h] = t < t_q ? lse[(size_t)bh * t_q + t] * LOG2E : 0.f;",
+     "lse2[h] = t < t_q ? lse[(size_t)bh * t_q + min(t + 1, t_q - 1)] * LOG2E : 0.f;", True),
     ("gmm_expert_off_by_one", "gmm", "reads each row tile's expert from the next tile's entry",
      "tile_expert[row0 / tile_rows]", "tile_expert[min(row0 / tile_rows + 1, m / tile_rows - 1)]",
      True),
@@ -275,7 +314,7 @@ def run(name, source, dev):
         accepted = all(chip_smoke.agrees_flash(r) for r in readings)
         for r in readings:
             chip_smoke.log(
-                f"  {r['case']}: " + "; ".join(
+                f"  {r['case']} (backward {r['variant']}): " + "; ".join(
                     f"{n} {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3g} of its limit)"
                     for n in ("out", "dq", "dk", "dv"))
                 + f"; lse {r['lse_max_abs']:.3e} ({r['lse_over_limit']:.3g} of its limit)")

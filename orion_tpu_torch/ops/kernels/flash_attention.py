@@ -13,8 +13,18 @@ Three kernels, each replacing a TPU kernel of
   over the keys s that row t sees: s <= t when ``causal``, t - s < w for
   ``window=w`` (the TPU kernel's ``_tile_mask``); a row that sees no key
   gives out 0 and lse -1e30;
-- ``flash_dq_cuda`` (``csrc/flash_attention_bwd.cu``) <- ``_dq_kernel``: dq;
-- ``flash_dkv_cuda`` (same source) <- ``_dkv_kernel``: dk, dv.
+- ``flash_dq_cuda`` (``csrc/flash_attention_bwd.cu``,
+  ``flash_dq_wgmma_kernel`` or ``flash_dq_kernel``) <- ``_dq_kernel``: dq;
+- ``flash_dkv_cuda`` (same source, ``flash_dkv_wgmma_kernel`` or
+  ``flash_dkv_kernel``) <- ``_dkv_kernel``: dk, dv.
+
+Each backward pass has two variants, chosen before the launch by
+``flash_bwd_variant`` from dtype, head width and alignment alone: "wgmma"
+(TMA into a ring of shared-memory stages, Hopper's ``wgmma`` from there,
+P and dS split into two bf16 halves for the second products) for bf16 at
+D 128 with 16-byte-aligned bases, every model's training shape; "simt"
+(fp32 FMAs on the CUDA cores) for the rest: fp32 (the tiny models) and
+other head widths.
 
 ``FlashAttentionFn`` is the counterpart of the JAX package's ``_flash_lse``
 custom VJP: the forward kernel, then in the backward delta = rowsum(g . out)
@@ -24,7 +34,10 @@ with lse [..., T, 1].
 
 Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
 launches (``launches_fwd``, ``launches_dq``, ``launches_dkv``: kernel
-launches and nothing else). Each ``*_plain`` function is its kernel's
+launches of either variant and nothing else;
+``launches_{dq,dkv}_{wgmma,simt}`` by variant). A variant that fails to
+build or launch raises: it never gives way to the other variant or to the
+plain version. Each ``*_plain`` function is its kernel's
 function in plain PyTorch on any device, materializing the fp32 scores
 under the same mask. The kernel's tile is a constant of its source: the JAX
 package's ``block_q`` / ``block_k`` (``cfg.attn_block_q``,
@@ -54,8 +67,10 @@ D_MAX = 128  # the kernels' largest head width
 _NEG = -1e30  # the masked score, as the TPU kernel's
 
 launches_fwd = 0  # forward kernel launches since import (or since a caller reset it)
-launches_dq = 0  # dq-pass kernel launches
-launches_dkv = 0  # dk/dv-pass kernel launches
+launches_dq = 0  # dq-pass kernel launches, either variant
+launches_dkv = 0  # dk/dv-pass kernel launches, either variant
+launches_dq_wgmma = launches_dq_simt = 0  # by variant
+launches_dkv_wgmma = launches_dkv_simt = 0
 _libs: dict = {}
 # where a caller that wants gradients goes instead of the bare forward kernel
 _GRAD_PATH = "flash_attention / FlashAttentionFn"
@@ -66,6 +81,8 @@ _SIGNATURES = {
     "bwd": {
         "flash_attention_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
         "flash_attention_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
+        "flash_attention_dq_wgmma": [_P] * 7 + [_I] * 3 + [_F, _I, _I, _P],
+        "flash_attention_dkv_wgmma": [_P] * 8 + [_I] * 3 + [_F, _I, _I, _P],
     },
 }
 
@@ -180,23 +197,45 @@ def _check_bwd(q, k, v, g, lse, delta, window):
     _check_rows("delta", delta, q.shape[0], q.shape[1])
 
 
-def _launch_bwd(fn_name, q, k, v, g, lse, delta, outs, causal, window, scale):
+WGMMA_D = 128  # the head width of the wgmma variant
+
+
+def flash_bwd_variant(q: Tensor, k: Tensor, v: Tensor, g: Tensor) -> str:
+    """The backward kernels that take q, g [BH, Tq, D] and k, v [BH, Tk, D]:
+    "wgmma" when all four are bf16 at D 128 with 16-byte-aligned bases
+    (what a TMA tensor map describes), else "simt". From dtype, shape and
+    alignment alone, before any launch."""
+    if all(t.dtype == torch.bfloat16 and t.shape[-1] == WGMMA_D and t.data_ptr() % 16 == 0
+           for t in (q, k, v, g)):
+        return "wgmma"
+    return "simt"
+
+
+def _launch_bwd(fn_name, q, k, v, g, lse, delta, outs, causal, window, scale) -> str:
+    """Launch the pass ``fn_name`` in the variant ``flash_bwd_variant``
+    names -> that variant."""
     raise_if_grad([q, k, v, g], _GRAD_PATH)
     _check_bwd(q, k, v, g, lse, delta, window)
     check_launch(fn_name, [q, k, v, g], [lse, delta])
     bh, t_q, d = q.shape
     if d > D_MAX:
         raise ValueError(f"D {d} > {D_MAX}, the kernel's limit")
+    chosen = flash_bwd_variant(q, k, v, g)
     lib = _library("bwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(o.data_ptr() for o in outs))
     with torch.cuda.device(q.device):
-        err = getattr(lib, fn_name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(o.data_ptr() for o in outs), bh, t_q, k.shape[1], d,
-            int(q.dtype == torch.bfloat16), _scale(q, scale), *_args(causal, window),
-            _stream(q.device),
-        )
+        if chosen == "wgmma":
+            err = getattr(lib, fn_name + "_wgmma")(
+                *ptrs, bh, t_q, k.shape[1], _scale(q, scale), *_args(causal, window),
+                _stream(q.device))
+        else:
+            err = getattr(lib, fn_name)(
+                *ptrs, bh, t_q, k.shape[1], d, int(q.dtype == torch.bfloat16), _scale(q, scale),
+                *_args(causal, window), _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"{fn_name} kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"{fn_name} kernel ({chosen}) failed: cudaError_t {err}")
+    return chosen
 
 
 def flash_dq_cuda(
@@ -205,11 +244,16 @@ def flash_dq_cuda(
 ) -> Tensor:
     """Launch the dq-pass kernel on the current stream -> dq in q's dtype.
     g: the output's cotangent in q's dtype; lse, delta: fp32 [BH, Tq, 1].
-    Raises on anything it does not take, as ``flash_fwd_cuda``."""
-    global launches_dq
+    The kernel is ``flash_bwd_variant``'s choice. Raises on anything it does
+    not take, as ``flash_fwd_cuda``."""
+    global launches_dq, launches_dq_wgmma, launches_dq_simt
     dq = torch.empty_like(q)
-    _launch_bwd("flash_attention_dq", q, k, v, g, lse, delta, [dq], causal, window, scale)
+    chosen = _launch_bwd("flash_attention_dq", q, k, v, g, lse, delta, [dq], causal, window, scale)
     launches_dq += 1
+    if chosen == "wgmma":
+        launches_dq_wgmma += 1
+    else:
+        launches_dq_simt += 1
     return dq
 
 
@@ -219,10 +263,15 @@ def flash_dkv_cuda(
 ) -> Tuple[Tensor, Tensor]:
     """Launch the dk/dv-pass kernel on the current stream -> (dk, dv) in the
     input dtype; arguments as ``flash_dq_cuda``."""
-    global launches_dkv
+    global launches_dkv, launches_dkv_wgmma, launches_dkv_simt
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_attention_dkv", q, k, v, g, lse, delta, [dk, dv], causal, window, scale)
+    chosen = _launch_bwd("flash_attention_dkv", q, k, v, g, lse, delta, [dk, dv], causal, window,
+                         scale)
     launches_dkv += 1
+    if chosen == "wgmma":
+        launches_dkv_wgmma += 1
+    else:
+        launches_dkv_simt += 1
     return dk, dv
 
 
@@ -346,7 +395,7 @@ def flash_attention(
 
 
 __all__ = [
-    "flash_fwd_cuda", "flash_fwd_plain", "flash_dq_cuda", "flash_dq_plain",
+    "flash_fwd_cuda", "flash_fwd_plain", "flash_dq_cuda", "flash_dq_plain", "flash_bwd_variant",
     "flash_dkv_cuda", "flash_dkv_plain", "FlashAttentionFn", "flash_attention",
     "flash_attention_lse", "SOURCES",
 ]

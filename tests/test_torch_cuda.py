@@ -24,7 +24,10 @@ gradient vanishes in exact arithmetic (T = 1: a row's only key gives
 dS = P (dP - delta) = 0), the kernel's dP and torch's delta are two fp32 dot
 products of unit-scale inputs summed in different orders, about 1e-7 apart
 at D 64 (1e-6 at D 128). lse to 1e-5 of max(1, |lse|) (fp32 sums of exp in
-another order, through one log). The grouped matmul (rows 9, 10): y and dx
+another order, through one log). The backward (rows 7, 8) in both variants,
+each case asserting which one's counters moved: wgmma for bf16 at D 128
+(its P and dS carried as two bf16 halves, so the same limits hold), simt
+for the rest. The grouped matmul (rows 9, 10): y and dx
 as the bf16 / fp32 outputs above with 1e-4 of the largest magnitude beside
 the relative term (a sum over K products in another order); dw, fp32 sums
 of exact products in another order, within 1e-4 of each expert's largest
@@ -279,22 +282,34 @@ def test_model_backward_through_the_kernels_matches_torch(dev, dtype):
         (torch.bfloat16, 2, 200, 200, 128, False, None),  # bidirectional
         (torch.bfloat16, 2, 100, 100, 32, True, 1024),  # the band covers everything
         (torch.bfloat16, 2, 96, 96, 64, False, 20),  # a bidirectional band
+        (torch.bfloat16, 3, 150, 290, 128, True, 100),  # wgmma: more keys than queries
+        (torch.bfloat16, 2, 290, 150, 128, False, 70),  # wgmma: more queries than keys
+        (torch.bfloat16, 3, 1, 1, 128, True, 16),  # wgmma: T 1
     ],
 )
 def test_flash_kernels_match_plain(dev, dtype, bh, tq, tk, d, causal, window):
+    """Rows 6-8 against their plain versions; the backward passes take the
+    variant ``flash_bwd_variant`` names (wgmma for bf16 at D 128, simt for
+    the rest), and only that variant's counters move."""
     g = torch.Generator(device=dev).manual_seed(tq + d)
     q = torch.randn(bh, tq, d, device=dev, generator=g).to(dtype)
     k = torch.randn(bh, tk, d, device=dev, generator=g).to(dtype)
     v = torch.randn(bh, tk, d, device=dev, generator=g).to(dtype)
     gout = torch.randn(bh, tq, d, device=dev, generator=g).to(dtype)
     opts = dict(causal=causal, window=window)
-    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    variant = fa.flash_bwd_variant(q, k, v, gout)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and d == 128 else "simt")
+    before = _flash_counts()
     out, lse = fa.flash_fwd_cuda(q, k, v, **opts)
     r_out, r_lse = fa.flash_fwd_plain(q, k, v, **opts)
     delta = (gout.float() * r_out.float()).sum(-1, keepdim=True)
     got = (fa.flash_dq_cuda(q, k, v, gout, r_lse, delta, **opts),
            *fa.flash_dkv_cuda(q, k, v, gout, r_lse, delta, **opts))
-    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == tuple(n + 1 for n in before)
+    torch.cuda.synchronize()
+    moved = {n: a - b for (n, a), b in zip(_flash_counts().items(), before.values())}
+    assert moved == {"fwd": 1, "dq": 1, "dkv": 1, f"dq_{variant}": 1, f"dkv_{variant}": 1,
+                     **{f"{p}_{v}": 0 for p in ("dq", "dkv") for v in ("wgmma", "simt")
+                        if v != variant}}
     ref = (fa.flash_dq_plain(q, k, v, gout, r_lse, delta, **opts),
            *fa.flash_dkv_plain(q, k, v, gout, r_lse, delta, **opts))
     rtol = 2**-7 if dtype == torch.bfloat16 else 1e-4
@@ -304,6 +319,37 @@ def test_flash_kernels_match_plain(dev, dtype, bh, tq, tk, d, causal, window):
     for x, r in zip(got, ref):
         assert x.dtype == dtype and x.shape == r.shape
         _max_close(x, r, rtol, floor=FLASH_GRAD_FLOOR)
+
+
+def _flash_counts():
+    return {"fwd": fa.launches_fwd, "dq": fa.launches_dq, "dkv": fa.launches_dkv,
+            "dq_wgmma": fa.launches_dq_wgmma, "dq_simt": fa.launches_dq_simt,
+            "dkv_wgmma": fa.launches_dkv_wgmma, "dkv_simt": fa.launches_dkv_simt}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", ["dq", "dk", "dv"])
+def test_flash_bwd_wgmma_layouts_on_one_tile(dev, kind, causal):
+    """Each MN-major B layout of the wgmma backward, and the conversion of an
+    accumulator into wgmma's register A operand, on one 64 x 64 tile (one
+    head, T 64): dq (dS from registers, k MN-major), dk (dS^T, q MN-major),
+    dv (P^T, g MN-major); bidirectional (no mask) and causal (the diagonal
+    tile's mask). Within one bf16 step of the plain version plus 1e-4 of the
+    largest magnitude, floor 1e-5 (``chip_smoke.py``'s limits)."""
+    g = torch.Generator(device=dev).manual_seed(64 + causal)
+    q, k, v, gout = (torch.randn(1, 64, 128, device=dev, generator=g).bfloat16()
+                     for _ in range(4))
+    assert fa.flash_bwd_variant(q, k, v, gout) == "wgmma"
+    opts = dict(causal=causal, window=None)
+    r_out, lse = fa.flash_fwd_plain(q, k, v, **opts)
+    delta = (gout.float() * r_out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, gout, lse, delta)
+    if kind == "dq":
+        got, ref = fa.flash_dq_cuda(*args, **opts), fa.flash_dq_plain(*args, **opts)
+    else:
+        i = int(kind == "dv")
+        got, ref = fa.flash_dkv_cuda(*args, **opts)[i], fa.flash_dkv_plain(*args, **opts)[i]
+    _max_close(got, ref, 2**-7, floor=FLASH_GRAD_FLOOR)
 
 
 def test_flash_fn_through_softmax_attention_matches_torch(dev):
@@ -323,6 +369,36 @@ def test_flash_fn_through_softmax_attention_matches_torch(dev):
     _max_close(out, out_r, 1e-4)
     for x, r in zip(grads, grads_r):
         _max_close(x, r, 1e-4)
+
+
+def test_flash_fn_on_the_wgmma_route_matches_the_plain_passes(dev):
+    """The model's bf16 path at D 128: softmax_attention with grad runs
+    FlashAttentionFn, whose backward takes the wgmma kernels (one launch of
+    each, none of the simt ones). Its gradients agree with the plain passes
+    fed the same forward's out and lse and delta = rowsum(g . out), within
+    one bf16 step plus 1e-4 of the largest magnitude, floor 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn(2, 4, 300, 128, device=dev, generator=g).bfloat16().requires_grad_()
+               for _ in range(3))
+    gout = torch.randn(2, 4, 300, 128, device=dev, generator=g).bfloat16()
+    before = _flash_counts()
+    out = sa.softmax_attention(q, k, v, window=100)
+    grads = torch.autograd.grad(out, (q, k, v), gout)
+    torch.cuda.synchronize()
+    moved = {n: a - b for (n, a), b in zip(_flash_counts().items(), before.values())}
+    assert moved == {"fwd": 1, "dq": 1, "dkv": 1, "dq_wgmma": 1, "dq_simt": 0, "dkv_wgmma": 1,
+                     "dkv_simt": 0}
+    flat = [x.detach().reshape(8, 300, 128) for x in (q, k, v, gout)]
+    opts = dict(causal=True, window=100)
+    with torch.no_grad():
+        out2, lse = fa.flash_fwd_cuda(*flat[:3], **opts)
+    assert torch.equal(out2, out.detach().reshape(8, 300, 128))
+    delta = (flat[3].float() * out2.float()).sum(-1, keepdim=True)
+    ref = (fa.flash_dq_plain(*flat, lse, delta, **opts),
+           *fa.flash_dkv_plain(*flat, lse, delta, **opts))
+    for x, r in zip(grads, ref):
+        assert x.dtype == torch.bfloat16
+        _max_close(x.reshape(8, 300, 128), r, 2**-7, floor=FLASH_GRAD_FLOOR)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(dev):
