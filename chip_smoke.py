@@ -80,8 +80,8 @@ nonzero and no result line is printed):
    every parameter's gradient through the kernels against
    ``backend="torch"`` on the same weights (every parameter must get a
    gradient); then 3 ``tiny`` fp32 steps on the card against the CPU (for
-   the hybrid a tiny hybrid, whose fp32 D 32 attention takes the simt
-   flash backward kernels, their launches counted from 0; for
+   the hybrid a tiny hybrid, whose fp32 D 32 layers take the simt kernels of
+   rows 1, 6, 7 and 8 and no wgmma one, their launches counted from 0; for
    the MoE a tiny MoE in its capacity and its dropless form, the latter at
    1024 routed rows, so the card takes the simt gmm kernels in fp32, their
    launches counted from 0, and the CPU the ragged form);
@@ -109,8 +109,8 @@ nonzero and no result line is printed):
    model, in bf16 and at int4, against the same from the in-memory trained
    model: tokens and prefill logits bitwise, exact launches (row 14 at
    int4); save and load seconds;
-10. a ``kernels`` JSON line (18 entries: the 14 rows, rows 7, 8, 9 and 10
-   once for each variant), then the result line
+10. a ``kernels`` JSON line (20 entries: the 14 rows, rows 1, 6, 7, 8, 9
+   and 10 once for each variant), then the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -139,6 +139,9 @@ ROOT = Path(__file__).resolve().parent
 # S, z (fp32): sums of exact products in another order. ``kernel_mutants.py``
 # shows which wrong kernels these limits reject.
 OUT_RTOL, OUT_ATOL = 2**-7, 1e-4
+# fp32 outputs (the simt variant's tiny widths): quotients of fp32 sums in
+# another order, about 1e-6 apart
+OUT_RTOL_FP32 = 1e-4
 STATE_RTOL = 1e-4  # of the state's largest magnitude
 # A layer's decode state after the kernel-backed prefill against the plain
 # one, relative to its largest element: each layer's input differs by the
@@ -255,9 +258,9 @@ AF_PARAM_RTOL, AF_PARAM_ATOL, AF_STAT_ATOL_OF_MAX = 2e-5, 1e-7, 1e-6
 RAW_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
 RAW_ATOL_OF_MAX = 1e-4
 
-KERNELS = ("causal_dot_norm", "causal_dot", "causal_dot_dq_den", "causal_dot_rev_den",
-           "causal_dot_rev", "flash_fwd", "flash_dq_wgmma", "flash_dkv_wgmma", "flash_dq_simt",
-           "flash_dkv_simt", "gmm_fwd_wgmma", "gmm_dw_wgmma", "gmm_fwd_simt", "gmm_dw_simt",
+KERNELS = ("causal_dot_norm_wgmma", "causal_dot_norm_simt", "causal_dot", "causal_dot_dq_den",
+           "causal_dot_rev_den", "causal_dot_rev", "flash_fwd_wgmma", "flash_fwd_simt",
+           "flash_dq_wgmma", "flash_dkv_wgmma", "flash_dq_simt", "flash_dkv_simt", "gmm_fwd_wgmma", "gmm_dw_wgmma", "gmm_fwd_simt", "gmm_dw_simt",
            "q4_matmul", "adafactor_sums", "adafactor_rms", "adafactor_apply")
 
 
@@ -368,46 +371,69 @@ def _bound(moved, flops, peak=BF16_FLOPS):
 # ---------------------------------------------------------------------------
 
 
-def compare_causal_dot(cd, dev):
-    """The kernel against its plain version on the card, at the main path's
-    width (B 4, H 16, D 128, bf16): T 1024, a ragged 1000 and 1, each with
-    the state a 256-token prefix leaves, and T 1024 from a zero state (what
-    prefill gives the kernel). Returns one reading per case and the last
-    case's inputs. ``out_over_limit`` is the largest |out - ref| as a share
-    of its limit ``OUT_ATOL + OUT_RTOL |ref|`` (above 1 fails);
-    ``out_atol_needed`` the smallest absolute term that this case alone
-    would need beside ``OUT_RTOL``."""
-    g = torch.Generator(device=dev).manual_seed(0)
+# (label, B, H, T, Dk, Dv, dtype, initial state): the generate path's width
+# (B 4, H 16, D 128, bf16: the wgmma variant) at T 1024, a ragged 1000 and 1,
+# from the state a 256-token prefix leaves and from a zero state (what
+# prefill gives the kernel); then the simt variant's: bf16 at a Dv that is
+# not a multiple of 64, and the tiny models' fp32 widths
+NORM_CASES = [
+    ("B4 H16 T1024 D128 bf16 state", 4, 16, 1024, 128, 128, torch.bfloat16, True),
+    ("B4 H16 T1000 D128 bf16 state", 4, 16, 1000, 128, 128, torch.bfloat16, True),
+    ("B4 H16 T1 D128 bf16 state", 4, 16, 1, 128, 128, torch.bfloat16, True),
+    ("generate: B4 H16 T1024 D128 bf16", 4, 16, 1024, 128, 128, torch.bfloat16, False),
+    ("B4 H16 T1024 Dk128 Dv96 bf16 state", 4, 16, 1024, 128, 96, torch.bfloat16, True),
+    ("tiny widths: B2 H4 T300 D32 fp32 state", 2, 4, 300, 32, 32, torch.float32, True),
+]
+
+
+def _norm_inputs(g, dev, b, h, t, dk, dv, dtype, with_state, prefix=256):
+    """q, k phi-mapped, v, [B*H, T, D] in ``dtype``; with ``with_state`` the
+    fp32 state (S0, z0) a ``prefix``-token prefix of the same kind leaves."""
+    bh = b * h
 
     def phi(x):
         return torch.nn.functional.elu(x) + 1.0
 
-    readings = []
-    for b, h, t, with_state in [(4, 16, 1024, True), (4, 16, 1000, True), (4, 16, 1, True),
-                                (4, 16, 1024, False)]:
-        bh, d = b * h, 128
-        q = phi(torch.randn(bh, t, d, device=dev, generator=g)).bfloat16()
-        k = phi(torch.randn(bh, t, d, device=dev, generator=g)).bfloat16()
-        v = torch.randn(bh, t, d, device=dev, generator=g).bfloat16()
-        s0 = z0 = None
-        if with_state:  # the state a 256-token prefix leaves
-            kp = phi(torch.randn(bh, 256, d, device=dev, generator=g)).bfloat16().float()
-            vp = torch.randn(bh, 256, d, device=dev, generator=g).bfloat16().float()
-            s0, z0 = kp.transpose(1, 2) @ vp, kp.sum(1)
+    q = phi(torch.randn(bh, t, dk, device=dev, generator=g)).to(dtype)
+    k = phi(torch.randn(bh, t, dk, device=dev, generator=g)).to(dtype)
+    v = torch.randn(bh, t, dv, device=dev, generator=g).to(dtype)
+    s0 = z0 = None
+    if with_state:
+        kp = phi(torch.randn(bh, prefix, dk, device=dev, generator=g)).to(dtype).float()
+        vp = torch.randn(bh, prefix, dv, device=dev, generator=g).to(dtype).float()
+        s0, z0 = kp.transpose(1, 2) @ vp, kp.sum(1)
+    return q, k, v, s0, z0
+
+
+def compare_causal_dot(cd, dev):
+    """Row 1 against its plain version on the card, on every case of
+    ``NORM_CASES``, in the variant ``causal_dot_norm_variant`` names.
+    Returns one reading per case (with its variant) and the inputs of each
+    case by label. ``out_over_limit`` is the largest |out - ref| as a share
+    of its limit ``OUT_ATOL + rtol |ref|`` (above 1 fails; rtol one bf16
+    step, ``OUT_RTOL``, for bf16 outputs, ``OUT_RTOL_FP32`` for fp32 ones);
+    ``out_atol_needed`` the smallest absolute term that this case alone
+    would need beside rtol."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    readings, inputs = [], {}
+    for label, b, h, t, dk, dv, dtype, with_state in NORM_CASES:
+        q, k, v, s0, z0 = _norm_inputs(g, dev, b, h, t, dk, dv, dtype, with_state)
         out, sf, zf = cd.causal_dot_norm_cuda(q, k, v, s0, z0)
         torch.cuda.synchronize()
         r_out, r_s, r_z = cd.causal_dot_norm_plain(q, k, v, s0, z0)
+        rtol = OUT_RTOL if dtype == torch.bfloat16 else OUT_RTOL_FP32
         diff, ref = (out.float() - r_out.float()).abs(), r_out.float().abs()
         readings.append({
-            "case": f"B{b} H{h} T{t} D{d} bf16 state={with_state}",
+            "case": label, "variant": cd.causal_dot_norm_variant(q, k, v),
             "out_max_abs": float(diff.max()), "ref_max_abs": float(ref.max()),
-            "out_over_limit": float((diff / (OUT_ATOL + OUT_RTOL * ref)).max()),
-            "out_atol_needed": float((diff - OUT_RTOL * ref).clamp_min(0).max()),
+            "out_over_limit": float((diff / (OUT_ATOL + rtol * ref)).max()),
+            "out_atol_needed": float((diff - rtol * ref).clamp_min(0).max()),
             "s_rel": _rel(sf, r_s), "z_rel": _rel(zf, r_z),
-            "well_formed": out.shape == v.shape and out.dtype == torch.bfloat16
+            "well_formed": out.shape == v.shape and out.dtype == dtype
             and bool(torch.isfinite(out.float()).all()),
         })
-    return readings, (q, k, v)
+        inputs[label] = (q, k, v)
+    return readings, inputs
 
 
 def agrees(r):
@@ -415,30 +441,63 @@ def agrees(r):
             and r["s_rel"] <= STATE_RTOL and r["z_rel"] <= STATE_RTOL)
 
 
-def check_causal_dot(cd, dev):
-    readings, (q, k, v) = compare_causal_dot(cd, dev)
-    for r in readings:
-        log(f"causal_dot_norm {r['case']}: out max abs {r['out_max_abs']:.3e} "
-            f"(max |ref| {r['ref_max_abs']:.3f}), {r['out_over_limit']:.3f} of its limit "
-            f"{OUT_ATOL:g} + 2^-7|ref|, needs atol {r['out_atol_needed']:.3e}; "
-            f"S rel {r['s_rel']:.3e}, z rel {r['z_rel']:.3e} (limit {STATE_RTOL:g})")
-        if not agrees(r):
-            raise AssertionError(f"causal_dot_norm disagrees with its plain version: {r}")
-
-    # timing at the main path's shape: B 4, H 16, T 1024, D 128, bf16, no
-    # initial state (what prefill gives the kernel)
-    ms = cuda_ms(lambda: cd.causal_dot_norm_cuda(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: cd.causal_dot_norm_plain(q, k, v), 5)
+def _norm_bound(q, v, with_parts):
+    """Row 1's bound on these inputs: q, k, v read; out, S, z written (with
+    ``with_parts`` also the fp32 num and den); one chunk walk's products
+    (A, A v, q S and the state update at chunk 64)."""
     bh, t, dk = q.shape
     dv = v.shape[-1]
-    moved = 3 * q.numel() * q.element_size() + v.numel() * 2 + bh * dk * dv * 4 + bh * dk * 4
+    act = q.element_size()
+    moved = bh * t * (2 * dk + 2 * dv) * act + bh * dk * dv * 4 + bh * dk * 4
+    if with_parts:
+        moved += bh * t * dv * 4 + bh * t * 4
     chunk = 64
     flops = 2 * bh * t * (chunk * dk + chunk * dv + 2 * dk * dv)
-    bound_ms, bound_by = _bound(moved, flops)
-    log(f"causal_dot_norm timing B4 H16 T1024 D128 bf16 (generate): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP); library_ms: none (no single PyTorch call computes this "
-        "function)")
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    return moved, flops, _bound(moved, flops, peak)
+
+
+def check_causal_dot(cd, dev):
+    """Row 1: agreement on every case, each case's variant logged (both must
+    run), then timings where each variant's path takes it: the wgmma kernel
+    at the generate path's shape (B 4, H 16, T 1024, D 128, bf16, no initial
+    state), the simt kernel at the tiny fp32 widths. Returns the generate
+    shape's timing (for the wgmma entry of the kernels line, which
+    ``check_training_kernels`` writes) and the simt entry."""
+    readings, inputs = compare_causal_dot(cd, dev)
+    for r in readings:
+        log(f"causal_dot_norm {r['case']} ({r['variant']}): out max abs {r['out_max_abs']:.3e} "
+            f"(max |ref| {r['ref_max_abs']:.3f}), {r['out_over_limit']:.3f} of its limit, needs "
+            f"atol {r['out_atol_needed']:.3e}; S rel {r['s_rel']:.3e}, z rel {r['z_rel']:.3e} "
+            f"(limit {STATE_RTOL:g})")
+        if not agrees(r):
+            raise AssertionError(f"causal_dot_norm disagrees with its plain version: {r}")
+    ran = {v: sum(r["variant"] == v for r in readings) for v in ("wgmma", "simt")}
+    log(f"causal_dot_norm variants over the {len(readings)} cases: {ran}")
+    if not all(ran.values()):
+        raise AssertionError(f"a causal_dot_norm variant ran on no case: {ran}")
+    timed = {}
+    with torch.no_grad():
+        for label, variant in (("generate: B4 H16 T1024 D128 bf16", "wgmma"),
+                               ("tiny widths: B2 H4 T300 D32 fp32 state", "simt")):
+            q, k, v = inputs[label]
+            if cd.causal_dot_norm_variant(q, k, v) != variant:
+                raise AssertionError(f"causal_dot_norm at {label} took the other variant")
+            ms = cuda_ms(lambda: cd.causal_dot_norm_cuda(q, k, v), 20)
+            plain_ms = cuda_ms(lambda: cd.causal_dot_norm_plain(q, k, v), 5)
+            moved, flops, (bound_ms, bound_by) = _norm_bound(q, v, False)
+            log(f"causal_dot_norm {variant} timing {label}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, "
+                f"{flops / 1e9:.2f} GFLOP); library_ms: none (no single PyTorch call computes "
+                "this function)")
+            timed[variant] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": None, "shape": label}
+    simt = {"name": "causal_dot_norm_simt", "route": "cuda",
+            "source": "orion_tpu_torch/csrc/causal_dot_norm.cu",
+            "replaces": "orion_tpu/ops/pallas/causal_dot.py:537",
+            "max_abs_err": max(r["out_max_abs"] for r in readings if r["variant"] == "simt"),
+            **timed["simt"]}
+    return {"generate_shape": timed["wgmma"], "simt": simt}
 
 
 def _grad_reading(got, ref, rtol=GRAD_RTOL, atol_of_max=GRAD_ATOL_OF_MAX, floor=0.0):
@@ -457,63 +516,66 @@ def _grad_reading(got, ref, rtol=GRAD_RTOL, atol_of_max=GRAD_ATOL_OF_MAX, floor=
     }
 
 
-def _training_case(g, dev, b, h, t, with_state):
-    """Inputs of one linear layer's training step at D 128, bf16: q, k
-    phi-mapped, v, the output's cotangent; with ``with_state`` also an
-    initial state (a 256-token prefix's) and cotangents of the final state
-    at the scale of what the walk itself accumulates (about 0.05)."""
-    bh, d = b * h, 128
+# (label, B, H, T, Dk, Dv, dtype, initial state and final-state cotangents):
+# lm_1b3's training width (B 8, H 16, D 128, bf16: row 1's wgmma variant) at
+# T 1024, a ragged 1000 and 1; then row 1's simt variant with its training
+# outputs: bf16 at Dv 96, and the tiny models' fp32 widths
+TRAINING_CASES = [
+    (f"B8 H16 T{t} D128 bf16 state={st}", 8, 16, t, 128, 128, torch.bfloat16, st)
+    for t in (1024, 1000, 1) for st in (False, True)
+] + [
+    ("B2 H16 T1000 Dk128 Dv96 bf16 state=True", 2, 16, 1000, 128, 96, torch.bfloat16, True),
+    ("B2 H4 T300 D32 fp32 state=True", 2, 4, 300, 32, 32, torch.float32, True),
+]
 
-    def phi(x):
-        return torch.nn.functional.elu(x) + 1.0
 
-    q = phi(torch.randn(bh, t, d, device=dev, generator=g)).bfloat16()
-    k = phi(torch.randn(bh, t, d, device=dev, generator=g)).bfloat16()
-    v = torch.randn(bh, t, d, device=dev, generator=g).bfloat16()
-    gout = torch.randn(bh, t, d, device=dev, generator=g).bfloat16()
-    s0 = z0 = gsf = gzf = None
+def _training_case(g, dev, b, h, t, dk, dv, dtype, with_state):
+    """Inputs of one linear layer's training step: q, k phi-mapped, v, the
+    output's cotangent; with ``with_state`` also an initial state (a
+    256-token prefix's) and cotangents of the final state at the scale of
+    what the walk itself accumulates (about 0.05)."""
+    bh = b * h
+    q, k, v, s0, z0 = _norm_inputs(g, dev, b, h, t, dk, dv, dtype, with_state)
+    gout = torch.randn(bh, t, dv, device=dev, generator=g).to(dtype)
+    gsf = gzf = None
     if with_state:
-        kp = phi(torch.randn(bh, 256, d, device=dev, generator=g)).bfloat16().float()
-        vp = torch.randn(bh, 256, d, device=dev, generator=g).bfloat16().float()
-        s0, z0 = kp.transpose(1, 2) @ vp, kp.sum(1)
-        gsf = 0.05 * torch.randn(bh, d, d, device=dev, generator=g)
-        gzf = 0.05 * torch.randn(bh, d, device=dev, generator=g)
+        gsf = 0.05 * torch.randn(bh, dk, dv, device=dev, generator=g)
+        gzf = 0.05 * torch.randn(bh, dk, device=dev, generator=g)
     return q, k, v, gout, s0, z0, gsf, gzf
 
 
 def compare_training_kernels(cd, dev):
-    """Rows 1 (with its training outputs num, den), 3 and 4 against their
-    plain versions on the card, at the lm_1b3 training shape (B 8, H 16, D
-    128, bf16): T 1024, a ragged 1000 and 1, each without and with an
-    initial state and final-state cotangents. The backward kernels and their
-    plain versions take the same inputs: the plain forward's num and den
-    through ``quotient_rule``. Returns one reading per case and the first
-    case's backward inputs."""
+    """Rows 1 (with its training outputs num, den, in the variant
+    ``causal_dot_norm_variant`` names), 3 and 4 against their plain versions
+    on the card, on every case of ``TRAINING_CASES``. The backward kernels
+    and their plain versions take the same inputs: the plain forward's num
+    and den through ``quotient_rule``. Returns one reading per case and the
+    first case's backward inputs."""
     g = torch.Generator(device=dev).manual_seed(1)
     readings, first = [], None
-    for t in (1024, 1000, 1):
-        for with_state in (False, True):
-            q, k, v, gout, s0, z0, gsf, gzf = _training_case(g, dev, 8, 16, t, with_state)
-            out, sf, zf, num, den = cd.causal_dot_norm_cuda(q, k, v, s0, z0, with_parts=True)
-            r_out, r_sf, r_zf, r_num, r_den = cd.causal_dot_norm_plain(
-                q, k, v, s0, z0, with_parts=True)
-            gnum, gden = cd.quotient_rule(gout, r_num, r_den, 1e-6, q.dtype)
-            dq = cd.causal_dot_dq_den_cuda(gnum, v, k, gden, s0, z0)
-            dk, dv, ds0, dz0 = cd.causal_dot_rev_den_cuda(q, k, v, gnum, gden, gsf, gzf)
-            torch.cuda.synchronize()
-            r_dq = cd.causal_dot_dq_den_plain(gnum, v, k, gden, s0, z0)
-            r_dk, r_dv, r_ds0, r_dz0 = cd.causal_dot_rev_den_plain(q, k, v, gnum, gden, gsf, gzf)
-            readings.append({
-                "case": f"B8 H16 T{t} D128 bf16 state={with_state}",
-                "out": _grad_reading(out, r_out),
-                "num_rel": _rel(num, r_num), "den_rel": _rel(den, r_den),
-                "dq": _grad_reading(dq, r_dq), "dk": _grad_reading(dk, r_dk),
-                "dv": _grad_reading(dv, r_dv),
-                "ds0_rel": _rel(ds0, r_ds0), "dz0_rel": _rel(dz0, r_dz0),
-                "states_finite": all(bool(torch.isfinite(x).all()) for x in (num, den, ds0, dz0)),
-            })
-            if first is None:
-                first = (q, k, v, gnum, gden)
+    for label, b, h, t, dk, dv, dtype, with_state in TRAINING_CASES:
+        q, k, v, gout, s0, z0, gsf, gzf = _training_case(g, dev, b, h, t, dk, dv, dtype,
+                                                         with_state)
+        out, sf, zf, num, den = cd.causal_dot_norm_cuda(q, k, v, s0, z0, with_parts=True)
+        r_out, r_sf, r_zf, r_num, r_den = cd.causal_dot_norm_plain(
+            q, k, v, s0, z0, with_parts=True)
+        gnum, gden = cd.quotient_rule(gout, r_num, r_den, 1e-6, q.dtype)
+        dq = cd.causal_dot_dq_den_cuda(gnum, v, k, gden, s0, z0)
+        dk_, dv_, ds0, dz0 = cd.causal_dot_rev_den_cuda(q, k, v, gnum, gden, gsf, gzf)
+        torch.cuda.synchronize()
+        r_dq = cd.causal_dot_dq_den_plain(gnum, v, k, gden, s0, z0)
+        r_dk, r_dv, r_ds0, r_dz0 = cd.causal_dot_rev_den_plain(q, k, v, gnum, gden, gsf, gzf)
+        readings.append({
+            "case": label, "variant": cd.causal_dot_norm_variant(q, k, v),
+            "out": _grad_reading(out, r_out),
+            "num_rel": _rel(num, r_num), "den_rel": _rel(den, r_den),
+            "dq": _grad_reading(dq, r_dq), "dk": _grad_reading(dk_, r_dk),
+            "dv": _grad_reading(dv_, r_dv),
+            "ds0_rel": _rel(ds0, r_ds0), "dz0_rel": _rel(dz0, r_dz0),
+            "states_finite": all(bool(torch.isfinite(x).all()) for x in (num, den, ds0, dz0)),
+        })
+        if first is None:
+            first = (q, k, v, gnum, gden)
     return readings, first
 
 
@@ -524,10 +586,15 @@ def agrees_training(r):
             and max(r["num_rel"], r["den_rel"], r["ds0_rel"], r["dz0_rel"]) <= STATE_RTOL)
 
 
-def check_training_kernels(cd, dev):
+def check_training_kernels(cd, dev, norm):
+    """Rows 1, 3 and 4 on the training cases, then timed at lm_1b3's
+    training shape (B 8, H 16, T 1024, D 128, bf16; row 1 with its training
+    outputs, in the wgmma variant). ``norm``: ``check_causal_dot``'s result,
+    whose generate-shape timing joins row 1's wgmma entry and whose simt
+    entry joins the kernels line."""
     readings, (q, k, v, gnum, gden) = compare_training_kernels(cd, dev)
     for r in readings:
-        log(f"training kernels {r['case']}: "
+        log(f"training kernels {r['case']} (row 1 {r['variant']}): "
             + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
                         f"limit, needs atol {r[n]['atol_needed']:.2e} max|ref|)"
                         for n in ("dq", "dk", "dv"))
@@ -536,20 +603,21 @@ def check_training_kernels(cd, dev):
             f"(limit {STATE_RTOL:g})")
         if not agrees_training(r):
             raise AssertionError(f"a training kernel disagrees with its plain version: {r}")
+    if cd.causal_dot_norm_variant(q, k, v) != "wgmma":
+        raise AssertionError("causal_dot_norm at the training shape did not take wgmma")
     bh, t, dk = q.shape
     dv = v.shape[-1]
-    c, act, f32 = 64, q.numel() * q.element_size(), 4
-    ops = 2 * bh * t * (c * dk + c * dv + 2 * dk * dv)  # one chunk walk's products
+    act, f32 = q.numel() * q.element_size(), 4
+    moved_norm, ops, _ = _norm_bound(q, v, True)
     lines = []
     with torch.no_grad():
         specs = [
-            ("causal_dot_norm", "orion_tpu_torch/csrc/causal_dot_norm.cu",
+            ("causal_dot_norm_wgmma", "orion_tpu_torch/csrc/causal_dot_norm.cu",
              "orion_tpu/ops/pallas/causal_dot.py:537",
              lambda: cd.causal_dot_norm_cuda(q, k, v, with_parts=True),
              lambda: cd.causal_dot_norm_plain(q, k, v, with_parts=True),
              # q, k, v read; out, S, z, num, den written
-             4 * act + bh * dk * dv * f32 + bh * dk * f32 + bh * t * dv * f32 + bh * t * f32,
-             ops),
+             moved_norm, ops),
             ("causal_dot_dq_den", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
              "orion_tpu/ops/pallas/causal_dot.py:298",
              lambda: cd.causal_dot_dq_den_cuda(gnum, v, k, gden),
@@ -571,16 +639,19 @@ def check_training_kernels(cd, dev):
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
                 f"({moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
                 "library_ms: none (no single PyTorch call computes this function)")
+            outs = {"causal_dot_norm_wgmma": ("out",), "causal_dot_dq_den": ("dq",)}.get(
+                name, ("dk", "dv"))
             lines.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                # the largest error of this kernel over the cases it ran
                 "max_abs_err": max(
-                    r[n]["max_abs"] for r in readings
-                    for n in ({"causal_dot_norm": ("out",), "causal_dot_dq_den": ("dq",)}
-                              .get(name, ("dk", "dv")))),
+                    r[n]["max_abs"] for r in readings for n in outs
+                    if name != "causal_dot_norm_wgmma" or r["variant"] == "wgmma"),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None,
+                "library_ms": None, "shape": "B8 H16 T1024 D128 bf16",
             })
-    return lines
+    lines[0]["generate_shape"] = norm["generate_shape"]
+    return lines[:1] + [norm["simt"]] + lines[1:]
 
 
 # ---------------------------------------------------------------------------
@@ -785,8 +856,8 @@ def op_phase(dev, mods):
 # ---------------------------------------------------------------------------
 
 # (label, B, H, T, D, dtype, causal, window): hybrid_1b3's shapes and the
-# edges of the kernels' loops; T an int, or (Tq, Tk). The backward takes the
-# wgmma kernels for bf16 at D 128, the simt kernels for the rest (the last two)
+# edges of the kernels' loops; T an int, or (Tq, Tk). Every pass takes its
+# wgmma kernel for bf16 at D 128, its simt kernel for the rest (the last two)
 FLASH_CASES = [
     ("generate", 4, 16, 1536, 128, torch.bfloat16, True, 1024),
     ("training", 8, 16, 2048, 128, torch.bfloat16, True, 1024),
@@ -821,8 +892,8 @@ def compare_flash(fa, dev):
     """Rows 6-8 against their plain versions on the card. The backward
     kernels and their plain versions take the same inputs: the plain
     forward's lse and delta = rowsum(g . out). Returns one reading per case
-    (with the backward variant it took) and the inputs of each case by
-    label."""
+    (with the variants the forward and the backward took) and the inputs of
+    each case by label."""
     g = torch.Generator(device=dev).manual_seed(6)
     readings, inputs = [], {}
     for label, b, h, t, d, dtype, causal, window in FLASH_CASES:
@@ -841,6 +912,7 @@ def compare_flash(fa, dev):
         readings.append({
             "case": f"{label}: B{b} H{h} T{t} D{d} {str(dtype)[6:]} causal={causal} "
                     f"window={window}",
+            "fwd_variant": fa.flash_fwd_variant(q, k, v),
             "variant": fa.flash_bwd_variant(q, k, v, gout),
             "out": _grad_reading(out, r_out, rtol, FLASH_ATOL_OF_MAX),
             "dq": _grad_reading(dq, r_dq, rtol, FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR),
@@ -874,18 +946,17 @@ def _sdpa_mask(t, causal, window, dev):
 
 
 def check_flash(fa, dev):
-    """Rows 6-8: agreement on every case, each case's backward variant
-    logged, then timings: row 6 at hybrid_1b3's generate and training shapes
-    and causal without a window; rows 7 and 8 where each variant's path
-    takes them: the wgmma kernels at hybrid_1b3's training shape, the simt
-    kernels at the tiny fp32 widths. Each beside its bound (at the bf16 or
-    the fp32 peak), its plain version and scaled_dot_product_attention under
-    the same mask (the backward timed as one call, for rows 7 and 8
-    together). The kernels line has one entry for row 6 and one for each
-    variant of rows 7 and 8."""
+    """Rows 6-8: agreement on every case, each case's variants logged, then
+    timings where each variant's path takes it: the wgmma kernels at
+    hybrid_1b3's training shape (row 6 also at its generate shape and
+    causal without a window), the simt kernels at the tiny fp32 widths. Each
+    beside its bound (at the bf16 or the fp32 peak), its plain version and
+    scaled_dot_product_attention under the same mask (the backward timed as
+    one call, for rows 7 and 8 together). The kernels line has one entry
+    for each variant of rows 6, 7 and 8."""
     readings, inputs = compare_flash(fa, dev)
     for r in readings:
-        log(f"flash {r['case']} (backward {r['variant']}): "
+        log(f"flash {r['case']} (forward {r['fwd_variant']}, backward {r['variant']}): "
             + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
                         f"limit, needs atol {r[n]['atol_needed']:.2e} max|ref|)"
                         for n in ("out", "dq", "dk", "dv"))
@@ -894,9 +965,10 @@ def check_flash(fa, dev):
     if bad:
         raise AssertionError(f"a flash kernel disagrees with its plain version: {bad}")
     ran = {v: sum(r["variant"] == v for r in readings) for v in ("wgmma", "simt")}
-    log(f"flash backward variants over the {len(readings)} cases: {ran}")
-    if not all(ran.values()):
-        raise AssertionError(f"a flash backward variant ran on no case: {ran}")
+    log(f"flash variants over the {len(readings)} cases: {ran}")
+    if not all(ran.values()) or any(r["fwd_variant"] != r["variant"] for r in readings):
+        raise AssertionError(f"a flash variant ran on no case, or the forward and the backward "
+                             f"took different ones: {ran}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timings = {}
     with torch.no_grad():
@@ -911,13 +983,15 @@ def check_flash(fa, dev):
             act = q.numel() * q.element_size()
             pairs = bh * _pairs(t, opts["causal"], opts["window"])
             row = {}
-            if label != "tiny widths":
-                row["fwd"] = dict(
-                    ms=cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **opts), 10),
-                    plain_ms=cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **opts), 2),
-                    library_ms=cuda_ms(lib, 10),
-                    # q, k, v read; out, lse written
-                    moved=4 * act + bh * t * 4, flops=4 * d * pairs)
+            variant = fa.flash_fwd_variant(q, k, v)
+            if variant != ("simt" if label == "tiny widths" else "wgmma"):
+                raise AssertionError(f"flash forward at {label} took {variant}")
+            row["fwd"] = dict(
+                ms=cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **opts), 10),
+                plain_ms=cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **opts), 2),
+                library_ms=cuda_ms(lib, 10),
+                # q, k, v read; out, lse written
+                moved=4 * act + bh * t * 4, flops=4 * d * pairs, variant=variant)
             if label in ("training", "tiny widths"):
                 variant = fa.flash_bwd_variant(q, k, v, gout)
                 if variant != ("simt" if label == "tiny widths" else "wgmma"):
@@ -955,13 +1029,18 @@ def check_flash(fa, dev):
     del inputs
     torch.cuda.empty_cache()
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    out_err = max(r["out"]["max_abs"] for r in readings)
     tr = timings["training"]
-    lines = [{"name": "flash_fwd", "route": "cuda",
-              "source": "orion_tpu_torch/csrc/flash_attention.cu",
-              "replaces": "orion_tpu/ops/pallas/flash_attention.py:211", "max_abs_err": out_err,
-              **{key: tr["fwd"][key] for key in keys},
-              "generate_shape": {key: timings["generate"]["fwd"][key] for key in keys}}]
+    lines = []
+    for v, row in (("wgmma", tr), ("simt", timings["tiny widths"])):
+        lines.append({
+            "name": f"flash_fwd_{v}", "route": "cuda",
+            "source": "orion_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "orion_tpu/ops/pallas/flash_attention.py:211",
+            "max_abs_err": max(r["out"]["max_abs"] for r in readings if r["fwd_variant"] == v),
+            "over_limit": max(r["out"]["over_limit"] for r in readings if r["fwd_variant"] == v),
+            **{key: row["fwd"][key] for key in keys}})
+    lines[0]["generate_shape"] = {key: timings["generate"]["fwd"][key] for key in keys}
+    lines[0]["causal_no_window"] = {key: timings["causal, no window"]["fwd"][key] for key in keys}
     for v, row in (("wgmma", tr), ("simt", timings["tiny widths"])):
         for part, replaces, names in (("dq", ":384", ("dq",)), ("dkv", ":418", ("dk", "dv"))):
             lines.append({
@@ -1464,9 +1543,11 @@ def check_adafactor(af, dev):
 
 def _counts(mods):
     cd, fa, gm, q4, af = mods
-    return {"causal_dot_norm": cd.launches, "causal_dot": cd.launches_raw,
+    return {"causal_dot_norm_wgmma": cd.launches_wgmma, "causal_dot_norm_simt": cd.launches_simt,
+            "causal_dot": cd.launches_raw,
             "causal_dot_dq_den": cd.launches_dq, "causal_dot_rev_den": cd.launches_rev,
-            "causal_dot_rev": cd.launches_raw_rev, "flash_fwd": fa.launches_fwd,
+            "causal_dot_rev": cd.launches_raw_rev, "flash_fwd_wgmma": fa.launches_fwd_wgmma,
+            "flash_fwd_simt": fa.launches_fwd_simt,
             "flash_dq_wgmma": fa.launches_dq_wgmma, "flash_dkv_wgmma": fa.launches_dkv_wgmma,
             "flash_dq_simt": fa.launches_dq_simt, "flash_dkv_simt": fa.launches_dkv_simt,
             "gmm_fwd_wgmma": gm.launches_fwd_wgmma, "gmm_dw_wgmma": gm.launches_dw_wgmma,
@@ -1479,7 +1560,9 @@ def _counts(mods):
 def _reset_counts(mods):
     cd, fa, gm, q4, af = mods
     cd.launches = cd.launches_dq = cd.launches_rev = cd.launches_raw = cd.launches_raw_rev = 0
+    cd.launches_wgmma = cd.launches_simt = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    fa.launches_fwd_wgmma = fa.launches_fwd_simt = 0
     fa.launches_dq_wgmma = fa.launches_dq_simt = fa.launches_dkv_wgmma = fa.launches_dkv_simt = 0
     gm.launches_fwd = gm.launches_dw = 0
     gm.launches_fwd_wgmma = gm.launches_fwd_simt = gm.launches_dw_wgmma = gm.launches_dw_simt = 0
@@ -1618,7 +1701,9 @@ def generate_phase(dev, mods, name, prompt_len, new_tokens, overrides=None):
     lin, attn, _, _ = _layer_counts(cfg)
     want = dict.fromkeys(KERNELS, 0)
     # decode's few rows take the dense per-expert form: gmm in the prefill only
-    want.update(causal_dot_norm=lin, flash_fwd=attn, gmm_fwd_wgmma=_gmm_counts(cfg)[0])
+    # bf16 at the model's widths: the wgmma forward kernels, none of the simt
+    want.update(causal_dot_norm_wgmma=lin, flash_fwd_wgmma=attn,
+                gmm_fwd_wgmma=_gmm_counts(cfg)[0])
     log(f"{name} generate launches: {counts}")
     if counts != want:
         raise AssertionError(f"{name} generate launched {counts}, want {want} (each layer's "
@@ -1702,7 +1787,7 @@ def quant_generate_phase(dev, mods, name, prompt_len, new_tokens, mode, override
     lin, attn, _, _ = _layer_counts(cfg)
     want = dict.fromkeys(KERNELS, 0)
     # a quantized MoE never takes the gmm kernels
-    want.update(causal_dot_norm=lin, flash_fwd=attn,
+    want.update(causal_dot_norm_wgmma=lin, flash_fwd_wgmma=attn,
                 q4_matmul=_q4_per_step(cfg) * (new_tokens - 1) if mode == "int4" else 0)
     log(f"{name} {mode} generate launches: {counts}")
     if counts != want:
@@ -1747,6 +1832,28 @@ def quant_generate_phase(dev, mods, name, prompt_len, new_tokens, mode, override
             "q4_per_step": _q4_per_step(cfg)}
 
 
+def _tiny_forwards_simt(label, before, cfg):
+    """A tiny fp32 run's forward launches of rows 1 and 6 since ``before``
+    (``_forward_counts()``): only the simt variants, one or more of each for
+    the layer kinds ``cfg`` has."""
+    moved = {k: v - before[k] for k, v in _forward_counts().items()}
+    kinds = set(cfg.resolved_layer_types)
+    if (moved["causal_dot_norm_wgmma"] or moved["flash_fwd_wgmma"]
+            or ("linear" in kinds) != bool(moved["causal_dot_norm_simt"])
+            or bool(kinds & {"softmax", "swa"}) != bool(moved["flash_fwd_simt"])):
+        raise AssertionError(f"{label}: forward launches {moved}, want only the simt variants")
+    return moved
+
+
+def _forward_counts():
+    from orion_tpu_torch.ops.kernels import causal_dot, flash_attention
+
+    return {"causal_dot_norm_wgmma": causal_dot.launches_wgmma,
+            "causal_dot_norm_simt": causal_dot.launches_simt,
+            "flash_fwd_wgmma": flash_attention.launches_fwd_wgmma,
+            "flash_fwd_simt": flash_attention.launches_fwd_simt}
+
+
 def tiny_generate(dev, cfg, label, quant=""):
     """A small model end to end: the card against the CPU's plain path
     (``quant``: both quantized from the same fp32 weights; the card's int4
@@ -1762,11 +1869,12 @@ def tiny_generate(dev, cfg, label, quant=""):
     tiny_gpu = TransformerLM(cfg, device=dev, quant=quant)
     tiny_gpu.load_state_dict(tiny_cpu.state_dict())
     tp = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 100), dtype=np.int64))
-    before = q4_matmul.launches
+    before, forwards = q4_matmul.launches, _forward_counts()
     got = generate(tiny_gpu, tp.to(dev), 16, greedy, quant=quant)
     if quant == "int4" and q4_matmul.launches != before + 15 * _q4_per_step(cfg):
         raise AssertionError(f"{label}: {q4_matmul.launches - before} q4 launches, want "
                              f"{15 * _q4_per_step(cfg)}")
+    _tiny_forwards_simt(label, forwards, cfg)
     ref = generate(tiny_cpu, tp, 16, greedy, quant=quant)
     with torch.inference_mode():
         lg = tiny_gpu.prefill_last(tp.to(dev))[0].cpu()
@@ -1795,9 +1903,9 @@ def train_phase(dev, mods, name, seq_len, overrides=None, optimizer="adamw", the
     lin, attn, lin_remat, attn_remat = _layer_counts(m)
     products, products_remat = _gmm_counts(m)
     want = dict.fromkeys(KERNELS, 0)
-    want.update({"causal_dot_norm": lin + lin_remat, "causal_dot_dq_den": lin,
-                 "causal_dot_rev_den": lin, "flash_fwd": attn + attn_remat,
-                 # bf16 at D 128: the wgmma backward kernels, none of the simt
+    want.update({"causal_dot_norm_wgmma": lin + lin_remat, "causal_dot_dq_den": lin,
+                 "causal_dot_rev_den": lin, "flash_fwd_wgmma": attn + attn_remat,
+                 # bf16 at D 128: the wgmma kernels, none of the simt
                  "flash_dq_wgmma": attn, "flash_dkv_wgmma": attn,
                  # forward, recomputation, and dx by the forward kernel against w^T;
                  # bf16 at the model's widths: the wgmma kernels, none of the simt
@@ -1910,7 +2018,7 @@ def load_phase(dev, mods, trainer, prompt_len=1024, new_tokens=32):
             with torch.inference_mode():
                 lg, rlg = (m.prefill_last(prompts)[0] for m in models)
             want = dict.fromkeys(KERNELS, 0)
-            want.update(causal_dot_norm=_layer_counts(cfg)[0],
+            want.update(causal_dot_norm_wgmma=_layer_counts(cfg)[0],
                         q4_matmul=(new_tokens - 1) * _q4_per_step(cfg) if mode else 0)
             label = mode or "bf16"
             log(f"load phase {label}: generate from the loaded params launched {counts}; "
@@ -2094,7 +2202,7 @@ def tiny_train(dev, model_cfg, label, batch_size=4, optimizer="adamw"):
     gpu.model.load_state_dict(cpu.model.state_dict())
     ds = SyntheticDataset(model_cfg.vocab_size, cfg.seq_len)
     got, ref = [], []
-    gate, before = af._MIN_KERNEL_ELEMS, af.launches_apply
+    gate, before, forwards = af._MIN_KERNEL_ELEMS, af.launches_apply, _forward_counts()
     if optimizer == "adafactor_fused":
         af._MIN_KERNEL_ELEMS = 0
     try:
@@ -2108,6 +2216,7 @@ def tiny_train(dev, model_cfg, label, batch_size=4, optimizer="adamw"):
         want = 3 * sum(p.dim() == 2 for p in gpu.params.values())
         if af.launches_apply - before != want:
             raise AssertionError(f"{label}: {af.launches_apply - before} apply launches, want {want}")
+    _tiny_forwards_simt(label, forwards, model_cfg)
     err = max(abs(a - b) for a, b in zip(got, ref))
     log(f"{label} fp32 train, card vs CPU: losses {got} vs {ref}, max diff {err:.3e} "
         f"(limit {TINY_LOSS_ATOL:g})")
@@ -2131,8 +2240,8 @@ def main() -> int:
     t0 = time.perf_counter()
     mods = (causal_dot, flash_attention, gmm, q4_matmul, adafactor)
     build(mods)
-    check_causal_dot(causal_dot, dev)
-    kernels = check_training_kernels(causal_dot, dev)
+    norm = check_causal_dot(causal_dot, dev)
+    kernels = check_training_kernels(causal_dot, dev, norm)
     kernels += check_raw(causal_dot, dev)
     kernels += check_flash(flash_attention, dev)
     kernels += check_gmm(gmm, dev)
@@ -2154,14 +2263,16 @@ def main() -> int:
     hy_train = train_phase(dev, mods, "hybrid_1b3", 2048)
     grad_check(dev, "hybrid_1b3", 2048)
     _reset_counts(mods)
-    # fp32 at D 32: the simt backward kernels' path, their launches counted from 0
+    # fp32 at D 32: the simt kernels' path of rows 1, 6, 7 and 8, their
+    # launches counted from 0
     tiny_train(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16)")
-    flash_simt = {k: v for k, v in _counts(mods).items() if k.startswith("flash_d")}
-    log(f"tiny hybrid fp32 train launches: {flash_simt}")
-    if not (flash_simt["flash_dq_simt"] and flash_simt["flash_dkv_simt"]) or \
-            flash_simt["flash_dq_wgmma"] or flash_simt["flash_dkv_wgmma"]:
-        raise AssertionError(f"the tiny hybrid trained on the card in fp32 without the simt flash "
-                             f"backward kernels, or with the wgmma ones: {flash_simt}")
+    tiny_simt = {k: v for k, v in _counts(mods).items()
+                 if k.startswith(("flash", "causal_dot_norm"))}
+    log(f"tiny hybrid fp32 train launches: {tiny_simt}")
+    if not all(v for k, v in tiny_simt.items() if k.endswith("_simt")) or \
+            any(v for k, v in tiny_simt.items() if k.endswith("_wgmma")):
+        raise AssertionError(f"the tiny hybrid trained on the card in fp32 without the simt "
+                             f"kernels of rows 1, 6, 7 and 8, or with a wgmma one: {tiny_simt}")
     log(f"hybrid_1b3 phases done at {time.perf_counter() - t0:.1f} s")
 
     dropless = {"moe_dropless": True}
@@ -2214,10 +2325,11 @@ def main() -> int:
             k["launches"] = af_train["launches"][k["name"]]
             k["launches_per_step"] = af_train["per_step"][0][k["name"]]
             continue
-        if k["name"].startswith("flash") and k["name"].endswith("_simt"):
+        if k["name"] in tiny_simt and k["name"].endswith("_simt"):
             # the main path: the tiny hybrid's fp32 training
-            k["launches"] = flash_simt[k["name"]]
-            k["launches_hybrid_1b3"] = {"train": hy_train["launches"][k["name"]]}
+            k["launches"] = tiny_simt[k["name"]]
+            k["launches_hybrid_1b3"] = {"train": hy_train["launches"][k["name"]],
+                                        "generate": hy_gen["launches"][k["name"]]}
             continue
         if k["name"].endswith("_simt"):  # the main path: the tiny dropless MoE's fp32 training
             k["launches"] = simt[k["name"]]

@@ -7,15 +7,20 @@ deliberately wrong copies of them, each made by one textual edit of a
 source in ``orion_tpu_torch/csrc/``: ``causal_dot_norm.cu`` ("fwd", the
 linear forward and the public op's raw forward), ``causal_dot_bwd.cu``
 ("bwd", the backward kernels of both),
-``flash_attention.cu`` ("flash_fwd"), ``flash_attention_bwd.cu``
-("flash_bwd", dq and dk/dv: the wgmma kernels' copies named
-``flash_wgmma_*``, faults of their data, masks, loops and pipeline, the
-simt kernels' the other ``flash_*``), ``gmm.cu`` ("gmm", the grouped matmul's
+``flash_attention.cu`` ("flash_fwd": the wgmma kernel's copies named
+``flash_wgmma_fwd_*``, the simt kernel's the other ``flash_*``),
+``flash_attention_bwd.cu`` ("flash_bwd", dq and dk/dv: the wgmma kernels'
+copies named ``flash_wgmma_*``, faults of their data, masks, loops and
+pipeline, the simt kernels' the other ``flash_*``), ``gmm.cu`` ("gmm", the grouped matmul's
 forward and dw: the wgmma kernels' copies named ``gmm_wgmma_*``, faults of
 their data and of their TMA / mbarrier / wgmma pipeline, the simt kernels'
 the other ``gmm_*``), ``q4_matmul.cu`` ("q4", the int4 dequant-matmul) or
-``adafactor.cu`` ("adafactor", the fused Adafactor's three passes), written
-under
+``adafactor.cu`` ("adafactor", the fused Adafactor's three passes); in
+``causal_dot_norm.cu`` the wgmma kernel's copies are named ``norm_wgmma_*``.
+A copy whose text lies in the shared header ``hopper.cuh`` instead of the
+source patches the header: the source and the patched header go together
+into a directory of their own, where the source's ``#include "hopper.cuh"``
+finds the copy first. All copies are written under
 ``orion_tpu_torch/_build/mutants/`` (the sources in the checkout are never
 changed); all the builds start together, one nvcc each. Then it holds each
 copy against the plain versions with ``chip_smoke.compare_causal_dot``
@@ -36,6 +41,7 @@ must be rejected is not. Imports nothing of JAX.
 import json
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -60,6 +66,29 @@ _DQ_DS = ("split_pair(p0 * (dp[j] - dl[h]) * scale, p1 * (dp[j + 1] - dl[h]) * s
 _DKV_DS = ("split_pair(p0 * (dp[j] - dl.x) * scale, p1 * (dp[j + 1] - dl.y) * scale, "
            "dhi[j / 2],")
 _DV_HI = "wgmma_m64n128k16<1>(acc_dv, phi + 4 * kk, mnmajor(gs, kk));"
+HEADER = "hopper.cuh"  # the header the wgmma sources share, in library.CSRC
+
+
+def _moved_ahead(path, block_start, block_end, ahead_of, between):
+    """(old, new) for a copy of ``path`` in which the block from the line
+    ``block_start`` through ``block_end`` runs before the line ``ahead_of``,
+    followed by ``between``: the text from ``ahead_of`` to the block's end,
+    and the same with the block first."""
+    text = Path(path).read_text()
+    a = text.index(ahead_of)
+    b = text.index(block_start, a)
+    c = text.index(block_end, b) + len(block_end)
+    return text[a:c], text[b:c] + between + text[a:b]
+
+
+# the linear-attention wgmma forward with its state update (S += k^T v and
+# the halves written to shared memory) ahead of the chunk's num = A v + q S
+_STATE_FIRST = _moved_ahead(
+    causal_dot.SOURCES["fwd"], "    // S += k^T v: k^T read MN-major",
+    "    write_state(sa, sb, s_hi, s_lo);\n    fence_async_smem();\n",
+    "    // num = A v + q S: A's halves", "    named_barrier(1, 128);\n")
+_Z_SUM = ("acc += __bfloat162float(*reinterpret_cast<const bf16*>(kt + tile_offset(t, tid)));\n"
+          "      zs[tid] += acc;")
 _Q4_UNPACK = ("const float lo = (float)((int)(w << (28 - 8 * c)) >> 28);\n"
               "            const float hi = (float)((int)(w << (24 - 8 * c)) >> 28);")
 
@@ -176,6 +205,49 @@ MUTANTS = [
     ("flash_wgmma_lse_row_off", "flash_bwd", "reads each query's lse from the next row (dq)",
      "lse2[h] = t < t_q ? lse[(size_t)bh * t_q + t] * LOG2E : 0.f;",
      "lse2[h] = t < t_q ? lse[(size_t)bh * t_q + min(t + 1, t_q - 1)] * LOG2E : 0.f;", True),
+    # the flash forward's wgmma route (row 6, bf16 at D 128)
+    ("flash_wgmma_fwd_lo_dropped", "flash_fwd",
+     "drops P's low bf16 half: P rounded once to bf16 before P v",
+     "kk < WT / 16; ++kk) wgmma_m64n128k16<1>(acc, plo",
+     "kk < 0; ++kk) wgmma_m64n128k16<1>(acc, plo", True),
+    ("flash_wgmma_fwd_ring_off_by_one", "flash_fwd",
+     "reads the ring's stage before the one whose barrier it waited on",
+     "const uint32_t ks = r.k(s), vs = r.v(s);",
+     "const int s2 = (s + STAGES - 1) % STAGES;\n      const uint32_t ks = r.k(s2), vs = r.v(s2);",
+     True),
+    ("flash_wgmma_fwd_window_off_by_one", "flash_fwd",
+     "lets each query see w + 1 keys in the wgmma kernel's mask: t - s <= w for t - s < w",
+     "(window <= 0 || t - s < window);", "(window <= 0 || t - s <= window);", True),
+    ("flash_wgmma_fwd_diagonal_as_interior", "flash_fwd",
+     "treats the diagonal tile as wholly inside the band, so its mask is skipped",
+     "(!causal || s0 + 63 <= t0)", "(!causal || s0 <= t0)", True),
+    ("flash_wgmma_fwd_alpha_one", "flash_fwd",
+     "never rescales l and the accumulator when the running max grows (alpha = 1)",
+     "alpha[h] = fast_exp2(m[h] - base[h]);", "alpha[h] = 1.f;", True),
+    ("flash_wgmma_fwd_lse_row_off", "flash_fwd", "writes each query's lse into the next row",
+     "lse[(size_t)bh * t_q + t] = l[h] == 0.f ?",
+     "lse[(size_t)bh * t_q + min(t + 1, t_q - 1)] = l[h] == 0.f ?", True),
+    # the linear-attention forward's wgmma route (row 1, bf16 at Dk 128)
+    ("norm_wgmma_a_lo_dropped", "fwd",
+     "drops the low bf16 half of the scores A: A rounded once to bf16 before A v",
+     "kk < WC / 16; ++kk) wgmma_m64n64k16_rs<1>(num, alo",
+     "kk < 0; ++kk) wgmma_m64n64k16_rs<1>(num, alo", True),
+    ("norm_wgmma_s_lo_dropped", "fwd",
+     "drops the low bf16 half of the state S: S rounded once to bf16 before q S",
+     "for (int kk = 0; kk < WDK / 16; ++kk)\n      wgmma_m64n64k16<0, 1>(num, kmajor(qs, kk), "
+     "mnmajor(r.s_lo(), kk));",
+     "for (int kk = 0; kk < 0; ++kk)\n      wgmma_m64n64k16<0, 1>(num, kmajor(qs, kk), "
+     "mnmajor(r.s_lo(), kk));", True),
+    ("norm_wgmma_state_before_qs", "fwd",
+     "updates S by the chunk's k^T v and writes its halves before the chunk's q S reads them",
+     *_STATE_FIRST, True),
+    ("norm_wgmma_z_update_dropped", "fwd", "never adds the chunk's k to z",
+     _Z_SUM, _Z_SUM.replace("zs[tid] += acc;", "zs[tid] += 0.f * acc;"), True),
+    ("norm_wgmma_den_qz_dropped", "fwd", "drops q . z (the earlier chunks) from den",
+     "      den[h] = acc;", "      den[h] = 0.f * acc;", True),
+    ("norm_wgmma_mask_one_wider", "fwd", "lets each token see the next one: s <= t + 1",
+     "if (col > t) a[j] = 0.f;\n      if (col + 1 > t) a[j + 1] = 0.f;",
+     "if (col > t + 1) a[j] = 0.f;\n      if (col + 1 > t + 1) a[j + 1] = 0.f;", True),
     ("gmm_expert_off_by_one", "gmm", "reads each row tile's expert from the next tile's entry",
      "tile_expert[row0 / tile_rows]", "tile_expert[min(row0 / tile_rows + 1, m / tile_rows - 1)]",
      True),
@@ -352,14 +424,24 @@ def main() -> int:
     chip_smoke.card_info()
     sound = {k: mod.SOURCES[key] for k, (mod, key) in SOURCES.items()}
     texts = {k: p.read_text() for k, p in sound.items()}
+    header = (library.CSRC / HEADER).read_text()
     mutant_dir = library.BUILD_DIR / "mutants"
     mutant_dir.mkdir(parents=True, exist_ok=True)
     paths = {}
     for name, source, _, old, new, _ in MUTANTS:
-        if texts[source].count(old) != 1:
-            raise RuntimeError(f"mutant {name}: its text is not once in {sound[source]}")
-        paths[name] = mutant_dir / f"{sound[source].stem}_{name}.cu"
-        paths[name].write_text(texts[source].replace(old, new))
+        text = texts[source]
+        if text.count(old) == 1:
+            paths[name] = mutant_dir / f"{sound[source].stem}_{name}.cu"
+            paths[name].write_text(text.replace(old, new))
+        elif text.count(old) == 0 and header.count(old) == 1 and f'#include "{HEADER}"' in text:
+            own = mutant_dir / name  # the source beside its patched header
+            own.mkdir(exist_ok=True)
+            (own / HEADER).write_text(header.replace(old, new))
+            paths[name] = own / sound[source].name
+            paths[name].write_text(text)
+        else:
+            raise RuntimeError(f"mutant {name}: its text is not once in {sound[source]} "
+                               f"or, failing that, in the {HEADER} it includes")
     builds = list(sound.values()) + list(paths.values())
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc for each source, all at once
         list(pool.map(library.build, builds))

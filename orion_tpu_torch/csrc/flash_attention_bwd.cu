@@ -88,9 +88,9 @@
 //     a store.
 //   - A wait on an mbarrier that has not completed after 4 s of the card's
 //     clock traps: a pipeline fault is a launch error, never a hung card.
-//   The TMA, mbarrier and descriptor helpers are copies of csrc/gmm.cu's
-//   (each source builds into its own library; a shared header waits for the
-//   build to hash the headers a source includes).
+//   The TMA, mbarrier and wgmma helpers, the operand layouts of a 64 x 128
+//   tile and split_pair come from hopper.cuh, shared with gmm.cu,
+//   flash_attention.cu and causal_dot_norm.cu.
 //
 // The simt route: dq: one block per (b*h, 64-row q tile); per k tile S, P,
 // dP = g v^T and dS in registers, dS through shared memory into dq += dS k.
@@ -103,13 +103,15 @@
 // (64 x 65): 148,736 bytes; dk/dv keeps k, v, q, g, P^T and dS^T, lse and
 // delta: 165,888 bytes. One block per SM.
 
-#include <cuda.h>         // CUtensorMap and its enums (types only: no -lcuda)
-#include <cudaTypedefs.h> // PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // key rows per tile
@@ -400,8 +402,6 @@ constexpr int WD = 128;                    // the head width this route takes
 constexpr int WT = 64;                     // rows of a streamed tile, and of a warpgroup
 constexpr int WROWS = 128;                 // a block's own rows: two warpgroups of 64
 constexpr int STAGES = 3;  // 2, 3 and 4 time alike at hybrid_1b3's training shape
-constexpr int HALF_BYTES = 64 * 64 * 2;    // one TMA box: 64 rows x 64 d, 8 KB
-constexpr int TILE_BYTES = 2 * HALF_BYTES; // 64 rows x 128 d
 // a stage: two tiles, then 64 lse (times log2 e) and 64 delta values (dk/dv),
 // padded to keep the next stage 1024-byte aligned
 constexpr int STAGE_BYTES = 2 * TILE_BYTES + 1024;
@@ -418,152 +418,6 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 
 // swizzle repeats every 8 rows of 128 bytes), then the barriers
 constexpr int WG_SMEM = 1024 + RESIDENT_BYTES + STAGES * STAGE_BYTES + (2 * STAGES + 1) * 8;
 constexpr float LOG2E = 1.4426950408889634f;
-
-// 128-byte swizzled operand layouts, as the wgmma descriptor reads them (the
-// constants of gmm.cu). K-major ([rows][64 d], one 128-byte row each): 8-row
-// groups 1024 bytes apart (the stride byte offset), the leading offset
-// unused; a 16-deep slice starts 32 bytes further along the row, and slices
-// 4-7 in the tile's second box. MN-major ([64 k rows][64 columns] boxes):
-// 8-k-row groups 1024 bytes apart, the next 64 columns one box (the leading
-// offset) further; a 16-deep slice starts 16 rows (2048 bytes) further.
-constexpr uint32_t SBO = 1024;
-constexpr uint32_t KMAJOR_LBO = 16, KMAJOR_STEP = 32;
-constexpr uint32_t MNMAJOR_LBO = HALF_BYTES, MNMAJOR_STEP = 16 * 128;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait until the barrier's phase of this parity has completed. Traps after 4
-// s: a fault in the pipeline (bytes that never arrive) ends the launch with
-// an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const uint64_t now = global_ns();
-    if (t0 == 0) t0 = now;
-    else if (now - t0 > 4000000000ull) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
-      "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Rows [row, row + 64) of head bh (all 128 d) into a tile: two boxes.
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int row, int bh) {
-  tma_3d(dst, map, bar, 0, row, bh);
-  tma_3d(dst + HALF_BYTES, map, bar, 64, row, bh);
-}
-
-// A shared-memory matrix descriptor with the 128-byte swizzle.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((SBO >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// The 16-deep slice kk (0..7, over d) of a 64-row tile read K-major, and the
-// slice kk (0..3, over its rows) of a tile read MN-major as a 64 x 128 B.
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
-  return sw128_desc(tile + (kk >> 2) * HALF_BYTES + (kk & 3) * KMAJOR_STEP, KMAJOR_LBO);
-}
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
-  return sw128_desc(tile + kk * MNMAJOR_STEP, MNMAJOR_LBO);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across a wgmma.
-template <int N> __device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC8(i)                                                                             \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], both K-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d[64 x 128] += A[64 x 16] B[16 x 128]: A from registers (four bf16 pairs a
-// thread), B in shared memory; TB: B's transpose bit, 1 for MN-major.
-template <int TB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
-}
-
-#undef ACC8
-
-// x as hi = bf16(x) and lo = bf16(x - hi), two values a register: the A
-// fragment's pairs (the lower column in the lower half).
-__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // Whether query t sees key s (the forward's mask).
 __device__ __forceinline__ bool visible(int t, int s, int t_q, int t_k, int causal, int window) {
@@ -623,10 +477,6 @@ __device__ __forceinline__ int free_stage(const Ring& r, int i) {
   const int s = i % STAGES;
   if (i >= STAGES) mbar_wait(r.empty(s), ((i / STAGES) + 1) & 1);
   return s;
-}
-
-template <typename T> __device__ __forceinline__ T* at(uint32_t smem_addr, unsigned char* smem) {
-  return reinterpret_cast<T*>(smem + (smem_addr - smem_u32(smem)));
 }
 
 // acc[64] (m64n128 layout) of a warpgroup into rows [r0, r0 + 64) of out
@@ -866,46 +716,12 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_dkv_wgmma_kernel(
   store_rows_bf16(acc_dv, dv + (size_t)bh * t_k * WD, c0, t_k);
 }
 
-// cuTensorMapEncodeTiled through the runtime's entry point (no -lcuda).
-PFN_cuTensorMapEncodeTiled encode_fn() {
-  static PFN_cuTensorMapEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 [BH, T, 128] tensor as a 3-D map {128, T, BH}, read in boxes of 64
-// rows x 64 d, 128-byte swizzled, zeros past T.
-bool encode_heads(CUtensorMap* map, const void* base, int t, int bh) {
-  const PFN_cuTensorMapEncodeTiled fn = encode_fn();
-  const cuuint64_t dims[3] = {(cuuint64_t)WD, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)WD * 2, (cuuint64_t)t * WD * 2};
-  const cuuint32_t box[3] = {64, WT, 1}, ones[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool tma_ok(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 // The four tensor maps of a wgmma launch, or false.
 bool encode_all(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
                 const void* g, int bh, int t_q, int t_k) {
-  return tma_ok(q) && tma_ok(k) && tma_ok(v) && tma_ok(g) && encode_heads(&maps[0], q, t_q, bh) &&
-         encode_heads(&maps[1], k, t_k, bh) && encode_heads(&maps[2], v, t_k, bh) &&
-         encode_heads(&maps[3], g, t_q, bh);
+  return tma_ok(q) && tma_ok(k) && tma_ok(v) && tma_ok(g) &&
+         encode_heads(&maps[0], q, WD, t_q, bh) && encode_heads(&maps[1], k, WD, t_k, bh) &&
+         encode_heads(&maps[2], v, WD, t_k, bh) && encode_heads(&maps[3], g, WD, t_q, bh);
 }
 
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* g,

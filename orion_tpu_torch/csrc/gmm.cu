@@ -65,6 +65,8 @@
 //     needs no -lcuda.
 //   - A wait on an mbarrier that has not completed after 4 s of the card's
 //     clock traps: a pipeline fault is a launch error, never a hung card.
+//   - The TMA, mbarrier and wgmma helpers come from hopper.cuh, shared with
+//     the flash attention and linear attention kernels.
 //   Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 0.32-0.38
 //   ms a call at that shape, 49-58 % of the operations bound. A call brings
 //   2.3 GB from L2 into shared memory (48 KB a block and step), at 6.1-7.1
@@ -95,17 +97,18 @@
 //     order, and an expert with no tile writes zeros from its untouched
 //     accumulators.
 
-#include <cuda.h>         // CUtensorMap and its enums (types only: no -lcuda)
-#include <cudaTypedefs.h> // PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128;   // output tile rows (x rows; dw's d)
@@ -372,93 +375,8 @@ constexpr int WG_SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 // KB): 8-k-row groups 1024 bytes apart, the next 64 columns of M or N one box
 // (8 KB, the leading offset) further; a 16-deep slice starts 16 rows (2048
 // bytes) further.
-constexpr uint32_t SBO = 1024;
 constexpr uint32_t KMAJOR_LBO = 16, KMAJOR_STEP = 32;
 constexpr uint32_t MNMAJOR_LBO = CHUNK_BYTES, MNMAJOR_STEP = 16 * 128;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait until the barrier's phase of this parity has completed. Traps after 4
-// s: a fault in the pipeline (bytes that never arrive) ends the launch with
-// an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const uint64_t now = global_ns();
-    if (t0 == 0) t0 = now;
-    else if (now - t0 > 4000000000ull) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-      "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
-      "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor with the 128-byte swizzle.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((SBO >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across a wgmma.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 #define ACC8(i)                                                                             \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
@@ -649,39 +567,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1) gmm_dw_wgmma_kernel(
   store_acc(acc, dw + ((size_t)e * d + d0) * h + h0, h, d - d0, h - h0);
 }
 
-// cuTensorMapEncodeTiled through the runtime's entry point (no -lcuda).
-PFN_cuTensorMapEncodeTiled encode_fn() {
-  static PFN_cuTensorMapEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor map of `rank` dims (innermost first, byte strides of dims 1..)
-// read in boxes `box`, 128-byte swizzled, zeros past every edge.
-bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
-  const PFN_cuTensorMapEncodeTiled fn = encode_fn();
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool tma_ok(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 template <bool TRANSPOSE_W>
 cudaError_t launch_fwd_wgmma(const void* x, const void* w, const int* te, void* y, int m, int k,
                              int n, int n_experts, int tile_rows, cudaStream_t stream) {
@@ -693,7 +578,8 @@ cudaError_t launch_fwd_wgmma(const void* x, const void* w, const int* te, void* 
   const cuuint64_t wdims[3] = {inner, outer, (cuuint64_t)n_experts};
   const cuuint64_t wstr[2] = {inner * 2, inner * outer * 2};
   const cuuint32_t wbox[3] = {64, TRANSPOSE_W ? (cuuint32_t)WN : (cuuint32_t)WK, 1};
-  if (!encode(&xmap, x, 2, xdims, xstr, xbox) || !encode(&wmap, w, 3, wdims, wstr, wbox))
+  if (!encode_bf16(&xmap, x, 2, xdims, xstr, xbox) ||
+      !encode_bf16(&wmap, w, 3, wdims, wstr, wbox))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(gmm_fwd_wgmma_kernel<TRANSPOSE_W>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
@@ -711,7 +597,8 @@ cudaError_t launch_dw_wgmma(const void* x, const void* g, const int* start, cons
   const cuuint64_t xdims[2] = {(cuuint64_t)d, (cuuint64_t)m}, xstr[1] = {(cuuint64_t)d * 2};
   const cuuint64_t gdims[2] = {(cuuint64_t)h, (cuuint64_t)m}, gstr[1] = {(cuuint64_t)h * 2};
   const cuuint32_t box[2] = {64, WK};
-  if (!encode(&xmap, x, 2, xdims, xstr, box) || !encode(&gmap, g, 2, gdims, gstr, box))
+  if (!encode_bf16(&xmap, x, 2, xdims, xstr, box) ||
+      !encode_bf16(&gmap, g, 2, gdims, gstr, box))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(gmm_dw_wgmma_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);

@@ -5,15 +5,23 @@ backward.
 Five kernels, each replacing a TPU kernel of
 ``orion_tpu/ops/pallas/causal_dot.py``. The fused normalized ones:
 
-- ``causal_dot_norm_cuda`` (``csrc/causal_dot_norm.cu``) <- ``_kernel_norm``
-  (``_cdpn_flat``): for phi-mapped q, k [BH, T, Dk] and v [BH, T, Dv]
+- ``causal_dot_norm_cuda`` (``csrc/causal_dot_norm.cu``,
+  ``causal_dot_norm_wgmma_kernel`` or ``causal_dot_norm_kernel``) <-
+  ``_kernel_norm`` (``_cdpn_flat``): for phi-mapped q, k [BH, T, Dk] and v
+  [BH, T, Dv]
 
       out[t] = q_t . S_t / (q_t . z_t + eps)      (input dtype)
       S, z   = the final kv-cumsum state           (fp32)
 
   seeded by an optional fp32 (S0 [BH, Dk, Dv], z0 [BH, Dk]); with
   ``with_parts`` also the fp32 numerator [BH, T, Dv] and denominator
-  [BH, T] (before eps), the residuals of the backward;
+  [BH, T] (before eps), the residuals of the backward. Two variants,
+  chosen before the launch by ``causal_dot_norm_variant`` from dtype, widths
+  and alignment alone: "wgmma" (TMA into a ring of shared-memory stages,
+  Hopper's ``wgmma`` from there, the fp32 scores A and state S split into
+  two bf16 halves for the products the TPU kernel takes in fp32) for bf16 at
+  Dk 128 with Dv a multiple of 64 and 16-byte-aligned bases, every model's
+  shape; "simt" (fp32 FMAs on the CUDA cores) for the rest;
 - ``causal_dot_dq_den_cuda`` (``csrc/causal_dot_bwd.cu``) <-
   ``_bwd_dq_den_kernel`` (``_cdp_dq_den_flat``): dq;
 - ``causal_dot_rev_den_cuda`` (same source) <- ``_bwd_rev_core``
@@ -41,7 +49,10 @@ quotient rule in plain torch and the two backward kernels
 
 Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
 launches (``launches``, ``launches_dq``, ``launches_rev``, ``launches_raw``,
-``launches_raw_rev``: kernel launches and nothing else). Each ``*_plain`` function is its kernel's function in
+``launches_raw_rev``: kernel launches and nothing else; ``launches_wgmma``
+and ``launches_simt`` split ``launches`` by variant). A variant that fails
+to build or launch raises: it never gives way to the other variant or to
+the plain version. Each ``*_plain`` function is its kernel's function in
 plain PyTorch, on any device. The libraries are compiled with ``nvcc`` for
 ``sm_90a`` at first use (``library.py``: into ``orion_tpu_torch/_build/``,
 under a name carrying a hash of the source) and loaded with ``ctypes``.
@@ -71,6 +82,7 @@ SOURCES = {
 D_MAX = 128
 
 launches = 0  # forward kernel launches since import (or since a caller reset it)
+launches_wgmma = launches_simt = 0  # the forward's launches by variant
 launches_dq = 0  # dq-pass kernel launches
 launches_rev = 0  # reverse-pass kernel launches
 launches_raw = 0  # unnormalized forward kernel launches (the public op's forward and dq pass)
@@ -84,6 +96,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fwd": {
         "causal_dot_norm_fwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
+        "causal_dot_norm_fwd_wgmma": [_P] * 10 + [_I] * 3 + [ctypes.c_float, _P],
         "causal_dot_fwd": [_P] * 6 + [_I] * 5 + [_P],
     },
     "bwd": {
@@ -146,18 +159,32 @@ def _check_gden(gden: Tensor, bh: int, t: int):
 # ---------------------------------------------------------------------------
 
 
+WGMMA_DK, WGMMA_DV_STEP = 128, 64  # the wgmma variant's Dk, and the multiple Dv must be
+
+
+def causal_dot_norm_variant(q: Tensor, k: Tensor, v: Tensor) -> str:
+    """The forward kernel that takes q, k [BH, T, Dk] and v [BH, T, Dv]:
+    "wgmma" when all three are bf16 at Dk 128 with Dv a multiple of 64 and
+    16-byte-aligned bases (what its TMA tensor maps describe), else "simt".
+    From dtype, shape and alignment alone, before any launch."""
+    if (all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0 for t in (q, k, v))
+            and q.shape[-1] == k.shape[-1] == WGMMA_DK and v.shape[-1] % WGMMA_DV_STEP == 0):
+        return "wgmma"
+    return "simt"
+
+
 def causal_dot_norm_cuda(
     q: Tensor, k: Tensor, v: Tensor,
     s0: Optional[Tensor] = None, z0: Optional[Tensor] = None,
     *, eps: float = 1e-6, with_parts: bool = False,
 ):
-    """Launch the forward kernel on the current stream -> (out, S, z), and
-    with ``with_parts`` also (num, den). Raises on anything it does not
-    take: an input that requires grad while grad is enabled (the outputs
-    would carry none), CPU tensors, mixed devices, a dtype other than
-    bf16/fp32, non-contiguous inputs, Dk > 128. The kernel's chunk is a
-    constant of its source."""
-    global launches
+    """Launch the forward kernel that ``causal_dot_norm_variant`` names on
+    the current stream -> (out, S, z), and with ``with_parts`` also (num,
+    den). Raises on anything it does not take: an input that requires grad
+    while grad is enabled (the outputs would carry none), CPU tensors, mixed
+    devices, a dtype other than bf16/fp32, non-contiguous inputs, Dk > 128.
+    The kernel's chunk is a constant of its source."""
+    global launches, launches_wgmma, launches_simt
     raise_if_grad([q, k, v, s0, z0], _GRAD_PATH)
     _check(q, k, v, s0, z0)
     check_launch("causal_dot_norm_cuda", [q, k, v], [s0, z0])
@@ -172,16 +199,23 @@ def causal_dot_norm_cuda(
     if with_parts:
         num = torch.empty(bh, t, dv, dtype=torch.float32, device=q.device)
         den = torch.empty(bh, t, dtype=torch.float32, device=q.device)
+    chosen = causal_dot_norm_variant(q, k, v)
     lib = _library("fwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(s0), _ptr(z0), out.data_ptr(),
+            sf.data_ptr(), zf.data_ptr(), _ptr(num), _ptr(den))
     with torch.cuda.device(q.device):
-        err = lib.causal_dot_norm_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(s0), _ptr(z0),
-            out.data_ptr(), sf.data_ptr(), zf.data_ptr(), _ptr(num), _ptr(den),
-            bh, t, dk, dv, int(q.dtype == torch.bfloat16), eps, _stream(q.device),
-        )
+        if chosen == "wgmma":
+            err = lib.causal_dot_norm_fwd_wgmma(*ptrs, bh, t, dv, eps, _stream(q.device))
+        else:
+            err = lib.causal_dot_norm_fwd(
+                *ptrs, bh, t, dk, dv, int(q.dtype == torch.bfloat16), eps, _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"causal_dot_norm kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"causal_dot_norm kernel ({chosen}) failed: cudaError_t {err}")
     launches += 1
+    if chosen == "wgmma":
+        launches_wgmma += 1
+    else:
+        launches_simt += 1
     return (out, sf, zf, num, den) if with_parts else (out, sf, zf)
 
 
@@ -580,7 +614,7 @@ class CausalDotProductFn(torch.autograd.Function):
 __all__ = [
     "causal_dot_cuda", "causal_dot_plain", "causal_dot_rev_cuda", "causal_dot_rev_plain",
     "CausalDotProductFn",
-    "causal_dot_norm_cuda", "causal_dot_norm_plain",
+    "causal_dot_norm_cuda", "causal_dot_norm_plain", "causal_dot_norm_variant",
     "causal_dot_dq_den_cuda", "causal_dot_dq_den_plain",
     "causal_dot_rev_den_cuda", "causal_dot_rev_den_plain",
     "LinearAttentionFn", "quotient_rule", "SOURCES",

@@ -4,8 +4,9 @@ and the autograd Function that joins forward and backward.
 Three kernels, each replacing a TPU kernel of
 ``orion_tpu/ops/pallas/flash_attention.py``:
 
-- ``flash_fwd_cuda`` (``csrc/flash_attention.cu``) <- ``_fwd_kernel``
-  (``_flash_fwd_flat``): for q [BH, Tq, D] and k, v [BH, Tk, D]
+- ``flash_fwd_cuda`` (``csrc/flash_attention.cu``, ``flash_fwd_wgmma_kernel``
+  or ``flash_fwd_kernel``) <- ``_fwd_kernel`` (``_flash_fwd_flat``): for q
+  [BH, Tq, D] and k, v [BH, Tk, D]
 
       out[t] = softmax_s(scale q_t . k_s) v      (input dtype)
       lse[t] = log sum_s exp(scale q_t . k_s)    (fp32 [BH, Tq, 1])
@@ -18,13 +19,13 @@ Three kernels, each replacing a TPU kernel of
 - ``flash_dkv_cuda`` (same source, ``flash_dkv_wgmma_kernel`` or
   ``flash_dkv_kernel``) <- ``_dkv_kernel``: dk, dv.
 
-Each backward pass has two variants, chosen before the launch by
-``flash_bwd_variant`` from dtype, head width and alignment alone: "wgmma"
-(TMA into a ring of shared-memory stages, Hopper's ``wgmma`` from there,
-P and dS split into two bf16 halves for the second products) for bf16 at
-D 128 with 16-byte-aligned bases, every model's training shape; "simt"
-(fp32 FMAs on the CUDA cores) for the rest: fp32 (the tiny models) and
-other head widths.
+Each kernel has two variants, chosen before the launch by
+``flash_fwd_variant`` / ``flash_bwd_variant`` from dtype, head width and
+alignment alone: "wgmma" (TMA into a ring of shared-memory stages, Hopper's
+``wgmma`` from there, P (and dS) split into two bf16 halves for the products
+the TPU kernels take in fp32) for bf16 at D 128 with 16-byte-aligned bases,
+every model's shape; "simt" (fp32 FMAs on the CUDA cores) for the rest:
+fp32 (the tiny models) and other head widths.
 
 ``FlashAttentionFn`` is the counterpart of the JAX package's ``_flash_lse``
 custom VJP: the forward kernel, then in the backward delta = rowsum(g . out)
@@ -35,7 +36,7 @@ with lse [..., T, 1].
 Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
 launches (``launches_fwd``, ``launches_dq``, ``launches_dkv``: kernel
 launches of either variant and nothing else;
-``launches_{dq,dkv}_{wgmma,simt}`` by variant). A variant that fails to
+``launches_{fwd,dq,dkv}_{wgmma,simt}`` by variant). A variant that fails to
 build or launch raises: it never gives way to the other variant or to the
 plain version. Each ``*_plain`` function is its kernel's
 function in plain PyTorch on any device, materializing the fp32 scores
@@ -67,6 +68,7 @@ D_MAX = 128  # the kernels' largest head width
 _NEG = -1e30  # the masked score, as the TPU kernel's
 
 launches_fwd = 0  # forward kernel launches since import (or since a caller reset it)
+launches_fwd_wgmma = launches_fwd_simt = 0  # by variant
 launches_dq = 0  # dq-pass kernel launches, either variant
 launches_dkv = 0  # dk/dv-pass kernel launches, either variant
 launches_dq_wgmma = launches_dq_simt = 0  # by variant
@@ -77,7 +79,10 @@ _GRAD_PATH = "flash_attention / FlashAttentionFn"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "fwd": {"flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]},
+    "fwd": {
+        "flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
+        "flash_attention_fwd_wgmma": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P],
+    },
     "bwd": {
         "flash_attention_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
         "flash_attention_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
@@ -135,16 +140,33 @@ def _args(causal: bool, window: Optional[int]) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
+WGMMA_D = 128  # the head width of the wgmma variants
+
+
+def _wgmma_ok(*tensors: Tensor) -> bool:
+    """bf16 at D 128 with 16-byte-aligned bases: what a TMA tensor map of
+    the wgmma kernels describes."""
+    return all(t.dtype == torch.bfloat16 and t.shape[-1] == WGMMA_D and t.data_ptr() % 16 == 0
+               for t in tensors)
+
+
+def flash_fwd_variant(q: Tensor, k: Tensor, v: Tensor) -> str:
+    """The forward kernel that takes q [BH, Tq, D] and k, v [BH, Tk, D]:
+    "wgmma" when all three are bf16 at D 128 with 16-byte-aligned bases,
+    else "simt". From dtype, shape and alignment alone, before any launch."""
+    return "wgmma" if _wgmma_ok(q, k, v) else "simt"
+
+
 def flash_fwd_cuda(
     q: Tensor, k: Tensor, v: Tensor, *,
     causal: bool = True, window: Optional[int] = None, scale: Optional[float] = None,
 ) -> Tuple[Tensor, Tensor]:
-    """Launch the forward kernel on the current stream -> (out in the input
-    dtype, lse [BH, Tq, 1] fp32). Raises on anything it does not take: an
-    input that requires grad while grad is enabled (the outputs would carry
-    none), CPU tensors, mixed devices, a dtype other than bf16/fp32,
-    non-contiguous inputs, D > 128."""
-    global launches_fwd
+    """Launch the forward kernel that ``flash_fwd_variant`` names on the
+    current stream -> (out in the input dtype, lse [BH, Tq, 1] fp32). Raises
+    on anything it does not take: an input that requires grad while grad is
+    enabled (the outputs would carry none), CPU tensors, mixed devices, a
+    dtype other than bf16/fp32, non-contiguous inputs, D > 128."""
+    global launches_fwd, launches_fwd_wgmma, launches_fwd_simt
     raise_if_grad([q, k, v], _GRAD_PATH)
     _check(q, k, v, window)
     check_launch("flash_fwd_cuda", [q, k, v], [])
@@ -153,16 +175,25 @@ def flash_fwd_cuda(
         raise ValueError(f"D {d} > {D_MAX}, the kernel's limit")
     out = torch.empty_like(q)
     lse = torch.empty(bh, t_q, 1, dtype=torch.float32, device=q.device)
+    chosen = flash_fwd_variant(q, k, v)
     lib = _library("fwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            bh, t_q, k.shape[1], d, int(q.dtype == torch.bfloat16), _scale(q, scale),
-            *_args(causal, window), _stream(q.device),
-        )
+        if chosen == "wgmma":
+            err = lib.flash_attention_fwd_wgmma(
+                *ptrs, bh, t_q, k.shape[1], _scale(q, scale), *_args(causal, window),
+                _stream(q.device))
+        else:
+            err = lib.flash_attention_fwd(
+                *ptrs, bh, t_q, k.shape[1], d, int(q.dtype == torch.bfloat16), _scale(q, scale),
+                *_args(causal, window), _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_attention forward kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"flash_attention forward kernel ({chosen}) failed: cudaError_t {err}")
     launches_fwd += 1
+    if chosen == "wgmma":
+        launches_fwd_wgmma += 1
+    else:
+        launches_fwd_simt += 1
     return out, lse
 
 
@@ -197,18 +228,12 @@ def _check_bwd(q, k, v, g, lse, delta, window):
     _check_rows("delta", delta, q.shape[0], q.shape[1])
 
 
-WGMMA_D = 128  # the head width of the wgmma variant
-
-
 def flash_bwd_variant(q: Tensor, k: Tensor, v: Tensor, g: Tensor) -> str:
     """The backward kernels that take q, g [BH, Tq, D] and k, v [BH, Tk, D]:
     "wgmma" when all four are bf16 at D 128 with 16-byte-aligned bases
     (what a TMA tensor map describes), else "simt". From dtype, shape and
     alignment alone, before any launch."""
-    if all(t.dtype == torch.bfloat16 and t.shape[-1] == WGMMA_D and t.data_ptr() % 16 == 0
-           for t in (q, k, v, g)):
-        return "wgmma"
-    return "simt"
+    return "wgmma" if _wgmma_ok(q, k, v, g) else "simt"
 
 
 def _launch_bwd(fn_name, q, k, v, g, lse, delta, outs, causal, window, scale) -> str:
@@ -395,7 +420,7 @@ def flash_attention(
 
 
 __all__ = [
-    "flash_fwd_cuda", "flash_fwd_plain", "flash_dq_cuda", "flash_dq_plain", "flash_bwd_variant",
-    "flash_dkv_cuda", "flash_dkv_plain", "FlashAttentionFn", "flash_attention",
+    "flash_fwd_cuda", "flash_fwd_plain", "flash_fwd_variant", "flash_dq_cuda", "flash_dq_plain",
+    "flash_bwd_variant", "flash_dkv_cuda", "flash_dkv_plain", "FlashAttentionFn", "flash_attention",
     "flash_attention_lse", "SOURCES",
 ]

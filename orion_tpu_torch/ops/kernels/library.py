@@ -2,8 +2,9 @@
 
 Each source is compiled on its own with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into
-``orion_tpu_torch/_build/`` under a name carrying a hash of the source (an
-edited source is rebuilt), and loaded with ``ctypes``. The kernel wrappers
+``orion_tpu_torch/_build/`` under a name carrying a hash of the source and
+of the headers it includes (``csrc/hopper.cuh``; an edit of either is
+rebuilt), and loaded with ``ctypes``. The kernel wrappers
 (``causal_dot.py``, ``flash_attention.py``) keep their own ``SOURCES`` and
 call signatures; nothing here touches CUDA while the module is imported.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,15 +38,42 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the kernels build on the card's host")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _headers(source: Path) -> List[Path]:
+    """The headers ``source`` includes with quotes, and theirs, in the order
+    nvcc finds them: beside the including file first, then in ``CSRC`` (the
+    ``-I`` of the build)."""
+    found: List[Path] = []
+    todo = [source]
+    while todo:
+        including = todo.pop()
+        for name in _INCLUDE.findall(including.read_text()):
+            for cand in (including.parent / name, CSRC / name):
+                if cand.exists():
+                    if cand not in found:
+                        found.append(cand)
+                        todo.append(cand)
+                    break
+            else:
+                raise FileNotFoundError(f"{source}: included header {name!r} not found")
+    return found
+
+
 def _library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    """The library's path: the source's name and a hash of the source
+    together with every header it includes, so an edit of either rebuilds."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in _headers(source):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _build_command(source: Path, out: Path) -> list:
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
         "-o", str(out), str(source),
     ]
 

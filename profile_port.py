@@ -13,7 +13,8 @@ the int4-quantized model and (e) one training step with
 ``optimizer="adafactor_fused"``. For each it prints the device time by
 kernel (largest first, grouped into the six attention kernels, the two
 grouped expert matmul kernels, the int4 dequant-matmul, the three fused
-Adafactor passes, dense products, and everything else), the number of
+Adafactor passes, dense products, and everything else; a kernel's wgmma
+variant, where it has one, is a group of its own), the number of
 kernel launches, the window's wall time and
 the device's idle share of it (1 - summed kernel time / wall time; the port
 runs on one stream, so kernels do not overlap), then all of it as one JSON
@@ -43,7 +44,7 @@ def _group(name):
                    "flash_fwd", "flash_dq", "flash_dkv", "gmm_fwd", "gmm_dw", "q4_matmul",
                    "af_sums", "af_rms", "af_apply"):
         if kernel in low:
-            return f"{kernel} kernel"
+            return f"{kernel} kernel" + (" (wgmma)" if "wgmma" in low else "")
     if any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "xmma")):
         return "dense products (cuBLAS)"
     return "other (elementwise, norms, copies, sampling)"

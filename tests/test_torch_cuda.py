@@ -24,10 +24,12 @@ gradient vanishes in exact arithmetic (T = 1: a row's only key gives
 dS = P (dP - delta) = 0), the kernel's dP and torch's delta are two fp32 dot
 products of unit-scale inputs summed in different orders, about 1e-7 apart
 at D 64 (1e-6 at D 128). lse to 1e-5 of max(1, |lse|) (fp32 sums of exp in
-another order, through one log). The backward (rows 7, 8) in both variants,
-each case asserting which one's counters moved: wgmma for bf16 at D 128
-(its P and dS carried as two bf16 halves, so the same limits hold), simt
-for the rest. The grouped matmul (rows 9, 10): y and dx
+another order, through one log). Forward and backward (rows 6, 7, 8) in
+both variants, each case asserting which one's counters moved: wgmma for
+bf16 at D 128 (its P and dS carried as two bf16 halves, so the same limits
+hold), simt for the rest. Row 1 likewise: wgmma for bf16 at Dk 128 with Dv
+a multiple of 64 (its scores and state carried as two bf16 halves), simt
+for the rest; its layouts held on one chunk and two first. The grouped matmul (rows 9, 10): y and dx
 as the bf16 / fp32 outputs above with 1e-4 of the largest magnitude beside
 the relative term (a sum over K products in another order); dw, fp32 sums
 of exact products in another order, within 1e-4 of each expert's largest
@@ -76,9 +78,15 @@ def dev():
         (torch.bfloat16, 5, 1, 16, 64, True),
         (torch.bfloat16, 4, 333, 128, 128, True),
         (torch.bfloat16, 2, 64, 100, 72, False),
+        (torch.bfloat16, 3, 200, 128, 64, True),  # wgmma: a ragged last chunk
+        (torch.bfloat16, 2, 1, 128, 192, False),  # wgmma: T 1, three value tiles
+        (torch.bfloat16, 2, 130, 128, 96, True),  # simt: Dv not a multiple of 64
     ],
 )
 def test_causal_dot_norm_matches_plain(dev, dtype, bh, t, dk, dv, state):
+    """Row 1 against its plain version, in the variant
+    ``causal_dot_norm_variant`` names (wgmma for bf16 at Dk 128 with Dv a
+    multiple of 64, simt for the rest); only that variant's counter moves."""
     g = torch.Generator(device=dev).manual_seed(t)
     q = (torch.nn.functional.elu(torch.randn(bh, t, dk, device=dev, generator=g)) + 1).to(dtype)
     k = (torch.nn.functional.elu(torch.randn(bh, t, dk, device=dev, generator=g)) + 1).to(dtype)
@@ -87,9 +95,13 @@ def test_causal_dot_norm_matches_plain(dev, dtype, bh, t, dk, dv, state):
     if state:
         s0 = torch.randn(bh, dk, dv, device=dev, generator=g)
         z0 = torch.rand(bh, dk, device=dev, generator=g) * 10
-    before = causal_dot.launches
+    variant = causal_dot.causal_dot_norm_variant(q, k, v)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and dk == 128 and dv % 64 == 0
+                       else "simt")
+    before = _norm_counts()
     out, s, z = causal_dot.causal_dot_norm_cuda(q, k, v, s0, z0)
-    assert causal_dot.launches == before + 1
+    assert _norm_counts() == tuple(
+        n + d for n, d in zip(before, (1, variant == "wgmma", variant == "simt")))
     r_out, r_s, r_z = causal_dot.causal_dot_norm_plain(q, k, v, s0, z0)
     if dtype == torch.bfloat16:
         torch.testing.assert_close(out.float(), r_out.float(), rtol=2**-7, atol=1e-4)
@@ -97,6 +109,36 @@ def test_causal_dot_norm_matches_plain(dev, dtype, bh, t, dk, dv, state):
         torch.testing.assert_close(out, r_out, rtol=1e-4, atol=1e-4)
     for got, ref in ((s, r_s), (z, r_z)):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+
+
+def _norm_counts():
+    return causal_dot.launches, causal_dot.launches_wgmma, causal_dot.launches_simt
+
+
+@pytest.mark.parametrize("kind", ["scores", "state", "two chunks"])
+def test_causal_dot_norm_wgmma_layouts_on_one_chunk(dev, kind):
+    """The wgmma forward's operand layouts, one head at Dk 128, Dv 64:
+    "scores" (T 64, no state: A = q k^T K-major, A's halves as the register
+    A operand against v MN-major, the mask, and S = k^T v with k^T read
+    MN-major), "state" (T 64 from S0: q against S's halves written MN-major
+    from the registers), "two chunks" (T 128: the second chunk reads the
+    state the first one wrote). Within chip_smoke.py's limits: out one bf16
+    step plus 1e-4, S and z 1e-4 of their largest magnitude."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    t = 128 if kind == "two chunks" else 64
+    phi = lambda x: (torch.nn.functional.elu(x) + 1).bfloat16()  # noqa: E731
+    q, k = (phi(torch.randn(1, t, 128, device=dev, generator=g)) for _ in range(2))
+    v = torch.randn(1, t, 64, device=dev, generator=g).bfloat16()
+    s0 = z0 = None
+    if kind == "state":
+        s0 = torch.randn(1, 128, 64, device=dev, generator=g)
+        z0 = torch.rand(1, 128, device=dev, generator=g) * 10
+    assert causal_dot.causal_dot_norm_variant(q, k, v) == "wgmma"
+    out, s, z = causal_dot.causal_dot_norm_cuda(q, k, v, s0, z0)
+    r_out, r_s, r_z = causal_dot.causal_dot_norm_plain(q, k, v, s0, z0)
+    torch.testing.assert_close(out.float(), r_out.float(), rtol=2**-7, atol=1e-4)
+    for got, ref in ((s, r_s), (z, r_z)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
 def test_linear_attention_auto_uses_the_kernel(dev):
@@ -299,6 +341,7 @@ def test_flash_kernels_match_plain(dev, dtype, bh, tq, tk, d, causal, window):
     opts = dict(causal=causal, window=window)
     variant = fa.flash_bwd_variant(q, k, v, gout)
     assert variant == ("wgmma" if dtype == torch.bfloat16 and d == 128 else "simt")
+    assert fa.flash_fwd_variant(q, k, v) == variant
     before = _flash_counts()
     out, lse = fa.flash_fwd_cuda(q, k, v, **opts)
     r_out, r_lse = fa.flash_fwd_plain(q, k, v, **opts)
@@ -307,8 +350,9 @@ def test_flash_kernels_match_plain(dev, dtype, bh, tq, tk, d, causal, window):
            *fa.flash_dkv_cuda(q, k, v, gout, r_lse, delta, **opts))
     torch.cuda.synchronize()
     moved = {n: a - b for (n, a), b in zip(_flash_counts().items(), before.values())}
-    assert moved == {"fwd": 1, "dq": 1, "dkv": 1, f"dq_{variant}": 1, f"dkv_{variant}": 1,
-                     **{f"{p}_{v}": 0 for p in ("dq", "dkv") for v in ("wgmma", "simt")
+    assert moved == {"fwd": 1, "dq": 1, "dkv": 1, f"fwd_{variant}": 1, f"dq_{variant}": 1,
+                     f"dkv_{variant}": 1,
+                     **{f"{p}_{v}": 0 for p in ("fwd", "dq", "dkv") for v in ("wgmma", "simt")
                         if v != variant}}
     ref = (fa.flash_dq_plain(q, k, v, gout, r_lse, delta, **opts),
            *fa.flash_dkv_plain(q, k, v, gout, r_lse, delta, **opts))
@@ -323,8 +367,27 @@ def test_flash_kernels_match_plain(dev, dtype, bh, tq, tk, d, causal, window):
 
 def _flash_counts():
     return {"fwd": fa.launches_fwd, "dq": fa.launches_dq, "dkv": fa.launches_dkv,
+            "fwd_wgmma": fa.launches_fwd_wgmma, "fwd_simt": fa.launches_fwd_simt,
             "dq_wgmma": fa.launches_dq_wgmma, "dq_simt": fa.launches_dq_simt,
             "dkv_wgmma": fa.launches_dkv_wgmma, "dkv_simt": fa.launches_dkv_simt}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_wgmma_layout_on_one_tile(dev, causal):
+    """The wgmma forward on one 64 x 64 tile (one head, T 64, D 128): S = q
+    k^T K-major, P's halves as the register A operand against v MN-major,
+    the online softmax over one tile; bidirectional (no mask) and causal
+    (the diagonal tile's mask). out within one bf16 step plus 1e-4 of the
+    largest magnitude, lse within 1e-5 (``chip_smoke.py``'s limits)."""
+    g = torch.Generator(device=dev).manual_seed(32 + causal)
+    q, k, v = (torch.randn(1, 64, 128, device=dev, generator=g).bfloat16() for _ in range(3))
+    assert fa.flash_fwd_variant(q, k, v) == "wgmma"
+    before = fa.launches_fwd_wgmma
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal=causal, window=None)
+    assert fa.launches_fwd_wgmma == before + 1
+    r_out, r_lse = fa.flash_fwd_plain(q, k, v, causal=causal, window=None)
+    _max_close(out, r_out, 2**-7)
+    torch.testing.assert_close(lse, r_lse, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -386,8 +449,8 @@ def test_flash_fn_on_the_wgmma_route_matches_the_plain_passes(dev):
     grads = torch.autograd.grad(out, (q, k, v), gout)
     torch.cuda.synchronize()
     moved = {n: a - b for (n, a), b in zip(_flash_counts().items(), before.values())}
-    assert moved == {"fwd": 1, "dq": 1, "dkv": 1, "dq_wgmma": 1, "dq_simt": 0, "dkv_wgmma": 1,
-                     "dkv_simt": 0}
+    assert moved == {"fwd": 1, "dq": 1, "dkv": 1, "fwd_wgmma": 1, "fwd_simt": 0, "dq_wgmma": 1,
+                     "dq_simt": 0, "dkv_wgmma": 1, "dkv_simt": 0}
     flat = [x.detach().reshape(8, 300, 128) for x in (q, k, v, gout)]
     opts = dict(causal=True, window=100)
     with torch.no_grad():

@@ -1,18 +1,23 @@
-"""Why the wgmma flash backward splits P and dS into two bf16 halves.
+"""Why the wgmma flash kernels split P (and dS) into two bf16 halves.
 
-The TPU backward (``orion_tpu/ops/pallas/flash_attention.py``, ``_dq_kernel``
-and ``_dkv_kernel``) keeps P and dS in fp32 for its second products
-(``ds @ k``, ``p^T @ do``, ``ds^T @ q``). A ``wgmma`` takes bf16 operands, so
-the card's kernels (``csrc/flash_attention_bwd.cu``, the wgmma variant) run
-each second product twice, on hi = bf16(x) and lo = bf16(x - hi), into one
-fp32 accumulator. This file emulates that arithmetic in plain torch on the
-CPU at a small shape (bh 2, T 256, D 128, window 96, bf16 inputs made with
-numpy from a seed): bf16 products are exact in fp32, so fp32 matmuls of the
-bf16 halves give what the tensor cores sum, up to the order of the sums. It
-holds the result against ``flash_dq_plain`` / ``flash_dkv_plain`` within
-``chip_smoke.py``'s limit for the card's kernels (1e-5 + 1e-4 max|ref| +
-2^-7 |ref| a element), and shows that P and dS rounded once to bf16 exceed
-that limit.
+The TPU kernels (``orion_tpu/ops/pallas/flash_attention.py``) keep P in fp32
+for the forward's ``p @ v`` (``_fwd_kernel``), and P and dS in fp32 for the
+backward's second products (``ds @ k``, ``p^T @ do``, ``ds^T @ q``;
+``_dq_kernel``, ``_dkv_kernel``). A ``wgmma`` takes bf16 operands, so the
+card's kernels (the wgmma variants in ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``) run each such product twice, on hi =
+bf16(x) and lo = bf16(x - hi), into one fp32 accumulator. This file
+emulates that arithmetic in plain torch on the CPU at a small shape (bh 2,
+T 256, D 128, window 96, bf16 inputs made with numpy from a seed): bf16
+products are exact in fp32, so fp32 matmuls of the bf16 halves give what
+the tensor cores sum, up to the order of the sums. The forward runs as the
+kernel does, over 64-key tiles with the online softmax in base 2. It holds
+the results against ``flash_fwd_plain`` / ``flash_dq_plain`` /
+``flash_dkv_plain`` within ``chip_smoke.py``'s limits for the card's kernels
+(out: 1e-4 max|ref| + 2^-7 |ref| a element, lse 1e-5 of max(1, |lse|); the
+gradients: 1e-5 + 1e-4 max|ref| + 2^-7 |ref|), and shows that P (and dS)
+rounded once to bf16 exceed them: out reads about 4x its limit (0.82 with
+the split), the gradients 4.8-7x.
 """
 
 import math
@@ -57,6 +62,57 @@ def _emulate(q, k, v, g, lse, delta, split):
     dk = sum(h.transpose(1, 2) @ q.float() for h in _halves(ds, split))
     dv = sum(h.transpose(1, 2) @ g.float() for h in _halves(p, split))
     return {"dq": dq.bfloat16(), "dk": dk.bfloat16(), "dv": dv.bfloat16()}
+
+
+def _emulate_fwd(q, k, v, split):
+    """The wgmma forward's arithmetic: per 64-key tile, S from bf16 operands
+    with fp32 sums in base 2 (scale log2 e), masked to -inf; m' = max(m,
+    rowmax S), alpha = 2^(m - m'), P = 2^(S - m'), l = alpha l + rowsum P,
+    acc = alpha acc + P v on the halves of P; then out = acc / l rounded
+    once to bf16 and lse = m ln 2 + log l."""
+    sl2 = D ** -0.5 / math.log(2.0)
+    rows, cols = torch.arange(T)[:, None], torch.arange(T)[None, :]
+    mask = (rows >= cols) & (rows - cols < WINDOW)
+    s = torch.where(mask, (q.float() @ k.float().transpose(1, 2)) * sl2, -math.inf)
+    m = torch.full((BH, T), -math.inf)
+    l, acc = torch.zeros(BH, T), torch.zeros(BH, T, D)
+    for j in range(0, T, 64):
+        st = s[:, :, j:j + 64]
+        m_new = torch.maximum(m, st.amax(-1))
+        base = torch.where(m_new == -math.inf, 0.0, m_new)  # a row with no key yet: P = 0
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(st - base[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + sum(h @ v[:, j:j + 64].float() for h in _halves(p, split))
+        m = m_new
+    safe = torch.where(l == 0, 1.0, l)
+    return (acc / safe[..., None]).bfloat16(), (m * math.log(2.0) + torch.log(safe))[..., None]
+
+
+@pytest.fixture(scope="module")
+def fwd_readings():
+    """out's reading against ``flash_fwd_plain`` as a share of the card's
+    limit, for the split and for rounding P once; lse's for the split."""
+    q, k, v = _inputs()[:3]
+    r_out, r_lse = fa.flash_fwd_plain(q, k, v, causal=True, window=WINDOW)
+    out = {}
+    for split in (True, False):
+        got, lse = _emulate_fwd(q, k, v, split)
+        out[split] = chip_smoke._grad_reading(
+            got, r_out, chip_smoke.FLASH_RTOL[torch.bfloat16], chip_smoke.FLASH_ATOL_OF_MAX
+        )["over_limit"]
+        if split:
+            out["lse"] = float(((lse - r_lse).abs()
+                                / (chip_smoke.LSE_RTOL * r_lse.abs().clamp_min(1.0))).max())
+    return out
+
+
+def test_the_forward_split_meets_the_card_limit(fwd_readings):
+    assert fwd_readings[True] <= 1.0 and fwd_readings["lse"] <= 1.0, fwd_readings
+
+
+def test_rounding_p_once_misses_the_forward_card_limit(fwd_readings):
+    assert fwd_readings[False] > 1.0, fwd_readings
 
 
 @pytest.fixture(scope="module")

@@ -1,11 +1,11 @@
-"""Which kernels of the flash attention backward (rows 7, 8) the wrappers
-launch.
+"""Which kernels of flash attention (rows 6, 7, 8) the wrappers launch.
 
-``flash_bwd_variant`` chooses from dtype, head width and alignment alone,
-before any launch: "wgmma" (TMA tensor maps into ``wgmma``) for bf16 at D 128
-with 16-byte-aligned bases, "simt" for everything else. A pure function of
-the tensors' metadata, so it runs here on CPU tensors; the launches
-themselves are held on the card (``tests/test_torch_cuda.py``).
+``flash_fwd_variant`` (the forward) and ``flash_bwd_variant`` (the backward)
+choose from dtype, head width and alignment alone, before any launch:
+"wgmma" (TMA tensor maps into ``wgmma``) for bf16 at D 128 with
+16-byte-aligned bases, "simt" for everything else. Pure functions of the
+tensors' metadata, so they run here on CPU tensors; the launches themselves
+are held on the card (``tests/test_torch_cuda.py``).
 """
 
 import pytest
@@ -58,3 +58,32 @@ def test_a_misaligned_base_takes_simt():
 def test_one_operand_in_fp32_takes_simt():
     q, k, v, g = _qkvg(2, 64, 64, 128)
     assert fa.flash_bwd_variant(q, k, v, g.float()) == "simt"
+
+
+@pytest.mark.parametrize(
+    "bh,t_q,t_k,d,dtype,want",
+    [
+        (128, 2048, 2048, 128, BF16, "wgmma"),  # hybrid_1b3's training step
+        (64, 1536, 1536, 128, BF16, "wgmma"),  # its generate shape
+        (4, 1000, 1500, 128, BF16, "wgmma"),  # more keys than queries
+        (3, 1, 1, 128, BF16, "wgmma"),  # T 1
+        (8, 300, 300, 64, BF16, "simt"),  # the LRA widths
+        (8, 300, 300, 128, FP32, "simt"),  # fp32 at D 128
+        (8, 300, 300, 32, FP32, "simt"),  # the tiny models
+    ],
+)
+def test_forward_variant(bh, t_q, t_k, d, dtype, want):
+    assert fa.flash_fwd_variant(*_qkvg(bh, t_q, t_k, d, dtype)[:3]) == want
+
+
+def test_forward_a_misaligned_base_or_one_fp32_operand_takes_simt():
+    flat = torch.empty(8 + 4 * 64 * 128, dtype=BF16)
+    odd = flat[1:1 + 4 * 64 * 128].view(4, 64, 128)
+    q, k, v, _ = _qkvg(4, 64, 64, 128)
+    assert fa.flash_fwd_variant(q, k, v) == "wgmma"
+    for i in range(3):
+        ops = [q, k, v]
+        ops[i] = odd
+        assert fa.flash_fwd_variant(*ops) == "simt", i
+        ops[i] = [q, k, v][i].float()
+        assert fa.flash_fwd_variant(*ops) == "simt", i
