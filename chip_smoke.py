@@ -16,7 +16,10 @@ nonzero and no result line is printed):
      shape (B 4), then the forward with its training outputs and the two
      backward kernels at the training shape (B 8), each at T 1024, a ragged
      1000 and 1, with and without an initial state and final-state
-     cotangents;
+     cotangents, and at Dv 96 and the tiny fp32 widths; each case logs the
+     variant each kernel took (wgmma for bf16 at D 128, simt for the rest);
+     the wgmma kernels are timed at the training shape (row 1 also at
+     generate's), the simt kernels at the tiny fp32 widths;
    - the public op ``causal_dot_product``'s kernels (rows 2, 5): the raw
      forward, its use as the dq pass on (g, v, k, S0^T), and the reverse
      pass, at lm_1b3's per-layer shape [B*H, T, D] = [128, 1024, 128] bf16,
@@ -74,14 +77,15 @@ nonzero and no result line is printed):
    ``Trainer`` at full width, synthetic data, AdamW, remat
    as the config sets it, 1 warm-up and 3 timed steps, with the counts reset
    just before and read after every step (exact counts per step, from the
-   layer kinds and the rematerialized blocks; the hybrid's flash backward
-   launches and the MoE's gmm launches all of the wgmma variant, none of
-   the simt); then one batch's loss and
+   layer kinds and the rematerialized blocks; every linear-attention,
+   flash and gmm launch of the wgmma variant, none of the simt); then one
+   batch's loss and
    every parameter's gradient through the kernels against
    ``backend="torch"`` on the same weights (every parameter must get a
-   gradient); then 3 ``tiny`` fp32 steps on the card against the CPU (for
+   gradient); then 3 ``tiny`` fp32 steps on the card against the CPU, which
+   launch only simt kernels (for
    the hybrid a tiny hybrid, whose fp32 D 32 layers take the simt kernels of
-   rows 1, 6, 7 and 8 and no wgmma one, their launches counted from 0; for
+   rows 1, 3, 4, 6, 7 and 8 and no wgmma one, their launches counted from 0; for
    the MoE a tiny MoE in its capacity and its dropless form, the latter at
    1024 routed rows, so the card takes the simt gmm kernels in fp32, their
    launches counted from 0, and the CPU the ragged form);
@@ -109,8 +113,8 @@ nonzero and no result line is printed):
    model, in bf16 and at int4, against the same from the in-memory trained
    model: tokens and prefill logits bitwise, exact launches (row 14 at
    int4); save and load seconds;
-10. a ``kernels`` JSON line (20 entries: the 14 rows, rows 1, 6, 7, 8, 9
-   and 10 once for each variant), then the result line
+10. a ``kernels`` JSON line (22 entries: the 14 rows, rows 1, 3, 4, 6, 7,
+   8, 9 and 10 once for each variant), then the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -258,8 +262,9 @@ AF_PARAM_RTOL, AF_PARAM_ATOL, AF_STAT_ATOL_OF_MAX = 2e-5, 1e-7, 1e-6
 RAW_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
 RAW_ATOL_OF_MAX = 1e-4
 
-KERNELS = ("causal_dot_norm_wgmma", "causal_dot_norm_simt", "causal_dot", "causal_dot_dq_den",
-           "causal_dot_rev_den", "causal_dot_rev", "flash_fwd_wgmma", "flash_fwd_simt",
+KERNELS = ("causal_dot_norm_wgmma", "causal_dot_norm_simt", "causal_dot",
+           "causal_dot_dq_den_wgmma", "causal_dot_dq_den_simt", "causal_dot_rev_den_wgmma",
+           "causal_dot_rev_den_simt", "causal_dot_rev", "flash_fwd_wgmma", "flash_fwd_simt",
            "flash_dq_wgmma", "flash_dkv_wgmma", "flash_dq_simt", "flash_dkv_simt", "gmm_fwd_wgmma", "gmm_dw_wgmma", "gmm_fwd_simt", "gmm_dw_simt",
            "q4_matmul", "adafactor_sums", "adafactor_rms", "adafactor_apply")
 
@@ -517,9 +522,10 @@ def _grad_reading(got, ref, rtol=GRAD_RTOL, atol_of_max=GRAD_ATOL_OF_MAX, floor=
 
 
 # (label, B, H, T, Dk, Dv, dtype, initial state and final-state cotangents):
-# lm_1b3's training width (B 8, H 16, D 128, bf16: row 1's wgmma variant) at
-# T 1024, a ragged 1000 and 1; then row 1's simt variant with its training
-# outputs: bf16 at Dv 96, and the tiny models' fp32 widths
+# lm_1b3's training width (B 8, H 16, D 128, bf16: the wgmma variants of
+# rows 1, 3 and 4) at T 1024, a ragged 1000 and 1; then their simt variants,
+# row 1 with its training outputs: bf16 at Dv 96, and the tiny models' fp32
+# widths
 TRAINING_CASES = [
     (f"B8 H16 T{t} D128 bf16 state={st}", 8, 16, t, 128, 128, torch.bfloat16, st)
     for t in (1024, 1000, 1) for st in (False, True)
@@ -545,14 +551,15 @@ def _training_case(g, dev, b, h, t, dk, dv, dtype, with_state):
 
 
 def compare_training_kernels(cd, dev):
-    """Rows 1 (with its training outputs num, den, in the variant
-    ``causal_dot_norm_variant`` names), 3 and 4 against their plain versions
-    on the card, on every case of ``TRAINING_CASES``. The backward kernels
-    and their plain versions take the same inputs: the plain forward's num
-    and den through ``quotient_rule``. Returns one reading per case and the
-    first case's backward inputs."""
+    """Rows 1 (with its training outputs num, den), 3 and 4 against their
+    plain versions on the card, on every case of ``TRAINING_CASES``, each in
+    the variant its chooser names. The backward kernels and their plain
+    versions take the same inputs: the plain forward's num and den through
+    ``quotient_rule``. Returns one reading per case (with the three
+    variants) and each case's backward inputs (q, k, v, gnum, gden) by
+    label."""
     g = torch.Generator(device=dev).manual_seed(1)
-    readings, first = [], None
+    readings, inputs = [], {}
     for label, b, h, t, dk, dv, dtype, with_state in TRAINING_CASES:
         q, k, v, gout, s0, z0, gsf, gzf = _training_case(g, dev, b, h, t, dk, dv, dtype,
                                                          with_state)
@@ -567,6 +574,8 @@ def compare_training_kernels(cd, dev):
         r_dk, r_dv, r_ds0, r_dz0 = cd.causal_dot_rev_den_plain(q, k, v, gnum, gden, gsf, gzf)
         readings.append({
             "case": label, "variant": cd.causal_dot_norm_variant(q, k, v),
+            "dq_variant": cd.causal_dot_dq_den_variant(gnum, v, k),
+            "rev_variant": cd.causal_dot_rev_den_variant(q, k, v, gnum),
             "out": _grad_reading(out, r_out),
             "num_rel": _rel(num, r_num), "den_rel": _rel(den, r_den),
             "dq": _grad_reading(dq, r_dq), "dk": _grad_reading(dk_, r_dk),
@@ -574,9 +583,8 @@ def compare_training_kernels(cd, dev):
             "ds0_rel": _rel(ds0, r_ds0), "dz0_rel": _rel(dz0, r_dz0),
             "states_finite": all(bool(torch.isfinite(x).all()) for x in (num, den, ds0, dz0)),
         })
-        if first is None:
-            first = (q, k, v, gnum, gden)
-    return readings, first
+        inputs[label] = (q, k, v, gnum, gden)
+    return readings, inputs
 
 
 def agrees_training(r):
@@ -586,15 +594,35 @@ def agrees_training(r):
             and max(r["num_rel"], r["den_rel"], r["ds0_rel"], r["dz0_rel"]) <= STATE_RTOL)
 
 
+def _bwd_bound(q, v, rev):
+    """Row 3's (``rev`` False) or row 4's bound on these inputs. Row 3: g, v,
+    k, gden read, dq written; row 4: q, k, v, g, gden read, dk, dv, dS0, dz0
+    written. Operations: one chunk walk's products (A, A w, x St and the
+    state update at chunk 64), twice for row 4's two walks."""
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    act = q.element_size()
+    if rev:
+        moved = bh * t * (3 * dk + 3 * dv) * act + bh * t * 4 + bh * dk * dv * 4 + bh * dk * 4
+    else:
+        moved = bh * t * (2 * dv + 2 * dk) * act + bh * t * 4
+    flops = 2 * bh * t * (64 * dk + 64 * dv + 2 * dk * dv) * (2 if rev else 1)
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    return moved, flops, _bound(moved, flops, peak)
+
+
 def check_training_kernels(cd, dev, norm):
-    """Rows 1, 3 and 4 on the training cases, then timed at lm_1b3's
-    training shape (B 8, H 16, T 1024, D 128, bf16; row 1 with its training
-    outputs, in the wgmma variant). ``norm``: ``check_causal_dot``'s result,
-    whose generate-shape timing joins row 1's wgmma entry and whose simt
-    entry joins the kernels line."""
-    readings, (q, k, v, gnum, gden) = compare_training_kernels(cd, dev)
+    """Rows 1, 3 and 4 on the training cases, each case's variants logged
+    (both variants of rows 3 and 4 must run), then timed where each
+    variant's path takes it: the wgmma kernels at lm_1b3's training shape
+    (B 8, H 16, T 1024, D 128, bf16; row 1 with its training outputs), the
+    simt kernels of rows 3 and 4 at the tiny fp32 widths. ``norm``:
+    ``check_causal_dot``'s result, whose generate-shape timing joins row 1's
+    wgmma entry and whose simt entry joins the kernels line."""
+    readings, inputs = compare_training_kernels(cd, dev)
     for r in readings:
-        log(f"training kernels {r['case']} (row 1 {r['variant']}): "
+        log(f"training kernels {r['case']} (row 1 {r['variant']}, row 3 {r['dq_variant']}, row 4 "
+            f"{r['rev_variant']}): "
             + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
                         f"limit, needs atol {r[n]['atol_needed']:.2e} max|ref|)"
                         for n in ("dq", "dk", "dv"))
@@ -603,52 +631,57 @@ def check_training_kernels(cd, dev, norm):
             f"(limit {STATE_RTOL:g})")
         if not agrees_training(r):
             raise AssertionError(f"a training kernel disagrees with its plain version: {r}")
-    if cd.causal_dot_norm_variant(q, k, v) != "wgmma":
-        raise AssertionError("causal_dot_norm at the training shape did not take wgmma")
-    bh, t, dk = q.shape
-    dv = v.shape[-1]
-    act, f32 = q.numel() * q.element_size(), 4
-    moved_norm, ops, _ = _norm_bound(q, v, True)
+    for key in ("dq_variant", "rev_variant"):
+        ran = {v: sum(r[key] == v for r in readings) for v in ("wgmma", "simt")}
+        log(f"training kernels' {key} over the {len(readings)} cases: {ran}")
+        if not all(ran.values()):
+            raise AssertionError(f"a {key} ran on no training case: {ran}")
+    train_label, tiny_label = TRAINING_CASES[0][0], TRAINING_CASES[-1][0]
+    q, k, v, gnum, gden = inputs[train_label]
+    if (cd.causal_dot_norm_variant(q, k, v), cd.causal_dot_dq_den_variant(gnum, v, k),
+            cd.causal_dot_rev_den_variant(q, k, v, gnum)) != ("wgmma",) * 3:
+        raise AssertionError("rows 1, 3, 4 at the training shape did not all take wgmma")
     lines = []
     with torch.no_grad():
         specs = [
             ("causal_dot_norm_wgmma", "orion_tpu_torch/csrc/causal_dot_norm.cu",
-             "orion_tpu/ops/pallas/causal_dot.py:537",
-             lambda: cd.causal_dot_norm_cuda(q, k, v, with_parts=True),
-             lambda: cd.causal_dot_norm_plain(q, k, v, with_parts=True),
+             "orion_tpu/ops/pallas/causal_dot.py:537", train_label,
+             lambda q, k, v, gnum, gden: cd.causal_dot_norm_cuda(q, k, v, with_parts=True),
+             lambda q, k, v, gnum, gden: cd.causal_dot_norm_plain(q, k, v, with_parts=True),
              # q, k, v read; out, S, z, num, den written
-             moved_norm, ops),
-            ("causal_dot_dq_den", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
-             "orion_tpu/ops/pallas/causal_dot.py:298",
-             lambda: cd.causal_dot_dq_den_cuda(gnum, v, k, gden),
-             lambda: cd.causal_dot_dq_den_plain(gnum, v, k, gden),
-             # g, v, k, gden read; dq written
-             4 * act + bh * t * f32, ops),
-            ("causal_dot_rev_den", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
-             "orion_tpu/ops/pallas/causal_dot.py:335",
-             lambda: cd.causal_dot_rev_den_cuda(q, k, v, gnum, gden),
-             lambda: cd.causal_dot_rev_den_plain(q, k, v, gnum, gden),
-             # q, k, v, g, gden read; dk, dv, dS0, dz0 written
-             6 * act + bh * t * f32 + bh * dk * dv * f32 + bh * dk * f32, 2 * ops),
+             lambda q, v: _norm_bound(q, v, True), "variant", ("out",)),
         ]
-        for name, source, replaces, kernel, plain, moved, flops in specs:
-            ms = cuda_ms(kernel, 20)
-            plain_ms = cuda_ms(plain, 3)
-            bound_ms, bound_by = _bound(moved, flops)
-            log(f"{name} timing B8 H16 T1024 D128 bf16 (training): kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-                f"({moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
-                "library_ms: none (no single PyTorch call computes this function)")
-            outs = {"causal_dot_norm_wgmma": ("out",), "causal_dot_dq_den": ("dq",)}.get(
-                name, ("dk", "dv"))
+        for variant, label in (("wgmma", train_label), ("simt", tiny_label)):
+            specs += [
+                (f"causal_dot_dq_den_{variant}", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
+                 "orion_tpu/ops/pallas/causal_dot.py:298", label,
+                 lambda q, k, v, gnum, gden: cd.causal_dot_dq_den_cuda(gnum, v, k, gden),
+                 lambda q, k, v, gnum, gden: cd.causal_dot_dq_den_plain(gnum, v, k, gden),
+                 lambda q, v: _bwd_bound(q, v, False), "dq_variant", ("dq",)),
+                (f"causal_dot_rev_den_{variant}", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
+                 "orion_tpu/ops/pallas/causal_dot.py:335", label,
+                 lambda q, k, v, gnum, gden: cd.causal_dot_rev_den_cuda(q, k, v, gnum, gden),
+                 lambda q, k, v, gnum, gden: cd.causal_dot_rev_den_plain(q, k, v, gnum, gden),
+                 lambda q, v: _bwd_bound(q, v, True), "rev_variant", ("dk", "dv")),
+            ]
+        for name, source, replaces, label, kernel, plain, bound, key, outs in specs:
+            args = inputs[label]
+            variant = name.rsplit("_", 1)[1]
+            if next(r[key] for r in readings if r["case"] == label) != variant:
+                raise AssertionError(f"{name} at {label} took the other variant")
+            ms = cuda_ms(lambda: kernel(*args), 20)
+            plain_ms = cuda_ms(lambda: plain(*args), 3)
+            moved, flops, (bound_ms, bound_by) = bound(args[0], args[2])
+            log(f"{name} timing {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, {flops / 1e9:.2f} "
+                "GFLOP); library_ms: none (no single PyTorch call computes this function)")
             lines.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 # the largest error of this kernel over the cases it ran
-                "max_abs_err": max(
-                    r[n]["max_abs"] for r in readings for n in outs
-                    if name != "causal_dot_norm_wgmma" or r["variant"] == "wgmma"),
+                "max_abs_err": max(r[n]["max_abs"] for r in readings for n in outs
+                                   if r[key] == variant),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, "shape": "B8 H16 T1024 D128 bf16",
+                "library_ms": None, "shape": label,
             })
     lines[0]["generate_shape"] = norm["generate_shape"]
     return lines[:1] + [norm["simt"]] + lines[1:]
@@ -1545,7 +1578,10 @@ def _counts(mods):
     cd, fa, gm, q4, af = mods
     return {"causal_dot_norm_wgmma": cd.launches_wgmma, "causal_dot_norm_simt": cd.launches_simt,
             "causal_dot": cd.launches_raw,
-            "causal_dot_dq_den": cd.launches_dq, "causal_dot_rev_den": cd.launches_rev,
+            "causal_dot_dq_den_wgmma": cd.launches_dq_wgmma,
+            "causal_dot_dq_den_simt": cd.launches_dq_simt,
+            "causal_dot_rev_den_wgmma": cd.launches_rev_wgmma,
+            "causal_dot_rev_den_simt": cd.launches_rev_simt,
             "causal_dot_rev": cd.launches_raw_rev, "flash_fwd_wgmma": fa.launches_fwd_wgmma,
             "flash_fwd_simt": fa.launches_fwd_simt,
             "flash_dq_wgmma": fa.launches_dq_wgmma, "flash_dkv_wgmma": fa.launches_dkv_wgmma,
@@ -1561,6 +1597,7 @@ def _reset_counts(mods):
     cd, fa, gm, q4, af = mods
     cd.launches = cd.launches_dq = cd.launches_rev = cd.launches_raw = cd.launches_raw_rev = 0
     cd.launches_wgmma = cd.launches_simt = 0
+    cd.launches_dq_wgmma = cd.launches_dq_simt = cd.launches_rev_wgmma = cd.launches_rev_simt = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
     fa.launches_fwd_wgmma = fa.launches_fwd_simt = 0
     fa.launches_dq_wgmma = fa.launches_dq_simt = fa.launches_dkv_wgmma = fa.launches_dkv_simt = 0
@@ -1832,24 +1869,32 @@ def quant_generate_phase(dev, mods, name, prompt_len, new_tokens, mode, override
             "q4_per_step": _q4_per_step(cfg)}
 
 
-def _tiny_forwards_simt(label, before, cfg):
-    """A tiny fp32 run's forward launches of rows 1 and 6 since ``before``
-    (``_forward_counts()``): only the simt variants, one or more of each for
-    the layer kinds ``cfg`` has."""
-    moved = {k: v - before[k] for k, v in _forward_counts().items()}
+def _tiny_simt_only(label, before, cfg, trained):
+    """A tiny fp32 run's launches of rows 1 and 6 and, with ``trained``, of
+    rows 3 and 4 since ``before`` (``_variant_counts()``): only the simt
+    variants, one or more of each for the layer kinds ``cfg`` has (rows 3
+    and 4 none without ``trained``)."""
+    moved = {k: v - before[k] for k, v in _variant_counts().items()}
     kinds = set(cfg.resolved_layer_types)
-    if (moved["causal_dot_norm_wgmma"] or moved["flash_fwd_wgmma"]
-            or ("linear" in kinds) != bool(moved["causal_dot_norm_simt"])
-            or bool(kinds & {"softmax", "swa"}) != bool(moved["flash_fwd_simt"])):
-        raise AssertionError(f"{label}: forward launches {moved}, want only the simt variants")
+    want = {"causal_dot_norm_simt": "linear" in kinds,
+            "causal_dot_dq_den_simt": trained and "linear" in kinds,
+            "causal_dot_rev_den_simt": trained and "linear" in kinds,
+            "flash_fwd_simt": bool(kinds & {"softmax", "swa"})}
+    if any(v for k, v in moved.items() if k.endswith("_wgmma")) or any(
+            bool(moved[k]) != w for k, w in want.items()):
+        raise AssertionError(f"{label}: launches {moved}, want only the simt variants")
     return moved
 
 
-def _forward_counts():
+def _variant_counts():
     from orion_tpu_torch.ops.kernels import causal_dot, flash_attention
 
     return {"causal_dot_norm_wgmma": causal_dot.launches_wgmma,
             "causal_dot_norm_simt": causal_dot.launches_simt,
+            "causal_dot_dq_den_wgmma": causal_dot.launches_dq_wgmma,
+            "causal_dot_dq_den_simt": causal_dot.launches_dq_simt,
+            "causal_dot_rev_den_wgmma": causal_dot.launches_rev_wgmma,
+            "causal_dot_rev_den_simt": causal_dot.launches_rev_simt,
             "flash_fwd_wgmma": flash_attention.launches_fwd_wgmma,
             "flash_fwd_simt": flash_attention.launches_fwd_simt}
 
@@ -1869,12 +1914,12 @@ def tiny_generate(dev, cfg, label, quant=""):
     tiny_gpu = TransformerLM(cfg, device=dev, quant=quant)
     tiny_gpu.load_state_dict(tiny_cpu.state_dict())
     tp = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 100), dtype=np.int64))
-    before, forwards = q4_matmul.launches, _forward_counts()
+    before, variants = q4_matmul.launches, _variant_counts()
     got = generate(tiny_gpu, tp.to(dev), 16, greedy, quant=quant)
     if quant == "int4" and q4_matmul.launches != before + 15 * _q4_per_step(cfg):
         raise AssertionError(f"{label}: {q4_matmul.launches - before} q4 launches, want "
                              f"{15 * _q4_per_step(cfg)}")
-    _tiny_forwards_simt(label, forwards, cfg)
+    _tiny_simt_only(label, variants, cfg, trained=False)
     ref = generate(tiny_cpu, tp, 16, greedy, quant=quant)
     with torch.inference_mode():
         lg = tiny_gpu.prefill_last(tp.to(dev))[0].cpu()
@@ -1903,8 +1948,8 @@ def train_phase(dev, mods, name, seq_len, overrides=None, optimizer="adamw", the
     lin, attn, lin_remat, attn_remat = _layer_counts(m)
     products, products_remat = _gmm_counts(m)
     want = dict.fromkeys(KERNELS, 0)
-    want.update({"causal_dot_norm_wgmma": lin + lin_remat, "causal_dot_dq_den": lin,
-                 "causal_dot_rev_den": lin, "flash_fwd_wgmma": attn + attn_remat,
+    want.update({"causal_dot_norm_wgmma": lin + lin_remat, "causal_dot_dq_den_wgmma": lin,
+                 "causal_dot_rev_den_wgmma": lin, "flash_fwd_wgmma": attn + attn_remat,
                  # bf16 at D 128: the wgmma kernels, none of the simt
                  "flash_dq_wgmma": attn, "flash_dkv_wgmma": attn,
                  # forward, recomputation, and dx by the forward kernel against w^T;
@@ -2202,7 +2247,7 @@ def tiny_train(dev, model_cfg, label, batch_size=4, optimizer="adamw"):
     gpu.model.load_state_dict(cpu.model.state_dict())
     ds = SyntheticDataset(model_cfg.vocab_size, cfg.seq_len)
     got, ref = [], []
-    gate, before, forwards = af._MIN_KERNEL_ELEMS, af.launches_apply, _forward_counts()
+    gate, before, variants = af._MIN_KERNEL_ELEMS, af.launches_apply, _variant_counts()
     if optimizer == "adafactor_fused":
         af._MIN_KERNEL_ELEMS = 0
     try:
@@ -2216,7 +2261,7 @@ def tiny_train(dev, model_cfg, label, batch_size=4, optimizer="adamw"):
         want = 3 * sum(p.dim() == 2 for p in gpu.params.values())
         if af.launches_apply - before != want:
             raise AssertionError(f"{label}: {af.launches_apply - before} apply launches, want {want}")
-    _tiny_forwards_simt(label, forwards, model_cfg)
+    _tiny_simt_only(label, variants, model_cfg, trained=True)
     err = max(abs(a - b) for a, b in zip(got, ref))
     log(f"{label} fp32 train, card vs CPU: losses {got} vs {ref}, max diff {err:.3e} "
         f"(limit {TINY_LOSS_ATOL:g})")
@@ -2263,16 +2308,18 @@ def main() -> int:
     hy_train = train_phase(dev, mods, "hybrid_1b3", 2048)
     grad_check(dev, "hybrid_1b3", 2048)
     _reset_counts(mods)
-    # fp32 at D 32: the simt kernels' path of rows 1, 6, 7 and 8, their
+    # fp32 at D 32: the simt kernels' path of rows 1, 3, 4, 6, 7 and 8, their
     # launches counted from 0
     tiny_train(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16)")
     tiny_simt = {k: v for k, v in _counts(mods).items()
-                 if k.startswith(("flash", "causal_dot_norm"))}
+                 if k.startswith(("flash", "causal_dot_norm", "causal_dot_dq_den",
+                                  "causal_dot_rev_den"))}
     log(f"tiny hybrid fp32 train launches: {tiny_simt}")
     if not all(v for k, v in tiny_simt.items() if k.endswith("_simt")) or \
             any(v for k, v in tiny_simt.items() if k.endswith("_wgmma")):
         raise AssertionError(f"the tiny hybrid trained on the card in fp32 without the simt "
-                             f"kernels of rows 1, 6, 7 and 8, or with a wgmma one: {tiny_simt}")
+                             f"kernels of rows 1, 3, 4, 6, 7 and 8, or with a wgmma one: "
+                             f"{tiny_simt}")
     log(f"hybrid_1b3 phases done at {time.perf_counter() - t0:.1f} s")
 
     dropless = {"moe_dropless": True}

@@ -16,7 +16,8 @@ forward and dw: the wgmma kernels' copies named ``gmm_wgmma_*``, faults of
 their data and of their TMA / mbarrier / wgmma pipeline, the simt kernels'
 the other ``gmm_*``), ``q4_matmul.cu`` ("q4", the int4 dequant-matmul) or
 ``adafactor.cu`` ("adafactor", the fused Adafactor's three passes); in
-``causal_dot_norm.cu`` the wgmma kernel's copies are named ``norm_wgmma_*``.
+``causal_dot_norm.cu`` the wgmma kernel's copies are named ``norm_wgmma_*``,
+in ``causal_dot_bwd.cu`` the wgmma kernels' ``bwd_wgmma_*``.
 A copy whose text lies in the shared header ``hopper.cuh`` instead of the
 source patches the header: the source and the patched header go together
 into a directory of their own, where the source's ``#include "hopper.cuh"``
@@ -248,6 +249,36 @@ MUTANTS = [
     ("norm_wgmma_mask_one_wider", "fwd", "lets each token see the next one: s <= t + 1",
      "if (col > t) a[j] = 0.f;\n      if (col + 1 > t) a[j + 1] = 0.f;",
      "if (col > t + 1) a[j] = 0.f;\n      if (col + 1 > t + 1) a[j + 1] = 0.f;", True),
+    # the linear-attention backward's wgmma route (rows 3 and 4, bf16 at D 128)
+    ("bwd_wgmma_a_lo_dropped", "bwd",
+     "drops the low bf16 half of the scores A: A rounded once to bf16 before A w",
+     "kk < WC / 16; ++kk) wgmma_m64n64k16_rs<1>(o, alo",
+     "kk < 0; ++kk) wgmma_m64n64k16_rs<1>(o, alo", True),
+    ("bwd_wgmma_st_lo_dropped", "bwd",
+     "drops the low bf16 half of the carried state: St rounded once to bf16 before x St",
+     "for (int kk = 0; kk < WDX / 16; ++kk)\n      wgmma_m64n64k16<0, 1>(o, kmajor(xs, kk), "
+     "mnmajor(r.st_lo(), kk));",
+     "for (int kk = 0; kk < 0; ++kk)\n      wgmma_m64n64k16<0, 1>(o, kmajor(xs, kk), "
+     "mnmajor(r.st_lo(), kk));", True),
+    ("bwd_wgmma_strict_anti", "bwd",
+     "masks the reverse pass's scores to s > t: dk and dv lose each token's own term (wgmma)",
+     "const bool keep0 = REV ? col >= t : col <= t;\n"
+     "      const bool keep1 = REV ? col + 1 >= t : col + 1 <= t;",
+     "const bool keep0 = REV ? col > t : col <= t;\n"
+     "      const bool keep1 = REV ? col + 1 > t : col + 1 <= t;", True),
+    ("bwd_wgmma_dq_gden_dropped", "bwd",
+     "drops gden_t from dq's scores: the in-chunk term gden_t sum_{s<=t} k_s leaves dq (wgmma)",
+     "a0 += gt[h];\n        a1 += gt[h];", "", True),
+    ("bwd_wgmma_dk_gden_dropped", "bwd",
+     "drops gden_s from dk's scores: the in-chunk suffix sum_{s>=t} gden_s q_s leaves dk (wgmma)",
+     "a0 += gcur[col];\n        a1 += gcur[col + 1];", "", True),
+    ("bwd_wgmma_rev_from_chunk_0", "bwd",
+     "walks the reverse pass first chunk to last (its masks stay anti-causal; wgmma)",
+     "return (REV ? n_chunks - 1 - c : c) * WC;", "return c * WC;", True),
+    ("bwd_wgmma_zr_not_seeded", "bwd", "starts dk's zr from zero instead of gzf (wgmma)",
+     "zs[tid] = p.z0 != nullptr ?", "zs[tid] = ROLE == ROLE_DQ && p.z0 != nullptr ?", True),
+    ("bwd_wgmma_ds0_unwritten", "bwd", "never writes dS0 from the dv blocks (wgmma)",
+     "dz0 (dk)\n  if (p.st_out != nullptr) {", "dz0 (dk)\n  if (false) {", True),
     ("gmm_expert_off_by_one", "gmm", "reads each row tile's expert from the next tile's entry",
      "tile_expert[row0 / tile_rows]", "tile_expert[min(row0 / tile_rows + 1, m / tile_rows - 1)]",
      True),

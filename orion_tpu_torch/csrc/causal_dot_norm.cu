@@ -100,7 +100,8 @@
 //     (0 spilled, nvcc -Xptxas -v on the H100): one block an SM. At
 //     generate's B 4, H 16, Dv 128 the grid is 128 blocks on 132 SMs, one
 //     wave; at training's B 8, two.
-//   - The TMA, mbarrier and wgmma helpers come from hopper.cuh. A wait on an
+//   - The TMA, mbarrier and wgmma helpers and write_state (S's halves) come
+//     from hopper.cuh, shared with causal_dot_bwd.cu. A wait on an
 //     mbarrier that has not completed after 4 s traps: a pipeline fault is a
 //     launch error, never a hung card.
 //
@@ -416,33 +417,6 @@ struct NormRing {
   __device__ __forceinline__ uint32_t full(int s) const { return z() + WDK * 4 + 8 * s; }
   __device__ __forceinline__ uint32_t empty(int s) const { return full(W_STAGES + s); }
 };
-
-// The state S (rows m of Dk, columns n of the block's 64) as the two bf16
-// halves of the B operand of q S: MN-major rows of 128 bytes, 128-byte
-// swizzled (the 16-byte chunk n / 8 of row m at chunk (n / 8) xor (m % 8)).
-// sa, sb: the accumulators of Dk rows 0-63 and 64-127 (m64n64 layout).
-__device__ __forceinline__ void write_state(const float (&sa)[32], const float (&sb)[32],
-                                            unsigned char* hi, unsigned char* lo) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-#pragma unroll
-    for (int j = 0; j < 32; j += 2) {
-      const int m = 64 * half + 16 * warp + lane / 4 + 8 * ((j / 2) % 2);
-      const int n = 8 * (j / 4) + 2 * (lane % 4);
-      const int off = m * 128 + (((n >> 3) ^ (m & 7)) << 4) + (n & 7) * 2;
-      uint32_t h, l;
-      split_pair(half ? sb[j] : sa[j], half ? sb[j + 1] : sa[j + 1], h, l);
-      *reinterpret_cast<uint32_t*>(hi + off) = h;
-      *reinterpret_cast<uint32_t*>(lo + off) = l;
-    }
-  }
-}
-
-// Element (t, d) of a 64 x 128 tile as TMA lands it (two swizzled boxes).
-__device__ __forceinline__ int tile_offset(int t, int d) {
-  return (d >> 6) * HALF_BYTES + t * 128 + ((((d & 63) >> 3) ^ (t & 7)) << 4) + (d & 7) * 2;
-}
 
 // One block: value columns [j0, j0 + 64) of head bh, the whole sequence in
 // chunks of 64. The maps read q, k [BH, T, 128] and v [BH, T, Dv] in boxes of

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels of this
-// directory: gmm.cu, flash_attention.cu, flash_attention_bwd.cu and
-// causal_dot_norm.cu.
+// directory: gmm.cu, flash_attention.cu, flash_attention_bwd.cu,
+// causal_dot_norm.cu and causal_dot_bwd.cu.
 //
 //   - shared-memory addresses and mbarriers, with a wait that traps after 4 s
 //     of the card's clock, so a pipeline fault is a launch error, never a
@@ -11,7 +11,9 @@
 //   - wgmma descriptors for 128-byte swizzled operands, the fences and the
 //     m64n64k16 / m64n128k16 bf16 products these kernels issue;
 //   - split_pair: an fp32 value as two bf16 halves, for the products whose
-//     operand the TPU kernels keep in fp32.
+//     operand the TPU kernels keep in fp32, and write_state: a carried fp32
+//     state tile as those halves in the layout TMA lands (the linear
+//     attention walks of causal_dot_norm.cu and causal_dot_bwd.cu).
 //
 // Each source builds into its own library (ops/kernels/library.py passes -I
 // to this directory and hashes every header a source includes), so
@@ -198,6 +200,12 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
   return sw128_desc(tile + kk * 16 * 128, HALF_BYTES);
 }
 
+// The byte offset of element (t, d) of a 64 x 128 tile as TMA lands it (two
+// swizzled boxes); for d < 64 also of a single 64 x 64 box.
+__device__ __forceinline__ int tile_offset(int t, int d) {
+  return (d >> 6) * HALF_BYTES + t * 128 + ((((d & 63) >> 3) ^ (t & 7)) << 4) + (d & 7) * 2;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -292,6 +300,29 @@ __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint3
   const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// A carried fp32 state tile (rows m of 128, columns n of 64) as the two bf16
+// halves of an MN-major B operand: rows of 128 bytes, 128-byte swizzled (the
+// 16-byte chunk n / 8 of row m at chunk (n / 8) xor (m % 8)), the layout TMA
+// lands. sa, sb: the warpgroup's m64n64 accumulators of rows 0-63 and
+// 64-127.
+__device__ __forceinline__ void write_state(const float (&sa)[32], const float (&sb)[32],
+                                            unsigned char* hi, unsigned char* lo) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const int m = 64 * half + 16 * warp + lane / 4 + 8 * ((j / 2) % 2);
+      const int n = 8 * (j / 4) + 2 * (lane % 4);
+      const int off = m * 128 + (((n >> 3) ^ (m & 7)) << 4) + (n & 7) * 2;
+      uint32_t h, l;
+      split_pair(half ? sb[j] : sa[j], half ? sb[j + 1] : sa[j + 1], h, l);
+      *reinterpret_cast<uint32_t*>(hi + off) = h;
+      *reinterpret_cast<uint32_t*>(lo + off) = l;
+    }
+  }
 }
 
 }  // namespace hopper

@@ -22,10 +22,19 @@ Five kernels, each replacing a TPU kernel of
   two bf16 halves for the products the TPU kernel takes in fp32) for bf16 at
   Dk 128 with Dv a multiple of 64 and 16-byte-aligned bases, every model's
   shape; "simt" (fp32 FMAs on the CUDA cores) for the rest;
-- ``causal_dot_dq_den_cuda`` (``csrc/causal_dot_bwd.cu``) <-
+- ``causal_dot_dq_den_cuda`` (``csrc/causal_dot_bwd.cu``,
+  ``causal_dot_dq_den_wgmma_kernel`` or ``causal_dot_dq_den_kernel``) <-
   ``_bwd_dq_den_kernel`` (``_cdp_dq_den_flat``): dq;
-- ``causal_dot_rev_den_cuda`` (same source) <- ``_bwd_rev_core``
+- ``causal_dot_rev_den_cuda`` (same source, ``causal_dot_rev_den_wgmma_kernel``
+  or ``causal_dot_rev_den_kernel``) <- ``_bwd_rev_core``
   (``_cdp_rev_den_flat``): dk, dv, dS0, dz0.
+
+  Both in two variants, chosen before the launch from dtype, widths and
+  alignment alone by ``causal_dot_dq_den_variant`` and
+  ``causal_dot_rev_den_variant``: "wgmma" (row 1's TMA ring and ``wgmma``
+  walk in the backward's roles, the fp32 scores and carried state split into
+  two bf16 halves) for bf16 at a contracted width of 128 with 16-byte-aligned
+  bases, every model's shape; "simt" for the rest.
 
 The unnormalized ones, under the public op ``causal_dot_product``
 (``ops/dispatch.py``):
@@ -50,7 +59,9 @@ quotient rule in plain torch and the two backward kernels
 Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
 launches (``launches``, ``launches_dq``, ``launches_rev``, ``launches_raw``,
 ``launches_raw_rev``: kernel launches and nothing else; ``launches_wgmma``
-and ``launches_simt`` split ``launches`` by variant). A variant that fails
+and ``launches_simt`` split ``launches`` by variant, ``launches_dq_wgmma`` /
+``launches_dq_simt`` and ``launches_rev_wgmma`` / ``launches_rev_simt`` split
+``launches_dq`` and ``launches_rev``). A variant that fails
 to build or launch raises: it never gives way to the other variant or to
 the plain version. Each ``*_plain`` function is its kernel's function in
 plain PyTorch, on any device. The libraries are compiled with ``nvcc`` for
@@ -84,7 +95,9 @@ D_MAX = 128
 launches = 0  # forward kernel launches since import (or since a caller reset it)
 launches_wgmma = launches_simt = 0  # the forward's launches by variant
 launches_dq = 0  # dq-pass kernel launches
+launches_dq_wgmma = launches_dq_simt = 0  # the dq pass's launches by variant
 launches_rev = 0  # reverse-pass kernel launches
+launches_rev_wgmma = launches_rev_simt = 0  # the reverse pass's launches by variant
 launches_raw = 0  # unnormalized forward kernel launches (the public op's forward and dq pass)
 launches_raw_rev = 0  # unnormalized reverse-pass kernel launches
 _libs: dict = {}
@@ -101,7 +114,9 @@ _SIGNATURES = {
     },
     "bwd": {
         "causal_dot_dq_den": [_P] * 7 + [_I] * 5 + [_P],
+        "causal_dot_dq_den_wgmma": [_P] * 7 + [_I] * 3 + [_P],
         "causal_dot_rev_den": [_P] * 11 + [_I] * 5 + [_P],
+        "causal_dot_rev_den_wgmma": [_P] * 11 + [_I] * 2 + [_P],
         "causal_dot_rev": [_P] * 8 + [_I] * 5 + [_P],
     },
 }
@@ -159,7 +174,14 @@ def _check_gden(gden: Tensor, bh: int, t: int):
 # ---------------------------------------------------------------------------
 
 
-WGMMA_DK, WGMMA_DV_STEP = 128, 64  # the wgmma variant's Dk, and the multiple Dv must be
+# the wgmma walks' contracted width (the forward's Dk, the backward's Dv or
+# Dk), and the multiple their output width (the forward's Dv, dq's Dk) must be
+WGMMA_DX, WGMMA_DW_STEP = 128, 64
+
+
+def _wgmma_ok(*tensors: Tensor) -> bool:
+    """All bf16 with 16-byte-aligned bases (what a TMA tensor map takes)."""
+    return all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def causal_dot_norm_variant(q: Tensor, k: Tensor, v: Tensor) -> str:
@@ -167,8 +189,8 @@ def causal_dot_norm_variant(q: Tensor, k: Tensor, v: Tensor) -> str:
     "wgmma" when all three are bf16 at Dk 128 with Dv a multiple of 64 and
     16-byte-aligned bases (what its TMA tensor maps describe), else "simt".
     From dtype, shape and alignment alone, before any launch."""
-    if (all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0 for t in (q, k, v))
-            and q.shape[-1] == k.shape[-1] == WGMMA_DK and v.shape[-1] % WGMMA_DV_STEP == 0):
+    if (_wgmma_ok(q, k, v) and q.shape[-1] == k.shape[-1] == WGMMA_DX
+            and v.shape[-1] % WGMMA_DW_STEP == 0):
         return "wgmma"
     return "simt"
 
@@ -260,15 +282,37 @@ def _check_bwd(g, v, k, q=None):
     return bh, t, dk, dv
 
 
+def causal_dot_dq_den_variant(g: Tensor, v: Tensor, k: Tensor) -> str:
+    """The dq-pass kernel that takes g, v [BH, T, Dv] and k [BH, T, Dk]:
+    "wgmma" when all three are bf16 at Dv 128 (the contracted width) with Dk
+    a multiple of 64 and 16-byte-aligned bases, else "simt". From dtype,
+    shape and alignment alone, before any launch."""
+    if (_wgmma_ok(g, v, k) and g.shape[-1] == v.shape[-1] == WGMMA_DX
+            and k.shape[-1] % WGMMA_DW_STEP == 0):
+        return "wgmma"
+    return "simt"
+
+
+def causal_dot_rev_den_variant(q: Tensor, k: Tensor, v: Tensor, g: Tensor) -> str:
+    """The reverse-pass kernel that takes q, k [BH, T, Dk] and v, g [BH, T,
+    Dv]: "wgmma" when all four are bf16 at Dk = Dv = 128 (the dk role
+    contracts over Dv, the dv role over Dk) with 16-byte-aligned bases, else
+    "simt". From dtype, shape and alignment alone, before any launch."""
+    if _wgmma_ok(q, k, v, g) and all(t.shape[-1] == WGMMA_DX for t in (q, k, v, g)):
+        return "wgmma"
+    return "simt"
+
+
 def causal_dot_dq_den_cuda(
     g: Tensor, v: Tensor, k: Tensor, gden: Tensor,
     s0: Optional[Tensor] = None, z0: Optional[Tensor] = None,
 ) -> Tensor:
-    """Launch the dq-pass kernel on the current stream -> dq [BH, T, Dk] in
-    g's dtype: g = d out / d num in the input dtype [BH, T, Dv], gden =
-    d out / d den [BH, T] fp32, (s0, z0) the forward's initial state. Raises
-    on anything it does not take, as ``causal_dot_norm_cuda``."""
-    global launches_dq
+    """Launch the dq-pass kernel that ``causal_dot_dq_den_variant`` names on
+    the current stream -> dq [BH, T, Dk] in g's dtype: g = d out / d num in
+    the input dtype [BH, T, Dv], gden = d out / d den [BH, T] fp32, (s0, z0)
+    the forward's initial state. Raises on anything it does not take, as
+    ``causal_dot_norm_cuda``."""
+    global launches_dq, launches_dq_wgmma, launches_dq_simt
     bh, t, dk, dv = _check_bwd(g, v, k)
     _check_gden(gden, bh, t)
     _check_state(s0, z0, bh, dk, dv, "s0", "z0")
@@ -276,15 +320,23 @@ def causal_dot_dq_den_cuda(
     if dv > D_MAX:
         raise ValueError(f"Dv {dv} > {D_MAX}, the kernel's limit")
     dq = torch.empty_like(k)
+    chosen = causal_dot_dq_den_variant(g, v, k)
     lib = _library("bwd")
+    ptrs = (g.data_ptr(), v.data_ptr(), k.data_ptr(), gden.data_ptr(), _ptr(s0), _ptr(z0),
+            dq.data_ptr())
     with torch.cuda.device(g.device):
-        err = lib.causal_dot_dq_den(
-            g.data_ptr(), v.data_ptr(), k.data_ptr(), gden.data_ptr(), _ptr(s0), _ptr(z0),
-            dq.data_ptr(), bh, t, dk, dv, int(g.dtype == torch.bfloat16), _stream(g.device),
-        )
+        if chosen == "wgmma":
+            err = lib.causal_dot_dq_den_wgmma(*ptrs, bh, t, dk, _stream(g.device))
+        else:
+            err = lib.causal_dot_dq_den(
+                *ptrs, bh, t, dk, dv, int(g.dtype == torch.bfloat16), _stream(g.device))
     if err != 0:
-        raise RuntimeError(f"causal_dot_dq_den kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"causal_dot_dq_den kernel ({chosen}) failed: cudaError_t {err}")
     launches_dq += 1
+    if chosen == "wgmma":
+        launches_dq_wgmma += 1
+    else:
+        launches_dq_simt += 1
     return dq
 
 
@@ -292,11 +344,12 @@ def causal_dot_rev_den_cuda(
     q: Tensor, k: Tensor, v: Tensor, g: Tensor, gden: Tensor,
     gsf: Optional[Tensor] = None, gzf: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Launch the reverse-pass kernel on the current stream -> (dk, dv in
-    the input dtype, dS0 [BH, Dk, Dv], dz0 [BH, Dk] fp32). (gsf, gzf) are
-    the cotangents of the forward's final state, None for zeros. Raises on
-    anything it does not take, as ``causal_dot_norm_cuda``."""
-    global launches_rev
+    """Launch the reverse-pass kernel that ``causal_dot_rev_den_variant``
+    names on the current stream -> (dk, dv in the input dtype, dS0 [BH, Dk,
+    Dv], dz0 [BH, Dk] fp32). (gsf, gzf) are the cotangents of the forward's
+    final state, None for zeros. Raises on anything it does not take, as
+    ``causal_dot_norm_cuda``."""
+    global launches_rev, launches_rev_wgmma, launches_rev_simt
     bh, t, dk, dv = _check_bwd(g, v, k, q)
     _check_gden(gden, bh, t)
     _check_state(gsf, gzf, bh, dk, dv, "gsf", "gzf")
@@ -306,16 +359,24 @@ def causal_dot_rev_den_cuda(
     dk_out, dv_out = torch.empty_like(k), torch.empty_like(v)
     ds0 = torch.empty(bh, dk, dv, dtype=torch.float32, device=q.device)
     dz0 = torch.empty(bh, dk, dtype=torch.float32, device=q.device)
+    chosen = causal_dot_rev_den_variant(q, k, v, g)
     lib = _library("bwd")
-    with torch.cuda.device(q.device):
-        err = lib.causal_dot_rev_den(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), gden.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), gden.data_ptr(),
             _ptr(gsf), _ptr(gzf), dk_out.data_ptr(), dv_out.data_ptr(), ds0.data_ptr(),
-            dz0.data_ptr(), bh, t, dk, dv, int(q.dtype == torch.bfloat16), _stream(q.device),
-        )
+            dz0.data_ptr())
+    with torch.cuda.device(q.device):
+        if chosen == "wgmma":
+            err = lib.causal_dot_rev_den_wgmma(*ptrs, bh, t, _stream(q.device))
+        else:
+            err = lib.causal_dot_rev_den(
+                *ptrs, bh, t, dk, dv, int(q.dtype == torch.bfloat16), _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"causal_dot_rev_den kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"causal_dot_rev_den kernel ({chosen}) failed: cudaError_t {err}")
     launches_rev += 1
+    if chosen == "wgmma":
+        launches_rev_wgmma += 1
+    else:
+        launches_rev_simt += 1
     return dk_out, dv_out, ds0, dz0
 
 
@@ -615,7 +676,7 @@ __all__ = [
     "causal_dot_cuda", "causal_dot_plain", "causal_dot_rev_cuda", "causal_dot_rev_plain",
     "CausalDotProductFn",
     "causal_dot_norm_cuda", "causal_dot_norm_plain", "causal_dot_norm_variant",
-    "causal_dot_dq_den_cuda", "causal_dot_dq_den_plain",
-    "causal_dot_rev_den_cuda", "causal_dot_rev_den_plain",
+    "causal_dot_dq_den_cuda", "causal_dot_dq_den_plain", "causal_dot_dq_den_variant",
+    "causal_dot_rev_den_cuda", "causal_dot_rev_den_plain", "causal_dot_rev_den_variant",
     "LinearAttentionFn", "quotient_rule", "SOURCES",
 ]

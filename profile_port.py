@@ -14,8 +14,9 @@ the int4-quantized model and (e) one training step with
 kernel (largest first, grouped into the six attention kernels, the two
 grouped expert matmul kernels, the int4 dequant-matmul, the three fused
 Adafactor passes, dense products, and everything else; a kernel's wgmma
-variant, where it has one, is a group of its own), the number of
-kernel launches, the window's wall time and
+variant, where it has one, is a group of its own: rows 1, 3, 4 and 6-10),
+the linear-attention kernels' total (rows 1, 3 and 4, both variants), the
+number of kernel launches, the window's wall time and
 the device's idle share of it (1 - summed kernel time / wall time; the port
 runs on one stream, so kernels do not overlap), then all of it as one JSON
 line. Imports nothing of JAX.
@@ -68,12 +69,14 @@ def trace(fn):
     for name, (us, _) in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + us
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    linear = sum(us for g, us in groups.items() if g.startswith("causal_dot"))
     return {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "kernel_launches": sum(c for _, c in kernels.values()),
         "idle_share": (1.0 - busy / wall_us) if busy else None,
         "groups_ms": {g: us / 1e3 for g, us in sorted(groups.items(), key=lambda kv: -kv[1])},
+        "linear_kernels_ms": linear / 1e3,
         "top_kernels": [{"name": n[:120], "ms": us / 1e3, "count": c} for n, (us, c) in top],
     }
 
@@ -167,7 +170,8 @@ def main() -> int:
     result.update(profile_int4_and_adafactor(dev))
     for phase, r in result.items():
         print(f"{phase}: wall {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
-              f"idle share {r['idle_share']}, {r['kernel_launches']} kernel launches")
+              f"idle share {r['idle_share']}, {r['kernel_launches']} kernel launches, "
+              f"linear-attention kernels {r['linear_kernels_ms']:.3f} ms")
         for g, ms in r["groups_ms"].items():
             print(f"  {g}: {ms:.3f} ms")
         for k in r["top_kernels"]:

@@ -1,11 +1,13 @@
-"""Which kernel of the linear-attention forward (row 1) the wrapper launches.
+"""Which kernels of linear attention (rows 1, 3 and 4) the wrappers launch.
 
-``causal_dot_norm_variant`` chooses from dtype, widths and alignment alone,
-before any launch: "wgmma" (TMA tensor maps into ``wgmma``) for bf16 at Dk
-128 with Dv a multiple of 64 and 16-byte-aligned bases, "simt" for
-everything else. A pure function of the tensors' metadata, so it runs here
-on CPU tensors; the launches themselves are held on the card
-(``tests/test_torch_cuda.py``).
+``causal_dot_norm_variant`` (the forward) chooses from dtype, widths and
+alignment alone, before any launch: "wgmma" (TMA tensor maps into
+``wgmma``) for bf16 at Dk 128 with Dv a multiple of 64 and 16-byte-aligned
+bases, "simt" for everything else; ``causal_dot_dq_den_variant`` and
+``causal_dot_rev_den_variant`` (the backward's two passes) likewise, for
+bf16 at a contracted width of 128. Pure functions of the tensors' metadata,
+so they run here on CPU tensors; the launches themselves are held on the
+card (``tests/test_torch_cuda.py``).
 """
 
 import pytest
@@ -58,3 +60,58 @@ def test_one_operand_in_fp32_takes_simt(i):
     ops = list(_qkv(2, 64, 128, 128))
     ops[i] = ops[i].float()
     assert cd.causal_dot_norm_variant(*ops) == "simt"
+
+
+# The backward passes (rows 3 and 4): ``causal_dot_dq_den_variant(g, v, k)``
+# takes wgmma for bf16 at Dv 128 (its contracted width) with Dk a multiple of
+# 64, ``causal_dot_rev_den_variant(q, k, v, g)`` for bf16 at Dk = Dv = 128;
+# both want 16-byte-aligned bases.
+
+
+def _bwd(bh, t, dk, dv, dtype=BF16):
+    """(q, k, v, g) of a layer's backward: q, k [BH, T, Dk], v, g [BH, T, Dv]."""
+    return (torch.empty(bh, t, dk, dtype=dtype), torch.empty(bh, t, dk, dtype=dtype),
+            torch.empty(bh, t, dv, dtype=dtype), torch.empty(bh, t, dv, dtype=dtype))
+
+
+@pytest.mark.parametrize(
+    "bh,t,dk,dv,dtype,want_dq,want_rev",
+    [
+        (128, 1024, 128, 128, BF16, "wgmma", "wgmma"),  # lm_1b3's training step
+        (4, 1, 128, 128, BF16, "wgmma", "wgmma"),  # T 1
+        (4, 1000, 64, 128, BF16, "wgmma", "simt"),  # dq: one output tile of Dk 64
+        (4, 1000, 192, 128, BF16, "wgmma", "simt"),  # dq: three output tiles
+        (32, 1000, 128, 96, BF16, "simt", "simt"),  # Dk 128 Dv 96 (chip_smoke's simt case)
+        (4, 100, 100, 128, BF16, "simt", "simt"),  # Dk not a multiple of 64
+        (4, 100, 128, 128, FP32, "simt", "simt"),  # fp32 at D 128
+        (8, 300, 32, 32, FP32, "simt", "simt"),  # the tiny models
+    ],
+)
+def test_bwd_variants(bh, t, dk, dv, dtype, want_dq, want_rev):
+    q, k, v, g = _bwd(bh, t, dk, dv, dtype)
+    assert cd.causal_dot_dq_den_variant(g, v, k) == want_dq
+    assert cd.causal_dot_rev_den_variant(q, k, v, g) == want_rev
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 3])
+def test_bwd_misaligned_base_takes_simt(i):
+    """A view one element into its storage (2 bytes) cannot be a TMA base:
+    each operand of the reverse pass alone decides, and g, v or k of the dq
+    pass."""
+    flat = torch.empty(8 + 4 * 64 * 128, dtype=BF16)
+    odd = flat[1:1 + 4 * 64 * 128].view(4, 64, 128)
+    ops = list(_bwd(4, 64, 128, 128))
+    assert cd.causal_dot_rev_den_variant(*ops) == "wgmma"
+    ops[i] = odd
+    q, k, v, g = ops
+    assert cd.causal_dot_rev_den_variant(q, k, v, g) == "simt"
+    assert cd.causal_dot_dq_den_variant(g, v, k) == ("wgmma" if i == 0 else "simt")
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 3])
+def test_bwd_one_operand_in_fp32_takes_simt(i):
+    ops = list(_bwd(2, 64, 128, 128))
+    ops[i] = ops[i].float()
+    q, k, v, g = ops
+    assert cd.causal_dot_rev_den_variant(q, k, v, g) == "simt"
+    assert cd.causal_dot_dq_den_variant(g, v, k) == ("wgmma" if i == 0 else "simt")

@@ -29,7 +29,10 @@ both variants, each case asserting which one's counters moved: wgmma for
 bf16 at D 128 (its P and dS carried as two bf16 halves, so the same limits
 hold), simt for the rest. Row 1 likewise: wgmma for bf16 at Dk 128 with Dv
 a multiple of 64 (its scores and state carried as two bf16 halves), simt
-for the rest; its layouts held on one chunk and two first. The grouped matmul (rows 9, 10): y and dx
+for the rest; its layouts held on one chunk and two first. Rows 3 and 4
+(the backward's passes) likewise: wgmma for bf16 at a contracted width of
+128, simt for the rest, on one chunk and two first, then ragged, T 1, with
+a state and with (gsf, gzf). The grouped matmul (rows 9, 10): y and dx
 as the bf16 / fp32 outputs above with 1e-4 of the largest magnitude beside
 the relative term (a sum over K products in another order); dw, fp32 sums
 of exact products in another order, within 1e-4 of each expert's largest
@@ -168,18 +171,11 @@ def _max_close(got, ref, rtol, floor=0.0):
                                atol=floor + 1e-4 * float(ref.float().abs().max()))
 
 
-@pytest.mark.parametrize(
-    "dtype,bh,t,dk,dv,state",
-    [
-        (torch.float32, 3, 70, 32, 24, False),
-        (torch.float32, 2, 129, 128, 100, True),
-        (torch.bfloat16, 5, 1, 16, 64, True),
-        (torch.bfloat16, 4, 333, 128, 128, True),
-        (torch.bfloat16, 2, 64, 100, 72, False),
-    ],
-)
-def test_backward_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
-    g = torch.Generator(device=dev).manual_seed(t + 1)
+def _bwd_case(dev, dtype, bh, t, dk, dv, state, seed):
+    """One layer's backward inputs: q, k phi-mapped, v, and g, gden from the
+    plain forward's num and den through the quotient rule; with ``state`` an
+    initial state and cotangents (gsf, gzf) of the final one."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     phi = lambda x: (torch.nn.functional.elu(x) + 1).to(dtype)  # noqa: E731
     q = phi(torch.randn(bh, t, dk, device=dev, generator=g))
     k = phi(torch.randn(bh, t, dk, device=dev, generator=g))
@@ -191,24 +187,81 @@ def test_backward_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
         z0 = torch.rand(bh, dk, device=dev, generator=g) * 10
         gsf = 0.05 * torch.randn(bh, dk, dv, device=dev, generator=g)
         gzf = 0.05 * torch.randn(bh, dk, device=dev, generator=g)
-    before = (causal_dot.launches, causal_dot.launches_dq, causal_dot.launches_rev)
-    _, _, _, num, den = causal_dot.causal_dot_norm_cuda(q, k, v, s0, z0, with_parts=True)
     _, _, _, r_num, r_den = causal_dot.causal_dot_norm_plain(q, k, v, s0, z0, with_parts=True)
-    _max_close(num, r_num, 1e-4)
-    _max_close(den, r_den, 1e-4)
     gnum, gden = causal_dot.quotient_rule(gout, r_num, r_den, 1e-6, dtype)
+    return q, k, v, gnum, gden, s0, z0, gsf, gzf, (r_num, r_den)
+
+
+def _bwd_counts():
+    return (causal_dot.launches_dq, causal_dot.launches_dq_wgmma, causal_dot.launches_dq_simt,
+            causal_dot.launches_rev, causal_dot.launches_rev_wgmma, causal_dot.launches_rev_simt)
+
+
+def _check_bwd(q, k, v, gnum, gden, s0, z0, gsf, gzf):
+    """Rows 3 and 4 against their plain versions, each in the variant its
+    chooser names; only that variant's counter moves."""
+    dq_variant = causal_dot.causal_dot_dq_den_variant(gnum, v, k)
+    rev_variant = causal_dot.causal_dot_rev_den_variant(q, k, v, gnum)
+    before = _bwd_counts()
     got = (causal_dot.causal_dot_dq_den_cuda(gnum, v, k, gden, s0, z0),
            *causal_dot.causal_dot_rev_den_cuda(q, k, v, gnum, gden, gsf, gzf))
-    assert (causal_dot.launches, causal_dot.launches_dq, causal_dot.launches_rev) == tuple(
-        n + 1 for n in before)
+    moved = (1, dq_variant == "wgmma", dq_variant == "simt",
+             1, rev_variant == "wgmma", rev_variant == "simt")
+    assert _bwd_counts() == tuple(n + d for n, d in zip(before, moved))
     ref = (causal_dot.causal_dot_dq_den_plain(gnum, v, k, gden, s0, z0),
            *causal_dot.causal_dot_rev_den_plain(q, k, v, gnum, gden, gsf, gzf))
     for x, r in zip(got[:3], ref[:3]):
-        assert x.dtype == dtype and x.shape == r.shape
-        _max_close(x, r, 2**-7 if dtype == torch.bfloat16 else 1e-4)
+        assert x.dtype == q.dtype and x.shape == r.shape
+        _max_close(x, r, 2**-7 if q.dtype == torch.bfloat16 else 1e-4)
     for x, r in zip(got[3:], ref[3:]):
         assert x.dtype == torch.float32
         _max_close(x, r, 1e-4)
+    return dq_variant, rev_variant
+
+
+@pytest.mark.parametrize(
+    "dtype,bh,t,dk,dv,state",
+    [
+        (torch.float32, 3, 70, 32, 24, False),
+        (torch.float32, 2, 129, 128, 100, True),
+        (torch.bfloat16, 5, 1, 16, 64, True),
+        (torch.bfloat16, 4, 333, 128, 128, True),  # wgmma: ragged, state and (gsf, gzf)
+        (torch.bfloat16, 2, 64, 100, 72, False),
+        (torch.bfloat16, 3, 1000, 128, 128, False),  # wgmma: ragged, the reverse walk's first chunk
+        (torch.bfloat16, 2, 1, 128, 128, True),  # wgmma: T 1
+        (torch.bfloat16, 2, 130, 64, 128, True),  # dq wgmma at Dk 64 (one tile), the reverse simt
+        (torch.bfloat16, 2, 130, 128, 96, True),  # simt: Dv 96
+    ],
+)
+def test_backward_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
+    """Rows 3 and 4 against their plain versions (after row 1's num and den
+    against theirs), each in the variant its chooser names: wgmma for bf16
+    at a contracted width of 128, simt for the rest."""
+    q, k, v, gnum, gden, s0, z0, gsf, gzf, (r_num, r_den) = _bwd_case(
+        dev, dtype, bh, t, dk, dv, state, t + 1)
+    _, _, _, num, den = causal_dot.causal_dot_norm_cuda(q, k, v, s0, z0, with_parts=True)
+    _max_close(num, r_num, 1e-4)
+    _max_close(den, r_den, 1e-4)
+    variants = _check_bwd(q, k, v, gnum, gden, s0, z0, gsf, gzf)
+    bf16_128 = dtype == torch.bfloat16 and dv == 128
+    assert variants == ("wgmma" if bf16_128 and dk % 64 == 0 else "simt",
+                        "wgmma" if bf16_128 and dk == 128 else "simt")
+
+
+@pytest.mark.parametrize("kind", ["one chunk", "state", "two chunks", "dq at Dk 64"])
+def test_backward_wgmma_layouts_on_one_chunk(dev, kind):
+    """The wgmma backward's operand layouts, one head at D 128: "one chunk"
+    (T 64, no state: A = x y^T K-major, gden folded in, the masks, A's halves
+    against w MN-major, St = y^T w with y^T read MN-major), "state" (T 64
+    from S0 and (gsf, gzf): St's seeds read transposed (dq, dk) and as laid
+    out (dv), x against St's halves), "two chunks" (T 128: each walk's second
+    chunk reads the state its first wrote; dk and dv walk the later chunk
+    first), "dq at Dk 64" (T 64, one output tile). Within chip_smoke.py's
+    limits, as ``test_backward_kernels_match_plain``."""
+    t = 128 if kind == "two chunks" else 64
+    dk = 64 if kind == "dq at Dk 64" else 128
+    case = _bwd_case(dev, torch.bfloat16, 1, t, dk, 128, kind == "state", 11)
+    assert _check_bwd(*case[:9]) == ("wgmma", "simt" if dk == 64 else "wgmma")
 
 
 @pytest.mark.parametrize(

@@ -36,9 +36,10 @@ def test_nested_headers_are_hashed_and_found_beside_the_includer(tmp_path):
 
 
 def test_the_package_sources_hash_the_shared_header():
-    """The four wgmma sources include csrc/hopper.cuh; angle-bracket
+    """The five wgmma sources include csrc/hopper.cuh; angle-bracket
     includes (the toolkit's) are not followed."""
-    for name in ("gmm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "causal_dot_norm.cu"):
+    for name in ("gmm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "causal_dot_norm.cu",
+                 "causal_dot_bwd.cu"):
         assert library._headers(library.CSRC / name) == [library.CSRC / "hopper.cuh"], name
     assert library._headers(library.CSRC / "q4_matmul.cu") == []
 
