@@ -23,8 +23,13 @@ nonzero and no result line is printed):
    - the public op ``causal_dot_product``'s kernels (rows 2, 5): the raw
      forward, its use as the dq pass on (g, v, k, S0^T), and the reverse
      pass, at lm_1b3's per-layer shape [B*H, T, D] = [128, 1024, 128] bf16,
-     a ragged T 1000, T 1 and fp32 at D 32, with and without S0 and a
-     cotangent on the final state, every output written over NaN;
+     a ragged T 1000, T 1, Dk 128 with Dv 64 and fp32 at D 32, with and
+     without S0 and a cotangent on the final state, every output written
+     over NaN; each case logs the variants row 2 took (wgmma for bf16 at Dk
+     128 with Dv a multiple of 64: the forward everywhere in bf16 and the dq
+     pass but at Dv 64, whose contracted width it is; simt for the rest);
+     the wgmma kernel timed as the op's forward, the simt kernel as the dq
+     pass of the op at Dv 64;
    - flash attention (rows 6, 7, 8): forward, dq and dk/dv at hybrid_1b3's
      generate shape (B 4, H 16, T 1536, D 128, bf16, window 1024) and
      training shape (B 8, T 2048), a ragged T 2000, T 1, T 512 (below the
@@ -44,8 +49,12 @@ nonzero and no result line is printed):
      the simt kernels at the tiny widths in fp32 (their path);
    - the int4 dequant-matmul (row 14): lm_1b3's decode shapes (x [4, 2048]
      against p [1024, 2048] and [1024, 5504], x [4, 5504] against p [2752,
-     2048]), B 1, B 64, an out of 200 (no whole strip), a ragged d 100, and
-     fp32;
+     2048]), B 1, B 64, 1000 packed rows, a last strip of 16 channels (the
+     mma variant's edges), an out of 200, a ragged d 100, d 2004 and fp32
+     (the simt variant's); each case logs its variant (mma for bf16 x with
+     d % 8 == 0 and out % 16 == 0); mma timed at the three decode shapes
+     and over a decode step's 168 calls, simt at the tiny models' fp32
+     widths;
    - the fused Adafactor passes (rows 11-13): sums, squared sum and apply at
      lm_1b3's factored shapes ([32000, 2048], [5504, 2048], [2048, 5504],
      [2048, 2048]) and ragged m and n, each gradient with an all-zero row and
@@ -55,19 +64,24 @@ nonzero and no result line is printed):
    ``torch._grouped_mm``; none for rows 1-5 and 11-14), each by CUDA events over
    calls back to back (``cuda_ms``), and for rows 11-14 also the kernel's
    device time alone (``graph_ms``); print each kernel's bound beside its
-   time; for rows 9-10 also the forward wrapper's host time a call
-   (``host_us``: the wgmma variant encodes its tensor maps at each call);
+   time; for rows 9-10 and 14 also the wrapper's host time a call
+   (``host_us``: gmm's wgmma variant encodes its tensor maps at each call,
+   q4's mma variant once a weight);
 4. the public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
    backward through ``CausalDotProductFn`` at [B 8, H 16, T 1024, D 128]
-   bf16 with an initial state and the returned state: exact launches (row 2
-   twice, row 5 once, with every count set to 0 just before), out, S and
-   every gradient against the plain form differentiated by autograd;
+   bf16 with an initial state and the returned state, then at Dk 128, Dv
+   64: exact launches (row 2 twice on its wgmma kernel and row 5 once; at
+   Dv 64 the dq pass on row 2's simt kernel), every count set to 0 just
+   before each, out, S and every gradient against the plain form
+   differentiated by autograd;
 5. the generate path, for ``lm_1b3`` (4 prompts of 1024 byte tokens, 32
    greedy new tokens), for ``hybrid_1b3`` (4 prompts of 1536, longer than
    its window, 64 tokens) and for ``moe_1b3_4e`` with ``moe_dropless=True``
    (4 prompts of 1024, 32 tokens): ``orion_tpu_torch.generate.generate`` at full
    width (seeded random weights), with every kernel's launch count reset
-   just before and read just after; the prefill's logits and every layer's
+   just before and read just after (then generated twice more: decode
+   ms/token from the median of the three, as the card machine's shared host
+   spreads it); the prefill's logits and every layer's
    decode state against a ``backend="torch"`` run of the same weights on the
    card; and a ``tiny`` model of the same layer kinds on the card against
    the same model on the CPU, whose plain path the CPU tests hold against
@@ -92,12 +106,12 @@ nonzero and no result line is printed):
 7. quantized serving: ``generate(..., quant=...)`` of ``lm_1b3`` at int4 and
    int8 and of the dropless ``moe_1b3_4e`` at int4 (4 prompts of 1024, 32
    greedy tokens; weights quantized once from seeded fp32 ones), exact launch
-   counts (one q4 launch per int4 layer and decode step: 168 for lm_1b3, 150
-   for the MoE, whose expert stacks stay int8; none in the prefill or at
-   int8), the prefill's and 8 decode steps' logits against
-   ``backend="torch"`` on the same quantized weights; ``tiny`` and a tiny
-   hybrid at int4 in fp32, the card (the kernel) against the CPU (the split
-   form);
+   counts (one q4 launch per int4 layer and decode step, all on the mma
+   kernel: 168 for lm_1b3, 150 for the MoE, whose expert stacks stay int8;
+   none in the prefill or at int8), the prefill's and 8 decode steps'
+   logits against ``backend="torch"`` on the same quantized weights;
+   ``tiny`` and a tiny hybrid at int4 in fp32, the card (the simt kernel,
+   every decode launch) against the CPU (the split form);
 8. Adafactor: ``lm_1b3`` training with ``optimizer="adafactor_fused"`` (batch
    8 x 1024, 1 warm-up and 3 timed steps; each pass once for each of the 170
    large matrices a step, the sums and the squared sum two launches a call:
@@ -113,12 +127,13 @@ nonzero and no result line is printed):
    model, in bf16 and at int4, against the same from the in-memory trained
    model: tokens and prefill logits bitwise, exact launches (row 14 at
    int4); save and load seconds;
-10. a ``kernels`` JSON line (22 entries: the 14 rows, rows 1, 3, 4, 6, 7,
-   8, 9 and 10 once for each variant), then the result line
+10. a ``kernels`` JSON line (24 entries: the 14 rows, rows 1-4, 6-10 and 14
+   once for each variant), then the result line
    ``{"ok": true, "device": {...}}`` last.
 """
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -262,11 +277,11 @@ AF_PARAM_RTOL, AF_PARAM_ATOL, AF_STAT_ATOL_OF_MAX = 2e-5, 1e-7, 1e-6
 RAW_RTOL = {torch.bfloat16: 2**-7, torch.float32: 1e-4}
 RAW_ATOL_OF_MAX = 1e-4
 
-KERNELS = ("causal_dot_norm_wgmma", "causal_dot_norm_simt", "causal_dot",
+KERNELS = ("causal_dot_norm_wgmma", "causal_dot_norm_simt", "causal_dot_wgmma", "causal_dot_simt",
            "causal_dot_dq_den_wgmma", "causal_dot_dq_den_simt", "causal_dot_rev_den_wgmma",
            "causal_dot_rev_den_simt", "causal_dot_rev", "flash_fwd_wgmma", "flash_fwd_simt",
            "flash_dq_wgmma", "flash_dkv_wgmma", "flash_dq_simt", "flash_dkv_simt", "gmm_fwd_wgmma", "gmm_dw_wgmma", "gmm_fwd_simt", "gmm_dw_simt",
-           "q4_matmul", "adafactor_sums", "adafactor_rms", "adafactor_apply")
+           "q4_matmul_mma", "q4_matmul_simt", "adafactor_sums", "adafactor_rms", "adafactor_apply")
 
 
 def log(*a):
@@ -691,39 +706,42 @@ def check_training_kernels(cd, dev, norm):
 # The public op causal_dot_product: rows 2, 5
 # ---------------------------------------------------------------------------
 
-# (label, B, H, T, D, dtype, initial state S0, cotangent dSf of the final
-# state): lm_1b3's per-layer shape [B*H, T, D] = [128, 1024, 128] and the
-# edges of the kernels' loops
+# (label, B, H, T, Dk, Dv, dtype, initial state S0, cotangent dSf of the
+# final state): lm_1b3's per-layer shape [B*H, T, D] = [128, 1024, 128] and
+# the edges of the kernels' loops. Row 2 takes its wgmma kernel for bf16 at
+# Dk 128 with Dv a multiple of 64, its simt kernel for the rest: at Dk 128,
+# Dv 64 the forward takes wgmma and the dq pass, on (g, v, k), simt
 RAW_CASES = [
-    ("B8 H16 T1024 D128 bf16", 8, 16, 1024, 128, torch.bfloat16, False, False),
-    ("B8 H16 T1024 D128 bf16 S0 dSf", 8, 16, 1024, 128, torch.bfloat16, True, True),
-    ("B8 H16 T1000 D128 bf16 S0 (ragged)", 8, 16, 1000, 128, torch.bfloat16, True, False),
-    ("B8 H16 T1 D128 bf16 dSf", 8, 16, 1, 128, torch.bfloat16, False, True),
-    ("B2 H4 T200 D32 fp32 S0 dSf", 2, 4, 200, 32, torch.float32, True, True),
-    ("B2 H4 T70 D32 fp32", 2, 4, 70, 32, torch.float32, False, False),
+    ("B8 H16 T1024 D128 bf16", 8, 16, 1024, 128, 128, torch.bfloat16, False, False),
+    ("B8 H16 T1024 D128 bf16 S0 dSf", 8, 16, 1024, 128, 128, torch.bfloat16, True, True),
+    ("B8 H16 T1000 D128 bf16 S0 (ragged)", 8, 16, 1000, 128, 128, torch.bfloat16, True, False),
+    ("B8 H16 T1 D128 bf16 dSf", 8, 16, 1, 128, 128, torch.bfloat16, False, True),
+    ("B8 H16 T1024 Dk128 Dv64 bf16 S0 dSf", 8, 16, 1024, 128, 64, torch.bfloat16, True, True),
+    ("B2 H4 T200 D32 fp32 S0 dSf", 2, 4, 200, 32, 32, torch.float32, True, True),
+    ("B2 H4 T70 D32 fp32", 2, 4, 70, 32, 32, torch.float32, False, False),
 ]
 
 
-def _raw_inputs(g, dev, b, h, t, d, dtype, with_s0, with_gsf):
-    """q, k phi-mapped, v, the output's cotangent; S0 the state a 256-token
-    prefix leaves; dSf at the scale of what the reverse walk itself sums
-    (R grows as sqrt(T) per element)."""
+def _raw_inputs(g, dev, b, h, t, dk, dv, dtype, with_s0, with_gsf):
+    """q, k phi-mapped [BH, T, Dk], v [BH, T, Dv], the output's cotangent;
+    S0 [BH, Dk, Dv] the state a 256-token prefix leaves; dSf at the scale of
+    what the reverse walk itself sums (R grows as sqrt(T) per element)."""
     bh = b * h
 
     def phi(x):
         return torch.nn.functional.elu(x) + 1.0
 
-    q = phi(torch.randn(bh, t, d, device=dev, generator=g)).to(dtype)
-    k = phi(torch.randn(bh, t, d, device=dev, generator=g)).to(dtype)
-    v = torch.randn(bh, t, d, device=dev, generator=g).to(dtype)
-    gout = torch.randn(bh, t, d, device=dev, generator=g).to(dtype)
+    q = phi(torch.randn(bh, t, dk, device=dev, generator=g)).to(dtype)
+    k = phi(torch.randn(bh, t, dk, device=dev, generator=g)).to(dtype)
+    v = torch.randn(bh, t, dv, device=dev, generator=g).to(dtype)
+    gout = torch.randn(bh, t, dv, device=dev, generator=g).to(dtype)
     s0 = gsf = None
     if with_s0:
-        kp = phi(torch.randn(bh, 256, d, device=dev, generator=g)).to(dtype).float()
-        vp = torch.randn(bh, 256, d, device=dev, generator=g).to(dtype).float()
+        kp = phi(torch.randn(bh, 256, dk, device=dev, generator=g)).to(dtype).float()
+        vp = torch.randn(bh, 256, dv, device=dev, generator=g).to(dtype).float()
         s0 = kp.transpose(1, 2) @ vp
     if with_gsf:
-        gsf = 8.0 * torch.randn(bh, d, d, device=dev, generator=g)
+        gsf = 8.0 * torch.randn(bh, dk, dv, device=dev, generator=g)
     return q, k, v, gout, s0, gsf
 
 
@@ -741,21 +759,22 @@ def _nan_junk(dev, *shapes_dtypes):
 def compare_raw(cd, dev):
     """Rows 2 and 5 against their plain versions on the card, on
     ``RAW_CASES``: the forward (out, S), the dq pass (row 2 on (g, v, k)
-    with S0^T carried in, as the op's backward runs it) and the reverse pass
-    (dk, dv, dS0, seeded by dSf^T or zeros). Returns one reading per case
-    and the first case's inputs."""
+    with S0^T carried in and no final state asked for, as the op's backward
+    runs it) and the reverse pass (dk, dv, dS0, seeded by dSf^T or zeros).
+    Returns one reading per case (with the variants the forward and the dq
+    pass took) and every case's inputs by label."""
     g = torch.Generator(device=dev).manual_seed(21)
-    readings, first = [], None
-    for label, b, h, t, d, dtype, with_s0, with_gsf in RAW_CASES:
-        q, k, v, gout, s0, gsf = _raw_inputs(g, dev, b, h, t, d, dtype, with_s0, with_gsf)
+    readings, inputs = [], {}
+    for label, b, h, t, dk, dv, dtype, with_s0, with_gsf in RAW_CASES:
+        q, k, v, gout, s0, gsf = _raw_inputs(g, dev, b, h, t, dk, dv, dtype, with_s0, with_gsf)
         bh, f32 = b * h, torch.float32
         s0t = s0.transpose(1, 2).contiguous() if s0 is not None else None
-        _nan_junk(dev, ((bh, t, d), dtype), ((bh, d, d), f32))
+        _nan_junk(dev, ((bh, t, dv), dtype), ((bh, dk, dv), f32))
         out, sf = cd.causal_dot_cuda(q, k, v, s0)
-        _nan_junk(dev, ((bh, t, d), dtype), ((bh, d, d), f32))
-        dq, _ = cd.causal_dot_cuda(gout, v, k, s0t)
-        _nan_junk(dev, ((bh, t, d), f32), ((bh, t, d), f32), ((bh, d, d), f32))
-        dk, dv, ds0 = cd.causal_dot_rev_cuda(q, k, v, gout, gsf)
+        _nan_junk(dev, ((bh, t, dk), dtype))
+        dq, _ = cd.causal_dot_cuda(gout, v, k, s0t, with_state=False)
+        _nan_junk(dev, ((bh, t, dk), f32), ((bh, t, dv), f32), ((bh, dk, dv), f32))
+        dk_, dv_, ds0 = cd.causal_dot_rev_cuda(q, k, v, gout, gsf)
         torch.cuda.synchronize()
         r_out, r_sf = cd.causal_dot_plain(q, k, v, s0)
         r_dq, _ = cd.causal_dot_plain(gout, v, k, s0t)
@@ -763,16 +782,17 @@ def compare_raw(cd, dev):
         rt = RAW_RTOL[dtype]
         readings.append({
             "case": label,
+            "variants": {"out": cd.causal_dot_raw_variant(q, k, v),
+                         "dq": cd.causal_dot_raw_variant(gout, v, k)},
             "out": _grad_reading(out, r_out, rt, RAW_ATOL_OF_MAX),
             "dq": _grad_reading(dq, r_dq, rt, RAW_ATOL_OF_MAX),
-            "dk": _grad_reading(dk, r_dk, RAW_RTOL[f32], RAW_ATOL_OF_MAX),
-            "dv": _grad_reading(dv, r_dv, RAW_RTOL[f32], RAW_ATOL_OF_MAX),
+            "dk": _grad_reading(dk_, r_dk, RAW_RTOL[f32], RAW_ATOL_OF_MAX),
+            "dv": _grad_reading(dv_, r_dv, RAW_RTOL[f32], RAW_ATOL_OF_MAX),
             "s_rel": _rel(sf, r_sf), "ds0_rel": _rel(ds0, r_ds0),
             "states_finite": bool(torch.isfinite(sf).all() and torch.isfinite(ds0).all()),
         })
-        if first is None:
-            first = (q, k, v, gout)
-    return readings, first
+        inputs[label] = (q, k, v, gout)
+    return readings, inputs
 
 
 def agrees_raw(r):
@@ -781,107 +801,156 @@ def agrees_raw(r):
                     for n in ("out", "dq", "dk", "dv")))
 
 
+def _raw_bound(q, k, v, with_state):
+    """Row 2's bound on q, k [BH, T, Dk] and v [BH, T, Dv]: q, k, v read, out
+    written (and the fp32 S with ``with_state``); one chunk walk's products
+    (the full 64 x 64 score block a chunk)."""
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    moved = (q.numel() + k.numel() + 2 * v.numel()) * q.element_size()
+    moved += bh * dk * dv * 4 if with_state else 0
+    ops = 2 * bh * t * (64 * dk + 64 * dv + 2 * dk * dv)
+    return moved, ops
+
+
 def check_raw(cd, dev):
-    """Rows 2 and 5 against their plain versions, then each timed at the
-    main path's shape [128, 1024, 128] bf16: row 2 as the op's forward (no
-    initial state), row 5 seeded by dSf. Returns their ``kernels`` lines."""
-    readings, (q, k, v, gout) = compare_raw(cd, dev)
+    """Rows 2 and 5 against their plain versions, each case logging the
+    variants row 2 took (wgmma wherever ``causal_dot_raw_variant`` names it:
+    every bf16 case at Dk 128 but the Dv-64 case's dq pass); then each timed
+    where the public op's main path runs it: row 2's wgmma kernel as the
+    op's forward at [128, 1024, 128] bf16 (no initial state), its simt
+    kernel as the dq pass of the op at Dk 128, Dv 64 (g, v [128, 1024, 64],
+    k [128, 1024, 128]), row 5 seeded by dSf at [128, 1024, 128]. Returns
+    their ``kernels`` lines."""
+    readings, inputs = compare_raw(cd, dev)
     for r in readings:
-        log(f"causal_dot / causal_dot_rev {r['case']}: "
+        log(f"causal_dot / causal_dot_rev {r['case']} (forward {r['variants']['out']}, dq pass "
+            f"{r['variants']['dq']}): "
             + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
                         f"limit, needs atol {r[n]['atol_needed']:.2e} max|ref|)"
                         for n in ("out", "dq", "dk", "dv"))
             + f"; rel: S {r['s_rel']:.2e} dS0 {r['ds0_rel']:.2e} (limit {STATE_RTOL:g})")
         if not agrees_raw(r):
             raise AssertionError(f"a raw causal_dot kernel disagrees with its plain version: {r}")
+    errs = {v: max([r[n]["max_abs"] for r in readings for n in ("out", "dq")
+                    if r["variants"][n] == v], default=0.0) for v in ("wgmma", "simt")}
+    ran = {v: sum(r["variants"][n] == v for r in readings for n in ("out", "dq"))
+           for v in ("wgmma", "simt")}
+    log(f"causal_dot variants run over the {len(readings)} cases (forward, dq pass each): {ran}")
+    if not all(ran.values()):
+        raise AssertionError(f"a causal_dot variant ran on no case: {ran}")
+    q, k, v, gout = inputs["B8 H16 T1024 D128 bf16"]
+    g64, v64, k128 = (inputs["B8 H16 T1024 Dk128 Dv64 bf16 S0 dSf"][i] for i in (3, 2, 1))
+    if (cd.causal_dot_raw_variant(q, k, v), cd.causal_dot_raw_variant(g64, v64, k128)) != (
+            "wgmma", "simt"):
+        raise AssertionError("the timed causal_dot calls take the wrong variants")
     bh, t, dk = q.shape
     dv = v.shape[-1]
     act, f32 = q.numel() * q.element_size(), 4
     gsf = 8.0 * torch.randn(bh, dk, dv, device=dev)
     ops = 2 * bh * t * (64 * dk + 64 * dv + 2 * dk * dv)  # one chunk walk's products
     specs = [
-        ("causal_dot", "orion_tpu_torch/csrc/causal_dot_norm.cu",
-         "orion_tpu/ops/pallas/causal_dot.py:123",
+        ("causal_dot_wgmma", "orion_tpu_torch/csrc/causal_dot_norm.cu",
+         "the op's forward, B8 H16 T1024 D128 bf16",
          lambda: cd.causal_dot_cuda(q, k, v), lambda: cd.causal_dot_plain(q, k, v),
-         # q, k, v read; out, S written
-         4 * act + bh * dk * dv * f32, ops, ("out", "dq")),
+         *_raw_bound(q, k, v, True), errs["wgmma"]),
+        ("causal_dot_simt", "orion_tpu_torch/csrc/causal_dot_norm.cu",
+         "the dq pass of the op at Dk 128, Dv 64: g, v [128, 1024, 64], k [128, 1024, 128] bf16",
+         lambda: cd.causal_dot_cuda(g64, v64, k128, with_state=False),
+         lambda: cd.causal_dot_plain(g64, v64, k128)[0],
+         *_raw_bound(g64, v64, k128, False), errs["simt"]),
         ("causal_dot_rev", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
-         "orion_tpu/ops/pallas/causal_dot.py:377",
+         "B8 H16 T1024 D128 bf16, seeded by dSf",
          lambda: cd.causal_dot_rev_cuda(q, k, v, gout, gsf),
          lambda: cd.causal_dot_rev_plain(q, k, v, gout, gsf),
          # q, k, v, g, dSf read; fp32 dk, dv, dS0 written
-         4 * act + 2 * bh * dk * dv * f32 + bh * t * (dk + dv) * f32, 2 * ops, ("dk", "dv")),
+         4 * act + 2 * bh * dk * dv * f32 + bh * t * (dk + dv) * f32, 2 * ops,
+         max(r[n]["max_abs"] for r in readings for n in ("dk", "dv"))),
     ]
     lines = []
-    for name, source, replaces, kernel, plain, moved, flops, outs in specs:
+    for name, source, shape, kernel, plain, moved, flops, err in specs:
         ms = cuda_ms(kernel, 20)
         plain_ms = cuda_ms(plain, 3)
         bound_ms, bound_by = _bound(moved, flops)
-        log(f"{name} timing B8 H16 T1024 D128 bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, {flops / 1e9:.2f} "
-            "GFLOP); library_ms: none (no single PyTorch call computes this function)")
+        log(f"{name} timing, {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+            "library_ms: none (no single PyTorch call computes this function)")
         lines.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": max(r[n]["max_abs"] for r in readings for n in outs),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "name": name, "route": "cuda", "source": source,
+            "replaces": ("orion_tpu/ops/pallas/causal_dot.py:377" if name == "causal_dot_rev"
+                         else "orion_tpu/ops/pallas/causal_dot.py:123"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "shape": shape,
         })
     return lines
 
 
 def op_phase(dev, mods):
     """The public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
-    backward, at lm_1b3's per-layer shape [B 8, H 16, T 1024, D 128] bf16
-    with an initial state and the returned state: exact launches (row 2
-    twice, row 5 once; the counts set to 0 just before), then the same
-    through the plain form differentiated by autograd (backend="torch"):
-    out, S and every gradient within the kernels' limits; both timed."""
+    backward, with an initial state and the returned state, at lm_1b3's
+    per-layer shape [B 8, H 16, T 1024, D 128] bf16 and then at Dk 128, Dv
+    64: exact launches, the counts set to 0 just before each (row 2 twice on
+    its wgmma kernel and row 5 once; at Dv 64 the forward on wgmma, the dq
+    pass, whose contracted width is Dv, on simt), then the same through the
+    plain form differentiated by autograd (backend="torch"): out, S and
+    every gradient within the kernels' limits; the D-128 op timed beside the
+    plain form."""
     from orion_tpu_torch.ops import causal_dot_product
 
     g = torch.Generator(device=dev).manual_seed(22)
-    b, h, t, d = 8, 16, 1024, 128
-    q0, k0, v0, gout, s00, gsf = (
-        x.reshape(b, h, *x.shape[1:])
-        for x in _raw_inputs(g, dev, b, h, t, d, torch.bfloat16, True, True))
+    b, h, t = 8, 16, 1024
+    result = {}
+    for label, dk, dv, moves in (("D128", 128, 128, {"causal_dot_wgmma": 2}),
+                                 ("Dk128 Dv64", 128, 64,
+                                  {"causal_dot_wgmma": 1, "causal_dot_simt": 1})):
+        q0, k0, v0, gout, s00, gsf = (
+            x.reshape(b, h, *x.shape[1:])
+            for x in _raw_inputs(g, dev, b, h, t, dk, dv, torch.bfloat16, True, True))
 
-    def run(backend):
-        q, k, v, s0 = (x.clone().requires_grad_() for x in (q0, k0, v0, s00))
-        out, sf = causal_dot_product(q, k, v, backend=backend, return_state=True,
-                                     initial_state=s0)
-        ((out.float() * gout.float()).sum() + (sf * gsf).sum()).backward()
-        return [x.detach() for x in (out, sf, q.grad, k.grad, v.grad, s0.grad)]
+        def run(backend):
+            q, k, v, s0 = (x.clone().requires_grad_() for x in (q0, k0, v0, s00))
+            out, sf = causal_dot_product(q, k, v, backend=backend, return_state=True,
+                                         initial_state=s0)
+            ((out.float() * gout.float()).sum() + (sf * gsf).sum()).backward()
+            return [x.detach() for x in (out, sf, q.grad, k.grad, v.grad, s0.grad)]
 
-    _reset_counts(mods)
-    got = run("cuda")
-    torch.cuda.synchronize()
-    counts = _counts(mods)
-    want = dict.fromkeys(KERNELS, 0)
-    want.update(causal_dot=2, causal_dot_rev=1)
-    log(f"causal_dot_product forward + backward launches: {counts}")
-    if counts != want:
-        raise AssertionError(f"the public op launched {counts}, want {want}")
-    ref = run("torch")
-    errs = {}
-    for name, x, r in zip(("out", "S", "dq", "dk", "dv", "dS0"), got, ref):
-        if x.dtype == torch.bfloat16:
-            errs[name] = _grad_reading(x, r, RAW_RTOL[torch.bfloat16], RAW_ATOL_OF_MAX)
-        else:
-            errs[name] = {"max_abs": float((x - r).abs().max()), "rel": _rel(x, r),
-                          "well_formed": x.shape == r.shape and bool(torch.isfinite(x).all())}
-    ms = cuda_ms(lambda: run("cuda"), 5)
-    plain_ms = cuda_ms(lambda: run("torch"), 3)
-    log("causal_dot_product fwd + bwd through the kernels vs backend='torch' (autograd of the "
-        "plain form): " + "; ".join(
-            f"{n} max abs {e['max_abs']:.3e} ("
-            + (f"{e['over_limit']:.3f} of its limit" if "over_limit" in e
-               else f"rel {e['rel']:.2e}, limit {STATE_RTOL:g}") + ")"
-            for n, e in errs.items())
-        + f"; {ms:.3f} ms against the plain form's {plain_ms:.3f} ms (fwd + bwd, B8 H16 T1024 "
-        "D128 bf16)")
-    if not all(e["well_formed"] and e.get("over_limit", 0.0) <= 1.0
-               and e.get("rel", 0.0) <= STATE_RTOL for e in errs.values()):
-        raise AssertionError(f"the public op disagrees with backend='torch': {errs}")
-    return {"launches": counts, "errs": errs, "ms": ms, "plain_ms": plain_ms}
+        _reset_counts(mods)
+        got = run("cuda")
+        torch.cuda.synchronize()
+        counts = _counts(mods)
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(causal_dot_rev=1, **moves)
+        log(f"causal_dot_product forward + backward launches, {label}: {counts}")
+        if counts != want:
+            raise AssertionError(f"the public op launched {counts}, want {want}")
+        ref = run("torch")
+        errs = {}
+        for name, x, r in zip(("out", "S", "dq", "dk", "dv", "dS0"), got, ref):
+            if x.dtype == torch.bfloat16:
+                errs[name] = _grad_reading(x, r, RAW_RTOL[torch.bfloat16], RAW_ATOL_OF_MAX)
+            else:
+                errs[name] = {"max_abs": float((x - r).abs().max()), "rel": _rel(x, r),
+                              "well_formed": x.shape == r.shape and bool(torch.isfinite(x).all())}
+        res = {"launches": counts, "errs": errs}
+        if label == "D128":
+            res["ms"] = cuda_ms(lambda: run("cuda"), 5)
+            res["plain_ms"] = cuda_ms(lambda: run("torch"), 3)
+        log(f"causal_dot_product fwd + bwd through the kernels vs backend='torch' (autograd of "
+            f"the plain form), {label}: " + "; ".join(
+                f"{n} max abs {e['max_abs']:.3e} ("
+                + (f"{e['over_limit']:.3f} of its limit" if "over_limit" in e
+                   else f"rel {e['rel']:.2e}, limit {STATE_RTOL:g}") + ")"
+                for n, e in errs.items())
+            + (f"; {res['ms']:.3f} ms against the plain form's {res['plain_ms']:.3f} ms (fwd + "
+               "bwd, B8 H16 T1024 D128 bf16)" if "ms" in res else ""))
+        if not all(e["well_formed"] and e.get("over_limit", 0.0) <= 1.0
+                   and e.get("rel", 0.0) <= STATE_RTOL for e in errs.values()):
+            raise AssertionError(f"the public op disagrees with backend='torch': {errs}")
+        result[label] = res
+    return {"launches": result["D128"]["launches"], "errs": result["D128"]["errs"],
+            "ms": result["D128"]["ms"], "plain_ms": result["D128"]["plain_ms"],
+            "launches_dv64": result["Dk128 Dv64"]["launches"],
+            "errs_dv64": result["Dk128 Dv64"]["errs"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1326,17 +1395,23 @@ def check_gmm(gm, dev):
 # ---------------------------------------------------------------------------
 
 # (label, rows, d, out, dtype): lm_1b3's decode shapes (4 rows) and the edges
-# of the kernel's loops
+# of the kernels' loops. Row 14 takes its mma kernel for bf16 x with d % 8 ==
+# 0 and out % 16 == 0 (16-byte-aligned bases), its simt kernel for the rest
 Q4_CASES = [
     ("wq..wo", 4, 2048, 2048, torch.bfloat16),
     ("gate/up", 4, 2048, 5504, torch.bfloat16),
     ("down", 4, 5504, 2048, torch.bfloat16),
     ("B 1", 1, 2048, 2048, torch.bfloat16),
     ("B 64", 64, 2048, 5504, torch.bfloat16),
+    ("B 64 down (x staged a box at a time)", 64, 5504, 2048, torch.bfloat16),
+    ("1000 packed rows (a last box of 40)", 4, 2000, 2048, torch.bfloat16),
+    ("out 336 (a last strip of 16 channels)", 4, 2048, 336, torch.bfloat16),
     ("out 200 (no whole strip)", 4, 2048, 200, torch.bfloat16),
     ("ragged d 100", 4, 100, 384, torch.bfloat16),
+    ("d 2004 (d % 8 != 0)", 4, 2004, 2048, torch.bfloat16),
     ("fp32 (tiny's widths)", 2, 128, 384, torch.float32),
     ("fp32, out % 4 != 0", 3, 64, 33, torch.float32),
+    ("fp32 down (a K tail past 512 packed rows)", 4, 5504, 2048, torch.float32),
 ]
 Q4_PER_STEP = {"wq..wo": 4 * 24, "gate/up": 2 * 24, "down": 24}  # lm_1b3's calls a decode step
 
@@ -1344,8 +1419,12 @@ Q4_PER_STEP = {"wq..wo": 4 * 24, "gate/up": 2 * 24, "down": 24}  # lm_1b3's call
 def compare_q4(q4, dev):
     """Row 14 against its plain version on the card, on every case of
     Q4_CASES: random packed bytes (every nibble -8..7 at both positions) and
-    per-channel scales of a quantized weight's size. Returns one reading per
-    case and the inputs by label."""
+    per-channel scales of a quantized weight's size, called twice: once on a
+    new weight (checked, launched after the kernel before has ended), once
+    more on x as the kernel just before writes it (a kept weight: the mma
+    launch starts early and must wait for that kernel before reading x).
+    Returns one reading per case over both results (with the variant it
+    took) and the inputs by label."""
     g = torch.Generator(device=dev).manual_seed(14)
     readings, inputs = [], {}
     for label, b, d, out, dtype in Q4_CASES:
@@ -1355,10 +1434,15 @@ def compare_q4(q4, dev):
         junk = torch.full((b, out), float("nan"), device=dev, dtype=dtype)
         del junk  # the allocator hands this block to y: an unwritten element shows
         y = q4.q4_matmul_cuda(x, p, s)
+        junk = torch.full((b, d), float("nan"), device=dev, dtype=dtype)
+        del junk  # x's copy below gets this block: x read too early shows
+        y_early = q4.q4_matmul_cuda(x.mul(1.0), p, s)
         torch.cuda.synchronize()
+        ref = q4.q4_matmul_torch(x, p, s)
         readings.append({"case": f"{label}: x [{b}, {d}] {str(dtype)[6:]}, p [{d // 2}, {out}]",
-                         "y": _grad_reading(y, q4.q4_matmul_torch(x, p, s), Q4_RTOL[dtype],
-                                            Q4_ATOL_OF_MAX)})
+                         "variant": q4.q4_matmul_variant(x, p, s),
+                         "y": _grad_reading(torch.cat([y, y_early]), torch.cat([ref, ref]),
+                                            Q4_RTOL[dtype], Q4_ATOL_OF_MAX)})
         inputs[label] = (x, p, s)
     return readings, inputs
 
@@ -1367,61 +1451,91 @@ def agrees_q4(r):
     return r["y"]["well_formed"] and r["y"]["over_limit"] <= 1.0
 
 
+def _q4_times(q4, dev, x, p, s):
+    """One shape's timings: ``ms`` and ``plain_ms`` by ``cuda_ms`` (calls back
+    to back, the wrapper's host time included, as each decode step's calls
+    pay it), ``graph_ms`` the kernel's device time alone over cold weights,
+    the bf16 dense product of the same shape as a yardstick (not the same
+    function), the wrapper's host microseconds a call, and the bound by
+    bytes (x, p, s read, y written) against 2 b d out operations. Each cold
+    copy is called once first, as every weight of a decode step has been by
+    the step before: the wrapper keeps its checks, and its mma launches may
+    start while the launch before ends (a weight's first call waits)."""
+    (b, d), out = x.shape, p.shape[1]
+    ps = cold_copies(p)
+    for pc in ps:
+        q4.q4_matmul_cuda(x, pc, s)
+    ws = cold_copies(torch.randn(d, out, device=dev).to(x.dtype))
+    es = x.element_size()
+    t = dict(ms=cuda_ms(lambda: q4.q4_matmul_cuda(x, p, s), 200),
+             plain_ms=cuda_ms(lambda: q4.q4_matmul_torch(x, p, s), 20),
+             graph_ms=graph_ms(lambda i: q4.q4_matmul_cuda(x, ps[i % len(ps)], s), 200),
+             dense_graph_ms=graph_ms(lambda i: x @ ws[i % len(ws)], 200),
+             host_us=host_us(lambda: q4.q4_matmul_cuda(x, p, s), 200),
+             moved=b * d * es + p.numel() + out * 4 + b * out * es, flops=2 * b * d * out)
+    peak = BF16_FLOPS if x.dtype == torch.bfloat16 else FP32_FLOPS
+    t["bound_ms"], t["bound_by"] = _bound(t["moved"], t["flops"], peak)
+    return t
+
+
 def check_q4(q4, dev):
-    """Row 14: agreement on every case, then timings at lm_1b3's three decode
-    shapes, each beside its bound (by bytes: the packed weight) and its plain
-    version, by ``cuda_ms`` as every row; beside them the kernel's device
-    time alone (``graph_ms``, over cold weights) and, as a yardstick that is
-    not the same function, the bf16 dense product of the same shape
-    (cuBLAS), timed so too."""
+    """Row 14: agreement on every case, each case's variant logged (mma at
+    lm_1b3's decode shapes, simt for fp32 and the other widths); then the
+    mma kernel timed at lm_1b3's three decode shapes and over one decode
+    step's 168 calls, the simt kernel at the tiny models' fp32 widths (its
+    place on the main path), each beside its bound, its plain version, the
+    kernel's device time alone (``graph_ms``) and the bf16 dense product of
+    the same shape (cuBLAS; a yardstick, not the same function: no PyTorch
+    call takes this packed int4 layout)."""
     readings, inputs = compare_q4(q4, dev)
     for r in readings:
-        log(f"q4_matmul {r['case']}: y max abs {r['y']['max_abs']:.3e} ({r['y']['over_limit']:.3f} "
-            f"of its limit, needs atol {r['y']['atol_needed']:.2e} max|ref|)")
+        log(f"q4_matmul {r['case']} ({r['variant']}): y max abs {r['y']['max_abs']:.3e} "
+            f"({r['y']['over_limit']:.3f} of its limit, needs atol {r['y']['atol_needed']:.2e} "
+            "max|ref|)")
     bad = [r for r in readings if not agrees_q4(r)]
     if bad:
         raise AssertionError(f"q4_matmul disagrees with its plain version: {bad}")
+    ran = {v: sum(r["variant"] == v for r in readings) for v in ("mma", "simt")}
+    log(f"q4_matmul variants run over the {len(readings)} cases: {ran}")
+    if not all(ran.values()) or any(r["variant"] != "mma" for r in readings[:3]):
+        raise AssertionError(f"q4_matmul took the wrong variants: {ran}")
     per_shape = {}
+    fields = ("ms", "plain_ms", "graph_ms", "bound_ms", "dense_graph_ms", "host_us")
     with torch.no_grad():
         for label in Q4_PER_STEP:
-            x, p, s = inputs[label]
-            (b, d), out = x.shape, p.shape[1]
-            ps = cold_copies(p)
-            ws = cold_copies(torch.randn(d, out, device=dev).to(torch.bfloat16))
-            # ms, plain_ms: calls back to back, the wrapper's host time
-            # included (as each decode step's calls pay it); graph_ms: the
-            # kernel's device time alone
-            t = dict(ms=cuda_ms(lambda: q4.q4_matmul_cuda(x, p, s), 200),
-                     plain_ms=cuda_ms(lambda: q4.q4_matmul_torch(x, p, s), 20),
-                     graph_ms=graph_ms(lambda i: q4.q4_matmul_cuda(x, ps[i % len(ps)], s), 200),
-                     dense_bf16_graph_ms=graph_ms(lambda i: x @ ws[i % len(ws)], 200),
-                     # x, p, s read; y written; 2 b d out operations
-                     moved=b * d * 2 + p.numel() + out * 4 + b * out * 2, flops=2 * b * d * out)
-            t["bound_ms"], t["bound_by"] = _bound(t["moved"], t["flops"])
-            per_shape[label] = t
-            log(f"q4_matmul timing {label}: x [{b}, {d}] bf16 @ p [{d // 2}, {out}]: kernel "
-                f"{t['ms']:.4f} ms a call with the wrapper's host time ({t['graph_ms']:.4f} device "
+            t = per_shape[label] = _q4_times(q4, dev, *inputs[label])
+            x, p, _ = inputs[label]
+            log(f"q4_matmul (mma) timing {label}: x [{x.shape[0]}, {x.shape[1]}] bf16 @ p "
+                f"[{p.shape[0]}, {p.shape[1]}]: kernel {t['ms']:.4f} ms a call with the wrapper's "
+                f"host time ({t['host_us']:.1f} us of host a call; {t['graph_ms']:.4f} ms device "
                 f"time alone), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by "
                 f"{t['bound_by']} ({t['moved'] / 1e6:.2f} MB); library_ms: none (no PyTorch call "
                 "takes this packed int4 layout: torch._weight_int4pack_mm wants its own tiled "
                 "packing and group-wise zero points); yardstick, not the same function: bf16 "
-                f"dense x @ W, device time alone, {t['dense_bf16_graph_ms']:.4f} ms "
-                f"({d * out * 2 / 1e6:.2f} MB of weights)")
-    fields = ("ms", "plain_ms", "graph_ms", "bound_ms", "dense_bf16_graph_ms")
+                f"dense x @ W, device time alone, {t['dense_graph_ms']:.4f} ms")
+        simt = _q4_times(q4, dev, *inputs["fp32 (tiny's widths)"])
+        log(f"q4_matmul (simt) timing at the tiny models' fp32 widths, x [2, 128] @ p [64, 384]: "
+            f"kernel {simt['ms']:.4f} ms ({simt['graph_ms']:.4f} device time alone), plain "
+            f"{simt['plain_ms']:.4f} ms, bound {simt['bound_ms']:.6f} ms by {simt['bound_by']}")
     step = {k: sum(per_shape[s][k] * n for s, n in Q4_PER_STEP.items()) for k in fields}
-    log(f"q4_matmul over one lm_1b3 decode step's 168 calls (each shape's time x its count): "
-        f"kernel {step['ms']:.3f} ms with the wrapper's host time ({step['graph_ms']:.3f} device "
-        f"time alone), plain {step['plain_ms']:.3f} ms, bound {step['bound_ms']:.4f} ms, bf16 "
-        f"dense device time {step['dense_bf16_graph_ms']:.3f} ms")
-    t = per_shape["gate/up"]
-    return [{"name": "q4_matmul", "route": "cuda", "source": "orion_tpu_torch/csrc/q4_matmul.cu",
-             "replaces": "orion_tpu/quant.py:183",
-             "max_abs_err": max(r["y"]["max_abs"] for r in readings),
-             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
-             "graph_ms": t["graph_ms"],
+    log(f"q4_matmul (mma) over one lm_1b3 decode step's 168 calls (each shape's time x its "
+        f"count): kernel {step['ms']:.3f} ms with the wrapper's host time ({step['graph_ms']:.3f} "
+        f"device time alone), plain {step['plain_ms']:.3f} ms, bound {step['bound_ms']:.4f} ms, "
+        f"bf16 dense device time {step['dense_graph_ms']:.3f} ms")
+    main, errs = per_shape["gate/up"], {
+        v: max(r["y"]["max_abs"] for r in readings if r["variant"] == v) for v in ("mma", "simt")}
+    return [{"name": "q4_matmul_mma", "route": "cuda", "source": "orion_tpu_torch/csrc/q4_matmul.cu",
+             "replaces": "orion_tpu/quant.py:183", "max_abs_err": errs["mma"],
+             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+             "library_ms": None, "graph_ms": main["graph_ms"], "host_us": main["host_us"],
              "shape": "x [4, 2048] @ p [1024, 5504] (lm_1b3's gate / up at decode)",
              "per_shape": {k: {f: v[f] for f in fields} for k, v in per_shape.items()},
-             "per_decode_step": step}]
+             "per_decode_step": step},
+            {"name": "q4_matmul_simt", "route": "cuda",
+             "source": "orion_tpu_torch/csrc/q4_matmul.cu", "replaces": "orion_tpu/quant.py:183",
+             "max_abs_err": errs["simt"],
+             **{k: simt[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "graph_ms")},
+             "library_ms": None, "shape": "x [2, 128] fp32 @ p [64, 384] (the tiny models)"}]
 
 
 # ---------------------------------------------------------------------------
@@ -1577,7 +1691,7 @@ def check_adafactor(af, dev):
 def _counts(mods):
     cd, fa, gm, q4, af = mods
     return {"causal_dot_norm_wgmma": cd.launches_wgmma, "causal_dot_norm_simt": cd.launches_simt,
-            "causal_dot": cd.launches_raw,
+            "causal_dot_wgmma": cd.launches_raw_wgmma, "causal_dot_simt": cd.launches_raw_simt,
             "causal_dot_dq_den_wgmma": cd.launches_dq_wgmma,
             "causal_dot_dq_den_simt": cd.launches_dq_simt,
             "causal_dot_rev_den_wgmma": cd.launches_rev_wgmma,
@@ -1588,7 +1702,7 @@ def _counts(mods):
             "flash_dq_simt": fa.launches_dq_simt, "flash_dkv_simt": fa.launches_dkv_simt,
             "gmm_fwd_wgmma": gm.launches_fwd_wgmma, "gmm_dw_wgmma": gm.launches_dw_wgmma,
             "gmm_fwd_simt": gm.launches_fwd_simt, "gmm_dw_simt": gm.launches_dw_simt,
-            "q4_matmul": q4.launches,
+            "q4_matmul_mma": q4.launches_mma, "q4_matmul_simt": q4.launches_simt,
             "adafactor_sums": af.launches_sums, "adafactor_rms": af.launches_rms,
             "adafactor_apply": af.launches_apply}
 
@@ -1596,14 +1710,14 @@ def _counts(mods):
 def _reset_counts(mods):
     cd, fa, gm, q4, af = mods
     cd.launches = cd.launches_dq = cd.launches_rev = cd.launches_raw = cd.launches_raw_rev = 0
-    cd.launches_wgmma = cd.launches_simt = 0
+    cd.launches_wgmma = cd.launches_simt = cd.launches_raw_wgmma = cd.launches_raw_simt = 0
     cd.launches_dq_wgmma = cd.launches_dq_simt = cd.launches_rev_wgmma = cd.launches_rev_simt = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
     fa.launches_fwd_wgmma = fa.launches_fwd_simt = 0
     fa.launches_dq_wgmma = fa.launches_dq_simt = fa.launches_dkv_wgmma = fa.launches_dkv_simt = 0
     gm.launches_fwd = gm.launches_dw = 0
     gm.launches_fwd_wgmma = gm.launches_fwd_simt = gm.launches_dw_wgmma = gm.launches_dw_simt = 0
-    q4.launches = 0
+    q4.launches = q4.launches_mma = q4.launches_simt = 0
     af.launches_sums = af.launches_rms = af.launches_apply = 0
 
 
@@ -1730,6 +1844,7 @@ def generate_phase(dev, mods, name, prompt_len, new_tokens, overrides=None):
     greedy = SampleConfig(temperature=0.0)
 
     generate(model, prompts[:, :128], 2, greedy)  # warm-up: cuBLAS plans, allocator
+    gc.collect()  # no collection of earlier phases' objects inside the timed runs
     prefill_runs = [wall_ms(lambda: generate(model, prompts, 1, greedy))[0] for _ in range(3)]
 
     _reset_counts(mods)
@@ -1747,11 +1862,16 @@ def generate_phase(dev, mods, name, prompt_len, new_tokens, overrides=None):
                              "forward kernels once, in the prefill)")
     if out.shape != (4, new_tokens) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"generate returned {tuple(out.shape)} / out-of-vocab tokens")
+    # decode is host-bound and the host is shared: the median of 3 generates
+    gen_runs = [gen_ms] + [wall_ms(lambda: generate(model, prompts, new_tokens, greedy))[0]
+                           for _ in range(2)]
+    gen_ms = float(np.median(gen_runs))
     prefill_ms = float(np.median(prefill_runs))
     decode_ms = (gen_ms - prefill_ms) / (new_tokens - 1)
     log(f"{name} B4 T{prompt_len}: prefill (generate with 1 new token) {prefill_ms:.2f} ms "
         f"(runs {[round(x, 2) for x in prefill_runs]}); generate {new_tokens} tokens "
-        f"{gen_ms:.2f} ms; decode {decode_ms:.3f} ms/token at batch 4")
+        f"{gen_ms:.2f} ms (runs {[round(x, 2) for x in gen_runs]}); decode {decode_ms:.3f} "
+        "ms/token at batch 4")
     log(f"first tokens: {out[:, :8].tolist()}")
 
     # the kernel-backed prefill against the plain version, same weights and,
@@ -1782,7 +1902,7 @@ def generate_phase(dev, mods, name, prompt_len, new_tokens, overrides=None):
         raise AssertionError(f"{name}: kernel-backed prefill disagrees with the plain version")
     return {
         "launches": counts, "prefill_ms": prefill_ms, "prefill_runs_ms": prefill_runs,
-        "generate_ms": gen_ms, "decode_ms_per_token": decode_ms,
+        "generate_ms": gen_ms, "generate_runs_ms": gen_runs, "decode_ms_per_token": decode_ms,
         "logits_max_abs_err": err, "s_max_rel_err": s_err, "kv_max_rel_err": kv_err,
         "greedy_agree": agree,
     }
@@ -1816,6 +1936,7 @@ def quant_generate_phase(dev, mods, name, prompt_len, new_tokens, mode, override
     ).to(dev)
     greedy = SampleConfig(temperature=0.0)
     generate(model, prompts[:, :128], 2, greedy, quant=mode)  # warm-up
+    gc.collect()  # no collection of earlier phases' objects inside the timed runs
     prefill_runs = [wall_ms(lambda: generate(model, prompts, 1, greedy, quant=mode))[0]
                     for _ in range(3)]
     _reset_counts(mods)
@@ -1823,19 +1944,25 @@ def quant_generate_phase(dev, mods, name, prompt_len, new_tokens, mode, override
     counts = _counts(mods)
     lin, attn, _, _ = _layer_counts(cfg)
     want = dict.fromkeys(KERNELS, 0)
-    # a quantized MoE never takes the gmm kernels
+    # a quantized MoE never takes the gmm kernels; every q4 launch of a decode
+    # step (bf16 x at the model's widths) takes the mma kernel, none the simt
     want.update(causal_dot_norm_wgmma=lin, flash_fwd_wgmma=attn,
-                q4_matmul=_q4_per_step(cfg) * (new_tokens - 1) if mode == "int4" else 0)
+                q4_matmul_mma=_q4_per_step(cfg) * (new_tokens - 1) if mode == "int4" else 0)
     log(f"{name} {mode} generate launches: {counts}")
     if counts != want:
         raise AssertionError(f"{name} {mode} generate launched {counts}, want {want}")
     if out.shape != (4, new_tokens) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError("generate returned the wrong shape / out-of-vocab tokens")
+    # decode is host-bound and the host is shared: the median of 3 generates
+    gen_runs = [gen_ms] + [
+        wall_ms(lambda: generate(model, prompts, new_tokens, greedy, quant=mode))[0]
+        for _ in range(2)]
+    gen_ms = float(np.median(gen_runs))
     prefill_ms = float(np.median(prefill_runs))
     decode_ms = (gen_ms - prefill_ms) / (new_tokens - 1)
     log(f"{name} {mode} B4 T{prompt_len}: prefill {prefill_ms:.2f} ms (runs "
-        f"{[round(x, 2) for x in prefill_runs]}); generate {new_tokens} tokens {gen_ms:.2f} ms; "
-        f"decode {decode_ms:.3f} ms/token at batch 4")
+        f"{[round(x, 2) for x in prefill_runs]}); generate {new_tokens} tokens {gen_ms:.2f} ms "
+        f"(runs {[round(x, 2) for x in gen_runs]}); decode {decode_ms:.3f} ms/token at batch 4")
 
     ref = TransformerLM(dataclasses.replace(cfg, backend="torch"), device=dev, quant=mode)
     ref.load_state_dict(model.state_dict())
@@ -1865,7 +1992,8 @@ def quant_generate_phase(dev, mods, name, prompt_len, new_tokens, mode, override
     if not finite or max(errs) > QUANT_LOGITS_ATOL:
         raise AssertionError(f"{name} {mode}: the kernel path disagrees with backend='torch'")
     return {"launches": counts, "prefill_ms": prefill_ms, "prefill_runs_ms": prefill_runs,
-            "generate_ms": gen_ms, "decode_ms_per_token": decode_ms, "logits_max_abs_err": errs,
+            "generate_ms": gen_ms, "generate_runs_ms": gen_runs, "decode_ms_per_token": decode_ms,
+            "logits_max_abs_err": errs,
             "q4_per_step": _q4_per_step(cfg)}
 
 
@@ -1873,24 +2001,29 @@ def _tiny_simt_only(label, before, cfg, trained):
     """A tiny fp32 run's launches of rows 1 and 6 and, with ``trained``, of
     rows 3 and 4 since ``before`` (``_variant_counts()``): only the simt
     variants, one or more of each for the layer kinds ``cfg`` has (rows 3
-    and 4 none without ``trained``)."""
+    and 4 none without ``trained``); none of a wgmma or mma variant of any
+    row (2, 14 included)."""
     moved = {k: v - before[k] for k, v in _variant_counts().items()}
     kinds = set(cfg.resolved_layer_types)
     want = {"causal_dot_norm_simt": "linear" in kinds,
             "causal_dot_dq_den_simt": trained and "linear" in kinds,
             "causal_dot_rev_den_simt": trained and "linear" in kinds,
             "flash_fwd_simt": bool(kinds & {"softmax", "swa"})}
-    if any(v for k, v in moved.items() if k.endswith("_wgmma")) or any(
+    if any(v for k, v in moved.items() if k.endswith(("_wgmma", "_mma"))) or any(
             bool(moved[k]) != w for k, w in want.items()):
         raise AssertionError(f"{label}: launches {moved}, want only the simt variants")
     return moved
 
 
 def _variant_counts():
-    from orion_tpu_torch.ops.kernels import causal_dot, flash_attention
+    from orion_tpu_torch.ops.kernels import causal_dot, flash_attention, q4_matmul
 
     return {"causal_dot_norm_wgmma": causal_dot.launches_wgmma,
             "causal_dot_norm_simt": causal_dot.launches_simt,
+            "causal_dot_wgmma": causal_dot.launches_raw_wgmma,
+            "causal_dot_simt": causal_dot.launches_raw_simt,
+            "q4_matmul_mma": q4_matmul.launches_mma,
+            "q4_matmul_simt": q4_matmul.launches_simt,
             "causal_dot_dq_den_wgmma": causal_dot.launches_dq_wgmma,
             "causal_dot_dq_den_simt": causal_dot.launches_dq_simt,
             "causal_dot_rev_den_wgmma": causal_dot.launches_rev_wgmma,
@@ -1919,7 +2052,10 @@ def tiny_generate(dev, cfg, label, quant=""):
     if quant == "int4" and q4_matmul.launches != before + 15 * _q4_per_step(cfg):
         raise AssertionError(f"{label}: {q4_matmul.launches - before} q4 launches, want "
                              f"{15 * _q4_per_step(cfg)}")
-    _tiny_simt_only(label, variants, cfg, trained=False)
+    # fp32: every q4 launch of the decode steps on the simt kernel
+    moved = _tiny_simt_only(label, variants, cfg, trained=False)
+    if quant == "int4" and moved["q4_matmul_simt"] != 15 * _q4_per_step(cfg):
+        raise AssertionError(f"{label}: q4 launches by variant {moved}, want all simt")
     ref = generate(tiny_cpu, tp, 16, greedy, quant=quant)
     with torch.inference_mode():
         lg = tiny_gpu.prefill_last(tp.to(dev))[0].cpu()
@@ -1955,6 +2091,9 @@ def train_phase(dev, mods, name, seq_len, overrides=None, optimizer="adamw", the
                  # forward, recomputation, and dx by the forward kernel against w^T;
                  # bf16 at the model's widths: the wgmma kernels, none of the simt
                  "gmm_fwd_wgmma": 2 * products + products_remat, "gmm_dw_wgmma": products})
+    # a full collection of the Python objects earlier phases left would land
+    # inside a timed step (one hybrid_1b3 step 100-250 ms slower); collect now
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=dev)
@@ -2064,7 +2203,7 @@ def load_phase(dev, mods, trainer, prompt_len=1024, new_tokens=32):
                 lg, rlg = (m.prefill_last(prompts)[0] for m in models)
             want = dict.fromkeys(KERNELS, 0)
             want.update(causal_dot_norm_wgmma=_layer_counts(cfg)[0],
-                        q4_matmul=(new_tokens - 1) * _q4_per_step(cfg) if mode else 0)
+                        q4_matmul_mma=(new_tokens - 1) * _q4_per_step(cfg) if mode else 0)
             label = mode or "bf16"
             log(f"load phase {label}: generate from the loaded params launched {counts}; "
                 f"tokens equal the in-memory model's: {bool(torch.equal(got, ref))}; prefill "
@@ -2346,7 +2485,10 @@ def main() -> int:
     lm_int4 = quant_generate_phase(dev, mods, "lm_1b3", 1024, 32, "int4")
     quant_generate_phase(dev, mods, "lm_1b3", 1024, 32, "int8")
     moe_int4 = quant_generate_phase(dev, mods, "moe_1b3_4e", 1024, 32, "int4", dropless)
+    _reset_counts(mods)
+    # fp32: the simt q4 kernel's path, its launches counted from 0
     tiny_generate(dev, TINY, "tiny int4", quant="int4")
+    tiny_int4 = _counts(mods)
     tiny_generate(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16) int4", quant="int4")
     log(f"lm_1b3 int4 decode {lm_int4['decode_ms_per_token']:.3f} ms/token against bf16's "
         f"{lm_gen['decode_ms_per_token']:.3f} in this run")
@@ -2359,8 +2501,17 @@ def main() -> int:
     log(f"quantized serving and Adafactor phases done at {time.perf_counter() - t0:.1f} s")
 
     for k in kernels:
-        if k["name"] in ("causal_dot", "causal_dot_rev"):  # the public op, fwd + bwd
+        if k["name"] in ("causal_dot_wgmma", "causal_dot_rev"):  # the public op, fwd + bwd
             k["launches"] = op["launches"][k["name"]]
+            k["launches_op_dk128_dv64"] = op["launches_dv64"][k["name"]]
+            continue
+        if k["name"] == "causal_dot_simt":  # the main path: the op at Dk 128, Dv 64 (dq pass)
+            k["launches"] = op["launches_dv64"][k["name"]]
+            k["launches_op_d128"] = op["launches"][k["name"]]
+            continue
+        if k["name"] == "q4_matmul_simt":  # the main path: the tiny fp32 int4 model's generate
+            k["launches"] = tiny_int4[k["name"]]
+            k["launches_lm_1b3_int4"] = lm_int4["launches"][k["name"]]
             continue
         if k["name"].startswith("q4"):  # the main path: lm_1b3 int4 generate
             k["launches"] = lm_int4["launches"][k["name"]]

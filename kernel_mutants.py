@@ -14,10 +14,13 @@ copies named ``flash_wgmma_*``, faults of their data, masks, loops and
 pipeline, the simt kernels' the other ``flash_*``), ``gmm.cu`` ("gmm", the grouped matmul's
 forward and dw: the wgmma kernels' copies named ``gmm_wgmma_*``, faults of
 their data and of their TMA / mbarrier / wgmma pipeline, the simt kernels'
-the other ``gmm_*``), ``q4_matmul.cu`` ("q4", the int4 dequant-matmul) or
+the other ``gmm_*``), ``q4_matmul.cu`` ("q4", the int4 dequant-matmul: the
+mma kernel's copies named ``q4_mma_*``, the simt kernel's the other ``q4_*``) or
 ``adafactor.cu`` ("adafactor", the fused Adafactor's three passes); in
 ``causal_dot_norm.cu`` the wgmma kernel's copies are named ``norm_wgmma_*``,
-in ``causal_dot_bwd.cu`` the wgmma kernels' ``bwd_wgmma_*``.
+in ``causal_dot_bwd.cu`` the wgmma kernels' ``bwd_wgmma_*``, and the copies
+of the public op's raw forward ``raw_*`` (``raw_wgmma_*`` for its wgmma
+kernel: the walk it shares with row 1, changed for the raw instance only).
 A copy whose text lies in the shared header ``hopper.cuh`` instead of the
 source patches the header: the source and the patched header go together
 into a directory of their own, where the source's ``#include "hopper.cuh"``
@@ -346,6 +349,49 @@ MUTANTS = [
      "for (int kb = 0; kb < kp; kb += KC)", "for (int kb = 0; kb + KC <= kp; kb += KC)", True),
     ("q4_last_strip_dropped", "q4", "launches no block for a last strip of fewer than 32 channels",
      "const dim3 grid((out + COLS - 1) / COLS);", "const dim3 grid(out / COLS);", True),
+    # the int4 dequant-matmul's mma route (row 14, bf16 x at decode's widths)
+    ("q4_mma_offset_135", "q4", "subtracts 135 for 136 after the unpack: every nibble reads one "
+     "too large", "M_OFFSET = 0xC308C308u;", "M_OFFSET = 0xC307C307u;", True),
+    ("q4_mma_offset_137", "q4", "subtracts 137 for 136 after the unpack: every nibble reads one "
+     "too small", "M_OFFSET = 0xC308C308u;", "M_OFFSET = 0xC309C309u;", True),
+    ("q4_mma_nibbles_swapped", "q4", "puts the high nibble in the fragment's even k and the low "
+     "one in the odd", '"r"(w), "r"(hi), "r"(SEL)', '"r"(hi), "r"(w), "r"(SEL)', True),
+    ("q4_mma_rank_dropped", "q4", "adds the cluster's partial sums from rank 1 on: rank 0's "
+     "share of the packed rows is lost", "for (int q = 0; q < cl; ++q) sum += inbox[q * share + j];",
+     "for (int q = 1; q < cl; ++q) sum += inbox[q * share + j];", True),
+    ("q4_mma_own_partial_twice", "q4", "adds the block's own partial sum in rank 0's place: its "
+     "own twice, rank 0's never", "sum += inbox[q * share + j];",
+     "sum += inbox[(q == 0 ? rank : q) * share + j];", True),
+    ("q4_mma_k_tail_dropped", "q4", "splits only the whole boxes of 64 packed rows over the "
+     "cluster: the rows past the last whole box are lost",
+     "args.boxes = (plan.kp + M_BR - 1) / M_BR;", "args.boxes = plan.kp / M_BR;", True),
+    ("q4_mma_scale_wrong_channel", "q4", "multiplies each output by its neighbouring channel's "
+     "scale", "__float2bfloat16_rn(sum * scale[ch])", "__float2bfloat16_rn(sum * scale[ch ^ 1])",
+     True),
+    # the public op's raw forward on the wgmma route (row 2, bf16 at Dk 128):
+    # the shared walk's text, changed for the raw instance only
+    ("raw_wgmma_no_diagonal", "fwd", "masks the raw wgmma kernel's scores to s < t",
+     "if (col > t) a[j] = 0.f;\n      if (col + 1 > t) a[j + 1] = 0.f;",
+     "if (NORM ? col > t : col >= t) a[j] = 0.f;\n"
+     "      if (NORM ? col + 1 > t : col + 1 >= t) a[j + 1] = 0.f;", True),
+    ("raw_wgmma_s0_ignored", "fwd", "starts the raw wgmma kernel's S from zero instead of S0",
+     "    sa[j] = s0 != nullptr ? s0[s_base + (size_t)m * dv + n] : 0.f;\n"
+     "    sb[j] = s0 != nullptr ? s0[s_base + (size_t)(m + 64) * dv + n] : 0.f;",
+     "    sa[j] = NORM && s0 != nullptr ? s0[s_base + (size_t)m * dv + n] : 0.f;\n"
+     "    sb[j] = NORM && s0 != nullptr ? s0[s_base + (size_t)(m + 64) * dv + n] : 0.f;", True),
+    ("raw_wgmma_sf_unwritten", "fwd", "never writes the raw wgmma kernel's final S",
+     "for (int j = 0; (NORM || sf != nullptr) && j < 32; j += 2) {",
+     "for (int j = 0; NORM && j < 32; j += 2) {", True),
+    ("raw_wgmma_a_lo_dropped", "fwd",
+     "drops the low bf16 half of the raw kernel's scores A: A rounded once before A v",
+     "kk < WC / 16; ++kk) wgmma_m64n64k16_rs<1>(num, alo",
+     "kk < (NORM ? WC / 16 : 0); ++kk) wgmma_m64n64k16_rs<1>(num, alo", True),
+    ("raw_wgmma_s_lo_dropped", "fwd",
+     "drops the low bf16 half of the raw kernel's state S: S rounded once before q S",
+     "for (int kk = 0; kk < WDK / 16; ++kk)\n      wgmma_m64n64k16<0, 1>(num, kmajor(qs, kk), "
+     "mnmajor(r.s_lo(), kk));",
+     "for (int kk = 0; kk < (NORM ? WDK / 16 : 0); ++kk)\n      wgmma_m64n64k16<0, 1>(num, "
+     "kmajor(qs, kk), mnmajor(r.s_lo(), kk));", True),
     ("af_sums_swapped", "adafactor", "writes the row sums where the column sums go and back",
      _AF_FINAL, _AF_FINAL.replace("sums[n + i]", "sums[i]").replace("sums[j]", "sums[m + j]"),
      True),

@@ -52,15 +52,24 @@
 // one (at B 8: 142.6 MB, 43 us, against 12.9 GFLOP, 13 us), and the
 // training launch (num and den written too: 210.3 MB, 63 us at B 8).
 //
-// The normalized kernel has two variants, chosen by the wrapper before the
-// launch (ops/kernels/causal_dot.py, causal_dot_norm_variant):
+// Each kernel has two variants, chosen by the wrapper before the launch
+// (ops/kernels/causal_dot.py, causal_dot_norm_variant and
+// causal_dot_raw_variant, under the same conditions):
 //
-//   wgmma (causal_dot_norm_wgmma_kernel): bf16 at Dk 128 with Dv a multiple
-//     of 64 and 16-byte-aligned bases, every model's shape. The main path's
-//     route, below the simt kernels.
-//   simt (causal_dot_norm_kernel): everything else -- fp32 (the tiny
-//     models) and other widths. The raw kernel (causal_dot_raw_kernel, the
-//     public op's, on no model path) shares its body and stays simt.
+//   wgmma (causal_dot_norm_wgmma_kernel, causal_dot_raw_wgmma_kernel): bf16
+//     at Dk 128 with Dv a multiple of 64 and 16-byte-aligned bases, every
+//     model's shape and the public op's. The main path's route, below the
+//     simt kernels. Both are one walk (wgmma_walk<NORM>), as the simt
+//     kernels are walk<T, NORM>: the raw instance reads no z0, computes no
+//     den, divides by nothing (out = A v + q S, bf16 from the accumulator)
+//     and writes no zf, num or den; it writes S_T only where sf is not null
+//     (the op's dq pass throws its state away and asks for none). A and S
+//     go to the tensor cores as two bf16 halves in both instances: rounded
+//     once, either misses the raw kernel's out limit as well
+//     (tests/test_torch_causal_dot_split.py, test_raw_*).
+//   simt (causal_dot_norm_kernel, causal_dot_raw_kernel): everything else
+//     -- fp32 (the tiny models) and other widths; the op's dq pass where its
+//     contracted width (the op's Dv) is not 128.
 //
 // The wgmma route. A CUDA-core walk at 5 % of the byte bound spent its time
 // on shared-memory load issue for the four products; on the tensor cores a
@@ -385,8 +394,8 @@ int run(const void* q, const void* k, const void* v, const void* s0, const void*
 }
 
 // ---------------------------------------------------------------------------
-// The wgmma route of causal_dot_norm_kernel: bf16 at Dk 128, Dv a multiple
-// of 64. TMA into a ring of shared-memory stages, wgmma from there.
+// The wgmma route of both kernels: bf16 at Dk 128, Dv a multiple of 64. TMA
+// into a ring of shared-memory stages, wgmma from there.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -418,15 +427,19 @@ struct NormRing {
   __device__ __forceinline__ uint32_t empty(int s) const { return full(W_STAGES + s); }
 };
 
-// One block: value columns [j0, j0 + 64) of head bh, the whole sequence in
-// chunks of 64. The maps read q, k [BH, T, 128] and v [BH, T, Dv] in boxes of
-// 64 rows x 64 columns.
-__global__ void __launch_bounds__(W_THREADS, 1) causal_dot_norm_wgmma_kernel(
-    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ s0,
-    const float* __restrict__ z0, bf16* __restrict__ out, float* __restrict__ sf,
-    float* __restrict__ zf, float* __restrict__ num_out, float* __restrict__ den_out,
-    int t_len, int dv, int n_tiles, float eps) {
+// One block's walk: value columns [j0, j0 + 64) of head bh, the whole
+// sequence in chunks of 64. The maps read q, k [BH, T, 128] and v [BH, T, Dv]
+// in boxes of 64 rows x 64 columns. NORM: the normalized kernel (z, den, the
+// division, and for training num and den); else the raw one, which reads no
+// z0, computes no den, divides by nothing (out = A v + q S) and writes no
+// zf, num or den, and writes S_T only where sf is not null (the public op's
+// dq pass throws it away).
+template <bool NORM>
+__device__ __forceinline__ void wgmma_walk(
+    const CUtensorMap* qmap, const CUtensorMap* kmap, const CUtensorMap* vmap,
+    const float* __restrict__ s0, const float* __restrict__ z0, bf16* __restrict__ out,
+    float* __restrict__ sf, float* __restrict__ zf, float* __restrict__ num_out,
+    float* __restrict__ den_out, int t_len, int dv, int n_tiles, float eps) {
   extern __shared__ unsigned char w_smem[];  // the simt kernels declare their own float[]
   NormRing r;
   r.base = (smem_u32(w_smem) + 1023) & ~1023u;
@@ -447,9 +460,9 @@ __global__ void __launch_bounds__(W_THREADS, 1) causal_dot_norm_wgmma_kernel(
         const int s = c % W_STAGES;
         if (c >= W_STAGES) mbar_wait(r.empty(s), ((c / W_STAGES) + 1) & 1);
         mbar_expect_tx(r.full(s), W_STAGE_BYTES);
-        tma_tile(r.q(s), &qmap, r.full(s), c * WC, bh);
-        tma_tile(r.k(s), &kmap, r.full(s), c * WC, bh);
-        tma_3d(r.v(s), &vmap, r.full(s), j0, c * WC, bh);
+        tma_tile(r.q(s), qmap, r.full(s), c * WC, bh);
+        tma_tile(r.k(s), kmap, r.full(s), c * WC, bh);
+        tma_3d(r.v(s), vmap, r.full(s), j0, c * WC, bh);
       }
     }
     return;
@@ -470,7 +483,7 @@ __global__ void __launch_bounds__(W_THREADS, 1) causal_dot_norm_wgmma_kernel(
     sa[j] = s0 != nullptr ? s0[s_base + (size_t)m * dv + n] : 0.f;
     sb[j] = s0 != nullptr ? s0[s_base + (size_t)(m + 64) * dv + n] : 0.f;
   }
-  zs[tid] = z0 != nullptr ? z0[(size_t)bh * WDK + tid] : 0.f;
+  if (NORM) zs[tid] = z0 != nullptr ? z0[(size_t)bh * WDK + tid] : 0.f;
   write_state(sa, sb, s_hi, s_lo);
   fence_async_smem();
   named_barrier(1, 128);
@@ -494,9 +507,9 @@ __global__ void __launch_bounds__(W_THREADS, 1) causal_dot_norm_wgmma_kernel(
 
     // meanwhile the denominator's q . z (z before this chunk) on the CUDA
     // cores: the four lanes of a row take 32 of its 128 d each
-    float den[2];
+    float den[2] = {0.f, 0.f};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; NORM && h < 2; ++h) {
       const int t = rw + 8 * h;
       float acc = 0.f;
 #pragma unroll
@@ -548,32 +561,33 @@ __global__ void __launch_bounds__(W_THREADS, 1) causal_dot_norm_wgmma_kernel(
       wgmma_m64n64k16<0, 1>(num, kmajor(qs, kk), mnmajor(r.s_lo(), kk));
     wgmma_commit();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) den[h] = quad_sum(den[h]) + quad_sum(rs[h]);
+    for (int h = 0; NORM && h < 2; ++h) den[h] = quad_sum(den[h]) + quad_sum(rs[h]);
     wgmma_wait<0>();
     fence_acc(num);
 
-    // epilogue: out = num / (den + eps); for training also num and den
+    // epilogue: out = num / (den + eps) (raw: num); for training also num
+    // and den
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int t = c0 + rw + 8 * h;
       if (t >= t_len) continue;
-      const float inv = 1.f / (den[h] + eps);
+      const float inv = NORM ? 1.f / (den[h] + eps) : 1.f;
       const size_t o = ((size_t)bh * t_len + t) * dv + j0 + 2 * (lane % 4);
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const float n0 = num[4 * jj + 2 * h], n1 = num[4 * jj + 2 * h + 1];
         *reinterpret_cast<__nv_bfloat162*>(out + o + 8 * jj) =
             __floats2bfloat162_rn(n0 * inv, n1 * inv);
-        if (num_out != nullptr)
+        if (NORM && num_out != nullptr)
           *reinterpret_cast<float2*>(num_out + o + 8 * jj) = make_float2(n0, n1);
       }
-      if (den_out != nullptr && tile == 0 && lane % 4 == 0)
+      if (NORM && den_out != nullptr && tile == 0 && lane % 4 == 0)
         den_out[(size_t)bh * t_len + t] = den[h];
     }
     named_barrier(1, 128);  // every read of z and of S's halves in this chunk is done
 
     // z += the chunk's column sums of k (zeros past T)
-    {
+    if (NORM) {
       float acc = 0.f;
       for (int t = 0; t < WC; ++t)
         acc += __bfloat162float(*reinterpret_cast<const bf16*>(kt + tile_offset(t, tid)));
@@ -602,18 +616,36 @@ __global__ void __launch_bounds__(W_THREADS, 1) causal_dot_norm_wgmma_kernel(
 
   // the final state, fp32 from the registers; z from tile 0
 #pragma unroll
-  for (int j = 0; j < 32; j += 2) {
+  for (int j = 0; (NORM || sf != nullptr) && j < 32; j += 2) {
     const int m = rw + 8 * ((j / 2) % 2), n = 8 * (j / 4) + 2 * (lane % 4);
     *reinterpret_cast<float2*>(sf + s_base + (size_t)m * dv + n) = make_float2(sa[j], sa[j + 1]);
     *reinterpret_cast<float2*>(sf + s_base + (size_t)(m + 64) * dv + n) =
         make_float2(sb[j], sb[j + 1]);
   }
-  if (tile == 0) zf[(size_t)bh * WDK + tid] = zs[tid];
+  if (NORM && tile == 0) zf[(size_t)bh * WDK + tid] = zs[tid];
+}
+
+__global__ void __launch_bounds__(W_THREADS, 1) causal_dot_norm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ s0,
+    const float* __restrict__ z0, bf16* __restrict__ out, float* __restrict__ sf,
+    float* __restrict__ zf, float* __restrict__ num_out, float* __restrict__ den_out,
+    int t_len, int dv, int n_tiles, float eps) {
+  wgmma_walk<true>(&qmap, &kmap, &vmap, s0, z0, out, sf, zf, num_out, den_out, t_len, dv,
+                   n_tiles, eps);
+}
+
+__global__ void __launch_bounds__(W_THREADS, 1) causal_dot_raw_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ s0,
+    bf16* __restrict__ out, float* __restrict__ sf, int t_len, int dv, int n_tiles) {
+  wgmma_walk<false>(&qmap, &kmap, &vmap, s0, nullptr, out, sf, nullptr, nullptr, nullptr, t_len,
+                    dv, n_tiles, 0.f);
 }
 
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const float* s0,
                          const float* z0, void* out, float* sf, float* zf, float* num, float* den,
-                         int bh, int t, int dv, float eps, cudaStream_t stream) {
+                         int bh, int t, int dv, float eps, bool norm, cudaStream_t stream) {
   CUtensorMap maps[3];
   const int n_tiles = dv / WDV;
   const long long blocks = (long long)bh * n_tiles;
@@ -621,12 +653,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const floa
       !encode_heads(&maps[0], q, WDK, t, bh) || !encode_heads(&maps[1], k, WDK, t, bh) ||
       !encode_heads(&maps[2], v, dv, t, bh))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(causal_dot_norm_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  const void* kernel = norm ? reinterpret_cast<const void*>(causal_dot_norm_wgmma_kernel)
+                            : reinterpret_cast<const void*>(causal_dot_raw_wgmma_kernel);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
   if (err != cudaSuccess) return err;
-  causal_dot_norm_wgmma_kernel<<<(unsigned)blocks, W_THREADS, W_SMEM, stream>>>(
-      maps[0], maps[1], maps[2], s0, z0, static_cast<bf16*>(out), sf, zf, num, den, t, dv,
-      n_tiles, eps);
+  if (norm)
+    causal_dot_norm_wgmma_kernel<<<(unsigned)blocks, W_THREADS, W_SMEM, stream>>>(
+        maps[0], maps[1], maps[2], s0, z0, static_cast<bf16*>(out), sf, zf, num, den, t, dv,
+        n_tiles, eps);
+  else
+    causal_dot_raw_wgmma_kernel<<<(unsigned)blocks, W_THREADS, W_SMEM, stream>>>(
+        maps[0], maps[1], maps[2], s0, static_cast<bf16*>(out), sf, t, dv, n_tiles);
   return cudaGetLastError();
 }
 
@@ -666,5 +704,19 @@ extern "C" int causal_dot_norm_fwd_wgmma(const void* q, const void* k, const voi
   return (int)launch_wgmma(q, k, v, static_cast<const float*>(s0), static_cast<const float*>(z0),
                            out, static_cast<float*>(sf), static_cast<float*>(zf),
                            static_cast<float*>(num), static_cast<float*>(den), bh, t, dv, eps,
-                           static_cast<cudaStream_t>(stream));
+                           true, static_cast<cudaStream_t>(stream));
+}
+
+// The wgmma route of causal_dot_fwd: q, k [BH, T, 128], v, out [BH, T, Dv]
+// bf16 with Dv a multiple of 64, bases 16-byte aligned; s0 [BH, 128, Dv]
+// fp32 or nullptr; sf [BH, 128, Dv] fp32, or nullptr to skip S_T. Returns
+// the cudaError_t of the launch (0 on success); cudaErrorInvalidValue for
+// anything it does not take.
+extern "C" int causal_dot_fwd_wgmma(const void* q, const void* k, const void* v, const void* s0,
+                                    void* out, void* sf, int bh, int t, int dv, void* stream) {
+  if (bh < 1 || t < 1 || dv < WDV || dv % WDV != 0 || !tma_ok(out))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_wgmma(q, k, v, static_cast<const float*>(s0), nullptr, out,
+                           static_cast<float*>(sf), nullptr, nullptr, nullptr, bh, t, dv, 0.f,
+                           false, static_cast<cudaStream_t>(stream));
 }

@@ -39,10 +39,14 @@ Five kernels, each replacing a TPU kernel of
 The unnormalized ones, under the public op ``causal_dot_product``
 (``ops/dispatch.py``):
 
-- ``causal_dot_cuda`` (``csrc/causal_dot_norm.cu``, the same walk with the
-  normalizer off) <- ``_kernel`` (``_cdp_flat``): for q, k [BH, T, Dk] and
-  v [BH, T, Dv], out[t] = sum_{s<=t} (q_t . k_s) v_s + q_t . S0 in the input
-  dtype, and the final S [BH, Dk, Dv] fp32;
+- ``causal_dot_cuda`` (``csrc/causal_dot_norm.cu``, row 1's walks with the
+  normalizer off: ``causal_dot_raw_wgmma_kernel`` or
+  ``causal_dot_raw_kernel``) <- ``_kernel`` (``_cdp_flat``): for q, k
+  [BH, T, Dk] and v [BH, T, Dv], out[t] = sum_{s<=t} (q_t . k_s) v_s + q_t .
+  S0 in the input dtype, and the final S [BH, Dk, Dv] fp32. Two variants,
+  chosen before the launch by ``causal_dot_raw_variant`` under row 1's
+  conditions: "wgmma" for bf16 at Dk 128 with Dv a multiple of 64 and
+  16-byte-aligned bases, "simt" for the rest;
 - ``causal_dot_rev_cuda`` (``csrc/causal_dot_bwd.cu``) <- ``_bwd_rev_kernel``
   (``_cdp_rev_flat``): the reverse pass seeded by dSf^T, fp32 dk, dv, dS0.
 
@@ -60,8 +64,9 @@ Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
 launches (``launches``, ``launches_dq``, ``launches_rev``, ``launches_raw``,
 ``launches_raw_rev``: kernel launches and nothing else; ``launches_wgmma``
 and ``launches_simt`` split ``launches`` by variant, ``launches_dq_wgmma`` /
-``launches_dq_simt`` and ``launches_rev_wgmma`` / ``launches_rev_simt`` split
-``launches_dq`` and ``launches_rev``). A variant that fails
+``launches_dq_simt``, ``launches_rev_wgmma`` / ``launches_rev_simt`` and
+``launches_raw_wgmma`` / ``launches_raw_simt`` split ``launches_dq``,
+``launches_rev`` and ``launches_raw``). A variant that fails
 to build or launch raises: it never gives way to the other variant or to
 the plain version. Each ``*_plain`` function is its kernel's function in
 plain PyTorch, on any device. The libraries are compiled with ``nvcc`` for
@@ -99,6 +104,7 @@ launches_dq_wgmma = launches_dq_simt = 0  # the dq pass's launches by variant
 launches_rev = 0  # reverse-pass kernel launches
 launches_rev_wgmma = launches_rev_simt = 0  # the reverse pass's launches by variant
 launches_raw = 0  # unnormalized forward kernel launches (the public op's forward and dq pass)
+launches_raw_wgmma = launches_raw_simt = 0  # the unnormalized forward's launches by variant
 launches_raw_rev = 0  # unnormalized reverse-pass kernel launches
 _libs: dict = {}
 # where a caller that wants gradients goes instead of the bare forward kernels
@@ -111,6 +117,7 @@ _SIGNATURES = {
         "causal_dot_norm_fwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
         "causal_dot_norm_fwd_wgmma": [_P] * 10 + [_I] * 3 + [ctypes.c_float, _P],
         "causal_dot_fwd": [_P] * 6 + [_I] * 5 + [_P],
+        "causal_dot_fwd_wgmma": [_P] * 6 + [_I] * 3 + [_P],
     },
     "bwd": {
         "causal_dot_dq_den": [_P] * 7 + [_I] * 5 + [_P],
@@ -487,13 +494,23 @@ def causal_dot_rev_den_plain(
 # ---------------------------------------------------------------------------
 
 
-def causal_dot_cuda(q: Tensor, k: Tensor, v: Tensor,
-                    s0: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """Launch the unnormalized forward kernel on the current stream ->
-    (out [BH, T, Dv] in the input dtype, S [BH, Dk, Dv] fp32) for q, k
-    [BH, T, Dk], v [BH, T, Dv] and an optional fp32 S0 [BH, Dk, Dv]. Raises
-    on anything it does not take, as ``causal_dot_norm_cuda``."""
-    global launches_raw
+def causal_dot_raw_variant(q: Tensor, k: Tensor, v: Tensor) -> str:
+    """The unnormalized forward kernel that takes q, k [BH, T, Dk] and v [BH,
+    T, Dv]: "wgmma" under row 1's conditions (all three bf16 at Dk 128 with
+    Dv a multiple of 64 and 16-byte-aligned bases), else "simt". From dtype,
+    shape and alignment alone, before any launch."""
+    return causal_dot_norm_variant(q, k, v)
+
+
+def causal_dot_cuda(q: Tensor, k: Tensor, v: Tensor, s0: Optional[Tensor] = None, *,
+                    with_state: bool = True) -> Tuple[Tensor, Optional[Tensor]]:
+    """Launch the unnormalized forward kernel that ``causal_dot_raw_variant``
+    names on the current stream -> (out [BH, T, Dv] in the input dtype, S
+    [BH, Dk, Dv] fp32, or None without ``with_state``: the wgmma kernel then
+    skips writing it) for q, k [BH, T, Dk], v [BH, T, Dv] and an optional
+    fp32 S0 [BH, Dk, Dv]. Raises on anything it does not take, as
+    ``causal_dot_norm_cuda``."""
+    global launches_raw, launches_raw_wgmma, launches_raw_simt
     raise_if_grad([q, k, v, s0], _RAW_GRAD_PATH)
     _check(q, k, v, None, None)
     bh, t, dk = q.shape
@@ -502,18 +519,27 @@ def causal_dot_cuda(q: Tensor, k: Tensor, v: Tensor,
     check_launch("causal_dot_cuda", [q, k, v], [s0])
     if dk > D_MAX:
         raise ValueError(f"Dk {dk} > {D_MAX}, the kernel's limit")
+    chosen = causal_dot_raw_variant(q, k, v)
     out = torch.empty_like(v)
-    sf = torch.empty(bh, dk, dv, dtype=torch.float32, device=q.device)
+    sf = None
+    if with_state or chosen == "simt":  # the simt kernel always writes S
+        sf = torch.empty(bh, dk, dv, dtype=torch.float32, device=q.device)
     lib = _library("fwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(s0), out.data_ptr(), _ptr(sf))
     with torch.cuda.device(q.device):
-        err = lib.causal_dot_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(s0), out.data_ptr(), sf.data_ptr(),
-            bh, t, dk, dv, int(q.dtype == torch.bfloat16), _stream(q.device),
-        )
+        if chosen == "wgmma":
+            err = lib.causal_dot_fwd_wgmma(*ptrs, bh, t, dv, _stream(q.device))
+        else:
+            err = lib.causal_dot_fwd(*ptrs, bh, t, dk, dv, int(q.dtype == torch.bfloat16),
+                                     _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"causal_dot kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"causal_dot kernel ({chosen}) failed: cudaError_t {err}")
     launches_raw += 1
-    return out, sf
+    if chosen == "wgmma":
+        launches_raw_wgmma += 1
+    else:
+        launches_raw_simt += 1
+    return out, sf if with_state else None
 
 
 def causal_dot_plain(q: Tensor, k: Tensor, v: Tensor,
@@ -645,7 +671,8 @@ class CausalDotProductFn(torch.autograd.Function):
     Dv] of one dtype and an optional fp32 S0 [BH, Dk, Dv] -> (out, S). The
     forward launches the unnormalized forward kernel; the backward casts g
     to q's dtype (``_cdp_bwd``), runs the same kernel as the dq pass on (g,
-    v, k) with S0^T carried in, and the reverse pass seeded by dSf^T (zeros
+    v, k) with S0^T carried in (its final state unused, so not asked for:
+    the wgmma kernel skips writing it), and the reverse pass seeded by dSf^T (zeros
     when the state got no cotangent), then casts dq, dk, dv to the input
     dtypes. It returns a grad for S0 only when one was given. It calls the
     two ``*_cuda`` wrappers by their module names, so a test can stand their
@@ -666,14 +693,15 @@ class CausalDotProductFn(torch.autograd.Function):
             gout = torch.zeros_like(v)
         g = gout.to(q.dtype).contiguous()
         s0t = s0.transpose(1, 2).contiguous() if s0 is not None else None
-        dq, _ = causal_dot_cuda(g, v, k, s0t)
+        dq, _ = causal_dot_cuda(g, v, k, s0t, with_state=False)
         gsf = gsf.float().contiguous() if gsf is not None else None
         dk, dv, ds0 = causal_dot_rev_cuda(q, k, v, g, gsf)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds0 if s0 is not None else None
 
 
 __all__ = [
-    "causal_dot_cuda", "causal_dot_plain", "causal_dot_rev_cuda", "causal_dot_rev_plain",
+    "causal_dot_cuda", "causal_dot_plain", "causal_dot_raw_variant", "causal_dot_rev_cuda",
+    "causal_dot_rev_plain",
     "CausalDotProductFn",
     "causal_dot_norm_cuda", "causal_dot_norm_plain", "causal_dot_norm_variant",
     "causal_dot_dq_den_cuda", "causal_dot_dq_den_plain", "causal_dot_dq_den_variant",

@@ -191,7 +191,11 @@ def plain_kernels(monkeypatch):
             return fn(*a, **kw)
         return f
 
-    monkeypatch.setattr(causal_dot, "causal_dot_cuda", wrap("fwd", causal_dot.causal_dot_plain))
+    def plain_fwd(q, k, v, s0=None, *, with_state=True):
+        out, sf = causal_dot.causal_dot_plain(q, k, v, s0)
+        return out, sf if with_state else None
+
+    monkeypatch.setattr(causal_dot, "causal_dot_cuda", wrap("fwd", plain_fwd))
     monkeypatch.setattr(causal_dot, "causal_dot_rev_cuda",
                         wrap("rev", causal_dot.causal_dot_rev_plain))
     return calls

@@ -1,11 +1,13 @@
-"""Which kernels of linear attention (rows 1, 3 and 4) the wrappers launch.
+"""Which kernels of linear attention (rows 1-4) the wrappers launch.
 
 ``causal_dot_norm_variant`` (the forward) chooses from dtype, widths and
 alignment alone, before any launch: "wgmma" (TMA tensor maps into
 ``wgmma``) for bf16 at Dk 128 with Dv a multiple of 64 and 16-byte-aligned
 bases, "simt" for everything else; ``causal_dot_dq_den_variant`` and
 ``causal_dot_rev_den_variant`` (the backward's two passes) likewise, for
-bf16 at a contracted width of 128. Pure functions of the tensors' metadata,
+bf16 at a contracted width of 128; ``causal_dot_raw_variant`` (the public
+op's raw forward, row 2) under row 1's conditions, as the op's forward and
+as its dq pass. Pure functions of the tensors' metadata,
 so they run here on CPU tensors; the launches themselves are held on the
 card (``tests/test_torch_cuda.py``).
 """
@@ -115,3 +117,43 @@ def test_bwd_one_operand_in_fp32_takes_simt(i):
     q, k, v, g = ops
     assert cd.causal_dot_rev_den_variant(q, k, v, g) == "simt"
     assert cd.causal_dot_dq_den_variant(g, v, k) == ("wgmma" if i == 0 else "simt")
+
+
+# The public op's raw forward (row 2): ``causal_dot_raw_variant(q, k, v)``
+# takes wgmma under row 1's conditions. The op runs it twice: as its forward
+# on (q, k, v) and as its dq pass on (g, v, k), whose contracted width is Dv.
+
+
+@pytest.mark.parametrize(
+    "bh,t,dk,dv,dtype,want_fwd,want_dq",
+    [
+        (128, 1024, 128, 128, BF16, "wgmma", "wgmma"),  # the op at lm_1b3's per-layer shape
+        (4, 1, 128, 128, BF16, "wgmma", "wgmma"),  # T 1
+        (128, 1024, 128, 64, BF16, "wgmma", "simt"),  # Dv 64: the dq pass contracts over 64
+        (4, 1000, 128, 192, BF16, "wgmma", "simt"),  # three value tiles; the dq pass over 192
+        (4, 1000, 64, 128, BF16, "simt", "wgmma"),  # Dk 64: the dq pass's one output tile
+        (4, 100, 128, 96, BF16, "simt", "simt"),  # Dv not a multiple of 64
+        (4, 100, 128, 128, FP32, "simt", "simt"),  # fp32 at D 128
+        (8, 300, 32, 32, FP32, "simt", "simt"),  # chip_smoke's fp32 cases
+    ],
+)
+def test_raw_variant(bh, t, dk, dv, dtype, want_fwd, want_dq):
+    q, k, v = _qkv(bh, t, dk, dv, dtype)
+    g = torch.empty(bh, t, dv, dtype=dtype)
+    assert cd.causal_dot_raw_variant(q, k, v) == want_fwd
+    assert cd.causal_dot_raw_variant(g, v, k) == want_dq
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_raw_misaligned_or_fp32_operand_takes_simt(i):
+    """Each of the three operands alone decides: a base 2 bytes off 16, or
+    one operand in fp32."""
+    flat = torch.empty(8 + 4 * 64 * 128, dtype=BF16)
+    odd = flat[1:1 + 4 * 64 * 128].view(4, 64, 128)
+    ops = list(_qkv(4, 64, 128, 128))
+    assert cd.causal_dot_raw_variant(*ops) == "wgmma"
+    ops[i] = odd
+    assert cd.causal_dot_raw_variant(*ops) == "simt"
+    ops = list(_qkv(4, 64, 128, 128))
+    ops[i] = ops[i].float()
+    assert cd.causal_dot_raw_variant(*ops) == "simt"

@@ -270,13 +270,22 @@ def test_backward_wgmma_layouts_on_one_chunk(dev, kind):
         (torch.float32, 3, 70, 32, 24, False),
         (torch.float32, 2, 129, 128, 100, True),
         (torch.bfloat16, 5, 1, 16, 64, True),
-        (torch.bfloat16, 4, 333, 128, 128, True),
-        (torch.bfloat16, 2, 64, 100, 72, False),
+        (torch.bfloat16, 4, 333, 128, 128, True),  # wgmma from here on, but the last two
+        (torch.bfloat16, 4, 1, 128, 128, False),  # T 1
+        (torch.bfloat16, 2, 1, 128, 64, True),  # T 1 from S0
+        (torch.bfloat16, 3, 1000, 128, 128, True),  # a ragged last chunk, S0 and dSf
+        (torch.bfloat16, 3, 1000, 128, 128, False),  # neither
+        (torch.bfloat16, 2, 200, 128, 64, True),  # Dv 64: one value tile
+        (torch.bfloat16, 2, 65, 128, 128, False),  # a last chunk of one token
+        (torch.bfloat16, 2, 64, 100, 72, False),  # simt: Dk 100
+        (torch.bfloat16, 2, 130, 128, 96, True),  # simt: Dv not a multiple of 64
     ],
 )
 def test_raw_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
     """Rows 2 and 5 (the public op's forward and reverse pass) against their
-    plain versions; ``state`` gives both an S0 and a dSf seed."""
+    plain versions; ``state`` gives both an S0 and a dSf seed. Row 2 in the
+    variant ``causal_dot_raw_variant`` names (wgmma for bf16 at Dk 128 with
+    Dv a multiple of 64, simt for the rest): only its counter moves."""
     g = torch.Generator(device=dev).manual_seed(t + 2)
     phi = lambda x: (torch.nn.functional.elu(x) + 1).to(dtype)  # noqa: E731
     q = phi(torch.randn(bh, t, dk, device=dev, generator=g))
@@ -287,10 +296,14 @@ def test_raw_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
     if state:
         s0 = torch.randn(bh, dk, dv, device=dev, generator=g)
         gsf = torch.randn(bh, dk, dv, device=dev, generator=g)
-    before = (causal_dot.launches_raw, causal_dot.launches_raw_rev)
+    variant = causal_dot.causal_dot_raw_variant(q, k, v)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and dk == 128 and dv % 64 == 0
+                       else "simt")
+    before = _raw_counts()
     out, sf = causal_dot.causal_dot_cuda(q, k, v, s0)
     dk_, dv_, ds0 = causal_dot.causal_dot_rev_cuda(q, k, v, gout, gsf)
-    assert (causal_dot.launches_raw, causal_dot.launches_raw_rev) == tuple(n + 1 for n in before)
+    assert _raw_counts() == tuple(
+        n + d for n, d in zip(before, (1, variant == "wgmma", variant == "simt", 1)))
     r_out, r_sf = causal_dot.causal_dot_plain(q, k, v, s0)
     assert out.dtype == dtype and out.shape == r_out.shape
     _max_close(out, r_out, 2**-7 if dtype == torch.bfloat16 else 1e-4)
@@ -298,6 +311,67 @@ def test_raw_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
     for x, r in zip((dk_, dv_, ds0), causal_dot.causal_dot_rev_plain(q, k, v, gout, gsf)):
         assert x.dtype == torch.float32 and x.shape == r.shape
         _max_close(x, r, 1e-4)
+
+
+def _raw_counts():
+    return (causal_dot.launches_raw, causal_dot.launches_raw_wgmma, causal_dot.launches_raw_simt,
+            causal_dot.launches_raw_rev)
+
+
+@pytest.mark.parametrize("kind", ["one chunk", "state", "two chunks", "no state out"])
+def test_causal_dot_raw_wgmma_on_one_chunk(dev, kind):
+    """Row 2's wgmma kernel, one head at Dk 128, Dv 64: one chunk (the
+    scores' mask and halves, S = k^T v), from S0 (q against S's halves),
+    two chunks (the second reads the state the first wrote), and without
+    the state out (the dq pass's call: out alone, S_T not written). out one
+    bf16 step plus 1e-4 of its largest magnitude (chip_smoke.py's RAW
+    limits: an element where the sum cancels is held by the second term), S
+    1e-4 of its largest magnitude."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    t = 128 if kind == "two chunks" else 64
+    phi = lambda x: (torch.nn.functional.elu(x) + 1).bfloat16()  # noqa: E731
+    q, k = (phi(torch.randn(1, t, 128, device=dev, generator=g)) for _ in range(2))
+    v = torch.randn(1, t, 64, device=dev, generator=g).bfloat16()
+    s0 = torch.randn(1, 128, 64, device=dev, generator=g) if kind == "state" else None
+    before = _raw_counts()
+    out, sf = causal_dot.causal_dot_cuda(q, k, v, s0, with_state=kind != "no state out")
+    assert _raw_counts() == tuple(n + d for n, d in zip(before, (1, 1, 0, 0)))
+    r_out, r_sf = causal_dot.causal_dot_plain(q, k, v, s0)
+    _max_close(out, r_out, 2**-7)
+    if kind == "no state out":
+        assert sf is None
+    else:
+        torch.testing.assert_close(sf, r_sf, rtol=0, atol=1e-4 * float(r_sf.abs().max()))
+
+
+@pytest.mark.parametrize("dk,dv,want", [(128, 128, (2, 0)), (128, 64, (1, 1))])
+def test_causal_dot_product_fn_on_the_wgmma_route(dev, dk, dv, want):
+    """The public op's forward + backward at Dk 128 in bf16: the forward on
+    the wgmma kernel; the dq pass, on (g, v, k), on the wgmma kernel at Dv
+    128 and on the simt one at Dv 64 (its contracted width); the reverse pass
+    once. Against the plain form differentiated by autograd, within one bf16
+    step plus 1e-4 of the largest magnitude (fp32 outputs 1e-4)."""
+    from orion_tpu_torch.ops import causal_dot_product
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    phi = lambda x: (torch.nn.functional.elu(x) + 1).bfloat16()  # noqa: E731
+    q0, k0 = (phi(torch.randn(2, 2, 300, dk, device=dev, generator=g)) for _ in range(2))
+    v0 = torch.randn(2, 2, 300, dv, device=dev, generator=g).bfloat16()
+    s00 = torch.randn(2, 2, dk, dv, device=dev, generator=g)
+    gout = torch.randn(2, 2, 300, dv, device=dev, generator=g).bfloat16()
+    gsf = torch.randn(2, 2, dk, dv, device=dev, generator=g)
+    res = {}
+    for backend in ("cuda", "torch"):
+        q, k, v, s0 = (x.clone().requires_grad_() for x in (q0, k0, v0, s00))
+        before = _raw_counts()
+        out, sf = causal_dot_product(q, k, v, backend=backend, return_state=True,
+                                     initial_state=s0)
+        ((out.float() * gout.float()).sum() + (sf * gsf).sum()).backward()
+        moved = tuple(a - b for a, b in zip(_raw_counts(), before))
+        assert moved == ((2, *want, 1) if backend == "cuda" else (0, 0, 0, 0))
+        res[backend] = [x.detach() for x in (out, sf, q.grad, k.grad, v.grad, s0.grad)]
+    for x, ref in zip(res["cuda"], res["torch"]):
+        _max_close(x, ref, 2**-7 if x.dtype == torch.bfloat16 else 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -689,28 +763,119 @@ def _q4_problem(g, dev, b, d, out, dtype):
     "dtype,b,d,out",
     [
         (torch.bfloat16, 4, 2048, 2048),  # lm_1b3's wq..wo at decode's 4 rows
-        (torch.bfloat16, 4, 5504, 2048),  # its down projection: a K tail past 512 packed rows
-        (torch.bfloat16, 1, 2048, 200),  # an out that fits no 32-channel strip
+        (torch.bfloat16, 4, 5504, 2048),  # its down projection: 43 boxes over 8 ranks
+        (torch.bfloat16, 4, 2048, 5504),  # its gate / up
+        (torch.bfloat16, 1, 2048, 2048),  # mma from here to the next comment: B 1
+        (torch.bfloat16, 8, 5504, 2048),  # B 8: one n-tile full
+        (torch.bfloat16, 13, 2048, 5504),  # two n-tiles, the second part empty
+        (torch.bfloat16, 64, 2048, 5504),  # B 64: eight n-tiles
+        (torch.bfloat16, 64, 5504, 2048),  # B 64: x staged a box at a time
+        (torch.bfloat16, 4, 2000, 2048),  # 1000 packed rows: a last box of 40 rows
+        (torch.bfloat16, 3, 1000, 2048),  # 500: two boxes a rank, the last of 52 rows
+        (torch.bfloat16, 2, 32768, 16),  # one strip of 16 channels, x in two chunks
+        (torch.bfloat16, 4, 128, 336),  # one box of 64 rows, a last strip of 16 channels
+        (torch.bfloat16, 1, 2048, 200),  # simt from here: an out that fits no 16-channel step
         (torch.bfloat16, 64, 100, 130),  # the most rows the kernel takes, a ragged d
+        (torch.bfloat16, 4, 2004, 2048),  # d % 8 != 0
         (torch.float32, 3, 128, 384),  # tiny's widths in fp32
         (torch.float32, 7, 64, 33),  # out % 4 != 0: byte loads
+        (torch.float32, 4, 5504, 2048),  # a K tail past 512 packed rows
     ],
 )
 def test_q4_matmul_kernel_matches_plain(dev, dtype, b, d, out):
-    """Row 14 against its plain version: bf16 to one bf16 step plus 1e-4 of
-    the largest magnitude (fp32 sums of exact products in another order, one
+    """Row 14 against its plain version, in the variant
+    ``q4_matmul_variant`` names (mma for bf16 x with d % 8 == 0 and out %
+    16 == 0, simt for the rest): bf16 to one bf16 step plus 1e-4 of the
+    largest magnitude (fp32 sums of exact products in another order, one
     rounding); fp32 to 1e-4 relative plus the same absolute term. Every
-    output is written (its memory held NaN before the call)."""
+    output is written (its memory held NaN before the call); only the
+    chosen variant's counter moves."""
     g = torch.Generator(device=dev).manual_seed(b * d + out)
     x, p, s = _q4_problem(g, dev, b, d, out, dtype)
-    before = q4m.launches
+    variant = q4m.q4_matmul_variant(x, p, s)
+    assert variant == ("mma" if dtype == torch.bfloat16 and d % 8 == 0 and out % 16 == 0
+                       else "simt")
+    before = _q4_counts()
     junk = torch.full((b * out * 4,), float("nan"), device=dev)
     del junk  # the allocator hands this block to y: an unwritten element shows
     y = q4m.q4_matmul_cuda(x, p, s)
-    assert q4m.launches == before + 1
+    assert _q4_counts() == tuple(
+        n + d for n, d in zip(before, (1, variant == "mma", variant == "simt")))
     ref = q4m.q4_matmul_torch(x, p, s)
     assert y.dtype == dtype and y.shape == (b, out) and bool(torch.isfinite(y.float()).all())
     _max_close(y, ref, 2**-7 if dtype == torch.bfloat16 else 1e-4)
+
+
+def _q4_counts():
+    return q4m.launches, q4m.launches_mma, q4m.launches_simt
+
+
+def test_q4_outside_the_mma_conditions_takes_simt(dev):
+    """The same weight's call takes simt when x is fp32 or x's base is 8
+    bytes off 16, mma when both are right; a weight whose base is off 16
+    takes simt even for a right x. Each result against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x, p, s = _q4_problem(g, dev, 4, 2048, 2048, torch.bfloat16)
+    flat = torch.empty(4 * 2048 + 4, dtype=torch.bfloat16, device=dev)
+    x_off = flat[4:].view(4, 2048)
+    x_off.copy_(x)
+    pflat = torch.empty(1024 * 2048 + 8, dtype=torch.int8, device=dev)
+    p_off = pflat[8:].view(1024, 2048)
+    p_off.copy_(p)
+    for xx, pp, want in ((x, p, "mma"), (x.float(), p, "simt"), (x_off, p, "simt"),
+                         (x, p_off, "simt"), (x, p, "mma")):
+        assert q4m.q4_matmul_variant(xx, pp, s) == want
+        before = _q4_counts()
+        y = q4m.q4_matmul_cuda(xx, pp, s)
+        assert _q4_counts() == tuple(
+            n + d for n, d in zip(before, (1, want == "mma", want == "simt")))
+        _max_close(y, q4m.q4_matmul_torch(xx, pp, s), 2**-7 if xx.dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("b,kp,out", [(4, 1024, 2048), (4, 1024, 5504), (4, 2752, 2048),
+                                       (64, 2752, 2048), (1, 1000, 2048), (2, 16384, 16),
+                                       (4, 64, 336), (13, 250, 5504)])
+def test_q4_geometry_mirror_matches_the_library(dev, b, kp, out):
+    """``mma_geometry``, the Python mirror over which the CPU tests emulate
+    the mma kernel's cluster split, chooses the strips and blocks a cluster
+    that the library's launch does (``q4_geometry``), on 132 SMs and on this
+    card's count."""
+    import ctypes
+
+    lib = q4m._library()
+    for sms in (132, torch.cuda.get_device_properties(dev).multi_processor_count):
+        g = (ctypes.c_int * 5)()
+        assert lib.q4_geometry(b, kp, out, sms, g) == 0
+        strips, cl, ranks = q4m.mma_geometry(kp, out, sms)
+        assert (g[0], g[1]) == (strips, cl)
+        assert len(ranks) == cl and ranks[0][0] == 0 and ranks[-1][1] == -(-kp // 64)
+
+
+def test_q4_weight_reloaded_in_place_and_refusals_after_a_good_call(dev):
+    """A layer's weight checked once: after a good call, an in-place reload
+    of p and s (load_state_dict's copy_) gives the new weight's product; a
+    bad x, a p of another shape and an s of another dtype each still raise
+    with the checks' messages."""
+    from orion_tpu_torch.quant import Int4Dense
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    layer = Int4Dense(2048, 2048, torch.bfloat16, device=dev)
+    x, p, s = _q4_problem(g, dev, 4, 2048, 2048, torch.bfloat16)
+    layer.load_state_dict({"weight_p4": p, "weight_s": s})
+    with torch.inference_mode():
+        _max_close(layer(x), q4m.q4_matmul_torch(x, p, s), 2**-7)
+        _, p2, s2 = _q4_problem(g, dev, 4, 2048, 2048, torch.bfloat16)
+        layer.load_state_dict({"weight_p4": p2, "weight_s": s2})
+        _max_close(layer(x), q4m.q4_matmul_torch(x, p2, s2), 2**-7)
+        with pytest.raises(ValueError, match="packed kernel rows"):
+            q4m.q4_matmul_cuda(x[:, :1024].contiguous(), layer.weight_p4, layer.weight_s)
+        with pytest.raises(TypeError, match="bf16 or fp32"):
+            q4m.q4_matmul_cuda(x.half(), layer.weight_p4, layer.weight_s)
+        with pytest.raises(TypeError, match="float32"):
+            q4m.q4_matmul_cuda(x, layer.weight_p4, layer.weight_s.double())
+        with pytest.raises(ValueError, match="packed kernel rows"):
+            q4m.q4_matmul_cuda(x, layer.weight_p4[:512], layer.weight_s)
+        _max_close(layer(x), q4m.q4_matmul_torch(x, p2, s2), 2**-7)
 
 
 def test_int4_model_decode_uses_the_kernel(dev):

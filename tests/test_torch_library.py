@@ -36,12 +36,13 @@ def test_nested_headers_are_hashed_and_found_beside_the_includer(tmp_path):
 
 
 def test_the_package_sources_hash_the_shared_header():
-    """The five wgmma sources include csrc/hopper.cuh; angle-bracket
-    includes (the toolkit's) are not followed."""
+    """The five wgmma sources and q4_matmul.cu (its mma variant's TMA ring)
+    include csrc/hopper.cuh; angle-bracket includes (the toolkit's) are not
+    followed, and adafactor.cu includes none."""
     for name in ("gmm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "causal_dot_norm.cu",
-                 "causal_dot_bwd.cu"):
+                 "causal_dot_bwd.cu", "q4_matmul.cu"):
         assert library._headers(library.CSRC / name) == [library.CSRC / "hopper.cuh"], name
-    assert library._headers(library.CSRC / "q4_matmul.cu") == []
+    assert library._headers(library.CSRC / "adafactor.cu") == []
 
 
 def test_a_missing_header_raises(tmp_path):
