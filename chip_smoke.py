@@ -25,11 +25,13 @@ nonzero and no result line is printed):
      pass, at lm_1b3's per-layer shape [B*H, T, D] = [128, 1024, 128] bf16,
      a ragged T 1000, T 1, Dk 128 with Dv 64 and fp32 at D 32, with and
      without S0 and a cotangent on the final state, every output written
-     over NaN; each case logs the variants row 2 took (wgmma for bf16 at Dk
-     128 with Dv a multiple of 64: the forward everywhere in bf16 and the dq
-     pass but at Dv 64, whose contracted width it is; simt for the rest);
-     the wgmma kernel timed as the op's forward, the simt kernel as the dq
-     pass of the op at Dv 64;
+     over NaN; each case logs the variants rows 2 and 5 took (row 2: wgmma
+     for bf16 at Dk 128 with Dv a multiple of 64: the forward everywhere in
+     bf16 and the dq pass but at Dv 64, whose contracted width it is; row 5:
+     wgmma for bf16 at Dk = Dv = 128; simt for the rest); row 2's wgmma
+     kernel timed as the op's forward, its simt kernel as the dq pass of the
+     op at Dv 64, row 5's wgmma kernel at [128, 1024, 128] and its simt
+     kernel at the op's Dv 64, both seeded by dSf;
    - flash attention (rows 6, 7, 8): forward, dq and dk/dv at hybrid_1b3's
      generate shape (B 4, H 16, T 1536, D 128, bf16, window 1024) and
      training shape (B 8, T 2048), a ragged T 2000, T 1, T 512 (below the
@@ -70,8 +72,9 @@ nonzero and no result line is printed):
 4. the public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
    backward through ``CausalDotProductFn`` at [B 8, H 16, T 1024, D 128]
    bf16 with an initial state and the returned state, then at Dk 128, Dv
-   64: exact launches (row 2 twice on its wgmma kernel and row 5 once; at
-   Dv 64 the dq pass on row 2's simt kernel), every count set to 0 just
+   64: exact launches (row 2 twice on its wgmma kernel and row 5 once on
+   its wgmma kernel; at Dv 64 the dq pass on row 2's simt kernel and the
+   reverse pass on row 5's), every count set to 0 just
    before each, out, S and every gradient against the plain form
    differentiated by autograd;
 5. the generate path, for ``lm_1b3`` (4 prompts of 1024 byte tokens, 32
@@ -127,7 +130,7 @@ nonzero and no result line is printed):
    model, in bf16 and at int4, against the same from the in-memory trained
    model: tokens and prefill logits bitwise, exact launches (row 14 at
    int4); save and load seconds;
-10. a ``kernels`` JSON line (24 entries: the 14 rows, rows 1-4, 6-10 and 14
+10. a ``kernels`` JSON line (25 entries: the 14 rows, rows 1-10 and 14
    once for each variant), then the result line
    ``{"ok": true, "device": {...}}`` last.
 """
@@ -279,7 +282,8 @@ RAW_ATOL_OF_MAX = 1e-4
 
 KERNELS = ("causal_dot_norm_wgmma", "causal_dot_norm_simt", "causal_dot_wgmma", "causal_dot_simt",
            "causal_dot_dq_den_wgmma", "causal_dot_dq_den_simt", "causal_dot_rev_den_wgmma",
-           "causal_dot_rev_den_simt", "causal_dot_rev", "flash_fwd_wgmma", "flash_fwd_simt",
+           "causal_dot_rev_den_simt", "causal_dot_rev_wgmma", "causal_dot_rev_simt",
+           "flash_fwd_wgmma", "flash_fwd_simt",
            "flash_dq_wgmma", "flash_dkv_wgmma", "flash_dq_simt", "flash_dkv_simt", "gmm_fwd_wgmma", "gmm_dw_wgmma", "gmm_fwd_simt", "gmm_dw_simt",
            "q4_matmul_mma", "q4_matmul_simt", "adafactor_sums", "adafactor_rms", "adafactor_apply")
 
@@ -590,7 +594,7 @@ def compare_training_kernels(cd, dev):
         readings.append({
             "case": label, "variant": cd.causal_dot_norm_variant(q, k, v),
             "dq_variant": cd.causal_dot_dq_den_variant(gnum, v, k),
-            "rev_variant": cd.causal_dot_rev_den_variant(q, k, v, gnum),
+            "rev_variant": cd.causal_dot_rev_variant(q, k, v, gnum),
             "out": _grad_reading(out, r_out),
             "num_rel": _rel(num, r_num), "den_rel": _rel(den, r_den),
             "dq": _grad_reading(dq, r_dq), "dk": _grad_reading(dk_, r_dk),
@@ -654,7 +658,7 @@ def check_training_kernels(cd, dev, norm):
     train_label, tiny_label = TRAINING_CASES[0][0], TRAINING_CASES[-1][0]
     q, k, v, gnum, gden = inputs[train_label]
     if (cd.causal_dot_norm_variant(q, k, v), cd.causal_dot_dq_den_variant(gnum, v, k),
-            cd.causal_dot_rev_den_variant(q, k, v, gnum)) != ("wgmma",) * 3:
+            cd.causal_dot_rev_variant(q, k, v, gnum)) != ("wgmma",) * 3:
         raise AssertionError("rows 1, 3, 4 at the training shape did not all take wgmma")
     lines = []
     with torch.no_grad():
@@ -710,7 +714,9 @@ def check_training_kernels(cd, dev, norm):
 # final state): lm_1b3's per-layer shape [B*H, T, D] = [128, 1024, 128] and
 # the edges of the kernels' loops. Row 2 takes its wgmma kernel for bf16 at
 # Dk 128 with Dv a multiple of 64, its simt kernel for the rest: at Dk 128,
-# Dv 64 the forward takes wgmma and the dq pass, on (g, v, k), simt
+# Dv 64 the forward takes wgmma and the dq pass, on (g, v, k), simt. Row 5
+# takes its wgmma kernel for bf16 at Dk = Dv = 128 (the first four cases),
+# its simt kernel for the rest
 RAW_CASES = [
     ("B8 H16 T1024 D128 bf16", 8, 16, 1024, 128, 128, torch.bfloat16, False, False),
     ("B8 H16 T1024 D128 bf16 S0 dSf", 8, 16, 1024, 128, 128, torch.bfloat16, True, True),
@@ -761,8 +767,8 @@ def compare_raw(cd, dev):
     ``RAW_CASES``: the forward (out, S), the dq pass (row 2 on (g, v, k)
     with S0^T carried in and no final state asked for, as the op's backward
     runs it) and the reverse pass (dk, dv, dS0, seeded by dSf^T or zeros).
-    Returns one reading per case (with the variants the forward and the dq
-    pass took) and every case's inputs by label."""
+    Returns one reading per case (with the variants the forward, the dq pass
+    and the reverse pass took) and every case's inputs by label."""
     g = torch.Generator(device=dev).manual_seed(21)
     readings, inputs = [], {}
     for label, b, h, t, dk, dv, dtype, with_s0, with_gsf in RAW_CASES:
@@ -783,7 +789,8 @@ def compare_raw(cd, dev):
         readings.append({
             "case": label,
             "variants": {"out": cd.causal_dot_raw_variant(q, k, v),
-                         "dq": cd.causal_dot_raw_variant(gout, v, k)},
+                         "dq": cd.causal_dot_raw_variant(gout, v, k),
+                         "rev": cd.causal_dot_rev_variant(q, k, v, gout)},
             "out": _grad_reading(out, r_out, rt, RAW_ATOL_OF_MAX),
             "dq": _grad_reading(dq, r_dq, rt, RAW_ATOL_OF_MAX),
             "dk": _grad_reading(dk_, r_dk, RAW_RTOL[f32], RAW_ATOL_OF_MAX),
@@ -813,19 +820,32 @@ def _raw_bound(q, k, v, with_state):
     return moved, ops
 
 
+def _raw_rev_bound(q, v):
+    """Row 5's bound on q, k [BH, T, Dk] and v, g [BH, T, Dv]: q, k, v, g and
+    dSf read, fp32 dk, dv and dS0 written; two chunk walks' products (the dk
+    and the dv role, each with the full 64 x 64 score block a chunk)."""
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    moved = 2 * (q.numel() + v.numel()) * q.element_size() + 2 * bh * dk * dv * 4
+    moved += bh * t * (dk + dv) * 4
+    return moved, 2 * 2 * bh * t * (64 * dk + 64 * dv + 2 * dk * dv)
+
+
 def check_raw(cd, dev):
     """Rows 2 and 5 against their plain versions, each case logging the
-    variants row 2 took (wgmma wherever ``causal_dot_raw_variant`` names it:
-    every bf16 case at Dk 128 but the Dv-64 case's dq pass); then each timed
-    where the public op's main path runs it: row 2's wgmma kernel as the
-    op's forward at [128, 1024, 128] bf16 (no initial state), its simt
-    kernel as the dq pass of the op at Dk 128, Dv 64 (g, v [128, 1024, 64],
-    k [128, 1024, 128]), row 5 seeded by dSf at [128, 1024, 128]. Returns
-    their ``kernels`` lines."""
+    variants they took (row 2 wgmma wherever ``causal_dot_raw_variant``
+    names it: every bf16 case at Dk 128 but the Dv-64 case's dq pass; row 5
+    wherever ``causal_dot_rev_variant`` does: bf16 at Dk = Dv = 128); then
+    each timed where the public op's main path runs it: row 2's wgmma kernel
+    as the op's forward at [128, 1024, 128] bf16 (no initial state), its
+    simt kernel as the dq pass of the op at Dk 128, Dv 64 (g, v [128, 1024,
+    64], k [128, 1024, 128]), row 5's wgmma kernel seeded by dSf at [128,
+    1024, 128], its simt kernel seeded by dSf at the op's Dk 128, Dv 64 (its
+    dk role contracts over Dv 64). Returns their ``kernels`` lines."""
     readings, inputs = compare_raw(cd, dev)
     for r in readings:
         log(f"causal_dot / causal_dot_rev {r['case']} (forward {r['variants']['out']}, dq pass "
-            f"{r['variants']['dq']}): "
+            f"{r['variants']['dq']}, reverse pass {r['variants']['rev']}): "
             + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
                         f"limit, needs atol {r[n]['atol_needed']:.2e} max|ref|)"
                         for n in ("out", "dq", "dk", "dv"))
@@ -834,21 +854,24 @@ def check_raw(cd, dev):
             raise AssertionError(f"a raw causal_dot kernel disagrees with its plain version: {r}")
     errs = {v: max([r[n]["max_abs"] for r in readings for n in ("out", "dq")
                     if r["variants"][n] == v], default=0.0) for v in ("wgmma", "simt")}
+    rev_errs = {v: max([r[n]["max_abs"] for r in readings for n in ("dk", "dv")
+                        if r["variants"]["rev"] == v], default=0.0) for v in ("wgmma", "simt")}
     ran = {v: sum(r["variants"][n] == v for r in readings for n in ("out", "dq"))
            for v in ("wgmma", "simt")}
-    log(f"causal_dot variants run over the {len(readings)} cases (forward, dq pass each): {ran}")
-    if not all(ran.values()):
-        raise AssertionError(f"a causal_dot variant ran on no case: {ran}")
+    rev_ran = {v: sum(r["variants"]["rev"] == v for r in readings) for v in ("wgmma", "simt")}
+    log(f"causal_dot variants run over the {len(readings)} cases (forward, dq pass each): {ran}; "
+        f"causal_dot_rev variants (reverse pass): {rev_ran}")
+    if not all(ran.values()) or not all(rev_ran.values()):
+        raise AssertionError(f"a causal_dot or causal_dot_rev variant ran on no case: {ran}, "
+                             f"{rev_ran}")
     q, k, v, gout = inputs["B8 H16 T1024 D128 bf16"]
-    g64, v64, k128 = (inputs["B8 H16 T1024 Dk128 Dv64 bf16 S0 dSf"][i] for i in (3, 2, 1))
-    if (cd.causal_dot_raw_variant(q, k, v), cd.causal_dot_raw_variant(g64, v64, k128)) != (
-            "wgmma", "simt"):
+    q128, k128, v64, g64 = inputs["B8 H16 T1024 Dk128 Dv64 bf16 S0 dSf"]
+    if (cd.causal_dot_raw_variant(q, k, v), cd.causal_dot_raw_variant(g64, v64, k128),
+            cd.causal_dot_rev_variant(q, k, v, gout),
+            cd.causal_dot_rev_variant(q128, k128, v64, g64)) != ("wgmma", "simt") * 2:
         raise AssertionError("the timed causal_dot calls take the wrong variants")
-    bh, t, dk = q.shape
-    dv = v.shape[-1]
-    act, f32 = q.numel() * q.element_size(), 4
-    gsf = 8.0 * torch.randn(bh, dk, dv, device=dev)
-    ops = 2 * bh * t * (64 * dk + 64 * dv + 2 * dk * dv)  # one chunk walk's products
+    gsf = 8.0 * torch.randn(q.shape[0], q.shape[-1], v.shape[-1], device=dev)
+    gsf64 = 8.0 * torch.randn(q128.shape[0], q128.shape[-1], v64.shape[-1], device=dev)
     specs = [
         ("causal_dot_wgmma", "orion_tpu_torch/csrc/causal_dot_norm.cu",
          "the op's forward, B8 H16 T1024 D128 bf16",
@@ -859,13 +882,17 @@ def check_raw(cd, dev):
          lambda: cd.causal_dot_cuda(g64, v64, k128, with_state=False),
          lambda: cd.causal_dot_plain(g64, v64, k128)[0],
          *_raw_bound(g64, v64, k128, False), errs["simt"]),
-        ("causal_dot_rev", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
+        ("causal_dot_rev_wgmma", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
          "B8 H16 T1024 D128 bf16, seeded by dSf",
          lambda: cd.causal_dot_rev_cuda(q, k, v, gout, gsf),
          lambda: cd.causal_dot_rev_plain(q, k, v, gout, gsf),
-         # q, k, v, g, dSf read; fp32 dk, dv, dS0 written
-         4 * act + 2 * bh * dk * dv * f32 + bh * t * (dk + dv) * f32, 2 * ops,
-         max(r[n]["max_abs"] for r in readings for n in ("dk", "dv"))),
+         *_raw_rev_bound(q, v), rev_errs["wgmma"]),
+        ("causal_dot_rev_simt", "orion_tpu_torch/csrc/causal_dot_bwd.cu",
+         "the op's reverse pass at Dk 128, Dv 64: q, k [128, 1024, 128], v, g [128, 1024, 64] "
+         "bf16, seeded by dSf",
+         lambda: cd.causal_dot_rev_cuda(q128, k128, v64, g64, gsf64),
+         lambda: cd.causal_dot_rev_plain(q128, k128, v64, g64, gsf64),
+         *_raw_rev_bound(q128, v64), rev_errs["simt"]),
     ]
     lines = []
     for name, source, shape, kernel, plain, moved, flops, err in specs:
@@ -877,7 +904,8 @@ def check_raw(cd, dev):
             "library_ms: none (no single PyTorch call computes this function)")
         lines.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": ("orion_tpu/ops/pallas/causal_dot.py:377" if name == "causal_dot_rev"
+            "replaces": ("orion_tpu/ops/pallas/causal_dot.py:377"
+                         if name.startswith("causal_dot_rev")
                          else "orion_tpu/ops/pallas/causal_dot.py:123"),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "shape": shape,
@@ -890,8 +918,9 @@ def op_phase(dev, mods):
     backward, with an initial state and the returned state, at lm_1b3's
     per-layer shape [B 8, H 16, T 1024, D 128] bf16 and then at Dk 128, Dv
     64: exact launches, the counts set to 0 just before each (row 2 twice on
-    its wgmma kernel and row 5 once; at Dv 64 the forward on wgmma, the dq
-    pass, whose contracted width is Dv, on simt), then the same through the
+    its wgmma kernel and row 5 once on its wgmma kernel; at Dv 64 the
+    forward on wgmma, the dq pass, whose contracted width is Dv, and the
+    reverse pass on simt), then the same through the
     plain form differentiated by autograd (backend="torch"): out, S and
     every gradient within the kernels' limits; the D-128 op timed beside the
     plain form."""
@@ -900,9 +929,11 @@ def op_phase(dev, mods):
     g = torch.Generator(device=dev).manual_seed(22)
     b, h, t = 8, 16, 1024
     result = {}
-    for label, dk, dv, moves in (("D128", 128, 128, {"causal_dot_wgmma": 2}),
+    for label, dk, dv, moves in (("D128", 128, 128,
+                                  {"causal_dot_wgmma": 2, "causal_dot_rev_wgmma": 1}),
                                  ("Dk128 Dv64", 128, 64,
-                                  {"causal_dot_wgmma": 1, "causal_dot_simt": 1})):
+                                  {"causal_dot_wgmma": 1, "causal_dot_simt": 1,
+                                   "causal_dot_rev_simt": 1})):
         q0, k0, v0, gout, s00, gsf = (
             x.reshape(b, h, *x.shape[1:])
             for x in _raw_inputs(g, dev, b, h, t, dk, dv, torch.bfloat16, True, True))
@@ -919,7 +950,7 @@ def op_phase(dev, mods):
         torch.cuda.synchronize()
         counts = _counts(mods)
         want = dict.fromkeys(KERNELS, 0)
-        want.update(causal_dot_rev=1, **moves)
+        want.update(moves)
         log(f"causal_dot_product forward + backward launches, {label}: {counts}")
         if counts != want:
             raise AssertionError(f"the public op launched {counts}, want {want}")
@@ -1696,7 +1727,8 @@ def _counts(mods):
             "causal_dot_dq_den_simt": cd.launches_dq_simt,
             "causal_dot_rev_den_wgmma": cd.launches_rev_wgmma,
             "causal_dot_rev_den_simt": cd.launches_rev_simt,
-            "causal_dot_rev": cd.launches_raw_rev, "flash_fwd_wgmma": fa.launches_fwd_wgmma,
+            "causal_dot_rev_wgmma": cd.launches_raw_rev_wgmma,
+            "causal_dot_rev_simt": cd.launches_raw_rev_simt, "flash_fwd_wgmma": fa.launches_fwd_wgmma,
             "flash_fwd_simt": fa.launches_fwd_simt,
             "flash_dq_wgmma": fa.launches_dq_wgmma, "flash_dkv_wgmma": fa.launches_dkv_wgmma,
             "flash_dq_simt": fa.launches_dq_simt, "flash_dkv_simt": fa.launches_dkv_simt,
@@ -1712,6 +1744,7 @@ def _reset_counts(mods):
     cd.launches = cd.launches_dq = cd.launches_rev = cd.launches_raw = cd.launches_raw_rev = 0
     cd.launches_wgmma = cd.launches_simt = cd.launches_raw_wgmma = cd.launches_raw_simt = 0
     cd.launches_dq_wgmma = cd.launches_dq_simt = cd.launches_rev_wgmma = cd.launches_rev_simt = 0
+    cd.launches_raw_rev_wgmma = cd.launches_raw_rev_simt = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
     fa.launches_fwd_wgmma = fa.launches_fwd_simt = 0
     fa.launches_dq_wgmma = fa.launches_dq_simt = fa.launches_dkv_wgmma = fa.launches_dkv_simt = 0
@@ -2002,7 +2035,7 @@ def _tiny_simt_only(label, before, cfg, trained):
     rows 3 and 4 since ``before`` (``_variant_counts()``): only the simt
     variants, one or more of each for the layer kinds ``cfg`` has (rows 3
     and 4 none without ``trained``); none of a wgmma or mma variant of any
-    row (2, 14 included)."""
+    row (2, 5, 14 included)."""
     moved = {k: v - before[k] for k, v in _variant_counts().items()}
     kinds = set(cfg.resolved_layer_types)
     want = {"causal_dot_norm_simt": "linear" in kinds,
@@ -2022,6 +2055,8 @@ def _variant_counts():
             "causal_dot_norm_simt": causal_dot.launches_simt,
             "causal_dot_wgmma": causal_dot.launches_raw_wgmma,
             "causal_dot_simt": causal_dot.launches_raw_simt,
+            "causal_dot_rev_wgmma": causal_dot.launches_raw_rev_wgmma,
+            "causal_dot_rev_simt": causal_dot.launches_raw_rev_simt,
             "q4_matmul_mma": q4_matmul.launches_mma,
             "q4_matmul_simt": q4_matmul.launches_simt,
             "causal_dot_dq_den_wgmma": causal_dot.launches_dq_wgmma,
@@ -2501,11 +2536,12 @@ def main() -> int:
     log(f"quantized serving and Adafactor phases done at {time.perf_counter() - t0:.1f} s")
 
     for k in kernels:
-        if k["name"] in ("causal_dot_wgmma", "causal_dot_rev"):  # the public op, fwd + bwd
+        if k["name"] in ("causal_dot_wgmma", "causal_dot_rev_wgmma"):  # the public op at D 128
             k["launches"] = op["launches"][k["name"]]
             k["launches_op_dk128_dv64"] = op["launches_dv64"][k["name"]]
             continue
-        if k["name"] == "causal_dot_simt":  # the main path: the op at Dk 128, Dv 64 (dq pass)
+        if k["name"] in ("causal_dot_simt", "causal_dot_rev_simt"):
+            # the main path: the op at Dk 128, Dv 64 (its dq and reverse passes)
             k["launches"] = op["launches_dv64"][k["name"]]
             k["launches_op_d128"] = op["launches"][k["name"]]
             continue

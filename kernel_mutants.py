@@ -19,8 +19,10 @@ mma kernel's copies named ``q4_mma_*``, the simt kernel's the other ``q4_*``) or
 ``adafactor.cu`` ("adafactor", the fused Adafactor's three passes); in
 ``causal_dot_norm.cu`` the wgmma kernel's copies are named ``norm_wgmma_*``,
 in ``causal_dot_bwd.cu`` the wgmma kernels' ``bwd_wgmma_*``, and the copies
-of the public op's raw forward ``raw_*`` (``raw_wgmma_*`` for its wgmma
-kernel: the walk it shares with row 1, changed for the raw instance only).
+of the public op's two kernels ``raw_*`` (``raw_wgmma_*`` for the raw
+forward's wgmma kernel, the walk it shares with row 1, and
+``raw_wgmma_rev_*`` for the raw reverse pass's, the walk it shares with
+rows 3 and 4: each changed for the raw instance only).
 A copy whose text lies in the shared header ``hopper.cuh`` instead of the
 source patches the header: the source and the patched header go together
 into a directory of their own, where the source's ``#include "hopper.cuh"``
@@ -40,9 +42,20 @@ one update against the plain formulas), prints, per kernel, its readings and whe
 ``agrees_training`` / ``agrees_raw`` / ``agrees_flash`` / ``agrees_gmm`` / ``agrees_q4`` /
 ``agrees_adafactor`` accepts it, then all of it as one JSON line. Exits nonzero if a sound kernel is rejected or a kernel that
 must be rejected is not. Imports nothing of JAX.
+
+    python3 kernel_mutants.py --sass-against DIR
+
+instead builds every source of this checkout and of the checkout ``DIR``
+with the library's nvcc command, disassembles both (``cuobjdump -sass``),
+matches the kernels by name and template arguments (``cu++filt``, the
+parameter types left out) and prints, per source, which kernels
+compile to identical SASS, which differ and which are in one checkout only,
+then all of it as one JSON line. Needs the CUDA toolkit, no card.
 """
 
 import json
+import re
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -70,6 +83,14 @@ _DQ_DS = ("split_pair(p0 * (dp[j] - dl[h]) * scale, p1 * (dp[j + 1] - dl[h]) * s
 _DKV_DS = ("split_pair(p0 * (dp[j] - dl.x) * scale, p1 * (dp[j + 1] - dl.y) * scale, "
            "dhi[j / 2],")
 _DV_HI = "wgmma_m64n128k16<1>(acc_dv, phi + 4 * kk, mnmajor(gs, kk));"
+# the reverse wgmma walk's text; sizeof(TO) == 4 singles out row 5's instance
+# (fp32 outputs), so rows 3 and 4 stay sound in those copies
+_REV_KEEP = ("const bool keep0 = REV ? col >= t : col <= t;\n"
+             "      const bool keep1 = REV ? col + 1 >= t : col + 1 <= t;")
+_DK_SEED = ("      sa[j] = p.st0[s_base + (size_t)n * WDX + m];\n"
+            "      sb[j] = p.st0[s_base + (size_t)n * WDX + m + 64];")
+_BWD_ST_LO = ("for (int kk = 0; kk < WDX / 16; ++kk)\n      wgmma_m64n64k16<0, 1>(o, kmajor(xs, kk), "
+              "mnmajor(r.st_lo(), kk));")
 HEADER = "hopper.cuh"  # the header the wgmma sources share, in library.CSRC
 
 
@@ -259,16 +280,10 @@ MUTANTS = [
      "kk < 0; ++kk) wgmma_m64n64k16_rs<1>(o, alo", True),
     ("bwd_wgmma_st_lo_dropped", "bwd",
      "drops the low bf16 half of the carried state: St rounded once to bf16 before x St",
-     "for (int kk = 0; kk < WDX / 16; ++kk)\n      wgmma_m64n64k16<0, 1>(o, kmajor(xs, kk), "
-     "mnmajor(r.st_lo(), kk));",
-     "for (int kk = 0; kk < 0; ++kk)\n      wgmma_m64n64k16<0, 1>(o, kmajor(xs, kk), "
-     "mnmajor(r.st_lo(), kk));", True),
+     _BWD_ST_LO, _BWD_ST_LO.replace("kk < WDX / 16", "kk < 0"), True),
     ("bwd_wgmma_strict_anti", "bwd",
      "masks the reverse pass's scores to s > t: dk and dv lose each token's own term (wgmma)",
-     "const bool keep0 = REV ? col >= t : col <= t;\n"
-     "      const bool keep1 = REV ? col + 1 >= t : col + 1 <= t;",
-     "const bool keep0 = REV ? col > t : col <= t;\n"
-     "      const bool keep1 = REV ? col + 1 > t : col + 1 <= t;", True),
+     _REV_KEEP, _REV_KEEP.replace(">= t", "> t"), True),
     ("bwd_wgmma_dq_gden_dropped", "bwd",
      "drops gden_t from dq's scores: the in-chunk term gden_t sum_{s<=t} k_s leaves dq (wgmma)",
      "a0 += gt[h];\n        a1 += gt[h];", "", True),
@@ -392,6 +407,46 @@ MUTANTS = [
      "mnmajor(r.s_lo(), kk));",
      "for (int kk = 0; kk < (NORM ? WDK / 16 : 0); ++kk)\n      wgmma_m64n64k16<0, 1>(num, "
      "kmajor(qs, kk), mnmajor(r.s_lo(), kk));", True),
+    # the public op's raw reverse pass on the wgmma route (row 5, bf16 at
+    # Dk = Dv = 128): the walk's text, changed for the raw instance only
+    ("raw_wgmma_rev_seed_dropped", "bwd",
+     "does not seed the raw wgmma reverse pass's R with dSf^T (dS0 loses it too)",
+     "if (p.st0 != nullptr && ROLE == ROLE_DV) {",
+     "if (sizeof(TO) == 4) {\n    } else if (p.st0 != nullptr && ROLE == ROLE_DV) {", True),
+    ("raw_wgmma_rev_seed_untransposed", "bwd",
+     "seeds the raw wgmma dk role's R with dSf as laid out instead of dSf^T",
+     _DK_SEED,
+     "      sa[j] = sizeof(TO) == 4 ? p.st0[s_base + (size_t)m * p.dw + n]\n"
+     "                              : p.st0[s_base + (size_t)n * WDX + m];\n"
+     "      sb[j] = sizeof(TO) == 4 ? p.st0[s_base + (size_t)(m + 64) * p.dw + n]\n"
+     "                              : p.st0[s_base + (size_t)n * WDX + m + 64];", True),
+    ("raw_wgmma_rev_walks_forward", "bwd",
+     "walks the raw wgmma reverse pass's chunks first to last (its masks stay anti-causal)",
+     "return (REV ? n_chunks - 1 - c : c) * WC;",
+     "return (REV && sizeof(TO) == 2 ? n_chunks - 1 - c : c) * WC;", True),
+    ("raw_wgmma_rev_strict_anti", "bwd",
+     "masks the raw wgmma reverse pass's scores to s > t: each token's own term leaves dk, dv",
+     _REV_KEEP,
+     _REV_KEEP.replace("REV ? col >= t", "REV ? (sizeof(TO) == 4 ? col > t : col >= t)")
+     .replace("REV ? col + 1 >= t", "REV ? (sizeof(TO) == 4 ? col + 1 > t : col + 1 >= t)"),
+     True),
+    ("raw_wgmma_rev_a_lo_dropped", "bwd",
+     "drops the low bf16 half of the raw reverse pass's scores A: A rounded once before A w",
+     "kk < WC / 16; ++kk) wgmma_m64n64k16_rs<1>(o, alo",
+     "kk < (sizeof(TO) == 2 ? WC / 16 : 0); ++kk) wgmma_m64n64k16_rs<1>(o, alo", True),
+    ("raw_wgmma_rev_r_lo_dropped", "bwd",
+     "drops the low bf16 half of the raw reverse pass's R: R rounded once before x R",
+     _BWD_ST_LO, _BWD_ST_LO.replace("kk < WDX / 16", "kk < (sizeof(TO) == 2 ? WDX / 16 : 0)"),
+     True),
+    ("raw_wgmma_rev_bf16_store", "bwd",
+     "rounds the raw reverse pass's fp32 dk and dv through bf16 on their way out",
+     "*reinterpret_cast<float2*>(out) = make_float2(a, b);",
+     "*reinterpret_cast<float2*>(out) = make_float2(__bfloat162float(__float2bfloat16_rn(a)),\n"
+     "                                                __bfloat162float(__float2bfloat16_rn(b)));",
+     True),
+    ("raw_wgmma_rev_ds0_unwritten", "bwd", "never writes dS0 from the raw wgmma dv blocks",
+     "dz0 (dk)\n  if (p.st_out != nullptr) {",
+     "dz0 (dk)\n  if (sizeof(TO) == 2 && p.st_out != nullptr) {", True),
     ("af_sums_swapped", "adafactor", "writes the row sums where the column sums go and back",
      _AF_FINAL, _AF_FINAL.replace("sums[n + i]", "sums[i]").replace("sums[j]", "sums[m + j]"),
      True),
@@ -492,7 +547,59 @@ def run(name, source, dev):
     return {"name": name, "source": source, "accepted": accepted, "readings": readings}
 
 
+_FUNCTION = re.compile(r"^\s*Function : (\S+)\s*$", re.MULTILINE)
+
+
+def _sass(lib):
+    """{kernel's name and template arguments: its SASS text} of a built
+    library (the parameter types left out, so a kernel whose parameter
+    struct became a template instance still matches its old self)."""
+    tools = Path(library._nvcc()).parent
+    text = subprocess.run([str(tools / "cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    parts = _FUNCTION.split(text)
+    names = subprocess.run([str(tools / "cu++filt"), *parts[1::2]], capture_output=True,
+                           text=True, check=True, timeout=60).stdout.splitlines()
+    return {n.split("(")[0].strip(): body for n, body in zip(names, parts[2::2], strict=True)}
+
+
+def sass_against(other):
+    """Build every source of ``SOURCES`` from this checkout and from the
+    checkout ``other`` (its ``orion_tpu_torch/csrc/``, its own headers) with
+    the library's nvcc command, disassemble both with ``cuobjdump -sass``
+    and match the kernels by name and template arguments: per source, the
+    kernels whose SASS text is identical, those that differ, and those in
+    only one checkout."""
+    out = library.BUILD_DIR / "sass"
+    jobs = []
+    for key, (mod, src_key) in SOURCES.items():
+        here = mod.SOURCES[src_key]
+        for side, csrc in (("here", library.CSRC), ("there", Path(other) / "orion_tpu_torch/csrc")):
+            (out / side).mkdir(parents=True, exist_ok=True)
+            cmd = library._build_command(csrc / here.name, out / side / f"{here.stem}.so")
+            jobs.append((key, side, [str(csrc) if c == str(library.CSRC) else c for c in cmd]))
+    with ThreadPoolExecutor(len(jobs)) as pool:  # one nvcc for each source, all at once
+        list(pool.map(lambda j: subprocess.run(j[2], capture_output=True, check=True,
+                                               timeout=600), jobs))
+    report = {}
+    for key, (mod, src_key) in SOURCES.items():
+        stem = mod.SOURCES[src_key].stem
+        here, there = (_sass(out / side / f"{stem}.so") for side in ("here", "there"))
+        report[key] = {
+            "identical": sorted(n for n in here if n in there and here[n] == there[n]),
+            "differ": sorted(n for n in here if n in there and here[n] != there[n]),
+            "only_here": sorted(set(here) - set(there)),
+            "only_there": sorted(set(there) - set(here))}
+        for what, names in report[key].items():
+            for n in names:
+                print(f"{stem}: {what}: {n}")
+    print(json.dumps({"sass_against": str(other), "sources": report}))
+    return 0
+
+
 def main() -> int:
+    if "--sass-against" in sys.argv[1:]:  # compare code with another checkout's, no card needed
+        return sass_against(sys.argv[sys.argv.index("--sass-against") + 1])
     if not torch.cuda.is_available():
         print("kernel_mutants: needs a CUDA card", file=sys.stderr)
         return 1

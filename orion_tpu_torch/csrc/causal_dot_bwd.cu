@@ -1,5 +1,5 @@
 // Causal linear attention, backward, for Hopper (sm_90a): one kernel per
-// pass of the TPU backwards, the normalized two in two variants each.
+// pass of the TPU backwards, each in two variants.
 //
 // Replaces, in orion_tpu/ops/pallas/causal_dot.py (the normalized ones glued
 // by _fused_bwd_core):
@@ -44,19 +44,19 @@
 // The TPU walks the chunks on a sequential grid axis with the state in VMEM
 // scratch. Here one block owns one (b*h, 64-column tile of the output) and
 // walks the chunks in a loop with its state tile St (128 x 64 fp32) and z:
-// the forward kernel's shape (causal_dot_norm.cu). The two normalized passes
-// have two variants each, chosen by the wrapper before the launch
-// (ops/kernels/causal_dot.py, causal_dot_dq_den_variant and
-// causal_dot_rev_den_variant):
+// the forward kernel's shape (causal_dot_norm.cu). Each pass has two
+// variants, chosen by the wrapper before the launch (ops/kernels/causal_dot.py,
+// causal_dot_dq_den_variant, causal_dot_rev_den_variant and
+// causal_dot_rev_variant):
 //
-//   wgmma (causal_dot_dq_den_wgmma_kernel, causal_dot_rev_den_wgmma_kernel):
-//     bf16 with a contracted width of 128 (Dv for dq; Dk = Dv = 128 for the
-//     reverse pass), the output's width a multiple of 64, 16-byte-aligned
-//     bases: every model's shape, the main path.
-//   simt (causal_dot_dq_den_kernel, causal_dot_rev_den_kernel): everything
-//     else -- fp32 (the tiny models) and other widths. The raw reverse pass
-//     (causal_dot_rev_raw_kernel, the public op's, on no model path) shares
-//     their body and stays simt.
+//   wgmma (causal_dot_dq_den_wgmma_kernel, causal_dot_rev_den_wgmma_kernel,
+//     causal_dot_rev_raw_wgmma_kernel): bf16 with a contracted width of 128
+//     (Dv for dq; Dk = Dv = 128 for the reverse passes), the output's width a
+//     multiple of 64, 16-byte-aligned bases: every model's shape, and the
+//     public op's backward at D 128.
+//   simt (causal_dot_dq_den_kernel, causal_dot_rev_den_kernel,
+//     causal_dot_rev_raw_kernel): everything else -- fp32 (the tiny models)
+//     and other widths.
 //
 // The wgmma route is row 1's walk (causal_dot_norm_wgmma_kernel) with the
 // roles above, which bounds it the same way: the loads and the chunk-to-chunk
@@ -85,7 +85,8 @@
 //     the walk on the CPU); with the halves each is carried to about 16
 //     bits.
 //   - Epilogue straight from the registers: + gden_t z (dq) or + zr (dk),
-//     stored in bf16, two values a store.
+//     stored in bf16, two values a store (row 5: fp32 pairs, 8 bytes a store;
+//     the four lanes of a row fill one 32-byte sector).
 //   - St += y^T w is m64n64k16 into the St registers with y^T read MN-major
 //     from the y tile already in the stage (its halves one box apart) and w
 //     MN-major; z += the column sums of w (dq), zr += sum_s gden_s w_s (dk)
@@ -93,7 +94,13 @@
 //   - At the end the dk blocks write dz0 and the dv blocks dS0, fp32.
 //   - 3 stages of 40 KB, St's halves 32 KB: 157,488 bytes of shared memory,
 //     one block an SM. At B 8, H 16, D 128 the dq launch is 256 blocks (two
-//     waves on 132 SMs), the reverse launch 512 (four).
+//     waves on 132 SMs), each reverse launch 512 (four).
+//   - The raw reverse pass (row 5, causal_dot_rev_raw_wgmma_kernel) is the
+//     same walk in its dk and dv roles with DEN off (no gden in A, no zr, no
+//     dz0) and fp32 outputs (wgmma_walk<ROLE, DEN, TO>), R seeded by dSf^T.
+//     Its limits are fp32 ones (chip_smoke.py: 1e-4 |ref| + 1e-4 max|ref|),
+//     and two halves still meet them with room: rounded once, A misses them
+//     6.6-11x and R 2.2-15x (tests/test_torch_causal_dot_bwd_split.py).
 //
 // The simt route. Each block keeps its state tile (128 x 64 fp32, 32 KB)
 // and z in shared memory. dk needs R's columns and dv needs R's rows, so the
@@ -114,7 +121,8 @@
 // Bounds at B 8, H 16, T 1024, D 128, bf16 (the lm_1b3 training shape):
 //   raw rev:  reads q, k, v, g (134.2 MB) and dSf (8.4 MB), writes fp32 dk,
 //             dv (134.2 MB) and dS0 (8.4 MB): 285.2 MB, 0.085 ms; 25.8
-//             GFLOP, 0.026 ms. Bound by bytes.
+//             GFLOP, 0.026 ms. Bound by bytes: its fp32 outputs are half its
+//             bytes.
 //   dq pass:  reads g, v, k (100.7 MB) and gden (0.5 MB), writes dq (33.6
 //             MB): 134.7 MB, 0.040 ms at 3.35 TB/s; 12.9 GFLOP, 0.013 ms
 //             at the 989 TFLOP/s bf16 peak. Bound by bytes.
@@ -495,26 +503,40 @@ struct BwdRing {
   __device__ __forceinline__ uint32_t empty(int s) const { return full(W_STAGES + s); }
 };
 
-// One role's pointers (the tensor maps of x, y and w come beside them).
+// One role's pointers (the tensor maps of x, y and w come beside them). TO:
+// out's type, bf16 for rows 3 and 4, fp32 for the raw reverse pass (row 5).
+template <typename TO>
 struct WgmmaWalk {
-  const float* gd;   // gden [BH, T] (dq, dk), null for dv
+  const float* gd;   // gden [BH, T] (dq, dk), null for dv and the raw pass
   const float* st0;  // the initial state: S0 (dq) or gsf (dk, dv) [BH, Dk, Dv]; null = zeros
   const float* z0;   // [BH, dw]: z0 (dq) or gzf (dk); null = zeros
-  bf16* out;         // [BH, T, dw]
+  TO* out;           // [BH, T, dw]
   float* st_out;     // dS0 [BH, 128, dw] (dv), else null
   float* z_out;      // dz0 [BH, dw] (dk), else null
   int dw, n_tiles;
 };
 
+// Two neighbouring outputs of a row, from the accumulator's pair: bf16 (rows
+// 3, 4) or fp32 (row 5), one store.
+__device__ __forceinline__ void store_pair(bf16* out, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* out, float a, float b) {
+  *reinterpret_cast<float2*>(out) = make_float2(a, b);
+}
+
 // One block: output columns [j0, j0 + 64) of head bh, the whole sequence in
 // chunks of 64, first to last (dq) or last to first (dk, dv). x, y: maps of
 // [BH, T, 128], w: of [BH, T, dw], read in boxes of 64 rows x 64 columns.
-template <int ROLE>
+// DEN: gden in A and a carried z (dq) or zr (dk); rows 3 and 4 take it in
+// their dq and dk roles, their dv role and the raw reverse pass (row 5) not.
+template <int ROLE, bool DEN, typename TO>
 __device__ __forceinline__ void wgmma_walk(const CUtensorMap* xmap, const CUtensorMap* ymap,
-                                           const CUtensorMap* wmap, const WgmmaWalk& p, int bh,
-                                           int tile, int t_len, unsigned char* smem) {
+                                           const CUtensorMap* wmap, const WgmmaWalk<TO>& p,
+                                           int bh, int tile, int t_len, unsigned char* smem) {
+  static_assert(DEN || ROLE != ROLE_DQ, "the dq role carries the denominator");
+  static_assert(!DEN || ROLE != ROLE_DV, "the dv role has no denominator term");
   constexpr bool REV = ROLE != ROLE_DQ;
-  constexpr bool DEN = ROLE != ROLE_DV;  // gden in A, and a carried z (dq) or zr (dk)
   BwdRing r;
   r.base = (smem_u32(smem) + 1023) & ~1023u;
   const int j0 = tile * WDW;
@@ -616,7 +638,7 @@ __device__ __forceinline__ void wgmma_walk(const CUtensorMap* xmap, const CUtens
         a0 += gt[h];
         a1 += gt[h];
       }
-      if (ROLE == ROLE_DK) {
+      if (DEN && ROLE == ROLE_DK) {
         a0 += gcur[col];
         a1 += gcur[col + 1];
       }
@@ -646,7 +668,7 @@ __device__ __forceinline__ void wgmma_walk(const CUtensorMap* xmap, const CUtens
     wgmma_wait<0>();
     fence_acc(o);
 
-    // epilogue: + gden_t z (dq) or + zr (dk), stored in bf16
+    // epilogue: + gden_t z (dq) or + zr (dk), stored in bf16 (fp32 for row 5)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int t = c0 + rw + 8 * h;
@@ -660,12 +682,11 @@ __device__ __forceinline__ void wgmma_walk(const CUtensorMap* xmap, const CUtens
           v0 = fmaf(gt[h], zs[col], v0);
           v1 = fmaf(gt[h], zs[col + 1], v1);
         }
-        if (ROLE == ROLE_DK) {
+        if (DEN && ROLE == ROLE_DK) {
           v0 += zs[col];
           v1 += zs[col + 1];
         }
-        *reinterpret_cast<__nv_bfloat162*>(p.out + off + 8 * jj) =
-            __floats2bfloat162_rn(v0, v1);
+        store_pair(p.out + off + 8 * jj, v0, v1);
       }
     }
     named_barrier(1, 128);  // every read of z, gden and St's halves in this chunk is done
@@ -720,34 +741,53 @@ __device__ __forceinline__ void wgmma_walk(const CUtensorMap* xmap, const CUtens
 
 __global__ void __launch_bounds__(W_THREADS, 1) causal_dot_dq_den_wgmma_kernel(
     const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap vmap,
-    const __grid_constant__ CUtensorMap kmap, const WgmmaWalk p, int t_len) {
+    const __grid_constant__ CUtensorMap kmap, const WgmmaWalk<bf16> p, int t_len) {
   extern __shared__ unsigned char w_smem[];  // the simt kernels declare their own float[]
-  wgmma_walk<ROLE_DQ>(&gmap, &vmap, &kmap, p, blockIdx.x / p.n_tiles, blockIdx.x % p.n_tiles,
-                      t_len, w_smem);
+  wgmma_walk<ROLE_DQ, true, bf16>(&gmap, &vmap, &kmap, p, blockIdx.x / p.n_tiles,
+                                  blockIdx.x % p.n_tiles, t_len, w_smem);
 }
 
-// blocks [0, bh * pk.n_tiles) make dk (and dz0); the rest make dv (and dS0)
-__global__ void __launch_bounds__(W_THREADS, 1) causal_dot_rev_den_wgmma_kernel(
-    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
-    const WgmmaWalk pk, const WgmmaWalk pv, int bh, int t_len) {
-  extern __shared__ unsigned char w_smem[];
+// blocks [0, bh * pk.n_tiles) make dk (and dz0 with DEN); the rest make dv (and dS0)
+template <bool DEN, typename TO>
+__device__ __forceinline__ void rev_wgmma_walks(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                                const CUtensorMap* vmap, const CUtensorMap* gmap,
+                                                const WgmmaWalk<TO>& pk, const WgmmaWalk<TO>& pv,
+                                                int bh, int t_len, unsigned char* smem) {
   const int nk = bh * pk.n_tiles, b = blockIdx.x;
   if (b < nk) {
-    wgmma_walk<ROLE_DK>(&vmap, &gmap, &qmap, pk, b / pk.n_tiles, b % pk.n_tiles, t_len, w_smem);
+    wgmma_walk<ROLE_DK, DEN, TO>(vmap, gmap, qmap, pk, b / pk.n_tiles, b % pk.n_tiles, t_len,
+                                 smem);
   } else {
-    wgmma_walk<ROLE_DV>(&kmap, &qmap, &gmap, pv, (b - nk) / pv.n_tiles, (b - nk) % pv.n_tiles,
-                        t_len, w_smem);
+    wgmma_walk<ROLE_DV, false, TO>(kmap, qmap, gmap, pv, (b - nk) / pv.n_tiles,
+                                   (b - nk) % pv.n_tiles, t_len, smem);
   }
 }
 
-WgmmaWalk make_wgmma_walk(const void* gd, const void* st0, const void* z0, void* out,
-                          void* st_out, void* z_out, int dw) {
-  WgmmaWalk p;
+__global__ void __launch_bounds__(W_THREADS, 1) causal_dot_rev_den_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+    const WgmmaWalk<bf16> pk, const WgmmaWalk<bf16> pv, int bh, int t_len) {
+  extern __shared__ unsigned char w_smem[];
+  rev_wgmma_walks<true>(&qmap, &kmap, &vmap, &gmap, pk, pv, bh, t_len, w_smem);
+}
+
+// the raw reverse pass (row 5): the same walks, no denominator, fp32 dk and dv
+__global__ void __launch_bounds__(W_THREADS, 1) causal_dot_rev_raw_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+    const WgmmaWalk<float> pk, const WgmmaWalk<float> pv, int bh, int t_len) {
+  extern __shared__ unsigned char w_smem[];
+  rev_wgmma_walks<false>(&qmap, &kmap, &vmap, &gmap, pk, pv, bh, t_len, w_smem);
+}
+
+template <typename TO>
+WgmmaWalk<TO> make_wgmma_walk(const void* gd, const void* st0, const void* z0, void* out,
+                              void* st_out, void* z_out, int dw) {
+  WgmmaWalk<TO> p;
   p.gd = static_cast<const float*>(gd);
   p.st0 = static_cast<const float*>(st0);
   p.z0 = static_cast<const float*>(z0);
-  p.out = static_cast<bf16*>(out);
+  p.out = static_cast<TO*>(out);
   p.st_out = static_cast<float*>(st_out);
   p.z_out = static_cast<float*>(z_out);
   p.dw = dw;
@@ -760,7 +800,7 @@ cudaError_t launch_dq_wgmma(const void* g, const void* v, const void* k, const v
                             cudaStream_t stream) {
   // x = g, y = v [.., 128]; w = k, out = dq [.., Dk]; S0 [BH, Dk, 128] read as S0^T
   CUtensorMap maps[3];
-  const WgmmaWalk p = make_wgmma_walk(gden, s0, z0, dq, nullptr, nullptr, dk);
+  const WgmmaWalk<bf16> p = make_wgmma_walk<bf16>(gden, s0, z0, dq, nullptr, nullptr, dk);
   const long long blocks = (long long)bh * p.n_tiles;
   if (blocks > 0x7fffffffLL || !tma_ok(g) || !tma_ok(v) || !tma_ok(k) ||
       !encode_heads(&maps[0], g, WDX, t, bh) || !encode_heads(&maps[1], v, WDX, t, bh) ||
@@ -774,25 +814,49 @@ cudaError_t launch_dq_wgmma(const void* g, const void* v, const void* k, const v
   return cudaGetLastError();
 }
 
-cudaError_t launch_rev_wgmma(const void* q, const void* k, const void* v, const void* g,
-                             const void* gden, const void* gsf, const void* gzf, void* dk_out,
-                             void* dv_out, void* ds0, void* dz0, int bh, int t,
+// One of the two reverse wgmma kernels on q, k, v, g [BH, T, 128] with the
+// roles' pointers: dk: x = v, y = g, w = q; dv: x = k, y = q, w = g.
+template <typename TO>
+cudaError_t launch_rev_walks(void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                                            WgmmaWalk<TO>, WgmmaWalk<TO>, int, int),
+                             const void* q, const void* k, const void* v, const void* g,
+                             const WgmmaWalk<TO>& pk, const WgmmaWalk<TO>& pv, int bh, int t,
                              cudaStream_t stream) {
-  // dk: x = v, y = g, w = q; R = gsf^T. dv: x = k, y = q, w = g; R^T = gsf, dS0 likewise
   CUtensorMap maps[4];
-  const WgmmaWalk pk = make_wgmma_walk(gden, gsf, gzf, dk_out, nullptr, dz0, WDX);
-  const WgmmaWalk pv = make_wgmma_walk(nullptr, gsf, nullptr, dv_out, ds0, nullptr, WDX);
   const long long blocks = (long long)bh * (pk.n_tiles + pv.n_tiles);
   const void* in[4] = {q, k, v, g};
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   for (int i = 0; i < 4; ++i)
     if (!tma_ok(in[i]) || !encode_heads(&maps[i], in[i], WDX, t, bh)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(causal_dot_rev_den_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
   if (err != cudaSuccess) return err;
-  causal_dot_rev_den_wgmma_kernel<<<(unsigned)blocks, W_THREADS, W_SMEM, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], pk, pv, bh, t);
+  kernel<<<(unsigned)blocks, W_THREADS, W_SMEM, stream>>>(maps[0], maps[1], maps[2], maps[3], pk,
+                                                          pv, bh, t);
   return cudaGetLastError();
+}
+
+cudaError_t launch_rev_wgmma(const void* q, const void* k, const void* v, const void* g,
+                             const void* gden, const void* gsf, const void* gzf, void* dk_out,
+                             void* dv_out, void* ds0, void* dz0, int bh, int t,
+                             cudaStream_t stream) {
+  // dk: R = gsf^T, zr = gzf, dz0 out. dv: R^T = gsf as laid out, dS0 likewise
+  const WgmmaWalk<bf16> pk = make_wgmma_walk<bf16>(gden, gsf, gzf, dk_out, nullptr, dz0, WDX);
+  const WgmmaWalk<bf16> pv = make_wgmma_walk<bf16>(nullptr, gsf, nullptr, dv_out, ds0, nullptr,
+                                                   WDX);
+  return launch_rev_walks(causal_dot_rev_den_wgmma_kernel, q, k, v, g, pk, pv, bh, t, stream);
+}
+
+cudaError_t launch_rev_raw_wgmma(const void* q, const void* k, const void* v, const void* g,
+                                 const void* gsf, void* dk_out, void* dv_out, void* ds0, int bh,
+                                 int t, cudaStream_t stream) {
+  // the roles of launch_rev_wgmma without gden, gzf and dz0, writing fp32;
+  // R = gsf^T seeds the walk (zeros when gsf is null)
+  const WgmmaWalk<float> pk =
+      make_wgmma_walk<float>(nullptr, gsf, nullptr, dk_out, nullptr, nullptr, WDX);
+  const WgmmaWalk<float> pv =
+      make_wgmma_walk<float>(nullptr, gsf, nullptr, dv_out, ds0, nullptr, WDX);
+  return launch_rev_walks(causal_dot_rev_raw_wgmma_kernel, q, k, v, g, pk, pv, bh, t, stream);
 }
 
 }  // namespace
@@ -875,4 +939,17 @@ extern "C" int causal_dot_rev_den_wgmma(const void* q, const void* k, const void
     return (int)cudaErrorInvalidValue;
   return (int)launch_rev_wgmma(q, k, v, g, gden, gsf, gzf, dk_out, dv_out, ds0, dz0, bh, t,
                                static_cast<cudaStream_t>(stream));
+}
+
+// The wgmma route of causal_dot_rev: q, k, v, g [BH, T, 128] bf16, bases
+// 16-byte aligned; gsf, dk_out, dv_out, ds0 as causal_dot_rev (fp32). Returns
+// the cudaError_t of the launch (0 on success); cudaErrorInvalidValue for
+// anything it does not take.
+extern "C" int causal_dot_rev_wgmma(const void* q, const void* k, const void* v, const void* g,
+                                    const void* gsf, void* dk_out, void* dv_out, void* ds0,
+                                    int bh, int t, void* stream) {
+  if (bh < 1 || t < 1 || !tma_ok(dk_out) || !tma_ok(dv_out) || !tma_ok(ds0))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_rev_raw_wgmma(q, k, v, g, gsf, dk_out, dv_out, ds0, bh, t,
+                                   static_cast<cudaStream_t>(stream));
 }

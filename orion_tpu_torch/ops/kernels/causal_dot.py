@@ -31,7 +31,7 @@ Five kernels, each replacing a TPU kernel of
 
   Both in two variants, chosen before the launch from dtype, widths and
   alignment alone by ``causal_dot_dq_den_variant`` and
-  ``causal_dot_rev_den_variant``: "wgmma" (row 1's TMA ring and ``wgmma``
+  ``causal_dot_rev_variant``: "wgmma" (row 1's TMA ring and ``wgmma``
   walk in the backward's roles, the fp32 scores and carried state split into
   two bf16 halves) for bf16 at a contracted width of 128 with 16-byte-aligned
   bases, every model's shape; "simt" for the rest.
@@ -47,8 +47,13 @@ The unnormalized ones, under the public op ``causal_dot_product``
   chosen before the launch by ``causal_dot_raw_variant`` under row 1's
   conditions: "wgmma" for bf16 at Dk 128 with Dv a multiple of 64 and
   16-byte-aligned bases, "simt" for the rest;
-- ``causal_dot_rev_cuda`` (``csrc/causal_dot_bwd.cu``) <- ``_bwd_rev_kernel``
-  (``_cdp_rev_flat``): the reverse pass seeded by dSf^T, fp32 dk, dv, dS0.
+- ``causal_dot_rev_cuda`` (``csrc/causal_dot_bwd.cu``, rows 3-4's reverse walk
+  with the denominator off and fp32 outputs: ``causal_dot_rev_raw_wgmma_kernel``
+  or ``causal_dot_rev_raw_kernel``) <- ``_bwd_rev_kernel`` (``_cdp_rev_flat``):
+  the reverse pass seeded by dSf^T, fp32 dk, dv, dS0. Two variants, chosen
+  before the launch by ``causal_dot_rev_variant``, the rule row 4 takes too:
+  "wgmma" for bf16 at Dk = Dv = 128 with 16-byte-aligned bases, "simt" for
+  the rest.
 
 ``CausalDotProductFn`` is the counterpart of ``_cdp``: the forward kernel,
 then in the backward the same kernel as the dq pass on (g, v, k, S0^T) and
@@ -64,9 +69,10 @@ Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
 launches (``launches``, ``launches_dq``, ``launches_rev``, ``launches_raw``,
 ``launches_raw_rev``: kernel launches and nothing else; ``launches_wgmma``
 and ``launches_simt`` split ``launches`` by variant, ``launches_dq_wgmma`` /
-``launches_dq_simt``, ``launches_rev_wgmma`` / ``launches_rev_simt`` and
-``launches_raw_wgmma`` / ``launches_raw_simt`` split ``launches_dq``,
-``launches_rev`` and ``launches_raw``). A variant that fails
+``launches_dq_simt``, ``launches_rev_wgmma`` / ``launches_rev_simt``,
+``launches_raw_wgmma`` / ``launches_raw_simt`` and ``launches_raw_rev_wgmma``
+/ ``launches_raw_rev_simt`` split ``launches_dq``, ``launches_rev``,
+``launches_raw`` and ``launches_raw_rev``). A variant that fails
 to build or launch raises: it never gives way to the other variant or to
 the plain version. Each ``*_plain`` function is its kernel's function in
 plain PyTorch, on any device. The libraries are compiled with ``nvcc`` for
@@ -106,6 +112,7 @@ launches_rev_wgmma = launches_rev_simt = 0  # the reverse pass's launches by var
 launches_raw = 0  # unnormalized forward kernel launches (the public op's forward and dq pass)
 launches_raw_wgmma = launches_raw_simt = 0  # the unnormalized forward's launches by variant
 launches_raw_rev = 0  # unnormalized reverse-pass kernel launches
+launches_raw_rev_wgmma = launches_raw_rev_simt = 0  # the unnormalized reverse pass's, by variant
 _libs: dict = {}
 # where a caller that wants gradients goes instead of the bare forward kernels
 _GRAD_PATH = "ops.linear_attention.linear_attention / LinearAttentionFn"
@@ -125,6 +132,7 @@ _SIGNATURES = {
         "causal_dot_rev_den": [_P] * 11 + [_I] * 5 + [_P],
         "causal_dot_rev_den_wgmma": [_P] * 11 + [_I] * 2 + [_P],
         "causal_dot_rev": [_P] * 8 + [_I] * 5 + [_P],
+        "causal_dot_rev_wgmma": [_P] * 8 + [_I] * 2 + [_P],
     },
 }
 
@@ -300,11 +308,12 @@ def causal_dot_dq_den_variant(g: Tensor, v: Tensor, k: Tensor) -> str:
     return "simt"
 
 
-def causal_dot_rev_den_variant(q: Tensor, k: Tensor, v: Tensor, g: Tensor) -> str:
-    """The reverse-pass kernel that takes q, k [BH, T, Dk] and v, g [BH, T,
-    Dv]: "wgmma" when all four are bf16 at Dk = Dv = 128 (the dk role
-    contracts over Dv, the dv role over Dk) with 16-byte-aligned bases, else
-    "simt". From dtype, shape and alignment alone, before any launch."""
+def causal_dot_rev_variant(q: Tensor, k: Tensor, v: Tensor, g: Tensor) -> str:
+    """The reverse-pass kernel, normalized (row 4) or not (row 5), that takes
+    q, k [BH, T, Dk] and v, g [BH, T, Dv]: "wgmma" when all four are bf16 at
+    Dk = Dv = 128 (the dk role contracts over Dv, the dv role over Dk) with
+    16-byte-aligned bases, else "simt". From dtype, shape and alignment
+    alone, before any launch."""
     if _wgmma_ok(q, k, v, g) and all(t.shape[-1] == WGMMA_DX for t in (q, k, v, g)):
         return "wgmma"
     return "simt"
@@ -351,7 +360,7 @@ def causal_dot_rev_den_cuda(
     q: Tensor, k: Tensor, v: Tensor, g: Tensor, gden: Tensor,
     gsf: Optional[Tensor] = None, gzf: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Launch the reverse-pass kernel that ``causal_dot_rev_den_variant``
+    """Launch the reverse-pass kernel that ``causal_dot_rev_variant``
     names on the current stream -> (dk, dv in the input dtype, dS0 [BH, Dk,
     Dv], dz0 [BH, Dk] fp32). (gsf, gzf) are the cotangents of the forward's
     final state, None for zeros. Raises on anything it does not take, as
@@ -366,7 +375,7 @@ def causal_dot_rev_den_cuda(
     dk_out, dv_out = torch.empty_like(k), torch.empty_like(v)
     ds0 = torch.empty(bh, dk, dv, dtype=torch.float32, device=q.device)
     dz0 = torch.empty(bh, dk, dtype=torch.float32, device=q.device)
-    chosen = causal_dot_rev_den_variant(q, k, v, g)
+    chosen = causal_dot_rev_variant(q, k, v, g)
     lib = _library("bwd")
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), gden.data_ptr(),
             _ptr(gsf), _ptr(gzf), dk_out.data_ptr(), dv_out.data_ptr(), ds0.data_ptr(),
@@ -560,12 +569,13 @@ def causal_dot_plain(q: Tensor, k: Tensor, v: Tensor,
 
 def causal_dot_rev_cuda(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
                         gsf: Optional[Tensor] = None) -> Tuple[Tensor, Tensor, Tensor]:
-    """Launch the unnormalized reverse-pass kernel on the current stream ->
-    fp32 (dk [BH, T, Dk], dv [BH, T, Dv], dS0 [BH, Dk, Dv]): g is d out in
-    the input dtype, gsf [BH, Dk, Dv] fp32 the cotangent of the final state
-    (the walk's seed R = gsf^T), None for zeros. Raises on anything it does
-    not take, as ``causal_dot_norm_cuda``."""
-    global launches_raw_rev
+    """Launch the unnormalized reverse-pass kernel that
+    ``causal_dot_rev_variant`` names on the current stream -> fp32 (dk [BH,
+    T, Dk], dv [BH, T, Dv], dS0 [BH, Dk, Dv]): g is d out in the input dtype,
+    gsf [BH, Dk, Dv] fp32 the cotangent of the final state (the walk's seed
+    R = gsf^T), None for zeros. Raises on anything it does not take, as
+    ``causal_dot_norm_cuda``."""
+    global launches_raw_rev, launches_raw_rev_wgmma, launches_raw_rev_simt
     bh, t, dk, dv = _check_bwd(g, v, k, q)
     _check_s(gsf, bh, dk, dv, "gsf")
     check_launch("causal_dot_rev_cuda", [q, k, v, g], [gsf])
@@ -574,16 +584,23 @@ def causal_dot_rev_cuda(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
     f32 = dict(dtype=torch.float32, device=q.device)
     dk_out, dv_out = torch.empty(bh, t, dk, **f32), torch.empty(bh, t, dv, **f32)
     ds0 = torch.empty(bh, dk, dv, **f32)
+    chosen = causal_dot_rev_variant(q, k, v, g)
     lib = _library("bwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(gsf),
+            dk_out.data_ptr(), dv_out.data_ptr(), ds0.data_ptr())
     with torch.cuda.device(q.device):
-        err = lib.causal_dot_rev(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(gsf),
-            dk_out.data_ptr(), dv_out.data_ptr(), ds0.data_ptr(), bh, t, dk, dv,
-            int(q.dtype == torch.bfloat16), _stream(q.device),
-        )
+        if chosen == "wgmma":
+            err = lib.causal_dot_rev_wgmma(*ptrs, bh, t, _stream(q.device))
+        else:
+            err = lib.causal_dot_rev(*ptrs, bh, t, dk, dv, int(q.dtype == torch.bfloat16),
+                                     _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"causal_dot_rev kernel failed: cudaError_t {err}")
+        raise RuntimeError(f"causal_dot_rev kernel ({chosen}) failed: cudaError_t {err}")
     launches_raw_rev += 1
+    if chosen == "wgmma":
+        launches_raw_rev_wgmma += 1
+    else:
+        launches_raw_rev_simt += 1
     return dk_out, dv_out, ds0
 
 
@@ -701,10 +718,10 @@ class CausalDotProductFn(torch.autograd.Function):
 
 __all__ = [
     "causal_dot_cuda", "causal_dot_plain", "causal_dot_raw_variant", "causal_dot_rev_cuda",
-    "causal_dot_rev_plain",
+    "causal_dot_rev_plain", "causal_dot_rev_variant",
     "CausalDotProductFn",
     "causal_dot_norm_cuda", "causal_dot_norm_plain", "causal_dot_norm_variant",
     "causal_dot_dq_den_cuda", "causal_dot_dq_den_plain", "causal_dot_dq_den_variant",
-    "causal_dot_rev_den_cuda", "causal_dot_rev_den_plain", "causal_dot_rev_den_variant",
+    "causal_dot_rev_den_cuda", "causal_dot_rev_den_plain",
     "LinearAttentionFn", "quotient_rule", "SOURCES",
 ]

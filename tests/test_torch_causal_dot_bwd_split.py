@@ -23,6 +23,18 @@ the JAX forward's own num and den through the quotient rule) within
 each half buys: the split meets the limits at 0.74-0.95 of them; A rounded
 once misses dq's (7.6x with a state, 11x without), St rounded once misses
 dq's and dk's (3.6-22x) and, with a state, dv's (13x).
+
+The public op's raw reverse pass (row 5: ``_bwd_rev_kernel``, the same walk
+in its dk and dv roles without the denominator, seeded by R = dSf^T, fp32
+dk, dv and dS0) runs on the card as ``causal_dot_rev_raw_wgmma_kernel``,
+with the same halves. Its outputs are fp32 and held at ``chip_smoke.py``'s
+fp32 limits (1e-4 |ref| + 1e-4 max|ref|; dS0 1e-4 of its largest
+magnitude), 2^7 tighter than rows 3-4's, and R starts from dSf = 8 randn,
+which bf16 does not represent. The ``test_raw_*`` tests emulate it (bh 4, a
+ragged T 200, Dk = Dv = 128, with and without dSf) against
+``causal_dot_rev_plain`` and against the JAX package's ``_cdp_rev_flat`` in
+interpret mode: two halves meet the limits at 0.01-0.03 of them; A rounded
+once misses them 6.6-11x, R rounded once 2.2-15x (dv's least).
 """
 
 import jax
@@ -32,7 +44,11 @@ import pytest
 import torch
 
 import chip_smoke
-from orion_tpu.ops.pallas.causal_dot import _cdpn_flat, linear_attention_pallas_fused
+from orion_tpu.ops.pallas.causal_dot import (
+    _cdp_rev_flat,
+    _cdpn_flat,
+    linear_attention_pallas_fused,
+)
 from orion_tpu_torch.ops.kernels import causal_dot as cd
 
 BH, T, D, C, EPS = 4, 1000, 128, 64, 1e-6
@@ -69,40 +85,41 @@ def _halves(x, split):
     return [hi, (x - hi).to(torch.bfloat16).float()] if split else [hi]
 
 
-def _walk(role, x, y, w, st, gd, z, split_a, split_s):
+def _walk(role, x, y, w, st, gd, z, split_a, split_s, out_dtype=torch.bfloat16):
     """One role of the wgmma kernels' chunk walk on [BH, T, .] operands:
     per 64-token chunk (dq first to last, dk and dv last to first) A = x y^T
     plus gden_t (dq) or gden_s (dk), masked to s <= t (dq) or s >= t by a
     select; out = A w + x St on the halves of A and of St, plus gden_t z
     (dq) or zr (dk); then St += y^T w and z += the chunk's sums of w (dq) or
-    of gden_s w_s (dk). -> (out in bf16, the final St, the final z)."""
-    n = -(-T // C)
+    of gden_s w_s (dk). Without ``gd`` (the raw reverse pass) no gden and no
+    z. -> (out in ``out_dtype``, the final St, the final z)."""
+    t = x.shape[1]
+    n = -(-t // C)
 
     def pad(a):
-        return torch.nn.functional.pad(a, (0, 0, 0, n * C - T) if a.dim() == 3 else (0, n * C - T))
+        return torch.nn.functional.pad(a, (0, 0, 0, n * C - t) if a.dim() == 3 else (0, n * C - t))
 
     x, y, w = (pad(a.float()) for a in (x, y, w))
     gd = pad(gd) if gd is not None else None
     keep = torch.ones(C, C, dtype=torch.bool)
     keep = keep.tril() if role == "dq" else keep.triu()
-    out = torch.zeros(BH, n * C, w.shape[-1])
+    den = gd is not None and role != "dv"
+    out = torch.zeros(x.shape[0], n * C, w.shape[-1])
     for c in range(n) if role == "dq" else reversed(range(n)):
         sl = slice(c * C, (c + 1) * C)
         xc, yc, wc = x[:, sl], y[:, sl], w[:, sl]
         a = xc @ yc.transpose(1, 2)
-        if role == "dq":
-            a = a + gd[:, sl, None]
-        elif role == "dk":
-            a = a + gd[:, None, sl]
+        if den:
+            a = a + (gd[:, sl, None] if role == "dq" else gd[:, None, sl])
         a = torch.where(keep, a, 0.0)
         o = sum(h @ wc for h in _halves(a, split_a)) + sum(xc @ h for h in _halves(st, split_s))
-        if role == "dq":
+        if den and role == "dq":
             o, z = o + gd[:, sl, None] * z[:, None, :], z + wc.sum(1)
-        elif role == "dk":
+        elif den:
             o, z = o + z[:, None, :], z + (gd[:, sl, None] * wc).sum(1)
         out[:, sl] = o
         st = st + yc.transpose(1, 2) @ wc
-    return out[:, :T].bfloat16(), st, z
+    return out[:, :t].to(out_dtype), st, z
 
 
 def _emulate(q, k, v, g, gden, s0, z0, gsf, gzf, split_a=True, split_s=True):
@@ -198,3 +215,87 @@ def test_rounding_st_once_misses_the_limits(case):
     r = _reading(_emulate(*args, split_s=False), ref)
     missed = GRADS if with_state else ("dq", "dk")
     assert all(r[n] > 1.0 for n in missed), r
+
+
+# ---------------------------------------------------------------------------
+# Row 5: the public op's raw reverse pass
+# ---------------------------------------------------------------------------
+
+RAW_T = 200  # a ragged last chunk of 8 tokens, walked first
+
+
+def _emulate_raw(q, k, v, g, gsf, split_a=True, split_s=True):
+    """``causal_dot_rev_raw_wgmma_kernel`` on [BH, T, 128] operands -> fp32
+    (dk, dv, dS0): dk (x = v, y = g, w = q, St = R = gsf^T) and dv (x = k,
+    y = q, w = g, St = R^T = gsf, its final St dS0), zeros for no gsf."""
+    halves = dict(split_a=split_a, split_s=split_s, out_dtype=torch.float32)
+    r = torch.zeros(q.shape[0], D, D) if gsf is None else gsf
+    dk, _, _ = _walk("dk", v, g, q, r.transpose(1, 2), None, None, **halves)
+    dv, ds0, _ = _walk("dv", k, q, g, r, None, None, **halves)
+    return dk, dv, ds0
+
+
+def _raw_reading(got, ref):
+    """dk and dv's largest error as a share of chip_smoke's fp32 RAW limit
+    (1e-4 |ref| + 1e-4 max|ref|), dS0's relative error as a share of
+    ``STATE_RTOL``: above 1 misses."""
+    lim = dict(rtol=chip_smoke.RAW_RTOL[torch.float32], atol_of_max=chip_smoke.RAW_ATOL_OF_MAX)
+    r = {n: chip_smoke._grad_reading(a, b, **lim)["over_limit"]
+         for n, a, b in zip(("dk", "dv"), got, ref)}
+    r["dS0"] = chip_smoke._rel(got[2], ref[2]) / chip_smoke.STATE_RTOL
+    return r
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["no dSf", "dSf 8 randn"])
+def raw_case(request):
+    """(q, k, v, g, gsf) in bf16 (gsf fp32 or None) as chip_smoke's RAW
+    cases draw them (g the op's output cotangent; dSf at the scale of what
+    the walk itself sums), and ``causal_dot_rev_plain`` on them."""
+    rng = np.random.default_rng(31 + request.param)
+
+    def normal(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    q, k = ((torch.nn.functional.elu(normal((BH, RAW_T, D))) + 1.0).bfloat16() for _ in range(2))
+    v, g = (normal((BH, RAW_T, D)).bfloat16() for _ in range(2))
+    gsf = 8.0 * normal((BH, D, D)) if request.param else None
+    return (q, k, v, g, gsf), cd.causal_dot_rev_plain(q, k, v, g, gsf)
+
+
+def test_raw_split_meets_the_card_limits(raw_case):
+    args, ref = raw_case
+    r = _raw_reading(_emulate_raw(*args), ref)
+    assert max(r.values()) <= 1.0, r
+
+
+def test_raw_split_matches_the_jax_reverse_pass(raw_case):
+    """The emulated walk against the JAX package's ``_cdp_rev_flat`` in
+    interpret mode (T padded to whole chunks with zeros; R seeded by dSf^T,
+    zeros for none), as ``tests/test_torch_causal_dot_product.py`` runs it."""
+    (q, k, v, g, gsf), _ = raw_case
+    t_pad = C * -(-RAW_T // C)
+
+    def padded(x):
+        return jnp.pad(jnp.asarray(x.float().numpy(), jnp.bfloat16),
+                       ((0, 0), (0, t_pad - RAW_T), (0, 0)))
+
+    rinit = np.zeros((BH, D, D), np.float32) if gsf is None else gsf.transpose(1, 2).numpy()
+    ref = _cdp_rev_flat(padded(q), padded(k), padded(v), padded(g), jnp.asarray(rinit), C, True)
+    ref = [torch.from_numpy(np.array(x)) for x in ref]
+    r = _raw_reading(_emulate_raw(q, k, v, g, gsf), (ref[0][:, :RAW_T], ref[1][:, :RAW_T], ref[2]))
+    assert max(r.values()) <= 1.0, r
+
+
+def test_raw_rounding_a_once_misses_the_limits(raw_case):
+    """A = v g^T (dk) or k q^T (dv) fed once in bf16: both dk and dv miss."""
+    args, ref = raw_case
+    r = _raw_reading(_emulate_raw(*args, split_a=False), ref)
+    assert r["dk"] > 1.0 and r["dv"] > 1.0, r
+
+
+def test_raw_rounding_r_once_misses_the_limits(raw_case):
+    """R (dk) and R^T (dv) fed once in bf16: both miss, from dSf and from
+    the g (x) q sums of the chunks behind alone."""
+    args, ref = raw_case
+    r = _raw_reading(_emulate_raw(*args, split_s=False), ref)
+    assert r["dk"] > 1.0 and r["dv"] > 1.0, r

@@ -11,9 +11,12 @@ elements near zero (the backward's gradients: 1e-4 of their largest
 magnitude, where its numerator and denominator parts cancel), the limits of
 ``chip_smoke.py``; fp32 states, num and den to 1e-4 of their largest
 magnitude; the public op's kernels (rows 2, 5) alike, their fp32 dk, dv
-and dS0 to 1e-4 relative plus 1e-4 of their largest magnitude, and the op's
-forward + backward through ``CausalDotProductFn`` against autograd of the
-plain form within the same limits. A model's backward through the kernels against
+and dS0 to 1e-4 relative plus 1e-4 of their largest magnitude (row 5 in
+two variants, each case asserting which one's counter moved: wgmma for bf16
+at Dk = Dv = 128, its scores and carried R as two bf16 halves, on one chunk
+first; simt for the rest), and the op's forward + backward through
+``CausalDotProductFn`` against autograd of the plain form within the same
+limits. A model's backward through the kernels against
 ``backend="torch"``: fp32 as the CPU parity tests (loss 1e-5 relative,
 gradients 1e-4 relative plus 1e-5 of their largest magnitude); bf16 within
 ``chip_smoke.py``'s lm_1b3 limits (loss 1e-2, gradients 5e-2 relative L2).
@@ -201,7 +204,7 @@ def _check_bwd(q, k, v, gnum, gden, s0, z0, gsf, gzf):
     """Rows 3 and 4 against their plain versions, each in the variant its
     chooser names; only that variant's counter moves."""
     dq_variant = causal_dot.causal_dot_dq_den_variant(gnum, v, k)
-    rev_variant = causal_dot.causal_dot_rev_den_variant(q, k, v, gnum)
+    rev_variant = causal_dot.causal_dot_rev_variant(q, k, v, gnum)
     before = _bwd_counts()
     got = (causal_dot.causal_dot_dq_den_cuda(gnum, v, k, gden, s0, z0),
            *causal_dot.causal_dot_rev_den_cuda(q, k, v, gnum, gden, gsf, gzf))
@@ -285,7 +288,9 @@ def test_raw_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
     """Rows 2 and 5 (the public op's forward and reverse pass) against their
     plain versions; ``state`` gives both an S0 and a dSf seed. Row 2 in the
     variant ``causal_dot_raw_variant`` names (wgmma for bf16 at Dk 128 with
-    Dv a multiple of 64, simt for the rest): only its counter moves."""
+    Dv a multiple of 64, simt for the rest), row 5 in the one
+    ``causal_dot_rev_variant`` names (wgmma for bf16 at Dk = Dv = 128, simt
+    for the rest): only their counters move."""
     g = torch.Generator(device=dev).manual_seed(t + 2)
     phi = lambda x: (torch.nn.functional.elu(x) + 1).to(dtype)  # noqa: E731
     q = phi(torch.randn(bh, t, dk, device=dev, generator=g))
@@ -299,11 +304,13 @@ def test_raw_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
     variant = causal_dot.causal_dot_raw_variant(q, k, v)
     assert variant == ("wgmma" if dtype == torch.bfloat16 and dk == 128 and dv % 64 == 0
                        else "simt")
+    rev = causal_dot.causal_dot_rev_variant(q, k, v, gout)
+    assert rev == ("wgmma" if dtype == torch.bfloat16 and dk == dv == 128 else "simt")
     before = _raw_counts()
     out, sf = causal_dot.causal_dot_cuda(q, k, v, s0)
     dk_, dv_, ds0 = causal_dot.causal_dot_rev_cuda(q, k, v, gout, gsf)
-    assert _raw_counts() == tuple(
-        n + d for n, d in zip(before, (1, variant == "wgmma", variant == "simt", 1)))
+    assert _raw_counts() == tuple(n + d for n, d in zip(before, (
+        1, variant == "wgmma", variant == "simt", 1, rev == "wgmma", rev == "simt")))
     r_out, r_sf = causal_dot.causal_dot_plain(q, k, v, s0)
     assert out.dtype == dtype and out.shape == r_out.shape
     _max_close(out, r_out, 2**-7 if dtype == torch.bfloat16 else 1e-4)
@@ -315,7 +322,8 @@ def test_raw_kernels_match_plain(dev, dtype, bh, t, dk, dv, state):
 
 def _raw_counts():
     return (causal_dot.launches_raw, causal_dot.launches_raw_wgmma, causal_dot.launches_raw_simt,
-            causal_dot.launches_raw_rev)
+            causal_dot.launches_raw_rev, causal_dot.launches_raw_rev_wgmma,
+            causal_dot.launches_raw_rev_simt)
 
 
 @pytest.mark.parametrize("kind", ["one chunk", "state", "two chunks", "no state out"])
@@ -335,7 +343,7 @@ def test_causal_dot_raw_wgmma_on_one_chunk(dev, kind):
     s0 = torch.randn(1, 128, 64, device=dev, generator=g) if kind == "state" else None
     before = _raw_counts()
     out, sf = causal_dot.causal_dot_cuda(q, k, v, s0, with_state=kind != "no state out")
-    assert _raw_counts() == tuple(n + d for n, d in zip(before, (1, 1, 0, 0)))
+    assert _raw_counts() == tuple(n + d for n, d in zip(before, (1, 1, 0, 0, 0, 0)))
     r_out, r_sf = causal_dot.causal_dot_plain(q, k, v, s0)
     _max_close(out, r_out, 2**-7)
     if kind == "no state out":
@@ -344,13 +352,39 @@ def test_causal_dot_raw_wgmma_on_one_chunk(dev, kind):
         torch.testing.assert_close(sf, r_sf, rtol=0, atol=1e-4 * float(r_sf.abs().max()))
 
 
-@pytest.mark.parametrize("dk,dv,want", [(128, 128, (2, 0)), (128, 64, (1, 1))])
+@pytest.mark.parametrize("kind", ["one chunk", "dSf", "two chunks", "ragged"])
+def test_causal_dot_rev_wgmma_on_one_chunk(dev, kind):
+    """Row 5's wgmma kernel, one head at Dk = Dv = 128: one chunk (the
+    scores' anti-causal mask and halves against w, the fp32 pairs stored),
+    from dSf (R's seed read transposed by dk, as laid out by dv, x against
+    its halves, dS0 from the dv blocks' registers), two chunks (the later
+    walked first; the earlier reads the R it left), and T 100 (the first
+    chunk walked is the ragged one, TMA's zero fill its only mask). dk, dv
+    within 1e-4 relative plus 1e-4 of their largest magnitude
+    (chip_smoke.py's RAW limits for fp32), dS0 1e-4 of its largest."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    t = {"two chunks": 128, "ragged": 100}.get(kind, 64)
+    phi = lambda x: (torch.nn.functional.elu(x) + 1).bfloat16()  # noqa: E731
+    q, k = (phi(torch.randn(1, t, 128, device=dev, generator=g)) for _ in range(2))
+    v, gout = (torch.randn(1, t, 128, device=dev, generator=g).bfloat16() for _ in range(2))
+    gsf = 8 * torch.randn(1, 128, 128, device=dev, generator=g) if kind != "one chunk" else None
+    before = _raw_counts()
+    dk_, dv_, ds0 = causal_dot.causal_dot_rev_cuda(q, k, v, gout, gsf)
+    assert _raw_counts() == tuple(n + d for n, d in zip(before, (0, 0, 0, 1, 1, 0)))
+    r_dk, r_dv, r_ds0 = causal_dot.causal_dot_rev_plain(q, k, v, gout, gsf)
+    _max_close(dk_, r_dk, 1e-4)
+    _max_close(dv_, r_dv, 1e-4)
+    torch.testing.assert_close(ds0, r_ds0, rtol=0, atol=1e-4 * float(r_ds0.abs().max()))
+
+
+@pytest.mark.parametrize("dk,dv,want", [(128, 128, (2, 0, 1, 0)), (128, 64, (1, 1, 0, 1))])
 def test_causal_dot_product_fn_on_the_wgmma_route(dev, dk, dv, want):
     """The public op's forward + backward at Dk 128 in bf16: the forward on
     the wgmma kernel; the dq pass, on (g, v, k), on the wgmma kernel at Dv
     128 and on the simt one at Dv 64 (its contracted width); the reverse pass
-    once. Against the plain form differentiated by autograd, within one bf16
-    step plus 1e-4 of the largest magnitude (fp32 outputs 1e-4)."""
+    once, on its wgmma kernel at Dv 128 and on the simt one at Dv 64. Against
+    the plain form differentiated by autograd, within one bf16 step plus
+    1e-4 of the largest magnitude (fp32 outputs 1e-4)."""
     from orion_tpu_torch.ops import causal_dot_product
 
     g = torch.Generator(device=dev).manual_seed(17)
@@ -368,7 +402,7 @@ def test_causal_dot_product_fn_on_the_wgmma_route(dev, dk, dv, want):
                                      initial_state=s0)
         ((out.float() * gout.float()).sum() + (sf * gsf).sum()).backward()
         moved = tuple(a - b for a, b in zip(_raw_counts(), before))
-        assert moved == ((2, *want, 1) if backend == "cuda" else (0, 0, 0, 0))
+        assert moved == ((2, *want[:2], 1, *want[2:]) if backend == "cuda" else (0,) * 6)
         res[backend] = [x.detach() for x in (out, sf, q.grad, k.grad, v.grad, s0.grad)]
     for x, ref in zip(res["cuda"], res["torch"]):
         _max_close(x, ref, 2**-7 if x.dtype == torch.bfloat16 else 1e-4)

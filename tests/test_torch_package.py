@@ -50,7 +50,8 @@ def test_every_module_imports_with_jax_and_orion_tpu_blocked():
 @pytest.mark.parametrize(
     "path",
     [*sorted(PKG.rglob("*.py")), *(ROOT / f for f in ("chip_smoke.py", "profile_port.py",
-                                                 "kernel_mutants.py", "time_decode.py"))],
+                                                 "kernel_mutants.py", "time_decode.py",
+                                                 "time_op.py"))],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_import_of_jax_or_the_jax_package(path):
