@@ -18,7 +18,12 @@ without JAX:
     python -m orion_tpu_torch.evaluate --config tiny --ckpt-dir PORT_CKPT
 
 ``--set`` overrides the config as the JAX CLIs' ``--set`` does; it must
-describe the model that was trained. A pipeline-layout checkpoint (stacked
+describe the model that was trained (an untied head: ``--set
+tie_embeddings=false``; a feature map: ``--set feature_map=favor``). A tree
+with a ``cls`` vector is an ``LRAClassifier``'s (an ``lra_*`` config) and is
+mapped onto the port's classifier; its step file loads with
+``orion_tpu_torch.training.checkpoint.load_params`` into
+``orion_tpu_torch.models.classifier.LRAClassifier``. A pipeline-layout checkpoint (stacked
 per-stage blocks) is refused: unstacking it waits for the port's pipeline
 (ROADMAP.md queue A, item 12). This script is the one file of the repo that
 imports both packages; it runs JAX on the CPU.
@@ -55,7 +60,8 @@ def export(ckpt_dir: str, out_dir: str, config: str = "tiny", step=None, overrid
     # names differ): params_from_jax checks every shape against it
     port_cfg = ModelConfig(**{k: v for k, v in dataclasses.asdict(cfg).items()
                               if k != "backend"})
-    state = params_from_jax(jax.device_get(params), port_cfg)
+    classifier = "cls" in params.get("params", params)
+    state = params_from_jax(jax.device_get(params), port_cfg, classifier=classifier)
     ckpt = Checkpointer(out_dir, max_to_keep=1 << 30)
     if step in ckpt.all_steps():
         raise FileExistsError(f"{out_dir} already holds step {step}")

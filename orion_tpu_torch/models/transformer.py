@@ -1,14 +1,19 @@
 """TransformerLM in PyTorch: the linear, softmax and sliding-window layers
-of ``orion_tpu/models/transformer.py``.
+of ``orion_tpu/models/transformer.py``, and the blocks the LRA classifier
+(``models/classifier.py``) stacks.
 
 Decoder LM with per-layer attention of type ``"linear"`` (causal linear
 attention, elu+1 phi by default), ``"softmax"`` (full causal softmax) or
 ``"swa"`` (sliding-window softmax over ``cfg.window`` keys) -- the hybrid
 family mixes the last two kinds with linear layers -- plus SwiGLU or GELU
 MLP (a routed-expert ``MoEMLP``, ``models/moe.py``, in the blocks
-``cfg.moe_at`` names), RMSNorm, learned positions and a tied head. Softmax
-and swa layers rotate q and k (RoPE, ``ops/rotary.py``). Three entry
-methods, as in the JAX package:
+``cfg.moe_at`` names), RMSNorm or LayerNorm (``cfg.norm``), learned
+positions and a tied or untied head (``cfg.tie_embeddings``). Softmax and
+swa layers rotate q and k (RoPE, ``ops/rotary.py``). A linear layer's phi is
+``cfg.feature_map``: an elementwise map, ``favor`` (random features over the
+fixed projection ``favor_proj`` [Dh, Dh], drawn orthogonal-Gaussian and never
+trained) or ``learnable`` (a bias-free dense ``phi_proj`` Dh -> Dh, then
+elu+1). Three entry methods, as in the JAX package:
 
 - ``forward(tokens)``            -- the parallel forward -> logits [B, T, V];
   ``features(tokens)`` is its input to the head, which the fused-CE training
@@ -18,7 +23,9 @@ methods, as in the JAX package:
   ``ops.softmax_attention`` -> ``FlashAttentionFn``; a dropless MoE layer's
   expert products: ``ops/kernels/gmm.py`` -> ``GmmFn``), blocks before the
   last ``remat_skip`` are recomputed in the backward when ``cfg.remat``
-  (``torch.utils.checkpoint``), and ``deterministic=False`` applies block
+  (``torch.utils.checkpoint``; ``remat_policy="dots"`` keeps the matrix
+  products' outputs and recomputes the rest), and ``deterministic=False``
+  applies block
   dropout drawn from generators seeded per layer from ``dropout_seed``;
 - ``prefill(tokens)`` / ``prefill_last(tokens)`` -- the same forward, also
   returning each layer's decode state: (S, z) for a linear layer, a KV
@@ -35,7 +42,8 @@ dense layers run in the compute dtype on weights rounded to it (flax
 ``Dense(dtype=bf16, param_dtype=f32)`` rounds the fp32 kernel at each call,
 so rounding once, ``generate.cast_params_for_inference``, is bitwise the
 same; training keeps the fp32 params and rounds at each call, as flax
-does); RMSNorm takes its statistics in fp32 and casts the result; the two
+does); RMSNorm and LayerNorm take their statistics in fp32 (LayerNorm's
+variance as E[x^2] - E[x]^2, as flax) and cast the result; the two
 embeddings add in fp32 and then cast; the head multiplies bf16-rounded
 operands with fp32 accumulation into fp32 logits; (S, z) stay fp32.
 
@@ -48,29 +56,34 @@ JAX package's ``quant`` attribute (``orion_tpu_torch/quant.py``): every dense
 layer ``Int8Dense`` (``"int8"``) or nibble-packed ``Int4Dense`` (``"int4"``,
 whose decode rows run the hand-written ``q4_matmul`` kernel on the card),
 and in both modes the embedding table ``Int8Embed``, serving the tied head
-through ``attend`` (fp32 logits), and a MoE layer's expert stacks int8.
-``generate.quantize_for_decode`` fills one from a full-precision model.
+through ``attend`` (fp32 logits), an untied head as the int8
+``lm_head_kernel_q`` [D, V] with its scales ``lm_head_kernel_s`` [V], and a
+MoE layer's expert stacks int8. ``generate.quantize_for_decode`` fills one
+from a full-precision model.
 
-Not ported yet (they raise ``NotImplementedError`` naming ROADMAP.md's
-item): LayerNorm, an untied head, meshes (and with them the expert-parallel
-MoE forms), ``remat_policy="dots"``. The JAX package's ``attn_block_q`` /
-``attn_block_k`` size TPU tiles and are not read.
+Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
+item): meshes, and with them the expert-parallel MoE forms. The JAX
+package's ``attn_block_q`` / ``attn_block_k`` size TPU tiles and are not
+read.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.models.moe import MoEMLP
-from orion_tpu_torch.ops.feature_maps import make_feature_map
-from orion_tpu_torch.ops.linear_attention import linear_attention, recurrent_step
+from orion_tpu_torch.ops.feature_maps import _orthogonal_gaussian, favor_phi, make_feature_map
+from orion_tpu_torch.ops.linear_attention import (linear_attention, linear_attention_noncausal,
+                                                  recurrent_step)
 from orion_tpu_torch.ops.rotary import apply_rotary, apply_rotary_at, rotary_freqs
 from orion_tpu_torch.ops.softmax_attention import cached_attention, softmax_attention
 from orion_tpu_torch.quant import Int4Dense, Int8Dense, Int8Embed, check_mode
@@ -96,16 +109,35 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+# The aten products whose outputs remat_policy="dots" saves (the JAX
+# package's ``checkpoint_dots``); everything else in a block is recomputed,
+# the kernels' launches inside the autograd Functions included
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+                   torch.ops.aten._scaled_mm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: str):
+    """``checkpoint``'s ``context_fn`` for a ``remat_policy`` ("full": None,
+    save the block's input only)."""
+    if policy == "full":
+        return None
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    raise ValueError(f"unknown remat_policy {policy!r}; expected 'full' or 'dots'")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port lacks so far (and
-    ``ValueError`` for an unknown layer type)."""
+    """Raise ``ValueError`` for what no model of the package takes: an
+    unknown layer type, norm or remat policy."""
     cfg.resolved_layer_types  # noqa: B018 -- raises on an unknown layer type
-    if cfg.norm != "rmsnorm":
-        raise _not_ported(f"norm {cfg.norm!r}", "item 11 (LRA)")
-    if not cfg.tie_embeddings:
-        raise _not_ported("an untied head", "item 3 (model)")
-    if cfg.n_classes:
-        raise _not_ported("the classifier head", "item 11 (LRA)")
+    if cfg.norm not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"unknown norm {cfg.norm!r}; expected 'rmsnorm' or 'layernorm'")
+    _remat_context(cfg.remat_policy)
 
 
 class Dense(nn.Module):
@@ -160,17 +192,47 @@ class RMSNorm(nn.Module):
         return (xf * mul).to(self.cdt)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: fp32 statistics with the variance as
+    E[x^2] - E[x]^2 (clamped at 0), eps 1e-6, ``weight`` (flax's scale)
+    multiplied into the reciprocal root, then ``bias`` added; the result cast
+    to the compute dtype. (``F.layer_norm`` takes the variance as E[(x -
+    mean)^2], which differs in the last bits.)"""
+
+    def __init__(self, d: int, cdt: torch.dtype, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.cdt = cdt
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(d, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, device=device))
+
+    def forward(self, x: Tensor) -> Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(self.cdt)
+
+
+def make_norm(cfg: ModelConfig, device=None) -> nn.Module:
+    """The norm ``cfg.norm`` names, over ``d_model``."""
+    cls = LayerNorm if cfg.norm == "layernorm" else RMSNorm
+    return cls(cfg.d_model, _dtype(cfg.dtype), device=device)
+
+
 class Attention(nn.Module):
-    """One causal attention layer of type ``"linear"``, ``"softmax"`` or
-    ``"swa"``."""
+    """One attention layer of type ``"linear"``, ``"softmax"`` or ``"swa"``:
+    causal (the LM), or bidirectional with a key padding mask
+    (``causal=False``, the LRA classifier)."""
 
     def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None,
-                 quant: str = ""):
+                 quant: str = "", causal: bool = True):
         super().__init__()
         if layer_type not in ("linear", "softmax", "swa"):
             raise ValueError(f"unknown layer type {layer_type!r}")
         self.cfg = cfg
         self.layer_type = layer_type
+        self.causal = causal
         h, dh = cfg.n_heads, cfg.resolved_head_dim
         dense = _qdense_factory(quant, _dtype(cfg.dtype), cfg.backend)
         self.wq = dense(cfg.d_model, h * dh, device)
@@ -178,7 +240,16 @@ class Attention(nn.Module):
         self.wv = dense(cfg.d_model, h * dh, device)
         self.wo = dense(h * dh, cfg.d_model, device)
         if layer_type == "linear":
-            self._phi = make_feature_map(cfg.feature_map)
+            if cfg.feature_map == "learnable":
+                # full precision in every quant mode, as in the JAX package
+                self.phi_proj = Dense(dh, dh, _dtype(cfg.dtype), device)
+            elif cfg.feature_map == "favor":
+                # fixed random features: a parameter of the tree that no
+                # gradient reaches (the JAX package's stop_gradient)
+                self.favor_proj = nn.Parameter(torch.empty(dh, dh, device=device),
+                                               requires_grad=False)
+            else:
+                self._phi = make_feature_map(cfg.feature_map)
         else:
             # the rotary angle table: a buffer that is not saved, so the
             # state_dict (convert.py, checkpoints) holds parameters only
@@ -199,6 +270,11 @@ class Attention(nn.Module):
         return split(self.wq(x)), split(self.wk(x)), split(self.wv(x))
 
     def _phi_map(self, x: Tensor) -> Tensor:
+        fm = self.cfg.feature_map
+        if fm == "learnable":
+            return F.elu(self.phi_proj(x)) + 1.0
+        if fm == "favor":
+            return favor_phi(x, self.favor_proj)
         return self._phi(x)
 
     def _merge(self, out: Tensor, single: bool) -> Tensor:
@@ -206,21 +282,28 @@ class Attention(nn.Module):
             out = out.transpose(-3, -2)  # [B, T, H, Dh]
         return self.wo(out.reshape(*out.shape[:-2], -1))
 
-    def _softmax(self, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-        """Causal softmax / sliding-window attention over rotated q, k."""
-        return softmax_attention(q, k, v, causal=True, window=self.window,
+    def _softmax(self, q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+        """Softmax / sliding-window attention over rotated q, k: causal, or
+        bidirectional with the key mask [B, T] (the plain form, as the JAX
+        package takes it)."""
+        return softmax_attention(q, k, v, causal=self.causal, window=self.window,
+                                 mask=None if mask is None else mask[:, None, None, :],
                                  backend=self.cfg.backend)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+        """x [B, T, D] -> [B, T, D]. ``mask`` [B, T] (True = a real key)
+        applies to a bidirectional layer only."""
         q, k, v = self._heads(x)
         if self.layer_type == "linear":
-            out = linear_attention(
-                self._phi_map(q), self._phi_map(k), v,
-                backend=self.cfg.backend, chunk=self.cfg.chunk,
-            )
+            qf, kf = self._phi_map(q), self._phi_map(k)
+            if self.causal:
+                out = linear_attention(qf, kf, v, backend=self.cfg.backend, chunk=self.cfg.chunk)
+            else:
+                out = linear_attention_noncausal(
+                    qf, kf, v, mask=None if mask is None else mask[:, None, :])
         else:
             ang = self.freqs[: x.shape[-2]]
-            out = self._softmax(apply_rotary(q, ang), apply_rotary(k, ang), v)
+            out = self._softmax(apply_rotary(q, ang), apply_rotary(k, ang), v, mask)
         return self._merge(out, single=False)
 
     def prefill(
@@ -362,20 +445,21 @@ def _dropout(x: Tensor, rate: float, gen: torch.Generator) -> Tensor:
 
 class Block(nn.Module):
     """Pre-norm residual block: x + drop(attn(norm(x))); x + drop(mlp(norm(x))),
-    the MLP a ``MoEMLP`` when ``use_moe``.
+    the MLP a ``MoEMLP`` when ``use_moe``; ``causal=False``: bidirectional
+    attention over the keys a mask keeps (the LRA classifier).
 
     Dropout (``cfg.dropout``) applies when ``dropout_seed`` is given: both
     masks come from one generator seeded with it, so a recomputation under
     ``checkpoint`` redraws the same masks."""
 
     def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None,
-                 use_moe: bool = False, quant: str = ""):
+                 use_moe: bool = False, quant: str = "", causal: bool = True):
         super().__init__()
         cdt = _dtype(cfg.dtype)
         self.rate = cfg.dropout
-        self.norm1 = RMSNorm(cfg.d_model, cdt, device=device)
-        self.attn = Attention(cfg, layer_type, device, quant)
-        self.norm2 = RMSNorm(cfg.d_model, cdt, device=device)
+        self.norm1 = make_norm(cfg, device)
+        self.attn = Attention(cfg, layer_type, device, quant, causal)
+        self.norm2 = make_norm(cfg, device)
         self.mlp = (MoEMLP(cfg, cdt, device, quant=quant) if use_moe
                     else MLP(cfg, device, quant))
 
@@ -385,17 +469,18 @@ class Block(nn.Module):
         return self.mlp(x), None
 
     def forward(
-        self, x: Tensor, dropout_seed: Optional[int] = None
+        self, x: Tensor, dropout_seed: Optional[int] = None, mask: Optional[Tensor] = None,
     ) -> Tuple[Tensor, Optional[Tensor]]:
         """-> (output, the MoE layer's auxiliary loss or None). The loss
         leaves as an output, so ``checkpoint`` carries it and a
-        recomputation cannot add it twice."""
+        recomputation cannot add it twice. ``mask`` [B, T]: the keys a
+        bidirectional block attends to."""
         if dropout_seed is None or self.rate == 0.0:
-            x = x + self.attn(self.norm1(x))
+            x = x + self.attn(self.norm1(x), mask)
             h, aux = self._mlp_aux(self.norm2(x))
             return x + h, aux
         gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
-        x = x + _dropout(self.attn(self.norm1(x)), self.rate, gen)
+        x = x + _dropout(self.attn(self.norm1(x), mask), self.rate, gen)
         h, aux = self._mlp_aux(self.norm2(x))
         return x + _dropout(h, self.rate, gen), aux
 
@@ -415,8 +500,10 @@ class TransformerLM(nn.Module):
 
     Parameters are fp32 (``param_dtype``) and drawn from ``generator`` (a
     fresh generator seeded 0 on ``device`` by default) with the flax model's
-    default initializers: lecun_normal for dense kernels, normal(1/sqrt(D))
-    for the embedding tables, ones for norm scales. ``device`` defaults to
+    default initializers: lecun_normal for dense kernels and the untied head
+    ``lm_head_kernel`` [D, V], normal(1/sqrt(D)) for the embedding tables,
+    ones for norm scales, zeros for LayerNorm biases, an orthogonal-Gaussian
+    ``favor_proj``. ``device`` defaults to
     ``"cuda"`` and raises if CUDA is absent. ``quant`` (``""``, ``"int8"``,
     ``"int4"``): the quantized decode model (see the module docstring); its
     int8 / int4 tensors start at zero, with unit scales, until
@@ -452,7 +539,15 @@ class TransformerLM(nn.Module):
             Block(cfg, lt, dev, use_moe=cfg.moe_at(i), quant=quant)
             for i, lt in enumerate(cfg.resolved_layer_types)
         )
-        self.final_norm = RMSNorm(cfg.d_model, self.cdt, device=dev)
+        self.final_norm = make_norm(cfg, dev)
+        if not cfg.tie_embeddings:
+            if quant:  # int8 in both quant modes, like the tied table
+                self.register_buffer("lm_head_kernel_q", torch.zeros(
+                    cfg.d_model, cfg.vocab_size, dtype=torch.int8, device=dev))
+                self.register_buffer("lm_head_kernel_s", torch.ones(cfg.vocab_size, device=dev))
+            else:
+                self.lm_head_kernel = nn.Parameter(
+                    torch.empty(cfg.d_model, cfg.vocab_size, device=dev))
         self._head_cache = None
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -468,19 +563,9 @@ class TransformerLM(nn.Module):
         for table in (self.embed, self.pos_embed):
             if isinstance(table, Embed):
                 table.weight.normal_(0.0, std, generator=generator)
-
-        def lecun_normal(w: Tensor, fan_in: int) -> None:
-            s = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(w, 0.0, s, -2.0 * s, 2.0 * s, generator=generator)
-
-        for m in self.modules():
-            if isinstance(m, Dense):
-                lecun_normal(m.weight, m.weight.shape[1])
-            elif isinstance(m, MoEMLP):  # the router [E, d]; the stacks [E, in, out]
-                for w in m.parameters():
-                    lecun_normal(w, w.shape[-2] if w.dim() == 3 else w.shape[1])
-            elif isinstance(m, RMSNorm):
-                m.weight.fill_(1.0)
+        init_blocks(self, generator)
+        if hasattr(self, "lm_head_kernel"):
+            lecun_normal(self.lm_head_kernel, self.cfg.d_model, generator)
 
     @property
     def device(self) -> torch.device:
@@ -490,14 +575,15 @@ class TransformerLM(nn.Module):
         return (self.embed(tokens) + self.pos_embed(positions)).to(self.cdt)
 
     def _head_operand(self) -> Tensor:
-        """The tied table rounded to the compute dtype, held in fp32 so the
-        head runs bf16 operands with fp32 accumulation. Cached for
-        inference; a change to the table (load, in-place update, move)
+        """The head's weight (the tied table [V, D] or the untied
+        ``lm_head_kernel`` [D, V]) rounded to the compute dtype, held in fp32
+        so the head runs bf16 operands with fp32 accumulation. Cached for
+        inference; a change to the weight (load, in-place update, move)
         rebuilds it. When a gradient is wanted it is computed afresh, so the
-        gradient reaches the table."""
-        w = self.embed.weight
+        gradient reaches the weight."""
+        w, _ = self.head_weight()
         if self.cdt == torch.float32:
-            return w
+            return w.float()
         if torch.is_grad_enabled() and w.requires_grad:
             return w.to(self.cdt).float()
         if w.is_inference():  # made under inference_mode: no version counter
@@ -510,10 +596,14 @@ class TransformerLM(nn.Module):
     def _head_matmul(self, x: Tensor) -> Tensor:
         """fp32 logits from compute-dtype operands (a plain bf16 matmul would
         round the logits to bf16 and flip greedy tokens); a quantized model's
-        through the int8 table's ``attend``."""
+        through the int8 table's ``attend``, or the int8 untied head with its
+        scales applied after the product."""
         if self.quant:
-            return self.embed.attend(x, self.cdt)
-        return x.to(self.cdt).float() @ self._head_operand().t()
+            if self.cfg.tie_embeddings:
+                return self.embed.attend(x, self.cdt)
+            return (x.to(self.cdt).float() @ self.lm_head_kernel_q.float()) * self.lm_head_kernel_s
+        w = self._head_operand()
+        return x.to(self.cdt).float() @ (w.t() if self.cfg.tie_embeddings else w)
 
     def _head(self, x: Tensor) -> Tensor:
         return self._head_matmul(self.final_norm(x))
@@ -525,37 +615,23 @@ class TransformerLM(nn.Module):
         input; the MoE layers' summed auxiliary loss, an fp32 scalar, 0
         without them). ``deterministic=False`` applies dropout (``cfg.dropout``),
         block i drawing from ``rng.fold(dropout_seed, i)``. With grad enabled
-        and ``cfg.remat``, blocks ``i < n_layers - remat_skip`` keep only
-        their input and are recomputed in the backward (the JAX model's
-        ``nn.remat`` with the "full" policy)."""
-        cfg = self.cfg
-        use_dropout = not deterministic and cfg.dropout > 0.0
-        if use_dropout and dropout_seed is None:
-            raise ValueError("deterministic=False needs a dropout_seed")
-        first_remat = cfg.n_layers - max(0, cfg.remat_skip) if cfg.remat else 0
-        if first_remat > 0 and torch.is_grad_enabled() and cfg.remat_policy != "full":
-            raise _not_ported(f"remat_policy={cfg.remat_policy!r}", "item 5 (training)")
+        and ``cfg.remat``, blocks ``i < n_layers - remat_skip`` are
+        recomputed in the backward (the JAX model's ``nn.remat``):
+        ``remat_policy="full"`` keeps only their input, ``"dots"`` also the
+        outputs of their matrix products."""
         x = self._embed(tokens, torch.arange(tokens.shape[-1], device=tokens.device))
-        aux_total = torch.zeros((), device=tokens.device)
-        for i, blk in enumerate(self.blocks):
-            seed = rngs.fold(dropout_seed, i) if use_dropout else None
-            if i < first_remat and torch.is_grad_enabled():
-                # the masks come from ``seed``, not the global RNG, so there
-                # is no RNG state to preserve for the recomputation
-                x, aux = checkpoint(blk, x, seed, use_reentrant=False, preserve_rng_state=False)
-            else:
-                x, aux = blk(x, seed)
-            if aux is not None:
-                aux_total = aux_total + aux
+        x, aux_total = run_blocks(self.blocks, self.cfg, x, deterministic, dropout_seed)
         return self.final_norm(x), aux_total
 
     def head_weight(self) -> Tuple[Tensor, bool]:
         """(head weight, w_is_vd) for ``ops/fused_ce.py``: the tied
-        embedding table [V, D] (the untied head is not ported). A quantized
-        model serves only."""
+        embedding table [V, D] (w_is_vd True) or the untied
+        ``lm_head_kernel`` [D, V] (False). A quantized model serves only."""
         if self.quant:
             raise ValueError(f"a quantized model (quant={self.quant!r}) is not trained")
-        return self.embed.weight, True
+        if self.cfg.tie_embeddings:
+            return self.embed.weight, True
+        return self.lm_head_kernel, False
 
     def forward(
         self, tokens: Tensor, deterministic: bool = True, dropout_seed: Optional[int] = None,
@@ -599,6 +675,63 @@ class TransformerLM(nn.Module):
         return self._head(x), new_states
 
 
+def lecun_normal(w: Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's lecun_normal in place: a normal truncated at two standard
+    deviations, of variance 1 / fan_in."""
+    s = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, s, -2.0 * s, 2.0 * s, generator=generator)
+
+
+@torch.no_grad()
+def init_blocks(root: nn.Module, generator: torch.Generator) -> None:
+    """Draw the parameters of ``root``'s dense layers, MoE layers, norms and
+    FAVOR+ projections from ``generator``, in module order (flax's default
+    initializers; an expert stack [E, in, out] as the JAX package's
+    ``_expert_init``: lecun_normal over (in, out) with the expert as the
+    batch axis)."""
+    for m in root.modules():
+        if isinstance(m, Dense):
+            lecun_normal(m.weight, m.weight.shape[1], generator)
+        elif isinstance(m, MoEMLP):  # the router [E, d]; the stacks [E, in, out]
+            for w in m.parameters():
+                lecun_normal(w, w.shape[-2] if w.dim() == 3 else w.shape[1], generator)
+        elif isinstance(m, (RMSNorm, LayerNorm)):
+            m.weight.fill_(1.0)
+            if isinstance(m, LayerNorm):
+                m.bias.zero_()
+        elif isinstance(m, Attention) and hasattr(m, "favor_proj"):
+            w = m.favor_proj
+            w.copy_(_orthogonal_gaussian(w.shape[0], w.shape[1], generator, w.device))
+
+
+def run_blocks(blocks, cfg: ModelConfig, x: Tensor, deterministic: bool = True,
+               dropout_seed: Optional[int] = None, mask: Optional[Tensor] = None,
+               ) -> Tuple[Tensor, Tensor]:
+    """x through ``blocks`` -> (x, the MoE layers' summed auxiliary loss, an
+    fp32 scalar). Dropout, block i drawing from ``rng.fold(dropout_seed,
+    i)``, and rematerialization (``cfg.remat`` / ``remat_skip`` /
+    ``remat_policy``) as ``TransformerLM.features`` describes."""
+    use_dropout = not deterministic and cfg.dropout > 0.0
+    if use_dropout and dropout_seed is None:
+        raise ValueError("deterministic=False needs a dropout_seed")
+    first_remat = cfg.n_layers - max(0, cfg.remat_skip) if cfg.remat else 0
+    context_fn = _remat_context(cfg.remat_policy)
+    kwargs = {} if context_fn is None else {"context_fn": context_fn}
+    aux_total = torch.zeros((), device=x.device)
+    for i, blk in enumerate(blocks):
+        seed = rngs.fold(dropout_seed, i) if use_dropout else None
+        if i < first_remat and torch.is_grad_enabled():
+            # the masks come from ``seed``, not the global RNG, so there
+            # is no RNG state to preserve for the recomputation
+            x, aux = checkpoint(blk, x, seed, mask, use_reentrant=False,
+                                preserve_rng_state=False, **kwargs)
+        else:
+            x, aux = blk(x, seed, mask)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
 def init_decode_state(
     cfg: ModelConfig, batch_size: int, device=None
 ) -> List[State]:
@@ -626,6 +759,7 @@ def init_decode_state(
 
 
 __all__ = [
-    "TransformerLM", "Attention", "Block", "MLP", "Dense", "Embed", "RMSNorm",
-    "init_decode_state", "check_supported",
+    "TransformerLM", "Attention", "Block", "MLP", "Dense", "Embed", "RMSNorm", "LayerNorm",
+    "make_norm", "init_blocks", "run_blocks", "lecun_normal", "init_decode_state",
+    "check_supported",
 ]

@@ -12,9 +12,9 @@ compute dtype with fp32 accumulation into fp32 logits; ``dlog`` cast to the
 compute dtype before its two products; ``dw`` accumulated in fp32; ``dx`` in
 the compute dtype.
 
-Only the tied head ([V, D], the embedding table) is ported: the untied head
-is not (``models/transformer.py``), and neither is the sequence-parallel
-variant (ROADMAP.md queue A, item 12).
+The head is the tied embedding table [V, D] or the untied
+``lm_head_kernel`` [D, V], which enters as its transpose. The
+sequence-parallel variant is not ported (ROADMAP.md queue A, item 12).
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ def fused_linear_cross_entropy(x: Tensor, w: Tensor, labels: Tensor, n_chunks: i
 
     x: [B, T, D] activations in the compute dtype (the head casts w to
        x.dtype for its products, like ``TransformerLM``'s head)
-    w: [V, D], the tied embedding table
+    w: [V, D] (the tied embedding table, or the transpose of the untied head)
     labels: [B, T] integer; ``n_chunks`` must divide T (``pick_n_chunks``)
     Gradients flow to x and w."""
     if x.shape[1] % n_chunks:
@@ -158,8 +158,8 @@ def model_token_losses(
     auxiliary loss) and the eval loss (``evaluate.py::lm_eval_sums``, which
     leaves it out) so the two cannot drift."""
     feats, aux = model.features(x, deterministic=deterministic, dropout_seed=dropout_seed)
-    w, _ = model.head_weight()
-    return _padded_fused_ce(feats.to(model.cdt), w, y), aux
+    w, w_is_vd = model.head_weight()
+    return _padded_fused_ce(feats.to(model.cdt), w if w_is_vd else w.t(), y), aux
 
 
 __all__ = [

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -134,19 +134,22 @@ def kernel_ok(t: Tensor) -> bool:
 
 def init(params: Mapping[str, Tensor], dims: Mapping[str, Optional[Tuple[int, int]]]
          ) -> FusedAdafactorState:
-    """Zero state with optax's shapes (``dims``: each leaf's ``factored_dims``)."""
+    """Zero state with optax's shapes (``dims``: each leaf's ``factored_dims``),
+    in the leaf's dtype, fp32 for a bf16-stored leaf (the JAX package inits
+    the optimizer from an fp32 view of such params)."""
     v_row, v_col, v = {}, {}, {}
     for name, p in params.items():
         d = dims[name]
-        one = torch.zeros(1, dtype=p.dtype, device=p.device)
+        sdt = torch.float32 if p.dtype == torch.bfloat16 else p.dtype
+        one = torch.zeros(1, dtype=sdt, device=p.device)
         if d is not None:
             d1, d0 = d
-            v_row[name] = torch.zeros(tuple(np.delete(p.shape, d0)), dtype=p.dtype, device=p.device)
-            v_col[name] = torch.zeros(tuple(np.delete(p.shape, d1)), dtype=p.dtype, device=p.device)
+            v_row[name] = torch.zeros(tuple(np.delete(p.shape, d0)), dtype=sdt, device=p.device)
+            v_col[name] = torch.zeros(tuple(np.delete(p.shape, d1)), dtype=sdt, device=p.device)
             v[name] = one
         else:
             v_row[name], v_col[name] = one, one.clone()
-            v[name] = torch.zeros_like(p)
+            v[name] = torch.zeros_like(p, dtype=sdt)
     return FusedAdafactorState(0, v_row, v_col, v)
 
 
@@ -288,22 +291,26 @@ def adafactor_apply(g, p, r, c, flag, backend="auto"):
 
 
 def _leaf_update(g, p, v_row, v_col, v, *, dims, decay_t, one_minus, lr, scale, finite, flag,
-                 eps, clip, use_kernel, backend):
+                 eps, clip, use_kernel, backend, store=None):
     """One parameter tensor; ``p`` is updated in place. Returns (new v_row,
     new v_col, new v): the old ones where the step is not finite (the
     selects run on the small statistics; in the kernel form the select of p
-    rides in the apply kernel)."""
+    rides in the apply kernel). ``store`` rounds the new fp32 value to p's
+    dtype (default: ``.to``; a bf16-stored leaf's stochastic rounding)."""
 
     def keep(new, old):
         return torch.where(finite, new, old)
 
+    if store is None:
+        store = lambda t: t.to(p.dtype)  # noqa: E731
+
     if dims is None:  # optax's non-factored path (norm scales, small leaves)
         q = (scale * g) ** 2 + eps
-        new_v = (decay_t * v + one_minus * q).to(p.dtype)
+        new_v = (decay_t * v + one_minus * q).to(v.dtype)
         u = scale * g * torch.rsqrt(new_v)
         if clip:
             u = u / torch.clamp(torch.sqrt((u * u).mean()) / clip, min=1.0)
-        p.copy_(torch.where(finite, p - lr * u, p))
+        p.copy_(torch.where(finite, store(p - lr * u), p))
         return v_row, v_col, keep(new_v, v)
 
     d1, d0 = dims
@@ -311,8 +318,8 @@ def _leaf_update(g, p, v_row, v_col, v, *, dims, decay_t, one_minus, lr, scale, 
         # optax's factored path, any ndim (the 3-D expert stacks too): the
         # reference the kernel form is held against
         q = (scale * g.float()) ** 2 + eps
-        new_v_row = (decay_t * v_row + one_minus * q.mean(dim=d0)).to(p.dtype)
-        new_v_col = (decay_t * v_col + one_minus * q.mean(dim=d1)).to(p.dtype)
+        new_v_row = (decay_t * v_row + one_minus * q.mean(dim=d0)).to(v_row.dtype)
+        new_v_col = (decay_t * v_col + one_minus * q.mean(dim=d1)).to(v_col.dtype)
         reduced_d1 = d1 - 1 if d1 > d0 else d1
         row_col_mean = new_v_row.mean(dim=reduced_d1, keepdim=True)
         row_factor = torch.rsqrt(new_v_row / row_col_mean)
@@ -320,7 +327,7 @@ def _leaf_update(g, p, v_row, v_col, v, *, dims, decay_t, one_minus, lr, scale, 
         u = scale * g.float() * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
         if clip:
             u = u / torch.clamp(torch.sqrt((u * u).mean()) / clip, min=1.0)
-        p.copy_(torch.where(finite, (p - lr * u).to(p.dtype), p))
+        p.copy_(torch.where(finite, store(p - lr * u), p))
         return keep(new_v_row, v_row), keep(new_v_col, v_col), v
 
     m, n = g.shape
@@ -357,6 +364,7 @@ def apply_updates(
     lr: float, scale, finite, dims: Mapping[str, Optional[Tuple[int, int]]],
     decay_rate: float = _DECAY, eps: float = _EPS, clipping_threshold: Optional[float] = _CLIP,
     use_kernel: bool = True, backend: str = "auto",
+    store: Optional[Mapping[str, Callable[[Tensor], Tensor]]] = None,
 ) -> FusedAdafactorState:
     """Update ``params`` IN PLACE and return the new state. ``scale`` folds
     the caller's gradient clip and finite guard (a float or a 0-d tensor);
@@ -364,7 +372,9 @@ def apply_updates(
     on a bad step, and the count then does not advance. ``use_kernel``: the
     three-pass kernel form for the leaves ``kernel_ok`` takes (False: the
     plain formulas everywhere, optax's ``adafactor``); ``backend`` picks the
-    passes' kernels or their plain versions (``ops/dispatch.py``)."""
+    passes' kernels or their plain versions (``ops/dispatch.py``). ``store``:
+    per leaf, how its new fp32 value is rounded to its dtype (the plain
+    formulas' leaves; the trainer's stochastic rounding of bf16 storage)."""
     dev = next(iter(params.values())).device
     scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
     finite_t = torch.as_tensor(finite, device=dev).bool()
@@ -376,7 +386,7 @@ def apply_updates(
             grads[name], p, state.v_row[name], state.v_col[name], state.v[name],
             dims=dims[name], decay_t=decay_t, one_minus=one_minus, lr=lr, scale=scale,
             finite=finite_t, flag=flag, eps=eps, clip=clipping_threshold,
-            use_kernel=use_kernel, backend=backend)
+            use_kernel=use_kernel, backend=backend, store=(store or {}).get(name))
     # the good-step count: a skipped step advances neither d_t nor the lr
     count = state.count + int(bool(finite))
     return FusedAdafactorState(count, v_row, v_col, v)

@@ -167,6 +167,7 @@ class Int8Embed(nn.Module):
 _REDUCE_AXES = {
     "weight_q": (1,),  # a dense weight [out, in] -> s[out]; an embedding [V, D] -> s[V]
     "weight_p4": (0,),  # packed int4 [in/2, out], from the weight's transpose -> s[out]
+    "lm_head_kernel_q": (0,),  # the untied head [D, V] -> s[V]
     "experts_gate_q": (1,),  # [E, in, out] -> s[E, out]
     "experts_up_q": (1,),
     "experts_down_q": (1,),

@@ -28,17 +28,29 @@ through the three fused kernels (``ops/kernels/adafactor.py``), which fold
 the clip-and-guard scale and the skip policy, as the JAX package's Trainer
 does.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP.md's
-item): device meshes (any axis > 1), ``param_storage="bfloat16_sr"``.
-``preempt_grace`` and ``step_timeout`` are kept for the config's shape and
-not wired (item 9).
+Weight decay skips 1-D params and the fixed FAVOR+ projection
+(``favor_proj``, by name, as the JAX package's ``_wd_mask``; it gets no
+gradient, so its update is 0). ``param_storage="bfloat16_sr"`` stores every
+matrix param (ndim >= 2) in bf16 and 1-D ones in fp32 (``storage_cast``);
+the optimizer state and its math stay fp32, and each bf16 leaf's new value
+``p + u`` is rounded to bf16 stochastically (``sr_round_bf16``), with noise
+from the JAX package's counter hash (``sr_noise_bits``) on two 32-bit key
+words: the same words give JAX's rounding bitwise. The words come from the
+step's seed: ``fold(fold(step_seed, 0x5157), leaf index)`` in the order of
+``model.named_parameters()``, its high and low 32 bits, so a resumed run
+replays the same roundings.
+
+Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
+item): device meshes (any axis > 1). ``preempt_grace`` and ``step_timeout``
+are kept for the config's shape and not wired (item 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,7 +119,7 @@ class TrainConfig:
     mesh: MeshConfig = MeshConfig()
     pp_microbatches: int = 0
     pp_full_manual: Optional[bool] = None
-    param_storage: str = "float32"  # "float32" | "bfloat16_sr" (not ported)
+    param_storage: str = "float32"  # "float32" | "bfloat16_sr"
     # bookkeeping
     seed: int = 0
     log_every: int = 10
@@ -187,10 +199,83 @@ def _times(c: float, t: Tensor) -> Tensor:
     return float(torch.tensor(c, dtype=t.dtype)) * t
 
 
-def _wd_mask(p: Tensor) -> bool:
+def _wd_mask(name: str, p: Tensor) -> bool:
     """Decay only matrix params (ndim >= 2, the embedding tables included);
-    norm scales are left alone."""
-    return p.ndim >= 2
+    norm scales and biases are left alone, and so is the fixed FAVOR+
+    projection, which no gradient reaches (decay would shrink it to 0)."""
+    return p.ndim >= 2 and "favor_proj" not in name
+
+
+# ---------------------------------------------------------------------------
+# bf16 parameter storage with stochastic rounding
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(h: Tensor, c: int) -> Tensor:
+    """(h * c) mod 2^32 for int64 h in [0, 2^32) and a 32-bit constant, in
+    two 16-bit halves of h so that no int64 product overflows."""
+    lo, hi = h & 0xFFFF, h >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _U32
+
+
+def sr_noise_bits(words: Tuple[int, int], n: int, device=None) -> Tensor:
+    """n uniform 32-bit words (int64 in [0, 2^32)) from the JAX package's
+    counter hash: a Weyl sequence over iota through the murmur3 finalizer,
+    salted by the two key words."""
+    k0, k1 = (int(w) & _U32 for w in words)
+    h = (_mul32(torch.arange(n, dtype=torch.int64, device=device), 0x9E3779B9) + k0) & _U32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B) ^ k1
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def sr_round_bf16(x32: Tensor, words: Tuple[int, int]) -> Tensor:
+    """fp32 -> bf16, rounded stochastically and without bias: E[sr(x)] = x.
+    bf16 is the top half of the fp32 pattern, so 16 bits of uniform noise
+    added to the pattern, then truncated, select the far neighbour with
+    probability (low bits / 2^16), for either sign. A value representable in
+    bf16 comes back bitwise; non-finite values pass through (noise on an inf
+    pattern would make a NaN): an inf keeps its pattern, a NaN becomes the
+    quiet NaN of its sign, as XLA converts it."""
+    x32 = x32.float()
+    bits = x32.contiguous().view(torch.int32).to(torch.int64) & _U32
+    r = sr_noise_bits(words, x32.numel(), x32.device).view(x32.shape) & 0xFFFF
+    top = ((bits + r) & _U32) >> 16  # [0, 2^16)
+    kept = torch.where(torch.isnan(x32), ((bits >> 16) & 0x8000) | 0x7FC0, bits >> 16)
+    top = torch.where(torch.isfinite(x32), top, kept)
+    return (top - ((top >= 0x8000).to(torch.int64) << 16)).to(torch.int16).view(torch.bfloat16)
+
+
+def key_words(seed: int) -> Tuple[int, int]:
+    """A 64-bit seed as two 32-bit key words, high then low (the layout of
+    a threefry key made from that seed)."""
+    return (seed >> 32) & _U32, seed & _U32
+
+
+def leaf_words(step_seed: int, n_leaves: int):
+    """The key words of each leaf's rounding at the step of ``step_seed``."""
+    key = rngs.fold(step_seed, 0x5157)
+    return [key_words(rngs.fold(key, i)) for i in range(n_leaves)]
+
+
+@torch.no_grad()
+def storage_cast(model: torch.nn.Module, param_storage: str) -> None:
+    """Apply ``param_storage`` to a fresh model in place: "bfloat16_sr"
+    stores its matrix (ndim >= 2) fp32 params as bf16; 1-D ones (norm
+    scales, biases: a small, precision-sensitive share) stay fp32."""
+    if param_storage == "float32":
+        return
+    if param_storage != "bfloat16_sr":
+        raise ValueError(f"param_storage={param_storage!r}; expected 'float32' or 'bfloat16_sr'")
+    for mod in model.modules():
+        for name, p in list(mod.named_parameters(recurse=False)):
+            if p.ndim >= 2 and p.dtype == torch.float32:
+                setattr(mod, name, torch.nn.Parameter(p.to(torch.bfloat16),
+                                                      requires_grad=p.requires_grad))
 
 
 class Optimizer:
@@ -209,18 +294,23 @@ class Optimizer:
         self.mu_dtype = {None: None, "float32": torch.float32,
                          "bfloat16": torch.bfloat16}[cfg.mu_dtype]
         self.count = 0
-        self.mu = {n: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+        # fp32 moments for a bf16-stored leaf too (the JAX package inits the
+        # optimizer from an fp32 view of the params)
+        self.mu = {n: torch.zeros_like(p, dtype=self.mu_dtype or torch.float32)
                    for n, p in params.items()}
-        self.nu = ({n: torch.zeros_like(p) for n, p in params.items()}
+        self.nu = ({n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
                    if self.kind == "adamw" else {})
 
     @torch.no_grad()
-    def update(self, params: Dict[str, Tensor], grads: Dict[str, Tensor]) -> None:
+    def update(self, params: Dict[str, Tensor], grads: Dict[str, Tensor],
+               sr_words: Optional[Dict[str, Tuple[int, int]]] = None) -> None:
+        """``sr_words``: each bf16-stored leaf's key words; its new value
+        ``p + u`` (fp32) is rounded stochastically with them."""
         c = self.cfg
         lr = self.sched(self.count)
         count_inc = self.count + 1
         for n, p in params.items():
-            g = grads[n]
+            g = grads[n].float()
             mu = (1.0 - c.b1) * g + _times(c.b1, self.mu[n])
             if self.kind == "adamw":
                 nu = (1.0 - c.b2) * (g * g) + c.b2 * self.nu[n]
@@ -232,9 +322,12 @@ class Optimizer:
             else:  # lion: the sign of the b1-interpolation, then the b2 moment
                 u = torch.sign((1.0 - c.b1) * g + _times(c.b1, self.mu[n]))
                 self.mu[n] = ((1.0 - c.b2) * g + _times(c.b2, self.mu[n])).to(self.mu[n].dtype)
-            if c.weight_decay and _wd_mask(p):
+            if c.weight_decay and _wd_mask(n, p):
                 u = u + c.weight_decay * p
-            p.add_(-lr * u)
+            if p.dtype == torch.bfloat16:
+                p.copy_(sr_round_bf16(p.float() + -lr * u, sr_words[n]))
+            else:
+                p.add_(-lr * u)
         self.count = count_inc
 
     def state_dict(self) -> Dict[str, object]:
@@ -280,10 +373,13 @@ class Adafactor:
         return self.state.count
 
     def update(self, params: Dict[str, Tensor], grads: Dict[str, Tensor], scale=1.0,
-               finite=True) -> None:
+               finite=True, sr_words: Optional[Dict[str, Tuple[int, int]]] = None) -> None:
+        store = {n: functools.partial(sr_round_bf16, words=w) for n, w in (sr_words or {}).items()
+                 if params[n].dtype == torch.bfloat16}
         self.state = af.apply_updates(
             grads, params, self.state, lr=self.sched(self.state.count), scale=scale,
-            finite=finite, dims=self.dims, use_kernel=self.fused, backend=self.backend)
+            finite=finite, dims=self.dims, use_kernel=self.fused, backend=self.backend,
+            store=store)
 
     def state_dict(self) -> Dict[str, object]:
         s = self.state
@@ -336,6 +432,19 @@ def lm_loss(
     return losses.mean() + aux
 
 
+def param_grads(params: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """Each param's gradient; zeros for one that no gradient reaches (the
+    fixed ``favor_proj``: the JAX package's stop_gradient gives it zeros)."""
+    return {n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in params.items()}
+
+
+def global_norm(grads: Dict[str, Tensor]) -> Tensor:
+    """The gradients' global L2 norm, in fp32 (a bf16 leaf's too)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads.values()]))
+
+
 def _i64(x: int) -> Tensor:
     """A 64-bit unsigned value as an int64 tensor (two's complement)."""
     return torch.tensor(x - (1 << 64) if x >= 1 << 63 else x, dtype=torch.int64)
@@ -352,12 +461,13 @@ class Trainer:
                 f"{cfg.model.max_seq_len}; raise max_seq_len or lower seq_len"
             )
         cfg.mesh.check()
-        if cfg.param_storage == "bfloat16_sr":
-            raise _not_ported('param_storage="bfloat16_sr" (stochastic rounding)',
-                              "item 5 (training)")
-        if cfg.param_storage != "float32":
+        if cfg.param_storage not in ("float32", "bfloat16_sr"):
             raise ValueError(f"param_storage={cfg.param_storage!r}; expected 'float32' "
                              "or 'bfloat16_sr'")
+        if cfg.param_storage == "bfloat16_sr" and cfg.optimizer == "adafactor_fused":
+            raise ValueError("param_storage='bfloat16_sr' composes with the plain optimizers "
+                             "only; the fused Adafactor passes read and write fp32 params "
+                             "(use optimizer='adafactor')")
         if cfg.nan_policy not in ("skip", "halt"):
             raise ValueError(f"unknown nan_policy {cfg.nan_policy!r}")
         cfg.micro_batch  # noqa: B018 -- raises unless accum_steps divides batch_size
@@ -368,6 +478,7 @@ class Trainer:
             cfg.model, device=self.device,
             generator=rngs.generator(rngs.stream(root, "init"), self.device),
         )
+        storage_cast(self.model, cfg.param_storage)
         self.params = dict(self.model.named_parameters())
         transposed = {key: t for key, _, t in expected_params(cfg.model).values()}
         self.opt = make_optimizer(cfg, self.params, transposed)
@@ -395,7 +506,8 @@ class Trainer:
             loss.backward()  # grads sum over the micro-batches
             total += loss.detach()
         for p in self.params.values():
-            p.grad.div_(cfg.accum_steps)
+            if p.grad is not None:  # none reaches the fixed favor_proj
+                p.grad.div_(cfg.accum_steps)
         return total / cfg.accum_steps
 
     def step(self, batch: Tensor) -> Dict[str, float]:
@@ -404,10 +516,10 @@ class Trainer:
         nonfinite_total."""
         cfg = self.cfg
         lr = self.sched(self.step_count - self.nonfinite)
-        loss = self._loss_and_grads(batch.to(self.device), rngs.at_step(self.rng, self.step_count))
-        grads = {n: p.grad for n, p in self.params.items()}
-        gnorm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads.values()]))
+        step_seed = rngs.at_step(self.rng, self.step_count)
+        loss = self._loss_and_grads(batch.to(self.device), step_seed)
+        grads = param_grads(self.params)
+        gnorm = global_norm(grads)
         finite_t = torch.isfinite(loss) & torch.isfinite(gnorm)
         clip = (torch.clamp(cfg.clip_norm / gnorm, max=1.0)
                 if cfg.clip_norm and cfg.clip_norm > 0 else 1.0)
@@ -420,9 +532,13 @@ class Trainer:
         finite = bool(finite_t)
         if finite and not self.opt.fused:
             if not isinstance(clip, float):
-                for g in grads.values():
-                    g.mul_(clip)
-            self.opt.update(self.params, grads)
+                for n, g in grads.items():
+                    # a bf16-stored leaf's gradient is scaled in fp32
+                    grads[n] = g.float().mul_(clip) if g.dtype != torch.float32 else g.mul_(clip)
+            words = None
+            if self.cfg.param_storage == "bfloat16_sr":
+                words = dict(zip(self.params, leaf_words(step_seed, len(self.params))))
+            self.opt.update(self.params, grads, sr_words=words)
         if not finite:  # skipped: params and optimizer state keep their values
             self.nonfinite += 1
         for p in self.params.values():
@@ -512,5 +628,6 @@ class Trainer:
 
 __all__ = [
     "Trainer", "TrainConfig", "MeshConfig", "lm_loss", "make_optimizer", "make_schedule",
-    "Optimizer",
+    "Optimizer", "sr_round_bf16", "sr_noise_bits", "storage_cast", "param_grads",
+    "global_norm",
 ]

@@ -21,6 +21,14 @@ the device's idle share of it (1 - summed kernel time / wall time; the port
 runs on one stream, so kernels do not overlap), then all of it as one JSON
 line. Imports nothing of JAX.
 
+    python3 profile_port.py --options
+
+instead traces one ``lm_1b3`` training step (B 8 x 1024, AdamW, after a
+warm-up step) in each of the model and training options: elu+1 (the
+default), ``feature_map="favor"``, ``feature_map="learnable"`` with an
+untied head, ``remat_policy="dots"`` and ``param_storage="bfloat16_sr"``,
+and prints the same breakdown for each, then one JSON line.
+
     python3 profile_port.py --q4-probe
 
 instead probes row 14's mma kernel at lm_1b3's three decode shapes and
@@ -124,6 +132,36 @@ def profile_config(name, prompt_len, seq_len, dev, overrides=None):
     result[f"{name}_train_step_B8_T{seq_len}"] = trace(lambda: trainer.step(batch))
     del trainer
     torch.cuda.empty_cache()
+    return result
+
+
+TRAIN_OPTIONS = {
+    "elu1": ({}, "float32"),
+    "favor": ({"feature_map": "favor"}, "float32"),
+    "learnable_untied": ({"feature_map": "learnable", "tie_embeddings": False}, "float32"),
+    "remat_dots": ({"remat_policy": "dots"}, "float32"),
+    "bfloat16_sr": ({}, "bfloat16_sr"),
+}
+
+
+def profile_train_options(dev):
+    """One lm_1b3 training step (B 8 x 1024, AdamW) after a warm-up, in each
+    of ``TRAIN_OPTIONS``."""
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.training.data import SyntheticDataset, device_batch
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    result = {}
+    for label, (over, storage) in TRAIN_OPTIONS.items():
+        cfg = TrainConfig(model=get_config("lm_1b3", **over), batch_size=8, seq_len=1024,
+                          param_storage=storage)
+        trainer = Trainer(cfg, device=dev)
+        ds = SyntheticDataset(cfg.model.vocab_size, cfg.seq_len)
+        trainer.step(device_batch(ds, 0, 0, cfg.batch_size, dev))  # warm-up
+        batch = device_batch(ds, 0, 1, cfg.batch_size, dev)
+        result[f"lm_1b3_{label}_train_step_B8_T1024"] = trace(lambda: trainer.step(batch))
+        del trainer
+        torch.cuda.empty_cache()
     return result
 
 
@@ -369,10 +407,13 @@ def main() -> int:
         result.update(q4_latency_probe(dev))
         print(json.dumps(result))
         return 0
-    result = profile_config("lm_1b3", 1024, 1024, dev)
-    result.update(profile_config("hybrid_1b3", 1536, 2048, dev))
-    result.update(profile_config("moe_1b3_4e", 1024, 1024, dev, {"moe_dropless": True}))
-    result.update(profile_int4_and_adafactor(dev))
+    if "--options" in sys.argv[1:]:
+        result = profile_train_options(dev)
+    else:
+        result = profile_config("lm_1b3", 1024, 1024, dev)
+        result.update(profile_config("hybrid_1b3", 1536, 2048, dev))
+        result.update(profile_config("moe_1b3_4e", 1024, 1024, dev, {"moe_dropless": True}))
+        result.update(profile_int4_and_adafactor(dev))
     for phase, r in result.items():
         print(f"{phase}: wall {r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms, "
               f"idle share {r['idle_share']}, {r['kernel_launches']} kernel launches, "

@@ -1030,3 +1030,121 @@ def test_adafactor_fused_trainer_matches_plain_on_the_card(dev, monkeypatch):
     np.testing.assert_allclose(runs["adafactor_fused"][0], runs["adafactor"][0], rtol=0, atol=1e-5)
     for n, ref in runs["adafactor"][1].items():
         torch.testing.assert_close(runs["adafactor_fused"][1][n], ref, rtol=2e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# LRA, the feature maps and bf16 storage on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,over", [("lra_listops_linear", {}), ("lra_text_softmax", {}),
+                                       ("lra_text_linear", {"feature_map": "favor"})])
+def test_lra_classifier_on_the_card_matches_the_cpu(dev, name, over):
+    """The classifier's logits, loss and every gradient on the card against
+    the CPU, same params, fp32 (no TF32), rows the key mask pads: 1e-4 of
+    the largest magnitude beside 1e-4 relative. Neither side runs a kernel:
+    the masked bidirectional forms are plain torch, as in the JAX package."""
+    from orion_tpu_torch.models.classifier import LRAClassifier
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.train_lra import lra_loss
+    from orion_tpu_torch.training.trainer import param_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(name), max_seq_len=512, **over)
+    cpu = LRAClassifier(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
+    gpu = LRAClassifier(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, 16, (2, 300), generator=g)
+    mask = torch.arange(300)[None, :] < torch.tensor([[300], [171]])
+    labels = torch.tensor([1, 0])
+    before = causal_dot.launches
+    res = {}
+    for label, model, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+        loss, _ = lra_loss(model, toks.to(d), labels.to(d), mask.to(d))
+        loss.backward()
+        res[label] = (model(toks.to(d), mask.to(d)).detach().cpu(), loss.detach().cpu(),
+                      {n: x.cpu() for n, x in param_grads(dict(model.named_parameters())).items()})
+    assert causal_dot.launches == before
+    for got, ref in zip(res["gpu"][:2], res["cpu"][:2]):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()))
+    for n, ref in res["cpu"][2].items():
+        torch.testing.assert_close(res["gpu"][2][n], ref, rtol=1e-4,
+                                   atol=1e-4 * max(float(ref.abs().max()), 1e-30), msg=n)
+
+
+@pytest.mark.parametrize("over", [{"feature_map": "favor"},
+                                  {"feature_map": "learnable", "tie_embeddings": False}])
+def test_feature_maps_through_rows_1_3_4_match_torch(dev, over):
+    """bf16 at Dh 128 (d 256, 2 heads): every launch of rows 1, 3 and 4 on
+    their wgmma kernels, the loss and every gradient within chip_smoke's
+    lm_1b3 limits of backend="torch" (loss 1e-2, gradients 5e-2 relative
+    L2); the fixed favor_proj gets no gradient on either side."""
+    from orion_tpu_torch.training.trainer import param_grads
+
+    cfg = dataclasses.replace(TINY, dtype="bfloat16", d_model=256, n_heads=2, n_layers=3,
+                              remat=True, remat_skip=1, **over)
+    batch = torch.randint(0, cfg.vocab_size, (2, 300), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    results = {}
+    for backend in ("cuda", "torch"):
+        model = TransformerLM(dataclasses.replace(cfg, backend=backend), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(1))
+        before = _wgmma_simt_counts()
+        loss = lm_loss(model, batch)
+        loss.backward()
+        moved = tuple(a - b for a, b in zip(_wgmma_simt_counts(), before))
+        results[backend] = (float(loss), param_grads(dict(model.named_parameters())), moved)
+    assert results["cuda"][2] == (3 + 2, 3, 3, 0, 0, 0)  # wgmma only; 2 blocks recomputed
+    assert results["torch"][2] == (0,) * 6
+    (loss_k, grads_k, _), (loss_t, grads_t, _) = results["cuda"], results["torch"]
+    assert abs(loss_k - loss_t) <= 1e-2
+    for n, ref in grads_t.items():
+        if n.endswith("favor_proj"):
+            assert not grads_k[n].any() and not ref.any()
+            continue
+        assert float((grads_k[n].float() - ref.float()).norm() / ref.float().norm()) <= 5e-2, n
+
+
+def _wgmma_simt_counts():
+    return (causal_dot.launches_wgmma, causal_dot.launches_dq_wgmma, causal_dot.launches_rev_wgmma,
+            causal_dot.launches_simt, causal_dot.launches_dq_simt, causal_dot.launches_rev_simt)
+
+
+def test_sr_round_bf16_on_the_card_bitwise_equals_the_cpu(dev):
+    from orion_tpu_torch.training.trainer import sr_noise_bits, sr_round_bf16
+
+    x = torch.randn(1 << 20, generator=torch.Generator().manual_seed(0)) * 5
+    x[:3] = torch.tensor([float("inf"), -float("inf"), float("nan")])
+    for words in ((0, 0), (0xDEADBEEF, 0x12345678), (0xFFFFFFFF, 0xFFFFFFFF)):
+        assert torch.equal(sr_noise_bits(words, 4099, dev).cpu(), sr_noise_bits(words, 4099))
+        got = sr_round_bf16(x.to(dev), words).cpu().view(torch.int16)
+        assert torch.equal(got, sr_round_bf16(x, words).view(torch.int16))
+
+
+def test_bf16_sr_trainer_on_the_card_matches_the_cpu(dev):
+    """Two fp32-compute AdamW steps with bf16 storage, the card against the
+    CPU from the same weights and batches: the same key words, so the same
+    roundings wherever the fp32 values agree; the losses within 1e-4, the
+    params within two bf16 steps (the two fp32 values p + u may straddle a
+    bf16 value) plus 2^-7 of the leaf's largest update (a bf16 leaf's
+    gradient is bf16, rounded from sums in another order). eps 1e-2 keeps
+    Adam's first update continuous in the gradient."""
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig(model=TINY, steps=3, batch_size=2, seq_len=64, warmup_steps=1, lr=1e-3,
+                      eps=1e-2, param_storage="bfloat16_sr")
+    cpu, gpu = Trainer(cfg, device="cpu"), Trainer(cfg, device=dev)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    init = {n: p.detach().float().clone() for n, p in cpu.params.items()}
+    g = torch.Generator().manual_seed(4)
+    for _ in range(2):
+        b = torch.randint(0, TINY.vocab_size, (2, 65), generator=g)
+        assert abs(gpu.step(b.to(dev))["loss"] - cpu.step(b)["loss"]) <= 1e-4
+    for n, p in cpu.params.items():
+        q = gpu.params[n].cpu()
+        assert q.dtype == p.dtype == (torch.bfloat16 if p.dim() >= 2 else torch.float32), n
+        step = torch.maximum(p.float().abs(), q.float().abs()) * 2.0 ** -7
+        moved = (p.float() - init[n]).abs().max()
+        assert bool(((q.float() - p.float()).abs() <= 2 * step + 2.0 ** -7 * moved).all()), n

@@ -183,9 +183,11 @@ def test_feature_maps_match_jax(name):
 
 
 def test_feature_map_registry():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # favor needs its projection's generator; learnable lives in the model
+    # (both ported: tests/test_torch_model_options.py)
+    with pytest.raises(ValueError, match="generator"):
         make_feature_map("favor")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown"):
         make_feature_map("learnable")
     with pytest.raises(ValueError):
         register_feature_map("elu1", lambda x: x)

@@ -194,8 +194,13 @@ def test_unported_configs_raise():
     routed = [i for i, blk in enumerate(TransformerLM(moe, device="cpu").blocks)
               if hasattr(blk.mlp, "router")]
     assert routed == [3, 7, 11, 15, 19, 23]
-    with pytest.raises(NotImplementedError, match="LRA"):
-        TransformerLM(get_config("lra_text_linear"), device="cpu")
+    # LayerNorm and the classifier are ported (tests/test_torch_lra.py): an
+    # lra_* config builds its LM with LayerNorm, and its classifier
+    lra = dataclasses.replace(get_config("lra_text_linear"), max_seq_len=64)
+    assert type(TransformerLM(lra, device="cpu").final_norm).__name__ == "LayerNorm"
+    from orion_tpu_torch.models.classifier import LRAClassifier
+
+    assert LRAClassifier(lra, device="cpu")(torch.zeros(1, 8, dtype=torch.long)).shape == (1, 2)
     # quantized serving is ported (tests/test_torch_quant_model.py): only an
     # unknown mode raises
     with pytest.raises(ValueError, match="quant must be"):

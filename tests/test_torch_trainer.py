@@ -192,15 +192,21 @@ def test_train_cli_on_the_cpu():
 def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="item 12"):
         Trainer(_cfg(mesh=MeshConfig(dp=2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16_sr"):
-        Trainer(_cfg(param_storage="bfloat16_sr"), device="cpu")
+    # bf16 storage with stochastic rounding is ported
+    # (tests/test_torch_model_options.py): only an unknown storage raises
+    with pytest.raises(ValueError, match="param_storage"):
+        Trainer(_cfg(param_storage="float16"), device="cpu")
     # Adafactor is ported (tests/test_torch_adafactor*.py): only an unknown
     # optimizer raises
     with pytest.raises(ValueError, match="unknown optimizer"):
         Trainer(_cfg(optimizer="sgd"), device="cpu")
+    # remat_policy="dots" is ported (tests/test_torch_model_options.py): only
+    # an unknown policy raises
+    with pytest.raises(ValueError, match="remat_policy"):
+        TransformerLM(dataclasses.replace(TINY, remat=True, remat_policy="offload"),
+                      device="cpu")
     model = TransformerLM(dataclasses.replace(TINY, remat=True, remat_policy="dots"),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="dots"):
-        lm_loss(model, _batches(_cfg(), 1)[0])
+    lm_loss(model, _batches(_cfg(), 1)[0]).backward()
     with torch.no_grad():  # nothing is rematerialized without a gradient
         lm_loss(model, _batches(_cfg(), 1)[0])
