@@ -141,7 +141,7 @@ nonzero and no result line is printed):
    where that spread alone misses the model-level limits (``favor``: the
    exp of FAVOR+ amplifies each bf16 flip), those limits are read, not
    failed (``FAVOR_NOTE``); ``learnable`` with the
-   untied head at int8 (the int8 ``lm_head_kernel_q``); ``remat_policy=
+   untied head at int8 (the int8 ``lm_head_kernel_q``; 4 of the 24 blocks); ``remat_policy=
    "dots"`` training beside "full"'s step ms and peak memory in the same
    run, its first loss bitwise "full"'s and its gradients within the
    gradient check's limits of "full"'s; ``sr_round_bf16`` on the card
@@ -156,10 +156,31 @@ nonzero and no result line is printed):
    on the card against the CPU (logits and loss within 1e-4 of their
    largest magnitude, every gradient within 1e-4 relative L2, fp32 without
    TF32: ``LRA_GRAD_REL_L2``);
-12. a ``kernels`` JSON line (25 entries: the 14 rows, rows 1-10 and 14
+12. serving: the chunked and slot-multiplexed decode programs at 4 slots,
+   chunk 16, on ``lm_1b3`` (6 requests of 1024, 640, 300, 1000, 77 and 512
+   prompt tokens, 32 new tokens each: four prefilled solo and inserted
+   with ``insert_decode_slot``, two admitted late and consumed in 256-token
+   pieces by ``decode_batched_prefill_chunk``), in bf16 and at int4, and
+   on ``hybrid_1b3`` (prompts of 1536 and 1100, past the 1024-key window,
+   and one of 200 staged while the 1100 is mid-prefill), driven by
+   ``SlotHost``: exact launches (row 1 on its wgmma kernel once for each
+   linear layer of a solo prefill and of a unified chunk's piece, row 6
+   once for each swa layer of a solo prefill, row 14 168 a decode step at
+   int4 whatever the busy slots); the contracts of PERF.md: (b) a request's
+   tokens bitwise the same alone in its slot, with an EOS stopping another
+   early and for a sampled run, (c) free and held slots' states, rings
+   included, bitwise through a chunk, (d) extract / insert round trip, (f)
+   each request against a one-row ``generate`` and one decode step at 4
+   slots against 1 row, (g) pieces against ``prefill_last`` (both on row
+   1's wgmma kernel); ``DecodeSession`` on lm_1b3, its tokens bitwise
+   ``generate``'s (a), with a NaN injected (rewind bitwise (e),
+   re-prefill, ``LadderExhausted``); decode ms/token at 4
+   slots with the in-place caches and with a ``decode_step`` that copies
+   each cache and ring at every step, in turns, and a 256-token piece's boundary cost;
+13. a ``kernels`` JSON line (25 entries: the 14 rows, rows 1-10 and 14
    once for each variant; rows 1, 3 and 4 also with their launches under
-   the options of phase 10), then the result line
-   ``{"ok": true, "device": {...}}`` last.
+   the options of phase 10, rows 1, 6 and 14 on the serving path), then the
+   result line ``{"ok": true, "device": {...}}`` last.
 """
 
 import contextlib
@@ -2789,6 +2810,553 @@ def _storage(trainer):
             "fp32": sum(p.dim() < 2 for p in trainer.params.values())}
 
 
+# ---------------------------------------------------------------------------
+# Serving: the chunked and slot-multiplexed decode programs, the in-scan
+# prefill pieces, the in-place caches and DecodeSession
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS, SERVE_CHUNK, SERVE_PIECE, SERVE_NEW = 4, 16, 256, 32
+# lm_1b3's requests: (prompt length, slot, first boundary it may enter, how)
+# -- four prefilled solo and inserted, two staged and consumed in pieces
+LM_PLAN = ((1024, 0, 0, "host"), (640, 1, 0, "host"), (300, 2, 0, "host"),
+           (1000, 0, 2, "host"), (77, 3, 1, "inscan"), (512, 1, 2, "inscan"))
+# hybrid_1b3's: two prompts past the 1024-key window, then a short one
+# staged while the 1100-token one is still mid-prefill
+HYBRID_PLAN = ((1536, 0, 0, "host"), (1100, 1, 0, "inscan"), (200, 2, 2, "inscan"))
+SAMPLED_SERVE = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+class SlotHost:
+    """A host for the slot programs on the card: the batched carry, each
+    request admitted into its slot by a solo ``prefill_carry`` and
+    ``insert_decode_slot``, or staged for ``decode_batched_prefill_chunk``'s
+    pieces; at each boundary it reads back the emitted tokens, collects each
+    request's as its slot emits them and frees a slot whose request has its
+    tokens or emitted EOS. (The port's ``SlotEngine`` is the next slice.)"""
+
+    def __init__(self, model, sample, slots=SERVE_SLOTS, bucket=2048):
+        from orion_tpu_torch.models.transformer import init_decode_state
+
+        dev = model.device
+        self.model, self.sample, self.dev = model, sample, dev
+        z = torch.zeros(slots, dtype=torch.long, device=dev)
+        self.carry = (z.clone(), init_decode_state(model.cfg, slots, dev), z.clone(), z.clone(),
+                      torch.zeros(slots, dtype=torch.bool, device=dev))
+        self.keys = torch.zeros(slots, 2, dtype=torch.long, device=dev)
+        self.active = torch.zeros(slots, dtype=torch.bool, device=dev)
+        self.pbuf = torch.zeros(slots, bucket, dtype=torch.long, device=dev)
+        self.plen, self.pfold = z.clone(), z.clone()
+        self.owner, self.want, self.got = [None] * slots, {}, {}
+        self.host_prefills = self.unified = self.pure = 0
+
+    @property
+    def states(self):
+        return self.carry[1]
+
+    @torch.inference_mode()
+    def _take(self, j, tag, seed, max_new, token, t, plen):
+        from orion_tpu_torch.generate import request_keys
+
+        tok, _, tt, emit, done = self.carry
+        tok[j], tt[j], emit[j], done[j] = token, t, 0, False
+        self.keys[j] = request_keys(seed, 1, self.dev)[0]
+        self.plen[j], self.pfold[j] = plen, 0
+        self.active[j] = True
+        self.owner[j], self.want[tag], self.got[tag] = tag, max_new, []
+
+    def admit(self, j, tag, tokens, seed, max_new):
+        from orion_tpu_torch.generate import prefill_carry, request_keys
+        from orion_tpu_torch.models.transformer import insert_decode_slot
+
+        c = prefill_carry(self.model, tokens, self.sample, request_keys(seed, 1, self.dev))
+        insert_decode_slot(self.states, c[1], j)
+        self._take(j, tag, seed, max_new, c[0][0], c[2], 0)
+        self.host_prefills += 1
+
+    def stage(self, j, tag, tokens, seed, max_new):
+        from orion_tpu_torch.models.transformer import init_decode_state, insert_decode_slot
+
+        insert_decode_slot(self.states, init_decode_state(self.model.cfg, 1, self.dev), j)
+        with torch.inference_mode():
+            self.pbuf[j] = 0
+            self.pbuf[j, :tokens.shape[1]] = tokens[0]
+        self._take(j, tag, seed, max_new, 0, 0, tokens.shape[1])
+
+    def prefilling(self):
+        return bool((self.active & (self.carry[2] < self.plen)).any())
+
+    def chunk(self, n_steps=SERVE_CHUNK, pchunk=SERVE_PIECE):
+        """One boundary's chunk: the unified program while a slot is mid-
+        prefill, the pure decode program otherwise."""
+        from orion_tpu_torch.generate import decode_batched_chunk, decode_batched_prefill_chunk
+
+        before = self.carry[3].clone()
+        if self.prefilling():
+            self.carry, toks = decode_batched_prefill_chunk(
+                self.model, self.carry, self.keys, self.active, self.pbuf, self.plen, self.pfold,
+                n_steps, pchunk, self.sample)
+            self.unified += 1
+        else:
+            self.carry, toks = decode_batched_chunk(self.model, self.carry, self.keys,
+                                                    self.active, n_steps, self.sample)
+            self.pure += 1
+        emitted = (self.carry[3] - before).tolist()
+        done, toks = self.carry[4].tolist(), toks.tolist()
+        for j, tag in enumerate(self.owner):
+            if tag is None:
+                continue
+            if emitted[j]:
+                self.got[tag].extend(toks[j][n_steps - emitted[j]:])
+            if len(self.got[tag]) >= self.want[tag] or done[j]:
+                self.got[tag] = self.got[tag][:self.want[tag]]
+                self.active[j] = False
+                self.owner[j] = None
+        return toks
+
+    @property
+    def busy(self):
+        return any(o is not None for o in self.owner)
+
+
+def _serve_prompts(plan, vocab):
+    rng = np.random.default_rng(7)
+    return [torch.from_numpy(rng.integers(0, vocab, (1, n), dtype=np.int64)) for n, *_ in plan]
+
+
+def _slot_rows(host, slots):
+    """Copies of the given slots' state rows and their t, emit and done."""
+    from orion_tpu_torch.models.transformer import extract_decode_slot
+
+    return {j: (extract_decode_slot(host.states, j),
+                [x[j].clone() for x in (host.carry[2], host.carry[3], host.carry[4])])
+            for j in slots}
+
+
+def _rows_equal(a, b):
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a[0], b[0]) for k in x) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+def run_plan(model, plan, sample, only=None, watch=None, seed0=100):
+    """Serve ``plan``'s requests (``only``: those indices alone, in their
+    own slots) through a ``SlotHost`` -> (tokens by request, the host,
+    boundaries). ``watch`` {boundary: slots}: those slots' rows must come
+    out of that boundary's chunk bitwise as they went in (free or held
+    mid-prefill: contract (c))."""
+    dev = model.device
+    prompts = _serve_prompts(plan, model.cfg.vocab_size)
+    host = SlotHost(model, sample)
+    pending = [i for i in range(len(plan)) if only is None or i in only]
+    boundary, held = 0, {}
+    while pending or host.busy:
+        for i in list(pending):
+            n, slot, first, how = plan[i]
+            if (only is not None or boundary >= first) and host.owner[slot] is None:
+                (host.admit if how == "host" else host.stage)(slot, i, prompts[i].to(dev),
+                                                              seed0 + i, SERVE_NEW)
+                pending.remove(i)
+        if watch and boundary in watch:
+            before = _slot_rows(host, watch[boundary])
+        host.chunk()
+        if watch and boundary in watch:
+            after = _slot_rows(host, watch[boundary])
+            held[boundary] = {j: _rows_equal(before[j], after[j]) for j in watch[boundary]}
+            if not all(held[boundary].values()):
+                raise AssertionError(f"a free or held slot's state moved at boundary {boundary}: "
+                                     f"{held[boundary]}")
+        boundary += 1
+        if boundary > 64:
+            raise AssertionError("the slot plan did not drain")
+    return host.got, host, boundary, held
+
+
+def _eos_cut(tokens, eos):
+    """Tokens as an EOS-stopped request emits them: through its first EOS."""
+    return tokens[:tokens.index(eos) + 1] if eos in tokens else tokens
+
+
+def _prefill_pieces(model, prompt, piece=SERVE_PIECE):
+    """``prompt`` [1, T] consumed in ``piece``-token pieces from a zero state
+    (the last one right-padded), as a staged slot consumes it."""
+    from orion_tpu_torch.models.transformer import init_decode_state
+
+    states = init_decode_state(model.cfg, 1, model.device)
+    t = prompt.shape[1]
+    with torch.inference_mode():
+        for off in range(0, t, piece):
+            cons = min(piece, t - off)
+            chunk = torch.nn.functional.pad(prompt[:, off:off + cons], (0, piece - cons))
+            logits, states = model.prefill_extend_step(chunk, states, off, cons)
+    return logits, states
+
+
+def _copying_attention_decode_step(self, x, state, t=None, write=None):
+    """``Attention.decode_step`` as it was before the caches were written in
+    place, kept for the "before" times: each softmax / swa step copies the
+    whole cache or ring (clone, out-of-place index_copy). Times only: every
+    row is active (``write`` all True), as it ignores the mask."""
+    from orion_tpu_torch.ops.linear_attention import recurrent_step
+    from orion_tpu_torch.ops.rotary import apply_rotary_at
+    from orion_tpu_torch.ops.softmax_attention import cached_attention
+
+    q, k, v = self._heads(x)
+    if self.layer_type == "linear":
+        out, (s, z) = recurrent_step(self._phi_map(q), self._phi_map(k), v,
+                                     (state["s"], state["z"]))
+        return self._merge(out, single=True), {"s": s, "z": z}
+    t = torch.as_tensor(t, device=x.device).long()
+    per_seq = t.dim() == 1
+    pos = t[:, None] if per_seq else t
+    qr = apply_rotary_at(q, self.freqs, pos)
+    kr = apply_rotary_at(k, self.freqs, pos)
+    cap = state["k"].shape[-2]
+    slot = t % cap if self.layer_type == "swa" else t
+    if per_seq:
+        rows = torch.arange(x.shape[0], device=x.device)
+        kc, vc = state["k"].clone(), state["v"].clone()
+        kc[rows, :, slot] = kr.to(kc.dtype)
+        vc[rows, :, slot] = v.to(vc.dtype)
+        valid = torch.arange(cap, device=x.device)[None, None, :] <= t[:, None, None]
+    else:
+        idx = slot.reshape(1)
+        kc = state["k"].index_copy(2, idx, kr[:, :, None].to(state["k"].dtype))
+        vc = state["v"].index_copy(2, idx, v[:, :, None].to(state["v"].dtype))
+        valid = (torch.arange(cap, device=x.device) <= t)[None, None, :]
+    out = cached_attention(qr, kc, vc, valid)
+    return self._merge(out, single=True), {"k": kc, "v": vc}
+
+
+@contextlib.contextmanager
+def copying_decode_step():
+    from orion_tpu_torch.models.transformer import Attention
+
+    current = Attention.decode_step
+    Attention.decode_step = _copying_attention_decode_step
+    try:
+        yield
+    finally:
+        Attention.decode_step = current
+
+
+def serve_times(model, plan, label, card):
+    """Decode ms/token with 4 busy slots (a ``decode_batched_chunk`` of 16
+    steps over 16, median of 3) with this tree's in-place ``decode_step``
+    and with the copying one before it, in turns; and the boundary cost of a
+    256-token piece, with one slot staged: a one-step unified chunk's ms
+    less a one-step pure one's, medians of 5."""
+    from orion_tpu_torch.generate import (SampleConfig, decode_batched_chunk,
+                                          decode_batched_prefill_chunk)
+
+    greedy = SampleConfig(temperature=0.0)
+    prompts = _serve_prompts(plan, model.cfg.vocab_size)
+    host = SlotHost(model, greedy)
+    for j in range(SERVE_SLOTS):
+        host.admit(j, j, prompts[j % len(prompts)].to(model.device), 900 + j, 10**6)
+
+    def chunk():
+        host.carry, _ = decode_batched_chunk(model, host.carry, host.keys, host.active,
+                                             SERVE_CHUNK, greedy)
+
+    chunk()  # warm-up
+    gc.collect()
+    runs = {"in_place": [], "copying": []}
+    for _ in range(3):
+        for name in ("copying", "in_place"):
+            with copying_decode_step() if name == "copying" else contextlib.nullcontext():
+                runs[name].append(wall_ms(chunk)[0] / SERVE_CHUNK)
+    # the boundary cost: slot 3 staged with a prompt of 5 pieces; a unified
+    # chunk of one step less a pure one of one step (the staged slot left
+    # out), in turns, medians of 5
+    long = torch.from_numpy(np.random.default_rng(8).integers(
+        0, model.cfg.vocab_size, (1, 1280), dtype=np.int64)).to(model.device)
+    host.stage(3, 3, long, 903, 10**6)
+    decoding = host.active.clone()
+    decoding[3] = False
+    pure, unified = [], []
+
+    def pure_step():
+        host.carry, _ = decode_batched_chunk(model, host.carry, host.keys, decoding, 1, greedy)
+
+    def unified_step():
+        host.carry, _ = decode_batched_prefill_chunk(
+            model, host.carry, host.keys, host.active, host.pbuf, host.plen, host.pfold, 1,
+            SERVE_PIECE, greedy)
+
+    for _ in range(5):
+        unified.append(wall_ms(unified_step)[0])
+        pure.append(wall_ms(pure_step)[0])
+    res = {"decode_ms_per_token_in_place": float(np.median(runs["in_place"])),
+           "decode_ms_per_token_copying": float(np.median(runs["copying"])),
+           "runs": runs, "unified_step_ms": unified, "pure_step_ms": pure,
+           "piece_boundary_ms": float(np.median(unified) - np.median(pure))}
+    log(f"{label} times ({card}): decode at 4 slots {res['decode_ms_per_token_in_place']:.3f} "
+        f"ms/token in place against {res['decode_ms_per_token_copying']:.3f} with the "
+        f"copying decode_step (runs {runs}); a 256-token piece's boundary cost "
+        f"{res['piece_boundary_ms']:.2f} ms (a unified chunk of one step {unified}, a pure one "
+        f"{pure})")
+    return res
+
+
+def serving_phase(dev, mods, name, plan, card, quant="", watch=None,
+                  checks=("eos", "f", "g", "sampled", "times")):
+    """The serving programs of ``name`` at full width (``quant``: quantized
+    from the seeded fp32 weights). ``plan`` served greedy through a
+    ``SlotHost`` (chunk 16, pieces of 256) with exact launch counts, the
+    ``watch``ed slots held bitwise (c) and an extract / insert round trip
+    (d). ``checks``: "alone" -- two requests each alone in its slot,
+    bitwise their tokens in company (b); "eos" -- the plan again with an EOS
+    that stops
+    request 1 early, every request's tokens bitwise as before though the
+    company and the admission times change (b); "f" -- each request against
+    a one-row ``generate`` at its seed, and one decode step at 4 slots
+    against 1 row (logits, states); "g" -- pieces of 256 against
+    ``prefill_last``; "sampled" -- one sampled run and its alone runs (b),
+    and against one-row ``generate`` (f, asserted where the rows are
+    bitwise); "times" -- ``serve_times``; "session" -- ``session_check``.
+    (f) and (g) are asserted as PERF.md's contracts say: bitwise where the
+    card is, else within the logits and state limits with equal greedy
+    tokens."""
+    from orion_tpu_torch.generate import (SampleConfig, cast_params_for_inference, generate,
+                                          prefill_carry, quantize_for_decode, request_keys)
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.models.transformer import (TransformerLM, extract_decode_slot,
+                                                    init_decode_state, insert_decode_slot)
+
+    cfg = get_config(name)
+    fp = TransformerLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    model = quantize_for_decode(fp, quant) if quant else cast_params_for_inference(fp)
+    del fp
+    torch.cuda.empty_cache()
+    label = f"{name}{' ' + quant if quant else ''} serving"
+    greedy = SampleConfig(temperature=0.0)
+    lin, attn, _, _ = _layer_counts(cfg)
+    prompts = _serve_prompts(plan, cfg.vocab_size)
+    run_plan(model, plan, greedy, only=[len(plan) - 1])  # warm-up: cuBLAS plans, allocator
+    gc.collect()
+
+    _reset_counts(mods)
+    t0 = time.perf_counter()
+    got, host, boundaries, held = run_plan(model, plan, greedy, watch=watch)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = _counts(mods)
+    steps = (host.unified + host.pure) * SERVE_CHUNK
+    want = dict.fromkeys(KERNELS, 0)
+    # every linear layer of a solo prefill and of a unified chunk's piece (the
+    # piece runs whether or not a slot is mid-prefill); a softmax / swa layer
+    # of a solo prefill (the pieces' are plain, as in JAX); one q4 launch per
+    # int4 layer and decode step, busy slots or not
+    want.update(causal_dot_norm_wgmma=lin * (host.host_prefills + host.unified),
+                flash_fwd_wgmma=attn * host.host_prefills,
+                q4_matmul_mma=_q4_per_step(cfg) * steps if quant == "int4" else 0)
+    log(f"{label}: {len(plan)} requests in {boundaries} boundaries ({host.host_prefills} solo "
+        f"prefills, {host.unified} unified chunks, {host.pure} pure, {steps} decode steps) in "
+        f"{serve_s:.2f} s; launches {counts}; watched slots held bitwise (c): {held}")
+    if counts != want:
+        raise AssertionError(f"{label} launched {counts}, want {want}")
+    if sorted(got) != list(range(len(plan))) or any(
+            len(v) != SERVE_NEW or min(v) < 0 or max(v) >= cfg.vocab_size for v in got.values()):
+        raise AssertionError(f"{label}: requests came back incomplete or out of vocabulary")
+    res = {"launches": counts, "serve_s": serve_s, "boundaries": boundaries,
+           "host_prefills": host.host_prefills, "unified_chunks": host.unified,
+           "pure_chunks": host.pure, "decode_steps": steps,
+           "held": {str(k): v for k, v in held.items()}}
+
+    # (d): a row out and back in, bitwise; its neighbour untouched
+    row, other = extract_decode_slot(host.states, 0), extract_decode_slot(host.states, 1)
+    insert_decode_slot(host.states, row, 3)
+    same = (lambda a, b: all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x))
+    if not (same(extract_decode_slot(host.states, 3), row)
+            and same(extract_decode_slot(host.states, 1), other)):
+        raise AssertionError(f"{label}: extract_decode_slot(insert_decode_slot(...)) moved a value")
+    del host, row, other
+
+    # (b): requests alone in their slots (a solo-admitted one, an in-scan one)
+    alone_idx = [2, next(i for i, p in enumerate(plan) if p[3] == "inscan")]
+    b_alone = {i: run_plan(model, plan, greedy, only=[i])[0][i] == got[i]
+               for i in (alone_idx if "alone" in checks else ())}
+    res["b"] = {"alone": b_alone}
+    if "eos" in checks:  # an EOS stops one request early; the rest bitwise the same
+        eos_tok = got[1][3]
+        got_eos = run_plan(model, plan, dataclasses.replace(greedy, eos_token=eos_tok))[0]
+        res["b"]["eos"] = all(
+            _eos_cut(got_eos[i], eos_tok) == _eos_cut(got[i], eos_tok) and
+            set(got_eos[i][len(_eos_cut(got[i], eos_tok)):]) <= {0} for i in got)
+        res["b"]["eos_token"] = eos_tok
+    log(f"{label} (b), bitwise: {res['b']}")
+    if not all(b_alone.values()) or not res["b"].get("eos", True):
+        raise AssertionError(f"{label}: a request's tokens moved with its company (b)")
+
+    f_bitwise = False
+    if "f" in checks:  # (f): against a one-row generate at its seed
+        solo = [generate(model, prompts[i].to(dev), SERVE_NEW, greedy, 100 + i)[0].tolist()
+                for i in range(len(plan))]
+        f_tokens = [solo[i] == got[i] for i in range(len(plan))]
+        # one decode step at 4 slots against 1 row, from the same state
+        c1 = prefill_carry(model, prompts[0].to(dev), greedy, request_keys(100, 1, dev))
+        states4 = init_decode_state(cfg, SERVE_SLOTS, dev)
+        for j in range(SERVE_SLOTS):
+            insert_decode_slot(states4, c1[1], j)
+        with torch.inference_mode():
+            lg4, st4 = model.decode_step(c1[0].expand(SERVE_SLOTS).contiguous(), states4,
+                                         torch.full((SERVE_SLOTS,), c1[2], device=dev),
+                                         torch.ones(SERVE_SLOTS, dtype=torch.bool, device=dev))
+            lg1, st1 = model.decode_step(c1[0], c1[1], c1[2])
+        f_logits = float((lg4[0] - lg1[0]).abs().max())
+        f_bitwise = bool(torch.equal(lg4, lg1.expand_as(lg4))) and all(
+            torch.equal(a[k][j], b[k][0]) for a, b in zip(st4, st1) for k in a
+            for j in range(SERVE_SLOTS))
+        f_state = _state_err([{k: v[:1] for k, v in s.items()} for s in st4], st1)
+        # where they differ, the one-row walk fed the slot's tokens: every
+        # slot token is the one-row logits' argmax, or within the logits
+        # limit of its maximum (a near-tie the two products' roundings
+        # decide apart)
+        f_gaps = [_forced_gaps(model, prompts[i].to(dev), got[i]) if not f_tokens[i] else [0.0]
+                  for i in range(len(plan))]
+        f_flips = [sum(g > 0 for g in gaps) for gaps in f_gaps]
+        f_gap = max(max(gaps) for gaps in f_gaps)
+        log(f"{label} (f): one-row generate's tokens equal the slot's, by request: {f_tokens}; "
+            f"one decode step at 4 slots against 1 row: bitwise {f_bitwise}, logits max abs "
+            f"{f_logits:.4e} (limit {LOGITS_ATOL}), states max rel {f_state}; the one-row walk "
+            f"fed the slot's tokens: tokens off its argmax by request {f_flips}, largest gap to "
+            f"its maximum {f_gap:.4e} (limit {LOGITS_ATOL})")
+        if f_logits > LOGITS_ATOL or (f_state[0] or 0) > LAYER_S_RTOL or (
+                f_state[1] or 0) > LAYER_KV_RTOL or f_gap > LOGITS_ATOL or (
+                f_bitwise and not all(f_tokens)):
+            raise AssertionError(f"{label}: slot rows disagree with a one-row generate (f)")
+        res["f"] = {"tokens_equal": f_tokens, "bitwise": f_bitwise, "logits_max_abs": f_logits,
+                    "state_max_rel": f_state, "forced_off_argmax": f_flips,
+                    "forced_max_gap": f_gap}
+
+    if "g" in checks:  # (g): pieces of 256 (4 x row 1's chunk) against prefill_last
+        g = {}
+        longest = max(p[0] for p in plan)
+        for i, (n, _, _, how) in enumerate(plan):
+            if how != "inscan" and n != longest:
+                continue
+            p = prompts[i].to(dev)
+            _reset_counts(mods)
+            lg, st = _prefill_pieces(model, p)
+            piece_counts = _counts(mods)
+            with torch.inference_mode():
+                rlg, rst = model.prefill_last(p)
+            mono = {k: v - piece_counts[k] for k, v in _counts(mods).items()}
+            pieces = -(-n // SERVE_PIECE)
+            if (piece_counts["causal_dot_norm_wgmma"], mono["causal_dot_norm_wgmma"],
+                    piece_counts["causal_dot_norm_simt"], mono["causal_dot_norm_simt"]) != (
+                    lin * pieces, lin, 0, 0):
+                raise AssertionError(f"{label} (g): row 1 launches {piece_counts} / {mono}, "
+                                     f"want {lin} x {pieces} and {lin}, all wgmma")
+            kinds = cfg.resolved_layer_types
+            read = [[{k: _readable_rows(cfg, lt, v, n) for k, v in a.items()}
+                     for lt, a in zip(kinds, sts)] for sts in (st, rst)]
+            bit = bool(torch.equal(lg, rlg)) and all(
+                torch.equal(a[k], b[k]) for a, b in zip(*read) for k in a)
+            err = float((lg - rlg).abs().max())
+            s_err, kv_err = _state_err(*read)
+            g[n] = {"pieces": pieces, "bitwise": bit, "logits_max_abs": err, "s_max_rel": s_err,
+                    "kv_max_rel": kv_err, "greedy_equal": int(lg.argmax()) == int(rlg.argmax())}
+            if err > LOGITS_ATOL or (s_err or 0) > LAYER_S_RTOL or (
+                    kv_err or 0) > LAYER_KV_RTOL or not g[n]["greedy_equal"]:
+                raise AssertionError(f"{label} (g): {n} tokens in pieces disagree with "
+                                     f"prefill_last: {g[n]}")
+        log(f"{label} (g): pieces of {SERVE_PIECE} against prefill_last, by prompt length: {g}")
+        res["g"] = g
+
+    if "sampled" in checks:  # one sampled run, its requests alone in their slots (b)
+        sample = SampleConfig(**SAMPLED_SERVE)
+        got_s = run_plan(model, plan, sample)[0]
+        bs = {i: run_plan(model, plan, sample, only=[i])[0][i] == got_s[i] for i in alone_idx}
+        log(f"{label} sampled {SAMPLED_SERVE}: alone in its slot, bitwise (b): {bs}")
+        if not all(bs.values()):
+            raise AssertionError(f"{label}: a sampled request's tokens moved with its company (b)")
+        res["sampled"] = {"alone": bs}
+    if "times" in checks:
+        res["times"] = serve_times(model, plan, label, card)
+    if "session" in checks:
+        res["session"] = session_check(model, label)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+@torch.inference_mode()
+def _forced_gaps(model, prompt, tokens):
+    """A one-row walk fed ``tokens`` (a slot's greedy tokens for ``prompt``):
+    at each step the gap between the walk's largest logit and the logit of
+    the token the slot emitted there (0 where it is the walk's argmax)."""
+    logits, states = model.prefill_last(prompt)
+    gaps = []
+    for i, tok in enumerate(tokens):
+        gaps.append(float(logits[0].max() - logits[0, tok]))
+        if i + 1 < len(tokens):
+            logits, states = model.decode_step(torch.tensor([tok], device=prompt.device), states,
+                                               prompt.shape[1] + i)
+    return gaps
+
+
+def _readable_rows(cfg, lt, x, n):
+    """A state's entries that decode reads after a prompt of ``n``."""
+    if lt == "softmax":
+        return x[:, :, :n]
+    if lt == "swa":
+        return x[:, :, torch.arange(max(0, n - cfg.window), n, device=x.device) % cfg.window]
+    return x
+
+
+def session_check(model, label, prompt_len=512, new=48):
+    """``DecodeSession`` (chunk 16): its tokens bitwise ``generate``'s (a);
+    with a NaN injected after chunk 1's attempt, greedy (sampled: the
+    rewind alone): once (the rewind: bitwise
+    the uninterrupted tokens), twice (the
+    snapshot poisoned too: the re-prefill of prompt + the 16 emitted
+    tokens, a state the parallel prefill rebuilds and not the 16 recurrent
+    steps, so not bitwise: in greedy, the uninterrupted tokens fed through
+    the rebuilt state are each within ``LOGITS_ATOL`` of its argmax, as
+    (f)), every attempt (``LadderExhausted``: status "failed", the tokens
+    before it kept)."""
+    from orion_tpu_torch.generate import SampleConfig, generate
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.serving import DecodeRequest, DecodeSession
+
+    session = DecodeSession(model, chunk=SERVE_CHUNK)
+    p = np.random.default_rng(9).integers(0, model.cfg.vocab_size, (1, prompt_len))
+    out = {}
+    for sname, sample in (("greedy", SampleConfig(temperature=0.0)),
+                          ("sampled", SampleConfig(**SAMPLED_SERVE))):
+        req = DecodeRequest(p, new, sample, seed=5)
+        ref = session.run(req)
+        # (a): the chunked walk is generate's, bitwise
+        runs = {"generate_equal": bool(np.array_equal(
+            generate(model, torch.from_numpy(p).to(model.device), new, sample, 5).cpu().numpy(),
+            ref.tokens))}
+        rungs = (("rewind", 1), ("reprefill", 2), ("exhausted", -1))
+        for rung, times in rungs if sname == "greedy" else rungs[:1]:
+            with inject.inject(inject.FaultPlan().poison_decode_state_at(1, times)):
+                r = session.run(req)
+            runs[rung] = {"status": r.status, "rewinds": r.rewinds, "reprefills": r.reprefills,
+                          "equal": bool(np.array_equal(r.tokens, ref.tokens[:, :r.new_tokens]))}
+        if sname == "greedy":  # the rebuilt walk fed the uninterrupted tokens
+            seq = torch.from_numpy(np.concatenate([p, ref.tokens[:, :SERVE_CHUNK]], 1))
+            gaps = _forced_gaps(model, seq.to(model.device), ref.tokens[0, SERVE_CHUNK:].tolist())
+            runs["reprefill"]["forced_max_gap"] = max(gaps)
+            runs["reprefill"]["forced_off_argmax"] = sum(g > 0 for g in gaps)
+        out[sname] = runs
+        log(f"{label} DecodeSession {sname}: uninterrupted {ref.status}, {ref.new_tokens} tokens; "
+            f"NaN after chunk 1: {runs}")
+        ok = ref.status == "ok" and runs["generate_equal"] and runs["rewind"] == {
+            "status": "ok", "rewinds": 1, "reprefills": 0, "equal": True}
+        if sname == "greedy":
+            ok = ok and (runs["reprefill"]["status"] == "ok"
+                         and runs["reprefill"]["reprefills"] == 1
+                         and runs["reprefill"]["forced_max_gap"] <= LOGITS_ATOL
+                         and runs["exhausted"]["status"] == "failed"
+                         and runs["exhausted"]["equal"])
+        if not ok:
+            raise AssertionError(f"{label}: DecodeSession's ladder misbehaved: {runs}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -2896,7 +3464,10 @@ def main() -> int:
             f"gradients up to {fm_grad['grad_rel_l2_max']:.4g} relative L2; the plain path "
             f"against itself {spread['logits_max_abs']:.4e}, {spread['grad_rel_l2_max']:.4g}; "
             f"train step {fm_train['step_ms']:.2f} ms against elu+1's {lm_train['step_ms']:.2f}")
-    quant_generate_phase(dev, mods, "lm_1b3", 1024, 32, "int8", learnable)
+    # the int8 untied head (lm_head_kernel_q) at lm_1b3's width; 4 of its 24
+    # blocks, to keep the script inside the time it took before the serving
+    # phases came (the head, not the depth, is what this path checks)
+    quant_generate_phase(dev, mods, "lm_1b3", 1024, 32, "int8", {**learnable, "n_layers": 4})
     dots = train_phase(dev, mods, "lm_1b3", 1024, {"remat_policy": "dots"})
     log(f"lm_1b3 remat 'dots' step {dots['step_ms']:.2f} ms, max memory allocated "
         f"{dots['max_memory_gib']:.2f} GiB against 'full''s {lm_train['step_ms']:.2f} ms, "
@@ -2920,6 +3491,17 @@ def main() -> int:
         lra[name] = lra_phase(dev, mods, name, t, b)
         lra[name]["card_vs_cpu"] = lra_card_vs_cpu(dev, name, t)
     log(f"LRA phases done at {time.perf_counter() - t0:.1f} s")
+
+    serving = {
+        "lm_1b3": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, watch={2: [2]},
+                                checks=("alone", "eos", "f", "g", "sampled", "times",
+                                        "session")),
+        "lm_1b3_int4": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, quant="int4",
+                                     checks=()),
+        "hybrid_1b3": serving_phase(dev, mods, "hybrid_1b3", HYBRID_PLAN, card,
+                                    watch={2: [1, 3]}, checks=("alone", "g", "times")),
+    }
+    log(f"serving phases done at {time.perf_counter() - t0:.1f} s")
 
     for k in kernels:
         if k["name"] in ("causal_dot_wgmma", "causal_dot_rev_wgmma"):  # the public op at D 128
@@ -2972,6 +3554,9 @@ def main() -> int:
                                                  "generate": runs["generate"][k["name"]]}
             k["launches_lm_1b3_dots_train"] = dots["launches"][k["name"]]
             k["launches_lm_1b3_bf16_sr_train"] = sr["launches"][k["name"]]
+    for k in kernels:  # rows 1, 6 and 14 on the serving path (the slot programs' runs)
+        if k["name"] in ("causal_dot_norm_wgmma", "flash_fwd_wgmma", "q4_matmul_mma"):
+            k["launches_serving"] = {label: r["launches"][k["name"]] for label, r in serving.items()}
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,10 +10,18 @@ The port's counterpart of ``orion_tpu/generate.py``:
 2. **decode** -- a Python loop of ``decode_step``, one token at a time, with
    O(1) state per linear layer and one query over the cache per softmax /
    swa layer;
-3. **sampling** -- greedy / temperature / top-k / top-p, drawn from a
-   ``torch.Generator``. torch's and JAX's generators draw different numbers,
-   so sampled tokens match the JAX package's only in distribution; greedy
-   tokens match exactly.
+3. **sampling** -- greedy / temperature / top-k / top-p, each row drawn
+   with its own counter key (``sample_rows``): request seed, row, then the
+   emitted token's index, so a row's tokens do not depend on the batch it
+   sits in. The port's counter hash and JAX's threefry draw different
+   numbers, so sampled tokens match the JAX package's only in distribution;
+   greedy tokens match exactly.
+
+The serving walk's programs (the JAX package's ``prefill_carry``,
+``decode_chunk``, ``generate_chunked``, ``decode_batched_chunk`` and
+``decode_batched_prefill_chunk``) are here too: plain Python loops over
+``decode_step`` and ``prefill_extend_step`` that advance the decode state in
+place, with no host read-back.
 
 A capacity-dispatch MoE model is served with its capacity factor raised to
 E / k for the call (the JAX package's no-drop serving rule): decode never
@@ -40,9 +48,10 @@ import argparse
 import contextlib
 import dataclasses
 import sys
-from typing import List, Optional
+from typing import List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from orion_tpu_torch.models.configs import ModelConfig, get_config
 from orion_tpu_torch.models.moe import MoEMLP
@@ -50,6 +59,7 @@ from orion_tpu_torch.models.transformer import Dense, TransformerLM
 from orion_tpu_torch.quant import MODES, check_mode, quantize_params_for_decode
 from orion_tpu_torch.resilience.retry import RetryPolicy
 from orion_tpu_torch.training.checkpoint import load_params
+from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -68,12 +78,9 @@ class SampleConfig:
         return self.temperature == 0.0
 
 
-def sample_logits(
-    logits: Tensor, generator: Optional[torch.Generator], cfg: SampleConfig
-) -> Tensor:
-    """logits [B, V] -> token ids [B] (int64)."""
-    if cfg.greedy:
-        return torch.argmax(logits, dim=-1)
+def _filtered_logits(logits: Tensor, cfg: SampleConfig) -> Tensor:
+    """fp32 logits over the temperature, with what top-k / top-p filter out
+    at -inf; every op is row-wise."""
     logits = logits.float() / cfg.temperature
     # top_k >= V means "no filtering", not an out-of-range index
     k = min(cfg.top_k, logits.shape[-1]) if cfg.top_k > 0 else 0
@@ -92,8 +99,58 @@ def sample_logits(
             keep, sorted_logits, torch.full_like(sorted_logits, float("inf"))
         ).min(dim=-1, keepdim=True).values
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return logits
+
+
+def _gumbel_argmax(logits: Tensor, u: Tensor, cfg: SampleConfig) -> Tensor:
+    """The Gumbel-max draw over the filtered logits, uniforms ``u`` in (0, 1)
+    of the logits' shape: a sample of softmax(filtered logits)."""
+    return torch.argmax(_filtered_logits(logits, cfg) - torch.log(-torch.log(u)), dim=-1)
+
+
+def sample_logits(
+    logits: Tensor, generator: Optional[torch.Generator], cfg: SampleConfig
+) -> Tensor:
+    """logits [B, V] -> token ids [B] (int64), the noise of the whole batch
+    drawn from one ``torch.Generator``. The programs below draw with
+    ``sample_rows``."""
+    if cfg.greedy:
+        return torch.argmax(logits, dim=-1)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return _gumbel_argmax(logits, u.clamp_min(2.0**-25), cfg)
+
+
+def sample_rows(logits: Tensor, keys: Tensor, cfg: SampleConfig) -> Tensor:
+    """logits [S, V] and counter keys [S, 2] (``utils/rng.py``) -> token ids
+    [S] (int64): row b depends on ``logits[b]`` and ``keys[b]`` alone, so a
+    request draws the same tokens in any batch (the JAX package's
+    ``_sample_rows``). Greedy rows are the argmax; sampled rows the
+    Gumbel-max draw over the filtered logits, its noise the counter hash of
+    (key, vocabulary index) as a uniform in (0, 1), all on the logits'
+    device."""
+    if cfg.greedy:
+        return torch.argmax(logits, dim=-1)
+    bits = rngs.counter_bits(keys, logits.shape[-1])
+    return _gumbel_argmax(logits, ((bits >> 8).float() + 0.5) * 2.0**-24, cfg)
+
+
+def request_keys(seed: int, rows: int, device=None) -> Tensor:
+    """The counter keys [rows, 2] of a request's rows: row b of a request of
+    seed ``seed`` folds ``b`` into the seed's key. A one-row request of seed
+    s and row 0 of any request of seed s draw alike; the token a row emits
+    at index i is drawn with ``fold_keys(key, i)`` (index 0: the prefill's
+    token)."""
+    key = torch.tensor(rngs.key_words(rngs.root_key(int(seed))), dtype=torch.int64,
+                       device=device)
+    return rngs.fold_keys(key, torch.arange(rows, device=device))
+
+
+def _seed(generator: Union[None, int, torch.Generator]) -> int:
+    """A request's seed: an int as it is, a ``torch.Generator``'s initial
+    seed, 0 for None."""
+    if isinstance(generator, torch.Generator):
+        return generator.initial_seed()
+    return 0 if generator is None else int(generator)
 
 
 @torch.no_grad()
@@ -157,10 +214,15 @@ def generate(
     prompt: Tensor,
     max_new_tokens: int,
     sample: Optional[SampleConfig] = None,
-    generator: Optional[torch.Generator] = None,
+    generator: Union[None, int, torch.Generator] = None,
     quant: str = "",
 ) -> Tensor:
     """prompt [B, T0] (or [T0]) -> generated tokens [B, max_new_tokens].
+
+    ``generator``: the request's seed, an int or a ``torch.Generator``
+    (its initial seed); None is seed 0. Row b samples with
+    ``request_keys(seed, B)[b]``, so a one-row ``generate`` at seed s draws
+    what a serving slot of a seed-s request draws.
 
     ``quant="int8"`` / ``"int4"``: quantize a full-precision model for this
     call (to serve many calls, ``quantize_for_decode`` once and pass its
@@ -232,23 +294,239 @@ def _generate(model, prompt, max_new_tokens, sample, generator) -> Tensor:
     cap = model.cfg.max_seq_len
     if t0 + max_new_tokens > cap:
         raise ValueError(f"prompt {t0} + new {max_new_tokens} exceeds max_seq_len {cap}")
-    logits, states = model.prefill_last(prompt)
-    token = sample_logits(logits, generator, sample)
-    done = torch.zeros_like(token, dtype=torch.bool)
+    keys = request_keys(_seed(generator), prompt.shape[0], model.device)
+    carry = prefill_carry(model, prompt, sample, keys)
     out: List[Tensor] = []
     for i in range(max_new_tokens):
-        if sample.eos_token >= 0:
-            emitted = torch.where(done, torch.full_like(token, sample.pad_token), token)
-            done = done | (emitted == sample.eos_token)
-        else:
-            emitted = token
+        carry, emitted = _decode_body(model, sample, keys, carry, i,
+                                      advance=i + 1 < max_new_tokens)
         out.append(emitted)
-        if i + 1 < max_new_tokens:
-            logits, states = model.decode_step(token, states, t0 + i)
-            token = sample_logits(logits, generator, sample)
     if not out:
         return prompt.new_zeros(prompt.shape[0], 0)
     return torch.stack(out, dim=1)
+
+
+# -- chunked decode (serving) -------------------------------------------------
+# The carry of one request's walk is (next token [B], states, t, done [B]):
+# ``prefill_carry`` makes it, ``decode_chunk`` advances it by a bounded
+# number of tokens, and ``generate`` is the same walk in one loop, so the two
+# emit the same tokens bitwise (one step function, ``_decode_body``). A chunk
+# boundary is where serving snapshots the state, probes it and checks
+# deadlines (``serving/session.py``). t is a Python int: the host knows
+# every position, and nothing is read back from the card.
+
+
+def _decode_body(model, sample: SampleConfig, keys: Tensor, carry, i: int, advance=True):
+    """Emit the carry's token (the request's emitted index ``i``) and, with
+    ``advance``, run one decode step and draw token i + 1 at key fold i + 1.
+    ``generate`` skips the step after its last token."""
+    token, states, t, done = carry
+    if sample.eos_token >= 0:
+        # emit EOS itself, pad everything after it
+        emitted = torch.where(done, torch.full_like(token, sample.pad_token), token)
+        done = done | (emitted == sample.eos_token)
+    else:
+        emitted = token
+    if advance:
+        logits, states = model.decode_step(token, states, t)
+        token = sample_rows(logits, rngs.fold_keys(keys, i + 1), sample)
+        t = t + 1
+    return (token, states, t, done), emitted
+
+
+def bucket_for(length: int, buckets: Tuple[int, ...]) -> Optional[int]:
+    """Smallest bucket >= length, or None (prefill at the exact length)."""
+    for b in buckets:
+        if b >= length:
+            return b
+    return None
+
+
+@torch.inference_mode()
+def prefill_carry(model: TransformerLM, tokens, sample: SampleConfig, keys: Tensor,
+                  sample_index: int = 0, done: Optional[Tensor] = None,
+                  buckets: Tuple[int, ...] = ()):
+    """tokens [B, T] -> the decode carry (next token, states, t, done).
+    ``keys`` [B, 2]: the rows' counter keys (``request_keys``); the first
+    token is drawn at fold ``sample_index``: 0 for a fresh prompt, n when
+    re-prefilling after n emitted tokens. ``buckets``: sorted pad-to
+    lengths; the prompt is right-padded to the smallest bucket >= T and its
+    real length passed to ``prefill_last`` (a prompt past every bucket
+    prefills at its exact length). A capacity-dispatch MoE runs under
+    ``no_drop_capacity``."""
+    tokens = torch.as_tensor(tokens, device=model.device).long()
+    if done is None:
+        done = torch.zeros(tokens.shape[0], dtype=torch.bool, device=model.device)
+    t = tokens.shape[1]
+    pad_to = bucket_for(t, buckets) if buckets else None
+    with no_drop_capacity(model):
+        if pad_to is None:
+            logits, states = model.prefill_last(tokens)
+        else:
+            logits, states = model.prefill_last(F.pad(tokens, (0, pad_to - t)), t)
+    nxt = sample_rows(logits, rngs.fold_keys(keys, sample_index), sample)
+    return nxt, states, t, done
+
+
+def reprefill_carry(model: TransformerLM, prompt, emitted: List[Tensor], sample: SampleConfig,
+                    keys: Tensor, buckets: Tuple[int, ...] = ()):
+    """Rebuild a decode carry from the prompt and the tokens emitted so far
+    (the serving ladder's re-prefill rung): the first token is drawn at fold
+    n = the tokens emitted, so the walk goes on as the uninterrupted one,
+    and ``done`` is recomputed from the emitted tokens (a row that emitted
+    EOS stays done; it is rebuilt from its PAD tail, so its dead state
+    differs from an uninterrupted run's)."""
+    prompt = torch.as_tensor(prompt, device=model.device).long()
+    seq = torch.cat([prompt, *[torch.as_tensor(e, device=model.device).long()
+                               for e in emitted]], dim=1)
+    n = seq.shape[1] - prompt.shape[1]
+    done = None
+    if sample.eos_token >= 0:
+        done = (seq[:, prompt.shape[1]:] == sample.eos_token).any(dim=1)
+    return prefill_carry(model, seq, sample, keys, n, done, buckets)
+
+
+@torch.inference_mode()
+def decode_chunk(model: TransformerLM, carry, keys: Tensor, start: int, n_steps: int,
+                 sample: SampleConfig):
+    """Advance the carry by ``n_steps`` tokens -> (carry, tokens [B,
+    n_steps]). ``start``: the request's index of the first token this chunk
+    emits. The caches and rings of the carry's states are advanced in place
+    (a caller that keeps them copies first: ``snapshot_decode_state``)."""
+    out = []
+    with no_drop_capacity(model):
+        for j in range(n_steps):
+            carry, emitted = _decode_body(model, sample, keys, carry, start + j)
+            out.append(emitted)
+    return carry, torch.stack(out, dim=1)
+
+
+def generate_chunked(model: TransformerLM, prompt, max_new_tokens: int, chunk: int = 16,
+                     sample: Optional[SampleConfig] = None,
+                     generator: Union[None, int, torch.Generator] = None) -> Tensor:
+    """``generate`` decoded in ``chunk``-token pieces: the same tokens,
+    bitwise, for the same seed. ``serving.DecodeSession`` adds the
+    snapshots, the finite probe and the ladder around this walk."""
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    sample = sample or SampleConfig()
+    prompt = torch.as_tensor(prompt, device=model.device).long()
+    if prompt.dim() == 1:
+        prompt = prompt[None]
+    keys = request_keys(_seed(generator), prompt.shape[0], model.device)
+    carry = prefill_carry(model, prompt, sample, keys)
+    out, n = [], 0
+    while n < max_new_tokens:
+        c = min(chunk, max_new_tokens - n)
+        carry, toks = decode_chunk(model, carry, keys, n, c, sample)
+        out.append(toks)
+        n += c
+    return torch.cat(out, dim=1)
+
+
+# -- slot-multiplexed decode (continuous batching) ----------------------------
+# Independent requests ride the rows ("slots") of one batched carry (token
+# [S], states, t [S], emit [S], done [S]), each row with its own position,
+# emitted-token index (its key fold) and counter key. Every op is row-wise,
+# so at a fixed slot count a request's tokens do not depend on what the
+# other slots hold. A row that does not emit -- a free slot, or one still
+# consuming its prompt -- holds its whole carry: its state bitwise (the
+# ``write`` mask of ``decode_step``), its position, emit index and done
+# flag, and it emits PAD.
+
+
+def _batched_step(model, sample: SampleConfig, keys: Tensor, emitting: Tensor, carry):
+    token, states, t, emit, done = carry
+    # a held row may sit at max_seq_len; clip its lookups, it writes nothing
+    tq = t.clamp(max=model.cfg.max_seq_len - 1)
+    logits, states = model.decode_step(token, states, tq, write=emitting)
+    nxt = sample_rows(logits, rngs.fold_keys(keys, emit + 1), sample)
+    pad = torch.full_like(token, sample.pad_token)
+    if sample.eos_token >= 0:
+        emitted = torch.where(done, pad, token)
+        done = done | (emitting & (emitted == sample.eos_token))
+    else:
+        emitted = token
+    emitted = torch.where(emitting, emitted, pad)
+    token = torch.where(emitting, nxt, token)
+    t = torch.where(emitting, t + 1, t)
+    emit = torch.where(emitting, emit + 1, emit)
+    return (token, states, t, emit, done), emitted
+
+
+def _batched_loop(model, sample, keys, emitting, carry, n_steps):
+    out = []
+    for _ in range(n_steps):
+        carry, emitted = _batched_step(model, sample, keys, emitting, carry)
+        out.append(emitted)
+    return carry, torch.stack(out, dim=1)
+
+
+@torch.inference_mode()
+def decode_batched_chunk(model: TransformerLM, carry, keys: Tensor, active: Tensor,
+                         n_steps: int, sample: SampleConfig):
+    """Advance the slot-multiplexed carry by ``n_steps`` tokens -> (carry,
+    tokens [S, n_steps]). ``keys`` [S, 2]: each slot's request key (row 0 of
+    ``request_keys(seed, 1)`` for a one-row request: the tokens of a solo
+    ``generate`` at that seed); ``active`` [S] bool: the busy slots, the
+    others emit PAD and hold their carry. The states advance in place."""
+    with no_drop_capacity(model):
+        return _batched_loop(model, sample, keys, active, carry, n_steps)
+
+
+def _prefill_extend_row(model, pbuf: Tensor, states, sel: Tensor, offset: Tensor,
+                        length: Tensor, pchunk: int):
+    """Slot ``sel`` ([1]) consumes ``length`` tokens of ``pbuf[sel]`` from
+    ``offset`` as a batch-1 piece, on a copy of its state row -> (the last
+    real row's logits [V], the advanced row's states, batch 1)."""
+    idx = (offset + torch.arange(pchunk, device=pbuf.device)).clamp(0, pbuf.shape[1] - 1)
+    piece = pbuf.index_select(0, sel)[:, idx]
+    row = [{k: x.index_select(0, sel) for k, x in st.items()} for st in states]
+    logits, row = model.prefill_extend_step(piece, row, offset, length)
+    return logits[0], row
+
+
+@torch.inference_mode()
+def decode_batched_prefill_chunk(model: TransformerLM, carry, keys: Tensor, active: Tensor,
+                                 pbuf: Tensor, plen: Tensor, pfold: Tensor, n_steps: int,
+                                 pchunk: int, sample: SampleConfig):
+    """One unified chunk: a prompt piece, then the decode steps.
+
+    Stage 1: the chunk's ``pchunk``-token prompt budget goes to one slot
+    with prompt left (``t < plen``), the one with the least left (ties to
+    the lowest index), as a batch-1 piece of ``prefill_extend_step`` over
+    its staged prompt ``pbuf[sel]`` [S, bucket]; the piece is computed even
+    when no slot is prefilling and then discarded (no read-back decides
+    it), so its row is written back under that guard. A slot whose prompt
+    completes draws its first token from the piece's last real row at fold
+    ``pfold[sel]``. Stage 2: ``n_steps`` decode steps with the rows still
+    mid-prefill held (state, t, emit, done; PAD emitted). -> (carry, tokens
+    [S, n_steps])."""
+    token, states, t, emit, done = carry
+    piece = min(pchunk, pbuf.shape[1])
+    rem = (plen - t).clamp(min=0)
+    prefilling = active & (rem > 0)
+    has = prefilling.any()
+    sel = torch.argmin(torch.where(prefilling, rem, torch.iinfo(torch.int64).max)).reshape(1)
+    rem_sel = rem.index_select(0, sel)
+    cons = torch.where(has, rem_sel.clamp(max=piece), 0)[0]
+    t_sel = t.index_select(0, sel)
+    with no_drop_capacity(model):
+        logits1, fed = _prefill_extend_row(model, pbuf, states, sel, t_sel[0], cons, piece)
+        for st, new in zip(states, fed):
+            for key, x in st.items():
+                x.index_copy_(0, sel, torch.where(has, new[key], x.index_select(0, sel)))
+        completed = has & (rem_sel <= piece)
+        first = sample_rows(logits1[None],
+                            rngs.fold_keys(keys.index_select(0, sel), pfold.index_select(0, sel)),
+                            sample)
+        token = token.index_copy(0, sel, torch.where(completed, first, token.index_select(0, sel)))
+        emit = emit.index_copy(0, sel, torch.where(completed, pfold.index_select(0, sel),
+                                                   emit.index_select(0, sel)))
+        t = t.index_copy(0, sel, t_sel + cons)
+        emitting = active & (t >= plen)
+        return _batched_loop(model, sample, keys, emitting, (token, states, t, emit, done),
+                             n_steps)
 
 
 def main(argv=None) -> int:
@@ -307,13 +585,12 @@ def main(argv=None) -> int:
         model = TransformerLM(cfg, device=device)
         print("no --ckpt-dir: random params (smoke test)", file=sys.stderr)
     model = quantize_for_decode(model, args.quant) if args.quant else cast_params_for_inference(model)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
     out = generate(
         model,
         torch.tensor([tok.encode(args.prompt)], device=device),
         args.max_new_tokens,
         SampleConfig(args.temperature, args.top_k, args.top_p, eos_token=eos_token),
-        gen,
+        args.seed,
     )
     ids = [int(t) for t in out[0]]
     if eos_token >= 0 and eos_token in ids:

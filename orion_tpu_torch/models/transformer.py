@@ -35,7 +35,11 @@ elu+1). Three entry methods, as in the JAX package:
 - ``decode_step(token, states, t)`` -- one step: O(1) state for linear
   layers, one query over the cache for softmax / swa (plain torch, as the
   JAX package leaves it to XLA). ``t`` is a scalar position or one per
-  sequence [B]. The caches are new tensors each step, as in JAX.
+  sequence [B]. The caches and rings are written in place (a caller that
+  keeps a state across a step copies it first: ``snapshot_decode_state``);
+  a ``write`` mask [B] leaves the other rows' state bitwise as it was;
+- ``prefill_extend_step(tokens, states, offset, length)`` -- one piece of
+  a chunked prefill, for the serving engine's in-scan admission.
 
 Numerics follow the flax model (these are where parity breaks first):
 dense layers run in the compute dtype on weights rounded to it (flax
@@ -85,7 +89,8 @@ from orion_tpu_torch.ops.feature_maps import _orthogonal_gaussian, favor_phi, ma
 from orion_tpu_torch.ops.linear_attention import (linear_attention, linear_attention_noncausal,
                                                   recurrent_step)
 from orion_tpu_torch.ops.rotary import apply_rotary, apply_rotary_at, rotary_freqs
-from orion_tpu_torch.ops.softmax_attention import cached_attention, softmax_attention
+from orion_tpu_torch.ops.softmax_attention import (cached_attention, softmax_attention,
+                                                   softmax_attention_xla)
 from orion_tpu_torch.quant import Int4Dense, Int8Dense, Int8Embed, check_mode
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
@@ -345,40 +350,145 @@ class Attention(nn.Module):
         )
         return self._merge(out, single=False), {"s": s, "z": z}
 
-    def decode_step(self, x: Tensor, state: State, t=None) -> Tuple[Tensor, State]:
-        """x [B, D], one token per row -> (out [B, D], new state). ``t``: the
-        absolute position, a scalar (the whole batch in lockstep) or one per
-        sequence [B]; unused by linear layers."""
+    def decode_step(self, x: Tensor, state: State, t=None,
+                    write: Optional[Tensor] = None) -> Tuple[Tensor, State]:
+        """x [B, D], one token per row -> (out [B, D], the state advanced).
+        ``t``: the absolute position, a scalar (the whole batch in lockstep)
+        or one per sequence [B]; unused by linear layers. A softmax / swa
+        layer writes its new key and value into ``state``'s own cache or
+        ring in place (its tensors are the returned state's); a linear
+        layer returns a new (S, z). ``write`` [B] bool: the rows whose step
+        counts (None: all); any other row keeps its state bitwise (its cache
+        slot is written back with the value it held, its S and z kept), so
+        a free row or one mid-prefill can ride in the batch."""
         q, k, v = self._heads(x)
         if self.layer_type == "linear":
             out, (s, z) = recurrent_step(
                 self._phi_map(q), self._phi_map(k), v, (state["s"], state["z"])
             )
+            if write is not None:
+                s = torch.where(write[:, None, None, None], s, state["s"])
+                z = torch.where(write[:, None, None], z, state["z"])
             return self._merge(out, single=True), {"s": s, "z": z}
         t = torch.as_tensor(t, device=x.device).long()
+        if write is not None and t.dim() == 0:
+            t = t.expand(x.shape[0])
         per_seq = t.dim() == 1
         # per-sequence angles [B, 1, Dh/2] broadcast over the heads
         pos = t[:, None] if per_seq else t
         qr = apply_rotary_at(q, self.freqs, pos)
         kr = apply_rotary_at(k, self.freqs, pos)
-        cap = state["k"].shape[-2]  # window W or max_seq_len
+        kc, vc = state["k"], state["v"]
+        cap = kc.shape[-2]  # window W or max_seq_len
         slot = t % cap if self.layer_type == "swa" else t
         if per_seq:
             rows = torch.arange(x.shape[0], device=x.device)
-            kc, vc = state["k"].clone(), state["v"].clone()
-            kc[rows, :, slot] = kr.to(kc.dtype)
-            vc[rows, :, slot] = v.to(vc.dtype)
+            knew, vnew = kr.to(kc.dtype), v.to(vc.dtype)
+            if write is not None:
+                keep = ~write[:, None, None]
+                knew = torch.where(keep, kc[rows, :, slot], knew)
+                vnew = torch.where(keep, vc[rows, :, slot], vnew)
+            kc[rows, :, slot] = knew
+            vc[rows, :, slot] = vnew
             valid = torch.arange(cap, device=x.device)[None, None, :] <= t[:, None, None]
         else:
             idx = slot.reshape(1)
-            kc = state["k"].index_copy(2, idx, kr[:, :, None].to(state["k"].dtype))
-            vc = state["v"].index_copy(2, idx, v[:, :, None].to(state["v"].dtype))
+            kc.index_copy_(2, idx, kr[:, :, None].to(kc.dtype))
+            vc.index_copy_(2, idx, v[:, :, None].to(vc.dtype))
             # ring slots hold positions (t - W, t] once warm; before that the
             # slots past t are unwritten: either way exactly the slots <= t
             # are valid
             valid = (torch.arange(cap, device=x.device) <= t)[None, None, :]
         out = cached_attention(qr, kc, vc, valid)
         return self._merge(out, single=True), {"k": kc, "v": vc}
+
+    def prefill_extend(self, x: Tensor, state: State, offset, length) -> Tuple[Tensor, State]:
+        """One chunked-prefill piece (the JAX package's ``prefill_extend``):
+        ``x`` [B, P, D] holds rows [offset, offset + P) of the prompt's
+        hidden stream, right-padded, ``length`` of them real; ``state`` is
+        what the pieces before it left. -> (the piece rows' attention out,
+        the state advanced):
+
+        - linear: row 1's forward seeded with (S, z) (the kernel on the
+          card), pad rows' phi(k) and v zeroed by ``where``;
+        - softmax: the piece's real rows written into the cache in place
+          (``_window_write``), its queries over the whole cache under the
+          offset causal mask;
+        - swa: the piece over the [W + P] context of the ring's positions
+          before it plus its own rows, then the ring rebuilt in place
+          (``_swa_extend``).
+
+        Positions are clipped, never sliced: a piece computed for a row
+        that is not prefilling, and then discarded, stays in range. The
+        softmax and swa pieces are plain torch, as the JAX package computes
+        them with its XLA form outside any kernel."""
+        q, k, v = self._heads(x)
+        p = x.shape[-2]
+        real = (torch.arange(p, device=x.device) < length)[None, None, :, None]
+        if self.layer_type == "linear":
+            qf, kf = self._phi_map(q), self._phi_map(k)
+            # where, not multiply: 0 * nan from a degenerate phi must not
+            # poison the state
+            kf = torch.where(real, kf, torch.zeros_like(kf))
+            vm = torch.where(real, v, torch.zeros_like(v))
+            out, (s, z) = linear_attention(
+                qf, kf, vm, backend=self.cfg.backend, chunk=self.cfg.chunk,
+                initial_state=(state["s"], state["z"]), return_state=True,
+            )
+            return self._merge(out, single=False), {"s": s, "z": z}
+        pos = (offset + torch.arange(p, device=x.device)).clamp(0, self.freqs.shape[0] - 1)
+        ang = self.freqs[pos]
+        qr, kr = apply_rotary(q, ang), apply_rotary(k, ang)
+        if self.layer_type == "swa":
+            out, new_state = _swa_extend(qr, kr, v, state, offset, length, self.window)
+        else:
+            kc = _window_write(state["k"], kr, offset, real)
+            vc = _window_write(state["v"], v, offset, real)
+            row = torch.arange(p, device=x.device)[:, None] + offset
+            col = torch.arange(kc.shape[-2], device=x.device)[None, :]
+            out = softmax_attention_xla(qr, kc, vc, causal=False, mask=row >= col)
+            new_state = {"k": kc, "v": vc}
+        return self._merge(out, single=False), new_state
+
+
+def _window_write(cache: Tensor, rows: Tensor, offset: Tensor, real: Tensor) -> Tensor:
+    """Write a piece's rows [B, H, P, Dh] into the KV cache at ``offset``, in
+    place, and return the cache. Pad rows (``real`` False) write back what
+    the cache held, at positions clipped into range: a partial last piece
+    never clobbers a slot, and clipped positions that collide all write the
+    same value."""
+    p = rows.shape[-2]
+    pos = (offset + torch.arange(p, device=cache.device)).clamp(0, cache.shape[-2] - 1)
+    cache[:, :, pos] = torch.where(real, rows.to(cache.dtype), cache[:, :, pos])
+    return cache
+
+
+def _swa_extend(qr: Tensor, kr: Tensor, v: Tensor, state: State, offset: Tensor,
+                length: Tensor, window: int) -> Tuple[Tensor, State]:
+    """A sliding-window piece's attention and the ring's advance (see
+    ``Attention.prefill_extend``): the context is the W positions before the
+    piece, gathered from the ring in position order, and the piece's own
+    rows; negative positions are masked, never read. The ring is then the
+    last W positions before offset + length, each row from the piece where
+    it covers it and from the ring where not, written in place (W
+    consecutive positions fill W distinct slots)."""
+    p, w, dev = qr.shape[-2], window, qr.device
+    kc, vc = state["k"], state["v"]
+    pos_prev = offset - w + torch.arange(w, device=dev)  # may be < 0 (masked)
+    slots_prev = pos_prev % w
+    kctx = torch.cat([kc[:, :, slots_prev], kr.to(kc.dtype)], dim=2)
+    vctx = torch.cat([vc[:, :, slots_prev], v.to(vc.dtype)], dim=2)
+    row = torch.arange(p, device=dev)[:, None] + offset
+    colpos = torch.cat([pos_prev, offset + torch.arange(p, device=dev)])[None, :]
+    m = (row >= colpos) & (row - colpos < w) & (colpos >= 0)
+    out = softmax_attention_xla(qr, kctx, vctx, causal=False, mask=m)
+    pos_new = offset + length - w + torch.arange(w, device=dev)
+    slots_new = pos_new % w
+    take = (pos_new - offset).clamp(0, p - 1)
+    fresh = (pos_new >= offset)[None, None, :, None]
+    kc[:, :, slots_new] = torch.where(fresh, kr[:, :, take].to(kc.dtype), kc[:, :, slots_new])
+    vc[:, :, slots_new] = torch.where(fresh, v[:, :, take].to(vc.dtype), vc[:, :, slots_new])
+    return out, {"k": kc, "v": vc}
 
 
 def _swa_cache_from_prefill(kr: Tensor, v: Tensor, t: int, window: int) -> State:
@@ -489,8 +599,13 @@ class Block(nn.Module):
         x = x + h
         return x + self.mlp(self.norm2(x)), state
 
-    def decode_step(self, x: Tensor, state: State, t) -> Tuple[Tensor, State]:
-        h, state = self.attn.decode_step(self.norm1(x), state, t)
+    def prefill_extend(self, x: Tensor, state: State, offset, length) -> Tuple[Tensor, State]:
+        h, state = self.attn.prefill_extend(self.norm1(x), state, offset, length)
+        x = x + h
+        return x + self.mlp(self.norm2(x)), state
+
+    def decode_step(self, x: Tensor, state: State, t, write=None) -> Tuple[Tensor, State]:
+        h, state = self.attn.decode_step(self.norm1(x), state, t, write)
         x = x + h
         return x + self.mlp(self.norm2(x)), state
 
@@ -664,15 +779,41 @@ class TransformerLM(nn.Module):
         return self._head(x[:, last - 1]), states
 
     def decode_step(
-        self, token: Tensor, states: List[State], t
+        self, token: Tensor, states: List[State], t, write: Optional[Tensor] = None
     ) -> Tuple[Tensor, List[State]]:
-        """token [B] at position ``t`` -> (logits [B, V], updated states)."""
+        """token [B] at position ``t`` -> (logits [B, V], the states
+        advanced: the caches and rings in place, see ``Attention.decode_step``;
+        ``write`` [B] bool masks the rows whose state may change)."""
         x = self._embed(token, t)
         new_states = []
         for blk, st in zip(self.blocks, states):
-            x, st = blk.decode_step(x, st, t)
+            x, st = blk.decode_step(x, st, t, write)
             new_states.append(st)
         return self._head(x), new_states
+
+    def prefill_extend_step(
+        self, tokens: Tensor, states: List[State], offset, length
+    ) -> Tuple[Tensor, List[State]]:
+        """One chunked-prefill piece at the model level (the JAX package's
+        ``prefill_extend_step``): ``tokens`` [B, P] are prompt rows [offset,
+        offset + P), right-padded, ``length`` of them real (ints or 0-d
+        tensors); ``states`` what the pieces before left, advanced as
+        ``Attention.prefill_extend`` says (caches and rings in place). ->
+        (the logits of the last real row [B, V], the states). After the last
+        piece they are what ``prefill_last`` hands the first sample.
+        Positions are clipped, not sliced."""
+        dev = tokens.device
+        p = tokens.shape[-1]
+        offset = torch.as_tensor(offset, device=dev).long()
+        length = torch.as_tensor(length, device=dev).long()
+        pos = (offset + torch.arange(p, device=dev)).clamp(0, self.cfg.max_seq_len - 1)
+        x = self._embed(tokens, pos)
+        new_states = []
+        for blk, st in zip(self.blocks, states):
+            x, st = blk.prefill_extend(x, st, offset, length)
+            new_states.append(st)
+        last = x.index_select(1, (length - 1).clamp(min=0).reshape(1))[:, 0]
+        return self._head(last), new_states
 
 
 def lecun_normal(w: Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -758,8 +899,62 @@ def init_decode_state(
     return states
 
 
+def snapshot_decode_state(states: List[State]) -> List[State]:
+    """A copy of every layer's decode state: the rewind target of the
+    serving ladder. In the JAX package a snapshot is free (arrays are
+    immutable); here the caches are written in place, so a snapshot that
+    shared them would move with the walk. (A copy made under
+    ``torch.inference_mode`` is an inference tensor; outside it, a normal
+    one, as ``clone`` makes.)"""
+    return [{k: v.clone() for k, v in st.items()} for st in states]
+
+
+def _floating(states: List[State]):
+    return [x for st in states for x in st.values() if x.is_floating_point()]
+
+
+def decode_state_finite(states: List[State]) -> Tensor:
+    """Whether every floating leaf of the decode state is finite: a 0-d bool
+    on the state's device (the caller chooses where to read it)."""
+    leaves = _floating(states)
+    acc = torch.ones((), dtype=torch.bool, device=leaves[0].device)
+    for x in leaves:
+        acc = acc & torch.isfinite(x).all()
+    return acc
+
+
+def decode_state_finite_per_slot(states: List[State]) -> Tensor:
+    """The per-row probe: [B] bool, row b True where every floating leaf's
+    row b is finite (one poisoned slot walks its own ladder)."""
+    leaves = _floating(states)
+    acc = torch.ones(leaves[0].shape[0], dtype=torch.bool, device=leaves[0].device)
+    for x in leaves:
+        acc = acc & torch.isfinite(x.reshape(x.shape[0], -1)).all(dim=1)
+    return acc
+
+
+@torch.inference_mode()
+def insert_decode_slot(states: List[State], slot_states: List[State], i: int) -> List[State]:
+    """Write one sequence's decode state (batch 1, a solo prefill's) into row
+    ``i`` of the batched state, in place; returns ``states``. Everything of
+    the slot's previous occupant is overwritten. Runs under
+    ``torch.inference_mode``, as the serving programs, whose states are
+    inference tensors."""
+    for full, one in zip(states, slot_states):
+        for key, x in full.items():
+            x[i].copy_(one[key][0])
+    return states
+
+
+def extract_decode_slot(states: List[State], i: int) -> List[State]:
+    """Row ``i`` of the batched state as a batch-1 state of its own (a copy):
+    the inverse of ``insert_decode_slot``."""
+    return [{k: v[i:i + 1].clone() for k, v in st.items()} for st in states]
+
+
 __all__ = [
     "TransformerLM", "Attention", "Block", "MLP", "Dense", "Embed", "RMSNorm", "LayerNorm",
     "make_norm", "init_blocks", "run_blocks", "lecun_normal", "init_decode_state",
-    "check_supported",
+    "check_supported", "snapshot_decode_state", "decode_state_finite",
+    "decode_state_finite_per_slot", "insert_decode_slot", "extract_decode_slot",
 ]

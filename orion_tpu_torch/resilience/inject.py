@@ -1,0 +1,138 @@
+"""Deterministic fault injection at named hook points: the port's copy of
+``orion_tpu/resilience/inject.py``, trimmed to what ``serving.DecodeSession``
+fires.
+
+Production code carries permanent, near-zero-cost hooks -- ``fire(site,
+step=...)`` -- that are inert until a test arms a :class:`FaultPlan` with
+the :func:`inject` context manager. Faults are addressed by ``(site, step,
+occurrence count)``, so a test can say "poison the decode state after chunk
+2's attempt twice, then stop" and get exactly that.
+
+Sites wired in the port:
+
+========================  ====================================================
+``"serve.chunk"``         ``serving/session.py`` DecodeSession, at each decode
+                          chunk boundary (step = the request's chunk index)
+``"decode.state_nan"``    consumed through :func:`decode_nan_armed` by
+                          DecodeSession to poison one chunk attempt's decode
+                          state to NaN: 1, 2 or unlimited deliveries at a chunk
+                          reach the rewind, the re-prefill and the failed rung
+========================  ====================================================
+
+Left out, with the ROADMAP.md item that brings each: the training,
+checkpoint, data and store sites, ``fail_io`` and the sustained fault
+regimes (``degrade_site``), delivery observers, and the on-disk corruption
+helpers (A9, the host subsystems); the per-slot ``decode.slot_nan.K`` sites,
+``preempt_at_chunk``, ``delay_chunk`` and ``active`` (A8's ``SlotEngine``
+and ``Server``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Callable, List, Optional
+
+_DECODE_NAN_SITE = "decode.state_nan"
+
+# every wired hook site (site -> where it fires); FaultPlan.add rejects any
+# other name, so a typo'd site cannot be armed and never deliver
+SITES = {
+    "serve.chunk": "serving decode loops, each chunk boundary",
+    "decode.state_nan": "DecodeSession decode-state poisoning marker",
+}
+
+
+def known_site(site: str) -> bool:
+    return site in SITES
+
+
+@dataclasses.dataclass
+class _Fault:
+    site: str
+    step: Optional[int]  # None = any step
+    times: int  # remaining deliveries; <0 = unlimited
+    action: Optional[Callable[[], None]]  # None = marker (consumed via query)
+
+
+class FaultPlan:
+    """An ordered set of faults to deliver. Thread-safe."""
+
+    def __init__(self):
+        self._faults: List[_Fault] = []
+        self._lock = threading.Lock()
+        self.delivered: List[str] = []  # "site@step" log for assertions
+
+    def add(self, site: str, step: Optional[int] = None, times: int = 1,
+            action: Optional[Callable[[], None]] = None) -> "FaultPlan":
+        if not known_site(site):
+            raise ValueError(
+                f"unknown fault-injection site {site!r}: a fault armed at a "
+                "site no hook fires never delivers -- register it in "
+                "inject.SITES first"
+            )
+        self._faults.append(_Fault(site, step, times, action))
+        return self
+
+    def poison_decode_state_at(self, chunk: int, times: int = 1) -> "FaultPlan":
+        """Arm NaN-poisoning of the decode state after each attempt at a
+        chunk (consumed by DecodeSession through :func:`decode_nan_armed`).
+        ``times=1`` exercises the rewind rung, ``times=2`` the re-prefill
+        rung, ``times<0`` (unlimited) exhausts the ladder and fails the
+        request."""
+        return self.add(_DECODE_NAN_SITE, chunk, times, None)
+
+    def _take(self, site: str, step: Optional[int]) -> Optional[_Fault]:
+        with self._lock:
+            for f in self._faults:
+                if f.site != site or f.times == 0:
+                    continue
+                if f.step is not None and f.step != step:
+                    continue
+                if f.times > 0:
+                    f.times -= 1
+                self.delivered.append(f"{site}@{step}")
+                return f
+        return None
+
+    def fire(self, site: str, step: Optional[int] = None) -> None:
+        f = self._take(site, step)
+        if f is not None and f.action is not None:
+            f.action()
+
+    def consume_marker(self, site: str, step: Optional[int] = None) -> bool:
+        return self._take(site, step) is not None
+
+
+_active: Optional[FaultPlan] = None
+
+
+@contextlib.contextmanager
+def inject(plan: FaultPlan):
+    """Arm ``plan`` for the duration of the block."""
+    global _active
+    prev = _active
+    _active = plan
+    try:
+        yield plan
+    finally:
+        _active = prev
+
+
+def fire(site: str, step: Optional[int] = None) -> None:
+    """Production hook: no-op (one global read) unless a plan is armed."""
+    plan = _active
+    if plan is not None:
+        plan.fire(site, step)
+
+
+def decode_nan_armed(chunk: int) -> bool:
+    """Is a decode-state NaN-poisoning armed for this chunk? Consumes one
+    delivery: DecodeSession asks again after every attempt at the chunk, so
+    a multi-delivery plan poisons each attempt in turn."""
+    plan = _active
+    return plan is not None and plan.consume_marker(_DECODE_NAN_SITE, chunk)
+
+
+__all__ = ["SITES", "FaultPlan", "inject", "fire", "decode_nan_armed", "known_site"]

@@ -211,26 +211,15 @@ def _wd_mask(name: str, p: Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 _U32 = 0xFFFFFFFF
-
-
-def _mul32(h: Tensor, c: int) -> Tensor:
-    """(h * c) mod 2^32 for int64 h in [0, 2^32) and a 32-bit constant, in
-    two 16-bit halves of h so that no int64 product overflows."""
-    lo, hi = h & 0xFFFF, h >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _U32
+key_words = rngs.key_words
 
 
 def sr_noise_bits(words: Tuple[int, int], n: int, device=None) -> Tensor:
     """n uniform 32-bit words (int64 in [0, 2^32)) from the JAX package's
     counter hash: a Weyl sequence over iota through the murmur3 finalizer,
-    salted by the two key words."""
-    k0, k1 = (int(w) & _U32 for w in words)
-    h = (_mul32(torch.arange(n, dtype=torch.int64, device=device), 0x9E3779B9) + k0) & _U32
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B) ^ k1
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
+    salted by the two key words (``utils/rng.py`` ``counter_bits``)."""
+    keys = torch.tensor([int(w) & _U32 for w in words], dtype=torch.int64, device=device)
+    return rngs.counter_bits(keys, n)
 
 
 def sr_round_bf16(x32: Tensor, words: Tuple[int, int]) -> Tensor:
@@ -248,12 +237,6 @@ def sr_round_bf16(x32: Tensor, words: Tuple[int, int]) -> Tensor:
     kept = torch.where(torch.isnan(x32), ((bits >> 16) & 0x8000) | 0x7FC0, bits >> 16)
     top = torch.where(torch.isfinite(x32), top, kept)
     return (top - ((top >= 0x8000).to(torch.int64) << 16)).to(torch.int16).view(torch.bfloat16)
-
-
-def key_words(seed: int) -> Tuple[int, int]:
-    """A 64-bit seed as two 32-bit key words, high then low (the layout of
-    a threefry key made from that seed)."""
-    return (seed >> 32) & _U32, seed & _U32
 
 
 def leaf_words(step_seed: int, n_leaves: int):

@@ -118,6 +118,8 @@ def profile_config(name, prompt_len, seq_len, dev, overrides=None):
         tok = torch.zeros(4, dtype=torch.long, device=dev)
 
         def decode():
+            # the caches are written in place: each traced call rewrites the
+            # same 8 slots of ``states``, the same work every time
             st = states
             for i in range(8):
                 _, st = model.decode_step(tok, st, prompt_len + i)

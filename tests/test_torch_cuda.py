@@ -1148,3 +1148,129 @@ def test_bf16_sr_trainer_on_the_card_matches_the_cpu(dev):
         step = torch.maximum(p.float().abs(), q.float().abs()) * 2.0 ** -7
         moved = (p.float() - init[n]).abs().max()
         assert bool(((q.float() - p.float()).abs() <= 2 * step + 2.0 ** -7 * moved).all()), n
+
+
+# -- the serving programs on the card ---------------------------------------
+
+_SERVE_TINY = dataclasses.replace(TINY, n_layers=3, layer_types=("linear", "softmax", "swa"),
+                                  window=16, max_seq_len=256)
+
+
+def _serve_run(model, dev, sample):
+    """Slot 0 prefilled solo and inserted, slot 1 staged with 40 tokens and
+    fed in pieces of 16, slot 2 free (holding a random state): three
+    unified chunks of 4 steps -> (tokens [3, 12], states, slot 2 before)."""
+    from orion_tpu_torch import generate as gen
+    from orion_tpu_torch.models.transformer import (extract_decode_slot, init_decode_state,
+                                                    insert_decode_slot)
+
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(5)
+    p0 = torch.randint(0, cfg.vocab_size, (1, 21), generator=g).to(dev)
+    p1 = torch.randint(0, cfg.vocab_size, (1, 40), generator=g).to(dev)
+    states = init_decode_state(cfg, 3, dev)
+    with torch.inference_mode():
+        for st in states:
+            for x in st.values():
+                x[2] = torch.randn(x.shape[1:], generator=g).to(dev)
+    keys = gen.request_keys(1, 3, dev)
+    c = gen.prefill_carry(model, p0, sample, keys[:1])
+    insert_decode_slot(states, c[1], 0)
+    free = extract_decode_slot(states, 2)
+    z = torch.zeros(3, dtype=torch.long, device=dev)
+    carry = (z.clone().index_fill_(0, torch.tensor([0], device=dev), int(c[0][0])), states,
+             torch.tensor([21, 0, 0], device=dev), z.clone(), torch.zeros(3, dtype=torch.bool,
+                                                                          device=dev))
+    pbuf = torch.zeros(3, 48, dtype=torch.long, device=dev)
+    pbuf[1, :40] = p1[0]
+    plen = torch.tensor([0, 40, 0], device=dev)
+    active = torch.tensor([True, True, False], device=dev)
+    out = []
+    for _ in range(3):
+        carry, toks = gen.decode_batched_prefill_chunk(model, carry, keys, active, pbuf, plen, z,
+                                                       4, 16, sample)
+        out.append(toks)
+    return torch.cat(out, 1), carry, free
+
+
+def test_serving_programs_on_the_card_match_the_cpu(dev):
+    """A tiny fp32 model with a linear, a softmax and a swa layer: the
+    unified chunks on the card emit the CPU's greedy tokens and leave the
+    states within 1e-4; row 1 takes its simt kernel once per piece (3
+    chunks), and the free slot's state -- the ring included -- is bitwise
+    as it was."""
+    from orion_tpu_torch import generate as gen
+    from orion_tpu_torch.models.transformer import extract_decode_slot
+
+    cpu = TransformerLM(_SERVE_TINY, device="cpu")
+    gpu = TransformerLM(_SERVE_TINY, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    greedy = gen.SampleConfig(temperature=0.0)
+    before = causal_dot.launches_simt
+    toks, carry, free = _serve_run(gpu, dev, greedy)
+    assert causal_dot.launches_simt - before == 1 + 3  # the solo prefill, three pieces
+    ref, ref_carry, _ = _serve_run(cpu, torch.device("cpu"), greedy)
+    assert torch.equal(toks.cpu(), ref)
+    assert torch.equal(carry[2].cpu(), ref_carry[2])
+    for st, rst in zip(carry[1], ref_carry[1]):
+        for k in st:
+            torch.testing.assert_close(st[k][:2].cpu(), rst[k][:2], rtol=1e-4, atol=1e-4)
+    held = extract_decode_slot(carry[1], 2)
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(held, free) for k in a)
+
+
+def test_prefill_pieces_take_row_1_wgmma_with_a_state(dev):
+    """bf16 at Dh 128: each 64-token piece's linear layer runs row 1's wgmma
+    kernel seeded with (S, z); the pieces' last logits within chip_smoke's
+    LOGITS_ATOL of prefill_last's, and the same greedy token."""
+    from orion_tpu_torch.generate import cast_params_for_inference
+    from orion_tpu_torch.models.transformer import init_decode_state
+
+    cfg = dataclasses.replace(TINY, d_model=256, n_heads=2, dtype="bfloat16", max_seq_len=512)
+    model = cast_params_for_inference(TransformerLM(cfg, device=dev))
+    p = torch.randint(0, cfg.vocab_size, (1, 300), generator=torch.Generator().manual_seed(0))
+    p = p.to(dev)
+    states = init_decode_state(cfg, 1, dev)
+    before = causal_dot.launches_wgmma
+    with torch.inference_mode():
+        for off in range(0, 300, 64):
+            n = min(64, 300 - off)
+            piece = torch.nn.functional.pad(p[:, off:off + n], (0, 64 - n))
+            lg, states = model.prefill_extend_step(piece, states, off, n)
+        assert causal_dot.launches_wgmma - before == cfg.n_layers * 5
+        ref, _ = model.prefill_last(p)
+    assert float((lg - ref).abs().max()) <= 0.125 and int(lg.argmax()) == int(ref.argmax())
+
+
+def test_decode_caches_in_place_and_masked_on_the_card(dev):
+    from orion_tpu_torch.models.transformer import snapshot_decode_state
+
+    model = TransformerLM(_SERVE_TINY, device=dev)
+    tokens = torch.randint(0, 256, (3, 20), generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.inference_mode():
+        _, states = model.prefill_last(tokens)
+        ptrs = [st["k"].data_ptr() for st in states[1:]]
+        before = snapshot_decode_state(states)
+        write = torch.tensor([True, False, True], device=dev)
+        for i in range(20):  # the ring (16) wraps
+            _, states = model.decode_step(tokens[:, i], states, torch.full((3,), 20 + i,
+                                                                           device=dev), write)
+    assert [st["k"].data_ptr() for st in states[1:]] == ptrs
+    for st, old in zip(states, before):
+        for k in st:
+            assert torch.equal(st[k][1], old[k][1]) and not torch.equal(st[k][0], old[k][0])
+
+
+def test_session_rewind_on_the_card_is_bitwise(dev):
+    from orion_tpu_torch import generate as gen
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.serving import DecodeRequest, DecodeSession
+
+    model = TransformerLM(_SERVE_TINY, device=dev)
+    session = DecodeSession(model, chunk=4)
+    req = DecodeRequest(np.arange(30)[None] % 256, 16, gen.SampleConfig(temperature=0.7), seed=3)
+    ref = session.run(req)
+    with inject.inject(inject.FaultPlan().poison_decode_state_at(2)):
+        res = session.run(req)
+    assert (res.status, res.rewinds) == ("ok", 1)
+    np.testing.assert_array_equal(res.tokens, ref.tokens)

@@ -34,7 +34,8 @@ from orion_tpu.models.transformer import TransformerLM as JaxLM
 from orion_tpu_torch import generate as gen
 from orion_tpu_torch.convert import expected_params, load_jax_params
 from orion_tpu_torch.models.configs import TINY
-from orion_tpu_torch.models.transformer import TransformerLM, init_decode_state
+from orion_tpu_torch.models.transformer import (TransformerLM, init_decode_state,
+                                                snapshot_decode_state)
 
 torch.set_num_threads(2)
 
@@ -104,8 +105,10 @@ def test_prefill_and_decode_match_jax():
     model = _model()
     with torch.no_grad():
         logits, states = model.prefill(torch.from_numpy(tokens).long())
-        dec, states2 = model.decode_step(torch.from_numpy(nxt).long(), states, T)
-        dec_b, _ = model.decode_step(torch.from_numpy(nxt).long(), states,
+        # decode writes the caches in place: each step gets its own copy
+        dec, states2 = model.decode_step(torch.from_numpy(nxt).long(),
+                                         snapshot_decode_state(states), T)
+        dec_b, _ = model.decode_step(torch.from_numpy(nxt).long(), snapshot_decode_state(states),
                                      torch.from_numpy(pos).long())
     assert logits.dtype == torch.float32 and logits.shape == tuple(ref_logits.shape)
     np.testing.assert_allclose(_np(logits), _np(ref_logits), **TOL)

@@ -28,7 +28,8 @@ from orion_tpu.models.transformer import TransformerLM as JaxLM
 from orion_tpu_torch.convert import expected_params, load_jax_params, params_from_jax
 from orion_tpu_torch.generate import cast_params_for_inference
 from orion_tpu_torch.models.configs import TINY
-from orion_tpu_torch.models.transformer import TransformerLM, init_decode_state
+from orion_tpu_torch.models.transformer import (TransformerLM, init_decode_state,
+                                                snapshot_decode_state)
 
 torch.set_num_threads(2)
 
@@ -105,7 +106,7 @@ def test_prefill_and_decode_match_jax(dtype):
     with torch.no_grad():
         logits, states = tm.prefill_last(torch.from_numpy(tokens).long())
         dec, states2 = tm.decode_step(
-            torch.from_numpy(nxt).long(), states, tokens.shape[1]
+            torch.from_numpy(nxt).long(), snapshot_decode_state(states), tokens.shape[1]
         )
     assert logits.dtype == torch.float32 and logits.shape == tuple(ref_logits.shape)
     np.testing.assert_allclose(_np(logits), _np(ref_logits), **tol)

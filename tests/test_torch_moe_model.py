@@ -33,7 +33,7 @@ from orion_tpu_torch import generate as gen
 from orion_tpu_torch.convert import expected_params, load_jax_params
 from orion_tpu_torch.models.configs import TINY
 from orion_tpu_torch.models.moe import MoEMLP
-from orion_tpu_torch.models.transformer import TransformerLM
+from orion_tpu_torch.models.transformer import TransformerLM, snapshot_decode_state
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
@@ -120,7 +120,8 @@ def test_forward_prefill_and_decode_match_jax(variant):
     with torch.no_grad():
         out = m(torch.from_numpy(tokens).long())
         pre, states = m.prefill(torch.from_numpy(tokens).long())
-        dec, states2 = m.decode_step(torch.from_numpy(nxt).long(), states, tokens.shape[1])
+        dec, states2 = m.decode_step(torch.from_numpy(nxt).long(), snapshot_decode_state(states),
+                                     tokens.shape[1])
     for got, want in ((out, ref), (pre, ref_pre), (dec, ref_dec)):
         np.testing.assert_allclose(_np(got), _np(want), **TOL)
     for got_states, want_states in ((states, ref_states), (states2, ref_states2)):

@@ -47,6 +47,14 @@ def test_every_module_imports_with_jax_and_orion_tpu_blocked():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_the_scans_cover_the_serving_slice():
+    """The import block and the AST scan below walk every module of the
+    package, the serving slice's ``serving/``, ``obs/`` and
+    ``resilience/inject.py`` among them."""
+    assert {"orion_tpu_torch.serving", "orion_tpu_torch.serving.session",
+            "orion_tpu_torch.obs.flight", "orion_tpu_torch.resilience.inject"} <= set(_modules())
+
+
 @pytest.mark.parametrize(
     "path",
     [*sorted(PKG.rglob("*.py")), *(ROOT / f for f in ("chip_smoke.py", "profile_port.py",
