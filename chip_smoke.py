@@ -49,9 +49,10 @@ nonzero and no result line is printed):
      variant each product took (wgmma for bf16 at widths a multiple of 8,
      simt for the rest); the wgmma kernels are timed at the training shape,
      the simt kernels at the tiny widths in fp32 (their path);
-   - the int4 dequant-matmul (row 14): lm_1b3's decode shapes (x [4, 2048]
-     against p [1024, 2048] and [1024, 5504], x [4, 5504] against p [2752,
-     2048]), B 1, B 64, 1000 packed rows, a last strip of 16 channels (the
+   - the int4 dequant-matmul (row 14): lm_1b3's decode shapes (x [64, 2048]
+     against p [1024, 2048] and [1024, 5504], x [64, 5504] against p [2752,
+     2048]: a decode step's rows padded to 64), B 1, B 4, 1000 packed rows, a
+     last strip of 16 channels (the
      mma variant's edges), an out of 200, a ragged d 100, d 2004 and fp32
      (the simt variant's); each case logs its variant (mma for bf16 x with
      d % 8 == 0 and out % 16 == 0); mma timed at the three decode shapes
@@ -141,7 +142,7 @@ nonzero and no result line is printed):
    where that spread alone misses the model-level limits (``favor``: the
    exp of FAVOR+ amplifies each bf16 flip), those limits are read, not
    failed (``FAVOR_NOTE``); ``learnable`` with the
-   untied head at int8 (the int8 ``lm_head_kernel_q``; 4 of the 24 blocks); ``remat_policy=
+   untied head at int8 (the int8 ``lm_head_kernel_q``, all 24 blocks); ``remat_policy=
    "dots"`` training beside "full"'s step ms and peak memory in the same
    run, its first loss bitwise "full"'s and its gradients within the
    gradient check's limits of "full"'s; ``sr_round_bf16`` on the card
@@ -156,27 +157,33 @@ nonzero and no result line is printed):
    on the card against the CPU (logits and loss within 1e-4 of their
    largest magnitude, every gradient within 1e-4 relative L2, fp32 without
    TF32: ``LRA_GRAD_REL_L2``);
-12. serving: the chunked and slot-multiplexed decode programs at 4 slots,
-   chunk 16, on ``lm_1b3`` (6 requests of 1024, 640, 300, 1000, 77 and 512
-   prompt tokens, 32 new tokens each: four prefilled solo and inserted
-   with ``insert_decode_slot``, two admitted late and consumed in 256-token
-   pieces by ``decode_batched_prefill_chunk``), in bf16 and at int4, and
-   on ``hybrid_1b3`` (prompts of 1536 and 1100, past the 1024-key window,
-   and one of 200 staged while the 1100 is mid-prefill), driven by
-   ``SlotHost``: exact launches (row 1 on its wgmma kernel once for each
-   linear layer of a solo prefill and of a unified chunk's piece, row 6
-   once for each swa layer of a solo prefill, row 14 168 a decode step at
-   int4 whatever the busy slots); the contracts of PERF.md: (b) a request's
-   tokens bitwise the same alone in its slot, with an EOS stopping another
-   early and for a sampled run, (c) free and held slots' states, rings
-   included, bitwise through a chunk, (d) extract / insert round trip, (f)
-   each request against a one-row ``generate`` and one decode step at 4
-   slots against 1 row, (g) pieces against ``prefill_last`` (both on row
-   1's wgmma kernel); ``DecodeSession`` on lm_1b3, its tokens bitwise
+12. serving through ``serving.SlotEngine`` at 4 slots, chunk 16, on
+   ``lm_1b3`` (6 requests of 1024, 640, 300, 1000, 77 and 512 prompt
+   tokens, 32 new tokens each, two arriving at later boundaries), in bf16
+   and at int4, and on ``hybrid_1b3`` (prompts of 1536 and 1100, past the
+   1024-key window, and one of 200 that in-scan arrives while the 1100 is
+   mid-prefill): first the decode products' row invariance (C1,
+   ``row_forms``: candidate forms of the products at 4 and 8 rows against
+   one; ``row_invariance``: a 4-row ``decode_step`` against its row 2 alone,
+   op by op, with the rows padded to ``DECODE_ROWS`` and without), then
+   each plan served twice, admitted by host prefill (solo, at the prompt's
+   length) and in-scan (pieces of 256), exact launches (row 1 on its wgmma
+   kernel once for each linear layer of a solo prefill and of a unified
+   boundary's piece, row 6 once for each swa layer of a solo prefill, row
+   14 168 a decode step at int4 whatever the busy slots); the contracts of
+   PERF.md: (b) a request alone bitwise its tokens in company, and with an
+   EOS stopping another early, (c) at every boundary the free and held
+   slots' rows, rings included, bitwise, (d) extract / insert round trip,
+   (f) every request, greedy and sampled, bitwise a one-row ``generate``
+   at its seed, (g) pieces against ``prefill_last``; in-scan admission
+   bitwise host admission for lm_1b3 (the hybrid's within the logits
+   limit); the engine's ladder with NaN in one slot's rows (the rewind
+   bitwise, the re-prefill held as ``DecodeSession``'s rung, an exhausted
+   ladder failing one request only), suspend and resume bitwise the
+   uninterrupted request; ``DecodeSession`` on lm_1b3, its tokens bitwise
    ``generate``'s (a), with a NaN injected (rewind bitwise (e),
-   re-prefill, ``LadderExhausted``); decode ms/token at 4
-   slots with the in-place caches and with a ``decode_step`` that copies
-   each cache and ring at every step, in turns, and a 256-token piece's boundary cost;
+   re-prefill, ``LadderExhausted``); decode ms/token at 4 busy slots through
+   the engine and a 256-token piece's boundary cost; each phase's time;
 13. a ``kernels`` JSON line (25 entries: the 14 rows, rows 1-10 and 14
    once for each variant; rows 1, 3 and 4 also with their launches under
    the options of phase 10, rows 1, 6 and 14 on the serving path), then the
@@ -1474,16 +1481,17 @@ def check_gmm(gm, dev):
 # The int4 dequant-matmul: row 14
 # ---------------------------------------------------------------------------
 
-# (label, rows, d, out, dtype): lm_1b3's decode shapes (4 rows) and the edges
-# of the kernels' loops. Row 14 takes its mma kernel for bf16 x with d % 8 ==
-# 0 and out % 16 == 0 (16-byte-aligned bases), its simt kernel for the rest
+# (label, rows, d, out, dtype): lm_1b3's decode shapes (a decode step's rows
+# padded to DECODE_ROWS, 64) and the edges of the kernels' loops. Row 14
+# takes its mma kernel for bf16 x with d % 8 == 0 and out % 16 == 0
+# (16-byte-aligned bases), its simt kernel for the rest
 Q4_CASES = [
-    ("wq..wo", 4, 2048, 2048, torch.bfloat16),
-    ("gate/up", 4, 2048, 5504, torch.bfloat16),
-    ("down", 4, 5504, 2048, torch.bfloat16),
+    ("wq..wo", 64, 2048, 2048, torch.bfloat16),
+    ("gate/up", 64, 2048, 5504, torch.bfloat16),
+    ("down", 64, 5504, 2048, torch.bfloat16),  # x staged a box at a time
     ("B 1", 1, 2048, 2048, torch.bfloat16),
-    ("B 64", 64, 2048, 5504, torch.bfloat16),
-    ("B 64 down (x staged a box at a time)", 64, 5504, 2048, torch.bfloat16),
+    ("B 4", 4, 2048, 5504, torch.bfloat16),
+    ("B 4 down", 4, 5504, 2048, torch.bfloat16),
     ("1000 packed rows (a last box of 40)", 4, 2000, 2048, torch.bfloat16),
     ("out 336 (a last strip of 16 channels)", 4, 2048, 336, torch.bfloat16),
     ("out 200 (no whole strip)", 4, 2048, 200, torch.bfloat16),
@@ -1608,7 +1616,8 @@ def check_q4(q4, dev):
              "replaces": "orion_tpu/quant.py:183", "max_abs_err": errs["mma"],
              **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
              "library_ms": None, "graph_ms": main["graph_ms"], "host_us": main["host_us"],
-             "shape": "x [4, 2048] @ p [1024, 5504] (lm_1b3's gate / up at decode)",
+             "shape": "x [64, 2048] @ p [1024, 5504] (lm_1b3's gate / up at decode, its rows "
+                      "padded to 64)",
              "per_shape": {k: {f: v[f] for f in fields} for k, v in per_shape.items()},
              "per_decode_step": step},
             {"name": "q4_matmul_simt", "route": "cuda",
@@ -2811,125 +2820,42 @@ def _storage(trainer):
 
 
 # ---------------------------------------------------------------------------
-# Serving: the chunked and slot-multiplexed decode programs, the in-scan
-# prefill pieces, the in-place caches and DecodeSession
+# Serving: SlotEngine over the slot programs, the in-scan prefill pieces, the
+# in-place caches and DecodeSession; C1's row invariance
 # ---------------------------------------------------------------------------
 
 SERVE_SLOTS, SERVE_CHUNK, SERVE_PIECE, SERVE_NEW = 4, 16, 256, 32
-# lm_1b3's requests: (prompt length, slot, first boundary it may enter, how)
-# -- four prefilled solo and inserted, two staged and consumed in pieces
-LM_PLAN = ((1024, 0, 0, "host"), (640, 1, 0, "host"), (300, 2, 0, "host"),
-           (1000, 0, 2, "host"), (77, 3, 1, "inscan"), (512, 1, 2, "inscan"))
-# hybrid_1b3's: two prompts past the 1024-key window, then a short one
-# staged while the 1100-token one is still mid-prefill
-HYBRID_PLAN = ((1536, 0, 0, "host"), (1100, 1, 0, "inscan"), (200, 2, 2, "inscan"))
+SERVE_BUCKETS = (256, 512, 1024, 2048)
+# lm_1b3's requests: (prompt length, first boundary it may enter)
+LM_PLAN = ((1024, 0), (640, 0), (300, 0), (1000, 2), (77, 1), (512, 2))
+# hybrid_1b3's: two prompts past the 1024-key window, then a short one that
+# in-scan arrives while the 1100-token one is still mid-prefill
+HYBRID_PLAN = ((1536, 0), (1100, 0), (200, 2))
 SAMPLED_SERVE = dict(temperature=0.8, top_k=50, top_p=0.95)
-
-
-class SlotHost:
-    """A host for the slot programs on the card: the batched carry, each
-    request admitted into its slot by a solo ``prefill_carry`` and
-    ``insert_decode_slot``, or staged for ``decode_batched_prefill_chunk``'s
-    pieces; at each boundary it reads back the emitted tokens, collects each
-    request's as its slot emits them and frees a slot whose request has its
-    tokens or emitted EOS. (The port's ``SlotEngine`` is the next slice.)"""
-
-    def __init__(self, model, sample, slots=SERVE_SLOTS, bucket=2048):
-        from orion_tpu_torch.models.transformer import init_decode_state
-
-        dev = model.device
-        self.model, self.sample, self.dev = model, sample, dev
-        z = torch.zeros(slots, dtype=torch.long, device=dev)
-        self.carry = (z.clone(), init_decode_state(model.cfg, slots, dev), z.clone(), z.clone(),
-                      torch.zeros(slots, dtype=torch.bool, device=dev))
-        self.keys = torch.zeros(slots, 2, dtype=torch.long, device=dev)
-        self.active = torch.zeros(slots, dtype=torch.bool, device=dev)
-        self.pbuf = torch.zeros(slots, bucket, dtype=torch.long, device=dev)
-        self.plen, self.pfold = z.clone(), z.clone()
-        self.owner, self.want, self.got = [None] * slots, {}, {}
-        self.host_prefills = self.unified = self.pure = 0
-
-    @property
-    def states(self):
-        return self.carry[1]
-
-    @torch.inference_mode()
-    def _take(self, j, tag, seed, max_new, token, t, plen):
-        from orion_tpu_torch.generate import request_keys
-
-        tok, _, tt, emit, done = self.carry
-        tok[j], tt[j], emit[j], done[j] = token, t, 0, False
-        self.keys[j] = request_keys(seed, 1, self.dev)[0]
-        self.plen[j], self.pfold[j] = plen, 0
-        self.active[j] = True
-        self.owner[j], self.want[tag], self.got[tag] = tag, max_new, []
-
-    def admit(self, j, tag, tokens, seed, max_new):
-        from orion_tpu_torch.generate import prefill_carry, request_keys
-        from orion_tpu_torch.models.transformer import insert_decode_slot
-
-        c = prefill_carry(self.model, tokens, self.sample, request_keys(seed, 1, self.dev))
-        insert_decode_slot(self.states, c[1], j)
-        self._take(j, tag, seed, max_new, c[0][0], c[2], 0)
-        self.host_prefills += 1
-
-    def stage(self, j, tag, tokens, seed, max_new):
-        from orion_tpu_torch.models.transformer import init_decode_state, insert_decode_slot
-
-        insert_decode_slot(self.states, init_decode_state(self.model.cfg, 1, self.dev), j)
-        with torch.inference_mode():
-            self.pbuf[j] = 0
-            self.pbuf[j, :tokens.shape[1]] = tokens[0]
-        self._take(j, tag, seed, max_new, 0, 0, tokens.shape[1])
-
-    def prefilling(self):
-        return bool((self.active & (self.carry[2] < self.plen)).any())
-
-    def chunk(self, n_steps=SERVE_CHUNK, pchunk=SERVE_PIECE):
-        """One boundary's chunk: the unified program while a slot is mid-
-        prefill, the pure decode program otherwise."""
-        from orion_tpu_torch.generate import decode_batched_chunk, decode_batched_prefill_chunk
-
-        before = self.carry[3].clone()
-        if self.prefilling():
-            self.carry, toks = decode_batched_prefill_chunk(
-                self.model, self.carry, self.keys, self.active, self.pbuf, self.plen, self.pfold,
-                n_steps, pchunk, self.sample)
-            self.unified += 1
-        else:
-            self.carry, toks = decode_batched_chunk(self.model, self.carry, self.keys,
-                                                    self.active, n_steps, self.sample)
-            self.pure += 1
-        emitted = (self.carry[3] - before).tolist()
-        done, toks = self.carry[4].tolist(), toks.tolist()
-        for j, tag in enumerate(self.owner):
-            if tag is None:
-                continue
-            if emitted[j]:
-                self.got[tag].extend(toks[j][n_steps - emitted[j]:])
-            if len(self.got[tag]) >= self.want[tag] or done[j]:
-                self.got[tag] = self.got[tag][:self.want[tag]]
-                self.active[j] = False
-                self.owner[j] = None
-        return toks
-
-    @property
-    def busy(self):
-        return any(o is not None for o in self.owner)
 
 
 def _serve_prompts(plan, vocab):
     rng = np.random.default_rng(7)
-    return [torch.from_numpy(rng.integers(0, vocab, (1, n), dtype=np.int64)) for n, *_ in plan]
+    return [rng.integers(0, vocab, (1, n), dtype=np.int64) for n, _ in plan]
 
 
-def _slot_rows(host, slots):
-    """Copies of the given slots' state rows and their t, emit and done."""
+def serve_engine(model, mode, chunk=SERVE_CHUNK, **kw):
+    """A 4-slot ``SlotEngine`` on the model's card: ``"host"`` prefills each
+    prompt solo at its own length (no buckets: the prefill of a one-row
+    ``generate``), ``"inscan"`` stages it and consumes pieces of 256."""
+    from orion_tpu_torch.serving import SlotEngine
+
+    if mode == "inscan":
+        kw.update(prefill_buckets=SERVE_BUCKETS, prefill_chunk=SERVE_PIECE)
+    return SlotEngine(model, slots=SERVE_SLOTS, chunk=chunk, device=model.device, **kw)
+
+
+def _row_copy(eng, j):
+    """A copy of slot ``j``'s carry row: its states, t, emit and done."""
     from orion_tpu_torch.models.transformer import extract_decode_slot
 
-    return {j: (extract_decode_slot(host.states, j),
-                [x[j].clone() for x in (host.carry[2], host.carry[3], host.carry[4])])
-            for j in slots}
+    c = eng._carry
+    return extract_decode_slot(c[1], j), [x[j].clone() for x in (c[2], c[3], c[4])]
 
 
 def _rows_equal(a, b):
@@ -2937,190 +2863,190 @@ def _rows_equal(a, b):
         torch.equal(x, y) for x, y in zip(a[1], b[1]))
 
 
-def run_plan(model, plan, sample, only=None, watch=None, seed0=100):
-    """Serve ``plan``'s requests (``only``: those indices alone, in their
-    own slots) through a ``SlotHost`` -> (tokens by request, the host,
-    boundaries). ``watch`` {boundary: slots}: those slots' rows must come
-    out of that boundary's chunk bitwise as they went in (free or held
-    mid-prefill: contract (c))."""
-    dev = model.device
+def run_plan(model, plan, sample, mode, only=None, seed0=100, fault=None, watch=False):
+    """Serve ``plan``'s requests through a fresh engine (``mode``): request i
+    is admitted at its first boundary or later, when a slot is free
+    (``only``: those requests alone). ``fault``: an ``inject.FaultPlan``
+    armed for the run. ``watch``: at every boundary the rows it must leave
+    as they are -- free slots, and slots mid-prefill the piece does not go
+    to -- come out bitwise as they went in (contract (c)). -> (results by
+    request, counts: solo prefills, unified and pure boundaries, rows held)."""
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.serving import DecodeRequest
+
     prompts = _serve_prompts(plan, model.cfg.vocab_size)
-    host = SlotHost(model, sample)
+    eng = serve_engine(model, mode)
     pending = [i for i in range(len(plan)) if only is None or i in only]
-    boundary, held = 0, {}
-    while pending or host.busy:
-        for i in list(pending):
-            n, slot, first, how = plan[i]
-            if (only is not None or boundary >= first) and host.owner[slot] is None:
-                (host.admit if how == "host" else host.stage)(slot, i, prompts[i].to(dev),
-                                                              seed0 + i, SERVE_NEW)
-                pending.remove(i)
-        if watch and boundary in watch:
-            before = _slot_rows(host, watch[boundary])
-        host.chunk()
-        if watch and boundary in watch:
-            after = _slot_rows(host, watch[boundary])
-            held[boundary] = {j: _rows_equal(before[j], after[j]) for j in watch[boundary]}
-            if not all(held[boundary].values()):
-                raise AssertionError(f"a free or held slot's state moved at boundary {boundary}: "
-                                     f"{held[boundary]}")
-        boundary += 1
-        if boundary > 64:
-            raise AssertionError("the slot plan did not drain")
-    return host.got, host, boundary, held
+    done = {}
+    stats = {"host_prefills": 0, "unified": 0, "pure": 0, "boundaries": 0, "held": 0}
+    with inject.inject(fault) if fault is not None else contextlib.nullcontext():
+        while pending or eng.busy:
+            for i in list(pending):
+                if (only is not None or stats["boundaries"] >= plan[i][1]) and eng.has_free_slot:
+                    eng.admit(DecodeRequest(prompts[i], SERVE_NEW, sample, seed=seed0 + i), tag=i)
+                    pending.remove(i)
+                    stats["host_prefills"] += mode == "host"
+            held = {}
+            if watch:
+                active = np.array([s is not None for s in eng._slots])
+                sel = eng._selected_prefill_slot(active)
+                held = {j: _row_copy(eng, j) for j, s in enumerate(eng._slots)
+                        if s is None or (s.prompt_remaining > 0 and j != sel)}
+            stats["unified" if eng.prefilling_count else "pure"] += 1
+            done.update(dict(eng.step()))
+            for j, row in held.items():
+                if not _rows_equal(row, _row_copy(eng, j)):
+                    raise AssertionError(f"slot {j}'s row moved at boundary {stats['boundaries']} "
+                                         "though it was free or held mid-prefill (c)")
+            stats["held"] += len(held)
+            stats["boundaries"] += 1
+            if stats["boundaries"] > 64:
+                raise AssertionError("the slot plan did not drain")
+    return done, stats
 
 
-def _eos_cut(tokens, eos):
-    """Tokens as an EOS-stopped request emits them: through its first EOS."""
-    return tokens[:tokens.index(eos) + 1] if eos in tokens else tokens
-
-
-def _prefill_pieces(model, prompt, piece=SERVE_PIECE):
-    """``prompt`` [1, T] consumed in ``piece``-token pieces from a zero state
-    (the last one right-padded), as a staged slot consumes it."""
-    from orion_tpu_torch.models.transformer import init_decode_state
-
-    states = init_decode_state(model.cfg, 1, model.device)
-    t = prompt.shape[1]
-    with torch.inference_mode():
-        for off in range(0, t, piece):
-            cons = min(piece, t - off)
-            chunk = torch.nn.functional.pad(prompt[:, off:off + cons], (0, piece - cons))
-            logits, states = model.prefill_extend_step(chunk, states, off, cons)
-    return logits, states
-
-
-def _copying_attention_decode_step(self, x, state, t=None, write=None):
-    """``Attention.decode_step`` as it was before the caches were written in
-    place, kept for the "before" times: each softmax / swa step copies the
-    whole cache or ring (clone, out-of-place index_copy). Times only: every
-    row is active (``write`` all True), as it ignores the mask."""
-    from orion_tpu_torch.ops.linear_attention import recurrent_step
-    from orion_tpu_torch.ops.rotary import apply_rotary_at
-    from orion_tpu_torch.ops.softmax_attention import cached_attention
-
-    q, k, v = self._heads(x)
-    if self.layer_type == "linear":
-        out, (s, z) = recurrent_step(self._phi_map(q), self._phi_map(k), v,
-                                     (state["s"], state["z"]))
-        return self._merge(out, single=True), {"s": s, "z": z}
-    t = torch.as_tensor(t, device=x.device).long()
-    per_seq = t.dim() == 1
-    pos = t[:, None] if per_seq else t
-    qr = apply_rotary_at(q, self.freqs, pos)
-    kr = apply_rotary_at(k, self.freqs, pos)
-    cap = state["k"].shape[-2]
-    slot = t % cap if self.layer_type == "swa" else t
-    if per_seq:
-        rows = torch.arange(x.shape[0], device=x.device)
-        kc, vc = state["k"].clone(), state["v"].clone()
-        kc[rows, :, slot] = kr.to(kc.dtype)
-        vc[rows, :, slot] = v.to(vc.dtype)
-        valid = torch.arange(cap, device=x.device)[None, None, :] <= t[:, None, None]
-    else:
-        idx = slot.reshape(1)
-        kc = state["k"].index_copy(2, idx, kr[:, :, None].to(state["k"].dtype))
-        vc = state["v"].index_copy(2, idx, v[:, :, None].to(state["v"].dtype))
-        valid = (torch.arange(cap, device=x.device) <= t)[None, None, :]
-    out = cached_attention(qr, kc, vc, valid)
-    return self._merge(out, single=True), {"k": kc, "v": vc}
-
-
-@contextlib.contextmanager
-def copying_decode_step():
-    from orion_tpu_torch.models.transformer import Attention
-
-    current = Attention.decode_step
-    Attention.decode_step = _copying_attention_decode_step
-    try:
-        yield
-    finally:
-        Attention.decode_step = current
+def _tokens(results):
+    return {i: r.tokens[0].tolist() for i, r in results.items()}
 
 
 def serve_times(model, plan, label, card):
-    """Decode ms/token with 4 busy slots (a ``decode_batched_chunk`` of 16
-    steps over 16, median of 3) with this tree's in-place ``decode_step``
-    and with the copying one before it, in turns; and the boundary cost of a
-    256-token piece, with one slot staged: a one-step unified chunk's ms
-    less a one-step pure one's, medians of 5."""
-    from orion_tpu_torch.generate import (SampleConfig, decode_batched_chunk,
-                                          decode_batched_prefill_chunk)
+    """Through the engine: decode ms/token with 4 busy slots (a boundary of
+    16 steps over 16, median of 3 after one), and the boundary cost of a
+    256-token piece (a one-step unified boundary less a one-step pure one,
+    medians of 5, in an in-scan engine of chunk 1 with 3 slots decoding)."""
+    from orion_tpu_torch.generate import SampleConfig
+    from orion_tpu_torch.serving import DecodeRequest
 
     greedy = SampleConfig(temperature=0.0)
     prompts = _serve_prompts(plan, model.cfg.vocab_size)
-    host = SlotHost(model, greedy)
+    eng = serve_engine(model, "host")
     for j in range(SERVE_SLOTS):
-        host.admit(j, j, prompts[j % len(prompts)].to(model.device), 900 + j, 10**6)
-
-    def chunk():
-        host.carry, _ = decode_batched_chunk(model, host.carry, host.keys, host.active,
-                                             SERVE_CHUNK, greedy)
-
-    chunk()  # warm-up
+        p = prompts[j % len(prompts)]
+        eng.admit(DecodeRequest(p, 256, greedy, seed=900 + j), tag=j)
+    eng.step()  # warm-up
     gc.collect()
-    runs = {"in_place": [], "copying": []}
-    for _ in range(3):
-        for name in ("copying", "in_place"):
-            with copying_decode_step() if name == "copying" else contextlib.nullcontext():
-                runs[name].append(wall_ms(chunk)[0] / SERVE_CHUNK)
-    # the boundary cost: slot 3 staged with a prompt of 5 pieces; a unified
-    # chunk of one step less a pure one of one step (the staged slot left
-    # out), in turns, medians of 5
-    long = torch.from_numpy(np.random.default_rng(8).integers(
-        0, model.cfg.vocab_size, (1, 1280), dtype=np.int64)).to(model.device)
-    host.stage(3, 3, long, 903, 10**6)
-    decoding = host.active.clone()
-    decoding[3] = False
-    pure, unified = [], []
-
-    def pure_step():
-        host.carry, _ = decode_batched_chunk(model, host.carry, host.keys, decoding, 1, greedy)
-
-    def unified_step():
-        host.carry, _ = decode_batched_prefill_chunk(
-            model, host.carry, host.keys, host.active, host.pbuf, host.plen, host.pfold, 1,
-            SERVE_PIECE, greedy)
-
-    for _ in range(5):
-        unified.append(wall_ms(unified_step)[0])
-        pure.append(wall_ms(pure_step)[0])
-    res = {"decode_ms_per_token_in_place": float(np.median(runs["in_place"])),
-           "decode_ms_per_token_copying": float(np.median(runs["copying"])),
-           "runs": runs, "unified_step_ms": unified, "pure_step_ms": pure,
+    runs = [wall_ms(eng.step)[0] / SERVE_CHUNK for _ in range(3)]
+    del eng
+    one = serve_engine(model, "inscan", chunk=1)
+    for j in range(3):
+        one.admit(DecodeRequest(prompts[-1][:, :200], 256, greedy, seed=910 + j), tag=j)
+    while one.prefilling_count:
+        one.step()
+    long = np.random.default_rng(8).integers(0, model.cfg.vocab_size, (1, 1280), dtype=np.int64)
+    one.admit(DecodeRequest(long, 16, greedy, seed=913), tag=3)
+    unified = [wall_ms(one.step)[0] for _ in range(5)]
+    pure = [wall_ms(one.step)[0] for _ in range(5)]
+    res = {"decode_ms_per_token": float(np.median(runs)), "runs": runs,
+           "unified_step_ms": unified, "pure_step_ms": pure,
            "piece_boundary_ms": float(np.median(unified) - np.median(pure))}
-    log(f"{label} times ({card}): decode at 4 slots {res['decode_ms_per_token_in_place']:.3f} "
-        f"ms/token in place against {res['decode_ms_per_token_copying']:.3f} with the "
-        f"copying decode_step (runs {runs}); a 256-token piece's boundary cost "
-        f"{res['piece_boundary_ms']:.2f} ms (a unified chunk of one step {unified}, a pure one "
-        f"{pure})")
+    log(f"{label} times ({card}): decode at 4 busy slots through SlotEngine "
+        f"{res['decode_ms_per_token']:.3f} ms/token (runs {runs}); a 256-token piece's boundary "
+        f"cost {res['piece_boundary_ms']:.2f} ms (a one-step unified boundary {unified}, a pure "
+        f"one {pure})")
     return res
 
 
-def serving_phase(dev, mods, name, plan, card, quant="", watch=None,
-                  checks=("eos", "f", "g", "sampled", "times")):
-    """The serving programs of ``name`` at full width (``quant``: quantized
-    from the seeded fp32 weights). ``plan`` served greedy through a
-    ``SlotHost`` (chunk 16, pieces of 256) with exact launch counts, the
-    ``watch``ed slots held bitwise (c) and an extract / insert round trip
-    (d). ``checks``: "alone" -- two requests each alone in its slot,
-    bitwise their tokens in company (b); "eos" -- the plan again with an EOS
-    that stops
-    request 1 early, every request's tokens bitwise as before though the
-    company and the admission times change (b); "f" -- each request against
-    a one-row ``generate`` at its seed, and one decode step at 4 slots
-    against 1 row (logits, states); "g" -- pieces of 256 against
-    ``prefill_last``; "sampled" -- one sampled run and its alone runs (b),
-    and against one-row ``generate`` (f, asserted where the rows are
-    bitwise); "times" -- ``serve_times``; "session" -- ``session_check``.
-    (f) and (g) are asserted as PERF.md's contracts say: bitwise where the
-    card is, else within the logits and state limits with equal greedy
-    tokens."""
+def _ladder_check(model, plan, label, clean_host, clean_inscan):
+    """The engine's per-slot ladder at full width, NaN injected into one
+    slot's rows: the rewind (in-scan, a neighbour mid-prefill) gives every
+    request its unfaulted tokens; the re-prefill (host, request 0 at its
+    chunk 1) rebuilds the state by a parallel prefill of prompt + 16
+    tokens, not the 16 recurrent steps, so its tokens are held as
+    ``DecodeSession``'s rung (C2): equal, or each unfaulted token within
+    ``LOGITS_ATOL`` of the rebuilt walk's argmax, the others bitwise; an
+    exhausted ladder (request 1) fails that request with its first 16
+    tokens while the others stream on bitwise."""
+    from orion_tpu_torch.generate import SampleConfig
+    from orion_tpu_torch.resilience import inject
+
+    greedy = SampleConfig(temperature=0.0)
+    out = {}
+    r, _ = run_plan(model, plan, greedy, "inscan",
+                    fault=inject.FaultPlan().poison_decode_slot_at(0, chunk=1))
+    out["rewind"] = {"equal": _tokens(r) == clean_inscan,
+                     "rewinds": {i: x.rewinds for i, x in r.items() if x.rewinds}}
+    r, _ = run_plan(model, plan, greedy, "host",
+                    fault=inject.FaultPlan().poison_decode_slot_at(0, chunk=1, times=2))
+    got = _tokens(r)
+    others = all(got[i] == clean_host[i] for i in got if i != 0)
+    gaps = [0.0]
+    if got[0] != clean_host[0]:
+        p = _serve_prompts(plan, model.cfg.vocab_size)[0]
+        seq = np.concatenate([p, np.asarray([clean_host[0][:SERVE_CHUNK]])], axis=1)
+        gaps = _forced_gaps(model, torch.from_numpy(seq).to(model.device),
+                            clean_host[0][SERVE_CHUNK:])
+    out["reprefill"] = {"status": r[0].status, "rungs": (r[0].rewinds, r[0].reprefills),
+                        "equal": got[0] == clean_host[0], "others_equal": others,
+                        "first_chunk_equal": got[0][:SERVE_CHUNK] == clean_host[0][:SERVE_CHUNK],
+                        "forced_max_gap": max(gaps), "forced_off_argmax": sum(g > 0 for g in gaps)}
+    # four deliveries: the attempt, the rewind's, the re-prefill's and the
+    # replay with the slot masked out (unlimited ones would also poison the
+    # request admitted into the freed slot later)
+    r, _ = run_plan(model, plan, greedy, "host",
+                    fault=inject.FaultPlan().poison_decode_slot_at(1, chunk=1, times=4))
+    got = _tokens(r)
+    out["exhausted"] = {"status": r[1].status, "tokens": r[1].new_tokens,
+                        "prefix_equal": got[1] == clean_host[1][:SERVE_CHUNK],
+                        "others_equal": all(got[i] == clean_host[i] for i in got if i != 1)}
+    log(f"{label} ladder, NaN in one slot's rows: {out}")
+    rp = out["reprefill"]
+    if not (out["rewind"]["equal"] and len(out["rewind"]["rewinds"]) == 1
+            and rp["status"] == "ok" and rp["rungs"] == (1, 1) and rp["others_equal"]
+            and rp["first_chunk_equal"] and rp["forced_max_gap"] <= LOGITS_ATOL
+            and out["exhausted"]["status"] == "failed" and out["exhausted"]["tokens"] == SERVE_CHUNK
+            and out["exhausted"]["prefix_equal"] and out["exhausted"]["others_equal"]):
+        raise AssertionError(f"{label}: the engine's ladder misbehaved: {out}")
+    return out
+
+
+def _session_check(model, plan, label, clean_host):
+    """Suspend -> resume: request 0 served as two turns of 16 tokens (its
+    slot suspended at the first's end, its state copied to the host and
+    written back) equals its 32 uninterrupted tokens, bitwise."""
+    from orion_tpu_torch.generate import SampleConfig
+    from orion_tpu_torch.serving import DecodeRequest
+
+    greedy = SampleConfig(temperature=0.0)
+    p = _serve_prompts(plan, model.cfg.vocab_size)[0]
+    eng = serve_engine(model, "host")
+    eng.admit(DecodeRequest(p, SERVE_CHUNK, greedy, seed=100, session_id="s"), tag=1)
+    (_, first), = eng.step()
+    eng.resume(first.session, DecodeRequest(np.zeros((1, 0), np.int64), SERVE_NEW - SERVE_CHUNK,
+                                            greedy, seed=100, session_id="s"), tag=2)
+    (_, second), = eng.step()
+    tokens = first.tokens[0].tolist() + second.tokens[0].tolist()
+    ok = (first.status == "ok" and first.session is not None and second.status == "ok"
+          and tokens == clean_host[0])
+    log(f"{label} session: two turns of {SERVE_CHUNK} through suspend and resume equal the "
+        f"uninterrupted request: {ok}")
+    if not ok:
+        raise AssertionError(f"{label}: suspend -> resume moved the tokens")
+    return ok
+
+
+def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", "ladder",
+                                                                 "session", "times")):
+    """``SlotEngine`` at ``name``'s full width (``quant``: quantized from the
+    seeded fp32 weights), chunk 16, pieces of 256. The main path: ``plan``
+    served greedy twice, by host-prefill and by in-scan admission, every
+    boundary's free and held rows bitwise (c), with exact launch counts; an
+    extract / insert round trip (d); in-scan == host admission (bitwise for
+    a linear model, whose pieces are bitwise its prefill (g); else every
+    in-scan token within ``LOGITS_ATOL`` of the one-row walk's argmax).
+    ``checks``: "b" -- a request alone bitwise its tokens in company, and
+    the plan with an EOS that stops request 1 early, the others bitwise
+    (b); "f" -- C1: every request, greedy and sampled, bitwise a one-row
+    ``generate`` at its seed, and ``row_invariance``'s op by op reading
+    with no op whose row depends on the batch (f); "g" -- pieces against
+    ``prefill_last``; "ladder", "session" -- ``_ladder_check``,
+    ``_session_check``; "times" -- ``serve_times``; "decode_session" --
+    ``session_check`` (``DecodeSession``)."""
     from orion_tpu_torch.generate import (SampleConfig, cast_params_for_inference, generate,
-                                          prefill_carry, quantize_for_decode, request_keys)
+                                          quantize_for_decode)
     from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.models.transformer import (TransformerLM, extract_decode_slot,
-                                                    init_decode_state, insert_decode_slot)
+                                                    insert_decode_slot)
+    from orion_tpu_torch.serving import DecodeRequest
 
     cfg = get_config(name)
     fp = TransformerLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
@@ -3128,113 +3054,111 @@ def serving_phase(dev, mods, name, plan, card, quant="", watch=None,
     del fp
     torch.cuda.empty_cache()
     label = f"{name}{' ' + quant if quant else ''} serving"
-    greedy = SampleConfig(temperature=0.0)
+    greedy, sampled = SampleConfig(temperature=0.0), SampleConfig(**SAMPLED_SERVE)
+    linear = all(lt == "linear" for lt in cfg.resolved_layer_types)
     lin, attn, _, _ = _layer_counts(cfg)
     prompts = _serve_prompts(plan, cfg.vocab_size)
-    run_plan(model, plan, greedy, only=[len(plan) - 1])  # warm-up: cuBLAS plans, allocator
+    t_phase = time.perf_counter()
+    run_plan(model, plan, greedy, "inscan", only=[len(plan) - 1])  # warm-up: plans, allocator
     gc.collect()
 
     _reset_counts(mods)
     t0 = time.perf_counter()
-    got, host, boundaries, held = run_plan(model, plan, greedy, watch=watch)
+    host, hs = run_plan(model, plan, greedy, "host", watch=True)
+    inscan, ins = run_plan(model, plan, greedy, "inscan", watch=True)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     counts = _counts(mods)
-    steps = (host.unified + host.pure) * SERVE_CHUNK
+    steps = (hs["boundaries"] + ins["boundaries"]) * SERVE_CHUNK
     want = dict.fromkeys(KERNELS, 0)
-    # every linear layer of a solo prefill and of a unified chunk's piece (the
-    # piece runs whether or not a slot is mid-prefill); a softmax / swa layer
-    # of a solo prefill (the pieces' are plain, as in JAX); one q4 launch per
-    # int4 layer and decode step, busy slots or not
-    want.update(causal_dot_norm_wgmma=lin * (host.host_prefills + host.unified),
-                flash_fwd_wgmma=attn * host.host_prefills,
+    # every linear layer of a solo prefill and of a unified boundary's piece;
+    # every softmax / swa layer of a solo prefill (the pieces' are plain, as
+    # in JAX); one q4 launch per int4 layer and decode step, busy slots or not
+    want.update(causal_dot_norm_wgmma=lin * (hs["host_prefills"] + ins["unified"]),
+                flash_fwd_wgmma=attn * hs["host_prefills"],
                 q4_matmul_mma=_q4_per_step(cfg) * steps if quant == "int4" else 0)
-    log(f"{label}: {len(plan)} requests in {boundaries} boundaries ({host.host_prefills} solo "
-        f"prefills, {host.unified} unified chunks, {host.pure} pure, {steps} decode steps) in "
-        f"{serve_s:.2f} s; launches {counts}; watched slots held bitwise (c): {held}")
+    log(f"{label}: {len(plan)} requests served twice through SlotEngine in {serve_s:.2f} s: host "
+        f"admission {hs}, in-scan {ins}; launches {counts}; every boundary's free and held rows "
+        f"bitwise (c): {hs['held'] + ins['held']} rows")
     if counts != want:
         raise AssertionError(f"{label} launched {counts}, want {want}")
-    if sorted(got) != list(range(len(plan))) or any(
-            len(v) != SERVE_NEW or min(v) < 0 or max(v) >= cfg.vocab_size for v in got.values()):
-        raise AssertionError(f"{label}: requests came back incomplete or out of vocabulary")
-    res = {"launches": counts, "serve_s": serve_s, "boundaries": boundaries,
-           "host_prefills": host.host_prefills, "unified_chunks": host.unified,
-           "pure_chunks": host.pure, "decode_steps": steps,
-           "held": {str(k): v for k, v in held.items()}}
+    clean_host, clean_inscan = _tokens(host), _tokens(inscan)
+    for got in (clean_host, clean_inscan):
+        if sorted(got) != list(range(len(plan))) or any(
+                len(v) != SERVE_NEW or min(v) < 0 or max(v) >= cfg.vocab_size
+                for v in got.values()):
+            raise AssertionError(f"{label}: requests came back incomplete or out of vocabulary")
+    res = {"launches": counts, "serve_s": serve_s, "host": hs, "inscan": ins}
 
     # (d): a row out and back in, bitwise; its neighbour untouched
-    row, other = extract_decode_slot(host.states, 0), extract_decode_slot(host.states, 1)
-    insert_decode_slot(host.states, row, 3)
+    eng = serve_engine(model, "host")
+    for i in (0, 1):
+        eng.admit(DecodeRequest(prompts[i], SERVE_NEW, greedy, seed=100 + i), tag=i)
+    states = eng._carry[1]
+    row, other = extract_decode_slot(states, 0), extract_decode_slot(states, 1)
+    insert_decode_slot(states, row, 3)
     same = (lambda a, b: all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x))
-    if not (same(extract_decode_slot(host.states, 3), row)
-            and same(extract_decode_slot(host.states, 1), other)):
+    if not (same(extract_decode_slot(states, 3), row)
+            and same(extract_decode_slot(states, 1), other)):
         raise AssertionError(f"{label}: extract_decode_slot(insert_decode_slot(...)) moved a value")
-    del host, row, other
+    del eng, row, other, states
 
-    # (b): requests alone in their slots (a solo-admitted one, an in-scan one)
-    alone_idx = [2, next(i for i, p in enumerate(plan) if p[3] == "inscan")]
-    b_alone = {i: run_plan(model, plan, greedy, only=[i])[0][i] == got[i]
-               for i in (alone_idx if "alone" in checks else ())}
-    res["b"] = {"alone": b_alone}
-    if "eos" in checks:  # an EOS stops one request early; the rest bitwise the same
-        eos_tok = got[1][3]
-        got_eos = run_plan(model, plan, dataclasses.replace(greedy, eos_token=eos_tok))[0]
-        res["b"]["eos"] = all(
-            _eos_cut(got_eos[i], eos_tok) == _eos_cut(got[i], eos_tok) and
-            set(got_eos[i][len(_eos_cut(got[i], eos_tok)):]) <= {0} for i in got)
-        res["b"]["eos_token"] = eos_tok
-    log(f"{label} (b), bitwise: {res['b']}")
-    if not all(b_alone.values()) or not res["b"].get("eos", True):
-        raise AssertionError(f"{label}: a request's tokens moved with its company (b)")
+    # in-scan admission against host-prefill admission
+    res["inscan_equal"] = {i: clean_inscan[i] == clean_host[i] for i in clean_host}
+    if not linear:  # the pieces' swa is plain, the prefill's row 6: held as (f) was
+        res["inscan_gaps"] = {i: max(_forced_gaps(model, torch.from_numpy(prompts[i]).to(dev),
+                                                  clean_inscan[i]))
+                              for i, eq in res["inscan_equal"].items() if not eq}
+    log(f"{label}: in-scan admission against host prefill, tokens equal by request "
+        f"{res['inscan_equal']}" + ("" if linear else
+                                    f"; the one-row walk fed the in-scan tokens, largest gap "
+                                    f"to its maximum by request {res['inscan_gaps']} (limit "
+                                    f"{LOGITS_ATOL})"))
+    if (linear and not all(res["inscan_equal"].values())) or (
+            not linear and any(g > LOGITS_ATOL for g in res["inscan_gaps"].values())):
+        raise AssertionError(f"{label}: in-scan admission disagrees with host prefill")
 
-    f_bitwise = False
-    if "f" in checks:  # (f): against a one-row generate at its seed
-        solo = [generate(model, prompts[i].to(dev), SERVE_NEW, greedy, 100 + i)[0].tolist()
-                for i in range(len(plan))]
-        f_tokens = [solo[i] == got[i] for i in range(len(plan))]
-        # one decode step at 4 slots against 1 row, from the same state
-        c1 = prefill_carry(model, prompts[0].to(dev), greedy, request_keys(100, 1, dev))
-        states4 = init_decode_state(cfg, SERVE_SLOTS, dev)
-        for j in range(SERVE_SLOTS):
-            insert_decode_slot(states4, c1[1], j)
-        with torch.inference_mode():
-            lg4, st4 = model.decode_step(c1[0].expand(SERVE_SLOTS).contiguous(), states4,
-                                         torch.full((SERVE_SLOTS,), c1[2], device=dev),
-                                         torch.ones(SERVE_SLOTS, dtype=torch.bool, device=dev))
-            lg1, st1 = model.decode_step(c1[0], c1[1], c1[2])
-        f_logits = float((lg4[0] - lg1[0]).abs().max())
-        f_bitwise = bool(torch.equal(lg4, lg1.expand_as(lg4))) and all(
-            torch.equal(a[k][j], b[k][0]) for a, b in zip(st4, st1) for k in a
-            for j in range(SERVE_SLOTS))
-        f_state = _state_err([{k: v[:1] for k, v in s.items()} for s in st4], st1)
-        # where they differ, the one-row walk fed the slot's tokens: every
-        # slot token is the one-row logits' argmax, or within the logits
-        # limit of its maximum (a near-tie the two products' roundings
-        # decide apart)
-        f_gaps = [_forced_gaps(model, prompts[i].to(dev), got[i]) if not f_tokens[i] else [0.0]
-                  for i in range(len(plan))]
-        f_flips = [sum(g > 0 for g in gaps) for gaps in f_gaps]
-        f_gap = max(max(gaps) for gaps in f_gaps)
-        log(f"{label} (f): one-row generate's tokens equal the slot's, by request: {f_tokens}; "
-            f"one decode step at 4 slots against 1 row: bitwise {f_bitwise}, logits max abs "
-            f"{f_logits:.4e} (limit {LOGITS_ATOL}), states max rel {f_state}; the one-row walk "
-            f"fed the slot's tokens: tokens off its argmax by request {f_flips}, largest gap to "
-            f"its maximum {f_gap:.4e} (limit {LOGITS_ATOL})")
-        if f_logits > LOGITS_ATOL or (f_state[0] or 0) > LAYER_S_RTOL or (
-                f_state[1] or 0) > LAYER_KV_RTOL or f_gap > LOGITS_ATOL or (
-                f_bitwise and not all(f_tokens)):
-            raise AssertionError(f"{label}: slot rows disagree with a one-row generate (f)")
-        res["f"] = {"tokens_equal": f_tokens, "bitwise": f_bitwise, "logits_max_abs": f_logits,
-                    "state_max_rel": f_state, "forced_off_argmax": f_flips,
-                    "forced_max_gap": f_gap}
+    if "b" in checks:  # (b): alone in its slot, and an EOS that stops request 1 early
+        k = len(plan) - 1
+        alone = _tokens(run_plan(model, plan, greedy, "inscan", only=[k])[0])[k]
+        eos_tok = clean_host[1][3]
+        got_eos = _tokens(run_plan(model, plan, dataclasses.replace(greedy, eos_token=eos_tok),
+                                   "host")[0])
+        res["b"] = {"alone": alone == clean_inscan[k], "eos_token": eos_tok, "eos": all(
+            _eos_cut(got_eos[i], eos_tok) == _eos_cut(clean_host[i], eos_tok) and
+            set(got_eos[i][len(_eos_cut(clean_host[i], eos_tok)):]) <= {0} for i in got_eos)}
+        log(f"{label} (b), bitwise: {res['b']}")
+        if not (res["b"]["alone"] and res["b"]["eos"]):
+            raise AssertionError(f"{label}: a request's tokens moved with its company (b)")
+
+    if "f" in checks:  # (f), C1: against a one-row generate at its seed, bitwise
+        f = {"row_invariance": row_invariance(model, label)}
+        padded = f["row_invariance"]["padded"]
+        host_s, _ = run_plan(model, plan, sampled, "host")
+        runs = {"greedy": (greedy, clean_host), "sampled": (sampled, _tokens(host_s))}
+        if linear:  # its pieces are bitwise its prefill (g)
+            runs["greedy in-scan"] = (greedy, clean_inscan)
+            if not quant:
+                runs["sampled in-scan"] = (sampled, _tokens(run_plan(model, plan, sampled,
+                                                                     "inscan")[0]))
+        solo = {}
+        for sname, (sample, got) in runs.items():
+            key = sname.split()[0]
+            if key not in solo:
+                solo[key] = [generate(model, torch.from_numpy(p).to(dev), SERVE_NEW, sample,
+                                      100 + i)[0].tolist() for i, p in enumerate(prompts)]
+            f[sname] = [solo[key][i] == got[i] for i in range(len(plan))]
+        log(f"{label} (f): every request against a one-row generate at its seed, bitwise, by "
+            f"request: {f}")
+        if padded["culprits"] or not (padded["logits_equal"] and padded["states_equal"]) or \
+                not all(all(v) for k, v in f.items() if k != "row_invariance"):
+            raise AssertionError(f"{label}: slot rows differ from a one-row generate (f)")
+        res["f"] = f
 
     if "g" in checks:  # (g): pieces of 256 (4 x row 1's chunk) against prefill_last
         g = {}
-        longest = max(p[0] for p in plan)
-        for i, (n, _, _, how) in enumerate(plan):
-            if how != "inscan" and n != longest:
-                continue
-            p = prompts[i].to(dev)
+        for i, (n, _) in enumerate(plan):
+            p = torch.from_numpy(prompts[i]).to(dev)
             _reset_counts(mods)
             lg, st = _prefill_pieces(model, p)
             piece_counts = _counts(mods)
@@ -3257,27 +3181,172 @@ def serving_phase(dev, mods, name, plan, card, quant="", watch=None,
             g[n] = {"pieces": pieces, "bitwise": bit, "logits_max_abs": err, "s_max_rel": s_err,
                     "kv_max_rel": kv_err, "greedy_equal": int(lg.argmax()) == int(rlg.argmax())}
             if err > LOGITS_ATOL or (s_err or 0) > LAYER_S_RTOL or (
-                    kv_err or 0) > LAYER_KV_RTOL or not g[n]["greedy_equal"]:
+                    kv_err or 0) > LAYER_KV_RTOL or not g[n]["greedy_equal"] or (
+                    linear and not bit):
                 raise AssertionError(f"{label} (g): {n} tokens in pieces disagree with "
                                      f"prefill_last: {g[n]}")
         log(f"{label} (g): pieces of {SERVE_PIECE} against prefill_last, by prompt length: {g}")
         res["g"] = g
-
-    if "sampled" in checks:  # one sampled run, its requests alone in their slots (b)
-        sample = SampleConfig(**SAMPLED_SERVE)
-        got_s = run_plan(model, plan, sample)[0]
-        bs = {i: run_plan(model, plan, sample, only=[i])[0][i] == got_s[i] for i in alone_idx}
-        log(f"{label} sampled {SAMPLED_SERVE}: alone in its slot, bitwise (b): {bs}")
-        if not all(bs.values()):
-            raise AssertionError(f"{label}: a sampled request's tokens moved with its company (b)")
-        res["sampled"] = {"alone": bs}
+    if "ladder" in checks:
+        res["ladder"] = _ladder_check(model, plan, label, clean_host, clean_inscan)
+    if "session" in checks:
+        res["session"] = _session_check(model, plan, label, clean_host)
     if "times" in checks:
         res["times"] = serve_times(model, plan, label, card)
-    if "session" in checks:
-        res["session"] = session_check(model, label)
+    if "decode_session" in checks:
+        res["decode_session"] = session_check(model, label)
+    log(f"{label} phase took {time.perf_counter() - t_phase:.1f} s")
     del model
     torch.cuda.empty_cache()
     return res
+
+
+ROW_PROBE_ROW = 2  # the row of the 4-row batch held against its one-row run
+
+
+@contextlib.contextmanager
+def decode_rows_at(rows):
+    """``TransformerLM.decode_step``'s products at ``rows`` rows (1: each at
+    the batch's own row count, as before the padding) for the block."""
+    from orion_tpu_torch.models import transformer
+
+    saved = transformer.DECODE_ROWS
+    transformer.DECODE_ROWS = rows
+    try:
+        yield
+    finally:
+        transformer.DECODE_ROWS = saved
+
+
+def _probe_batch(model, slots=SERVE_SLOTS, prompt_len=300):
+    """``slots`` requests of different lengths prefilled solo and inserted:
+    (next tokens [S], states, positions [S])."""
+    from orion_tpu_torch.generate import SampleConfig, prefill_carry, request_keys
+    from orion_tpu_torch.models.transformer import init_decode_state, insert_decode_slot
+
+    dev = model.device
+    rng = np.random.default_rng(11)
+    states = init_decode_state(model.cfg, slots, dev)
+    toks, ts = [], []
+    for j in range(slots):
+        p = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, prompt_len - 37 * j)))
+        c = prefill_carry(model, p.to(dev), SampleConfig(temperature=0.0),
+                          request_keys(j, 1, dev))
+        insert_decode_slot(states, c[1], j)
+        toks.append(c[0])
+        ts.append(c[2])
+    return torch.cat(toks), states, torch.tensor(ts, device=dev)
+
+
+def row_invariance(model, label):
+    """C1, op by op: one ``decode_step`` of 4 rows against row 2 alone
+    (``utils/row_probe.py``), with the products padded to ``DECODE_ROWS``
+    (the tree) and at the batch's own rows (``decode_rows_at(1)``): the ops
+    whose row differs though their row inputs agree, the first op whose row
+    differs, and whether the logits and states are bitwise."""
+    from orion_tpu_torch.models import transformer
+    from orion_tpu_torch.utils.row_probe import row_variant_ops
+
+    tok, states, t = _probe_batch(model)
+    out = {}
+    for name, rows in (("padded", transformer.DECODE_ROWS), ("unpadded", 1)):
+        with decode_rows_at(rows):
+            r = row_variant_ops(model, tok, states, t, ROW_PROBE_ROW)
+        brief = (lambda o: None if o is None else
+                 {k: o[k] for k in ("op", "index", "gap", "shapes") if k in o})
+        out[name] = {"ops": r["ops"], "culprits": [brief(o) for o in r["culprits"]],
+                     "first_differs": brief(r["first_differs"]),
+                     "logits_equal": r["logits_equal"], "states_equal": r["states_equal"],
+                     "misaligned": brief(r["misaligned"])}
+    log(f"{label} row invariance (C1), a decode step's row {ROW_PROBE_ROW} of 4 against it alone, "
+        f"op by op: {out}")
+    return out
+
+
+def row_forms(dev):
+    """Candidate forms of the decode step's products at lm_1b3 / hybrid_1b3
+    widths: the row of a 4-row and of an 8-row batch against it alone, each
+    bitwise or its largest difference. Dense and head products at the
+    batch's rows and padded to 64; the linear layer's q.S as a batched
+    product (bmm) and as a product and a sum; the swa layer's q.K and p.V
+    (1024 slots) likewise; the norm's mean; the sampler's filtered logits
+    and tokens."""
+    from orion_tpu_torch.generate import SampleConfig, _filtered_logits, request_keys, sample_rows
+    from orion_tpu_torch.models.transformer import pad_rows
+
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    bf = torch.bfloat16
+    w = rnd(5504, 2048, dtype=bf) * 0.02
+    head = rnd(32000, 2048, dtype=bf).float() * 0.02
+    samp = SampleConfig(**SAMPLED_SERVE)
+    keys8 = torch.cat([request_keys(100 + j, 1, dev) for j in range(8)])
+    forms = {
+        "linear bf16": (lambda x: torch.nn.functional.linear(x, w), [(2048,), bf]),
+        "linear bf16 padded 64": (
+            lambda x: torch.nn.functional.linear(pad_rows(x, 64), w)[:x.shape[0]], [(2048,), bf]),
+        "head fp32": (lambda x: x.float() @ head.t(), [(2048,), bf]),
+        "head fp32 padded 64": (lambda x: (pad_rows(x, 64).float() @ head.t())[:x.shape[0]],
+                                [(2048,), bf]),
+        "norm mean": (lambda x: (x * x).mean(-1), [(2048,), torch.float32]),
+        "norm mean padded 64": (lambda x: (pad_rows(x, 64) * pad_rows(x, 64)).mean(-1)[:x.shape[0]],
+                                [(2048,), torch.float32]),
+        "q.S bmm": (lambda q, s: (q[..., None, :] @ s)[..., 0, :],
+                    [(16, 128), torch.float32], [(16, 128, 128), torch.float32]),
+        "q.S product + sum": (lambda q, s: (q[..., :, None] * s).sum(-2),
+                              [(16, 128), torch.float32], [(16, 128, 128), torch.float32]),
+        "q.z sum": (lambda q, z: (q * z).sum(-1), [(16, 128), torch.float32],
+                    [(16, 128), torch.float32]),
+        "q.K bmm": (lambda q, k: (k.float() @ q[..., None])[..., 0],
+                    [(16, 128), torch.float32], [(16, 1024, 128), bf]),
+        "q.K product + sum": (lambda q, k: (k.float() * q[..., None, :]).sum(-1),
+                              [(16, 128), torch.float32], [(16, 1024, 128), bf]),
+        "softmax 1024": (lambda x: torch.softmax(x, -1), [(16, 1024), torch.float32]),
+        "p.V bmm": (lambda p, v: (p[..., None, :] @ v.float())[..., 0, :],
+                    [(16, 1024), torch.float32], [(16, 1024, 128), bf]),
+        "p.V product + sum": (lambda p, v: (p[..., :, None] * v.float()).sum(-2),
+                              [(16, 1024), torch.float32], [(16, 1024, 128), bf]),
+        "sampler filtered logits": (lambda x: _filtered_logits(x, samp),
+                                    [(32000,), torch.float32]),
+        "sampler tokens": (lambda x, k: sample_rows(x, k.long(), samp),
+                           [(32000,), torch.float32], "keys"),
+    }
+    out = {}
+    for name, (fn, *specs) in forms.items():
+        args8 = [keys8 if sp == "keys" else rnd(8, *sp[0], dtype=sp[1]) for sp in specs]
+        one = fn(*[a[ROW_PROBE_ROW:ROW_PROBE_ROW + 1] for a in args8])[0]
+        res = {}
+        for b in (4, 8):
+            row = fn(*[a[:b] for a in args8])[ROW_PROBE_ROW]
+            res[b] = True if torch.equal(row, one) else float(
+                (row.double() - one.double()).abs().max())
+        out[name] = res
+    log(f"decode product forms, a row of 4 and of 8 against it alone (True: bitwise, else the "
+        f"largest difference): {out}")
+    return out
+
+
+def _eos_cut(tokens, eos):
+    """Tokens as an EOS-stopped request emits them: through its first EOS."""
+    return tokens[:tokens.index(eos) + 1] if eos in tokens else tokens
+
+
+def _prefill_pieces(model, prompt, piece=SERVE_PIECE):
+    """``prompt`` [1, T] consumed in ``piece``-token pieces from a zero state
+    (the last one right-padded), as a staged slot consumes it."""
+    from orion_tpu_torch.models.transformer import init_decode_state
+
+    states = init_decode_state(model.cfg, 1, model.device)
+    t = prompt.shape[1]
+    with torch.inference_mode():
+        for off in range(0, t, piece):
+            cons = min(piece, t - off)
+            chunk = torch.nn.functional.pad(prompt[:, off:off + cons], (0, piece - cons))
+            logits, states = model.prefill_extend_step(chunk, states, off, cons)
+    return logits, states
 
 
 @torch.inference_mode()
@@ -3357,9 +3426,25 @@ def session_check(model, label, prompt_len=512, new=48):
     return out
 
 
+def checkout_package():
+    """The ``orion_tpu_torch`` beside this script, or None: a copy of the
+    script alone in a directory finds none (or, through ``PYTHONPATH``,
+    another checkout's, which it must not run)."""
+    try:
+        import orion_tpu_torch
+    except ImportError:
+        return None
+    pkg = Path(orion_tpu_torch.__file__).resolve().parent
+    return pkg if pkg == ROOT / "orion_tpu_torch" else None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
+        return 1
+    if checkout_package() is None:
+        print(f"chip_smoke: no orion_tpu_torch package beside {ROOT}; run it from the root of a "
+              "checkout", file=sys.stderr)
         return 1
     from orion_tpu_torch.models.configs import TINY
     from orion_tpu_torch.ops.kernels import adafactor, causal_dot, flash_attention, gmm, q4_matmul
@@ -3464,10 +3549,8 @@ def main() -> int:
             f"gradients up to {fm_grad['grad_rel_l2_max']:.4g} relative L2; the plain path "
             f"against itself {spread['logits_max_abs']:.4e}, {spread['grad_rel_l2_max']:.4g}; "
             f"train step {fm_train['step_ms']:.2f} ms against elu+1's {lm_train['step_ms']:.2f}")
-    # the int8 untied head (lm_head_kernel_q) at lm_1b3's width; 4 of its 24
-    # blocks, to keep the script inside the time it took before the serving
-    # phases came (the head, not the depth, is what this path checks)
-    quant_generate_phase(dev, mods, "lm_1b3", 1024, 32, "int8", {**learnable, "n_layers": 4})
+    # the int8 untied head (lm_head_kernel_q) at lm_1b3's width and depth
+    quant_generate_phase(dev, mods, "lm_1b3", 1024, 32, "int8", learnable)
     dots = train_phase(dev, mods, "lm_1b3", 1024, {"remat_policy": "dots"})
     log(f"lm_1b3 remat 'dots' step {dots['step_ms']:.2f} ms, max memory allocated "
         f"{dots['max_memory_gib']:.2f} GiB against 'full''s {lm_train['step_ms']:.2f} ms, "
@@ -3492,14 +3575,15 @@ def main() -> int:
         lra[name]["card_vs_cpu"] = lra_card_vs_cpu(dev, name, t)
     log(f"LRA phases done at {time.perf_counter() - t0:.1f} s")
 
+    row_forms(dev)
     serving = {
-        "lm_1b3": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, watch={2: [2]},
-                                checks=("alone", "eos", "f", "g", "sampled", "times",
-                                        "session")),
+        "lm_1b3": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card,
+                                checks=("b", "f", "g", "ladder", "session", "times",
+                                        "decode_session")),
         "lm_1b3_int4": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, quant="int4",
-                                     checks=()),
+                                     checks=("f",)),
         "hybrid_1b3": serving_phase(dev, mods, "hybrid_1b3", HYBRID_PLAN, card,
-                                    watch={2: [1, 3]}, checks=("alone", "g", "times")),
+                                    checks=("b", "f", "g", "ladder", "session", "times")),
     }
     log(f"serving phases done at {time.perf_counter() - t0:.1f} s")
 

@@ -369,13 +369,15 @@ def prefill_carry(model: TransformerLM, tokens, sample: SampleConfig, keys: Tens
 
 
 def reprefill_carry(model: TransformerLM, prompt, emitted: List[Tensor], sample: SampleConfig,
-                    keys: Tensor, buckets: Tuple[int, ...] = ()):
+                    keys: Tensor, buckets: Tuple[int, ...] = (),
+                    sample_index: Optional[int] = None):
     """Rebuild a decode carry from the prompt and the tokens emitted so far
     (the serving ladder's re-prefill rung): the first token is drawn at fold
-    n = the tokens emitted, so the walk goes on as the uninterrupted one,
-    and ``done`` is recomputed from the emitted tokens (a row that emitted
-    EOS stays done; it is rebuilt from its PAD tail, so its dead state
-    differs from an uninterrupted run's)."""
+    ``sample_index``, by default n = the tokens emitted, so the walk goes on
+    as the uninterrupted one (a serving slot whose walk started at another
+    fold passes its own), and ``done`` is recomputed from the emitted tokens
+    (a row that emitted EOS stays done; it is rebuilt from its PAD tail, so
+    its dead state differs from an uninterrupted run's)."""
     prompt = torch.as_tensor(prompt, device=model.device).long()
     seq = torch.cat([prompt, *[torch.as_tensor(e, device=model.device).long()
                                for e in emitted]], dim=1)
@@ -383,7 +385,8 @@ def reprefill_carry(model: TransformerLM, prompt, emitted: List[Tensor], sample:
     done = None
     if sample.eos_token >= 0:
         done = (seq[:, prompt.shape[1]:] == sample.eos_token).any(dim=1)
-    return prefill_carry(model, seq, sample, keys, n, done, buckets)
+    return prefill_carry(model, seq, sample, keys, n if sample_index is None else sample_index,
+                         done, buckets)
 
 
 @torch.inference_mode()

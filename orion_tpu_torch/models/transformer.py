@@ -37,7 +37,14 @@ elu+1). Three entry methods, as in the JAX package:
   JAX package leaves it to XLA). ``t`` is a scalar position or one per
   sequence [B]. The caches and rings are written in place (a caller that
   keeps a state across a step copies it first: ``snapshot_decode_state``);
-  a ``write`` mask [B] leaves the other rows' state bitwise as it was;
+  a ``write`` mask [B] leaves the other rows' state bitwise as it was.
+  Every row-wise product of the step (the dense layers, the norms, phi's
+  projections, the head) runs on the rows padded with zeros to
+  ``DECODE_ROWS`` (``decode_rows``), so a row's logits and state are
+  bitwise the same in a batch of any size up to 64 as alone: the libraries
+  choose their kernels and reduction orders by the row count, and one row
+  count makes that choice once. A batch of more rows runs unpadded and is
+  not covered;
 - ``prefill_extend_step(tokens, states, offset, length)`` -- one piece of
   a chunked prefill, for the serving engine's in-scan admission.
 
@@ -106,6 +113,25 @@ _TRUNC_STD = 0.87962566103423978
 
 def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+# The row count of every product of a decode step (row 14's kernel takes at
+# most 64 rows, so the quantized models keep it)
+DECODE_ROWS = 64
+
+
+def pad_rows(x: Tensor, rows: int) -> Tensor:
+    """x [B, ...] with zero rows appended up to ``rows`` (x itself when it
+    has as many already)."""
+    if x.shape[0] >= rows:
+        return x
+    return torch.cat([x, x.new_zeros(rows - x.shape[0], *x.shape[1:])])
+
+
+def decode_rows(x: Tensor) -> Tensor:
+    """A decode step's hidden rows [B, D] padded to ``DECODE_ROWS``: the one
+    place that fixes the row count of the step's products."""
+    return pad_rows(x, DECODE_ROWS)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -360,19 +386,24 @@ class Attention(nn.Module):
         layer returns a new (S, z). ``write`` [B] bool: the rows whose step
         counts (None: all); any other row keeps its state bitwise (its cache
         slot is written back with the value it held, its S and z kept), so
-        a free row or one mid-prefill can ride in the batch."""
+        a free row or one mid-prefill can ride in the batch. ``x`` may hold
+        more rows than the state (``decode_rows``' padding): the products
+        run on all of them, the attention on the state's rows, and the
+        output has x's rows."""
         q, k, v = self._heads(x)
+        b, rows = next(iter(state.values())).shape[0], x.shape[0]
         if self.layer_type == "linear":
             out, (s, z) = recurrent_step(
-                self._phi_map(q), self._phi_map(k), v, (state["s"], state["z"])
+                self._phi_map(q)[:b], self._phi_map(k)[:b], v[:b], (state["s"], state["z"])
             )
             if write is not None:
                 s = torch.where(write[:, None, None, None], s, state["s"])
                 z = torch.where(write[:, None, None], z, state["z"])
-            return self._merge(out, single=True), {"s": s, "z": z}
+            return self._merge(pad_rows(out, rows), single=True), {"s": s, "z": z}
+        q, k, v = q[:b], k[:b], v[:b]
         t = torch.as_tensor(t, device=x.device).long()
         if write is not None and t.dim() == 0:
-            t = t.expand(x.shape[0])
+            t = t.expand(b)
         per_seq = t.dim() == 1
         # per-sequence angles [B, 1, Dh/2] broadcast over the heads
         pos = t[:, None] if per_seq else t
@@ -382,14 +413,14 @@ class Attention(nn.Module):
         cap = kc.shape[-2]  # window W or max_seq_len
         slot = t % cap if self.layer_type == "swa" else t
         if per_seq:
-            rows = torch.arange(x.shape[0], device=x.device)
+            idx = torch.arange(b, device=x.device)
             knew, vnew = kr.to(kc.dtype), v.to(vc.dtype)
             if write is not None:
                 keep = ~write[:, None, None]
-                knew = torch.where(keep, kc[rows, :, slot], knew)
-                vnew = torch.where(keep, vc[rows, :, slot], vnew)
-            kc[rows, :, slot] = knew
-            vc[rows, :, slot] = vnew
+                knew = torch.where(keep, kc[idx, :, slot], knew)
+                vnew = torch.where(keep, vc[idx, :, slot], vnew)
+            kc[idx, :, slot] = knew
+            vc[idx, :, slot] = vnew
             valid = torch.arange(cap, device=x.device)[None, None, :] <= t[:, None, None]
         else:
             idx = slot.reshape(1)
@@ -400,7 +431,7 @@ class Attention(nn.Module):
             # are valid
             valid = (torch.arange(cap, device=x.device) <= t)[None, None, :]
         out = cached_attention(qr, kc, vc, valid)
-        return self._merge(out, single=True), {"k": kc, "v": vc}
+        return self._merge(pad_rows(out, rows), single=True), {"k": kc, "v": vc}
 
     def prefill_extend(self, x: Tensor, state: State, offset, length) -> Tuple[Tensor, State]:
         """One chunked-prefill piece (the JAX package's ``prefill_extend``):
@@ -783,13 +814,15 @@ class TransformerLM(nn.Module):
     ) -> Tuple[Tensor, List[State]]:
         """token [B] at position ``t`` -> (logits [B, V], the states
         advanced: the caches and rings in place, see ``Attention.decode_step``;
-        ``write`` [B] bool masks the rows whose state may change)."""
-        x = self._embed(token, t)
+        ``write`` [B] bool masks the rows whose state may change). The
+        hidden rows are padded to ``DECODE_ROWS`` (``decode_rows``), so a
+        row's logits do not depend on the batch it sits in."""
+        x = decode_rows(self._embed(token, t))
         new_states = []
         for blk, st in zip(self.blocks, states):
             x, st = blk.decode_step(x, st, t, write)
             new_states.append(st)
-        return self._head(x), new_states
+        return self._head(x)[:token.shape[0]], new_states
 
     def prefill_extend_step(
         self, tokens: Tensor, states: List[State], offset, length
@@ -957,4 +990,5 @@ __all__ = [
     "make_norm", "init_blocks", "run_blocks", "lecun_normal", "init_decode_state",
     "check_supported", "snapshot_decode_state", "decode_state_finite",
     "decode_state_finite_per_slot", "insert_decode_slot", "extract_decode_slot",
+    "DECODE_ROWS", "decode_rows", "pad_rows",
 ]

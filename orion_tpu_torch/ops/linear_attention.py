@@ -146,7 +146,10 @@ def recurrent_step(
     qf, kf, vf = q.float(), k.float(), v.float()
     sf = s.float() + kf[..., :, None] * vf[..., None, :]
     zf = z.float() + kf
-    num = (qf[..., None, :] @ sf)[..., 0, :]
+    # a product and a sum, not a batched matmul: cuBLAS rounds a row of the
+    # batched product by the batch count, and the sum's reduction shape does
+    # not read it, so a row's step is bitwise the same in any batch
+    num = (qf[..., :, None] * sf).sum(dim=-2)
     den = (qf * zf).sum(dim=-1, keepdim=True) + eps
     return (num / den).to(q.dtype), (sf, zf)
 

@@ -101,7 +101,9 @@ def cached_attention(
     scores = (k_cache.float() @ qf[..., None])[..., 0]
     scores = torch.where(valid, scores, _NEG)
     p = torch.softmax(scores, dim=-1)
-    out = (p[..., None, :] @ v_cache.float())[..., 0, :]
+    # p.V as a product and a sum, not a batched matmul, whose rounding of a
+    # row follows the batch count (q.K's batched product keeps its rows)
+    out = (p[..., :, None] * v_cache.float()).sum(dim=-2)
     return out.to(q.dtype)
 
 

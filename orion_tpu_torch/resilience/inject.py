@@ -1,6 +1,6 @@
 """Deterministic fault injection at named hook points: the port's copy of
 ``orion_tpu/resilience/inject.py``, trimmed to what ``serving.DecodeSession``
-fires.
+and ``serving.SlotEngine`` fire.
 
 Production code carries permanent, near-zero-cost hooks -- ``fire(site,
 step=...)`` -- that are inert until a test arms a :class:`FaultPlan` with
@@ -12,19 +12,25 @@ Sites wired in the port:
 
 ========================  ====================================================
 ``"serve.chunk"``         ``serving/session.py`` DecodeSession, at each decode
-                          chunk boundary (step = the request's chunk index)
+                          chunk boundary (step = the request's chunk index);
+                          ``serving/batching.py`` SlotEngine, at each boundary
+                          (step = the engine's boundary index)
 ``"decode.state_nan"``    consumed through :func:`decode_nan_armed` by
                           DecodeSession to poison one chunk attempt's decode
                           state to NaN: 1, 2 or unlimited deliveries at a chunk
-                          reach the rewind, the re-prefill and the failed rung
+                          reach the rewind, the re-prefill and the failed rung;
+                          SlotEngine consumes it too, for every resident slot
+``"decode.slot_nan.K"``   consumed through :func:`decode_slot_nan_armed` by
+                          SlotEngine to poison only slot K's rows of the
+                          batched decode state at that request's chunk index:
+                          the per-slot ladder's address
 ========================  ====================================================
 
 Left out, with the ROADMAP.md item that brings each: the training,
 checkpoint, data and store sites, ``fail_io`` and the sustained fault
 regimes (``degrade_site``), delivery observers, and the on-disk corruption
-helpers (A9, the host subsystems); the per-slot ``decode.slot_nan.K`` sites,
-``preempt_at_chunk``, ``delay_chunk`` and ``active`` (A8's ``SlotEngine``
-and ``Server``).
+helpers (A9, the host subsystems); ``preempt_at_chunk`` and ``delay_chunk``
+(A8 step 2, the ``Server``).
 """
 
 from __future__ import annotations
@@ -44,8 +50,18 @@ SITES = {
 }
 
 
+# site families addressed by a suffix (matched by prefix)
+SITE_PREFIXES = ("decode.slot_nan.",)
+
+
 def known_site(site: str) -> bool:
-    return site in SITES
+    return site in SITES or site.startswith(SITE_PREFIXES)
+
+
+def _decode_slot_site(slot: int) -> str:
+    """Slot-addressed decode-state poisoning site (the batched engine's
+    per-slot counterpart of ``decode.state_nan``)."""
+    return f"decode.slot_nan.{slot}"
 
 
 @dataclasses.dataclass
@@ -82,6 +98,13 @@ class FaultPlan:
         rung, ``times<0`` (unlimited) exhausts the ladder and fails the
         request."""
         return self.add(_DECODE_NAN_SITE, chunk, times, None)
+
+    def poison_decode_slot_at(self, slot: int, chunk: int, times: int = 1) -> "FaultPlan":
+        """Arm NaN-poisoning of one slot's rows of SlotEngine's batched
+        decode state, at that slot's request-local chunk index; the rungs as
+        :meth:`poison_decode_state_at`, walked by that request alone while
+        the slots beside it stream on."""
+        return self.add(_decode_slot_site(slot), chunk, times, None)
 
     def _take(self, site: str, step: Optional[int]) -> Optional[_Fault]:
         with self._lock:
@@ -120,6 +143,12 @@ def inject(plan: FaultPlan):
         _active = prev
 
 
+def active() -> bool:
+    """Is any fault plan armed? Hot-path callers ask this before they
+    compute a hook's arguments."""
+    return _active is not None
+
+
 def fire(site: str, step: Optional[int] = None) -> None:
     """Production hook: no-op (one global read) unless a plan is armed."""
     plan = _active
@@ -135,4 +164,13 @@ def decode_nan_armed(chunk: int) -> bool:
     return plan is not None and plan.consume_marker(_DECODE_NAN_SITE, chunk)
 
 
-__all__ = ["SITES", "FaultPlan", "inject", "fire", "decode_nan_armed", "known_site"]
+def decode_slot_nan_armed(slot: int, chunk: int) -> bool:
+    """Is a slot-addressed decode-state poisoning armed for (slot, that
+    request's chunk index)? Consumed per attempt, as
+    :func:`decode_nan_armed`."""
+    plan = _active
+    return plan is not None and plan.consume_marker(_decode_slot_site(slot), chunk)
+
+
+__all__ = ["SITES", "SITE_PREFIXES", "FaultPlan", "inject", "active", "fire",
+           "decode_nan_armed", "decode_slot_nan_armed", "known_site"]

@@ -56,24 +56,31 @@ class LadderExhausted(RuntimeError):
 @dataclasses.dataclass(frozen=True)
 class DecodeRequest:
     """One generation request. ``prompt``: token ids, [T] or [B, T].
-    ``deadline_ms`` <= 0 means no deadline. (The JAX package's
-    ``session_id`` and ``prefix_len`` belong to the stores, not ported.)"""
+    ``deadline_ms`` <= 0 means no deadline. ``session_id`` makes the request
+    a durable-session turn: ``SlotEngine`` suspends its slot at its end and
+    hands its state out on the result (``DecodeResult.session``), and
+    ``SlotEngine.resume`` continues it bitwise. (The JAX package's
+    ``prefix_len`` waits for the prefix store, ROADMAP.md A8 step 3.)"""
 
     prompt: Any
     max_new_tokens: int
     sample: SampleConfig = SampleConfig()
     seed: int = 0
     deadline_ms: float = 0.0
+    session_id: Optional[str] = None
 
 
 @dataclasses.dataclass
 class DecodeResult:
     tokens: np.ndarray  # [B, new_tokens]
-    status: str  # "ok" | "deadline" | "failed"
+    status: str  # "ok" | "deadline" | "failed" | "suspended"
     new_tokens: int
     chunks: int
     rewinds: int = 0
     reprefills: int = 0
+    # the suspended SessionState riding out of SlotEngine for the caller to
+    # persist before it releases the result (durable sessions only)
+    session: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def degraded(self) -> bool:

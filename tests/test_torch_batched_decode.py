@@ -4,7 +4,7 @@ unified prefill + decode chunk (``decode_batched_prefill_chunk``):
 (b) a request's tokens in an S-slot program are bitwise the same whether
     the other slots are empty, busy, admitted late (by a solo prefill or by
     in-scan pieces) or finishing at EOS, S in {2, 4, 8}, greedy and
-    sampled;
+    sampled, through ``SlotEngine``;
 (c) free rows and rows held mid-prefill keep their states bitwise through
     a chunk, the swa ring included, and their t, emit index and done flag;
 (d) ``extract_decode_slot(insert_decode_slot(...))`` round-trips, and a row
@@ -13,9 +13,10 @@ unified prefill + decode chunk (``decode_batched_prefill_chunk``):
 plus the per-slot finite probe, and the greedy walk against the JAX
 package's ``decode_batched_chunk`` / ``decode_batched_prefill_chunk``
 (tokens equal, the emitting rows' states within 1e-4). A slot's tokens also
-equal a one-row ``generate`` at its seed here (the products at S rows and at
-1 row are not bitwise on the CPU, but these tokens do not flip); on the card
-that contract is measured by ``chip_smoke.py``.
+equal a one-row ``generate`` at its seed, bitwise: a decode step's products
+run at one row count (``decode_rows``; ``tests/test_torch_slot_engine.py``
+holds it op by op). The other tests drive the programs themselves through
+``torch_serving_common.Slots``.
 """
 
 import dataclasses
@@ -36,6 +37,7 @@ from orion_tpu_torch.models.transformer import (decode_state_finite,
                                                 decode_state_finite_per_slot,
                                                 extract_decode_slot, init_decode_state,
                                                 insert_decode_slot, snapshot_decode_state)
+from orion_tpu_torch.serving import DecodeRequest, SlotEngine
 from torch_serving_common import (CFG, GREEDY, JAX_CFG, SAMPLED, Slots, assert_states_close,
                                   jax_model, jax_params, jax_sample, np_states, prompt,
                                   states_equal, torch_model)
@@ -53,40 +55,39 @@ def _x():
     return torch.from_numpy(prompt(0, X_LEN))
 
 
-def _alone(model, slots, sample, slot=0):
-    host = Slots(model, slots, sample)
-    host.admit(slot, "x", _x(), X_SEED, NEW)
-    while host.busy:
-        host.chunk(4)
-    return host.got["x"]
+_MODES = {"host": {}, "inscan": {"prefill_buckets": (8, 16, 32), "prefill_chunk": 8}}
 
 
-def _crowded(model, slots, sample, eos_row):
+def _engine(model, slots, mode):
+    return SlotEngine(model, slots=slots, chunk=4, device="cpu", **_MODES[mode])
+
+
+def _alone(model, slots, sample, mode="host"):
+    eng = _engine(model, slots, mode)
+    eng.admit(DecodeRequest(_x(), NEW, sample, seed=X_SEED), tag="x")
+    done = {}
+    while eng.busy:
+        done.update(dict(eng.step()))
+    return done["x"].tokens[0].tolist()
+
+
+def _crowded(model, slots, sample, mode):
     """X in the last slot, every other slot busy from the start, one of them
     ending early at EOS, and a request admitted late into each slot that
-    frees up (alternately by a solo prefill and by staged pieces)."""
-    host = Slots(model, slots, sample)
+    frees up, through ``SlotEngine`` admitting by host prefill or in-scan."""
+    eng = _engine(model, slots, mode)
     for j in range(slots - 1):
-        host.admit(j, f"b{j}", torch.from_numpy(prompt(10 + j, 3 + 2 * j)), 100 + j,
-                   2 if j == 0 else 8)
-    host.admit(slots - 1, "x", _x(), X_SEED, NEW)
-    late, boundary = 0, 0
-    while host.busy:
-        staged = False
-        for j, tag in enumerate(host.owner):
-            if tag is None and late < 3:
-                p = torch.from_numpy(prompt(40 + late, 5 + 4 * late))
-                if late % 2:
-                    host.stage(j, f"late{late}", p, 200 + late, 6)
-                    staged = True
-                else:
-                    host.admit(j, f"late{late}", p, 200 + late, 6)
-                late += 1
-        host.chunk(4, pchunk=8 if staged or any(
-            o is not None and int(host.carry[2][j]) < int(host.plen[j])
-            for j, o in enumerate(host.owner)) else 0)
-        boundary += 1
-    return host.got, eos_row
+        eng.admit(DecodeRequest(prompt(10 + j, 3 + 2 * j), 2 if j == 0 else 8, sample,
+                                seed=100 + j), tag=f"b{j}")
+    assert eng.admit(DecodeRequest(_x(), NEW, sample, seed=X_SEED), tag="x") == slots - 1
+    late, done = 0, {}
+    while eng.busy or late < 3:
+        while late < 3 and eng.has_free_slot:
+            eng.admit(DecodeRequest(prompt(40 + late, 5 + 4 * late), 6, sample, seed=200 + late),
+                      tag=f"late{late}")
+            late += 1
+        done.update(dict(eng.step()))
+    return {tag: r.tokens[0].tolist() for tag, r in done.items()}
 
 
 @pytest.mark.parametrize("slots", [2, 4, 8])
@@ -96,10 +97,10 @@ def test_a_request_is_bitwise_the_same_in_any_company(model, slots, sample):
     # b0 stops at its EOS: the first token it emits is made its EOS
     b0 = gen.generate(model, torch.from_numpy(prompt(10, 3)), 2, sample, 100)[0, 0]
     eos = dataclasses.replace(sample, eos_token=int(b0))
-    got, _ = _crowded(model, slots, eos, 0)
-    alone_eos = _alone(model, slots, eos, slot=slots - 1)
-    assert got["x"] == alone_eos
-    assert got["b0"][0] == int(b0) and got["b0"][1:] == [eos.pad_token]
+    for mode in ("host", "inscan"):
+        got = _crowded(model, slots, eos, mode)
+        assert got["x"] == _alone(model, slots, eos, mode), mode
+        assert got["b0"][0] == int(b0) and got["b0"][1:] == [eos.pad_token]
     assert len(alone) == NEW
     solo = gen.generate(model, _x(), NEW, sample, X_SEED)[0].tolist()
     assert alone == solo

@@ -1274,3 +1274,66 @@ def test_session_rewind_on_the_card_is_bitwise(dev):
         res = session.run(req)
     assert (res.status, res.rewinds) == ("ok", 1)
     np.testing.assert_array_equal(res.tokens, ref.tokens)
+
+
+_ROWS_CFG = dataclasses.replace(TINY, d_model=512, n_heads=4, n_layers=2, dtype="bfloat16",
+                                layer_types=("linear", "swa"), window=64, max_seq_len=512,
+                                vocab_size=4096)
+
+
+@pytest.mark.parametrize("quant", ["", "int8", "int4"])
+def test_decode_step_rows_do_not_depend_on_the_batch(dev, quant):
+    """C1 on the card: a 4-row decode step's row 2 against that row alone,
+    op by op (``utils/row_probe.py``), bf16 at Dh 128: with the products at
+    ``DECODE_ROWS`` rows no op's row differs and the logits and states are
+    bitwise (int4's dense products on row 14's mma kernel)."""
+    from orion_tpu_torch import generate as gen
+    from orion_tpu_torch.models.transformer import init_decode_state, insert_decode_slot
+    from orion_tpu_torch.utils.row_probe import row_variant_ops
+
+    model = gen.cast_params_for_inference(TransformerLM(_ROWS_CFG, device=dev))
+    if quant:
+        model = gen.quantize_for_decode(model, quant)
+    states = init_decode_state(_ROWS_CFG, 4, dev)
+    toks, ts = [], []
+    for j in range(4):
+        p = torch.randint(0, 4096, (1, 90 + 17 * j), generator=torch.Generator().manual_seed(j))
+        c = gen.prefill_carry(model, p.to(dev), gen.SampleConfig(temperature=0.0),
+                              gen.request_keys(j, 1, dev))
+        insert_decode_slot(states, c[1], j)
+        toks.append(c[0])
+        ts.append(c[2])
+    before = q4m.launches_mma
+    r = row_variant_ops(model, torch.cat(toks), states, torch.tensor(ts, device=dev), 2)
+    assert r["misaligned"] is None and r["culprits"] == [], r
+    assert r["logits_equal"] and r["states_equal"]
+    assert q4m.launches_mma - before == (2 * 2 * 7 if quant == "int4" else 0)
+
+
+@pytest.mark.parametrize("mode", ["host", "inscan"])
+def test_slot_engine_on_the_card_equals_one_row_generate(dev, mode):
+    """``SlotEngine`` at 4 slots on a bf16 linear model (row 1's wgmma
+    kernel in every prefill and piece): 6 greedy requests, admitted as
+    slots free up, each bitwise its one-row ``generate``."""
+    from orion_tpu_torch import generate as gen
+    from orion_tpu_torch.serving import DecodeRequest, SlotEngine
+
+    cfg = dataclasses.replace(_ROWS_CFG, layer_types=("linear", "linear"))
+    model = gen.cast_params_for_inference(TransformerLM(cfg, device=dev))
+    greedy = gen.SampleConfig(temperature=0.0)
+    # host admission without buckets: the prefill of a one-row generate (a
+    # bucket's padded length is another row count for the dense products)
+    eng = SlotEngine(model, slots=4, chunk=4, device=dev,
+                     prefill_buckets=(64, 128, 256) if mode == "inscan" else (),
+                     prefill_chunk=64 if mode == "inscan" else 0)
+    prompts = [np.random.default_rng(i).integers(0, 4096, (1, n))
+               for i, n in enumerate((200, 37, 130, 64, 90, 250))]
+    done, pending = {}, list(enumerate(prompts))
+    while pending or eng.busy:
+        while pending and eng.has_free_slot:
+            i, p = pending.pop(0)
+            eng.admit(DecodeRequest(p, 12, greedy, seed=i), tag=i)
+        done.update(dict(eng.step()))
+    for i, p in enumerate(prompts):
+        ref = gen.generate(model, torch.from_numpy(p).to(dev), 12, greedy, i).cpu().numpy()
+        np.testing.assert_array_equal(done[i].tokens, ref, err_msg=f"{mode} request {i}")

@@ -2,10 +2,12 @@
 prefill_extend,batched_decode,decode_caches,session}.py``): the in-scan
 suite's tiny config with one layer of each kind (linear, softmax, swa of
 window 4; linear chunk 4) in both packages, a flax parameter tree drawn
-with numpy, and ``Slots``, a host that runs the port's slot programs
-(admission by a solo prefill and ``insert_decode_slot``, or staged for the
-in-scan pieces; each request's tokens collected as its slot emits them).
-The programs hand back inference tensors, so the host writes into the carry
+with numpy, and ``Slots``, a bare host of the port's slot programs for the
+tests of the programs themselves (admission by a solo prefill and
+``insert_decode_slot``, or staged for the in-scan pieces; each request's
+tokens collected as its slot emits them); the engine-level contracts go
+through ``serving.SlotEngine`` (``tests/test_torch_slot_engine.py``). The
+programs hand back inference tensors, so the host writes into the carry
 under ``torch.inference_mode``."""
 
 import functools
