@@ -184,18 +184,36 @@ nonzero and no result line is printed):
    ``generate``'s (a), with a NaN injected (rewind bitwise (e),
    re-prefill, ``LadderExhausted``); decode ms/token at 4 busy slots through
    the engine and a 256-token piece's boundary cost; each phase's time;
+   then the same requests through ``serving.Server`` (all submitted, then
+   ``serve()``), each bitwise the engine run's: lm_1b3 bf16 greedy and
+   sampled by both admissions, lm_1b3 with ``qmode="int4"`` (the Server
+   quantizes the fp32 weights) and hybrid_1b3 (host admission: row 6 in its
+   solo prefills) greedy and sampled, exact launches from the Server's own
+   admissions and pieces; on lm_1b3 also overload (``max_inflight=2``: 4 of
+   6 shed and counted), a real SIGTERM at boundary 3 with the plan queued
+   beyond the slots (``serve()`` returns 0, health SERVING -> DRAINING ->
+   DEAD, every request bitwise, a later submit rejected), readings (decode
+   ms/token at 4 busy slots through the Server and the bare engine in
+   turns, the registry's chunk_ms p50 / p99 buckets, a late request's time
+   to first token) and ``python -m orion_tpu_torch.serving`` in a
+   subprocess on the card, SIGTERM after its first boundary: exit 0 and its
+   stats line;
 13. a ``kernels`` JSON line (25 entries: the 14 rows, rows 1-10 and 14
    once for each variant; rows 1, 3 and 4 also with their launches under
-   the options of phase 10, rows 1, 6 and 14 on the serving path), then the
-   result line ``{"ok": true, "device": {...}}`` last.
+   the options of phase 10, rows 1, 6 and 14 on the serving path, through
+   ``SlotEngine`` and through the Server), then the result line ``{"ok":
+   true, "device": {...}}`` last.
 """
 
 import contextlib
 import dataclasses
 import gc
 import json
+import os
+import signal
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -3024,8 +3042,303 @@ def _session_check(model, plan, label, clean_host):
     return ok
 
 
+def _server_config(mode, **kw):
+    """The Server's counterpart of ``serve_engine``: 4 slots, chunk 16; host
+    admission without buckets, or in-scan pieces of 256."""
+    from orion_tpu_torch.serving import ServeConfig
+
+    if mode == "inscan":
+        kw.update(prefill_buckets=",".join(map(str, SERVE_BUCKETS)), prefill_chunk=SERVE_PIECE)
+    else:
+        kw.update(prefill_buckets="off", prefill_chunk=0)
+    return ServeConfig(chunk=SERVE_CHUNK, slots=SERVE_SLOTS, **kw)
+
+
+def server_plan(model, plan, sample, mode, qmode="off", fault=None, **kw):
+    """Every request of ``plan`` submitted to a fresh ``Server`` up front (the
+    engine's seeds), then ``serve()``: to idle, or, with a ``fault`` armed,
+    until its SIGTERM drain ends. -> (server, pendings, serve() seconds)."""
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.serving import DecodeRequest, Server
+
+    kw.setdefault("max_inflight", len(plan))
+    srv = Server(model, _server_config(mode, qmode=qmode, **kw))
+    ps = [srv.submit(DecodeRequest(p, SERVE_NEW, sample, seed=100 + i))
+          for i, p in enumerate(_serve_prompts(plan, model.cfg.vocab_size))]
+    t0 = time.perf_counter()
+    with inject.inject(fault) if fault is not None else contextlib.nullcontext():
+        rc = srv.serve(drain_when_idle=fault is None)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"Server.serve() returned {rc}")
+    return srv, ps, time.perf_counter() - t0
+
+
+def _server_want(srv, cfg, mode, quant):
+    """A Server run's exact launches, from its flight ring's admissions and
+    prefill pieces and its boundary count: row 1 once for each linear layer
+    of a solo prefill or a piece, row 6 once for each softmax / swa layer of
+    a solo prefill, row 14 once for each int4 layer and decode step."""
+    lin, attn, _, _ = _layer_counts(cfg)
+    admits = len(srv.flight.events("admit"))
+    pieces = len(srv.flight.events("prefill_piece"))
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(causal_dot_norm_wgmma=lin * (admits if mode == "host" else pieces),
+                flash_fwd_wgmma=attn * admits if mode == "host" else 0,
+                q4_matmul_mma=(_q4_per_step(cfg) * srv.stats["chunks"] * SERVE_CHUNK
+                               if quant == "int4" else 0))
+    return want
+
+
+def _bucket_range(cell, buckets, q):
+    """The (lo, hi] bucket of a histogram cell that holds its q-quantile."""
+    k = max(1, -(-int(q * 1000) * cell["count"] // 1000))
+    seen = 0
+    for i, c in enumerate(cell["counts"]):
+        seen += c
+        if seen >= k:
+            return (buckets[i - 1] if i else 0, buckets[i])
+    return (buckets[-2], buckets[-1])
+
+
+def server_times(model, plan, label, card, engine_tokens):
+    """Readings, not claims: decode ms/token at 4 busy slots through the
+    Server (its own boundary spans, each boundary of 16 steps, the first
+    left out) and through a bare SlotEngine (``wall_ms`` of each step) in
+    turns, server / engine / server / engine; the Server registry's
+    chunk_ms p50 / p99 as the buckets that hold them; the time to first
+    token of a late request, submitted from a thread after boundary 2 while
+    three slots decode (from its request span's start to the end of its
+    first decode chunk), its tokens bitwise the engine's."""
+    from orion_tpu_torch.generate import SampleConfig
+    from orion_tpu_torch.obs.trace import Tracer
+    from orion_tpu_torch.serving import DecodeRequest, Server
+
+    greedy = SampleConfig(temperature=0.0)
+    prompts = _serve_prompts(plan, model.cfg.vocab_size)
+    long_new = 8 * SERVE_CHUNK
+    reqs = [DecodeRequest(prompts[j % len(prompts)], long_new, greedy, seed=900 + j)
+            for j in range(SERVE_SLOTS)]
+    turns = {"server": [], "engine": []}
+    chunk_ms = None
+    for _ in range(2):
+        gc.collect()
+        srv = Server(model, _server_config("host", max_inflight=SERVE_SLOTS),
+                     tracer=Tracer(path=None, clock=time.monotonic))
+        for r in reqs:
+            srv.submit(r)
+        srv.serve(drain_when_idle=True)
+        by_ts = {}
+        for ev in srv.trace.events():
+            if ev["ph"] == "X" and ev["name"] == "decode_chunk":
+                by_ts.setdefault(ev["ts"], []).append(ev["dur"])
+        full = [d[0] / 1e3 / SERVE_CHUNK for _, d in sorted(by_ts.items()) if len(d) == 4]
+        turns["server"].append(float(np.median(full[1:])))
+        if chunk_ms is None:
+            cell = srv._h_chunk_ms.cell()
+            chunk_ms = {"count": cell["count"],
+                        "p50_bucket_ms": _bucket_range(cell, srv._h_chunk_ms.buckets, 0.5),
+                        "p99_bucket_ms": _bucket_range(cell, srv._h_chunk_ms.buckets, 0.99)}
+        srv.close()
+        del srv
+        gc.collect()
+        eng = serve_engine(model, "host")
+        for j, r in enumerate(reqs):
+            eng.admit(r, tag=j)
+        steps = [wall_ms(eng.step)[0] / SERVE_CHUNK for _ in range(long_new // SERVE_CHUNK)]
+        turns["engine"].append(float(np.median(steps[1:])))
+        del eng
+    # the late request
+    srv = Server(model, _server_config("host", max_inflight=SERVE_SLOTS),
+                 tracer=Tracer(path=None, clock=time.monotonic))
+    for r in reqs[:3]:
+        srv.submit(dataclasses.replace(r, max_new_tokens=4 * SERVE_CHUNK))
+    late = {}
+
+    def feed():
+        deadline = time.monotonic() + 300
+        while srv.stats["chunks"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        late["p"] = srv.submit(DecodeRequest(prompts[4], SERVE_NEW, greedy, seed=104))
+
+    feeder = threading.Thread(target=feed)
+    feeder.start()
+    srv.serve(drain_when_idle=True)
+    feeder.join(timeout=300)
+    p = late["p"]
+    if not p.done.is_set():  # submitted after the loop went idle: serve it
+        srv.serve(drain_when_idle=True)
+    events = srv.trace.events()
+    begin, admitted = ([e["ts"] for e in events if e["ph"] == ph and e["name"] == name
+                        and e["id"] == p.rid][0] for ph, name in (("b", "request"), ("e", "queue")))
+    chunk = min((e["ts"], e["dur"]) for e in events if e["ph"] == "X"
+                and e["args"]["req"] == p.rid and e["name"] == "decode_chunk")
+    ttft_ms = (chunk[0] + chunk[1] - begin) / 1e3
+    # submit -> admission (the boundary in flight), admission -> its first
+    # boundary's start (its solo prefill), that boundary
+    parts = [(admitted - begin) / 1e3, (chunk[0] - admitted) / 1e3, chunk[1] / 1e3]
+    same = p.result.tokens[0].tolist() == engine_tokens[4]
+    srv.close()
+    res = {"decode_ms_per_token": turns, "chunk_ms": chunk_ms, "late_ttft_ms": ttft_ms,
+           "late_ttft_parts_ms": parts, "late_tokens_equal": same}
+    log(f"{label} Server readings ({card}): decode at 4 busy slots through the Server "
+        f"{turns['server']} ms/token, through the bare SlotEngine {turns['engine']} ms/token "
+        f"(turns server / engine / server / engine, medians of {long_new // SERVE_CHUNK - 1} "
+        f"boundaries of {SERVE_CHUNK} steps); the registry's chunk_ms over "
+        f"{chunk_ms['count']} boundaries: p50 in the bucket {chunk_ms['p50_bucket_ms']} ms, p99 "
+        f"in {chunk_ms['p99_bucket_ms']} ms (lower bound exclusive); a late request (submitted after boundary 2, 3 slots "
+        f"decoding) first token after {ttft_ms:.1f} ms (queued {parts[0]:.1f}, admission to its "
+        f"first boundary {parts[1]:.1f}, that boundary {parts[2]:.1f}), tokens bitwise the "
+        f"engine's: {same}")
+    if not same:
+        raise AssertionError(f"{label}: the late request's tokens differ from the engine's")
+    return res
+
+
+def server_cli(config, card, n_prompts=6, prompt_len=200, device_args=(), timeout=600):
+    """``python -m orion_tpu_torch.serving --config <config> --slots 4 --chunk 16
+    --max-new-tokens 32 --temperature 0`` in a subprocess, ``n_prompts``
+    prompts of ``prompt_len`` bytes on stdin, no ``--device`` (the card by
+    default); a SIGTERM once its metrics dump (one a second) shows a
+    boundary: it must drain, exit 0 (not 143) and print its stats line with
+    every prompt served. -> {"rc", "wall_s", "stats"}."""
+    import tempfile
+
+    rng = np.random.default_rng(11)
+    text = "".join("".join(chr(c) for c in rng.integers(97, 123, prompt_len)) + "\n"
+                   for _ in range(n_prompts))
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = Path(tmp) / "m.prom"
+        cmd = [sys.executable, "-m", "orion_tpu_torch.serving", "--config", config, "--slots",
+               str(SERVE_SLOTS), "--chunk", str(SERVE_CHUNK), "--max-new-tokens", str(SERVE_NEW),
+               "--temperature", "0", "--metrics-path", str(metrics), "--metrics-interval-s", "1",
+               *device_args]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
+                                env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        try:
+            proc.stdin.write(text)
+            proc.stdin.close()
+            proc.stdin = None
+            chunks = 0
+            while chunks < 1 and proc.poll() is None and time.perf_counter() - t0 < timeout:
+                time.sleep(0.05)
+                try:
+                    snap = json.loads(Path(str(metrics) + ".json").read_text())
+                except (OSError, ValueError):
+                    continue
+                chunks = sum(c["value"] for c in snap["counters"] if c["name"] == "chunks")
+            if proc.poll() is not None or chunks < 1:
+                raise AssertionError(f"the serving CLI ended or stalled before its first "
+                                     f"boundary: rc {proc.poll()}")
+            proc.send_signal(signal.SIGTERM)
+            out, err = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    stats = [line for line in err.splitlines() if line.startswith("stats:")]
+    res = {"rc": proc.returncode, "wall_s": wall, "stats": stats[0] if stats else None,
+           "signalled_at_chunks": chunks}
+    log(f"serving CLI ({config}, {card}): SIGTERM after boundary {chunks}: exit "
+        f"{proc.returncode} in {wall:.1f} s wall; {res['stats']}")
+    if proc.returncode != 0 or not stats or f"'ok': {n_prompts}" not in stats[0] or \
+            not out.startswith(text[:prompt_len]):
+        raise AssertionError(f"the serving CLI did not drain to exit 0 on SIGTERM: rc "
+                             f"{proc.returncode}; stderr tail {err[-2000:]}")
+    return res
+
+
+def server_check(dev, mods, model, plan, label, card, engine, runs, quant="", fp=None,
+                 full=False):
+    """The Server over the same requests as the engine runs (``engine``:
+    tokens by (sampling, admission)): each of ``runs`` bitwise the engine's
+    tokens, with exact launches (``_server_want``); with ``quant`` the Server
+    gets the full-precision ``fp`` and quantizes it itself (``qmode``).
+    ``full``: overload (max_inflight 2: the 4 submits past it shed and
+    counted, the 2 admitted bitwise), a SIGTERM at engine boundary 3 with
+    the plan queued beyond the slots (serve() returns 0, health ends DEAD
+    after SERVING -> DRAINING -> DEAD, every request bitwise, a later
+    submit rejected), ``server_times`` and ``server_cli``."""
+    from orion_tpu_torch.generate import SampleConfig
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.serving import (DecodeRequest, Health, OverloadError, RejectedError,
+                                         Server)
+
+    samples = {"greedy": SampleConfig(temperature=0.0), "sampled": SampleConfig(**SAMPLED_SERVE)}
+    served, qmode = (fp, quant) if quant else (model, "off")
+    out = {"launches": {}, "serve_s": {}}
+    for sname, mode in runs:
+        gc.collect()
+        _reset_counts(mods)
+        srv, ps, secs = server_plan(served, plan, samples[sname], mode, qmode=qmode)
+        counts = _counts(mods)
+        want = _server_want(srv, model.cfg, mode, quant)
+        got = {i: p.result.tokens[0].tolist() for i, p in enumerate(ps)}
+        run = f"{sname} {mode}"
+        out["launches"][run] = counts
+        out["serve_s"][run] = secs
+        log(f"{label} Server, {run}: {len(plan)} requests in {secs:.2f} s, stats {srv.stats}; "
+            f"launches {dict((k, v) for k, v in counts.items() if v)}; tokens bitwise the "
+            f"engine's: {got == engine[(sname, mode)]}")
+        if counts != want:
+            raise AssertionError(f"{label} Server {run} launched {counts}, want {want}")
+        if got != engine[(sname, mode)] or srv.stats["ok"] != len(plan):
+            raise AssertionError(f"{label} Server {run}: tokens differ from the engine's")
+        srv.close()
+        del srv, ps
+    if not full:
+        return out
+    greedy_host = engine[("greedy", "host")]
+    srv = Server(model, _server_config("host", max_inflight=2))
+    prompts = _serve_prompts(plan, model.cfg.vocab_size)
+    shed = 0
+    ps = []
+    for i, p in enumerate(prompts):
+        try:
+            ps.append((i, srv.submit(DecodeRequest(p, SERVE_NEW, samples["greedy"],
+                                                   seed=100 + i))))
+        except OverloadError:
+            shed += 1
+    srv.serve(drain_when_idle=True)
+    out["overload"] = {"shed": shed, "stats_shed": srv.stats["shed"],
+                       "admitted_equal": all(p.result.tokens[0].tolist() == greedy_host[i]
+                                             for i, p in ps)}
+    srv.close()
+    plan_sig = inject.FaultPlan().preempt_at_chunk(3)
+    srv, ps, secs = server_plan(model, plan, samples["greedy"], "host", fault=plan_sig)
+    edges = [(a.value if a else None, b.value) for a, b, _, _ in srv.health.history]
+    try:
+        srv.submit(DecodeRequest(prompts[0], SERVE_NEW, samples["greedy"], seed=100))
+        rejected = False
+    except RejectedError:
+        rejected = True
+    out["sigterm"] = {"delivered": plan_sig.delivered, "health": srv.health.state.value,
+                      "edges": edges, "rejected_after": rejected,
+                      "all_equal": all(p.result is not None and p.result.status == "ok"
+                                       and p.result.tokens[0].tolist() == greedy_host[i]
+                                       for i, p in enumerate(ps)),
+                      "stats": srv.stats}
+    log(f"{label} Server overload and SIGTERM: {out['overload']}; {out['sigterm']}")
+    if not (out["overload"]["shed"] == out["overload"]["stats_shed"] == len(plan) - 2
+            and out["overload"]["admitted_equal"]):
+        raise AssertionError(f"{label} Server: overload shedding misbehaved: {out['overload']}")
+    sig = out["sigterm"]
+    if not (sig["delivered"] == ["serve.chunk@3"] and srv.health.state is Health.DEAD
+            and ("serving", "draining") in edges and ("draining", "dead") in edges
+            and sig["rejected_after"] and sig["all_equal"]):
+        raise AssertionError(f"{label} Server: the SIGTERM drain misbehaved: {sig}")
+    del srv, ps
+    out["times"] = server_times(model, plan, label, card, greedy_host)
+    out["cli"] = server_cli("lm_1b3", card)
+    return out
+
+
 def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", "ladder",
-                                                                 "session", "times")):
+                                                                 "session", "times"),
+                  server_runs=()):
     """``SlotEngine`` at ``name``'s full width (``quant``: quantized from the
     seeded fp32 weights), chunk 16, pieces of 256. The main path: ``plan``
     served greedy twice, by host-prefill and by in-scan admission, every
@@ -3040,7 +3353,11 @@ def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", 
     with no op whose row depends on the batch (f); "g" -- pieces against
     ``prefill_last``; "ladder", "session" -- ``_ladder_check``,
     ``_session_check``; "times" -- ``serve_times``; "decode_session" --
-    ``session_check`` (``DecodeSession``)."""
+    ``session_check`` (``DecodeSession``). ``server_runs``: (sampling,
+    admission) pairs served again through ``serving.Server`` and held
+    bitwise against these engine runs (``server_check``; "server_full" in
+    ``checks`` adds overload, the SIGTERM drain, the readings and the
+    CLI)."""
     from orion_tpu_torch.generate import (SampleConfig, cast_params_for_inference, generate,
                                           quantize_for_decode)
     from orion_tpu_torch.models.configs import get_config
@@ -3051,7 +3368,8 @@ def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", 
     cfg = get_config(name)
     fp = TransformerLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     model = quantize_for_decode(fp, quant) if quant else cast_params_for_inference(fp)
-    del fp
+    if not (quant and server_runs):  # the Server quantizes the fp32 weights itself
+        fp = None
     torch.cuda.empty_cache()
     label = f"{name}{' ' + quant if quant else ''} serving"
     greedy, sampled = SampleConfig(temperature=0.0), SampleConfig(**SAMPLED_SERVE)
@@ -3083,6 +3401,7 @@ def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", 
     if counts != want:
         raise AssertionError(f"{label} launched {counts}, want {want}")
     clean_host, clean_inscan = _tokens(host), _tokens(inscan)
+    engine_tokens = {("greedy", "host"): clean_host, ("greedy", "inscan"): clean_inscan}
     for got in (clean_host, clean_inscan):
         if sorted(got) != list(range(len(plan))) or any(
                 len(v) != SERVE_NEW or min(v) < 0 or max(v) >= cfg.vocab_size
@@ -3141,6 +3460,8 @@ def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", 
             if not quant:
                 runs["sampled in-scan"] = (sampled, _tokens(run_plan(model, plan, sampled,
                                                                      "inscan")[0]))
+        engine_tokens.update({(k.split()[0], "inscan" if "in-scan" in k else "host"): v[1]
+                              for k, v in runs.items()})
         solo = {}
         for sname, (sample, got) in runs.items():
             key = sname.split()[0]
@@ -3195,8 +3516,15 @@ def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", 
         res["times"] = serve_times(model, plan, label, card)
     if "decode_session" in checks:
         res["decode_session"] = session_check(model, label)
+    if server_runs:
+        t_server = time.perf_counter()
+        res["server"] = server_check(dev, mods, model, plan, label, card, engine_tokens,
+                                     server_runs, quant=quant, fp=fp,
+                                     full="server_full" in checks)
+        res["server"]["phase_s"] = time.perf_counter() - t_server
+        log(f"{label} Server phase took {res['server']['phase_s']:.1f} s")
     log(f"{label} phase took {time.perf_counter() - t_phase:.1f} s")
-    del model
+    del model, fp
     torch.cuda.empty_cache()
     return res
 
@@ -3576,14 +3904,19 @@ def main() -> int:
     log(f"LRA phases done at {time.perf_counter() - t0:.1f} s")
 
     row_forms(dev)
+    both = (("greedy", "host"), ("greedy", "inscan"), ("sampled", "host"), ("sampled", "inscan"))
+    host = (("greedy", "host"), ("sampled", "host"))
     serving = {
         "lm_1b3": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card,
                                 checks=("b", "f", "g", "ladder", "session", "times",
-                                        "decode_session")),
+                                        "decode_session", "server_full"), server_runs=both),
         "lm_1b3_int4": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, quant="int4",
-                                     checks=("f",)),
+                                     checks=("f",), server_runs=host),
+        # the hybrid's in-scan pieces run its swa plain, as in JAX: row 6 only
+        # in the host (solo) prefill
         "hybrid_1b3": serving_phase(dev, mods, "hybrid_1b3", HYBRID_PLAN, card,
-                                    checks=("b", "f", "g", "ladder", "session", "times")),
+                                    checks=("b", "f", "g", "ladder", "session", "times"),
+                                    server_runs=host),
     }
     log(f"serving phases done at {time.perf_counter() - t0:.1f} s")
 
@@ -3641,6 +3974,10 @@ def main() -> int:
     for k in kernels:  # rows 1, 6 and 14 on the serving path (the slot programs' runs)
         if k["name"] in ("causal_dot_norm_wgmma", "flash_fwd_wgmma", "q4_matmul_mma"):
             k["launches_serving"] = {label: r["launches"][k["name"]] for label, r in serving.items()}
+            # the same requests through serving.Server, by (sampling, admission)
+            k["launches_server"] = {label: {run: c[k["name"]]
+                                            for run, c in r["server"]["launches"].items()}
+                                    for label, r in serving.items()}
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,47 +1,114 @@
-"""Flight recorder: a bounded ring of recent structured events (ladder
-rungs, for a start) that a post-mortem reads in order. The port's copy of
-``orion_tpu/obs/flight.py``, trimmed to what ``serving.DecodeSession``
-uses: :class:`FlightRecorder` with ``record`` / ``events`` / ``clear``, the
-process-default recorder and :func:`record`.
+"""Flight recorder: the black box you read after a chaos event. The port's
+copy of ``orion_tpu/obs/flight.py``, whole (it imports no jax).
 
-Host-only: every recorded field is a host value, and recording never reads
-the card. Left out (ROADMAP.md A9, the host subsystems): dumps to a run
-directory, the signal-safe append, the fault-delivery subscription
-(``attach_inject``) and ``configure``.
+A bounded ring of recent structured events — admissions, evictions,
+ladder rungs, health transitions, fault-injection deliveries, watchdog
+beats, control-channel ops — that auto-dumps to the run directory when
+something goes wrong: a DEGRADED/DEAD health transition, ladder
+exhaustion, a SIGTERM drain, an unhandled child exit. Metrics tell you
+THAT a replica degraded; the flight recorder tells you what the last N
+things it did were, in order, with timestamps — the post-mortem artifact
+for incidents that out-run log scraping.
+
+Design constraints:
+
+- **bounded** — a ``deque(maxlen=capacity)``; recording is an append,
+  never an allocation spiral. ``dropped`` counts what scrolled off so a
+  reader knows the dump is a suffix.
+- **host-only** — never imports torch, never reads the card; every
+  recorded field must already be a host value. Recording is cheap enough for per-chunk watchdog beats.
+- **dump on trigger, not on cadence** — :meth:`dump` writes one JSON
+  file (``flight-<seq>-<reason>.json``, atomic tmp-then-replace) under
+  ``dump_dir``; without a dump_dir the ring still records (tests read it
+  via :meth:`events`) and dumps are skipped. Each trigger gets its OWN
+  file — a later incident must not overwrite the black box of an
+  earlier one.
+- **fault-site parity** — :meth:`attach_inject` subscribes to
+  :mod:`orion_tpu_torch.resilience.inject`'s delivery observer, so EVERY
+  fired fault site leaves a ``fault`` event (site + step) in the ring;
+  tests/test_torch_obs.py asserts site⇄event parity — an injected fault
+  that leaves no black-box trace is a finding.
+
+A module-level default recorder (:func:`recorder`, :func:`record`,
+:func:`configure`) serves code without an obvious owner (the trainer,
+the solo DecodeSession); the Server builds its own
+per-instance recorder so replicas don't interleave rings.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
+import uuid
 from collections import deque
 from typing import Callable, List, Optional
 
 
 class FlightRecorder:
-    def __init__(self, capacity: int = 2048, clock: Callable[[], float] = time.monotonic):
+    def __init__(
+        self,
+        capacity: int = 2048,
+        clock: Callable[[], float] = time.monotonic,
+        dump_dir: Optional[str] = None,
+        name: str = "flight",
+    ):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self._clock = clock
         self._lock = threading.Lock()
         self._ring: deque = deque(maxlen=capacity)
         self.capacity = capacity
-        self.dropped = 0  # events that scrolled off: the ring is a suffix
+        self.dump_dir = dump_dir
+        self.name = name
+        self.dropped = 0
+        self.dumps: List[str] = []  # paths written, oldest first
+        self._seq = 0
+        # per-recorder token in every dump filename: N replicas (or N
+        # servers in one process) sharing one dump_dir each have their
+        # own _seq, and "flight-001-health-dead.json" from replica B
+        # must never os.replace replica A's black box away
+        self._token = uuid.uuid4().hex[:6]
+        self._detach: Optional[Callable[[], None]] = None
+
+    # -- recording ------------------------------------------------------------
 
     def record(self, kind: str, **fields) -> None:
-        """Append one event; ``fields`` are plain host values."""
+        """Append one event. ``fields`` must be plain host values (JSON
+        falls back to ``repr`` for anything else rather than dying in
+        the dump path)."""
         with self._lock:
             if len(self._ring) == self._ring.maxlen:
                 self.dropped += 1
             self._ring.append((self._clock(), kind, fields or None))
 
+    def record_signal_safe(self, kind: str, **fields) -> None:
+        """Lock-free append for signal-handler context (a handler runs
+        between two arbitrary bytecodes — taking the recorder lock there
+        deadlocks if the interrupted code holds it). ``deque.append`` is
+        atomic; the ``dropped`` counter is skipped rather than raced."""
+        self._ring.append((self._clock(), kind, fields or None))
+
     def events(self, kind: Optional[str] = None) -> List[dict]:
         with self._lock:
-            rows = list(self._ring)
+            for _ in range(4):
+                try:
+                    rows = list(self._ring)
+                    break
+                except RuntimeError:
+                    # a signal-safe append mutated the deque mid-copy
+                    continue
+            else:
+                rows = []
         out = []
         for t, k, fields in rows:
-            if kind is None or k == kind:
-                out.append({"t": t, "kind": k, **(fields or {})})
+            if kind is not None and k != kind:
+                continue
+            ev = {"t": t, "kind": k}
+            if fields:
+                ev.update(fields)
+            out.append(ev)
         return out
 
     def clear(self) -> None:
@@ -49,18 +116,98 @@ class FlightRecorder:
             self._ring.clear()
             self.dropped = 0
 
+    # -- fault-injection subscription -----------------------------------------
+
+    def attach_inject(self) -> None:
+        """Record every DELIVERED fault (any registered site) as a
+        ``fault`` event. Idempotent; :meth:`detach_inject` unsubscribes
+        (servers attach for their serve() lifetime so a test that builds
+        many servers doesn't accrete observers)."""
+        if self._detach is not None:
+            return
+        from orion_tpu_torch.resilience import inject
+
+        def on_fault(site: str, step) -> None:
+            self.record("fault", site=site, step=step)
+
+        inject.add_observer(on_fault)
+        self._detach = lambda: inject.remove_observer(on_fault)
+
+    def detach_inject(self) -> None:
+        if self._detach is not None:
+            self._detach()
+            self._detach = None
+
+    # -- dumping --------------------------------------------------------------
+
+    def dump(self, reason: str, path: Optional[str] = None) -> Optional[str]:
+        """Write the ring (+ reason, counters) as one JSON file; returns
+        the path, or None when no dump_dir/path is configured. Atomic
+        publish; each call writes a NEW file."""
+        if path is None:
+            if not self.dump_dir:
+                return None
+            with self._lock:
+                self._seq += 1
+                seq = self._seq
+            safe = "".join(
+                c if (c.isalnum() or c in "._-") else "_" for c in reason
+            )[:80]
+            path = os.path.join(
+                self.dump_dir,
+                f"{self.name}-{self._token}-{seq:03d}-{safe}.json",
+            )
+        doc = {
+            "reason": reason,
+            "t": self._clock(),
+            "dropped": self.dropped,
+            "capacity": self.capacity,
+            "events": self.events(),
+        }
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1, default=repr)
+        os.replace(tmp, path)
+        self.dumps.append(path)
+        return path
+
+
+# -- module-level default recorder --------------------------------------------
 
 _default = FlightRecorder()
+_default_lock = threading.Lock()
 
 
 def recorder() -> FlightRecorder:
-    """The process-default recorder (the solo session feeds it)."""
+    """The process-default recorder (the solo DecodeSession feeds it)."""
+    return _default
+
+
+def configure(
+    dump_dir: Optional[str] = None, capacity: Optional[int] = None
+) -> FlightRecorder:
+    """Point the default recorder's dumps at a run directory (and/or
+    resize it). Returns the recorder."""
+    global _default
+    with _default_lock:
+        if capacity is not None and capacity != _default.capacity:
+            fresh = FlightRecorder(
+                capacity=capacity, clock=_default._clock,
+                dump_dir=dump_dir if dump_dir is not None
+                else _default.dump_dir,
+            )
+            _default = fresh
+        elif dump_dir is not None:
+            _default.dump_dir = dump_dir
     return _default
 
 
 def record(kind: str, **fields) -> None:
-    """Record into the default recorder."""
+    """Record into the default recorder (one global read when idle —
+    safe on hot paths)."""
     _default.record(kind, **fields)
 
 
-__all__ = ["FlightRecorder", "recorder", "record"]
+__all__ = ["FlightRecorder", "recorder", "configure", "record"]

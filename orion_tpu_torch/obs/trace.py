@@ -1,0 +1,252 @@
+"""Request tracing: Chrome trace-event JSONL from chunk-boundary state. The
+port's copy of ``orion_tpu/obs/trace.py``, whole (it imports no jax).
+
+A request's latency story — queue wait, admission/staging, each prefill
+piece, each decode chunk, eviction/suspension/failure — is recorded
+entirely from host-side state the scheduler already holds at chunk
+boundaries: the O(1)-state engine's host mirrors (positions, remaining
+prompt, done flags) make every interesting transition visible WITHOUT a
+device readback, so full tracing costs host timestamps, never a sync. Values entering this
+module must already be host numbers.
+
+Event model (Chrome trace-event format, ``ts``/``dur`` in microseconds):
+
+- **async spans** (``ph`` ``b``/``e``) keyed by ``(cat, id)`` — the
+  request lifecycle (``request``: submit -> result released) and its
+  nested ``queue`` wait (submit -> admission). The FLEET router opens a
+  ``turn`` root span under the same id before placement, so a
+  conversation turn that migrates across replicas is one connected
+  trace: ids are stable strings (``<session_id>:<turn>`` for session
+  turns), and every span carries the session id in ``args``, which is
+  what links a resumed turn back to the conversation it continues.
+- **complete events** (``ph`` ``X``) — one per resident slot per chunk
+  boundary, named ``decode_chunk`` or ``prefill_piece`` by the slot's
+  lifecycle phase, carrying ``{req, slot, chunk}``. The duration is the
+  boundary's batched-scan wall time (slots share one fused scan; the
+  per-slot split does not exist on the device and is not invented here).
+- **instants** (``ph`` ``i``) — point events: staging, ladder rungs,
+  eviction, suspension, dispatch.
+
+Wire format: one JSON object per line (JSONL), appended live — files
+from several processes (fleet parent + children) concatenate trivially.
+:func:`merge_traces` wraps any set of JSONL files into the
+``{"traceEvents": [...]}`` document Perfetto / chrome://tracing load
+directly (``python -m orion_tpu_torch.obs.trace merge a.jsonl b.jsonl -o
+trace.json``).
+
+Hot-path cost: when disabled, every record call is one attribute check.
+When enabled, a record is a tuple append into a bounded deque;
+serialization (json.dumps) happens only at :meth:`flush`/:meth:`close`,
+which the serving loop calls at drain — never inside the timed chunk
+walk.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Callable, List, Optional
+
+# (name, cat, ph, ts_us, id or None, args or None)
+_EVENT_FIELDS = ("name", "cat", "ph", "ts", "id", "args")
+
+
+class Tracer:
+    """One per process (or per Server in tests). ``path=None`` keeps
+    events in the bounded in-memory ring only (tests read them via
+    :meth:`events`); with a path, :meth:`flush` appends JSONL."""
+
+    def __init__(
+        self,
+        path: Optional[str] = None,
+        clock: Callable[[], float] = time.perf_counter,
+        enabled: bool = True,
+        capacity: int = 1 << 17,
+        pid: Optional[int] = None,
+    ):
+        self.path = path
+        self.enabled = enabled
+        self._clock = clock
+        self._pid = pid if pid is not None else os.getpid()
+        self._lock = threading.Lock()
+        self._buf: deque = deque(maxlen=capacity)
+        self.dropped = 0  # events that aged out before a flush
+        if path:
+            d = os.path.dirname(os.path.abspath(path))
+            os.makedirs(d, exist_ok=True)
+
+    # -- recording (hot path: tuple append, no serialization) -----------------
+
+    def _emit(self, name, cat, ph, id=None, args=None, ts=None, dur=None):
+        if not self.enabled:
+            return
+        if ts is None:
+            ts = self._clock() * 1e6
+        tid = threading.get_ident() & 0xFFFF
+        # lock-free: deque.append is atomic under the GIL, and this runs
+        # once per slot per chunk boundary on the scheduler's hot path —
+        # readers (flush/events) retry the rare mutated-mid-copy snapshot
+        # instead of making every event pay a lock round-trip (`dropped`
+        # is an approximate count under concurrent writers, exact
+        # single-threaded)
+        if len(self._buf) == self._buf.maxlen:
+            self.dropped += 1
+        self._buf.append((name, cat, ph, ts, dur, id, args, tid))
+
+    def begin(self, name: str, id: str, cat: str = "request", **args) -> None:
+        """Open an async span (``ph`` ``b``); pair with :meth:`end` on the
+        same (cat, id, name)."""
+        self._emit(name, cat, "b", id=id, args=args or None)
+
+    def end(self, name: str, id: str, cat: str = "request", **args) -> None:
+        self._emit(name, cat, "e", id=id, args=args or None)
+
+    def complete(self, name: str, start_s, dur_s, cat: str = "chunk",
+                 **args) -> None:
+        """A closed interval (``ph`` ``X``) from host timestamps."""
+        self._emit(name, cat, "X", args=args or None,
+                   ts=start_s * 1e6, dur=dur_s * 1e6)
+
+    def instant(self, name: str, cat: str = "event", id=None, **args) -> None:
+        self._emit(name, cat, "i", id=id, args=args or None)
+
+    # -- draining -------------------------------------------------------------
+
+    def _snapshot_rows(self, clear: bool) -> list:
+        with self._lock:
+            for _ in range(8):
+                try:
+                    rows = list(self._buf)
+                    break
+                except RuntimeError:
+                    continue  # a lock-free append landed mid-copy
+            else:
+                rows = []
+            if clear:
+                # drop exactly what was copied, from the left — an event
+                # appended after the copy (or a copy that never
+                # succeeded) stays buffered for the next flush instead
+                # of being silently destroyed. Caveat: with the ring AT
+                # capacity, a concurrent append evicts a copied row
+                # before we pop it, so one popleft lands on an uncopied
+                # event — that regime is already lossy by definition
+                # (every such append bumped `dropped`), and the ring is
+                # sized (2^17) far above any drain's backlog.
+                for _ in range(len(rows)):
+                    try:
+                        self._buf.popleft()
+                    except IndexError:
+                        break
+        return rows
+
+    def events(self) -> List[dict]:
+        """The buffered (unflushed) events as Chrome-format dicts — what
+        tests assert on without touching the filesystem."""
+        return [self._to_dict(r) for r in self._snapshot_rows(clear=False)]
+
+    def _to_dict(self, row) -> dict:
+        name, cat, ph, ts, dur, id, args, tid = row
+        ev = {"name": name, "cat": cat, "ph": ph, "ts": ts,
+              "pid": self._pid, "tid": tid}
+        if dur is not None:
+            ev["dur"] = dur
+        if id is not None:
+            ev["id"] = id
+        if args:
+            ev["args"] = args
+        if ph == "i":
+            ev["s"] = "t"  # instant scope: thread
+        return ev
+
+    def flush(self) -> int:
+        """Serialize and append everything buffered to ``path`` (JSONL,
+        one event per line); returns the number written. No-op without a
+        path — the in-memory ring stays readable either way."""
+        rows = self._snapshot_rows(clear=bool(self.path))
+        if not self.path or not rows:
+            return 0
+        dumps = json.dumps
+        lines = [
+            dumps(self._to_dict(r), default=repr, separators=(",", ":"))
+            for r in rows
+        ]
+        with open(self.path, "a") as f:
+            f.write("\n".join(lines) + "\n")
+        return len(rows)
+
+    def close(self) -> None:
+        self.flush()
+
+
+def read_jsonl(path: str) -> List[dict]:
+    """Parse one tracer JSONL file back into event dicts (skips blank
+    lines; raises on malformed ones — a trace that doesn't parse is a
+    finding, not something to paper over)."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(json.loads(line))
+    return out
+
+
+def merge_traces(paths: List[str], out_path: str) -> int:
+    """Concatenate N JSONL trace files (fleet parent + every replica)
+    into ONE Perfetto-loadable ``{"traceEvents": [...]}`` document,
+    sorted by ``ts``. Missing files are skipped (a replica that never
+    flushed is absence, not an error). Returns the event count."""
+    events: List[dict] = []
+    for p in paths:
+        if p and os.path.exists(p):
+            events.extend(read_jsonl(p))
+    events.sort(key=lambda e: e.get("ts", 0))
+    doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+    d = os.path.dirname(os.path.abspath(out_path))
+    os.makedirs(d, exist_ok=True)
+    tmp = out_path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, out_path)
+    return len(events)
+
+
+def span_pairs(events: List[dict]) -> dict:
+    """Index async b/e events by (cat, id, name) -> {"b": [...], "e":
+    [...]} — the test helper behind the span-pairing acceptance (every
+    opened span must close, exactly once per open)."""
+    out: dict = {}
+    for ev in events:
+        if ev.get("ph") in ("b", "e"):
+            key = (ev.get("cat"), ev.get("id"), ev.get("name"))
+            out.setdefault(key, {"b": [], "e": []})[ev["ph"]].append(ev)
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser("orion_tpu_torch.obs.trace")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    m = sub.add_parser("merge", help="merge JSONL traces into a "
+                                     "Perfetto-loadable JSON document")
+    m.add_argument("paths", nargs="+")
+    m.add_argument("-o", "--out", required=True)
+    args = p.parse_args(argv)
+    n = merge_traces(args.paths, args.out)
+    print(f"wrote {n} events to {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())
+
+
+__all__ = [
+    "Tracer", "read_jsonl", "merge_traces", "span_pairs",
+]

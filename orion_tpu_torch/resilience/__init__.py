@@ -1,2 +1,3 @@
 """Host-side resilience: the port's copies of the JAX package's jax-free
-``resilience/`` modules (so far ``retry`` and a trimmed ``inject``)."""
+``resilience/`` modules: ``retry``, ``preempt``, ``watchdog`` and a trimmed
+``inject`` (the breaker waits for the stores, ROADMAP.md A8 step 3)."""

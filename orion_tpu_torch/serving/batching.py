@@ -72,7 +72,7 @@ import torch.nn.functional as F
 from orion_tpu_torch.generate import (SampleConfig, bucket_for, decode_batched_chunk,
                                       decode_batched_prefill_chunk, prefill_carry,
                                       reprefill_carry, request_keys)
-from orion_tpu_torch.models.transformer import (decode_state_finite_per_slot,
+from orion_tpu_torch.models.transformer import (DECODE_ROWS, decode_state_finite_per_slot,
                                                 extract_decode_slot, init_decode_state,
                                                 insert_decode_slot, snapshot_decode_state)
 from orion_tpu_torch.ops.dispatch import DEFAULT_CHUNK, resolve, resolve_chunk
@@ -230,6 +230,8 @@ class SlotEngine:
     (the programs sample every row with it), so a request with another is
     refused at admission.
 
+    ``slots`` is at most ``DECODE_ROWS`` (64): the row count a decode
+    step pads its products to, which keeps batched == solo bitwise (C1).
     ``device``: where the carry lives (default ``"cuda"``; the model must
     be there too). ``prefill_chunk > 0`` admits in-scan and needs
     ``prefill_buckets``; it is rounded up to the linear-attention chunk the
@@ -254,6 +256,13 @@ class SlotEngine:
     ):
         if slots <= 0 or chunk <= 0:
             raise ValueError(f"slots and chunk must be positive, got {slots}, {chunk}")
+        if slots > DECODE_ROWS:
+            # above it the step's products run at the batch's own row count,
+            # and a row's state then depends on its company
+            raise ValueError(
+                f"slots={slots} exceeds DECODE_ROWS={DECODE_ROWS}, the row count a decode "
+                f"step pads its products to: above it a request's tokens are no longer bitwise "
+                f"its one-row generate's (ROADMAP.md C1); serve at most {DECODE_ROWS} slots")
         if prompt_overflow not in ("error", "clamp"):
             raise ValueError(f"prompt_overflow must be 'error' or 'clamp', got {prompt_overflow!r}")
         self.device = resolve_device(device)

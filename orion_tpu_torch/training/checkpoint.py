@@ -22,9 +22,10 @@ are synchronous.
 ``orion_tpu/generate.py::load_params``: just the ``params`` subtree of a
 step, memory-mapped (an optimizer state beside it is never read), verified
 against the manifest's ``params/...`` leaves, with I/O retried
-(``resilience/retry.py``) and the same fallback policy. The reference's
-fault-injection hooks (``resilience/inject.py``) are not ported yet
-(ROADMAP.md queue A, item 9).
+(``resilience/retry.py``) and the same fallback policy. Its read fires the
+``serve.ckpt_load`` fault hook (``resilience/inject.py``) inside the retried
+region, so a chaos test drives the real retry path; the training side's
+hooks (``ckpt.save``, ``ckpt.restore``) are not ported yet (ROADMAP.md A9).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from orion_tpu_torch.resilience.inject import fire
 from orion_tpu_torch.resilience.retry import RetryPolicy, call_with_retries
 
 MANIFEST_DIRNAME = "manifests"
@@ -178,6 +180,7 @@ def _newest_intact(directory: str, steps: List[int], load: Callable[[int], Any],
 
 def _load_step_params(directory: str, step: int, retry: RetryPolicy, verify: bool):
     def load():
+        fire("serve.ckpt_load", step=step)
         # memory-mapped: only the params' bytes are read, when verified or
         # copied to the device
         return torch.load(step_path(directory, step), map_location="cpu", weights_only=True,

@@ -1337,3 +1337,79 @@ def test_slot_engine_on_the_card_equals_one_row_generate(dev, mode):
     for i, p in enumerate(prompts):
         ref = gen.generate(model, torch.from_numpy(p).to(dev), 12, greedy, i).cpu().numpy()
         np.testing.assert_array_equal(done[i].tokens, ref, err_msg=f"{mode} request {i}")
+
+
+def _server_case(dev):
+    from orion_tpu_torch import generate as gen
+    from orion_tpu_torch.serving import DecodeRequest
+
+    cfg = dataclasses.replace(_ROWS_CFG, layer_types=("linear", "linear"))
+    model = gen.cast_params_for_inference(TransformerLM(cfg, device=dev))
+    greedy = gen.SampleConfig(temperature=0.0)
+    prompts = [np.random.default_rng(i).integers(0, 4096, (1, n))
+               for i, n in enumerate((200, 37, 130, 64, 90, 250))]
+    return model, [DecodeRequest(p, 12, greedy, seed=i) for i, p in enumerate(prompts)]
+
+
+@pytest.mark.parametrize("mode", ["host", "inscan"])
+def test_server_on_the_card_equals_the_slot_engine(dev, mode):
+    """``Server`` at 4 slots on the card (the model's device by default): the
+    6 requests of the engine test, submitted up front, each bitwise the same
+    request served through a bare ``SlotEngine`` with the same admissions,
+    and row 1's launches the same in both."""
+    from orion_tpu_torch.serving import ServeConfig, Server, SlotEngine
+
+    model, reqs = _server_case(dev)
+    buckets = (64, 128, 256) if mode == "inscan" else ()
+    pchunk = 64 if mode == "inscan" else 0
+    before = causal_dot.launches_wgmma
+    eng = SlotEngine(model, slots=4, chunk=4, device=dev, prefill_buckets=buckets,
+                     prefill_chunk=pchunk)
+    done, pending = {}, list(enumerate(reqs))
+    while pending or eng.busy:
+        while pending and eng.has_free_slot:
+            i, r = pending.pop(0)
+            eng.admit(r, tag=i)
+        done.update(dict(eng.step()))
+    engine_launches = causal_dot.launches_wgmma - before
+    srv = Server(model, ServeConfig(chunk=4, slots=4, max_inflight=8,
+                                    prefill_buckets=",".join(map(str, buckets)) or "off",
+                                    prefill_chunk=pchunk))
+    assert srv.device == dev and srv.engine.device == dev
+    ps = [srv.submit(r) for r in reqs]
+    before = causal_dot.launches_wgmma
+    assert srv.serve(drain_when_idle=True) == 0
+    assert causal_dot.launches_wgmma - before == engine_launches > 0
+    for i, p in enumerate(ps):
+        assert p.result.status == "ok"
+        np.testing.assert_array_equal(p.result.tokens, done[i].tokens, err_msg=f"{mode} {i}")
+    srv.close()
+
+
+def test_server_sigterm_drain_on_the_card(dev):
+    """A real SIGTERM at engine boundary 1 with requests queued beyond the
+    slots: serve() returns 0, every request completes bitwise its engine
+    run, a later submit is rejected, health SERVING -> DRAINING -> DEAD."""
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.serving import Health, RejectedError, ServeConfig, Server, SlotEngine
+
+    model, reqs = _server_case(dev)
+    eng = SlotEngine(model, slots=4, chunk=4, device=dev)
+    for i, r in enumerate(reqs[:4]):
+        eng.admit(r, tag=i)
+    done = {}
+    while eng.busy:
+        done.update(dict(eng.step()))
+    srv = Server(model, ServeConfig(chunk=4, slots=2, max_inflight=8, prefill_buckets="off",
+                                    prefill_chunk=0))
+    ps = [srv.submit(r) for r in reqs[:4]]
+    plan = inject.FaultPlan().preempt_at_chunk(1)
+    with inject.inject(plan):
+        assert srv.serve() == 0
+    assert plan.delivered == ["serve.chunk@1"] and srv.health.state is Health.DEAD
+    for i, p in enumerate(ps):
+        np.testing.assert_array_equal(p.result.tokens, done[i].tokens)
+    with pytest.raises(RejectedError):
+        srv.submit(reqs[0])
+    edges = [(a.value if a else None, b.value) for a, b, _, _ in srv.health.history]
+    assert ("serving", "draining") in edges and ("draining", "dead") in edges
