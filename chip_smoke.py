@@ -197,12 +197,29 @@ nonzero and no result line is printed):
    turns, the registry's chunk_ms p50 / p99 buckets, a late request's time
    to first token) and ``python -m orion_tpu_torch.serving`` in a
    subprocess on the card, SIGTERM after its first boundary: exit 0 and its
-   stats line;
+   stats line; then the Server's stores (``stores_check``, in a temporary
+   directory, free disk checked first) on lm_1b3 bf16 and int4 and on
+   hybrid_1b3: 4 requests sharing a declared 768-token prefix, request 0 a
+   miss whose publish runs (a solo prefill: row 1 once for each linear
+   layer, row 6 for each swa layer), 1-3 hits whose pieces cover only
+   their suffixes, every hit bitwise the request served cold for lm_1b3
+   (greedy and sampled), the hybrid's held to (g)'s limits; a session's
+   two turns, the second suspended by a SIGTERM and resumed from disk by a
+   fresh Server, bitwise one uninterrupted request (lm_1b3, greedy and
+   sampled, bf16 and int4), an int4 session refused by a full-precision
+   Server; on lm_1b3 bf16 a corrupted latest entry falling back to its
+   previous generation and a wholly corrupt one to a cold prefill, and an
+   outage (sustained "eio" on the session save and the prefix load) with
+   every request ok and bitwise, health DEGRADED "store-outage:*", the
+   breakers recovering by their probes and the dirty session landing;
+   launches exact for every wave; readings: a hit's and a miss's first
+   token, the publish's ms, the entry's bytes, session save and load ms
+   and bytes;
 13. a ``kernels`` JSON line (25 entries: the 14 rows, rows 1-10 and 14
    once for each variant; rows 1, 3 and 4 also with their launches under
    the options of phase 10, rows 1, 6 and 14 on the serving path, through
-   ``SlotEngine`` and through the Server), then the result line ``{"ok":
-   true, "device": {...}}`` last.
+   ``SlotEngine``, through the Server and through its stores), then the
+   result line ``{"ok": true, "device": {...}}`` last.
 """
 
 import contextlib
@@ -3336,6 +3353,445 @@ def server_check(dev, mods, model, plan, label, card, engine, runs, quant="", fp
     return out
 
 
+# the stores part: 4 requests sharing a declared 768-token prefix (3 pieces
+# of 256, 12 of row 1's chunks); request 0 misses and publishes, 1-3 hit
+STORE_PREFIX = 768
+STORE_SUFFIXES = (300, 77, 150, 220)
+
+
+def _store_prompts(vocab):
+    rng = np.random.default_rng(11)
+    pre = rng.integers(0, vocab, (1, STORE_PREFIX), dtype=np.int64)
+    return [np.concatenate([pre, rng.integers(0, vocab, (1, n), dtype=np.int64)], axis=1)
+            for n in STORE_SUFFIXES]
+
+
+def _store_marks(srv):
+    """What a stores run's launches follow, from the Server's flight ring and
+    counters: prefill pieces, prefix publishes, boundaries."""
+    return (len(srv.flight.events("prefill_piece")), len(srv.flight.events("prefix_publish")),
+            srv.stats["chunks"])
+
+
+def _store_want(cfg, quant, before, after):
+    """Exact launches between two marks of an in-scan Server: row 1 for each
+    linear layer of a piece and of a publish's solo prefill, row 6 for each
+    softmax / swa layer of a publish's prefill (the pieces' are plain), row
+    14 for each int4 layer and decode step."""
+    lin, attn, _, _ = _layer_counts(cfg)
+    pieces, pubs, chunks = (a - b for a, b in zip(after, before))
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(causal_dot_norm_wgmma=lin * (pieces + pubs), flash_fwd_wgmma=attn * pubs,
+                q4_matmul_mma=_q4_per_step(cfg) * chunks * SERVE_CHUNK if quant == "int4" else 0)
+    return want
+
+
+def _store_wave(mods, srv, reqs, label, what, cfg, quant, fault=None, statuses=("ok",),
+                idle=True):
+    """``reqs`` submitted to ``srv`` and served (to idle, or with ``idle``
+    False to the end of a SIGTERM drain), ``fault`` armed, launches counted
+    from 0 and held exact, each request's status one of ``statuses``. ->
+    (pendings, launches)."""
+    from orion_tpu_torch.resilience import inject
+
+    gc.collect()
+    _reset_counts(mods)
+    before = _store_marks(srv)
+    ps = [srv.submit(r) for r in reqs]
+    with inject.inject(fault) if fault is not None else contextlib.nullcontext():
+        rc = srv.serve(drain_when_idle=idle)
+    torch.cuda.synchronize()
+    counts = _counts(mods)
+    want = _store_want(cfg, quant, before, _store_marks(srv))
+    if rc != 0 or counts != want:
+        raise AssertionError(f"{label} stores, {what}: serve() {rc}, launched {counts}, want "
+                             f"{want}")
+    for p in ps:
+        if p.result is None or p.result.status not in statuses:
+            raise AssertionError(f"{label} stores, {what}: a request ended "
+                                 f"{p.result.status if p.result else p.error!r}")
+    return ps, counts
+
+
+def _pieces_by_request(srv, ps):
+    return [sum(e.get("req") == p.rid for e in srv.flight.events("prefill_piece")) for p in ps]
+
+
+def _timed_publish(srv, into):
+    """Time the engine's publishes (a solo prefill, the state's copy to the
+    host and the write), the card synchronized at both ends."""
+    orig = srv.engine.publish_pending_prefixes
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = orig()
+        torch.cuda.synchronize()
+        if n:
+            into.append((time.perf_counter() - t0) * 1e3)
+        return n
+
+    srv.engine.publish_pending_prefixes = timed
+
+
+def _tap(store, into):
+    """Collect a store's telemetry (op, ms[, bytes]) beside the Server's."""
+    orig = store._observer
+
+    def both(*a):
+        into.append(a)
+        orig(*a)
+
+    store._observer = both
+
+
+def _entry_vs_pieces(srv, entry, prompt, dev):
+    """A published entry's state against the pieces' state of its prefix
+    (the cold request's in-scan prefill over the same tokens): bitwise?, S
+    and K/V max relative error (held to (g)'s limits)."""
+    cfg = srv.engine.model.cfg
+    _, st = _prefill_pieces(srv.engine.model, torch.from_numpy(prompt[:, :entry.t]).to(dev))
+    kinds = cfg.resolved_layer_types
+    read = [[{k: _readable_rows(cfg, lt, v.to(dev), entry.t) for k, v in a.items()}
+             for lt, a in zip(kinds, sts)] for sts in (entry.state, st)]
+    bit = all(torch.equal(a[k], b[k]) for a, b in zip(*read) for k in a)
+    return bit, _state_err(*read)
+
+
+def stores_check(dev, mods, model, label, card, quant="", fp=None, full=False):
+    """The Server's stores at full width, 4 slots, chunk 16, pieces of 256
+    (``quant``: the Server quantizes the fp32 ``fp`` itself). In a temporary
+    directory (free disk checked first; removed after):
+
+    (i) prefix -- 4 requests sharing a declared 768-token prefix (suffixes of
+    300, 77, 150, 220), greedy and sampled (greedy only for a model with swa
+    layers), served through a Server without a store (cold), then through one
+    with ``prefix_dir``: request 0 misses and its publish runs, 1-3 hit;
+    launches exact for each wave; every hit bitwise the cold request for a
+    linear model (for the hybrid its greedy tokens equal, the entry's state
+    within (g)'s limits of the pieces'); each request's pieces; readings:
+    the publish's ms, the entry's bytes, the first token of request 0 hit
+    against cold (three turns each, median). Where a hybrid hit's greedy
+    tokens differ from the cold request's, each is held as the in-scan
+    admission is against host admission: within ``LOGITS_ATOL`` of the
+    maximum of a one-row walk fed them. ``full``: a second generation
+    with the latest corrupted falls back to the first (a warning, the hit
+    bitwise), every generation corrupted falls back to a cold prefill.
+
+    (ii) sessions (linear models) -- a session's two turns (40 tokens, then
+    64 of which a SIGTERM at its second boundary suspends all but the first
+    40), the rest resumed from disk by a fresh Server and engine: bitwise
+    one uninterrupted request of 104 tokens, greedy and sampled, launches
+    exact; readings: save and load ms and bytes. At int4 a full-precision
+    Server's resume is refused (``SessionIdentityError``).
+
+    (iii) ``full``: an outage -- sessions and prefixes on one Server
+    (breakers at one failure), turn 2 under ``degrade_site`` "eio" on
+    ``serve.session_save`` and on ``serve.prefix_load``: every request ok and
+    bitwise its clean run, zero failed, health DEGRADED "store-outage:*",
+    both breakers tripped (the prefix one's probe, a directory scan outside
+    the regime, may close it inside the outage); after the regime the probes
+    close them, the dirty session lands and health is SERVING; turn 3 on
+    top, bitwise."""
+    import shutil
+    import tempfile
+
+    from orion_tpu_torch.generate import SampleConfig
+    from orion_tpu_torch.models.transformer import init_decode_state
+    from orion_tpu_torch.serving import DecodeRequest, Server
+
+    cfg = model.cfg
+    served, qmode = (fp, quant) if quant else (model, "off")
+    linear = all(lt == "linear" for lt in cfg.resolved_layer_types)
+    samples = {"greedy": SampleConfig(temperature=0.0), "sampled": SampleConfig(**SAMPLED_SERVE)}
+    one = init_decode_state(cfg, 1, dev)
+    state_bytes = sum(x.numel() * x.element_size() for st in one for x in st.values())
+    del one
+    prompts = _store_prompts(cfg.vocab_size)
+    t_part = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stores_")
+    res = {"launches": {}, "prefix": {}, "card": card}
+    try:
+        free = shutil.disk_usage(tmp).free
+        need = 12 * state_bytes
+        log(f"{label} stores: a decode state of {state_bytes / 2**20:.1f} MiB; {tmp} has "
+            f"{free / 1e9:.1f} GB free")
+        if free < need + 2**30:
+            raise RuntimeError(f"{tmp} has {free / 1e9:.1f} GB free; the stores need "
+                               f"{need / 1e9:.1f} GB and 1 GiB to spare")
+
+        # (i) the prefix cache
+        cold_by_sample = {}
+        for sname in ("greedy", "sampled") if linear else ("greedy",):
+            sample = samples[sname]
+            reqs = [DecodeRequest(p, SERVE_NEW, sample, seed=300 + i, prefix_len=STORE_PREFIX)
+                    for i, p in enumerate(prompts)]
+            cold_srv = Server(served, _server_config("inscan", qmode=qmode, max_inflight=8))
+            cold_ps, cold_counts = _store_wave(mods, cold_srv, reqs, label, f"{sname} cold", cfg,
+                                               quant)
+            cold = [p.result.tokens[0].tolist() for p in cold_ps]
+            cold_by_sample[sname] = cold
+            pdir = os.path.join(tmp, f"prefix-{sname}")
+            srv = Server(served, _server_config("inscan", qmode=qmode, max_inflight=8,
+                                                prefix_dir=pdir))
+            pub_ms, prefix_io = [], []
+            _timed_publish(srv, pub_ms)
+            _tap(srv.prefix_store, prefix_io)
+            miss_ps, miss_counts = _store_wave(mods, srv, reqs[:1], label,
+                                               f"{sname} miss and publish", cfg, quant)
+            hit_ps, hit_counts = _store_wave(mods, srv, reqs[1:], label, f"{sname} hits", cfg,
+                                             quant)
+            flat = srv.metrics.counters_flat()
+            got = [p.result.tokens[0].tolist() for p in miss_ps + hit_ps]
+            entry = srv.prefix_store.lookup(prompts[1])
+            bit, (s_err, kv_err) = _entry_vs_pieces(srv, entry, prompts[1], dev)
+            run = {"cold_launches": cold_counts, "miss_publish_launches": miss_counts,
+                   "hit_launches": hit_counts,
+                   "counters": {k: flat.get(k, 0) for k in ("prefix_hits", "prefix_misses",
+                                                            "prefix_publishes")},
+                   "pieces_cold": _pieces_by_request(cold_srv, cold_ps),
+                   "pieces_served": _pieces_by_request(srv, miss_ps + hit_ps),
+                   "equal_cold": [g == c for g, c in zip(got, cold)],
+                   "entry_bitwise_pieces": bit, "entry_s_max_rel": s_err,
+                   "entry_kv_max_rel": kv_err, "publish_ms": pub_ms,
+                   "entry_bytes": [a[2] for a in prefix_io if a[0] == "save"],
+                   "entry_load_ms": [a[1] for a in prefix_io if a[0] == "load"]}
+            res["launches"][f"prefix {sname} miss+publish"] = miss_counts
+            res["launches"][f"prefix {sname} hits"] = hit_counts
+            if sname == "greedy":  # the first token of request 0, hit against cold
+                ttft = {"hit": [], "cold": []}
+                first = DecodeRequest(prompts[0], 1, sample, seed=300)
+                for _ in range(3):
+                    for kind, s in (("hit", srv), ("cold", cold_srv)):
+                        gc.collect()
+                        pend = s.submit(first)
+                        s.serve(drain_when_idle=True)
+                        torch.cuda.synchronize()
+                        if pend.result.tokens[0].tolist() != cold[0][:1]:
+                            raise AssertionError(f"{label} stores: the timed request's token "
+                                                 "moved")
+                        ttft[kind].append((pend.done_at - pend.admitted_at) * 1e3)
+                run["first_token_ms"] = {k: float(np.median(v)) for k, v in ttft.items()}
+                run["first_token_ms_runs"] = ttft
+            log(f"{label} stores, prefix {sname}: {run}")
+            res["prefix"][sname] = run
+            if run["counters"] != {"prefix_hits": 3, "prefix_misses": 1, "prefix_publishes": 1}:
+                raise AssertionError(f"{label} stores: prefix counters {run['counters']}, want "
+                                     "3 hits, 1 miss, 1 publish")
+            if run["pieces_served"][1:] != [-(-n // SERVE_PIECE) for n in STORE_SUFFIXES[1:]]:
+                raise AssertionError(f"{label} stores: a hit's pieces {run['pieces_served']} are "
+                                     "not its suffix's")
+            if not linear:  # the publish's swa is row 6, the pieces' plain: held as (f) was
+                run["hit_gaps"] = {i: max(_forced_gaps(srv.engine.model, torch.from_numpy(
+                    prompts[i]).to(dev), got[i])) for i, eq in enumerate(run["equal_cold"])
+                    if not eq}
+                log(f"{label} stores: hits whose greedy tokens differ from the cold request's, "
+                    f"the one-row walk fed them, largest gap to its maximum (limit "
+                    f"{LOGITS_ATOL}): {run['hit_gaps']}")
+            if (linear and not all(run["equal_cold"])) or (s_err or 0) > LAYER_S_RTOL or (
+                    kv_err or 0) > LAYER_KV_RTOL or any(
+                    g > LOGITS_ATOL for g in run.get("hit_gaps", {}).values()):
+                raise AssertionError(f"{label} stores: a prefix hit moved the tokens, or the "
+                                     f"entry's state left (g)'s limits: {run}")
+            if full and sname == "greedy":
+                res["prefix"]["corrupt"] = _corrupt_check(mods, srv, reqs, cold, pdir, label,
+                                                          cfg, quant)
+            cold_srv.close()
+            srv.close()
+            del cold_srv, srv
+
+        # (ii) durable sessions
+        if linear:
+            res["sessions"] = _sessions_check(mods, served, qmode, fp, prompts[1], samples,
+                                              os.path.join(tmp, "sessions"), label, cfg, quant)
+            for sname, r in res["sessions"]["runs"].items():
+                res["launches"][f"session {sname}"] = r["launches"]
+        # (iii) an outage
+        if full:
+            res["outage"] = _outage_check(mods, served, prompts, cold_by_sample["greedy"],
+                                          samples["greedy"], tmp, label, cfg, quant)
+            res["launches"]["outage"] = res["outage"]["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["part_s"] = time.perf_counter() - t_part
+    log(f"{label} stores part took {res['part_s']:.1f} s ({card})")
+    return res
+
+
+def _corrupt_check(mods, srv, reqs, cold, pdir, label, cfg, quant):
+    """A second generation of the entry with the latest corrupted: the hit
+    falls back to the first (a warning), bitwise; every generation corrupted:
+    a cold prefill, bitwise, no hit counted."""
+    import warnings
+
+    from orion_tpu_torch.resilience import inject
+
+    store = srv.prefix_store
+    row = reqs[0].prompt[:, :STORE_PREFIX]
+    key = store.key_for(row)
+    store.publish(row, store.lookup(reqs[1].prompt).state, skip_if_present=False)
+    gens = store.generations(key)
+    inject.corrupt_session(pdir, key)  # the newest generation
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        ps, _ = _store_wave(mods, srv, reqs[1:2], label, "hit on a corrupt latest", cfg, quant)
+        fell_back = srv.flight.events("prefix_hit")[-1]["generation"]
+        hits = srv.metrics.counters_flat()["prefix_hits"]
+        for g in gens[:-1]:  # the newest is corrupt already (a second flip would mend it)
+            inject.corrupt_session(pdir, key, generation=g)
+        ps2, _ = _store_wave(mods, srv, reqs[2:3], label, "every generation corrupt", cfg, quant)
+    out = {"generations": gens, "fell_back_to": fell_back,
+           "warnings": sum("corrupt" in str(x.message) for x in w),
+           "hit_equal": ps[0].result.tokens[0].tolist() == cold[1],
+           "cold_equal": ps2[0].result.tokens[0].tolist() == cold[2],
+           "hit_counted_on_total_damage": srv.metrics.counters_flat()["prefix_hits"] - hits}
+    log(f"{label} stores, corrupt entries: {out}")
+    if not (gens == [1, 2] and fell_back == 1 and out["warnings"] and out["hit_equal"]
+            and out["cold_equal"] and out["hit_counted_on_total_damage"] == 0):
+        raise AssertionError(f"{label} stores: a corrupt entry did not fall back: {out}")
+    return out
+
+
+def _sessions_check(mods, served, qmode, fp, prompt, samples, sdir, label, cfg, quant):
+    """Two turns of a session, the second suspended by a SIGTERM and resumed
+    from disk by a fresh Server, against one uninterrupted request."""
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.serving import DecodeRequest, Health, Server, SessionIdentityError
+
+    empty = np.zeros((1, 0), np.int64)
+    out = {"runs": {}}
+    for sname, sample in samples.items():
+        sid = f"conv-{sname}"
+        ref_srv = Server(served, _server_config("inscan", qmode=qmode))
+        (ref,), _ = _store_wave(mods, ref_srv, [DecodeRequest(prompt, 104, sample, seed=400)],
+                                label, f"uninterrupted {sname}", cfg, quant)
+        ref_srv.close()
+        del ref_srv
+        scfg = _server_config("inscan", qmode=qmode, session_dir=sdir)
+        srv1 = Server(served, scfg)
+        io = []
+        _tap(srv1.session_store, io)
+        (t1,), c1 = _store_wave(mods, srv1, [DecodeRequest(prompt, 40, sample, seed=400,
+                                                           session_id=sid)],
+                                label, f"session {sname} turn 1", cfg, quant)
+        sig = inject.FaultPlan().preempt_at_chunk(srv1.engine._chunk_counter + 1)
+        (t2a,), c2 = _store_wave(mods, srv1, [DecodeRequest(empty, 64, sample, session_id=sid)],
+                                 label, f"session {sname} turn 2 until SIGTERM", cfg, quant,
+                                 fault=sig, statuses=("suspended",), idle=False)
+        if srv1.health.state is not Health.DEAD or not 0 < t2a.result.new_tokens < 64:
+            raise AssertionError(f"{label} stores: the SIGTERM did not suspend turn 2 "
+                                 f"mid-stream: {srv1.health.state}, {t2a.result.new_tokens}")
+        size = os.path.getsize(os.path.join(
+            sdir, sid, f"gen-{srv1.session_store.newest_generation(sid):06d}.bin"))
+        del srv1
+        srv2 = Server(served, scfg)  # a fresh Server and engine, the same weights
+        _tap(srv2.session_store, io)
+        (t2b,), c3 = _store_wave(mods, srv2, [DecodeRequest(
+            empty, 64 - t2a.result.new_tokens, sample, session_id=sid)], label,
+            f"session {sname} turn 2 resumed", cfg, quant)
+        srv2.close()
+        del srv2
+        total = np.concatenate([t1.result.tokens, t2a.result.tokens, t2b.result.tokens], 1)
+        r = {"equal": total[0].tolist() == ref.result.tokens[0].tolist(),
+             "turns": [t1.result.new_tokens, t2a.result.new_tokens, t2b.result.new_tokens],
+             "save_ms": [a[1] for a in io if a[0] == "save"],
+             "load_ms": [a[1] for a in io if a[0] == "load"], "bytes": size,
+             "launches": {k: c1[k] + c2[k] + c3[k] for k in c1}}
+        log(f"{label} stores, session {sname}: {r}")
+        if not r["equal"] or not r["load_ms"]:
+            raise AssertionError(f"{label} stores: turns 1 + 2 through a restart moved the "
+                                 f"tokens, or turn 2 was not read from disk: {r}")
+        out["runs"][sname] = r
+    if quant:  # a session saved at int4 is refused by a full-precision Server
+        srv = Server(fp, _server_config("inscan", session_dir=sdir))
+        pend = srv.submit(DecodeRequest(empty, 16, samples["greedy"],
+                                        session_id="conv-greedy"))
+        srv.serve(drain_when_idle=True)
+        srv.close()
+        out["cross_qmode_refused"] = isinstance(pend.error, SessionIdentityError)
+        log(f"{label} stores: a bf16 Server's resume of an int4 session: {pend.error!r}")
+        if not out["cross_qmode_refused"]:
+            raise AssertionError(f"{label} stores: a cross-qmode resume was not refused")
+    return out
+
+
+def _outage_check(mods, served, prompts, cold, sample, tmp, label, cfg, quant):
+    """Turn 2 of a session and a prefix hit under sustained "eio" regimes on
+    the session save and the prefix load; recovery; turn 3."""
+    import warnings
+
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.resilience.retry import RetryPolicy
+    from orion_tpu_torch.serving import DecodeRequest, Health, Server
+
+    empty = np.zeros((1, 0), np.int64)
+    sp = _serve_prompts(LM_PLAN, cfg.vocab_size)[2]
+    ref_srv = Server(served, _server_config("inscan"))
+    (ref,), _ = _store_wave(mods, ref_srv, [DecodeRequest(sp, 96, sample, seed=500)], label,
+                            "outage's uninterrupted session", cfg, quant)
+    ref_srv.close()
+    reqs = [DecodeRequest(p, SERVE_NEW, sample, seed=300 + i, prefix_len=STORE_PREFIX)
+            for i, p in enumerate(prompts)]
+    srv = Server(served, _server_config(
+        "inscan", max_inflight=8, session_dir=os.path.join(tmp, "o-sessions"),
+        prefix_dir=os.path.join(tmp, "o-prefix"), breaker_failures=1, breaker_backoff=0.05,
+        breaker_max_backoff=0.2))
+    srv.session_store._retry = srv.prefix_store._retry = RetryPolicy(attempts=1)
+    t1, c1 = _store_wave(mods, srv, [DecodeRequest(sp, 32, sample, seed=500, session_id="u"),
+                                     reqs[0]], label, "outage turn 1", cfg, quant)
+    plan = inject.FaultPlan()
+    plan.degrade_site("serve.session_save", "eio")
+    plan.degrade_site("serve.prefix_load", "eio")
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        t2, c2 = _store_wave(mods, srv, [DecodeRequest(empty, 32, sample, session_id="u"),
+                                         reqs[1]], label, "outage turn 2", cfg, quant,
+                             fault=plan)
+        mid = {"health": srv.health.state.value, "reason": srv.health.reason,
+               "breakers": {n: b.state for n, b in srv._breakers.items()},
+               "dirty": sorted(srv._dirty_sessions), "delivered": len(plan.delivered)}
+        # the regime has ended (the plan disarmed): the probes close the
+        # breakers and the dirty session lands
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and (
+                srv._dirty_sessions or srv.health.state is not Health.SERVING
+                or any(b.state != "closed" for b in srv._breakers.values())):
+            time.sleep(0.05)
+            srv.serve(drain_when_idle=True)
+    recover_s = time.perf_counter() - t0
+    t3, c3 = _store_wave(mods, srv, [DecodeRequest(empty, 32, sample, session_id="u"),
+                                     reqs[2]], label, "outage turn 3", cfg, quant)
+    flat = srv.metrics.counters_flat()
+    total = np.concatenate([t1[0].result.tokens, t2[0].result.tokens, t3[0].result.tokens], 1)
+    out = {"mid_outage": mid, "after": {"health": srv.health.state.value,
+                                        "breakers": {n: b.state for n, b in srv._breakers.items()},
+                                        "dirty": sorted(srv._dirty_sessions),
+                                        "newest_generation": srv.session_store.newest_generation(
+                                            "u")},
+           "session_equal": total[0].tolist() == ref.result.tokens[0].tolist(),
+           "prefix_equal": [t[1].result.tokens[0].tolist() == cold[i]
+                            for i, t in enumerate((t1, t2, t3))],
+           "failed": flat.get("failed", 0), "shed": flat.get("shed", 0),
+           "breaker_trips": {n: sum(e["store"] == n and e["to"] == "open"
+                                    for e in srv.flight.events("breaker"))
+                             for n in srv._breakers}, "warnings": len(w),
+           "outage_and_recovery_s": recover_s,
+           "launches": {k: c1[k] + c2[k] + c3[k] for k in c1}}
+    log(f"{label} stores, outage: {out}")
+    srv.close()
+    if not (out["session_equal"] and all(out["prefix_equal"]) and out["failed"] == 0
+            and out["shed"] == 0 and mid["health"] == "degraded"
+            and mid["reason"].startswith("store-outage:")
+            and mid["breakers"]["session"] in ("open", "half_open") and mid["dirty"] == ["u"]
+            and min(out["breaker_trips"].values()) >= 1
+            and out["after"] == {"health": "serving", "breakers": {"prefix": "closed",
+                                                                   "session": "closed"},
+                                 "dirty": [], "newest_generation": 3}):
+        raise AssertionError(f"{label} stores: the outage run misbehaved: {out}")
+    return out
+
+
 def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", "ladder",
                                                                  "session", "times"),
                   server_runs=()):
@@ -3368,8 +3824,8 @@ def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", 
     cfg = get_config(name)
     fp = TransformerLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     model = quantize_for_decode(fp, quant) if quant else cast_params_for_inference(fp)
-    if not (quant and server_runs):  # the Server quantizes the fp32 weights itself
-        fp = None
+    if not (quant and (server_runs or "stores" in checks)):
+        fp = None  # else the Server quantizes the fp32 weights itself
     torch.cuda.empty_cache()
     label = f"{name}{' ' + quant if quant else ''} serving"
     greedy, sampled = SampleConfig(temperature=0.0), SampleConfig(**SAMPLED_SERVE)
@@ -3523,6 +3979,9 @@ def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", 
                                      full="server_full" in checks)
         res["server"]["phase_s"] = time.perf_counter() - t_server
         log(f"{label} Server phase took {res['server']['phase_s']:.1f} s")
+    if "stores" in checks:
+        res["stores"] = stores_check(dev, mods, model, label, card, quant=quant, fp=fp,
+                                     full="stores_full" in checks)
     log(f"{label} phase took {time.perf_counter() - t_phase:.1f} s")
     del model, fp
     torch.cuda.empty_cache()
@@ -3909,14 +4368,15 @@ def main() -> int:
     serving = {
         "lm_1b3": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card,
                                 checks=("b", "f", "g", "ladder", "session", "times",
-                                        "decode_session", "server_full"), server_runs=both),
+                                        "decode_session", "server_full", "stores",
+                                        "stores_full"), server_runs=both),
         "lm_1b3_int4": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, quant="int4",
-                                     checks=("f",), server_runs=host),
+                                     checks=("f", "stores"), server_runs=host),
         # the hybrid's in-scan pieces run its swa plain, as in JAX: row 6 only
-        # in the host (solo) prefill
+        # in the host (solo) prefill and a prefix publish's
         "hybrid_1b3": serving_phase(dev, mods, "hybrid_1b3", HYBRID_PLAN, card,
-                                    checks=("b", "f", "g", "ladder", "session", "times"),
-                                    server_runs=host),
+                                    checks=("b", "f", "g", "ladder", "session", "times",
+                                            "stores"), server_runs=host),
     }
     log(f"serving phases done at {time.perf_counter() - t0:.1f} s")
 
@@ -3977,6 +4437,11 @@ def main() -> int:
             # the same requests through serving.Server, by (sampling, admission)
             k["launches_server"] = {label: {run: c[k["name"]]
                                             for run, c in r["server"]["launches"].items()}
+                                    for label, r in serving.items()}
+            # the Server's stores: a prefix miss and its publish, the hits, the
+            # session turns, the outage's three turns
+            k["launches_stores"] = {label: {run: c[k["name"]]
+                                            for run, c in r["stores"]["launches"].items()}
                                     for label, r in serving.items()}
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

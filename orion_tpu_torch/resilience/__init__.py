@@ -1,3 +1,4 @@
 """Host-side resilience: the port's copies of the JAX package's jax-free
-``resilience/`` modules: ``retry``, ``preempt``, ``watchdog`` and a trimmed
-``inject`` (the breaker waits for the stores, ROADMAP.md A8 step 3)."""
+``resilience/`` modules: ``retry``, ``preempt``, ``watchdog``, ``breaker``
+(the stores' circuit breakers) and ``inject`` (without the training, data,
+executable-store and fleet sites: ROADMAP.md A9, A13)."""

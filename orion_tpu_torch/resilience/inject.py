@@ -34,7 +34,34 @@ Sites wired in the port:
                           SlotEngine to poison only slot K's rows of the
                           batched decode state at that request's chunk index:
                           the per-slot ladder's address
+``"serve.session_save"``  ``serving/session_store.py`` ``SessionStore.save``,
+                          inside the retried write of one session generation
+                          (step = the generation number)
+``"serve.session_load"``  ``serving/session_store.py`` ``SessionStore.load``,
+                          inside the retried read of one session generation
+                          (step = the generation number)
+``"serve.session_scan"``  ``serving/session_store.py``, before each directory
+                          listing: the staleness probe a session lookup pays
+``"serve.prefix_scan"``   ``serving/prefix_store.py``, before each directory
+                          listing: the existence probe of a prefix candidate
+``"serve.prefix_save"``   ``serving/prefix_store.py`` ``PrefixStore.publish``,
+                          inside the retried write of one prefix generation
+                          (step = the generation number): a kill here leaves
+                          the previous generation the newest committed
+``"serve.prefix_load"``   ``serving/prefix_store.py`` lookup, inside the
+                          retried read of one candidate generation (step = the
+                          generation number): a fault here falls back to a
+                          cold prefill, never fails the request
 ========================  ====================================================
+
+Besides one-shot faults, :meth:`FaultPlan.degrade_site` arms a SUSTAINED
+regime (:data:`REGIME_KINDS`: ``eio``, ``enospc``, ``partition`` raise the
+matching OSError, ``latency`` sleeps and succeeds) on every site under a
+prefix while a regime clock (by default the Server's ``serve.chunk_delay``
+ordinal) sits inside a window: the store outages the circuit breakers
+(``resilience/breaker.py``) are held against. :func:`corrupt_session` and
+:func:`truncate_session` damage a written session (or prefix) generation on
+disk the way flaky storage does.
 
 Every delivered fault, marker or action, is reported to the delivery
 observers (:func:`add_observer`) after the plan's lock is released: the
@@ -42,19 +69,21 @@ flight recorder subscribes (``FlightRecorder.attach_inject``), so no
 injected fault leaves the black box without a trace.
 
 Left out, with the ROADMAP.md item that brings each: the training,
-checkpoint-save, data and store sites, the sustained fault regimes
-(``degrade_site``) and the on-disk corruption helpers (A9, the host
-subsystems; the stores' sites with A8 step 3).
+checkpoint-save and data sites with the checkpoint damage helpers
+(``corrupt_step``, ``truncate_step``: A9), the executable store's sites
+(``serve.exec_*``: A13) and the fleet's (``fleet.*``: A9).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import errno
+import os
 import signal
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 _DECODE_NAN_SITE = "decode.state_nan"
 _CHUNK_SITE = "serve.chunk"
@@ -68,6 +97,16 @@ SITES = {
     "serve.ckpt_load": "training/checkpoint.py load_params, inside retry",
     "serve.tokenizer_io": "serving/server.py tokenizer load, inside retry",
     "decode.state_nan": "DecodeSession decode-state poisoning marker",
+    "serve.session_save": "serving/session_store.py save, inside retry",
+    "serve.session_load": "serving/session_store.py load, inside retry",
+    "serve.session_scan": "serving/session_store.py generations(), before the directory "
+                          "listing -- the staleness probe a session lookup pays",
+    "serve.prefix_scan": "serving/prefix_store.py generations(), before the directory "
+                         "listing -- the per-candidate existence probe of a prefix lookup",
+    "serve.prefix_save": "serving/prefix_store.py publish, inside the retried write of one "
+                         "prefix generation",
+    "serve.prefix_load": "serving/prefix_store.py lookup, inside the retried read of one "
+                         "candidate generation",
 }
 
 
@@ -75,8 +114,31 @@ SITES = {
 SITE_PREFIXES = ("decode.slot_nan.",)
 
 
+# sustained-regime fault kinds (FaultPlan.degrade_site): how a degraded site
+# fails for the whole regime window. ``eio`` / ``enospc`` raise the matching
+# OSError (media failure / full disk), ``partition`` raises ETIMEDOUT (a
+# network-attached store whose network is gone), ``latency`` adds host delay
+# and succeeds: the brownout a breaker must catch with no error surfacing
+REGIME_KINDS = ("eio", "enospc", "latency", "partition")
+
+_REGIME_ERRNO = {
+    "eio": errno.EIO,
+    "enospc": errno.ENOSPC,
+    "partition": errno.ETIMEDOUT,
+}
+
+
 def known_site(site: str) -> bool:
     return site in SITES or site.startswith(SITE_PREFIXES)
+
+
+def known_regime_prefix(prefix: str) -> bool:
+    """A regime prefix must cover at least one registered site (or site
+    family): a regime that can never fire is a typo, the contract of
+    :meth:`FaultPlan.add`."""
+    return (any(s == prefix or s.startswith(prefix) for s in SITES)
+            or any(p == prefix or p.startswith(prefix) for p in SITE_PREFIXES)
+            or prefix.startswith(SITE_PREFIXES))
 
 
 def _decode_slot_site(slot: int) -> str:
@@ -119,13 +181,33 @@ class _Fault:
     action: Optional[Callable[[], None]]  # None = marker (consumed via query)
 
 
+@dataclasses.dataclass
+class _Regime:
+    """A sustained outage: every fire() on a site matching ``prefix`` fails
+    (or stalls) while the regime clock is inside ``[from_step, until_step)``.
+    The clock is the last step observed at ``clock_site`` (by default
+    ``serve.chunk_delay``, the Server's lifetime chunk ordinal), so "the
+    store is down for chunks 10..30" is one sentence however each store
+    site numbers its own steps (generation numbers, ...)."""
+
+    prefix: str
+    kind: str  # one of REGIME_KINDS
+    from_step: int
+    until_step: Optional[int]  # exclusive; None = never ends
+    latency: float
+    clock_site: str
+
+
 class FaultPlan:
     """An ordered set of faults to deliver. Thread-safe."""
 
     def __init__(self):
         self._faults: List[_Fault] = []
+        self._regimes: List[_Regime] = []
+        self._regime_clock: Dict[str, int] = {}  # clock_site -> last step
         self._lock = threading.Lock()
         self.delivered: List[str] = []  # "site@step" log for assertions
+        self.sleep: Callable[[float], None] = time.sleep  # latency regimes
 
     def add(self, site: str, step: Optional[int] = None, times: int = 1,
             action: Optional[Callable[[], None]] = None) -> "FaultPlan":
@@ -147,6 +229,33 @@ class FaultPlan:
             raise exc(f"{msg} [site={site}]")
 
         return self.add(site, step, times, raise_)
+
+    def degrade_site(self, prefix: str, kind: str = "eio", from_step: int = 0,
+                     until_step: Optional[int] = None, latency: float = 0.05,
+                     clock_site: str = "serve.chunk_delay") -> "FaultPlan":
+        """Arm a SUSTAINED fault regime: every hook whose site starts with
+        ``prefix`` fails (``kind`` in :data:`REGIME_KINDS`) while the regime
+        clock -- the last step fired at ``clock_site`` (default
+        ``serve.chunk_delay``, the Server's lifetime chunk ordinal) -- sits
+        in ``[from_step, until_step)``. ``until_step=None`` never recovers.
+        ``latency`` is the added host delay per operation for
+        ``kind="latency"`` (the operation then SUCCEEDS). Regimes layer
+        under one-shot faults: an armed one-shot at the same (site, step)
+        takes precedence."""
+        if kind not in REGIME_KINDS:
+            raise ValueError(f"unknown regime kind {kind!r}; expected one of {REGIME_KINDS}")
+        if not known_regime_prefix(prefix):
+            raise ValueError(
+                f"regime prefix {prefix!r} covers no registered fault-injection site: a regime "
+                "no hook can enter never delivers -- register the site(s) in inject.SITES first")
+        if not known_site(clock_site):
+            raise ValueError(f"unknown regime clock site {clock_site!r}")
+        if until_step is not None and until_step <= from_step:
+            raise ValueError(f"empty regime window [{from_step}, {until_step})")
+        self._regimes.append(_Regime(prefix, kind, int(from_step),
+                                     None if until_step is None else int(until_step),
+                                     float(latency), clock_site))
+        return self
 
     def preempt_at_chunk(self, chunk: int, sig: int = signal.SIGTERM) -> "FaultPlan":
         """Deliver a real OS signal at a serving chunk boundary (SlotEngine:
@@ -196,9 +305,50 @@ class FaultPlan:
         return taken
 
     def fire(self, site: str, step: Optional[int] = None) -> None:
+        if self._regimes:
+            self._advance_regime_clock(site, step)
         f = self._take(site, step)
-        if f is not None and f.action is not None:
-            f.action()
+        if f is not None:
+            if f.action is not None:
+                f.action()
+            return
+        if self._regimes:
+            self._fire_regime(site, step)
+
+    def _advance_regime_clock(self, site: str, step: Optional[int]) -> None:
+        if step is None:
+            return
+        with self._lock:
+            for r in self._regimes:
+                if r.clock_site == site:
+                    self._regime_clock[site] = max(self._regime_clock.get(site, -1), int(step))
+
+    def _fire_regime(self, site: str, step: Optional[int]) -> None:
+        """Deliver the first matching live regime (logged in ``delivered``
+        and reported to the observers as a one-shot fault is). ``eio`` /
+        ``enospc`` / ``partition`` raise; ``latency`` sleeps outside the
+        lock, then succeeds."""
+        match = None
+        with self._lock:
+            for r in self._regimes:
+                if not site.startswith(r.prefix):
+                    continue
+                # before the clock site ever fires the clock reads 0: a
+                # from_step=0 regime is live from the start
+                now = self._regime_clock.get(r.clock_site, 0)
+                if now < r.from_step or (r.until_step is not None and now >= r.until_step):
+                    continue
+                self.delivered.append(f"{site}@{step}")
+                match = r
+                break
+        if match is None:
+            return
+        _notify_delivery(site, step)
+        if match.kind == "latency":
+            self.sleep(match.latency)
+            return
+        raise OSError(_REGIME_ERRNO[match.kind],
+                      f"injected sustained {match.kind} regime [site={site} prefix={match.prefix}]")
 
     def consume_marker(self, site: str, step: Optional[int] = None) -> bool:
         return self._take(site, step) is not None
@@ -248,6 +398,48 @@ def decode_slot_nan_armed(slot: int, chunk: int) -> bool:
     return plan is not None and plan.consume_marker(_decode_slot_site(slot), chunk)
 
 
-__all__ = ["SITES", "SITE_PREFIXES", "FaultPlan", "inject", "active", "fire",
-           "decode_nan_armed", "decode_slot_nan_armed", "known_site", "add_observer",
-           "remove_observer"]
+# -- on-disk session damage (test control, not a hook) -------------------------
+
+
+def _session_gen_bin(session_dir: str, session_id: str, generation: Optional[int]) -> str:
+    """Path of one session generation's payload file (default: the newest)."""
+    d = os.path.join(session_dir, session_id)
+    gens = sorted(int(n[len("gen-"):-len(".bin")]) for n in os.listdir(d)
+                  if n.startswith("gen-") and n.endswith(".bin"))
+    if not gens:
+        raise FileNotFoundError(f"no session generations under {d}")
+    g = generation if generation is not None else gens[-1]
+    return os.path.join(d, f"gen-{g:06d}.bin")
+
+
+def corrupt_session(session_dir: str, session_id: str,
+                    generation: Optional[int] = None) -> str:
+    """Flip bytes in the middle of a saved session generation's payload
+    (default: the newest): the bit rot the manifest's per-leaf crc32 exists
+    to catch. The restore falls back to the previous intact generation with
+    a warning. A prefix entry has the same layout, with its key as the id.
+    Returns the damaged path."""
+    path = _session_gen_bin(session_dir, session_id, generation)
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        chunk = f.read(min(64, size - size // 2))
+        f.seek(size // 2)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+    return path
+
+
+def truncate_session(session_dir: str, session_id: str,
+                     generation: Optional[int] = None) -> str:
+    """Truncate a saved session generation's payload to half: the torn write
+    a kill mid-save leaves when it lands between the payload rename and the
+    manifest rename. Returns the damaged path."""
+    path = _session_gen_bin(session_dir, session_id, generation)
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) // 2)
+    return path
+
+
+__all__ = ["SITES", "SITE_PREFIXES", "REGIME_KINDS", "FaultPlan", "inject", "active", "fire",
+           "decode_nan_armed", "decode_slot_nan_armed", "known_site", "known_regime_prefix",
+           "add_observer", "remove_observer", "corrupt_session", "truncate_session"]

@@ -16,10 +16,18 @@ Without ``--ckpt-dir`` the weights are the seeded init (a ``Generator``
 seeded 0, as ``generate``'s CLI); bf16 configs are rounded to their compute
 dtype once (``cast_params_for_inference``) unless ``--qmode`` quantizes.
 
+Durable sessions: ``--session-dir`` with ``--session-id`` tags the prompts as
+turns of one conversation (line i as ``<id>-<i>`` when there are several);
+an empty line (or no input at all) is a continuation turn that resumes the
+saved session. The prefix cache: ``--prefix-dir``, and ``--prefix-len N``
+declares every prompt's first N tokens a shared prefix. The stores key on a
+weights identity derived as the JAX package's CLI does: ``--config``, the
+fingerprint of the ``--set`` overrides, and the checkpoint's step (or the
+init seed 0).
+
 The reference's flags for parts the port does not serve yet are accepted
 and refused with ``NotImplementedError`` naming their ROADMAP.md item when
-set: ``--session-*``, ``--max-dirty-sessions``, ``--breaker-*``,
-``--prefix-dir``, ``--prefix-len`` (A8 step 3), ``--spec-depth``,
+set: ``--spec-depth``,
 ``--spec-min-accept`` (A8 step 4), ``--tp`` (A12), ``--metrics-port``,
 ``--slo-latency-ms``, ``--slo-target``, ``--profile-dir`` (A9). The port
 computes no cost attribution (A9), so the reference's ``--no-cost`` and
@@ -39,6 +47,7 @@ from orion_tpu_torch.models.transformer import TransformerLM
 from orion_tpu_torch.resilience.preempt import PreemptionGuard
 from orion_tpu_torch.resilience.retry import RetryPolicy
 from orion_tpu_torch.serving.health import Health
+from orion_tpu_torch.serving.prefix_store import overrides_fingerprint
 from orion_tpu_torch.serving.server import (OverloadError, RejectedError, ServeConfig, Server,
                                             load_tokenizer)
 from orion_tpu_torch.serving.session import DecodeRequest
@@ -46,15 +55,6 @@ from orion_tpu_torch.utils.device import resolve_device
 
 # the reference's flags for what is not ported: (flag, type, default, item)
 _NOT_PORTED_FLAGS = (
-    ("--session-dir", str, None, "A8 step 3"),
-    ("--session-id", str, None, "A8 step 3"),
-    ("--session-idle-s", float, 300.0, "A8 step 3"),
-    ("--max-dirty-sessions", int, 32, "A8 step 3"),
-    ("--breaker-failures", int, 3, "A8 step 3"),
-    ("--breaker-backoff", float, 0.5, "A8 step 3"),
-    ("--breaker-max-backoff", float, 30.0, "A8 step 3"),
-    ("--prefix-dir", str, None, "A8 step 3"),
-    ("--prefix-len", int, 0, "A8 step 3"),
     ("--spec-depth", int, 0, "A8 step 4"),
     ("--spec-min-accept", float, 0.2, "A8 step 4"),
     ("--tp", int, 0, "A12"),
@@ -95,6 +95,37 @@ def build_argparser() -> argparse.ArgumentParser:
                         "kernels' build + one chunk")
     p.add_argument("--qmode", choices=["off", "int8", "int4"], default="off",
                    help="quantize the weights once at startup (orion_tpu_torch/quant.py)")
+    p.add_argument("--prefix-dir", default=None,
+                   help="content-addressed prefix cache root: a shared prompt prefix is one "
+                        "O(1) decode-state snapshot, so a hit admits at O(suffix); replicas "
+                        "sharing the directory share the cache. Needs --prefill-chunk > 0")
+    p.add_argument("--prefix-len", type=int, default=0,
+                   help="declare every prompt's first N tokens a shared prefix: a miss "
+                        "publishes its chunk-aligned snapshot (0 = never publish)")
+    p.add_argument("--session-dir", default=None,
+                   help="durable-session store root: conversations suspend to one snapshot at "
+                        "a turn's end (and on a SIGTERM drain) and resume bitwise across "
+                        "restarts")
+    p.add_argument("--session-id", default=None,
+                   help="tag the prompts as turns of this conversation (line i as '<id>-<i>' "
+                        "when there are several); an EMPTY line (or no input) resumes the "
+                        "saved session and continues generating")
+    p.add_argument("--session-idle-s", type=float, default=300.0,
+                   help="idle eviction of the resident session cache at chunk boundaries (the "
+                        "state stays on disk; 0 = off)")
+    p.add_argument("--max-dirty-sessions", type=int, default=32,
+                   help="write-behind bound in a session-store outage: past this many DIRTY "
+                        "sessions, new session turns shed with a retriable overload error "
+                        "(0 = no bound)")
+    p.add_argument("--breaker-failures", type=int, default=3,
+                   help="failed store operations in a row that OPEN a store's circuit "
+                        "breaker: every store touch then fails in O(1) host work, health reads "
+                        "DEGRADED 'store-outage:<store>' and requests keep serving")
+    p.add_argument("--breaker-backoff", type=float, default=0.5,
+                   help="open-breaker dwell (seconds) before the first half-open probe; "
+                        "doubles per re-trip up to --breaker-max-backoff, jittered")
+    p.add_argument("--breaker-max-backoff", type=float, default=30.0,
+                   help="probe backoff ceiling (seconds)")
     p.add_argument("--grace", type=float, default=30.0, help="SIGTERM drain budget (seconds)")
     p.add_argument("--metrics-path", default=None,
                    help="Prometheus-text metrics file (+ a .json sibling), rewritten atomically "
@@ -147,10 +178,15 @@ def main(argv=None) -> int:
 def _run(args, guard) -> int:
     retry = RetryPolicy(attempts=max(args.ckpt_attempts, 1))
     cfg = get_config(args.config)
+    overrides = {}
     if args.set:
         from orion_tpu_torch.utils.config import apply_overrides, parse_set_overrides
 
-        cfg = apply_overrides(cfg, parse_set_overrides(args.set))
+        overrides = parse_set_overrides(args.set)
+        cfg = apply_overrides(cfg, overrides)
+    # the weights' identity the stores key on, as the JAX package's CLI
+    # derives it: config, overrides, checkpoint step or init seed
+    ov = overrides_fingerprint(overrides)
     tok = load_tokenizer(args.tokenizer, retry=retry)
     eos_token = tok.eos if args.tokenizer and args.eos else -1
     device = resolve_device(args.device)
@@ -158,10 +194,12 @@ def _run(args, guard) -> int:
         model, step = load_model(cfg, args.ckpt_dir, device, attempts=args.ckpt_attempts)
         cfg = model.cfg
         print(f"serving step {step} from {args.ckpt_dir}", file=sys.stderr)
+        params_id = f"{args.config}:ov={ov}:ckpt={args.ckpt_dir}:step={step}"
     else:
         model = TransformerLM(cfg, device=device,
                               generator=torch.Generator(device=device).manual_seed(0))
         print("no --ckpt-dir: random params (smoke test)", file=sys.stderr)
+        params_id = f"{args.config}:ov={ov}:seed=0"
     if args.tokenizer and tok.vocab_size > cfg.vocab_size:
         # out-of-vocab ids would be served as garbage with status 'ok'
         raise ValueError(f"tokenizer vocab {tok.vocab_size} > model vocab {cfg.vocab_size}")
@@ -173,7 +211,13 @@ def _run(args, guard) -> int:
     else:
         with open(args.prompts_file) as f:
             lines = [ln.rstrip("\n") for ln in f]
-    lines = [ln for ln in lines if ln]
+    if args.session_id:
+        lines = lines or [""]  # an empty line is a continuation turn
+    else:
+        lines = [ln for ln in lines if ln]
+    if args.session_id and not args.session_dir:
+        print("--session-id requires --session-dir", file=sys.stderr)
+        return 2
 
     sample = SampleConfig(args.temperature, args.top_k, args.top_p, eos_token=eos_token)
     server = Server(model, ServeConfig(
@@ -181,9 +225,18 @@ def _run(args, guard) -> int:
         deadline_ms=args.deadline_ms, stall_timeout=args.stall_timeout, grace=args.grace,
         prefill_buckets=args.prefill_buckets, prefill_chunk=args.prefill_chunk,
         prompt_overflow=args.prompt_overflow, qmode=args.qmode,
+        session_dir=args.session_dir, session_idle_s=args.session_idle_s,
+        max_dirty_sessions=args.max_dirty_sessions, breaker_failures=args.breaker_failures,
+        breaker_backoff=args.breaker_backoff, breaker_max_backoff=args.breaker_max_backoff,
+        prefix_dir=args.prefix_dir, params_id=params_id,
         metrics_path=args.metrics_path, metrics_interval_s=args.metrics_interval_s,
         trace_path=args.trace_path, flight_dir=args.flight_dir))
     del model
+    if server.session_store is not None:
+        known = server.session_store.list_sessions()
+        if known:
+            print(f"session store: {len(known)} suspended session(s) restorable from "
+                  f"{args.session_dir}", file=sys.stderr)
     completed = []  # (prompt, Pending) in submission order
     rc = 0
     for i, line in enumerate(lines):
@@ -191,8 +244,12 @@ def _run(args, guard) -> int:
             print(f"draining on signal: {len(lines) - i} prompt(s) not submitted",
                   file=sys.stderr)
             break
+        sid = None
+        if args.session_id:
+            sid = args.session_id if len(lines) == 1 else f"{args.session_id}-{i}"
         req = DecodeRequest(prompt=[tok.encode(line)], max_new_tokens=args.max_new_tokens,
-                            sample=sample, seed=args.seed + i)
+                            sample=sample, seed=args.seed + i, session_id=sid,
+                            prefix_len=max(args.prefix_len, 0))
         try:
             completed.append((line, server.submit(req)))
         except OverloadError:
@@ -233,6 +290,11 @@ def _run(args, guard) -> int:
     print(f"slot occupancy: {server.occupancy_lifetime():.3f} ({args.slots} slot(s), chunk "
           f"{args.chunk}, {mode}" + (f", qmode {args.qmode}" if args.qmode != "off" else "")
           + ")", file=sys.stderr)
+    if args.prefix_dir:
+        flat = server.metrics.counters_flat()
+        print(f"prefix cache: {flat.get('prefix_hits', 0)} hit(s), "
+              f"{flat.get('prefix_misses', 0)} miss(es), {flat.get('prefix_publishes', 0)} "
+              "publish(es)", file=sys.stderr)
     if args.metrics_path:
         print(f"metrics: {args.metrics_path} (+ .json)", file=sys.stderr)
     if args.trace_path:

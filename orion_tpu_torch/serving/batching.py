@@ -40,6 +40,15 @@ evictions on it. The engine drives ``generate.py``'s slot programs:
   end (its carry row, prompt and emitted tokens as a ``SessionState``);
   ``resume`` row-writes it back at its position and key fold, so two turns
   emit what one uninterrupted request would.
+- **prefix cache** -- with a ``PrefixStore`` attached (in-scan only), an
+  admission looks its prompt up by content: a hit stages the cached row at
+  the prefix's position with the whole prompt staged, so the pieces consume
+  only the suffix (O(suffix) admission); a miss on a request that declares
+  ``prefix_len`` queues the aligned prefix, and ``publish_pending_prefixes``
+  (called between boundaries) prefills it solo and hands the state to the
+  store. The lookup is hashing and disk on the host; the hit's row goes to
+  the card as pinned asynchronous copies; the store reads the card once a
+  novel prefix, in the publish.
 
 Every op of a slot's row is row-wise, and a decode step's products run at
 one row count (``models/transformer.py``'s ``decode_rows``), so a request's
@@ -49,10 +58,11 @@ as in a one-row ``generate`` at its seed.
 The engine owns no thread and installs no handler; it reads the card once
 an attempt (the probe) and once a request (its tokens, at eviction).
 
-Left out, each with the ROADMAP.md item that brings it: the prefix store
-(``attach_prefix_store``, the lookup, stage and publish helpers) and the
-quantized serving modes (A8 step 3; the engine serves whatever model it is
-handed); the executable store (``attach_exec_store``, ``_warm_*``: A13);
+The engine serves whatever model it is handed, quantized (``generate.
+quantize_for_decode``) or not: every contract above holds per qmode.
+
+Left out, each with the ROADMAP.md item that brings it: the executable store
+(``attach_exec_store``, ``_warm_*``: A13);
 speculation (``spec_depth``, ``_update_spec_accept``, ``spec_info``: A8
 step 4); meshes and their exec lock (``mesh``, ``_TP_EXEC_LOCK``,
 ``_serialized``: A12); the compile bookkeeping (``_compile_seen``: A9 / A13;
@@ -63,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -77,6 +88,7 @@ from orion_tpu_torch.models.transformer import (DECODE_ROWS, decode_state_finite
                                                 insert_decode_slot, snapshot_decode_state)
 from orion_tpu_torch.ops.dispatch import DEFAULT_CHUNK, resolve, resolve_chunk
 from orion_tpu_torch.resilience import inject
+from orion_tpu_torch.resilience.breaker import StoreUnavailableError
 from orion_tpu_torch.serving.session import DecodeRequest, DecodeResult
 from orion_tpu_torch.serving.session_store import SessionState
 from orion_tpu_torch.utils.device import resolve_device
@@ -141,6 +153,33 @@ def _stage_prompt_carry(carry, keys, plen, pfold, pbuf, row: Tensor, key: List[i
     plen[i] = length
     pfold[i] = fold
     pbuf[i] = row
+
+
+def _stage_prefix_carry(carry, keys, plen, pfold, pbuf, st1, row: Tensor, key: List[int], i: int,
+                        length: int, fold: int, t0: int) -> None:
+    """In-scan admission of slot ``i`` on a prefix-cache hit, in place: the
+    cached prefix's state row ``st1`` (batch 1) at position ``t0 =
+    len(prefix)``, the WHOLE padded prompt parked in the staging buffer and
+    ``plen`` its whole length, so the unified program consumes from ``t0``:
+    exactly the uncached suffix."""
+    token, states, t, emit, done = carry
+    insert_decode_slot(states, st1, i)
+    token[i] = 0
+    t[i] = t0
+    emit[i] = fold
+    done[i] = False
+    keys[i, 0], keys[i, 1] = key
+    plen[i] = length
+    pfold[i] = fold
+    pbuf[i] = row
+
+
+def _host_tokens(prompt) -> np.ndarray:
+    """A request's prompt as host token ids [1, T] (the Server hands host
+    arrays; a tensor on the card would be read here)."""
+    if isinstance(prompt, torch.Tensor):
+        prompt = prompt.detach().cpu()
+    return np.asarray(prompt).reshape(1, -1)
 
 
 def _restart_prefill_row(carry, i: int) -> None:
@@ -239,7 +278,8 @@ class SlotEngine:
     ``prompt_overflow``: a prompt past the largest bucket is refused
     (``"error"``) or cut to its newest tokens (``"clamp"``). ``on_event(kind,
     fields)``: a host-only telemetry tap (admissions, pieces, ladder rungs,
-    evictions)."""
+    evictions, prefix hits, misses, publishes and drops). ``prefix_store``:
+    a ``PrefixStore`` to attach (``attach_prefix_store``)."""
 
     def __init__(
         self,
@@ -252,6 +292,7 @@ class SlotEngine:
         prefill_chunk: int = 0,
         prompt_overflow: str = "error",
         on_event: Optional[Callable[[str, dict], None]] = None,
+        prefix_store: Optional[Any] = None,
         device=None,
     ):
         if slots <= 0 or chunk <= 0:
@@ -291,6 +332,16 @@ class SlotEngine:
                  else DEFAULT_CHUNK)
             self.prefill_chunk = -(-int(prefill_chunk) // c) * c
             self.chunk_align = c
+        self.prefix_store = None
+        if prefix_store is not None:
+            self.attach_prefix_store(prefix_store)
+        self._pending_prefix: List[Tuple[str, np.ndarray]] = []  # (key, tokens [1, L])
+        # the publish queue is bounded: during a store outage novel prefixes
+        # keep arriving and nothing drains; past the cap a prefix is dropped
+        # (counted, a prefix_drop event): a later cold prefill, never a
+        # wrong answer
+        self.max_pending_prefixes = 32
+        self.dropped_prefixes = 0
         self._sample: Optional[SampleConfig] = None  # set by the first admission
         self._slots: List[Optional[_Slot]] = [None] * self.slots
         self._chunk_counter = 0  # global boundary index (the serve.chunk hook)
@@ -316,6 +367,21 @@ class SlotEngine:
     def _emit(self, kind: str, **fields) -> None:
         if self._on_event is not None:
             self._on_event(kind, fields)
+
+    def attach_prefix_store(self, store) -> None:
+        """Wire a :class:`~orion_tpu_torch.serving.prefix_store.PrefixStore`.
+        It needs in-scan prefill (a hit stages the cached state and the
+        pieces consume the suffix) and entries aligned on this engine's
+        linear-attention chunk."""
+        if not self.prefill_chunk:
+            raise ValueError("the prefix cache rides in-scan prefill (a hit stages the cached "
+                             "state and the pieces consume only the suffix); set prefill_chunk "
+                             "> 0 or drop the prefix store")
+        if store.align % self.chunk_align != 0:
+            raise ValueError(f"prefix store alignment {store.align} is not a multiple of the "
+                             f"linear-attention chunk {self.chunk_align}: entries at non-chunk "
+                             "positions cannot extend bitwise")
+        self.prefix_store = store
 
     # -- occupancy ------------------------------------------------------------
 
@@ -405,8 +471,17 @@ class SlotEngine:
         seed = request.seed if seed is None else seed
         key = _key_row(seed)
         dprompt = _host_to(prompt, self.device, torch.long)
+        remaining = prompt.shape[1] if self.prefill_chunk else 0
         if self.prefill_chunk:
-            self._stage_inscan(i, dprompt, key, sample_index)
+            # with a prefix store, a content hit stages the cached state row
+            # at its position, and the pieces consume only the suffix
+            entry = self._prefix_lookup(request, prompt.shape[1], tag)
+            if entry is not None:
+                self._stage_prefix(i, dprompt, key, sample_index, entry)
+                remaining = prompt.shape[1] - entry.t
+            else:
+                self._stage_inscan(i, dprompt, key, sample_index)
+                self._queue_prefix_publish(request, prompt.shape[1])
         else:
             self._keys[i, 0], self._keys[i, 1] = key  # the free slot's row: the prefill's key
             sub = prefill_carry(self.model, dprompt, self._sample, self._keys[i:i + 1],
@@ -414,8 +489,7 @@ class SlotEngine:
             self._insert(i, sub, key, n_emitted=sample_index)
         self._occupy(i, _Slot(
             request=request, tag=tag, deadline_at=deadline_at, prompt=dprompt, toks=[],
-            prompt_remaining=prompt.shape[1] if self.prefill_chunk else 0,
-            session_id=session_id, seed=int(seed), target_new=request.max_new_tokens,
+            prompt_remaining=remaining, session_id=session_id, seed=int(seed), target_new=request.max_new_tokens,
             fold_base=sample_index))
         self._emit("admit", slot=i, tag=tag, staged=bool(self.prefill_chunk),
                    prompt_len=int(prompt.shape[1]), session=session_id)
@@ -459,6 +533,133 @@ class SlotEngine:
         row = self._staged_row(prompt)
         _stage_prompt_carry(self._carry, self._keys, self._plen, self._pfold, self._pbuf, row,
                             key, i, prompt.shape[1], sample_index)
+
+    # -- the content-addressed prefix cache (serving/prefix_store.py) ------------------
+    # This side of the store is hashing, disk and row writes: the store owns
+    # the one read of the card (the publish's copy of the state to the host).
+
+    def _prefix_lookup(self, request: DecodeRequest, prompt_len: int, tag):
+        """The longest cached aligned prefix of the request's prompt, or None.
+        It keys off the REQUEST's host tokens; a clamped prompt (overflow
+        mode: the served tokens are not the submitted ones) skips the lookup
+        and counts as a miss."""
+        if self.prefix_store is None:
+            return None
+        raw = _host_tokens(request.prompt)
+        if raw.shape[1] != prompt_len:
+            self._emit("prefix_miss", tag=tag, prompt_len=int(prompt_len), clamped=True)
+            return None
+        entry = self.prefix_store.lookup(raw, declared=max(request.prefix_len, 0))
+        if entry is not None and entry.t % max(self.chunk_align, 1) != 0:
+            entry = None  # another alignment: unusable for the in-scan pieces
+        if entry is None:
+            self._emit("prefix_miss", tag=tag, prompt_len=int(prompt_len))
+            return None
+        self._emit("prefix_hit", tag=tag, prefix_len=int(entry.t),
+                   suffix=int(prompt_len) - int(entry.t), key=entry.key,
+                   generation=int(entry.generation))
+        return entry
+
+    def _stage_prefix(self, i: int, prompt: Tensor, key: List[int], sample_index: int,
+                      entry) -> None:
+        """O(suffix) admission on a hit: the WHOLE prompt is staged (the
+        ladder's restart rung replays from scratch) but the row starts at
+        ``t = entry.t`` with the cached state, copied to the card pinned and
+        asynchronously."""
+        row = self._staged_row(prompt)
+        st1 = [{k: _host_to(v, self.device) for k, v in st.items()} for st in entry.state]
+        _stage_prefix_carry(self._carry, self._keys, self._plen, self._pfold, self._pbuf, st1,
+                            row, key, i, prompt.shape[1], sample_index, int(entry.t))
+
+    def _queue_prefix_publish(self, request: DecodeRequest, prompt_len: int) -> None:
+        """A miss on a request DECLARING a shared prefix queues the aligned
+        prefix for publication (deduplicated by key; skipped when an entry
+        is committed already). The prefill and the write run in
+        :meth:`publish_pending_prefixes`, off the admission path."""
+        if self.prefix_store is None or request.prefix_len <= 0:
+            return
+        pub = self.prefix_store.publish_length(prompt_len, request.prefix_len)
+        if pub <= 0:
+            return
+        row = _host_tokens(request.prompt)[:, :pub]
+        key = self.prefix_store.key_for(row)
+        if any(k == key for k, _ in self._pending_prefix):
+            return
+        br = self.prefix_store.breaker
+        # during an outage no disk probe on the admission path: queue blind;
+        # the publish pass checks for the entry again after recovery
+        if br is None or not br.is_open:
+            try:
+                if self.prefix_store.generations(key):
+                    return  # committed already (here or by another replica)
+            except StoreUnavailableError:
+                pass  # the breaker tripped mid-check: queue blind
+        if len(self._pending_prefix) >= self.max_pending_prefixes:
+            self.dropped_prefixes += 1
+            self._emit("prefix_drop", key=key, dropped_total=self.dropped_prefixes)
+            return
+        self._pending_prefix.append((key, row))
+
+    @property
+    def has_pending_prefixes(self) -> bool:
+        """Queued publishes awaiting :meth:`publish_pending_prefixes` (the
+        Server beats its watchdog before it publishes)."""
+        return bool(self._pending_prefix)
+
+    @property
+    def pending_prefix_count(self) -> int:
+        """The bounded publish queue's depth."""
+        return len(self._pending_prefix)
+
+    @torch.inference_mode()
+    def publish_pending_prefixes(self) -> int:
+        """Publish the queued prefixes -> how many entries were written: each
+        prefilled solo (``prefill_carry``, rows 1 and 6 on the card) and its
+        state handed to the store, which copies it to the host. The prefill
+        runs at the prefix's exact length, not its bucket: a bucket's padding
+        would run the products at another row count, which on the card
+        rounds apart from the pieces a cold request runs. A failed publish
+        degrades to "not cached" with a warning; with the breaker open the
+        entry waits in the queue for recovery.
+
+        This runs between boundaries, so the first declared novel prefix
+        stalls the resident slots for one solo prefill, once per prefix and
+        store; it cannot ride the cold request's own pieces (they advance
+        ``t`` by ``prefill_chunk``, so the scan's state never sits at the
+        declared length, and the publish must not change the pieces)."""
+        done = 0
+        br = self.prefix_store.breaker
+        if br is not None and br.blocked():
+            return 0  # an outage, the probe not due: the queue waits
+        while self._pending_prefix:
+            key, row = self._pending_prefix.pop(0)
+            try:
+                if self.prefix_store.generations(key):
+                    continue  # another replica committed it since
+                keys = request_keys(0, 1, self.device)
+                carry = prefill_carry(self.model, _host_to(row, self.device, torch.long),
+                                      self._sample, keys)
+                gen = self.prefix_store.publish(row, carry[1])
+                if gen is None:
+                    continue  # raced: a peer committed it mid-prefill
+                done += 1
+                self._emit("prefix_publish", key=key, length=int(row.shape[1]), generation=gen)
+            except StoreUnavailableError:
+                # the breaker is open (or the probe this pass rode failed):
+                # requeue and stop; it publishes after recovery
+                self._pending_prefix.insert(0, (key, row))
+                break
+            except Exception as e:
+                if br is not None and br.is_open:
+                    # this failure tripped the breaker: keep the entry, its
+                    # retry is the probe that closes the breaker
+                    self._pending_prefix.insert(0, (key, row))
+                    warnings.warn(f"prefix publish failed ({type(e).__name__}); store breaker "
+                                  "open -- entry queued for recovery", stacklevel=2)
+                    break
+                warnings.warn(f"prefix publish failed ({type(e).__name__}: {e}); serving "
+                              "continues uncached", stacklevel=2)
+        return done
 
     @torch.inference_mode()
     def resume(self, sess: SessionState, request: DecodeRequest, tag: Any = None,

@@ -85,6 +85,7 @@ _TRACE = "orion_tpu_torch/obs/trace.py"
 _FLIGHT = "orion_tpu_torch/obs/flight.py"
 _WATCHDOG = "orion_tpu_torch/resilience/watchdog.py"
 _INJECT = "orion_tpu_torch/resilience/inject.py"
+_BREAKER = "orion_tpu_torch/resilience/breaker.py"
 
 LOCKS: Dict[str, LockDecl] = {
     decl.name: decl
@@ -165,6 +166,24 @@ LOCKS: Dict[str, LockDecl] = {
             ),
         ),
         LockDecl(
+            name="breaker.lock",
+            site=LockSite(_BREAKER, "CircuitBreaker", "_lock"),
+            kind="Lock",
+            note="a store's circuit breaker: state, window and probe bookkeeping "
+            "only. It sits on every store syscall's fast path (blocked() in each "
+            "_io_* helper) and on the scheduler's per-boundary outage check, so "
+            "its held scope is one branch and a clock read; transition "
+            "observers (flight ring, metrics, the health latch) run after "
+            "release, and store I/O never runs under it.",
+            guards=(
+                GuardedField(
+                    _BREAKER, "CircuitBreaker",
+                    ("_state", "_consec", "_trips", "_probe_at", "_opened_at",
+                     "_open_count", "_last_reason"),
+                    note="operations on any thread sample the breaker"),
+            ),
+        ),
+        LockDecl(
             name="inject.plan",
             site=LockSite(_INJECT, "FaultPlan", "_lock"),
             kind="Lock",
@@ -184,6 +203,10 @@ ORDER: Tuple[Tuple[str, str], ...] = (
     # flight.record from code holding the stats lock is legal; a flight path
     # taking the stats lock back is not
     ("server.stats", "obs.flight"),
+    # a metrics scrape evaluates the breaker_state gauge (which reads the
+    # breaker's state under its lock) while holding the registry lock; the
+    # reverse never happens: breaker observers run after release
+    ("server.stats", "breaker.lock"),
 )
 
 

@@ -28,6 +28,27 @@ boundaries.
   than the resident batch's) or whose slot exhausts the per-slot ladder
   becomes an error / failed RESULT on its Pending; the slots beside it keep
   streaming and the process never dies for one request.
+- **durable sessions** -- with ``session_dir`` set, a request carrying a
+  ``session_id`` is a conversation turn: its decode state is suspended at the
+  turn's end as one O(1) snapshot (written through to the integrity-
+  manifested :class:`~orion_tpu_torch.serving.session_store.SessionStore`, an
+  LRU-capped host cache in front, idle eviction at chunk boundaries), and a
+  later turn resumes it bitwise as if the slot had stayed resident, across
+  restarts. A SIGTERM drain SUSPENDS resident sessions instead of decoding
+  their remaining tokens; a corrupt session fails only its own request.
+- **prefix cache** -- with ``prefix_dir`` set, admissions look their prompt
+  up in the content-addressed
+  :class:`~orion_tpu_torch.serving.prefix_store.PrefixStore` (a hit admits at
+  O(suffix)); a miss that declares ``prefix_len`` queues a publish, run
+  between boundaries with a watchdog beat.
+- **storage failure domains** -- each store has its own circuit breaker
+  (``breaker_*``). An open breaker fails every store touch in O(1) host work
+  and latches health DEGRADED with reason ``store-outage:<store>``; requests
+  keep serving (a prefix lookup is a cold prefill, a session save becomes a
+  DIRTY write-behind pin retried at boundaries, at most
+  ``max_dirty_sessions`` before new session turns shed retriably). Recovery
+  needs the breakers closed AND the dirty backlog saved; a drain holds dirty
+  sessions until its grace deadline, then names them and exits 0.
 - **telemetry** -- a per-server ``MetricsRegistry`` (the ``stats`` counters,
   ``chunk_ms``, ``turn_latency_ms``, ladder and health counters, queue and
   slot gauges), a ``Tracer`` (request and queue spans, one complete event
@@ -39,23 +60,20 @@ boundaries.
 
 ``ServeConfig.qmode`` quantizes the handed model once at construction
 (``generate.quantize_for_decode``); every slot then shares the int8 / int4
-weights. The server runs on the model's device (the card unless the model
-is on the CPU).
+weights, and both stores key on the weights' identity (``params_id`` +
+qmode). The server runs on the model's device (the card unless the model is
+on the CPU).
 
 Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item when its ``ServeConfig`` field is set: durable sessions and their
-store, breakers and dirty write-behind (``session_dir``, ``session_*``,
-``max_resident_sessions``, ``max_dirty_sessions``, ``breaker_*``) and the
-prefix cache (``prefix_dir``, ``prefix_keep``, ``params_id``): A8 step 3;
-speculation (``spec_depth``, ``spec_min_accept``): A8 step 4; tensor-parallel
-serving (``tp``, ``mesh_audit``): A12; cost attribution and capacity
-(``cost``, ``cost_ledger``, ``capacity_window_s``), SLOs (``slo``,
-``slo_degrade_ticks``), the live HTTP endpoints (``metrics_port``) and
-on-demand profiling (``profile_dir``): A9; the executable store
-(``exec_dir``, ``exec_local_dir``, ``exec_max_resident``): A13. A request
-carrying a ``session_id`` is refused at admission as the reference refuses
-it without a session store. ``cost`` and ``mesh_audit`` default to False
-here (True in the reference): the port computes neither.
+item when its ``ServeConfig`` field is set: speculation (``spec_depth``,
+``spec_min_accept``): A8 step 4; tensor-parallel serving (``tp``,
+``mesh_audit``): A12; cost attribution and capacity (``cost``,
+``cost_ledger``, ``capacity_window_s``), SLOs (``slo``,
+``slo_degrade_ticks``), the live HTTP endpoints (``metrics_port``, and with
+them ``/healthz`` and ``/statusz``) and on-demand profiling
+(``profile_dir``): A9; the executable store (``exec_dir``,
+``exec_local_dir``, ``exec_max_resident``): A13. ``cost`` and ``mesh_audit``
+default to False here (True in the reference): the port computes neither.
 """
 
 from __future__ import annotations
@@ -68,6 +86,7 @@ import threading
 import time
 import uuid
 import warnings
+from collections import OrderedDict
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -77,18 +96,20 @@ from orion_tpu_torch.generate import quantize_for_decode
 from orion_tpu_torch.obs.flight import FlightRecorder
 from orion_tpu_torch.obs.metrics import MetricsRegistry
 from orion_tpu_torch.obs.trace import Tracer
+from orion_tpu_torch.resilience.breaker import CircuitBreaker, StoreUnavailableError
 from orion_tpu_torch.resilience.inject import fire
 from orion_tpu_torch.resilience.preempt import PreemptionGuard
 from orion_tpu_torch.resilience.retry import RetryPolicy, call_with_retries
 from orion_tpu_torch.resilience.watchdog import Watchdog
 from orion_tpu_torch.serving.batching import SlotEngine, parse_buckets
 from orion_tpu_torch.serving.health import Health, HealthMachine
+from orion_tpu_torch.serving.prefix_store import PrefixStore, params_identity
 from orion_tpu_torch.serving.session import DecodeRequest, DecodeResult
+from orion_tpu_torch.serving.session_store import SessionState, SessionStore
 from orion_tpu_torch.utils.device import resolve_device
 
 # the Server.stats contract: these counter names, unlabelled, as one flat
-# dict read from the metrics registry's cells (the session counters stay 0
-# until the session store is ported)
+# dict read from the metrics registry's cells
 _STAT_KEYS = (
     "admitted", "shed", "rejected",
     "ok", "deadline", "failed",
@@ -101,10 +122,6 @@ _STAT_KEYS = (
 # the ROADMAP.md item that brings each; a value other than the default
 # raises at construction
 _NOT_PORTED = {
-    **dict.fromkeys(("session_dir", "session_idle_s", "max_resident_sessions", "session_keep",
-                     "max_dirty_sessions", "breaker_failures", "breaker_backoff",
-                     "breaker_max_backoff", "prefix_dir", "prefix_keep", "params_id"),
-                    "A8 step 3"),
     **dict.fromkeys(("spec_depth", "spec_min_accept"), "A8 step 4"),
     **dict.fromkeys(("tp", "mesh_audit"), "A12"),
     **dict.fromkeys(("cost", "cost_ledger", "capacity_window_s", "slo", "slo_degrade_ticks",
@@ -150,21 +167,38 @@ class ServeConfig:
     trace_path: Optional[str] = None
     # flight-recorder dumps land here; None = ring only, no dumps
     flight_dir: Optional[str] = None
-    # -- not ported: a value other than these raises (see _NOT_PORTED) --
+    # -- the content-addressed prefix cache (serving/prefix_store.py); None =
+    # off. Needs in-scan prefill (prefill_chunk > 0): a hit admits as one
+    # cached row plus the in-scan prefill of the suffix. Shared by every
+    # replica pointing at the directory.
     prefix_dir: Optional[str] = None
-    prefix_keep: int = 2
+    prefix_keep: int = 2  # generations kept per prefix entry
+    # the WEIGHTS' identity the stores key on (config + checkpoint step or
+    # init seed); None = a config hash (params_identity), fine for one model
+    # a store; pin it when several checkpoints of one config share a store
     params_id: Optional[str] = None
+    # -- durable sessions (serving/session_store.py); None = off --
+    session_dir: Optional[str] = None  # the session store's root
+    session_idle_s: float = 300.0  # resident-cache idle eviction (0 = off)
+    max_resident_sessions: int = 64  # LRU cap of the host-resident cache
+    session_keep: int = 2  # generations kept per session on disk
+    # -- storage failure domains (resilience/breaker.py): one breaker a
+    # store; after breaker_failures failed operations in a row it opens and
+    # every store touch fails in O(1) host work until a jittered backoff ends
+    # and one half-open probe tests the store. An open breaker reports health
+    # DEGRADED "store-outage:<store>"; requests keep serving.
+    breaker_failures: int = 3
+    breaker_backoff: float = 0.5  # open dwell before the first probe
+    breaker_max_backoff: float = 30.0  # probe backoff ceiling
+    # write-behind bound in a session-store outage: past this many DIRTY
+    # sessions (their save failed; the resident copy is the only current
+    # one), NEW session turns shed with a retriable OverloadError. 0 = no
+    # bound
+    max_dirty_sessions: int = 32
+    # -- not ported: a value other than these raises (see _NOT_PORTED) --
     exec_dir: Optional[str] = None
     exec_local_dir: Optional[str] = None
     exec_max_resident: int = 32
-    session_dir: Optional[str] = None
-    session_idle_s: float = 300.0
-    max_resident_sessions: int = 64
-    session_keep: int = 2
-    breaker_failures: int = 3
-    breaker_backoff: float = 0.5
-    breaker_max_backoff: float = 30.0
-    max_dirty_sessions: int = 32
     metrics_port: int = -1
     slo: Optional[tuple] = None
     slo_degrade_ticks: int = 3
@@ -273,6 +307,11 @@ class Server:
         if self.qmode != "off":
             model = quantize_for_decode(model, self.qmode)
         self.device = model.device if device is None else resolve_device(device)
+        # the weights' identity stamps both stores: prefix entries are keyed
+        # by it and session generations carry it (a state resumed under other
+        # weights or another qmode would silently diverge)
+        self.params_id = cfg.params_id or params_identity(model.cfg, self.qmode)
+        self._weights_identity = f"{self.params_id}|{self.qmode}"
         # ONE reentrant lock guards the metrics registry AND the health
         # machine: snapshot() reads both under a single acquisition, so a
         # poller never sees a torn (health, occupancy) pair
@@ -286,6 +325,8 @@ class Server:
             clock=clock, dump_dir=cfg.flight_dir)
         self._h_chunk_ms = self.metrics.histogram("chunk_ms")
         self._h_turn_ms = self.metrics.histogram("turn_latency_ms")
+        self._h_session_save_ms = self.metrics.histogram("session_save_ms")
+        self._h_session_load_ms = self.metrics.histogram("session_load_ms")
         self._c_ladder = self.metrics.counter("ladder_rungs")
         self._c_health = self.metrics.counter("health_transitions")
         self._rid_seq = 0
@@ -300,10 +341,57 @@ class Server:
             prefill_buckets=parse_buckets(cfg.prefill_buckets, model.cfg.max_seq_len),
             prefill_chunk=cfg.prefill_chunk, prompt_overflow=cfg.prompt_overflow,
             on_event=self._on_engine_event, device=self.device)
+        # the prefix cache: entries aligned on the engine's linear-attention
+        # chunk, so a hit's suffix pieces replay the cold request's
+        self.prefix_store: Optional[PrefixStore] = None
+        self._c_prefix_hits = self.metrics.counter("prefix_hits")
+        self._c_prefix_misses = self.metrics.counter("prefix_misses")
+        self._c_prefix_publishes = self.metrics.counter("prefix_publishes")
+        self._c_prefix_bytes = self.metrics.counter("prefix_bytes")
+        self._h_prefix_load_ms = self.metrics.histogram("prefix_load_ms")
+        self._h_prefix_save_ms = self.metrics.histogram("prefix_save_ms")
+        # storage failure domains: one breaker a store, on the server's
+        # clock, each transition into the flight ring
+        self._breakers: Dict[str, CircuitBreaker] = {}
+        self._c_store_errors = self.metrics.counter("store_errors")
+        self._c_prefix_drops = self.metrics.counter("prefix_publish_drops")
+        if cfg.prefix_dir:
+            self.prefix_store = PrefixStore(
+                cfg.prefix_dir, params_id=self.params_id, qmode=self.qmode,
+                align=max(self.engine.chunk_align, 1), keep=cfg.prefix_keep,
+                should_abort=lambda: not self.health.accepting, observer=self._on_prefix_io,
+                clock=clock, breaker=self._make_breaker("prefix"))
+            self.engine.attach_prefix_store(self.prefix_store)
+        # durable sessions: a write-through disk store with a host-resident
+        # LRU cache in front (a resident entry is always on disk too, unless
+        # DIRTY, so eviction is cache management and an eviction racing a
+        # continuation degrades to a disk read)
+        self.session_store: Optional[SessionStore] = None
+        if cfg.session_dir:
+            self.session_store = SessionStore(
+                cfg.session_dir, keep=cfg.session_keep,
+                # a draining / dead server must not spend its grace on backoff
+                should_abort=lambda: not self.health.accepting, observer=self._on_store_io,
+                clock=clock, identity=self._weights_identity,
+                breaker=self._make_breaker("session"))
+        self._sessions: "OrderedDict[str, SessionState]" = OrderedDict()
+        self._session_last_use: Dict[str, float] = {}
+        self._active_sessions: set = set()  # ids resident in engine slots
+        # ids whose last save FAILED: the resident copy is the only current
+        # one, so eviction must not drop them; the tick retries their save
+        self._dirty_sessions: set = set()
+        self._dirty_retry_at = 0.0
+        # the SIGTERM drain's deadline (set on entering DRAINING): a drain
+        # with dirty sessions holds them until then, then names them and
+        # exits 0
+        self._drain_deadline = 0.0
         # gauges evaluated at scrape time from live host state
         self.metrics.gauge_fn("queue_depth", self._q_depth)
         for key in ("active", "free", "prefilling", "decoding"):
             self.metrics.gauge_fn("slots", self._slot_gauge(key), labels={"state": key})
+        self.metrics.gauge_fn("sessions_resident", lambda: len(self._sessions))
+        self.metrics.gauge_fn("sessions_in_slots", lambda: len(self._active_sessions))
+        self.metrics.gauge_fn("dirty_backlog", lambda: len(self._dirty_sessions))
         self._q: "queue.Queue[Pending]" = queue.Queue(maxsize=cfg.max_inflight)
         self._guard: Optional[PreemptionGuard] = None
         # makes (accepting check -> enqueue) atomic against the drain
@@ -331,20 +419,113 @@ class Server:
     def _slot_gauge(self, key: str) -> Callable[[], int]:
         return lambda: self.engine.occupancy()[key]
 
+    def _on_store_io(self, op: str, ms: float) -> None:
+        (self._h_session_save_ms if op == "save" else self._h_session_load_ms).observe(ms)
+
+    def _on_prefix_io(self, op: str, ms: float, nbytes: int) -> None:
+        (self._h_prefix_save_ms if op == "save" else self._h_prefix_load_ms).observe(ms)
+        self._c_prefix_bytes.inc(nbytes, labels={"op": op})
+
+    # -- storage failure domains -----------------------------------------------
+
+    _BREAKER_GAUGE = {"closed": 0, "half_open": 1, "open": 2}
+
+    def _make_breaker(self, name: str) -> CircuitBreaker:
+        """One circuit breaker a store, on the server's clock, registered for
+        the health latch, the snapshot and the ``breaker_state`` gauge. Its
+        observer runs outside the breaker lock."""
+        br = CircuitBreaker(name, consecutive_failures=max(self.cfg.breaker_failures, 1),
+                            backoff=self.cfg.breaker_backoff,
+                            max_backoff=self.cfg.breaker_max_backoff, clock=self._clock,
+                            observer=self._on_breaker)
+        self._breakers[name] = br
+        self.metrics.gauge_fn("breaker_state", lambda b=br: self._BREAKER_GAUGE[b.state],
+                              labels={"store": name})
+        return br
+
+    def _on_breaker(self, name: str, old: str, new: str, reason: str) -> None:
+        """Breaker transition tap: every edge into the flight ring; a trip
+        counts one ``store_errors``."""
+        self.flight.record("breaker", store=name, frm=old, to=new, reason=reason)
+        if new == "open":
+            self._c_store_errors.inc(labels={"store": name})
+
+    def _store_outage(self) -> Optional[str]:
+        """The name of a store whose breaker is not known-good (open or
+        probing), or None."""
+        for name, br in self._breakers.items():
+            if br.is_open:
+                return name
+        return None
+
+    def _store_outage_latched(self) -> bool:
+        """Must DEGRADED stay latched for storage? While a breaker is open,
+        or while the dirty backlog of a store outage is unsaved: recovery to
+        SERVING needs the store back AND every turn it missed on disk."""
+        if self._store_outage() is not None:
+            return True
+        return self.health.reason.startswith("store-outage:") and bool(self._dirty_sessions)
+
+    def _tick_store_health(self) -> None:
+        """Chunk-boundary storage health: an open breaker moves SERVING ->
+        DEGRADED with reason ``store-outage:<store>`` (a fresh process would
+        meet the same dead store: not a reason to respawn); breakers closed
+        and the dirty backlog saved recover to SERVING."""
+        self._probe_idle_breakers()
+        name = self._store_outage()
+        if name is not None:
+            reason = f"store-outage:{name}"
+            self._degrade(reason)
+            if (self.health.state is Health.DEGRADED
+                    and not self.health.reason.startswith("store-outage:")):
+                # DEGRADED already under a blunter reason (the failed save
+                # that tripped the breaker): sharpen it
+                self.health.restate(reason)
+        elif (self.health.state is Health.DEGRADED
+              and self.health.reason.startswith("store-outage:")
+              and not self._dirty_sessions):
+            self.health.to(Health.SERVING, "store recovered; dirty backlog drained")
+
+    def _probe_idle_breakers(self) -> None:
+        """Recovery evidence for an outage with no traffic: an open
+        breaker's probe normally rides real store work (the dirty-save retry,
+        a lookup or a queued publish); a breaker that tripped with none
+        pending gets one half-open directory scan per dwell here. Stores
+        whose natural probe is pending are skipped."""
+        probes = []
+        if self.prefix_store is not None and not self.engine.pending_prefix_count:
+            probes.append(("prefix", self.prefix_store.list_keys))
+        if self.session_store is not None and not self._dirty_sessions:
+            probes.append(("session", self.session_store.list_sessions))
+        for name, scan in probes:
+            br = self._breakers.get(name)
+            if br is None or not br.is_open or not br.allow():
+                continue
+            try:
+                scan()
+            except OSError as e:
+                br.record_failure(f"probe: {type(e).__name__}: {e}")
+            else:
+                br.record_success()
+
     def _on_health(self, old, new, reason: str) -> None:
         """HealthMachine transition tap (after the machine released the
         shared lock): a flight event and a counter; DEGRADED, DRAINING and
-        DEAD dump the flight recorder."""
+        DEAD dump the flight recorder. Entering DRAINING anchors the drain's
+        deadline (a drain holding dirty sessions retries until then)."""
         self.flight.record("health", frm=old.value if old else None, to=new.value,
                            reason=reason)
         self._c_health.inc(labels={"to": new.value})
+        if new is Health.DRAINING:
+            self._drain_deadline = self._clock() + self.cfg.grace
         if new in (Health.DEGRADED, Health.DRAINING, Health.DEAD):
             self.flight.dump(f"health-{new.value}")
 
     def _on_engine_event(self, kind: str, fields: dict) -> None:
-        """SlotEngine tap (admit, resume, prefill_piece, ladder, evict):
-        recorded to the flight ring with the tag swapped for the request's
-        trace id; ladder rungs counted and traced, admissions traced."""
+        """SlotEngine tap (admit, resume, prefill_piece, ladder, evict and
+        the prefix events): recorded to the flight ring with the tag swapped
+        for the request's trace id; ladder rungs counted and traced,
+        admissions and prefix hits traced, prefix events counted."""
         tag = fields.pop("tag", None)
         rid = getattr(tag, "rid", None)
         if rid is not None:
@@ -357,6 +538,18 @@ class Server:
         elif kind in ("admit", "resume"):
             self.trace.instant(kind, id=rid, session=fields.get("session"),
                                slot=fields.get("slot"))
+        elif kind == "prefix_hit":
+            self._c_prefix_hits.inc()
+            self.trace.instant("prefix_hit", id=rid, prefix_len=fields.get("prefix_len"),
+                               suffix=fields.get("suffix"))
+        elif kind == "prefix_miss":
+            self._c_prefix_misses.inc()
+        elif kind == "prefix_publish":
+            self._c_prefix_publishes.inc()
+        elif kind == "prefix_drop":
+            # the bounded publish queue dropped a novel prefix in an outage:
+            # a later cold prefill, never a wrong answer
+            self._c_prefix_drops.inc()
 
     # -- admission -----------------------------------------------------------
 
@@ -428,11 +621,35 @@ class Server:
                 while True:
                     self._maybe_drain(guard)
                     draining = self.health.state is Health.DRAINING
+                    if draining:
+                        # sessions do not hold the drain: every resident
+                        # session slot is SUSPENDED at this boundary (one
+                        # snapshot each, saved before its result is
+                        # released); sessionless slots drain to completion
+                        for pending, result in self.engine.suspend_sessions():
+                            self._complete(pending, result)
+                    self._tick_sessions()
+                    self._tick_store_health()
                     self._tick_metrics()
                     self._admit_from_queue(wd)
+                    if self.prefix_store is not None and self.engine.has_pending_prefixes:
+                        # a declared miss's publish: a solo prefill and a
+                        # write, once a novel prefix, off the admission path;
+                        # beat first, as admission does
+                        if wd is not None:
+                            wd.beat("prefix publish")
+                        self.engine.publish_pending_prefixes()
                     if not self.engine.busy:
                         if (draining or drain_when_idle) and self._q.empty():
-                            break
+                            if not (draining and self._dirty_sessions
+                                    and self._clock() < self._drain_deadline):
+                                break
+                            # a drain in a store outage: DIRTY sessions are
+                            # the only current copy of their conversations;
+                            # hold them through the grace window, retrying
+                            # their saves on the breaker's probes
+                            time.sleep(min(max(cfg.poll, 0.001), 0.05))
+                            continue
                         try:
                             pending = self._q.get(timeout=cfg.poll)
                         except queue.Empty:
@@ -458,6 +675,19 @@ class Server:
                     self._maybe_drain(guard)
                     if self.health.state is Health.DRAINING:
                         self._reject_leftovers()
+                        if self._dirty_sessions:
+                            # the grace window ran out with saves still
+                            # failing: name the sessions whose last turn
+                            # lives only in this process's memory; the drain
+                            # itself completed, so the exit stays 0
+                            lost = sorted(self._dirty_sessions)
+                            self.flight.record("drain_dirty", count=len(lost),
+                                               sessions=lost[:16])
+                            warnings.warn(
+                                f"drain exiting with {len(lost)} dirty session(s) unsaved: "
+                                f"{lost[:16]} -- the store outage outlasted the grace window; "
+                                "their last turn is lost if this process's memory goes away",
+                                stacklevel=2)
                         self.health.to(Health.DEAD, "drained")
                 self._tick_metrics(force=True)
                 self.trace.flush()
@@ -517,17 +747,200 @@ class Server:
             return
         try:
             if pending.request.session_id is not None:
-                raise ValueError("request carries a session_id but durable sessions are not "
-                                 "ported to orion_tpu_torch yet (ROADMAP.md queue A, A8 step 3)")
-            self.engine.admit(pending.request, tag=pending, deadline_at=deadline_at)
+                self._admit_session(pending, deadline_at)
+            else:
+                self.engine.admit(pending.request, tag=pending, deadline_at=deadline_at)
+        except (OverloadError, StoreUnavailableError) as e:
+            # a RETRIABLE shed, not a failure: the session store is down (a
+            # session not resident needs a disk read nothing can serve now)
+            # or the dirty backlog is at its bound; the conversation's last
+            # committed generation is intact, so the caller retries later or
+            # on a replica that holds the session resident
+            pending.error = e if isinstance(e, OverloadError) else OverloadError(
+                f"retriable: {e}")
+            self._bump("shed")
+            self.flight.record("session_shed", req=pending.rid, why=str(e))
+            self._finalize(pending, "shed")
         except Exception as e:
             # request isolation: an unadmittable request is an error RESULT,
-            # never a dead process and never a stuck batch
+            # never a dead process and never a stuck batch (a session whose
+            # every generation is corrupt fails here, alone)
             pending.error = e
             self._bump("failed")
             self.flight.record("refused", req=pending.rid, error=type(e).__name__)
             self._degrade(f"request refused: {type(e).__name__}: {e}")
             self._finalize(pending, "error")
+
+    # -- durable sessions ------------------------------------------------------
+
+    def _admit_session(self, pending: Pending, deadline_at) -> None:
+        """Route a session turn: resume a suspended session (an O(1) row
+        insert; an empty-prompt continuation is bitwise one longer request),
+        rebase it when the turn brings new prompt tokens (the whole history
+        re-prefilled), or start a new one. Raises into :meth:`_admit`'s
+        isolation on anything unadmittable."""
+        request = pending.request
+        sid = request.session_id
+        if self.session_store is None:
+            raise ValueError("request carries a session_id but sessions are disabled "
+                             "(ServeConfig.session_dir is unset)")
+        if self.health.state is Health.DRAINING:
+            # a queued session turn starts no work in a drain: it comes back
+            # "suspended", untouched, for the restarted server
+            self._complete(pending, DecodeResult(tokens=np.zeros((1, 0), np.int64),
+                                                 status="suspended", new_tokens=0, chunks=0))
+            return
+        if sid in self._active_sessions:
+            raise ValueError(f"session {sid!r} is already resident in a slot; one turn at a time "
+                             "per conversation")
+        cap = self.cfg.max_dirty_sessions
+        if cap > 0 and sid not in self._dirty_sessions and len(self._dirty_sessions) >= cap:
+            # every turn served in an outage is one more DIRTY pin a crash
+            # could lose: at the bound, shed instead of growing it (sessions
+            # dirty already keep serving)
+            raise OverloadError(
+                f"session store not accepting writes and the dirty backlog is at its bound "
+                f"({cap}): retry on another replica or after the store recovers")
+        sess = self._session_lookup(sid)
+        if sess is None:  # a new conversation
+            self.engine.admit(request, tag=pending, deadline_at=deadline_at, session_id=sid)
+            self._active_sessions.add(sid)
+            return
+        prompt = np.asarray(request.prompt, np.int64).reshape(1, -1)
+        want = request.max_new_tokens
+        try:
+            if prompt.shape[1] > 0:
+                # new user tokens: rebase the context (prompt + everything
+                # emitted + the new tokens) and re-prefill, the key walk
+                # anchored at the carry's fold and the session's seed
+                full = np.concatenate([np.asarray(sess.prompt, np.int64),
+                                       np.asarray(sess.emitted, np.int64), prompt], axis=1)
+                self.engine.admit(dataclasses.replace(request, prompt=full), tag=pending,
+                                  deadline_at=deadline_at, session_id=sid,
+                                  sample_index=int(sess.emit), seed=int(sess.seed))
+            elif sess.buffered >= want:
+                # the suspended chunk's overshoot covers this turn: served on
+                # the host, no slot, no work on the card
+                toks = np.asarray(sess.emitted[:, sess.served:sess.served + want])
+                sess.served += want
+                self._store_session(sess)
+                self._complete(pending, DecodeResult(tokens=toks, status="ok", new_tokens=want,
+                                                     chunks=0))
+                return
+            else:
+                self.engine.resume(sess, request, tag=pending, deadline_at=deadline_at)
+            self._active_sessions.add(sid)
+            self._bump("resumed")
+        except Exception:
+            # nothing was admitted: the session stays suspended as loaded
+            self._cache_session(sess)
+            raise
+
+    def _session_lookup(self, sid: str) -> Optional[SessionState]:
+        """The resident cache first (popped while the session is in a slot),
+        then the newest intact generation on disk. The resident copy is
+        trusted only while it is the newest committed generation (another
+        replica sharing the store may have saved a later turn); a DIRTY copy
+        is newer than anything on disk and stays the truth."""
+        sess = self._sessions.pop(sid, None)
+        if sess is not None:
+            self._session_last_use.pop(sid, None)
+            if self.session_store is None or sid in self._dirty_sessions:
+                return sess
+            try:
+                newest = self.session_store.newest_generation(sid)
+            except (StoreUnavailableError, OSError):
+                # the staleness probe cannot run in an outage: the resident
+                # copy is the best one reachable
+                return sess
+            if sess.generation >= newest:
+                return sess
+            # stale: another replica advanced the conversation on disk
+        if self.session_store is None:
+            return None
+        try:
+            return self.session_store.load(sid)
+        except OSError as e:
+            # store-shaped: the retriable refusal (_admit sheds it), unlike a
+            # corrupt payload's integrity error, which fails the request
+            raise StoreUnavailableError("session", f"{type(e).__name__}: {e}") from e
+
+    def _cache_session(self, sess: SessionState) -> None:
+        self._sessions[sess.session_id] = sess
+        self._sessions.move_to_end(sess.session_id)
+        self._session_last_use[sess.session_id] = self._clock()
+        cap = max(self.cfg.max_resident_sessions, 1)
+        while len(self._sessions) > cap:
+            # LRU-evict the oldest CLEAN entry; a dirty one is the only
+            # current copy of its conversation and stays pinned
+            victim = next((s for s in self._sessions if s not in self._dirty_sessions), None)
+            if victim is None:
+                break  # everything dirty: hold memory rather than lose turns
+            self._sessions.pop(victim, None)
+            self._session_last_use.pop(victim, None)
+
+    def _store_session(self, sess: SessionState) -> None:
+        """Write-through save and a resident-cache refresh. A failed save
+        marks the session DIRTY (pinned resident, retried at boundaries) and
+        degrades health; it never raises into the scheduler."""
+        self._active_sessions.discard(sess.session_id)
+        try:
+            if self.session_store is not None:
+                self.session_store.save(sess)
+                self._bump("session_saves")
+            self._dirty_sessions.discard(sess.session_id)
+        except StoreUnavailableError:
+            # the breaker is open: refused before any syscall; the trip is
+            # in the flight ring and the health latch already
+            self._dirty_sessions.add(sess.session_id)
+        except Exception as e:
+            warnings.warn(f"session {sess.session_id} save failed ({type(e).__name__}: {e}); "
+                          "keeping the resident copy dirty -- a restart before the next "
+                          "successful save loses this turn", stacklevel=2)
+            self._c_store_errors.inc(labels={"store": "session"})
+            self._dirty_sessions.add(sess.session_id)
+            self._degrade(f"session save failed: {type(e).__name__}")
+        self._cache_session(sess)
+
+    def _tick_sessions(self) -> None:
+        """Chunk-boundary cache upkeep: retry the dirty sessions' saves, and
+        drop CLEAN resident entries idle past ``session_idle_s`` (they are on
+        disk: eviction frees host memory, never state). The retry rides the
+        breaker: while it is open and its probe not due the sweep is one host
+        check; when the probe is due the first save IS the probe, and the
+        sweep stops at the first refusal. Without a breaker open, at most one
+        sweep a second."""
+        now = self._clock()
+        if self.session_store is not None and self._dirty_sessions:
+            br = self.session_store.breaker
+            retry_now = now >= self._dirty_retry_at
+            if br is not None and br.blocked():
+                retry_now = False  # an outage, the probe not due
+            elif br is not None and br.is_open:
+                retry_now = True  # the probe is due: one save is the probe
+            if retry_now:
+                self._dirty_retry_at = now + max(1.0, self.cfg.poll)
+                for sid in list(self._dirty_sessions):
+                    sess = self._sessions.get(sid)
+                    if sess is None or sid in self._active_sessions:
+                        continue
+                    try:
+                        self.session_store.save(sess)
+                        self._bump("session_saves")
+                        self._dirty_sessions.discard(sid)
+                    except StoreUnavailableError:
+                        break  # the probe failed or was refused: stop now
+                    except Exception:
+                        continue  # still dirty, still pinned
+        idle = self.cfg.session_idle_s
+        if idle <= 0 or not self._sessions:
+            return
+        for sid in list(self._sessions):
+            if sid in self._dirty_sessions:
+                continue
+            if now - self._session_last_use.get(sid, now) > idle:
+                self._sessions.pop(sid, None)
+                self._session_last_use.pop(sid, None)
 
     def _step_chunk(self, wd, guard) -> None:
         """One engine boundary: watchdog beat, every slot advanced a chunk,
@@ -559,6 +972,15 @@ class Server:
             self._complete(pending, result)
 
     def _complete(self, pending: Pending, result: DecodeResult) -> None:
+        if result.session is not None:
+            # durability before visibility: the session generation is on
+            # disk before the caller can see these tokens
+            self._store_session(result.session)
+        elif pending.request.session_id is not None:
+            # a session turn that ended without a snapshot (the ladder
+            # exhausted, a forced eviction): release the conversation, so the
+            # next turn resumes from the last good generation
+            self._active_sessions.discard(pending.request.session_id)
         pending.result = result
         self._bump(result.status)
         self._bump("rewinds", result.rewinds)
@@ -569,7 +991,9 @@ class Server:
         if result.status == "failed" or result.degraded:
             self._degrade(f"request needed the ladder (rewinds={result.rewinds}, "
                           f"reprefills={result.reprefills}, status={result.status})")
-        elif self.health.state is Health.DEGRADED:
+        elif self.health.state is Health.DEGRADED and not self._store_outage_latched():
+            # the storage latch holds DEGRADED through an outage and its
+            # unsaved backlog
             self.health.to(Health.SERVING, "clean request completed")
         self._finalize(pending, result.status)
 
@@ -605,13 +1029,30 @@ class Server:
 
     def snapshot(self) -> dict:
         """Health + scheduler gauges in one payload, under ONE acquisition
-        of the stats lock (the health machine and the registry share it)."""
+        of the stats lock (the health machine and the registry share it):
+        the sessions (resident, in slots, dirty, the resident ids) and, with
+        a store configured, the failure domains (each breaker's state and
+        probe countdown, the dirty backlog against its bound, the publish
+        queue and its drops)."""
         with self._stats_lock:
             snap = self.health.snapshot()
             snap["stats"] = dict(self.stats)
             snap["occupancy"] = self.occupancy_lifetime()
             snap["occupancy_now"] = self.occupancy()
             snap["slots"] = self.engine.occupancy()
+            snap["sessions"] = {"resident": len(self._sessions),
+                                "in_slots": len(self._active_sessions),
+                                "dirty": len(self._dirty_sessions),
+                                "resident_ids": list(self._sessions)}
+            if self._breakers:
+                flat = self.metrics.counters_flat()
+                snap["failure_domains"] = {
+                    "breakers": {n: b.snapshot() for n, b in self._breakers.items()},
+                    "dirty_backlog": len(self._dirty_sessions),
+                    "dirty_sessions": sorted(self._dirty_sessions)[:16],
+                    "max_dirty_sessions": self.cfg.max_dirty_sessions,
+                    "prefix_publish_drops": flat.get("prefix_publish_drops", 0),
+                    "pending_prefix_publishes": self.engine.pending_prefix_count}
             snap["queued"] = self._q.qsize()
             snap["metrics"] = self.metrics.snapshot()
         return snap

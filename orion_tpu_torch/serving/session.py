@@ -59,8 +59,15 @@ class DecodeRequest:
     ``deadline_ms`` <= 0 means no deadline. ``session_id`` makes the request
     a durable-session turn: ``SlotEngine`` suspends its slot at its end and
     hands its state out on the result (``DecodeResult.session``), and
-    ``SlotEngine.resume`` continues it bitwise. (The JAX package's
-    ``prefix_len`` waits for the prefix store, ROADMAP.md A8 step 3.)"""
+    ``SlotEngine.resume`` continues it bitwise; through the Server, a known
+    id with an empty prompt resumes the conversation, with new tokens it
+    re-prefills the whole history first.
+
+    ``prefix_len`` declares the first ``prefix_len`` prompt tokens a SHARED,
+    cacheable prefix (a system prompt): with a prefix store, a miss publishes
+    the aligned prefix's state so later requests admit at O(suffix). Lookups
+    run for every request; the declaration only gates publishing. 0 = no
+    declaration."""
 
     prompt: Any
     max_new_tokens: int
@@ -68,6 +75,7 @@ class DecodeRequest:
     seed: int = 0
     deadline_ms: float = 0.0
     session_id: Optional[str] = None
+    prefix_len: int = 0
 
 
 @dataclasses.dataclass

@@ -37,6 +37,7 @@ import warnings
 import zlib
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from orion_tpu_torch.resilience.inject import fire
@@ -60,24 +61,39 @@ def atomic_write_json(path: str, payload: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
-def _leaves(tree: Mapping[str, Any], prefix: str = ""):
-    for k in sorted(tree):
-        v = tree[k]
+def _leaves(tree: Any, prefix: str = ""):
+    """(path, leaf) of a nested dict (keys sorted) whose values may also be
+    lists or tuples (walked in order, their index a path component): a
+    session's per-layer state is a list of dicts."""
+    items = (sorted(tree.items()) if isinstance(tree, Mapping)
+             else enumerate(tree) if isinstance(tree, (list, tuple)) else None)
+    for k, v in items:
         path = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, Mapping):
+        if isinstance(v, (Mapping, list, tuple)):
             yield from _leaves(v, path)
         else:
-            yield path, v
+            yield path, _as_tensor(v)
+
+
+def _as_tensor(leaf: Any) -> torch.Tensor:
+    """A leaf as a tensor: a numpy array (a session's host bookkeeping) is
+    viewed, not copied."""
+    return leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.asarray(leaf))
 
 
 def _crc32(t: torch.Tensor) -> int:
-    raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
-    return int(zlib.crc32(raw.numpy().tobytes()))
+    return int(zlib.crc32(tensor_bytes(t)))
 
 
-def build_manifest(state: Mapping[str, Any], step: int) -> Dict[str, Any]:
+def tensor_bytes(t: torch.Tensor) -> bytes:
+    """A tensor's bytes, C order (a bfloat16 tensor's as its 16-bit words:
+    numpy has no bfloat16)."""
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def build_manifest(state: Any, step: int) -> Dict[str, Any]:
     """Per-leaf path, shape, dtype and crc32 of the bytes, for a nested dict
-    of tensors."""
+    (or list) of tensors or numpy arrays."""
     leaves = [
         {"path": path, "shape": list(t.shape), "dtype": str(t.dtype).removeprefix("torch."),
          "crc32": _crc32(t)}
@@ -87,7 +103,7 @@ def build_manifest(state: Mapping[str, Any], step: int) -> Dict[str, Any]:
             "leaves": leaves}
 
 
-def verify_manifest(state: Mapping[str, Any], manifest: Dict[str, Any]) -> None:
+def verify_manifest(state: Any, manifest: Dict[str, Any]) -> None:
     """Raise :class:`CheckpointIntegrityError` unless ``state`` matches the
     manifest leaf for leaf (paths, shapes, dtypes, content checksums)."""
     expected = {e["path"]: e for e in manifest.get("leaves", ())}

@@ -1413,3 +1413,78 @@ def test_server_sigterm_drain_on_the_card(dev):
         srv.submit(reqs[0])
     edges = [(a.value if a else None, b.value) for a, b, _, _ in srv.health.history]
     assert ("serving", "draining") in edges and ("draining", "dead") in edges
+
+
+def test_stores_prefix_hit_on_the_card_equals_a_cold_inscan_run(dev, tmp_path):
+    """The prefix store on the card, a bf16 linear model at D 128 (row 1's
+    wgmma kernel in the pieces and the publish): request 0 declares a
+    256-token prefix and misses (its publish runs row 1 once a layer), 1-2
+    hit and run pieces over their suffixes only; every request bitwise the
+    same request served cold in-scan by a Server without a store."""
+    from orion_tpu_torch import generate as gen
+    from orion_tpu_torch.serving import DecodeRequest, ServeConfig, Server
+
+    cfg = dataclasses.replace(_ROWS_CFG, layer_types=("linear", "linear"))
+    model = gen.cast_params_for_inference(TransformerLM(cfg, device=dev))
+    pre = np.random.default_rng(0).integers(0, 4096, (1, 256))
+    prompts = [np.concatenate([pre, np.random.default_rng(10 + i).integers(0, 4096, (1, n))], 1)
+               for i, n in enumerate((40, 77, 130))]
+    sampled = gen.SampleConfig(temperature=0.8, top_k=50)
+    reqs = [DecodeRequest(p, 12, sampled, seed=i, prefix_len=256) for i, p in enumerate(prompts)]
+    kw = dict(chunk=4, slots=4, max_inflight=8, prefill_buckets="128,256,512", prefill_chunk=64)
+    cold_srv = Server(model, ServeConfig(**kw))
+    cold = [cold_srv.submit(r) for r in reqs]
+    assert cold_srv.serve(drain_when_idle=True) == 0
+    srv = Server(model, ServeConfig(**kw, prefix_dir=str(tmp_path / "prefix")))
+    before = causal_dot.launches_wgmma
+    got = [srv.submit(reqs[0])]
+    assert srv.serve(drain_when_idle=True) == 0
+    pieces = len(srv.flight.events("prefill_piece"))
+    assert causal_dot.launches_wgmma - before == 2 * (pieces + 1)  # + the publish's prefill
+    before = causal_dot.launches_wgmma
+    got += [srv.submit(r) for r in reqs[1:]]
+    assert srv.serve(drain_when_idle=True) == 0
+    hit_pieces = len(srv.flight.events("prefill_piece")) - pieces
+    assert hit_pieces == 2 + 3 and causal_dot.launches_wgmma - before == 2 * hit_pieces
+    flat = srv.metrics.counters_flat()
+    assert (flat["prefix_hits"], flat["prefix_misses"], flat["prefix_publishes"]) == (2, 1, 1)
+    for i, (g, c) in enumerate(zip(got, cold)):
+        assert g.result.status == "ok"
+        np.testing.assert_array_equal(g.result.tokens, c.result.tokens, err_msg=f"request {i}")
+    srv.close()
+    cold_srv.close()
+
+
+def test_stores_session_restart_on_the_card_equals_an_uninterrupted_run(dev, tmp_path):
+    """A session on the card (bf16, a linear and a swa layer: its (S, z) and
+    its bf16 ring go to disk): turn 1, then turn 2 suspended by a SIGTERM
+    and resumed from disk by a fresh Server, bitwise one uninterrupted
+    request, greedy and sampled."""
+    from orion_tpu_torch import generate as gen
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.serving import DecodeRequest, ServeConfig, Server
+
+    model = gen.cast_params_for_inference(TransformerLM(_ROWS_CFG, device=dev))
+    p = np.random.default_rng(5).integers(0, 4096, (1, 150))
+    empty = np.zeros((1, 0), np.int64)
+    kw = dict(chunk=4, slots=2, max_inflight=8, prefill_buckets="off", prefill_chunk=0)
+    for k, sample in enumerate((gen.SampleConfig(temperature=0.0),
+                                gen.SampleConfig(temperature=0.8, top_k=50))):
+        ref_srv = Server(model, ServeConfig(**kw))
+        ref = ref_srv.submit(DecodeRequest(p, 30, sample, seed=9))
+        assert ref_srv.serve(drain_when_idle=True) == 0
+        cfg = ServeConfig(**kw, session_dir=str(tmp_path / f"s{k}"))
+        srv1 = Server(model, cfg)
+        t1 = srv1.submit(DecodeRequest(p, 10, sample, seed=9, session_id="conv"))
+        assert srv1.serve(drain_when_idle=True) == 0
+        t2a = srv1.submit(DecodeRequest(empty, 20, sample, session_id="conv"))
+        with inject.inject(inject.FaultPlan().preempt_at_chunk(srv1.engine._chunk_counter + 1)):
+            assert srv1.serve() == 0
+        assert t2a.result.status == "suspended" and 0 < t2a.result.new_tokens < 20
+        srv2 = Server(model, cfg)
+        t2b = srv2.submit(DecodeRequest(empty, 20 - t2a.result.new_tokens, sample,
+                                        session_id="conv"))
+        assert srv2.serve(drain_when_idle=True) == 0 and t2b.result.status == "ok"
+        total = np.concatenate([t1.result.tokens, t2a.result.tokens, t2b.result.tokens], 1)
+        np.testing.assert_array_equal(total, ref.result.tokens, err_msg=f"sample {k}")
+        srv2.close()

@@ -50,14 +50,18 @@ def test_every_module_imports_with_jax_and_orion_tpu_blocked():
 def test_the_scans_cover_the_serving_slice():
     """The import block and the AST scan below walk every module of the
     package, the serving slice's ``serving/``, ``obs/`` and ``resilience/``
-    among them (the Server, its CLI and the host modules it builds)."""
+    among them (the Server, its CLI, its stores and the host modules it
+    builds), the copies of the JAX package's jax-free ``breaker.py`` and
+    ``prefix_store.py`` included."""
     assert {"orion_tpu_torch.serving", "orion_tpu_torch.serving.session",
             "orion_tpu_torch.serving.batching", "orion_tpu_torch.serving.server",
             "orion_tpu_torch.serving.health", "orion_tpu_torch.serving.locks",
-            "orion_tpu_torch.serving.__main__", "orion_tpu_torch.obs.flight",
+            "orion_tpu_torch.serving.__main__", "orion_tpu_torch.serving.session_store",
+            "orion_tpu_torch.serving.prefix_store", "orion_tpu_torch.obs.flight",
             "orion_tpu_torch.obs.metrics", "orion_tpu_torch.obs.trace",
             "orion_tpu_torch.resilience.inject", "orion_tpu_torch.resilience.preempt",
-            "orion_tpu_torch.resilience.watchdog"} <= set(_modules())
+            "orion_tpu_torch.resilience.watchdog",
+            "orion_tpu_torch.resilience.breaker"} <= set(_modules())
 
 
 @pytest.mark.parametrize(

@@ -16,7 +16,10 @@ linear, one softmax and one swa layer):
 - feeder threads submitting while ``serve()`` runs; the Server adds no read
   of the device beyond the engine's own; refusals: every unported
   ``ServeConfig`` field and CLI flag, and more slots than ``DECODE_ROWS``
-  (C1).
+  (C1); the store fields and flags, served since the stores were ported,
+  each reaching its store, and the CLI's params id derived as the JAX
+  package's (the stores' contracts: ``tests/test_torch_{stores,sessions,
+  prefix}.py``).
 """
 
 import collections
@@ -322,7 +325,7 @@ def test_request_isolation_bad_request_never_kills_server(model):
     srv.serve(drain_when_idle=True)
     assert isinstance(bad.error, ValueError) and bad.result is None
     assert isinstance(rows.error, ValueError)
-    with pytest.raises(ValueError, match="A8 step 3"):
+    with pytest.raises(ValueError, match="session_dir is unset"):
         sess.wait(timeout=0)
     np.testing.assert_array_equal(good.result.tokens, _solo(model, p0, 8, GREEDY, 0))
     assert srv.stats["failed"] == 3 and srv.stats["ok"] == 1
@@ -490,6 +493,66 @@ def test_unported_serve_config_fields_raise(model, field):
         Server(model, dataclasses.replace(_cfg(), tp=1))  # 1 means unsharded
 
 
+# the store fields ported from the refusals above -> a value other than the
+# default, and where that value lands
+_STORE_FIELDS = {
+    "session_dir": None, "session_keep": 5, "session_idle_s": 7.0, "max_resident_sessions": 1,
+    "max_dirty_sessions": 3, "breaker_failures": 6, "breaker_backoff": 0.25,
+    "breaker_max_backoff": 9.0, "prefix_dir": None, "prefix_keep": 4, "params_id": "my-weights",
+}
+
+
+@pytest.mark.parametrize("field", sorted(_STORE_FIELDS))
+def test_store_serve_config_fields_are_accepted(model, tmp_path, field):
+    """Each of the store fields that raised before the stores were ported
+    serves now, and its value reaches its store (or the Server's session
+    cache in front of it)."""
+    from orion_tpu_torch.serving import SessionState
+
+    now = [0.0]
+    value = _STORE_FIELDS[field] or str(tmp_path / field)
+    base = dict(session_dir=str(tmp_path / "s"), prefix_dir=str(tmp_path / "p"))
+    base[field] = value
+    srv = Server(model, ServeConfig(chunk=4, slots=2, **base), clock=lambda: now[0])
+    st, ps = srv.session_store, srv.prefix_store
+    assert field not in server_mod._NOT_PORTED
+
+    def fake(sid):
+        return SessionState(sid, 0, GREEDY, 0, np.zeros(1), [], np.zeros(()), np.zeros(()),
+                            np.zeros(1, bool), np.zeros((1, 1)), np.zeros((1, 0)))
+
+    if field == "session_dir":
+        assert st.directory == value and os.path.isdir(value)
+    elif field == "session_keep":
+        assert st.keep == value
+    elif field == "session_idle_s":
+        srv._cache_session(fake("a"))
+        now[0] = 6.9
+        srv._tick_sessions()
+        assert list(srv._sessions) == ["a"]
+        now[0] = 7.1
+        srv._tick_sessions()
+        assert not srv._sessions
+    elif field == "max_resident_sessions":
+        srv._cache_session(fake("a"))
+        srv._cache_session(fake("b"))
+        assert list(srv._sessions) == ["b"]
+    elif field == "max_dirty_sessions":
+        assert srv.snapshot()["failure_domains"]["max_dirty_sessions"] == value
+    elif field.startswith("breaker_"):
+        attr = {"breaker_failures": "consecutive_failures", "breaker_backoff": "backoff",
+                "breaker_max_backoff": "max_backoff"}[field]
+        for br in (st.breaker, ps.breaker):
+            assert getattr(br, attr) == value
+    elif field == "prefix_dir":
+        assert ps.directory == value and srv.engine.prefix_store is ps
+    elif field == "prefix_keep":
+        assert ps.keep == value
+    else:  # params_id: the stores' weights identity
+        assert ps.params_id == value and st.identity == f"{value}|off"
+    srv.close()
+
+
 def test_more_slots_than_decode_rows_is_refused(model):
     """C1 above 64 slots: a decode step pads its products' rows to
     DECODE_ROWS and runs them at the batch's own row count above it, so a
@@ -525,6 +588,86 @@ def test_unported_cli_flags_raise(flag, typ, default, item):
     value = "x" if typ is str else str(typ(default) + 2)
     with pytest.raises(NotImplementedError, match=item):
         cli_main(["--device", "cpu", flag, value, "--prompts-file", os.devnull])
+
+
+# the store flags ported from the refusals above -> their argument
+_STORE_FLAGS = {
+    "--session-dir": None, "--session-id": "conv", "--session-idle-s": "7",
+    "--max-dirty-sessions": "3", "--breaker-failures": "6", "--breaker-backoff": "0.25",
+    "--breaker-max-backoff": "9", "--prefix-dir": None, "--prefix-len": "64",
+}
+
+
+@pytest.mark.parametrize("flag", sorted(_STORE_FLAGS))
+def test_store_cli_flags_are_accepted(tmp_path, monkeypatch, capsys, flag):
+    """Each store flag that raised before the stores were ported serves
+    now, and reaches its store: the CLI's Server is caught and read after
+    the run."""
+    from orion_tpu_torch.serving import __main__ as cli_mod
+
+    built = []
+
+    class Caught(Server):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(cli_mod, "Server", Caught)
+    pf = tmp_path / "p.txt"
+    pf.write_text("x" * 100 + "\n")
+    sdir, pdir = str(tmp_path / "s"), str(tmp_path / "p")
+    value = _STORE_FLAGS[flag] or (sdir if flag == "--session-dir" else pdir)
+    args = ["--config", "tiny", "--device", "cpu", "--prompts-file", str(pf),
+            "--max-new-tokens", "2", "--chunk", "2", "--temperature", "0", flag, value]
+    if flag != "--session-dir":
+        args += ["--session-dir", sdir]
+    if flag != "--prefix-dir":
+        args += ["--prefix-dir", pdir]
+    assert flag not in {f[0] for f in _NOT_PORTED_FLAGS}
+    assert cli_main(args) == 0
+    capsys.readouterr()
+    (srv,) = built
+    st, ps, flat = srv.session_store, srv.prefix_store, srv.metrics.counters_flat()
+    if flag == "--session-dir":
+        assert st.directory == value
+    elif flag == "--session-id":
+        assert st.generations("conv") == [1] and flat["session_saves"] == 1
+    elif flag == "--session-idle-s":
+        assert srv.cfg.session_idle_s == 7.0
+    elif flag == "--max-dirty-sessions":
+        assert srv.snapshot()["failure_domains"]["max_dirty_sessions"] == 3
+    elif flag.startswith("--breaker-"):
+        attr = {"--breaker-failures": "consecutive_failures", "--breaker-backoff": "backoff",
+                "--breaker-max-backoff": "max_backoff"}[flag]
+        assert getattr(st.breaker, attr) == getattr(ps.breaker, attr) == float(value)
+    elif flag == "--prefix-dir":
+        assert ps.directory == value and flat["prefix_misses"] == 1
+    else:  # --prefix-len: the declared miss publishes the 64-token prefix
+        assert flat["prefix_publishes"] == 1 and len(ps.list_keys()) == 1
+
+
+def test_cli_params_id_is_the_jax_package_derivation(tmp_path, monkeypatch, capsys):
+    """The CLI's params id: ``<config>:ov=<fingerprint of --set>:seed=0``
+    (and ``:ckpt=<dir>:step=<n>`` from a checkpoint), as the JAX package's
+    CLI derives it, so both packages' stores agree on the weights."""
+    from orion_tpu.serving.prefix_store import overrides_fingerprint as jax_fp
+    from orion_tpu.utils.config import parse_set_overrides as jax_parse
+    from orion_tpu_torch.serving import __main__ as cli_mod
+
+    built = []
+
+    class Caught(Server):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(cli_mod, "Server", Caught)
+    sets = ["--set", "d_model=64", "--set", "n_heads=2"]
+    assert cli_main(["--config", "tiny", "--device", "cpu", "--prompts-file", os.devnull,
+                     "--prefix-dir", str(tmp_path / "p"), *sets]) == 0
+    capsys.readouterr()
+    want = f"tiny:ov={jax_fp(jax_parse(['d_model=64', 'n_heads=2']))}:seed=0"
+    assert built[0].params_id == built[0].prefix_store.params_id == want
 
 
 def test_server_refuses_a_device_other_than_the_model(model):
