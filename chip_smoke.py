@@ -214,12 +214,29 @@ nonzero and no result line is printed):
    breakers recovering by their probes and the dirty session landing;
    launches exact for every wave; readings: a hit's and a miss's first
    token, the publish's ms, the entry's bytes, session save and load ms
-   and bytes;
+   and bytes; then the speculative part (``spec_check``, depth 4, no
+   floor) on lm_1b3 bf16 and int4 and on hybrid_1b3: ``verify_step`` at 4
+   rows x 5 fed tokens bitwise 5 ``decode_step`` calls, the advance at keep
+   0, 2, 5 bitwise the walk (rings included), every product of the piece
+   and a draft step at 64 rows; the plan served again for each (sampling,
+   admission) pair of the plain runs above, every request bitwise the
+   plain run's, every pure-decode boundary a round, lm_1b3 (its draft the
+   whole model) accepting every draft, launches exact (rows 1 and 6 only in
+   admissions; row 14 at int4 in the draft steps and the verify pieces);
+   on lm_1b3 bf16 and the hybrid the rewind rung on a mid-round slot
+   bitwise, a speculating Server bitwise the engine with its speculation
+   section and counters consistent, readings (decode ms/token at 4 busy
+   slots with speculation off and at depth 2 and 4 in turns, a round's ms,
+   the acceptance rate); on the hybrid ``python -m orion_tpu_torch.serving
+   --spec-depth 4`` in a subprocess (exit 0, its stats and speculation
+   lines); on lm_1b3 bf16 the fault the row count exists for (the verify
+   piece at its own row count): which checks see it, recorded;
 13. a ``kernels`` JSON line (25 entries: the 14 rows, rows 1-10 and 14
    once for each variant; rows 1, 3 and 4 also with their launches under
    the options of phase 10, rows 1, 6 and 14 on the serving path, through
-   ``SlotEngine``, through the Server and through its stores), then the
-   result line ``{"ok": true, "device": {...}}`` last.
+   ``SlotEngine``, through the Server, through its stores and through the
+   speculative part), then the result line ``{"ok": true, "device":
+   {...}}`` last.
 """
 
 import contextlib
@@ -2898,19 +2915,25 @@ def _rows_equal(a, b):
         torch.equal(x, y) for x, y in zip(a[1], b[1]))
 
 
-def run_plan(model, plan, sample, mode, only=None, seed0=100, fault=None, watch=False):
+def run_plan(model, plan, sample, mode, only=None, seed0=100, fault=None, watch=False,
+             spec_depth=0):
     """Serve ``plan``'s requests through a fresh engine (``mode``): request i
     is admitted at its first boundary or later, when a slot is free
     (``only``: those requests alone). ``fault``: an ``inject.FaultPlan``
     armed for the run. ``watch``: at every boundary the rows it must leave
     as they are -- free slots, and slots mid-prefill the piece does not go
-    to -- come out bitwise as they went in (contract (c)). -> (results by
-    request, counts: solo prefills, unified and pure boundaries, rows held)."""
+    to -- come out bitwise as they went in (contract (c)). ``spec_depth``:
+    speculative rounds of that many drafts at the pure-decode boundaries
+    (no floor). -> (results by request, counts: solo prefills, unified and
+    pure boundaries, rows held, and the rounds' accepted and rejected drafts
+    and the rounds that rejected any)."""
     from orion_tpu_torch.resilience import inject
     from orion_tpu_torch.serving import DecodeRequest
 
     prompts = _serve_prompts(plan, model.cfg.vocab_size)
-    eng = serve_engine(model, mode)
+    rounds = []
+    eng = serve_engine(model, mode, spec_depth=spec_depth, spec_min_accept=0.0,
+                       on_event=lambda k, f: rounds.append(f) if k == "spec_round" else None)
     pending = [i for i in range(len(plan)) if only is None or i in only]
     done = {}
     stats = {"host_prefills": 0, "unified": 0, "pure": 0, "boundaries": 0, "held": 0}
@@ -2935,8 +2958,12 @@ def run_plan(model, plan, sample, mode, only=None, seed0=100, fault=None, watch=
                                          "though it was free or held mid-prefill (c)")
             stats["held"] += len(held)
             stats["boundaries"] += 1
-            if stats["boundaries"] > 64:
+            if stats["boundaries"] > (64 if not spec_depth else 64 * SERVE_CHUNK):
                 raise AssertionError("the slot plan did not drain")
+    if spec_depth:
+        stats.update(rounds=len(rounds), accepted=sum(f["accepted"] for f in rounds),
+                     rejected=sum(f["rejected"] for f in rounds),
+                     rejecting_rounds=sum(f["rejected"] > 0 for f in rounds))
     return done, stats
 
 
@@ -3792,6 +3819,304 @@ def _outage_check(mods, served, prompts, cold, sample, tmp, label, cfg, quant):
     return out
 
 
+# the speculative part: depth 4, so a round's verify piece at 4 slots is 20
+# rows, one block of DECODE_ROWS
+SPEC_DEPTH = 4
+
+
+def _q4_per_draft(cfg):
+    """Int4 dense layers a draft step runs: those of the linear blocks."""
+    mlp = 3 if cfg.mlp == "swiglu" else 2
+    return sum(4 + (0 if cfg.moe_at(i) else mlp)
+               for i, lt in enumerate(cfg.resolved_layer_types) if lt == "linear")
+
+
+def _spec_want(cfg, stats, quant, slots=SERVE_SLOTS, depth=SPEC_DEPTH):
+    """A speculative run's exact launches: rows 1 and 6 only in the
+    admissions (as the plain run's), row 14 at int4 ``_q4_per_step`` a step
+    of each unified boundary's chunk, and a round ``depth`` draft steps of
+    ``_q4_per_draft`` plus ``_q4_per_step`` for each block of DECODE_ROWS
+    rows of the verify piece."""
+    from orion_tpu_torch.models.transformer import DECODE_ROWS
+
+    lin, attn, _, _ = _layer_counts(cfg)
+    blocks = -(-slots * (depth + 1) // DECODE_ROWS)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(causal_dot_norm_wgmma=lin * (stats["host_prefills"] + stats["unified"]),
+                flash_fwd_wgmma=attn * stats["host_prefills"],
+                q4_matmul_mma=(_q4_per_step(cfg) * SERVE_CHUNK * stats["unified"]
+                               + stats["rounds"] * (depth * _q4_per_draft(cfg)
+                                                    + _q4_per_step(cfg) * blocks)
+                               if quant == "int4" else 0))
+    return want
+
+
+def spec_model_check(model, label, depth=SPEC_DEPTH, strict=True):
+    """The verify piece at full width, 4 rows x P = depth + 1 fed tokens, the
+    rows at different positions (past the 1024-key window for a swa model):
+    its logits bitwise P successive ``decode_step`` calls;
+    ``advance_verified_states`` at keep 0, 2 and P bitwise the walk of that
+    many tokens, caches and rings included; every product of the piece and
+    of a draft step at ``DECODE_ROWS`` rows (``product_rows``). ``strict``:
+    raise when one of them fails."""
+    from orion_tpu_torch.models.transformer import (DECODE_ROWS, linear_layer_indices,
+                                                    snapshot_decode_state)
+    from orion_tpu_torch.utils.row_probe import product_rows
+
+    swa = "swa" in model.cfg.resolved_layer_types
+    tok, states, t = _probe_batch(model, prompt_len=1100 if swa else 300)
+    p = depth + 1
+    rng = np.random.default_rng(12)
+    fed = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (tok.shape[0], p))).to(
+        tok.device)
+    fed[:, 0] = tok
+    out = {"keep": {}}
+    with torch.inference_mode():
+        st, walk, ref = snapshot_decode_state(states), [snapshot_decode_state(states)], []
+        for j in range(p):
+            lg, st = model.decode_step(fed[:, j], st, t + j)
+            ref.append(lg)
+            walk.append(snapshot_decode_state(st))
+        ref = torch.stack(ref, dim=1)
+        del st
+        bitwise = []
+        for keep in (0, 2, p):
+            st = snapshot_decode_state(states)
+            logits, upds = model.verify_step(fed, st, t)
+            bitwise.append(bool(torch.equal(logits, ref)))
+            out["logits_max_abs"] = float((logits - ref).abs().max())
+            got = model.advance_verified_states(st, upds, t, torch.full_like(t, keep))
+            out["keep"][keep] = all(torch.equal(x[k], y[k]) for x, y in zip(got, walk[keep])
+                                    for k in x)
+            del st, got, upds
+        out["logits_bitwise"] = all(bitwise)
+        lin = linear_layer_indices(model.cfg)
+        rows = (product_rows(model.verify_step, fed, snapshot_decode_state(states), t)
+                + product_rows(model.draft_step, tok, [states[i] for i in lin], t))
+    out["product_rows"] = sorted({r for _, r, _ in rows})
+    out["products"] = len(rows)
+    del walk, states
+    log(f"{label} speculation, the verify piece at 4 rows x {p}: logits bitwise {p} decode "
+        f"steps: {out['logits_bitwise']} (largest difference {out['logits_max_abs']}); the "
+        f"advance bitwise the walk at keep 0, 2, {p}: {out['keep']}; {out['products']} products "
+        f"of the piece and a draft step at rows {out['product_rows']}")
+    if strict and not (out["logits_bitwise"] and all(out["keep"].values())
+                       and out["product_rows"] == [DECODE_ROWS]):
+        raise AssertionError(f"{label}: the verify piece is not the decode walk: {out}")
+    return out
+
+
+def spec_times(model, plan, label, card, depths=(0, 2, SPEC_DEPTH), turns=2, steps=3):
+    """Readings, not limits: decode ms/token at 4 busy slots (host
+    admission, the plan's prompts cut to 256 tokens, 256 new) with
+    speculation off and at each depth of ``depths``, in turns: a boundary's
+    wall ms over the tokens it advanced a slot (16 for a plain chunk, the
+    accepted drafts + 1 on average for a round), medians of ``steps``
+    boundaries after one; a round's ms; the acceptance rate."""
+    from orion_tpu_torch.generate import SampleConfig
+    from orion_tpu_torch.serving import DecodeRequest
+
+    greedy = SampleConfig(temperature=0.0)
+    prompts = [p[:, :256] for p in _serve_prompts(plan, model.cfg.vocab_size)]
+    out = {d: {"ms_per_token": [], "step_ms": [], "accepted": 0, "drafted": 0} for d in depths}
+    for _ in range(turns):
+        for d in depths:
+            gc.collect()
+            rounds = []
+            eng = serve_engine(model, "host", spec_depth=d, spec_min_accept=0.0,
+                               on_event=lambda k, f: rounds.append(f) if k == "spec_round"
+                               else None)
+            for j in range(SERVE_SLOTS):
+                eng.admit(DecodeRequest(prompts[j % len(prompts)], 256, greedy, seed=900 + j),
+                          tag=j)
+            eng.step()  # warm-up
+            per, ms = [], []
+            for _ in range(steps):
+                dt, _ = wall_ms(eng.step)
+                advanced = sum(e["decode_tokens"] for e in eng.last_boundary) / SERVE_SLOTS
+                per.append(dt / advanced)
+                ms.append(dt)
+            out[d]["ms_per_token"].append(float(np.median(per)))
+            out[d]["step_ms"].append(float(np.median(ms)))
+            out[d]["accepted"] += sum(f["accepted"] for f in rounds)
+            out[d]["drafted"] += sum(f["accepted"] + f["rejected"] for f in rounds)
+            del eng
+    for d in depths:
+        out[d]["accept_rate"] = (out[d]["accepted"] / out[d]["drafted"]
+                                 if out[d]["drafted"] else None)
+    log(f"{label} speculation readings ({card}): decode ms/token at 4 busy slots by depth (0: "
+        f"plain chunks of {SERVE_CHUNK}), turns in order: "
+        + "; ".join(f"depth {d}: {out[d]['ms_per_token']} (a boundary {out[d]['step_ms']} ms, "
+                    f"acceptance {out[d]['accept_rate']})" for d in depths))
+    return out
+
+
+def spec_cli(config, card, n_prompts=4, prompt_len=200, device_args=(), timeout=600):
+    """``python -m orion_tpu_torch.serving --config <config> --slots 4 --chunk
+    16 --max-new-tokens 32 --temperature 0 --spec-depth 4`` in a subprocess
+    on the card, the prompts on stdin: exit 0, every prompt served, the
+    stats line naming the depth and a ``speculation:`` line."""
+    rng = np.random.default_rng(13)
+    text = "".join("".join(chr(c) for c in rng.integers(97, 123, prompt_len)) + "\n"
+                   for _ in range(n_prompts))
+    cmd = [sys.executable, "-m", "orion_tpu_torch.serving", "--config", config, "--slots",
+           str(SERVE_SLOTS), "--chunk", str(SERVE_CHUNK), "--max-new-tokens", str(SERVE_NEW),
+           "--temperature", "0", "--spec-depth", str(SPEC_DEPTH), *device_args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, input=text, capture_output=True, text=True, cwd=str(ROOT),
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=timeout)
+    wall = time.perf_counter() - t0
+    err = proc.stderr.splitlines()
+    stats = next((line for line in err if line.startswith("stats:")), None)
+    spec = next((line for line in err if line.startswith("speculation:")), None)
+    occ = next((line for line in err if line.startswith("slot occupancy:")), None)
+    res = {"rc": proc.returncode, "wall_s": wall, "stats": stats, "speculation": spec,
+           "occupancy": occ}
+    log(f"serving CLI with --spec-depth {SPEC_DEPTH} ({config}, {card}): exit {proc.returncode} "
+        f"in {wall:.1f} s wall; {stats}; {spec}; {occ}")
+    if proc.returncode != 0 or stats is None or f"'ok': {n_prompts}" not in stats or \
+            spec is None or f"spec-depth {SPEC_DEPTH}" not in (occ or "") or \
+            len(proc.stdout.splitlines()) != n_prompts:
+        raise AssertionError(f"the serving CLI with --spec-depth failed: rc {proc.returncode}; "
+                             f"stderr tail {proc.stderr[-2000:]}")
+    return res
+
+
+def spec_check(dev, mods, model, plan, label, card, engine, quant="", full=False,
+               mutant=False):
+    """The speculative part (``SlotEngine(spec_depth=4)``, 4 slots, chunk 16,
+    no floor): the model-level checks (``spec_model_check``); the plan served
+    again for every (sampling, admission) pair of ``engine`` (the plain runs'
+    tokens), each request bitwise the plain run's, with exact launches
+    (``_spec_want``), every pure-decode boundary a round, and for an
+    all-linear model (its draft is the whole model) every draft accepted.
+    ``full``: the rewind rung on a mid-speculation slot (NaN in slot 0's
+    rows at its chunk 1: every request bitwise), the plan through a
+    ``Server`` with ``spec_depth=4`` (bitwise the engine's, its speculation
+    section and counters consistent, one acceptance observation a
+    request), the readings (``spec_times``) and the CLI (``spec_cli``, for
+    a model with swa layers). ``mutant``: the same checks with the verify
+    piece's products at its own row count (``verify_rows`` undone): which
+    of them reject it is recorded, not failed."""
+    from orion_tpu_torch.generate import SampleConfig
+    from orion_tpu_torch.resilience import inject
+
+    t_part = time.perf_counter()
+    samples = {"greedy": SampleConfig(temperature=0.0), "sampled": SampleConfig(**SAMPLED_SERVE)}
+    linear = all(lt == "linear" for lt in model.cfg.resolved_layer_types)
+    out = {"model": spec_model_check(model, label), "launches": {}, "runs": {}}
+    for (sname, mode), want_tokens in sorted(engine.items()):
+        gc.collect()
+        _reset_counts(mods)
+        t0 = time.perf_counter()
+        got, st = run_plan(model, plan, samples[sname], mode, spec_depth=SPEC_DEPTH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts(mods)
+        want = _spec_want(model.cfg, st, quant)
+        run = f"{sname} {mode}"
+        equal = _tokens(got) == want_tokens
+        rate = st["accepted"] / max(st["accepted"] + st["rejected"], 1)
+        out["launches"][run] = counts
+        out["runs"][run] = {"s": secs, "stats": st, "equal": equal, "accept_rate": rate}
+        log(f"{label} speculation, {run}: {len(plan)} requests in {secs:.2f} s, {st}; acceptance "
+            f"{rate:.4f}; launches {dict((k, v) for k, v in counts.items() if v)}; tokens bitwise "
+            f"the plain run's: {equal}")
+        if counts != want:
+            raise AssertionError(f"{label} speculation {run} launched {counts}, want {want}")
+        if not equal or any(r.status != "ok" for r in got.values()):
+            raise AssertionError(f"{label} speculation {run}: tokens differ from the plain run's")
+        if st["rounds"] != st["pure"] or not st["rounds"]:
+            raise AssertionError(f"{label} speculation {run}: {st['rounds']} rounds at "
+                                 f"{st['pure']} pure-decode boundaries")
+        if linear and st["rejected"]:
+            raise AssertionError(f"{label} speculation {run}: the all-linear model rejected "
+                                 f"{st['rejected']} of its own drafts")
+    if mutant:
+        out["mutant"] = spec_mutant(model, plan, label, engine, samples)
+    if full:
+        greedy_host = engine[("greedy", "host")]
+        fault = inject.FaultPlan().poison_decode_slot_at(0, chunk=1)
+        got, st = run_plan(model, plan, samples["greedy"], "host", fault=fault,
+                           spec_depth=SPEC_DEPTH)
+        out["rewind"] = {"delivered": fault.delivered, "equal": _tokens(got) == greedy_host,
+                         "rewinds": {i: r.rewinds for i, r in got.items() if r.rewinds},
+                         "reprefills": sum(r.reprefills for r in got.values())}
+        log(f"{label} speculation, NaN in slot 0's rows at its chunk 1 (a round): {out['rewind']}")
+        if not (out["rewind"]["equal"] and out["rewind"]["rewinds"] == {0: 1}
+                and not out["rewind"]["reprefills"]):
+            raise AssertionError(f"{label} speculation: the rewind rung misbehaved: "
+                                 f"{out['rewind']}")
+        _reset_counts(mods)
+        srv, ps, secs = server_plan(model, plan, samples["greedy"], "host",
+                                    spec_depth=SPEC_DEPTH, spec_min_accept=0.0)
+        counts = _counts(mods)
+        snap = srv.snapshot()
+        spec, flat = snap["speculation"], srv.metrics.counters_flat()
+        hist = [h for h in snap["metrics"]["histograms"] if h["name"] == "spec_accept_rate"]
+        stats = {"host_prefills": len(srv.flight.events("admit")), "unified": 0,
+                 "rounds": srv.stats["chunks"]}
+        want = _spec_want(model.cfg, stats, quant)
+        got = {i: p.result.tokens[0].tolist() for i, p in enumerate(ps)}
+        out["server"] = {"s": secs, "equal": got == greedy_host, "speculation": spec,
+                         "accept_observations": hist[0]["count"] if hist else 0,
+                         "launches": counts}
+        out["launches"]["server greedy host"] = counts
+        log(f"{label} speculation through the Server (spec_depth {SPEC_DEPTH}): {len(plan)} "
+            f"requests in {secs:.2f} s, stats {srv.stats}; speculation section {spec}; "
+            f"acceptance observations {out['server']['accept_observations']}; launches "
+            f"{dict((k, v) for k, v in counts.items() if v)}; tokens bitwise the engine's: "
+            f"{out['server']['equal']}")
+        consistent = (spec["depth"] == SPEC_DEPTH
+                      and spec["accepted_total"] == flat.get("spec_accepted_total", 0)
+                      and spec["rejected_total"] == flat.get("spec_rejected_total", 0)
+                      and spec["accepted_total"] + spec["rejected_total"] > 0
+                      and spec["floors_total"] == 0
+                      and out["server"]["accept_observations"] == len(plan)
+                      and (not linear or spec["rejected_total"] == 0))
+        if not (out["server"]["equal"] and srv.stats["ok"] == len(plan) and consistent):
+            raise AssertionError(f"{label} speculation through the Server: {out['server']}")
+        if counts != want:
+            raise AssertionError(f"{label} speculation Server launched {counts}, want {want}")
+        srv.close()
+        del srv, ps
+        out["times"] = spec_times(model, plan, label, card)
+        if not linear:
+            out["cli"] = spec_cli(model.cfg.name, card)
+    out["part_s"] = time.perf_counter() - t_part
+    log(f"{label} speculative part took {out['part_s']:.1f} s")
+    return out
+
+
+def spec_mutant(model, plan, label, engine, samples):
+    """The fault the row count exists for: the verify piece's products at its
+    own row count (20 rows at 4 slots) while a decode step's run at
+    ``DECODE_ROWS``. -> which checks see it by the numbers: the piece's
+    logits against the decode walk's, the advance against the walk, the
+    greedy host run's tokens, the all-linear model's acceptance (the
+    products' row count, which the model-level check also reads, names the
+    fault on any device)."""
+    from orion_tpu_torch.models import transformer
+
+    saved = transformer.verify_rows
+    transformer.verify_rows = lambda n: n
+    try:
+        m = spec_model_check(model, f"{label} (mutant: the piece at its own row count)",
+                             strict=False)
+        got, st = run_plan(model, plan, samples["greedy"], "host", spec_depth=SPEC_DEPTH)
+    finally:
+        transformer.verify_rows = saved
+    res = {"logits_bitwise": m["logits_bitwise"], "logits_max_abs": m["logits_max_abs"],
+           "advance_bitwise": all(m["keep"].values()), "product_rows": m["product_rows"],
+           "tokens_differ": _tokens(got) != engine[("greedy", "host")],
+           "rejected_drafts": st["rejected"], "rejecting_rounds": st["rejecting_rounds"],
+           "rounds": st["rounds"]}
+    res["rejected"] = bool(not m["logits_bitwise"] or not res["advance_bitwise"]
+                           or res["tokens_differ"] or st["rejected"])
+    log(f"{label} speculation mutant (the verify piece unpadded): {res}")
+    return res
+
+
 def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", "ladder",
                                                                  "session", "times"),
                   server_runs=()):
@@ -3809,7 +4134,8 @@ def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", 
     with no op whose row depends on the batch (f); "g" -- pieces against
     ``prefill_last``; "ladder", "session" -- ``_ladder_check``,
     ``_session_check``; "times" -- ``serve_times``; "decode_session" --
-    ``session_check`` (``DecodeSession``). ``server_runs``: (sampling,
+    ``session_check`` (``DecodeSession``); "spec" -- the speculative part
+    (``spec_check``; "spec_full" and "spec_mutant" widen it). ``server_runs``: (sampling,
     admission) pairs served again through ``serving.Server`` and held
     bitwise against these engine runs (``server_check``; "server_full" in
     ``checks`` adds overload, the SIGTERM drain, the readings and the
@@ -3982,6 +4308,9 @@ def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", 
     if "stores" in checks:
         res["stores"] = stores_check(dev, mods, model, label, card, quant=quant, fp=fp,
                                      full="stores_full" in checks)
+    if "spec" in checks:
+        res["spec"] = spec_check(dev, mods, model, plan, label, card, engine_tokens, quant=quant,
+                                 full="spec_full" in checks, mutant="spec_mutant" in checks)
     log(f"{label} phase took {time.perf_counter() - t_phase:.1f} s")
     del model, fp
     torch.cuda.empty_cache()
@@ -4369,14 +4698,15 @@ def main() -> int:
         "lm_1b3": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card,
                                 checks=("b", "f", "g", "ladder", "session", "times",
                                         "decode_session", "server_full", "stores",
-                                        "stores_full"), server_runs=both),
+                                        "stores_full", "spec", "spec_full", "spec_mutant"),
+                                server_runs=both),
         "lm_1b3_int4": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, quant="int4",
-                                     checks=("f", "stores"), server_runs=host),
+                                     checks=("f", "stores", "spec"), server_runs=host),
         # the hybrid's in-scan pieces run its swa plain, as in JAX: row 6 only
         # in the host (solo) prefill and a prefix publish's
         "hybrid_1b3": serving_phase(dev, mods, "hybrid_1b3", HYBRID_PLAN, card,
                                     checks=("b", "f", "g", "ladder", "session", "times",
-                                            "stores"), server_runs=host),
+                                            "stores", "spec", "spec_full"), server_runs=host),
     }
     log(f"serving phases done at {time.perf_counter() - t0:.1f} s")
 
@@ -4443,6 +4773,12 @@ def main() -> int:
             k["launches_stores"] = {label: {run: c[k["name"]]
                                             for run, c in r["stores"]["launches"].items()}
                                     for label, r in serving.items()}
+            # the speculative part: the plan again with spec_depth 4 (rows 1
+            # and 6 only in admissions; row 14 in the draft steps and the
+            # verify pieces), and through a speculating Server
+            k["launches_spec"] = {label: {run: c[k["name"]]
+                                          for run, c in r["spec"]["launches"].items()}
+                                  for label, r in serving.items()}
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -18,10 +18,11 @@ The port's counterpart of ``orion_tpu/generate.py``:
    greedy tokens match exactly.
 
 The serving walk's programs (the JAX package's ``prefill_carry``,
-``decode_chunk``, ``generate_chunked``, ``decode_batched_chunk`` and
-``decode_batched_prefill_chunk``) are here too: plain Python loops over
-``decode_step`` and ``prefill_extend_step`` that advance the decode state in
-place, with no host read-back.
+``decode_chunk``, ``generate_chunked``, ``decode_batched_chunk``,
+``decode_batched_prefill_chunk`` and ``decode_batched_spec_round``) are here
+too: plain Python loops over ``decode_step``, ``prefill_extend_step`` and the
+speculative ``draft_step`` / ``verify_step`` that advance the decode state
+in place, with no host read-back.
 
 A capacity-dispatch MoE model is served with its capacity factor raised to
 E / k for the call (the JAX package's no-drop serving rule): decode never
@@ -530,6 +531,71 @@ def decode_batched_prefill_chunk(model: TransformerLM, carry, keys: Tensor, acti
         emitting = active & (t >= plen)
         return _batched_loop(model, sample, keys, emitting, (token, states, t, emit, done),
                              n_steps)
+
+
+# -- self-speculative decode ---------------------------------------------------
+# A model with linear layers holds its own draft: those layers alone, an O(1)
+# recurrence, run ahead a few tokens cheaply (``draft_step``), and the full
+# model verifies them in one piece (``verify_step``) whose logits are bitwise
+# the plain walk's. Every fed position is re-sampled from the full model's
+# logits at the fold the plain walk would use (the draft samples at the same
+# folds, so sampled drafts share its randomness), and only the matching
+# prefix is kept: the emitted tokens are the plain walk's, greedy and
+# sampled; the draft moves only the speed. The rejected tokens' updates never
+# land (``advance_verified_states``).
+
+
+@torch.inference_mode()
+def decode_batched_spec_round(model: TransformerLM, carry, keys: Tensor, active: Tensor,
+                              spec_on: Tensor, depth: int, sample: SampleConfig):
+    """One speculative round over the slot-multiplexed carry (the JAX
+    package's ``decode_batched_spec_round``) -> (carry, emitted [S, depth +
+    1], accepted drafts [S]).
+
+    Each row drafts ``depth`` tokens on the linear layers from a shadow (S,
+    z), the full model verifies the pending token and the drafts in one
+    piece, each position is re-sampled at fold ``emit + 1 + j``, and the
+    drafts that match the re-samples, in order, are accepted (none for a row
+    with ``spec_on`` False or not ``active``). A row then consumes ``keep =
+    accepted + 1`` fed tokens (0 when not active) and emits them with the
+    plain body's EOS / PAD walk, its state advances by exactly those tokens,
+    and its new pending token is the re-sample at fold ``emit + keep``: the
+    plain walk's invariant, so speculative and plain boundaries interleave
+    with the same tokens. Positions past the end are clamped, as the plain
+    step's. Nothing is read back to the host."""
+    from orion_tpu_torch.models.transformer import linear_layer_indices
+
+    token, states, t, emit, done = carry
+    last = model.cfg.max_seq_len - 1
+    lin_states = [states[i] for i in linear_layer_indices(model.cfg)]
+    tok, drafts = token, []
+    for j in range(depth):
+        logits, lin_states = model.draft_step(tok, lin_states, (t + j).clamp(max=last))
+        tok = sample_rows(logits, rngs.fold_keys(keys, emit + 1 + j), sample)
+        drafts.append(tok)
+    del lin_states
+    fed = torch.stack([token, *drafts], dim=1)  # [S, depth + 1]
+    logits, upds = model.verify_step(fed, states, t)
+    cs = torch.stack([sample_rows(logits[:, j].contiguous(), rngs.fold_keys(keys, emit + 1 + j),
+                                  sample) for j in range(depth + 1)], dim=1)
+    n = torch.cumprod((fed[:, 1:] == cs[:, :depth]).long(), dim=1).sum(dim=1)
+    n = torch.where(spec_on & active, n, 0)
+    keep = torch.where(active, n + 1, 0)
+    pad = torch.full_like(token, sample.pad_token)
+    if sample.eos_token >= 0:
+        cols = []
+        for j in range(depth + 1):
+            live = active & (j < keep)
+            e = torch.where(done | ~live, pad, fed[:, j])
+            done = done | (live & (e == sample.eos_token))
+            cols.append(e)
+        emitted = torch.stack(cols, dim=1)
+    else:
+        live = active[:, None] & (torch.arange(depth + 1, device=t.device)[None, :] < keep[:, None])
+        emitted = torch.where(live, fed, sample.pad_token)
+    states = model.advance_verified_states(states, upds, t, keep)
+    token = torch.where(active, cs.gather(1, n[:, None])[:, 0], token)
+    return (token, states, t + keep, emit + keep, done), emitted, n
 
 
 def main(argv=None) -> int:

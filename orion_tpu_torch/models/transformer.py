@@ -46,7 +46,14 @@ elu+1). Three entry methods, as in the JAX package:
   count makes that choice once. A batch of more rows runs unpadded and is
   not covered;
 - ``prefill_extend_step(tokens, states, offset, length)`` -- one piece of
-  a chunked prefill, for the serving engine's in-scan admission.
+  a chunked prefill, for the serving engine's in-scan admission;
+- ``draft_step`` / ``verify_step`` / ``advance_verified_states`` -- self-
+  speculative decode: the linear layers alone draft a token (rows padded as
+  a decode step's), the full model verifies P fed tokens a row in one piece
+  whose logits are bitwise P ``decode_step`` calls (its products on blocks
+  of ``DECODE_ROWS`` rows, ``verify_rows``; the state walked token by token
+  with decode's ops), and the advance keeps the first ``keep`` tokens of
+  each row, a rejected token's update never observable.
 
 Numerics follow the flax model (these are where parity breaks first):
 dense layers run in the compute dtype on weights rounded to it (flax
@@ -132,6 +139,21 @@ def decode_rows(x: Tensor) -> Tensor:
     """A decode step's hidden rows [B, D] padded to ``DECODE_ROWS``: the one
     place that fixes the row count of the step's products."""
     return pad_rows(x, DECODE_ROWS)
+
+
+def verify_rows(n: int) -> int:
+    """The row count of every product of a verify piece of ``n`` hidden rows:
+    a decode step's, ``DECODE_ROWS`` (the piece runs as blocks of it, each
+    product once a block), so a verified row rounds as its decode step."""
+    return DECODE_ROWS
+
+
+def _by_blocks(fn, x: Tensor, rows: int) -> Tensor:
+    """``fn`` over x [N, ...] (N a multiple of ``rows``) one block of ``rows``
+    rows at a time, the outputs concatenated."""
+    if x.shape[0] == rows:
+        return fn(x)
+    return torch.cat([fn(blk) for blk in x.split(rows)])
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -433,6 +455,101 @@ class Attention(nn.Module):
         out = cached_attention(qr, kc, vc, valid)
         return self._merge(pad_rows(out, rows), single=True), {"k": kc, "v": vc}
 
+    def verify_extend(self, x: Tensor, state: State, pos: Tensor, rows: int
+                      ) -> Tuple[Tensor, State]:
+        """The self-speculative verify piece of one layer (the JAX package's
+        ``verify_extend``): ``x`` [N, D] holds the hidden rows of P fed
+        tokens for each of B sequences (row b * P + j at position ``pos[b,
+        j]``, ``pos`` [B, P]), zero rows after them up to a multiple of
+        ``rows``. -> (the attention out [N, D], the payload of
+        ``advance_verified``).
+
+        Every product runs on blocks of ``rows`` rows (``verify_rows``: a
+        decode step's row count), and the state's part replays
+        ``decode_step``'s op sequence token by token at [B, H, Dh]: the
+        linear recurrence (``recurrent_step``) from (S, z), the cache's
+        rotary, write and query (``cached_attention``). So the out of row
+        (b, j) is bitwise what P successive ``decode_step`` calls give.
+
+        A linear layer's (S, z) is left as it was (the payload holds the P
+        tokens' phi(k) and v). A softmax / swa layer walks its cache or ring
+        in place, and the payload holds the rows the walk overwrote, which
+        ``advance_verified`` writes back for the rejected tokens."""
+        b, p = pos.shape
+        n = b * p
+        blocks = [self._heads(blk) for blk in x.split(rows)]
+        linear = self.layer_type == "linear"
+
+        def steps(i):  # [N, H, Dh] -> [B, P, H, Dh]
+            parts = [qkv[i] for qkv in blocks]
+            if linear and i < 2:
+                parts = [self._phi_map(a) for a in parts]
+            return torch.cat(parts)[:n].reshape(b, p, *parts[0].shape[1:])
+
+        q, k, v = steps(0), steps(1), steps(2)
+        outs = []
+        if linear:
+            st = (state["s"], state["z"])
+            for j in range(p):
+                out, st = recurrent_step(q[:, j].contiguous(), k[:, j].contiguous(),
+                                         v[:, j].contiguous(), st)
+                outs.append(out)
+            upd = {"k": k, "v": v}
+        else:
+            kc, vc = state["k"], state["v"]
+            cap = kc.shape[-2]
+            idx = torch.arange(b, device=x.device)
+            saved_k, saved_v = [], []
+            for j in range(p):
+                tj = pos[:, j]
+                qr = apply_rotary_at(q[:, j].contiguous(), self.freqs, tj[:, None])
+                kr = apply_rotary_at(k[:, j].contiguous(), self.freqs, tj[:, None])
+                slot = tj % cap if self.layer_type == "swa" else tj
+                saved_k.append(kc[idx, :, slot])
+                saved_v.append(vc[idx, :, slot])
+                kc[idx, :, slot] = kr.to(kc.dtype)
+                vc[idx, :, slot] = v[:, j].to(vc.dtype)
+                valid = torch.arange(cap, device=x.device)[None, None, :] <= tj[:, None, None]
+                outs.append(cached_attention(qr, kc, vc, valid))
+            upd = {"k": torch.stack(saved_k, 1), "v": torch.stack(saved_v, 1)}
+        out = pad_rows(torch.stack(outs, 1).reshape(n, *outs[0].shape[1:]), x.shape[0])
+        return _by_blocks(lambda o: self._merge(o, single=True), out, rows), upd
+
+    def advance_verified(self, state: State, upd: State, pos: Tensor, keep: Tensor) -> State:
+        """The clamped advance after a verify piece (the JAX package's
+        ``advance_verified``): the state of the first ``keep[b]`` fed tokens
+        of each row, bitwise their walk; a rejected token's update is never
+        observable.
+
+        - linear: recurrent_step's fp32 rank-1 adds replayed in order, each
+          behind a select on j < keep (the same elementwise ops on the same
+          operands, so the kept prefix is bitwise the walk and a skipped add
+          leaves (S, z) as they were);
+        - softmax / swa: the piece walked the cache in place, so the rows it
+          overwrote for j >= keep are written back, last token first (the
+          slots of P consecutive positions are distinct in a ring of
+          ``window`` >= P; positions clamped at the cache's end write back in
+          that order too)."""
+        b, p = pos.shape
+        if self.layer_type == "linear":
+            s, z = state["s"], state["z"]
+            for j in range(p):
+                take = j < keep
+                kf, vf = upd["k"][:, j].float(), upd["v"][:, j].float()
+                s = torch.where(take[:, None, None, None], s + kf[..., :, None] * vf[..., None, :],
+                                s)
+                z = torch.where(take[:, None, None], z + kf, z)
+            return {"s": s, "z": z}
+        kc, vc = state["k"], state["v"]
+        cap = kc.shape[-2]
+        idx = torch.arange(b, device=pos.device)
+        for j in reversed(range(p)):
+            back = (j >= keep)[:, None, None]
+            slot = pos[:, j] % cap if self.layer_type == "swa" else pos[:, j]
+            kc[idx, :, slot] = torch.where(back, upd["k"][:, j], kc[idx, :, slot])
+            vc[idx, :, slot] = torch.where(back, upd["v"][:, j], vc[idx, :, slot])
+        return {"k": kc, "v": vc}
+
     def prefill_extend(self, x: Tensor, state: State, offset, length) -> Tuple[Tensor, State]:
         """One chunked-prefill piece (the JAX package's ``prefill_extend``):
         ``x`` [B, P, D] holds rows [offset, offset + P) of the prompt's
@@ -640,6 +757,14 @@ class Block(nn.Module):
         x = x + h
         return x + self.mlp(self.norm2(x)), state
 
+    def verify_extend(self, x: Tensor, state: State, pos: Tensor, rows: int
+                      ) -> Tuple[Tensor, State]:
+        """The verify piece through the block (``Attention.verify_extend``):
+        the norms and the MLP one block of ``rows`` rows at a time."""
+        h, upd = self.attn.verify_extend(_by_blocks(self.norm1, x, rows), state, pos, rows)
+        x = x + h
+        return x + _by_blocks(lambda y: self.mlp(self.norm2(y)), x, rows), upd
+
 
 class TransformerLM(nn.Module):
     """Decoder LM over token ids; see the module docstring.
@@ -824,6 +949,69 @@ class TransformerLM(nn.Module):
             new_states.append(st)
         return self._head(x)[:token.shape[0]], new_states
 
+    # -- self-speculative decode: the linear layers draft, one piece verifies --
+
+    def draft_step(self, token: Tensor, lin_states: List[State], t
+                   ) -> Tuple[Tensor, List[State]]:
+        """One draft step (the JAX package's ``draft_step``): embed -> only
+        the ``linear`` blocks -> final norm -> head, the softmax / swa blocks
+        skipped (no cache read or written). ``lin_states``: the linear
+        layers' (S, z) in layer order (``linear_layer_indices``); new ones are
+        returned, the given ones left as they were. Rows padded to
+        ``DECODE_ROWS`` as ``decode_step``'s."""
+        x = decode_rows(self._embed(token, t))
+        new_states: List[State] = []
+        it = iter(lin_states)
+        for blk, lt in zip(self.blocks, self.cfg.resolved_layer_types):
+            if lt == "linear":
+                x, st = blk.decode_step(x, next(it), t)
+                new_states.append(st)
+        return self._head(x)[:token.shape[0]], new_states
+
+    def verify_step(self, tokens: Tensor, states: List[State], t
+                    ) -> Tuple[Tensor, List[State]]:
+        """The verify piece (the JAX package's ``verify_step``): ``tokens``
+        [B, P] are each row's pending token and P - 1 drafts, at positions
+        ``t`` [B] onward. -> (the logits at every fed position [B, P, V], the
+        layers' payloads for ``advance_verified_states``).
+
+        The logits are bitwise P successive ``decode_step`` calls: the B * P
+        hidden rows run as blocks of ``verify_rows`` rows (a decode step's
+        ``DECODE_ROWS``), every weight streamed once a block, and each
+        layer's state walk replays decode's ops token by token
+        (``Attention.verify_extend``). The caches and rings are walked in
+        place: until ``advance_verified_states`` the states hold all P
+        tokens. Positions past ``max_seq_len - 1`` (a round overshooting a
+        request that ends near it) are clamped to it, as the slot programs
+        clamp a decode step's, so no index leaves the tables; the JAX
+        package's lookup gives NaN there. Such rows are never emitted."""
+        b, p = tokens.shape
+        pos = self._piece_positions(t, b, p, tokens.device)
+        n = b * p
+        rows = verify_rows(n)
+        x = pad_rows(self._embed(tokens.reshape(n), pos.reshape(n)), -(-n // rows) * rows)
+        upds = []
+        for blk, st in zip(self.blocks, states):
+            x, upd = blk.verify_extend(x, st, pos, rows)
+            upds.append(upd)
+        logits = _by_blocks(self._head, x, rows)[:n]
+        return logits.reshape(b, p, -1), upds
+
+    def _piece_positions(self, t, b: int, p: int, device) -> Tensor:
+        """A verify piece's positions [B, P], t + j, clamped at max_seq_len - 1."""
+        t = torch.as_tensor(t, device=device).long().expand(b)
+        return (t[:, None] + torch.arange(p, device=device)).clamp(max=self.cfg.max_seq_len - 1)
+
+    def advance_verified_states(self, states: List[State], upds: List[State], t, keep: Tensor
+                                ) -> List[State]:
+        """The first ``keep[b]`` verified tokens' updates applied to each row
+        b, a rejected suffix left unobservable (``Attention.advance_verified``):
+        bitwise the walk of the kept tokens. ``t`` [B]: the positions the
+        piece started at."""
+        pos = self._piece_positions(t, keep.shape[0], upds[0]["v"].shape[1], keep.device)
+        return [blk.attn.advance_verified(st, upd, pos, keep)
+                for blk, st, upd in zip(self.blocks, states, upds)]
+
     def prefill_extend_step(
         self, tokens: Tensor, states: List[State], offset, length
     ) -> Tuple[Tensor, List[State]]:
@@ -847,6 +1035,13 @@ class TransformerLM(nn.Module):
             new_states.append(st)
         last = x.index_select(1, (length - 1).clamp(min=0).reshape(1))[:, 0]
         return self._head(last), new_states
+
+
+def linear_layer_indices(cfg: ModelConfig) -> Tuple[int, ...]:
+    """The indices of the ``linear`` layers: the model's own draft
+    (``TransformerLM.draft_step``), whose (S, z) rows the speculative round
+    takes out of the batched state."""
+    return tuple(i for i, lt in enumerate(cfg.resolved_layer_types) if lt == "linear")
 
 
 def lecun_normal(w: Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -990,5 +1185,5 @@ __all__ = [
     "make_norm", "init_blocks", "run_blocks", "lecun_normal", "init_decode_state",
     "check_supported", "snapshot_decode_state", "decode_state_finite",
     "decode_state_finite_per_slot", "insert_decode_slot", "extract_decode_slot",
-    "DECODE_ROWS", "decode_rows", "pad_rows",
+    "DECODE_ROWS", "decode_rows", "pad_rows", "verify_rows", "linear_layer_indices",
 ]

@@ -2,7 +2,8 @@
 
 - :mod:`batching` -- :class:`SlotEngine`: slot-multiplexed continuous
   batching (admission and eviction at chunk boundaries, in-scan prefill, the
-  per-slot degradation ladder, session suspend and resume).
+  per-slot degradation ladder, session suspend and resume, self-speculative
+  rounds).
 - :mod:`session` -- :class:`DecodeSession`: single-request chunked decode
   with snapshots, the finite probe and the degradation ladder.
 - :mod:`server` -- :class:`Server`: the scheduler loop over the engine:
@@ -18,8 +19,8 @@
   DRAINING -> DEAD health state machine.
 - :mod:`locks` -- the declared lock hierarchy (data).
 
-``python -m orion_tpu_torch.serving`` is the CLI. Speculative decode follows
-(ROADMAP.md A8 step 4).
+``python -m orion_tpu_torch.serving`` is the CLI. Self-speculative decode
+(``spec_depth``) runs through the engine, the Server and the CLI.
 """
 
 from orion_tpu_torch.serving.batching import SlotEngine, parse_buckets

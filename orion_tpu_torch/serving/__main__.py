@@ -25,10 +25,15 @@ weights identity derived as the JAX package's CLI does: ``--config``, the
 fingerprint of the ``--set`` overrides, and the checkpoint's step (or the
 init seed 0).
 
+Self-speculative decode: ``--spec-depth N`` drafts N tokens a slot a round
+on the model's linear layers and verifies them in one piece (the tokens are
+the plain walk's, bitwise), ``--spec-min-accept`` floors a slot whose rolling
+acceptance falls below it; a ``speculation:`` line on stderr counts the
+drafts accepted and rejected and the floors.
+
 The reference's flags for parts the port does not serve yet are accepted
 and refused with ``NotImplementedError`` naming their ROADMAP.md item when
-set: ``--spec-depth``,
-``--spec-min-accept`` (A8 step 4), ``--tp`` (A12), ``--metrics-port``,
+set: ``--tp`` (A12), ``--metrics-port``,
 ``--slo-latency-ms``, ``--slo-target``, ``--profile-dir`` (A9). The port
 computes no cost attribution (A9), so the reference's ``--no-cost`` and
 ``--no-cost-ledger`` have nothing to turn off and are not flags here.
@@ -55,8 +60,6 @@ from orion_tpu_torch.utils.device import resolve_device
 
 # the reference's flags for what is not ported: (flag, type, default, item)
 _NOT_PORTED_FLAGS = (
-    ("--spec-depth", int, 0, "A8 step 4"),
-    ("--spec-min-accept", float, 0.2, "A8 step 4"),
     ("--tp", int, 0, "A12"),
     ("--metrics-port", int, -1, "A9"),
     ("--slo-latency-ms", float, 0.0, "A9"),
@@ -93,6 +96,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--stall-timeout", type=float, default=0.0,
                    help="watchdog heartbeat budget per decode chunk (0 = off); must exceed the "
                         "kernels' build + one chunk")
+    p.add_argument("--spec-depth", type=int, default=0,
+                   help="self-speculative decode: the model's own linear layers draft up to "
+                        "this many tokens a slot and the full model verifies them in one "
+                        "piece; the tokens stay bitwise the plain walk's, greedy and sampled, "
+                        "only the speed changes; 0 = off (a config with a linear layer, no "
+                        "MoE, spec-depth + 1 <= window with swa layers)")
+    p.add_argument("--spec-min-accept", type=float, default=0.2,
+                   help="speculation floor: a slot whose rolling draft acceptance drops below "
+                        "this rides plain decode for the rest of its residency (0 = never)")
     p.add_argument("--qmode", choices=["off", "int8", "int4"], default="off",
                    help="quantize the weights once at startup (orion_tpu_torch/quant.py)")
     p.add_argument("--prefix-dir", default=None,
@@ -224,7 +236,8 @@ def _run(args, guard) -> int:
         chunk=args.chunk, slots=args.slots, max_inflight=args.max_inflight,
         deadline_ms=args.deadline_ms, stall_timeout=args.stall_timeout, grace=args.grace,
         prefill_buckets=args.prefill_buckets, prefill_chunk=args.prefill_chunk,
-        prompt_overflow=args.prompt_overflow, qmode=args.qmode,
+        prompt_overflow=args.prompt_overflow, qmode=args.qmode, spec_depth=args.spec_depth,
+        spec_min_accept=args.spec_min_accept,
         session_dir=args.session_dir, session_idle_s=args.session_idle_s,
         max_dirty_sessions=args.max_dirty_sessions, breaker_failures=args.breaker_failures,
         breaker_backoff=args.breaker_backoff, breaker_max_backoff=args.breaker_max_backoff,
@@ -289,7 +302,13 @@ def _run(args, guard) -> int:
             if args.prefill_chunk else "host prefill")
     print(f"slot occupancy: {server.occupancy_lifetime():.3f} ({args.slots} slot(s), chunk "
           f"{args.chunk}, {mode}" + (f", qmode {args.qmode}" if args.qmode != "off" else "")
-          + ")", file=sys.stderr)
+          + (f", spec-depth {args.spec_depth}" if args.spec_depth else "") + ")", file=sys.stderr)
+    if args.spec_depth:
+        flat = server.metrics.counters_flat()
+        acc, rej = flat.get("spec_accepted_total", 0), flat.get("spec_rejected_total", 0)
+        rate = acc / (acc + rej) if acc + rej else 0.0
+        print(f"speculation: {acc} draft(s) accepted, {rej} rejected (rate {rate:.3f}), "
+              f"{flat.get('spec_floor_total', 0)} slot floor(s)", file=sys.stderr)
     if args.prefix_dir:
         flat = server.metrics.counters_flat()
         print(f"prefix cache: {flat.get('prefix_hits', 0)} hit(s), "

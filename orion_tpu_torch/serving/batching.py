@@ -27,7 +27,8 @@ evictions on it. The engine drives ``generate.py``'s slot programs:
   keeps its state bitwise (the programs' per-row ``write`` mask).
 - **per-slot ladder** -- one host read an attempt: a [2, slots] bool of
   the per-row finite probe (``decode_state_finite_per_slot``) and the done
-  flags. A slot whose state is not finite walks the ladder alone: rewind
+  flags ([3, slots] at a speculative round, the accepted drafts beside
+  them). A slot whose state is not finite walks the ladder alone: rewind
   (redo the boundary from its snapshot; the other rows recompute the same
   tokens bitwise), then rebuild it from prompt + emitted tokens
   (``reprefill_carry``; a slot still mid-prefill restarts its in-scan
@@ -49,6 +50,16 @@ evictions on it. The engine drives ``generate.py``'s slot programs:
   store. The lookup is hashing and disk on the host; the hit's row goes to
   the card as pinned asynchronous copies; the store reads the card once a
   novel prefix, in the publish.
+- **self-speculation** -- with ``spec_depth > 0``, a boundary where no slot
+  is mid-prefill runs ``generate.decode_batched_spec_round`` in place of the
+  chunk: the model's linear layers draft up to ``spec_depth`` tokens a slot
+  and the full model verifies them in one piece whose logits are bitwise the
+  plain walk's, so the tokens are the plain walk's and only the speed moves.
+  A slot advances by its accepted drafts + 1, read in the boundary's one
+  probe transfer. ``spec_min_accept`` floors a slot whose rolling acceptance
+  (an EWMA, reset at admission) falls below it: it rides the rounds with no
+  drafts, one token a round; with every busy slot floored the plain chunk
+  runs. A boundary with a slot mid-prefill runs the unified program.
 
 Every op of a slot's row is row-wise, and a decode step's products run at
 one row count (``models/transformer.py``'s ``decode_rows``), so a request's
@@ -62,11 +73,9 @@ The engine serves whatever model it is handed, quantized (``generate.
 quantize_for_decode``) or not: every contract above holds per qmode.
 
 Left out, each with the ROADMAP.md item that brings it: the executable store
-(``attach_exec_store``, ``_warm_*``: A13);
-speculation (``spec_depth``, ``_update_spec_accept``, ``spec_info``: A8
-step 4); meshes and their exec lock (``mesh``, ``_TP_EXEC_LOCK``,
-``_serialized``: A12); the compile bookkeeping (``_compile_seen``: A9 / A13;
-eager torch compiles nothing).
+(``attach_exec_store``, ``_warm_*``: A13); meshes and their exec lock
+(``mesh``, ``_TP_EXEC_LOCK``, ``_serialized``: A12); the compile bookkeeping
+(``_compile_seen``: A9 / A13; eager torch compiles nothing).
 """
 
 from __future__ import annotations
@@ -81,8 +90,8 @@ import torch
 import torch.nn.functional as F
 
 from orion_tpu_torch.generate import (SampleConfig, bucket_for, decode_batched_chunk,
-                                      decode_batched_prefill_chunk, prefill_carry,
-                                      reprefill_carry, request_keys)
+                                      decode_batched_prefill_chunk, decode_batched_spec_round,
+                                      prefill_carry, reprefill_carry, request_keys)
 from orion_tpu_torch.models.transformer import (DECODE_ROWS, decode_state_finite_per_slot,
                                                 extract_decode_slot, init_decode_state,
                                                 insert_decode_slot, snapshot_decode_state)
@@ -207,6 +216,25 @@ def _copy_carry(carry):
     return (token.clone(), snapshot_decode_state(states), t.clone(), emit.clone(), done.clone())
 
 
+def _check_spec(cfg, depth: int) -> None:
+    """Refuse a speculation depth the model cannot verify bitwise, with the
+    JAX package's messages."""
+    kinds = cfg.resolved_layer_types
+    if depth < 1:
+        raise ValueError(f"spec_depth must be >= 0: {depth}")
+    if "linear" not in kinds:
+        raise ValueError("self-speculative decode drafts with the model's global-linear layers; "
+                         f"this config has none (layer_types={kinds})")
+    if cfg.n_experts > 0:
+        raise ValueError("self-speculative decode is dense-model only: MoE routing groups "
+                         "tokens across the verify piece's batch, so the piece cannot replay "
+                         "the per-token walk bitwise")
+    if "swa" in kinds and depth + 1 > cfg.window:
+        raise ValueError(f"spec_depth {depth} + 1 exceeds the swa window {cfg.window}: a round's "
+                         "positions must hit distinct ring slots for the clamped advance to "
+                         "equal the sequential writes")
+
+
 def parse_buckets(spec: str, max_seq_len: int) -> Tuple[int, ...]:
     """``--prefill-buckets`` spec -> sorted bucket lengths. ``"pow2"``:
     powers of two from 16 up to max_seq_len; ``"a,b,c"``: explicit;
@@ -234,12 +262,17 @@ class _Slot:
     tag: Any
     deadline_at: Optional[float]
     prompt: Tensor  # [1, T] on the device (kept for the re-prefill rung)
-    # per boundary (tokens [S, chunk] on the device, my row, valid count):
-    # the row is read at eviction, not at the boundary (a read a boundary
-    # would wait for the card at every chunk)
+    # per boundary (tokens [S, width] on the device, my row, valid count:
+    # ``chunk``, or a speculative round's accepted drafts + 1): the row is
+    # read at eviction, not at the boundary (a read a boundary would wait
+    # for the card at every chunk)
     toks: List[Tuple[Tensor, int, int]]
     n_emitted: int = 0
     chunks: int = 0  # request-local chunk index (the fault hooks' address)
+    # -- speculation (host mirrors of the probe's accepted row) --
+    spec_rounds: int = 0
+    spec_accepted: int = 0  # drafts accepted over this slot's rounds
+    spec_drafted: int = 0  # drafts proposed (rounds x depth while on)
     # prompt tokens the in-scan prefill has yet to consume (0: decoding;
     # always 0 for host-prefill admissions): the host mirror of the
     # device's plen - t, so no read-back says when a slot starts emitting
@@ -278,8 +311,12 @@ class SlotEngine:
     ``prompt_overflow``: a prompt past the largest bucket is refused
     (``"error"``) or cut to its newest tokens (``"clamp"``). ``on_event(kind,
     fields)``: a host-only telemetry tap (admissions, pieces, ladder rungs,
-    evictions, prefix hits, misses, publishes and drops). ``prefix_store``:
-    a ``PrefixStore`` to attach (``attach_prefix_store``)."""
+    evictions, prefix hits, misses, publishes and drops, speculative rounds
+    and floors). ``prefix_store``: a ``PrefixStore`` to attach
+    (``attach_prefix_store``). ``spec_depth`` > 0: self-speculative rounds
+    of that many drafts (a model with a linear layer, no MoE, and
+    ``spec_depth + 1 <= window`` with swa layers); ``spec_min_accept``: the
+    per-slot acceptance floor (0: never)."""
 
     def __init__(
         self,
@@ -293,6 +330,8 @@ class SlotEngine:
         prompt_overflow: str = "error",
         on_event: Optional[Callable[[str, dict], None]] = None,
         prefix_store: Optional[Any] = None,
+        spec_depth: int = 0,
+        spec_min_accept: float = 0.0,
         device=None,
     ):
         if slots <= 0 or chunk <= 0:
@@ -317,6 +356,15 @@ class SlotEngine:
         self.buckets = tuple(prefill_buckets)
         self.prompt_overflow = prompt_overflow
         cfg = model.cfg
+        self.spec_depth = int(spec_depth)
+        self.spec_min_accept = float(spec_min_accept)
+        if self.spec_depth:
+            _check_spec(cfg, self.spec_depth)
+        # the per-slot rolling acceptance and the speculation mask the floor
+        # keeps; both reset at admission
+        self._accept_ewma: List[Optional[float]] = [None] * int(slots)
+        self._spec_on_np = np.ones(int(slots), bool)
+        self._accept_np: Optional[np.ndarray] = None
         # in-scan prefill: piece boundaries land on linear-attention chunk
         # boundaries (where the pieces replay the monolithic prefill), so
         # the knob is rounded up to that chunk
@@ -430,6 +478,10 @@ class SlotEngine:
         elif sample != self._sample:
             raise ValueError("request's SampleConfig differs from the resident batch's; the slot "
                              "programs sample every row with one configuration")
+        # a new occupant speculates from a clean slate: the last one's
+        # acceptance must not floor it
+        self._accept_ewma[free[0]] = None
+        self._spec_on_np[free[0]] = True
         return free[0]
 
     def _occupy(self, i: int, slot: _Slot) -> None:
@@ -723,17 +775,25 @@ class SlotEngine:
             return finished
         active = np.array([s is not None for s in self._slots])
         unified = self.prefilling_count > 0
+        # a speculative round at a boundary with no slot mid-prefill (the
+        # unified program owns those) and a busy slot not floored; the mask
+        # goes to the card as an asynchronous copy
+        spec = None
+        if self.spec_depth and not unified and bool(np.any(active & self._spec_on_np)):
+            spec = _host_to(self._spec_on_np.copy(), self.device, torch.bool)
         snap = _copy_carry(self._carry)
-        carry, toks = self._attempt(self._carry, self._active_dev, unified)
-        bad = self._probe_bad(carry, active)
+        carry, toks, accepted = self._attempt(self._carry, self._active_dev, unified, spec)
+        bad = self._probe_bad(carry, active, accepted)
         if bad:
-            carry, toks, bad = self._ladder(snap, active, carry, toks, bad, unified)
+            carry, toks, bad = self._ladder(snap, active, carry, toks, bad, unified, spec)
             for i in sorted(bad):  # the ladder is exhausted: fail those requests
                 slot = self._slots[i]
                 self.last_boundary.append({
                     "slot": i, "tag": slot.tag, "failed": True,
-                    "frozen": slot.prompt_remaining > 0,
-                    "decode_steps": 0 if slot.prompt_remaining > 0 else self.chunk,
+                    "frozen": spec is None and slot.prompt_remaining > 0,
+                    "spec_round": spec is not None,
+                    "decode_steps": (0 if spec is not None or slot.prompt_remaining > 0
+                                     else self.chunk),
                     "prefill_tokens": 0, "decode_tokens": 0})
                 finished.append((slot.tag, self._finish(i, "failed")))
                 active[i] = False
@@ -742,10 +802,28 @@ class SlotEngine:
         # the host mirror of the piece's slot (the accepted attempt's
         # selection over the same inputs): no read-back
         sel = self._selected_prefill_slot(active)
+        spec_stats = None if spec is None else {"accepted": 0, "rejected": 0, "slots": 0}
         for i, slot in enumerate(self._slots):
             if slot is None or not active[i]:
                 continue
             slot.chunks += 1
+            if spec is not None:
+                # the probe's accepted row says how far the slot went: its
+                # accepted drafts + the pending token
+                v = int(self._accept_np[i]) + 1
+                slot.toks.append((toks, i, v))
+                slot.n_emitted += v
+                self.last_boundary.append({"slot": i, "tag": slot.tag, "spec_round": True,
+                                           "decode_steps": 0, "prefill_tokens": 0,
+                                           "decode_tokens": v})
+                if self._spec_on_np[i]:
+                    spec_stats["slots"] += 1
+                    spec_stats["accepted"] += v - 1
+                    spec_stats["rejected"] += self.spec_depth - (v - 1)
+                    self._update_spec_accept(i, v - 1)
+                if slot.n_emitted >= slot.target_new or self._done_np[i]:
+                    finished.append((slot.tag, self._finish(i, "ok")))
+                continue
             if slot.prompt_remaining > 0:
                 if i != sel:  # frozen: another slot had the budget
                     self.last_boundary.append({"slot": i, "tag": slot.tag, "frozen": True,
@@ -769,8 +847,45 @@ class SlotEngine:
                                        "decode_tokens": self.chunk})
             if slot.n_emitted >= slot.target_new or self._done_np[i]:
                 finished.append((slot.tag, self._finish(i, "ok")))
+        if spec_stats is not None and spec_stats["slots"]:
+            self._emit("spec_round", depth=self.spec_depth, **spec_stats)
         self._chunk_counter += 1
         return finished
+
+    def _update_spec_accept(self, i: int, accepted: int) -> None:
+        """Fold one round's acceptance into slot ``i``'s EWMA (halves) and
+        apply the floor: after at least two rounds, a slot whose EWMA is below
+        ``spec_min_accept`` stops drafting for the rest of its residency (a
+        ``spec_floor`` event). Host arithmetic on the probe's row."""
+        slot = self._slots[i]
+        slot.spec_rounds += 1
+        slot.spec_accepted += accepted
+        slot.spec_drafted += self.spec_depth
+        rate = accepted / max(self.spec_depth, 1)
+        prev = self._accept_ewma[i]
+        ewma = rate if prev is None else 0.5 * prev + 0.5 * rate
+        self._accept_ewma[i] = ewma
+        if (self.spec_min_accept > 0.0 and slot.spec_rounds >= 2 and self._spec_on_np[i]
+                and ewma < self.spec_min_accept):
+            self._spec_on_np[i] = False
+            self._emit("spec_floor", slot=i, tag=slot.tag, accept_ewma=round(ewma, 4),
+                       rounds=slot.spec_rounds)
+
+    def spec_info(self) -> List[dict]:
+        """Each resident slot's speculation: depth, whether it drafts, its
+        rolling acceptance and its lifetime counts. Host bookkeeping."""
+        if not self.spec_depth:
+            return []
+        out = []
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            e = self._accept_ewma[i]
+            out.append({"slot": i, "depth": self.spec_depth, "on": bool(self._spec_on_np[i]),
+                        "accept_ewma": None if e is None else round(e, 4),
+                        "rounds": slot.spec_rounds, "accepted": slot.spec_accepted,
+                        "drafted": slot.spec_drafted})
+        return out
 
     def _piece_tokens(self) -> int:
         """The boundary's prompt-token budget, capped at the staging
@@ -792,13 +907,20 @@ class SlotEngine:
                 best = i
         return best
 
-    def _attempt(self, carry, active_dev: Tensor, unified: bool = False):
+    def _attempt(self, carry, active_dev: Tensor, unified: bool = False,
+                 spec: Optional[Tensor] = None):
         """One batched boundary attempt from ``carry`` (its caches advanced
         in place): the unified prefill + decode program while a slot is
-        mid-prefill, the pure decode program otherwise -> (carry, tokens [S,
-        chunk]). An armed per-slot (or per-chunk) decode-state fault poisons
-        its slot afterwards, so each ladder rung is reachable on purpose."""
-        if unified:
+        mid-prefill, the speculative round when ``spec`` (the per-slot
+        speculation mask) is given, the pure decode program otherwise ->
+        (carry, tokens [S, width], accepted drafts [S] or None). An armed
+        per-slot (or per-chunk) decode-state fault poisons its slot
+        afterwards, so each ladder rung is reachable on purpose."""
+        accepted = None
+        if spec is not None:
+            out, toks, accepted = decode_batched_spec_round(
+                self.model, carry, self._keys, active_dev, spec, self.spec_depth, self._sample)
+        elif unified:
             out, toks = decode_batched_prefill_chunk(
                 self.model, carry, self._keys, active_dev, self._pbuf, self._plen, self._pfold,
                 self.chunk, self.prefill_chunk, self._sample)
@@ -810,7 +932,7 @@ class SlotEngine:
                 if slot is not None and (inject.decode_slot_nan_armed(i, slot.chunks)
                                          or inject.decode_nan_armed(slot.chunks)):
                     self._poison_slot(out, i)
-        return out, toks
+        return out, toks, accepted
 
     @staticmethod
     def _poison_slot(carry, i: int) -> None:
@@ -819,25 +941,34 @@ class SlotEngine:
                 if x.is_floating_point():
                     x[i] = float("nan")
 
-    def _probe_bad(self, carry, active: np.ndarray) -> set:
+    def _probe_bad(self, carry, active: np.ndarray, accepted: Optional[Tensor] = None) -> set:
         """The boundary's one read of the card: the per-slot finite mask
         and the done flags in one [2, slots] transfer (free slots ignored:
         a failed request's NaN stays in its row until the next admission
-        overwrites it). The done row is kept for the eviction pass."""
-        flags = torch.stack([decode_state_finite_per_slot(carry[1]), carry[4]]).cpu().numpy()
-        self._done_np = flags[1]
+        overwrites it). The done row is kept for the eviction pass. At a
+        speculative round the accepted drafts ride the same transfer, [3,
+        slots] int64, kept as ``_accept_np``."""
+        finite = decode_state_finite_per_slot(carry[1])
+        if accepted is None:
+            flags = torch.stack([finite, carry[4]]).cpu().numpy()
+            self._accept_np = None
+        else:
+            flags = torch.stack([finite.long(), carry[4].long(), accepted]).cpu().numpy()
+            self._accept_np = flags[2]
+        self._done_np = flags[1].astype(bool)
         return {i for i in range(self.slots) if active[i] and not flags[0][i]}
 
-    def _ladder(self, snap, active, carry, toks, bad, unified=False):
+    def _ladder(self, snap, active, carry, toks, bad, unified=False, spec=None):
         """Walk the per-slot ladder: redo the whole boundary from a fresh
         copy of the snapshot (the rewind: the untouched slots recompute
-        their tokens bitwise, a slot mid-prefill replays its piece, the
+        their tokens bitwise, a slot mid-prefill replays its piece, a slot
+        mid-speculation drafts and verifies again from the same carry, the
         poisoned slot gets its retry); then rebuild the still-bad slots
         into the snapshot (re-prefill, or a restarted prefill) and redo;
         then mask the exhausted slots out and redo once more, so the others
         still get their chunk. -> (carry, tokens, exhausted slots)."""
-        carry, toks = self._attempt(_copy_carry(snap), self._active_dev, unified)
-        bad2 = self._probe_bad(carry, active)
+        carry, toks, accepted = self._attempt(_copy_carry(snap), self._active_dev, unified, spec)
+        bad2 = self._probe_bad(carry, active, accepted)
         for i in bad:
             self._slots[i].rewinds += 1
             self._emit("ladder", rung="rewind", slot=i, chunk=self._slots[i].chunks,
@@ -852,19 +983,20 @@ class SlotEngine:
             self._slots[i].reprefills += 1
             self._emit("ladder", rung=rung, slot=i, chunk=self._slots[i].chunks,
                        tag=self._slots[i].tag)
-        carry, toks = self._attempt(_copy_carry(snap), self._active_dev, unified)
-        bad3 = self._probe_bad(carry, active)
+        carry, toks, accepted = self._attempt(_copy_carry(snap), self._active_dev, unified, spec)
+        bad3 = self._probe_bad(carry, active, accepted)
         if not bad3:
             return carry, toks, set()
-        # rung 3: the exhausted slots masked out; the survivors' tokens and
-        # done flags replay bitwise, so the probe read above stays valid
+        # rung 3: the exhausted slots masked out; the survivors' tokens, done
+        # flags and accepted drafts replay bitwise, so the probe read above
+        # stays valid
         still = self._active_dev.clone()
         for i in bad3:
             still[i] = False
             self._emit("ladder", rung="exhausted", slot=i, chunk=self._slots[i].chunks,
                        tag=self._slots[i].tag)
         if any(active[i] and i not in bad3 for i in range(self.slots)):
-            carry, toks = self._attempt(_copy_carry(snap), still, unified)
+            carry, toks, _ = self._attempt(_copy_carry(snap), still, unified, spec)
         return carry, toks, bad3
 
     def _reprefill_into(self, snap, i: int) -> None:
@@ -927,7 +1059,8 @@ class SlotEngine:
         suspend = (slot.session_id is not None and status != "failed"
                    and slot.prompt_remaining == 0)
         self._emit("evict", slot=i, tag=slot.tag, status=status, session=slot.session_id,
-                   chunks=slot.chunks, suspended=suspend)
+                   chunks=slot.chunks, suspended=suspend, spec_accepted=slot.spec_accepted,
+                   spec_drafted=slot.spec_drafted)
         return self._suspend(i, status) if suspend else self._evict(i, status)
 
     def _suspend(self, i: int, status: str) -> DecodeResult:

@@ -49,6 +49,14 @@ boundaries.
   ``max_dirty_sessions`` before new session turns shed retriably). Recovery
   needs the breakers closed AND the dirty backlog saved; a drain holds dirty
   sessions until its grace deadline, then names them and exits 0.
+- **self-speculation** -- ``spec_depth > 0`` runs the engine's speculative
+  rounds at pure-decode boundaries (``SlotEngine``): the tokens are the
+  plain walk's, bitwise; ``spec_min_accept`` floors a slot whose rolling
+  acceptance falls below it. The registry counts accepted, rejected and
+  floored drafts (``spec_accepted_total``, ``spec_rejected_total``,
+  ``spec_floor_total``) and observes each speculating request's acceptance
+  at its eviction (``spec_accept_rate``); ``snapshot()`` has a
+  ``speculation`` section.
 - **telemetry** -- a per-server ``MetricsRegistry`` (the ``stats`` counters,
   ``chunk_ms``, ``turn_latency_ms``, ladder and health counters, queue and
   slot gauges), a ``Tracer`` (request and queue spans, one complete event
@@ -65,8 +73,7 @@ qmode). The server runs on the model's device (the card unless the model is
 on the CPU).
 
 Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
-item when its ``ServeConfig`` field is set: speculation (``spec_depth``,
-``spec_min_accept``): A8 step 4; tensor-parallel serving (``tp``,
+item when its ``ServeConfig`` field is set: tensor-parallel serving (``tp``,
 ``mesh_audit``): A12; cost attribution and capacity (``cost``,
 ``cost_ledger``, ``capacity_window_s``), SLOs (``slo``,
 ``slo_degrade_ticks``), the live HTTP endpoints (``metrics_port``, and with
@@ -122,7 +129,6 @@ _STAT_KEYS = (
 # the ROADMAP.md item that brings each; a value other than the default
 # raises at construction
 _NOT_PORTED = {
-    **dict.fromkeys(("spec_depth", "spec_min_accept"), "A8 step 4"),
     **dict.fromkeys(("tp", "mesh_audit"), "A12"),
     **dict.fromkeys(("cost", "cost_ledger", "capacity_window_s", "slo", "slo_degrade_ticks",
                      "metrics_port", "profile_dir"), "A9"),
@@ -195,6 +201,11 @@ class ServeConfig:
     # one), NEW session turns shed with a retriable OverloadError. 0 = no
     # bound
     max_dirty_sessions: int = 32
+    # -- self-speculative decode (SlotEngine): drafts a slot a round, 0 = off;
+    # the per-slot rolling-acceptance floor below which a slot stops drafting
+    # (0 = never) --
+    spec_depth: int = 0
+    spec_min_accept: float = 0.2
     # -- not ported: a value other than these raises (see _NOT_PORTED) --
     exec_dir: Optional[str] = None
     exec_local_dir: Optional[str] = None
@@ -202,8 +213,6 @@ class ServeConfig:
     metrics_port: int = -1
     slo: Optional[tuple] = None
     slo_degrade_ticks: int = 3
-    spec_depth: int = 0
-    spec_min_accept: float = 0.2
     tp: int = 0
     mesh_audit: bool = False
     cost: bool = False
@@ -340,7 +349,15 @@ class Server:
             model, slots=cfg.slots, chunk=cfg.chunk, clock=clock,
             prefill_buckets=parse_buckets(cfg.prefill_buckets, model.cfg.max_seq_len),
             prefill_chunk=cfg.prefill_chunk, prompt_overflow=cfg.prompt_overflow,
-            on_event=self._on_engine_event, device=self.device)
+            on_event=self._on_engine_event, spec_depth=cfg.spec_depth,
+            spec_min_accept=cfg.spec_min_accept, device=self.device)
+        # speculation: totals, and one acceptance observation a speculating
+        # request (its rate collapsing shows before its latency does)
+        self._c_spec_accepted = self.metrics.counter("spec_accepted_total")
+        self._c_spec_rejected = self.metrics.counter("spec_rejected_total")
+        self._c_spec_floors = self.metrics.counter("spec_floor_total")
+        self._h_spec_accept = self.metrics.histogram(
+            "spec_accept_rate", buckets=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0))
         # the prefix cache: entries aligned on the engine's linear-attention
         # chunk, so a hit's suffix pieces replay the cold request's
         self.prefix_store: Optional[PrefixStore] = None
@@ -522,16 +539,31 @@ class Server:
             self.flight.dump(f"health-{new.value}")
 
     def _on_engine_event(self, kind: str, fields: dict) -> None:
-        """SlotEngine tap (admit, resume, prefill_piece, ladder, evict and
-        the prefix events): recorded to the flight ring with the tag swapped
-        for the request's trace id; ladder rungs counted and traced,
-        admissions and prefix hits traced, prefix events counted."""
+        """SlotEngine tap (admit, resume, prefill_piece, ladder, evict, the
+        prefix events and the speculative rounds and floors): recorded to the
+        flight ring with the tag swapped for the request's trace id (a round
+        only when it rejected drafts, as ``spec_reject``); ladder rungs
+        counted and traced, admissions, prefix hits and floors traced, prefix
+        and speculation events counted, a speculating request's acceptance
+        observed at its eviction."""
         tag = fields.pop("tag", None)
         rid = getattr(tag, "rid", None)
         if rid is not None:
             fields["req"] = rid
+        if kind == "spec_round":
+            self._c_spec_accepted.inc(fields.get("accepted", 0))
+            self._c_spec_rejected.inc(fields.get("rejected", 0))
+            if fields.get("rejected", 0):
+                self.flight.record("spec_reject", **fields)
+            return
         self.flight.record(kind, **fields)
-        if kind == "ladder":
+        if kind == "spec_floor":
+            self._c_spec_floors.inc()
+            self.trace.instant("spec_floor", id=rid, slot=fields.get("slot"),
+                               accept=fields.get("accept_ewma"))
+        elif kind == "evict" and fields.get("spec_drafted", 0):
+            self._h_spec_accept.observe(fields["spec_accepted"] / fields["spec_drafted"])
+        elif kind == "ladder":
             self._c_ladder.inc(labels={"rung": fields.get("rung", "?")})
             self.trace.instant("ladder", id=rid, rung=fields.get("rung"),
                                slot=fields.get("slot"))
@@ -1030,10 +1062,11 @@ class Server:
     def snapshot(self) -> dict:
         """Health + scheduler gauges in one payload, under ONE acquisition
         of the stats lock (the health machine and the registry share it):
-        the sessions (resident, in slots, dirty, the resident ids) and, with
-        a store configured, the failure domains (each breaker's state and
+        the sessions (resident, in slots, dirty, the resident ids), with a
+        store configured the failure domains (each breaker's state and
         probe countdown, the dirty backlog against its bound, the publish
-        queue and its drops)."""
+        queue and its drops), and with ``spec_depth`` the speculation (depth,
+        floor, the registry's totals, each resident slot's view)."""
         with self._stats_lock:
             snap = self.health.snapshot()
             snap["stats"] = dict(self.stats)
@@ -1053,6 +1086,14 @@ class Server:
                     "max_dirty_sessions": self.cfg.max_dirty_sessions,
                     "prefix_publish_drops": flat.get("prefix_publish_drops", 0),
                     "pending_prefix_publishes": self.engine.pending_prefix_count}
+            if self.cfg.spec_depth:
+                flat = self.metrics.counters_flat()
+                snap["speculation"] = {
+                    "depth": self.cfg.spec_depth, "min_accept": self.cfg.spec_min_accept,
+                    "accepted_total": flat.get("spec_accepted_total", 0),
+                    "rejected_total": flat.get("spec_rejected_total", 0),
+                    "floors_total": flat.get("spec_floor_total", 0),
+                    "slots": self.engine.spec_info()}
             snap["queued"] = self._q.qsize()
             snap["metrics"] = self.metrics.snapshot()
         return snap

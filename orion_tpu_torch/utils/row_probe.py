@@ -9,7 +9,9 @@ or B times something) by that row's slice, a tensor padded to
 ``DECODE_ROWS`` by the row's index, anything else whole. An op whose inputs
 agree bitwise on the row but whose output does not is one whose result
 depends on the batch -- a library that chooses its kernel or its reduction
-order by the row count. Diagnostics for the card (``chip_smoke.py``,
+order by the row count. ``product_rows`` records the row count each
+row-wise product and norm of a call sees (the self-speculative verify piece
+must run its products at a decode step's ``DECODE_ROWS``). Diagnostics for the card (``chip_smoke.py``,
 ``tests/test_torch_cuda.py``) and the CPU tests; the serving path never
 calls it.
 """
@@ -160,4 +162,45 @@ def row_variant_ops(model, token: torch.Tensor, states, t: torch.Tensor, row: in
     }
 
 
-__all__ = ["row_variant_ops"]
+class _ProductRows(TorchDispatchMode):
+    """The (op, leading dimension, rank) of the first operand of every 2-D or
+    3-D product (dense layers, phi's projection, the head) and norm mean."""
+
+    OPS = ("aten.linear", "aten.matmul", "aten.mm", "aten.addmm", "aten.mean")
+
+    def __init__(self):
+        super().__init__()
+        self.rows = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func.overloadpacket)
+        if name in self.OPS and args[0].dim() in (2, 3):
+            self.rows.append((name, args[0].shape[0], args[0].dim()))
+        return func(*args, **(kwargs or {}))
+
+
+@torch.inference_mode()
+def product_rows(fn, *args, **kwargs) -> list:
+    """Call ``fn(*args, **kwargs)`` and return the row-wise products and norm
+    means it ran as (op, rows, rank) in order; ``q4_matmul_cuda`` (the int4
+    layers' kernel, launched outside the dispatcher) as ("q4_matmul_cuda",
+    rows, 2)."""
+    from orion_tpu_torch.ops.kernels import q4_matmul as q4
+
+    mode = _ProductRows()
+    kernel = q4.q4_matmul_cuda
+
+    def wrapped(x, p, s, *a, **kw):
+        mode.rows.append(("q4_matmul_cuda", x.shape[0], 2))
+        return kernel(x, p, s, *a, **kw)
+
+    q4.q4_matmul_cuda = wrapped
+    try:
+        with mode:
+            fn(*args, **kwargs)
+    finally:
+        q4.q4_matmul_cuda = kernel
+    return mode.rows
+
+
+__all__ = ["row_variant_ops", "product_rows"]

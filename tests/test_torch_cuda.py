@@ -1488,3 +1488,94 @@ def test_stores_session_restart_on_the_card_equals_an_uninterrupted_run(dev, tmp
         total = np.concatenate([t1.result.tokens, t2a.result.tokens, t2b.result.tokens], 1)
         np.testing.assert_array_equal(total, ref.result.tokens, err_msg=f"sample {k}")
         srv2.close()
+
+
+def _spec_engine_run(dev, cfg, sample, depth=3):
+    """6 requests through a 4-slot ``SlotEngine`` speculating at ``depth``
+    (no floor) on a bf16 model of ``cfg`` -> (the model, results, prompts,
+    the rounds' events)."""
+    from orion_tpu_torch import generate as gen
+    from orion_tpu_torch.serving import DecodeRequest, SlotEngine
+
+    model = gen.cast_params_for_inference(TransformerLM(cfg, device=dev))
+    rounds = []
+    eng = SlotEngine(model, slots=4, chunk=4, device=dev, spec_depth=depth, spec_min_accept=0.0,
+                     on_event=lambda k, f: rounds.append(f) if k == "spec_round" else None)
+    prompts = [np.random.default_rng(i).integers(0, 4096, (1, n))
+               for i, n in enumerate((200, 37, 130, 64, 90, 250))]
+    done, pending = {}, list(enumerate(prompts))
+    while pending or eng.busy:
+        while pending and eng.has_free_slot:
+            i, p = pending.pop(0)
+            eng.admit(DecodeRequest(p, 12, sample, seed=i), tag=i)
+        done.update(dict(eng.step()))
+    return model, done, prompts, rounds
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
+def test_spec_engine_on_the_card_equals_one_row_generate(dev, temperature):
+    """Self-speculative rounds (depth 3) on the card, a bf16 linear + swa
+    model at Dh 128: 6 requests, each bitwise its one-row ``generate``,
+    greedy and sampled (spec == plain)."""
+    from orion_tpu_torch import generate as gen
+
+    sample = gen.SampleConfig(temperature=temperature, top_k=50 if temperature else 0)
+    model, done, prompts, rounds = _spec_engine_run(dev, _ROWS_CFG, sample)
+    assert rounds
+    for i, p in enumerate(prompts):
+        ref = gen.generate(model, torch.from_numpy(p).to(dev), 12, sample, i).cpu().numpy()
+        np.testing.assert_array_equal(done[i].tokens, ref, err_msg=f"request {i}")
+
+
+def test_spec_all_linear_model_accepts_every_draft(dev):
+    """An all-linear model's draft is the whole model: on the card every
+    draft of every round is accepted (a verify piece rounding apart from the
+    decode steps would reject some), and the tokens are the plain walk's."""
+    from orion_tpu_torch import generate as gen
+
+    cfg = dataclasses.replace(_ROWS_CFG, layer_types=("linear", "linear"))
+    greedy = gen.SampleConfig(temperature=0.0)
+    model, done, prompts, rounds = _spec_engine_run(dev, cfg, greedy)
+    assert rounds and all(f["rejected"] == 0 for f in rounds), rounds
+    assert sum(f["accepted"] for f in rounds) == 3 * sum(f["slots"] for f in rounds)
+    for i, p in enumerate(prompts):
+        ref = gen.generate(model, torch.from_numpy(p).to(dev), 12, greedy, i).cpu().numpy()
+        np.testing.assert_array_equal(done[i].tokens, ref, err_msg=f"request {i}")
+
+
+def test_spec_verify_piece_of_20_rows_bitwise_its_decode_steps(dev):
+    """A verify piece of 4 rows x 5 fed tokens (20 hidden rows, one block of
+    ``DECODE_ROWS``) on the card: its logits bitwise 5 successive
+    ``decode_step`` calls, and the advance at every keep (and a mixed one)
+    bitwise the walk, the swa ring included."""
+    from orion_tpu_torch import generate as gen
+    from orion_tpu_torch.models.transformer import (init_decode_state, insert_decode_slot,
+                                                    snapshot_decode_state)
+
+    model = gen.cast_params_for_inference(TransformerLM(_ROWS_CFG, device=dev))
+    states = init_decode_state(_ROWS_CFG, 4, dev)
+    ts = []
+    for j in range(4):
+        p = torch.randint(0, 4096, (1, 60 + 17 * j), generator=torch.Generator().manual_seed(j))
+        c = gen.prefill_carry(model, p.to(dev), gen.SampleConfig(temperature=0.0),
+                              gen.request_keys(j, 1, dev))
+        insert_decode_slot(states, c[1], j)
+        ts.append(c[2])
+    t = torch.tensor(ts, device=dev)
+    fed = torch.randint(0, 4096, (4, 5), generator=torch.Generator().manual_seed(9)).to(dev)
+    with torch.inference_mode():
+        st, walk, ref = snapshot_decode_state(states), [snapshot_decode_state(states)], []
+        for j in range(5):
+            lg, st = model.decode_step(fed[:, j], st, t + j)
+            ref.append(lg)
+            walk.append(snapshot_decode_state(st))
+        ref = torch.stack(ref, dim=1)
+        for keep in [torch.full((4,), k, device=dev) for k in range(6)] + [
+                torch.tensor([0, 2, 5, 3], device=dev)]:
+            st = snapshot_decode_state(states)
+            logits, upds = model.verify_step(fed, st, t)
+            assert torch.equal(logits, ref), float((logits - ref).abs().max())
+            got = model.advance_verified_states(st, upds, t, keep)
+            for b in range(4):
+                want = walk[int(keep[b])]
+                assert all(torch.equal(x[k][b], y[k][b]) for x, y in zip(got, want) for k in x)

@@ -17,9 +17,11 @@ linear, one softmax and one swa layer):
   of the device beyond the engine's own; refusals: every unported
   ``ServeConfig`` field and CLI flag, and more slots than ``DECODE_ROWS``
   (C1); the store fields and flags, served since the stores were ported,
-  each reaching its store, and the CLI's params id derived as the JAX
-  package's (the stores' contracts: ``tests/test_torch_{stores,sessions,
-  prefix}.py``).
+  each reaching its store, and the speculation fields and flags, served
+  since speculation was ported, each reaching the engine; the CLI's params
+  id derived as the JAX package's (the stores' contracts:
+  ``tests/test_torch_{stores,sessions,prefix}.py``; speculation's:
+  ``tests/test_torch_spec_decode.py``).
 """
 
 import collections
@@ -553,6 +555,28 @@ def test_store_serve_config_fields_are_accepted(model, tmp_path, field):
     srv.close()
 
 
+# the speculation fields ported from the refusals above -> a value other than
+# the default
+_SPEC_FIELDS = {"spec_depth": 2, "spec_min_accept": 0.45}
+
+
+@pytest.mark.parametrize("field", sorted(_SPEC_FIELDS))
+def test_spec_serve_config_fields_are_accepted(model, field):
+    """Each speculation field that raised before speculation was ported
+    serves now and reaches the engine (``tests/test_torch_spec_decode.py``
+    holds what it does)."""
+    value = _SPEC_FIELDS[field]
+    cfg = dataclasses.replace(_cfg(), **{"spec_depth": 2, field: value})
+    srv = Server(model, cfg)
+    assert field not in server_mod._NOT_PORTED
+    assert getattr(srv.engine, field) == value
+    p = srv.submit(_req(_prompts(1)[0].astype(np.int64)))
+    assert srv.serve(drain_when_idle=True) == 0 and p.result.status == "ok"
+    assert srv.snapshot()["speculation"][{"spec_depth": "depth",
+                                         "spec_min_accept": "min_accept"}[field]] == value
+    srv.close()
+
+
 def test_more_slots_than_decode_rows_is_refused(model):
     """C1 above 64 slots: a decode step pads its products' rows to
     DECODE_ROWS and runs them at the batch's own row count above it, so a
@@ -644,6 +668,35 @@ def test_store_cli_flags_are_accepted(tmp_path, monkeypatch, capsys, flag):
         assert ps.directory == value and flat["prefix_misses"] == 1
     else:  # --prefix-len: the declared miss publishes the 64-token prefix
         assert flat["prefix_publishes"] == 1 and len(ps.list_keys()) == 1
+
+
+@pytest.mark.parametrize("flag,value,field", [("--spec-depth", "2", "spec_depth"),
+                                              ("--spec-min-accept", "0.45", "spec_min_accept")])
+def test_spec_cli_flags_are_accepted(tmp_path, monkeypatch, capsys, flag, value, field):
+    """Each speculation flag that raised before speculation was ported
+    serves now and reaches the engine; stderr carries the speculation
+    line."""
+    from orion_tpu_torch.serving import __main__ as cli_mod
+
+    built = []
+
+    class Caught(Server):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(cli_mod, "Server", Caught)
+    pf = tmp_path / "p.txt"
+    pf.write_text("hello\n")
+    args = ["--config", "tiny", "--device", "cpu", "--prompts-file", str(pf),
+            "--max-new-tokens", "8", "--chunk", "4", "--temperature", "0", "--spec-depth", "2",
+            flag, value]
+    assert flag not in {f[0] for f in _NOT_PORTED_FLAGS}
+    assert cli_main(args) == 0
+    err = capsys.readouterr().err
+    (srv,) = built
+    assert getattr(srv.engine, field) == type(getattr(srv.engine, field))(value)
+    assert "speculation: " in err and "spec-depth 2" in err
 
 
 def test_cli_params_id_is_the_jax_package_derivation(tmp_path, monkeypatch, capsys):
