@@ -4542,6 +4542,668 @@ def session_check(model, label, prompt_len=512, new=48):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sequence parallelism (A12 step 1): the kernel pieces, the sp bodies and sp
+# training, with ranks as processes sharing the one card
+# ---------------------------------------------------------------------------
+
+# Rows 6-8 with the mask moved, as the sp rings call them (label, B, H, Tq,
+# Tk, D, dtype, window, shift, q_offset): the striped ring's blocks at its
+# per-step shape (T 8192 at sp 4) with shift 0 and 1, the halo's blocks at
+# q_offset T_loc (h = 1: T_loc 2048, window 1024) and T_loc, 2 T_loc (h = 2:
+# T_loc 512), ragged ones, a block whose every row is past the window, and
+# the simt kernels' tiny fp32 widths. Held at the limits of rows 6-8
+# (``FLASH_RTOL``, ``FLASH_ATOL_OF_MAX``, ``FLASH_GRAD_FLOOR``, ``LSE_RTOL``);
+# a row that sees no key must give lse at or below the ring merge's guard
+# (``SP_GUARD``) in both, and every output must be finite.
+FLASH_SP_CASES = [
+    ("striped block, shift 0", 2, 16, 2048, 2048, 128, torch.bfloat16, None, 0, 0),
+    ("striped block, shift 1", 2, 16, 2048, 2048, 128, torch.bfloat16, None, 1, 0),
+    ("halo h1, block 1", 2, 16, 2048, 2048, 128, torch.bfloat16, 1024, 0, 2048),
+    ("halo h2, block 1", 4, 16, 512, 512, 128, torch.bfloat16, 1024, 0, 512),
+    ("halo h2, block 2", 4, 16, 512, 512, 128, torch.bfloat16, 1024, 0, 1024),
+    ("ragged strict", 2, 16, 1000, 1000, 128, torch.bfloat16, None, 1, 0),
+    ("ragged halo", 2, 16, 1000, 1000, 128, torch.bfloat16, 512, 0, 1000),
+    ("every row past the window", 1, 16, 256, 256, 128, torch.bfloat16, 128, 0, 512),
+    ("tiny widths strict", 2, 4, 96, 96, 32, torch.float32, None, 1, 0),
+    ("tiny widths halo, block 1", 2, 4, 96, 96, 32, torch.float32, 40, 0, 48),
+    ("tiny widths halo, block 2", 2, 4, 96, 96, 32, torch.float32, 40, 0, 96),
+]
+SP_GUARD = -5e29  # parallel/ring.py's _lse_merge drops a block whose lse is at or below it
+
+
+def compare_flash_sp(fa, dev):
+    """Rows 6-8 at ``FLASH_SP_CASES`` against their plain versions on the
+    card, delta with a random lse cotangent folded in (as the rings' merge
+    gives it). Returns one reading per case and the inputs by label."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    readings, inputs = [], {}
+    for label, b, h, tq, tk, d, dtype, window, shift, q_offset in FLASH_SP_CASES:
+        q, k, v, gout = _flash_inputs(g, dev, b, h, (tq, tk), d, dtype)
+        opts = dict(causal=True, window=window, shift=shift, q_offset=q_offset)
+        out, lse = fa.flash_fwd_cuda(q, k, v, **opts)
+        r_out, r_lse = fa.flash_fwd_plain(q, k, v, **opts)
+        dlse = torch.randn(q.shape[0], tq, 1, device=dev, generator=g)
+        delta = (gout.float() * r_out.float()).sum(-1, keepdim=True) - dlse
+        dq = fa.flash_dq_cuda(q, k, v, gout, r_lse, delta, **opts)
+        dk, dv = fa.flash_dkv_cuda(q, k, v, gout, r_lse, delta, **opts)
+        torch.cuda.synchronize()
+        r_dq = fa.flash_dq_plain(q, k, v, gout, r_lse, delta, **opts)
+        r_dk, r_dv = fa.flash_dkv_plain(q, k, v, gout, r_lse, delta, **opts)
+        mask = fa._mask(tq, tk, True, window, dev, shift, q_offset)
+        empty = ~mask.any(dim=-1)
+        rtol = FLASH_RTOL[dtype]
+        lse_diff = (lse - r_lse).abs()
+        readings.append({
+            "case": f"{label}: B{b} H{h} Tq{tq} Tk{tk} D{d} {str(dtype)[6:]} window={window} "
+                    f"shift={shift} q_offset={q_offset}",
+            "fwd_variant": fa.flash_fwd_variant(q, k, v),
+            "variant": fa.flash_bwd_variant(q, k, v, gout),
+            "out": _grad_reading(out, r_out, rtol, FLASH_ATOL_OF_MAX),
+            "dq": _grad_reading(dq, r_dq, rtol, FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR),
+            "dk": _grad_reading(dk, r_dk, rtol, FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR),
+            "dv": _grad_reading(dv, r_dv, rtol, FLASH_ATOL_OF_MAX, FLASH_GRAD_FLOOR),
+            "lse_max_abs": float(lse_diff.max()),
+            "lse_over_limit": float((lse_diff / (LSE_RTOL * r_lse.abs().clamp_min(1.0))).max()),
+            "lse_well_formed": lse.shape == (q.shape[0], tq, 1) and lse.dtype == torch.float32
+            and bool(torch.isfinite(lse).all()),
+            "empty_rows": int(empty.sum()),
+            # the guard on both sides, and the kernel's out 0 there
+            "empty_ok": bool((lse[:, empty] <= SP_GUARD).all() and (r_lse[:, empty] <= SP_GUARD).all()
+                             and (out[:, empty] == 0).all()),
+            "pairs": q.shape[0] * int(mask.sum()),
+        })
+        inputs[label] = (b, h, q, k, v, gout, r_lse, delta, opts, readings[-1]["pairs"])
+        del out, lse, r_out, dq, dk, dv, r_dq, r_dk, r_dv
+    return readings, inputs
+
+
+def agrees_flash_sp(r):
+    return agrees_flash(r) and r["empty_ok"]
+
+
+# linear_attention_parts (rows 1, 3 and 4 behind LinearAttentionPartsFn) at
+# lm_1b3's width on one rank's shard of T 8192 at sp 4, without and with an
+# initial state, and the tiny fp32 widths. Values at row 1's training
+# outputs' limit (num, den, S, z within ``STATE_RTOL`` of their largest
+# magnitude), the gradients for cotangents on all four outputs at rows 3
+# and 4's (``GRAD_RTOL``, ``GRAD_ATOL_OF_MAX``), against autograd of the
+# plain version. The numerator's cotangent is drawn on bf16's grid, so the
+# Function's cast of it to the input dtype (``_lin_attn_fused_raw_bwd``'s)
+# is exact and both sides take the same values.
+PARTS_CASES = [
+    ("lm_1b3 shard: B4 H16 T2048 D128 bf16", 4, 16, 2048, 128, torch.bfloat16, False),
+    ("B4 H16 T1000 D128 bf16 state", 4, 16, 1000, 128, torch.bfloat16, True),
+    ("tiny widths: B2 H4 T300 D32 fp32 state", 2, 4, 300, 32, torch.float32, True),
+]
+
+
+def compare_parts(cd, dev):
+    g = torch.Generator(device=dev).manual_seed(21)
+    readings, inputs = [], {}
+    for label, b, h, t, d, dtype, with_state in PARTS_CASES:
+        randn = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
+        q, k = (torch.nn.functional.elu(randn(b, h, t, d)).add(1.0).to(dtype) for _ in range(2))
+        v = randn(b, h, t, d).to(dtype)
+        state = (randn(b, h, d, d), randn(b, h, d).abs() + 1.0) if with_state else None
+        cts = [randn(b, h, t, d).to(dtype).float(), randn(b, h, t) / t, randn(b, h, d, d),
+               randn(b, h, d)]
+        res = {}
+        for backend in ("cuda", "torch"):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            st = tuple(s.clone().requires_grad_() for s in state) if state else None
+            num, den, (s, z) = cd.linear_attention_parts(*leaves, initial_state=st,
+                                                         backend=backend)
+            sum((o * c).sum() for o, c in zip((num, den, s, z), cts)).backward()
+            res[backend] = [num.detach(), den.detach(), s.detach(), z.detach(),
+                            *(x.grad for x in leaves), *((x.grad for x in st) if st else ())]
+        got, ref = res["cuda"], res["torch"]
+        torch.cuda.synchronize()
+        readings.append({
+            "case": label, "variant": cd.causal_dot_norm_variant(q.view(-1, t, d), k.view(-1, t, d),
+                                                                 v.view(-1, t, d)),
+            **{f"{n}_rel": _rel(a, r) for n, a, r in zip(("num", "den", "s", "z"), got, ref)},
+            **{n: _grad_reading(a, r) for n, a, r in zip(("dq", "dk", "dv"), got[4:7], ref[4:7])},
+            **({f"{n}_rel": _rel(a, r) for n, a, r in zip(("ds0", "dz0"), got[7:], ref[7:])}
+               if state else {}),
+            "finite": all(bool(torch.isfinite(x.float()).all()) for x in got),
+        })
+        inputs[label] = (q, k, v, cts)
+    return readings, inputs
+
+
+def agrees_parts(r):
+    rels = [v for key, v in r.items() if key.endswith("_rel")]
+    return (r["finite"] and max(rels) <= STATE_RTOL
+            and all(r[n]["well_formed"] and r[n]["over_limit"] <= 1.0 for n in ("dq", "dk", "dv")))
+
+
+def _parts_bound(q, v):
+    """The parts function's forward and backward: rows 1 (with its training
+    outputs), 3 and 4 on these inputs."""
+    qf, vf = q.view(-1, *q.shape[-2:]), v.view(-1, *v.shape[-2:])
+    parts = (_norm_bound(qf, vf, True), _bwd_bound(qf, vf, False), _bwd_bound(qf, vf, True))
+    moved, flops = sum(p[0] for p in parts), sum(p[1] for p in parts)
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    return moved, flops, _bound(moved, flops, peak)
+
+
+def check_sp_kernels(cd, fa, dev):
+    """The kernel pieces of the sp path on the card: rows 6-8 with shift and
+    q_offset (``compare_flash_sp``) and the raw fused parts of rows 1, 3, 4
+    (``compare_parts``), each reading logged, both variants run; then timed
+    where each variant's sp path takes it (the wgmma kernels at the striped
+    ring's block, shift 1; the simt ones at the tiny fp32 halo block; the
+    parts at lm_1b3's shard). Returns the kernels line's sp entries (their
+    launches filled in by the sp training runs)."""
+    readings, inputs = compare_flash_sp(fa, dev)
+    for r in readings:
+        log(f"flash sp {r['case']} (forward {r['fwd_variant']}, backward {r['variant']}; "
+            f"{r['empty_rows']} rows see no key, guard and out 0 held: {r['empty_ok']}): "
+            + "; ".join(f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its "
+                        f"limit)" for n in ("out", "dq", "dk", "dv"))
+            + f"; lse max abs {r['lse_max_abs']:.3e} ({r['lse_over_limit']:.3f} of its limit)")
+    bad = [r for r in readings if not agrees_flash_sp(r)]
+    if bad:
+        raise AssertionError(f"a flash kernel with shift / q_offset disagrees: {bad}")
+    ran = {v: sum(r["variant"] == v for r in readings) for v in ("wgmma", "simt")}
+    if not all(ran.values()) or not any(r["empty_rows"] for r in readings):
+        raise AssertionError(f"an sp flash variant ran on no case, or no case had empty rows: {ran}")
+    parts, parts_inputs = compare_parts(cd, dev)
+    for r in parts:
+        log(f"linear_attention_parts {r['case']} (row 1 {r['variant']}): rel "
+            + ", ".join(f"{k[:-4]} {v:.2e}" for k, v in r.items() if k.endswith("_rel"))
+            + f" (limit {STATE_RTOL:g}); " + "; ".join(
+                f"{n} max abs {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3f} of its limit)"
+                for n in ("dq", "dk", "dv")))
+    if not all(agrees_parts(r) for r in parts) or {r["variant"] for r in parts} != {"wgmma", "simt"}:
+        raise AssertionError(f"linear_attention_parts disagrees with its plain version: {parts}")
+    lines = []
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        for variant, label in (("wgmma", "striped block, shift 1"),
+                               ("simt", "tiny widths halo, block 1")):
+            b, h, q, k, v, gout, lse, delta, opts, pairs = inputs[label]
+            bh, t, d = q.shape
+            peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+            act = q.numel() * q.element_size()
+            q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
+            mask = fa._mask(t, t, True, opts["window"], dev, opts["shift"], opts["q_offset"])
+            rows = {
+                "fwd": dict(ms=cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **opts), 10),
+                            plain_ms=cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, **opts), 2),
+                            library_ms=cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), 10),
+                            moved=4 * act + bh * t * 4, flops=4 * d * pairs),
+                "dq": dict(ms=cuda_ms(lambda: fa.flash_dq_cuda(q, k, v, gout, lse, delta, **opts),
+                                      10),
+                           plain_ms=cuda_ms(lambda: fa.flash_dq_plain(q, k, v, gout, lse, delta,
+                                                                      **opts), 2),
+                           moved=5 * act + 2 * bh * t * 4, flops=6 * d * pairs),
+                "dkv": dict(ms=cuda_ms(lambda: fa.flash_dkv_cuda(q, k, v, gout, lse, delta,
+                                                                 **opts), 10),
+                            plain_ms=cuda_ms(lambda: fa.flash_dkv_plain(q, k, v, gout, lse, delta,
+                                                                        **opts), 2),
+                            moved=6 * act + 2 * bh * t * 4, flops=8 * d * pairs),
+            }
+            with torch.enable_grad():
+                qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+                o = sdpa(qg, kg, vg, attn_mask=mask)
+                bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), gout.view_as(o),
+                                                             retain_graph=True), 10)
+            for part, x in rows.items():
+                x.setdefault("library_ms", bwd_ms)
+                x["bound_ms"], x["bound_by"] = _bound(x["moved"], x["flops"], peak)
+                x["shape"] = (f"{label}: B{b} H{h} T{t} D{d} {str(q.dtype)[6:]} "
+                              f"window={opts['window']} shift={opts['shift']} "
+                              f"q_offset={opts['q_offset']}")
+                log(f"flash {part} {variant} sp timing {x['shape']}: kernel {x['ms']:.4f} ms, plain "
+                    f"{x['plain_ms']:.4f} ms, bound {x['bound_ms']:.4f} ms by {x['bound_by']} "
+                    f"({pairs / 1e6:.2f} M pairs); scaled_dot_product_attention under the same "
+                    f"mask {x['library_ms']:.4f} ms" + (" (its backward, one call)"
+                                                         if part != "fwd" else ""))
+                names = ("out",) if part == "fwd" else ("dq",) if part == "dq" else ("dk", "dv")
+                lines.append({
+                    "name": f"flash_{part}_{variant}_sp", "route": "cuda",
+                    "source": "orion_tpu_torch/csrc/flash_attention"
+                              + ("" if part == "fwd" else "_bwd") + ".cu",
+                    "replaces": "orion_tpu/ops/pallas/flash_attention.py"
+                                + {"fwd": ":211", "dq": ":384", "dkv": ":418"}[part],
+                    "max_abs_err": max(r[n]["max_abs"] for r in readings if r["variant"] == variant
+                                       for n in names),
+                    "over_limit": max(r[n]["over_limit"] for r in readings
+                                      if r["variant"] == variant for n in names),
+                    **{key: x[key] for key in keys}})
+    for variant, label in (("wgmma", PARTS_CASES[0][0]), ("simt", PARTS_CASES[-1][0])):
+        q, k, v, cts = parts_inputs[label]
+
+        def fwd_bwd(backend):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            num, den, (s, z) = cd.linear_attention_parts(*leaves, backend=backend)
+            torch.autograd.backward((num, den, s, z), cts)
+
+        moved, flops, (bound_ms, bound_by) = _parts_bound(q, v)
+        x = dict(ms=cuda_ms(lambda: fwd_bwd("cuda"), 10), plain_ms=cuda_ms(lambda: fwd_bwd("torch"), 2),
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                 shape=f"{label}, forward + backward")
+        log(f"linear_attention_parts {variant} timing {x['shape']}: kernels {x['ms']:.4f} ms, plain "
+            f"{x['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} (rows 1, 3, 4: "
+            f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); library_ms: none")
+        lines.append({
+            "name": f"causal_dot_parts_{variant}", "route": "cuda",
+            # row 1's source; rows 3 and 4 (its backward) are in the second
+            "source": "orion_tpu_torch/csrc/causal_dot_norm.cu",
+            "sources": ["orion_tpu_torch/csrc/causal_dot_norm.cu",
+                        "orion_tpu_torch/csrc/causal_dot_bwd.cu"],
+            "replaces": "orion_tpu/ops/pallas/causal_dot.py:629",
+            "max_abs_err": max(r[n]["max_abs"] for r in parts if r["variant"] == variant
+                               for n in ("dq", "dk", "dv")),
+            **x})
+    del inputs, parts_inputs
+    torch.cuda.empty_cache()
+    return lines
+
+
+# The sp bodies against single-device kernel attention on the whole sequence,
+# at lm_1b3 / hybrid_1b3's head widths (16 heads, D 128, bf16, window 1024),
+# global T 8192 (T_loc 4096 at sp 2, 2048 at sp 4: one halo block) and T 2048
+# at sp 4 (T_loc 512: the halo's h = 2). Limits: out and the gradients of q, k,
+# v within SP_RTOL |ref| + SP_ATOL_OF_MAX max|ref|: each flash block's output
+# is rounded to bf16 before the fp32 merge and the merged output once more
+# (the reference rounds once), and a gradient sums up to sp + 1 bf16 block
+# contributions in bf16 (autograd's accumulation), each off by up to half a
+# bf16 step of its own size, which may be as large as max|ref| where they
+# cancel: two bf16 steps relative, and 2^-7 of the largest element absolute.
+SP_BODY_RUNS = ((2, 8192), (4, 8192), (4, 2048))
+SP_RTOL, SP_ATOL_OF_MAX = 2**-6, 2**-7
+
+
+def _sp_body_reading(got, ref):
+    return _grad_reading(got, ref, SP_RTOL, SP_ATOL_OF_MAX)
+
+
+def sp_bodies_rank(mesh, payload):
+    """One rank of an sp-bodies run: the three bodies forward and backward on
+    this rank's shard of global q, k, v [1, 16, T, 128] bf16 drawn on the
+    card from one seed, against the single-device kernel attention of the
+    whole sequence (computed on each rank) -> readings and times."""
+    from orion_tpu_torch.ops.kernels import causal_dot as cd, flash_attention as fa
+    from orion_tpu_torch.ops.linear_attention import linear_attention
+    from orion_tpu_torch.parallel.ring import ring_attention_local, swa_halo_attention_local
+    from orion_tpu_torch.parallel.sequence import sp_linear_attention_local
+
+    for mod, key, path in payload.get("sources", ()):  # kernel_mutants.py's wrong copies
+        {"cd": cd, "fa": fa}[mod].SOURCES[key] = Path(path)
+    dev, group, t = mesh.device, mesh.sp_group, payload["t"]
+    window, heads, d = payload["window"], payload.get("heads", 16), payload.get("d", 128)
+    g = torch.Generator(device=dev).manual_seed(payload["seed"])
+    randn = lambda: torch.randn(1, heads, t, d, device=dev, generator=g)  # noqa: E731
+    q, k, v, w = randn(), randn(), randn(), randn()
+    phi = lambda x: (torch.nn.functional.elu(x) + 1.0).to(torch.bfloat16)  # noqa: E731
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    bodies = {
+        "sp_linear_attention (parts)": (
+            lambda a, b, c: sp_linear_attention_local(a, b, c, group),
+            lambda a, b, c: linear_attention(a, b, c), (phi(q), phi(k), v)),
+        "striped ring, flash blocks": (
+            lambda a, b, c: ring_attention_local(a, b, c, group, striped=True),
+            lambda a, b, c: fa.flash_attention(a, b, c, causal=True), (q, k, v)),
+        f"swa halo (window {window})": (
+            lambda a, b, c: swa_halo_attention_local(a, b, c, group, window=window),
+            lambda a, b, c: fa.flash_attention(a, b, c, causal=True, window=window), (q, k, v)),
+    }
+    out = {}
+    for name, (body, ref_fn, (a, b, c)) in bodies.items():
+        res, ms = {}, {}
+        for side, fn, shard in (("sp", body, True), ("ref", ref_fn, False)):
+            xs = [(mesh.shard(x, dim=2) if shard else x).detach().contiguous().requires_grad_()
+                  for x in (a, b, c)]
+            wt = mesh.shard(w, dim=2) if shard else w
+            def run(fn=fn, xs=xs, wt=wt):
+                y = fn(*xs)
+                (y.float() * wt).sum().backward()
+                return y.detach()
+
+            ms[side], y = _timed(run, dev)
+            res[side] = [y] + [x.grad for x in xs]
+        ref = [mesh.shard(r, dim=2) for r in res["ref"]]
+        out[name] = {n: _sp_body_reading(got, r) for n, got, r in
+                     zip(("out", "dq", "dk", "dv"), res["sp"], ref)}
+        out[name]["ms"] = ms  # the first call of each: build and warm-up included
+        del res, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed(fn, dev):
+    """(ms, fn()) by the host's clock, the card synchronized around it."""
+    if dev.type == "cuda":
+        return wall_ms(fn)
+    t0 = time.perf_counter()
+    out = fn()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def agrees_sp_body(r):
+    return all(r[n]["well_formed"] and r[n]["over_limit"] <= 1.0 for n in ("out", "dq", "dk", "dv"))
+
+
+def sp_spawn(world, fn, payload, timeout=600):
+    """``fn(mesh, payload)`` on ``world`` ranks, processes of this script
+    sharing the one card (``parallel.init_distributed`` picks gloo: the
+    ranks outnumber the cards) -> their results in rank order. A rank that
+    fails fails the call with its traceback; ranks that outlive
+    ``timeout`` are killed and the call fails."""
+    import queue
+    import socket
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [ctx.Process(target=_sp_entry, args=(r, world, port, fn, payload, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            try:
+                rank, ok, res = out.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r in range(world) if r not in results and procs[r].exitcode is not None]
+                if dead or time.monotonic() > deadline:
+                    raise RuntimeError(f"sp ranks {dead or 'all'} of {world} ended without a result "
+                                       f"or outlived {timeout} s") from None
+                continue
+            if not ok:
+                raise RuntimeError(f"sp rank {rank} of {world} failed:\n{res}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(world)]
+
+
+def _sp_entry(rank, world, port, fn, payload, out):
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from orion_tpu_torch.parallel.mesh import MeshConfig, init_distributed
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = init_distributed(MeshConfig(dp=1, sp=world), init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=world, local_rank=rank,
+                                local_world_size=world, device=payload.get("device"))
+        res = fn(mesh, payload)
+        dist.barrier()  # every rank's collectives are done before any leaves
+        out.put((rank, True, res))
+    except BaseException:  # noqa: BLE001 -- the traceback goes to the parent
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# sp training: full width (d_model 2048, 16 heads, vocab 32000, window 1024),
+# T 2048, a global batch of 2, 2 steps at sp 4 against the sp=1 twin from the
+# same seed and batches. Depth cut to 4 blocks, the first 2 recomputed in the
+# backward (remat_skip 2: the collectives rerun inside the backward), so four
+# ranks' AdamW state fits the one card beside each other. Step 1's lr is the
+# peak (warmup 1: step 0's lr is 0, as optax's). Limits: a probe of the first
+# batch's loss and every parameter's gradient, the grad check's
+# (``LM_LOSS_ATOL``, ``LM_GRAD_REL_L2``: the sp path rounds each block's
+# attention to bf16 in other places); each step's loss within
+# ``LM_LOSS_ATOL`` and grad norm within ``LM_GRAD_REL_L2`` relative; after the
+# steps, the share of parameter elements whose update (p - p_0) has the
+# twin's sign at least ``SP_UPDATE_AGREE``: AdamW normalizes each element, so
+# an element whose gradient is near zero takes a sign from bf16 noise, and a
+# wrong gradient agrees on about half. The tiny fp32 hybrid (the simt kernels'
+# path, T 256, window 16) within ``TINY_LOSS_ATOL`` and 1e-4 relative L2.
+SP_TRAIN_RUNS = (
+    ("lm_1b3", {"n_layers": 4, "remat_skip": 2}),
+    ("hybrid_1b3", {"n_layers": 4, "remat_skip": 2,
+                    "layer_types": ("swa", "softmax", "swa", "linear"), "ring_striped": True}),
+)
+SP_TRAIN = dict(steps=2, batch_size=2, seq_len=2048, warmup_steps=1)
+SP_TINY = dict(steps=2, batch_size=2, seq_len=256, warmup_steps=1)
+SP_UPDATE_AGREE = 0.95
+SP_TINY_GRAD_REL_L2 = 1e-4
+
+
+def sp_expected_launches(cfg, rank, sp, t_loc):
+    """The launches of one sp training step on ``rank``: rows 1, 3 and 4
+    once a linear layer (row 1 twice when recomputed); the striped ring's sp
+    flash calls (forward twice when recomputed), ``shift`` 1 on the steps
+    whose block comes from a later rank; the halo's local call and its blocks
+    m <= min(rank, h) at ``q_offset``."""
+    first_remat = cfg.n_layers - max(0, cfg.remat_skip) if cfg.remat else 0
+    want = dict.fromkeys(("parts_fwd", "parts_dq", "parts_rev", "fwd", "dq", "dkv", "fwd_sp",
+                          "dq_sp", "dkv_sp"), 0)
+    for i, lt in enumerate(cfg.resolved_layer_types):
+        again = 2 if i < first_remat else 1
+        if lt == "linear":
+            want["parts_fwd"] += again
+            want["parts_dq"] += 1
+            want["parts_rev"] += 1
+            continue
+        if lt == "softmax":  # striped: one call a step, shift 1 on the last sp - 1 - rank
+            calls, offset = sp, sp - 1 - rank
+        else:
+            h = min(-(-(cfg.window - 1) // t_loc), sp - 1)
+            calls, offset = 1 + min(rank, h), min(rank, h)
+        want["fwd"] += again * calls
+        want["dq"] += calls
+        want["dkv"] += calls
+        want["fwd_sp"] += again * offset
+        want["dq_sp"] += offset
+        want["dkv_sp"] += offset
+    return want
+
+
+def _sp_counts(cd, fa):
+    return {"parts_fwd": cd.launches, "parts_dq": cd.launches_dq, "parts_rev": cd.launches_rev,
+            "fwd": fa.launches_fwd, "dq": fa.launches_dq, "dkv": fa.launches_dkv,
+            "fwd_sp": fa.launches_fwd_sp, "dq_sp": fa.launches_dq_sp, "dkv_sp": fa.launches_dkv_sp,
+            "wgmma": cd.launches_wgmma + fa.launches_fwd_wgmma + fa.launches_dq_wgmma
+            + fa.launches_dkv_wgmma + cd.launches_dq_wgmma + cd.launches_rev_wgmma,
+            "simt": cd.launches_simt + fa.launches_fwd_simt + fa.launches_dq_simt
+            + fa.launches_dkv_simt + cd.launches_dq_simt + cd.launches_rev_simt}
+
+
+def _sp_reset(cd, fa):
+    cd.launches = cd.launches_dq = cd.launches_rev = 0
+    cd.launches_wgmma = cd.launches_simt = cd.launches_dq_wgmma = cd.launches_dq_simt = 0
+    cd.launches_rev_wgmma = cd.launches_rev_simt = 0
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    fa.launches_fwd_wgmma = fa.launches_fwd_simt = 0
+    fa.launches_dq_wgmma = fa.launches_dq_simt = fa.launches_dkv_wgmma = fa.launches_dkv_simt = 0
+    fa.launches_fwd_sp = fa.launches_dq_sp = fa.launches_dkv_sp = 0
+
+
+def _train_probe(trainer, batch):
+    """The first batch's loss and every parameter's gradient (summed over
+    the sp group), then the gradients cleared."""
+    loss = float(trainer._loss_and_grads(batch, 0))
+    grads = {n: (p.grad.float().clone() if p.grad is not None else torch.zeros_like(p))
+             for n, p in trainer.params.items()}
+    for p in trainer.params.values():
+        p.grad = None
+    return loss, grads
+
+
+def sp_train_rank(mesh, payload):
+    """One rank of the sp training runs: for each run, the Trainer at sp on
+    this rank (the probe, then the steps, each with its launch counts against
+    ``sp_expected_launches``); rank 0 then runs the sp=1 twin and compares.
+    -> per run: losses, grad norms, launches, peak memory, and (rank 0) the
+    readings against the twin."""
+    from orion_tpu_torch.models.configs import TINY, get_config
+    from orion_tpu_torch.ops.kernels import causal_dot as cd, flash_attention as fa
+    from orion_tpu_torch.training.data import DataLoader, SyntheticDataset
+    from orion_tpu_torch.training.trainer import MeshConfig, TrainConfig, Trainer
+
+    dev = mesh.device
+    results = {}
+    runs = list(payload.get("runs", SP_TRAIN_RUNS)) + [("tiny hybrid fp32", None)]
+    for name, over in runs:
+        if over is None:  # the simt kernels' path
+            model = dataclasses.replace(TINY, n_layers=4, layer_types=("swa", "softmax", "swa",
+                                                                       "linear"),
+                                        window=16, ring_striped=True, sequence_parallel=True)
+            kw = SP_TINY
+        else:
+            model = get_config(name, sequence_parallel=True, **over)
+            kw = payload.get("train", SP_TRAIN)
+        cfg = TrainConfig(model=model, mesh=MeshConfig(dp=1, sp=mesh.sp), **kw)
+        loader = DataLoader(SyntheticDataset(model.vocab_size, cfg.seq_len), cfg.batch_size,
+                            seed=cfg.seed, device=dev)
+        batches = [next(loader) for _ in range(cfg.steps)]
+        loader.close()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        gc.collect()
+        trainer = Trainer(cfg, mesh=mesh)
+        p0 = {n: p.detach().float().clone() for n, p in trainer.params.items()} if mesh.is_main \
+            else None
+        probe = _train_probe(trainer, batches[0])
+        want = sp_expected_launches(model, mesh.sp_rank, mesh.sp, cfg.seq_len // mesh.sp)
+        steps, per_step = [], []
+        for batch in batches:
+            _sp_reset(cd, fa)
+            ms, m = _timed(lambda: trainer.step(batch), dev)
+            per_step.append(_sp_counts(cd, fa))
+            steps.append({"ms": ms, "loss": m["loss"], "grad_norm": m["grad_norm"], "lr": m["lr"]})
+        res = {"steps": steps, "per_step": per_step, "want": want,
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+               else 0.0,
+               "transport": mesh.transport}
+        if mesh.is_main:
+            after = {n: p.detach().float().clone() for n, p in trainer.params.items()}
+        del trainer
+        torch.cuda.empty_cache()
+        mesh.barrier()  # the other ranks wait while rank 0 runs the twin
+        if mesh.is_main:
+            res["twin"] = _sp_twin(cfg, batches, probe, p0, after, over is None, dev)
+            del p0, after
+            torch.cuda.empty_cache()
+        mesh.barrier()
+        results[name] = res
+    return results
+
+
+def _sp_twin(cfg, batches, probe, p0, after, tiny, dev):
+    """The sp=1 twin of ``cfg`` on this rank's card from the same seed and
+    batches, and the sp run's readings against it."""
+    from orion_tpu_torch.training.trainer import MeshConfig, Trainer
+
+    twin = Trainer(dataclasses.replace(cfg, mesh=MeshConfig(dp=1)), device=dev)
+    t_loss, t_grads = _train_probe(twin, batches[0])
+    loss, grads = probe
+    rel = {n: float((g - t_grads[n]).norm() / t_grads[n].norm().clamp_min(1e-30))
+           for n, g in grads.items()}
+    steps = [twin.step(b) for b in batches]
+    agree = total = 0
+    for n, p in twin.params.items():
+        du_sp, du = after[n] - p0[n], p.detach().float() - p0[n]
+        agree += int((torch.sign(du_sp) == torch.sign(du)).sum())
+        total += du.numel()
+    del twin
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    return {"probe_loss": loss, "twin_probe_loss": t_loss, "grad_rel_l2_max": worst[1],
+            "grad_worst": worst[0], "twin_losses": [s["loss"] for s in steps],
+            "twin_grad_norms": [s["grad_norm"] for s in steps],
+            "update_sign_agree": agree / total, "tiny": tiny}
+
+
+def sp_train_verdict(name, ranks):
+    """Log the sp run's readings; raise where a limit is missed or a launch
+    count is off."""
+    twin = ranks[0]["twin"]
+    tiny = twin["tiny"]
+    loss_atol = TINY_LOSS_ATOL if tiny else LM_LOSS_ATOL
+    grad_lim = SP_TINY_GRAD_REL_L2 if tiny else LM_GRAD_REL_L2
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    norms = [s["grad_norm"] for s in ranks[0]["steps"]]
+    log(f"sp train {name} at sp {len(ranks)} (transport {ranks[0]['transport']}): probe loss "
+        f"{twin['probe_loss']:.6f} vs the sp=1 twin's {twin['twin_probe_loss']:.6f}; gradients' "
+        f"largest relative L2 error {twin['grad_rel_l2_max']:.3e} ({twin['grad_worst']}; limit "
+        f"{grad_lim:g}); step losses {losses} vs {twin['twin_losses']} (limit {loss_atol:g}); "
+        f"grad norms {norms} vs {twin['twin_grad_norms']}; update signs agree on "
+        f"{twin['update_sign_agree']:.4f} of the elements (limit {SP_UPDATE_AGREE}); step ms "
+        f"{[round(s['ms'], 1) for s in ranks[0]['steps']]}; peak memory a rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB")
+    for r, res in enumerate(ranks):
+        if any(c[k] != v for c in res["per_step"] for k, v in res["want"].items()):
+            raise AssertionError(f"sp {name} rank {r}: launches {res['per_step']}, want "
+                                 f"{res['want']} a step")
+        kinds = {"wgmma": sum(c["wgmma"] for c in res["per_step"]),
+                 "simt": sum(c["simt"] for c in res["per_step"])}
+        if kinds["simt" if not tiny else "wgmma"]:
+            raise AssertionError(f"sp {name} rank {r} took the other variant: {kinds}")
+    rank_losses = {tuple(round(s["loss"], 9) for s in res["steps"]) for res in ranks}
+    missed = (abs(twin["probe_loss"] - twin["twin_probe_loss"]) > loss_atol
+              or twin["grad_rel_l2_max"] > grad_lim
+              or any(abs(a - b) > loss_atol for a, b in zip(losses, twin["twin_losses"]))
+              or any(abs(a - b) > grad_lim * b for a, b in zip(norms, twin["twin_grad_norms"]))
+              or twin["update_sign_agree"] < SP_UPDATE_AGREE or len(rank_losses) != 1
+              or not all(np.isfinite(x) for x in losses))
+    if missed:
+        raise AssertionError(f"sp training {name} misses its limits against the sp=1 twin: {twin}")
+
+
+def sp_phase(cd, fa, dev):
+    """The sp part: the kernel pieces, the three bodies at sp 2 and 4, the
+    two full-width sp training runs and the tiny fp32 one, each at sp 4
+    against its sp=1 twin. Returns the kernels line's sp entries, their
+    launches the training runs' totals over the ranks."""
+    t0 = time.perf_counter()
+    lines = check_sp_kernels(cd, fa, dev)
+    log(f"sp kernel pieces done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    for world, t in SP_BODY_RUNS:
+        ranks = sp_spawn(world, sp_bodies_rank, {"t": t, "window": 1024, "seed": 22})
+        for name in ranks[0]:
+            log(f"sp body {name} at sp {world}, T {t}: " + "; ".join(
+                f"{n} max abs {max(r[name][n]['max_abs'] for r in ranks):.3e} "
+                f"({max(r[name][n]['over_limit'] for r in ranks):.3f} of its limit)"
+                for n in ("out", "dq", "dk", "dv"))
+                + f"; rank 0 fwd + bwd {ranks[0][name]['ms']['sp']:.1f} ms (first call) against "
+                f"{ranks[0][name]['ms']['ref']:.1f} ms single-device")
+            if not all(agrees_sp_body(r[name]) for r in ranks):
+                raise AssertionError(f"sp body {name} at sp {world}, T {t} disagrees with the "
+                                     f"single-device kernel attention: {[r[name] for r in ranks]}")
+    log(f"sp bodies done at {time.perf_counter() - t0:.1f} s")
+    ranks = sp_spawn(4, sp_train_rank, {}, timeout=900)
+    for name in ranks[0]:
+        sp_train_verdict(name, [r[name] for r in ranks])
+    log(f"sp training done at {time.perf_counter() - t0:.1f} s")
+    hybrid, tiny = [r["hybrid_1b3"] for r in ranks], [r["tiny hybrid fp32"] for r in ranks]
+    lm = [r["lm_1b3"] for r in ranks]
+    for line in lines:
+        part = "parts" if "parts" in line["name"] else line["name"].split("_")[1]
+        runs = tiny if "_simt" in line["name"] else hybrid
+        if part == "parts":
+            line["launches"] = sum(c["parts_fwd"] for r in runs for c in r["per_step"])
+            line["launches_lm_1b3_sp"] = sum(c["parts_fwd"] for r in lm for c in r["per_step"])
+        else:
+            line["launches"] = sum(c[f"{part}_sp"] for r in runs for c in r["per_step"])
+        line["launches_per_rank"] = [
+            sum(c["parts_fwd" if part == "parts" else f"{part}_sp"] for c in r["per_step"])
+            for r in runs]
+        if not line["launches"]:
+            raise AssertionError(f"{line['name']} was not launched in its sp training run")
+    return lines, {name: [{k: r[name][k] for k in ("peak_gib", "transport")} for r in ranks]
+                   for name in ranks[0]}
+
+
 def checkout_package():
     """The ``orion_tpu_torch`` beside this script, or None: a copy of the
     script alone in a directory finds none (or, through ``PYTHONPATH``,
@@ -4581,6 +5243,11 @@ def main() -> int:
     kernels += check_q4(q4_matmul, dev)
     kernels += check_adafactor(adafactor, dev)
     log(f"kernel phases done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # sequence parallelism: ranks as processes sharing this card
+    sp_lines, sp_memory = sp_phase(causal_dot, flash_attention, dev)
+    log(f"sp phases done at {time.perf_counter() - t0:.1f} s; transport and peak memory a rank: "
+        f"{sp_memory}")
     op = op_phase(dev, mods)
     tiny_hybrid = dataclasses.replace(TINY, layer_types=("swa", "linear"), window=16)
 
@@ -4779,6 +5446,7 @@ def main() -> int:
             k["launches_spec"] = {label: {run: c[k["name"]]
                                           for run, c in r["spec"]["launches"].items()}
                                   for label, r in serving.items()}
+    kernels += sp_lines  # launches: the sp training runs' totals over the ranks
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -34,8 +34,12 @@ copy against the plain versions with ``chip_smoke.compare_causal_dot``
 ``chip_smoke.compare_raw`` (the copies named ``raw_*``, of the public op's
 two kernels, on all its cases),
 ``chip_smoke.compare_training_kernels`` (linear backward copies, at the
-training shape), ``chip_smoke.compare_flash`` (flash copies, on all its
-cases), ``chip_smoke.compare_gmm`` (gmm copies, on all its cases),
+training shape), ``chip_smoke.compare_flash`` and
+``chip_smoke.compare_flash_sp`` (flash copies, on all their cases: the
+second holds the sequence-parallel rings' blocks, with shift, q_offset and
+rows that see no key; the sound kernels and the copies in ``SP_MUTANTS``
+also run through ``chip_smoke.sp_bodies_rank`` at sp 4, four ranks sharing
+the card, whose readings are printed), ``chip_smoke.compare_gmm`` (gmm copies, on all its cases),
 ``chip_smoke.compare_q4`` or ``chip_smoke.compare_adafactor`` (on all their
 cases; Adafactor copies also through ``chip_smoke.compare_adafactor_update``,
 one update against the plain formulas), prints, per kernel, its readings and whether ``chip_smoke.agrees`` /
@@ -92,6 +96,10 @@ _DK_SEED = ("      sa[j] = p.st0[s_base + (size_t)n * WDX + m];\n"
 _BWD_ST_LO = ("for (int kk = 0; kk < WDX / 16; ++kk)\n      wgmma_m64n64k16<0, 1>(o, kmajor(xs, kk), "
               "mnmajor(r.st_lo(), kk));")
 HEADER = "hopper.cuh"  # the header the wgmma sources share, in library.CSRC
+# the sp rings' mutants, also run through chip_smoke's sp bodies (their
+# limits are reported; the kernel-piece limits are the ones that must reject)
+SP_MUTANTS = ("flash_wgmma_fwd_q_offset_dropped", "flash_wgmma_shift_dropped",
+              "flash_wgmma_dkv_lo_unmoved", "flash_wgmma_fwd_empty_lse_inf")
 
 
 def _moved_ahead(path, block_start, block_end, ahead_of, between):
@@ -178,12 +186,14 @@ MUTANTS = [
      "const int c0 = (REV && DEN ? n_chunks - 1 - ci : ci) * C;", True),
     ("flash_window_off_by_one", "flash_fwd",
      "lets each query see w + 1 keys: t - s <= w for t - s < w",
-     "(window <= 0 || row - col < window);", "(window <= 0 || row - col <= window);", True),
+     "(window <= 0 || row + q_offset - col < window);",
+     "(window <= 0 || row + q_offset - col <= window);", True),
     ("flash_bwd_window_off_by_one", "flash_bwd", "the same in both backward kernels' mask",
-     "(window <= 0 || row - col < window);", "(window <= 0 || row - col <= window);", True),
+     "(window <= 0 || row + q_offset - col < window);",
+     "(window <= 0 || row + q_offset - col <= window);", True),
     ("flash_causal_dropped", "flash_fwd",
      "drops the causal mask: the diagonal tile's later keys leak in",
-     "(!causal || row >= col)", "(true)", True),
+     "(!causal || row + q_offset >= col + shift)", "(true)", True),
     ("flash_alpha_one", "flash_fwd",
      "never rescales l and the accumulator when the running max grows (alpha = 1)",
      "const float alpha = expf(m[i] - m_new);", "const float alpha = 1.f;", True),
@@ -196,8 +206,8 @@ MUTANTS = [
      "const float ds = p * dp[i][j] * scale;", True),
     ("flash_dkv_stops_at_diagonal", "flash_bwd",
      "ends dk/dv's q-tile loop at the diagonal tile instead of the band's end",
-     "hi = min(hi, (k0 + BK - 1 + window - 1) / BQ);", "hi = min(hi, (k0 + BK - 1) / BQ);",
-     True),
+     "hi = min(hi, floor_div(k0 + BK - 1 + window - 1 - q_offset, BQ));",
+     "hi = min(hi, floor_div(k0 + BK - 1 - q_offset, BQ));", True),
     # the wgmma route (bf16 at D 128: every model's training shape)
     ("flash_wgmma_lo_dropped", "flash_bwd",
      "drops the low bf16 half of P and dS: both rounded once to bf16 before the second products",
@@ -246,6 +256,32 @@ MUTANTS = [
     ("flash_wgmma_fwd_diagonal_as_interior", "flash_fwd",
      "treats the diagonal tile as wholly inside the band, so its mask is skipped",
      "(!causal || s0 + 63 <= t0)", "(!causal || s0 <= t0)", True),
+    # the sequence-parallel rings' pieces (shift, q_offset, rows that see no
+    # key): rejected by chip_smoke.compare_flash_sp, and run through the sp
+    # bodies at sp 4 (``SP_MUTANTS``)
+    ("flash_wgmma_fwd_q_offset_dropped", "flash_fwd",
+     "drops q_offset from the wgmma forward's moved mask (visible_at): a halo block's queries "
+     "taken as at the keys",
+     "return t < t_q && s < t_k && (!causal || s + shift <= t + q_offset) &&\n"
+     "         (window <= 0 || t + q_offset - s < window);",
+     "return t < t_q && s < t_k && (!causal || s + shift <= t) &&\n"
+     "         (window <= 0 || t - s < window);", True),
+    ("flash_wgmma_shift_dropped", "flash_bwd",
+     "drops shift from the wgmma backward kernels' mask: a striped block's diagonal kept",
+     "(!causal || s + shift <= t + q_offset)", "(!causal || s <= t + q_offset)", True),
+    ("flash_wgmma_dkv_lo_unmoved", "flash_bwd",
+     "leaves dk/dv's first q tile unmoved by q_offset (wgmma): a halo block's earlier q tiles "
+     "skipped",
+     "lo = causal ? max(0, k0 + shift - q_offset) / WT : 0;",
+     "lo = causal ? max(0, k0 + shift) / WT : 0;", True),
+    ("flash_wgmma_fwd_empty_lse_inf", "flash_fwd",
+     "writes lse -inf for a row that sees no key (the ring merge's guard is -5e29)",
+     "lse[(size_t)bh * t_q + t] = l[h] == 0.f ? -1e30f :",
+     "lse[(size_t)bh * t_q + t] = l[h] == 0.f ? -INFINITY :", True),
+    ("flash_empty_lse_nan", "flash_fwd",
+     "writes lse NaN for a row that sees no key (simt)",
+     "if (tx == 0) lse[(size_t)bh * t_q + row] = m[i] + logf(safe);",
+     "if (tx == 0) lse[(size_t)bh * t_q + row] = l[i] == 0.f ? NAN : m[i] + logf(safe);", True),
     ("flash_wgmma_fwd_alpha_one", "flash_fwd",
      "never rescales l and the accumulator when the running max grows (alpha = 1)",
      "alpha[h] = fast_exp2(m[h] - base[h]);", "alpha[h] = 1.f;", True),
@@ -516,12 +552,30 @@ def run(name, source, dev):
     elif source.startswith("flash"):
         readings, _ = chip_smoke.compare_flash(flash_attention, dev)
         accepted = all(chip_smoke.agrees_flash(r) for r in readings)
-        for r in readings:
+        # the sp rings' blocks: shift, q_offset, rows that see no key
+        readings_sp, _ = chip_smoke.compare_flash_sp(flash_attention, dev)
+        accepted = accepted and all(chip_smoke.agrees_flash_sp(r) for r in readings_sp)
+        for r in readings + readings_sp:
             chip_smoke.log(
                 f"  {r['case']} (backward {r['variant']}): " + "; ".join(
                     f"{n} {r[n]['max_abs']:.3e} ({r[n]['over_limit']:.3g} of its limit)"
                     for n in ("out", "dq", "dk", "dv"))
-                + f"; lse {r['lse_max_abs']:.3e} ({r['lse_over_limit']:.3g} of its limit)")
+                + f"; lse {r['lse_max_abs']:.3e} ({r['lse_over_limit']:.3g} of its limit)"
+                + (f"; empty rows {r['empty_rows']}, guard held {r['empty_ok']}"
+                   if "empty_ok" in r else ""))
+        readings = readings + readings_sp
+        if name in SP_MUTANTS or name == "sound":
+            # the sp bodies at sp 4, T 2048 (h = 2), this copy of the flash
+            # sources in every rank
+            paths = [("fa", k, str(p)) for k, p in flash_attention.SOURCES.items()]
+            ranks = chip_smoke.sp_spawn(4, chip_smoke.sp_bodies_rank,
+                                        {"t": 2048, "window": 1024, "seed": 22, "sources": paths})
+            for body in ranks[0]:
+                ok = all(chip_smoke.agrees_sp_body(r[body]) for r in ranks)
+                chip_smoke.log(f"  sp body {body} at sp 4, T 2048: " + "; ".join(
+                    f"{n} {max(r[body][n]['over_limit'] for r in ranks):.3g} of its limit"
+                    for n in ("out", "dq", "dk", "dv")) + f": {'within' if ok else 'outside'}")
+                readings.append({"case": f"sp body {body}", "agrees": ok})
     elif source == "fwd":
         readings, _ = chip_smoke.compare_causal_dot(causal_dot, dev)
         accepted = all(chip_smoke.agrees(r) for r in readings)

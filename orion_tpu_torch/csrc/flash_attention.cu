@@ -8,10 +8,19 @@
 //     out[t] = sum_s P[t, s] v_s                      (input dtype)
 //     lse[t] = m_t + log(l_t)                         (fp32 [BH, Tq])
 //     P[t, s] = exp(scale q_t . k_s - m_t) / l_t over the keys s that row t
-//               sees: s < Tk, s <= t when causal, t - s < window when banded
+//               sees: s < Tk, t + q_offset >= s + shift when causal,
+//               t + q_offset - s < window when banded (_tile_mask)
 //
-// with m_t the row's largest score and l_t its sum of exp. A row that sees
-// no key writes out 0 and lse -1e30 (the TPU kernel's `safe` division).
+// with m_t the row's largest score and l_t its sum of exp. shift and
+// q_offset (both >= 0, 0 outside the sequence-parallel rings) move the mask:
+// shift 1 is the strict triangle of a striped ring block whose key stripe is
+// ahead of the query stripe, q_offset the distance of a halo block's queries
+// past its keys (orion_tpu/parallel/ring.py). Every loop bound and tile
+// predicate below moves with them (_skip_tile). A row that sees no key --
+// which they make common: a strict triangle's row 0, a halo's rows past the
+// window -- writes out 0 and lse -1e30 (the TPU kernel's `safe` division;
+// its partly masked tiles give -1e30 + log(count), the same fp32 value), at
+// or below the ring merge's guard of -5e29, never -inf or NaN.
 //
 // On the TPU the key axis is a sequential grid axis and VMEM scratch carries
 // m, l and the accumulator from one grid step to the next. Blocks on an H100
@@ -23,7 +32,12 @@
 // sliding-window attention costs O(T w), not O(T^2).
 //
 // Two variants, chosen by the wrapper before the launch
-// (ops/kernels/flash_attention.py, flash_fwd_variant):
+// (ops/kernels/flash_attention.py, flash_fwd_variant). The wgmma kernel has
+// two instances, chosen by its launcher: OFFSET false (shift and q_offset
+// both 0: every model's path) compiles the plain mask exactly as before the
+// offsets existed -- the extra terms in the mask and the band cost its
+// consumer registers, and at 128 a thread any more spill -- and OFFSET true
+// (the rings' blocks) the moved mask (`visible_at`, `tile_*_at`):
 //
 //   wgmma (flash_fwd_wgmma_kernel): bf16 at D 128 with 16-byte-aligned
 //     bases, every model's shape. TMA into a ring of shared-memory stages,
@@ -148,8 +162,15 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restric
   }
 }
 
-__device__ __forceinline__ bool sees(int row, int col, int t_k, int causal, int window) {
-  return col < t_k && (!causal || row >= col) && (window <= 0 || row - col < window);
+__device__ __forceinline__ bool sees(int row, int col, int t_k, int causal, int window, int shift,
+                                     int q_offset) {
+  return col < t_k && (!causal || row + q_offset >= col + shift) &&
+         (window <= 0 || row + q_offset - col < window);
+}
+
+// a / b rounded down, for a of either sign (b > 0)
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
 }
 
 // max / sum over the 16 neighbouring lanes that share a row
@@ -168,7 +189,8 @@ template <typename T>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse,
-    int t_q, int t_k, int d, int n_qt, float scale, int causal, int window) {
+    int t_q, int t_k, int d, int n_qt, float scale, int causal, int window, int shift,
+    int q_offset) {
   extern __shared__ float smem[];
   float* qs = smem;              // [BQ][LD]
   float* ks = qs + BQ * LD;      // [BK][LD]
@@ -186,10 +208,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
   load_tile(qs, LD, qb, q0, t_q, d);
 
-  // the band of key tiles this q tile sees
+  // the band of key tiles this q tile sees (none when lo > hi)
   int lo = 0, hi = (t_k - 1) / BK;
-  if (window > 0) lo = max(0, q0 - window + 1) / BK;
-  if (causal) hi = min(hi, (q0 + BQ - 1) / BK);
+  if (window > 0) lo = max(0, q0 + q_offset - window + 1) / BK;
+  if (causal) hi = min(hi, floor_div(q0 + q_offset + BQ - 1 - shift, BK));
 
   float m[4], l[4], acc[4][8];
 #pragma unroll
@@ -229,7 +251,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       float mx = NEG;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        keep[j] = sees(row, k0 + tx + 16 * j, t_k, causal, window);
+        keep[j] = sees(row, k0 + tx + 16 * j, t_k, causal, window, shift, q_offset);
         s[i][j] = keep[j] ? s[i][j] * scale : NEG;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -282,7 +304,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
                    int bh, int t_q, int t_k, int d, float scale, int causal, int window,
-                   cudaStream_t stream) {
+                   int shift, int q_offset, cudaStream_t stream) {
   const int n_qt = (t_q + BQ - 1) / BQ;
   const long long blocks = (long long)bh * n_qt;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -292,7 +314,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   if (err != cudaSuccess) return err;
   flash_fwd_kernel<T><<<(unsigned)blocks, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, t_q, t_k, d, n_qt, scale, causal, window);
+      static_cast<T*>(out), lse, t_q, t_k, d, n_qt, scale, causal, window, shift, q_offset);
   return cudaGetLastError();
 }
 
@@ -320,7 +342,8 @@ constexpr int WG_SMEM = 1024 + RESIDENT_BYTES + STAGES * STAGE_BYTES + (2 * STAG
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Whether query t sees key s.
+// Whether query t sees key s: the plain mask (the instance with OFFSET false
+// compiles exactly this, as before the rings' offsets existed).
 __device__ __forceinline__ bool visible(int t, int s, int t_q, int t_k, int causal, int window) {
   return t < t_q && s < t_k && (!causal || s <= t) && (window <= 0 || t - s < window);
 }
@@ -337,6 +360,26 @@ __device__ __forceinline__ bool tile_inside(int t0, int s0, int t_q, int t_k, in
                                             int window) {
   return t0 + 64 <= t_q && s0 + 64 <= t_k && (!causal || s0 + 63 <= t0) &&
          (window <= 0 || t0 + 63 - s0 < window);
+}
+
+// The same with the mask moved (the instance with OFFSET true, the rings'
+// blocks): query t at absolute position t + q_offset, causal as rows >= cols
+// + shift (the simt kernel's `sees`). A halo block's tile with q_offset >= Tk lies wholly below
+// the causal diagonal: only the window bounds it.
+__device__ __forceinline__ bool visible_at(int t, int s, int t_q, int t_k, int causal,
+                                           int window, int shift, int q_offset) {
+  return t < t_q && s < t_k && (!causal || s + shift <= t + q_offset) &&
+         (window <= 0 || t + q_offset - s < window);
+}
+__device__ __forceinline__ bool tile_hidden_at(int t0, int s0, int t_q, int t_k, int causal,
+                                               int window, int shift, int q_offset) {
+  return t0 >= t_q || s0 >= t_k || (causal && t0 + q_offset + 63 < s0 + shift) ||
+         (window > 0 && t0 + q_offset - (s0 + 63) >= window);
+}
+__device__ __forceinline__ bool tile_inside_at(int t0, int s0, int t_q, int t_k, int causal,
+                                               int window, int shift, int q_offset) {
+  return t0 + 64 <= t_q && s0 + 64 <= t_k && (!causal || s0 + 63 + shift <= t0 + q_offset) &&
+         (window <= 0 || t0 + q_offset + 63 - s0 < window);
 }
 
 // The block's shared memory: the q tiles (index 0-2), the ring's stages (a
@@ -381,18 +424,28 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // out, lse of one block: q rows [q0, q0 + 192) of head bh; warpgroup wg owns
 // rows q0 + 64 wg. The maps read [BH, T, 128] in boxes of 64 rows x 64 d.
+template <bool OFFSET>
 __global__ void __launch_bounds__(WG_THREADS, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out, float* __restrict__ lse,
-    int t_q, int t_k, int n_qt, float scale, int causal, int window) {
+    int t_q, int t_k, int n_qt, float scale, int causal, int window, int shift_arg,
+    int q_offset_arg) {
+  // OFFSET false: shift and q_offset are 0 at compile time, and the kernel
+  // is the plain mask's (no register spent on them)
+  const int shift = OFFSET ? shift_arg : 0, q_offset = OFFSET ? q_offset_arg : 0;
   extern __shared__ unsigned char wg_smem[];  // the simt kernel declares its own float[]
   const Ring r = make_ring(wg_smem);
   const int bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * WROWS;
-  // the k tiles of the band of rows [q0, q0 + 192)
+  // the k tiles of the band of rows [q0, q0 + 192); none when lo > hi
   int lo = 0, hi = (t_k - 1) / WT;
-  if (window > 0) lo = max(0, q0 - window + 1) / WT;
-  if (causal) hi = min(hi, (q0 + WROWS - 1) / WT);
+  if (OFFSET) {
+    if (window > 0) lo = max(0, q0 + q_offset - window + 1) / WT;
+    if (causal) hi = min(hi, floor_div(q0 + q_offset + WROWS - 1 - shift, WT));
+  } else {
+    if (window > 0) lo = max(0, q0 - window + 1) / WT;
+    if (causal) hi = min(hi, (q0 + WROWS - 1) / WT);
+  }
   const int n = hi - lo + 1;
   if (threadIdx.x >= 384) {  // the producer warpgroup: its first lane issues the copies
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
@@ -426,7 +479,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_fwd_wgmma_kernel(
     const int s = i % STAGES;
     mbar_wait(r.full(s), (i / STAGES) & 1);
     const int k0 = (lo + i) * WT;
-    if (!tile_hidden(r0, k0, t_q, t_k, causal, window)) {
+    if (!(OFFSET ? tile_hidden_at(r0, k0, t_q, t_k, causal, window, shift, q_offset)
+                 : tile_hidden(r0, k0, t_q, t_k, causal, window))) {
       const uint32_t ks = r.k(s), vs = r.v(s);
       float sc[32];
 #pragma unroll
@@ -438,14 +492,19 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_fwd_wgmma_kernel(
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
-      const bool edge = !tile_inside(r0, k0, t_q, t_k, causal, window);
+      const bool edge =
+          !(OFFSET ? tile_inside_at(r0, k0, t_q, t_k, causal, window, shift, q_offset)
+                   : tile_inside(r0, k0, t_q, t_k, causal, window));
       // element j: row + 8 ((j / 2) % 2), key k0 + 8 (j / 4) + 2 (lane % 4) + j % 2
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const int h = (j / 2) % 2, key = k0 + 8 * (j / 4) + 2 * (lane % 4) + j % 2;
         sc[j] *= sl2;
-        if (edge && !visible(row + 8 * h, key, t_q, t_k, causal, window)) sc[j] = -INFINITY;
+        if (edge && !(OFFSET ? visible_at(row + 8 * h, key, t_q, t_k, causal, window, shift,
+                                          q_offset)
+                             : visible(row + 8 * h, key, t_q, t_k, causal, window)))
+          sc[j] = -INFINITY;
         mx[h] = fmaxf(mx[h], sc[j]);
       }
       float alpha[2], base[2], sum[2] = {0.f, 0.f};
@@ -499,7 +558,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_fwd_wgmma_kernel(
 
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                          int bh, int t_q, int t_k, float scale, int causal, int window,
-                         cudaStream_t stream) {
+                         int shift, int q_offset, cudaStream_t stream) {
   CUtensorMap maps[3];
   const int n_qt = (t_q + WROWS - 1) / WROWS;
   const long long blocks = (long long)bh * n_qt;
@@ -507,30 +566,37 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
       !encode_heads(&maps[0], q, WD, t_q, bh) || !encode_heads(&maps[1], k, WD, t_k, bh) ||
       !encode_heads(&maps[2], v, WD, t_k, bh))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  // the instance with the mask moved only for the rings' blocks
+  const auto kernel = shift || q_offset ? flash_fwd_wgmma_kernel<true>
+                                        : flash_fwd_wgmma_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (err != cudaSuccess) return err;
-  flash_fwd_wgmma_kernel<<<(unsigned)blocks, WG_THREADS, WG_SMEM, stream>>>(
+  kernel<<<(unsigned)blocks, WG_THREADS, WG_SMEM, stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(out), lse, t_q, t_k, n_qt, scale, causal,
-      window);
+      window, shift, q_offset);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q [BH, Tq, D], k, v [BH, Tk, D], out [BH, Tq, D]: bf16 when is_bf16 else
-// fp32. lse [BH, Tq] fp32. window <= 0: no window. Returns the cudaError_t
-// of the launch (0 on success).
+// fp32. lse [BH, Tq] fp32. window <= 0: no window. shift, q_offset >= 0 move
+// the mask (0 but in the rings' blocks). Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    void* lse, int bh, int t_q, int t_k, int d, int is_bf16,
-                                   float scale, int causal, int window, void* stream) {
-  if (bh < 1 || t_q < 1 || t_k < 1 || d < 1 || d > D_MAX) return (int)cudaErrorInvalidValue;
+                                   float scale, int causal, int window, int shift, int q_offset,
+                                   void* stream) {
+  if (bh < 1 || t_q < 1 || t_k < 1 || d < 1 || d > D_MAX || shift < 0 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
   float* lsef = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(q, k, v, out, lsef, bh, t_q, t_k, d, scale, causal,
-                                      window, st)
-              : launch<float>(q, k, v, out, lsef, bh, t_q, t_k, d, scale, causal, window, st);
+                                      window, shift, q_offset, st)
+              : launch<float>(q, k, v, out, lsef, bh, t_q, t_k, d, scale, causal, window, shift,
+                              q_offset, st);
   return (int)err;
 }
 
@@ -539,8 +605,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // (0 on success); cudaErrorInvalidValue for anything it does not take.
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                                          void* lse, int bh, int t_q, int t_k, float scale,
-                                         int causal, int window, void* stream) {
-  if (bh < 1 || t_q < 1 || t_k < 1 || !tma_ok(out)) return (int)cudaErrorInvalidValue;
+                                         int causal, int window, int shift, int q_offset,
+                                         void* stream) {
+  if (bh < 1 || t_q < 1 || t_k < 1 || shift < 0 || q_offset < 0 || !tma_ok(out))
+    return (int)cudaErrorInvalidValue;
   return (int)launch_wgmma(q, k, v, out, static_cast<float*>(lse), bh, t_q, t_k, scale, causal,
-                           window, static_cast<cudaStream_t>(stream));
+                           window, shift, q_offset, static_cast<cudaStream_t>(stream));
 }

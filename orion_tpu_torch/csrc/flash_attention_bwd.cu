@@ -14,8 +14,12 @@
 //   dS[t, s] = P[t, s] (g_t . v_s - delta_t) scale
 //   dq = dS k,   dk = dS^T q,   dv = P^T g                    (input dtype)
 //
-// with the mask of the forward (flash_attention.cu): s < Tk, s <= t when
-// causal, t - s < window when banded. P is recomputed from lse, so no T x T
+// with the mask of the forward (flash_attention.cu): s < Tk, t + q_offset >=
+// s + shift when causal, t + q_offset - s < window when banded, every loop
+// bound and tile predicate moved with shift and q_offset. A row that sees no
+// key has lse -1e30 from the forward: its P is 0 wherever the mask is taken,
+// and the exponent is never taken unmasked for it (no tile holding it lies
+// wholly inside the band), so dq, dk and dv stay finite. P is recomputed from lse, so no T x T
 // matrix is kept between the passes. On the TPU each pass carries its fp32
 // accumulator in VMEM scratch across a sequential grid axis; here a loop
 // inside the block replaces that axis, the accumulators stay in registers,
@@ -23,7 +27,11 @@
 // in a fixed order.
 //
 // Two variants, chosen by the wrapper before the launch
-// (ops/kernels/flash_attention.py, flash_bwd_variant):
+// (ops/kernels/flash_attention.py, flash_bwd_variant). Each wgmma kernel has
+// two instances, chosen by its launcher, as the forward's: OFFSET false
+// compiles the plain mask and band exactly as before the offsets existed
+// (the dk/dv kernel's consumers sit at the registers setmaxnreg grants, and
+// the offsets' terms made them spill), OFFSET true the moved ones:
 //
 //   wgmma (flash_dq_wgmma_kernel, flash_dkv_wgmma_kernel): bf16 at D 128 with
 //     16-byte-aligned bases, every model's training shape. TMA into a ring of
@@ -145,9 +153,14 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 }
 
 __device__ __forceinline__ bool sees(int row, int col, int t_q, int t_k, int causal,
-                                     int window) {
-  return row < t_q && col < t_k && (!causal || row >= col) &&
-         (window <= 0 || row - col < window);
+                                     int window, int shift, int q_offset) {
+  return row < t_q && col < t_k && (!causal || row + q_offset >= col + shift) &&
+         (window <= 0 || row + q_offset - col < window);
+}
+
+// a / b rounded down, for a of either sign (b > 0)
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
 }
 
 // s = x y^T and u = w z^T over d: rows ty + 16i of x, w; rows tx + 16j of y, z
@@ -200,7 +213,7 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, int t_q, int t_k, int d, int n_qt, float scale, int causal,
-    int window) {
+    int window, int shift, int q_offset) {
   extern __shared__ float smem[];
   float* qs = smem;             // [BQ][LD]
   float* gs = qs + BQ * LD;     // [BQ][LD]
@@ -226,9 +239,9 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
     dl[i] = row < t_q ? delta[(size_t)bh * t_q + row] : 0.f;
   }
 
-  int lo = 0, hi = (t_k - 1) / BK;
-  if (window > 0) lo = max(0, q0 - window + 1) / BK;
-  if (causal) hi = min(hi, (q0 + BQ - 1) / BK);
+  int lo = 0, hi = (t_k - 1) / BK;  // none when lo > hi
+  if (window > 0) lo = max(0, q0 + q_offset - window + 1) / BK;
+  if (causal) hi = min(hi, floor_div(q0 + q_offset + BQ - 1 - shift, BK));
 
   float acc[4][8] = {};
   for (int kt = lo; kt <= hi; ++kt) {
@@ -246,7 +259,8 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
       for (int j = 0; j < 4; ++j) {
         const int row = q0 + ty + 16 * i, col = k0 + tx + 16 * j;
         const float p =
-            sees(row, col, t_q, t_k, causal, window) ? expf(s[i][j] * scale - lr[i]) : 0.f;
+            sees(row, col, t_q, t_k, causal, window, shift, q_offset)
+                ? expf(s[i][j] * scale - lr[i]) : 0.f;
         const float ds = p * (dp[i][j] - dl[i]) * scale;
         dss[(ty + 16 * i) * LDP + tx + 16 * j] = ds;
       }
@@ -272,7 +286,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, int t_q, int t_k, int d, int n_kt, float scale,
-    int causal, int window) {
+    int causal, int window, int shift, int q_offset) {
   extern __shared__ float smem[];
   float* ks = smem;             // [BK][LD]
   float* vs = ks + BK * LD;     // [BK][LD]
@@ -294,10 +308,11 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
   load_tile(ks, k + (size_t)bh * t_k * d, k0, t_k, d);
   load_tile(vs, v + (size_t)bh * t_k * d, k0, t_k, d);
 
-  // the band of query tiles that see this k tile
-  int lo = causal ? k0 / BQ : 0;
+  // the band of query tiles that see this k tile: from the first whose rows
+  // reach k0 + shift - q_offset (none when lo > hi)
+  int lo = causal ? max(0, k0 + shift - q_offset) / BQ : 0;
   int hi = (t_q - 1) / BQ;
-  if (window > 0) hi = min(hi, (k0 + BK - 1 + window - 1) / BQ);
+  if (window > 0) hi = min(hi, floor_div(k0 + BK - 1 + window - 1 - q_offset, BQ));
 
   float acc_dk[4][8] = {}, acc_dv[4][8] = {};
   for (int qt = lo; qt <= hi; ++qt) {
@@ -320,7 +335,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + ty + 16 * i, row = q0 + tx + 16 * j;
-        const float p = sees(row, col, t_q, t_k, causal, window)
+        const float p = sees(row, col, t_q, t_k, causal, window, shift, q_offset)
                             ? expf(st[i][j] * scale - lses[tx + 16 * j]) : 0.f;
         pts[(ty + 16 * i) * LDP + tx + 16 * j] = p;
         dsts[(ty + 16 * i) * LDP + tx + 16 * j] = p * (dpt[i][j] - dls[tx + 16 * j]) * scale;
@@ -355,8 +370,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
 template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* g,
                       const float* lse, const float* delta, void* dq, int bh, int t_q,
-                      int t_k, int d, float scale, int causal, int window,
-                      cudaStream_t stream) {
+                      int t_k, int d, float scale, int causal, int window, int shift,
+                      int q_offset, cudaStream_t stream) {
   const int n_qt = (t_q + BQ - 1) / BQ;
   const long long blocks = (long long)bh * n_qt;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -367,7 +382,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* g
   flash_dq_kernel<T><<<(unsigned)blocks, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, static_cast<T*>(dq), t_q, t_k, d, n_qt, scale,
-      causal, window);
+      causal, window, shift, q_offset);
   return cudaGetLastError();
 }
 
@@ -375,7 +390,7 @@ template <typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* g,
                        const float* lse, const float* delta, void* dk, void* dv, int bh,
                        int t_q, int t_k, int d, float scale, int causal, int window,
-                       cudaStream_t stream) {
+                       int shift, int q_offset, cudaStream_t stream) {
   const int n_kt = (t_k + BK - 1) / BK;
   const long long blocks = (long long)bh * n_kt;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -386,7 +401,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   flash_dkv_kernel<T><<<(unsigned)blocks, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), t_q,
-      t_k, d, n_kt, scale, causal, window);
+      t_k, d, n_kt, scale, causal, window, shift, q_offset);
   return cudaGetLastError();
 }
 
@@ -419,7 +434,8 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 
 constexpr int WG_SMEM = 1024 + RESIDENT_BYTES + STAGES * STAGE_BYTES + (2 * STAGES + 1) * 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Whether query t sees key s (the forward's mask).
+// Whether query t sees key s: the plain mask (the instance with OFFSET false
+// compiles exactly this, as before the rings' offsets existed).
 __device__ __forceinline__ bool visible(int t, int s, int t_q, int t_k, int causal, int window) {
   return t < t_q && s < t_k && (!causal || s <= t) && (window <= 0 || t - s < window);
 }
@@ -436,6 +452,26 @@ __device__ __forceinline__ bool tile_inside(int t0, int s0, int t_q, int t_k, in
                                             int window) {
   return t0 + 64 <= t_q && s0 + 64 <= t_k && (!causal || s0 + 63 <= t0) &&
          (window <= 0 || t0 + 63 - s0 < window);
+}
+
+// The same with the mask moved (the instance with OFFSET true, the rings'
+// blocks): query t at absolute position t + q_offset, causal as rows >= cols
+// + shift (the forward's). A halo block's tile with q_offset >= Tk lies wholly below
+// the causal diagonal: only the window bounds it.
+__device__ __forceinline__ bool visible_at(int t, int s, int t_q, int t_k, int causal,
+                                           int window, int shift, int q_offset) {
+  return t < t_q && s < t_k && (!causal || s + shift <= t + q_offset) &&
+         (window <= 0 || t + q_offset - s < window);
+}
+__device__ __forceinline__ bool tile_hidden_at(int t0, int s0, int t_q, int t_k, int causal,
+                                               int window, int shift, int q_offset) {
+  return t0 >= t_q || s0 >= t_k || (causal && t0 + q_offset + 63 < s0 + shift) ||
+         (window > 0 && t0 + q_offset - (s0 + 63) >= window);
+}
+__device__ __forceinline__ bool tile_inside_at(int t0, int s0, int t_q, int t_k, int causal,
+                                               int window, int shift, int q_offset) {
+  return t0 + 64 <= t_q && s0 + 64 <= t_k && (!causal || s0 + 63 + shift <= t0 + q_offset) &&
+         (window <= 0 || t0 + q_offset + 63 - s0 < window);
 }
 
 // The block's shared memory: the resident tiles (index 0..3), the ring's
@@ -499,19 +535,28 @@ __device__ __forceinline__ void store_rows_bf16(const float (&acc)[64], bf16* __
 
 // dq of one block: q rows [q0, q0 + 128) of head bh; warpgroup wg owns rows
 // q0 + 64 wg. The maps read [BH, T, 128] in boxes of 64 rows x 64 d.
+template <bool OFFSET>
 __global__ void __launch_bounds__(WG_THREADS, 1) flash_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
-    int t_q, int t_k, int n_qt, float scale, int causal, int window) {
+    int t_q, int t_k, int n_qt, float scale, int causal, int window, int shift_arg,
+    int q_offset_arg) {
+  // OFFSET false: shift and q_offset are 0 at compile time (the plain mask)
+  const int shift = OFFSET ? shift_arg : 0, q_offset = OFFSET ? q_offset_arg : 0;
   extern __shared__ unsigned char wg_smem[];  // the simt kernels declare theirs float[]
   const Ring r = make_ring(wg_smem, 1);
   const int bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * WROWS;
-  // the k tiles of the band of rows [q0, q0 + 128)
+  // the k tiles of the band of rows [q0, q0 + 128); none when lo > hi
   int lo = 0, hi = (t_k - 1) / WT;
-  if (window > 0) lo = max(0, q0 - window + 1) / WT;
-  if (causal) hi = min(hi, (q0 + WROWS - 1) / WT);
+  if (OFFSET) {
+    if (window > 0) lo = max(0, q0 + q_offset - window + 1) / WT;
+    if (causal) hi = min(hi, floor_div(q0 + q_offset + WROWS - 1 - shift, WT));
+  } else {
+    if (window > 0) lo = max(0, q0 - window + 1) / WT;
+    if (causal) hi = min(hi, (q0 + WROWS - 1) / WT);
+  }
   const int n = hi - lo + 1;
   if (threadIdx.x >= 256) {  // the producer warp: its first lane issues the copies
     if (threadIdx.x == 256) {
@@ -549,7 +594,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_dq_wgmma_kernel(
     const int s = i % STAGES;
     mbar_wait(r.full(s), (i / STAGES) & 1);
     const int k0 = (lo + i) * WT;
-    if (!tile_hidden(r0, k0, t_q, t_k, causal, window)) {
+    if (!(OFFSET ? tile_hidden_at(r0, k0, t_q, t_k, causal, window, shift, q_offset)
+                 : tile_hidden(r0, k0, t_q, t_k, causal, window))) {
       const uint32_t ks = r.a(s), vs = r.b(s);
       float sc[32], dp[32];
 #pragma unroll
@@ -565,7 +611,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_dq_wgmma_kernel(
       wgmma_wait<0>();
       fence_acc(sc);
       fence_acc(dp);
-      const bool edge = !tile_inside(r0, k0, t_q, t_k, causal, window);
+      const bool edge =
+          !(OFFSET ? tile_inside_at(r0, k0, t_q, t_k, causal, window, shift, q_offset)
+                   : tile_inside(r0, k0, t_q, t_k, causal, window));
       // element j: row + 8 ((j / 2) % 2), key k0 + 8 (j / 4) + 2 (lane % 4) + j % 2
       uint32_t dhi[16], dlo[16];
 #pragma unroll
@@ -574,8 +622,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_dq_wgmma_kernel(
         float p0 = exp2f(fmaf(sc[j], sl2, -lse2[h]));
         float p1 = exp2f(fmaf(sc[j + 1], sl2, -lse2[h]));
         if (edge) {
-          if (!visible(row + 8 * h, key, t_q, t_k, causal, window)) p0 = 0.f;
-          if (!visible(row + 8 * h, key + 1, t_q, t_k, causal, window)) p1 = 0.f;
+          if (OFFSET) {
+            if (!visible_at(row + 8 * h, key, t_q, t_k, causal, window, shift, q_offset))
+              p0 = 0.f;
+            if (!visible_at(row + 8 * h, key + 1, t_q, t_k, causal, window, shift, q_offset))
+              p1 = 0.f;
+          } else {
+            if (!visible(row + 8 * h, key, t_q, t_k, causal, window)) p0 = 0.f;
+            if (!visible(row + 8 * h, key + 1, t_q, t_k, causal, window)) p1 = 0.f;
+          }
         }
         split_pair(p0 * (dp[j] - dl[h]) * scale, p1 * (dp[j + 1] - dl[h]) * scale, dhi[j / 2],
                    dlo[j / 2]);
@@ -598,19 +653,28 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_dq_wgmma_kernel(
 // k0 + 64 wg. The producer warp's lanes write each streamed q tile's lse
 // (times log2 e) and delta into its stage, so a stage completes on the
 // warp's 32 arrivals and the tiles' bytes.
+template <bool OFFSET>
 __global__ void __launch_bounds__(DKV_THREADS, 1) flash_dkv_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int t_q, int t_k, int n_kt, float scale, int causal, int window) {
+    bf16* __restrict__ dv, int t_q, int t_k, int n_kt, float scale, int causal, int window,
+    int shift_arg, int q_offset_arg) {
+  // OFFSET false: shift and q_offset are 0 at compile time (the plain mask)
+  const int shift = OFFSET ? shift_arg : 0, q_offset = OFFSET ? q_offset_arg : 0;
   extern __shared__ unsigned char wg_smem[];  // the simt kernels declare theirs float[]
   const Ring r = make_ring(wg_smem, 32);
   const int bh = blockIdx.x / n_kt;
   const int k0 = (blockIdx.x % n_kt) * WROWS;
-  // the q tiles of the band of keys [k0, k0 + 128)
-  int lo = causal ? k0 / WT : 0;
-  int hi = (t_q - 1) / WT;
-  if (window > 0) hi = min(hi, (k0 + WROWS - 1 + window - 1) / WT);
+  // the q tiles of the band of keys [k0, k0 + 128); none when lo > hi
+  int lo, hi = (t_q - 1) / WT;
+  if (OFFSET) {  // from the first q tile whose rows reach k0 + shift - q_offset
+    lo = causal ? max(0, k0 + shift - q_offset) / WT : 0;
+    if (window > 0) hi = min(hi, floor_div(k0 + WROWS - 1 + window - 1 - q_offset, WT));
+  } else {
+    lo = causal ? k0 / WT : 0;
+    if (window > 0) hi = min(hi, (k0 + WROWS - 1 + window - 1) / WT);
+  }
   const int n = hi - lo + 1;
   if (threadIdx.x >= 256) {  // the producer warpgroup: its first warp works
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
@@ -657,7 +721,8 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_dkv_wgmma_kernel(
     const int s = i % STAGES;
     mbar_wait(r.full(s), (i / STAGES) & 1);
     const int q_row = (lo + i) * WT;
-    if (!tile_hidden(q_row, c0, t_q, t_k, causal, window)) {
+    if (!(OFFSET ? tile_hidden_at(q_row, c0, t_q, t_k, causal, window, shift, q_offset)
+                 : tile_hidden(q_row, c0, t_q, t_k, causal, window))) {
       const uint32_t qs = r.a(s), gs = r.b(s);
       const float* st = at<float>(r.stats(s), wg_smem);
       float sc[32], dp[32];  // S^T and dP^T: rows are keys, columns queries
@@ -674,7 +739,9 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_dkv_wgmma_kernel(
       wgmma_wait<0>();
       fence_acc(sc);
       fence_acc(dp);
-      const bool edge = !tile_inside(q_row, c0, t_q, t_k, causal, window);
+      const bool edge =
+          !(OFFSET ? tile_inside_at(q_row, c0, t_q, t_k, causal, window, shift, q_offset)
+                   : tile_inside(q_row, c0, t_q, t_k, causal, window));
       // element j: key + 8 ((j / 2) % 2), query q_row + 8 (j / 4) + 2 (lane % 4) + j % 2
       uint32_t phi[16], plo[16], dhi[16], dlo[16];
 #pragma unroll
@@ -685,8 +752,16 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_dkv_wgmma_kernel(
         float p0 = exp2f(fmaf(sc[j], sl2, -l2.x));
         float p1 = exp2f(fmaf(sc[j + 1], sl2, -l2.y));
         if (edge) {
-          if (!visible(q_row + col, key + 8 * h, t_q, t_k, causal, window)) p0 = 0.f;
-          if (!visible(q_row + col + 1, key + 8 * h, t_q, t_k, causal, window)) p1 = 0.f;
+          if (OFFSET) {
+            const int kh = key + 8 * h;
+            if (!visible_at(q_row + col, kh, t_q, t_k, causal, window, shift, q_offset))
+              p0 = 0.f;
+            if (!visible_at(q_row + col + 1, kh, t_q, t_k, causal, window, shift, q_offset))
+              p1 = 0.f;
+          } else {
+            if (!visible(q_row + col, key + 8 * h, t_q, t_k, causal, window)) p0 = 0.f;
+            if (!visible(q_row + col + 1, key + 8 * h, t_q, t_k, causal, window)) p1 = 0.f;
+          }
         }
         split_pair(p0, p1, phi[j / 2], plo[j / 2]);
         split_pair(p0 * (dp[j] - dl.x) * scale, p1 * (dp[j + 1] - dl.y) * scale, dhi[j / 2],
@@ -726,73 +801,85 @@ bool encode_all(CUtensorMap (&maps)[4], const void* q, const void* k, const void
 
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* g,
                             const float* lse, const float* delta, void* dq, int bh, int t_q,
-                            int t_k, float scale, int causal, int window, cudaStream_t stream) {
+                            int t_k, float scale, int causal, int window, int shift,
+                            int q_offset, cudaStream_t stream) {
   CUtensorMap maps[4];
   const int n_qt = (t_q + WROWS - 1) / WROWS;
   const long long blocks = (long long)bh * n_qt;
   if (blocks > 0x7fffffffLL || !encode_all(maps, q, k, v, g, bh, t_q, t_k))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  // the instance with the mask moved only for the rings' blocks
+  const auto kernel =
+      shift || q_offset ? flash_dq_wgmma_kernel<true> : flash_dq_wgmma_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (err != cudaSuccess) return err;
-  flash_dq_wgmma_kernel<<<(unsigned)blocks, WG_THREADS, WG_SMEM, stream>>>(
+  kernel<<<(unsigned)blocks, WG_THREADS, WG_SMEM, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<bf16*>(dq), t_q, t_k, n_qt,
-      scale, causal, window);
+      scale, causal, window, shift, q_offset);
   return cudaGetLastError();
 }
 
 cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* g,
                              const float* lse, const float* delta, void* dk, void* dv, int bh,
                              int t_q, int t_k, float scale, int causal, int window,
-                             cudaStream_t stream) {
+                             int shift, int q_offset, cudaStream_t stream) {
   CUtensorMap maps[4];
   const int n_kt = (t_k + WROWS - 1) / WROWS;
   const long long blocks = (long long)bh * n_kt;
   if (blocks > 0x7fffffffLL || !encode_all(maps, q, k, v, g, bh, t_q, t_k))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  // the instance with the mask moved only for the rings' blocks
+  const auto kernel =
+      shift || q_offset ? flash_dkv_wgmma_kernel<true> : flash_dkv_wgmma_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (err != cudaSuccess) return err;
-  flash_dkv_wgmma_kernel<<<(unsigned)blocks, DKV_THREADS, WG_SMEM, stream>>>(
+  kernel<<<(unsigned)blocks, DKV_THREADS, WG_SMEM, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), t_q, t_k, n_kt, scale, causal, window);
+      static_cast<bf16*>(dv), t_q, t_k, n_kt, scale, causal, window, shift, q_offset);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, g, dq [BH, Tq, D], k, v, dk, dv [BH, Tk, D]: bf16 when is_bf16 else
-// fp32. lse, delta [BH, Tq] fp32. window <= 0: no window. Each returns the
-// cudaError_t of its launch (0 on success).
+// fp32. lse, delta [BH, Tq] fp32. window <= 0: no window. shift, q_offset >=
+// 0 move the mask, as the forward's. Each returns the cudaError_t of its
+// launch (0 on success).
 extern "C" int flash_attention_dq(const void* q, const void* k, const void* v, const void* g,
                                   const void* lse, const void* delta, void* dq, int bh,
                                   int t_q, int t_k, int d, int is_bf16, float scale,
-                                  int causal, int window, void* stream) {
-  if (bh < 1 || t_q < 1 || t_k < 1 || d < 1 || d > D_MAX) return (int)cudaErrorInvalidValue;
+                                  int causal, int window, int shift, int q_offset,
+                                  void* stream) {
+  if (bh < 1 || t_q < 1 || t_k < 1 || d < 1 || d > D_MAX || shift < 0 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
   const float* lsef = static_cast<const float*>(lse);
   const float* deltaf = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch_dq<__nv_bfloat16>(q, k, v, g, lsef, deltaf, dq, bh, t_q, t_k, d,
-                                         scale, causal, window, st)
+                                         scale, causal, window, shift, q_offset, st)
               : launch_dq<float>(q, k, v, g, lsef, deltaf, dq, bh, t_q, t_k, d, scale,
-                                 causal, window, st);
+                                 causal, window, shift, q_offset, st);
   return (int)err;
 }
 
 extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, const void* g,
                                    const void* lse, const void* delta, void* dk, void* dv,
                                    int bh, int t_q, int t_k, int d, int is_bf16, float scale,
-                                   int causal, int window, void* stream) {
-  if (bh < 1 || t_q < 1 || t_k < 1 || d < 1 || d > D_MAX) return (int)cudaErrorInvalidValue;
+                                   int causal, int window, int shift, int q_offset,
+                                   void* stream) {
+  if (bh < 1 || t_q < 1 || t_k < 1 || d < 1 || d > D_MAX || shift < 0 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
   const float* lsef = static_cast<const float*>(lse);
   const float* deltaf = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch_dkv<__nv_bfloat16>(q, k, v, g, lsef, deltaf, dk, dv, bh, t_q, t_k, d,
-                                          scale, causal, window, st)
+                                          scale, causal, window, shift, q_offset, st)
               : launch_dkv<float>(q, k, v, g, lsef, deltaf, dk, dv, bh, t_q, t_k, d, scale,
-                                  causal, window, st);
+                                  causal, window, shift, q_offset, st);
   return (int)err;
 }
 
@@ -803,20 +890,23 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, 
 extern "C" int flash_attention_dq_wgmma(const void* q, const void* k, const void* v,
                                         const void* g, const void* lse, const void* delta,
                                         void* dq, int bh, int t_q, int t_k, float scale,
-                                        int causal, int window, void* stream) {
-  if (bh < 1 || t_q < 1 || t_k < 1 || !tma_ok(dq)) return (int)cudaErrorInvalidValue;
+                                        int causal, int window, int shift, int q_offset,
+                                        void* stream) {
+  if (bh < 1 || t_q < 1 || t_k < 1 || shift < 0 || q_offset < 0 || !tma_ok(dq))
+    return (int)cudaErrorInvalidValue;
   return (int)launch_dq_wgmma(q, k, v, g, static_cast<const float*>(lse),
                               static_cast<const float*>(delta), dq, bh, t_q, t_k, scale, causal,
-                              window, static_cast<cudaStream_t>(stream));
+                              window, shift, q_offset, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_dkv_wgmma(const void* q, const void* k, const void* v,
                                          const void* g, const void* lse, const void* delta,
                                          void* dk, void* dv, int bh, int t_q, int t_k,
-                                         float scale, int causal, int window, void* stream) {
-  if (bh < 1 || t_q < 1 || t_k < 1 || !tma_ok(dk) || !tma_ok(dv))
+                                         float scale, int causal, int window, int shift,
+                                         int q_offset, void* stream) {
+  if (bh < 1 || t_q < 1 || t_k < 1 || shift < 0 || q_offset < 0 || !tma_ok(dk) || !tma_ok(dv))
     return (int)cudaErrorInvalidValue;
   return (int)launch_dkv_wgmma(q, k, v, g, static_cast<const float*>(lse),
                                static_cast<const float*>(delta), dk, dv, bh, t_q, t_k, scale,
-                               causal, window, static_cast<cudaStream_t>(stream));
+                               causal, window, shift, q_offset, static_cast<cudaStream_t>(stream));
 }

@@ -31,8 +31,11 @@ def lm_eval_sums(model: TransformerLM, batch: Tensor) -> Tuple[Tensor, Tensor]:
     """batch [B, T+1] -> (sum of next-token cross entropy, token count),
     through the fused head + CE (no [B, T, V] fp32 logits) where it
     applies. The MoE layers' auxiliary loss is left out, as in the JAX
-    package's eval."""
+    package's eval. On a sequence-parallel model: this rank's shard's sums
+    (the inputs and labels shifted before sharding)."""
     x, y = batch[:, :-1], batch[:, 1:]
+    if model.sp is not None:
+        x, y = model.sp.shard(x), model.sp.shard(y)
     if fused_ce_ok(model):
         losses, _ = model_token_losses(model, x, y)
     else:

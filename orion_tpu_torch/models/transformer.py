@@ -79,10 +79,22 @@ through ``attend`` (fp32 logits), an untied head as the int8
 MoE layer's expert stacks int8. ``generate.quantize_for_decode`` fills one
 from a full-precision model.
 
+Sequence parallelism (``mesh``, a ``parallel.mesh.Mesh`` whose sp axis is
+above 1, with ``cfg.sequence_parallel``): the JAX model's ``sp_local`` form,
+since each rank holds only its shard of the tokens. A rank's row p is at
+global position r T_loc + p, for the learned position embeddings and the
+rotary angles alike; linear layers run ``parallel/sequence.py``'s body
+(its fused parts form on the card), softmax layers the ring (striped when
+``cfg.ring_striped``, its blocks through the flash kernels with ``shift`` on
+the card), swa layers the halo (flash blocks at ``q_offset``) on the card
+and the windowed ring elsewhere (``parallel/ring.py``), as the JAX model
+does with a Pallas backend and with XLA.
+
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
-item): meshes, and with them the expert-parallel MoE forms. The JAX
-package's ``attn_block_q`` / ``attn_block_k`` size TPU tiles and are not
-read.
+item): the other mesh axes (A12), and with them the expert-parallel MoE
+forms; prefill and decode of a sequence-parallel model (``generate --sp``),
+and a sequence-parallel MoE or dropout. The JAX package's ``attn_block_q`` /
+``attn_block_k`` size TPU tiles and are not read.
 """
 
 from __future__ import annotations
@@ -99,12 +111,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.models.moe import MoEMLP
+from orion_tpu_torch.ops.dispatch import resolve
 from orion_tpu_torch.ops.feature_maps import _orthogonal_gaussian, favor_phi, make_feature_map
 from orion_tpu_torch.ops.linear_attention import (linear_attention, linear_attention_noncausal,
                                                   recurrent_step)
 from orion_tpu_torch.ops.rotary import apply_rotary, apply_rotary_at, rotary_freqs
 from orion_tpu_torch.ops.softmax_attention import (cached_attention, softmax_attention,
                                                    softmax_attention_xla)
+from orion_tpu_torch.parallel.mesh import Mesh
 from orion_tpu_torch.quant import Int4Dense, Int8Dense, Int8Embed, check_mode
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
@@ -279,13 +293,14 @@ class Attention(nn.Module):
     (``causal=False``, the LRA classifier)."""
 
     def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None,
-                 quant: str = "", causal: bool = True):
+                 quant: str = "", causal: bool = True, sp=None):
         super().__init__()
         if layer_type not in ("linear", "softmax", "swa"):
             raise ValueError(f"unknown layer type {layer_type!r}")
         self.cfg = cfg
         self.layer_type = layer_type
         self.causal = causal
+        self.sp = sp  # the sequence-parallel mesh, or None
         h, dh = cfg.n_heads, cfg.resolved_head_dim
         dense = _qdense_factory(quant, _dtype(cfg.dtype), cfg.backend)
         self.wq = dense(cfg.d_model, h * dh, device)
@@ -343,10 +358,40 @@ class Attention(nn.Module):
                                  mask=None if mask is None else mask[:, None, None, :],
                                  backend=self.cfg.backend)
 
+    def _sp_forward(self, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+        """The sp_local branch of the JAX model's ``__call__``: q, k, v [B, H,
+        T_loc, Dh] of this rank's token shard."""
+        from orion_tpu_torch.parallel.ring import ring_attention_local, swa_halo_attention_local
+        from orion_tpu_torch.parallel.sequence import sp_linear_attention_local
+
+        cfg, group = self.cfg, self.sp.sp_group
+        if self.layer_type == "linear":
+            return sp_linear_attention_local(self._phi_map(q), self._phi_map(k), v, group,
+                                             backend=cfg.backend, chunk=cfg.chunk)
+        t = q.shape[-2]
+        r = self.sp.sp_rank
+        ang = self.freqs[r * t:(r + 1) * t]  # the global positions of this shard's rows
+        q, k = apply_rotary(q, ang), apply_rotary(k, ang)
+        if self.window is not None and resolve(cfg.backend, q.device) == "cuda":
+            return swa_halo_attention_local(q, k, v, group, window=self.window,
+                                            backend=cfg.backend)
+        # striped: full-causal softmax only (a striped window loses locality)
+        return ring_attention_local(q, k, v, group, causal=True, window=self.window,
+                                    striped=cfg.ring_striped and self.window is None,
+                                    backend=cfg.backend)
+
+    def _not_sp(self, what: str) -> None:
+        if self.sp is not None:
+            raise _not_ported(f"{what} of a sequence-parallel model (generate --sp)",
+                              "item 12 (parallelism)")
+
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
         """x [B, T, D] -> [B, T, D]. ``mask`` [B, T] (True = a real key)
-        applies to a bidirectional layer only."""
+        applies to a bidirectional layer only. On a sequence-parallel layer
+        x is this rank's token shard [B, T / sp, D]."""
         q, k, v = self._heads(x)
+        if self.sp is not None and self.causal:
+            return self._merge(self._sp_forward(q, k, v), single=False)
         if self.layer_type == "linear":
             qf, kf = self._phi_map(q), self._phi_map(k)
             if self.causal:
@@ -371,6 +416,7 @@ class Attention(nn.Module):
           slots past t);
         - swa: the ring is built from the last ``window`` real positions.
         """
+        self._not_sp("prefill")
         q, k, v = self._heads(x)
         t = x.shape[-2]
         if self.layer_type != "linear":
@@ -412,6 +458,7 @@ class Attention(nn.Module):
         more rows than the state (``decode_rows``' padding): the products
         run on all of them, the attention on the state's rows, and the
         output has x's rows."""
+        self._not_sp("decode")
         q, k, v = self._heads(x)
         b, rows = next(iter(state.values())).shape[0], x.shape[0]
         if self.layer_type == "linear":
@@ -475,6 +522,7 @@ class Attention(nn.Module):
         tokens' phi(k) and v). A softmax / swa layer walks its cache or ring
         in place, and the payload holds the rows the walk overwrote, which
         ``advance_verified`` writes back for the rejected tokens."""
+        self._not_sp("a verify piece")
         b, p = pos.shape
         n = b * p
         blocks = [self._heads(blk) for blk in x.split(rows)]
@@ -570,6 +618,7 @@ class Attention(nn.Module):
         that is not prefilling, and then discarded, stays in range. The
         softmax and swa pieces are plain torch, as the JAX package computes
         them with its XLA form outside any kernel."""
+        self._not_sp("a prefill piece")
         q, k, v = self._heads(x)
         p = x.shape[-2]
         real = (torch.arange(p, device=x.device) < length)[None, None, :, None]
@@ -711,12 +760,12 @@ class Block(nn.Module):
     ``checkpoint`` redraws the same masks."""
 
     def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None,
-                 use_moe: bool = False, quant: str = "", causal: bool = True):
+                 use_moe: bool = False, quant: str = "", causal: bool = True, sp=None):
         super().__init__()
         cdt = _dtype(cfg.dtype)
         self.rate = cfg.dropout
         self.norm1 = make_norm(cfg, device)
-        self.attn = Attention(cfg, layer_type, device, quant, causal)
+        self.attn = Attention(cfg, layer_type, device, quant, causal, sp)
         self.norm2 = make_norm(cfg, device)
         self.mlp = (MoEMLP(cfg, cdt, device, quant=quant) if use_moe
                     else MLP(cfg, device, quant))
@@ -779,8 +828,10 @@ class TransformerLM(nn.Module):
     ``"int4"``): the quantized decode model (see the module docstring); its
     int8 / int4 tensors start at zero, with unit scales, until
     ``generate.quantize_for_decode`` or ``convert.load_jax_params`` fills
-    them. ``mesh`` is the JAX model's, not ported yet: anything but None
-    raises.
+    them. ``mesh``: a ``parallel.mesh.Mesh``; with its sp axis above 1 and
+    ``cfg.sequence_parallel`` the model is sequence-parallel (``sp``; see the
+    module docstring): ``features`` and ``forward`` then take this rank's
+    shard of the tokens. Otherwise it changes nothing, as in the JAX model.
     """
 
     def __init__(
@@ -794,7 +845,14 @@ class TransformerLM(nn.Module):
     ):
         super().__init__()
         if mesh is not None:
-            raise _not_ported("a device mesh", "item 12 (parallelism)")
+            if not isinstance(mesh, Mesh):
+                raise _not_ported(f"a device mesh of type {type(mesh).__name__} (the port takes "
+                                  "parallel.mesh.Mesh)", "item 12 (parallelism)")
+            mesh.cfg.check()
+        self.sp = mesh if (mesh is not None and cfg.sequence_parallel and mesh.sp > 1) else None
+        if self.sp is not None and (quant or cfg.n_experts or cfg.dropout > 0.0):
+            raise _not_ported("a sequence-parallel model with quant, MoE layers or dropout",
+                              "item 12 (parallelism)")
         self.quant = check_mode(quant)
         check_supported(cfg)
         if cfg.param_dtype != "float32":
@@ -807,7 +865,7 @@ class TransformerLM(nn.Module):
                       else Embed(cfg.vocab_size, cfg.d_model, dev))
         self.pos_embed = Embed(cfg.max_seq_len, cfg.d_model, dev)
         self.blocks = nn.ModuleList(
-            Block(cfg, lt, dev, use_moe=cfg.moe_at(i), quant=quant)
+            Block(cfg, lt, dev, use_moe=cfg.moe_at(i), quant=quant, sp=self.sp)
             for i, lt in enumerate(cfg.resolved_layer_types)
         )
         self.final_norm = make_norm(cfg, dev)
@@ -889,8 +947,12 @@ class TransformerLM(nn.Module):
         and ``cfg.remat``, blocks ``i < n_layers - remat_skip`` are
         recomputed in the backward (the JAX model's ``nn.remat``):
         ``remat_policy="full"`` keeps only their input, ``"dots"`` also the
-        outputs of their matrix products."""
-        x = self._embed(tokens, torch.arange(tokens.shape[-1], device=tokens.device))
+        outputs of their matrix products. On a sequence-parallel model
+        ``tokens`` is this rank's shard [B, T / sp]: its row p is at global
+        position sp_rank T / sp + p."""
+        t = tokens.shape[-1]
+        first = self.sp.sp_rank * t if self.sp is not None else 0
+        x = self._embed(tokens, torch.arange(first, first + t, device=tokens.device))
         x, aux_total = run_blocks(self.blocks, self.cfg, x, deterministic, dropout_seed)
         return self.final_norm(x), aux_total
 

@@ -13,8 +13,14 @@ compute dtype before its two products; ``dw`` accumulated in fp32; ``dx`` in
 the compute dtype.
 
 The head is the tied embedding table [V, D] or the untied
-``lm_head_kernel`` [D, V], which enters as its transpose. The
-sequence-parallel variant is not ported (ROADMAP.md queue A, item 12).
+``lm_head_kernel`` [D, V], which enters as its transpose.
+
+Sequence parallelism (the counterpart of ``_sp_fused_ce``): per-token cross
+entropy needs no other token, so each rank runs ``model_token_losses`` on
+its own shard of the tokens (``training/trainer.py::lm_loss`` shards the
+inputs and labels), chunking its local rows; the head weight's gradient,
+one partial a rank, is summed over the sp group by the trainer's gradient
+reduction, as the JAX package's shard_map transpose psums it.
 """
 
 from __future__ import annotations
@@ -156,7 +162,8 @@ def model_token_losses(
     layers' auxiliary loss): the one invocation of this path, shared by the
     training loss (``training/trainer.py::lm_loss``, which adds the
     auxiliary loss) and the eval loss (``evaluate.py::lm_eval_sums``, which
-    leaves it out) so the two cannot drift."""
+    leaves it out) so the two cannot drift. On a sequence-parallel model x
+    and y are this rank's token shard (the module docstring)."""
     feats, aux = model.features(x, deterministic=deterministic, dropout_seed=dropout_seed)
     w, w_is_vd = model.head_weight()
     return _padded_fused_ce(feats.to(model.cdt), w if w_is_vd else w.t(), y), aux

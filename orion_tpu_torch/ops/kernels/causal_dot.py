@@ -62,7 +62,11 @@ the reverse pass.
 ``LinearAttentionFn`` is the counterpart of the JAX package's
 ``_lin_attn_fused`` custom VJP: the forward kernel, then in the backward the
 quotient rule in plain torch and the two backward kernels
-(``_fused_bwd_core``). The public functions keep the JAX layouts: S0, dS0
+(``_fused_bwd_core``). ``LinearAttentionPartsFn`` is that of
+``_lin_attn_fused_raw``: the same three kernels around the raw fp32 parts
+(numerator, denominator and the final state) with no quotient, which
+``linear_attention_parts`` hands to sequence parallelism
+(``parallel/sequence.py``). The public functions keep the JAX layouts: S0, dS0
 [BH, Dk, Dv] and z0, dz0 [BH, Dk], fp32.
 
 Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
@@ -88,7 +92,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from orion_tpu_torch.ops.dispatch import DEFAULT_CHUNK, resolve_chunk
+from orion_tpu_torch.ops.dispatch import DEFAULT_CHUNK, resolve, resolve_chunk
 from orion_tpu_torch.ops.kernels.library import CSRC, check_launch, load, raise_if_grad
 from orion_tpu_torch.ops.kernels.library import stream as _stream
 from orion_tpu_torch.ops.linear_attention import _pad_chunks, causal_dot_product_chunked
@@ -680,6 +684,83 @@ class LinearAttentionFn(torch.autograd.Function):
         )
 
 
+class LinearAttentionPartsFn(torch.autograd.Function):
+    """The raw fused pass with its backward on the kernels: the counterpart
+    of the JAX package's ``_lin_attn_fused_raw`` custom VJP.
+
+    ``apply(q, k, v, s0, z0)`` on flat contiguous q, k [BH, T, Dk], v [BH,
+    T, Dv] and an optional fp32 (S0, z0) -> (num [BH, T, Dv], den [BH, T],
+    S, z), all fp32. The forward is row 1's kernel with ``with_parts``: its
+    normalized output is written beside the parts and dropped (one bf16
+    [BH, T, Dv] store; no kernel without it). The backward is
+    ``_lin_attn_fused_raw_bwd``'s glue: the numerator's cotangent cast to
+    q's dtype, the denominator's in fp32, and those of S and z, into the dq
+    pass and the reverse pass (rows 3 and 4, ``_fused_bwd_core``). It calls
+    the ``*_cuda`` wrappers by their module names, so a test can stand
+    their plain versions in for them on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, s0, z0):
+        _, sf, zf, num, den = causal_dot_norm_cuda(q, k, v, s0, z0, with_parts=True)
+        ctx.save_for_backward(q, k, v, s0, z0)
+        ctx.set_materialize_grads(False)
+        return num, den, sf, zf
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gnum, gden, gsf, gzf):
+        q, k, v, s0, z0 = ctx.saved_tensors
+        bh, t, dk = q.shape
+        dv = v.shape[-1]
+        zeros = lambda *shape: torch.zeros(*shape, device=q.device)  # noqa: E731
+        gnum = torch.zeros_like(v) if gnum is None else gnum.to(q.dtype).contiguous()
+        gden = zeros(bh, t) if gden is None else gden.float().contiguous()
+        if gsf is not None or gzf is not None:  # the final state's cotangents
+            gsf = zeros(bh, dk, dv) if gsf is None else gsf.float().contiguous()
+            gzf = zeros(bh, dk) if gzf is None else gzf.float().contiguous()
+        dq = causal_dot_dq_den_cuda(gnum, v, k, gden, s0, z0)
+        dk_, dv_, ds0, dz0 = causal_dot_rev_den_cuda(q, k, v, gnum, gden, gsf, gzf)
+        return (dq, dk_, dv_, ds0 if s0 is not None else None,
+                dz0 if z0 is not None else None)
+
+
+def linear_attention_parts(
+    q: Tensor, k: Tensor, v: Tensor, *, chunk: Optional[int] = None,
+    initial_state: Optional[Tuple[Tensor, Tensor]] = None, backend: str = "auto",
+):
+    """One fused pass of causal linear attention over feature-mapped q, k
+    [..., T, Dk] and v [..., T, Dv], returning its raw fp32 parts: (num
+    [..., T, Dv], den [..., T], (S [..., Dk, Dv], z [..., Dk])), seeded by
+    an optional ``initial_state=(S0, z0)``: the counterpart of
+    ``orion_tpu/ops/pallas/causal_dot.py::linear_attention_pallas_parts``.
+    num[t] = q_t . S_t and den[t] = q_t . z_t, with no eps and no quotient,
+    so the sequence-parallel prefix correction (``parallel/sequence.py``)
+    starts from the exact fp32 numerator. ``backend`` (``ops/dispatch.py``):
+    rows 1, 3 and 4 for CUDA tensors (through ``LinearAttentionPartsFn``
+    when a gradient is wanted), the plain chunked form for CPU tensors
+    (differentiated by autograd; ``chunk`` sizes only it)."""
+    batch_shape = q.shape[:-2]
+    t, dk, dv = q.shape[-2], q.shape[-1], v.shape[-1]
+    qf = q.reshape(-1, t, dk).contiguous()
+    kf = k.reshape(-1, t, dk).contiguous()
+    vf = v.reshape(-1, t, dv).contiguous()
+    s0 = z0 = None
+    if initial_state is not None:
+        s0 = initial_state[0].float().reshape(-1, dk, dv).contiguous()
+        z0 = initial_state[1].float().reshape(-1, dk).contiguous()
+    if resolve(backend, q.device) == "torch":
+        _, sf, zf, num, den = causal_dot_norm_plain(qf, kf, vf, s0, z0, chunk=chunk,
+                                                    with_parts=True)
+    elif torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in (qf, kf, vf, s0, z0)
+    ):
+        num, den, sf, zf = LinearAttentionPartsFn.apply(qf, kf, vf, s0, z0)
+    else:
+        _, sf, zf, num, den = causal_dot_norm_cuda(qf, kf, vf, s0, z0, with_parts=True)
+    return (num.reshape(*batch_shape, t, dv), den.reshape(*batch_shape, t),
+            (sf.reshape(*batch_shape, dk, dv), zf.reshape(*batch_shape, dk)))
+
+
 class CausalDotProductFn(torch.autograd.Function):
     """The unnormalized causal dot product with its backward on the kernels:
     the counterpart of the JAX package's ``_cdp`` custom VJP.
@@ -723,5 +804,6 @@ __all__ = [
     "causal_dot_norm_cuda", "causal_dot_norm_plain", "causal_dot_norm_variant",
     "causal_dot_dq_den_cuda", "causal_dot_dq_den_plain", "causal_dot_dq_den_variant",
     "causal_dot_rev_den_cuda", "causal_dot_rev_den_plain",
-    "LinearAttentionFn", "quotient_rule", "SOURCES",
+    "LinearAttentionFn", "LinearAttentionPartsFn", "linear_attention_parts", "quotient_rule",
+    "SOURCES",
 ]

@@ -11,9 +11,12 @@ Three kernels, each replacing a TPU kernel of
       out[t] = softmax_s(scale q_t . k_s) v      (input dtype)
       lse[t] = log sum_s exp(scale q_t . k_s)    (fp32 [BH, Tq, 1])
 
-  over the keys s that row t sees: s <= t when ``causal``, t - s < w for
-  ``window=w`` (the TPU kernel's ``_tile_mask``); a row that sees no key
-  gives out 0 and lse -1e30;
+  over the keys s that row t sees: t + q_offset >= s + shift when
+  ``causal``, t + q_offset - s < w for ``window=w`` (the TPU kernel's
+  ``_tile_mask``); ``shift`` and ``q_offset`` are 0 but in the
+  sequence-parallel rings' blocks (``parallel/ring.py``: shift 1 is the
+  strict triangle of a striped block whose key stripe is ahead, q_offset
+  the distance of a halo block's queries past its keys);
 - ``flash_dq_cuda`` (``csrc/flash_attention_bwd.cu``,
   ``flash_dq_wgmma_kernel`` or ``flash_dq_kernel``) <- ``_dq_kernel``: dq;
 - ``flash_dkv_cuda`` (same source, ``flash_dkv_wgmma_kernel`` or
@@ -36,14 +39,22 @@ with lse [..., T, 1].
 Each ``*_cuda`` wrapper launches its kernel or raises, and counts its
 launches (``launches_fwd``, ``launches_dq``, ``launches_dkv``: kernel
 launches of either variant and nothing else;
-``launches_{fwd,dq,dkv}_{wgmma,simt}`` by variant). A variant that fails to
+``launches_{fwd,dq,dkv}_{wgmma,simt}`` by variant, ``launches_{fwd,dq,dkv}_sp``
+those with ``shift`` or ``q_offset`` set). A variant that fails to
 build or launch raises: it never gives way to the other variant or to the
 plain version. Each ``*_plain`` function is its kernel's
 function in plain PyTorch on any device, materializing the fp32 scores
 under the same mask. The kernel's tile is a constant of its source: the JAX
 package's ``block_q`` / ``block_k`` (``cfg.attn_block_q``,
-``cfg.attn_block_k``) size TPU tiles and are not taken here. ``shift`` and
-``q_offset`` serve only the sequence-parallel rings, not ported yet.
+``cfg.attn_block_k``) size TPU tiles and are not taken here.
+
+Rows that see no key. ``shift`` and ``q_offset`` make them common (a strict
+triangle's row 0, a halo block's rows past the window). Every kernel and
+plain version gives such a row out 0 and lse -1e30 (the TPU kernel gives
+-1e30 + log(count), the same fp32 value), at or below the ring merge's guard
+(``parallel/ring.py``: a block with lse <= -5e29 is dropped), never -inf or
+NaN; its P is 0 in the backward, so dq, dk and dv stay finite, and delta =
+rowsum(g . 0) - dlse stays finite too.
 """
 
 from __future__ import annotations
@@ -73,21 +84,24 @@ launches_dq = 0  # dq-pass kernel launches, either variant
 launches_dkv = 0  # dk/dv-pass kernel launches, either variant
 launches_dq_wgmma = launches_dq_simt = 0  # by variant
 launches_dkv_wgmma = launches_dkv_simt = 0
+# launches of either variant with shift or q_offset set (the sp rings' blocks)
+launches_fwd_sp = launches_dq_sp = launches_dkv_sp = 0
 _libs: dict = {}
 # where a caller that wants gradients goes instead of the bare forward kernel
 _GRAD_PATH = "flash_attention / FlashAttentionFn"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    # ..., scale, causal, window, shift, q_offset, stream
     "fwd": {
-        "flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
-        "flash_attention_fwd_wgmma": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P],
+        "flash_attention_fwd": [_P] * 5 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+        "flash_attention_fwd_wgmma": [_P] * 5 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
     },
     "bwd": {
-        "flash_attention_dq": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
-        "flash_attention_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
-        "flash_attention_dq_wgmma": [_P] * 7 + [_I] * 3 + [_F, _I, _I, _P],
-        "flash_attention_dkv_wgmma": [_P] * 8 + [_I] * 3 + [_F, _I, _I, _P],
+        "flash_attention_dq": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+        "flash_attention_dkv": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+        "flash_attention_dq_wgmma": [_P] * 7 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+        "flash_attention_dkv_wgmma": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
     },
 }
 
@@ -102,7 +116,8 @@ def _scale(q: Tensor, scale: Optional[float]) -> float:
     return float(q.shape[-1] ** -0.5 if scale is None else scale)
 
 
-def _check(q: Tensor, k: Tensor, v: Tensor, window: Optional[int]):
+def _check(q: Tensor, k: Tensor, v: Tensor, window: Optional[int], shift: int = 0,
+           q_offset: int = 0):
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or q.shape[::2] != k.shape[::2]:
         raise ValueError(
             f"want q [BH, Tq, D] and k, v [BH, Tk, D]; got {tuple(q.shape)}, "
@@ -112,6 +127,8 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window: Optional[int]):
         raise ValueError(f"empty input {tuple(q.shape)}, {tuple(k.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+    if shift < 0 or q_offset < 0:
+        raise ValueError(f"shift and q_offset must be >= 0, got {shift}, {q_offset}")
 
 
 def _check_rows(name: str, x: Tensor, bh: int, t: int):
@@ -119,20 +136,21 @@ def _check_rows(name: str, x: Tensor, bh: int, t: int):
         raise ValueError(f"want {name} float32 {(bh, t, 1)}; got {x.dtype} {tuple(x.shape)}")
 
 
-def _mask(t_q: int, t_k: int, causal: bool, window: Optional[int], device) -> Tensor:
+def _mask(t_q: int, t_k: int, causal: bool, window: Optional[int], device, shift: int = 0,
+          q_offset: int = 0) -> Tensor:
     """[Tq, Tk] bool: the keys each row sees (the TPU kernel's _tile_mask)."""
-    rows = torch.arange(t_q, device=device)[:, None]
+    rows = torch.arange(t_q, device=device)[:, None] + q_offset
     cols = torch.arange(t_k, device=device)[None, :]
     m = torch.ones(t_q, t_k, dtype=torch.bool, device=device)
     if causal:
-        m &= rows >= cols
+        m &= rows >= cols + shift
     if window is not None:
         m &= (rows - cols) < window
     return m
 
 
-def _args(causal: bool, window: Optional[int]) -> Tuple[int, int]:
-    return int(causal), 0 if window is None else int(window)
+def _args(causal: bool, window: Optional[int], shift: int, q_offset: int) -> Tuple[int, ...]:
+    return int(causal), 0 if window is None else int(window), int(shift), int(q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -160,15 +178,16 @@ def flash_fwd_variant(q: Tensor, k: Tensor, v: Tensor) -> str:
 def flash_fwd_cuda(
     q: Tensor, k: Tensor, v: Tensor, *,
     causal: bool = True, window: Optional[int] = None, scale: Optional[float] = None,
+    shift: int = 0, q_offset: int = 0,
 ) -> Tuple[Tensor, Tensor]:
     """Launch the forward kernel that ``flash_fwd_variant`` names on the
     current stream -> (out in the input dtype, lse [BH, Tq, 1] fp32). Raises
     on anything it does not take: an input that requires grad while grad is
     enabled (the outputs would carry none), CPU tensors, mixed devices, a
     dtype other than bf16/fp32, non-contiguous inputs, D > 128."""
-    global launches_fwd, launches_fwd_wgmma, launches_fwd_simt
+    global launches_fwd, launches_fwd_wgmma, launches_fwd_simt, launches_fwd_sp
     raise_if_grad([q, k, v], _GRAD_PATH)
-    _check(q, k, v, window)
+    _check(q, k, v, window, shift, q_offset)
     check_launch("flash_fwd_cuda", [q, k, v], [])
     bh, t_q, d = q.shape
     if d > D_MAX:
@@ -181,15 +200,16 @@ def flash_fwd_cuda(
     with torch.cuda.device(q.device):
         if chosen == "wgmma":
             err = lib.flash_attention_fwd_wgmma(
-                *ptrs, bh, t_q, k.shape[1], _scale(q, scale), *_args(causal, window),
-                _stream(q.device))
+                *ptrs, bh, t_q, k.shape[1], _scale(q, scale),
+                *_args(causal, window, shift, q_offset), _stream(q.device))
         else:
             err = lib.flash_attention_fwd(
                 *ptrs, bh, t_q, k.shape[1], d, int(q.dtype == torch.bfloat16), _scale(q, scale),
-                *_args(causal, window), _stream(q.device))
+                *_args(causal, window, shift, q_offset), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention forward kernel ({chosen}) failed: cudaError_t {err}")
     launches_fwd += 1
+    launches_fwd_sp += bool(shift or q_offset)
     if chosen == "wgmma":
         launches_fwd_wgmma += 1
     else:
@@ -200,12 +220,14 @@ def flash_fwd_cuda(
 def flash_fwd_plain(
     q: Tensor, k: Tensor, v: Tensor, *,
     causal: bool = True, window: Optional[int] = None, scale: Optional[float] = None,
+    shift: int = 0, q_offset: int = 0,
 ) -> Tuple[Tensor, Tensor]:
     """The forward kernel's function in plain PyTorch, on any device: fp32
     scores scale q k^T materialized under the mask -> (out in the input
-    dtype, lse [BH, Tq, 1] fp32). Differentiable by autograd."""
-    _check(q, k, v, window)
-    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    dtype, lse [BH, Tq, 1] fp32); a row without keys gives out 0 and lse
+    -1e30. Differentiable by autograd."""
+    _check(q, k, v, window, shift, q_offset)
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device, shift, q_offset)
     s = torch.where(mask, (q.float() @ k.float().transpose(1, 2)) * _scale(q, scale), _NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -220,8 +242,8 @@ def flash_fwd_plain(
 # ---------------------------------------------------------------------------
 
 
-def _check_bwd(q, k, v, g, lse, delta, window):
-    _check(q, k, v, window)
+def _check_bwd(q, k, v, g, lse, delta, window, shift=0, q_offset=0):
+    _check(q, k, v, window, shift, q_offset)
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError(f"want g like q {q.dtype} {tuple(q.shape)}; got {g.dtype} {tuple(g.shape)}")
     _check_rows("lse", lse, q.shape[0], q.shape[1])
@@ -236,11 +258,12 @@ def flash_bwd_variant(q: Tensor, k: Tensor, v: Tensor, g: Tensor) -> str:
     return "wgmma" if _wgmma_ok(q, k, v, g) else "simt"
 
 
-def _launch_bwd(fn_name, q, k, v, g, lse, delta, outs, causal, window, scale) -> str:
+def _launch_bwd(fn_name, q, k, v, g, lse, delta, outs, causal, window, scale, shift,
+                q_offset) -> str:
     """Launch the pass ``fn_name`` in the variant ``flash_bwd_variant``
     names -> that variant."""
     raise_if_grad([q, k, v, g], _GRAD_PATH)
-    _check_bwd(q, k, v, g, lse, delta, window)
+    _check_bwd(q, k, v, g, lse, delta, window, shift, q_offset)
     check_launch(fn_name, [q, k, v, g], [lse, delta])
     bh, t_q, d = q.shape
     if d > D_MAX:
@@ -252,12 +275,12 @@ def _launch_bwd(fn_name, q, k, v, g, lse, delta, outs, causal, window, scale) ->
     with torch.cuda.device(q.device):
         if chosen == "wgmma":
             err = getattr(lib, fn_name + "_wgmma")(
-                *ptrs, bh, t_q, k.shape[1], _scale(q, scale), *_args(causal, window),
-                _stream(q.device))
+                *ptrs, bh, t_q, k.shape[1], _scale(q, scale),
+                *_args(causal, window, shift, q_offset), _stream(q.device))
         else:
             err = getattr(lib, fn_name)(
                 *ptrs, bh, t_q, k.shape[1], d, int(q.dtype == torch.bfloat16), _scale(q, scale),
-                *_args(causal, window), _stream(q.device))
+                *_args(causal, window, shift, q_offset), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel ({chosen}) failed: cudaError_t {err}")
     return chosen
@@ -266,15 +289,18 @@ def _launch_bwd(fn_name, q, k, v, g, lse, delta, outs, causal, window, scale) ->
 def flash_dq_cuda(
     q: Tensor, k: Tensor, v: Tensor, g: Tensor, lse: Tensor, delta: Tensor, *,
     causal: bool = True, window: Optional[int] = None, scale: Optional[float] = None,
+    shift: int = 0, q_offset: int = 0,
 ) -> Tensor:
     """Launch the dq-pass kernel on the current stream -> dq in q's dtype.
     g: the output's cotangent in q's dtype; lse, delta: fp32 [BH, Tq, 1].
     The kernel is ``flash_bwd_variant``'s choice. Raises on anything it does
     not take, as ``flash_fwd_cuda``."""
-    global launches_dq, launches_dq_wgmma, launches_dq_simt
+    global launches_dq, launches_dq_wgmma, launches_dq_simt, launches_dq_sp
     dq = torch.empty_like(q)
-    chosen = _launch_bwd("flash_attention_dq", q, k, v, g, lse, delta, [dq], causal, window, scale)
+    chosen = _launch_bwd("flash_attention_dq", q, k, v, g, lse, delta, [dq], causal, window, scale,
+                         shift, q_offset)
     launches_dq += 1
+    launches_dq_sp += bool(shift or q_offset)
     if chosen == "wgmma":
         launches_dq_wgmma += 1
     else:
@@ -285,14 +311,16 @@ def flash_dq_cuda(
 def flash_dkv_cuda(
     q: Tensor, k: Tensor, v: Tensor, g: Tensor, lse: Tensor, delta: Tensor, *,
     causal: bool = True, window: Optional[int] = None, scale: Optional[float] = None,
+    shift: int = 0, q_offset: int = 0,
 ) -> Tuple[Tensor, Tensor]:
     """Launch the dk/dv-pass kernel on the current stream -> (dk, dv) in the
     input dtype; arguments as ``flash_dq_cuda``."""
-    global launches_dkv, launches_dkv_wgmma, launches_dkv_simt
+    global launches_dkv, launches_dkv_wgmma, launches_dkv_simt, launches_dkv_sp
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     chosen = _launch_bwd("flash_attention_dkv", q, k, v, g, lse, delta, [dk, dv], causal, window,
-                         scale)
+                         scale, shift, q_offset)
     launches_dkv += 1
+    launches_dkv_sp += bool(shift or q_offset)
     if chosen == "wgmma":
         launches_dkv_wgmma += 1
     else:
@@ -300,11 +328,11 @@ def flash_dkv_cuda(
     return dk, dv
 
 
-def _probs_and_ds(q, k, v, g, lse, delta, causal, window, scale):
+def _probs_and_ds(q, k, v, g, lse, delta, causal, window, scale, shift, q_offset):
     """P recomputed from lse and dS = P (g v^T - delta) scale, fp32 [BH, Tq, Tk]."""
-    _check_bwd(q, k, v, g, lse, delta, window)
+    _check_bwd(q, k, v, g, lse, delta, window, shift, q_offset)
     sc = _scale(q, scale)
-    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device, shift, q_offset)
     s = (q.float() @ k.float().transpose(1, 2)) * sc
     p = torch.where(mask, torch.exp(s - lse), 0.0)
     ds = p * (g.float() @ v.float().transpose(1, 2) - delta) * sc
@@ -314,20 +342,22 @@ def _probs_and_ds(q, k, v, g, lse, delta, causal, window, scale):
 def flash_dq_plain(
     q: Tensor, k: Tensor, v: Tensor, g: Tensor, lse: Tensor, delta: Tensor, *,
     causal: bool = True, window: Optional[int] = None, scale: Optional[float] = None,
+    shift: int = 0, q_offset: int = 0,
 ) -> Tensor:
     """The dq-pass kernel's function in plain PyTorch, on any device:
     dq = dS k with fp32 sums, in q's dtype."""
-    _, ds = _probs_and_ds(q, k, v, g, lse, delta, causal, window, scale)
+    _, ds = _probs_and_ds(q, k, v, g, lse, delta, causal, window, scale, shift, q_offset)
     return (ds @ k.float()).to(q.dtype)
 
 
 def flash_dkv_plain(
     q: Tensor, k: Tensor, v: Tensor, g: Tensor, lse: Tensor, delta: Tensor, *,
     causal: bool = True, window: Optional[int] = None, scale: Optional[float] = None,
+    shift: int = 0, q_offset: int = 0,
 ) -> Tuple[Tensor, Tensor]:
     """The dk/dv-pass kernel's function in plain PyTorch, on any device:
     dk = dS^T q, dv = P^T g with fp32 sums, in the input dtype."""
-    p, ds = _probs_and_ds(q, k, v, g, lse, delta, causal, window, scale)
+    p, ds = _probs_and_ds(q, k, v, g, lse, delta, causal, window, scale, shift, q_offset)
     dk = ds.transpose(1, 2) @ q.float()
     dv = p.transpose(1, 2) @ g.float()
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -342,8 +372,8 @@ class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with its backward on the kernels: the counterpart of
     the JAX package's ``_flash_lse`` custom VJP.
 
-    ``apply(q, k, v, causal, window, scale)`` on flat contiguous q [BH, Tq,
-    D], k, v [BH, Tk, D] -> (out, lse [BH, Tq, 1]). The forward launches the
+    ``apply(q, k, v, causal, window, scale, shift, q_offset)`` on flat
+    contiguous q [BH, Tq, D], k, v [BH, Tk, D] -> (out, lse [BH, Tq, 1]). The forward launches the
     forward kernel and saves (q, k, v, out, lse); the backward casts the
     output's cotangent g to q's dtype, takes delta = rowsum(g . out) - dlse
     in fp32 torch (as XLA does in the reference), then launches the dq pass
@@ -352,10 +382,11 @@ class FlashAttentionFn(torch.autograd.Function):
     the CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
-        out, lse = flash_fwd_cuda(q, k, v, causal=causal, window=window, scale=scale)
+    def forward(ctx, q, k, v, causal, window, scale, shift=0, q_offset=0):
+        opts = dict(causal=causal, window=window, scale=scale, shift=shift, q_offset=q_offset)
+        out, lse = flash_fwd_cuda(q, k, v, **opts)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        ctx.opts = opts
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -370,15 +401,7 @@ class FlashAttentionFn(torch.autograd.Function):
         delta = delta.contiguous()
         dq = flash_dq_cuda(q, k, v, g, lse, delta, **ctx.opts)
         dk, dv = flash_dkv_cuda(q, k, v, g, lse, delta, **ctx.opts)
-        return dq, dk, dv, None, None, None
-
-
-def _ring_only(shift: int, q_offset: int):
-    if shift or q_offset:
-        raise NotImplementedError(
-            "shift / q_offset serve the sequence-parallel rings, not ported to "
-            "orion_tpu_torch yet (ROADMAP.md queue A, item 12 (parallelism))"
-        )
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_lse(
@@ -387,22 +410,24 @@ def flash_attention_lse(
     scale: Optional[float] = None, backend: str = "auto",
 ) -> Tuple[Tensor, Tensor]:
     """Flash attention over [..., T, D] per-head tensors that also returns
-    the row log-sum-exp [..., T, 1] fp32; differentiable in both outputs.
-    ``backend`` (``ops/dispatch.py``): the kernels for CUDA tensors (through
-    ``FlashAttentionFn`` when a gradient is wanted), the plain versions for
-    CPU tensors (differentiated by autograd)."""
-    _ring_only(shift, q_offset)
+    the row log-sum-exp [..., T, 1] fp32; differentiable in both outputs:
+    the block primitive of the sequence-parallel rings' log-sum-exp merges
+    (``parallel/ring.py``). ``shift=1`` strengthens causal to the strict
+    triangle; ``q_offset`` places the queries that many positions past the
+    keys. ``backend`` (``ops/dispatch.py``): the kernels for CUDA tensors
+    (through ``FlashAttentionFn`` when a gradient is wanted), the plain
+    versions for CPU tensors (differentiated by autograd)."""
     batch_shape = q.shape[:-2]
     t_q, d = q.shape[-2:]
     t_k = k.shape[-2]
     qf = q.reshape(-1, t_q, d).contiguous()
     kf = k.reshape(-1, t_k, d).contiguous()
     vf = v.reshape(-1, t_k, v.shape[-1]).contiguous()
-    opts = dict(causal=causal, window=window, scale=scale)
+    opts = dict(causal=causal, window=window, scale=scale, shift=shift, q_offset=q_offset)
     if resolve(backend, q.device) == "torch":
         out, lse = flash_fwd_plain(qf, kf, vf, **opts)
     elif torch.is_grad_enabled() and any(x.requires_grad for x in (qf, kf, vf)):
-        out, lse = FlashAttentionFn.apply(qf, kf, vf, causal, window, scale)
+        out, lse = FlashAttentionFn.apply(qf, kf, vf, causal, window, scale, shift, q_offset)
     else:
         out, lse = flash_fwd_cuda(qf, kf, vf, **opts)
     return out.reshape(*batch_shape, t_q, -1), lse.reshape(*batch_shape, t_q, 1)

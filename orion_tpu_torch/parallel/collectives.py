@@ -1,0 +1,185 @@
+"""Cross-rank primitives of the sequence-parallel bodies: the counterpart of
+``orion_tpu/parallel/collectives.py``, plus the all_to_all behind the
+striped ring's layout (``ring.py``) and the reductions of the trainer.
+
+JAX differentiates its collectives for free (the transpose of a ppermute is
+the reverse ppermute, and so on). ``torch.distributed``'s collectives have
+no autograd, so each differentiable one here is a ``torch.autograd.Function``
+whose backward is written out:
+
+- ``ppermute_shift``: rank i's tensor goes to rank (i + shift) % n; its
+  backward is the reverse shift;
+- ``exclusive_prefix_sum``: the sum of the tensors of the ranks before this
+  one; its backward is the reverse exclusive (suffix) sum of the
+  cotangents;
+- ``exchange`` (all_to_all): chunk p of rank i goes to rank p, where it is
+  chunk i; its backward is the same exchange of the cotangents, which
+  inverts it.
+
+Trouble spot: a collective's backward must run on every rank of the group,
+in the same order, or the ranks wait on each other for ever. Autograd runs
+a node only when some output of the graph depends on it, so the bodies
+(``sequence.py``, ``ring.py``) make every rank's output depend on every
+tensor it received, even where that rank's mask keeps none of it (``touch``),
+and issue every collective on every rank. The groups are the mesh's
+(``mesh.py``); on a gloo group, CUDA tensors are staged through host memory
+(``_to_wire`` / ``_from_wire``), the compute stays on the card.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+Tensor = torch.Tensor
+
+
+def _size_rank(group) -> tuple:
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def _staged(x: Tensor, group) -> bool:
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _to_wire(x: Tensor, group) -> Tensor:
+    """``x`` as the group's transport takes it: contiguous, and on the host
+    for gloo."""
+    return x.detach().to("cpu").contiguous() if _staged(x, group) else x.detach().contiguous()
+
+
+def _exchange_raw(chunks: Sequence[Tensor], group, dests: Sequence[int],
+                  srcs: Sequence[int]) -> List[Tensor]:
+    """Send chunks[j] to group rank dests[j] and receive a tensor shaped as
+    chunks[j] from group rank srcs[j], all at once. A pair naming this rank
+    on both ends is a copy."""
+    me = dist.get_rank(group)
+    wires = [_to_wire(c, group) for c in chunks]
+    recvs = [torch.empty_like(w) for w in wires]
+    ops = []
+    for w, r, dst, src in zip(wires, recvs, dests, srcs):
+        if dst == me and src == me:
+            r.copy_(w)
+            continue
+        ops.append(dist.P2POp(dist.isend, w, dist.get_global_rank(group, dst), group))
+        ops.append(dist.P2POp(dist.irecv, r, dist.get_global_rank(group, src), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [r.to(c.device) for r, c in zip(recvs, chunks)]
+
+
+def _shift_raw(x: Tensor, group, shift: int) -> Tensor:
+    n, me = _size_rank(group)
+    return _exchange_raw([x], group, [(me + shift) % n], [(me - shift) % n])[0]
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _shift_raw(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose of a ppermute: the cotangent goes back the other way
+        return _shift_raw(g, ctx.group, -ctx.shift), None, None
+
+
+def ppermute_shift(x: Tensor, group, shift: int = 1) -> Tensor:
+    """Rotate shards around the ring: rank i's ``x`` goes to rank (i +
+    shift) % n, and rank i receives rank (i - shift) % n's. Differentiable
+    (the backward is the reverse shift)."""
+    return _Shift.apply(x, group, shift)
+
+
+def _all_gather(x: Tensor, group) -> Tensor:
+    """[n, *x.shape]: every rank's ``x`` in group-rank order."""
+    n, _ = _size_rank(group)
+    wire = _to_wire(x, group)
+    parts = [torch.empty_like(wire) for _ in range(n)]
+    dist.all_gather(parts, wire, group=group)
+    return torch.stack(parts).to(x.device)
+
+
+class _ExclusivePrefix(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        gathered = _all_gather(x, group)
+        n, me = _size_rank(group)
+        mask = (torch.arange(n, device=x.device) < me).to(gathered.dtype)
+        return (gathered * mask.view(n, *([1] * x.dim()))).sum(dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        # rank j's x reaches the outputs of the ranks after it: the reverse
+        # exclusive (suffix) sum of their cotangents
+        gathered = _all_gather(g, ctx.group)
+        n, me = _size_rank(ctx.group)
+        mask = (torch.arange(n, device=g.device) > me).to(gathered.dtype)
+        return (gathered * mask.view(n, *([1] * g.dim()))).sum(dim=0), None
+
+
+def exclusive_prefix_sum(x_local: Tensor, group) -> Tensor:
+    """Sum over ranks j < mine of their ``x_local``: the cross-shard combine
+    of sequence-parallel linear attention. One all_gather of the small
+    per-rank tensors, then a masked sum (as the JAX package's). The backward
+    is the reverse exclusive sum."""
+    return _ExclusivePrefix.apply(x_local, group)
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *chunks):
+        ctx.group = group
+        n, _ = _size_rank(group)
+        return tuple(_exchange_raw(chunks, group, list(range(n)), list(range(n))))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # the exchange is its own transpose: chunk p of rank i came from
+        # chunk i of rank p, so its cotangent goes back there
+        n, _ = _size_rank(ctx.group)
+        return (None, *_exchange_raw(grads, ctx.group, list(range(n)), list(range(n))))
+
+
+def exchange(chunks: Sequence[Tensor], group) -> List[Tensor]:
+    """all_to_all: this rank's chunks[p] goes to rank p, and the result's
+    [p] is rank p's chunk for this rank. One chunk per rank, each the same
+    shape on every rank. Differentiable (the backward is the same exchange,
+    which inverts it)."""
+    return list(_Exchange.apply(group, *chunks))
+
+
+def touch(x: Tensor, *received: Tensor) -> Tensor:
+    """``x`` made to depend on ``received`` with no change to its value (x +
+    0 * sum): a received tensor that a rank's mask leaves out still gets a
+    (zero) cotangent, so its collective's backward runs on that rank too."""
+    # one element of each, times 0: finite (a sum could overflow), and the
+    # cotangent reaches the whole tensor as zeros
+    zero = sum(r.reshape(-1)[:1].float().sum() for r in received) * 0.0
+    return x + zero.to(x.dtype)
+
+
+def all_reduce_sum_(tensors: Sequence[Tensor], group: Optional[dist.ProcessGroup] = None) -> None:
+    """Sum ``tensors`` over the group in place, as one flat buffer a dtype
+    (the trainer's loss sums and parameter gradients). Not differentiable."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        wire = flat.to("cpu") if _staged(flat, group) else flat
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=group)
+        if wire is not flat:
+            flat.copy_(wire)
+        offset = 0
+        for t in ts:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+__all__ = ["ppermute_shift", "exclusive_prefix_sum", "exchange", "touch", "all_reduce_sum_"]

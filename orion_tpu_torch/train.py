@@ -11,10 +11,21 @@ CLI (on the card unless ``--device cpu``):
     python -m orion_tpu_torch.train --config tiny --steps 1000 --data synthetic \\
         --set lr=1e-3 --set model.n_layers=4 --ckpt-dir /tmp/ckpt
 
+Sequence-parallel training (one process a rank, e.g. four ranks on one
+host):
+
+    torchrun --nproc_per_node 4 -m orion_tpu_torch.train --distributed --sp 4 \
+        --config hybrid_1b3 --seq-len 2048 --set model.sequence_parallel=true
+
+``--distributed`` joins the process group from torchrun's environment
+(``parallel.init_distributed``: NCCL when each rank has its own card, gloo
+when they share one, printed to stderr); every rank takes the same batches
+and its shard of the tokens, rank 0 logs, prints and writes the
+checkpoints.
+
 Not ported yet (ROADMAP.md queue A, item 9): ``--preempt-grace`` and
-``--step-timeout`` (the resilience wiring), ``--metrics-path`` (the
-Prometheus dump) and ``--distributed``. Mesh flags other than 1 raise
-(item 12).
+``--step-timeout`` (the resilience wiring) and ``--metrics-path`` (the
+Prometheus dump). Mesh flags other than ``--sp`` above 1 raise (item 12).
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import sys
 from typing import Optional, Tuple
 
 from orion_tpu_torch.models.configs import get_config
+from orion_tpu_torch.parallel.mesh import init_distributed
 from orion_tpu_torch.training.checkpoint import Checkpointer
 from orion_tpu_torch.training.data import DataLoader, device_batch, make_dataset
 from orion_tpu_torch.training.metrics import MetricsLogger
@@ -43,16 +55,18 @@ def train(
     log_path: Optional[str] = None,
     resume: bool = True,
     device=None,
+    mesh=None,
 ) -> Tuple[Trainer, dict]:
     """Build everything, optionally resume from ``cfg.ckpt_dir``, run to
     ``cfg.steps``, save a final checkpoint. Returns (trainer, last
-    metrics)."""
+    metrics). ``mesh``: ``init_distributed``'s, for ``cfg.mesh.sp > 1``
+    (rank 0 then logs and writes the checkpoints)."""
     if eval_data and not cfg.eval_every:
         raise ValueError(
             "eval_data given but eval_every == 0: the held-out split would never be "
             "evaluated; set eval_every > 0 (CLI: --eval-every N)"
         )
-    trainer = Trainer(cfg, device=device)
+    trainer = Trainer(cfg, device=device, mesh=mesh)
     ckpt = None
     if cfg.ckpt_dir:
         ckpt = Checkpointer(cfg.ckpt_dir, max_to_keep=cfg.ckpt_keep, save_every=cfg.ckpt_every)
@@ -78,14 +92,15 @@ def train(
                 for j in range(cfg.eval_batches)
             )
 
-    logger = MetricsLogger(log_path)
+    logger = MetricsLogger(log_path) if trainer.is_main else None
     try:
         last = trainer.train(iter(loader), logger=logger, ckpt=ckpt, eval_factory=eval_factory)
         if ckpt is not None:
-            ckpt.maybe_save(trainer.step_count, trainer.state_dict(), force=True)
+            trainer._save(ckpt, trainer.step_count, force=True)
     finally:
         loader.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return trainer, last
 
 
@@ -106,7 +121,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     for axis in ("dp", "fsdp", "tp", "sp", "pp", "ep"):
         p.add_argument(f"--{axis}", type=int, default=-1 if axis == "dp" else 1,
-                       help="mesh axis size; the port trains on one device, so > 1 raises")
+                       help="mesh axis size; sp > 1 takes --distributed, the others > 1 raise")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group from torchrun's environment (sp > 1)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="dotted TrainConfig override, e.g. --set model.n_layers=4")
     p.add_argument("--config-json", default=None, help="JSON override file")
@@ -137,9 +154,19 @@ def main(argv=None) -> int:
     if cfg.seq_len >= cfg.model.max_seq_len:
         cfg = dataclasses.replace(
             cfg, model=dataclasses.replace(cfg.model, max_seq_len=cfg.seq_len + 1))
-    _, last = train(cfg, data=args.data, eval_data=args.eval_data,
-                    log_path=args.log_path, device=args.device)
-    print({k: round(v, 5) for k, v in last.items()})
+    mesh = None
+    if args.distributed:
+        mesh = init_distributed(cfg.mesh, device=args.device)
+    try:
+        trainer, last = train(cfg, data=args.data, eval_data=args.eval_data,
+                              log_path=args.log_path, device=args.device, mesh=mesh)
+        if trainer.is_main:
+            print({k: round(v, 5) for k, v in last.items()})
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     return 0
 
 

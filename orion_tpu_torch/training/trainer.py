@@ -40,9 +40,21 @@ step's seed: ``fold(fold(step_seed, 0x5157), leaf index)`` in the order of
 ``model.named_parameters()``, its high and low 32 bits, so a resumed run
 replays the same roundings.
 
+Sequence parallelism (``cfg.mesh.sp > 1`` with ``cfg.model.sequence_parallel``,
+and a ``parallel.mesh.Mesh`` from ``init_distributed``): every rank builds
+the same params from the seed and takes the same global batch; the inputs
+and labels are shifted before sharding (the label of a shard's last token
+is the next shard's first token), and each rank runs the model on its
+token shard (``models/transformer.py``). The loss is the global token mean:
+each rank's backward starts from its sum over the global count, and the
+reported loss is the sum over the ranks. After the backward the parameter
+gradients are summed over the sp group (one flat buffer a dtype), so every
+rank clips and updates alike; logs and checkpoints are rank 0's, with a
+barrier, and a checkpoint is the file an sp=1 run writes.
+
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
-item): device meshes (any axis > 1). ``preempt_grace`` and ``step_timeout``
-are kept for the config's shape and not wired (item 9).
+item): the other mesh axes above 1 (A12). ``preempt_grace`` and
+``step_timeout`` are kept for the config's shape and not wired (item 9).
 """
 
 from __future__ import annotations
@@ -60,6 +72,8 @@ from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.models.transformer import TransformerLM
 from orion_tpu_torch.ops.fused_ce import fused_ce_ok, model_token_losses
 from orion_tpu_torch.ops.kernels import adafactor as af
+from orion_tpu_torch.parallel.collectives import all_reduce_sum_
+from orion_tpu_torch.parallel.mesh import MeshConfig
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
 
@@ -70,27 +84,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to orion_tpu_torch yet (ROADMAP.md queue A, {item})"
     )
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """The JAX package's mesh sizes per axis (-1 on dp = every device).
-    The port trains on one device: any axis above 1 raises."""
-
-    dp: int = -1
-    fsdp: int = 1
-    tp: int = 1
-    sp: int = 1
-    pp: int = 1
-    ep: int = 1
-
-    @property
-    def shape(self):
-        return (self.dp, self.fsdp, self.tp, self.sp, self.pp, self.ep)
-
-    def check(self) -> None:
-        if any(n > 1 for n in self.shape):
-            raise _not_ported(f"a device mesh {self.shape}", "item 12 (parallelism)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,8 +394,14 @@ def lm_loss(
     layers' auxiliary loss (the JAX package's ``"losses"`` collection). With
     ``dropout_seed`` the blocks apply dropout (``cfg.dropout``). ``fused_ce``
     (None = ``fused_ce_ok``) computes the same loss without the [B, T, V]
-    fp32 logits (``ops/fused_ce.py``)."""
+    fp32 logits (``ops/fused_ce.py``). On a sequence-parallel model it is
+    this rank's part of the global mean: its shard's sum of token losses
+    over the global token count (the inputs and labels shifted before
+    sharding)."""
     x, y = batch[:, :-1], batch[:, 1:]
+    sp = model.sp
+    if sp is not None:
+        x, y = sp.shard(x), sp.shard(y)
     deterministic = dropout_seed is None
     if fused_ce is None:
         fused_ce = fused_ce_ok(model)
@@ -412,6 +411,8 @@ def lm_loss(
         logits, aux = model(x, deterministic, dropout_seed, return_aux=True)
         losses = torch.nn.functional.cross_entropy(
             logits.transpose(1, 2), y.long(), reduction="none")
+    if sp is not None:
+        return losses.sum() / (batch.shape[0] * (batch.shape[1] - 1)) + aux
     return losses.mean() + aux
 
 
@@ -434,16 +435,28 @@ def _i64(x: int) -> Tensor:
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, device=None):
+    def __init__(self, cfg: TrainConfig, device=None, mesh=None):
         """Builds the model (params drawn from the seed's "init" stream) and
         the optimizer on ``device`` (default ``"cuda"``, which raises
-        without CUDA)."""
+        without CUDA). ``mesh``: the ``parallel.mesh.Mesh`` of
+        ``init_distributed``, which ``cfg.mesh.sp > 1`` needs; the model then
+        runs on the mesh's device."""
         if cfg.seq_len > cfg.model.max_seq_len:
             raise ValueError(
                 f"seq_len={cfg.seq_len} exceeds model.max_seq_len="
                 f"{cfg.model.max_seq_len}; raise max_seq_len or lower seq_len"
             )
         cfg.mesh.check()
+        if cfg.mesh.sp > 1 or (mesh is not None and mesh.sp > 1):
+            if mesh is None or mesh.sp != cfg.mesh.sp:
+                raise ValueError(f"mesh sp={cfg.mesh.sp} needs its process group: pass the "
+                                 "Mesh of parallel.init_distributed (the CLI's --distributed)")
+            if not cfg.model.sequence_parallel:
+                raise ValueError("an sp mesh shards the tokens: set model.sequence_parallel=true")
+            if cfg.seq_len % mesh.sp:
+                raise ValueError(f"seq_len={cfg.seq_len} is not a multiple of sp={mesh.sp}")
+            device = mesh.device
+        self.mesh = mesh if mesh is not None and mesh.sp > 1 else None
         if cfg.param_storage not in ("float32", "bfloat16_sr"):
             raise ValueError(f"param_storage={cfg.param_storage!r}; expected 'float32' "
                              "or 'bfloat16_sr'")
@@ -459,7 +472,7 @@ class Trainer:
         root = rngs.root_key(cfg.seed)
         self.model = TransformerLM(
             cfg.model, device=self.device,
-            generator=rngs.generator(rngs.stream(root, "init"), self.device),
+            generator=rngs.generator(rngs.stream(root, "init"), self.device), mesh=self.mesh,
         )
         storage_cast(self.model, cfg.param_storage)
         self.params = dict(self.model.named_parameters())
@@ -481,7 +494,7 @@ class Trainer:
         if cfg.accum_steps == 1:
             loss = lm_loss(self.model, batch, step_seed if use_dropout else None)
             loss.backward()
-            return loss.detach()
+            return self._reduce(loss.detach())
         total = torch.zeros((), device=self.device)
         for i, mb in enumerate(batch.view(cfg.accum_steps, cfg.micro_batch, -1)):
             seed = rngs.fold(step_seed, i) if use_dropout else None
@@ -491,7 +504,31 @@ class Trainer:
         for p in self.params.values():
             if p.grad is not None:  # none reaches the fixed favor_proj
                 p.grad.div_(cfg.accum_steps)
-        return total / cfg.accum_steps
+        return self._reduce(total / cfg.accum_steps)
+
+    def _reduce(self, loss: Tensor) -> Tensor:
+        """Under sp: the loss and every parameter gradient summed over the
+        group, so each rank holds the global ones (a no-op otherwise)."""
+        if self.mesh is None:
+            return loss
+        loss = loss.reshape(1).clone()
+        all_reduce_sum_([loss] + [p.grad for p in self.params.values() if p.grad is not None],
+                        self.mesh.sp_group)
+        return loss[0]
+
+    @property
+    def is_main(self) -> bool:
+        """The rank that logs and writes checkpoints (the only one without
+        a mesh)."""
+        return self.mesh is None or self.mesh.is_main
+
+    def _save(self, ckpt, step: int, force: bool = False) -> None:
+        """``ckpt.maybe_save`` on rank 0; under sp every rank then waits for
+        it."""
+        if self.is_main:
+            ckpt.maybe_save(step, self.state_dict(), force=force)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def step(self, batch: Tensor) -> Dict[str, float]:
         """One optimizer step on batch [B, T+1] -> host metrics: loss,
@@ -549,7 +586,7 @@ class Trainer:
                     self.nonfinite_steps = int(metrics["nonfinite_total"])
                     if cfg.nan_policy == "halt":
                         if ckpt is not None:
-                            ckpt.maybe_save(step, self.state_dict(), force=True)
+                            self._save(ckpt, step, force=True)
                         raise FloatingPointError(
                             f"{self.nonfinite_steps} non-finite step(s) by step {step}")
                 last = dict(metrics)
@@ -564,7 +601,7 @@ class Trainer:
                 if logger:
                     logger.log(step, ev)
             if ckpt is not None:
-                ckpt.maybe_save(step, self.state_dict())
+                self._save(ckpt, step)
             if hook is not None:
                 hook(step, metrics)
         if not last and metrics:
@@ -578,6 +615,10 @@ class Trainer:
         total, count = 0.0, 0.0
         for _ in range(n_batches or self.cfg.eval_batches):
             s, c = lm_eval_sums(self.model, next(data_iter).to(self.device))
+            if self.mesh is not None:  # this rank's shard: sum over the group
+                sums = torch.stack([s, c])
+                all_reduce_sum_([sums], self.mesh.sp_group)
+                s, c = sums
             total += float(s)
             count += float(c)
         loss = total / max(count, 1.0)

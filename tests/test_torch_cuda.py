@@ -533,6 +533,82 @@ def _flash_counts():
             "dkv_wgmma": fa.launches_dkv_wgmma, "dkv_simt": fa.launches_dkv_simt}
 
 
+@pytest.mark.parametrize(
+    "dtype,tq,window,shift,q_offset",
+    [
+        (torch.bfloat16, 512, None, 1, 0),  # wgmma: a striped block's strict triangle
+        (torch.bfloat16, 512, 1024, 0, 1024),  # wgmma: a halo block (h = 2, m = 2)
+        (torch.bfloat16, 500, 256, 0, 1000),  # wgmma: ragged, most rows past the window
+        (torch.float32, 96, 40, 0, 48),  # simt: the tiny widths' halo block
+        (torch.float32, 96, None, 1, 0),  # simt: strict
+    ],
+)
+def test_flash_kernels_take_shift_and_q_offset(dev, dtype, tq, window, shift, q_offset):
+    """Rows 6-8 with the mask moved, as the sp rings call them, against
+    their plain versions (a random lse cotangent folded into delta): within
+    the plain cases' limits; a row that sees no key gives lse -1e30 and out 0
+    in both (each case has such rows), and every output is finite. Only
+    the variant's counters move, and the sp counters with them."""
+    d = 128 if dtype == torch.bfloat16 else 32
+    g = torch.Generator(device=dev).manual_seed(tq + q_offset + shift)
+    q, k, v, gout = (torch.randn(8, tq, d, device=dev, generator=g).to(dtype) for _ in range(4))
+    opts = dict(causal=True, window=window, shift=shift, q_offset=q_offset)
+    variant = fa.flash_bwd_variant(q, k, v, gout)
+    before = (_flash_counts(), fa.launches_fwd_sp, fa.launches_dq_sp, fa.launches_dkv_sp)
+    out, lse = fa.flash_fwd_cuda(q, k, v, **opts)
+    r_out, r_lse = fa.flash_fwd_plain(q, k, v, **opts)
+    delta = (gout.float() * r_out.float()).sum(-1, keepdim=True) - torch.randn(
+        8, tq, 1, device=dev, generator=g)
+    got = (fa.flash_dq_cuda(q, k, v, gout, r_lse, delta, **opts),
+           *fa.flash_dkv_cuda(q, k, v, gout, r_lse, delta, **opts))
+    torch.cuda.synchronize()
+    assert fa.launches_fwd_sp - before[1] == fa.launches_dq_sp - before[2] == \
+        fa.launches_dkv_sp - before[3] == 1
+    assert _flash_counts()[f"dkv_{variant}"] - before[0][f"dkv_{variant}"] == 1
+    ref = (fa.flash_dq_plain(q, k, v, gout, r_lse, delta, **opts),
+           *fa.flash_dkv_plain(q, k, v, gout, r_lse, delta, **opts))
+    empty = ~fa._mask(tq, tq, True, window, dev, shift, q_offset).any(dim=-1)
+    assert empty.any()
+    assert (lse[:, empty] == -1e30).all() and (out[:, empty] == 0).all()
+    rtol = 2**-7 if dtype == torch.bfloat16 else 1e-4
+    _max_close(out, r_out, rtol)
+    torch.testing.assert_close(lse, r_lse, rtol=1e-5, atol=1e-5)
+    for x, r in zip(got, ref):
+        assert torch.isfinite(x.float()).all()
+        _max_close(x, r, rtol, floor=FLASH_GRAD_FLOOR)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_linear_attention_parts_on_the_kernels(dev, dtype):
+    """``linear_attention_parts`` through rows 1, 3 and 4 against autograd
+    of its plain version: num, den, S, z to 1e-4 of their largest magnitude,
+    the gradients of q, k, v for cotangents on all four outputs (the
+    numerator's on bf16's grid, so the Function's cast of it is exact) at
+    the backward kernels' limits."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    d = 128 if dtype == torch.bfloat16 else 32
+    q, k = (torch.nn.functional.elu(torch.randn(2, 4, 300, d, device=dev, generator=g))
+            .add(1.0).to(dtype) for _ in range(2))
+    v = torch.randn(2, 4, 300, d, device=dev, generator=g).to(dtype)
+    cts = [torch.randn(2, 4, 300, d, device=dev, generator=g).to(dtype).float(),
+           torch.randn(2, 4, 300, device=dev, generator=g) / 300,
+           torch.randn(2, 4, d, d, device=dev, generator=g),
+           torch.randn(2, 4, d, device=dev, generator=g)]
+    res = {}
+    for backend in ("cuda", "torch"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        num, den, (s, z) = causal_dot.linear_attention_parts(*leaves, backend=backend)
+        torch.autograd.backward((num, den, s, z), cts)
+        res[backend] = [num, den, s, z, *(x.grad for x in leaves)]
+    for got, ref in zip(res["cuda"][:4], res["torch"][:4]):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, ref, rtol=0.0, atol=1e-4 * float(ref.abs().max()))
+    rtol = 2**-7 if dtype == torch.bfloat16 else 1e-4
+    for got, ref in zip(res["cuda"][4:], res["torch"][4:]):
+        assert got.dtype == dtype
+        _max_close(got, ref, rtol)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_fwd_wgmma_layout_on_one_tile(dev, causal):
     """The wgmma forward on one 64 x 64 tile (one head, T 64, D 128): S = q

@@ -68,7 +68,7 @@ def test_the_scans_cover_the_serving_slice():
     "path",
     [*sorted(PKG.rglob("*.py")), *(ROOT / f for f in ("chip_smoke.py", "profile_port.py",
                                                  "kernel_mutants.py", "time_decode.py",
-                                                 "time_op.py"))],
+                                                 "time_op.py", "time_flash.py"))],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_import_of_jax_or_the_jax_package(path):

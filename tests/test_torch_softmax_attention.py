@@ -164,10 +164,12 @@ def test_flash_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(RuntimeError, match="gradient"):
         fa.flash_fwd_cuda(q.requires_grad_(), q, q)
     q = q.detach()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fa.flash_attention_lse(q, q, q, shift=1)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fa.flash_attention_lse(q, q, q, q_offset=4)
+    # shift and q_offset are ported (tests/test_torch_flash_offsets.py): only
+    # a negative one is refused
+    with pytest.raises(ValueError, match="shift and q_offset"):
+        fa.flash_attention_lse(q, q, q, shift=-1)
+    with pytest.raises(ValueError, match="shift and q_offset"):
+        fa.flash_attention_lse(q, q, q, q_offset=-4)
     with pytest.raises(ValueError, match="window"):
         fa.flash_fwd_plain(q, q, q, window=0)
     lse = torch.zeros(2, 8, 1)
