@@ -70,6 +70,19 @@ nonzero and no result line is printed):
    time; for rows 9-10 and 14 also the wrapper's host time a call
    (``host_us``: gmm's wgmma variant encodes its tensor maps at each call,
    q4's mma variant once a weight);
+   then the sp part (``sp_phase``: four ranks, processes of this script
+   sharing the card over gloo: rows 6-8 with shift / q_offset and the
+   parts of rows 1, 3, 4 against their plain versions, the sp bodies
+   against single-device attention, sp-4 training against its sp=1 twin)
+   and the dp part (``dp_phase``: four ranks over gloo, one process group
+   and a mesh a run: lm_1b3 at full width, 4 blocks, B 8 x 1024 at fsdp
+   4, dp 2 x fsdp 2 and dp 4, the dropless moe_1b3_4e at dp 2 x fsdp 2,
+   the 4-block hybrid at dp 2 x sp 2, a tiny fp32 hybrid at dp 2 x fsdp 2,
+   each against its dp=1 twin within the sp part's limits with exact
+   launches a rank; fsdp 4's resident bytes a quarter and its peak below
+   dp 4's; an fsdp-4 checkpoint's round trip bitwise; step ms and the
+   host ms in the collectives logged); each part runs alone as
+   ``cs.sp_phase(...)`` / ``cs.dp_phase(dev)`` after ``cs.build(mods)``;
 4. the public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
    backward through ``CausalDotProductFn`` at [B 8, H 16, T 1024, D 128]
    bf16 with an initial state and the returned state, then at Dk 128, Dv
@@ -1935,6 +1948,9 @@ class PinnedRouting:
 
         self.moe, self.real = moe, moe.top_k_choice
         self.routes, self.current, self.flips, self.choices = {}, None, 0, 0
+        # a caller running several batches sets ``epoch`` before each: the
+        # choices are keyed by (layer, epoch), so each batch pins its own
+        self.epoch = 0
 
     def attach(self, model):
         """Name each MoE layer of ``model`` by its block while it runs."""
@@ -1949,7 +1965,7 @@ class PinnedRouting:
         ops, so a recomputation saves what its forward saved; the gates equal
         ``top_k_choice``'s (a gather for its product with a one-hot)."""
         ids, _ = self.real(probs, k)
-        pinned = self.routes.setdefault(self.current, ids)
+        pinned = self.routes.setdefault((self.current, self.epoch), ids)
         if pinned is not ids:
             self.flips += int((pinned != ids).any(-1).sum())
             self.choices += ids.shape[0]
@@ -4888,10 +4904,11 @@ def agrees_sp_body(r):
     return all(r[n]["well_formed"] and r[n]["over_limit"] <= 1.0 for n in ("out", "dq", "dk", "dv"))
 
 
-def sp_spawn(world, fn, payload, timeout=600):
+def sp_spawn(world, fn, payload, timeout=600, mesh=None):
     """``fn(mesh, payload)`` on ``world`` ranks, processes of this script
     sharing the one card (``parallel.init_distributed`` picks gloo: the
-    ranks outnumber the cards) -> their results in rank order. A rank that
+    ranks outnumber the cards), on the mesh ``mesh`` (a ``MeshConfig``;
+    default sp over every rank) -> their results in rank order. A rank that
     fails fails the call with its traceback; ranks that outlive
     ``timeout`` are killed and the call fails."""
     import queue
@@ -4902,7 +4919,7 @@ def sp_spawn(world, fn, payload, timeout=600):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    procs = [ctx.Process(target=_sp_entry, args=(r, world, port, fn, payload, out))
+    procs = [ctx.Process(target=_sp_entry, args=(r, world, port, fn, payload, out, mesh))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -4929,7 +4946,7 @@ def sp_spawn(world, fn, payload, timeout=600):
     return [results[r] for r in range(world)]
 
 
-def _sp_entry(rank, world, port, fn, payload, out):
+def _sp_entry(rank, world, port, fn, payload, out, mesh_cfg=None):
     import traceback
 
     import torch.distributed as dist
@@ -4939,7 +4956,8 @@ def _sp_entry(rank, world, port, fn, payload, out):
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        mesh = init_distributed(MeshConfig(dp=1, sp=world), init_method=f"tcp://127.0.0.1:{port}",
+        mesh = init_distributed(mesh_cfg or MeshConfig(dp=1, sp=world),
+                                init_method=f"tcp://127.0.0.1:{port}",
                                 rank=rank, world_size=world, local_rank=rank,
                                 local_world_size=world, device=payload.get("device"))
         res = fn(mesh, payload)
@@ -5204,6 +5222,438 @@ def sp_phase(cd, fa, dev):
                    for name in ranks[0]}
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism (A12 steps 2 and 3): the dp and fsdp axes, ranks sharing
+# the one card over gloo
+# ---------------------------------------------------------------------------
+
+# Each run: (config, overrides, TrainConfig fields, meshes as (dp, fsdp, sp)).
+# lm_1b3 at full width, 4 blocks (the first 2 recomputed: the fsdp gathers
+# rerun inside the backward), B 8 x 1024 global, the probe and 2 steps, at
+# fsdp 4, dp 2 x fsdp 2 and dp 4, each against one dp=1 twin from the same
+# seed and batches (rank 0, before the mesh runs); the dropless moe_1b3_4e at
+# full width, 4 blocks (block 3 routed, 2048 routed rows a rank: the gmm
+# kernels), at dp 2 x fsdp 2, its twin after the mesh run, replaying the mesh
+# run's routing gathered over the data ranks (``PinnedRouting`` by batch);
+# the probe is each run's first step (its loss and gradients before the
+# clip, at the initial params: what ``_train_probe`` computes, with no pass
+# of its own);
+# the sp part's 4-block hybrid_1b3 (swa, softmax, swa, linear; striped) at dp 2 x
+# sp 2, T 2048, B 4; a tiny fp32 hybrid at dp 2 x fsdp 2 (the simt kernels).
+# The sp part's readings and limits, unchanged (``dp_train_verdict``); at
+# fsdp 4 also each rank's resident params and AdamW state within
+# ``DP_RESIDENT_RTOL`` of a quarter of the sharded leaves plus the replicated
+# ones, each rank's peak memory below its dp 4 peak, and the save / load
+# round trip bitwise.
+DP_TRAIN = dict(steps=2, batch_size=8, seq_len=1024, warmup_steps=1)
+DP_RUNS = (
+    ("lm_1b3", {"n_layers": 4, "remat_skip": 2}, DP_TRAIN, ((1, 4, 1), (2, 2, 1), (4, 1, 1))),
+    ("moe_1b3_4e", {"n_layers": 4, "remat_skip": 2, "moe_dropless": True}, DP_TRAIN,
+     ((2, 2, 1),)),
+    ("hybrid_1b3", dict(SP_TRAIN_RUNS[1][1], sequence_parallel=True),
+     dict(SP_TRAIN, batch_size=4), ((2, 1, 2),)),
+    ("tiny hybrid fp32", None, dict(SP_TINY, batch_size=4), ((2, 2, 1),)),
+)
+DP_RESIDENT_RTOL = 0.01
+
+
+def _dp_model(name, over):
+    from orion_tpu_torch.models.configs import TINY, get_config
+
+    if over is None:  # the simt kernels' path
+        return dataclasses.replace(TINY, n_layers=4, layer_types=("swa", "softmax", "swa",
+                                                                   "linear"), window=16)
+    return get_config(name, **over)
+
+
+def dp_expected_launches(cfg, variant):
+    """The launches of one training step on any rank of a data mesh (each
+    runs the whole model on its rows): rows 1, 3, 4 once a linear layer (row
+    1 twice when recomputed), rows 6-8 once a softmax / swa layer (row 6
+    twice when recomputed), rows 9-10 as ``train_phase`` counts them, all of
+    ``variant``."""
+    lin, attn, lin_remat, attn_remat = _layer_counts(cfg)
+    products, products_remat = _gmm_counts(cfg)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({f"causal_dot_norm_{variant}": lin + lin_remat,
+                 f"causal_dot_dq_den_{variant}": lin, f"causal_dot_rev_den_{variant}": lin,
+                 f"flash_fwd_{variant}": attn + attn_remat, f"flash_dq_{variant}": attn,
+                 f"flash_dkv_{variant}": attn,
+                 f"gmm_fwd_{variant}": 2 * products + products_remat,
+                 f"gmm_dw_{variant}": products})
+    return want
+
+
+def _collective_clock():
+    """Host milliseconds in the collectives, by kind: the fsdp gathers, the
+    reduce-scatters of the gather's backward, and the trainer's all-reduces
+    (the gradient sums, the norm's partial sum, the loss). Each call is timed
+    from a synchronized card to its return (gloo stages through host memory,
+    so the call itself waits for the card)."""
+    from orion_tpu_torch.parallel import collectives as co
+    from orion_tpu_torch.training import trainer as trainer_mod
+
+    ms = {"gather": 0.0, "reduce_scatter": 0.0, "all_reduce": 0.0}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ms[key] += (time.perf_counter() - t) * 1e3
+        return call
+
+    co._gather_cat = timed(co._gather_cat, "gather")
+    co._reduce_scatter_raw = timed(co._reduce_scatter_raw, "reduce_scatter")
+    trainer_mod.all_reduce_sum_ = timed(co.all_reduce_sum_, "all_reduce")
+    return ms
+
+
+def _resident(trainer):
+    """(the bytes this rank holds in params and AdamW moments, counted from
+    its tensors; the bytes it should hold: 1 / fsdp of each sharded leaf
+    plus each replicated leaf, from the whole shapes, fp32 params, mu and
+    nu)."""
+    from orion_tpu_torch.convert import expected_params
+
+    held = sum(t.numel() * t.element_size() for t in trainer.params.values())
+    held += sum(t.numel() * t.element_size() for key in ("mu", "nu")
+                for t in getattr(trainer.opt, key).values())
+    dims = trainer.fsdp.dims if trainer.fsdp is not None else {}
+    n = trainer.mesh.fsdp if trainer.mesh is not None else 1
+    want = 0
+    for key, shape, _ in expected_params(trainer.cfg.model).values():
+        numel = int(np.prod(shape))
+        want += 3 * 4 * (numel // n if key in dims else numel)  # fp32 param, mu, nu
+    return held, want
+
+
+def _digest(tensors):
+    """A bitwise fingerprint of a dict of host tensors (crc32 of each
+    leaf's bytes, in name order)."""
+    import zlib
+
+    crc = 0
+    for n in sorted(tensors):
+        crc = zlib.crc32(tensors[n].contiguous().view(torch.uint8).numpy(), crc)
+    return crc
+
+
+def _first_step_grads(trainer, keep):
+    """Make ``trainer``'s next step also hand over its loss and gradients
+    (summed over the ranks, before the clip: the probe of the sp part,
+    without a forward and backward of its own) -> a dict that holds them,
+    whole and on the host ("loss", "grads"), once that step has run; the
+    gradients only where ``keep`` (under fsdp every rank of each fsdp group
+    joins the gather)."""
+    box, real = {}, trainer._loss_and_grads
+
+    def capture(batch, seed):
+        loss = real(batch, seed)
+        trainer._loss_and_grads = real
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in trainer.params.items()}
+        if trainer.fsdp is not None:
+            grads = trainer.fsdp.gather_state(grads, keep=keep)
+        elif keep:
+            grads = {n: g.to("cpu", copy=True) for n, g in grads.items()}
+        box.update(loss=float(loss), grads=grads if keep else None)
+        return loss
+
+    trainer._loss_and_grads = capture
+    return box
+
+
+def _dp_twin(cfg, batches, dev, pin=None):
+    """The dp=1 twin of ``cfg`` on this rank's card from the same seed and
+    batches (``pin``: replaying a mesh run's routing): its first step's
+    loss and gradients, its step losses and grad norms, and its params
+    before and after, on the host."""
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+    from orion_tpu_torch.training.trainer import Trainer
+
+    twin = Trainer(dataclasses.replace(cfg, mesh=MeshConfig(dp=1)), device=dev)
+    p0 = {n: p.detach().to("cpu", torch.float32, copy=True) for n, p in twin.params.items()}
+    first = _first_step_grads(twin, keep=True)
+    with pin if pin is not None else contextlib.nullcontext():
+        if pin is not None:
+            pin.attach(twin.model)
+        steps = []
+        for i, b in enumerate(batches):
+            if pin is not None:
+                pin.epoch = i + 1
+            ms, m = _timed(lambda: twin.step(b), dev)
+            steps.append({"ms": ms, "loss": m["loss"], "grad_norm": m["grad_norm"]})
+    after = {n: p.detach().to("cpu", torch.float32, copy=True) for n, p in twin.params.items()}
+    del twin
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"probe_loss": first["loss"], "grads": first["grads"], "steps": steps, "p0": p0,
+            "after": after, "flips": pin.flips if pin is not None else 0}
+
+
+def _against_twin(twin, probe_loss, grads, after, tiny, dev):
+    """The sp part's readings of a mesh run (its first step's loss and whole
+    gradients, its whole params after the steps) against its twin, each leaf
+    compared on ``dev``."""
+    rel, agree, total = {}, 0, 0
+    for n, g in grads.items():
+        ref = twin["grads"][n].to(dev)
+        rel[n] = float((g.to(dev).float() - ref).norm() / ref.norm().clamp_min(1e-30))
+        p0 = twin["p0"][n].to(dev)
+        du_mesh, du = after[n].to(dev).float() - p0, twin["after"][n].to(dev) - p0
+        agree += int((torch.sign(du_mesh) == torch.sign(du)).sum())
+        total += du.numel()
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    return {"probe_loss": probe_loss, "twin_probe_loss": twin["probe_loss"],
+            "grad_rel_l2_max": worst[1], "grad_worst": worst[0],
+            "twin_losses": [s["loss"] for s in twin["steps"]],
+            "twin_grad_norms": [s["grad_norm"] for s in twin["steps"]],
+            "twin_ms": [s["ms"] for s in twin["steps"]],
+            "update_sign_agree": agree / total, "tiny": tiny, "flips": twin["flips"]}
+
+
+def _remesh(mesh, cfg, device):
+    from orion_tpu_torch.parallel.mesh import init_distributed
+
+    if cfg == mesh.cfg:
+        return mesh
+    return init_distributed(cfg, rank=mesh.rank, world_size=mesh.world, local_rank=mesh.rank,
+                            local_world_size=mesh.world, device=device)
+
+
+def _dp_mesh_run(m, cfg, batches, mods, clock, pin, save_dir, tiny):
+    """One mesh run on this rank: the Trainer at ``m``, the steps with their
+    launches and collective ms (the first step's loss and whole gradients
+    taken for the probe), the whole params and their digest, the peak
+    memory; with ``save_dir`` (fsdp 4 on lm_1b3) the save / load round
+    trip. Rank 0's result keeps the probe and the whole params ("whole")
+    for the twin."""
+    from orion_tpu_torch.ops.kernels import causal_dot as cd, flash_attention as fa
+    from orion_tpu_torch.training.checkpoint import Checkpointer, load_params
+    from orion_tpu_torch.training.trainer import Trainer
+
+    dev = m.device
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    trainer = Trainer(dataclasses.replace(cfg, mesh=m.cfg), mesh=m)
+    held, want_held = _resident(trainer)
+    res = {"mesh": m.cfg.shape, "transport": m.transport, "held": held, "want_held": want_held}
+    first = _first_step_grads(trainer, keep=m.is_main)
+    with pin if pin is not None else contextlib.nullcontext():
+        if pin is not None:
+            pin.attach(trainer.model)
+        steps, per_step, per_step_sp = [], [], []
+        for i, b in enumerate(batches):
+            if pin is not None:
+                pin.epoch = i + 1
+            _reset_counts(mods)
+            _sp_reset(cd, fa)  # the sp counters too (shift / q_offset launches)
+            for k in clock:
+                clock[k] = 0.0
+            ms, met = _timed(lambda: trainer.step(b), dev)
+            per_step.append(_counts(mods))
+            per_step_sp.append(_sp_counts(cd, fa))
+            steps.append({"ms": ms, "loss": met["loss"], "grad_norm": met["grad_norm"],
+                          "collective_ms": dict(clock)})
+    whole = trainer.whole_params()
+    res.update(steps=steps, per_step=per_step, per_step_sp=per_step_sp, digest=_digest(whole),
+               peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+                         else 0.0))
+    if save_dir is not None:
+        ck = Checkpointer(save_dir, save_every=0)
+        t0 = time.perf_counter()
+        trainer._save(ck, trainer.step_count, force=True)
+        res["save_s"] = time.perf_counter() - t0
+        mine = {n: p.detach().clone() for n, p in trainer.params.items()}
+        if m.rank == 1:  # one rank's load of the file: its own shards back, bitwise
+            trainer.restore(ck, trainer.step_count)
+            res["reload_bitwise"] = all(torch.equal(trainer.params[n], mine[n]) for n in mine)
+        if m.is_main:  # the serving side's load (a dp=1 model's params): the whole params
+            params, _ = load_params(save_dir)
+            res["dp1_load_bitwise"] = all(torch.equal(params[n], whole[n]) for n in whole)
+        m.barrier()
+    if m.is_main:
+        res["whole"] = (first["loss"], first["grads"], whole)
+    del trainer, first
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _gather_routes(pin, m):
+    """The mesh run's pinned choices, each rank's rows gathered over the
+    data group in data-rank order (the global batch's row order)."""
+    from orion_tpu_torch.parallel.collectives import _gather_cat
+
+    if m.data_group is None:
+        return dict(pin.routes)
+    return {key: _gather_cat(ids, 0, m.data_group) for key, ids in sorted(pin.routes.items())}
+
+
+def dp_train_rank(mesh, payload):
+    """One rank of the dp part: for each run of ``payload["runs"]``
+    (default ``DP_RUNS``) every mesh of it on this process group, with rank
+    0's twin before (or, for a MoE, after) them -> per run and mesh: the
+    rank's readings; rank 0's against the twin."""
+    from orion_tpu_torch.ops.kernels import adafactor, causal_dot, flash_attention, gmm, q4_matmul
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+    from orion_tpu_torch.training.data import SyntheticDataset, device_batch
+    from orion_tpu_torch.training.trainer import TrainConfig
+
+    mods = (causal_dot, flash_attention, gmm, q4_matmul, adafactor)
+    dev = mesh.device
+    clock = _collective_clock()
+    results = {}
+    for name, over, kw, meshes in payload.get("runs", DP_RUNS):
+        model = _dp_model(name, over)
+        cfg = TrainConfig(model=model, **kw)
+        ds = SyntheticDataset(model.vocab_size, cfg.seq_len)
+        batches = [device_batch(ds, cfg.seed, i, cfg.batch_size, dev) for i in range(cfg.steps)]
+        routed = bool(model.n_experts)
+        twin = _dp_twin(cfg, batches, dev) if mesh.is_main and not routed else None
+        mesh.barrier()
+        for shape in meshes:
+            m = _remesh(mesh, MeshConfig(dp=shape[0], fsdp=shape[1], sp=shape[2]),
+                        payload.get("device"))
+            pin = PinnedRouting() if routed else None
+            save = payload.get("save_dir") if name == "lm_1b3" and shape == (1, 4, 1) else None
+            res = _dp_mesh_run(m, cfg, batches, mods, clock, pin, save, over is None)
+            want_sp = sp_expected_launches(model, m.sp_rank, m.sp, cfg.seq_len // m.sp) \
+                if m.sp > 1 else None
+            res.update(want=dp_expected_launches(model, "simt" if over is None else "wgmma")
+                       if m.sp == 1 else None, want_sp=want_sp, tiny=over is None)
+            routes = _gather_routes(pin, m) if routed else None
+            mesh.barrier()
+            if mesh.is_main:
+                loss, grads, whole = res.pop("whole")
+                if routed:  # the twin replays the mesh run's routing
+                    replay = PinnedRouting()
+                    replay.routes = {k: v.to(dev) for k, v in routes.items()}
+                    twin = _dp_twin(cfg, batches, dev, replay)
+                res["twin"] = _against_twin(twin, loss, grads, whole, over is None, dev)
+                del grads, whole
+            mesh.barrier()
+            results[f"{name} at dp {shape[0]} x fsdp {shape[1]} x sp {shape[2]}"] = res
+        del twin
+    return results
+
+
+def dp_train_verdict(label, ranks):
+    """Log a mesh run's readings; raise where a limit is missed, a launch
+    count is off, the ranks disagree, or (fsdp 4) the resident bytes or the
+    round trip miss."""
+    twin = ranks[0]["twin"]
+    tiny = twin["tiny"]
+    loss_atol = TINY_LOSS_ATOL if tiny else LM_LOSS_ATOL
+    grad_lim = SP_TINY_GRAD_REL_L2 if tiny else LM_GRAD_REL_L2
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    norms = [s["grad_norm"] for s in ranks[0]["steps"]]
+    coll = [{k: round(v, 1) for k, v in s["collective_ms"].items()} for s in ranks[0]["steps"]]
+    log(f"dp train {label} (transport {ranks[0]['transport']}): probe loss "
+        f"{twin['probe_loss']:.6f} vs the dp=1 twin's {twin['twin_probe_loss']:.6f}; gradients' "
+        f"largest relative L2 error {twin['grad_rel_l2_max']:.3e} ({twin['grad_worst']}; limit "
+        f"{grad_lim:g}); step losses {losses} vs {twin['twin_losses']} (limit {loss_atol:g}); "
+        f"grad norms {norms} vs {twin['twin_grad_norms']}; update signs agree on "
+        f"{twin['update_sign_agree']:.4f} of the elements (limit {SP_UPDATE_AGREE}); routing "
+        f"flips the twin replayed {twin['flips']}; step ms a rank "
+        f"{[[round(s['ms'], 1) for s in r['steps']] for r in ranks]} (the twin's "
+        f"{[round(x, 1) for x in twin['twin_ms']]}); rank 0's host ms in the collectives a "
+        f"step {coll}; resident params + AdamW state a rank {[r['held'] for r in ranks]} bytes "
+        f"(want {ranks[0]['want_held']}); peak memory a rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB")
+    for r, res in enumerate(ranks):
+        if res["want"] is not None and any(c[k] != v for c in res["per_step"]
+                                           for k, v in res["want"].items()):
+            raise AssertionError(f"dp {label} rank {r}: launches {res['per_step']}, want "
+                                 f"{res['want']} a step")
+        if res["want_sp"] is not None and any(c[k] != v for c in res["per_step_sp"]
+                                              for k, v in res["want_sp"].items()):
+            raise AssertionError(f"dp {label} rank {r}: sp launches {res['per_step_sp']}, want "
+                                 f"{res['want_sp']} a step")
+        kinds = {"wgmma": sum(c["wgmma"] for c in res["per_step_sp"]),
+                 "simt": sum(c["simt"] for c in res["per_step_sp"])}
+        if kinds["simt" if not tiny else "wgmma"] or not kinds["wgmma" if not tiny else "simt"]:
+            raise AssertionError(f"dp {label} rank {r} took the other variant: {kinds}")
+        if abs(res["held"] - res["want_held"]) > DP_RESIDENT_RTOL * res["want_held"]:
+            raise AssertionError(f"dp {label} rank {r} holds {res['held']} bytes of params and "
+                                 f"moments, want {res['want_held']}")
+    if len({tuple(s["loss"] for s in res["steps"]) for res in ranks}) != 1 or \
+            len({res["digest"] for res in ranks}) != 1:
+        raise AssertionError(f"dp {label}: the ranks end with other losses or params: "
+                             f"{[(res['steps'], res['digest']) for res in ranks]}")
+    if "save_s" in ranks[0]:
+        log(f"dp {label}: saved in {ranks[0]['save_s']:.1f} s; rank 1's load of the file "
+            f"bitwise its shards {ranks[1]['reload_bitwise']}; a dp=1 load bitwise the gathered "
+            f"params {ranks[0]['dp1_load_bitwise']}")
+        if not (ranks[1]["reload_bitwise"] and ranks[0]["dp1_load_bitwise"]):
+            raise AssertionError(f"dp {label}: the checkpoint round trip is not bitwise")
+    missed = (abs(twin["probe_loss"] - twin["twin_probe_loss"]) > loss_atol
+              or twin["grad_rel_l2_max"] > grad_lim
+              or any(abs(a - b) > loss_atol for a, b in zip(losses, twin["twin_losses"]))
+              or any(abs(a - b) > grad_lim * b for a, b in zip(norms, twin["twin_grad_norms"]))
+              or twin["update_sign_agree"] < SP_UPDATE_AGREE
+              or not all(np.isfinite(x) for x in losses))
+    if missed:
+        raise AssertionError(f"dp training {label} misses its limits against the dp=1 twin: "
+                             f"{twin}")
+
+
+def dp_phase(dev):
+    """The dp part: ``dp_train_rank`` on 4 ranks sharing the card (gloo), each
+    mesh run held against its dp=1 twin (``dp_train_verdict``), fsdp 4's
+    peak below dp 4's on every rank. Returns (each kernel's launches over the
+    dp runs' steps and ranks, by ``KERNELS`` name and by the sp entries'
+    names; the readings)."""
+    import shutil
+    import tempfile
+
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="orion_dp_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free / 2**30
+        if free < 8:
+            raise RuntimeError(f"the dp part's fsdp-4 checkpoint needs ~3.3 GB; {free:.1f} GiB "
+                               f"free under {tmp}")
+        ranks = sp_spawn(4, dp_train_rank, {"save_dir": tmp}, timeout=900,
+                         mesh=MeshConfig(dp=4))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for label in ranks[0]:
+        dp_train_verdict(label, [r[label] for r in ranks])
+    lm = {shape: [r[f"lm_1b3 at dp {shape[0]} x fsdp {shape[1]} x sp 1"] for r in ranks]
+          for shape in ((1, 4), (4, 1))}
+    peaks = [(a["peak_gib"], b["peak_gib"]) for a, b in zip(lm[(1, 4)], lm[(4, 1)])]
+    log(f"dp lm_1b3 peak memory a rank, fsdp 4 against dp 4: {peaks} GiB")
+    if not all(a < b for a, b in peaks):
+        raise AssertionError(f"fsdp 4's peak memory is not below dp 4's on every rank: {peaks}")
+    launches = dict.fromkeys(KERNELS, 0)
+    sp_names = {"parts_fwd": "causal_dot_parts", "fwd_sp": "flash_fwd",
+                "dq_sp": "flash_dq", "dkv_sp": "flash_dkv"}
+    for r in ranks:
+        for res in r.values():
+            for c in res["per_step"]:
+                for k in KERNELS:
+                    launches[k] += c[k]
+            if res["want_sp"] is not None:  # the sp entries' launches: the dp x sp run
+                variant = "simt" if res["tiny"] else "wgmma"
+                for c in res["per_step_sp"]:
+                    for key, base in sp_names.items():
+                        name = (f"{base}_{variant}" if base == "causal_dot_parts"
+                                else f"{base}_{variant}_sp")
+                        launches[name] = launches.get(name, 0) + c[key]
+    log(f"dp part done in {time.perf_counter() - t0:.1f} s; launches over its runs: {launches}")
+    return launches, {label: [{k: r[label][k] for k in ("peak_gib", "held", "transport")}
+                              for r in ranks] for label in ranks[0]}
+
+
 def checkout_package():
     """The ``orion_tpu_torch`` beside this script, or None: a copy of the
     script alone in a directory finds none (or, through ``PYTHONPATH``,
@@ -5248,6 +5698,10 @@ def main() -> int:
     sp_lines, sp_memory = sp_phase(causal_dot, flash_attention, dev)
     log(f"sp phases done at {time.perf_counter() - t0:.1f} s; transport and peak memory a rank: "
         f"{sp_memory}")
+    # data parallelism: dp and fsdp, ranks as processes sharing this card
+    dp_launches, dp_memory = dp_phase(dev)
+    log(f"dp phases done at {time.perf_counter() - t0:.1f} s; peak memory, resident bytes and "
+        f"transport a rank: {dp_memory}")
     op = op_phase(dev, mods)
     tiny_hybrid = dataclasses.replace(TINY, layer_types=("swa", "linear"), window=16)
 
@@ -5447,6 +5901,8 @@ def main() -> int:
                                           for run, c in r["spec"]["launches"].items()}
                                   for label, r in serving.items()}
     kernels += sp_lines  # launches: the sp training runs' totals over the ranks
+    for k in kernels:  # each kernel's launches over the dp part's steps and ranks
+        k["launches_dp"] = dp_launches.get(k["name"], 0)
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -46,6 +46,16 @@ form's einsums, the ragged form's segments, the dense form's experts). A
 quantized layer never takes the gmm kernels, as in JAX: on the card its
 dropless rows take the dense form at any row count.
 
+On a data mesh (``mesh`` with dp x fsdp above 1: each rank holds its rows
+of the batch) the load-balance term is the JAX package's over the global
+batch, E sum_e f_e P_e of the global means, which is not the mean of the
+ranks' terms: f (no gradient) and P (``collectives.all_reduce_mean``, whose
+backward sums the cotangents) are averaged over the data group before the
+product, in both dispatch rules; the z-loss stays this rank's mean, and
+``training/trainer.py::lm_loss`` adds the weighted aux over the number of
+data ranks, so the ranks' summed gradients count it once. The capacity
+form's groups lie inside one row, so its drops do not depend on the mesh.
+
 Not ported (each raises ``NotImplementedError`` naming ROADMAP.md's item):
 the expert-parallel forms (``_dropless_ep``, ``_dropless_ep_gmm``, the
 ``ep`` layout constraint: item 12).
@@ -64,6 +74,8 @@ import torch.nn.functional as F
 from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.ops.dispatch import resolve
 from orion_tpu_torch.ops.kernels.gmm import gmm, pad_group_sizes, tile_expert_table
+from orion_tpu_torch.parallel.collectives import all_reduce_mean
+from orion_tpu_torch.parallel.mesh import Mesh
 from orion_tpu_torch.quant import check_mode
 
 Tensor = torch.Tensor
@@ -150,14 +162,18 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 class MoEMLP(nn.Module):
     """The routed-expert MLP; see the module docstring. ``cdt`` is the
-    compute dtype of the expert products (the router runs in fp32)."""
+    compute dtype of the expert products (the router runs in fp32).
+    ``mesh``: a ``parallel.mesh.Mesh``, whose data group averages the
+    load-balance statistics."""
 
     def __init__(self, cfg: ModelConfig, cdt: torch.dtype, device=None, *,
                  mesh=None, quant: str = ""):
         super().__init__()
-        if mesh is not None:
+        if mesh is not None and (not isinstance(mesh, Mesh) or mesh.cfg.ep > 1):
+            # a JAX-style mesh, or an ep axis: the expert-parallel forms
             raise _not_ported("expert parallelism (the ep forms of MoEMLP)",
                               "item 12 (parallelism)")
+        self.data_group = mesh.data_group if mesh is not None and mesh.n_data > 1 else None
         self.quant = check_mode(quant)
         e, k, h, d = cfg.n_experts, cfg.moe_top_k, cfg.resolved_mlp_hidden, cfg.d_model
         if not 1 <= k <= e:
@@ -194,6 +210,9 @@ class MoEMLP(nn.Module):
 
     def _weighted_aux(self, f: Tensor, p: Tensor, logits: Tensor) -> Tensor:
         cfg = self.cfg
+        if self.data_group is not None:  # the global batch's means
+            f = all_reduce_mean(f.detach(), self.data_group)
+            p = all_reduce_mean(p, self.data_group)
         aux = cfg.n_experts * (f * p).sum()
         z = (torch.logsumexp(logits, -1) ** 2).mean()
         return cfg.moe_aux_weight * aux + cfg.moe_zloss_weight * z

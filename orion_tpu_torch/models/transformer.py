@@ -90,11 +90,24 @@ the card), swa layers the halo (flash blocks at ``q_offset``) on the card
 and the windowed ring elsewhere (``parallel/ring.py``), as the JAX model
 does with a Pallas backend and with XLA.
 
+Data parallelism (``mesh`` with dp x fsdp above 1): each rank runs the model
+on its rows of the batch. Under fsdp each rank holds its shard of every fsdp
+leaf (``parallel/sharding.py``: the JAX package's rules); a block gathers
+its leaves on use, inside its remat region (``FsdpParams.call``:
+``torch.func.functional_call`` on the gathered tensors), so the backward
+gathers them again and the whole weights of one block at a time are live;
+the embeddings and the head gather theirs where they are read, and the tied
+table's two uses each reduce-scatter a gradient into the one shard. A MoE
+layer averages its load-balance statistics over the data group
+(``models/moe.py``).
+
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
-item): the other mesh axes (A12), and with them the expert-parallel MoE
-forms; prefill and decode of a sequence-parallel model (``generate --sp``),
-and a sequence-parallel MoE or dropout. The JAX package's ``attn_block_q`` /
-``attn_block_k`` size TPU tiles and are not read.
+item): the tp, pp and ep mesh axes (A12), and with them the
+expert-parallel MoE forms; prefill and decode of a sequence-parallel model
+(``generate --sp``); a sequence-parallel MoE, dropout on a
+sequence-parallel or data mesh, and a quantized model on a mesh. The JAX
+package's ``attn_block_q`` / ``attn_block_k`` size TPU tiles and are not
+read.
 """
 
 from __future__ import annotations
@@ -119,6 +132,7 @@ from orion_tpu_torch.ops.rotary import apply_rotary, apply_rotary_at, rotary_fre
 from orion_tpu_torch.ops.softmax_attention import (cached_attention, softmax_attention,
                                                    softmax_attention_xla)
 from orion_tpu_torch.parallel.mesh import Mesh
+from orion_tpu_torch.parallel.sharding import FsdpParams, fsdp_dims
 from orion_tpu_torch.quant import Int4Dense, Int8Dense, Int8Embed, check_mode
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
@@ -760,14 +774,15 @@ class Block(nn.Module):
     ``checkpoint`` redraws the same masks."""
 
     def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None,
-                 use_moe: bool = False, quant: str = "", causal: bool = True, sp=None):
+                 use_moe: bool = False, quant: str = "", causal: bool = True, sp=None,
+                 mesh=None):
         super().__init__()
         cdt = _dtype(cfg.dtype)
         self.rate = cfg.dropout
         self.norm1 = make_norm(cfg, device)
         self.attn = Attention(cfg, layer_type, device, quant, causal, sp)
         self.norm2 = make_norm(cfg, device)
-        self.mlp = (MoEMLP(cfg, cdt, device, quant=quant) if use_moe
+        self.mlp = (MoEMLP(cfg, cdt, device, quant=quant, mesh=mesh) if use_moe
                     else MLP(cfg, device, quant))
 
     def _mlp_aux(self, x: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
@@ -831,7 +846,10 @@ class TransformerLM(nn.Module):
     them. ``mesh``: a ``parallel.mesh.Mesh``; with its sp axis above 1 and
     ``cfg.sequence_parallel`` the model is sequence-parallel (``sp``; see the
     module docstring): ``features`` and ``forward`` then take this rank's
-    shard of the tokens. Otherwise it changes nothing, as in the JAX model.
+    shard of the tokens. With dp x fsdp above 1 (``n_data``) it takes this
+    rank's rows, and with fsdp above 1 (``fsdp``) it holds its shard of each
+    fsdp leaf (the params are drawn whole from ``generator``, then cut).
+    Otherwise it changes nothing, as in the JAX model.
     """
 
     def __init__(
@@ -853,6 +871,15 @@ class TransformerLM(nn.Module):
         if self.sp is not None and (quant or cfg.n_experts or cfg.dropout > 0.0):
             raise _not_ported("a sequence-parallel model with quant, MoE layers or dropout",
                               "item 12 (parallelism)")
+        self.n_data = mesh.n_data if mesh is not None else 1
+        self.data_group = mesh.data_group if mesh is not None else None
+        if self.n_data > 1 and cfg.dropout > 0.0:
+            raise _not_ported("dropout on a data mesh (dp x fsdp > 1: its masks are drawn at a "
+                              "rank's shape, so they cannot match a dp=1 run's)",
+                              "item 12 (parallelism), A12 step 7")
+        if self.n_data > 1 and quant:
+            raise _not_ported("a quantized model on a data mesh", "item 12 (parallelism), A12 "
+                              "step 8")
         self.quant = check_mode(quant)
         check_supported(cfg)
         if cfg.param_dtype != "float32":
@@ -865,7 +892,7 @@ class TransformerLM(nn.Module):
                       else Embed(cfg.vocab_size, cfg.d_model, dev))
         self.pos_embed = Embed(cfg.max_seq_len, cfg.d_model, dev)
         self.blocks = nn.ModuleList(
-            Block(cfg, lt, dev, use_moe=cfg.moe_at(i), quant=quant, sp=self.sp)
+            Block(cfg, lt, dev, use_moe=cfg.moe_at(i), quant=quant, sp=self.sp, mesh=mesh)
             for i, lt in enumerate(cfg.resolved_layer_types)
         )
         self.final_norm = make_norm(cfg, dev)
@@ -881,6 +908,11 @@ class TransformerLM(nn.Module):
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self.reset_parameters(generator)
+        self.fsdp = None
+        if mesh is not None and mesh.fsdp > 1:
+            self.fsdp = FsdpParams(fsdp_dims(cfg, mesh.fsdp), mesh.fsdp_group, mesh.fsdp,
+                                   mesh.fsdp_rank)
+            self.fsdp.shard_module(self)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -901,7 +933,16 @@ class TransformerLM(nn.Module):
         return self.pos_embed.weight.device
 
     def _embed(self, tokens: Tensor, positions) -> Tensor:
+        if self.fsdp is not None:
+            return (self._whole("embed.weight")[tokens]
+                    + self._whole("pos_embed.weight")[positions]).to(self.cdt)
         return (self.embed(tokens) + self.pos_embed(positions)).to(self.cdt)
+
+    def _whole(self, name: str) -> Tensor:
+        """The parameter ``name``, gathered over the fsdp group if it is a
+        shard."""
+        p = self.get_parameter(name)
+        return p if self.fsdp is None else self.fsdp.full(name, p)
 
     def _head_operand(self) -> Tensor:
         """The head's weight (the tied table [V, D] or the untied
@@ -913,6 +954,8 @@ class TransformerLM(nn.Module):
         w, _ = self.head_weight()
         if self.cdt == torch.float32:
             return w.float()
+        if self.fsdp is not None:  # gathered afresh: no identity to key a cache on
+            return w.to(self.cdt).float()
         if torch.is_grad_enabled() and w.requires_grad:
             return w.to(self.cdt).float()
         if w.is_inference():  # made under inference_mode: no version counter
@@ -953,7 +996,12 @@ class TransformerLM(nn.Module):
         t = tokens.shape[-1]
         first = self.sp.sp_rank * t if self.sp is not None else 0
         x = self._embed(tokens, torch.arange(first, first + t, device=tokens.device))
-        x, aux_total = run_blocks(self.blocks, self.cfg, x, deterministic, dropout_seed)
+        call = None
+        if self.fsdp is not None:  # block i's leaves are named "blocks.{i}.*"
+            def call(i, blk):
+                return functools.partial(self.fsdp.call, blk, f"blocks.{i}.")
+        x, aux_total = run_blocks(self.blocks, self.cfg, x, deterministic, dropout_seed,
+                                  call=call)
         return self.final_norm(x), aux_total
 
     def head_weight(self) -> Tuple[Tensor, bool]:
@@ -963,8 +1011,8 @@ class TransformerLM(nn.Module):
         if self.quant:
             raise ValueError(f"a quantized model (quant={self.quant!r}) is not trained")
         if self.cfg.tie_embeddings:
-            return self.embed.weight, True
-        return self.lm_head_kernel, False
+            return self._whole("embed.weight"), True
+        return self._whole("lm_head_kernel"), False
 
     def forward(
         self, tokens: Tensor, deterministic: bool = True, dropout_seed: Optional[int] = None,
@@ -1137,11 +1185,14 @@ def init_blocks(root: nn.Module, generator: torch.Generator) -> None:
 
 def run_blocks(blocks, cfg: ModelConfig, x: Tensor, deterministic: bool = True,
                dropout_seed: Optional[int] = None, mask: Optional[Tensor] = None,
-               ) -> Tuple[Tensor, Tensor]:
+               call=None) -> Tuple[Tensor, Tensor]:
     """x through ``blocks`` -> (x, the MoE layers' summed auxiliary loss, an
     fp32 scalar). Dropout, block i drawing from ``rng.fold(dropout_seed,
     i)``, and rematerialization (``cfg.remat`` / ``remat_skip`` /
-    ``remat_policy``) as ``TransformerLM.features`` describes."""
+    ``remat_policy``) as ``TransformerLM.features`` describes. ``call(i,
+    block)``: the callable that runs block i (default the block itself;
+    under fsdp one that gathers its leaves first, inside the remat
+    region)."""
     use_dropout = not deterministic and cfg.dropout > 0.0
     if use_dropout and dropout_seed is None:
         raise ValueError("deterministic=False needs a dropout_seed")
@@ -1151,13 +1202,14 @@ def run_blocks(blocks, cfg: ModelConfig, x: Tensor, deterministic: bool = True,
     aux_total = torch.zeros((), device=x.device)
     for i, blk in enumerate(blocks):
         seed = rngs.fold(dropout_seed, i) if use_dropout else None
+        fn = blk if call is None else call(i, blk)
         if i < first_remat and torch.is_grad_enabled():
             # the masks come from ``seed``, not the global RNG, so there
             # is no RNG state to preserve for the recomputation
-            x, aux = checkpoint(blk, x, seed, mask, use_reentrant=False,
+            x, aux = checkpoint(fn, x, seed, mask, use_reentrant=False,
                                 preserve_rng_state=False, **kwargs)
         else:
-            x, aux = blk(x, seed, mask)
+            x, aux = fn(x, seed, mask)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total

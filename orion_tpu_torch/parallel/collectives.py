@@ -14,7 +14,19 @@ whose backward is written out:
   cotangents;
 - ``exchange`` (all_to_all): chunk p of rank i goes to rank p, where it is
   chunk i; its backward is the same exchange of the cotangents, which
-  inverts it.
+  inverts it;
+- ``all_gather`` (the fsdp gather of a parameter shard): the ranks' tensors
+  concatenated along a dimension; its backward is a reduce-scatter of the
+  cotangents (``reduce_scatter``);
+- ``all_reduce_mean`` (the MoE's routing statistics over the data group):
+  the mean of the ranks' tensors; its backward sums the cotangents over the
+  group and divides by its size.
+
+Transport: under NCCL the gather and the reduce-scatter are
+``all_gather_into_tensor`` / ``reduce_scatter_tensor``. Gloo has no
+reduce-scatter, so there it is an ``exchange`` of the chunks and a sum in
+group-rank order, and CUDA tensors are staged through host memory. The
+choice follows the group's backend, which is the mesh's ``transport``.
 
 Trouble spot: a collective's backward must run on every rank of the group,
 in the same order, or the ranks wait on each other for ever. Autograd runs
@@ -93,6 +105,95 @@ def ppermute_shift(x: Tensor, group, shift: int = 1) -> Tensor:
     shift) % n, and rank i receives rank (i - shift) % n's. Differentiable
     (the backward is the reverse shift)."""
     return _Shift.apply(x, group, shift)
+
+
+def _nccl(group) -> bool:
+    return dist.get_backend(group) == "nccl"
+
+
+def _gather_cat(x: Tensor, dim: int, group) -> Tensor:
+    """The group's tensors concatenated along ``dim`` in group-rank order."""
+    n, _ = _size_rank(group)
+    if _nccl(group):
+        moved = x.detach().movedim(dim, 0).contiguous()
+        out = torch.empty((n * moved.shape[0], *moved.shape[1:]), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, moved, group=group)
+        return out.movedim(0, dim)
+    wire = _to_wire(x, group)
+    parts = [torch.empty_like(wire) for _ in range(n)]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat([p.to(x.device) for p in parts], dim)  # the strided copy on the device
+
+
+def _reduce_scatter_raw(x: Tensor, dim: int, group) -> Tensor:
+    """This rank's chunk along ``dim`` of the sum of the group's tensors."""
+    n, _ = _size_rank(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not split into "
+                         f"{n} chunks")
+    if _nccl(group):
+        moved = x.detach().movedim(dim, 0).contiguous()
+        out = torch.empty((moved.shape[0] // n, *moved.shape[1:]), dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=group)
+        return out.movedim(0, dim)
+    chunks = [c.contiguous() for c in x.detach().chunk(n, dim)]
+    got = _exchange_raw(chunks, group, list(range(n)), list(range(n)))
+    out = got[0].clone()
+    for g in got[1:]:  # the sum in group-rank order
+        out += g
+    return out
+
+
+def _all_reduce_sum(x: Tensor, group) -> Tensor:
+    out = x.detach().clone()
+    all_reduce_sum_([out], group)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_cat(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # rank i's shard reaches every rank's output: the sum of the
+        # cotangents, this rank's chunk of it
+        return _reduce_scatter_raw(g, ctx.dim, ctx.group), None, None
+
+
+def all_gather(x: Tensor, group, dim: int = 0) -> Tensor:
+    """The group's ``x`` concatenated along ``dim`` in group-rank order (on
+    one process: ``torch.cat(xs, dim)`` of every rank's ``x``).
+    Differentiable: the backward reduce-scatters the cotangents, so each
+    rank gets its chunk of their sum over the group."""
+    return _AllGather.apply(x, dim, group)
+
+
+def reduce_scatter(x: Tensor, group, dim: int = 0) -> Tensor:
+    """This rank's chunk along ``dim`` of the group's summed ``x`` (on one
+    process: ``sum(xs).chunk(n, dim)[rank]``). Not differentiable."""
+    return _reduce_scatter_raw(x, dim, group)
+
+
+class _AllReduceMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_sum(x, group) / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_sum(g, ctx.group) / dist.get_world_size(ctx.group), None
+
+
+def all_reduce_mean(x: Tensor, group) -> Tensor:
+    """The mean of the group's ``x`` on every rank (on one process:
+    ``sum(xs) / n``). Differentiable: every rank's output depends on every
+    rank's ``x``, so the backward sums the cotangents over the group (and
+    divides by n)."""
+    return _AllReduceMean.apply(x, group)
 
 
 def _all_gather(x: Tensor, group) -> Tensor:
@@ -182,4 +283,5 @@ def all_reduce_sum_(tensors: Sequence[Tensor], group: Optional[dist.ProcessGroup
             offset += t.numel()
 
 
-__all__ = ["ppermute_shift", "exclusive_prefix_sum", "exchange", "touch", "all_reduce_sum_"]
+__all__ = ["ppermute_shift", "exclusive_prefix_sum", "exchange", "touch", "all_reduce_sum_",
+           "all_gather", "reduce_scatter", "all_reduce_mean"]

@@ -8,12 +8,22 @@ process its rank) and a mesh is a set of ``torch.distributed`` process
 groups, one for each axis above 1, whose collectives the code calls itself
 (``parallel/collectives.py``).
 
-This slice ports the ``sp`` axis, sequence parallelism: each rank of the
-group holds a contiguous shard of every sequence's tokens
-(``parallel/sequence.py``, ``parallel/ring.py``). ``dp`` resolves to the
-devices the other axes leave, which must be 1 here; every other axis above 1
-(dp, fsdp, tp, pp, ep) raises ``NotImplementedError`` naming ROADMAP.md's
-A12, whose later steps port them.
+Ported: the ``dp``, ``fsdp`` and ``sp`` axes, in any combination. ``sp``
+is sequence parallelism: each rank of the group holds a contiguous shard of
+every sequence's tokens (``parallel/sequence.py``, ``parallel/ring.py``).
+``dp`` and ``fsdp`` are the data axes: the ranks of the data group (dp x
+fsdp) hold different rows of the global batch, and ``fsdp`` also shards the
+parameters and the optimizer state over its group (``parallel/sharding.py``).
+``dp = -1`` resolves to the ranks the other axes leave. tp, pp and ep above 1
+raise ``NotImplementedError`` naming ROADMAP.md's A12, whose later steps
+port them.
+
+Rank layout: the JAX mesh's device order, ``reshape(dp, fsdp, tp, sp, pp,
+ep)``, so with tp = pp = ep = 1 rank = (d fsdp + f) sp + s. A rank's row
+block of a global batch is number d fsdp + f of dp fsdp equal blocks (the
+JAX package's ``P(("dp", "fsdp"))``); the sp ranks of one (d, f) share it.
+Every group is created by every rank, in the same order, including the
+groups a rank is not in: ``dist.new_group`` is collective over all ranks.
 
 Transport. ``init_distributed`` picks NCCL when each local rank has a card
 of its own, and gloo when local ranks share one (NCCL refuses two ranks on
@@ -26,10 +36,12 @@ to stderr.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import sys
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -39,7 +51,7 @@ AXES = ("dp", "fsdp", "tp", "sp", "pp", "ep")
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to orion_tpu_torch yet (ROADMAP.md queue A, item 12 "
-        "(parallelism): only the sp axis is)")
+        "(parallelism): only the dp, fsdp and sp axes are)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,17 +83,34 @@ class MeshConfig:
         return (self.dp, self.fsdp, self.tp, self.sp, self.pp, self.ep)
 
     def check(self) -> None:
-        """Raise for an axis above 1 that is not ported (all but sp)."""
+        """Raise for an axis above 1 that is not ported (tp, pp, ep)."""
         for name, n in zip(AXES, self.shape):
-            if name != "sp" and n > 1:
+            if name not in ("dp", "fsdp", "sp") and n > 1:
                 raise _not_ported(f"a device mesh with {name}={n} {self.shape}")
+
+
+def row_index(n_rows: int, n_blocks: int, block: int, accum: int = 1) -> np.ndarray:
+    """The global rows of row block ``block`` of ``n_blocks``: in each of
+    ``accum`` contiguous micro-batches of an ``n_rows`` batch, its
+    ``block``-th equal share (the JAX Trainer's micro-batch reshape, then
+    ``P(("dp", "fsdp"))`` on each micro-batch)."""
+    if n_rows % accum or (n_rows // accum) % n_blocks:
+        raise ValueError(f"a batch of {n_rows} rows in {accum} micro-batch(es) does not split "
+                         f"into {n_blocks} row blocks")
+    micro, share = n_rows // accum, n_rows // accum // n_blocks
+    return np.concatenate([np.arange(i * micro + block * share, i * micro + (block + 1) * share)
+                           for i in range(accum)])
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The process groups of a resolved ``MeshConfig`` as this rank sees
     them: its global ``rank`` of ``world``, its ``device``, the
-    ``transport`` ("nccl" or "gloo") and the group of its sp axis."""
+    ``transport`` ("nccl" or "gloo") and one group for each axis above 1
+    (None for an axis of one rank): ``sp_group``, ``dp_group``,
+    ``fsdp_group``; ``data_group``, the dp x fsdp ranks of this sp index
+    (the ranks that hold different rows); ``shard_group``, the dp x sp ranks
+    of this fsdp index (the ranks that hold the same fsdp shards)."""
 
     cfg: MeshConfig
     rank: int
@@ -89,14 +118,51 @@ class Mesh:
     device: torch.device
     transport: str
     sp_group: Optional[dist.ProcessGroup]
+    dp_group: Optional[dist.ProcessGroup] = None
+    fsdp_group: Optional[dist.ProcessGroup] = None
+    data_group: Optional[dist.ProcessGroup] = None
+    shard_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def coords(self) -> Tuple[int, int, int]:
+        """(d, f, s): this rank's index along dp, fsdp and sp."""
+        c = self.cfg
+        return self.rank // (c.fsdp * c.sp), self.rank // c.sp % c.fsdp, self.rank % c.sp
 
     @property
     def sp(self) -> int:
         return self.cfg.sp
 
     @property
+    def dp(self) -> int:
+        return self.cfg.dp
+
+    @property
+    def fsdp(self) -> int:
+        return self.cfg.fsdp
+
+    @property
     def sp_rank(self) -> int:
-        return dist.get_rank(self.sp_group) if self.sp_group is not None else 0
+        return self.coords[2]
+
+    @property
+    def dp_rank(self) -> int:
+        return self.coords[0]
+
+    @property
+    def fsdp_rank(self) -> int:
+        return self.coords[1]
+
+    @property
+    def n_data(self) -> int:
+        """The data ranks: dp x fsdp, the row blocks of a global batch."""
+        return self.cfg.dp * self.cfg.fsdp
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's row block: d fsdp + f."""
+        d, f, _ = self.coords
+        return d * self.cfg.fsdp + f
 
     @property
     def is_main(self) -> bool:
@@ -113,6 +179,37 @@ class Mesh:
         if t % self.sp:
             raise ValueError(f"sequence length {t} is not a multiple of sp={self.sp}")
         return x.narrow(dim, self.sp_rank * (t // self.sp), t // self.sp)
+
+    def row_index(self, n_rows: int, accum: int = 1) -> np.ndarray:
+        """The global rows this rank takes of an ``n_rows`` batch split into
+        ``accum`` micro-batches (``row_index``)."""
+        return row_index(n_rows, self.n_data, self.data_rank, accum)
+
+    def rows(self, x: torch.Tensor, accum: int = 1) -> torch.Tensor:
+        """This rank's rows of a global batch ``x`` [B, ...]: its row block
+        of each of ``accum`` contiguous micro-batches."""
+        if self.n_data == 1:
+            return x
+        return x[torch.from_numpy(self.row_index(x.shape[0], accum)).to(x.device)]
+
+
+def _group(shape: Tuple[int, ...], rank: int, varying: Tuple[int, ...], transport: str):
+    """The group of the ranks that differ from ``rank`` only along the axes
+    ``varying`` (indices into ``shape``, the (dp, fsdp, sp) sizes), or None
+    when it holds one rank. Every rank creates every group of the partition,
+    in the same order: ``dist.new_group`` is collective over all ranks."""
+    buckets: Dict[tuple, List[int]] = {}
+    for r, c in enumerate(itertools.product(*(range(n) for n in shape))):
+        buckets.setdefault(tuple(c[a] for a in range(len(shape)) if a not in varying),
+                           []).append(r)
+    if len(next(iter(buckets.values()))) == 1:
+        return None
+    mine = None
+    for key in sorted(buckets):
+        g = dist.new_group(buckets[key], backend=transport)
+        if rank in buckets[key]:
+            mine = g
+    return mine
 
 
 def _env_int(name: str, default: Optional[int] = None) -> int:
@@ -152,8 +249,10 @@ def init_distributed(
     ``tcp://localhost:<port>``), ``rank`` and ``world_size``. ``device``:
     ``"cpu"``, or None / ``"cuda"`` for the card (local rank r takes card r
     under NCCL, all ranks share card 0 under gloo when there are fewer
-    cards than local ranks). A process group that is already up is reused.
-    Axes other than sp above 1 raise (``MeshConfig.check``)."""
+    cards than local ranks). A process group that is already up is reused
+    (a process may build several meshes over it, one after another, each
+    rank calling with the same ``cfg``). tp, pp and ep above 1 raise
+    (``MeshConfig.check``)."""
     rank = _env_int("RANK") if rank is None else rank
     world = _env_int("WORLD_SIZE") if world_size is None else world_size
     local_rank = _env_int("LOCAL_RANK", rank) if local_rank is None else local_rank
@@ -161,8 +260,10 @@ def init_distributed(
                    else local_world_size)
     resolved = cfg.resolve(world)
     resolved.check()
-    if resolved.dp * resolved.sp != world:
-        raise ValueError(f"mesh {resolved.shape} does not cover the {world} ranks")
+    if resolved.dp * resolved.fsdp * resolved.sp != world:
+        raise ValueError(f"mesh {resolved.shape}: dp * fsdp * sp = "
+                         f"{resolved.dp * resolved.fsdp * resolved.sp} does not cover the "
+                         f"{world} ranks")
     kind = torch.device(device if device is not None else "cuda").type
     if kind == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_distributed: CUDA is not available; pass device='cpu' to run "
@@ -183,10 +284,15 @@ def init_distributed(
           f"({local_world} local rank(s), {n_cards} card(s)"
           + (": CUDA tensors staged through host memory" if transport == "gloo"
              and kind == "cuda" else "") + ")", file=sys.stderr)
-    sp_group = None
-    if resolved.sp > 1:  # dp is 1 here, so the sp group is every rank
-        sp_group = dist.new_group(list(range(world)), backend=transport)
-    return Mesh(resolved, rank, world, dev, transport, sp_group)
+    shape = (resolved.dp, resolved.fsdp, resolved.sp)
+    groups = {name: _group(shape, rank, varying, transport)
+              for name, varying in (("sp_group", (2,)), ("dp_group", (0,)), ("fsdp_group", (1,)),
+                                    ("data_group", (0, 1)))}
+    # the ranks holding one fsdp shard sum its gradient (without fsdp every
+    # leaf is replicated and sums over the world)
+    groups["shard_group"] = (_group(shape, rank, (0, 2), transport) if resolved.fsdp > 1
+                             else None)
+    return Mesh(resolved, rank, world, dev, transport, **groups)
 
 
-__all__ = ["AXES", "MeshConfig", "Mesh", "init_distributed", "transport_for"]
+__all__ = ["AXES", "MeshConfig", "Mesh", "init_distributed", "transport_for", "row_index"]

@@ -11,21 +11,25 @@ CLI (on the card unless ``--device cpu``):
     python -m orion_tpu_torch.train --config tiny --steps 1000 --data synthetic \\
         --set lr=1e-3 --set model.n_layers=4 --ckpt-dir /tmp/ckpt
 
-Sequence-parallel training (one process a rank, e.g. four ranks on one
-host):
+Parallel training (one process a rank, e.g. four ranks on one host):
 
     torchrun --nproc_per_node 4 -m orion_tpu_torch.train --distributed --sp 4 \
         --config hybrid_1b3 --seq-len 2048 --set model.sequence_parallel=true
+    torchrun --nproc_per_node 4 -m orion_tpu_torch.train --distributed --dp 2 --fsdp 2
 
 ``--distributed`` joins the process group from torchrun's environment
 (``parallel.init_distributed``: NCCL when each rank has its own card, gloo
-when they share one, printed to stderr); every rank takes the same batches
-and its shard of the tokens, rank 0 logs, prints and writes the
-checkpoints.
+when they share one, printed to stderr) with the mesh of ``--dp``,
+``--fsdp`` and ``--sp`` (``--dp -1``, the default, takes the ranks the
+others leave). Each data rank (dp x fsdp) reads only its rows of each
+global batch, each sp rank its shard of the tokens; fsdp shards the
+params and the optimizer state. Rank 0 logs, prints and writes the
+checkpoints, the file a one-rank run writes.
 
 Not ported yet (ROADMAP.md queue A, item 9): ``--preempt-grace`` and
 ``--step-timeout`` (the resilience wiring) and ``--metrics-path`` (the
-Prometheus dump). Mesh flags other than ``--sp`` above 1 raise (item 12).
+Prometheus dump). ``--tp``, ``--pp`` and ``--ep`` above 1 raise (item 12),
+and so does any axis above 1 without ``--distributed``.
 """
 
 from __future__ import annotations
@@ -59,8 +63,9 @@ def train(
 ) -> Tuple[Trainer, dict]:
     """Build everything, optionally resume from ``cfg.ckpt_dir``, run to
     ``cfg.steps``, save a final checkpoint. Returns (trainer, last
-    metrics). ``mesh``: ``init_distributed``'s, for ``cfg.mesh.sp > 1``
-    (rank 0 then logs and writes the checkpoints)."""
+    metrics). ``mesh``: ``init_distributed``'s, for a ``cfg.mesh`` with an
+    axis above 1 (each data rank then reads its rows, rank 0 logs and writes
+    the checkpoints)."""
     if eval_data and not cfg.eval_every:
         raise ValueError(
             "eval_data given but eval_every == 0: the held-out split would never be "
@@ -76,8 +81,12 @@ def train(
     dataset = make_dataset(data, cfg.seq_len, cfg.model.vocab_size)
     if dataset.vocab_size > cfg.model.vocab_size:
         raise ValueError(f"data vocab {dataset.vocab_size} > model vocab {cfg.model.vocab_size}")
+    rows = eval_rows = None
+    if trainer.mesh is not None and trainer.mesh.n_data > 1:
+        rows = trainer.mesh.row_index(cfg.batch_size, cfg.accum_steps)
+        eval_rows = trainer.mesh.row_index(cfg.batch_size)
     loader = DataLoader(dataset, cfg.batch_size, seed=cfg.seed,
-                        start_step=trainer.step_count, device=trainer.device)
+                        start_step=trainer.step_count, device=trainer.device, rows=rows)
     eval_factory = None
     if cfg.eval_every:
         eval_ds = (make_dataset(eval_data, cfg.seq_len, cfg.model.vocab_size)
@@ -88,7 +97,8 @@ def train(
             # evaluates any step on the same batches
             base = 10_000_000 + step * cfg.eval_batches
             return (
-                device_batch(_ds, cfg.seed + 1, base + j, cfg.batch_size, trainer.device)
+                device_batch(_ds, cfg.seed + 1, base + j, cfg.batch_size, trainer.device,
+                             eval_rows)
                 for j in range(cfg.eval_batches)
             )
 
@@ -121,9 +131,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     for axis in ("dp", "fsdp", "tp", "sp", "pp", "ep"):
         p.add_argument(f"--{axis}", type=int, default=-1 if axis == "dp" else 1,
-                       help="mesh axis size; sp > 1 takes --distributed, the others > 1 raise")
+                       help="mesh axis size; dp, fsdp and sp > 1 take --distributed, tp, pp "
+                       "and ep > 1 raise")
     p.add_argument("--distributed", action="store_true",
-                   help="join the process group from torchrun's environment (sp > 1)")
+                   help="join the process group from torchrun's environment (dp, fsdp, sp)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="dotted TrainConfig override, e.g. --set model.n_layers=4")
     p.add_argument("--config-json", default=None, help="JSON override file")

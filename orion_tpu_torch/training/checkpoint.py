@@ -258,11 +258,15 @@ class Checkpointer:
 
     # -- save ----------------------------------------------------------------
 
+    def due(self, step: int, force: bool = False) -> bool:
+        """Is ``step`` at the cadence (``step % save_every == 0``), or
+        forced? (What ``maybe_save`` asks before it looks at the disk.)"""
+        return force or (self.save_every > 0 and step % self.save_every == 0)
+
     def maybe_save(self, step: int, state: Mapping[str, Any], force: bool = False) -> bool:
-        """Save at the cadence (``step % save_every == 0``) or when forced;
-        a step already on disk is not written again. Returns whether it
-        saved."""
-        if not force and (self.save_every <= 0 or step % self.save_every != 0):
+        """Save at the cadence (``due``); a step already on disk is not
+        written again. Returns whether it saved."""
+        if not self.due(step, force):
             return False
         if step in self.all_steps():
             return False

@@ -10,6 +10,11 @@ flat binary of token ids (uint16/uint32) with a JSON sidecar
 host. Sampling is a pure function of (seed, step): resuming at step N
 reproduces the batch sequence with no iterator state to checkpoint.
 
+On a data mesh a rank reads only its rows (``rows``: the global row indices
+``parallel.mesh.Mesh.row_index`` gives): a token-bin dataset gathers just
+their windows, at their global window starts, so they are bitwise those
+rows of the global batch.
+
 Not ported: the C++ loader (``orion_tpu/runtime/``; ROADMAP.md queue A,
 item 4), and the loader's I/O retries and stall detection (item 9).
 """
@@ -82,9 +87,12 @@ class TokenBinDataset:
         if self.n_windows <= 0:
             raise ValueError(f"{path}: too few tokens for seq_len={seq_len}")
 
-    def batch(self, seed: int, step: int, batch_size: int) -> np.ndarray:
-        """[B, seq_len+1] int32; a pure function of (seed, step)."""
-        return self.gather(window_starts(seed, step, batch_size, self.n_windows))
+    def batch(self, seed: int, step: int, batch_size: int,
+              rows: Optional[np.ndarray] = None) -> np.ndarray:
+        """[B, seq_len+1] int32; a pure function of (seed, step). ``rows``:
+        only those rows of it (their windows alone are read)."""
+        starts = window_starts(seed, step, batch_size, self.n_windows)
+        return self.gather(starts if rows is None else starts[rows])
 
     def gather(self, starts: np.ndarray) -> np.ndarray:
         """[len(starts), seq_len+1] int32 windows at explicit offsets."""
@@ -114,11 +122,14 @@ class ShardedTokenBinDataset:
         self._cum = np.cumsum([s.n_windows for s in self.shards])
         self.n_windows = int(self._cum[-1])
 
-    def batch(self, seed: int, step: int, batch_size: int) -> np.ndarray:
+    def batch(self, seed: int, step: int, batch_size: int,
+              rows: Optional[np.ndarray] = None) -> np.ndarray:
         starts = window_starts(seed, step, batch_size, self.n_windows)
+        if rows is not None:
+            starts = starts[rows]
         which = np.searchsorted(self._cum, starts, side="right")
         local = starts - np.concatenate([[0], self._cum[:-1]])[which]
-        out = np.empty((batch_size, self.seq_len + 1), dtype=np.int32)
+        out = np.empty((len(starts), self.seq_len + 1), dtype=np.int32)
         for si in np.unique(which):
             rows = np.nonzero(which == si)[0]
             out[rows] = self.shards[si].gather(local[rows])
@@ -134,7 +145,12 @@ class SyntheticDataset:
         self.vocab_size = vocab_size
         self.seq_len = seq_len
 
-    def batch(self, seed: int, step: int, batch_size: int) -> np.ndarray:
+    def batch(self, seed: int, step: int, batch_size: int,
+              rows: Optional[np.ndarray] = None) -> np.ndarray:
+        """``rows``: only those rows (the whole batch is drawn: each row's
+        first two tokens come from one stream)."""
+        if rows is not None:
+            return self.batch(seed, step, batch_size)[rows]
         rng = np.random.Generator(np.random.Philox(key=[seed, step]))
         t = self.seq_len + 1
         out = np.empty((batch_size, t), dtype=np.int32)
@@ -145,10 +161,13 @@ class SyntheticDataset:
         return out
 
 
-def device_batch(dataset, seed: int, step: int, batch_size: int, device) -> torch.Tensor:
-    """``dataset.batch(seed, step, batch_size)`` as an int64 tensor on
-    ``device`` (through pinned memory to a card)."""
-    host = torch.from_numpy(dataset.batch(seed, step, batch_size))
+def device_batch(dataset, seed: int, step: int, batch_size: int, device,
+                 rows: Optional[np.ndarray] = None) -> torch.Tensor:
+    """``dataset.batch(seed, step, batch_size)`` (its ``rows`` only, when
+    given) as an int64 tensor on ``device`` (through pinned memory to a
+    card)."""
+    host = torch.from_numpy(dataset.batch(seed, step, batch_size)
+                            if rows is None else dataset.batch(seed, step, batch_size, rows=rows))
     device = torch.device(device)
     if device.type == "cuda":
         return host.pin_memory().to(device, torch.int64, non_blocking=True)
@@ -160,12 +179,14 @@ class DataLoader:
     ``start_step, start_step + 1, ...``, copied to ``device`` as int64,
     ``prefetch`` batches deep. Restart-safe: batches are pure functions of
     (seed, step). A worker that dies re-raises its exception (as the
-    ``__cause__``) from ``__next__``."""
+    ``__cause__``) from ``__next__``. ``rows``: only those rows of each
+    batch (a data rank's, ``Mesh.row_index``)."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, start_step: int = 0,
-                 device=None, prefetch: int = 2):
+                 device=None, prefetch: int = 2, rows: Optional[np.ndarray] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = rows
         self.seed = seed
         self.step = start_step
         self.device = torch.device("cpu") if device is None else torch.device(device)
@@ -179,7 +200,8 @@ class DataLoader:
         try:
             step = self.step
             while not self._stop.is_set():
-                batch = device_batch(self.dataset, self.seed, step, self.batch_size, self.device)
+                batch = device_batch(self.dataset, self.seed, step, self.batch_size, self.device,
+                                     self.rows)
                 while not self._stop.is_set():
                     try:
                         self._q.put(batch, timeout=0.1)

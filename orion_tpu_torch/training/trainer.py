@@ -52,8 +52,30 @@ gradients are summed over the sp group (one flat buffer a dtype), so every
 rank clips and updates alike; logs and checkpoints are rank 0's, with a
 barrier, and a checkpoint is the file an sp=1 run writes.
 
+Data parallelism (``cfg.mesh`` with dp x fsdp above 1, in any combination
+with sp): each rank takes its rows of the global batch with the JAX
+package's micro-batch partition (the batch split into ``accum_steps``
+contiguous micro-batches, each rank its row block of each,
+``Mesh.row_index``), so ``batch_size`` and ``micro_batch`` must divide by dp
+x fsdp. The loss is the global token mean (a rank's backward starts from its
+sum over the global count; a MoE layer's aux over the data ranks). After the
+backward, the replicated leaves' gradients are summed over every rank (one
+flat buffer a dtype) and the fsdp shards' -- reduce-scattered over the fsdp
+group by the gather's backward -- over the ranks that hold the same shard
+(dp x sp). The global norm counts each shard once (its squares summed over
+the fsdp group), so every rank clips, guards and skips alike. AdamW and
+Lion update each rank's shards in place, their moments sharded alike; on a
+data mesh without fsdp every optimizer but ``adafactor_fused`` runs on the
+replicated leaves. ``adafactor_fused`` on any mesh of more than one rank
+raises the JAX Trainer's ``ValueError``; ``adafactor`` and
+``bfloat16_sr`` under fsdp raise ``NotImplementedError`` (factored
+statistics and the rounding counter need the whole leaf). A checkpoint is
+always the file a dp=1 run writes: under fsdp the fsdp group of rank 0
+gathers each leaf, one at a time, into rank 0's host memory; a load on any
+mesh takes this rank's shard of each leaf.
+
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
-item): the other mesh axes above 1 (A12). ``preempt_grace`` and
+item): the tp, pp and ep mesh axes (A12). ``preempt_grace`` and
 ``step_timeout`` are kept for the config's shape and not wired (item 9).
 """
 
@@ -74,6 +96,7 @@ from orion_tpu_torch.ops.fused_ce import fused_ce_ok, model_token_losses
 from orion_tpu_torch.ops.kernels import adafactor as af
 from orion_tpu_torch.parallel.collectives import all_reduce_sum_
 from orion_tpu_torch.parallel.mesh import MeshConfig
+from orion_tpu_torch.parallel.sharding import FsdpParams
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
 
@@ -394,10 +417,11 @@ def lm_loss(
     layers' auxiliary loss (the JAX package's ``"losses"`` collection). With
     ``dropout_seed`` the blocks apply dropout (``cfg.dropout``). ``fused_ce``
     (None = ``fused_ce_ok``) computes the same loss without the [B, T, V]
-    fp32 logits (``ops/fused_ce.py``). On a sequence-parallel model it is
-    this rank's part of the global mean: its shard's sum of token losses
-    over the global token count (the inputs and labels shifted before
-    sharding)."""
+    fp32 logits (``ops/fused_ce.py``). On a sequence-parallel model, or one
+    on a data mesh (``batch`` then this rank's rows), it is this rank's part
+    of the global mean: its sum of token losses over the global token count
+    (the inputs and labels shifted before sharding), plus the aux over the
+    number of data ranks (each rank's aux is the global batch's already)."""
     x, y = batch[:, :-1], batch[:, 1:]
     sp = model.sp
     if sp is not None:
@@ -411,8 +435,9 @@ def lm_loss(
         logits, aux = model(x, deterministic, dropout_seed, return_aux=True)
         losses = torch.nn.functional.cross_entropy(
             logits.transpose(1, 2), y.long(), reduction="none")
-    if sp is not None:
-        return losses.sum() / (batch.shape[0] * (batch.shape[1] - 1)) + aux
+    n_data = model.n_data
+    if sp is not None or n_data > 1:
+        return losses.sum() / (batch.shape[0] * n_data * (batch.shape[1] - 1)) + aux / n_data
     return losses.mean() + aux
 
 
@@ -423,10 +448,18 @@ def param_grads(params: Dict[str, Tensor]) -> Dict[str, Tensor]:
             for n, p in params.items()}
 
 
-def global_norm(grads: Dict[str, Tensor]) -> Tensor:
-    """The gradients' global L2 norm, in fp32 (a bf16 leaf's too)."""
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads.values()]))
+def global_norm(grads: Dict[str, Tensor], fsdp: Optional[FsdpParams] = None) -> Tensor:
+    """The gradients' global L2 norm, in fp32 (a bf16 leaf's too). Under
+    ``fsdp`` the grads of its leaves are this rank's shards: their squares
+    are summed over the fsdp group, the replicated leaves' counted once."""
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads.values()]
+    if fsdp is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack([n * n for n in norms])
+    sharded = torch.tensor([name in fsdp.dims for name in grads], device=sq.device)
+    parts = torch.stack([sq[sharded].sum(), sq[~sharded].sum()])
+    all_reduce_sum_([parts[:1]], fsdp.group)
+    return torch.sqrt(parts.sum())
 
 
 def _i64(x: int) -> Tensor:
@@ -439,24 +472,48 @@ class Trainer:
         """Builds the model (params drawn from the seed's "init" stream) and
         the optimizer on ``device`` (default ``"cuda"``, which raises
         without CUDA). ``mesh``: the ``parallel.mesh.Mesh`` of
-        ``init_distributed``, which ``cfg.mesh.sp > 1`` needs; the model then
-        runs on the mesh's device."""
+        ``init_distributed``, which a ``cfg.mesh`` with an axis above 1 needs
+        (the same mesh); the model then runs on the mesh's device."""
         if cfg.seq_len > cfg.model.max_seq_len:
             raise ValueError(
                 f"seq_len={cfg.seq_len} exceeds model.max_seq_len="
                 f"{cfg.model.max_seq_len}; raise max_seq_len or lower seq_len"
             )
         cfg.mesh.check()
-        if cfg.mesh.sp > 1 or (mesh is not None and mesh.sp > 1):
-            if mesh is None or mesh.sp != cfg.mesh.sp:
-                raise ValueError(f"mesh sp={cfg.mesh.sp} needs its process group: pass the "
-                                 "Mesh of parallel.init_distributed (the CLI's --distributed)")
+        if mesh is None:
+            if max(cfg.mesh.dp, cfg.mesh.fsdp, cfg.mesh.sp) > 1:
+                raise ValueError(f"mesh {cfg.mesh.shape} needs its process group: pass the Mesh "
+                                 "of parallel.init_distributed (the CLI's --distributed)")
+            want = MeshConfig(dp=1)
+        else:
+            want = cfg.mesh.resolve(mesh.world)
+            if mesh.cfg != want:
+                raise ValueError(f"cfg.mesh resolves to {want.shape} on {mesh.world} ranks, the "
+                                 f"Mesh is {mesh.cfg.shape}: pass the Mesh init_distributed "
+                                 "built for it")
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        if self.mesh is not None:
+            device = mesh.device
+            if cfg.optimizer == "adafactor_fused":
+                # the JAX Trainer refuses it on any multi-device mesh, so the
+                # optimizer state's structure never depends on the mesh
+                raise ValueError(
+                    "optimizer='adafactor_fused' runs on single-device meshes only (the fused "
+                    "passes take whole leaves and their factored statistics would need "
+                    "all-reduces); use optimizer='adafactor' on multi-device meshes")
+        if want.sp > 1:
             if not cfg.model.sequence_parallel:
                 raise ValueError("an sp mesh shards the tokens: set model.sequence_parallel=true")
-            if cfg.seq_len % mesh.sp:
-                raise ValueError(f"seq_len={cfg.seq_len} is not a multiple of sp={mesh.sp}")
-            device = mesh.device
-        self.mesh = mesh if mesh is not None and mesh.sp > 1 else None
+            if cfg.seq_len % want.sp:
+                raise ValueError(f"seq_len={cfg.seq_len} is not a multiple of sp={want.sp}")
+        n_data = want.dp * want.fsdp
+        if cfg.micro_batch % n_data:  # so the batch divides too
+            raise ValueError(f"batch_size {cfg.batch_size} (micro-batch {cfg.micro_batch}) does "
+                             f"not divide into dp * fsdp = {n_data} row blocks")
+        if want.fsdp > 1 and (cfg.optimizer == "adafactor" or cfg.param_storage == "bfloat16_sr"):
+            raise _not_ported(f"optimizer={cfg.optimizer!r} / param_storage="
+                              f"{cfg.param_storage!r} under fsdp (factored statistics and the "
+                              "rounding counter take the whole leaf)", "item 12 (parallelism)")
         if cfg.param_storage not in ("float32", "bfloat16_sr"):
             raise ValueError(f"param_storage={cfg.param_storage!r}; expected 'float32' "
                              "or 'bfloat16_sr'")
@@ -475,6 +532,7 @@ class Trainer:
             generator=rngs.generator(rngs.stream(root, "init"), self.device), mesh=self.mesh,
         )
         storage_cast(self.model, cfg.param_storage)
+        self.fsdp = self.model.fsdp
         self.params = dict(self.model.named_parameters())
         transposed = {key: t for key, _, t in expected_params(cfg.model).values()}
         self.opt = make_optimizer(cfg, self.params, transposed)
@@ -486,9 +544,22 @@ class Trainer:
 
     # -- the step -----------------------------------------------------------
 
+    def local_rows(self, batch: Tensor) -> Tensor:
+        """This rank's rows of ``batch``: the global batch [B, T+1] (its
+        row block of each micro-batch, ``Mesh.rows``) or already this rank's
+        [B / (dp fsdp), T+1] (a loader that reads only them)."""
+        n_data, rows = self.model.n_data, self.cfg.batch_size
+        if n_data == 1 or batch.shape[0] == rows // n_data:
+            return batch
+        if batch.shape[0] != rows:
+            raise ValueError(f"a batch of {batch.shape[0]} rows: want the global batch_size "
+                             f"{rows} or this rank's {rows // n_data}")
+        return self.mesh.rows(batch, self.cfg.accum_steps)
+
     def _loss_and_grads(self, batch: Tensor, step_seed: int) -> Tensor:
         cfg = self.cfg
         use_dropout = cfg.model.dropout > 0.0
+        batch = self.local_rows(batch)
         for p in self.params.values():
             p.grad = None
         if cfg.accum_steps == 1:
@@ -496,7 +567,7 @@ class Trainer:
             loss.backward()
             return self._reduce(loss.detach())
         total = torch.zeros((), device=self.device)
-        for i, mb in enumerate(batch.view(cfg.accum_steps, cfg.micro_batch, -1)):
+        for i, mb in enumerate(batch.view(cfg.accum_steps, batch.shape[0] // cfg.accum_steps, -1)):
             seed = rngs.fold(step_seed, i) if use_dropout else None
             loss = lm_loss(self.model, mb, seed)
             loss.backward()  # grads sum over the micro-batches
@@ -507,13 +578,20 @@ class Trainer:
         return self._reduce(total / cfg.accum_steps)
 
     def _reduce(self, loss: Tensor) -> Tensor:
-        """Under sp: the loss and every parameter gradient summed over the
-        group, so each rank holds the global ones (a no-op otherwise)."""
+        """On a mesh: the loss and every parameter gradient summed over the
+        ranks, so each holds the global ones (a no-op otherwise). The
+        replicated leaves' and the loss sum over every rank; the fsdp
+        shards', reduce-scattered over the fsdp group in the backward, over
+        the ranks holding the same shard."""
         if self.mesh is None:
             return loss
         loss = loss.reshape(1).clone()
-        all_reduce_sum_([loss] + [p.grad for p in self.params.values() if p.grad is not None],
-                        self.mesh.sp_group)
+        dims = self.fsdp.dims if self.fsdp is not None else {}
+        grads = [p.grad for n, p in self.params.items() if p.grad is not None and n not in dims]
+        all_reduce_sum_([loss] + grads)
+        shards = [p.grad for n, p in self.params.items() if p.grad is not None and n in dims]
+        if shards and self.mesh.shard_group is not None:
+            all_reduce_sum_(shards, self.mesh.shard_group)
         return loss[0]
 
     @property
@@ -523,9 +601,15 @@ class Trainer:
         return self.mesh is None or self.mesh.is_main
 
     def _save(self, ckpt, step: int, force: bool = False) -> None:
-        """``ckpt.maybe_save`` on rank 0; under sp every rank then waits for
-        it."""
-        if self.is_main:
+        """``ckpt.maybe_save`` on rank 0; on a mesh every rank then waits
+        for it. Under fsdp the ranks of rank 0's fsdp group first gather the
+        state with it (``state_dict``)."""
+        if self.fsdp is not None:
+            if ckpt.due(step, force):
+                state = self.state_dict()
+                if self.is_main:
+                    ckpt.maybe_save(step, state, force=force)
+        elif self.is_main:
             ckpt.maybe_save(step, self.state_dict(), force=force)
         if self.mesh is not None:
             self.mesh.barrier()
@@ -539,7 +623,7 @@ class Trainer:
         step_seed = rngs.at_step(self.rng, self.step_count)
         loss = self._loss_and_grads(batch.to(self.device), step_seed)
         grads = param_grads(self.params)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, self.fsdp)
         finite_t = torch.isfinite(loss) & torch.isfinite(gnorm)
         clip = (torch.clamp(cfg.clip_norm / gnorm, max=1.0)
                 if cfg.clip_norm and cfg.clip_norm > 0 else 1.0)
@@ -614,10 +698,13 @@ class Trainer:
 
         total, count = 0.0, 0.0
         for _ in range(n_batches or self.cfg.eval_batches):
-            s, c = lm_eval_sums(self.model, next(data_iter).to(self.device))
-            if self.mesh is not None:  # this rank's shard: sum over the group
+            batch = next(data_iter).to(self.device)
+            if self.mesh is not None and batch.shape[0] == self.cfg.batch_size:
+                batch = self.mesh.rows(batch)
+            s, c = lm_eval_sums(self.model, batch)
+            if self.mesh is not None:  # this rank's rows and tokens: sum over every rank
                 sums = torch.stack([s, c])
-                all_reduce_sum_([sums], self.mesh.sp_group)
+                all_reduce_sum_([sums])
                 s, c = sums
             total += float(s)
             count += float(c)
@@ -626,27 +713,66 @@ class Trainer:
 
     # -- checkpoint glue ----------------------------------------------------
 
-    def state_dict(self) -> Dict[str, object]:
-        """The whole training state as a nested dict of tensors."""
+    def state_dict(self) -> Optional[Dict[str, object]]:
+        """The whole training state as a nested dict of tensors: the file a
+        dp=1 run writes. Under fsdp a collective: the ranks of rank 0's fsdp
+        group gather every sharded leaf (params and moments) into rank 0's
+        host memory, one leaf at a time; rank 0 gets the state, every other
+        rank None."""
+        params = {n: p.detach() for n, p in self.params.items()}
+        opt = self.opt.state_dict()
+        if self.fsdp is not None:
+            d, _, s = self.mesh.coords
+            if d or s:  # not in rank 0's fsdp group
+                return None
+            keep = self.mesh.is_main
+            params = self.fsdp.gather_state(params, keep)
+            opt = {k: self.fsdp.gather_state(v, keep) if k in ("mu", "nu") else v
+                   for k, v in opt.items()}
+            if not keep:
+                return None
         return {
             "step": torch.tensor(self.step_count, dtype=torch.int64),
             "nonfinite": torch.tensor(self.nonfinite, dtype=torch.int64),
             "rng": _i64(self.rng),
-            "params": {n: p.detach() for n, p in self.params.items()},
-            "opt": self.opt.state_dict(),
+            "params": params,
+            "opt": opt,
         }
 
     @torch.no_grad()
     def load_state_dict(self, state) -> None:
+        """Load a whole state (a checkpoint of any mesh: the dp=1 file);
+        under fsdp this rank keeps its shard of each sharded leaf."""
         if int(state["rng"]) != int(_i64(self.rng)):
             raise ValueError("checkpoint was written with another seed")
-        self.model.load_state_dict(state["params"], strict=True)
-        self.opt.load_state_dict(state["opt"])
+        opt = state["opt"]
+        if self.fsdp is not None:
+            opt = {k: self.fsdp.shard_state(v) if k in ("mu", "nu") else v
+                   for k, v in opt.items()}
+        self.load_params(state["params"])
+        self.opt.load_state_dict(opt)
         self.step_count = int(state["step"])
         self.nonfinite = self.nonfinite_steps = int(state["nonfinite"])
 
+    @torch.no_grad()
+    def load_params(self, params: Dict[str, Tensor]) -> None:
+        """Load whole params (a dp=1 model's state dict); under fsdp this
+        rank keeps its shards."""
+        self.model.load_state_dict(self.fsdp.shard_state(params) if self.fsdp is not None
+                                   else params, strict=True)
+
+    def whole_params(self) -> Dict[str, Tensor]:
+        """Every param whole, on the host (under fsdp a collective over each
+        fsdp group: every rank calls)."""
+        params = {n: p.detach() for n, p in self.params.items()}
+        if self.fsdp is not None:
+            return self.fsdp.gather_state(params, keep=True)
+        return {n: p.to("cpu", copy=True) for n, p in params.items()}
+
     def restore(self, ckpt, step: Optional[int] = None) -> int:
-        self.load_state_dict(ckpt.restore(step, map_location=self.device))
+        # under fsdp the whole state stays on the host until it is cut
+        self.load_state_dict(ckpt.restore(step, map_location=None if self.fsdp is not None
+                                          else self.device))
         return self.step_count
 
 

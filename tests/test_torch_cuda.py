@@ -1655,3 +1655,35 @@ def test_spec_verify_piece_of_20_rows_bitwise_its_decode_steps(dev):
             for b in range(4):
                 want = walk[int(keep[b])]
                 assert all(torch.equal(x[k][b], y[k][b]) for x, y in zip(got, want) for k in x)
+
+
+def test_dp_collectives_stage_cuda_tensors_over_gloo(dev):
+    """``all_gather`` (its backward a reduce-scatter), ``reduce_scatter`` and
+    ``all_reduce_mean`` on CUDA tensors of two ranks sharing the card: the
+    group is gloo (NCCL refuses two ranks on one card), so each collective
+    stages its tensors through host memory and hands back CUDA tensors.
+    Against numpy sums (fp32, 1e-6)."""
+    import torch_sp_workers as workers
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    rng = np.random.default_rng(21)
+    draw = lambda *s: rng.standard_normal(s, dtype=np.float32)  # noqa: E731
+    p = {"x": draw(2, 4, 6), "y": draw(2, 8, 12), "groups": ["dp_group"], "device": "cuda",
+         "mesh": MeshConfig(dp=2), "ct_gather0": draw(2, 8, 6), "ct_gather1": draw(2, 4, 12),
+         "ct_mean": draw(2, 4, 6)}
+    ranks = workers.run_ranks(2, workers.collective_cases, p, timeout=120)
+    tol = dict(rtol=1e-6, atol=1e-6)
+    for r in range(2):
+        assert ranks[r]["transport"] == "gloo"
+        me, res = ranks[r]["dp_group"]
+        assert me == r
+        for dim in (0, 1):
+            out, grad = res[f"gather{dim}"]
+            np.testing.assert_array_equal(out, np.concatenate(list(p["x"]), dim))
+            np.testing.assert_allclose(grad, np.split(p[f"ct_gather{dim}"].sum(0), 2, dim)[r],
+                                       **tol)
+            out, _ = res[f"scatter{dim}"]
+            np.testing.assert_allclose(out, np.split(p["y"].sum(0), 2, dim)[r], **tol)
+        out, grad = res["mean"]
+        np.testing.assert_allclose(out, p["x"].mean(0), **tol)
+        np.testing.assert_allclose(grad, p["ct_mean"].mean(0), **tol)

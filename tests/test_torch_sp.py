@@ -136,8 +136,11 @@ def test_sp_body_matches_the_jax_global_function(world, name):
 
 def test_a_rank_that_raises_fails_the_start_and_ends_the_others():
     """A rank that never joins the collective its peers wait in: the start
-    fails (with the rank's traceback) instead of hanging."""
-    with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
-        workers.run_ranks(2, workers.bodies, {"inputs": {}, "cotangents": {},
-                                              "cases": [{"name": "bad", "kind": "nope",
-                                                         "inputs": "x"}]}, timeout=60)
+    fails with that rank's traceback instead of hanging, and no rank
+    outlives the call."""
+    import multiprocessing
+
+    with pytest.raises(RuntimeError, match="rank 1 of 2 failed") as err:
+        workers.run_ranks(2, workers.raise_on_rank_1, {}, timeout=60)
+    assert "rank 1 raises before the barrier" in str(err.value)
+    assert not multiprocessing.active_children()

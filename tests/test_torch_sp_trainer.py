@@ -58,10 +58,10 @@ def _jax_runs():
 
 @functools.lru_cache(maxsize=None)
 def _port_runs():
-    payload = {"kw": KW, "batches": _batches(),
-               "runs": [{"model": ModelConfig(ring_striped=s, **MODEL), "tree": tree}
-                        for s, (tree, _, _) in zip(STRIPED, _jax_runs())]}
-    return workers.run_ranks(SP, workers.trainer_steps, payload, timeout=240)
+    payload = {"kw": KW, "runs": [{"model": ModelConfig(ring_striped=s, **MODEL), "tree": tree,
+                                   "batches": _batches()}
+                                  for s, (tree, _, _) in zip(STRIPED, _jax_runs())]}
+    return workers.run_ranks(SP, workers.mesh_runs, payload, timeout=240)
 
 
 @pytest.mark.parametrize("i,striped", list(enumerate(STRIPED)))
@@ -70,13 +70,13 @@ def test_sp4_trainer_matches_the_jax_sp4_trainer(i, striped):
     ranks = [r[i] for r in _port_runs()]
     model = ModelConfig(ring_striped=striped, **MODEL)
     ref = params_from_jax(want_params, model)
-    for losses, params in ranks:
+    for losses, _, params, _ in ranks:
         np.testing.assert_allclose(losses, want_losses, rtol=2e-5, atol=2e-5)
         for n, p in params.items():
             np.testing.assert_allclose(p, ref[n].numpy(), rtol=3e-5, atol=3e-5, err_msg=n)
-    for _, params in ranks[1:]:  # the ranks agree bitwise
+    for _, _, params, _ in ranks[1:]:  # the ranks agree bitwise
         for n, p in params.items():
-            np.testing.assert_array_equal(p, ranks[0][1][n], err_msg=n)
+            np.testing.assert_array_equal(p, ranks[0][2][n], err_msg=n)
 
 
 def test_sp_needs_its_process_group_and_sequence_parallel():

@@ -4,11 +4,17 @@ ranks, started with ``torch.multiprocessing`` (spawn).
 This module imports torch and the port only, never JAX, so the spawned
 ranks do not start JAX (``tests/conftest.py`` sets it up for the test
 process). ``run_ranks(world, fn, payload)`` starts ``world`` ranks, each
-joining a gloo group on a free localhost port, calls ``fn(mesh, payload)``
-in each and returns the ranks' results in rank order. Every start has a
-deadline: a rank that raises fails the call at once with its traceback,
-and ranks that do not finish in time (a collective some rank never joined)
-are killed and the call fails, never hangs.
+joining a gloo group on a free localhost port with the mesh of
+``payload["mesh"]`` (a ``MeshConfig``; default sp over every rank) on
+``payload["device"]`` (default the CPU; "cuda": the ranks share the card,
+so the group is gloo too), calls
+``fn(mesh, payload)`` in each and returns the ranks' results in rank order.
+Every start has a deadline: a rank that raises fails the call at once with
+its traceback, and ranks that do not finish in time (a collective some rank
+never joined) are killed and the call fails, never hangs. A rank that
+raises writes its report into the pipe before it tears down its process
+group, so a peer that then fails on the closed group reports after it: the
+first failure ``run_ranks`` reads is the rank that raised.
 """
 
 from __future__ import annotations
@@ -36,12 +42,18 @@ def _entry(rank, world, port, fn, payload, out):
         from orion_tpu_torch.parallel.mesh import MeshConfig, init_distributed
 
         torch.set_num_threads(1)
-        mesh = init_distributed(MeshConfig(dp=1, sp=world), device="cpu",
+        opts = payload if isinstance(payload, dict) else {}
+        mesh = init_distributed(opts.get("mesh") or MeshConfig(dp=1, sp=world),
+                                device=opts.get("device", "cpu"),
                                 init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                                 world_size=world, local_rank=rank, local_world_size=world)
         out.put((rank, True, fn(mesh, payload)))
     except BaseException:  # noqa: BLE001 -- the traceback goes to the test
         out.put((rank, False, traceback.format_exc()))
+        # flushed before the group goes down: a peer waiting in a collective
+        # fails only then, so its report comes after this one
+        out.close()
+        out.join_thread()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -85,6 +97,15 @@ def run_ranks(world: int, fn, payload, timeout: float = TIMEOUT_S):
     return [results[r] for r in range(world)]
 
 
+def raise_on_rank_1(mesh, payload):
+    """Rank 1 raises in its body; every other rank waits in a barrier that
+    rank 1 never joins."""
+    if mesh.rank == 1:
+        raise RuntimeError("rank 1 raises before the barrier")
+    dist.barrier()
+    return mesh.rank
+
+
 # ---------------------------------------------------------------------------
 # The bodies and collectives
 # ---------------------------------------------------------------------------
@@ -124,25 +145,90 @@ def bodies(mesh, payload):
 
 
 # ---------------------------------------------------------------------------
-# The trainer
+# The data-parallel collectives, and the trainer on any mesh
 # ---------------------------------------------------------------------------
 
 
-def trainer_steps(mesh, payload):
-    """For each run of ``payload["runs"]`` (a TrainConfig's model overrides
-    and the numpy params tree): the port's Trainer on this rank from those
-    params, ``len(batches)`` steps -> (losses, params by name)."""
-    from orion_tpu_torch.convert import load_jax_params
-    from orion_tpu_torch.training.trainer import MeshConfig, TrainConfig, Trainer
+def remesh(mesh, cfg):
+    """``mesh``'s process group with the groups of ``cfg`` (every rank
+    calls, with the same ``cfg``)."""
+    from orion_tpu_torch.parallel.mesh import init_distributed
+
+    if cfg == mesh.cfg:
+        return mesh
+    return init_distributed(cfg, device="cpu", rank=mesh.rank, world_size=mesh.world,
+                            local_rank=mesh.rank, local_world_size=mesh.world)
+
+
+def collective_cases(mesh, payload):
+    """``all_gather`` (dims 0 and 1), ``reduce_scatter`` and
+    ``all_reduce_mean`` over each group of ``payload["groups"]`` (names of
+    the mesh's group attributes), each forward and the gradient of sum(out
+    * ct) with this rank's cotangent, on the mesh's device -> {group: (this
+    rank's index in it, {case: (out, grad)}), "transport": the mesh's}."""
+    from orion_tpu_torch.parallel import collectives as coll
+
+    out = {"transport": mesh.transport}
+    dev = mesh.device
+    for name in payload["groups"]:
+        group = getattr(mesh, name)
+        me = dist.get_rank(group)
+        res = {}
+        for case, (key, fn) in {
+            "gather0": ("x", lambda x, g: coll.all_gather(x, g, 0)),
+            "gather1": ("x", lambda x, g: coll.all_gather(x, g, 1)),
+            "mean": ("x", coll.all_reduce_mean),
+            "scatter0": ("y", lambda x, g: coll.reduce_scatter(x, g, 0)),
+            "scatter1": ("y", lambda x, g: coll.reduce_scatter(x, g, 1)),
+        }.items():
+            x = torch.from_numpy(payload[key][me]).to(dev).requires_grad_(case[:7] != "scatter")
+            y = fn(x, group)
+            assert y.device == x.device
+            grad = None
+            if x.requires_grad:
+                ct = payload["ct_" + case][mesh.rank][tuple(slice(0, n) for n in y.shape)]
+                (y * torch.from_numpy(ct).to(dev)).sum().backward()
+                grad = x.grad.cpu().numpy()
+            res[case] = (y.detach().cpu().numpy(), grad)
+        out[name] = (me, res)
+    return out
+
+
+def mesh_runs(mesh, payload):
+    """Each run of ``payload["runs"]`` on its own mesh of this process group
+    (``run["mesh"]``, default the spawn's): the port's Trainer from ``run["tree"]`` (the JAX
+    params tree) or from its seed, restored from ``run["ckpt"]`` at
+    ``run["restore"]`` when given, then one step a batch of
+    ``run["batches"]``, each followed by the trainer's save into
+    ``run["ckpt"]`` (cadence ``run["save_every"]``) -> per run (losses,
+    grad norms, the whole params by name as fp32 numpy, their dtypes)."""
+    from orion_tpu_torch.convert import params_from_jax
+    from orion_tpu_torch.training.checkpoint import Checkpointer
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
 
     results = []
     for run in payload["runs"]:
-        cfg = TrainConfig(model=run["model"], mesh=MeshConfig(dp=1, sp=mesh.sp), **payload["kw"])
-        tr = Trainer(cfg, device="cpu", mesh=mesh)
-        load_jax_params(tr.model, run["tree"])
-        losses = [tr.step(torch.from_numpy(b).long())["loss"] for b in payload["batches"]]
-        results.append((losses, {n: p.detach().numpy().copy() for n, p in tr.params.items()}))
+        m = remesh(mesh, run.get("mesh", mesh.cfg))
+        cfg = TrainConfig(model=run["model"], mesh=m.cfg, **{**payload["kw"], **run.get("kw", {})})
+        tr = Trainer(cfg, device="cpu", mesh=m)
+        if run.get("tree") is not None:
+            tr.load_params(params_from_jax(run["tree"], cfg.model))
+        ckpt = (Checkpointer(run["ckpt"], save_every=run.get("save_every", 0))
+                if run.get("ckpt") else None)
+        if run.get("restore") is not None:
+            tr.restore(ckpt, run["restore"])
+        losses, norms = [], []
+        for b in run["batches"]:
+            m_ = tr.step(torch.from_numpy(b).long())
+            losses.append(m_["loss"])
+            norms.append(m_["grad_norm"])
+            if ckpt is not None:
+                tr._save(ckpt, tr.step_count)
+        whole = tr.whole_params()  # numpy: a tensor would travel as a handle to this process
+        results.append((losses, norms, {n: t.float().numpy() for n, t in whole.items()},
+                        {n: str(t.dtype) for n, t in whole.items()}))
     return results
 
 
-__all__ = ["run_ranks", "bodies", "trainer_steps", "TIMEOUT_S"]
+__all__ = ["run_ranks", "raise_on_rank_1", "bodies", "remesh", "collective_cases",
+           "mesh_runs", "TIMEOUT_S"]
