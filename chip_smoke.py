@@ -1,6 +1,6 @@
 """Quickest proof that the PyTorch/CUDA port runs on an NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--part fleet]
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``
 (``$CUDA_HOME/bin`` or on ``PATH``). It imports nothing of JAX or of the JAX
@@ -244,11 +244,30 @@ nonzero and no result line is printed):
    --spec-depth 4`` in a subprocess (exit 0, its stats and speculation
    lines); on lm_1b3 bf16 the fault the row count exists for (the verify
    piece at its own row count): which checks see it, recorded;
-13. a ``kernels`` JSON line (25 entries: the 14 rows, rows 1-10 and 14
+13. the fleet part (``fleet_phase``) on lm_1b3 bf16 at full width and
+   depth, six text prompts of LM_PLAN's lengths, 64 greedy tokens each,
+   host admission: (S) one Server run plain and one with the live
+   endpoints (``metrics_port=0``), a declared latency SLO, cost attribution
+   and a profile directory: /profilez?chunks=4 armed, /metrics, /healthz
+   (200 while serving), /statusz, /slo and /costz read mid-run, tokens
+   bitwise the plain run's, the requests' device_ms adding up to the
+   boundaries' chunk_ms within 1e-6, the torch.profiler trace of the 4
+   chunks holding CUDA kernel events (its device-busy share logged); (F1)
+   the requests routed over two ``LocalReplica`` s (two Servers, two
+   threads) bitwise the Server's, row 1's launches exact (24 a solo
+   prefill x 6); (F2) ``python -m orion_tpu_torch.fleet --config lm_1b3
+   --replicas 2`` with a shared session directory: replica 0's child
+   SIGTERMed once its heartbeat shows a boundary, its turns suspended
+   mid-stream and continued on the other replica, stdout bitwise F1's, the
+   aggregated endpoints read mid-run, exit 0; each child's time to ready
+   logged. ``python3 chip_smoke.py --part fleet`` runs the build, the
+   kernel checks and this part alone;
+14. a ``kernels`` JSON line (25 entries: the 14 rows, rows 1-10 and 14
    once for each variant; rows 1, 3 and 4 also with their launches under
    the options of phase 10, rows 1, 6 and 14 on the serving path, through
    ``SlotEngine``, through the Server, through its stores and through the
-   speculative part), then the result line ``{"ok": true, "device":
+   speculative part, and every row's launches through the in-process fleet,
+   ``launches_fleet``), then the result line ``{"ok": true, "device":
    {...}}`` last.
 """
 
@@ -5654,6 +5673,404 @@ def dp_phase(dev):
                               for r in ranks] for label in ranks[0]}
 
 
+# -- the fleet part: obs on a Server run, then the fleet over it ---------------------------
+#
+# (S) lm_1b3's host greedy Server run with the live endpoints, a declared
+# latency SLO, cost attribution (on by default) and a profile of 4 chunks;
+# (F1) the same requests routed over two LocalReplicas in this process;
+# (F2) the fleet CLI with two process replicas, replica 0 drained mid-stream.
+# The prompts are text lines of LM_PLAN's lengths, so the CLI's stdout can be
+# held against F1's tokens.
+
+FLEET_NEW = 64  # new tokens a request: 4 boundaries of 16
+FLEET_SLO = ({"name": "turn_latency", "kind": "latency", "latency_ms": 5000.0, "target": 0.99},)
+PROFILE_CHUNKS = 4
+CONSERVATION = 1e-6  # |sum(device_ms) - sum(chunk_ms)| / sum(chunk_ms), the reference's
+
+
+def fleet_lines(plan=LM_PLAN):
+    """One lowercase text line a request of ``plan``, its length the plan's
+    prompt length (the byte tokenizer: a token a byte)."""
+    rng = np.random.default_rng(13)
+    return ["".join(chr(c) for c in rng.integers(97, 123, n)) for n, _ in plan]
+
+
+def _fleet_requests(lines):
+    from orion_tpu_torch.generate import SampleConfig
+    from orion_tpu_torch.serving import DecodeRequest
+    from orion_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    tok, greedy = ByteTokenizer(), SampleConfig(temperature=0.0)
+    return [DecodeRequest(np.asarray([tok.encode(ln)], np.int64), FLEET_NEW, greedy, seed=i)
+            for i, ln in enumerate(lines)]
+
+
+def _http_get(url, timeout=10.0):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    except OSError as e:  # refused, reset, timed out: no answer
+        return 0, f"{type(e).__name__}: {e}"
+
+
+def busy_share(trace_path):
+    """(CUDA kernel events, the union of their and the copies' intervals over
+    the trace's span, the span ms) of a torch.profiler Chrome trace."""
+    events = [e for e in json.loads(Path(trace_path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    if not events:
+        return 0, 0.0, 0.0
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, end = 0.0, lo
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return kernels, busy / (hi - lo) if hi > lo else 0.0, (hi - lo) / 1e3
+
+
+def obs_server_check(model, lines, card, tmp):
+    """(S) The plan's requests through one Server twice, by host admission:
+    plain (no endpoint, no SLO, no cost), then with the live endpoints
+    (``metrics_port=0``), a declared latency SLO, cost on and a profile
+    directory. /profilez?chunks=4 is armed before the loop; /metrics,
+    /healthz (200 while serving), /statusz, /slo and /costz are read once
+    mid-run from another thread. Tokens bitwise the plain run's; the
+    requests' device_ms add up to the boundaries' chunk_ms within 1e-6; the
+    profile holds CUDA kernel events, and its device-busy share is logged.
+    -> (plain tokens, readings)."""
+    from orion_tpu_torch.serving import Server
+
+    reqs = _fleet_requests(lines)
+    gc.collect()
+    srv = Server(model, _server_config("host", max_inflight=len(reqs), cost=False))
+    ps = [srv.submit(r) for r in reqs]
+    t0 = time.perf_counter()
+    srv.serve(drain_when_idle=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain = [p.result.tokens[0].tolist() for p in ps]
+    srv.close()
+    del srv, ps
+    gc.collect()
+    srv = Server(model, _server_config("host", max_inflight=len(reqs), metrics_port=0,
+                                       slo=FLEET_SLO, profile_dir=str(tmp / "prof")))
+    url = f"http://127.0.0.1:{srv.http_port}"
+    armed = _http_get(f"{url}/profilez?chunks={PROFILE_CHUNKS}")
+    ps = [srv.submit(r) for r in reqs]
+    mid = {}
+
+    def scrape():
+        deadline = time.monotonic() + 300
+        while srv.stats["chunks"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.002)
+        for route in ("/metrics", "/healthz", "/statusz", "/slo", "/costz"):
+            code, body = _http_get(url + route)
+            mid[route] = (code, len(body), body)
+        mid["at_chunk"] = srv.stats["chunks"]
+
+    reader = threading.Thread(target=scrape)
+    reader.start()
+    t0 = time.perf_counter()
+    srv.serve(drain_when_idle=True)
+    torch.cuda.synchronize()
+    obs_s = time.perf_counter() - t0
+    reader.join(timeout=300)
+    got = [p.result.tokens[0].tolist() for p in ps]
+    cell = srv._h_chunk_ms.cell_total()
+    attributed = sum(p.result.device_ms for p in ps)
+    residual = abs(attributed - cell["sum"]) / cell["sum"]
+    stop = [e for e in srv.flight.events("profile") if e.get("event") == "stop"]
+    t_parse = time.perf_counter()
+    kernels, share, span_ms = busy_share(stop[0]["artifact"]) if stop else (0, 0.0, 0.0)
+    parse_s = time.perf_counter() - t_parse
+    trace_mb = Path(stop[0]["artifact"]).stat().st_size / 2**20 if stop else 0.0
+    slo_doc = json.loads(mid["/slo"][2]) if "/slo" in mid else {}
+    res = {"plain_s": plain_s, "obs_s": obs_s, "tokens_equal": got == plain,
+           "armed": armed[0], "mid_chunk": mid.get("at_chunk"),
+           "mid": {k: v[:2] for k, v in mid.items() if k.startswith("/")},
+           "conservation": residual, "chunk_ms_sum": cell["sum"], "device_ms_sum": attributed,
+           "prefill_tokens": [p.result.prefill_tokens for p in ps],
+           "decode_tokens": [p.result.decode_tokens for p in ps],
+           "profile_kernels": kernels, "profile_busy_share": share, "profile_span_ms": span_ms,
+           "profile_chunks": PROFILE_CHUNKS, "profile_trace_mb": trace_mb,
+           "profile_stop_ms": stop[0].get("stop_ms") if stop else None,
+           "profile_export_ms": stop[0].get("export_ms") if stop else None,
+           "profile_parse_s": parse_s,
+           "slo_objectives": sorted((slo_doc.get("objectives") or {}))}
+    log(f"lm_1b3 Server with obs ({card}): the plan's {len(reqs)} requests x {FLEET_NEW} tokens "
+        f"in {obs_s:.2f} s against {plain_s:.2f} s plain; tokens bitwise the plain run's: "
+        f"{res['tokens_equal']}; endpoints read at boundary {res['mid_chunk']}: {res['mid']}; "
+        f"/profilez armed ({armed[0]}); device_ms {attributed:.3f} against chunk_ms "
+        f"{cell['sum']:.3f} (residual {residual:.3e}, limit {CONSERVATION}); profile of "
+        f"{PROFILE_CHUNKS} chunks: {kernels} CUDA kernel events, device busy "
+        f"{share:.4f} of {span_ms:.1f} ms; the capture's stop {res['profile_stop_ms']} ms, "
+        f"its export {res['profile_export_ms']} ms ({trace_mb:.1f} MiB), this parse "
+        f"{parse_s:.2f} s")
+    srv.close()
+    if not (res["tokens_equal"] and armed[0] == 200 and mid.get("/healthz", (0,))[0] == 200
+            and all(mid.get(r, (0,))[0] == 200 for r in ("/metrics", "/statusz", "/slo",
+                                                          "/costz"))
+            and "chunk_ms_bucket" in mid["/metrics"][2]
+            and res["slo_objectives"] == ["turn_latency"] and residual < CONSERVATION
+            and kernels > 0 and 0.0 < share <= 1.0):
+        raise AssertionError(f"lm_1b3 Server with obs misbehaved: {res}")
+    return plain, plain_s, res
+
+
+def local_fleet_check(mods, model, reqs, card):
+    """(F1) The requests routed over two LocalReplicas of the model (two
+    Servers on two threads of this process, host admission), row 1's
+    launches exact (24 linear layers x a solo prefill a request) under the
+    two threads. -> (tokens, readings); the tokens are held against the
+    Server's by ``fleet_phase``."""
+    from orion_tpu_torch.fleet import LocalReplica, Supervisor
+
+    cfg = _server_config("host", max_inflight=len(reqs))
+    gc.collect()
+    sup = Supervisor(lambda name: LocalReplica(model, cfg, name=name).start(), 2).start()
+    try:
+        _reset_counts(mods)
+        t0 = time.perf_counter()
+        ps = [sup.router.submit(r) for r in reqs]
+        for p in ps:
+            if not p.done.wait(timeout=600):
+                raise AssertionError("a fleet request never resolved")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts(mods)
+        served = {r.name: r.server.stats["ok"] for r in sup.replicas}
+    finally:
+        sup.drain_all(timeout=120)
+    lin, _, _, _ = _layer_counts(model.cfg)
+    want = dict.fromkeys(KERNELS, 0)
+    want["causal_dot_norm_wgmma"] = lin * len(reqs)
+    res = {"launches": counts, "want": want, "served": served, "wall_s": wall,
+           "tokens_per_s": len(reqs) * FLEET_NEW / wall,
+           "statuses": [p.result.status for p in ps]}
+    log(f"lm_1b3 fleet of two LocalReplicas ({card}): {len(reqs)} requests routed {served} in "
+        f"{wall:.2f} s ({res['tokens_per_s']:.1f} tok/s); launches "
+        f"{dict((k, v) for k, v in counts.items() if v)}, want {want['causal_dot_norm_wgmma']} "
+        "of row 1")
+    if counts != want or min(served.values()) < 1 or set(res["statuses"]) != {"ok"}:
+        raise AssertionError(f"the in-process fleet misbehaved: {res}")
+    return [p.result.tokens[0].tolist() for p in ps], res
+
+
+def _children(pid):
+    """(start time, pid) of the fleet's replica children of ``pid``, oldest
+    first (the supervisor spawns replica 0 first)."""
+    out = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text()
+            cmd = (d / "cmdline").read_bytes().decode(errors="replace")
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[1]) == pid and "orion_tpu_torch.fleet._child" in cmd:
+            out.append((int(fields[19]), int(d.name)))
+    return sorted(out)
+
+
+def fleet_monitor(cli_pid, err_path, out_path, timeout):
+    """The F2 monitor, a process of its own (this script spawned), so that
+    nothing this process does while the CLI serves (a profile's export, a
+    trace's parse, both holding the interpreter lock for seconds) can delay
+    the drain: tail the CLI's stderr file, stamping each line with the wall
+    clock; once the telemetry line names the port, poll the aggregated
+    /metrics.json until replica 0's heartbeat shows a boundary, then read
+    /metrics, /healthz, /statusz and /slo and SIGTERM replica 0's child (the
+    oldest child of the CLI). Runs until the CLI is gone; writes
+    ``{"lines": [[t, line], ...], "mid": {...}}`` to ``out_path``."""
+    lines, mid, port, pos, buf = [], {}, None, 0, ""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        alive = Path(f"/proc/{cli_pid}").exists()
+        try:
+            with open(err_path, encoding="utf-8", errors="replace") as f:
+                f.seek(pos)
+                buf += f.read()
+                pos = f.tell()
+        except OSError:
+            pass
+        *done, buf = buf.split("\n")
+        now = time.time()
+        for line in done:
+            lines.append([now, line])
+            if port is None and "fleet telemetry: http://127.0.0.1:" in line:
+                port = int(line.split("http://127.0.0.1:")[1].split("/")[0])
+        if not alive:
+            break
+        if port is not None and "sigterm_at" not in mid:
+            url = f"http://127.0.0.1:{port}"
+            code, body = _http_get(url + "/metrics.json")
+            src = json.loads(body).get("by_source", {}) if code == 200 else {}
+            chunks = sum(c["value"] for c in (src.get("replica-0.g1") or {}).get("counters", ())
+                         if c["name"] == "chunks" and not c["labels"])
+            kids = _children(cli_pid)
+            if chunks >= 1 and kids:
+                for route in ("/metrics", "/healthz", "/statusz", "/slo"):
+                    c, b = _http_get(url + route)
+                    mid[route] = (c, len(b))
+                mid.update(children=len(kids), replica_0_chunks=chunks, sigterm_at=time.time())
+                os.kill(kids[0][1], signal.SIGTERM)
+        time.sleep(0.02)
+    Path(out_path).write_text(json.dumps({"lines": lines, "mid": mid}))
+
+
+class FleetCLI:
+    """(F2) ``python -m orion_tpu_torch.fleet --config lm_1b3 --replicas 2
+    --temperature 0 --metrics-port 0`` with a shared ``--session-dir`` (the
+    lines as turns of sessions), the Server's knobs (4 slots, chunk 16, host
+    admission) and a 0.1 s heartbeat, started in the background
+    (:meth:`start`) so its children start while this process serves S and
+    F1; ``fleet_monitor`` drains replica 0 mid-stream from a process of its
+    own. :meth:`finish` waits for the exit and holds it: stdout bitwise the
+    lines of ``tokens`` (F1's), a continuation on a replica other than 0
+    with 0 < its tokens < 64, the aggregated endpoints 200 mid-run, exit 0.
+    Readings: each child's time to ready, the wall time."""
+
+    def __init__(self, lines, card, tmp, device_args=(), timeout=600):
+        self.lines, self.card, self.timeout, self.tmp = lines, card, timeout, tmp
+        pf = tmp / "prompts.txt"
+        pf.write_text("".join(ln + "\n" for ln in lines))
+        self.cmd = [sys.executable, "-m", "orion_tpu_torch.fleet", "--config", "lm_1b3",
+                    "--replicas", "2", "--temperature", "0", "--metrics-port", "0",
+                    "--session-dir", str(tmp / "sessions"), "--session-id", "fleet", "--slots",
+                    str(SERVE_SLOTS), "--chunk", str(SERVE_CHUNK), "--prefill-chunk", "0",
+                    "--prefill-buckets", "off", "--max-new-tokens", str(FLEET_NEW),
+                    "--heartbeat-s", "0.1", "--prompts-file", str(pf), *device_args]
+
+    def start(self):
+        self.t0 = time.time()
+        self.out_f = open(self.tmp / "cli.out", "w", encoding="utf-8")
+        self.err_f = open(self.tmp / "cli.err", "w", encoding="utf-8")
+        self.proc = subprocess.Popen(
+            self.cmd, stdin=subprocess.DEVNULL, stdout=self.out_f, stderr=self.err_f,
+            cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT), PYTHONIOENCODING="utf-8"))
+        self.monitor = torch.multiprocessing.get_context("spawn").Process(
+            target=fleet_monitor, args=(self.proc.pid, str(self.tmp / "cli.err"),
+                                        str(self.tmp / "monitor.json"), self.timeout))
+        self.monitor.start()
+        return self
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        if self.monitor.is_alive():
+            self.monitor.kill()
+
+    def finish(self, tokens):
+        from orion_tpu_torch.utils.tokenizer import ByteTokenizer
+
+        try:
+            self.proc.wait(timeout=self.timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.monitor.join(timeout=60)
+            if self.monitor.is_alive():
+                self.monitor.kill()
+                self.monitor.join()
+            self.out_f.close()
+            self.err_f.close()
+        wall = time.time() - self.t0
+        mon = json.loads((self.tmp / "monitor.json").read_text())
+        err = [(t - self.t0, ln) for t, ln in mon["lines"]]
+        mid = dict(mon["mid"])
+        if "sigterm_at" in mid:
+            mid["sigterm_at_s"] = mid.pop("sigterm_at") - self.t0
+        tok = ByteTokenizer()
+        want = "".join(ln + tok.decode(t) + "\n" for ln, t in zip(self.lines, tokens))
+        out = (self.tmp / "cli.out").read_text(encoding="utf-8")
+        # the supervisor spawns one replica at a time: the first from the
+        # CLI's start (its own imports included), the second after the first,
+        # the respawn after the supervisor saw replica 0 exit (each stamped
+        # when the monitor read it: within 20 ms)
+        spawned = [(t, ln.split()[1].rstrip(":")) for t, ln in err
+                   if ln.startswith("[fleet] ") and ln.endswith(": spawned")]
+        exited = [t for t, ln in err if "exited; respawning" in ln]
+        starts = [0.0] + [t for t, _ in spawned[:1]] + exited[:1]
+        ready = {name: t - start for (t, name), start in zip(spawned, starts)}
+        conts = [ln for _, ln in err if "continued after a drain" in ln]
+        owed = [int(ln.split(", ")[1].split()[0]) for ln in conts]
+        rc = self.proc.returncode
+        res = {"rc": rc, "wall_s": wall, "stdout_equal": out == want, "ready_s": ready,
+               "mid": mid, "continuations": conts, "owed": owed}
+        log(f"fleet CLI (lm_1b3, 2 process replicas, {self.card}): exit {rc} in {wall:.1f} s "
+            f"wall; each child's time to ready {ready} s; mid-run (aggregated) {mid}; replica 0 "
+            f"SIGTERMed, continuations {conts}; stdout bitwise the in-process fleet's: "
+            f"{res['stdout_equal']}")
+        if not (rc == 0 and res["stdout_equal"] and conts
+                and all("replica-0.g1" not in c for c in conts)
+                and any(0 < n < FLEET_NEW for n in owed)
+                and mid.get("/healthz", (0,))[0] == 200
+                and all(mid.get(r, (0,))[0] == 200 for r in ("/metrics", "/statusz", "/slo"))):
+            tail = "\n".join(ln for _, ln in err[-40:])
+            raise AssertionError(f"the fleet CLI misbehaved: {res}; stderr tail:\n{tail}")
+        return res
+
+
+def fleet_phase(dev, mods, card, device_args=()):
+    """S, F1 and F2 on lm_1b3 bf16 at full width and depth (seeded weights,
+    as the CLI's children build them), in a temporary directory. F2's CLI
+    starts first, so its children start while F1 and S run here; F1 then S
+    in this process; F1's tokens bitwise S's plain Server run's; then F2's
+    exit, its stdout held against F1's tokens. The readings of F1 and S
+    overlap the children's start-up (imports, CUDA contexts); the children
+    serve after S's profiled chunks."""
+    import tempfile
+
+    from orion_tpu_torch.generate import cast_params_for_inference
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.models.transformer import TransformerLM
+
+    t0 = time.perf_counter()
+    model = cast_params_for_inference(TransformerLM(
+        get_config("lm_1b3"), device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    lines = fleet_lines()
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        cli = FleetCLI(lines, card, tmp, device_args=device_args).start()
+        try:
+            tokens, res["local"] = local_fleet_check(mods, model, _fleet_requests(lines), card)
+            t1 = time.perf_counter()
+            plain, plain_s, res["obs"] = obs_server_check(model, lines, card, tmp)
+            res["obs"]["phase_s"] = time.perf_counter() - t1
+        except BaseException:
+            cli.kill()
+            raise
+        res["local"]["tokens_equal"] = tokens == plain
+        res["local"]["server_tokens_per_s"] = len(lines) * FLEET_NEW / plain_s
+        log(f"lm_1b3 fleet of two LocalReplicas: tokens bitwise the Server's: "
+            f"{res['local']['tokens_equal']}; {res['local']['tokens_per_s']:.1f} tok/s against "
+            f"one Server's {res['local']['server_tokens_per_s']:.1f} ({card})")
+        if not res["local"]["tokens_equal"]:
+            raise AssertionError("the in-process fleet's tokens differ from the Server's")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["cli"] = cli.finish(tokens)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"fleet part: F1 {res['local']['wall_s']:.1f} s, S {res['obs']['phase_s']:.1f} s, F2's "
+        f"CLI {res['cli']['wall_s']:.1f} s from F1's start; the part {res['phase_s']:.1f} s")
+    return res
+
+
 def checkout_package():
     """The ``orion_tpu_torch`` beside this script, or None: a copy of the
     script alone in a directory finds none (or, through ``PYTHONPATH``,
@@ -5666,7 +6083,13 @@ def checkout_package():
     return pkg if pkg == ROOT / "orion_tpu_torch" else None
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser("chip_smoke.py")
+    ap.add_argument("--part", choices=("all", "fleet"), default="all",
+                    help="fleet: the build, the kernel checks and the fleet part alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
         return 1
@@ -5694,6 +6117,12 @@ def main() -> int:
     kernels += check_adafactor(adafactor, dev)
     log(f"kernel phases done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    if args.part == "fleet":
+        fleet = fleet_phase(dev, mods, card)
+        log(f"fleet phases done at {time.perf_counter() - t0:.1f} s")
+        for k in kernels:  # the main path of this part: the in-process fleet
+            k["launches"] = k["launches_fleet"] = fleet["local"]["launches"][k["name"]]
+        return _finish(card, kernels)
     # sequence parallelism: ranks as processes sharing this card
     sp_lines, sp_memory = sp_phase(causal_dot, flash_attention, dev)
     log(f"sp phases done at {time.perf_counter() - t0:.1f} s; transport and peak memory a rank: "
@@ -5830,6 +6259,8 @@ def main() -> int:
                                             "stores", "spec", "spec_full"), server_runs=host),
     }
     log(f"serving phases done at {time.perf_counter() - t0:.1f} s")
+    fleet = fleet_phase(dev, mods, card)
+    log(f"fleet phases done at {time.perf_counter() - t0:.1f} s")
 
     for k in kernels:
         if k["name"] in ("causal_dot_wgmma", "causal_dot_rev_wgmma"):  # the public op at D 128
@@ -5900,9 +6331,16 @@ def main() -> int:
             k["launches_spec"] = {label: {run: c[k["name"]]
                                           for run, c in r["spec"]["launches"].items()}
                                   for label, r in serving.items()}
+    for k in kernels:  # the requests routed over two LocalReplicas (row 1: 24 x 6)
+        k["launches_fleet"] = fleet["local"]["launches"][k["name"]]
     kernels += sp_lines  # launches: the sp training runs' totals over the ranks
     for k in kernels:  # each kernel's launches over the dp part's steps and ranks
         k["launches_dp"] = dp_launches.get(k["name"], 0)
+    return _finish(card, kernels)
+
+
+def _finish(card, kernels) -> int:
+    """The card line, the kernels line, the result line last."""
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from orion_tpu_torch.ops.dispatch import resolve
-from orion_tpu_torch.ops.kernels.library import CSRC, load
+from orion_tpu_torch.ops.kernels.library import COUNT_LOCK, CSRC, load
 from orion_tpu_torch.ops.kernels.library import stream as _stream
 
 Tensor = torch.Tensor
@@ -204,7 +204,8 @@ def adafactor_sums_cuda(g: Tensor, s2: Tensor, eps: float) -> Tuple[Tensor, Tens
             sums.data_ptr(), m, n, _vec(n, g), _stream(g.device))
     if err != 0:
         raise RuntimeError(f"adafactor sums kernel failed: cudaError_t {err}")
-    launches_sums += 2  # af_sums_tile, af_sums_finalize
+    with COUNT_LOCK:
+        launches_sums += 2  # af_sums_tile, af_sums_finalize
     return sums[:n], sums[n:]
 
 
@@ -229,7 +230,8 @@ def adafactor_rms_cuda(g: Tensor, r: Tensor, c: Tensor) -> Tensor:
             _vec(n, g), _stream(g.device))
     if err != 0:
         raise RuntimeError(f"adafactor rms kernel failed: cudaError_t {err}")
-    launches_rms += 2  # af_rms_tile, af_rms_finalize
+    with COUNT_LOCK:
+        launches_rms += 2  # af_rms_tile, af_rms_finalize
     return out
 
 
@@ -257,7 +259,8 @@ def adafactor_apply_cuda(g: Tensor, p: Tensor, r: Tensor, c: Tensor, flag: Tenso
             _vec(n, g, p), _stream(g.device))
     if err != 0:
         raise RuntimeError(f"adafactor apply kernel failed: cudaError_t {err}")
-    launches_apply += 1
+    with COUNT_LOCK:
+        launches_apply += 1
     return p
 
 

@@ -93,7 +93,8 @@ from typing import Optional, Tuple
 import torch
 
 from orion_tpu_torch.ops.dispatch import DEFAULT_CHUNK, resolve, resolve_chunk
-from orion_tpu_torch.ops.kernels.library import CSRC, check_launch, load, raise_if_grad
+from orion_tpu_torch.ops.kernels.library import (COUNT_LOCK, CSRC, check_launch, load,
+                                                  raise_if_grad)
 from orion_tpu_torch.ops.kernels.library import stream as _stream
 from orion_tpu_torch.ops.linear_attention import _pad_chunks, causal_dot_product_chunked
 
@@ -252,11 +253,12 @@ def causal_dot_norm_cuda(
                 *ptrs, bh, t, dk, dv, int(q.dtype == torch.bfloat16), eps, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"causal_dot_norm kernel ({chosen}) failed: cudaError_t {err}")
-    launches += 1
-    if chosen == "wgmma":
-        launches_wgmma += 1
-    else:
-        launches_simt += 1
+    with COUNT_LOCK:
+        launches += 1
+        if chosen == "wgmma":
+            launches_wgmma += 1
+        else:
+            launches_simt += 1
     return (out, sf, zf, num, den) if with_parts else (out, sf, zf)
 
 
@@ -352,11 +354,12 @@ def causal_dot_dq_den_cuda(
                 *ptrs, bh, t, dk, dv, int(g.dtype == torch.bfloat16), _stream(g.device))
     if err != 0:
         raise RuntimeError(f"causal_dot_dq_den kernel ({chosen}) failed: cudaError_t {err}")
-    launches_dq += 1
-    if chosen == "wgmma":
-        launches_dq_wgmma += 1
-    else:
-        launches_dq_simt += 1
+    with COUNT_LOCK:
+        launches_dq += 1
+        if chosen == "wgmma":
+            launches_dq_wgmma += 1
+        else:
+            launches_dq_simt += 1
     return dq
 
 
@@ -392,11 +395,12 @@ def causal_dot_rev_den_cuda(
                 *ptrs, bh, t, dk, dv, int(q.dtype == torch.bfloat16), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"causal_dot_rev_den kernel ({chosen}) failed: cudaError_t {err}")
-    launches_rev += 1
-    if chosen == "wgmma":
-        launches_rev_wgmma += 1
-    else:
-        launches_rev_simt += 1
+    with COUNT_LOCK:
+        launches_rev += 1
+        if chosen == "wgmma":
+            launches_rev_wgmma += 1
+        else:
+            launches_rev_simt += 1
     return dk_out, dv_out, ds0, dz0
 
 
@@ -547,11 +551,12 @@ def causal_dot_cuda(q: Tensor, k: Tensor, v: Tensor, s0: Optional[Tensor] = None
                                      _stream(q.device))
     if err != 0:
         raise RuntimeError(f"causal_dot kernel ({chosen}) failed: cudaError_t {err}")
-    launches_raw += 1
-    if chosen == "wgmma":
-        launches_raw_wgmma += 1
-    else:
-        launches_raw_simt += 1
+    with COUNT_LOCK:
+        launches_raw += 1
+        if chosen == "wgmma":
+            launches_raw_wgmma += 1
+        else:
+            launches_raw_simt += 1
     return out, sf if with_state else None
 
 
@@ -600,11 +605,12 @@ def causal_dot_rev_cuda(q: Tensor, k: Tensor, v: Tensor, g: Tensor,
                                      _stream(q.device))
     if err != 0:
         raise RuntimeError(f"causal_dot_rev kernel ({chosen}) failed: cudaError_t {err}")
-    launches_raw_rev += 1
-    if chosen == "wgmma":
-        launches_raw_rev_wgmma += 1
-    else:
-        launches_raw_rev_simt += 1
+    with COUNT_LOCK:
+        launches_raw_rev += 1
+        if chosen == "wgmma":
+            launches_raw_rev_wgmma += 1
+        else:
+            launches_raw_rev_simt += 1
     return dk_out, dv_out, ds0
 
 

@@ -65,7 +65,8 @@ from typing import Optional, Tuple
 import torch
 
 from orion_tpu_torch.ops.dispatch import resolve
-from orion_tpu_torch.ops.kernels.library import CSRC, check_launch, load, raise_if_grad
+from orion_tpu_torch.ops.kernels.library import (COUNT_LOCK, CSRC, check_launch, load,
+                                                  raise_if_grad)
 from orion_tpu_torch.ops.kernels.library import stream as _stream
 
 Tensor = torch.Tensor
@@ -208,12 +209,13 @@ def flash_fwd_cuda(
                 *_args(causal, window, shift, q_offset), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_attention forward kernel ({chosen}) failed: cudaError_t {err}")
-    launches_fwd += 1
-    launches_fwd_sp += bool(shift or q_offset)
-    if chosen == "wgmma":
-        launches_fwd_wgmma += 1
-    else:
-        launches_fwd_simt += 1
+    with COUNT_LOCK:
+        launches_fwd += 1
+        launches_fwd_sp += bool(shift or q_offset)
+        if chosen == "wgmma":
+            launches_fwd_wgmma += 1
+        else:
+            launches_fwd_simt += 1
     return out, lse
 
 
@@ -299,12 +301,13 @@ def flash_dq_cuda(
     dq = torch.empty_like(q)
     chosen = _launch_bwd("flash_attention_dq", q, k, v, g, lse, delta, [dq], causal, window, scale,
                          shift, q_offset)
-    launches_dq += 1
-    launches_dq_sp += bool(shift or q_offset)
-    if chosen == "wgmma":
-        launches_dq_wgmma += 1
-    else:
-        launches_dq_simt += 1
+    with COUNT_LOCK:
+        launches_dq += 1
+        launches_dq_sp += bool(shift or q_offset)
+        if chosen == "wgmma":
+            launches_dq_wgmma += 1
+        else:
+            launches_dq_simt += 1
     return dq
 
 
@@ -319,12 +322,13 @@ def flash_dkv_cuda(
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     chosen = _launch_bwd("flash_attention_dkv", q, k, v, g, lse, delta, [dk, dv], causal, window,
                          scale, shift, q_offset)
-    launches_dkv += 1
-    launches_dkv_sp += bool(shift or q_offset)
-    if chosen == "wgmma":
-        launches_dkv_wgmma += 1
-    else:
-        launches_dkv_simt += 1
+    with COUNT_LOCK:
+        launches_dkv += 1
+        launches_dkv_sp += bool(shift or q_offset)
+        if chosen == "wgmma":
+            launches_dkv_wgmma += 1
+        else:
+            launches_dkv_simt += 1
     return dk, dv
 
 

@@ -53,7 +53,8 @@ from typing import Tuple
 import torch
 
 from orion_tpu_torch.ops.dispatch import resolve
-from orion_tpu_torch.ops.kernels.library import CSRC, check_launch, load, raise_if_grad
+from orion_tpu_torch.ops.kernels.library import (COUNT_LOCK, CSRC, check_launch, load,
+                                                  raise_if_grad)
 from orion_tpu_torch.ops.kernels.library import stream as _stream
 
 Tensor = torch.Tensor
@@ -200,11 +201,12 @@ def gmm_cuda(x: Tensor, w: Tensor, tile_expert: Tensor, transpose_w: bool = Fals
             err = _library().gmm_fwd(*args, int(x.dtype == torch.bfloat16), _stream(x.device))
     if err != 0:
         raise RuntimeError(f"gmm forward kernel ({chosen}) failed: cudaError_t {err}")
-    launches_fwd += 1
-    if chosen == "wgmma":
-        launches_fwd_wgmma += 1
-    else:
-        launches_fwd_simt += 1
+    with COUNT_LOCK:
+        launches_fwd += 1
+        if chosen == "wgmma":
+            launches_fwd_wgmma += 1
+        else:
+            launches_fwd_simt += 1
     return y
 
 
@@ -259,11 +261,12 @@ def gmm_dw_cuda(x: Tensor, g: Tensor, tile_expert: Tensor, n_experts: int) -> Te
                                     int(x.dtype == torch.bfloat16), _stream(x.device))
     if err != 0:
         raise RuntimeError(f"gmm dw kernel ({chosen}) failed: cudaError_t {err}")
-    launches_dw += 1
-    if chosen == "wgmma":
-        launches_dw_wgmma += 1
-    else:
-        launches_dw_simt += 1
+    with COUNT_LOCK:
+        launches_dw += 1
+        if chosen == "wgmma":
+            launches_dw_wgmma += 1
+        else:
+            launches_dw_simt += 1
     return dw
 
 

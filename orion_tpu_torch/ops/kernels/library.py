@@ -7,6 +7,10 @@ of the headers it includes (``csrc/hopper.cuh``; an edit of either is
 rebuilt), and loaded with ``ctypes``. The kernel wrappers
 (``causal_dot.py``, ``flash_attention.py``) keep their own ``SOURCES`` and
 call signatures; nothing here touches CUDA while the module is imported.
+
+``COUNT_LOCK`` guards every wrapper's launch counts: two engines serving from
+two threads of one process (the fleet's ``LocalReplica``) launch through the
+same wrappers, and a count read after a run must be exact.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -26,6 +31,8 @@ import torch
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
+# held while a wrapper adds its launch to its module's counts
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:

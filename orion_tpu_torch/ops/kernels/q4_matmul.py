@@ -53,7 +53,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from orion_tpu_torch.ops.kernels.library import CSRC, check_launch, load, raise_if_grad
+from orion_tpu_torch.ops.kernels.library import (COUNT_LOCK, CSRC, check_launch, load,
+                                                  raise_if_grad)
 
 Tensor = torch.Tensor
 
@@ -206,7 +207,8 @@ def q4_matmul_cuda(x: Tensor, p: Tensor, s: Tensor) -> Tensor:
     if err != 0:
         raise RuntimeError(f"q4_matmul kernel ({'mma' if mma else 'simt'}) failed: "
                            f"cudaError_t {err}")
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     if mma:
         launches_mma += 1
     else:

@@ -52,6 +52,15 @@ Sites wired in the port:
                           retried read of one candidate generation (step = the
                           generation number): a fault here falls back to a
                           cold prefill, never fails the request
+``"fleet.dispatch"``      ``fleet/router.py`` ``Router.submit``, before each
+                          replica-placement attempt (step = the fleet-wide
+                          dispatch ordinal): a fault here fails over to the
+                          next candidate replica
+``"fleet.replica_spawn"`` ``fleet/supervisor.py`` replica spawn, inside the
+                          retry region (step = the spawn ordinal)
+``"fleet.control_io"``    ``fleet/replica.py`` ``ProcessReplica``'s control
+                          channel writes (parent side): an injected OSError
+                          models a broken pipe to a dead child
 ========================  ====================================================
 
 Besides one-shot faults, :meth:`FaultPlan.degrade_site` arms a SUSTAINED
@@ -70,8 +79,8 @@ injected fault leaves the black box without a trace.
 
 Left out, with the ROADMAP.md item that brings each: the training,
 checkpoint-save and data sites with the checkpoint damage helpers
-(``corrupt_step``, ``truncate_step``: A9), the executable store's sites
-(``serve.exec_*``: A13) and the fleet's (``fleet.*``: A9).
+(``corrupt_step``, ``truncate_step``: A9b) and the executable store's sites
+(``serve.exec_*``: A13).
 """
 
 from __future__ import annotations
@@ -107,6 +116,12 @@ SITES = {
                          "prefix generation",
     "serve.prefix_load": "serving/prefix_store.py lookup, inside the retried read of one "
                          "candidate generation",
+    "fleet.dispatch": "fleet/router.py submit, before each placement attempt (step = fleet-wide "
+                      "dispatch ordinal)",
+    "fleet.replica_spawn": "fleet/supervisor.py _spawn, inside the spawn retry region (step = "
+                           "spawn ordinal)",
+    "fleet.control_io": "fleet/replica.py control-channel write (parent side), before the pipe "
+                        "I/O",
 }
 
 

@@ -31,12 +31,17 @@ the plain walk's, bitwise), ``--spec-min-accept`` floors a slot whose rolling
 acceptance falls below it; a ``speculation:`` line on stderr counts the
 drafts accepted and rejected and the floors.
 
-The reference's flags for parts the port does not serve yet are accepted
-and refused with ``NotImplementedError`` naming their ROADMAP.md item when
-set: ``--tp`` (A12), ``--metrics-port``,
-``--slo-latency-ms``, ``--slo-target``, ``--profile-dir`` (A9). The port
-computes no cost attribution (A9), so the reference's ``--no-cost`` and
-``--no-cost-ledger`` have nothing to turn off and are not flags here.
+Telemetry: ``--metrics-port`` serves ``/metrics``, ``/healthz``,
+``/statusz``, ``/slo``, ``/costz`` and ``/profilez?chunks=K`` live (0 = an
+ephemeral port, printed on stderr); ``--slo-latency-ms`` declares a per-turn
+latency objective (with error-rate and availability ones at
+``--slo-target``), which arms the SLO actuation; cost attribution is on
+unless ``--no-cost`` (a ``cost:`` line on stderr); ``--profile-dir`` lets
+``/profilez`` record the next K boundaries with ``torch.profiler``.
+
+The reference's ``--tp`` is accepted and refused with ``NotImplementedError``
+naming its ROADMAP.md item (A12) when set. ``--no-cost-ledger`` is accepted:
+the port has no ledger harvest to skip until A13.
 """
 
 from __future__ import annotations
@@ -61,11 +66,21 @@ from orion_tpu_torch.utils.device import resolve_device
 # the reference's flags for what is not ported: (flag, type, default, item)
 _NOT_PORTED_FLAGS = (
     ("--tp", int, 0, "A12"),
-    ("--metrics-port", int, -1, "A9"),
-    ("--slo-latency-ms", float, 0.0, "A9"),
-    ("--slo-target", float, 0.99, "A9"),
-    ("--profile-dir", str, None, "A9"),
 )
+
+
+def slo_objectives(latency_ms: float, target: float):
+    """The objectives ``--slo-latency-ms`` declares (JSON-able Objective
+    kwargs): per-turn latency, error rate and availability at ``target``;
+    None for 0 (the observe-only defaults). The SLOEngine refuses a latency
+    at or above the histogram's last finite bucket (10000 ms): turns past it
+    are unresolvable and would all score bad."""
+    if latency_ms <= 0:
+        return None
+    return ({"name": "turn_latency", "kind": "latency", "latency_ms": latency_ms,
+             "target": target},
+            {"name": "error_rate", "kind": "error_rate", "target": target},
+            {"name": "availability", "kind": "availability", "target": target})
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -150,6 +165,34 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--flight-dir", default=None,
                    help="flight-recorder dump directory (DEGRADED / DRAINING / DEAD, ladder "
                         "exhaustion, watchdog stalls)")
+    p.add_argument("--metrics-port", type=int, default=-1,
+                   help="serve LIVE /metrics (Prometheus text), /healthz (its status code tracks "
+                        "the health state), /statusz, /slo, /costz and /profilez?chunks=K on "
+                        "this port from a daemon thread (0 = ephemeral, printed on stderr; -1 = "
+                        "off); every scrape reads host state only")
+    p.add_argument("--slo-latency-ms", type=float, default=0.0,
+                   help="declare a per-turn latency SLO: --slo-target of turns under this many "
+                        "ms (plus error-rate and availability objectives at --slo-target); arms "
+                        "actuation: a lasting fast burn degrades health and sheds admissions "
+                        "earlier. Below 10000 (the latency histogram's last finite bucket). 0 = "
+                        "observe-only defaults")
+    p.add_argument("--slo-target", type=float, default=0.99,
+                   help="good-event fraction each declared objective promises (error budget = "
+                        "1 - target)")
+    p.add_argument("--no-cost", action="store_true",
+                   help="disable per-request cost attribution and the capacity model (on by "
+                        "default: every result carries its device_ms / flops share, /costz and "
+                        "/statusz report the tokens/s ceiling and headroom; host arithmetic at "
+                        "boundaries)")
+    p.add_argument("--no-cost-ledger", action="store_true",
+                   help="accepted for the reference's command lines; the port has no ledger "
+                        "harvest (compiled programs' flops and bytes) until ROADMAP.md A13, so "
+                        "there is nothing to skip: attribution weighs by token counts and flops "
+                        "are the analytic 2 x params")
+    p.add_argument("--profile-dir", default=None,
+                   help="arm-able on-demand torch.profiler capture: GET /profilez?chunks=K (or "
+                        "Server.arm_profile) records the next K boundaries into a Chrome trace "
+                        "under this directory; off by default")
     p.add_argument("--temperature", type=float, default=0.8)
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--top-p", type=float, default=1.0)
@@ -232,6 +275,7 @@ def _run(args, guard) -> int:
         return 2
 
     sample = SampleConfig(args.temperature, args.top_k, args.top_p, eos_token=eos_token)
+    slo_cfg = slo_objectives(args.slo_latency_ms, args.slo_target)
     server = Server(model, ServeConfig(
         chunk=args.chunk, slots=args.slots, max_inflight=args.max_inflight,
         deadline_ms=args.deadline_ms, stall_timeout=args.stall_timeout, grace=args.grace,
@@ -243,8 +287,12 @@ def _run(args, guard) -> int:
         breaker_backoff=args.breaker_backoff, breaker_max_backoff=args.breaker_max_backoff,
         prefix_dir=args.prefix_dir, params_id=params_id,
         metrics_path=args.metrics_path, metrics_interval_s=args.metrics_interval_s,
-        trace_path=args.trace_path, flight_dir=args.flight_dir))
+        trace_path=args.trace_path, flight_dir=args.flight_dir, metrics_port=args.metrics_port,
+        slo=slo_cfg, cost=not args.no_cost, profile_dir=args.profile_dir))
     del model
+    if server.http_port is not None:
+        print(f"live telemetry: http://127.0.0.1:{server.http_port}/metrics | /healthz | "
+              "/statusz | /slo | /costz | /profilez?chunks=K", file=sys.stderr)
     if server.session_store is not None:
         known = server.session_store.list_sessions()
         if known:
@@ -309,6 +357,16 @@ def _run(args, guard) -> int:
         rate = acc / (acc + rej) if acc + rej else 0.0
         print(f"speculation: {acc} draft(s) accepted, {rej} rejected (rate {rate:.3f}), "
               f"{flat.get('spec_floor_total', 0)} slot floor(s)", file=sys.stderr)
+    if not args.no_cost:
+        flat = server.metrics.counters_flat()
+        cap = server.capacity.state() if server.capacity else {}
+        line = (f"cost: {flat.get('attributed_ms_total', 0):.1f} ms device time attributed over "
+                f"{flat.get('decode_tokens_total', 0)} decode + "
+                f"{flat.get('prefill_tokens_total', 0)} prefill token(s)")
+        if not cap.get("no_data"):
+            line += (f"; capacity ceiling {cap['ceiling_tokens_per_s']} tok/s, headroom "
+                     f"{cap['headroom']:.3f}")
+        print(line, file=sys.stderr)
     if args.prefix_dir:
         flat = server.metrics.counters_flat()
         print(f"prefix cache: {flat.get('prefix_hits', 0)} hit(s), "

@@ -75,7 +75,7 @@ quantize_for_decode``) or not: every contract above holds per qmode.
 Left out, each with the ROADMAP.md item that brings it: the executable store
 (``attach_exec_store``, ``_warm_*``: A13); meshes and their exec lock
 (``mesh``, ``_TP_EXEC_LOCK``, ``_serialized``: A12); the compile bookkeeping
-(``_compile_seen``: A9 / A13; eager torch compiles nothing).
+(``_compile_seen``: A13; eager torch compiles nothing).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 counterpart of ``orion_tpu/serving/locks.py``, declaring only the locks the
 port has.
 
-It is data. Every lock of the port's ``serving/``, ``obs/`` and
+It is data. Every lock of the port's ``serving/``, ``fleet/``, ``obs/`` and
 ``resilience/`` modules is declared here with
 
 - its **site** (module / class-or-function scope / attribute name) and any
@@ -80,8 +80,12 @@ class LockDecl:
 
 _SERVER = "orion_tpu_torch/serving/server.py"
 _HEALTH = "orion_tpu_torch/serving/health.py"
+_ROUTER = "orion_tpu_torch/fleet/router.py"
+_REPLICA = "orion_tpu_torch/fleet/replica.py"
 _METRICS = "orion_tpu_torch/obs/metrics.py"
 _TRACE = "orion_tpu_torch/obs/trace.py"
+_SLO = "orion_tpu_torch/obs/slo.py"
+_COST = "orion_tpu_torch/obs/cost.py"
 _FLIGHT = "orion_tpu_torch/obs/flight.py"
 _WATCHDOG = "orion_tpu_torch/resilience/watchdog.py"
 _INJECT = "orion_tpu_torch/resilience/inject.py"
@@ -94,8 +98,8 @@ LOCKS: Dict[str, LockDecl] = {
             name="server.stats",
             site=LockSite(_SERVER, "Server", "_stats_lock"),
             kind="RLock",
-            note="the Server's metrics / health lock. Reentrant and SHARED: "
-            "the Server injects it into HealthMachine and MetricsRegistry "
+            note="the Server's metrics / health / profiling lock. Reentrant and "
+            "SHARED: the Server injects it into HealthMachine and MetricsRegistry "
             "(lock= kwarg) so Server.snapshot() reads health + gauges as one "
             "atomic pair. Standalone instances construct their own.",
             aliases=(
@@ -103,6 +107,11 @@ LOCKS: Dict[str, LockDecl] = {
                 LockSite(_METRICS, "MetricsRegistry", "_lock"),
             ),
             guards=(
+                GuardedField(
+                    _SERVER, "Server", ("_profile_pending", "_profile_left"),
+                    note="the /profilez arm handshake: a scrape thread arms, the "
+                    "scheduler consumes; 'one capture at a time' (the 409) is these "
+                    "two fields read-modify-written under one lock"),
                 GuardedField(
                     _HEALTH, "HealthMachine", ("_state", "_since", "dropped"),
                     note="the signal path (via the loop) and the watchdog "
@@ -124,6 +133,96 @@ LOCKS: Dict[str, LockDecl] = {
                 GuardedField(_SERVER, "Server", ("_rid_seq",),
                              note="request ids unique across submit threads"),
             ),
+        ),
+        # -- fleet --------------------------------------------------------------
+        LockDecl(
+            name="router.lock",
+            site=LockSite(_ROUTER, "Router", "_lock"),
+            kind="RLock",
+            note="the fleet's outermost lock: session fence, admission count, "
+            "dispatch counters. Bookkeeping only: never the wire round-trip and "
+            "never a replica-handle method (a wedged child must not stall other "
+            "submitters, the gauges or the supervisor).",
+            guards=(
+                GuardedField(
+                    _ROUTER, "Router",
+                    ("_active_sessions", "_dispatches", "_dispatching", "_turn_seq", "stats",
+                     "replicas"),
+                    note="all router state; submitter threads and the supervisor's "
+                    "replace() race on it"),
+            ),
+        ),
+        LockDecl(
+            name="router.turn_once",
+            site=LockSite(_ROUTER, "Router", "once"),
+            kind="Lock",
+            note="a turn's close arbitration (local to _attach_turn_close): a "
+            "non-blocking try-acquire never released, so exactly one of the two "
+            "closers (on_done, or the already-done path) ends the root span.",
+        ),
+        LockDecl(
+            name="replica.send",
+            site=LockSite(_REPLICA, "ProcessReplica", "_send_lock"),
+            kind="Lock",
+            note="serializes writes to the child's stdin pipe: wire I/O under it "
+            "is its purpose (interleaved partial lines would corrupt the channel).",
+        ),
+        LockDecl(
+            name="replica.state",
+            site=LockSite(_REPLICA, "ProcessReplica", "_state_lock"),
+            kind="Lock",
+            note="request bookkeeping (pending map, reply routing, inflight count, "
+            "id sequence); the wire round-trip happens outside it.",
+            guards=(
+                GuardedField(_REPLICA, "ProcessReplica", ("_pendings", "_replies", "_next_id"),
+                             note="submit threads and the reader thread race on these"),
+            ),
+        ),
+        LockDecl(
+            name="replica.local",
+            site=LockSite(_REPLICA, "LocalReplica", "_lock"),
+            kind="Lock",
+            note="an in-process replica's outstanding-request ledger.",
+            guards=(
+                GuardedField(_REPLICA, "LocalReplica", ("_outstanding",),
+                             note="submitters and completions race on it"),
+            ),
+        ),
+        LockDecl(
+            name="replica.child_out",
+            site=LockSite(_REPLICA, "_child_main", "out_lock"),
+            kind="Lock",
+            note="child side: serializes result and reply lines onto the one "
+            "stdout pipe (replica.send's mirror image).",
+        ),
+        # -- obs ----------------------------------------------------------------
+        LockDecl(
+            name="obs.slo",
+            site=LockSite(_SLO, "SLOEngine", "_lock"),
+            kind="Lock",
+            note="publishes tick()'s payload for cheap state() reads. tick() runs "
+            "its readers first, then takes this lock. Nests INSIDE server.stats "
+            "(Server.snapshot() calls slo.state() holding it).",
+            guards=(
+                GuardedField(_SLO, "SLOEngine", ("_state",),
+                             note="the published payload; scrapes read it under the lock"),
+            ),
+        ),
+        LockDecl(
+            name="obs.cost.ledger",
+            site=LockSite(_COST, "CostLedger", "_lock"),
+            kind="Lock",
+            note="program-cost entries and compile-time observations; read by "
+            "/costz scrapes.",
+        ),
+        LockDecl(
+            name="obs.cost.capacity",
+            site=LockSite(_COST, "CapacityModel", "_lock"),
+            kind="Lock",
+            note="the capacity state: tick() reads its counters before the lock "
+            "(slo.tick's shape) and publishes under it. Nests INSIDE "
+            "server.stats (Server.snapshot() reads the state holding it).",
+            guards=(GuardedField(_COST, "CapacityModel", ("_state",)),),
         ),
         LockDecl(
             name="obs.trace",
@@ -200,6 +299,14 @@ ORDER: Tuple[Tuple[str, str], ...] = (
     # serve()'s drain path moves health (stats lock) while holding the
     # admission lock; submit()'s counter bumps do the same
     ("server.admission", "server.stats"),
+    # Server.snapshot() reads the SLO and capacity states holding the stats
+    # lock; their ticks never take the stats lock while holding their own
+    ("server.stats", "obs.slo"),
+    ("server.stats", "obs.cost.capacity"),
+    # the router lock is the fleet's outermost: replica-internal locks (the
+    # inflight gauges) may be read below it, never above it
+    ("router.lock", "replica.state"),
+    ("router.lock", "replica.local"),
     # flight.record from code holding the stats lock is legal; a flight path
     # taking the stats lock back is not
     ("server.stats", "obs.flight"),

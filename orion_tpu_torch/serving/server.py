@@ -65,6 +65,28 @@ boundaries.
   it records host values the scheduler already holds: the Server reads the
   card nowhere; the engine reads it once a boundary attempt and once a
   request.
+- **cost attribution and capacity** -- ``cost`` (on by default) splits each
+  boundary's measured ``chunk_ms`` over the resident slots by the work each
+  did (``obs/cost.py``'s ``attribute_chunk``: the shares sum to
+  ``chunk_ms``) and stamps every result with its ``device_ms``,
+  ``cost_flops`` and prefill / decode token counts; a ``CapacityModel``
+  folds the windowed ``chunk_ms`` into a tokens/s ceiling and headroom. The
+  flops come from the analytic ``2 x params`` (the JAX package's leaf count
+  of the served tree); the ledger harvest of compiled programs' costs
+  (``cost_ledger``) is A13's.
+- **SLOs** -- an ``SLOEngine`` over the same registry cells, ticked at every
+  boundary: declared objectives (``slo``) arm actuation, so a fast burn that
+  lasts ``slo_degrade_ticks`` boundaries degrades health and halves the
+  admission bound; the observe-only defaults only report.
+- **live endpoints** -- ``metrics_port >= 0`` serves ``/metrics``,
+  ``/healthz`` (its status code from the health state), ``/statusz``,
+  ``/slo``, ``/costz`` and ``/profilez`` from a daemon thread
+  (``obs/http.py``), every provider a host read.
+- **on-demand profiling** -- with ``profile_dir`` set, ``arm_profile(K)``
+  (or ``/profilez?chunks=K``) records the next K boundaries with
+  ``torch.profiler`` into a Chrome trace (CPU ops and, on the card, CUDA
+  kernels); the profiler starts and stops on the scheduler thread at
+  boundaries only.
 
 ``ServeConfig.qmode`` quantizes the handed model once at construction
 (``generate.quantize_for_decode``); every slot then shares the int8 / int4
@@ -74,19 +96,18 @@ on the CPU).
 
 Left out, each refused with ``NotImplementedError`` naming its ROADMAP.md
 item when its ``ServeConfig`` field is set: tensor-parallel serving (``tp``,
-``mesh_audit``): A12; cost attribution and capacity (``cost``,
-``cost_ledger``, ``capacity_window_s``), SLOs (``slo``,
-``slo_degrade_ticks``), the live HTTP endpoints (``metrics_port``, and with
-them ``/healthz`` and ``/statusz``) and on-demand profiling
-(``profile_dir``): A9; the executable store (``exec_dir``,
-``exec_local_dir``, ``exec_max_resident``): A13. ``cost`` and ``mesh_audit``
-default to False here (True in the reference): the port computes neither.
+``mesh_audit``): A12; the cost ledger's harvest (``cost_ledger``: XLA's
+``cost_analysis()`` of lowered executables in the reference) and the
+executable store (``exec_dir``, ``exec_local_dir``, ``exec_max_resident``):
+A13. ``mesh_audit`` defaults to False here (True in the reference): the port
+has no mesh to audit.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import queue
 import sys
 import threading
@@ -99,8 +120,12 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from orion_tpu_torch.convert import expected_params
 from orion_tpu_torch.generate import quantize_for_decode
+from orion_tpu_torch.obs import cost as obs_cost
+from orion_tpu_torch.obs import slo as obs_slo
 from orion_tpu_torch.obs.flight import FlightRecorder
+from orion_tpu_torch.obs.http import ObsHTTPServer
 from orion_tpu_torch.obs.metrics import MetricsRegistry
 from orion_tpu_torch.obs.trace import Tracer
 from orion_tpu_torch.resilience.breaker import CircuitBreaker, StoreUnavailableError
@@ -109,7 +134,7 @@ from orion_tpu_torch.resilience.preempt import PreemptionGuard
 from orion_tpu_torch.resilience.retry import RetryPolicy, call_with_retries
 from orion_tpu_torch.resilience.watchdog import Watchdog
 from orion_tpu_torch.serving.batching import SlotEngine, parse_buckets
-from orion_tpu_torch.serving.health import Health, HealthMachine
+from orion_tpu_torch.serving.health import HTTP_STATUS, Health, HealthMachine
 from orion_tpu_torch.serving.prefix_store import PrefixStore, params_identity
 from orion_tpu_torch.serving.session import DecodeRequest, DecodeResult
 from orion_tpu_torch.serving.session_store import SessionState, SessionStore
@@ -130,9 +155,14 @@ _STAT_KEYS = (
 # raises at construction
 _NOT_PORTED = {
     **dict.fromkeys(("tp", "mesh_audit"), "A12"),
-    **dict.fromkeys(("cost", "cost_ledger", "capacity_window_s", "slo", "slo_degrade_ticks",
-                     "metrics_port", "profile_dir"), "A9"),
-    **dict.fromkeys(("exec_dir", "exec_local_dir", "exec_max_resident"), "A13"),
+    **dict.fromkeys(("cost_ledger", "exec_dir", "exec_local_dir", "exec_max_resident"), "A13"),
+}
+# why a refused field waits for its item, where the item's name alone does
+# not say it
+_NOT_PORTED_WHY = {
+    "cost_ledger": "its figures are XLA's cost_analysis() of lowered executables in the "
+                   "reference; without it attribution weighs by token counts and the flops "
+                   "are the analytic 2 x params",
 }
 
 
@@ -206,19 +236,32 @@ class ServeConfig:
     # (0 = never) --
     spec_depth: int = 0
     spec_min_accept: float = 0.2
+    # -- the live endpoints (obs/http.py): /metrics /healthz /statusz /slo
+    # /costz /profilez on a daemon thread; -1 = none, 0 = an ephemeral port
+    # (the bound one is Server.http_port). Every provider reads host state.
+    metrics_port: int = -1
+    # declared SLOs: Objective kwarg dicts (JSON-able, so they ride a
+    # ReplicaSpec). None = the observe-only defaults (error rate and
+    # availability at 99%): burn rates are computed either way, actuation
+    # (DEGRADED and earlier shedding) arms only for declared objectives
+    slo: Optional[tuple] = None
+    # boundaries in a row with a fast-burn alert firing before the server
+    # degrades itself and sheds early
+    slo_degrade_ticks: int = 3
+    # cost attribution and the capacity model (obs/cost.py): host arithmetic
+    # at boundaries over chunk_ms, no read of the card
+    cost: bool = True
+    capacity_window_s: float = 30.0  # the CapacityModel's rolling window
+    # torch.profiler captures armed by /profilez?chunks=K or arm_profile()
+    # land here (one directory a capture, a Chrome trace in it); None = off
+    profile_dir: Optional[str] = None
     # -- not ported: a value other than these raises (see _NOT_PORTED) --
     exec_dir: Optional[str] = None
     exec_local_dir: Optional[str] = None
     exec_max_resident: int = 32
-    metrics_port: int = -1
-    slo: Optional[tuple] = None
-    slo_degrade_ticks: int = 3
     tp: int = 0
     mesh_audit: bool = False
-    cost: bool = False
     cost_ledger: bool = False
-    capacity_window_s: float = 30.0
-    profile_dir: Optional[str] = None
 
 
 def _check_ported(cfg: ServeConfig) -> None:
@@ -228,9 +271,10 @@ def _check_ported(cfg: ServeConfig) -> None:
     for f in dataclasses.fields(cfg):
         value = getattr(cfg, f.name)
         if f.name in _NOT_PORTED and value != f.default and not (f.name == "tp" and value == 1):
+            why = f": {_NOT_PORTED_WHY[f.name]}" if f.name in _NOT_PORTED_WHY else ""
             raise NotImplementedError(
                 f"ServeConfig.{f.name}={value!r} is not ported to orion_tpu_torch yet "
-                f"(ROADMAP.md queue A, {_NOT_PORTED[f.name]})")
+                f"(ROADMAP.md queue A, {_NOT_PORTED[f.name]}){why}")
 
 
 @dataclasses.dataclass
@@ -248,6 +292,12 @@ class Pending:
     done_at: float = 0.0
     # trace identity: the async-span id every event of this request carries
     rid: str = ""
+    # cost-attribution accumulators: each boundary's share is folded in here;
+    # _complete stamps the totals onto the DecodeResult
+    device_ms: float = 0.0
+    cost_flops: float = 0.0
+    prefill_tokens: int = 0
+    decode_tokens: int = 0
     # called exactly once, right after ``done`` fires; host-only, and a
     # raising callback is ignored
     on_done: Optional[Callable[["Pending"], None]] = None
@@ -338,6 +388,7 @@ class Server:
         self._h_session_load_ms = self.metrics.histogram("session_load_ms")
         self._c_ladder = self.metrics.counter("ladder_rungs")
         self._c_health = self.metrics.counter("health_transitions")
+        self._c_slo_alerts = self.metrics.counter("slo_alerts")
         self._rid_seq = 0
         # a per-server token in every trace id: two servers sharing a trace
         # file never collide on span ids
@@ -409,13 +460,72 @@ class Server:
         self.metrics.gauge_fn("sessions_resident", lambda: len(self._sessions))
         self.metrics.gauge_fn("sessions_in_slots", lambda: len(self._active_sessions))
         self.metrics.gauge_fn("dirty_backlog", lambda: len(self._dirty_sessions))
+        # cost attribution and capacity: each boundary's measured wall time
+        # split over the resident slots, the windowed chunk_ms folded into a
+        # tokens/s ceiling and headroom. Host arithmetic over values the
+        # scheduler holds; the flops are the analytic 2 x params, counted as
+        # the JAX package counts the leaves of its (quantized) parameter tree
+        self.cost_enabled = bool(cfg.cost)
+        self.cost_ledger: Optional[obs_cost.CostLedger] = None
+        self.capacity: Optional[obs_cost.CapacityModel] = None
+        if self.cost_enabled:
+            tree = expected_params(model.cfg, "" if self.qmode == "off" else self.qmode)
+            n_params = sum(int(np.prod(shape)) for _, shape, _ in tree.values())
+            self.cost_ledger = obs_cost.CostLedger(
+                slots=cfg.slots, chunk=cfg.chunk, prefill_chunk=self.engine.prefill_chunk,
+                spec_depth=cfg.spec_depth, fallback_flops_per_token=2.0 * n_params)
+            self._h_req_device_ms = self.metrics.histogram("request_device_ms")
+            self._h_req_flops = self.metrics.histogram("request_cost_flops",
+                                                       buckets=obs_cost.FLOPS_BUCKETS)
+            self._c_attr_ms = self.metrics.counter("attributed_ms_total")
+            self._c_decode_tokens = self.metrics.counter("decode_tokens_total")
+            self._c_prefill_tokens = self.metrics.counter("prefill_tokens_total")
+            self.capacity = obs_cost.CapacityModel(
+                slots=cfg.slots, chunk=cfg.chunk, buckets=self._h_chunk_ms.buckets,
+                read_chunk_counts=self._read_chunk_counts, read_tokens=self._read_device_tokens,
+                clock=clock, window_s=cfg.capacity_window_s)
+            for field, name in (("ceiling_tokens_per_s", "capacity_tokens_per_s"),
+                                ("current_tokens_per_s", "capacity_current_tokens_per_s"),
+                                ("headroom", "capacity_headroom")):
+                # raises (the cell is absent) until the model has data
+                self.metrics.gauge_fn(name, self.capacity.gauge(field))
+        # on-demand profiling: armed from any thread (host flags under the
+        # stats lock); torch.profiler starts and stops only on the scheduler
+        # thread at boundaries
+        self._profile_pending = 0
+        self._profile_left = 0
+        self._profile_path: Optional[str] = None
+        self._profile_seq = 0
+        self._profiler = None
         self._q: "queue.Queue[Pending]" = queue.Queue(maxsize=cfg.max_inflight)
         self._guard: Optional[PreemptionGuard] = None
         # makes (accepting check -> enqueue) atomic against the drain
         # path's final (reject leftovers -> DEAD): a put landing between the
         # loop's last empty-check and DEAD would strand a Pending
         self._admission_lock = threading.Lock()
+        # the SLO loop: windowed views over the same registry cells, ticked at
+        # boundaries. tick() reads the cells under the stats lock first and
+        # then publishes under the engine's own lock: never both at once
+        declared = bool(cfg.slo)  # slo=[] / () declares nothing either
+        objectives = ([obs_slo.Objective(**dict(d)) for d in cfg.slo] if declared
+                      else obs_slo.default_objectives())
+        self.slo = obs_slo.SLOEngine(objectives, obs_slo.registry_readers(self.metrics),
+                                     clock=clock)
+        self._slo_actuate = declared
+        self._slo_burn_ticks = 0
+        self._slo_shedding = False
+        self._slo_slow_prev = False
         self._chunk_seq = 0  # serve.chunk_delay's step address
+        # the live endpoints: up across serve() calls (a balancer must see
+        # DRAINING / DEAD as 503, not a refused connection); close() ends them
+        self.http: Optional[ObsHTTPServer] = None
+        self.http_port: Optional[int] = None
+        if cfg.metrics_port >= 0:
+            self.http = ObsHTTPServer(
+                port=cfg.metrics_port, metrics_fn=self.metrics.snapshot,
+                health_fn=self._healthz, statusz_fn=self._statusz, slo_fn=self.slo.state,
+                costz_fn=self._costz, profilez_fn=self._profilez)
+            self.http_port = self.http.start()
 
     @property
     def stats(self) -> Dict[str, int]:
@@ -500,7 +610,8 @@ class Server:
                 self.health.restate(reason)
         elif (self.health.state is Health.DEGRADED
               and self.health.reason.startswith("store-outage:")
-              and not self._dirty_sessions):
+              and not self._dirty_sessions
+              and not self._slo_shedding):
             self.health.to(Health.SERVING, "store recovered; dirty backlog drained")
 
     def _probe_idle_breakers(self) -> None:
@@ -524,6 +635,185 @@ class Server:
                 br.record_failure(f"probe: {type(e).__name__}: {e}")
             else:
                 br.record_success()
+
+    # -- the live endpoints' providers (host reads only) ----------------------
+
+    def _healthz(self) -> dict:
+        """/healthz: the health snapshot with the HTTP code of its state
+        (``health.HTTP_STATUS``) and a one-line status, the reason beside
+        any state but serving."""
+        snap = self.health.snapshot()
+        snap["code"] = HTTP_STATUS[Health(snap["state"])]
+        snap["status"] = (snap["state"] if snap["state"] == "serving" or not snap["reason"]
+                          else f"{snap['state']}: {snap['reason']}")
+        return snap
+
+    def _statusz(self) -> dict:
+        """/statusz: the atomic snapshot (health, stats, slots, sessions,
+        the failure domains, speculation, SLO) without the registry dump
+        (that is /metrics), the cost section and the flight ring's tail."""
+        snap = self.snapshot()
+        snap.pop("metrics", None)
+        if self.cost_enabled:
+            flat = self.metrics.counters_flat()
+            snap["cost"] = {"capacity": self.capacity.state(),
+                            "attributed_ms_total": round(flat.get("attributed_ms_total", 0), 3),
+                            "ledger_programs": len(self.cost_ledger.entries())}
+        snap["flight_tail"] = self.flight.events()[-20:]
+        return snap
+
+    # -- cost attribution and capacity -----------------------------------------
+
+    def _read_chunk_counts(self):
+        """CapacityModel reader: chunk_ms's per-bucket counts, every cell
+        summed."""
+        cell = self._h_chunk_ms.cell_total()
+        if cell is None:
+            return (0,) * len(self._h_chunk_ms.buckets)
+        return tuple(cell["counts"])
+
+    def _read_device_tokens(self):
+        """CapacityModel reader: the tokens the boundaries produced so far
+        (decode and prefill: both are slot-steps of real work)."""
+        flat = self.metrics.counters_flat()
+        return flat.get("decode_tokens_total", 0) + flat.get("prefill_tokens_total", 0)
+
+    def _attribute_chunk(self, dt_ms: float) -> None:
+        """Split one boundary's measured wall time over its resident slots
+        (``obs_cost.attribute_chunk``: the shares sum to ``dt_ms``) and fold
+        each share into its request's accumulators. Runs before the
+        boundary's finished results complete, so a request's last boundary
+        still lands on its result."""
+        shares = obs_cost.attribute_chunk(self.cost_ledger, dt_ms, self.engine.last_boundary)
+        if not shares:
+            return
+        d_tokens = p_tokens = 0
+        for entry, share_ms, flops in shares:
+            d_tokens += entry.get("decode_tokens", 0)
+            p_tokens += entry.get("prefill_tokens", 0)
+            tag = entry.get("tag")
+            if isinstance(tag, Pending):
+                tag.device_ms += share_ms
+                tag.cost_flops += flops
+                tag.decode_tokens += entry.get("decode_tokens", 0)
+                tag.prefill_tokens += entry.get("prefill_tokens", 0)
+        with self._stats_lock:
+            self._c_attr_ms.inc(dt_ms)
+            if d_tokens:
+                self._c_decode_tokens.inc(d_tokens)
+            if p_tokens:
+                self._c_prefill_tokens.inc(p_tokens)
+
+    def _tick_cost(self) -> None:
+        if self.capacity is not None:
+            self.capacity.tick()
+
+    def _costz(self) -> dict:
+        """/costz: the program price sheet (empty: no harvest before A13),
+        the attribution totals, the capacity state and the profiler's."""
+        out: dict = {"enabled": self.cost_enabled}
+        if not self.cost_enabled:
+            return out
+        flat = self.metrics.counters_flat()
+        out["ledger"] = self.cost_ledger.entries()
+        out["compile_ms"] = self.cost_ledger.compile_times()
+        out["attribution"] = {
+            "attributed_ms_total": round(flat.get("attributed_ms_total", 0), 3),
+            "decode_tokens_total": flat.get("decode_tokens_total", 0),
+            "prefill_tokens_total": flat.get("prefill_tokens_total", 0),
+            "flops_per_decode_step": self.cost_ledger.flops_per_decode_step(),
+            "flops_per_prefill_token": self.cost_ledger.flops_per_prefill_token()}
+        if self.cfg.spec_depth:
+            out["attribution"]["flops_per_spec_round"] = self.cost_ledger.flops_per_spec_round()
+        out["capacity"] = self.capacity.state()
+        out["profile"] = {"dir": self.cfg.profile_dir, "pending_chunks": self._profile_pending,
+                          "active_chunks_left": self._profile_left,
+                          "last_artifact": self._profile_path}
+        return out
+
+    # -- on-demand profiling -----------------------------------------------------
+
+    def arm_profile(self, chunks: int) -> dict:
+        """Arm a ``torch.profiler`` capture of the next ``chunks``
+        boundaries. Only sets host flags (callable from the /profilez
+        thread); the profiler starts and stops on the scheduler thread. One
+        capture at a time: refused (409) when disabled or already armed or
+        running, (400) for a bad count."""
+        if not self.cfg.profile_dir:
+            return {"error": "profiling disabled: set ServeConfig.profile_dir (--profile-dir)",
+                    "code": 409}
+        try:
+            chunks = int(chunks)
+        except (TypeError, ValueError):
+            return {"error": f"bad chunks={chunks!r}", "code": 400}
+        if chunks <= 0:
+            return {"error": f"chunks must be >= 1, got {chunks}", "code": 400}
+        with self._stats_lock:
+            if self._profile_pending or self._profile_left:
+                return {"error": "a profile capture is already armed or active", "code": 409}
+            self._profile_pending = chunks
+        self.flight.record("profile", event="armed", chunks=chunks)
+        return {"armed": chunks, "dir": self.cfg.profile_dir}
+
+    def _profilez(self, params: dict) -> dict:
+        # the /profilez provider: flag-setting only (arm_profile parses and
+        # refuses)
+        return self.arm_profile(params.get("chunks", 8))
+
+    def _profile_maybe_start(self) -> None:
+        """Scheduler thread, before the boundary's timed window: take a
+        pending arm and start the capture (its start cost is not chunk
+        latency; the profiled chunks' overhead lands in chunk_ms)."""
+        if not self._profile_pending or self._profile_left:
+            return
+        with self._stats_lock:
+            if not self._profile_pending or self._profile_left:
+                return
+            chunks, self._profile_pending = self._profile_pending, 0
+            # reserved before the profiler starts: a /profilez racing its
+            # start still gets its 409
+            self._profile_left = chunks
+        from orion_tpu_torch.utils.profiling import Capture
+
+        self._profile_seq += 1
+        path = os.path.join(self.cfg.profile_dir, f"profile-{self._rid_token}-{self._profile_seq}")
+        try:
+            self._profiler = Capture(path, cuda=self.device.type == "cuda")
+            self._profiler.start()
+        except Exception as e:
+            self._profiler = None
+            with self._stats_lock:
+                self._profile_left = 0  # release the reservation
+            warnings.warn(f"profiler start failed: {e}", stacklevel=2)
+            self.flight.record("profile", event="start_failed", error=type(e).__name__)
+            return
+        self._profile_path = path
+        self.flight.record("profile", event="start", chunks=chunks, dir=path)
+
+    def _profile_maybe_stop(self, force: bool = False) -> None:
+        """Scheduler thread, after a boundary (or at the loop's exit with
+        ``force``: a capture never outlives the loop that armed it): count
+        the boundary down and, at zero, stop and write the trace. The count
+        moves under the stats lock; the profiler stops outside it."""
+        if not self._profile_left:
+            return
+        with self._stats_lock:
+            if not self._profile_left:
+                return
+            self._profile_left -= 1
+            if self._profile_left > 0 and not force:
+                return
+            self._profile_left = 0
+        prof, self._profiler = self._profiler, None
+        try:
+            artifact = prof.stop()
+        except Exception as e:
+            warnings.warn(f"profiler stop failed: {e}", stacklevel=2)
+            self.flight.record("profile", event="stop_failed", error=type(e).__name__)
+            return
+        self.flight.record("profile", event="stop", dir=self._profile_path, artifact=artifact,
+                           forced=bool(force), stop_ms=round(prof.stop_ms, 3),
+                           export_ms=round(prof.export_ms, 3))
 
     def _on_health(self, old, new, reason: str) -> None:
         """HealthMachine transition tap (after the machine released the
@@ -607,14 +897,20 @@ class Server:
             self.trace.begin("request", pending.rid, session=request.session_id)
             self.trace.begin("queue", pending.rid)
             try:
+                # SLO actuation, admission half: while the fast burn lasts the
+                # queue bound halves, so a replica missing its objective sheds
+                # early and the router fails over to a healthy peer now
+                if self._slo_shedding and self._q.qsize() >= max(1, self.cfg.max_inflight // 2):
+                    raise queue.Full
                 self._q.put_nowait(pending)
             except queue.Full:
                 self._bump("shed")
                 self.trace.end("queue", pending.rid)
                 self.trace.end("request", pending.rid, status="shed")
-                raise OverloadError(
-                    f"admission queue full ({self.cfg.max_inflight} queued + up to "
-                    f"{self.cfg.slots} resident in slots)") from None
+                why = ("slo fast burn: shedding at half the admission bound" if self._slo_shedding
+                       else f"admission queue full ({self.cfg.max_inflight} queued + up to "
+                            f"{self.cfg.slots} resident in slots)")
+                raise OverloadError(why) from None
         self._bump("admitted")
         return pending
 
@@ -663,6 +959,8 @@ class Server:
                     self._tick_sessions()
                     self._tick_store_health()
                     self._tick_metrics()
+                    self._tick_slo()
+                    self._tick_cost()
                     self._admit_from_queue(wd)
                     if self.prefix_store is not None and self.engine.has_pending_prefixes:
                         # a declared miss's publish: a solo prefill and a
@@ -700,6 +998,9 @@ class Server:
                     self._reject_leftovers()
                 if wd is not None:
                     wd.close()
+                if self.cfg.profile_dir:
+                    # a capture armed mid-drain must not outlive the loop
+                    self._profile_maybe_stop(force=True)
                 self._guard = None
                 # under the admission lock: once DEAD is published no
                 # submit can slip a Pending into the dead queue
@@ -725,6 +1026,37 @@ class Server:
                 self.trace.flush()
         return 0
 
+    def _tick_slo(self) -> None:
+        """Boundary SLO evaluation and actuation. Evaluation always runs
+        (the burn rates feed /slo, ``snapshot()["slo"]``, the router's
+        tie-break and the supervisor); actuation -- DEGRADED and shedding at
+        half the admission bound -- arms only for declared objectives, after
+        ``slo_degrade_ticks`` boundaries in a row with a fast burn firing.
+        Availability never actuates: its bad events are this server's own
+        sheds, and shedding more for them would latch half capacity."""
+        st = self.slo.tick()
+        firing = [n for n in st["firing_fast"] if st["objectives"][n]["kind"] != "availability"]
+        if firing:
+            self._slo_burn_ticks += 1
+            if self._slo_burn_ticks == 1:  # the rising edge
+                self._c_slo_alerts.inc(labels={"alert": "fast"})
+                self.flight.record("slo", alert="fast", firing=list(firing),
+                                   burn=st["worst_burn_fast"])
+        else:
+            self._slo_burn_ticks = 0
+            if self._slo_shedding:
+                self._slo_shedding = False
+                self.flight.record("slo", alert="clear")
+        slow = bool(st["firing_slow"])
+        if slow and not self._slo_slow_prev:
+            self._c_slo_alerts.inc(labels={"alert": "slow"})
+        self._slo_slow_prev = slow
+        if self._slo_actuate and self._slo_burn_ticks >= max(self.cfg.slo_degrade_ticks, 1):
+            if not self._slo_shedding:
+                self._slo_shedding = True
+                self.flight.record("slo", alert="shedding", firing=list(firing))
+            self._degrade("slo fast burn: " + ",".join(firing))
+
     def _tick_metrics(self, force: bool = False) -> None:
         """Periodic metrics exposition at chunk-boundary cadence (forced on
         drain / exit). An interval <= 0 dumps on drain only; a failing dump
@@ -743,11 +1075,15 @@ class Server:
 
     def close(self) -> None:
         """Finalize a server whose loop exited idle: reject anything still
-        queued and go DEAD."""
+        queued, go DEAD, and take the live endpoints down (they stay up
+        through drains, so a balancer sees 503, not a refused connection)."""
         with self._admission_lock:
             self._reject_leftovers()
             if self.health.state is not Health.DEAD:
                 self.health.to(Health.DEAD, "closed")
+        if self.http is not None:
+            self.http.close()
+            self.http = None
 
     # -- scheduler internals -------------------------------------------------
 
@@ -983,6 +1319,8 @@ class Server:
         if wd is not None:
             wd.beat("decode chunk")
         self._maybe_drain(guard)
+        if self.cfg.profile_dir:
+            self._profile_maybe_start()
         occupied = self.engine.active_count
         infos = self.engine.slot_info() if self.trace.enabled else ()
         t0 = self._clock()
@@ -992,11 +1330,18 @@ class Server:
         # slow boundary would
         fire("serve.chunk_delay", step=self._chunk_seq)
         dt = self._clock() - t0
+        if self.cfg.profile_dir:
+            self._profile_maybe_stop()
         with self._stats_lock:
             self._bump("chunks")
             self._bump("slot_steps_active", occupied)
             self._bump("slot_steps_total", self.engine.slots)
             self._h_chunk_ms.observe(dt * 1e3)
+        if self.cost_enabled:
+            # before the finished results complete, so a request's last
+            # boundary lands on its result; dt * 1e3 is the value chunk_ms
+            # observed, so conservation is exact per boundary
+            self._attribute_chunk(dt * 1e3)
         for i, tag, phase, k in infos:
             self.trace.complete("decode_chunk" if phase == "decode" else "prefill_piece",
                                 t0, dt, req=getattr(tag, "rid", None), slot=i, chunk=k)
@@ -1013,6 +1358,12 @@ class Server:
             # exhausted, a forced eviction): release the conversation, so the
             # next turn resumes from the last good generation
             self._active_sessions.discard(pending.request.session_id)
+        if self.cost_enabled:
+            # the attribution totals onto the result the caller sees
+            result.device_ms = round(pending.device_ms, 6)
+            result.cost_flops = pending.cost_flops
+            result.prefill_tokens = pending.prefill_tokens
+            result.decode_tokens = pending.decode_tokens
         pending.result = result
         self._bump(result.status)
         self._bump("rewinds", result.rewinds)
@@ -1023,21 +1374,32 @@ class Server:
         if result.status == "failed" or result.degraded:
             self._degrade(f"request needed the ladder (rewinds={result.rewinds}, "
                           f"reprefills={result.reprefills}, status={result.status})")
-        elif self.health.state is Health.DEGRADED and not self._store_outage_latched():
-            # the storage latch holds DEGRADED through an outage and its
-            # unsaved backlog
+        elif (self.health.state is Health.DEGRADED and not self._slo_shedding
+              and not self._store_outage_latched()):
+            # the SLO latch holds DEGRADED while the burn lasts (clean but
+            # slow completions must not flap it), the storage latch through
+            # an outage and its unsaved backlog
             self.health.to(Health.SERVING, "clean request completed")
         self._finalize(pending, result.status)
 
     def _finalize(self, pending: Pending, status: str) -> None:
         """The one place a Pending's done event fires: stamps done_at,
-        observes the turn latency (results only), closes the request's span,
+        observes the turn latency and, with cost on, the request's device ms
+        and flops (results only), closes the request's span with its cost,
         releases the waiter and runs ``on_done``."""
         pending.done_at = self._clock()
+        cost_args = {}
         if pending.result is not None:
             self._h_turn_ms.observe((pending.done_at - pending.admitted_at) * 1e3)
+            if self.cost_enabled:
+                self._h_req_device_ms.observe(pending.device_ms)
+                self._h_req_flops.observe(pending.cost_flops)
+                cost_args = {"device_ms": round(pending.device_ms, 3),
+                             "cost_flops": round(pending.cost_flops, 1),
+                             "decode_tokens": pending.decode_tokens,
+                             "prefill_tokens": pending.prefill_tokens}
         self.trace.end("request", pending.rid, status=status,
-                       session=pending.request.session_id)
+                       session=pending.request.session_id, **cost_args)
         pending.done.set()
         cb = pending.on_done
         if cb is not None:
@@ -1095,6 +1457,12 @@ class Server:
                     "floors_total": flat.get("spec_floor_total", 0),
                     "slots": self.engine.spec_info()}
             snap["queued"] = self._q.qsize()
+            # the SLO state and the capacity ride the snapshot, so the fleet
+            # acts on them over the status op; state() is the last tick's
+            # payload (no reader runs here). "actuate": declared objectives
+            snap["slo"] = dict(self.slo.state(), actuate=self._slo_actuate)
+            if self.capacity is not None:
+                snap["capacity"] = self.capacity.state()
             snap["metrics"] = self.metrics.snapshot()
         return snap
 

@@ -86,6 +86,14 @@ class DecodeResult:
     chunks: int
     rewinds: int = 0
     reprefills: int = 0
+    # cost attribution (the Server's batched path only; a solo DecodeSession
+    # reports zeros): this request's share of the measured chunk wall time
+    # (the co-residents' shares sum to the boundary's chunk_ms), the flops
+    # billed for it, and the prefill / decode tokens behind them
+    device_ms: float = 0.0
+    cost_flops: float = 0.0
+    prefill_tokens: int = 0
+    decode_tokens: int = 0
     # the suspended SessionState riding out of SlotEngine for the caller to
     # persist before it releases the result (durable sessions only)
     session: Any = dataclasses.field(default=None, repr=False, compare=False)

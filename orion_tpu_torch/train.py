@@ -26,7 +26,7 @@ global batch, each sp rank its shard of the tokens; fsdp shards the
 params and the optimizer state. Rank 0 logs, prints and writes the
 checkpoints, the file a one-rank run writes.
 
-Not ported yet (ROADMAP.md queue A, item 9): ``--preempt-grace`` and
+Not ported yet (ROADMAP.md queue A, A9b): ``--preempt-grace`` and
 ``--step-timeout`` (the resilience wiring) and ``--metrics-path`` (the
 Prometheus dump). ``--tp``, ``--pp`` and ``--ep`` above 1 raise (item 12),
 and so does any axis above 1 without ``--distributed``.

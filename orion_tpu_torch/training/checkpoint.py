@@ -25,7 +25,7 @@ against the manifest's ``params/...`` leaves, with I/O retried
 (``resilience/retry.py``) and the same fallback policy. Its read fires the
 ``serve.ckpt_load`` fault hook (``resilience/inject.py``) inside the retried
 region, so a chaos test drives the real retry path; the training side's
-hooks (``ckpt.save``, ``ckpt.restore``) are not ported yet (ROADMAP.md A9).
+hooks (``ckpt.save``, ``ckpt.restore``) are not ported yet (ROADMAP.md A9b).
 """
 
 from __future__ import annotations

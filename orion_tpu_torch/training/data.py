@@ -16,7 +16,7 @@ their windows, at their global window starts, so they are bitwise those
 rows of the global batch.
 
 Not ported: the C++ loader (``orion_tpu/runtime/``; ROADMAP.md queue A,
-item 4), and the loader's I/O retries and stall detection (item 9).
+item 4), and the loader's I/O retries and stall detection (A9b).
 """
 
 from __future__ import annotations

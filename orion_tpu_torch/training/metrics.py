@@ -3,7 +3,7 @@ line with tokens/s.
 
 The port's counterpart of ``orion_tpu/training/metrics.py`` without the
 telemetry registry and its Prometheus dump (``obs/metrics.py``; ROADMAP.md
-queue A, item 9). The trainer hands over host floats at log cadence.
+queue A, A9b). The trainer hands over host floats at log cadence.
 """
 
 from __future__ import annotations

@@ -76,7 +76,7 @@ mesh takes this rank's shard of each leaf.
 
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
 item): the tp, pp and ep mesh axes (A12). ``preempt_grace`` and
-``step_timeout`` are kept for the config's shape and not wired (item 9).
+``step_timeout`` are kept for the config's shape and not wired (A9b).
 """
 
 from __future__ import annotations

@@ -1462,6 +1462,48 @@ def test_server_on_the_card_equals_the_slot_engine(dev, mode):
     srv.close()
 
 
+def test_local_fleet_on_the_card_equals_one_server(dev):
+    """Two ``LocalReplica`` s (two Servers, two scheduler threads) sharing one
+    bf16 model on the card behind the ``Router``: the 6 requests of the
+    Server test, host admission, each bitwise one Server's tokens, and row
+    1's launches exact under the two threads (2 linear layers x 6 solo
+    prefills, counted under the wrappers' lock); both threads launch on the
+    default stream, as one Server does."""
+    from orion_tpu_torch.fleet import LocalReplica, Supervisor
+    from orion_tpu_torch.serving import ServeConfig, Server
+
+    model, reqs = _server_case(dev)
+    cfg = ServeConfig(chunk=4, slots=4, max_inflight=8, prefill_buckets="off", prefill_chunk=0)
+    srv = Server(model, cfg)
+    ps = [srv.submit(r) for r in reqs]
+    assert srv.serve(drain_when_idle=True) == 0
+    srv.close()
+    streams = set()
+
+    class Spy(LocalReplica):
+        def _run(self):
+            streams.add(torch.cuda.current_stream(dev).cuda_stream)
+            super()._run()
+
+    sup = Supervisor(lambda name: Spy(model, cfg, name=name).start(), 2).start()
+    try:
+        before = causal_dot.launches_wgmma, causal_dot.launches_simt
+        fps = [sup.router.submit(r) for r in reqs]
+        for p in fps:
+            assert p.done.wait(timeout=300.0)
+        torch.cuda.synchronize()
+        assert (causal_dot.launches_wgmma - before[0], causal_dot.launches_simt - before[1]) == (
+            2 * len(reqs), 0)
+        served = {r.name: r.server.stats["ok"] for r in sup.replicas}
+        assert sum(served.values()) == len(reqs) and min(served.values()) > 0, served
+        for i, (p, fp) in enumerate(zip(ps, fps)):
+            assert fp.result.status == "ok"
+            np.testing.assert_array_equal(fp.result.tokens, p.result.tokens, err_msg=f"{i}")
+        assert streams == {torch.cuda.default_stream(dev).cuda_stream}
+    finally:
+        sup.drain_all(timeout=60.0)
+
+
 def test_server_sigterm_drain_on_the_card(dev):
     """A real SIGTERM at engine boundary 1 with requests queued beyond the
     slots: serve() returns 0, every request completes bitwise its engine

@@ -52,7 +52,8 @@ def test_the_scans_cover_the_serving_slice():
     package, the serving slice's ``serving/``, ``obs/`` and ``resilience/``
     among them (the Server, its CLI, its stores and the host modules it
     builds), the copies of the JAX package's jax-free ``breaker.py`` and
-    ``prefix_store.py`` included."""
+    ``prefix_store.py`` included, and the fleet's ``fleet/`` with the obs
+    modules it needs (``slo``, ``cost``, ``http``)."""
     assert {"orion_tpu_torch.serving", "orion_tpu_torch.serving.session",
             "orion_tpu_torch.serving.batching", "orion_tpu_torch.serving.server",
             "orion_tpu_torch.serving.health", "orion_tpu_torch.serving.locks",
@@ -61,7 +62,12 @@ def test_the_scans_cover_the_serving_slice():
             "orion_tpu_torch.obs.metrics", "orion_tpu_torch.obs.trace",
             "orion_tpu_torch.resilience.inject", "orion_tpu_torch.resilience.preempt",
             "orion_tpu_torch.resilience.watchdog",
-            "orion_tpu_torch.resilience.breaker"} <= set(_modules())
+            "orion_tpu_torch.resilience.breaker", "orion_tpu_torch.obs.slo",
+            "orion_tpu_torch.obs.cost", "orion_tpu_torch.obs.http",
+            "orion_tpu_torch.utils.profiling", "orion_tpu_torch.fleet",
+            "orion_tpu_torch.fleet.replica", "orion_tpu_torch.fleet.router",
+            "orion_tpu_torch.fleet.supervisor", "orion_tpu_torch.fleet.__main__",
+            "orion_tpu_torch.fleet._child"} <= set(_modules())
 
 
 @pytest.mark.parametrize(
@@ -81,6 +87,21 @@ def test_no_import_of_jax_or_the_jax_package(path):
             continue
         for name in names:
             assert name.split(".")[0] not in _BANNED, f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "obs").glob("*.py")), ids=lambda p: p.name)
+def test_obs_modules_import_no_torch(path):
+    """The obs spine is host-only: no module of ``obs/`` imports torch (so
+    none can read the card), as the JAX package's imports no jax."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] != "torch", f"{path}: imports {name}"
 
 
 def _imports(path):

@@ -17,9 +17,11 @@ linear, one softmax and one swa layer):
   of the device beyond the engine's own; refusals: every unported
   ``ServeConfig`` field and CLI flag, and more slots than ``DECODE_ROWS``
   (C1); the store fields and flags, served since the stores were ported,
-  each reaching its store, and the speculation fields and flags, served
-  since speculation was ported, each reaching the engine; the CLI's params
-  id derived as the JAX package's (the stores' contracts:
+  each reaching its store, the speculation fields and flags, served since
+  speculation was ported, each reaching the engine, and the telemetry
+  fields and flags (cost, capacity, SLOs, the live endpoints, profiling),
+  each reaching its subsystem, ``cost_ledger`` refused with A13; the CLI's
+  params id derived as the JAX package's (the stores' contracts:
   ``tests/test_torch_{stores,sessions,prefix}.py``; speculation's:
   ``tests/test_torch_spec_decode.py``).
 """
@@ -577,6 +579,66 @@ def test_spec_serve_config_fields_are_accepted(model, field):
     srv.close()
 
 
+# the telemetry fields ported from the refusals above -> a value other than
+# the default
+_DECLARED = ({"name": "turn_latency", "kind": "latency", "latency_ms": 5000.0, "target": 0.95},)
+_OBS_FIELDS = {"cost": False, "capacity_window_s": 5.0, "slo": _DECLARED, "slo_degrade_ticks": 7,
+               "metrics_port": 0, "profile_dir": None}
+
+
+@pytest.mark.parametrize("field", sorted(_OBS_FIELDS))
+def test_obs_serve_config_fields_are_accepted(model, tmp_path, field):
+    """Each telemetry field that raised before cost, the SLOs, the live
+    endpoints and profiling were ported serves now, and its value reaches
+    its subsystem (``tests/test_torch_{slo,cost}.py`` hold what each does)."""
+    import urllib.error
+    import urllib.request
+
+    value = _OBS_FIELDS[field] if field != "profile_dir" else str(tmp_path / "prof")
+    base = {"slo": _DECLARED} if field == "slo_degrade_ticks" else {}
+    srv = Server(model, dataclasses.replace(_cfg(), **{**base, field: value}))
+    assert field not in server_mod._NOT_PORTED
+    if field == "cost":
+        assert not srv.cost_enabled and srv.capacity is None and srv.cost_ledger is None
+    elif field == "capacity_window_s":
+        assert srv.capacity.window_s == value
+    elif field == "slo":
+        assert srv._slo_actuate and [o.name for o in srv.slo.objectives] == ["turn_latency"]
+        assert srv.slo.objectives[0].target == 0.95
+    elif field == "slo_degrade_ticks":  # a firing fast burn degrades at the 7th boundary
+        firing = {"firing_fast": ["turn_latency"], "firing_slow": [], "worst_burn_fast": 99.0,
+                  "objectives": {"turn_latency": {"kind": "latency"}}}
+        srv.slo.tick = lambda: firing
+        srv.health.to(Health.SERVING, "up")
+        for _ in range(6):
+            srv._tick_slo()
+        assert not srv._slo_shedding and srv.health.state is Health.SERVING
+        srv._tick_slo()
+        assert srv._slo_shedding and srv.health.state is Health.DEGRADED
+    elif field == "metrics_port":  # STARTING answers 503: not routable yet
+        assert srv.http_port > 0
+        with pytest.raises(urllib.error.HTTPError, match="503"):
+            urllib.request.urlopen(f"http://127.0.0.1:{srv.http_port}/healthz", timeout=10)
+    if field in ("cost", "profile_dir"):
+        if field == "profile_dir":
+            assert srv.arm_profile(1)["armed"] == 1
+        p = srv.submit(_req(_prompts(1)[0].astype(np.int64)))
+        assert srv.serve(drain_when_idle=True) == 0 and p.result.status == "ok"
+        if field == "cost":
+            assert p.result.device_ms == p.result.cost_flops == 0
+        else:
+            (sub,) = os.listdir(value)
+            assert os.listdir(os.path.join(value, sub)) == ["trace.json"]
+    srv.close()
+
+
+def test_cost_ledger_is_refused_with_a13(model):
+    """The ledger harvest is XLA's cost_analysis() of lowered executables in
+    the reference: the port refuses it with the executable store's item."""
+    with pytest.raises(NotImplementedError, match=r"A13\).*cost_analysis"):
+        Server(model, dataclasses.replace(_cfg(), cost_ledger=True))
+
+
 def test_more_slots_than_decode_rows_is_refused(model):
     """C1 above 64 slots: a decode step pads its products' rows to
     DECODE_ROWS and runs them at the batch's own row count above it, so a
@@ -697,6 +759,51 @@ def test_spec_cli_flags_are_accepted(tmp_path, monkeypatch, capsys, flag, value,
     (srv,) = built
     assert getattr(srv.engine, field) == type(getattr(srv.engine, field))(value)
     assert "speculation: " in err and "spec-depth 2" in err
+
+
+# the telemetry flags ported from the refusals above (and the reference's
+# --no-cost / --no-cost-ledger) -> their argument (None: a switch, or a path)
+_OBS_FLAGS = {"--metrics-port": "0", "--slo-latency-ms": "5000", "--slo-target": "0.95",
+              "--profile-dir": None, "--no-cost": None, "--no-cost-ledger": None}
+
+
+@pytest.mark.parametrize("flag", sorted(_OBS_FLAGS))
+def test_obs_cli_flags_are_accepted(tmp_path, monkeypatch, capsys, flag):
+    """Each telemetry flag serves now and reaches the Server: the CLI's
+    Server is caught and read after the run."""
+    from orion_tpu_torch.serving import __main__ as cli_mod
+
+    built = []
+
+    class Caught(Server):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(cli_mod, "Server", Caught)
+    pf = tmp_path / "p.txt"
+    pf.write_text("hello\n")
+    value = _OBS_FLAGS[flag]
+    extra = [flag] if flag.startswith("--no-") else [flag, value or str(tmp_path / "prof")]
+    if flag == "--slo-target":
+        extra += ["--slo-latency-ms", "5000"]
+    assert flag not in {f[0] for f in _NOT_PORTED_FLAGS}
+    assert cli_main(["--config", "tiny", "--device", "cpu", "--prompts-file", str(pf),
+                     "--max-new-tokens", "4", "--chunk", "4", "--temperature", "0", *extra]) == 0
+    err = capsys.readouterr().err
+    (srv,) = built
+    if flag == "--metrics-port":
+        assert srv.cfg.metrics_port == 0 and "live telemetry: http://127.0.0.1:" in err
+    elif flag == "--slo-latency-ms":
+        assert srv._slo_actuate and srv.slo.objectives[0].latency_ms == 5000.0
+    elif flag == "--slo-target":
+        assert [o.target for o in srv.slo.objectives] == [0.95] * 3
+    elif flag == "--profile-dir":
+        assert srv.cfg.profile_dir == str(tmp_path / "prof") and srv.arm_profile(1)["armed"] == 1
+    elif flag == "--no-cost":
+        assert not srv.cost_enabled and "cost:" not in err
+    else:  # --no-cost-ledger: accepted, nothing to skip; attribution stays on
+        assert srv.cost_enabled and not srv.cfg.cost_ledger and "cost: " in err
 
 
 def test_cli_params_id_is_the_jax_package_derivation(tmp_path, monkeypatch, capsys):
