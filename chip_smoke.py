@@ -1,6 +1,6 @@
 """Quickest proof that the PyTorch/CUDA port runs on an NVIDIA card.
 
-    python3 chip_smoke.py [--part fleet]
+    python3 chip_smoke.py [--part fleet|train]
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``
 (``$CUDA_HOME/bin`` or on ``PATH``). It imports nothing of JAX or of the JAX
@@ -9,8 +9,9 @@ nonzero and no result line is printed):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernel libraries from the sources in the checkout, one nvcc
-   for each of the seven sources, all started together; print ptxas'
-   register, spill and shared-memory lines;
+   for each of the seven sources, and the native host runtime
+   (``orion_tpu_torch/runtime/*.cc``, g++), all started together; print
+   ptxas' register, spill and shared-memory lines;
 3. hold each kernel against its plain PyTorch version on the card:
    - linear attention (rows 1, 3, 4): the forward at the generate path's
      shape (B 4), then the forward with its training outputs and the two
@@ -136,15 +137,38 @@ nonzero and no result line is printed):
    plain formulas on the same params and gradients, and 3 ``tiny`` fp32
    steps on the card against the CPU with every factored leaf sent through
    the kernels;
-9. train -> checkpoint -> generate: that trainer's whole state saved with
-   the Trainer's ``Checkpointer`` into a temporary directory (free disk
-   checked first; removed after), its params loaded with
-   ``generate.load_model`` (memory-mapped, manifest-verified), and
-   ``generate`` of 4 x 1024 prompts for 32 greedy tokens from the loaded
-   model, in bf16 and at int4, against the same from the in-memory trained
-   model: tokens and prefill logits bitwise, exact launches (row 14 at
-   int4); save and load seconds;
-10. the model and training options at ``lm_1b3``'s width: the ``favor``
+9. training resilience and train -> checkpoint -> generate: (R1) the
+   library ``train()`` of that config with ``FaultPlan().preempt_at(2)``, a
+   real SIGTERM to this process that the run's PreemptionGuard turns into a
+   5.3 GB emergency checkpoint at step 2 (a temporary directory, free disk
+   checked first, removed after), then ``train()`` resumed from it to step
+   4: params and Adafactor state bitwise the uninterrupted trainer's, the
+   launches of both runs exact; the resumed run's final checkpoint loaded
+   with ``generate.load_model`` (memory-mapped, manifest-verified) and
+   ``generate`` of 4 x 1024 prompts for 32 greedy tokens from it, in bf16
+   and at int4, against the same from the in-memory trained model: tokens
+   and prefill logits bitwise, exact launches (row 14 at int4); the runs'
+   and the load's seconds. Then (R2) ``python -m orion_tpu_torch.train``
+   on lm_1b3 cut to 4 blocks (2 recomputed), AdamW, B 8 x 1024 of
+   ``data/train.bin`` through the native loader, with ``--step-timeout
+   120 --preempt-grace 30 --metrics-path``: one run SIGTERMed by a monitor
+   process once its log shows step 2 (exit 0, ``preempted at step N``, only
+   an off-cadence step-N checkpoint, a flight dump holding
+   ``train_preempt``, its registry's step N and ``train_steps_total`` N -
+   1, stderr naming the native loader), its rerun (``resumed from step
+   N``) ending on a checkpoint bitwise, tensor by tensor, an uninterrupted
+   run's started beside it; and meanwhile (R3) the same 4-block model in
+   this process: ``poison_nan_at(2)`` (params after step 2 bitwise those
+   after step 1, one non-finite step, step 3 finite), ``fail_io("ckpt.save",
+   2, times=2)`` (the save lands after two retries and verifies),
+   ``corrupt_step`` on the newest step (the restore falls back to step 1
+   with a warning, the pinned step raises), ``fail_io("data.batch", 1,
+   times=2)`` on ``data/train.bin`` (batches bitwise the numpy twin's),
+   launches exact. ``python3 chip_smoke.py --part train`` runs the build,
+   the kernel checks, this phase and the adafactor_fused training before it
+   alone; each part's seconds are logged;
+10. the model and training options at ``lm_1b3``'s width, cut to 4 blocks
+   (2 recomputed) beside the same cut of the elu+1 AdamW run: the ``favor``
    feature map, then ``learnable`` with the untied head, each through
    ``generate`` (4 x 1024, 32 greedy tokens), AdamW training (B 8 x 1024)
    and the gradient check against ``backend="torch"``, every launch of rows
@@ -155,7 +179,7 @@ nonzero and no result line is printed):
    where that spread alone misses the model-level limits (``favor``: the
    exp of FAVOR+ amplifies each bf16 flip), those limits are read, not
    failed (``FAVOR_NOTE``); ``learnable`` with the
-   untied head at int8 (the int8 ``lm_head_kernel_q``, all 24 blocks); ``remat_policy=
+   untied head at int8 (the int8 ``lm_head_kernel_q``); ``remat_policy=
    "dots"`` training beside "full"'s step ms and peak memory in the same
    run, its first loss bitwise "full"'s and its gradients within the
    gradient check's limits of "full"'s; ``sr_round_bf16`` on the card
@@ -211,8 +235,8 @@ nonzero and no result line is printed):
    to first token) and ``python -m orion_tpu_torch.serving`` in a
    subprocess on the card, SIGTERM after its first boundary: exit 0 and its
    stats line; then the Server's stores (``stores_check``, in a temporary
-   directory, free disk checked first) on lm_1b3 bf16 and int4 and on
-   hybrid_1b3: 4 requests sharing a declared 768-token prefix, request 0 a
+   directory, free disk checked first) on lm_1b3 bf16, on lm_1b3 int4 cut
+   to 4 blocks and on hybrid_1b3: 4 requests sharing a declared 768-token prefix, request 0 a
    miss whose publish runs (a solo prefill: row 1 once for each linear
    layer, row 6 for each swa layer), 1-3 hits whose pieces cover only
    their suffixes, every hit bitwise the request served cold for lm_1b3
@@ -228,7 +252,9 @@ nonzero and no result line is printed):
    launches exact for every wave; readings: a hit's and a miss's first
    token, the publish's ms, the entry's bytes, session save and load ms
    and bytes; then the speculative part (``spec_check``, depth 4, no
-   floor) on lm_1b3 bf16 and int4 and on hybrid_1b3: ``verify_step`` at 4
+   floor) on lm_1b3 bf16 and int4 and on hybrid_1b3 cut to 4 blocks (swa,
+   swa, swa, linear; each cut part after its own main path and, for the
+   hybrid, "f", whose plain runs speculation is held against): ``verify_step`` at 4
    rows x 5 fed tokens bitwise 5 ``decode_step`` calls, the advance at keep
    0, 2, 5 bitwise the walk (rings included), every product of the piece
    and a draft step at 64 rows; the plan served again for each (sampling,
@@ -266,9 +292,10 @@ nonzero and no result line is printed):
    once for each variant; rows 1, 3 and 4 also with their launches under
    the options of phase 10, rows 1, 6 and 14 on the serving path, through
    ``SlotEngine``, through the Server, through its stores and through the
-   speculative part, and every row's launches through the in-process fleet,
-   ``launches_fleet``), then the result line ``{"ok": true, "device":
-   {...}}`` last.
+   speculative part, every row's launches through the in-process fleet,
+   ``launches_fleet``, and rows 1, 3, 4 and 11-13 in R1's and R3's runs,
+   ``launches_train_resilience``), then the result line ``{"ok": true,
+   "device": {...}}`` last.
 """
 
 import contextlib
@@ -502,8 +529,8 @@ def card_info():
 
 def build(modules):
     """Build the kernel libraries of ``modules`` (each with ``SOURCES``),
-    one nvcc for each source, all started together; print each build's time
-    and ptxas lines."""
+    one nvcc for each source, and the native host runtime (g++), all started
+    together; print each build's time and ptxas lines."""
     from orion_tpu_torch.ops.kernels import library
 
     sources = [src for m in modules for src in m.SOURCES.values()]
@@ -513,12 +540,21 @@ def build(modules):
         path, out = library.build(src)
         return src, path, out, time.perf_counter() - t
 
-    with ThreadPoolExecutor(len(sources)) as pool:
+    def native():  # the host runtime (g++): the data loader the train CLI reads through
+        from orion_tpu_torch import runtime
+
+        t = time.perf_counter()
+        return runtime.build(), time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host = pool.submit(native)
         for src, path, out, sec in pool.map(one, sources):
             log(f"built {path.name} from {src.relative_to(ROOT)} in {sec:.1f} s")
             for line in out.splitlines():
                 if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                     log("  ptxas:", line.strip())
+        path, sec = host.result()
+        log(f"built {path.name} from orion_tpu_torch/runtime/*.cc in {sec:.1f} s")
 
 
 def _rel(got, ref):
@@ -2339,81 +2375,172 @@ def train_phase(dev, mods, name, seq_len, overrides=None, optimizer="adamw", the
             "update_check": check, "then": after}
 
 
-def load_phase(dev, mods, trainer, prompt_len=1024, new_tokens=32):
-    """Train -> checkpoint -> generate at full width: the trainer's whole
-    state saved with the Trainer's ``Checkpointer`` into a temporary
-    directory (free space checked first), its params loaded back with
-    ``generate.load_model`` (``load_params``: memory-mapped, verified against
-    the manifest), and ``generate`` of 4 x ``prompt_len`` prompts for
-    ``new_tokens`` greedy tokens from the loaded model against the same
+def load_phase(dev, mods, trainer, ckpt_dir, prompt_len=1024, new_tokens=32):
+    """Train -> checkpoint -> generate at full width: the params of the
+    checkpoint in ``ckpt_dir`` at ``trainer.step_count`` (written by the
+    resumed run of ``preempt_resume``, bitwise ``trainer``'s state) loaded
+    with ``generate.load_model`` (``load_params``: memory-mapped, verified
+    against the manifest), and ``generate`` of 4 x ``prompt_len`` prompts
+    for ``new_tokens`` greedy tokens from the loaded model against the same
     from the in-memory trained model: tokens and prefill logits bitwise
     (the same card, kernels and casts), in bf16 and at int4 (row 14
     launched, its count read; the counts set to 0 just before each)."""
     import os
-    import shutil
-    import tempfile
 
     from orion_tpu_torch.generate import (
         SampleConfig, cast_params_for_inference, generate, load_model, quantize_for_decode)
     from orion_tpu_torch.models.transformer import TransformerLM
-    from orion_tpu_torch.training.checkpoint import Checkpointer, step_path
+    from orion_tpu_torch.training.checkpoint import step_path
 
     cfg = trainer.model.cfg
-    state = trainer.state_dict()
-    need = sum(t.numel() * t.element_size()
-               for t in _tree_leaves(state))  # the file, and its manifest's bytes beside
+    size = os.path.getsize(step_path(ckpt_dir, trainer.step_count))
+    t0 = time.perf_counter()
+    loaded, step = load_model(cfg, ckpt_dir, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"load phase: loaded the params of step {step} ({size / 1e9:.3f} GB on disk, "
+        f"{trainer.opt.__class__.__name__} state beside them) in {load_s:.1f} s")
+    if step != trainer.step_count:
+        raise AssertionError(f"loaded step {step}, want {trainer.step_count}")
+    memory = TransformerLM(cfg, device=dev)
+    memory.load_state_dict({n: p.detach() for n, p in trainer.params.items()})
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, prompt_len), dtype=np.int64)).to(dev)
+    greedy = SampleConfig(temperature=0.0)
+    res = {"load_s": load_s, "bytes": size, "step": step}
+    # int4 first: quantize_for_decode takes the fp32 weights, as the CLI
+    for mode in ("int4", ""):
+        if mode:
+            models = [quantize_for_decode(m, mode) for m in (loaded, memory)]
+        else:
+            models = [cast_params_for_inference(m) for m in (loaded, memory)]
+        _reset_counts(mods)
+        got = generate(models[0], prompts, new_tokens, greedy)
+        counts = _counts(mods)
+        ref = generate(models[1], prompts, new_tokens, greedy)
+        with torch.inference_mode():
+            lg, rlg = (m.prefill_last(prompts)[0] for m in models)
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(causal_dot_norm_wgmma=_layer_counts(cfg)[0],
+                    q4_matmul_mma=(new_tokens - 1) * _q4_per_step(cfg) if mode else 0)
+        label = mode or "bf16"
+        log(f"load phase {label}: generate from the loaded params launched {counts}; "
+            f"tokens equal the in-memory model's: {bool(torch.equal(got, ref))}; prefill "
+            f"logits bitwise equal: {bool(torch.equal(lg, rlg))}")
+        if counts != want:
+            raise AssertionError(f"loaded {label} generate launched {counts}, want {want}")
+        if not (torch.equal(got, ref) and torch.equal(lg, rlg)
+                and bool(torch.isfinite(lg).all())):
+            raise AssertionError(f"the loaded {label} model disagrees with the in-memory one")
+        res[label] = {"launches": counts, "first_tokens": got[:, :8].tolist()}
+        del models, lg, rlg
+    return res
+
+
+def _state_mismatches(a, b):
+    """The leaves of two trainers' states (params, then the optimizer's
+    state dict) that are not bitwise equal, by name."""
+    out = [n for n, p in a.params.items() if not torch.equal(p, b.params[n])]
+    sa, sb = a.opt.state_dict(), b.opt.state_dict()
+    for key, va in sa.items():
+        if isinstance(va, dict):
+            out += [f"opt/{key}/{n}" for n, t in va.items() if not torch.equal(t, sb[key][n])]
+        elif int(va) != int(sb[key]):
+            out.append(f"opt/{key}")
+    return out
+
+
+def preempt_resume(dev, mods, trainer, ckpt_dir):
+    """(R1) ``train()`` of ``trainer``'s config (lm_1b3 at full depth,
+    adafactor_fused, B 8 x 1024, the same seed and synthetic batches) with
+    ``FaultPlan().preempt_at(2)``: a real SIGTERM to this process at step 2's
+    boundary, which the run's PreemptionGuard turns into an emergency
+    checkpoint in ``ckpt_dir`` and a return; then ``train()`` again, resumed
+    from it, to the config's last step. The resumed run's params and
+    Adafactor state must be bitwise ``trainer``'s (the uninterrupted run),
+    and its launches exact: the per-step counts times the steps of the two
+    runs (counts set to 0 just before the first, read after the second)."""
+    import os
+
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.train import train
+
+    cfg = dataclasses.replace(trainer.cfg, ckpt_dir=ckpt_dir, ckpt_keep=1, preempt_grace=600.0)
+    res = {}
+    gc.collect()
+    _reset_counts(mods)
+    plan = inject.FaultPlan().preempt_at(2)
+    t0 = time.perf_counter()
+    with inject.inject(plan):
+        tr, _ = train(cfg, data="synthetic", resume=False, device=dev)
+    torch.cuda.synchronize()
+    res["preempted_s"] = time.perf_counter() - t0
+    res.update(preempted_at=tr.preempted_at, delivered=list(plan.delivered),
+               files=sorted(os.listdir(ckpt_dir)))
+    flights = sorted(os.listdir(os.path.join(ckpt_dir, "flight")))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tr, _ = train(cfg, data="synthetic", resume=True, device=dev)
+    torch.cuda.synchronize()
+    res["resumed_s"] = time.perf_counter() - t0
+    counts = _counts(mods)
+    res["launches"] = counts
+    mism = _state_mismatches(tr, trainer)
+    res.update(resumed_step=tr.step_count, mismatched=mism[:8], n_mismatched=len(mism))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = {k: v * cfg.steps for k, v in _af_per_step(trainer).items()}
+    log(f"R1 lm_1b3 adafactor_fused preempted by a SIGTERM at step 2 ({plan.delivered}): "
+        f"stopped at {res['preempted_at']} in {res['preempted_s']:.1f} s with {res['files']} "
+        f"and flight dumps {flights}; resumed to step {res['resumed_step']} in "
+        f"{res['resumed_s']:.1f} s (restore, 2 steps, the final save); params and Adafactor "
+        f"state bitwise the uninterrupted run's: {not mism} ({len(mism)} leaves differ: "
+        f"{mism[:8]}); launches over both runs {counts} (want {per_step})")
+    if not (res["preempted_at"] == 2 and plan.delivered == ["train.step_boundary@2"]
+            and "step-00000002.pt" in res["files"]
+            and any(f.endswith("train-preempt.json") for f in flights)):
+        raise AssertionError(f"R1: the preemption did not stop at step 2 with its checkpoint: "
+                             f"{res}, {flights}")
+    if res["resumed_step"] != cfg.steps or mism:
+        raise AssertionError(f"R1: the resumed run is not bitwise the uninterrupted one: {res}")
+    if counts != per_step:
+        raise AssertionError(f"R1 launches {counts}, want {per_step}")
+    return res
+
+
+def _af_per_step(trainer):
+    """Exact launches of one lm_1b3 adafactor_fused training step."""
+    m = trainer.model.cfg
+    lin, _, lin_remat, _ = _layer_counts(m)
+    want = dict.fromkeys(KERNELS, 0)
+    n_af = _af_kernel_leaves(trainer.params)
+    want.update(causal_dot_norm_wgmma=lin + lin_remat, causal_dot_dq_den_wgmma=lin,
+                causal_dot_rev_den_wgmma=lin, adafactor_sums=2 * n_af,
+                adafactor_rms=2 * n_af, adafactor_apply=n_af)
+    return want
+
+
+def adafactor_resilience(dev, mods, trainer):
+    """R1, then the load phase from the resumed run's final checkpoint, in a
+    temporary directory (free disk checked first, removed after): two
+    checkpoints of the trainer's state may be on disk at once."""
+    import shutil
+    import tempfile
+
+    need = sum(t.numel() * t.element_size() for t in _tree_leaves(trainer.state_dict()))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         free = shutil.disk_usage(tmp).free
-        log(f"load phase: checkpoint of {need / 1e9:.3f} GB into {tmp} ({free / 1e9:.1f} GB free)")
-        if free < need + 2**30:
-            raise RuntimeError(f"{tmp} has {free / 1e9:.1f} GB free; the checkpoint needs "
-                               f"{need / 1e9:.1f} GB and 1 GiB to spare")
-        t0 = time.perf_counter()
-        Checkpointer(tmp, max_to_keep=1).maybe_save(trainer.step_count, state, force=True)
-        save_s = time.perf_counter() - t0
-        size = os.path.getsize(step_path(tmp, trainer.step_count))
-        del state
-        t0 = time.perf_counter()
-        loaded, step = load_model(cfg, tmp, dev)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        log(f"load phase: saved step {step} ({size / 1e9:.3f} GB on disk, "
-            f"{trainer.opt.__class__.__name__} state beside the params) in {save_s:.1f} s; "
-            f"loaded its params in {load_s:.1f} s")
-        memory = TransformerLM(cfg, device=dev)
-        memory.load_state_dict({n: p.detach() for n, p in trainer.params.items()})
-        prompts = torch.from_numpy(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (4, prompt_len), dtype=np.int64)).to(dev)
-        greedy = SampleConfig(temperature=0.0)
-        res = {"save_s": save_s, "load_s": load_s, "bytes": size, "step": step}
-        # int4 first: quantize_for_decode takes the fp32 weights, as the CLI
-        for mode in ("int4", ""):
-            if mode:
-                models = [quantize_for_decode(m, mode) for m in (loaded, memory)]
-            else:
-                models = [cast_params_for_inference(m) for m in (loaded, memory)]
-            _reset_counts(mods)
-            got = generate(models[0], prompts, new_tokens, greedy)
-            counts = _counts(mods)
-            ref = generate(models[1], prompts, new_tokens, greedy)
-            with torch.inference_mode():
-                lg, rlg = (m.prefill_last(prompts)[0] for m in models)
-            want = dict.fromkeys(KERNELS, 0)
-            want.update(causal_dot_norm_wgmma=_layer_counts(cfg)[0],
-                        q4_matmul_mma=(new_tokens - 1) * _q4_per_step(cfg) if mode else 0)
-            label = mode or "bf16"
-            log(f"load phase {label}: generate from the loaded params launched {counts}; "
-                f"tokens equal the in-memory model's: {bool(torch.equal(got, ref))}; prefill "
-                f"logits bitwise equal: {bool(torch.equal(lg, rlg))}")
-            if counts != want:
-                raise AssertionError(f"loaded {label} generate launched {counts}, want {want}")
-            if not (torch.equal(got, ref) and torch.equal(lg, rlg)
-                    and bool(torch.isfinite(lg).all())):
-                raise AssertionError(f"the loaded {label} model disagrees with the in-memory one")
-            res[label] = {"launches": counts, "first_tokens": got[:, :8].tolist()}
-            del models, lg, rlg
-        return res
+        log(f"R1: checkpoints of {need / 1e9:.3f} GB into {tmp} ({free / 1e9:.1f} GB free)")
+        if free < 2 * need + 2**30:
+            raise RuntimeError(f"{tmp} has {free / 1e9:.1f} GB free; two checkpoints need "
+                               f"{2 * need / 1e9:.1f} GB and 1 GiB to spare")
+        r1 = preempt_resume(dev, mods, trainer, tmp)
+        r1["load"] = load_phase(dev, mods, trainer, tmp)
+        return r1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4154,9 +4281,9 @@ def spec_mutant(model, plan, label, engine, samples):
 
 def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", "ladder",
                                                                  "session", "times"),
-                  server_runs=()):
+                  server_runs=(), overrides=None):
     """``SlotEngine`` at ``name``'s full width (``quant``: quantized from the
-    seeded fp32 weights), chunk 16, pieces of 256. The main path: ``plan``
+    seeded fp32 weights; ``overrides``: a depth cut), chunk 16, pieces of 256. The main path: ``plan``
     served greedy twice, by host-prefill and by in-scan admission, every
     boundary's free and held rows bitwise (c), with exact launch counts; an
     extract / insert round trip (d); in-scan == host admission (bitwise for
@@ -4182,13 +4309,14 @@ def serving_phase(dev, mods, name, plan, card, quant="", checks=("b", "f", "g", 
                                                     insert_decode_slot)
     from orion_tpu_torch.serving import DecodeRequest
 
-    cfg = get_config(name)
+    cfg = get_config(name, **(overrides or {}))
     fp = TransformerLM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     model = quantize_for_decode(fp, quant) if quant else cast_params_for_inference(fp)
     if not (quant and (server_runs or "stores" in checks)):
         fp = None  # else the Server quantizes the fp32 weights itself
     torch.cuda.empty_cache()
-    label = f"{name}{' ' + quant if quant else ''} serving"
+    cut = f" ({cfg.n_layers} blocks)" if overrides else ""
+    label = f"{name}{' ' + quant if quant else ''}{cut} serving"
     greedy, sampled = SampleConfig(temperature=0.0), SampleConfig(**SAMPLED_SERVE)
     linear = all(lt == "linear" for lt in cfg.resolved_layer_types)
     lin, attn, _, _ = _layer_counts(cfg)
@@ -6071,6 +6199,308 @@ def fleet_phase(dev, mods, card, device_args=()):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Training resilience (R2, R3; R1 rides in the adafactor_fused phase)
+# ---------------------------------------------------------------------------
+
+# lm_1b3 at full width, cut to 4 blocks (2 recomputed), as the sp / dp parts
+RESILIENCE_OVER = {"n_layers": 4, "remat_skip": 2}
+RESILIENCE_STEPS = 8
+
+
+def train_cli(ckpt, tmp, tag, steps=RESILIENCE_STEPS, device_args=()):
+    """``python -m orion_tpu_torch.train`` on lm_1b3 cut to 4 blocks, AdamW,
+    B 8 x 1024 of ``data/train.bin`` (the native loader), with the
+    resilience knobs, started in the background; stdout and stderr to files
+    under ``tmp`` named by ``tag``."""
+    over = tmp / "over.json"
+    over.write_text(json.dumps({"model": RESILIENCE_OVER}))
+    cmd = [sys.executable, "-m", "orion_tpu_torch.train", "--config", "lm_1b3", "--config-json",
+           str(over), "--data", str(ROOT / "data" / "train.bin"), "--seq-len", "1024",
+           "--batch-size", "8", "--steps", str(steps), "--ckpt-dir", str(ckpt), "--log-path",
+           str(tmp / f"{tag}.jsonl"), "--metrics-path", str(tmp / f"{tag}.prom"),
+           "--step-timeout", "120", "--preempt-grace", "30", "--set", "log_every=1",
+           *device_args]
+    out, err = (open(tmp / f"{tag}.{x}", "w", encoding="utf-8") for x in ("out", "err"))
+    proc = subprocess.Popen(cmd, stdin=subprocess.DEVNULL, stdout=out, stderr=err, cwd=str(ROOT),
+                            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    out.close()
+    err.close()
+    return proc
+
+
+def train_monitor(pid, log_path, out_path, at_step, timeout):
+    """(R2) A process of its own (this script spawned): SIGTERM ``pid`` once
+    its JSONL log at ``log_path`` shows a step >= ``at_step``; writes the
+    step it saw and the time to ``out_path``. Runs until ``pid`` is gone."""
+    seen, sent = 0, None
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and Path(f"/proc/{pid}").exists():
+        if sent is None:
+            try:
+                lines = Path(log_path).read_text().splitlines()
+            except OSError:
+                lines = []
+            steps = [json.loads(ln)["step"] for ln in lines if ln.endswith("}")]
+            seen = max(steps, default=0)
+            if seen >= at_step:
+                os.kill(pid, signal.SIGTERM)
+                sent = time.time()
+        time.sleep(0.01)
+    Path(out_path).write_text(json.dumps({"seen": seen, "sigterm_at": sent}))
+
+
+def _finish_cli(proc, tmp, tag, timeout=600):
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, (tmp / f"{tag}.err").read_text(encoding="utf-8", errors="replace")
+
+
+def _snapshot(prom):
+    path = Path(str(prom) + ".json")
+    if not path.exists():
+        return {}, {}
+    snap = json.loads(path.read_text())
+    counters = {c["name"]: c["value"] for c in snap["counters"] if not c["labels"]}
+    gauges = {g["labels"].get("metric"): g["value"] for g in snap["gauges"] if g["name"] == "train"}
+    return counters, gauges
+
+
+def _checkpoint_mismatches(a, b):
+    """The leaves of two checkpoint files that are not bitwise equal."""
+    from orion_tpu_torch.training.checkpoint import _leaves
+
+    ta, tb = (torch.load(p, map_location="cpu", weights_only=True, mmap=True) for p in (a, b))
+    la, lb = dict(_leaves(ta)), dict(_leaves(tb))
+    if la.keys() != lb.keys():
+        return sorted(la.keys() ^ lb.keys())
+    return [n for n, t in la.items() if not torch.equal(t, lb[n])]
+
+
+def cli_preemption(tmp, device_args=()):
+    """(R2) Three runs of ``train_cli``: U uninterrupted and P, started
+    together, P SIGTERMed by ``train_monitor`` once its log shows step 2;
+    then P's rerun from its directory, started by a waiter thread as soon as
+    P exits. Returns the running pieces for ``cli_preemption_verdict`` (this
+    process serves R3 meanwhile)."""
+    u = train_cli(tmp / "u_ckpt", tmp, "u", device_args=device_args)
+    p = train_cli(tmp / "p_ckpt", tmp, "p", device_args=device_args)
+    mon = torch.multiprocessing.get_context("spawn").Process(
+        target=train_monitor, args=(p.pid, str(tmp / "p.jsonl"), str(tmp / "monitor.json"), 2,
+                                    600))
+    mon.start()
+    run = {"u": u, "p": p, "monitor": mon, "t0": time.perf_counter()}
+
+    def rerun_after_p():
+        try:
+            p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            return
+        run["p_s"] = time.perf_counter() - run["t0"]
+        if p.returncode == 0:
+            run["rerun_t0"] = time.perf_counter()
+            run["rerun"] = train_cli(tmp / "p_ckpt", tmp, "p2", device_args=device_args)
+
+    run["waiter"] = threading.Thread(target=rerun_after_p, daemon=True)
+    run["waiter"].start()
+    return run
+
+
+def _kill_cli(run):
+    for key in ("u", "p", "rerun"):
+        proc = run.get(key)
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+    run["monitor"].kill()
+
+
+def cli_preemption_verdict(run, tmp, device_args=()):
+    """(R2) P: exit 0, ``preempted at step N`` on stderr, only an
+    off-cadence step-N checkpoint, a flight dump holding ``train_preempt``,
+    its registry's ``train{metric="step"}`` N and ``train_steps_total`` N - 1
+    (the steps after the first logged one, the JAX logger's count), stderr
+    naming the native loader; the rerun: ``resumed from step N``, exit 0;
+    its final checkpoint bitwise U's, tensor by tensor."""
+    from orion_tpu_torch.training.checkpoint import step_path
+
+    res = {}
+    try:
+        rc_p, err_p = _finish_cli(run["p"], tmp, "p")
+        run["waiter"].join(timeout=60)
+    finally:
+        run["monitor"].join(timeout=60)
+        if run["monitor"].is_alive():
+            run["monitor"].kill()
+    res["p_s"] = run.get("p_s")
+    mon = json.loads((tmp / "monitor.json").read_text())
+    n = int(err_p.split("preempted at step ")[1].split(":")[0]) if "preempted at step " in \
+        err_p else None
+    ckpt = tmp / "p_ckpt"
+    files = sorted(f for f in os.listdir(ckpt) if f.endswith(".pt")) if ckpt.exists() else []
+    flight_dir = ckpt / "flight"
+    flights = sorted(os.listdir(flight_dir)) if flight_dir.exists() else []
+    preempt_events = sum(e["kind"] == "train_preempt" for f in flights
+                         for e in json.loads((flight_dir / f).read_text())["events"])
+    counters, gauges = _snapshot(tmp / "p.prom")
+    res.update(rc_p=rc_p, preempted_at=n, monitor=mon, files=files, flights=flights,
+               train_steps_total=counters.get("train_steps_total"), step_gauge=gauges.get("step"),
+               native="through NativeTokenBinDataset" in err_p)
+    rc_2, err_2 = (_finish_cli(run["rerun"], tmp, "p2") if "rerun" in run
+                   else (None, "no rerun: P failed"))
+    res["rerun_s"] = time.perf_counter() - run.get("rerun_t0", time.perf_counter())
+    rc_u, err_u = _finish_cli(run["u"], tmp, "u")
+    res.update(rc_2=rc_2, rc_u=rc_u, resumed=f"resumed from step {n}" in err_2)
+    final = RESILIENCE_STEPS
+    res["mismatched"] = (_checkpoint_mismatches(step_path(str(ckpt), final),
+                                                step_path(str(tmp / "u_ckpt"), final))
+                         if rc_2 == 0 and rc_u == 0 else ["no final checkpoint"])
+    res["wall_s"] = time.perf_counter() - run["t0"]
+    log(f"R2 train CLI (lm_1b3 4 blocks, AdamW, B8 x 1024 of data/train.bin): SIGTERM after "
+        f"step {mon['seen']} -> exit {rc_p}, preempted at step {n}, checkpoints {files}, flight "
+        f"dumps {flights} ({preempt_events} train_preempt events), registry step {gauges.get('step')} "
+        f"train_steps_total {counters.get('train_steps_total')}, native loader named: "
+        f"{res['native']}; P exited at {res['p_s']} s, its rerun exit {rc_2} (resumed from step "
+        f"{n}: {res['resumed']}) {res['rerun_s']:.1f} s after; uninterrupted exit {rc_u}; final "
+        f"checkpoints bitwise: "
+        f"{not res['mismatched']} ({res['mismatched'][:5]}); the part {res['wall_s']:.1f} s")
+    ok = (rc_p == 0 and n is not None and 2 <= n < final and files == [f"step-{n:08d}.pt"]
+          and preempt_events >= 1 and res["step_gauge"] == n
+          and res["train_steps_total"] == n - 1 and res["native"] and rc_2 == 0
+          and res["resumed"] and rc_u == 0 and not res["mismatched"])
+    if not ok:
+        raise AssertionError(f"R2: the train CLI's preemption misbehaved: {res}\nP stderr tail:\n"
+                             f"{err_p[-3000:]}\nrerun stderr tail:\n{err_2[-2000:]}\nU stderr "
+                             f"tail:\n{err_u[-2000:]}")
+    return res
+
+
+def inprocess_faults(dev, mods, tmp):
+    """(R3) lm_1b3 cut to 4 blocks, AdamW, B 8 x 1024, in this process:
+    ``poison_nan_at(2)``: the params after step 2 bitwise those after step
+    1, ``nonfinite`` 1, step 3's loss finite; ``fail_io("ckpt.save", 2,
+    times=2)``: step 2's save lands after two retries and verifies;
+    ``corrupt_step`` on it (the newest): the default restore falls back to
+    step 1 with a warning, a pinned restore of step 2 raises;
+    ``fail_io("data.batch", 1, times=2)`` on ``data/train.bin`` through the
+    native loader: batch 1 bitwise the twin's. Launches exact over the 3
+    steps (counts set to 0 just before the first)."""
+    import warnings
+
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.resilience.retry import RetryPolicy
+    from orion_tpu_torch.training.checkpoint import Checkpointer
+    from orion_tpu_torch.training.data import (
+        DataLoader, SyntheticDataset, TokenBinDataset, make_dataset)
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    cfg = TrainConfig(model=get_config("lm_1b3", **RESILIENCE_OVER), steps=3, batch_size=8,
+                      seq_len=1024)
+    trainer = Trainer(cfg, device=dev)
+    ds = SyntheticDataset(cfg.model.vocab_size, cfg.seq_len)
+    batches = [torch.from_numpy(ds.batch(0, i, 8)).long().to(dev) for i in range(3)]
+    ck = Checkpointer(str(tmp / "r3_ckpt"), save_every=0,
+                      retry=RetryPolicy(attempts=4, base_delay=0.05, max_delay=0.2))
+    res = {}
+    _reset_counts(mods)
+    trainer.step(batches[0])
+    after_1 = {n: p.detach().clone() for n, p in trainer.params.items()}
+    plan = inject.FaultPlan().poison_nan_at(2).fail_io("ckpt.save", 2, times=2)
+    with inject.inject(plan), warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        ck.maybe_save(1, trainer.state_dict(), force=True)
+        m2 = trainer.step(batches[1])
+        saved = ck.maybe_save(2, trainer.state_dict(), force=True)
+    retried = sum("retrying" in str(x.message) for x in w)
+    same = [n for n, p in trainer.params.items() if not torch.equal(p, after_1[n])]
+    restored = ck.restore(step=2)
+    verify = all(torch.equal(restored["params"][n].to(dev), p) for n, p in trainer.params.items())
+    del restored, after_1
+    m3 = trainer.step(batches[2])
+    counts = _counts(mods)
+    lin, _, lin_remat, _ = _layer_counts(cfg.model)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(causal_dot_norm_wgmma=3 * (lin + lin_remat), causal_dot_dq_den_wgmma=3 * lin,
+                causal_dot_rev_den_wgmma=3 * lin)
+    res.update(delivered=list(plan.delivered), nonfinite=int(m2["nonfinite_total"]),
+               poisoned_loss=m2["loss"], loss_3=m3["loss"], params_moved=same[:5], saved=saved,
+               retried=retried, verified=verify, launches=counts)
+    from orion_tpu_torch.resilience.inject import corrupt_step
+
+    corrupt_step(ck.directory, 2)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        fallback = int(ck.restore()["step"])
+    warned = any("corrupt or incomplete" in str(x.message) for x in w)
+    try:
+        ck.restore(step=2)
+        pinned = "did not raise"
+    except Exception as e:  # a pinned step never falls back
+        pinned = type(e).__name__
+    res.update(fallback_step=fallback, fallback_warned=warned, pinned=pinned)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = make_dataset(str(ROOT / "data" / "train.bin"), 1024)
+    plan = inject.FaultPlan().fail_io("data.batch", 1, times=2)
+    with inject.inject(plan), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        loader = DataLoader(data, 8, seed=0, device=dev)
+        try:
+            b0, b1 = next(loader), next(loader)
+        finally:
+            loader.close()
+    twin = TokenBinDataset(str(ROOT / "data" / "train.bin"), 1024)
+    res.update(data_delivered=list(plan.delivered), loader=type(data).__name__,
+               batch_bitwise=bool(np.array_equal(b1.cpu().numpy(), twin.batch(0, 1, 8))
+                                  and np.array_equal(b0.cpu().numpy(), twin.batch(0, 0, 8))))
+    res["s"] = time.perf_counter() - t0
+    log(f"R3 in-process (lm_1b3 4 blocks, AdamW, B8 x 1024): poisoned step 2: loss "
+        f"{res['poisoned_loss']}, nonfinite {res['nonfinite']}, params moved {same[:5]} (want "
+        f"none), step 3 loss {res['loss_3']:.4f}; step 2's save with 2 injected faults landed: "
+        f"{saved} after {retried} retries, verified {verify}; step 2 corrupted: the restore fell "
+        f"back to step {fallback} (warned: {warned}), the pinned restore raised {pinned}; "
+        f"data.batch failing twice at step 1 through {res['loader']}: batches bitwise the twin's "
+        f"{res['batch_bitwise']} ({plan.delivered}); launches {counts} (want {want}); "
+        f"{res['s']:.1f} s")
+    ok = (res["delivered"] == ["train.nan@2", "ckpt.save@2", "ckpt.save@2"]
+          and res["nonfinite"] == 1 and not np.isfinite(res["poisoned_loss"]) and not same
+          and np.isfinite(res["loss_3"]) and saved and retried == 2 and verify
+          and fallback == 1 and warned and pinned != "did not raise"
+          and res["data_delivered"] == ["data.batch@1"] * 2
+          and res["loader"] == "NativeTokenBinDataset" and res["batch_bitwise"])
+    if not ok or counts != want:
+        raise AssertionError(f"R3 misbehaved: {res} (launches want {want})")
+    return res
+
+
+def train_part(dev, mods, device_args=()):
+    """R2 and R3: the train CLI's preemption runs in the background (its
+    own processes on this card) while this process runs R3."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        tmp = Path(d)
+        run = cli_preemption(tmp, device_args=device_args)
+        try:
+            r3 = inprocess_faults(dev, mods, tmp)
+            r2 = cli_preemption_verdict(run, tmp, device_args=device_args)
+        except BaseException:
+            _kill_cli(run)
+            raise
+    res = {"r2": r2, "r3": r3, "s": time.perf_counter() - t0}
+    log(f"training resilience part: R2 {r2['wall_s']:.1f} s (P and U together, P's rerun when P "
+        f"exited), "
+        f"R3 {r3['s']:.1f} s inside it; the part {res['s']:.1f} s")
+    return res
+
+
 def checkout_package():
     """The ``orion_tpu_torch`` beside this script, or None: a copy of the
     script alone in a directory finds none (or, through ``PYTHONPATH``,
@@ -6087,8 +6517,10 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser("chip_smoke.py")
-    ap.add_argument("--part", choices=("all", "fleet"), default="all",
-                    help="fleet: the build, the kernel checks and the fleet part alone")
+    ap.add_argument("--part", choices=("all", "fleet", "train"), default="all",
+                    help="fleet / train: the build, the kernel checks and the fleet part, or the "
+                    "training-resilience part (R1 in lm_1b3's adafactor_fused phase, R2, R3), "
+                    "alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -6122,6 +6554,13 @@ def main(argv=None) -> int:
         log(f"fleet phases done at {time.perf_counter() - t0:.1f} s")
         for k in kernels:  # the main path of this part: the in-process fleet
             k["launches"] = k["launches_fleet"] = fleet["local"]["launches"][k["name"]]
+        return _finish(card, kernels)
+    if args.part == "train":
+        af_train, train = resilience_phases(dev, mods, t0)
+        for k in kernels:  # the main path of this part: R1's two runs and R3's steps
+            k["launches"] = af_train["then"]["launches"][k["name"]] + \
+                train["r3"]["launches"][k["name"]]
+            _resilience_launches(k, af_train, train)
         return _finish(card, kernels)
     # sequence parallelism: ranks as processes sharing this card
     sp_lines, sp_memory = sp_phase(causal_dot, flash_attention, dev)
@@ -6191,17 +6630,22 @@ def main(argv=None) -> int:
     tiny_generate(dev, tiny_hybrid, "tiny hybrid (swa, linear; window 16) int4", quant="int4")
     log(f"lm_1b3 int4 decode {lm_int4['decode_ms_per_token']:.3f} ms/token against bf16's "
         f"{lm_gen['decode_ms_per_token']:.3f} in this run")
-    af_train = train_phase(dev, mods, "lm_1b3", 1024, optimizer="adafactor_fused",
-                           then=lambda trainer: load_phase(dev, mods, trainer))
-    loaded = af_train["then"]
+    af_train, train = resilience_phases(dev, mods, t0)
+    loaded = af_train["then"]["load"]
     tiny_train(dev, TINY, "tiny adafactor_fused", optimizer="adafactor_fused")
     log(f"lm_1b3 adafactor_fused step {af_train['step_ms']:.2f} ms against AdamW's "
         f"{lm_train['step_ms']:.2f} in this run")
-    log(f"quantized serving and Adafactor phases done at {time.perf_counter() - t0:.1f} s")
+    log(f"quantized serving, Adafactor and training resilience phases done at "
+        f"{time.perf_counter() - t0:.1f} s")
 
-    # the feature maps of rows 1, 3 and 4 at lm_1b3's width: every launch wgmma
-    favor = {"feature_map": "favor"}
-    learnable = {"feature_map": "learnable", "tie_embeddings": False}
+    # the options at lm_1b3's width, cut to 4 blocks (2 recomputed): the
+    # feature maps of rows 1, 3 and 4 (every launch wgmma), remat "dots",
+    # bfloat16_sr storage, each beside the same cut of the elu+1 AdamW run
+    t_opt = time.perf_counter()
+    cut = RESILIENCE_OVER
+    base4 = train_phase(dev, mods, "lm_1b3", 1024, cut)
+    favor = {**cut, "feature_map": "favor"}
+    learnable = {**cut, "feature_map": "learnable", "tie_embeddings": False}
     fm_runs = {}
     for label, over in (("favor", favor), ("learnable_untied", learnable)):
         spread_missed, spread = plain_spread(dev, "lm_1b3", 1024, over)
@@ -6211,28 +6655,30 @@ def main(argv=None) -> int:
         fm_grad = grad_check(dev, "lm_1b3", 1024, overrides=over, audit=True,
                              model_limits=not spread_missed)
         fm_runs[label] = {"generate": fm_gen["launches"], "train": fm_train["launches"]}
-        log(f"lm_1b3 {label}: kernels vs plain, prefill logits {fm_gen['logits_max_abs_err']:.4e}, "
-            f"gradients up to {fm_grad['grad_rel_l2_max']:.4g} relative L2; the plain path "
-            f"against itself {spread['logits_max_abs']:.4e}, {spread['grad_rel_l2_max']:.4g}; "
-            f"train step {fm_train['step_ms']:.2f} ms against elu+1's {lm_train['step_ms']:.2f}")
-    # the int8 untied head (lm_head_kernel_q) at lm_1b3's width and depth
+        log(f"lm_1b3 (4 blocks) {label}: kernels vs plain, prefill logits "
+            f"{fm_gen['logits_max_abs_err']:.4e}, gradients up to "
+            f"{fm_grad['grad_rel_l2_max']:.4g} relative L2; the plain path against itself "
+            f"{spread['logits_max_abs']:.4e}, {spread['grad_rel_l2_max']:.4g}; train step "
+            f"{fm_train['step_ms']:.2f} ms against elu+1's {base4['step_ms']:.2f}")
+    # the int8 untied head (lm_head_kernel_q) at lm_1b3's width
     quant_generate_phase(dev, mods, "lm_1b3", 1024, 32, "int8", learnable)
-    dots = train_phase(dev, mods, "lm_1b3", 1024, {"remat_policy": "dots"})
-    log(f"lm_1b3 remat 'dots' step {dots['step_ms']:.2f} ms, max memory allocated "
-        f"{dots['max_memory_gib']:.2f} GiB against 'full''s {lm_train['step_ms']:.2f} ms, "
-        f"{lm_train['max_memory_gib']:.2f} GiB in this run; first losses {dots['losses'][0]!r} "
-        f"vs {lm_train['losses'][0]!r}")
-    if dots["losses"][0] != lm_train["losses"][0]:
+    dots = train_phase(dev, mods, "lm_1b3", 1024, {**cut, "remat_policy": "dots"})
+    log(f"lm_1b3 (4 blocks) remat 'dots' step {dots['step_ms']:.2f} ms, max memory allocated "
+        f"{dots['max_memory_gib']:.2f} GiB against 'full''s {base4['step_ms']:.2f} ms, "
+        f"{base4['max_memory_gib']:.2f} GiB in this run; first losses {dots['losses'][0]!r} "
+        f"vs {base4['losses'][0]!r}")
+    if dots["losses"][0] != base4["losses"][0]:
         raise AssertionError("remat 'dots' changed the first step's loss")
-    grad_check(dev, "lm_1b3", 1024, overrides={"remat_policy": "dots"},
+    grad_check(dev, "lm_1b3", 1024, overrides={**cut, "remat_policy": "dots"},
                ref_overrides={"remat_policy": "full"})
     sr_ms = sr_check(dev)
-    sr = train_phase(dev, mods, "lm_1b3", 1024, steps=5, param_storage="bfloat16_sr",
+    sr = train_phase(dev, mods, "lm_1b3", 1024, cut, steps=5, param_storage="bfloat16_sr",
                      then=_storage)
-    log(f"lm_1b3 bfloat16_sr storage ({sr['then']} params): step {sr['step_ms']:.2f} ms, max "
-        f"memory allocated {sr['max_memory_gib']:.2f} GiB against fp32 storage's "
-        f"{lm_train['step_ms']:.2f} ms, {lm_train['max_memory_gib']:.2f} GiB in this run")
-    log(f"feature map, remat and storage phases done at {time.perf_counter() - t0:.1f} s")
+    log(f"lm_1b3 (4 blocks) bfloat16_sr storage ({sr['then']} params): step "
+        f"{sr['step_ms']:.2f} ms, max memory allocated {sr['max_memory_gib']:.2f} GiB against "
+        f"fp32 storage's {base4['step_ms']:.2f} ms, {base4['max_memory_gib']:.2f} GiB in this run")
+    log(f"feature map, remat and storage phases done at {time.perf_counter() - t0:.1f} s "
+        f"({time.perf_counter() - t_opt:.1f} s)")
 
     lra = {}
     for name, t, b in (("lra_listops_linear", 2000, 32), ("lra_listops_softmax", 2000, 32),
@@ -6244,6 +6690,7 @@ def main(argv=None) -> int:
     row_forms(dev)
     both = (("greedy", "host"), ("greedy", "inscan"), ("sampled", "host"), ("sampled", "inscan"))
     host = (("greedy", "host"), ("sampled", "host"))
+    t_serve = time.perf_counter()
     serving = {
         "lm_1b3": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card,
                                 checks=("b", "f", "g", "ladder", "session", "times",
@@ -6251,14 +6698,26 @@ def main(argv=None) -> int:
                                         "stores_full", "spec", "spec_full", "spec_mutant"),
                                 server_runs=both),
         "lm_1b3_int4": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, quant="int4",
-                                     checks=("f", "stores", "spec"), server_runs=host),
+                                     checks=("f", "spec"), server_runs=host),
         # the hybrid's in-scan pieces run its swa plain, as in JAX: row 6 only
         # in the host (solo) prefill and a prefix publish's
         "hybrid_1b3": serving_phase(dev, mods, "hybrid_1b3", HYBRID_PLAN, card,
                                     checks=("b", "f", "g", "ladder", "session", "times",
-                                            "stores", "spec", "spec_full"), server_runs=host),
+                                            "stores"), server_runs=host),
     }
-    log(f"serving phases done at {time.perf_counter() - t0:.1f} s")
+    # the int4 stores part and the hybrid's speculative part at 4 blocks (the
+    # hybrid's keep both layer kinds: swa, swa, swa, linear; its CLI serves
+    # the full depth); "f" gives the plain runs speculation is held against
+    from orion_tpu_torch.models.configs import hybrid_pattern
+
+    serving["lm_1b3_int4"]["stores"] = serving_phase(
+        dev, mods, "lm_1b3", LM_PLAN, card, quant="int4", checks=("stores",),
+        overrides=RESILIENCE_OVER)["stores"]
+    serving["hybrid_1b3"]["spec"] = serving_phase(
+        dev, mods, "hybrid_1b3", HYBRID_PLAN, card, checks=("f", "spec", "spec_full"),
+        overrides={**RESILIENCE_OVER, "layer_types": hybrid_pattern(4)})["spec"]
+    log(f"serving phases done at {time.perf_counter() - t0:.1f} s "
+        f"({time.perf_counter() - t_serve:.1f} s)")
     fleet = fleet_phase(dev, mods, card)
     log(f"fleet phases done at {time.perf_counter() - t0:.1f} s")
 
@@ -6282,6 +6741,7 @@ def main(argv=None) -> int:
             k["launches_moe_1b3_4e_int4"] = moe_int4["launches"][k["name"]]
             k["launches_per_decode_step"] = lm_int4["q4_per_step"]
             continue
+        _resilience_launches(k, af_train, train)
         if k["name"].startswith("adafactor"):  # the main path: lm_1b3 adafactor_fused training
             k["launches"] = af_train["launches"][k["name"]]
             k["launches_per_step"] = af_train["per_step"][0][k["name"]]
@@ -6337,6 +6797,31 @@ def main(argv=None) -> int:
     for k in kernels:  # each kernel's launches over the dp part's steps and ranks
         k["launches_dp"] = dp_launches.get(k["name"], 0)
     return _finish(card, kernels)
+
+
+def resilience_phases(dev, mods, t0):
+    """lm_1b3's adafactor_fused phase with R1 and the load phase, then R2
+    and R3; each part's seconds logged."""
+    t1 = time.perf_counter()
+    af_train = train_phase(dev, mods, "lm_1b3", 1024, optimizer="adafactor_fused",
+                           then=lambda trainer: adafactor_resilience(dev, mods, trainer))
+    log(f"adafactor_fused phase with R1 and the load phase done at {time.perf_counter() - t0:.1f} s "
+        f"({time.perf_counter() - t1:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_part(dev, mods)
+    log(f"training resilience part (R2, R3) done at {time.perf_counter() - t0:.1f} s "
+        f"({train['s']:.1f} s)")
+    return af_train, train
+
+
+def _resilience_launches(k, af_train, train):
+    """Rows 1, 3, 4 and 11-13 in R1's two runs (lm_1b3 adafactor_fused, 4
+    steps) and R3's 3 steps (4 blocks, AdamW)."""
+    if k["name"] in ("causal_dot_norm_wgmma", "causal_dot_dq_den_wgmma",
+                     "causal_dot_rev_den_wgmma") or k["name"].startswith("adafactor"):
+        k["launches_train_resilience"] = {"r1": af_train["then"]["launches"][k["name"]],
+                                          "r3": train["r3"]["launches"][k["name"]]}
 
 
 def _finish(card, kernels) -> int:

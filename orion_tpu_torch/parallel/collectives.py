@@ -283,5 +283,16 @@ def all_reduce_sum_(tensors: Sequence[Tensor], group: Optional[dist.ProcessGroup
             offset += t.numel()
 
 
+def any_rank(flag: bool, device, group: Optional[dist.ProcessGroup] = None) -> bool:
+    """Is ``flag`` set on any rank of the group? One int reduced with MAX
+    (on the host for gloo, on ``device`` for NCCL): the ranks of a mesh
+    agree on when to stop, whichever of them saw the signal."""
+    dev = torch.device(device)
+    on = dev if dev.type == "cuda" and dist.get_backend(group) != "gloo" else torch.device("cpu")
+    wire = torch.tensor([int(bool(flag))], dtype=torch.int32, device=on)
+    dist.all_reduce(wire, op=dist.ReduceOp.MAX, group=group)
+    return bool(wire.item())
+
+
 __all__ = ["ppermute_shift", "exclusive_prefix_sum", "exchange", "touch", "all_reduce_sum_",
-           "all_gather", "reduce_scatter", "all_reduce_mean"]
+           "all_gather", "reduce_scatter", "all_reduce_mean", "any_rank"]

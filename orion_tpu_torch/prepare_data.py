@@ -4,9 +4,10 @@ The port's copy of ``orion_tpu/prepare_data.py``: the same files, bitwise
 (``tests/test_torch_bpe.py``), which ``orion_tpu_torch/training/data.py``
 reads. Two tokenizer paths:
 
-- **byte-level** (default): raw bytes → uint16 token-bin, vocab 256, in
-  numpy (the JAX package's C++ streaming encoder, runtime/tokenizer.cc,
-  waits for the port's runtime binding; ROADMAP.md queue A).
+- **byte-level** (default): raw bytes → uint16 token-bin, vocab 256; one
+  plain file streams through the native byte encoder
+  (``orion_tpu_torch.runtime.byte_encode_file`` over runtime/tokenizer.cc,
+  numpy without g++).
 - **subword BPE** (``--tokenizer tok.json``): byte-level BPE encoding for
   the 32k-vocab flagship configs. Train one first with
   ``--train-tokenizer --vocab-size 32000 --tokenizer-out tok.json``
@@ -56,14 +57,11 @@ def prepare_bytes(
     sep: bytes = b"\n\n",
 ) -> int:
     """Byte-level path (vocab 256). One plain file is written as its bytes,
-    with no separator (as the JAX package's ``runtime.byte_encode_file``)."""
+    with no separator, by the runtime's streaming encoder."""
     if not jsonl and len(inputs) == 1:
-        with open(inputs[0], "rb") as f:
-            data = f.read()
-        np.frombuffer(data, dtype=np.uint8).astype(np.uint16).tofile(out_path)
-        with open(out_path + ".meta.json", "w") as f:
-            json.dump({"dtype": "uint16", "count": len(data), "vocab_size": 256}, f)
-        return len(data)
+        from orion_tpu_torch import runtime
+
+        return runtime.byte_encode_file(inputs[0], out_path)
 
     total = 0
     with open(out_path, "wb") as out:

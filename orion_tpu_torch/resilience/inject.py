@@ -1,5 +1,5 @@
 """Deterministic fault injection at named hook points: the port's copy of
-``orion_tpu/resilience/inject.py``, trimmed to the sites the port fires.
+``orion_tpu/resilience/inject.py``, with the sites the port fires.
 
 Production code carries permanent, near-zero-cost hooks -- ``fire(site,
 step=...)`` -- that are inert until a test arms a :class:`FaultPlan` with
@@ -10,6 +10,20 @@ occurrence count)``, so a test can say "poison the decode state after chunk
 Sites wired in the port:
 
 ========================  ====================================================
+``"ckpt.save"``           ``training/checkpoint.py`` ``Checkpointer.maybe_save``,
+                          inside the retried write (step = the checkpoint
+                          step)
+``"ckpt.restore"``        ``training/checkpoint.py`` ``Checkpointer.restore``,
+                          inside the retried read (step = the checkpoint step)
+``"data.batch"``          ``training/data.py`` prefetch worker, inside the
+                          retried fetch (step = the batch's step)
+``"train.step_boundary"`` ``Trainer.train``, after each step's bookkeeping --
+                          where :meth:`FaultPlan.preempt_at` delivers a real
+                          SIGTERM, which the installed PreemptionGuard turns
+                          into an emergency checkpoint and a resumable exit
+``"train.nan"``           consumed through :func:`nan_armed` by ``Trainer.step``
+                          to poison one step's params, and so its loss and
+                          gradients, to NaN
 ``"serve.chunk"``         ``serving/session.py`` DecodeSession, at each decode
                           chunk boundary (step = the request's chunk index);
                           ``serving/batching.py`` SlotEngine, at each boundary
@@ -68,19 +82,19 @@ regime (:data:`REGIME_KINDS`: ``eio``, ``enospc``, ``partition`` raise the
 matching OSError, ``latency`` sleeps and succeeds) on every site under a
 prefix while a regime clock (by default the Server's ``serve.chunk_delay``
 ordinal) sits inside a window: the store outages the circuit breakers
-(``resilience/breaker.py``) are held against. :func:`corrupt_session` and
-:func:`truncate_session` damage a written session (or prefix) generation on
-disk the way flaky storage does.
+(``resilience/breaker.py``) are held against. :func:`corrupt_step` and
+:func:`truncate_step` damage a written checkpoint step on disk the way flaky
+storage does (the verified restore of ``training/checkpoint.py`` falls back
+past it), :func:`corrupt_session` and :func:`truncate_session` a written
+session (or prefix) generation.
 
 Every delivered fault, marker or action, is reported to the delivery
 observers (:func:`add_observer`) after the plan's lock is released: the
 flight recorder subscribes (``FlightRecorder.attach_inject``), so no
 injected fault leaves the black box without a trace.
 
-Left out, with the ROADMAP.md item that brings each: the training,
-checkpoint-save and data sites with the checkpoint damage helpers
-(``corrupt_step``, ``truncate_step``: A9b) and the executable store's sites
-(``serve.exec_*``: A13).
+Left out, with the ROADMAP.md item that brings them: the executable store's
+sites (``serve.exec_*``: A13).
 """
 
 from __future__ import annotations
@@ -94,12 +108,18 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+_NAN_SITE = "train.nan"
 _DECODE_NAN_SITE = "decode.state_nan"
 _CHUNK_SITE = "serve.chunk"
 
 # every wired hook site (site -> where it fires); FaultPlan.add rejects any
 # other name, so a typo'd site cannot be armed and never deliver
 SITES = {
+    "ckpt.save": "training/checkpoint.py maybe_save, inside retry",
+    "ckpt.restore": "training/checkpoint.py restore, inside retry",
+    "data.batch": "training/data.py prefetch worker, inside retry",
+    "train.step_boundary": "trainer loop, each step boundary",
+    "train.nan": "Trainer.step NaN poisoning marker",
     "serve.chunk": "serving decode loops, each chunk boundary",
     "serve.chunk_delay": "serving/server.py _step_chunk, inside the timed chunk boundary "
                          "(step = server-lifetime chunk ordinal)",
@@ -214,7 +234,8 @@ class _Regime:
 
 
 class FaultPlan:
-    """An ordered set of faults to deliver. Thread-safe."""
+    """An ordered set of faults to deliver. Thread-safe: the data loader's
+    worker and the main thread both fire hooks."""
 
     def __init__(self):
         self._faults: List[_Fault] = []
@@ -271,6 +292,17 @@ class FaultPlan:
                                      None if until_step is None else int(until_step),
                                      float(latency), clock_site))
         return self
+
+    def preempt_at(self, step: int, sig: int = signal.SIGTERM) -> "FaultPlan":
+        """Deliver a real OS signal at a training step's boundary. With a
+        PreemptionGuard installed this drives the whole graceful stop:
+        handler -> stop request -> emergency checkpoint -> resumable exit."""
+        return self.add("train.step_boundary", step, 1, lambda: signal.raise_signal(sig))
+
+    def poison_nan_at(self, step: int) -> "FaultPlan":
+        """Arm NaN poisoning for one training step (consumed by
+        ``Trainer.step`` through :func:`nan_armed`)."""
+        return self.add(_NAN_SITE, step, 1, None)
 
     def preempt_at_chunk(self, chunk: int, sig: int = signal.SIGTERM) -> "FaultPlan":
         """Deliver a real OS signal at a serving chunk boundary (SlotEngine:
@@ -397,6 +429,12 @@ def fire(site: str, step: Optional[int] = None) -> None:
         plan.fire(site, step)
 
 
+def nan_armed(step: int) -> bool:
+    """Is NaN poisoning armed for training step ``step``? Consumes it."""
+    plan = _active
+    return plan is not None and plan.consume_marker(_NAN_SITE, step)
+
+
 def decode_nan_armed(chunk: int) -> bool:
     """Is a decode-state NaN-poisoning armed for this chunk? Consumes one
     delivery: DecodeSession asks again after every attempt at the chunk, so
@@ -411,6 +449,42 @@ def decode_slot_nan_armed(slot: int, chunk: int) -> bool:
     :func:`decode_nan_armed`."""
     plan = _active
     return plan is not None and plan.consume_marker(_decode_slot_site(slot), chunk)
+
+
+# -- on-disk checkpoint damage (test control, not a hook) ----------------------
+
+
+def _step_file(ckpt_dir: str, step: int) -> str:
+    """A written step's data file (``training/checkpoint.py``'s layout:
+    ``step-<N>.pt``, its manifest under ``manifests/``)."""
+    path = os.path.join(ckpt_dir, f"step-{step:08d}.pt")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no checkpoint step file {path}")
+    return path
+
+
+def corrupt_step(ckpt_dir: str, step: int) -> List[str]:
+    """Flip bytes in the middle of a written step's data file -- the bit rot
+    or torn write the manifest's per-leaf crc32 exists to catch (the
+    manifest is left intact, so the verification is what finds it).
+    Returns the files touched."""
+    path = _step_file(ckpt_dir, step)
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        chunk = f.read(min(64, size - size // 2))
+        f.seek(size // 2)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+    return [path]
+
+
+def truncate_step(ckpt_dir: str, step: int) -> List[str]:
+    """Truncate a written step's data file to half -- the preempted-mid-write
+    failure (an incomplete step). Returns the files touched."""
+    path = _step_file(ckpt_dir, step)
+    with open(path, "r+b") as f:
+        f.truncate(os.path.getsize(path) // 2)
+    return [path]
 
 
 # -- on-disk session damage (test control, not a hook) -------------------------
@@ -456,5 +530,6 @@ def truncate_session(session_dir: str, session_id: str,
 
 
 __all__ = ["SITES", "SITE_PREFIXES", "REGIME_KINDS", "FaultPlan", "inject", "active", "fire",
-           "decode_nan_armed", "decode_slot_nan_armed", "known_site", "known_regime_prefix",
-           "add_observer", "remove_observer", "corrupt_session", "truncate_session"]
+           "nan_armed", "decode_nan_armed", "decode_slot_nan_armed", "known_site",
+           "known_regime_prefix", "add_observer", "remove_observer", "corrupt_step",
+           "truncate_step", "corrupt_session", "truncate_session"]

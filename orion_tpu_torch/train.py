@@ -26,23 +26,38 @@ global batch, each sp rank its shard of the tokens; fsdp shards the
 params and the optimizer state. Rank 0 logs, prints and writes the
 checkpoints, the file a one-rank run writes.
 
-Not ported yet (ROADMAP.md queue A, A9b): ``--preempt-grace`` and
-``--step-timeout`` (the resilience wiring) and ``--metrics-path`` (the
-Prometheus dump). ``--tp``, ``--pp`` and ``--ep`` above 1 raise (item 12),
-and so does any axis above 1 without ``--distributed``.
+Resilience, as the JAX package's CLI: ``--preempt-grace`` (default 10 s; 0
+turns it off) installs a SIGTERM / SIGINT ``PreemptionGuard`` for the run:
+the first signal stops the run at the next step boundary, an emergency
+checkpoint is saved and the CLI exits 0 with ``preempted at step N:
+emergency checkpoint saved; rerun with the same --ckpt-dir to resume`` (a
+second signal kills). On a mesh every rank stops at the same boundary (the
+stop flag is reduced over the ranks) and the save is the mesh's one file.
+``--step-timeout`` arms a hang watchdog (no step in that many seconds:
+thread stacks to stderr, then the guard's stop, then an abort) and gives the
+train and eval loaders the same stall budget. ``--metrics-path`` writes the
+training registry (Prometheus text + ``.json``) on every exit path. With
+``--ckpt-dir`` the flight recorder dumps into ``<ckpt-dir>/flight``.
+``--tp``, ``--pp`` and ``--ep`` above 1 raise (item 12), and so does any
+axis above 1 without ``--distributed``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import sys
 from typing import Optional, Tuple
 
 from orion_tpu_torch.models.configs import get_config
+from orion_tpu_torch.obs import flight
 from orion_tpu_torch.parallel.mesh import init_distributed
+from orion_tpu_torch.resilience.preempt import PreemptionGuard
+from orion_tpu_torch.resilience.watchdog import Watchdog
 from orion_tpu_torch.training.checkpoint import Checkpointer
-from orion_tpu_torch.training.data import DataLoader, device_batch, make_dataset
+from orion_tpu_torch.training.data import DataLoader, make_dataset
 from orion_tpu_torch.training.metrics import MetricsLogger
 from orion_tpu_torch.training.trainer import MeshConfig, TrainConfig, Trainer
 from orion_tpu_torch.utils.config import (
@@ -60,12 +75,16 @@ def train(
     resume: bool = True,
     device=None,
     mesh=None,
+    metrics_path: Optional[str] = None,
 ) -> Tuple[Trainer, dict]:
     """Build everything, optionally resume from ``cfg.ckpt_dir``, run to
-    ``cfg.steps``, save a final checkpoint. Returns (trainer, last
-    metrics). ``mesh``: ``init_distributed``'s, for a ``cfg.mesh`` with an
-    axis above 1 (each data rank then reads its rows, rank 0 logs and writes
-    the checkpoints)."""
+    ``cfg.steps`` (or to a preemption: ``trainer.preempted_at``), save a
+    final checkpoint. Returns (trainer, last metrics). ``mesh``:
+    ``init_distributed``'s, for a ``cfg.mesh`` with an axis above 1 (each
+    data rank then reads its rows, rank 0 logs and writes the checkpoints).
+    ``cfg.preempt_grace > 0`` installs the preemption guard for the run,
+    ``cfg.step_timeout > 0`` the watchdog and the loaders' stall budget;
+    ``metrics_path``: the registry's dump, written on every exit path."""
     if eval_data and not cfg.eval_every:
         raise ValueError(
             "eval_data given but eval_every == 0: the held-out split would never be "
@@ -77,16 +96,22 @@ def train(
         ckpt = Checkpointer(cfg.ckpt_dir, max_to_keep=cfg.ckpt_keep, save_every=cfg.ckpt_every)
         if resume and ckpt.latest_step is not None:
             print(f"resumed from step {trainer.restore(ckpt)}", file=sys.stderr)
+        # a preemption or a nan halt leaves its flight dump beside the
+        # checkpoint it saved
+        flight.configure(dump_dir=os.path.join(cfg.ckpt_dir, "flight"))
 
     dataset = make_dataset(data, cfg.seq_len, cfg.model.vocab_size)
     if dataset.vocab_size > cfg.model.vocab_size:
         raise ValueError(f"data vocab {dataset.vocab_size} > model vocab {cfg.model.vocab_size}")
+    if trainer.is_main:
+        print(f"data: {data} through {type(dataset).__name__}", file=sys.stderr)
+    stall = cfg.step_timeout if cfg.step_timeout > 0 else None
     rows = eval_rows = None
     if trainer.mesh is not None and trainer.mesh.n_data > 1:
         rows = trainer.mesh.row_index(cfg.batch_size, cfg.accum_steps)
         eval_rows = trainer.mesh.row_index(cfg.batch_size)
-    loader = DataLoader(dataset, cfg.batch_size, seed=cfg.seed,
-                        start_step=trainer.step_count, device=trainer.device, rows=rows)
+    loader = DataLoader(dataset, cfg.batch_size, seed=cfg.seed, start_step=trainer.step_count,
+                        device=trainer.device, rows=rows, stall_timeout=stall)
     eval_factory = None
     if cfg.eval_every:
         eval_ds = (make_dataset(eval_data, cfg.seq_len, cfg.model.vocab_size)
@@ -94,22 +119,58 @@ def train(
 
         def eval_factory(step, _ds=eval_ds):
             # batches a pure function of the train step: a resumed run
-            # evaluates any step on the same batches
-            base = 10_000_000 + step * cfg.eval_batches
-            return (
-                device_batch(_ds, cfg.seed + 1, base + j, cfg.batch_size, trainer.device,
-                             eval_rows)
-                for j in range(cfg.eval_batches)
-            )
+            # evaluates any step on the same batches. A short-lived loader
+            # with the train reads' stall budget: a dead mount under
+            # --eval-data raises StallError, not hangs the (watchdog-
+            # disarmed) eval pass
+            ev = DataLoader(_ds, cfg.batch_size, seed=cfg.seed + 1,
+                            start_step=10_000_000 + step * cfg.eval_batches,
+                            device=trainer.device, rows=eval_rows, stall_timeout=stall)
+
+            def gen():
+                try:
+                    for _ in range(cfg.eval_batches):
+                        yield next(ev)
+                finally:
+                    ev.close()
+
+            return gen()
 
     logger = MetricsLogger(log_path) if trainer.is_main else None
+    guard_cm = (PreemptionGuard(
+        cfg.preempt_grace,
+        # the black box records the signal the moment it lands (a lock-free
+        # append: the handler runs between two arbitrary bytecodes)
+        on_stop=lambda signum: flight.recorder().record_signal_safe("preempt_signal",
+                                                                    signum=signum))
+        if cfg.preempt_grace > 0 else contextlib.nullcontext())
+    watchdog = Watchdog(cfg.step_timeout) if cfg.step_timeout > 0 else None
     try:
-        last = trainer.train(iter(loader), logger=logger, ckpt=ckpt, eval_factory=eval_factory)
-        if ckpt is not None:
+        with guard_cm as guard:
+            last = trainer.train(iter(loader), logger=logger, ckpt=ckpt,
+                                 eval_factory=eval_factory, preempt=guard, watchdog=watchdog)
+        if trainer.preempted_at is not None:
+            if trainer.is_main:
+                note = ("emergency checkpoint saved; rerun with the same --ckpt-dir to resume"
+                        if ckpt is not None else
+                        "NO checkpointer configured: progress since the start is lost "
+                        "(set --ckpt-dir)")
+                print(f"preempted at step {trainer.preempted_at}: {note}", file=sys.stderr)
+        elif ckpt is not None:
+            if watchdog is not None:
+                watchdog.disarm()  # the final save may outlast a step's budget
             trainer._save(ckpt, trainer.step_count, force=True)
     finally:
+        if watchdog is not None:
+            watchdog.close()
         loader.close()
         if logger is not None:
+            if metrics_path:
+                # the final scrape on every exit path
+                try:
+                    logger.dump(metrics_path)
+                except OSError as e:
+                    print(f"metrics dump failed: {e}", file=sys.stderr)
             logger.close()
     return trainer, last
 
@@ -128,7 +189,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--log-path", default=None)
+    p.add_argument("--metrics-path", default=None,
+                   help="Prometheus-text metrics file (+ .json sibling), written on exit: the "
+                   "registry format the serving and fleet CLIs expose")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--preempt-grace", type=float, default=10.0,
+                   help="seconds budgeted for the emergency checkpoint on SIGTERM / SIGINT (a "
+                   "graceful stop at the next step boundary); 0 leaves the signals alone")
+    p.add_argument("--step-timeout", type=float, default=0.0,
+                   help="hang watchdog: no step completed (or no data batch arrived) for this "
+                   "many seconds -> StallError; must exceed the kernels' build + one step; 0 "
+                   "disables")
     for axis in ("dp", "fsdp", "tp", "sp", "pp", "ep"):
         p.add_argument(f"--{axis}", type=int, default=-1 if axis == "dp" else 1,
                        help="mesh axis size; dp, fsdp and sp > 1 take --distributed, tp, pp "
@@ -154,6 +225,8 @@ def main(argv=None) -> int:
         seed=args.seed,
         eval_every=args.eval_every,
         ckpt_dir=args.ckpt_dir,
+        preempt_grace=args.preempt_grace,
+        step_timeout=args.step_timeout,
         mesh=MeshConfig(dp=args.dp, fsdp=args.fsdp, tp=args.tp, sp=args.sp,
                         pp=args.pp, ep=args.ep),
     )
@@ -170,7 +243,8 @@ def main(argv=None) -> int:
         mesh = init_distributed(cfg.mesh, device=args.device)
     try:
         trainer, last = train(cfg, data=args.data, eval_data=args.eval_data,
-                              log_path=args.log_path, device=args.device, mesh=mesh)
+                              log_path=args.log_path, device=args.device, mesh=mesh,
+                              metrics_path=args.metrics_path)
         if trainer.is_main:
             print({k: round(v, 5) for k, v in last.items()})
     finally:

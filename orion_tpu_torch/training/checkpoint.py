@@ -24,8 +24,16 @@ step, memory-mapped (an optimizer state beside it is never read), verified
 against the manifest's ``params/...`` leaves, with I/O retried
 (``resilience/retry.py``) and the same fallback policy. Its read fires the
 ``serve.ckpt_load`` fault hook (``resilience/inject.py``) inside the retried
-region, so a chaos test drives the real retry path; the training side's
-hooks (``ckpt.save``, ``ckpt.restore``) are not ported yet (ROADMAP.md A9b).
+region, so a chaos test drives the real retry path.
+
+The training side's saves and restores are retried the same way
+(``Checkpointer(retry=)``, default ``RetryPolicy()``) and fire ``ckpt.save``
+/ ``ckpt.restore`` inside their retried regions. A save at a step already on
+disk is skipped (an emergency save at a step the cadence just wrote stays
+idempotent), except when that step failed verification during a fallback
+restore of this ``Checkpointer``: the known-bad file is then deleted and the
+good state takes its place, so an "emergency checkpoint saved" message is
+never false.
 """
 
 from __future__ import annotations
@@ -169,15 +177,18 @@ def manifest_subtree(manifest: Dict[str, Any], prefix: str) -> Optional[Dict[str
 
 
 def _newest_intact(directory: str, steps: List[int], load: Callable[[int], Any],
-                   what: str) -> Tuple[Any, int]:
+                   what: str, failed: Optional[set] = None) -> Tuple[Any, int]:
     """``load(s)`` of the newest of ``steps`` that loads and verifies,
-    warning for each one skipped; raises when none does."""
+    warning for each one skipped (and adding it to ``failed``); raises when
+    none does."""
     failures = []
     for s in sorted(steps, reverse=True):
         try:
             out = load(s)
         except Exception as e:  # a torn or corrupt file surfaces as many types
             failures.append((s, e))
+            if failed is not None:
+                failed.add(s)
             warnings.warn(f"checkpoint step {s} is corrupt or incomplete "
                           f"({type(e).__name__}: {str(e)[:200]}); {what} falls back to the "
                           "next retained step", stacklevel=3)
@@ -236,10 +247,15 @@ def load_params(ckpt_dir: str, step: Optional[int] = None, retry: Optional[Retry
 
 
 class Checkpointer:
-    def __init__(self, directory: str, max_to_keep: int = 3, save_every: int = 1000):
+    def __init__(self, directory: str, max_to_keep: int = 3, save_every: int = 1000,
+                 retry: Optional[RetryPolicy] = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_every = save_every
+        self._retry = retry if retry is not None else RetryPolicy()
+        # steps that failed verification in a fallback restore: a later save
+        # there overwrites the known-bad file instead of being skipped
+        self._corrupt_steps: set = set()
         os.makedirs(os.path.join(self.directory, MANIFEST_DIRNAME), exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -265,16 +281,32 @@ class Checkpointer:
 
     def maybe_save(self, step: int, state: Mapping[str, Any], force: bool = False) -> bool:
         """Save at the cadence (``due``); a step already on disk is not
-        written again. Returns whether it saved."""
+        written again unless it failed verification in a restore of this
+        Checkpointer (it is then replaced). The write and the manifest are
+        retried under the Checkpointer's policy. Returns whether it saved."""
         if not self.due(step, force):
             return False
+        if step in self._corrupt_steps:
+            # the file on disk failed verification: this (good) state takes
+            # its place
+            self._corrupt_steps.discard(step)
+            for path in (self._path(step), self._manifest_path(step)):
+                if os.path.exists(path):
+                    os.remove(path)
         if step in self.all_steps():
             return False
         cpu = _to_cpu(state)
-        tmp = self._path(step) + ".tmp"
-        torch.save(cpu, tmp)
-        os.replace(tmp, self._path(step))
-        atomic_write_json(self._manifest_path(step), build_manifest(cpu, step))
+        manifest = build_manifest(cpu, step)
+
+        def save():
+            fire("ckpt.save", step=step)
+            tmp = self._path(step) + ".tmp"
+            torch.save(cpu, tmp)
+            os.replace(tmp, self._path(step))
+
+        call_with_retries(save, self._retry, describe=f"checkpoint save (step {step})")
+        call_with_retries(lambda: atomic_write_json(self._manifest_path(step), manifest),
+                          self._retry, describe=f"checkpoint manifest (step {step})")
         self._retain()
         return True
 
@@ -290,15 +322,21 @@ class Checkpointer:
     def restore(self, step: Optional[int] = None, map_location=None) -> Dict[str, Any]:
         """The state at ``step`` (default: the newest intact one), verified
         against its manifest. An explicitly requested step never falls
-        back: corruption there raises."""
+        back: corruption there raises. A step skipped in the fallback is
+        remembered, so a later save at it overwrites it."""
         if step is not None:
             return self._restore_step(step, map_location)
         state, _ = _newest_intact(self.directory, self.all_steps(),
-                                  lambda s: self._restore_step(s, map_location), "restore")
+                                  lambda s: self._restore_step(s, map_location), "restore",
+                                  failed=self._corrupt_steps)
         return state
 
     def _restore_step(self, step: int, map_location) -> Dict[str, Any]:
-        state = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        def load():
+            fire("ckpt.restore", step=step)
+            return torch.load(self._path(step), map_location="cpu", weights_only=True)
+
+        state = call_with_retries(load, self._retry, describe=f"checkpoint restore (step {step})")
         manifest = read_manifest(self.directory, step)
         if manifest is None:
             warnings.warn(f"checkpoint step {step} has no integrity manifest; "

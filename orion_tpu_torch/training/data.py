@@ -15,8 +15,15 @@ On a data mesh a rank reads only its rows (``rows``: the global row indices
 their windows, at their global window starts, so they are bitwise those
 rows of the global batch.
 
-Not ported: the C++ loader (``orion_tpu/runtime/``; ROADMAP.md queue A,
-item 4), and the loader's I/O retries and stall detection (A9b).
+A token-bin path takes the native loader (``runtime/loader.cc`` through
+``orion_tpu_torch.runtime``, built with g++ at first use) when it is
+available, and this module's numpy twin otherwise: the two are batch for
+batch bitwise (``tests/test_torch_runtime.py``). The prefetch worker retries
+a transient ``OSError`` of the dataset read with jittered backoff (firing the
+``data.batch`` fault hook inside the retried region), a worker that dies
+anyway re-raises its exception as the ``__cause__`` of a ``RuntimeError``
+from ``__next__``, and ``stall_timeout`` turns a consumer that would wait for
+ever on a hung read into a :class:`~orion_tpu_torch.resilience.watchdog.StallError`.
 """
 
 from __future__ import annotations
@@ -26,11 +33,15 @@ import json
 import os
 import queue
 import threading
+import time
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
+from orion_tpu_torch.resilience.inject import fire
+from orion_tpu_torch.resilience.retry import RetryPolicy, call_with_retries
+from orion_tpu_torch.resilience.watchdog import StallError
 from orion_tpu_torch.training.checkpoint import atomic_write_json
 
 _SM64_GAMMA = np.uint64(0x9E3779B97F4A7C15)
@@ -41,7 +52,8 @@ _ROW_MIX = np.uint64(0x8CB92BA72F3D8DD7)
 
 
 def _splitmix64(x: np.ndarray) -> np.ndarray:
-    """Vectorized splitmix64 finalizer (the sampler hash)."""
+    """Vectorized splitmix64 finalizer (the sampler hash, mirrored bit for
+    bit by ``runtime/loader.cc`` and ``runtime/corpusgen.cc``)."""
     with np.errstate(over="ignore"):
         z = x + _SM64_GAMMA
         z = (z ^ (z >> np.uint64(30))) * _SM64_M1
@@ -112,14 +124,20 @@ class ShardedTokenBinDataset:
     def __init__(self, paths, seq_len: int):
         if not paths:
             raise ValueError("ShardedTokenBinDataset needs at least one shard")
+        from orion_tpu_torch import runtime
+
         self.paths = list(paths)
         self.seq_len = seq_len
-        self.shards = [TokenBinDataset(p, seq_len) for p in self.paths]
+        # each shard's gathers ride the native loader when it is built
+        self.shards = [runtime.make_fastest_dataset(p, seq_len) for p in self.paths]
         vocabs = {s.vocab_size for s in self.shards}
         if len(vocabs) != 1:
             raise ValueError(f"shards disagree on vocab_size: {sorted(vocabs)}")
         self.vocab_size = vocabs.pop()
-        self._cum = np.cumsum([s.n_windows for s in self.shards])
+        per = np.asarray([s.n_windows for s in self.shards], dtype=np.int64)
+        if not (per > 0).all():
+            raise ValueError(f"every shard must hold more than seq_len + 1 = {seq_len + 1} tokens")
+        self._cum = np.cumsum(per)
         self.n_windows = int(self._cum[-1])
 
     def batch(self, seed: int, step: int, batch_size: int,
@@ -161,67 +179,111 @@ class SyntheticDataset:
         return out
 
 
+def _host_batch(dataset, seed: int, step: int, batch_size: int,
+               rows: Optional[np.ndarray] = None) -> np.ndarray:
+    """``dataset.batch(seed, step, batch_size)``, its ``rows`` only when
+    given."""
+    if rows is None:
+        return dataset.batch(seed, step, batch_size)
+    return dataset.batch(seed, step, batch_size, rows=rows)
+
+
+def _device_copy(host: np.ndarray, device) -> torch.Tensor:
+    """A host batch as an int64 tensor on ``device`` (through pinned memory
+    to a card)."""
+    t = torch.from_numpy(host)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, torch.int64, non_blocking=True)
+    return t.to(torch.int64)
+
+
 def device_batch(dataset, seed: int, step: int, batch_size: int, device,
                  rows: Optional[np.ndarray] = None) -> torch.Tensor:
     """``dataset.batch(seed, step, batch_size)`` (its ``rows`` only, when
-    given) as an int64 tensor on ``device`` (through pinned memory to a
-    card)."""
-    host = torch.from_numpy(dataset.batch(seed, step, batch_size)
-                            if rows is None else dataset.batch(seed, step, batch_size, rows=rows))
-    device = torch.device(device)
-    if device.type == "cuda":
-        return host.pin_memory().to(device, torch.int64, non_blocking=True)
-    return host.to(torch.int64)
+    given) as an int64 tensor on ``device``."""
+    return _device_copy(_host_batch(dataset, seed, step, batch_size, rows), device)
 
 
 class DataLoader:
     """Background-thread prefetch: ``dataset.batch`` for steps
     ``start_step, start_step + 1, ...``, copied to ``device`` as int64,
     ``prefetch`` batches deep. Restart-safe: batches are pure functions of
-    (seed, step). A worker that dies re-raises its exception (as the
-    ``__cause__``) from ``__next__``. ``rows``: only those rows of each
-    batch (a data rank's, ``Mesh.row_index``)."""
+    (seed, step). ``rows``: only those rows of each batch (a data rank's,
+    ``Mesh.row_index``).
+
+    Resilience, as the JAX package's loader: a transient ``OSError`` of the
+    read retries under ``retry`` (default 3 attempts, 0.05 s base delay,
+    1 s at most), with the ``data.batch`` hook fired inside; a worker that
+    dies anyway re-raises from ``__next__`` as ``RuntimeError("data prefetch
+    thread died ...")`` with the original exception as ``__cause__``; with
+    ``stall_timeout`` a consumer that waits longer than that for a batch
+    gets a :class:`StallError` naming the step the worker is stuck on."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, start_step: int = 0,
-                 device=None, prefetch: int = 2, rows: Optional[np.ndarray] = None):
+                 device=None, prefetch: int = 2, rows: Optional[np.ndarray] = None,
+                 stall_timeout: Optional[float] = None, retry: Optional[RetryPolicy] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.rows = rows
         self.seed = seed
         self.step = start_step
         self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.stall_timeout = stall_timeout
+        self._retry = (retry if retry is not None
+                       else RetryPolicy(attempts=3, base_delay=0.05, max_delay=1.0))
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._exc: Optional[BaseException] = None
+        self._fetch_step = start_step  # the step the worker is on (the diagnosis)
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
     def _worker(self):
         try:
-            step = self.step
-            while not self._stop.is_set():
-                batch = device_batch(self.dataset, self.seed, step, self.batch_size, self.device,
-                                     self.rows)
-                while not self._stop.is_set():
-                    try:
-                        self._q.put(batch, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
-                step += 1
-        except Exception as e:  # kept for __next__ to chain, traceback intact
+            self._worker_loop()
+        except BaseException as e:  # kept for __next__ to chain, traceback intact
             self._exc = e
+
+    def _worker_loop(self):
+        step = self.step
+        while not self._stop.is_set():
+            self._fetch_step = step
+
+            def fetch(step=step):
+                fire("data.batch", step=step)
+                return _host_batch(self.dataset, self.seed, step, self.batch_size, self.rows)
+
+            host = call_with_retries(fetch, self._retry, describe=f"data batch fetch (step {step})")
+            batch = _device_copy(host, self.device)
+            while not self._stop.is_set():
+                try:
+                    self._q.put(batch, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
 
     def __iter__(self) -> Iterator[torch.Tensor]:
         return self
 
     def __next__(self) -> torch.Tensor:
+        deadline = time.monotonic() + self.stall_timeout if self.stall_timeout else None
         while True:
+            wait = 1.0
+            if deadline is not None:
+                wait = max(0.02, min(1.0, deadline - time.monotonic()))
             try:
-                return self._q.get(timeout=1.0)
+                return self._q.get(timeout=wait)
             except queue.Empty:
                 if self._exc is not None or not self._thread.is_alive():
-                    raise RuntimeError("data prefetch thread died") from self._exc
+                    raise RuntimeError(
+                        f"data prefetch thread died at step {self._fetch_step}") from self._exc
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise StallError(
+                        f"data loader stalled: no batch for {self.stall_timeout:.1f}s (prefetch "
+                        f"worker alive but stuck fetching step {self._fetch_step} -- hung "
+                        "dataset read?)")
 
     def close(self):
         self._stop.set()
@@ -234,8 +296,10 @@ class DataLoader:
 
 
 def make_dataset(spec: str, seq_len: int, vocab_size: Optional[int] = None):
-    """'synthetic', a token-bin path, a directory of ``shard_*.bin``, or a
-    comma-separated shard list."""
+    """'synthetic', a token-bin path, a directory of ``shard_*.bin`` (the
+    layout ``training/corpusgen.py`` writes), or a comma-separated shard
+    list. Token-bin files take the native loader when it is built
+    (``runtime.make_fastest_dataset``), bitwise the numpy twin."""
     if spec == "synthetic":
         return SyntheticDataset(vocab_size or 256, seq_len)
     if "," in spec:
@@ -243,9 +307,11 @@ def make_dataset(spec: str, seq_len: int, vocab_size: Optional[int] = None):
     if os.path.isdir(spec):
         paths = sorted(glob.glob(os.path.join(spec, "shard_*.bin")))
         if not paths:
-            raise ValueError(f"{spec}: no shard_*.bin files")
+            raise ValueError(f"{spec}: no shard_*.bin files (the corpusgen layout)")
         return ShardedTokenBinDataset(paths, seq_len)
-    return TokenBinDataset(spec, seq_len)
+    from orion_tpu_torch import runtime
+
+    return runtime.make_fastest_dataset(spec, seq_len)
 
 
 __all__ = [

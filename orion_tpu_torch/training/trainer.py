@@ -74,9 +74,28 @@ always the file a dp=1 run writes: under fsdp the fsdp group of rank 0
 gathers each leaf, one at a time, into rank 0's host memory; a load on any
 mesh takes this rank's shard of each leaf.
 
+Resilience, as the JAX package's Trainer: ``train(preempt=, watchdog=)``
+beats the watchdog each step (disarmed around an eval and every forced
+save), fires the ``train.step_boundary`` fault hook after each step's
+bookkeeping, and when the PreemptionGuard's ``should_stop`` is set saves an
+emergency checkpoint at that boundary, sets ``preempted_at`` and returns,
+resumable from exactly that step (flight events ``train_preempt`` and
+``train_nonfinite``, dumps ``train-preempt`` and ``train-nan-halt``). On a
+mesh the ranks first agree: the stop flag is reduced with MAX over every
+rank at each boundary (``any_rank``), since each rank's guard may see a
+forwarded SIGTERM at a different step and a rank that stopped alone would
+leave its peers waiting in a collective; the emergency save is then the
+mesh's collective save (``_save``). ``step`` poisons one leaf to NaN when
+``resilience.inject.nan_armed`` fires for it (asked only while a fault plan
+is armed) and puts the pre-step params back after the skipped update. A
+``torch.cuda.OutOfMemoryError`` in a step's forward or backward with
+``remat_skip > 0`` warns, drops the gradients and the allocator's cached
+blocks, and retries that step once with every block recomputed
+(``remat_skip=0``: the same math, less memory); on a mesh it re-raises, as a
+rank that retried alone would desynchronise the collectives.
+
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
-item): the tp, pp and ep mesh axes (A12). ``preempt_grace`` and
-``step_timeout`` are kept for the config's shape and not wired (A9b).
+item): the tp, pp and ep mesh axes (A12).
 """
 
 from __future__ import annotations
@@ -84,6 +103,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -92,9 +112,11 @@ import torch
 from orion_tpu_torch.convert import expected_params
 from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.models.transformer import TransformerLM
+from orion_tpu_torch.obs import flight as _flight
 from orion_tpu_torch.ops.fused_ce import fused_ce_ok, model_token_losses
 from orion_tpu_torch.ops.kernels import adafactor as af
-from orion_tpu_torch.parallel.collectives import all_reduce_sum_
+from orion_tpu_torch.parallel.collectives import all_reduce_sum_, any_rank
+from orion_tpu_torch.resilience import inject as _inject
 from orion_tpu_torch.parallel.mesh import MeshConfig
 from orion_tpu_torch.parallel.sharding import FsdpParams
 from orion_tpu_torch.utils import rng as rngs
@@ -541,6 +563,7 @@ class Trainer:
         self.step_count = 0  # steps taken, good or not
         self.nonfinite = 0  # non-finite steps skipped
         self.nonfinite_steps = 0  # what train() has seen of it (nan_policy)
+        self.preempted_at: Optional[int] = None  # the boundary a preemption stopped at
 
     # -- the step -----------------------------------------------------------
 
@@ -614,6 +637,27 @@ class Trainer:
         if self.mesh is not None:
             self.mesh.barrier()
 
+    def _loss_and_grads_or_remat(self, batch: Tensor, step_seed: int) -> Tensor:
+        """``_loss_and_grads``, retried once with every block recomputed
+        (``remat_skip=0``) after an out-of-memory error at ``remat_skip >
+        0`` on one rank (the params are untouched until the update)."""
+        try:
+            return self._loss_and_grads(batch, step_seed)
+        except torch.cuda.OutOfMemoryError as e:
+            mcfg = self.model.cfg
+            if not (mcfg.remat and mcfg.remat_skip > 0) or self.mesh is not None:
+                raise
+            warnings.warn(f"train step ran out of memory at remat_skip={mcfg.remat_skip} "
+                          f"({str(e).splitlines()[0][:120]}); retrying fully rematted "
+                          "(remat_skip=0)", stacklevel=3)
+            for p in self.params.values():
+                p.grad = None
+            del e
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            self.model.cfg = dataclasses.replace(mcfg, remat_skip=0)
+            return self._loss_and_grads(batch, step_seed)
+
     def step(self, batch: Tensor) -> Dict[str, float]:
         """One optimizer step on batch [B, T+1] -> host metrics: loss,
         grad_norm, lr (the one applied), nonfinite (0 or 1),
@@ -621,7 +665,15 @@ class Trainer:
         cfg = self.cfg
         lr = self.sched(self.step_count - self.nonfinite)
         step_seed = rngs.at_step(self.rng, self.step_count)
-        loss = self._loss_and_grads(batch.to(self.device), step_seed)
+        keep = None
+        # a NaN-poisoned step (resilience/inject.py): one leaf goes NaN, so
+        # the loss and gradients do and the guard skips the update; the
+        # pre-step params go back after it. Asked only while a plan is armed.
+        if _inject.active() and _inject.nan_armed(self.step_count + 1):
+            keep = {n: p.detach().clone() for n, p in self.params.items()}
+            with torch.no_grad():
+                next(iter(self.params.values())).fill_(float("nan"))
+        loss = self._loss_and_grads_or_remat(batch.to(self.device), step_seed)
         grads = param_grads(self.params)
         gnorm = global_norm(grads, self.fsdp)
         finite_t = torch.isfinite(loss) & torch.isfinite(gnorm)
@@ -647,32 +699,50 @@ class Trainer:
             self.nonfinite += 1
         for p in self.params.values():
             p.grad = None
+        if keep is not None:
+            with torch.no_grad():
+                for n, p in self.params.items():
+                    p.copy_(keep[n])
         self.step_count += 1
         return {"loss": float(loss), "grad_norm": float(gnorm), "lr": lr,
                 "nonfinite": float(not finite), "nonfinite_total": float(self.nonfinite)}
 
     # -- the loop -----------------------------------------------------------
 
-    def train(self, data_iter, logger=None, ckpt=None, hook=None,
-              eval_factory=None) -> Dict[str, float]:
+    def train(self, data_iter, logger=None, ckpt=None, hook=None, eval_factory=None,
+              preempt=None, watchdog=None) -> Dict[str, float]:
         """Run steps ``step_count + 1 .. cfg.steps``; returns the last
         logged metrics. ``eval_factory(step) -> iterator`` gives each eval
         (every ``cfg.eval_every`` steps) its batches as a pure function of
-        the train step."""
+        the train step. ``preempt`` (a ``resilience.PreemptionGuard``): when
+        its ``should_stop`` is set (on any rank of a mesh), stop at the step
+        boundary, save an emergency checkpoint and return with
+        ``preempted_at`` set. ``watchdog`` (``resilience.Watchdog``): one
+        heartbeat a step."""
         cfg = self.cfg
         tokens_per_step = cfg.batch_size * cfg.seq_len
         last: Dict[str, float] = {}
         metrics: Dict[str, float] = {}
+        self.preempted_at = None
         for step in range(self.step_count + 1, cfg.steps + 1):
+            if watchdog is not None:
+                watchdog.beat(f"train step {step}")
             metrics = self.step(next(data_iter))
             if step % cfg.log_every == 0 or step == cfg.steps:
                 if metrics["nonfinite_total"] > self.nonfinite_steps:
                     self.nonfinite_steps = int(metrics["nonfinite_total"])
+                    _flight.record("train_nonfinite", step=step, total=self.nonfinite_steps)
                     if cfg.nan_policy == "halt":
+                        _flight.recorder().dump("train-nan-halt")
+                        # the offending state, post-mortem restorable
+                        if watchdog is not None:
+                            watchdog.disarm()
                         if ckpt is not None:
                             self._save(ckpt, step, force=True)
                         raise FloatingPointError(
-                            f"{self.nonfinite_steps} non-finite step(s) by step {step}")
+                            f"{self.nonfinite_steps} non-finite step(s) by step {step}"
+                            + (f"; emergency checkpoint saved at step {step}"
+                               if ckpt is not None else ""))
                 last = dict(metrics)
                 last["ppl"] = math.exp(min(last["loss"], 20.0))
                 if logger:
@@ -680,14 +750,39 @@ class Trainer:
             if eval_factory is not None and cfg.eval_every and (
                 step % cfg.eval_every == 0 or step == cfg.steps
             ):
+                if watchdog is not None:
+                    # an eval pass may take longer than a step's budget; a
+                    # hung eval read is the eval loader's stall_timeout's
+                    watchdog.disarm()
                 ev = self.evaluate(eval_factory(step))
                 last.update(ev)
                 if logger:
                     logger.log(step, ev)
+                if watchdog is not None:
+                    watchdog.arm(f"train step {step} (post-eval)")
             if ckpt is not None:
                 self._save(ckpt, step)
             if hook is not None:
                 hook(step, metrics)
+            # a simulated preemption delivers a real signal here; the guard's
+            # handler runs before the check below
+            _inject.fire("train.step_boundary", step=step)
+            if preempt is not None:
+                stop = preempt.should_stop
+                if self.mesh is not None:
+                    stop = any_rank(stop, self.device)
+                if stop:
+                    if watchdog is not None:
+                        watchdog.disarm()  # the save may outlast a step's budget
+                    if ckpt is not None:
+                        self._save(ckpt, step, force=True)
+                    self.preempted_at = step
+                    _flight.record("train_preempt", step=step,
+                                   signum=getattr(preempt, "signum", None))
+                    _flight.recorder().dump("train-preempt")
+                    if not last:
+                        last = dict(metrics)
+                    break
         if not last and metrics:
             last = dict(metrics)
         return last

@@ -2,9 +2,10 @@
 
 The port's copy of ``orion_tpu/utils/bpe.py`` (jax-free), with the same
 merges, ids and JSON, so a tokenizer trained by either package serves both
-(``tests/test_torch_bpe.py``). Its encode is the pure-Python one: the JAX
-package's C++ fast path (``runtime/bpe.cc``, identical output) waits for the
-port's runtime binding (ROADMAP.md queue A).
+(``tests/test_torch_bpe.py``). Its encode takes the native BPE encoder
+(``orion_tpu_torch/runtime``'s ``NativeBPE`` over ``runtime/bpe.cc``) when the
+native runtime is live, token for token the pure-Python ``encode_py``
+(``tests/test_torch_runtime.py``).
 
 The reference pairs its LM configs with a subword tokenizer in its native
 layer (BASELINE.json "1.3B linear-attn LM pretrain on C4"; reference
@@ -45,6 +46,7 @@ class BPETokenizer:
             table.append(table[a] + table[b])
         self._bytes = table
         self._cache: Dict[bytes, List[int]] = {}
+        self._native = None  # the runtime's NativeBPE, bound at the first encode (or False)
 
     # -- vocab layout -------------------------------------------------------
 
@@ -82,6 +84,17 @@ class BPETokenizer:
         return parts
 
     def encode(self, text: str) -> List[int]:
+        """Through the native encoder when the runtime is live (identical
+        output), else :meth:`encode_py`."""
+        if self._native is None:
+            from orion_tpu_torch import runtime
+
+            self._native = runtime.NativeBPE(self.merges) if runtime.native_available() else False
+        if self._native:
+            return self._native.encode(text)
+        return self.encode_py(text)
+
+    def encode_py(self, text: str) -> List[int]:
         """Pure-Python encode (the contract reference for runtime/bpe.cc)."""
         out: List[int] = []
         for m in _PRETOK.finditer(text.encode("utf-8")):

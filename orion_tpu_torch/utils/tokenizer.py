@@ -1,7 +1,9 @@
 """Byte-level tokenizer: ids 0..255 are raw bytes, optional specials after.
 
-The port's copy of ``orion_tpu/utils/tokenizer.py`` (the BPE tokenizer and
-the native encode runtime come with a later slice; ROADMAP.md queue A)."""
+The port's copy of ``orion_tpu/utils/tokenizer.py``. The byte encode is a
+typed copy; ``orion_tpu_torch.runtime`` streams whole files natively
+(``byte_encode_file``, which ``prepare_data.py`` uses), and ``utils/bpe.py``
+holds the subword tokenizer, its encode native when the runtime is live."""
 
 from __future__ import annotations
 

@@ -1729,3 +1729,55 @@ def test_dp_collectives_stage_cuda_tensors_over_gloo(dev):
         out, grad = res["mean"]
         np.testing.assert_allclose(out, p["x"].mean(0), **tol)
         np.testing.assert_allclose(grad, p["ct_mean"].mean(0), **tol)
+
+
+def test_train_resilience_preempt_and_resume_bitwise_on_the_card(dev, tmp_path):
+    """``train()`` of a tiny fp32 model on the card (rows 1, 3, 4 in their
+    simt variant) with a real SIGTERM at step 2's boundary: an emergency
+    checkpoint, then a resumed run whose params and AdamW moments are
+    bitwise an uninterrupted run's."""
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.train import train
+    from orion_tpu_torch.training.trainer import TrainConfig
+
+    def cfg(d):
+        return TrainConfig(model=dataclasses.replace(TINY, dtype="float32"), steps=4,
+                           batch_size=2, seq_len=64, log_every=1, ckpt_dir=str(d),
+                           preempt_grace=30.0)
+
+    a, _ = train(cfg(tmp_path / "a"), data="synthetic", device=dev)
+    plan = inject.FaultPlan().preempt_at(2)
+    before = causal_dot.launches_simt
+    with inject.inject(plan):
+        b, _ = train(cfg(tmp_path / "b"), data="synthetic", device=dev)
+    assert b.preempted_at == 2 and plan.delivered == ["train.step_boundary@2"]
+    assert causal_dot.launches_simt > before  # the kernels ran
+    b, _ = train(cfg(tmp_path / "b"), data="synthetic", device=dev)
+    assert b.step_count == 4
+    for n, p in a.params.items():
+        assert torch.equal(p, b.params[n]), n
+    for key in ("mu", "nu"):
+        for n, t in a.opt.state_dict()[key].items():
+            assert torch.equal(t, b.opt.state_dict()[key][n]), (key, n)
+
+
+def test_train_resilience_native_loader_on_the_card_machine(dev, tmp_path):
+    """The native runtime builds with this machine's g++ and its loader's
+    batches, copied to the card, are bitwise the numpy twin's."""
+    from orion_tpu_torch import runtime
+    from orion_tpu_torch.training.data import DataLoader, TokenBinDataset, write_token_bin
+
+    assert runtime.native_available()
+    path = str(tmp_path / "t.bin")
+    write_token_bin(path, (np.arange(20000) * 7919) % 32000, vocab_size=32000)
+    ds = runtime.make_fastest_dataset(path, 128)
+    assert isinstance(ds, runtime.NativeTokenBinDataset)
+    loader = DataLoader(ds, 8, seed=3, device=dev)
+    try:
+        got = [next(loader) for _ in range(3)]
+    finally:
+        loader.close()
+    twin = TokenBinDataset(path, 128)
+    for step, b in enumerate(got):
+        assert b.device.type == "cuda" and b.dtype == torch.int64
+        np.testing.assert_array_equal(b.cpu().numpy(), twin.batch(3, step, 8))

@@ -243,8 +243,10 @@ def test_flight_subscribes_to_inject_deliveries():
 
 
 def test_every_registered_site_delivery_leaves_flight_event():
-    """Site <-> event parity: a delivery at any wired site (markers and the
-    per-slot family included) leaves a ``fault`` event in an attached ring."""
+    """Site <-> event parity: a delivery at any wired site (the markers
+    ``train.nan``, ``decode.state_nan`` and the per-slot family included,
+    each reached through its query) leaves a ``fault`` event in an attached
+    ring."""
     sites = sorted(inject.SITES) + ["decode.slot_nan.3"]
     rec = FlightRecorder()
     rec.attach_inject()
@@ -258,6 +260,8 @@ def test_every_registered_site_delivery_leaves_flight_event():
                     assert inject.decode_slot_nan_armed(3, 1)
                 elif site == "decode.state_nan":
                     assert inject.decode_nan_armed(1)
+                elif site == "train.nan":  # a marker, consumed as Trainer.step does
+                    assert inject.nan_armed(1)
                 else:
                     inject.fire(site, step=1)
     finally:

@@ -70,6 +70,27 @@ def test_the_scans_cover_the_serving_slice():
             "orion_tpu_torch.fleet._child"} <= set(_modules())
 
 
+def test_the_scans_cover_the_training_resilience_slice():
+    """The import block and the AST scan below walk the native runtime's
+    bindings (``runtime/``) and the corpus sampler's copy
+    (``training/corpusgen.py``) beside the training modules."""
+    assert {"orion_tpu_torch.runtime", "orion_tpu_torch.training.corpusgen",
+            "orion_tpu_torch.training.data", "orion_tpu_torch.training.metrics",
+            "orion_tpu_torch.training.checkpoint", "orion_tpu_torch.training.trainer",
+            "orion_tpu_torch.train"} <= set(_modules())
+
+
+def test_the_native_sources_are_the_jax_packages_code():
+    """``runtime/*.cc`` are the JAX package's sources, line for line but for
+    their comments."""
+    for name in ("loader", "tokenizer", "bpe", "corpusgen"):
+        ours, theirs = (
+            [ln for ln in (root / "runtime" / f"{name}.cc").read_text().splitlines()
+             if not ln.lstrip().startswith("//")]
+            for root in (PKG, ROOT / "orion_tpu"))
+        assert ours == theirs, name
+
+
 @pytest.mark.parametrize(
     "path",
     [*sorted(PKG.rglob("*.py")), *(ROOT / f for f in ("chip_smoke.py", "profile_port.py",

@@ -230,5 +230,38 @@ def mesh_runs(mesh, payload):
     return results
 
 
+def preempt_runs(mesh, payload):
+    """Three ``train()`` runs on this mesh (dp over the spawn's ranks):
+    uninterrupted into ``payload["dirs"][0]``; into ``dirs[1]`` with a
+    SIGTERM raised on rank ``payload["signal_rank"]`` alone at step
+    ``payload["at"]``'s boundary (a fault plan armed on that rank only);
+    then resumed in ``dirs[1]`` -> (preempted_at and step of each run, the
+    deliveries on this rank, the files of ``dirs[1]`` after the
+    preempted run)."""
+    import os
+
+    from orion_tpu_torch.resilience import inject
+    from orion_tpu_torch.train import train
+    from orion_tpu_torch.training.trainer import TrainConfig
+
+    def cfg(d):
+        return TrainConfig(model=payload["model"], mesh=mesh.cfg, ckpt_dir=d, **payload["kw"])
+
+    runs, delivered = [], []
+    for d, at in ((payload["dirs"][0], None), (payload["dirs"][1], payload["at"]),
+                  (payload["dirs"][1], None)):
+        plan = inject.FaultPlan()
+        if at is not None and mesh.rank == payload["signal_rank"]:
+            plan.preempt_at(at)
+        with inject.inject(plan):
+            tr, _ = train(cfg(d), data="synthetic", device="cpu", mesh=mesh)
+        runs.append((tr.preempted_at, tr.step_count))
+        delivered += plan.delivered
+        if at is not None:
+            mesh.barrier()
+            files = sorted(os.listdir(d))
+    return runs, delivered, files
+
+
 __all__ = ["run_ranks", "raise_on_rank_1", "bodies", "remesh", "collective_cases",
-           "mesh_runs", "TIMEOUT_S"]
+           "mesh_runs", "preempt_runs", "TIMEOUT_S"]
