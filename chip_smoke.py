@@ -1,6 +1,6 @@
 """Quickest proof that the PyTorch/CUDA port runs on an NVIDIA card.
 
-    python3 chip_smoke.py [--part fleet|train]
+    python3 chip_smoke.py [--part fleet|train|tp]
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``
 (``$CUDA_HOME/bin`` or on ``PATH``). It imports nothing of JAX or of the JAX
@@ -82,8 +82,23 @@ nonzero and no result line is printed):
    each against its dp=1 twin within the sp part's limits with exact
    launches a rank; fsdp 4's resident bytes a quarter and its peak below
    dp 4's; an fsdp-4 checkpoint's round trip bitwise; step ms and the
-   host ms in the collectives logged); each part runs alone as
-   ``cs.sp_phase(...)`` / ``cs.dp_phase(dev)`` after ``cs.build(mods)``;
+   host ms in the collectives logged), then the tp part (``tp_phase``:
+   tensor parallelism, ranks of this script sharing the card over gloo: (a)
+   lm_1b3 at full width and depth, B 8 x 1024, two AdamW steps at tp 2 on
+   2 ranks against its tp=1 twin within the dp part's limits, each rank's
+   peak memory below the twin's; (b) on 4 ranks at 4 blocks the hybrid at
+   dp 2 x tp 2 (rows 6-8 and 1, 3, 4 at 8 heads a rank), lm_1b3 at sp 2 x
+   tp 2 (the sp parts at local heads), the dropless moe_1b3_4e at fsdp 2 x
+   tp 2 (rows 9-10 on the local hidden slice), each against its tp=1 twin
+   the same way; (c) generate at tp 2 on 2 ranks for lm_1b3 at full depth
+   and hybrid_1b3: the tp=1 run's 32 greedy tokens teacher-forced, each
+   step's logits and this rank's heads of every layer's state after the
+   prefill and the last step against tp=1, the free-running greedy tokens
+   that match counted; launches exact a rank, counted by kernel name,
+   ``launches_tp``); each part runs alone as ``cs.sp_phase(...)`` /
+   ``cs.dp_phase(dev)`` / ``cs.tp_phase(dev)`` after ``cs.build(mods)``,
+   and ``python3 chip_smoke.py --part tp`` runs the build, the kernel
+   checks and the tp part alone;
 4. the public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
    backward through ``CausalDotProductFn`` at [B 8, H 16, T 1024, D 128]
    bf16 with an initial state and the returned state, then at Dk 128, Dv
@@ -214,7 +229,8 @@ nonzero and no result line is printed):
    (f) every request, greedy and sampled, bitwise a one-row ``generate``
    at its seed, (g) pieces against ``prefill_last``; in-scan admission
    bitwise host admission for lm_1b3 (the hybrid's within the logits
-   limit); the engine's ladder with NaN in one slot's rows (the rewind
+   limit); at 4 blocks (each after its cut's own main path):
+   the engine's ladder with NaN in one slot's rows (the rewind
    bitwise, the re-prefill held as ``DecodeSession``'s rung, an exhausted
    ladder failing one request only), suspend and resume bitwise the
    uninterrupted request; ``DecodeSession`` on lm_1b3, its tokens bitwise
@@ -222,7 +238,8 @@ nonzero and no result line is printed):
    re-prefill, ``LadderExhausted``); decode ms/token at 4 busy slots through
    the engine and a 256-token piece's boundary cost; each phase's time;
    then the same requests through ``serving.Server`` (all submitted, then
-   ``serve()``), each bitwise the engine run's: lm_1b3 bf16 greedy and
+   ``serve()``), each bitwise the engine run's: lm_1b3 bf16 cut to 4 blocks
+   (after that cut's own main path and "f") greedy and
    sampled by both admissions, lm_1b3 with ``qmode="int4"`` (the Server
    quantizes the fp32 weights) and hybrid_1b3 (host admission: row 6 in its
    solo prefills) greedy and sampled, exact launches from the Server's own
@@ -235,8 +252,9 @@ nonzero and no result line is printed):
    to first token) and ``python -m orion_tpu_torch.serving`` in a
    subprocess on the card, SIGTERM after its first boundary: exit 0 and its
    stats line; then the Server's stores (``stores_check``, in a temporary
-   directory, free disk checked first) on lm_1b3 bf16, on lm_1b3 int4 cut
-   to 4 blocks and on hybrid_1b3: 4 requests sharing a declared 768-token prefix, request 0 a
+   directory, free disk checked first) on lm_1b3 bf16 and int4 cut to 4
+   blocks and on hybrid_1b3 cut to 4 blocks: 4 requests
+   sharing a declared 768-token prefix, request 0 a
    miss whose publish runs (a solo prefill: row 1 once for each linear
    layer, row 6 for each swa layer), 1-3 hits whose pieces cover only
    their suffixes, every hit bitwise the request served cold for lm_1b3
@@ -252,9 +270,10 @@ nonzero and no result line is printed):
    launches exact for every wave; readings: a hit's and a miss's first
    token, the publish's ms, the entry's bytes, session save and load ms
    and bytes; then the speculative part (``spec_check``, depth 4, no
-   floor) on lm_1b3 bf16 and int4 and on hybrid_1b3 cut to 4 blocks (swa,
-   swa, swa, linear; each cut part after its own main path and, for the
-   hybrid, "f", whose plain runs speculation is held against): ``verify_step`` at 4
+   floor) on lm_1b3 bf16 and int4 and on hybrid_1b3, each cut to 4 blocks
+   (the hybrid's swa, swa, swa, linear; each cut part after its own main
+   path and "f", whose plain runs speculation is held against; the CLIs
+   serve the full depth): ``verify_step`` at 4
    rows x 5 fed tokens bitwise 5 ``decode_step`` calls, the advance at keep
    0, 2, 5 bitwise the walk (rings included), every product of the piece
    and a draft step at 64 rows; the plan served again for each (sampling,
@@ -293,8 +312,9 @@ nonzero and no result line is printed):
    the options of phase 10, rows 1, 6 and 14 on the serving path, through
    ``SlotEngine``, through the Server, through its stores and through the
    speculative part, every row's launches through the in-process fleet,
-   ``launches_fleet``, and rows 1, 3, 4 and 11-13 in R1's and R3's runs,
-   ``launches_train_resilience``), then the result line ``{"ok": true,
+   ``launches_fleet``, rows 1, 3, 4 and 11-13 in R1's and R3's runs,
+   ``launches_train_resilience``, and every kernel's launches in the tp
+   part, ``launches_tp``), then the result line ``{"ok": true,
    "device": {...}}`` last.
 """
 
@@ -5461,20 +5481,21 @@ def _collective_clock():
 
 def _resident(trainer):
     """(the bytes this rank holds in params and AdamW moments, counted from
-    its tensors; the bytes it should hold: 1 / fsdp of each sharded leaf
-    plus each replicated leaf, from the whole shapes, fp32 params, mu and
-    nu)."""
+    its tensors; the bytes it should hold: 1 / fsdp of each fsdp leaf, 1 /
+    tp of each tp leaf (both for a leaf cut by both), each replicated leaf
+    whole, from the whole shapes, fp32 params, mu and nu)."""
     from orion_tpu_torch.convert import expected_params
 
     held = sum(t.numel() * t.element_size() for t in trainer.params.values())
     held += sum(t.numel() * t.element_size() for key in ("mu", "nu")
                 for t in getattr(trainer.opt, key).values())
-    dims = trainer.fsdp.dims if trainer.fsdp is not None else {}
-    n = trainer.mesh.fsdp if trainer.mesh is not None else 1
+    cuts = [(a.dims, a.size) for a in trainer.model.shard_axes]
     want = 0
     for key, shape, _ in expected_params(trainer.cfg.model).values():
         numel = int(np.prod(shape))
-        want += 3 * 4 * (numel // n if key in dims else numel)  # fp32 param, mu, nu
+        for dims, n in cuts:
+            numel //= n if key in dims else 1
+        want += 3 * 4 * numel  # fp32 param, mu, nu
     return held, want
 
 
@@ -5496,6 +5517,8 @@ def _first_step_grads(trainer, keep):
     whole and on the host ("loss", "grads"), once that step has run; the
     gradients only where ``keep`` (under fsdp every rank of each fsdp group
     joins the gather)."""
+    from orion_tpu_torch.parallel.sharding import gather_whole
+
     box, real = {}, trainer._loss_and_grads
 
     def capture(batch, seed):
@@ -5503,8 +5526,8 @@ def _first_step_grads(trainer, keep):
         trainer._loss_and_grads = real
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in trainer.params.items()}
-        if trainer.fsdp is not None:
-            grads = trainer.fsdp.gather_state(grads, keep=keep)
+        if trainer.model.shard_axes:  # fsdp's and tp's shards gathered whole
+            grads = gather_whole(grads, trainer._gather_axes(), keep=keep)
         elif keep:
             grads = {n: g.to("cpu", copy=True) for n, g in grads.items()}
         box.update(loss=float(loss), grads=grads if keep else None)
@@ -5517,11 +5540,15 @@ def _first_step_grads(trainer, keep):
 def _dp_twin(cfg, batches, dev, pin=None):
     """The dp=1 twin of ``cfg`` on this rank's card from the same seed and
     batches (``pin``: replaying a mesh run's routing): its first step's
-    loss and gradients, its step losses and grad norms, and its params
-    before and after, on the host."""
+    loss and gradients, its step losses and grad norms, its params before
+    and after, on the host, and its peak memory."""
     from orion_tpu_torch.parallel.mesh import MeshConfig
     from orion_tpu_torch.training.trainer import Trainer
 
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
     twin = Trainer(dataclasses.replace(cfg, mesh=MeshConfig(dp=1)), device=dev)
     p0 = {n: p.detach().to("cpu", torch.float32, copy=True) for n, p in twin.params.items()}
     first = _first_step_grads(twin, keep=True)
@@ -5535,11 +5562,12 @@ def _dp_twin(cfg, batches, dev, pin=None):
             ms, m = _timed(lambda: twin.step(b), dev)
             steps.append({"ms": ms, "loss": m["loss"], "grad_norm": m["grad_norm"]})
     after = {n: p.detach().to("cpu", torch.float32, copy=True) for n, p in twin.params.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
     del twin
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"probe_loss": first["loss"], "grads": first["grads"], "steps": steps, "p0": p0,
-            "after": after, "flips": pin.flips if pin is not None else 0}
+            "after": after, "flips": pin.flips if pin is not None else 0, "peak_gib": peak}
 
 
 def _against_twin(twin, probe_loss, grads, after, tiny, dev):
@@ -5560,7 +5588,8 @@ def _against_twin(twin, probe_loss, grads, after, tiny, dev):
             "twin_losses": [s["loss"] for s in twin["steps"]],
             "twin_grad_norms": [s["grad_norm"] for s in twin["steps"]],
             "twin_ms": [s["ms"] for s in twin["steps"]],
-            "update_sign_agree": agree / total, "tiny": tiny, "flips": twin["flips"]}
+            "update_sign_agree": agree / total, "tiny": tiny, "flips": twin["flips"],
+            "twin_peak_gib": twin["peak_gib"]}
 
 
 def _remesh(mesh, cfg, device):
@@ -5643,11 +5672,20 @@ def _gather_routes(pin, m):
     return {key: _gather_cat(ids, 0, m.data_group) for key, ids in sorted(pin.routes.items())}
 
 
+def _mesh_label(name, shape):
+    """A mesh run's label: (dp, fsdp, sp) shapes as the dp part names them,
+    (dp, fsdp, tp, sp) ones with their tp."""
+    if len(shape) == 3:
+        return f"{name} at dp {shape[0]} x fsdp {shape[1]} x sp {shape[2]}"
+    return f"{name} at dp {shape[0]} x fsdp {shape[1]} x tp {shape[2]} x sp {shape[3]}"
+
+
 def dp_train_rank(mesh, payload):
     """One rank of the dp part: for each run of ``payload["runs"]``
     (default ``DP_RUNS``) every mesh of it on this process group, with rank
     0's twin before (or, for a MoE, after) them -> per run and mesh: the
-    rank's readings; rank 0's against the twin."""
+    rank's readings; rank 0's against the twin. A mesh is (dp, fsdp, sp) or
+    (dp, fsdp, tp, sp) (the tp part's runs)."""
     from orion_tpu_torch.ops.kernels import adafactor, causal_dot, flash_attention, gmm, q4_matmul
     from orion_tpu_torch.parallel.mesh import MeshConfig
     from orion_tpu_torch.training.data import SyntheticDataset, device_batch
@@ -5666,7 +5704,8 @@ def dp_train_rank(mesh, payload):
         twin = _dp_twin(cfg, batches, dev) if mesh.is_main and not routed else None
         mesh.barrier()
         for shape in meshes:
-            m = _remesh(mesh, MeshConfig(dp=shape[0], fsdp=shape[1], sp=shape[2]),
+            m = _remesh(mesh, MeshConfig(dp=shape[0], fsdp=shape[1], sp=shape[-1],
+                                         tp=shape[2] if len(shape) == 4 else 1),
                         payload.get("device"))
             pin = PinnedRouting() if routed else None
             save = payload.get("save_dir") if name == "lm_1b3" and shape == (1, 4, 1) else None
@@ -5686,7 +5725,7 @@ def dp_train_rank(mesh, payload):
                 res["twin"] = _against_twin(twin, loss, grads, whole, over is None, dev)
                 del grads, whole
             mesh.barrier()
-            results[f"{name} at dp {shape[0]} x fsdp {shape[1]} x sp {shape[2]}"] = res
+            results[_mesh_label(name, shape)] = res
         del twin
     return results
 
@@ -5751,6 +5790,29 @@ def dp_train_verdict(label, ranks):
                              f"{twin}")
 
 
+def _mesh_launches(ranks, launches=None):
+    """Each kernel's launches over the mesh runs' steps and ranks (``ranks``:
+    each rank's ``dp_train_rank`` results), by ``KERNELS`` name and by the
+    sp entries' names (the parts and the sp flash calls of a run with sp),
+    added to ``launches``."""
+    launches = launches if launches is not None else dict.fromkeys(KERNELS, 0)
+    sp_names = {"parts_fwd": "causal_dot_parts", "fwd_sp": "flash_fwd",
+                "dq_sp": "flash_dq", "dkv_sp": "flash_dkv"}
+    for r in ranks:
+        for res in r.values():
+            for c in res["per_step"]:
+                for k in KERNELS:
+                    launches[k] += c[k]
+            if res["want_sp"] is not None:  # the sp entries' launches: a run with sp
+                variant = "simt" if res["tiny"] else "wgmma"
+                for c in res["per_step_sp"]:
+                    for key, base in sp_names.items():
+                        name = (f"{base}_{variant}" if base == "causal_dot_parts"
+                                else f"{base}_{variant}_sp")
+                        launches[name] = launches.get(name, 0) + c[key]
+    return launches
+
+
 def dp_phase(dev):
     """The dp part: ``dp_train_rank`` on 4 ranks sharing the card (gloo), each
     mesh run held against its dp=1 twin (``dp_train_verdict``), fsdp 4's
@@ -5781,24 +5843,225 @@ def dp_phase(dev):
     log(f"dp lm_1b3 peak memory a rank, fsdp 4 against dp 4: {peaks} GiB")
     if not all(a < b for a, b in peaks):
         raise AssertionError(f"fsdp 4's peak memory is not below dp 4's on every rank: {peaks}")
-    launches = dict.fromkeys(KERNELS, 0)
-    sp_names = {"parts_fwd": "causal_dot_parts", "fwd_sp": "flash_fwd",
-                "dq_sp": "flash_dq", "dkv_sp": "flash_dkv"}
-    for r in ranks:
-        for res in r.values():
-            for c in res["per_step"]:
-                for k in KERNELS:
-                    launches[k] += c[k]
-            if res["want_sp"] is not None:  # the sp entries' launches: the dp x sp run
-                variant = "simt" if res["tiny"] else "wgmma"
-                for c in res["per_step_sp"]:
-                    for key, base in sp_names.items():
-                        name = (f"{base}_{variant}" if base == "causal_dot_parts"
-                                else f"{base}_{variant}_sp")
-                        launches[name] = launches.get(name, 0) + c[key]
+    launches = _mesh_launches(ranks)
     log(f"dp part done in {time.perf_counter() - t0:.1f} s; launches over its runs: {launches}")
     return launches, {label: [{k: r[label][k] for k in ("peak_gib", "held", "transport")}
                               for r in ranks] for label in ranks[0]}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (A12 step 4): the heads and the MLPs' hidden dimension
+# over tp, ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+# Each run: (config, overrides, TrainConfig fields, meshes as (dp, fsdp, tp,
+# sp)), read by ``dp_train_rank`` against a tp=1 twin from the same seed and
+# batches with the dp part's readings and limits (``dp_train_verdict``: the
+# probe's loss and every gradient, the step losses and grad norms, the
+# update signs, exact launches a rank, the ranks' params bitwise, each
+# rank's resident params and moments within ``DP_RESIDENT_RTOL`` of 1 / tp
+# of each tp leaf plus the rest whole). (a), on 2 ranks: lm_1b3 at full
+# width and depth (24 blocks, 20 recomputed), B 8 x 1024, two AdamW steps at
+# tp 2; each rank's peak memory also below the twin's. (b), on 4 ranks at 4
+# blocks (2 recomputed): the hybrid (swa, softmax, swa, linear) at dp 2 x tp
+# 2, B 8 x 1024 (rows 6-8 and 1, 3, 4 at 8 of its 16 heads); lm_1b3 at sp 2 x
+# tp 2, T 2048, B 2 (the sp parts at 8 heads); the dropless moe_1b3_4e at
+# fsdp 2 x tp 2, B 8 x 1024 (rows 9-10 on 2752 of the 5504 hidden columns),
+# its twin replaying the mesh run's routing.
+TP_TRAIN_2 = (("lm_1b3", {}, DP_TRAIN, ((1, 1, 2, 1),)),)
+TP_TRAIN_4 = (
+    ("hybrid_1b3", {"n_layers": 4, "remat_skip": 2,
+                    "layer_types": ("swa", "softmax", "swa", "linear")}, DP_TRAIN,
+     ((2, 1, 2, 1),)),
+    ("lm_1b3", {"n_layers": 4, "remat_skip": 2, "sequence_parallel": True}, SP_TRAIN,
+     ((1, 1, 2, 2),)),
+    ("moe_1b3_4e", {"n_layers": 4, "remat_skip": 2, "moe_dropless": True}, DP_TRAIN,
+     ((1, 2, 2, 1),)),
+)
+# (c), on the 2 ranks of (a): generate at tp 2, lm_1b3 at full depth (4
+# prompts of 1024) and hybrid_1b3 (4 of 1536, past its window), 32 greedy
+# tokens. The tp=1 run's tokens teacher-forced through the tp model: each
+# step's logits within ``TP_LOGITS_ATOL`` of the tp=1 run's, this rank's
+# heads of every layer's state after the prefill and after the last step
+# within ``TP_S_RTOL`` / ``TP_KV_RTOL`` of the same heads of the tp=1 state
+# (relative to its largest element); the logits bitwise the same on both
+# ranks; the free-running greedy tokens that match tp=1's counted (a
+# reading). The limits: tp rounds each rank's wo and down partial outputs
+# to bf16 before their fp32 sum (the reference's GSPMD form sums them in
+# bf16), one more bf16 rounding a block than the tp=1 product. Unlike the
+# kernel paths' roundings (``LOGITS_ATOL``, ``LAYER_*_RTOL``), these sit on
+# the residual stream itself, and a layer's S error grows with the blocks
+# below it: in a CPU rehearsal of this check at lm_1b3's width, the deepest
+# layer's S error roughly doubled from 6 to 12 blocks, and the logits' error
+# grew by a third. The limits are twice that growth carried to 24 blocks: S
+# 2e-2, K/V 3e-2 (one bf16 projection of the layer's input, as for
+# ``LAYER_KV_RTOL``), logits 0.25. A wrong head, shard or sum moves them by
+# the values' own size (about 1).
+TP_GENERATE = (("lm_1b3", {}, 1024, 32), ("hybrid_1b3", {}, 1536, 32))
+TP_LOGITS_ATOL, TP_S_RTOL, TP_KV_RTOL = 0.25, 2e-2, 3e-2
+# the kernels the tp part must launch (every one of its path)
+TP_PATH = ("causal_dot_norm_wgmma", "causal_dot_dq_den_wgmma", "causal_dot_rev_den_wgmma",
+           "flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma", "gmm_fwd_wgmma",
+           "gmm_dw_wgmma", "causal_dot_parts_wgmma")
+
+
+def _logits_digest(chunks):
+    """crc32 of the bytes of a list of tensors, in order."""
+    import zlib
+
+    crc = 0
+    for t in chunks:
+        crc = zlib.crc32(t.detach().contiguous().cpu().view(torch.uint8).numpy(), crc)
+    return crc
+
+
+def tp_generate_rank(mesh, payload):
+    """One rank of (c): for each run of ``payload.get("generate",
+    TP_GENERATE)``, the tp=1 twin on this rank's card (prefill and 31
+    decode steps on its own greedy tokens, its logits and this rank's heads
+    of its states kept), then the model at tp on this mesh: the prefill and
+    the twin's tokens teacher-forced, then ``generate`` free-running, with
+    every launch counted -> per run: the readings."""
+    from orion_tpu_torch.generate import SampleConfig, cast_params_for_inference, generate
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.models.transformer import TransformerLM
+    from orion_tpu_torch.ops.kernels import adafactor, causal_dot, flash_attention, gmm, q4_matmul
+
+    mods = (causal_dot, flash_attention, gmm, q4_matmul, adafactor)
+    dev, t = mesh.device, mesh.tp_rank
+    out = {}
+    for name, over, prompt_len, new in payload.get("generate", TP_GENERATE):
+        cfg = get_config(name, **over)
+        heads = cfg.n_heads // mesh.tp
+
+        def mine(states):
+            return [{k: v[:, t * heads:(t + 1) * heads].clone() for k, v in st.items()}
+                    for st in states]
+
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 256, (4, prompt_len), dtype=np.int64)).to(dev)
+        gc.collect()
+        twin = cast_params_for_inference(TransformerLM(cfg, device=dev))
+        with torch.inference_mode():
+            logits, states = twin.prefill_last(prompts)
+            ref_logits, tokens, ref_first = [logits], [logits.argmax(-1)], mine(states)
+            for i in range(new - 1):
+                logits, states = twin.decode_step(tokens[-1], states, prompt_len + i)
+                ref_logits.append(logits)
+                tokens.append(logits.argmax(-1))
+            ref_last = mine(states)
+        del twin, states, logits
+        torch.cuda.empty_cache()
+        model = cast_params_for_inference(TransformerLM(cfg, device=dev, mesh=mesh))
+        mesh.barrier()
+        with torch.inference_mode():
+            _reset_counts(mods)
+            t0 = time.perf_counter()
+            logits, states = model.prefill_last(prompts)
+            got, first_err = [logits], _state_err(states, ref_first)
+            for i in range(new - 1):
+                logits, states = model.decode_step(tokens[i], states, prompt_len + i)
+                got.append(logits)
+            torch.cuda.synchronize()
+            forced_ms = (time.perf_counter() - t0) * 1e3
+            last_err = _state_err(states, ref_last)
+            del states
+            free_ms, free = wall_ms(lambda: generate(model, prompts, new,
+                                                     SampleConfig(temperature=0.0)))
+            counts = _counts(mods)
+        want = torch.stack(tokens, 1)
+        same = (free == want).cpu()
+        first_miss = [int(row.logical_not().nonzero()[0]) if not row.all() else new
+                      for row in same]
+        lin, attn, _, _ = _layer_counts(cfg)
+        out[f"{name} generate at tp {mesh.tp}"] = {
+            "logits_err": [float((a - b).abs().max()) for a, b in zip(got, ref_logits)],
+            "finite": all(bool(torch.isfinite(a).all()) for a in got),
+            "s_err": (first_err[0], last_err[0]), "kv_err": (first_err[1], last_err[1]),
+            "digest": _logits_digest(got), "tokens_digest": _logits_digest([free]),
+            "free_match": int(same.sum()), "free_prefix": first_miss, "new": new,
+            "counts": counts,
+            # the prefill of the forced run and of the free-running generate
+            "want": {**dict.fromkeys(KERNELS, 0), "causal_dot_norm_wgmma": 2 * lin,
+                     "flash_fwd_wgmma": 2 * attn},
+            "forced_ms": forced_ms, "free_ms": free_ms, "transport": mesh.transport}
+        del model, got, ref_logits, ref_first, ref_last
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    return out
+
+
+def tp_generate_verdict(label, ranks):
+    """Log (c)'s readings; raise where a limit is missed, a launch count is
+    off or the ranks disagree."""
+    r0 = ranks[0]
+    log(f"tp {label} (transport {r0['transport']}): teacher-forced logits against tp=1, max "
+        f"abs a step up to {max(max(r['logits_err']) for r in ranks):.4e} (limit "
+        f"{TP_LOGITS_ATOL}; rank 0's by step {[round(x, 4) for x in r0['logits_err']]}); this "
+        f"rank's heads of the states, max rel after the prefill / the last step: S "
+        f"{[r['s_err'] for r in ranks]} (limit {TP_S_RTOL:g}), K/V "
+        f"{[r['kv_err'] for r in ranks]} (limit {TP_KV_RTOL:g}); free-running greedy "
+        f"tokens equal to tp=1's {r0['free_match']} of {4 * r0['new']} (first miss a row "
+        f"{r0['free_prefix']}); prefill + {r0['new'] - 1} forced steps {r0['forced_ms']:.1f} "
+        f"ms, generate {r0['free_ms']:.1f} ms a rank; launches a rank "
+        f"{[{k: v for k, v in r['counts'].items() if v} for r in ranks]}")
+    for i, r in enumerate(ranks):
+        if r["counts"] != r["want"]:
+            raise AssertionError(f"tp {label} rank {i}: launches {r['counts']}, want {r['want']}")
+        missed = (not r["finite"] or max(r["logits_err"]) > TP_LOGITS_ATOL
+                  or max(e or 0.0 for e in r["s_err"]) > TP_S_RTOL
+                  or max(e or 0.0 for e in r["kv_err"]) > TP_KV_RTOL)
+        if missed:
+            raise AssertionError(f"tp {label} rank {i} misses its limits against tp=1: {r}")
+    if len({r["digest"] for r in ranks}) != 1 or len({r["tokens_digest"] for r in ranks}) != 1:
+        raise AssertionError(f"tp {label}: the ranks' logits or tokens differ")
+
+
+def tp_two_rank(mesh, payload):
+    """(a) and (c) on one rank of the 2-rank spawn."""
+    return {"train": dp_train_rank(mesh, {"runs": TP_TRAIN_2, **payload}),
+            "generate": tp_generate_rank(mesh, payload)}
+
+
+def tp_phase(dev):
+    """The tp part: (a) and (c) on 2 ranks, (b) on 4, every rank sharing
+    the card (gloo). Returns (each kernel's launches over the part's runs and
+    ranks, by ``KERNELS`` name and by the sp entries' names; the readings)."""
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    t0 = time.perf_counter()
+    two = sp_spawn(2, tp_two_rank, {}, timeout=900, mesh=MeshConfig(dp=1, tp=2))
+    t1 = time.perf_counter()
+    four = sp_spawn(4, dp_train_rank, {"runs": TP_TRAIN_4}, timeout=900, mesh=MeshConfig(dp=4))
+    t2 = time.perf_counter()
+    train2 = [r["train"] for r in two]
+    for label in train2[0]:
+        ranks = [r[label] for r in train2]
+        dp_train_verdict(label, ranks)
+        twin_peak = ranks[0]["twin"]["twin_peak_gib"]
+        peaks = [r["peak_gib"] for r in ranks]
+        log(f"tp {label}: peak memory a rank {[round(p, 2) for p in peaks]} GiB against the "
+            f"tp=1 twin's {twin_peak:.2f} GiB")
+        if not all(p < twin_peak for p in peaks):
+            raise AssertionError(f"tp {label}: a rank's peak memory {peaks} GiB is not below the "
+                                 f"tp=1 twin's {twin_peak:.2f} GiB")
+    for label in four[0]:
+        dp_train_verdict(label, [r[label] for r in four])
+    for label in two[0]["generate"]:
+        tp_generate_verdict(label, [r["generate"][label] for r in two])
+    launches = _mesh_launches(train2 + four)
+    for r in two:
+        for res in r["generate"].values():
+            for k in KERNELS:
+                launches[k] += res["counts"][k]
+    missing = [k for k in TP_PATH if not launches.get(k)]
+    log(f"tp part done in {time.perf_counter() - t0:.1f} s ((a) + (c) {t1 - t0:.1f} s, (b) "
+        f"{t2 - t1:.1f} s); launches over its runs: {launches}")
+    if missing:
+        raise AssertionError(f"the tp part launched no {missing}")
+    readings = {label: [{k: r[label][k] for k in ("peak_gib", "held", "transport")}
+                        for r in rs] for rs in (train2, four) for label in rs[0]}
+    return launches, readings
 
 
 # -- the fleet part: obs on a Server run, then the fleet over it ---------------------------
@@ -6517,10 +6780,10 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser("chip_smoke.py")
-    ap.add_argument("--part", choices=("all", "fleet", "train"), default="all",
-                    help="fleet / train: the build, the kernel checks and the fleet part, or the "
-                    "training-resilience part (R1 in lm_1b3's adafactor_fused phase, R2, R3), "
-                    "alone")
+    ap.add_argument("--part", choices=("all", "fleet", "train", "tp"), default="all",
+                    help="fleet / train / tp: the build, the kernel checks and the fleet part, "
+                    "the training-resilience part (R1 in lm_1b3's adafactor_fused phase, R2, "
+                    "R3) or the tensor-parallel part, alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -6562,6 +6825,17 @@ def main(argv=None) -> int:
                 train["r3"]["launches"][k["name"]]
             _resilience_launches(k, af_train, train)
         return _finish(card, kernels)
+    if args.part == "tp":
+        # the sp pieces' entries (the parts of rows 1, 3, 4 that sp x tp runs,
+        # rows 6-8 with shift / q_offset), each held against its plain version
+        kernels += check_sp_kernels(causal_dot, flash_attention, dev)
+        torch.cuda.empty_cache()
+        tp_launches, tp_memory = tp_phase(dev)
+        log(f"tp phases done at {time.perf_counter() - t0:.1f} s; peak memory, resident bytes "
+            f"and transport a rank: {tp_memory}")
+        for k in kernels:  # the main path of this part: its runs' launches over the ranks
+            k["launches"] = k["launches_tp"] = tp_launches.get(k["name"], 0)
+        return _finish(card, kernels)
     # sequence parallelism: ranks as processes sharing this card
     sp_lines, sp_memory = sp_phase(causal_dot, flash_attention, dev)
     log(f"sp phases done at {time.perf_counter() - t0:.1f} s; transport and peak memory a rank: "
@@ -6570,6 +6844,10 @@ def main(argv=None) -> int:
     dp_launches, dp_memory = dp_phase(dev)
     log(f"dp phases done at {time.perf_counter() - t0:.1f} s; peak memory, resident bytes and "
         f"transport a rank: {dp_memory}")
+    # tensor parallelism: ranks as processes sharing this card
+    tp_launches, tp_memory = tp_phase(dev)
+    log(f"tp phases done at {time.perf_counter() - t0:.1f} s; peak memory, resident bytes and "
+        f"transport a rank: {tp_memory}")
     op = op_phase(dev, mods)
     tiny_hybrid = dataclasses.replace(TINY, layer_types=("swa", "linear"), window=16)
 
@@ -6693,29 +6971,35 @@ def main(argv=None) -> int:
     t_serve = time.perf_counter()
     serving = {
         "lm_1b3": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card,
-                                checks=("b", "f", "g", "ladder", "session", "times",
-                                        "decode_session", "server_full", "stores",
-                                        "stores_full", "spec", "spec_full", "spec_mutant"),
-                                server_runs=both),
+                                checks=("b", "f", "g", "times")),
         "lm_1b3_int4": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, quant="int4",
-                                     checks=("f", "spec"), server_runs=host),
+                                     checks=("f",), server_runs=host),
         # the hybrid's in-scan pieces run its swa plain, as in JAX: row 6 only
         # in the host (solo) prefill and a prefix publish's
         "hybrid_1b3": serving_phase(dev, mods, "hybrid_1b3", HYBRID_PLAN, card,
-                                    checks=("b", "f", "g", "ladder", "session", "times",
-                                            "stores"), server_runs=host),
+                                    checks=("b", "f", "g", "times"), server_runs=host),
     }
-    # the int4 stores part and the hybrid's speculative part at 4 blocks (the
-    # hybrid's keep both layer kinds: swa, swa, swa, linear; its CLI serves
-    # the full depth); "f" gives the plain runs speculation is held against
+    # at 4 blocks (the hybrid's keep both layer kinds: swa, swa, swa, linear):
+    # lm_1b3's ladder, sessions, Server phase, stores part and speculative
+    # part, the int4 stores part and speculative part, the hybrid's ladder,
+    # session, stores part and speculative part (the whole run's time pays
+    # for the sp, dp and tp parts); the CLIs serve the full depth; "f" gives
+    # the plain runs speculation is held against
     from orion_tpu_torch.models.configs import hybrid_pattern
 
-    serving["lm_1b3_int4"]["stores"] = serving_phase(
-        dev, mods, "lm_1b3", LM_PLAN, card, quant="int4", checks=("stores",),
-        overrides=RESILIENCE_OVER)["stores"]
-    serving["hybrid_1b3"]["spec"] = serving_phase(
-        dev, mods, "hybrid_1b3", HYBRID_PLAN, card, checks=("f", "spec", "spec_full"),
-        overrides={**RESILIENCE_OVER, "layer_types": hybrid_pattern(4)})["spec"]
+    cut = serving_phase(dev, mods, "lm_1b3", LM_PLAN, card,
+                        checks=("f", "ladder", "session", "decode_session", "server_full",
+                                "stores", "stores_full", "spec", "spec_full", "spec_mutant"),
+                        server_runs=both, overrides=RESILIENCE_OVER)
+    serving["lm_1b3"].update(server=cut["server"], stores=cut["stores"], spec=cut["spec"])
+    cut = serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, quant="int4",
+                        checks=("f", "stores", "spec"), overrides=RESILIENCE_OVER)
+    serving["lm_1b3_int4"].update(stores=cut["stores"], spec=cut["spec"])
+    cut = serving_phase(dev, mods, "hybrid_1b3", HYBRID_PLAN, card,
+                        checks=("f", "ladder", "session", "stores", "spec", "spec_full"),
+                        overrides={**RESILIENCE_OVER, "layer_types": hybrid_pattern(4)})
+    serving["hybrid_1b3"].update(stores=cut["stores"], spec=cut["spec"])
+    del cut
     log(f"serving phases done at {time.perf_counter() - t0:.1f} s "
         f"({time.perf_counter() - t_serve:.1f} s)")
     fleet = fleet_phase(dev, mods, card)
@@ -6794,8 +7078,9 @@ def main(argv=None) -> int:
     for k in kernels:  # the requests routed over two LocalReplicas (row 1: 24 x 6)
         k["launches_fleet"] = fleet["local"]["launches"][k["name"]]
     kernels += sp_lines  # launches: the sp training runs' totals over the ranks
-    for k in kernels:  # each kernel's launches over the dp part's steps and ranks
+    for k in kernels:  # each kernel's launches over the dp and tp parts' steps and ranks
         k["launches_dp"] = dp_launches.get(k["name"], 0)
+        k["launches_tp"] = tp_launches.get(k["name"], 0)
     return _finish(card, kernels)
 
 

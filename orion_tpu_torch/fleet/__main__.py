@@ -41,7 +41,7 @@ from orion_tpu_torch.serving.server import OverloadError, RejectedError
 
 # the reference's flags for what is not ported: (flag, type, default, item)
 _NOT_PORTED_FLAGS = (
-    ("--tp", int, 0, "A12"),
+    ("--tp", int, 0, "A12 step 8"),
     ("--exec-dir", str, None, "A13"),
 )
 # how many times one turn is continued after drains under it

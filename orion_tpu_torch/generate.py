@@ -41,6 +41,18 @@ from one of the JAX package's (``load_params``, from
 a fallback to the newest intact step unless a step is pinned), and
 ``adapt_config_to_params`` fits the named config to the stored tables.
 Without a checkpoint the weights come from a seeded init.
+
+Tensor parallelism (``--distributed --tp N`` under torchrun, or a model
+built on a ``parallel.mesh.Mesh`` with tp above 1): each rank holds its
+share of the heads and of the MLPs' hidden dimension
+(``models/transformer.py``), so the prefill's and every decode step's
+states are that rank's heads [B, H / tp, ...], and two sums over the tp
+group a block (after ``wo`` and after ``down``) give every rank the same
+hidden state. The logits are the same bits on every rank, and every rank
+draws with the same keys, so the ranks emit the same tokens (the CLI checks
+it with one gather, and rank 0 prints). The reference CLI's ``--sp``,
+``--dp`` and ``--fsdp`` are not ported (ROADMAP.md A12 steps 6 and 6b) and
+raise, as does ``--quant`` under tp (step 8).
 """
 
 from __future__ import annotations
@@ -184,6 +196,8 @@ def quantize_for_decode(model: TransformerLM, mode: str = "int8") -> Transformer
     if check_mode(mode) == "" or model.quant:
         raise ValueError(f"quantize_for_decode takes a full-precision model and a mode "
                          f"'int8' / 'int4'; got quant={model.quant!r}, mode={mode!r}")
+    if model.tp is not None:
+        raise _not_ported("a quantized model under tp", "item 12 (parallelism), A12 step 8")
     qmodel = TransformerLM(model.cfg, device=model.device, quant=mode)
     qmodel.load_state_dict(quantize_params_for_decode(qmodel, model.state_dict()), strict=True)
     return qmodel
@@ -274,16 +288,47 @@ def adapt_config_to_params(cfg: ModelConfig, params) -> ModelConfig:
 
 
 def load_model(cfg: ModelConfig, ckpt_dir: str, device, step: Optional[int] = None,
-               attempts: int = 4):
+               attempts: int = 4, mesh=None):
     """The model of a checkpoint's params (``load_params`` with
     ``attempts`` tries of each read), its config fitted to them
     (``adapt_config_to_params``) -> (model, step). Its weights stay fp32,
-    as trained."""
+    as trained. ``mesh``: a tp mesh; each rank then keeps its shards."""
     params, step = load_params(ckpt_dir, step, retry=RetryPolicy(attempts=max(attempts, 1)))
     cfg = adapt_config_to_params(cfg, params)
-    model = TransformerLM(cfg, device=device)
-    model.load_state_dict(params, strict=True)
+    model = TransformerLM(cfg, device=device, mesh=mesh)
+    model.load_state_dict(model.shard_state(params), strict=True)
     return model, step
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to orion_tpu_torch yet (ROADMAP.md queue A, {item})")
+
+
+# the reference CLI's mesh flags that the port refuses, with the A12 step
+# that ports each
+_NOT_PORTED_MESH = {"sp": "A12 step 6 (generate --sp: prefill and decode of a "
+                          "sequence-parallel model)",
+                    "dp": "A12 step 6b (generate --dp / --fsdp: rows over data ranks)",
+                    "fsdp": "A12 step 6b (generate --dp / --fsdp: rows over data ranks)"}
+
+
+def _tp_mesh(args):
+    """The tp mesh of the CLI's ``--distributed`` / ``--tp`` (None without
+    ``--distributed``); the other mesh flags above 1 raise, naming their
+    A12 step."""
+    for axis, step in _NOT_PORTED_MESH.items():
+        if getattr(args, axis) > 1:
+            raise _not_ported(f"generate --{axis} {getattr(args, axis)}",
+                              f"item 12 (parallelism), {step}")
+    if not args.distributed:
+        if args.tp > 1:
+            raise ValueError(f"--tp {args.tp} needs its process group: run under torchrun with "
+                             "--distributed")
+        return None
+    from orion_tpu_torch.parallel.mesh import MeshConfig, init_distributed
+
+    return init_distributed(MeshConfig(dp=1, tp=args.tp), device=args.device)
 
 
 def _generate(model, prompt, max_new_tokens, sample, generator) -> Tensor:
@@ -624,7 +669,27 @@ def main(argv=None) -> int:
     p.add_argument("--quant", default="", choices=list(MODES),
                    help="weight-streamed decode: int8 quarters the weight bytes of fp32, int4 "
                         "halves them again (orion_tpu_torch/quant.py)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group from torchrun's environment (the tp mesh)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism over the ranks (with --distributed): the heads and "
+                        "the MLPs' hidden dimension split, every rank emitting the same tokens")
+    for axis in ("dp", "fsdp", "sp"):
+        p.add_argument(f"--{axis}", type=int, default=1,
+                       help=f"the reference CLI's {axis} axis: above 1 raises (not ported)")
     args = p.parse_args(argv)
+    mesh = _tp_mesh(args)
+    try:
+        return _main(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(args, mesh) -> int:
+    main_rank = mesh is None or mesh.is_main
 
     cfg = get_config(args.config)
     if args.set:
@@ -644,15 +709,18 @@ def main(argv=None) -> int:
         from orion_tpu_torch.utils.tokenizer import ByteTokenizer
 
         tok = ByteTokenizer()
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     if args.ckpt_dir:
-        model, step = load_model(cfg, args.ckpt_dir, device, attempts=args.ckpt_attempts)
-        print(f"loaded step {step} from {args.ckpt_dir}", file=sys.stderr)
+        model, step = load_model(cfg, args.ckpt_dir, device, attempts=args.ckpt_attempts,
+                                 mesh=mesh)
+        if main_rank:
+            print(f"loaded step {step} from {args.ckpt_dir}", file=sys.stderr)
     else:
         # weights from a fixed init seed (as the JAX CLI's PRNGKey(0));
         # --seed seeds only the sampler
-        model = TransformerLM(cfg, device=device)
-        print("no --ckpt-dir: random params (smoke test)", file=sys.stderr)
+        model = TransformerLM(cfg, device=device, mesh=mesh)
+        if main_rank:
+            print("no --ckpt-dir: random params (smoke test)", file=sys.stderr)
     model = quantize_for_decode(model, args.quant) if args.quant else cast_params_for_inference(model)
     out = generate(
         model,
@@ -661,6 +729,14 @@ def main(argv=None) -> int:
         SampleConfig(args.temperature, args.top_k, args.top_p, eos_token=eos_token),
         args.seed,
     )
+    if mesh is not None:
+        from orion_tpu_torch.parallel.collectives import _gather_cat
+
+        every = _gather_cat(out, 0, mesh.tp_group)  # each rank's tokens, in rank order
+        if not all(torch.equal(o, out) for o in every.split(out.shape[0])):
+            raise RuntimeError(f"the tp ranks emitted different tokens: {every.tolist()}")
+        if not main_rank:
+            return 0
     ids = [int(t) for t in out[0]]
     if eos_token >= 0 and eos_token in ids:
         ids = ids[: ids.index(eos_token)]

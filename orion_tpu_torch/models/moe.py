@@ -56,6 +56,18 @@ product, in both dispatch rules; the z-loss stays this rank's mean, and
 data ranks, so the ranks' summed gradients count it once. The capacity
 form's groups lie inside one row, so its drops do not depend on the mesh.
 
+Under tp (``mesh`` with tp above 1 dividing the hidden width ``h``; ep
+stays 1) the router stays whole on every tp rank, and each rank holds its
+slice of the hidden dimension: ``experts_gate`` / ``experts_up`` [E, d,
+h / tp] and ``experts_down`` [E, h / tp, d]. Every dispatch form runs its
+expert products on that slice (rows 9-10 on the card in the tile-aligned
+form) and sums the ranks' partial expert outputs over the tp group before
+the gates combine them (``_tp_in`` / ``_tp_out``: the routing weights'
+gradient then is the same on every tp rank, as the router's). This departs
+from the JAX package on purpose: its MoE keeps ``ragged_dot`` under tp
+(its manual gmm region would gather the tp-sharded stacks whole); the port
+has no such constraint, and the function is the same.
+
 Not ported (each raises ``NotImplementedError`` naming ROADMAP.md's item):
 the expert-parallel forms (``_dropless_ep``, ``_dropless_ep_gmm``, the
 ``ep`` layout constraint: item 12).
@@ -74,8 +86,8 @@ import torch.nn.functional as F
 from orion_tpu_torch.models.configs import ModelConfig
 from orion_tpu_torch.ops.dispatch import resolve
 from orion_tpu_torch.ops.kernels.gmm import gmm, pad_group_sizes, tile_expert_table
-from orion_tpu_torch.parallel.collectives import all_reduce_mean
-from orion_tpu_torch.parallel.mesh import Mesh
+from orion_tpu_torch.parallel.collectives import all_reduce_mean, copy_to_tp, reduce_from_tp
+from orion_tpu_torch.parallel.mesh import Mesh, tp_of
 from orion_tpu_torch.quant import check_mode
 
 Tensor = torch.Tensor
@@ -164,7 +176,8 @@ class MoEMLP(nn.Module):
     """The routed-expert MLP; see the module docstring. ``cdt`` is the
     compute dtype of the expert products (the router runs in fp32).
     ``mesh``: a ``parallel.mesh.Mesh``, whose data group averages the
-    load-balance statistics."""
+    load-balance statistics and whose tp group, when tp divides the hidden
+    width, splits the expert stacks' hidden dimension."""
 
     def __init__(self, cfg: ModelConfig, cdt: torch.dtype, device=None, *,
                  mesh=None, quant: str = ""):
@@ -176,6 +189,9 @@ class MoEMLP(nn.Module):
         self.data_group = mesh.data_group if mesh is not None and mesh.n_data > 1 else None
         self.quant = check_mode(quant)
         e, k, h, d = cfg.n_experts, cfg.moe_top_k, cfg.resolved_mlp_hidden, cfg.d_model
+        # the stacks are built whole and cut by the model (TransformerLM)
+        tp = tp_of(mesh, h)
+        self.tp_group = tp.tp_group if tp is not None else None
         if not 1 <= k <= e:
             raise ValueError(f"moe_top_k={k} must be in [1, n_experts={e}]")
         if cfg.mlp not in ("swiglu", "gelu"):
@@ -216,6 +232,16 @@ class MoEMLP(nn.Module):
         aux = cfg.n_experts * (f * p).sum()
         z = (torch.logsumexp(logits, -1) ** 2).mean()
         return cfg.moe_aux_weight * aux + cfg.moe_zloss_weight * z
+
+    def _tp_in(self, rows: Tensor) -> Tensor:
+        """The expert products' input entering the tp region (the identity
+        without tp)."""
+        return rows if self.tp_group is None else copy_to_tp(rows, self.tp_group)
+
+    def _tp_out(self, ys: Tensor) -> Tensor:
+        """The ranks' partial expert outputs summed over the tp group, before
+        the gates weigh them (the identity without tp)."""
+        return ys if self.tp_group is None else reduce_from_tp(ys, self.tp_group)
 
     def _ffn(self, lhs: Tensor, mm: Callable[[Tensor, str], Tensor]) -> Tensor:
         """The expert FFN on ``lhs`` with ``mm(rows, stack name)`` as each of
@@ -262,7 +288,7 @@ class MoEMLP(nn.Module):
             return self._scaled(torch.einsum("gecd,edh->gech", a, w),
                                 None if s is None else s[None, :, None, :])
 
-        ye = self._ffn(xe, mm)
+        ye = self._tp_out(self._ffn(self._tp_in(xe), mm))
         y = torch.einsum("gecd,gsec->gsd", ye, combine.to(dt))
         return y.reshape(x.shape).to(dt), aux
 
@@ -308,7 +334,7 @@ class MoEMLP(nn.Module):
             return torch.cat([self._scaled(p @ w[i], None if s is None else s[i])
                               for i, p in enumerate(parts)])
 
-        ys = self._ffn(xs, segments)
+        ys = self._tp_out(self._ffn(self._tp_in(xs), segments))
         return self._combine(ys.index_select(0, rank).reshape(n, k, -1), gates)
 
     def _dropless_dense(self, x2: Tensor, ids: Tensor, gates: Tensor) -> Tensor:
@@ -316,7 +342,7 @@ class MoEMLP(nn.Module):
         experts' outputs: E times the products of the routed form, for the
         few rows of a decode step, and no host read of the routing."""
         n, dt = x2.shape[0], self.cdt
-        xd = x2.to(dt)
+        xd = self._tp_in(x2.to(dt))
 
         stacks: dict = {}  # each stack cast to the compute dtype once, not once per expert
 
@@ -329,7 +355,7 @@ class MoEMLP(nn.Module):
 
             return self._ffn(xd, mm)
 
-        ye = torch.stack([expert(i) for i in range(self.cfg.n_experts)])  # [E, N, d]
+        ye = self._tp_out(torch.stack([expert(i) for i in range(self.cfg.n_experts)]))  # [E, N, d]
         rows = torch.arange(n, device=x2.device)[:, None]
         return self._combine(ye[ids, rows], gates)
 
@@ -352,7 +378,8 @@ class MoEMLP(nn.Module):
         src = x2.to(dt).repeat_interleave(k, 0)  # row r of flat is token r // k
         xs = torch.zeros(m2, d, dtype=dt, device=x2.device).index_copy(0, pos, src)
         te = tile_expert_table(seg, m2 // tm, tm)
-        ys = self._ffn(xs, lambda a, name: gmm(a, getattr(self, name), te, backend=cfg.backend))
+        ys = self._tp_out(self._ffn(self._tp_in(xs), lambda a, name: gmm(
+            a, getattr(self, name), te, backend=cfg.backend)))
         return self._combine(ys.index_select(0, pos).reshape(n, k, d), gates)
 
 

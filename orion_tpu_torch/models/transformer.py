@@ -101,13 +101,31 @@ table's two uses each reduce-scatter a gradient into the one shard. A MoE
 layer averages its load-balance statistics over the data group
 (``models/moe.py``).
 
+Tensor parallelism (``mesh`` with tp above 1; any combination with dp,
+fsdp and sp): the Megatron layout of the JAX package's rules. Each rank
+holds n_heads / tp heads: ``wq`` / ``wk`` / ``wv`` are column shards whose
+input enters the tp region through ``collectives.copy_to_tp`` (the
+backward sums its gradient over the tp group), the attention kernels run
+on [B, H / tp, T, Dh] (and the sp bodies on the same local heads), and
+``wo`` is a row shard whose partial outputs ``reduce_from_tp`` sums. An MLP
+whose hidden width tp divides splits it the same way (``gate`` / ``up``
+column shards, ``down`` a row shard; else it runs whole on every tp rank),
+and so do a MoE layer's expert stacks (``models/moe.py``). The embeddings,
+norms, the router, ``phi_proj`` and the head are whole on every tp rank.
+``prefill``, ``prefill_last`` and ``decode_step`` take the same local-head
+form: the (S, z) states, KV caches and rings are this rank's heads [B,
+H / tp, ...], and a decode step makes the reference's two sums a block. The
+params are drawn whole from ``generator``, then cut: tp first, then fsdp
+cuts the tp shard (``parallel/sharding.py``; ``shard_state`` cuts a whole
+state dict the same way).
+
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
-item): the tp, pp and ep mesh axes (A12), and with them the
+item): the pp and ep mesh axes (A12 steps 5 and 8), and with them the
 expert-parallel MoE forms; prefill and decode of a sequence-parallel model
-(``generate --sp``); a sequence-parallel MoE, dropout on a
-sequence-parallel or data mesh, and a quantized model on a mesh. The JAX
-package's ``attn_block_q`` / ``attn_block_k`` size TPU tiles and are not
-read.
+(``generate --sp``, step 6); a sequence-parallel MoE, dropout on a
+sequence-parallel, data or tp mesh (step 7), and a quantized model on a
+mesh (step 8). The JAX package's ``attn_block_q`` / ``attn_block_k`` size
+TPU tiles and are not read.
 """
 
 from __future__ import annotations
@@ -131,8 +149,10 @@ from orion_tpu_torch.ops.linear_attention import (linear_attention, linear_atten
 from orion_tpu_torch.ops.rotary import apply_rotary, apply_rotary_at, rotary_freqs
 from orion_tpu_torch.ops.softmax_attention import (cached_attention, softmax_attention,
                                                    softmax_attention_xla)
-from orion_tpu_torch.parallel.mesh import Mesh
-from orion_tpu_torch.parallel.sharding import FsdpParams, fsdp_dims
+from orion_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from orion_tpu_torch.parallel.mesh import Mesh, tp_of
+from orion_tpu_torch.parallel.sharding import (AxisParams, FsdpParams, fsdp_dims, shard_whole,
+                                               tp_dims)
 from orion_tpu_torch.quant import Int4Dense, Int8Dense, Int8Embed, check_mode
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
@@ -307,7 +327,7 @@ class Attention(nn.Module):
     (``causal=False``, the LRA classifier)."""
 
     def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None,
-                 quant: str = "", causal: bool = True, sp=None):
+                 quant: str = "", causal: bool = True, sp=None, tp=None):
         super().__init__()
         if layer_type not in ("linear", "softmax", "swa"):
             raise ValueError(f"unknown layer type {layer_type!r}")
@@ -315,6 +335,10 @@ class Attention(nn.Module):
         self.layer_type = layer_type
         self.causal = causal
         self.sp = sp  # the sequence-parallel mesh, or None
+        # the tp group, or None: the layer then holds n_heads / tp heads (its
+        # weights are built whole and cut by the model, TransformerLM)
+        self.tp_group = tp.tp_group if tp is not None else None
+        self.heads = cfg.n_heads // (tp.tp if tp is not None else 1)
         h, dh = cfg.n_heads, cfg.resolved_head_dim
         dense = _qdense_factory(quant, _dtype(cfg.dtype), cfg.backend)
         self.wq = dense(cfg.d_model, h * dh, device)
@@ -341,9 +365,12 @@ class Attention(nn.Module):
             self.window = cfg.window if layer_type == "swa" else None
 
     def _heads(self, x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-        """x [B, T, D] -> q, k, v [B, H, T, Dh]; x [B, D] -> [B, H, Dh]."""
-        h, dh = self.cfg.n_heads, self.cfg.resolved_head_dim
+        """x [B, T, D] -> q, k, v [B, H, T, Dh]; x [B, D] -> [B, H, Dh]. H is
+        this rank's heads under tp (x then enters the tp region)."""
+        h, dh = self.heads, self.cfg.resolved_head_dim
         single = x.dim() == 2
+        if self.tp_group is not None:
+            x = copy_to_tp(x, self.tp_group)
 
         def split(y):
             y = y.reshape(*y.shape[:-1], h, dh)
@@ -362,7 +389,9 @@ class Attention(nn.Module):
     def _merge(self, out: Tensor, single: bool) -> Tensor:
         if not single:
             out = out.transpose(-3, -2)  # [B, T, H, Dh]
-        return self.wo(out.reshape(*out.shape[:-2], -1))
+        y = self.wo(out.reshape(*out.shape[:-2], -1))
+        # under tp wo is a row shard: the ranks' partial outputs summed
+        return y if self.tp_group is None else reduce_from_tp(y, self.tp_group)
 
     def _softmax(self, q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None) -> Tensor:
         """Softmax / sliding-window attention over rotated q, k: causal, or
@@ -736,11 +765,16 @@ def _swa_cache_from_prefill_dynamic(kr: Tensor, v: Tensor, length, window: int) 
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None, quant: str = ""):
+    """SwiGLU or GELU MLP. Under tp (``tp``, a mesh whose tp divides the
+    hidden dimension) ``gate`` / ``up`` are column shards and ``down`` a row
+    shard, whose partial outputs are summed over the tp group."""
+
+    def __init__(self, cfg: ModelConfig, device=None, quant: str = "", tp=None):
         super().__init__()
         self.cfg = cfg
         dense = _qdense_factory(quant, _dtype(cfg.dtype), cfg.backend)
         d, h = cfg.d_model, cfg.resolved_mlp_hidden
+        self.tp_group = tp.tp_group if tp is not None else None
         if cfg.mlp == "swiglu":
             self.gate = dense(d, h, device)
         elif cfg.mlp != "gelu":
@@ -749,11 +783,14 @@ class MLP(nn.Module):
         self.down = dense(h, d, device)
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.tp_group is not None:
+            x = copy_to_tp(x, self.tp_group)
         if self.cfg.mlp == "swiglu":
             y = F.silu(self.gate(x)) * self.up(x)
         else:
             y = F.gelu(self.up(x), approximate="tanh")  # jax.nn.gelu's default
-        return self.down(y)
+        y = self.down(y)
+        return y if self.tp_group is None else reduce_from_tp(y, self.tp_group)
 
 
 def _dropout(x: Tensor, rate: float, gen: torch.Generator) -> Tensor:
@@ -780,10 +817,11 @@ class Block(nn.Module):
         cdt = _dtype(cfg.dtype)
         self.rate = cfg.dropout
         self.norm1 = make_norm(cfg, device)
-        self.attn = Attention(cfg, layer_type, device, quant, causal, sp)
+        self.attn = Attention(cfg, layer_type, device, quant, causal, sp,
+                              tp=tp_of(mesh, cfg.n_heads))
         self.norm2 = make_norm(cfg, device)
         self.mlp = (MoEMLP(cfg, cdt, device, quant=quant, mesh=mesh) if use_moe
-                    else MLP(cfg, device, quant))
+                    else MLP(cfg, device, quant, tp=tp_of(mesh, cfg.resolved_mlp_hidden)))
 
     def _mlp_aux(self, x: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
         if isinstance(self.mlp, MoEMLP):
@@ -849,6 +887,8 @@ class TransformerLM(nn.Module):
     shard of the tokens. With dp x fsdp above 1 (``n_data``) it takes this
     rank's rows, and with fsdp above 1 (``fsdp``) it holds its shard of each
     fsdp leaf (the params are drawn whole from ``generator``, then cut).
+    With tp above 1 (``tp``) it holds its heads and its share of each MLP's
+    hidden dimension (``tp_params``, cut before fsdp cuts).
     Otherwise it changes nothing, as in the JAX model.
     """
 
@@ -871,6 +911,16 @@ class TransformerLM(nn.Module):
         if self.sp is not None and (quant or cfg.n_experts or cfg.dropout > 0.0):
             raise _not_ported("a sequence-parallel model with quant, MoE layers or dropout",
                               "item 12 (parallelism)")
+        self.tp = mesh if mesh is not None and mesh.tp > 1 else None
+        if self.tp is not None:
+            if cfg.dropout > 0.0:
+                raise _not_ported("dropout under tp (its masks are drawn at a rank's shape, so "
+                                  "they cannot match a tp=1 run's)",
+                                  "item 12 (parallelism), A12 step 7")
+            if quant:
+                raise _not_ported("a quantized model under tp", "item 12 (parallelism), A12 "
+                                  "step 8")
+            tp_table = tp_dims(cfg, mesh.tp)  # raises unless tp divides n_heads
         self.n_data = mesh.n_data if mesh is not None else 1
         self.data_group = mesh.data_group if mesh is not None else None
         if self.n_data > 1 and cfg.dropout > 0.0:
@@ -908,11 +958,28 @@ class TransformerLM(nn.Module):
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self.reset_parameters(generator)
+        # tp cuts first, then fsdp cuts the tp shard (no rule names both on
+        # one dimension)
+        self.tp_params = None
+        if self.tp is not None:
+            self.tp_params = AxisParams(tp_table, mesh.tp_group, mesh.tp, mesh.tp_rank)
+            self.tp_params.shard_module(self)
         self.fsdp = None
         if mesh is not None and mesh.fsdp > 1:
             self.fsdp = FsdpParams(fsdp_dims(cfg, mesh.fsdp), mesh.fsdp_group, mesh.fsdp,
                                    mesh.fsdp_rank)
             self.fsdp.shard_module(self)
+
+    @property
+    def shard_axes(self) -> List[AxisParams]:
+        """The axes this rank's params are cut over, in the order they were
+        cut: tp's, then fsdp's (empty: every param whole)."""
+        return [a for a in (self.tp_params, self.fsdp) if a is not None]
+
+    def shard_state(self, state: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """A whole state dict (a one-rank model's, a checkpoint's) -> this
+        rank's: each tp leaf's tp shard, then each fsdp leaf's fsdp shard."""
+        return shard_whole(state, self.shard_axes)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -20,7 +20,15 @@ whose backward is written out:
   cotangents (``reduce_scatter``);
 - ``all_reduce_mean`` (the MoE's routing statistics over the data group):
   the mean of the ranks' tensors; its backward sums the cotangents over the
-  group and divides by its size.
+  group and divides by its size;
+- ``copy_to_tp`` and ``reduce_from_tp``, Megatron's conjugate pair around a
+  tensor-parallel region: the first is the identity forward and sums the
+  cotangents over the tp group backward (the input of the column-sharded
+  products, whose ranks each see a part of its gradient); the second sums
+  the ranks' partial outputs forward (after a row-sharded product) and is
+  the identity backward. Their sum is ``tp_sum``: the group's tensors
+  gathered and added in group-rank order in fp32, rounded once to the
+  input's dtype, so every rank of the group holds the same bits.
 
 Transport: under NCCL the gather and the reduce-scatter are
 ``all_gather_into_tensor`` / ``reduce_scatter_tensor``. Gloo has no
@@ -196,6 +204,59 @@ def all_reduce_mean(x: Tensor, group) -> Tensor:
     return _AllReduceMean.apply(x, group)
 
 
+def tp_sum(x: Tensor, group) -> Tensor:
+    """The sum of the group's ``x`` on every rank, bitwise the same on each:
+    under NCCL one all-reduce (in fp32 for a narrower dtype); under gloo
+    every rank's tensor gathered (staged through host memory for a CUDA
+    tensor) and added in group-rank order in fp32. Rounded once to
+    ``x.dtype``. Not differentiable (``copy_to_tp``, ``reduce_from_tp``)."""
+    if _nccl(group):
+        out = x.detach().to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out.to(x.dtype)
+    parts = _all_gather(x, group)
+    out = parts[0].float()
+    for p in parts[1:]:
+        out = out + p.float()
+    return out.to(x.dtype)
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # each rank's column shard gives this input a part of its gradient
+        return tp_sum(g, ctx.group), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return tp_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's partial output reaches the sum with weight 1
+        return g, None
+
+
+def copy_to_tp(x: Tensor, group) -> Tensor:
+    """``x`` as it is, entering a tensor-parallel region: the backward sums
+    the cotangents over the tp ``group`` (Megatron's ``f``)."""
+    return _CopyToTp.apply(x, group)
+
+
+def reduce_from_tp(x: Tensor, group) -> Tensor:
+    """The sum over the tp ``group`` of the ranks' partial ``x`` (after a
+    row-sharded product), leaving a tensor-parallel region; the backward is
+    the identity (Megatron's ``g``)."""
+    return _ReduceFromTp.apply(x, group)
+
+
 def _all_gather(x: Tensor, group) -> Tensor:
     """[n, *x.shape]: every rank's ``x`` in group-rank order."""
     n, _ = _size_rank(group)
@@ -295,4 +356,5 @@ def any_rank(flag: bool, device, group: Optional[dist.ProcessGroup] = None) -> b
 
 
 __all__ = ["ppermute_shift", "exclusive_prefix_sum", "exchange", "touch", "all_reduce_sum_",
-           "all_gather", "reduce_scatter", "all_reduce_mean", "any_rank"]
+           "all_gather", "reduce_scatter", "all_reduce_mean", "any_rank", "copy_to_tp",
+           "reduce_from_tp"]

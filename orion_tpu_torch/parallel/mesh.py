@@ -8,22 +8,26 @@ process its rank) and a mesh is a set of ``torch.distributed`` process
 groups, one for each axis above 1, whose collectives the code calls itself
 (``parallel/collectives.py``).
 
-Ported: the ``dp``, ``fsdp`` and ``sp`` axes, in any combination. ``sp``
-is sequence parallelism: each rank of the group holds a contiguous shard of
-every sequence's tokens (``parallel/sequence.py``, ``parallel/ring.py``).
-``dp`` and ``fsdp`` are the data axes: the ranks of the data group (dp x
-fsdp) hold different rows of the global batch, and ``fsdp`` also shards the
-parameters and the optimizer state over its group (``parallel/sharding.py``).
-``dp = -1`` resolves to the ranks the other axes leave. tp, pp and ep above 1
+Ported: the ``dp``, ``fsdp``, ``tp`` and ``sp`` axes, in any combination.
+``sp`` is sequence parallelism: each rank of the group holds a contiguous
+shard of every sequence's tokens (``parallel/sequence.py``,
+``parallel/ring.py``). ``dp`` and ``fsdp`` are the data axes: the ranks of
+the data group (dp x fsdp) hold different rows of the global batch, and
+``fsdp`` also shards the parameters and the optimizer state over its group
+(``parallel/sharding.py``). ``tp`` is tensor parallelism in the Megatron
+layout: the ranks of a tp group share rows and tokens and each holds 1 / tp
+of the heads and of the MLP's hidden dimension (``models/transformer.py``).
+``dp = -1`` resolves to the ranks the other axes leave. pp and ep above 1
 raise ``NotImplementedError`` naming ROADMAP.md's A12, whose later steps
 port them.
 
 Rank layout: the JAX mesh's device order, ``reshape(dp, fsdp, tp, sp, pp,
-ep)``, so with tp = pp = ep = 1 rank = (d fsdp + f) sp + s. A rank's row
+ep)``, so with pp = ep = 1 rank = ((d fsdp + f) tp + t) sp + s. A rank's row
 block of a global batch is number d fsdp + f of dp fsdp equal blocks (the
-JAX package's ``P(("dp", "fsdp"))``); the sp ranks of one (d, f) share it.
-Every group is created by every rank, in the same order, including the
-groups a rank is not in: ``dist.new_group`` is collective over all ranks.
+JAX package's ``P(("dp", "fsdp"))``); the tp and sp ranks of one (d, f)
+share it, and the tp ranks of one (d, f, s) share its tokens too. Every
+group is created by every rank, in the same order, including the groups a
+rank is not in: ``dist.new_group`` is collective over all ranks.
 
 Transport. ``init_distributed`` picks NCCL when each local rank has a card
 of its own, and gloo when local ranks share one (NCCL refuses two ranks on
@@ -51,7 +55,7 @@ AXES = ("dp", "fsdp", "tp", "sp", "pp", "ep")
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to orion_tpu_torch yet (ROADMAP.md queue A, item 12 "
-        "(parallelism): only the dp, fsdp and sp axes are)")
+        "(parallelism): only the dp, fsdp, tp and sp axes are; A12 step 5 ports pp, step 8 ep)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +87,9 @@ class MeshConfig:
         return (self.dp, self.fsdp, self.tp, self.sp, self.pp, self.ep)
 
     def check(self) -> None:
-        """Raise for an axis above 1 that is not ported (tp, pp, ep)."""
+        """Raise for an axis above 1 that is not ported (pp, ep)."""
         for name, n in zip(AXES, self.shape):
-            if name not in ("dp", "fsdp", "sp") and n > 1:
+            if name not in ("dp", "fsdp", "tp", "sp") and n > 1:
                 raise _not_ported(f"a device mesh with {name}={n} {self.shape}")
 
 
@@ -108,9 +112,11 @@ class Mesh:
     them: its global ``rank`` of ``world``, its ``device``, the
     ``transport`` ("nccl" or "gloo") and one group for each axis above 1
     (None for an axis of one rank): ``sp_group``, ``dp_group``,
-    ``fsdp_group``; ``data_group``, the dp x fsdp ranks of this sp index
-    (the ranks that hold different rows); ``shard_group``, the dp x sp ranks
-    of this fsdp index (the ranks that hold the same fsdp shards)."""
+    ``fsdp_group``, ``tp_group``; ``data_group``, the dp x fsdp ranks of this
+    (t, s) (the ranks that hold different rows); ``shard_group``, the dp x sp
+    ranks of this (f, t) (the ranks that hold the same fsdp shards);
+    ``replica_group``, the dp x fsdp x sp ranks of this t (the ranks that
+    hold the same tp shards: with tp = 1 every rank)."""
 
     cfg: MeshConfig
     rank: int
@@ -122,12 +128,15 @@ class Mesh:
     fsdp_group: Optional[dist.ProcessGroup] = None
     data_group: Optional[dist.ProcessGroup] = None
     shard_group: Optional[dist.ProcessGroup] = None
+    tp_group: Optional[dist.ProcessGroup] = None
+    replica_group: Optional[dist.ProcessGroup] = None
 
     @property
-    def coords(self) -> Tuple[int, int, int]:
-        """(d, f, s): this rank's index along dp, fsdp and sp."""
+    def coords(self) -> Tuple[int, int, int, int]:
+        """(d, f, t, s): this rank's index along dp, fsdp, tp and sp."""
         c = self.cfg
-        return self.rank // (c.fsdp * c.sp), self.rank // c.sp % c.fsdp, self.rank % c.sp
+        return (self.rank // (c.fsdp * c.tp * c.sp), self.rank // (c.tp * c.sp) % c.fsdp,
+                self.rank // c.sp % c.tp, self.rank % c.sp)
 
     @property
     def sp(self) -> int:
@@ -142,7 +151,15 @@ class Mesh:
         return self.cfg.fsdp
 
     @property
+    def tp(self) -> int:
+        return self.cfg.tp
+
+    @property
     def sp_rank(self) -> int:
+        return self.coords[3]
+
+    @property
+    def tp_rank(self) -> int:
         return self.coords[2]
 
     @property
@@ -161,7 +178,7 @@ class Mesh:
     @property
     def data_rank(self) -> int:
         """This rank's row block: d fsdp + f."""
-        d, f, _ = self.coords
+        d, f, _, _ = self.coords
         return d * self.cfg.fsdp + f
 
     @property
@@ -193,9 +210,18 @@ class Mesh:
         return x[torch.from_numpy(self.row_index(x.shape[0], accum)).to(x.device)]
 
 
+def tp_of(mesh: Optional[Mesh], width: int) -> Optional[Mesh]:
+    """``mesh`` when its tp axis is above 1 and divides ``width`` (the heads,
+    or an MLP's or an expert stack's hidden dimension), else None: the layer
+    then runs whole on every tp rank, as ``param_shardings`` clips a spec."""
+    if mesh is None or mesh.tp <= 1 or width % mesh.tp:
+        return None
+    return mesh
+
+
 def _group(shape: Tuple[int, ...], rank: int, varying: Tuple[int, ...], transport: str):
     """The group of the ranks that differ from ``rank`` only along the axes
-    ``varying`` (indices into ``shape``, the (dp, fsdp, sp) sizes), or None
+    ``varying`` (indices into ``shape``, the (dp, fsdp, tp, sp) sizes), or None
     when it holds one rank. Every rank creates every group of the partition,
     in the same order: ``dist.new_group`` is collective over all ranks."""
     buckets: Dict[tuple, List[int]] = {}
@@ -251,7 +277,7 @@ def init_distributed(
     under NCCL, all ranks share card 0 under gloo when there are fewer
     cards than local ranks). A process group that is already up is reused
     (a process may build several meshes over it, one after another, each
-    rank calling with the same ``cfg``). tp, pp and ep above 1 raise
+    rank calling with the same ``cfg``). pp and ep above 1 raise
     (``MeshConfig.check``)."""
     rank = _env_int("RANK") if rank is None else rank
     world = _env_int("WORLD_SIZE") if world_size is None else world_size
@@ -260,10 +286,10 @@ def init_distributed(
                    else local_world_size)
     resolved = cfg.resolve(world)
     resolved.check()
-    if resolved.dp * resolved.fsdp * resolved.sp != world:
-        raise ValueError(f"mesh {resolved.shape}: dp * fsdp * sp = "
-                         f"{resolved.dp * resolved.fsdp * resolved.sp} does not cover the "
-                         f"{world} ranks")
+    covered = resolved.dp * resolved.fsdp * resolved.tp * resolved.sp
+    if covered != world:
+        raise ValueError(f"mesh {resolved.shape}: dp * fsdp * tp * sp = {covered} does not "
+                         f"cover the {world} ranks")
     kind = torch.device(device if device is not None else "cuda").type
     if kind == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_distributed: CUDA is not available; pass device='cpu' to run "
@@ -284,15 +310,17 @@ def init_distributed(
           f"({local_world} local rank(s), {n_cards} card(s)"
           + (": CUDA tensors staged through host memory" if transport == "gloo"
              and kind == "cuda" else "") + ")", file=sys.stderr)
-    shape = (resolved.dp, resolved.fsdp, resolved.sp)
+    shape = (resolved.dp, resolved.fsdp, resolved.tp, resolved.sp)
     groups = {name: _group(shape, rank, varying, transport)
-              for name, varying in (("sp_group", (2,)), ("dp_group", (0,)), ("fsdp_group", (1,)),
-                                    ("data_group", (0, 1)))}
+              for name, varying in (("sp_group", (3,)), ("dp_group", (0,)), ("fsdp_group", (1,)),
+                                    ("data_group", (0, 1)), ("tp_group", (2,)),
+                                    ("replica_group", (0, 1, 3)))}
     # the ranks holding one fsdp shard sum its gradient (without fsdp every
-    # leaf is replicated and sums over the world)
-    groups["shard_group"] = (_group(shape, rank, (0, 2), transport) if resolved.fsdp > 1
+    # leaf is replicated over the replica group and sums there)
+    groups["shard_group"] = (_group(shape, rank, (0, 3), transport) if resolved.fsdp > 1
                              else None)
     return Mesh(resolved, rank, world, dev, transport, **groups)
 
 
-__all__ = ["AXES", "MeshConfig", "Mesh", "init_distributed", "transport_for", "row_index"]
+__all__ = ["AXES", "MeshConfig", "Mesh", "init_distributed", "transport_for", "row_index",
+           "tp_of"]

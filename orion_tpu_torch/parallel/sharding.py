@@ -1,21 +1,38 @@
-"""Parameter sharding over the fsdp axis: the counterpart of
+"""Parameter sharding over the fsdp and tp axes: the counterpart of
 ``orion_tpu/parallel/sharding.py``.
 
 The JAX package annotates each parameter with a ``PartitionSpec`` over the
 (dp, fsdp, tp, sp, pp, ep) mesh and lets GSPMD insert the gathers. The port
 keeps a copy of its rules (``_RULES``, ``spec_for_path``: the first rule
-whose pattern matches a leaf's flax path wins) and reads only their
-``fsdp`` dimension, the axis this slice ports: an fsdp leaf is held by each
-rank of the fsdp group as one of ``fsdp`` equal chunks along that
-dimension, gathered on use (``FsdpParams``, ``collectives.all_gather``);
-every other leaf is replicated. The tp, pp and ep entries of the rules are
-kept for their shape and read by nothing yet (ROADMAP.md A12).
+whose pattern matches a leaf's flax path wins) and reads their ``fsdp`` and
+``tp`` dimensions:
+
+- tp (``tp_dims``): a tp leaf is cut into ``tp`` equal chunks along its tp
+  dimension, one a rank of the tp group, for good: the Megatron layout, in
+  which ``wq`` / ``wk`` / ``wv`` / ``gate`` / ``up`` (and the expert stacks'
+  gate / up) are column shards and ``wo`` / ``down`` (``experts_down``) row
+  shards, so each rank computes its heads and its slice of the hidden
+  dimension and one sum over the group follows ``wo`` and ``down``
+  (``models/transformer.py``, ``collectives.reduce_from_tp``). Two leaves
+  whose rule names tp are held whole on every tp rank: ``phi_proj`` (one
+  Dh -> Dh map that every head shares; its gradient is summed over the tp
+  group, ``tp_whole_grads``) and the untied ``lm_head_kernel`` (the head
+  reads the whole hidden state; a memory difference, not one in results);
+- fsdp (``fsdp_dims``): an fsdp leaf is held by each rank of the fsdp group
+  as one of ``fsdp`` equal chunks along that dimension, gathered on use
+  (``FsdpParams``, ``collectives.all_gather``). Under both, the tp shard is
+  what fsdp cuts: no rule names tp and fsdp on one dimension.
+
+Every other leaf is replicated. The pp and ep entries of the rules are kept
+for their shape and read by nothing yet (ROADMAP.md A12).
 
 The rules name the flax layout. The port stores a dense kernel [in, out] as
 its transpose [out, in] (``convert.expected_params``' ``transpose`` flag),
-so its fsdp dimension is the other one; every other leaf keeps the flax
-layout. A leaf whose fsdp dimension the fsdp size does not divide stays
-replicated, as ``param_shardings`` clips a spec.
+so its dimension is the other one; every other leaf keeps the flax layout.
+A leaf whose dimension the axis size does not divide stays replicated over
+that axis, as ``param_shardings`` clips a spec (an MLP then runs whole on
+every tp rank); tp must divide ``n_heads``, as the reference's per-head
+kernel calls need.
 """
 
 from __future__ import annotations
@@ -61,27 +78,61 @@ def spec_for_path(path: str) -> Spec:
     return ()
 
 
+# the leaves whose rule names tp that every tp rank holds whole
+TP_WHOLE = (r"phi_proj/kernel", r"lm_head_kernel")
+
+
+def _axis_dims(cfg, axis: str, size: int, skip: Tuple[str, ...] = ()) -> Dict[str, int]:
+    """port state_dict key -> the dimension (in the port's layout) along
+    which ``axis`` of ``size`` shards the leaf, for each leaf whose rule
+    names the axis at a dimension the size divides."""
+    from orion_tpu_torch.convert import expected_params  # convert imports the model
+
+    out: Dict[str, int] = {}
+    if size <= 1:
+        return out
+    for path, (key, shape, transpose) in expected_params(cfg).items():
+        spec = spec_for_path(path)
+        if axis not in spec or any(re.search(pat, path) for pat in skip):
+            continue
+        i = spec.index(axis)
+        if i >= len(shape):
+            continue
+        dim = len(shape) - 1 - i if transpose else i  # a transposed kernel is 2-D
+        if shape[dim] % size == 0:
+            out[key] = dim
+    return out
+
+
 def fsdp_dims(cfg, fsdp: int) -> Dict[str, int]:
     """The model's fsdp leaves at an fsdp size of ``fsdp``: port state_dict
     key -> the dimension it is sharded along (in the port's layout). A leaf
     absent from the table is replicated: its rule names no fsdp dimension,
     or the fsdp size does not divide that dimension."""
-    from orion_tpu_torch.convert import expected_params  # convert imports the model
+    return _axis_dims(cfg, "fsdp", fsdp)
 
-    out: Dict[str, int] = {}
-    if fsdp <= 1:
-        return out
-    for path, (key, shape, transpose) in expected_params(cfg).items():
-        spec = spec_for_path(path)
-        if "fsdp" not in spec:
-            continue
-        i = spec.index("fsdp")
-        if i >= len(shape):
-            continue
-        dim = len(shape) - 1 - i if transpose else i  # a transposed kernel is 2-D
-        if shape[dim] % fsdp == 0:
-            out[key] = dim
-    return out
+
+def tp_dims(cfg, tp: int) -> Dict[str, int]:
+    """The model's tp leaves at a tp size of ``tp``: port state_dict key ->
+    the dimension it is cut along (in the port's layout). A leaf absent from
+    the table is whole on every tp rank: its rule names no tp dimension, it
+    is one of ``TP_WHOLE``, or tp does not divide that dimension (an MLP or
+    an expert stack whose hidden width tp does not divide). Raises
+    ``ValueError`` when tp does not divide ``n_heads``."""
+    if tp > 1 and cfg.n_heads % tp:
+        raise ValueError(f"tp={tp} does not divide n_heads={cfg.n_heads}: each tp rank holds "
+                         "whole heads (the reference's per-head kernel calls need the same)")
+    return _axis_dims(cfg, "tp", tp, TP_WHOLE)
+
+
+def tp_whole_grads(cfg) -> Tuple[str, ...]:
+    """The port keys of the leaves held whole on every tp rank that only the
+    local heads read (``phi_proj``): each tp rank's gradient of one is its
+    heads' share, summed over the tp group."""
+    from orion_tpu_torch.convert import expected_params
+
+    return tuple(key for path, (key, _, _) in expected_params(cfg).items()
+                 if re.search(TP_WHOLE[0], path))
 
 
 def shard_leaf(full: Tensor, dim: int, fsdp: int, index: int) -> Tensor:
@@ -97,12 +148,62 @@ def gather_leaf(shard: Tensor, dim: int, group) -> Tensor:
     return all_gather(shard, group, dim)
 
 
-class FsdpParams:
-    """One model's fsdp leaves on this rank: ``dims`` (``fsdp_dims``), the
-    fsdp ``group``, its size and this rank's index in it."""
+class AxisParams:
+    """One model's leaves sharded over one mesh axis on this rank: ``dims``
+    (``fsdp_dims`` or ``tp_dims``), the axis' ``group``, its size and this
+    rank's index in it."""
 
     def __init__(self, dims: Dict[str, int], group, size: int, index: int):
         self.dims, self.group, self.size, self.index = dims, group, size, index
+
+    def shard_module(self, model: torch.nn.Module) -> None:
+        """Replace each sharded parameter of ``model`` by this rank's shard."""
+        for name, dim in self.dims.items():
+            owner, _, attr = name.rpartition(".")
+            mod = model.get_submodule(owner)
+            p = getattr(mod, attr)
+            setattr(mod, attr, torch.nn.Parameter(shard_leaf(p.detach(), dim, self.size,
+                                                             self.index),
+                                                  requires_grad=p.requires_grad))
+
+    def shard_state(self, state: Mapping[str, Tensor]) -> Dict[str, Tensor]:
+        """A whole state dict (a checkpoint's, a one-rank run's) -> this
+        rank's: each sharded leaf's shard, the rest as they are."""
+        return {n: shard_leaf(t, self.dims[n], self.size, self.index) if n in self.dims else t
+                for n, t in state.items()}
+
+
+def gather_whole(state: Mapping[str, Tensor], axes, keep: bool) -> Optional[Dict[str, Tensor]]:
+    """This rank's state dict -> the whole one, on the host: each leaf, one
+    at a time, gathered over each ``AxisParams`` of ``axes`` in turn (fsdp's,
+    then tp's: fsdp cuts the tp shard) where it is sharded over it, then
+    copied to the host. A collective over each axis' group; None where
+    ``keep`` is false."""
+    out: Dict[str, Tensor] = {}
+    for n, t in state.items():
+        full = t
+        for ax in axes:
+            if n in ax.dims:
+                full = _gather_cat(full, ax.dims[n], ax.group)
+        if keep:
+            out[n] = full.detach().to("cpu", copy=True)
+        del full
+    return out if keep else None
+
+
+def shard_whole(state: Mapping[str, Tensor], axes) -> Dict[str, Tensor]:
+    """A whole state dict -> this rank's: cut by each ``AxisParams`` of
+    ``axes`` in turn (tp's, then fsdp's)."""
+    out = dict(state)
+    for ax in axes:
+        out = ax.shard_state(out)
+    return out
+
+
+class FsdpParams(AxisParams):
+    """One model's fsdp leaves on this rank (``AxisParams`` of ``fsdp_dims``
+    over the fsdp group), gathered whole where a block or the head reads
+    them."""
 
     def full(self, name: str, p: Tensor) -> Tensor:
         """``p`` (the parameter ``name``) whole: gathered if it is an fsdp
@@ -122,33 +223,6 @@ class FsdpParams:
         backward)."""
         return torch.func.functional_call(module, self.gathered(module, prefix), args)
 
-    def shard_module(self, model: torch.nn.Module) -> None:
-        """Replace each fsdp parameter of ``model`` by this rank's shard."""
-        for name, dim in self.dims.items():
-            owner, _, attr = name.rpartition(".")
-            mod = model.get_submodule(owner)
-            p = getattr(mod, attr)
-            setattr(mod, attr, torch.nn.Parameter(shard_leaf(p.detach(), dim, self.size,
-                                                             self.index),
-                                                  requires_grad=p.requires_grad))
 
-    def shard_state(self, state: Mapping[str, Tensor]) -> Dict[str, Tensor]:
-        """A whole state dict (a checkpoint's, a dp=1 run's) -> this rank's:
-        each fsdp leaf's shard, the rest as they are."""
-        return {n: shard_leaf(t, self.dims[n], self.size, self.index) if n in self.dims else t
-                for n, t in state.items()}
-
-    def gather_state(self, state: Mapping[str, Tensor], keep: bool) -> Optional[Dict[str, Tensor]]:
-        """This rank's state dict -> the whole one, on the host, one leaf at a
-        time (a collective over the fsdp group: every rank of it calls);
-        None where ``keep`` is false (a rank that only lends its shards)."""
-        out: Dict[str, Tensor] = {}
-        for n, t in state.items():
-            full = _gather_cat(t, self.dims[n], self.group) if n in self.dims else t
-            if keep:
-                out[n] = full.detach().to("cpu", copy=True)
-            del full
-        return out if keep else None
-
-
-__all__ = ["spec_for_path", "fsdp_dims", "shard_leaf", "gather_leaf", "FsdpParams"]
+__all__ = ["spec_for_path", "fsdp_dims", "tp_dims", "tp_whole_grads", "TP_WHOLE", "shard_leaf",
+           "gather_leaf", "AxisParams", "FsdpParams", "gather_whole", "shard_whole"]

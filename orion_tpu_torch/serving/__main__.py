@@ -65,7 +65,7 @@ from orion_tpu_torch.utils.device import resolve_device
 
 # the reference's flags for what is not ported: (flag, type, default, item)
 _NOT_PORTED_FLAGS = (
-    ("--tp", int, 0, "A12"),
+    ("--tp", int, 0, "A12 step 8"),
 )
 
 

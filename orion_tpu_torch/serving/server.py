@@ -154,7 +154,7 @@ _STAT_KEYS = (
 # the ROADMAP.md item that brings each; a value other than the default
 # raises at construction
 _NOT_PORTED = {
-    **dict.fromkeys(("tp", "mesh_audit"), "A12"),
+    "tp": "A12 step 8", "mesh_audit": "A12",
     **dict.fromkeys(("cost_ledger", "exec_dir", "exec_local_dir", "exec_max_resident"), "A13"),
 }
 # why a refused field waits for its item, where the item's name alone does

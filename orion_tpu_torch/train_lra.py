@@ -266,7 +266,7 @@ def train_lra(cfg: LRATrainConfig, logger: Optional[MetricsLogger] = None, devic
     if any(n > 1 for n in cfg.mesh.shape):  # sp too: the classifier is bidirectional
         raise NotImplementedError(f"a device mesh {cfg.mesh.shape} is not ported to "
                                   "orion_tpu_torch's LRA (ROADMAP.md queue A, item 12 "
-                                  "(parallelism))")
+                                  "(parallelism), A12 step 7)")
     if cfg.accum_steps != 1:
         raise ValueError("train_lra takes accum_steps=1, as the JAX package's step does")
     dev = resolve_device(device)

@@ -74,6 +74,23 @@ always the file a dp=1 run writes: under fsdp the fsdp group of rank 0
 gathers each leaf, one at a time, into rank 0's host memory; a load on any
 mesh takes this rank's shard of each leaf.
 
+Tensor parallelism (``cfg.mesh.tp > 1``, in any combination with dp, fsdp
+and sp): the ranks of a tp group take the same rows and tokens, and each
+holds its tp shard of the heads and of the MLPs' (and expert stacks')
+hidden dimension (``parallel/sharding.py``'s ``tp_dims``; fsdp then cuts
+the tp shard). Every tp rank computes the same loss and the same gradient
+of a leaf read outside the tp region (embeddings, norms, the router, the
+head), so the loss and those gradients are summed over the replica group
+(the ranks at the same tp index), not the world; the tp shards' gradients
+too, or over the shard group at a fixed tp index under fsdp; and
+``phi_proj`` (``feature_map="learnable"``: held whole on every tp rank, read
+by the local heads only) is then also summed over the tp group. The global
+norm sums the squares of the tp shards over the tp group. A checkpoint is
+the file a tp=1 run writes: each leaf gathered over fsdp, then over tp, into
+rank 0's host memory; a load on any mesh cuts it again. ``adafactor`` and
+``bfloat16_sr`` under tp raise ``NotImplementedError`` naming A12 step 9
+(the whole leaf again).
+
 Resilience, as the JAX package's Trainer: ``train(preempt=, watchdog=)``
 beats the watchdog each step (disarmed around an eval and every forced
 save), fires the ``train.step_boundary`` fault hook after each step's
@@ -95,7 +112,7 @@ blocks, and retries that step once with every block recomputed
 rank that retried alone would desynchronise the collectives.
 
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
-item): the tp, pp and ep mesh axes (A12).
+item): the pp and ep mesh axes (A12).
 """
 
 from __future__ import annotations
@@ -118,7 +135,7 @@ from orion_tpu_torch.ops.kernels import adafactor as af
 from orion_tpu_torch.parallel.collectives import all_reduce_sum_, any_rank
 from orion_tpu_torch.resilience import inject as _inject
 from orion_tpu_torch.parallel.mesh import MeshConfig
-from orion_tpu_torch.parallel.sharding import FsdpParams
+from orion_tpu_torch.parallel.sharding import AxisParams, FsdpParams, gather_whole, tp_whole_grads
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
 
@@ -470,17 +487,27 @@ def param_grads(params: Dict[str, Tensor]) -> Dict[str, Tensor]:
             for n, p in params.items()}
 
 
-def global_norm(grads: Dict[str, Tensor], fsdp: Optional[FsdpParams] = None) -> Tensor:
+def global_norm(grads: Dict[str, Tensor], fsdp: Optional[FsdpParams] = None,
+                tp: Optional[AxisParams] = None) -> Tensor:
     """The gradients' global L2 norm, in fp32 (a bf16 leaf's too). Under
-    ``fsdp`` the grads of its leaves are this rank's shards: their squares
-    are summed over the fsdp group, the replicated leaves' counted once."""
+    ``fsdp`` or ``tp`` the grads of their leaves are this rank's shards: the
+    squares of the fsdp shards are summed over the fsdp group, those of the
+    tp shards over the tp group (both for a leaf cut by both), and the
+    replicated leaves' counted once."""
     norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads.values()]
-    if fsdp is None:
+    if fsdp is None and tp is None:
         return torch.linalg.vector_norm(torch.stack(norms))
     sq = torch.stack([n * n for n in norms])
-    sharded = torch.tensor([name in fsdp.dims for name in grads], device=sq.device)
-    parts = torch.stack([sq[sharded].sum(), sq[~sharded].sum()])
-    all_reduce_sum_([parts[:1]], fsdp.group)
+    dev = sq.device
+    by_f = torch.tensor([fsdp is not None and name in fsdp.dims for name in grads], device=dev)
+    by_t = torch.tensor([tp is not None and name in tp.dims for name in grads], device=dev)
+    # [fsdp and tp, fsdp only, tp only, neither]
+    parts = torch.stack([sq[by_f & by_t].sum(), sq[by_f & ~by_t].sum(), sq[~by_f & by_t].sum(),
+                         sq[~by_f & ~by_t].sum()])
+    if fsdp is not None:
+        all_reduce_sum_([parts[:2]], fsdp.group)
+    if tp is not None:
+        all_reduce_sum_([parts[0:1], parts[2:3]], tp.group)
     return torch.sqrt(parts.sum())
 
 
@@ -503,7 +530,7 @@ class Trainer:
             )
         cfg.mesh.check()
         if mesh is None:
-            if max(cfg.mesh.dp, cfg.mesh.fsdp, cfg.mesh.sp) > 1:
+            if max(cfg.mesh.dp, cfg.mesh.fsdp, cfg.mesh.tp, cfg.mesh.sp) > 1:
                 raise ValueError(f"mesh {cfg.mesh.shape} needs its process group: pass the Mesh "
                                  "of parallel.init_distributed (the CLI's --distributed)")
             want = MeshConfig(dp=1)
@@ -532,10 +559,12 @@ class Trainer:
         if cfg.micro_batch % n_data:  # so the batch divides too
             raise ValueError(f"batch_size {cfg.batch_size} (micro-batch {cfg.micro_batch}) does "
                              f"not divide into dp * fsdp = {n_data} row blocks")
-        if want.fsdp > 1 and (cfg.optimizer == "adafactor" or cfg.param_storage == "bfloat16_sr"):
+        if (want.fsdp > 1 or want.tp > 1) and (cfg.optimizer == "adafactor"
+                                               or cfg.param_storage == "bfloat16_sr"):
             raise _not_ported(f"optimizer={cfg.optimizer!r} / param_storage="
-                              f"{cfg.param_storage!r} under fsdp (factored statistics and the "
-                              "rounding counter take the whole leaf)", "item 12 (parallelism)")
+                              f"{cfg.param_storage!r} under fsdp or tp (factored statistics and "
+                              "the rounding counter take the whole leaf)",
+                              "item 12 (parallelism), A12 step 9")
         if cfg.param_storage not in ("float32", "bfloat16_sr"):
             raise ValueError(f"param_storage={cfg.param_storage!r}; expected 'float32' "
                              "or 'bfloat16_sr'")
@@ -555,6 +584,9 @@ class Trainer:
         )
         storage_cast(self.model, cfg.param_storage)
         self.fsdp = self.model.fsdp
+        self.tp = self.model.tp_params
+        # phi_proj: whole on every tp rank, each rank's gradient its heads' share
+        self.tp_whole = set(tp_whole_grads(cfg.model)) if self.tp is not None else set()
         self.params = dict(self.model.named_parameters())
         transposed = {key: t for key, _, t in expected_params(cfg.model).values()}
         self.opt = make_optimizer(cfg, self.params, transposed)
@@ -602,20 +634,33 @@ class Trainer:
 
     def _reduce(self, loss: Tensor) -> Tensor:
         """On a mesh: the loss and every parameter gradient summed over the
-        ranks, so each holds the global ones (a no-op otherwise). The
-        replicated leaves' and the loss sum over every rank; the fsdp
-        shards', reduce-scattered over the fsdp group in the backward, over
-        the ranks holding the same shard."""
+        ranks, so each holds the global ones (a no-op otherwise). The loss
+        and the leaves not cut by fsdp sum over the replica group (every
+        rank without tp; under tp the ranks at this tp index, since the tp
+        ranks already share the loss and the gradient of every leaf read
+        outside the tp region); the fsdp shards', reduce-scattered over the
+        fsdp group in the backward, over the ranks holding the same shard;
+        then ``phi_proj``'s (held whole, read by the local heads) also over
+        the tp group."""
         if self.mesh is None:
             return loss
         loss = loss.reshape(1).clone()
         dims = self.fsdp.dims if self.fsdp is not None else {}
         grads = [p.grad for n, p in self.params.items() if p.grad is not None and n not in dims]
-        all_reduce_sum_([loss] + grads)
+        if self.mesh.replica_group is not None:
+            all_reduce_sum_([loss] + grads, self.mesh.replica_group)
         shards = [p.grad for n, p in self.params.items() if p.grad is not None and n in dims]
         if shards and self.mesh.shard_group is not None:
             all_reduce_sum_(shards, self.mesh.shard_group)
+        heads = [p.grad for n, p in self.params.items() if p.grad is not None and n in self.tp_whole]
+        if heads:
+            all_reduce_sum_(heads, self.mesh.tp_group)
         return loss[0]
+
+    @property
+    def _sharded(self) -> bool:
+        """Whether this rank holds any param in part (fsdp or tp)."""
+        return bool(self.model.shard_axes)
 
     @property
     def is_main(self) -> bool:
@@ -625,9 +670,9 @@ class Trainer:
 
     def _save(self, ckpt, step: int, force: bool = False) -> None:
         """``ckpt.maybe_save`` on rank 0; on a mesh every rank then waits
-        for it. Under fsdp the ranks of rank 0's fsdp group first gather the
+        for it. Under fsdp or tp the ranks at d = s = 0 first gather the
         state with it (``state_dict``)."""
-        if self.fsdp is not None:
+        if self._sharded:
             if ckpt.due(step, force):
                 state = self.state_dict()
                 if self.is_main:
@@ -675,7 +720,7 @@ class Trainer:
                 next(iter(self.params.values())).fill_(float("nan"))
         loss = self._loss_and_grads_or_remat(batch.to(self.device), step_seed)
         grads = param_grads(self.params)
-        gnorm = global_norm(grads, self.fsdp)
+        gnorm = global_norm(grads, self.fsdp, self.tp)
         finite_t = torch.isfinite(loss) & torch.isfinite(gnorm)
         clip = (torch.clamp(cfg.clip_norm / gnorm, max=1.0)
                 if cfg.clip_norm and cfg.clip_norm > 0 else 1.0)
@@ -797,9 +842,11 @@ class Trainer:
             if self.mesh is not None and batch.shape[0] == self.cfg.batch_size:
                 batch = self.mesh.rows(batch)
             s, c = lm_eval_sums(self.model, batch)
-            if self.mesh is not None:  # this rank's rows and tokens: sum over every rank
+            if self.mesh is not None and self.mesh.replica_group is not None:
+                # this rank's rows and tokens: sum over the replica group (the
+                # tp ranks share theirs)
                 sums = torch.stack([s, c])
-                all_reduce_sum_([sums])
+                all_reduce_sum_([sums], self.mesh.replica_group)
                 s, c = sums
             total += float(s)
             count += float(c)
@@ -808,21 +855,27 @@ class Trainer:
 
     # -- checkpoint glue ----------------------------------------------------
 
+    def _gather_axes(self, join_tp: bool = True):
+        """The axes a whole leaf is gathered over, in turn: fsdp's, then
+        tp's (``join_tp``: whether this rank takes part in the tp gather)."""
+        return [a for a in (self.fsdp, self.tp if join_tp else None) if a is not None]
+
     def state_dict(self) -> Optional[Dict[str, object]]:
         """The whole training state as a nested dict of tensors: the file a
-        dp=1 run writes. Under fsdp a collective: the ranks of rank 0's fsdp
-        group gather every sharded leaf (params and moments) into rank 0's
-        host memory, one leaf at a time; rank 0 gets the state, every other
-        rank None."""
+        dp=1 run writes. Under fsdp or tp a collective: the ranks at d = s =
+        0 gather every sharded leaf (params and moments) into rank 0's host
+        memory, one leaf at a time (over each fsdp group, then over rank 0's
+        tp group); rank 0 gets the state, every other rank None."""
         params = {n: p.detach() for n, p in self.params.items()}
         opt = self.opt.state_dict()
-        if self.fsdp is not None:
-            d, _, s = self.mesh.coords
-            if d or s:  # not in rank 0's fsdp group
+        if self._sharded:
+            d, f, _, s = self.mesh.coords
+            if d or s:  # holds no shard rank 0 lacks
                 return None
             keep = self.mesh.is_main
-            params = self.fsdp.gather_state(params, keep)
-            opt = {k: self.fsdp.gather_state(v, keep) if k in ("mu", "nu") else v
+            axes = self._gather_axes(join_tp=f == 0)
+            params = gather_whole(params, axes, keep)
+            opt = {k: gather_whole(v, axes, keep) if k in ("mu", "nu") else v
                    for k, v in opt.items()}
             if not keep:
                 return None
@@ -837,12 +890,12 @@ class Trainer:
     @torch.no_grad()
     def load_state_dict(self, state) -> None:
         """Load a whole state (a checkpoint of any mesh: the dp=1 file);
-        under fsdp this rank keeps its shard of each sharded leaf."""
+        under fsdp or tp this rank keeps its shard of each sharded leaf."""
         if int(state["rng"]) != int(_i64(self.rng)):
             raise ValueError("checkpoint was written with another seed")
         opt = state["opt"]
-        if self.fsdp is not None:
-            opt = {k: self.fsdp.shard_state(v) if k in ("mu", "nu") else v
+        if self._sharded:
+            opt = {k: self.model.shard_state(v) if k in ("mu", "nu") else v
                    for k, v in opt.items()}
         self.load_params(state["params"])
         self.opt.load_state_dict(opt)
@@ -851,22 +904,22 @@ class Trainer:
 
     @torch.no_grad()
     def load_params(self, params: Dict[str, Tensor]) -> None:
-        """Load whole params (a dp=1 model's state dict); under fsdp this
-        rank keeps its shards."""
-        self.model.load_state_dict(self.fsdp.shard_state(params) if self.fsdp is not None
+        """Load whole params (a dp=1 model's state dict); under fsdp or tp
+        this rank keeps its shards."""
+        self.model.load_state_dict(self.model.shard_state(params) if self._sharded
                                    else params, strict=True)
 
     def whole_params(self) -> Dict[str, Tensor]:
-        """Every param whole, on the host (under fsdp a collective over each
-        fsdp group: every rank calls)."""
+        """Every param whole, on the host (under fsdp or tp a collective over
+        each fsdp and tp group: every rank calls)."""
         params = {n: p.detach() for n, p in self.params.items()}
-        if self.fsdp is not None:
-            return self.fsdp.gather_state(params, keep=True)
+        if self._sharded:
+            return gather_whole(params, self._gather_axes(), keep=True)
         return {n: p.to("cpu", copy=True) for n, p in params.items()}
 
     def restore(self, ckpt, step: Optional[int] = None) -> int:
-        # under fsdp the whole state stays on the host until it is cut
-        self.load_state_dict(ckpt.restore(step, map_location=None if self.fsdp is not None
+        # under fsdp or tp the whole state stays on the host until it is cut
+        self.load_state_dict(ckpt.restore(step, map_location=None if self._sharded
                                           else self.device))
         return self.step_count
 

@@ -1731,6 +1731,36 @@ def test_dp_collectives_stage_cuda_tensors_over_gloo(dev):
         np.testing.assert_allclose(grad, p["ct_mean"].mean(0), **tol)
 
 
+def test_tp_collectives_stage_cuda_tensors_over_gloo(dev):
+    """``copy_to_tp`` and ``reduce_from_tp`` on CUDA tensors of two tp ranks
+    sharing the card (gloo: staged through host memory, handed back on the
+    card): copy's output is its input and its gradient the cotangents' sum,
+    reduce's output the inputs' sum (fp32 exact to 1e-6; bf16 summed in fp32
+    and rounded once, bitwise) and its gradient the cotangent."""
+    import torch_sp_workers as workers
+    import torch_tp_workers as tp_workers
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    rng = np.random.default_rng(5)
+    xs = rng.standard_normal((2, 3, 8)).astype(np.float32)
+    cts = rng.standard_normal((2, 3, 8)).astype(np.float32)
+    ranks = workers.run_ranks(2, tp_workers.collectives,
+                              {"mesh": MeshConfig(dp=1, tp=2), "device": "cuda", "x": xs,
+                               "ct": cts, "dtypes": ["float32", "bfloat16"]}, timeout=120)
+    for t, res in enumerate(ranks):
+        assert res["devices"] == ["cuda"]
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+            xq, cq = torch.from_numpy(xs).to(dt).float(), torch.from_numpy(cts).to(dt).float()
+            copy_out, copy_grad, red_out, red_grad = res[name]
+            np.testing.assert_array_equal(copy_out, xq[t].numpy())
+            np.testing.assert_allclose(copy_grad, (cq[0] + cq[1]).to(dt).float().numpy(),
+                                       rtol=1e-6, atol=1e-6)
+            np.testing.assert_allclose(red_out, (xq[0] + xq[1]).to(dt).float().numpy(),
+                                       rtol=1e-6, atol=1e-6)
+            np.testing.assert_array_equal(red_grad, cq[t].numpy())
+
+
 def test_train_resilience_preempt_and_resume_bitwise_on_the_card(dev, tmp_path):
     """``train()`` of a tiny fp32 model on the card (rows 1, 3, 4 in their
     simt variant) with a real SIGTERM at step 2's boundary: an emergency

@@ -74,8 +74,8 @@ def test_rank_layout_and_row_blocks_match_the_jax_mesh(accum):
     index = NamedSharding(jmesh, P(("dp", "fsdp"))).devices_indices_map((micro, t))
     for rank in range(8):
         m = _mesh(cfg, rank)
-        d, f, s = m.coords
-        assert devices[d, f, s].id == rank
+        d, f, t, s = m.coords
+        assert t == 0 and devices[d, f, s].id == rank
         assert (m.dp_rank, m.fsdp_rank, m.sp_rank, m.data_rank) == (d, f, s, d * 2 + f)
         sl = index[devices[d, f, s]][0]
         want = np.concatenate([np.arange(i * micro + sl.start, i * micro + sl.stop)
@@ -258,10 +258,18 @@ def test_a_token_bin_rank_reads_only_its_windows(tmp_path, monkeypatch):
 
 
 def test_tp_pp_and_ep_above_1_raise_naming_item_12():
-    for axis in ("tp", "pp", "ep"):
+    # pp and ep are not ported; tp is (tests/test_torch_tp*.py) and raises
+    # only without its process group
+    for axis in ("pp", "ep"):
         with pytest.raises(NotImplementedError, match="item 12"):
             MeshConfig(dp=1, **{axis: 2}).check()
-    for cfg in (MeshConfig(dp=2), MeshConfig(dp=1, fsdp=2, sp=2), MeshConfig(dp=2, fsdp=2, sp=2)):
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    with pytest.raises(ValueError, match="init_distributed"):
+        Trainer(TrainConfig(model=ModelConfig(**TINY), mesh=MeshConfig(dp=1, tp=2),
+                            batch_size=4, seq_len=16), device="cpu")
+    for cfg in (MeshConfig(dp=2), MeshConfig(dp=1, fsdp=2, sp=2), MeshConfig(dp=2, fsdp=2, sp=2),
+                MeshConfig(dp=1, tp=2), MeshConfig(dp=2, fsdp=2, tp=2, sp=2)):
         cfg.check()
 
 
