@@ -1,6 +1,6 @@
 """Quickest proof that the PyTorch/CUDA port runs on an NVIDIA card.
 
-    python3 chip_smoke.py [--part fleet|train|tp]
+    python3 chip_smoke.py [--part fleet|train|tp|pp]
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``
 (``$CUDA_HOME/bin`` or on ``PATH``). It imports nothing of JAX or of the JAX
@@ -75,7 +75,9 @@ nonzero and no result line is printed):
    sharing the card over gloo: rows 6-8 with shift / q_offset and the
    parts of rows 1, 3, 4 against their plain versions, the sp bodies
    against single-device attention, sp-4 training against its sp=1 twin)
-   and the dp part (``dp_phase``: four ranks over gloo, one process group
+   and the dp, tp and pp parts (``mesh_parts``: their runs share one spawn
+   of 2 ranks and one of 4, so each rank's start and its first step's
+   warm-up are paid once): the dp part (four ranks over gloo, one process group
    and a mesh a run: lm_1b3 at full width, 4 blocks, B 8 x 1024 at fsdp
    4, dp 2 x fsdp 2 and dp 4, the dropless moe_1b3_4e at dp 2 x fsdp 2,
    the 4-block hybrid at dp 2 x sp 2, a tiny fp32 hybrid at dp 2 x fsdp 2,
@@ -84,21 +86,35 @@ nonzero and no result line is printed):
    dp 4's; an fsdp-4 checkpoint's round trip bitwise; step ms and the
    host ms in the collectives logged), then the tp part (``tp_phase``:
    tensor parallelism, ranks of this script sharing the card over gloo: (a)
-   lm_1b3 at full width and depth, B 8 x 1024, two AdamW steps at tp 2 on
+   lm_1b3 at full width, 4 blocks, B 8 x 1024, two AdamW steps at tp 2 on
    2 ranks against its tp=1 twin within the dp part's limits, each rank's
    peak memory below the twin's; (b) on 4 ranks at 4 blocks the hybrid at
    dp 2 x tp 2 (rows 6-8 and 1, 3, 4 at 8 heads a rank), lm_1b3 at sp 2 x
    tp 2 (the sp parts at local heads), the dropless moe_1b3_4e at fsdp 2 x
    tp 2 (rows 9-10 on the local hidden slice), each against its tp=1 twin
-   the same way; (c) generate at tp 2 on 2 ranks for lm_1b3 at full depth
-   and hybrid_1b3: the tp=1 run's 32 greedy tokens teacher-forced, each
+   the same way; (c) generate at tp 2 on 2 ranks for lm_1b3 and hybrid_1b3
+   at 4 blocks: the tp=1 run's 32 greedy tokens teacher-forced, each
    step's logits and this rank's heads of every layer's state after the
    prefill and the last step against tp=1, the free-running greedy tokens
    that match counted; launches exact a rank, counted by kernel name,
-   ``launches_tp``); each part runs alone as ``cs.sp_phase(...)`` /
-   ``cs.dp_phase(dev)`` / ``cs.tp_phase(dev)`` after ``cs.build(mods)``,
-   and ``python3 chip_smoke.py --part tp`` runs the build, the kernel
-   checks and the tp part alone;
+   ``launches_tp``), then the pp part (``pp_phase``: GPipe stages over
+   depth, ranks of this script sharing the card over gloo: (a) lm_1b3 at
+   full width and depth, B 8 x 1024, two AdamW steps at pp 2 (12 blocks a
+   stage, 8 microbatches) on 2 ranks against its pp=1 twin within the dp
+   part's limits, each rank's peak memory below the twin's, the leaves
+   every stage holds bitwise on both ranks, the host ms a rank waits on its
+   neighbour beside the bubble; (b) on 4 ranks the hybrid at 8 blocks at pp
+   2 x dp 2, the dropless moe_1b3_4e at 8 blocks at pp 2 x fsdp 2 (its twin
+   replaying the pipeline's routing), lm_1b3 at 4 blocks at pp 2 x sp 2,
+   each against its pp=1 twin the same way; (c) (a)'s step-2 checkpoint,
+   the pp=1 file, loaded by a pp=1 Trainer bitwise the gathered params,
+   and its eval by ``orion_tpu_torch.evaluate`` against the pp Trainer's
+   own; launches exact a rank, a stage's blocks once a microbatch, every
+   one recomputed, ``launches_pp``); each part runs alone as
+   ``cs.sp_phase(...)`` / ``cs.dp_phase(dev)`` / ``cs.tp_phase(dev)`` /
+   ``cs.pp_phase(dev)`` after ``cs.build(mods)``, and ``python3
+   chip_smoke.py --part tp`` (or ``--part pp``) runs the build, the kernel
+   checks and that part alone;
 4. the public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
    backward through ``CausalDotProductFn`` at [B 8, H 16, T 1024, D 128]
    bf16 with an initial state and the returned state, then at Dk 128, Dv
@@ -209,7 +225,9 @@ nonzero and no result line is printed):
    on the card against the CPU (logits and loss within 1e-4 of their
    largest magnitude, every gradient within 1e-4 relative L2, fp32 without
    TF32: ``LRA_GRAD_REL_L2``);
-12. serving through ``serving.SlotEngine`` at 4 slots, chunk 16, on
+12. serving through ``serving.SlotEngine`` at 4 slots, chunk 16, each
+   model cut to 4 blocks (the hybrid's keeping swa and linear layers; the
+   CLIs below serve the full depth), on
    ``lm_1b3`` (6 requests of 1024, 640, 300, 1000, 77 and 512 prompt
    tokens, 32 new tokens each, two arriving at later boundaries), in bf16
    and at int4, and on ``hybrid_1b3`` (prompts of 1536 and 1100, past the
@@ -229,8 +247,7 @@ nonzero and no result line is printed):
    (f) every request, greedy and sampled, bitwise a one-row ``generate``
    at its seed, (g) pieces against ``prefill_last``; in-scan admission
    bitwise host admission for lm_1b3 (the hybrid's within the logits
-   limit); at 4 blocks (each after its cut's own main path):
-   the engine's ladder with NaN in one slot's rows (the rewind
+   limit); then the engine's ladder with NaN in one slot's rows (the rewind
    bitwise, the re-prefill held as ``DecodeSession``'s rung, an exhausted
    ladder failing one request only), suspend and resume bitwise the
    uninterrupted request; ``DecodeSession`` on lm_1b3, its tokens bitwise
@@ -314,7 +331,8 @@ nonzero and no result line is printed):
    speculative part, every row's launches through the in-process fleet,
    ``launches_fleet``, rows 1, 3, 4 and 11-13 in R1's and R3's runs,
    ``launches_train_resilience``, and every kernel's launches in the tp
-   part, ``launches_tp``), then the result line ``{"ok": true,
+   and pp parts, ``launches_tp`` and ``launches_pp``), then the result
+   line ``{"ok": true,
    "device": {...}}`` last.
 """
 
@@ -2053,6 +2071,39 @@ class PinnedRouting:
 
     def __exit__(self, *exc):
         self.moe.top_k_choice = self.real
+
+
+class PipelinePinnedRouting(PinnedRouting):
+    """``PinnedRouting`` for a pipeline stage: its MoE layers route each of
+    ``n_micro`` microbatches a step, so a choice is keyed by (global layer,
+    epoch, microbatch). A layer's calls in a step come in the schedule's
+    order: the forward of microbatches 0 .. n_micro - 1, then their
+    recomputations n_micro - 1 .. 0 in the backward (every block is
+    recomputed under pp), so the call count gives the microbatch."""
+
+    def __init__(self):
+        super().__init__()
+        self.n_micro, self.full_manual, self.calls = 1, False, {}
+
+    def attach(self, model):
+        for i, blk in model.blocks.items():  # a stage's blocks by their global index
+            if isinstance(blk.mlp, self.moe.MoEMLP):
+                blk.mlp.register_forward_pre_hook(lambda mod, args, i=i: setattr(
+                    self, "current", i))
+        return model
+
+    def choice(self, probs, k):
+        key = (self.current, self.epoch)
+        c = self.calls[key] = self.calls.get(key, 0) + 1
+        n = self.n_micro
+        micro = c - 1 if c <= n else 2 * n - c
+        ids, _ = self.real(probs, k)
+        pinned = self.routes.setdefault((*key, micro), ids)
+        if pinned is not ids:
+            self.flips += int((pinned != ids).any(-1).sum())
+            self.choices += ids.shape[0]
+        g = probs.gather(-1, pinned)
+        return pinned, g / g.sum(-1, keepdim=True).clamp_min(1e-9)
 
 
 def generate_phase(dev, mods, name, prompt_len, new_tokens, overrides=None, audit=False,
@@ -5344,11 +5395,13 @@ def sp_train_verdict(name, ranks):
         raise AssertionError(f"sp training {name} misses its limits against the sp=1 twin: {twin}")
 
 
-def sp_phase(cd, fa, dev):
+def sp_phase(cd, fa, dev, train=True):
     """The sp part: the kernel pieces, the three bodies at sp 2 and 4, the
     two full-width sp training runs and the tiny fp32 one, each at sp 4
     against its sp=1 twin. Returns the kernels line's sp entries, their
-    launches the training runs' totals over the ranks."""
+    launches the training runs' totals over the ranks (``sp_train_verdicts``).
+    ``train=False``: the pieces and the bodies only, -> the entries; the
+    training runs then run in ``mesh_parts``' 4-rank spawn."""
     t0 = time.perf_counter()
     lines = check_sp_kernels(cd, fa, dev)
     log(f"sp kernel pieces done in {time.perf_counter() - t0:.1f} s")
@@ -5366,10 +5419,19 @@ def sp_phase(cd, fa, dev):
                 raise AssertionError(f"sp body {name} at sp {world}, T {t} disagrees with the "
                                      f"single-device kernel attention: {[r[name] for r in ranks]}")
     log(f"sp bodies done at {time.perf_counter() - t0:.1f} s")
+    if not train:
+        return lines
     ranks = sp_spawn(4, sp_train_rank, {}, timeout=900)
+    log(f"sp training done at {time.perf_counter() - t0:.1f} s")
+    return sp_train_verdicts(lines, ranks)
+
+
+def sp_train_verdicts(lines, ranks):
+    """The sp training runs' verdicts (``ranks``: each rank's
+    ``sp_train_rank`` results) and the sp entries' launches -> (the
+    entries, the readings)."""
     for name in ranks[0]:
         sp_train_verdict(name, [r[name] for r in ranks])
-    log(f"sp training done at {time.perf_counter() - t0:.1f} s")
     hybrid, tiny = [r["hybrid_1b3"] for r in ranks], [r["tiny hybrid fp32"] for r in ranks]
     lm = [r["lm_1b3"] for r in ranks]
     for line in lines:
@@ -5453,14 +5515,17 @@ def dp_expected_launches(cfg, variant):
 
 def _collective_clock():
     """Host milliseconds in the collectives, by kind: the fsdp gathers, the
-    reduce-scatters of the gather's backward, and the trainer's all-reduces
-    (the gradient sums, the norm's partial sum, the loss). Each call is timed
-    from a synchronized card to its return (gloo stages through host memory,
-    so the call itself waits for the card)."""
+    reduce-scatters of the gather's backward, the trainer's all-reduces
+    (the gradient sums, the norm's partial sum, the loss), and the
+    pipeline's receives (a stage waiting for its neighbour's activation or
+    gradient, and the hop). Each call is timed from a synchronized card to
+    its return (gloo stages through host memory, so the call itself waits
+    for the card)."""
     from orion_tpu_torch.parallel import collectives as co
+    from orion_tpu_torch.parallel import pipeline as pipeline_mod
     from orion_tpu_torch.training import trainer as trainer_mod
 
-    ms = {"gather": 0.0, "reduce_scatter": 0.0, "all_reduce": 0.0}
+    ms = {"gather": 0.0, "reduce_scatter": 0.0, "all_reduce": 0.0, "p2p_recv": 0.0}
 
     def timed(fn, key):
         def call(*a, **kw):
@@ -5476,6 +5541,7 @@ def _collective_clock():
     co._gather_cat = timed(co._gather_cat, "gather")
     co._reduce_scatter_raw = timed(co._reduce_scatter_raw, "reduce_scatter")
     trainer_mod.all_reduce_sum_ = timed(co.all_reduce_sum_, "all_reduce")
+    pipeline_mod.recv_from = timed(co.recv_from, "p2p_recv")
     return ms
 
 
@@ -5483,7 +5549,8 @@ def _resident(trainer):
     """(the bytes this rank holds in params and AdamW moments, counted from
     its tensors; the bytes it should hold: 1 / fsdp of each fsdp leaf, 1 /
     tp of each tp leaf (both for a leaf cut by both), each replicated leaf
-    whole, from the whole shapes, fp32 params, mu and nu)."""
+    whole, only its stage's blocks under pp, from the whole shapes, fp32
+    params, mu and nu)."""
     from orion_tpu_torch.convert import expected_params
 
     held = sum(t.numel() * t.element_size() for t in trainer.params.values())
@@ -5492,6 +5559,8 @@ def _resident(trainer):
     cuts = [(a.dims, a.size) for a in trainer.model.shard_axes]
     want = 0
     for key, shape, _ in expected_params(trainer.cfg.model).values():
+        if not trainer.model.holds(key):  # another pipeline stage's block
+            continue
         numel = int(np.prod(shape))
         for dims, n in cuts:
             numel //= n if key in dims else 1
@@ -5516,7 +5585,8 @@ def _first_step_grads(trainer, keep):
     without a forward and backward of its own) -> a dict that holds them,
     whole and on the host ("loss", "grads"), once that step has run; the
     gradients only where ``keep`` (under fsdp every rank of each fsdp group
-    joins the gather)."""
+    joins the gather; under pp every rank sends its stage's to stage 0 of
+    its pipeline, ``keep`` must be rank 0's alone)."""
     from orion_tpu_torch.parallel.sharding import gather_whole
 
     box, real = {}, trainer._loss_and_grads
@@ -5526,7 +5596,10 @@ def _first_step_grads(trainer, keep):
         trainer._loss_and_grads = real
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in trainer.params.items()}
-        if trainer.model.shard_axes:  # fsdp's and tp's shards gathered whole
+        if trainer.model.pp is not None:  # every stage's, gathered whole to stage 0
+            grads = gather_whole(grads, trainer._gather_axes(), keep=True)
+            grads = trainer._merge_stages(grads, to_main=True)
+        elif trainer.model.shard_axes:  # fsdp's and tp's shards gathered whole
             grads = gather_whole(grads, trainer._gather_axes(), keep=keep)
         elif keep:
             grads = {n: g.to("cpu", copy=True) for n, g in grads.items()}
@@ -5619,7 +5692,10 @@ def _dp_mesh_run(m, cfg, batches, mods, clock, pin, save_dir, tiny):
         torch.cuda.reset_peak_memory_stats(dev)
     trainer = Trainer(dataclasses.replace(cfg, mesh=m.cfg), mesh=m)
     held, want_held = _resident(trainer)
-    res = {"mesh": m.cfg.shape, "transport": m.transport, "held": held, "want_held": want_held}
+    res = {"mesh": m.cfg.shape, "transport": m.transport, "held": held, "want_held": want_held,
+           "n_micro": trainer.pp_n_micro, "full_manual": trainer.pp_full_manual}
+    if isinstance(pin, PipelinePinnedRouting):
+        pin.n_micro, pin.full_manual = trainer.pp_n_micro, trainer.pp_full_manual
     first = _first_step_grads(trainer, keep=m.is_main)
     with pin if pin is not None else contextlib.nullcontext():
         if pin is not None:
@@ -5640,8 +5716,12 @@ def _dp_mesh_run(m, cfg, batches, mods, clock, pin, save_dir, tiny):
     whole = trainer.whole_params()
     res.update(steps=steps, per_step=per_step, per_step_sp=per_step_sp, digest=_digest(whole),
                peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
-                         else 0.0))
-    if save_dir is not None:
+                         else 0.0),
+               # the leaves every stage holds, this rank's own (bitwise on every rank)
+               trunk_digest=_digest({n: whole[n] for n in whole if not n.startswith("blocks.")}))
+    if save_dir is not None and trainer.model.pp is not None:
+        res.update(pp_checkpoint(m, trainer, cfg, save_dir, whole, dev))
+    elif save_dir is not None:
         ck = Checkpointer(save_dir, save_every=0)
         t0 = time.perf_counter()
         trainer._save(ck, trainer.step_count, force=True)
@@ -5664,20 +5744,63 @@ def _dp_mesh_run(m, cfg, batches, mods, clock, pin, save_dir, tiny):
 
 def _gather_routes(pin, m):
     """The mesh run's pinned choices, each rank's rows gathered over the
-    data group in data-rank order (the global batch's row order)."""
+    data group in data-rank order (the global batch's row order); under pp
+    each (layer, epoch)'s microbatches joined in order (partial-manual:
+    microbatch m is every data rank's share of the global microbatch m, so
+    microbatch-major, then data-rank order, is the global row order), and
+    every stage's layers gathered to every rank of the pipeline."""
+    import torch.distributed as dist
+
     from orion_tpu_torch.parallel.collectives import _gather_cat
 
-    if m.data_group is None:
-        return dict(pin.routes)
-    return {key: _gather_cat(ids, 0, m.data_group) for key, ids in sorted(pin.routes.items())}
+    def rows(ids):
+        return ids if m.data_group is None else _gather_cat(ids, 0, m.data_group)
+
+    if m.pp == 1:
+        return {key: rows(ids) for key, ids in sorted(pin.routes.items())}
+    if m.n_data > 1 and pin.full_manual:
+        raise ValueError("the pinned routes of a full-manual pipeline are not in the global "
+                         "row order; run the MoE partial-manual")
+    mine = {}
+    for layer, epoch in sorted({k[:2] for k in pin.routes}):
+        mine[(layer, epoch)] = torch.cat([rows(pin.routes[(layer, epoch, i)])
+                                          for i in range(pin.n_micro)]).cpu()
+    stages = [None] * m.pp
+    dist.all_gather_object(stages, mine, group=m.pp_group)
+    return {k: v.to(m.device) for st in stages for k, v in st.items()}
 
 
 def _mesh_label(name, shape):
     """A mesh run's label: (dp, fsdp, sp) shapes as the dp part names them,
-    (dp, fsdp, tp, sp) ones with their tp."""
+    (dp, fsdp, tp, sp) ones with their tp, (dp, fsdp, tp, sp, pp) ones with
+    their pp."""
     if len(shape) == 3:
         return f"{name} at dp {shape[0]} x fsdp {shape[1]} x sp {shape[2]}"
-    return f"{name} at dp {shape[0]} x fsdp {shape[1]} x tp {shape[2]} x sp {shape[3]}"
+    label = f"{name} at dp {shape[0]} x fsdp {shape[1]} x tp {shape[2]} x sp {shape[3]}"
+    return label + (f" x pp {shape[4]}" if len(shape) == 5 else "")
+
+
+def _shape_mesh(shape):
+    """The ``MeshConfig`` of a run's mesh tuple: (dp, fsdp, sp), (dp, fsdp,
+    tp, sp) or (dp, fsdp, tp, sp, pp)."""
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    if len(shape) == 3:
+        return MeshConfig(dp=shape[0], fsdp=shape[1], sp=shape[2])
+    return MeshConfig(dp=shape[0], fsdp=shape[1], tp=shape[2], sp=shape[3],
+                      pp=shape[4] if len(shape) == 5 else 1)
+
+
+def _stage_model(cfg, m):
+    """The config of the blocks this rank's pipeline stage holds, every one
+    recomputed (the pipeline's ``remat_skip`` 0): its launch counts are
+    ``dp_expected_launches`` / ``sp_expected_launches`` of it. A stage starts
+    at a group boundary, so its layer and MoE pattern is the model's from 0."""
+    from orion_tpu_torch.parallel.pipeline_lm import stage_blocks
+
+    held = stage_blocks(cfg, m.pp, m.pp_rank)
+    return dataclasses.replace(cfg, n_layers=len(held), remat_skip=0,
+                               layer_types=tuple(cfg.resolved_layer_types[i] for i in held))
 
 
 def dp_train_rank(mesh, payload):
@@ -5704,15 +5827,19 @@ def dp_train_rank(mesh, payload):
         twin = _dp_twin(cfg, batches, dev) if mesh.is_main and not routed else None
         mesh.barrier()
         for shape in meshes:
-            m = _remesh(mesh, MeshConfig(dp=shape[0], fsdp=shape[1], sp=shape[-1],
-                                         tp=shape[2] if len(shape) == 4 else 1),
-                        payload.get("device"))
-            pin = PinnedRouting() if routed else None
-            save = payload.get("save_dir") if name == "lm_1b3" and shape == (1, 4, 1) else None
+            m = _remesh(mesh, _shape_mesh(shape), payload.get("device"))
+            pin = (PipelinePinnedRouting() if m.pp > 1 else PinnedRouting()) if routed else None
+            save = (payload.get("save_dir") if name == "lm_1b3"
+                    and shape in payload.get("save_shapes", ((1, 4, 1),)) else None)
             res = _dp_mesh_run(m, cfg, batches, mods, clock, pin, save, over is None)
-            want_sp = sp_expected_launches(model, m.sp_rank, m.sp, cfg.seq_len // m.sp) \
-                if m.sp > 1 else None
-            res.update(want=dp_expected_launches(model, "simt" if over is None else "wgmma")
+            # under pp a rank's step is its stage's blocks, every one recomputed,
+            # once a microbatch
+            stage = _stage_model(model, m) if m.pp > 1 else model
+            times = res["n_micro"] if m.pp > 1 else 1
+            variant = "simt" if over is None else "wgmma"
+            want_sp = ({k: times * v for k, v in sp_expected_launches(
+                stage, m.sp_rank, m.sp, cfg.seq_len // m.sp).items()} if m.sp > 1 else None)
+            res.update(want={k: times * v for k, v in dp_expected_launches(stage, variant).items()}
                        if m.sp == 1 else None, want_sp=want_sp, tiny=over is None)
             routes = _gather_routes(pin, m) if routed else None
             mesh.barrier()
@@ -5813,29 +5940,15 @@ def _mesh_launches(ranks, launches=None):
     return launches
 
 
-def dp_phase(dev):
-    """The dp part: ``dp_train_rank`` on 4 ranks sharing the card (gloo), each
-    mesh run held against its dp=1 twin (``dp_train_verdict``), fsdp 4's
-    peak below dp 4's on every rank. Returns (each kernel's launches over the
-    dp runs' steps and ranks, by ``KERNELS`` name and by the sp entries'
-    names; the readings)."""
-    import shutil
-    import tempfile
-
-    from orion_tpu_torch.parallel.mesh import MeshConfig
-
-    t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="orion_dp_ckpt_")
-    try:
-        free = shutil.disk_usage(tmp).free / 2**30
-        if free < 8:
-            raise RuntimeError(f"the dp part's fsdp-4 checkpoint needs ~3.3 GB; {free:.1f} GiB "
-                               f"free under {tmp}")
-        ranks = sp_spawn(4, dp_train_rank, {"save_dir": tmp}, timeout=900,
-                         mesh=MeshConfig(dp=4))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    for label in ranks[0]:
+def dp_verdicts(four):
+    """The dp part's verdicts on the 4-rank spawn's results (``four``: each
+    rank's ``dp_train_rank`` results): each mesh run against its dp=1 twin
+    (``dp_train_verdict``), fsdp 4's peak below dp 4's on every rank.
+    Returns (each kernel's launches over the dp runs' steps and ranks, by
+    ``KERNELS`` name and by the sp entries' names; the readings)."""
+    labels = [_mesh_label(name, shape) for name, _, _, meshes in DP_RUNS for shape in meshes]
+    ranks = [{label: r[label] for label in labels} for r in four]
+    for label in labels:
         dp_train_verdict(label, [r[label] for r in ranks])
     lm = {shape: [r[f"lm_1b3 at dp {shape[0]} x fsdp {shape[1]} x sp 1"] for r in ranks]
           for shape in ((1, 4), (4, 1))}
@@ -5844,9 +5957,14 @@ def dp_phase(dev):
     if not all(a < b for a, b in peaks):
         raise AssertionError(f"fsdp 4's peak memory is not below dp 4's on every rank: {peaks}")
     launches = _mesh_launches(ranks)
-    log(f"dp part done in {time.perf_counter() - t0:.1f} s; launches over its runs: {launches}")
+    log(f"dp part: launches over its runs: {launches}")
     return launches, {label: [{k: r[label][k] for k in ("peak_gib", "held", "transport")}
-                              for r in ranks] for label in ranks[0]}
+                              for r in ranks] for label in labels}
+
+
+def dp_phase(dev):
+    """The dp part alone (``mesh_parts``)."""
+    return mesh_parts(dev, ("dp",))["dp"]
 
 
 # ---------------------------------------------------------------------------
@@ -5861,14 +5979,18 @@ def dp_phase(dev):
 # update signs, exact launches a rank, the ranks' params bitwise, each
 # rank's resident params and moments within ``DP_RESIDENT_RTOL`` of 1 / tp
 # of each tp leaf plus the rest whole). (a), on 2 ranks: lm_1b3 at full
-# width and depth (24 blocks, 20 recomputed), B 8 x 1024, two AdamW steps at
+# width, 4 blocks (2 recomputed; full depth until the pp part took its time,
+# which runs lm_1b3 at full depth on a mesh), B 8 x 1024, two AdamW steps at
 # tp 2; each rank's peak memory also below the twin's. (b), on 4 ranks at 4
 # blocks (2 recomputed): the hybrid (swa, softmax, swa, linear) at dp 2 x tp
 # 2, B 8 x 1024 (rows 6-8 and 1, 3, 4 at 8 of its 16 heads); lm_1b3 at sp 2 x
 # tp 2, T 2048, B 2 (the sp parts at 8 heads); the dropless moe_1b3_4e at
 # fsdp 2 x tp 2, B 8 x 1024 (rows 9-10 on 2752 of the 5504 hidden columns),
 # its twin replaying the mesh run's routing.
-TP_TRAIN_2 = (("lm_1b3", {}, DP_TRAIN, ((1, 1, 2, 1),)),)
+TP_DEPTH = {"n_layers": 4, "remat_skip": 2}  # (a)'s and (c)'s cut
+TP_HYBRID_DEPTH = {"n_layers": 4, "remat_skip": 2,  # both layer kinds kept
+                   "layer_types": ("swa", "swa", "swa", "linear")}
+TP_TRAIN_2 = (("lm_1b3", TP_DEPTH, DP_TRAIN, ((1, 1, 2, 1),)),)
 TP_TRAIN_4 = (
     ("hybrid_1b3", {"n_layers": 4, "remat_skip": 2,
                     "layer_types": ("swa", "softmax", "swa", "linear")}, DP_TRAIN,
@@ -5878,8 +6000,8 @@ TP_TRAIN_4 = (
     ("moe_1b3_4e", {"n_layers": 4, "remat_skip": 2, "moe_dropless": True}, DP_TRAIN,
      ((1, 2, 2, 1),)),
 )
-# (c), on the 2 ranks of (a): generate at tp 2, lm_1b3 at full depth (4
-# prompts of 1024) and hybrid_1b3 (4 of 1536, past its window), 32 greedy
+# (c), on the 2 ranks of (a): generate at tp 2, lm_1b3 at 4 blocks (4
+# prompts of 1024) and hybrid_1b3 at 4 (4 of 1536, past its window), 32 greedy
 # tokens. The tp=1 run's tokens teacher-forced through the tp model: each
 # step's logits within ``TP_LOGITS_ATOL`` of the tp=1 run's, this rank's
 # heads of every layer's state after the prefill and after the last step
@@ -5897,7 +6019,7 @@ TP_TRAIN_4 = (
 # 2e-2, K/V 3e-2 (one bf16 projection of the layer's input, as for
 # ``LAYER_KV_RTOL``), logits 0.25. A wrong head, shard or sum moves them by
 # the values' own size (about 1).
-TP_GENERATE = (("lm_1b3", {}, 1024, 32), ("hybrid_1b3", {}, 1536, 32))
+TP_GENERATE = (("lm_1b3", TP_DEPTH, 1024, 32), ("hybrid_1b3", TP_HYBRID_DEPTH, 1536, 32))
 TP_LOGITS_ATOL, TP_S_RTOL, TP_KV_RTOL = 0.25, 2e-2, 3e-2
 # the kernels the tp part must launch (every one of its path)
 TP_PATH = ("causal_dot_norm_wgmma", "causal_dot_dq_den_wgmma", "causal_dot_rev_den_wgmma",
@@ -6017,24 +6139,16 @@ def tp_generate_verdict(label, ranks):
         raise AssertionError(f"tp {label}: the ranks' logits or tokens differ")
 
 
-def tp_two_rank(mesh, payload):
-    """(a) and (c) on one rank of the 2-rank spawn."""
-    return {"train": dp_train_rank(mesh, {"runs": TP_TRAIN_2, **payload}),
-            "generate": tp_generate_rank(mesh, payload)}
-
-
-def tp_phase(dev):
-    """The tp part: (a) and (c) on 2 ranks, (b) on 4, every rank sharing
-    the card (gloo). Returns (each kernel's launches over the part's runs and
-    ranks, by ``KERNELS`` name and by the sp entries' names; the readings)."""
-    from orion_tpu_torch.parallel.mesh import MeshConfig
-
-    t0 = time.perf_counter()
-    two = sp_spawn(2, tp_two_rank, {}, timeout=900, mesh=MeshConfig(dp=1, tp=2))
-    t1 = time.perf_counter()
-    four = sp_spawn(4, dp_train_rank, {"runs": TP_TRAIN_4}, timeout=900, mesh=MeshConfig(dp=4))
-    t2 = time.perf_counter()
-    train2 = [r["train"] for r in two]
+def tp_verdicts(two, four):
+    """The tp part's verdicts on the spawns' results (``two``: the 2-rank
+    spawn's, each rank's {"tp_train": ..., "generate": ...}; ``four``: the
+    4-rank spawn's ``dp_train_rank`` results): (a) and (b) against their
+    tp=1 twins, (a)'s peak memory below the twin's, (c) against tp=1.
+    Returns (each kernel's launches over the part's runs and ranks, by
+    ``KERNELS`` name and by the sp entries' names; the readings)."""
+    train2 = [r["tp_train"] for r in two]
+    labels4 = [_mesh_label(name, shape) for name, _, _, meshes in TP_TRAIN_4 for shape in meshes]
+    four = [{label: r[label] for label in labels4} for r in four]
     for label in train2[0]:
         ranks = [r[label] for r in train2]
         dp_train_verdict(label, ranks)
@@ -6045,7 +6159,7 @@ def tp_phase(dev):
         if not all(p < twin_peak for p in peaks):
             raise AssertionError(f"tp {label}: a rank's peak memory {peaks} GiB is not below the "
                                  f"tp=1 twin's {twin_peak:.2f} GiB")
-    for label in four[0]:
+    for label in labels4:
         dp_train_verdict(label, [r[label] for r in four])
     for label in two[0]["generate"]:
         tp_generate_verdict(label, [r["generate"][label] for r in two])
@@ -6055,13 +6169,262 @@ def tp_phase(dev):
             for k in KERNELS:
                 launches[k] += res["counts"][k]
     missing = [k for k in TP_PATH if not launches.get(k)]
-    log(f"tp part done in {time.perf_counter() - t0:.1f} s ((a) + (c) {t1 - t0:.1f} s, (b) "
-        f"{t2 - t1:.1f} s); launches over its runs: {launches}")
+    log(f"tp part: launches over its runs: {launches}")
     if missing:
         raise AssertionError(f"the tp part launched no {missing}")
     readings = {label: [{k: r[label][k] for k in ("peak_gib", "held", "transport")}
                         for r in rs] for rs in (train2, four) for label in rs[0]}
     return launches, readings
+
+
+def tp_phase(dev):
+    """The tp part alone (``mesh_parts``)."""
+    return mesh_parts(dev, ("tp",))["tp"]
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (A12 step 5): GPipe stages over depth, ranks sharing
+# the one card over gloo
+# ---------------------------------------------------------------------------
+
+# Each run: (config, overrides, TrainConfig fields, meshes as (dp, fsdp, tp,
+# sp, pp)), read by ``dp_train_rank`` against a pp=1 twin from the same seed
+# and batches with the dp part's readings and limits (``dp_train_verdict``:
+# the probe's loss and every gradient, the step losses and grad norms, the
+# update signs, exact launches a rank -- a stage's blocks, every one
+# recomputed, once a microbatch --, the ranks' params bitwise, each rank's
+# resident params and moments within ``DP_RESIDENT_RTOL`` of its stage's
+# blocks plus the leaves every stage holds). (a), on 2 ranks: lm_1b3 at full
+# width and depth (24 blocks, 12 a stage), B 8 x 1024, two AdamW steps at pp
+# 2 with the auto n_micro (8); each rank's peak memory also below the twin's,
+# the leaves every stage holds bitwise on both ranks, each rank's host ms
+# waiting on its neighbour beside the bubble (pp - 1) / (n_micro + pp - 1).
+# (c) on (a)'s ranks: the step-2 checkpoint (the pp=1 file: each stage's
+# blocks sent to rank 0), a pp=1 Trainer's load of its params bitwise the
+# gathered ones, and ``orion_tpu_torch.evaluate``'s ``lm_eval_sums`` of
+# that model on ``PP_EVAL_BATCHES`` batches against the pp Trainer's own
+# ``evaluate`` of them within ``PP_EVAL_ATOL``. (b), on 4 ranks at reduced
+# depth (2 recomputed in the twin): the hybrid (swa, swa, swa, linear) x 2 at
+# pp 2 x dp 2 (one group a stage; full-manual, the card's rule), B 8 x 1024;
+# the dropless moe_1b3_4e at 8 blocks (two groups of 3 dense + 1 MoE) at pp
+# 2 x fsdp 2 (partial-manual), B 8 x 1024, at one microbatch (the load-balance
+# term of a microbatch is not that of the batch: only at n_micro 1 is the
+# step a pp=1 step, as in the JAX package; n_micro 2 in both forms is held
+# against the JAX Trainer on the CPU, ``tests/test_torch_pp_moe.py``), its
+# twin replaying the pipeline's routing (``PipelinePinnedRouting``); lm_1b3
+# at 4 blocks at pp 2 x sp 2, T
+# 2048, B 2 (the sp parts inside the stages). pp x tp runs on the CPU only
+# (``tests/test_torch_pp_trainer.py``).
+PP_TRAIN_2 = (("lm_1b3", {}, DP_TRAIN, ((1, 1, 1, 1, 2),)),)
+PP_TRAIN_4 = (
+    ("hybrid_1b3", {"n_layers": 8, "remat_skip": 2,
+                    "layer_types": ("swa", "swa", "swa", "linear") * 2}, DP_TRAIN,
+     ((2, 1, 1, 1, 2),)),
+    ("moe_1b3_4e", {"n_layers": 8, "remat_skip": 2, "moe_dropless": True},
+     dict(DP_TRAIN, pp_microbatches=1), ((1, 2, 1, 1, 2),)),
+    ("lm_1b3", {"n_layers": 4, "remat_skip": 2, "sequence_parallel": True}, SP_TRAIN,
+     ((1, 1, 1, 2, 2),)),
+)
+PP_EVAL_BATCHES = 2
+# (c)'s limit: the pp Trainer evaluates each microbatch of one row through
+# its stages, the pp=1 model the whole batch: the same bf16 products at
+# other row counts, so each token's loss moves by bf16 noise (~1e-3 of
+# ~10.8) and the mean over 16384 tokens far less; a wrong stage or block
+# moves it by the loss's own scale
+PP_EVAL_ATOL = 5e-3
+# the kernels the pp part must launch (every one of its path)
+PP_PATH = TP_PATH
+
+
+def pp_checkpoint(m, trainer, cfg, save_dir, whole, dev):
+    """(c) on every rank of (a)'s pipeline: the step's checkpoint saved (a
+    collective: each stage's leaves sent to rank 0, which writes the pp=1
+    file), the pp Trainer's ``evaluate`` of ``PP_EVAL_BATCHES`` batches;
+    then on rank 0 a pp=1 Trainer loads the file's params (against the
+    gathered ``whole``, bitwise) and ``orion_tpu_torch.evaluate``'s
+    ``lm_eval_sums`` evaluates the same batches on its model."""
+    from orion_tpu_torch.evaluate import lm_eval_sums
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+    from orion_tpu_torch.training.checkpoint import Checkpointer, load_params
+    from orion_tpu_torch.training.data import SyntheticDataset, device_batch
+    from orion_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    t0 = time.perf_counter()
+    trainer._save(Checkpointer(save_dir, save_every=0), trainer.step_count, force=True)
+    out["pp_save_s"] = time.perf_counter() - t0
+    ds = SyntheticDataset(cfg.model.vocab_size, cfg.seq_len)
+    batches = [device_batch(ds, cfg.seed + 1, i, cfg.batch_size, dev)
+               for i in range(PP_EVAL_BATCHES)]
+    t0 = time.perf_counter()
+    out["pp_eval"] = trainer.evaluate(iter(batches), len(batches))["eval_loss"]
+    out["pp_eval_s"] = time.perf_counter() - t0
+    if m.is_main:
+        t0 = time.perf_counter()
+        params, step = load_params(save_dir)
+        one = Trainer(dataclasses.replace(cfg, mesh=MeshConfig(dp=1)), device=dev)
+        one.load_params(params)
+        out["pp1_load_s"] = time.perf_counter() - t0
+        out["pp1_load_bitwise"] = step == trainer.step_count and all(
+            torch.equal(one.params[n].detach(), whole[n].to(dev)) for n in whole)
+        total = count = 0.0
+        with torch.no_grad():
+            for b in batches:
+                s, c = lm_eval_sums(one.model, b)
+                total, count = total + float(s), count + float(c)
+        out["pp1_eval"] = total / count
+        del one, params
+        torch.cuda.empty_cache()
+    m.barrier()
+    return out
+
+
+def pp_verdict(label, ranks):
+    """The pp readings beyond ``dp_train_verdict``'s: the leaves every stage
+    holds bitwise on every rank, each rank's wait on its neighbour beside the
+    bubble, and (c) where it ran. Raises where a check fails."""
+    r0 = ranks[0]
+    n_micro, pp = r0["n_micro"], r0["mesh"][4]
+    bubble = (pp - 1) / (n_micro + pp - 1)
+    waits = [[round(s["collective_ms"]["p2p_recv"] / s["ms"], 4) for s in r["steps"]]
+             for r in ranks]
+    log(f"pp {label}: n_micro {n_micro} ({'full' if r0['full_manual'] else 'partial'}-manual), "
+        f"bubble (pp - 1) / (n_micro + pp - 1) = {bubble:.4f}; each rank's share of a step "
+        f"spent waiting on its neighbour, by step: {waits}; the leaves every stage holds "
+        f"bitwise on every rank: {len({r['trunk_digest'] for r in ranks}) == 1}")
+    if len({r["trunk_digest"] for r in ranks}) != 1:
+        raise AssertionError(f"pp {label}: the leaves every stage holds differ between ranks")
+    if "pp_save_s" in r0:
+        log(f"pp {label} (c): the pp=1 file saved in {r0['pp_save_s']:.1f} s; a pp=1 Trainer's "
+            f"load of its params ({r0['pp1_load_s']:.1f} s) bitwise the gathered params "
+            f"{r0['pp1_load_bitwise']}; eval loss of {PP_EVAL_BATCHES} batches, "
+            f"orion_tpu_torch.evaluate on the loaded model {r0['pp1_eval']:.6f} against the pp "
+            f"Trainer's {[round(r['pp_eval'], 6) for r in ranks]} ({r0['pp_eval_s']:.1f} s; "
+            f"limit {PP_EVAL_ATOL})")
+        if not r0["pp1_load_bitwise"] or any(abs(r["pp_eval"] - r0["pp1_eval"]) > PP_EVAL_ATOL
+                                             for r in ranks):
+            raise AssertionError(f"pp {label} (c) misses: {r0}")
+
+
+def pp_verdicts(two, four):
+    """The pp part's verdicts on the spawns' results (``two``: the 2-rank
+    spawn's, each rank's {"pp_train": ...}; ``four``: the 4-rank spawn's
+    ``dp_train_rank`` results): (a), (b) and (c) (``dp_train_verdict``,
+    ``pp_verdict``), (a)'s peak memory below the twin's. Returns (each
+    kernel's launches over the part's training steps and ranks, by
+    ``KERNELS`` name and by the sp entries' names; the readings)."""
+    train2 = [r["pp_train"] for r in two]
+    labels4 = [_mesh_label(name, shape) for name, _, _, meshes in PP_TRAIN_4 for shape in meshes]
+    four = [{label: r[label] for label in labels4} for r in four]
+    for label in train2[0]:
+        ranks = [r[label] for r in train2]
+        dp_train_verdict(label, ranks)
+        pp_verdict(label, ranks)
+        twin_peak = ranks[0]["twin"]["twin_peak_gib"]
+        peaks = [r["peak_gib"] for r in ranks]
+        log(f"pp {label}: peak memory a rank {[round(p, 2) for p in peaks]} GiB against the "
+            f"pp=1 twin's {twin_peak:.2f} GiB ({[round(p / twin_peak, 3) for p in peaks]}); "
+            f"resident params + AdamW state a rank {[r['held'] for r in ranks]} bytes")
+        if not all(p < twin_peak for p in peaks):
+            raise AssertionError(f"pp {label}: a rank's peak memory {peaks} GiB is not below the "
+                                 f"pp=1 twin's {twin_peak:.2f} GiB")
+    for label in labels4:
+        ranks = [r[label] for r in four]
+        dp_train_verdict(label, ranks)
+        pp_verdict(label, ranks)
+    launches = _mesh_launches(train2 + four)
+    missing = [k for k in PP_PATH if not launches.get(k)]
+    log(f"pp part: launches over its runs: {launches}")
+    if missing:
+        raise AssertionError(f"the pp part launched no {missing}")
+    readings = {label: [{k: r[label][k] for k in ("peak_gib", "held", "transport", "n_micro")}
+                        for r in rs] for rs in (train2, four) for label in rs[0]}
+    return launches, readings
+
+
+def pp_phase(dev):
+    """The pp part alone (``mesh_parts``)."""
+    return mesh_parts(dev, ("pp",))["pp"]
+
+
+# -- the mesh parts' spawns --------------------------------------------------------------
+
+
+def two_rank(mesh, payload):
+    """One rank of the 2-rank spawn: the tp part's (a) and (c) on the
+    spawn's tp mesh, the pp part's (a) and (c) (``dp_train_rank`` remeshes
+    to pp 2), as ``payload["parts"]`` asks."""
+    out = {}
+    if "tp" in payload["parts"]:
+        out["tp_train"] = dp_train_rank(mesh, {**payload, "runs": TP_TRAIN_2})
+        out["generate"] = tp_generate_rank(mesh, payload)
+    if "pp" in payload["parts"]:
+        out["pp_train"] = dp_train_rank(mesh, {**payload, "runs": PP_TRAIN_2,
+                                               "save_dir": payload["pp_save_dir"],
+                                               "save_shapes": ((1, 1, 1, 1, 2),)})
+    return out
+
+
+def four_rank(mesh, payload):
+    """One rank of the 4-rank spawn: the sp part's training runs (on the sp
+    4 mesh, when ``payload["sp"]``), then ``dp_train_rank``'s runs."""
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    out = {}
+    if payload.get("sp"):
+        out["sp_train"] = sp_train_rank(
+            _remesh(mesh, MeshConfig(dp=1, sp=mesh.world), payload.get("device")),
+            {"device": payload.get("device")})
+    out["mesh"] = dp_train_rank(mesh, payload)
+    return out
+
+
+def mesh_parts(dev, parts=("dp", "tp", "pp")):
+    """The dp, tp and pp parts (``parts``; "sp": also the sp part's training
+    runs), ranks of this script sharing the card over gloo, in at most two
+    spawns, so each rank's start and its first step's warm-up are paid once:
+    one of 2 ranks (tp's (a) and (c), pp's (a) and (c)) and one of 4 (the sp
+    training runs, ``DP_RUNS``, tp's and pp's (b)), each run on its own mesh
+    of the one process group. -> {part: (each kernel's launches over its
+    runs and ranks, its readings)}, and for "sp" each rank's
+    ``sp_train_rank`` results."""
+    import shutil
+    import tempfile
+
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="orion_mesh_ckpt_")
+    two = None
+    try:
+        need = (8 if "dp" in parts else 0) + (40 if "pp" in parts else 0)
+        free = shutil.disk_usage(tmp).free / 2**30
+        if free < need:
+            raise RuntimeError(f"the mesh parts' checkpoints (dp's fsdp 4 ~3.3 GB, pp's lm_1b3 "
+                               f"~16 GB) need {need} GiB free; {free:.1f} GiB under {tmp}")
+        if "tp" in parts or "pp" in parts:
+            two = sp_spawn(2, two_rank, {"parts": parts, "pp_save_dir": os.path.join(tmp, "pp")},
+                           timeout=900, mesh=MeshConfig(dp=1, tp=2) if "tp" in parts
+                           else MeshConfig(dp=1, pp=2))
+        t1 = time.perf_counter()
+        runs = ((DP_RUNS if "dp" in parts else ()) + (TP_TRAIN_4 if "tp" in parts else ())
+                + (PP_TRAIN_4 if "pp" in parts else ()))
+        four = sp_spawn(4, four_rank, {"runs": runs, "save_dir": os.path.join(tmp, "dp"),
+                                       "sp": "sp" in parts}, timeout=1200, mesh=MeshConfig(dp=4))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t2 = time.perf_counter()
+    log(f"mesh parts {parts}: the 2-rank spawn {t1 - t0:.1f} s, the 4-rank spawn "
+        f"{t2 - t1:.1f} s")
+    out = {"sp": [r.get("sp_train") for r in four]}
+    four = [r["mesh"] for r in four]
+    if "dp" in parts:
+        out["dp"] = dp_verdicts(four)
+    if "tp" in parts:
+        out["tp"] = tp_verdicts(two, four)
+    if "pp" in parts:
+        out["pp"] = pp_verdicts(two, four)
+    return out
 
 
 # -- the fleet part: obs on a Server run, then the fleet over it ---------------------------
@@ -6780,10 +7143,10 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser("chip_smoke.py")
-    ap.add_argument("--part", choices=("all", "fleet", "train", "tp"), default="all",
-                    help="fleet / train / tp: the build, the kernel checks and the fleet part, "
-                    "the training-resilience part (R1 in lm_1b3's adafactor_fused phase, R2, "
-                    "R3) or the tensor-parallel part, alone")
+    ap.add_argument("--part", choices=("all", "fleet", "train", "tp", "pp"), default="all",
+                    help="fleet / train / tp / pp: the build, the kernel checks and the fleet "
+                    "part, the training-resilience part (R1 in lm_1b3's adafactor_fused phase, "
+                    "R2, R3), the tensor-parallel part or the pipeline part, alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -6836,18 +7199,29 @@ def main(argv=None) -> int:
         for k in kernels:  # the main path of this part: its runs' launches over the ranks
             k["launches"] = k["launches_tp"] = tp_launches.get(k["name"], 0)
         return _finish(card, kernels)
+    if args.part == "pp":
+        # the sp pieces' entries (the parts of rows 1, 3, 4 that pp x sp runs
+        # inside its stages), each held against its plain version
+        kernels += check_sp_kernels(causal_dot, flash_attention, dev)
+        torch.cuda.empty_cache()
+        pp_launches, pp_memory = pp_phase(dev)
+        log(f"pp phases done at {time.perf_counter() - t0:.1f} s; peak memory, resident bytes, "
+            f"transport and n_micro a rank: {pp_memory}")
+        for k in kernels:  # the main path of this part: its runs' launches over the ranks
+            k["launches"] = k["launches_pp"] = pp_launches.get(k["name"], 0)
+        return _finish(card, kernels)
     # sequence parallelism: ranks as processes sharing this card
-    sp_lines, sp_memory = sp_phase(causal_dot, flash_attention, dev)
+    sp_lines = sp_phase(causal_dot, flash_attention, dev, train=False)
+    # sp training, data, tensor and pipeline parallelism: ranks as processes
+    # sharing this card, one spawn of 2 and one of 4 for the four parts
+    parts = mesh_parts(dev, ("sp", "dp", "tp", "pp"))
+    sp_lines, sp_memory = sp_train_verdicts(sp_lines, parts["sp"])
     log(f"sp phases done at {time.perf_counter() - t0:.1f} s; transport and peak memory a rank: "
         f"{sp_memory}")
-    # data parallelism: dp and fsdp, ranks as processes sharing this card
-    dp_launches, dp_memory = dp_phase(dev)
-    log(f"dp phases done at {time.perf_counter() - t0:.1f} s; peak memory, resident bytes and "
-        f"transport a rank: {dp_memory}")
-    # tensor parallelism: ranks as processes sharing this card
-    tp_launches, tp_memory = tp_phase(dev)
-    log(f"tp phases done at {time.perf_counter() - t0:.1f} s; peak memory, resident bytes and "
-        f"transport a rank: {tp_memory}")
+    (dp_launches, dp_memory), (tp_launches, tp_memory), (pp_launches, pp_memory) = (
+        parts["dp"], parts["tp"], parts["pp"])
+    log(f"dp, tp and pp phases done at {time.perf_counter() - t0:.1f} s; peak memory, resident "
+        f"bytes, transport (and n_micro) a rank: dp {dp_memory}, tp {tp_memory}, pp {pp_memory}")
     op = op_phase(dev, mods)
     tiny_hybrid = dataclasses.replace(TINY, layer_types=("swa", "linear"), window=16)
 
@@ -6969,37 +7343,33 @@ def main(argv=None) -> int:
     both = (("greedy", "host"), ("greedy", "inscan"), ("sampled", "host"), ("sampled", "inscan"))
     host = (("greedy", "host"), ("sampled", "host"))
     t_serve = time.perf_counter()
+    # at 4 blocks (the hybrid's keep both layer kinds: swa, swa, swa, linear):
+    # every serving check, lm_1b3's (b), (f), (g), times, ladder, sessions,
+    # Server phase, stores part and speculative part, the int4 (f), host
+    # Server runs, stores part and speculative part, the hybrid's (b), (f),
+    # (g), times, ladder, session, host Server runs, stores part and
+    # speculative part (the whole run's time pays for the sp, dp, tp and pp
+    # parts); the CLIs serve the full depth; "f" gives the plain runs
+    # speculation is held against
+    from orion_tpu_torch.models.configs import hybrid_pattern
+
     serving = {
         "lm_1b3": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card,
-                                checks=("b", "f", "g", "times")),
+                                checks=("b", "f", "g", "times", "ladder", "session",
+                                        "decode_session", "server_full", "stores", "stores_full",
+                                        "spec", "spec_full", "spec_mutant"),
+                                server_runs=both, overrides=RESILIENCE_OVER),
         "lm_1b3_int4": serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, quant="int4",
-                                     checks=("f",), server_runs=host),
+                                     checks=("f", "stores", "spec"), server_runs=host,
+                                     overrides=RESILIENCE_OVER),
         # the hybrid's in-scan pieces run its swa plain, as in JAX: row 6 only
         # in the host (solo) prefill and a prefix publish's
         "hybrid_1b3": serving_phase(dev, mods, "hybrid_1b3", HYBRID_PLAN, card,
-                                    checks=("b", "f", "g", "times"), server_runs=host),
+                                    checks=("b", "f", "g", "times", "ladder", "session", "stores",
+                                            "spec", "spec_full"), server_runs=host,
+                                    overrides={**RESILIENCE_OVER,
+                                               "layer_types": hybrid_pattern(4)}),
     }
-    # at 4 blocks (the hybrid's keep both layer kinds: swa, swa, swa, linear):
-    # lm_1b3's ladder, sessions, Server phase, stores part and speculative
-    # part, the int4 stores part and speculative part, the hybrid's ladder,
-    # session, stores part and speculative part (the whole run's time pays
-    # for the sp, dp and tp parts); the CLIs serve the full depth; "f" gives
-    # the plain runs speculation is held against
-    from orion_tpu_torch.models.configs import hybrid_pattern
-
-    cut = serving_phase(dev, mods, "lm_1b3", LM_PLAN, card,
-                        checks=("f", "ladder", "session", "decode_session", "server_full",
-                                "stores", "stores_full", "spec", "spec_full", "spec_mutant"),
-                        server_runs=both, overrides=RESILIENCE_OVER)
-    serving["lm_1b3"].update(server=cut["server"], stores=cut["stores"], spec=cut["spec"])
-    cut = serving_phase(dev, mods, "lm_1b3", LM_PLAN, card, quant="int4",
-                        checks=("f", "stores", "spec"), overrides=RESILIENCE_OVER)
-    serving["lm_1b3_int4"].update(stores=cut["stores"], spec=cut["spec"])
-    cut = serving_phase(dev, mods, "hybrid_1b3", HYBRID_PLAN, card,
-                        checks=("f", "ladder", "session", "stores", "spec", "spec_full"),
-                        overrides={**RESILIENCE_OVER, "layer_types": hybrid_pattern(4)})
-    serving["hybrid_1b3"].update(stores=cut["stores"], spec=cut["spec"])
-    del cut
     log(f"serving phases done at {time.perf_counter() - t0:.1f} s "
         f"({time.perf_counter() - t_serve:.1f} s)")
     fleet = fleet_phase(dev, mods, card)
@@ -7078,9 +7448,10 @@ def main(argv=None) -> int:
     for k in kernels:  # the requests routed over two LocalReplicas (row 1: 24 x 6)
         k["launches_fleet"] = fleet["local"]["launches"][k["name"]]
     kernels += sp_lines  # launches: the sp training runs' totals over the ranks
-    for k in kernels:  # each kernel's launches over the dp and tp parts' steps and ranks
+    for k in kernels:  # each kernel's launches over the dp, tp and pp parts' steps and ranks
         k["launches_dp"] = dp_launches.get(k["name"], 0)
         k["launches_tp"] = tp_launches.get(k["name"], 0)
+        k["launches_pp"] = pp_launches.get(k["name"], 0)
     return _finish(card, kernels)
 
 

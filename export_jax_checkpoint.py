@@ -23,10 +23,12 @@ tie_embeddings=false``; a feature map: ``--set feature_map=favor``). A tree
 with a ``cls`` vector is an ``LRAClassifier``'s (an ``lra_*`` config) and is
 mapped onto the port's classifier; its step file loads with
 ``orion_tpu_torch.training.checkpoint.load_params`` into
-``orion_tpu_torch.models.classifier.LRAClassifier``. A pipeline-layout checkpoint (stacked
-per-stage blocks) is refused: unstacking it waits for the port's pipeline
-(ROADMAP.md queue A, item 12). This script is the one file of the repo that
-imports both packages; it runs JAX on the CPU.
+``orion_tpu_torch.models.classifier.LRAClassifier``. A pipeline-layout checkpoint (the JAX
+Trainer's state at pp > 1: the blocks stacked by group under ``blocks_stacked``, or
+stacked one block an element in the older layout) is unstacked by
+``params_from_jax`` and written as the pp=1 file, which every entry point of
+the port reads. This script is the one file of the repo that imports both
+packages; it runs JAX on the CPU.
 """
 
 import argparse
@@ -48,10 +50,6 @@ def export(ckpt_dir: str, out_dir: str, config: str = "tiny", step=None, overrid
     from orion_tpu_torch.training.checkpoint import Checkpointer
 
     params, step = load_params(ckpt_dir, step)
-    if "blocks_stacked" in params.get("params", {}):
-        raise ValueError(
-            f"{ckpt_dir} step {step} holds a pipeline-layout tree (blocks_stacked); the port "
-            "has no pipeline to unstack it yet (ROADMAP.md queue A, item 12)")
     cfg = get_config(config)
     if overrides:
         cfg = apply_overrides(cfg, parse_set_overrides(list(overrides)))

@@ -41,6 +41,12 @@ quantized model (``orion_tpu_torch/quant.py``), its int8 tensors kept int8:
   out] as they are;
 - ``phi_proj`` stays full precision, as in the JAX package.
 
+A JAX pipeline-layout tree (the JAX Trainer's state at pp > 1:
+``blocks_stacked`` holding the blocks' leaves stacked by group) is first
+unstacked into ``block_{i}`` (``parallel/pipeline_lm.py``'s
+``unstack_lm_params``, the counterpart of the JAX package's
+``unstack_if_pipeline``), so it maps as a pp=1 tree.
+
 A missing or unexpected key, or a shape that disagrees with ``cfg``, raises.
 """
 
@@ -156,6 +162,10 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig,
     an ``LRAClassifier``'s tree."""
     if set(tree) == {"params"}:
         tree = tree["params"]
+    if "blocks_stacked" in tree:
+        from orion_tpu_torch.parallel.pipeline_lm import unstack_lm_params
+
+        tree = unstack_lm_params(tree, cfg)
     flat = _flatten(tree)
     spec = expected_params(cfg, quant, classifier)
     missing = sorted(set(spec) - set(flat))

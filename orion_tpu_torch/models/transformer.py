@@ -119,8 +119,21 @@ params are drawn whole from ``generator``, then cut: tp first, then fsdp
 cuts the tp shard (``parallel/sharding.py``; ``shard_state`` cuts a whole
 state dict the same way).
 
+Pipeline parallelism (``mesh`` with pp above 1; any combination with dp,
+fsdp, tp and sp): the model of stage p holds only its blocks
+(``parallel/pipeline_lm.py``'s ``stage_blocks``: whole groups of the
+layer pattern) in ``blocks``, a ``StageBlocks`` that keeps their global
+names (``blocks.{i}.*``, so the sharding rules, ``convert.py`` and the
+checkpoint read them as a one-stage model's); the embeddings, the final
+norm and the head are whole on every stage. The params are drawn whole in
+the pp=1 order from ``generator``, then the other stages' blocks are
+dropped (then tp and fsdp cut what is left), so a pp run starts from a
+pp=1 run's params. Such a model runs through the pipeline only
+(``pipeline_lm.pp_lm_loss``, ``pp_lm_logits``, ``pp_lm_eval_sums``): its
+``features``, ``prefill`` and decode methods raise.
+
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
-item): the pp and ep mesh axes (A12 steps 5 and 8), and with them the
+item): the ep mesh axis (A12 step 8), and with it the
 expert-parallel MoE forms; prefill and decode of a sequence-parallel model
 (``generate --sp``, step 6); a sequence-parallel MoE, dropout on a
 sequence-parallel, data or tp mesh (step 7), and a quantized model on a
@@ -868,6 +881,27 @@ class Block(nn.Module):
         return x + _by_blocks(lambda y: self.mlp(self.norm2(y)), x, rows), upd
 
 
+class StageBlocks(nn.Module):
+    """The blocks one pipeline stage holds, each registered under its global
+    index (state-dict keys ``blocks.{i}.*``, as an ``nn.ModuleList`` of every
+    block names them). Iterates the blocks in order; ``items()`` gives
+    (global index, block)."""
+
+    def __init__(self, blocks: Dict[int, nn.Module]):
+        super().__init__()
+        for i, blk in blocks.items():
+            self.add_module(str(i), blk)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def items(self):
+        return ((int(i), blk) for i, blk in self._modules.items())
+
+
 class TransformerLM(nn.Module):
     """Decoder LM over token ids; see the module docstring.
 
@@ -888,7 +922,8 @@ class TransformerLM(nn.Module):
     rank's rows, and with fsdp above 1 (``fsdp``) it holds its shard of each
     fsdp leaf (the params are drawn whole from ``generator``, then cut).
     With tp above 1 (``tp``) it holds its heads and its share of each MLP's
-    hidden dimension (``tp_params``, cut before fsdp cuts).
+    hidden dimension (``tp_params``, cut before fsdp cuts). With pp above 1
+    (``pp``) it holds its stage's blocks only (``holds``).
     Otherwise it changes nothing, as in the JAX model.
     """
 
@@ -930,6 +965,15 @@ class TransformerLM(nn.Module):
         if self.n_data > 1 and quant:
             raise _not_ported("a quantized model on a data mesh", "item 12 (parallelism), A12 "
                               "step 8")
+        self.pp = mesh if mesh is not None and mesh.pp > 1 else None
+        self.stage = range(cfg.n_layers)
+        if self.pp is not None:
+            from orion_tpu_torch.parallel.pipeline_lm import stage_blocks
+
+            if quant:
+                raise _not_ported("a quantized model under pp", "item 12 (parallelism), A12 "
+                                  "step 8")
+            self.stage = stage_blocks(cfg, mesh.pp, mesh.pp_rank)  # raises unless pp divides
         self.quant = check_mode(quant)
         check_supported(cfg)
         if cfg.param_dtype != "float32":
@@ -958,17 +1002,36 @@ class TransformerLM(nn.Module):
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self.reset_parameters(generator)
+        if self.pp is not None:  # drawn whole in the pp=1 order, then this stage's kept
+            self.blocks = StageBlocks({i: self.blocks[i] for i in self.stage})
         # tp cuts first, then fsdp cuts the tp shard (no rule names both on
         # one dimension)
         self.tp_params = None
         if self.tp is not None:
-            self.tp_params = AxisParams(tp_table, mesh.tp_group, mesh.tp, mesh.tp_rank)
+            self.tp_params = AxisParams(self._held(tp_table), mesh.tp_group, mesh.tp,
+                                        mesh.tp_rank)
             self.tp_params.shard_module(self)
         self.fsdp = None
         if mesh is not None and mesh.fsdp > 1:
-            self.fsdp = FsdpParams(fsdp_dims(cfg, mesh.fsdp), mesh.fsdp_group, mesh.fsdp,
-                                   mesh.fsdp_rank)
+            self.fsdp = FsdpParams(self._held(fsdp_dims(cfg, mesh.fsdp)), mesh.fsdp_group,
+                                   mesh.fsdp, mesh.fsdp_rank)
             self.fsdp.shard_module(self)
+
+    def holds(self, name: str) -> bool:
+        """Whether this model holds the state-dict entry ``name``: every
+        entry but the blocks of the other pipeline stages."""
+        if self.pp is None or not name.startswith("blocks."):
+            return True
+        return int(name.split(".", 2)[1]) in self.stage
+
+    def _held(self, table: Dict[str, int]) -> Dict[str, int]:
+        return {n: d for n, d in table.items() if self.holds(n)}
+
+    def _whole_depth(self, what: str) -> None:
+        if self.pp is not None:
+            raise ValueError(f"{what} of a pipeline stage's model (pp={self.pp.pp}): it holds "
+                             f"blocks {self.stage.start}..{self.stage.stop - 1} only; run it "
+                             "through parallel.pipeline_lm")
 
     @property
     def shard_axes(self) -> List[AxisParams]:
@@ -978,8 +1041,9 @@ class TransformerLM(nn.Module):
 
     def shard_state(self, state: Dict[str, Tensor]) -> Dict[str, Tensor]:
         """A whole state dict (a one-rank model's, a checkpoint's) -> this
-        rank's: each tp leaf's tp shard, then each fsdp leaf's fsdp shard."""
-        return shard_whole(state, self.shard_axes)
+        rank's: the entries it holds (``holds``), each tp leaf's tp shard,
+        then each fsdp leaf's fsdp shard."""
+        return shard_whole({n: t for n, t in state.items() if self.holds(n)}, self.shard_axes)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -1060,6 +1124,7 @@ class TransformerLM(nn.Module):
         outputs of their matrix products. On a sequence-parallel model
         ``tokens`` is this rank's shard [B, T / sp]: its row p is at global
         position sp_rank T / sp + p."""
+        self._whole_depth("features")
         t = tokens.shape[-1]
         first = self.sp.sp_rank * t if self.sp is not None else 0
         x = self._embed(tokens, torch.arange(first, first + t, device=tokens.device))
@@ -1092,6 +1157,7 @@ class TransformerLM(nn.Module):
         return (logits, aux) if return_aux else logits
 
     def _prefill_trunk(self, tokens: Tensor, length=None) -> Tuple[Tensor, List[State]]:
+        self._whole_depth("prefill")
         x = self._embed(tokens, torch.arange(tokens.shape[-1], device=tokens.device))
         states = []
         for blk in self.blocks:
@@ -1119,6 +1185,7 @@ class TransformerLM(nn.Module):
         ``write`` [B] bool masks the rows whose state may change). The
         hidden rows are padded to ``DECODE_ROWS`` (``decode_rows``), so a
         row's logits do not depend on the batch it sits in."""
+        self._whole_depth("decode_step")
         x = decode_rows(self._embed(token, t))
         new_states = []
         for blk, st in zip(self.blocks, states):
@@ -1136,6 +1203,7 @@ class TransformerLM(nn.Module):
         layers' (S, z) in layer order (``linear_layer_indices``); new ones are
         returned, the given ones left as they were. Rows padded to
         ``DECODE_ROWS`` as ``decode_step``'s."""
+        self._whole_depth("draft_step")
         x = decode_rows(self._embed(token, t))
         new_states: List[State] = []
         it = iter(lin_states)
@@ -1162,6 +1230,7 @@ class TransformerLM(nn.Module):
         request that ends near it) are clamped to it, as the slot programs
         clamp a decode step's, so no index leaves the tables; the JAX
         package's lookup gives NaN there. Such rows are never emitted."""
+        self._whole_depth("verify_step")
         b, p = tokens.shape
         pos = self._piece_positions(t, b, p, tokens.device)
         n = b * p
@@ -1200,6 +1269,7 @@ class TransformerLM(nn.Module):
         (the logits of the last real row [B, V], the states). After the last
         piece they are what ``prefill_last`` hands the first sample.
         Positions are clipped, not sliced."""
+        self._whole_depth("prefill_extend_step")
         dev = tokens.device
         p = tokens.shape[-1]
         offset = torch.as_tensor(offset, device=dev).long()

@@ -4,8 +4,10 @@ The JAX package lays one ``jax.sharding.Mesh`` over the chips and lets XLA
 insert the collectives; the port runs one process a rank and calls
 ``torch.distributed``'s collectives itself, each differentiable where a
 body needs its gradient (``collectives.py``). Ported so far (ROADMAP.md
-A12 steps 1-4): the mesh's process groups with the dp, fsdp, tp and sp
-axes (``mesh.py``), the fsdp and tp sharding rules, cuts and gathers
+A12 steps 1-5): the mesh's process groups with the dp, fsdp, tp, sp and
+pp axes (``mesh.py``), the GPipe schedule over the pp group and the
+pipelined LM (``pipeline.py``, ``pipeline_lm.py``; the hop between stages
+is ``collectives.send_to`` / ``recv_from``), the fsdp and tp sharding rules, cuts and gathers
 (``sharding.py``; tp in the Megatron layout, its two conjugate
 collectives ``copy_to_tp`` / ``reduce_from_tp`` in ``collectives.py``),
 sequence-parallel linear attention (``sequence.py``), and ring attention

@@ -30,6 +30,14 @@ whose backward is written out:
   gathered and added in group-rank order in fp32, rounded once to the
   input's dtype, so every rank of the group holds the same bits.
 
+The pipeline's hop (``parallel/pipeline.py``) is point to point and not an
+autograd Function: ``send_to`` hands a stage's output (or, backward, its
+input's gradient) to a neighbour of the pp group without waiting for it
+(the handle is waited on once the schedule's phase ends) and ``recv_from``
+blocks until the neighbour's tensor arrives. Within a phase data moves one
+way only (forward: stage p to p + 1; backward: p + 1 to p), so a stage that
+both receives and sends cannot wait on a stage that waits on it.
+
 Transport: under NCCL the gather and the reduce-scatter are
 ``all_gather_into_tensor`` / ``reduce_scatter_tensor``. Gloo has no
 reduce-scatter, so there it is an ``exchange`` of the chunks and a sum in
@@ -344,6 +352,36 @@ def all_reduce_sum_(tensors: Sequence[Tensor], group: Optional[dist.ProcessGroup
             offset += t.numel()
 
 
+class _Sent:
+    """A send in flight: its work handle and the buffer it reads (the host
+    copy of a CUDA tensor under gloo), kept alive until ``wait``."""
+
+    def __init__(self, work, wire: Tensor):
+        self.work, self.wire = work, wire
+
+    def wait(self) -> None:
+        self.work.wait()
+        self.wire = None
+
+
+def send_to(x: Tensor, group, dst: int) -> _Sent:
+    """Send ``x`` to group rank ``dst`` without waiting (``isend``; a CUDA
+    tensor under gloo is staged through host memory first) -> the handle
+    to ``wait`` on before the schedule's phase ends."""
+    wire = _to_wire(x, group)
+    return _Sent(dist.isend(wire, dist.get_global_rank(group, dst), group), wire)
+
+
+def recv_from(shape, dtype: torch.dtype, device, group, src: int) -> Tensor:
+    """A tensor of ``shape`` and ``dtype`` from group rank ``src``, on
+    ``device`` (received on the host under gloo, then copied over)."""
+    dev = torch.device(device)
+    on = dev if not (dev.type == "cuda" and dist.get_backend(group) == "gloo") else "cpu"
+    buf = torch.empty(shape, dtype=dtype, device=on)
+    dist.recv(buf, dist.get_global_rank(group, src), group)
+    return buf.to(dev)
+
+
 def any_rank(flag: bool, device, group: Optional[dist.ProcessGroup] = None) -> bool:
     """Is ``flag`` set on any rank of the group? One int reduced with MAX
     (on the host for gloo, on ``device`` for NCCL): the ranks of a mesh
@@ -357,4 +395,4 @@ def any_rank(flag: bool, device, group: Optional[dist.ProcessGroup] = None) -> b
 
 __all__ = ["ppermute_shift", "exclusive_prefix_sum", "exchange", "touch", "all_reduce_sum_",
            "all_gather", "reduce_scatter", "all_reduce_mean", "any_rank", "copy_to_tp",
-           "reduce_from_tp"]
+           "reduce_from_tp", "send_to", "recv_from"]

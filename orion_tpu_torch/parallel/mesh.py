@@ -8,26 +8,30 @@ process its rank) and a mesh is a set of ``torch.distributed`` process
 groups, one for each axis above 1, whose collectives the code calls itself
 (``parallel/collectives.py``).
 
-Ported: the ``dp``, ``fsdp``, ``tp`` and ``sp`` axes, in any combination.
-``sp`` is sequence parallelism: each rank of the group holds a contiguous
-shard of every sequence's tokens (``parallel/sequence.py``,
+Ported: the ``dp``, ``fsdp``, ``tp``, ``sp`` and ``pp`` axes, in any
+combination. ``sp`` is sequence parallelism: each rank of the group holds a
+contiguous shard of every sequence's tokens (``parallel/sequence.py``,
 ``parallel/ring.py``). ``dp`` and ``fsdp`` are the data axes: the ranks of
 the data group (dp x fsdp) hold different rows of the global batch, and
 ``fsdp`` also shards the parameters and the optimizer state over its group
 (``parallel/sharding.py``). ``tp`` is tensor parallelism in the Megatron
 layout: the ranks of a tp group share rows and tokens and each holds 1 / tp
 of the heads and of the MLP's hidden dimension (``models/transformer.py``).
-``dp = -1`` resolves to the ranks the other axes leave. pp and ep above 1
-raise ``NotImplementedError`` naming ROADMAP.md's A12, whose later steps
-port them.
+``pp`` is the pipeline: the ranks of a pp group share rows, tokens and tp
+shards, and stage p holds blocks [p L / pp, (p + 1) L / pp) of the model
+(``parallel/pipeline.py``, ``parallel/pipeline_lm.py``); the embeddings,
+the final norm and the head are whole on every stage. ``dp = -1`` resolves
+to the ranks the other axes leave. ep above 1 raises
+``NotImplementedError`` naming ROADMAP.md's A12 step 8, which ports it.
 
 Rank layout: the JAX mesh's device order, ``reshape(dp, fsdp, tp, sp, pp,
-ep)``, so with pp = ep = 1 rank = ((d fsdp + f) tp + t) sp + s. A rank's row
-block of a global batch is number d fsdp + f of dp fsdp equal blocks (the
-JAX package's ``P(("dp", "fsdp"))``); the tp and sp ranks of one (d, f)
-share it, and the tp ranks of one (d, f, s) share its tokens too. Every
-group is created by every rank, in the same order, including the groups a
-rank is not in: ``dist.new_group`` is collective over all ranks.
+ep)``, so with ep = 1 rank = (((d fsdp + f) tp + t) sp + s) pp + p: the
+stages of one (d, f, t, s) are neighbours. A rank's row block of a global
+batch is number d fsdp + f of dp fsdp equal blocks (the JAX package's
+``P(("dp", "fsdp"))``); the tp, sp and pp ranks of one (d, f) share it, and
+the tp and pp ranks of one (d, f, s) share its tokens too. Every group is
+created by every rank, in the same order, including the groups a rank is
+not in: ``dist.new_group`` is collective over all ranks.
 
 Transport. ``init_distributed`` picks NCCL when each local rank has a card
 of its own, and gloo when local ranks share one (NCCL refuses two ranks on
@@ -55,7 +59,7 @@ AXES = ("dp", "fsdp", "tp", "sp", "pp", "ep")
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to orion_tpu_torch yet (ROADMAP.md queue A, item 12 "
-        "(parallelism): only the dp, fsdp, tp and sp axes are; A12 step 5 ports pp, step 8 ep)")
+        "(parallelism): only the dp, fsdp, tp, sp and pp axes are; A12 step 8 ports ep)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +91,9 @@ class MeshConfig:
         return (self.dp, self.fsdp, self.tp, self.sp, self.pp, self.ep)
 
     def check(self) -> None:
-        """Raise for an axis above 1 that is not ported (pp, ep)."""
+        """Raise for an axis above 1 that is not ported (ep)."""
         for name, n in zip(AXES, self.shape):
-            if name not in ("dp", "fsdp", "tp", "sp") and n > 1:
+            if name == "ep" and n > 1:
                 raise _not_ported(f"a device mesh with {name}={n} {self.shape}")
 
 
@@ -112,11 +116,16 @@ class Mesh:
     them: its global ``rank`` of ``world``, its ``device``, the
     ``transport`` ("nccl" or "gloo") and one group for each axis above 1
     (None for an axis of one rank): ``sp_group``, ``dp_group``,
-    ``fsdp_group``, ``tp_group``; ``data_group``, the dp x fsdp ranks of this
-    (t, s) (the ranks that hold different rows); ``shard_group``, the dp x sp
-    ranks of this (f, t) (the ranks that hold the same fsdp shards);
-    ``replica_group``, the dp x fsdp x sp ranks of this t (the ranks that
-    hold the same tp shards: with tp = 1 every rank)."""
+    ``fsdp_group``, ``tp_group``, ``pp_group``; ``data_group``, the dp x fsdp
+    ranks of this (t, s, p) (the ranks that hold different rows);
+    ``shard_group``, the dp x sp ranks of this (f, t, p) (the ranks that hold
+    the same fsdp shards); ``replica_group``, the dp x fsdp x sp ranks of this
+    (t, p) (the ranks that hold the same tp shards of one stage's blocks:
+    with tp = pp = 1 every rank). The leaves every stage holds whole (the
+    embeddings, the final norm, the head) sum their gradients over
+    ``trunk_group``, the dp x fsdp x sp x pp ranks of this t, or, cut by
+    fsdp, over ``trunk_shard_group``, the dp x sp x pp ranks of this (f, t);
+    with pp = 1 these are ``replica_group`` and ``shard_group``."""
 
     cfg: MeshConfig
     rank: int
@@ -130,13 +139,31 @@ class Mesh:
     shard_group: Optional[dist.ProcessGroup] = None
     tp_group: Optional[dist.ProcessGroup] = None
     replica_group: Optional[dist.ProcessGroup] = None
+    pp_group: Optional[dist.ProcessGroup] = None
+    trunk_group: Optional[dist.ProcessGroup] = None
+    trunk_shard_group: Optional[dist.ProcessGroup] = None
 
     @property
     def coords(self) -> Tuple[int, int, int, int]:
-        """(d, f, t, s): this rank's index along dp, fsdp, tp and sp."""
+        """(d, f, t, s): this rank's index along dp, fsdp, tp and sp (its
+        stage is ``pp_rank``)."""
         c = self.cfg
-        return (self.rank // (c.fsdp * c.tp * c.sp), self.rank // (c.tp * c.sp) % c.fsdp,
-                self.rank // c.sp % c.tp, self.rank % c.sp)
+        r = self.rank // c.pp
+        return (r // (c.fsdp * c.tp * c.sp), r // (c.tp * c.sp) % c.fsdp, r // c.sp % c.tp,
+                r % c.sp)
+
+    @property
+    def pp(self) -> int:
+        return self.cfg.pp
+
+    @property
+    def pp_rank(self) -> int:
+        """This rank's stage p."""
+        return self.rank % self.cfg.pp
+
+    def stage_rank(self, p: int) -> int:
+        """The global rank of stage ``p`` of this rank's (d, f, t, s)."""
+        return self.rank - self.pp_rank + p
 
     @property
     def sp(self) -> int:
@@ -221,7 +248,7 @@ def tp_of(mesh: Optional[Mesh], width: int) -> Optional[Mesh]:
 
 def _group(shape: Tuple[int, ...], rank: int, varying: Tuple[int, ...], transport: str):
     """The group of the ranks that differ from ``rank`` only along the axes
-    ``varying`` (indices into ``shape``, the (dp, fsdp, tp, sp) sizes), or None
+    ``varying`` (indices into ``shape``, the (dp, fsdp, tp, sp, pp) sizes), or None
     when it holds one rank. Every rank creates every group of the partition,
     in the same order: ``dist.new_group`` is collective over all ranks."""
     buckets: Dict[tuple, List[int]] = {}
@@ -277,7 +304,7 @@ def init_distributed(
     under NCCL, all ranks share card 0 under gloo when there are fewer
     cards than local ranks). A process group that is already up is reused
     (a process may build several meshes over it, one after another, each
-    rank calling with the same ``cfg``). pp and ep above 1 raise
+    rank calling with the same ``cfg``). ep above 1 raises
     (``MeshConfig.check``)."""
     rank = _env_int("RANK") if rank is None else rank
     world = _env_int("WORLD_SIZE") if world_size is None else world_size
@@ -286,9 +313,9 @@ def init_distributed(
                    else local_world_size)
     resolved = cfg.resolve(world)
     resolved.check()
-    covered = resolved.dp * resolved.fsdp * resolved.tp * resolved.sp
+    covered = resolved.dp * resolved.fsdp * resolved.tp * resolved.sp * resolved.pp
     if covered != world:
-        raise ValueError(f"mesh {resolved.shape}: dp * fsdp * tp * sp = {covered} does not "
+        raise ValueError(f"mesh {resolved.shape}: dp * fsdp * tp * sp * pp = {covered} does not "
                          f"cover the {world} ranks")
     kind = torch.device(device if device is not None else "cuda").type
     if kind == "cuda" and not torch.cuda.is_available():
@@ -310,15 +337,23 @@ def init_distributed(
           f"({local_world} local rank(s), {n_cards} card(s)"
           + (": CUDA tensors staged through host memory" if transport == "gloo"
              and kind == "cuda" else "") + ")", file=sys.stderr)
-    shape = (resolved.dp, resolved.fsdp, resolved.tp, resolved.sp)
+    shape = (resolved.dp, resolved.fsdp, resolved.tp, resolved.sp, resolved.pp)
     groups = {name: _group(shape, rank, varying, transport)
               for name, varying in (("sp_group", (3,)), ("dp_group", (0,)), ("fsdp_group", (1,)),
                                     ("data_group", (0, 1)), ("tp_group", (2,)),
-                                    ("replica_group", (0, 1, 3)))}
+                                    ("replica_group", (0, 1, 3)), ("pp_group", (4,)))}
     # the ranks holding one fsdp shard sum its gradient (without fsdp every
     # leaf is replicated over the replica group and sums there)
     groups["shard_group"] = (_group(shape, rank, (0, 3), transport) if resolved.fsdp > 1
                              else None)
+    # the leaves every stage holds: the same groups across the stages
+    if resolved.pp > 1:
+        groups["trunk_group"] = _group(shape, rank, (0, 1, 3, 4), transport)
+        groups["trunk_shard_group"] = (_group(shape, rank, (0, 3, 4), transport)
+                                       if resolved.fsdp > 1 else None)
+    else:
+        groups["trunk_group"] = groups["replica_group"]
+        groups["trunk_shard_group"] = groups["shard_group"]
     return Mesh(resolved, rank, world, dev, transport, **groups)
 
 

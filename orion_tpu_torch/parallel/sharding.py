@@ -23,8 +23,11 @@ whose pattern matches a leaf's flax path wins) and reads their ``fsdp`` and
   (``FsdpParams``, ``collectives.all_gather``). Under both, the tp shard is
   what fsdp cuts: no rule names tp and fsdp on one dimension.
 
-Every other leaf is replicated. The pp and ep entries of the rules are kept
-for their shape and read by nothing yet (ROADMAP.md A12).
+Every other leaf is replicated. The pp entries (the JAX pipeline's stacked
+``blocks_stacked`` layout) and the ep entries of the rules are kept for
+their shape and read by nothing: the port's pipeline keeps each stage's
+blocks unstacked under their own names (``parallel/pipeline_lm.py``), and
+ep is not ported yet (ROADMAP.md A12 step 8).
 
 The rules name the flax layout. The port stores a dense kernel [in, out] as
 its transpose [out, in] (``convert.expected_params``' ``transpose`` flag),

@@ -17,17 +17,21 @@ Parallel training (one process a rank, e.g. four ranks on one host):
         --config hybrid_1b3 --seq-len 2048 --set model.sequence_parallel=true
     torchrun --nproc_per_node 4 -m orion_tpu_torch.train --distributed --dp 2 --fsdp 2
     torchrun --nproc_per_node 4 -m orion_tpu_torch.train --distributed --tp 2 --dp 2
+    torchrun --nproc_per_node 4 -m orion_tpu_torch.train --distributed --pp 2 --dp 2
 
 ``--distributed`` joins the process group from torchrun's environment
 (``parallel.init_distributed``: NCCL when each rank has its own card, gloo
 when they share one, printed to stderr) with the mesh of ``--dp``,
-``--fsdp``, ``--tp`` and ``--sp`` (``--dp -1``, the default, takes the
-ranks the others leave). Each data rank (dp x fsdp) reads only its rows of
-each global batch, each sp rank its shard of the tokens; fsdp shards the
-params and the optimizer state; the tp ranks of a data rank read the same
-rows and each holds its share of the heads and the MLPs' hidden dimension.
-Rank 0 logs, prints and writes the checkpoints, the file a one-rank run
-writes.
+``--fsdp``, ``--tp``, ``--sp`` and ``--pp`` (``--dp -1``, the default,
+takes the ranks the others leave). Each data rank (dp x fsdp) reads only its
+rows of each global batch, each sp rank its shard of the tokens; fsdp
+shards the params and the optimizer state; the tp ranks of a data rank read
+the same rows and each holds its share of the heads and the MLPs' hidden
+dimension; the pp ranks of a data rank read the same rows and each holds
+one stage of the blocks, the batch running through them as a GPipe pipeline
+of ``pp_microbatches`` microbatches (``--set pp_microbatches=N``; 0, the
+default, picks it). Rank 0 logs, prints and writes the checkpoints, the
+file a one-rank run writes.
 
 Resilience, as the JAX package's CLI: ``--preempt-grace`` (default 10 s; 0
 turns it off) installs a SIGTERM / SIGINT ``PreemptionGuard`` for the run:
@@ -41,10 +45,10 @@ thread stacks to stderr, then the guard's stop, then an abort) and gives the
 train and eval loaders the same stall budget. ``--metrics-path`` writes the
 training registry (Prometheus text + ``.json``) on every exit path. With
 ``--ckpt-dir`` the flight recorder dumps into ``<ckpt-dir>/flight``.
-``--pp`` and ``--ep`` above 1 raise (item 12: A12 steps 5 and 8), and so
-does any axis above 1 without ``--distributed``. Under ``--tp`` dropout
-(A12 step 7), ``optimizer=adafactor`` and ``param_storage=bfloat16_sr``
-(step 9) raise.
+``--ep`` above 1 raises (item 12: A12 step 8), and so does any axis above
+1 without ``--distributed``. Under ``--tp`` dropout (A12 step 7), and under
+``--fsdp``, ``--tp`` or ``--pp`` ``optimizer=adafactor`` and
+``param_storage=bfloat16_sr`` (step 9) raise.
 """
 
 from __future__ import annotations
@@ -113,7 +117,7 @@ def train(
     stall = cfg.step_timeout if cfg.step_timeout > 0 else None
     rows = eval_rows = None
     if trainer.mesh is not None and trainer.mesh.n_data > 1:
-        rows = trainer.mesh.row_index(cfg.batch_size, cfg.accum_steps)
+        rows = trainer.row_index(cfg.batch_size)
         eval_rows = trainer.mesh.row_index(cfg.batch_size)
     loader = DataLoader(dataset, cfg.batch_size, seed=cfg.seed, start_step=trainer.step_count,
                         device=trainer.device, rows=rows, stall_timeout=stall)
@@ -207,10 +211,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    "disables")
     for axis in ("dp", "fsdp", "tp", "sp", "pp", "ep"):
         p.add_argument(f"--{axis}", type=int, default=-1 if axis == "dp" else 1,
-                       help="mesh axis size; dp, fsdp, tp and sp > 1 take --distributed, pp "
-                       "and ep > 1 raise")
+                       help="mesh axis size; dp, fsdp, tp, sp and pp > 1 take --distributed, "
+                       "ep > 1 raises")
     p.add_argument("--distributed", action="store_true",
-                   help="join the process group from torchrun's environment (dp, fsdp, tp, sp)")
+                   help="join the process group from torchrun's environment (dp, fsdp, tp, sp, "
+                   "pp)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="dotted TrainConfig override, e.g. --set model.n_layers=4")
     p.add_argument("--config-json", default=None, help="JSON override file")

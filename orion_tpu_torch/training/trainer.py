@@ -111,8 +111,45 @@ blocks, and retries that step once with every block recomputed
 (``remat_skip=0``: the same math, less memory); on a mesh it re-raises, as a
 rank that retried alone would desynchronise the collectives.
 
+Pipeline parallelism (``cfg.mesh.pp > 1``, in any combination with dp,
+fsdp, tp and sp): the JAX package's GPipe over depth. Stage p's ranks hold
+its blocks (``parallel/pipeline_lm.py``'s ``stage_blocks``: pp must divide
+the groups of ``stage_group`` blocks) and every stage the embeddings, the
+final norm and the head; the params are drawn whole, as at pp=1, then cut.
+``remat_skip`` is 0 under pp (every block recomputed, as the JAX Trainer
+sets it). Each accumulation micro-batch runs through the schedule in
+``pp_n_micro`` GPipe microbatches (``cfg.pp_microbatches``, or 0 for the
+JAX Trainer's auto rule: the largest divisor of the base no larger than
+``min(base, 4 pp)``), the base being the micro-batch, over dp x fsdp under
+the full-manual form. ``pp_full_manual`` (``cfg.pp_full_manual``; None: on
+when the backend resolves to the card's kernels with tp = fsdp = 1, the JAX
+rule with "cuda" for "pallas") picks how a rank's rows form the
+microbatches: full-manual, each data rank splits its own rows and its MoE
+statistics are its own (the aux averaged over the data ranks);
+partial-manual, microbatch m is every data rank's share of the global
+microbatch m (``Mesh.row_index`` with ``accum_steps x n_micro``) and the
+MoE statistics are global over the data group. Dense models give the same
+loss either way. A rank's microbatch must be whole rows: n_micro must
+also divide this rank's rows of a micro-batch, and a run where the auto
+rule's n_micro does not (partial-manual with dp x fsdp > 1 at a small
+batch) is refused, where the JAX Trainer would split rows over the data
+devices. The gradients of a stage's blocks sum over the replica group
+(this stage's ranks at this tp index), those of the leaves every stage
+holds over ``trunk_group`` (every stage's), the loss too; the global norm
+sums each stage's blocks' squares over the pp group and counts the other
+leaves once. A checkpoint is the file a pp=1 run writes: each stage's
+leaves gathered over fsdp and tp, then sent to rank 0; a load keeps this
+stage's blocks. ``evaluate`` runs the pipelined forward.
+``optimizer="adafactor"`` and ``param_storage="bfloat16_sr"`` under pp
+raise ``NotImplementedError`` naming A12 step 9: the JAX Trainer's stacked
+leaves change what they compute (the block-RMS clip over a whole stacked
+leaf, the bf16 cast of a stacked norm scale, the rounding counter keyed by
+the stacked tree), so its pp run of either differs from its pp=1 run.
+Dropout runs under pp alone (the pipeline's own masks, folded per
+microbatch, stage and block as the JAX package folds its keys).
+
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
-item): the pp and ep mesh axes (A12).
+item): the ep mesh axis (A12 step 8).
 """
 
 from __future__ import annotations
@@ -128,6 +165,7 @@ import torch
 
 from orion_tpu_torch.convert import expected_params
 from orion_tpu_torch.models.configs import ModelConfig
+from orion_tpu_torch.models.moe import MoEMLP
 from orion_tpu_torch.models.transformer import TransformerLM
 from orion_tpu_torch.obs import flight as _flight
 from orion_tpu_torch.ops.fused_ce import fused_ce_ok, model_token_losses
@@ -135,6 +173,7 @@ from orion_tpu_torch.ops.kernels import adafactor as af
 from orion_tpu_torch.parallel.collectives import all_reduce_sum_, any_rank
 from orion_tpu_torch.resilience import inject as _inject
 from orion_tpu_torch.parallel.mesh import MeshConfig
+from orion_tpu_torch.parallel.pipeline_lm import pp_lm_eval_sums, pp_lm_loss, stage_blocks
 from orion_tpu_torch.parallel.sharding import AxisParams, FsdpParams, gather_whole, tp_whole_grads
 from orion_tpu_torch.utils import rng as rngs
 from orion_tpu_torch.utils.device import resolve_device
@@ -488,26 +527,32 @@ def param_grads(params: Dict[str, Tensor]) -> Dict[str, Tensor]:
 
 
 def global_norm(grads: Dict[str, Tensor], fsdp: Optional[FsdpParams] = None,
-                tp: Optional[AxisParams] = None) -> Tensor:
+                tp: Optional[AxisParams] = None, pp_group=None) -> Tensor:
     """The gradients' global L2 norm, in fp32 (a bf16 leaf's too). Under
     ``fsdp`` or ``tp`` the grads of their leaves are this rank's shards: the
     squares of the fsdp shards are summed over the fsdp group, those of the
     tp shards over the tp group (both for a leaf cut by both), and the
-    replicated leaves' counted once."""
+    replicated leaves' counted once. With ``pp_group`` (a pipeline stage's)
+    the squares of the stage's blocks (``blocks.*``) are summed over the
+    stages; every stage holds the other leaves and counts them once."""
     norms = [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads.values()]
-    if fsdp is None and tp is None:
+    if fsdp is None and tp is None and pp_group is None:
         return torch.linalg.vector_norm(torch.stack(norms))
     sq = torch.stack([n * n for n in norms])
     dev = sq.device
     by_f = torch.tensor([fsdp is not None and name in fsdp.dims for name in grads], device=dev)
     by_t = torch.tensor([tp is not None and name in tp.dims for name in grads], device=dev)
-    # [fsdp and tp, fsdp only, tp only, neither]
-    parts = torch.stack([sq[by_f & by_t].sum(), sq[by_f & ~by_t].sum(), sq[~by_f & by_t].sum(),
-                         sq[~by_f & ~by_t].sum()])
+    # [fsdp and tp, fsdp only, tp only, neither], for the stage's blocks
+    # (``blocks.*``), then for the leaves every stage holds
+    cuts = (by_f & by_t, by_f & ~by_t, ~by_f & by_t, ~by_f & ~by_t)
+    by_s = torch.tensor([name.startswith("blocks.") for name in grads], device=dev)
+    parts = torch.stack([sq[c & s].sum() for s in (by_s, ~by_s) for c in cuts])
     if fsdp is not None:
-        all_reduce_sum_([parts[:2]], fsdp.group)
+        all_reduce_sum_([parts[0:2], parts[4:6]], fsdp.group)
     if tp is not None:
-        all_reduce_sum_([parts[0:1], parts[2:3]], tp.group)
+        all_reduce_sum_([parts[0:1], parts[2:3], parts[4:5], parts[6:7]], tp.group)
+    if pp_group is not None:
+        all_reduce_sum_([parts[:4]], pp_group)
     return torch.sqrt(parts.sum())
 
 
@@ -530,7 +575,7 @@ class Trainer:
             )
         cfg.mesh.check()
         if mesh is None:
-            if max(cfg.mesh.dp, cfg.mesh.fsdp, cfg.mesh.tp, cfg.mesh.sp) > 1:
+            if max(cfg.mesh.dp, cfg.mesh.fsdp, cfg.mesh.tp, cfg.mesh.sp, cfg.mesh.pp) > 1:
                 raise ValueError(f"mesh {cfg.mesh.shape} needs its process group: pass the Mesh "
                                  "of parallel.init_distributed (the CLI's --distributed)")
             want = MeshConfig(dp=1)
@@ -565,6 +610,12 @@ class Trainer:
                               f"{cfg.param_storage!r} under fsdp or tp (factored statistics and "
                               "the rounding counter take the whole leaf)",
                               "item 12 (parallelism), A12 step 9")
+        if want.pp > 1 and (cfg.optimizer == "adafactor" or cfg.param_storage == "bfloat16_sr"):
+            raise _not_ported(f"optimizer={cfg.optimizer!r} / param_storage="
+                              f"{cfg.param_storage!r} under pp (the JAX Trainer's stacked leaves "
+                              "change what it computes: the block-RMS clip over a stacked leaf, "
+                              "the bf16 cast of a stacked norm scale, the rounding counter keyed "
+                              "by the stacked tree)", "item 12 (parallelism), A12 step 9")
         if cfg.param_storage not in ("float32", "bfloat16_sr"):
             raise ValueError(f"param_storage={cfg.param_storage!r}; expected 'float32' "
                              "or 'bfloat16_sr'")
@@ -577,11 +628,22 @@ class Trainer:
         cfg.micro_batch  # noqa: B018 -- raises unless accum_steps divides batch_size
         self.cfg = cfg
         self.device = resolve_device(device)
+        model_cfg = cfg.model
+        self.pp_n_micro, self.pp_full_manual = 1, False
+        if want.pp > 1:
+            model_cfg = self._pp_plan(cfg, want)
         root = rngs.root_key(cfg.seed)
         self.model = TransformerLM(
-            cfg.model, device=self.device,
+            model_cfg, device=self.device,
             generator=rngs.generator(rngs.stream(root, "init"), self.device), mesh=self.mesh,
         )
+        if self.pp_full_manual and n_data > 1:
+            # full-manual: a data rank's microbatches are its own rows, so a
+            # MoE layer's statistics are its own too (the loss averages the
+            # aux over the data ranks)
+            for m in self.model.modules():
+                if isinstance(m, MoEMLP):
+                    m.data_group = None
         storage_cast(self.model, cfg.param_storage)
         self.fsdp = self.model.fsdp
         self.tp = self.model.tp_params
@@ -597,7 +659,49 @@ class Trainer:
         self.nonfinite_steps = 0  # what train() has seen of it (nan_policy)
         self.preempted_at: Optional[int] = None  # the boundary a preemption stopped at
 
+    def _pp_plan(self, cfg: TrainConfig, want: MeshConfig) -> ModelConfig:
+        """Set ``pp_full_manual`` and ``pp_n_micro`` (the module docstring's
+        rules); raise where pp does not divide the stage groups or n_micro
+        does not divide a rank's rows of a micro-batch (sp dividing seq_len is
+        checked with sp) -> the model's config, ``remat_skip`` 0."""
+        from orion_tpu_torch.ops.dispatch import resolve
+
+        stage_blocks(cfg.model, want.pp, 0)  # raises unless pp divides the groups
+        fm = cfg.pp_full_manual
+        if fm is None:
+            fm = (resolve(cfg.model.backend, self.device) == "cuda" and want.tp == 1
+                  and want.ep == 1 and want.fsdp == 1)
+        local = cfg.micro_batch // (want.dp * want.fsdp)  # a rank's rows of a micro-batch
+        base = local if fm else cfg.micro_batch
+        if cfg.pp_microbatches:
+            n = cfg.pp_microbatches
+        else:  # the JAX Trainer's: the largest divisor of the base up to 4 pp
+            cap = max(1, min(base, 4 * want.pp))
+            n = max(d for d in range(1, cap + 1) if base % d == 0)
+        if base % n:
+            raise ValueError(f"pp_microbatches={n} must divide the "
+                             f"{'per-rank ' if fm else ''}per-accumulation batch {base}")
+        if local % n:
+            # partial-manual: a rank takes whole rows of every microbatch
+            raise ValueError(f"pp_microbatches={n} must divide this rank's {local} rows of a "
+                             f"micro-batch (micro-batch {cfg.micro_batch} over dp * fsdp = "
+                             f"{want.dp * want.fsdp}), as each rank takes whole rows of each "
+                             f"microbatch: set pp_microbatches to a divisor of {local} or "
+                             "raise the batch")
+        self.pp_n_micro, self.pp_full_manual = n, bool(fm)
+        # every block recomputed, as the JAX Trainer zeroes remat_skip under pp
+        return dataclasses.replace(cfg.model, remat_skip=0)
+
     # -- the step -----------------------------------------------------------
+
+    def row_index(self, n_rows: int) -> np.ndarray:
+        """This rank's rows of a global batch of ``n_rows``, as the step
+        takes them (``Mesh.row_index``; under partial-manual pp its share of
+        each of the accum_steps x n_micro microbatches)."""
+        accum = self.cfg.accum_steps
+        if self.model.pp is not None and not self.pp_full_manual:
+            accum *= self.pp_n_micro
+        return self.mesh.row_index(n_rows, accum)
 
     def local_rows(self, batch: Tensor) -> Tensor:
         """This rank's rows of ``batch``: the global batch [B, T+1] (its
@@ -609,7 +713,7 @@ class Trainer:
         if batch.shape[0] != rows:
             raise ValueError(f"a batch of {batch.shape[0]} rows: want the global batch_size "
                              f"{rows} or this rank's {rows // n_data}")
-        return self.mesh.rows(batch, self.cfg.accum_steps)
+        return batch[torch.from_numpy(self.row_index(rows)).to(batch.device)]
 
     def _loss_and_grads(self, batch: Tensor, step_seed: int) -> Tensor:
         cfg = self.cfg
@@ -617,6 +721,8 @@ class Trainer:
         batch = self.local_rows(batch)
         for p in self.params.values():
             p.grad = None
+        if self.model.pp is not None:
+            return self._pp_loss_and_grads(batch, step_seed if use_dropout else None)
         if cfg.accum_steps == 1:
             loss = lm_loss(self.model, batch, step_seed if use_dropout else None)
             loss.backward()
@@ -632,6 +738,24 @@ class Trainer:
                 p.grad.div_(cfg.accum_steps)
         return self._reduce(total / cfg.accum_steps)
 
+    def _pp_loss_and_grads(self, batch: Tensor, seed: Optional[int]) -> Tensor:
+        """The pipeline's step: each accumulation micro-batch of this rank's
+        rows through ``pp_lm_loss`` (its backward accumulating), the
+        gradients averaged over them; a leaf every stage holds that this
+        stage does not read gets zeros, so the sums over the stages line up."""
+        accum = self.cfg.accum_steps
+        total = torch.zeros((), device=self.device)
+        for i, mb in enumerate(batch.view(accum, batch.shape[0] // accum, -1)):
+            s = None if seed is None else (seed if accum == 1 else rngs.fold(seed, i))
+            total += pp_lm_loss(self.model, mb, self.pp_n_micro, s)
+        for n, p in self.params.items():
+            if p.grad is not None:
+                if accum > 1:
+                    p.grad.div_(accum)
+            elif not n.startswith("blocks."):
+                p.grad = torch.zeros_like(p)
+        return self._reduce(total / accum)
+
     def _reduce(self, loss: Tensor) -> Tensor:
         """On a mesh: the loss and every parameter gradient summed over the
         ranks, so each holds the global ones (a no-op otherwise). The loss
@@ -646,21 +770,40 @@ class Trainer:
             return loss
         loss = loss.reshape(1).clone()
         dims = self.fsdp.dims if self.fsdp is not None else {}
-        grads = [p.grad for n, p in self.params.items() if p.grad is not None and n not in dims]
-        if self.mesh.replica_group is not None:
-            all_reduce_sum_([loss] + grads, self.mesh.replica_group)
-        shards = [p.grad for n, p in self.params.items() if p.grad is not None and n in dims]
-        if shards and self.mesh.shard_group is not None:
-            all_reduce_sum_(shards, self.mesh.shard_group)
+        if self.model.pp is not None:
+            self._reduce_stages(loss, dims)
+        else:
+            grads = [p.grad for n, p in self.params.items()
+                     if p.grad is not None and n not in dims]
+            if self.mesh.replica_group is not None:
+                all_reduce_sum_([loss] + grads, self.mesh.replica_group)
+            shards = [p.grad for n, p in self.params.items() if p.grad is not None and n in dims]
+            if shards and self.mesh.shard_group is not None:
+                all_reduce_sum_(shards, self.mesh.shard_group)
         heads = [p.grad for n, p in self.params.items() if p.grad is not None and n in self.tp_whole]
         if heads:
             all_reduce_sum_(heads, self.mesh.tp_group)
         return loss[0]
 
+    def _reduce_stages(self, loss: Tensor, dims: Dict[str, int]) -> None:
+        """``_reduce``'s sums under pp: a stage's blocks over its ranks (the
+        replica group, or the shard group for an fsdp shard), the loss and
+        the leaves every stage holds over every stage's (the trunk groups)."""
+        mesh = self.mesh
+        for stage, cut, group, extra in ((True, False, mesh.replica_group, []),
+                                         (False, False, mesh.trunk_group, [loss]),
+                                         (True, True, mesh.shard_group, []),
+                                         (False, True, mesh.trunk_shard_group, [])):
+            ts = extra + [p.grad for n, p in self.params.items() if p.grad is not None
+                          and n.startswith("blocks.") == stage and (n in dims) == cut]
+            if ts and group is not None:
+                all_reduce_sum_(ts, group)
+
     @property
     def _sharded(self) -> bool:
-        """Whether this rank holds any param in part (fsdp or tp)."""
-        return bool(self.model.shard_axes)
+        """Whether this rank holds any param in part (fsdp or tp) or holds
+        some of the blocks only (pp)."""
+        return bool(self.model.shard_axes) or self.model.pp is not None
 
     @property
     def is_main(self) -> bool:
@@ -720,7 +863,8 @@ class Trainer:
                 next(iter(self.params.values())).fill_(float("nan"))
         loss = self._loss_and_grads_or_remat(batch.to(self.device), step_seed)
         grads = param_grads(self.params)
-        gnorm = global_norm(grads, self.fsdp, self.tp)
+        gnorm = global_norm(grads, self.fsdp, self.tp,
+                            self.mesh.pp_group if self.model.pp is not None else None)
         finite_t = torch.isfinite(loss) & torch.isfinite(gnorm)
         clip = (torch.clamp(cfg.clip_norm / gnorm, max=1.0)
                 if cfg.clip_norm and cfg.clip_norm > 0 else 1.0)
@@ -841,12 +985,15 @@ class Trainer:
             batch = next(data_iter).to(self.device)
             if self.mesh is not None and batch.shape[0] == self.cfg.batch_size:
                 batch = self.mesh.rows(batch)
-            s, c = lm_eval_sums(self.model, batch)
-            if self.mesh is not None and self.mesh.replica_group is not None:
+            if self.model.pp is not None:  # the last stage's sums, zeros on the others
+                s, c = pp_lm_eval_sums(self.model, batch, self.pp_n_micro)
+            else:
+                s, c = lm_eval_sums(self.model, batch)
+            if self.mesh is not None and self.mesh.trunk_group is not None:
                 # this rank's rows and tokens: sum over the replica group (the
-                # tp ranks share theirs)
+                # tp ranks share theirs), every stage's under pp
                 sums = torch.stack([s, c])
-                all_reduce_sum_([sums], self.mesh.replica_group)
+                all_reduce_sum_([sums], self.mesh.trunk_group)
                 s, c = sums
             total += float(s)
             count += float(c)
@@ -862,22 +1009,28 @@ class Trainer:
 
     def state_dict(self) -> Optional[Dict[str, object]]:
         """The whole training state as a nested dict of tensors: the file a
-        dp=1 run writes. Under fsdp or tp a collective: the ranks at d = s =
-        0 gather every sharded leaf (params and moments) into rank 0's host
-        memory, one leaf at a time (over each fsdp group, then over rank 0's
-        tp group); rank 0 gets the state, every other rank None."""
+        dp=1 run writes. Under fsdp, tp or pp a collective: the ranks at d =
+        s = 0 gather every sharded leaf (params and moments) into their
+        stage's first rank's host memory, one leaf at a time (over each fsdp
+        group, then over that rank's tp group), and under pp each stage's
+        first rank sends its blocks' leaves to rank 0; rank 0 gets the
+        state, every other rank None."""
         params = {n: p.detach() for n, p in self.params.items()}
         opt = self.opt.state_dict()
         if self._sharded:
-            d, f, _, s = self.mesh.coords
+            d, f, t, s = self.mesh.coords
             if d or s:  # holds no shard rank 0 lacks
                 return None
-            keep = self.mesh.is_main
+            keep = f == 0 and t == 0  # the stage's first rank (rank 0 without pp)
             axes = self._gather_axes(join_tp=f == 0)
             params = gather_whole(params, axes, keep)
             opt = {k: gather_whole(v, axes, keep) if k in ("mu", "nu") else v
                    for k, v in opt.items()}
-            if not keep:
+            if keep and self.model.pp is not None:
+                params = self._merge_stages(params, to_main=True)
+                opt = {k: self._merge_stages(v, to_main=True) if k in ("mu", "nu") else v
+                       for k, v in opt.items()}
+            if not self.mesh.is_main:
                 return None
         return {
             "step": torch.tensor(self.step_count, dtype=torch.int64),
@@ -910,12 +1063,49 @@ class Trainer:
                                    else params, strict=True)
 
     def whole_params(self) -> Dict[str, Tensor]:
-        """Every param whole, on the host (under fsdp or tp a collective over
-        each fsdp and tp group: every rank calls)."""
+        """Every param whole, on the host (under fsdp, tp or pp a collective
+        over each fsdp, tp and pp group: every rank calls)."""
         params = {n: p.detach() for n, p in self.params.items()}
         if self._sharded:
-            return gather_whole(params, self._gather_axes(), keep=True)
+            params = gather_whole(params, self._gather_axes(), keep=True)
+            if self.model.pp is not None:
+                params = self._merge_stages(params, to_main=False)
+            return params
         return {n: p.to("cpu", copy=True) for n, p in params.items()}
+
+    def _merge_stages(self, local: Dict[str, Tensor], to_main: bool) -> Optional[Dict[str, Tensor]]:
+        """Whole leaves on the host: this stage's (``local``: the leaves every
+        stage holds and this stage's blocks) -> every stage's blocks besides,
+        over the pp group of this (d, f, t, s) -> on its stage 0 only
+        (``to_main``: the others None; each stage sends its blocks there) or on
+        every stage (broadcast). Each leaf in the port's key order, its whole
+        shape from the config, the dtype of ``local``'s leaves."""
+        import torch.distributed as dist
+
+        mesh, cfg = self.mesh, self.model.cfg
+        me, group = mesh.pp_rank, mesh.pp_group
+        dtype = next(iter(local.values())).dtype
+        wire_dev = mesh.device if mesh.transport == "nccl" else torch.device("cpu")
+        out = dict(local) if (me == 0 or not to_main) else None
+        for p in range(mesh.pp):
+            held = stage_blocks(cfg, mesh.pp, p)
+            for key, shape, _ in expected_params(cfg).values():
+                if not key.startswith("blocks.") or int(key.split(".", 2)[1]) not in held:
+                    continue
+                if to_main and p == 0:
+                    continue
+                mine = p == me
+                t = (local[key] if mine else torch.empty(shape, dtype=dtype)).to(wire_dev)
+                if to_main:
+                    if mine:
+                        dist.send(t.contiguous(), mesh.stage_rank(0), group)
+                    elif me == 0:
+                        dist.recv(t, mesh.stage_rank(p), group)
+                else:
+                    dist.broadcast(t, mesh.stage_rank(p), group)
+                if out is not None:
+                    out[key] = t.to("cpu")
+        return out
 
     def restore(self, ckpt, step: Optional[int] = None) -> int:
         # under fsdp or tp the whole state stays on the host until it is cut

@@ -1761,6 +1761,66 @@ def test_tp_collectives_stage_cuda_tensors_over_gloo(dev):
             np.testing.assert_array_equal(red_grad, cq[t].numpy())
 
 
+def test_pp_hop_and_schedule_stage_cuda_tensors_over_gloo(dev):
+    """The pipeline's hop (``collectives.send_to`` / ``recv_from``) between
+    two stages sharing the card (gloo: staged through host memory, handed
+    back on the card), each stage sending and receiving at once: bitwise
+    in fp32 and bf16; and ``gpipe`` at pp 2, n_micro 4 on CUDA tensors
+    against the sequential stack on the CPU: the output (1e-5), the loss
+    sum(out^2) (1e-5) and every layer's and the input's gradient (1e-4),
+    ``tests/test_torch_pp.py``'s limits."""
+    import torch_pp_workers as pp_workers
+    import torch_sp_workers as workers
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    rng = np.random.default_rng(9)
+    xs = rng.standard_normal((2, 3, 8)).astype(np.float32)
+
+    def layers(n, d, h):
+        return [{"w1": (rng.standard_normal((d, h)) * 0.3).astype(np.float32),
+                 "b1": np.zeros((h,), np.float32),
+                 "w2": (rng.standard_normal((h, d)) * 0.3).astype(np.float32)} for _ in range(n)]
+
+    sets = {"forward": {"layers": layers(8, 16, 32),
+                        "x": rng.standard_normal((8, 4, 16)).astype(np.float32)},
+            "grad": {"layers": layers(4, 8, 16),
+                     "x": rng.standard_normal((8, 4, 8)).astype(np.float32)}}
+    mesh = MeshConfig(dp=1, pp=2)
+    ranks = workers.run_ranks(2, pp_workers.hop_and_schedule,
+                              {"mesh": mesh, "device": "cuda", "x": xs,
+                               "dtypes": ["float32", "bfloat16"],
+                               "cases": [{"mesh": mesh, "n_micro": 4}], **sets}, timeout=120)
+
+    def sequential(ls, x):
+        for lp in ls:
+            x = x + torch.tanh(x @ lp["w1"] + lp["b1"]) @ lp["w2"]
+        return x
+
+    ref = sequential([{k: torch.from_numpy(v) for k, v in lp.items()}
+                      for lp in sets["forward"]["layers"]], torch.from_numpy(sets["forward"]["x"]))
+    gl = [{k: torch.from_numpy(v).requires_grad_() for k, v in lp.items()}
+          for lp in sets["grad"]["layers"]]
+    gx = torch.from_numpy(sets["grad"]["x"]).requires_grad_()
+    loss = (sequential(gl, gx) ** 2).sum()
+    loss.backward()
+    for p, res in enumerate(ranks):
+        for name in ("float32", "bfloat16"):
+            where, got = res["hop"][name]
+            assert where == "cuda"
+            want = torch.from_numpy(xs[1 - p]).to(getattr(torch, name)).float().numpy()
+            np.testing.assert_array_equal(got, want)
+        sched = res["schedule"][0]
+        if p == 1:
+            assert sched["devices"] == ["cuda"]
+            np.testing.assert_allclose(sched["out"], ref.numpy(), atol=1e-5, rtol=1e-5)
+            np.testing.assert_allclose(sched["loss"], float(loss.detach()), rtol=1e-5)
+        else:
+            np.testing.assert_allclose(sched["x_grad"], gx.grad.numpy(), atol=1e-4, rtol=1e-4)
+        for i, g in sched["grads"].items():
+            for k, v in g.items():
+                np.testing.assert_allclose(v, gl[i][k].grad.numpy(), atol=1e-4, rtol=1e-4)
+
+
 def test_train_resilience_preempt_and_resume_bitwise_on_the_card(dev, tmp_path):
     """``train()`` of a tiny fp32 model on the card (rows 1, 3, 4 in their
     simt variant) with a real SIGTERM at step 2's boundary: an emergency

@@ -18,7 +18,8 @@ rows, and what this slice refuses.
   forward and backward, against sums of numpy arrays (fp32, 1e-6).
 - The loader: a rank's rows of each dataset bitwise the JAX package's
   global batch's rows, and a token-bin dataset reads only their windows.
-- The refusals: tp, pp and ep, dropout and quant on a data mesh,
+- The refusals: ep (tp and pp are ported and need their process group),
+  dropout and quant on a data mesh,
   ``adafactor`` and ``bfloat16_sr`` under fsdp (``NotImplementedError``
   naming item 12), ``adafactor_fused`` on two ranks beside the JAX Trainer
   raising for the same mesh, an axis above 1 without a process group.
@@ -258,18 +259,19 @@ def test_a_token_bin_rank_reads_only_its_windows(tmp_path, monkeypatch):
 
 
 def test_tp_pp_and_ep_above_1_raise_naming_item_12():
-    # pp and ep are not ported; tp is (tests/test_torch_tp*.py) and raises
-    # only without its process group
-    for axis in ("pp", "ep"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            MeshConfig(dp=1, **{axis: 2}).check()
+    # ep is not ported; tp and pp are (tests/test_torch_tp*.py,
+    # tests/test_torch_pp*.py) and raise only without their process group
+    with pytest.raises(NotImplementedError, match="item 12"):
+        MeshConfig(dp=1, ep=2).check()
     from orion_tpu_torch.training.trainer import TrainConfig, Trainer
 
-    with pytest.raises(ValueError, match="init_distributed"):
-        Trainer(TrainConfig(model=ModelConfig(**TINY), mesh=MeshConfig(dp=1, tp=2),
-                            batch_size=4, seq_len=16), device="cpu")
+    for axis in ("tp", "pp"):
+        with pytest.raises(ValueError, match="init_distributed"):
+            Trainer(TrainConfig(model=ModelConfig(**TINY), mesh=MeshConfig(dp=1, **{axis: 2}),
+                                batch_size=4, seq_len=16), device="cpu")
     for cfg in (MeshConfig(dp=2), MeshConfig(dp=1, fsdp=2, sp=2), MeshConfig(dp=2, fsdp=2, sp=2),
-                MeshConfig(dp=1, tp=2), MeshConfig(dp=2, fsdp=2, tp=2, sp=2)):
+                MeshConfig(dp=1, tp=2), MeshConfig(dp=2, fsdp=2, tp=2, sp=2),
+                MeshConfig(dp=1, pp=2), MeshConfig(dp=2, fsdp=2, tp=2, sp=2, pp=2)):
         cfg.check()
 
 

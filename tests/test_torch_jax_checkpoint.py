@@ -10,8 +10,10 @@ with the ``favor`` feature map and an untied head. An ``lra_listops_linear``
 classifier narrowed to d 32 (``train_lra`` for 2 steps in the JAX package,
 its params saved as a training state) goes through the same script, and
 through ``load_jax_params`` directly, into ``LRAClassifier``: its logits
-agree with the JAX package's within 1e-4 (fp32). A pipeline-layout tree is
-refused, not converted.
+agree with the JAX package's within 1e-4 (fp32). A JAX pp=2 Trainer's
+``tiny`` checkpoint (the pipeline layout) goes through the same script and
+serves logits within 1e-4 of the JAX model's on the unstacked params; the
+older pipeline layout without ``sub_0`` exports to the same params.
 """
 
 import dataclasses
@@ -141,9 +143,48 @@ def test_an_lra_classifier_crosses_through_the_script_and_load_jax_params(tmp_pa
             np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
-def test_a_pipeline_layout_tree_is_refused(monkeypatch, tmp_path):
-    stacked = {"params": {"blocks_stacked": {"w": np.zeros((2, 4), np.float32)}}}
-    monkeypatch.setattr(jax_generate, "load_params", lambda ckpt_dir, step=None: (stacked, 5))
-    with pytest.raises(ValueError, match="item 12"):
-        _export_module().export("unused", str(tmp_path / "out"))
-    assert not (tmp_path / "out").exists()
+def test_a_pipeline_layout_checkpoint_is_exported_and_served(monkeypatch, tmp_path,
+                                                              tmp_path_factory):
+    """A JAX pp=2 Trainer's ``tiny`` checkpoint (its state in the pipeline
+    layout, ``blocks_stacked``) goes through the script: the port's logits
+    of the exported file within 1e-4 of the JAX model's on the unstacked
+    params; the older layout without ``sub_0`` exports to the same params."""
+    from orion_tpu.parallel.mesh import MeshConfig
+    from orion_tpu.parallel.pipeline_lm import unstack_lm_params
+    from orion_tpu.training.checkpoint import Checkpointer
+    from orion_tpu.training.data import SyntheticDataset
+    from orion_tpu.training.trainer import TrainConfig, Trainer
+
+    ck = str(tmp_path_factory.mktemp("jax_pp_ck"))
+    cfg = TrainConfig(model=jax_config("tiny"), steps=2, batch_size=4, seq_len=32, lr=1e-3,
+                      warmup_steps=1, log_every=100, mesh=MeshConfig(dp=1, pp=2))
+    trainer = Trainer(cfg)
+    ds = SyntheticDataset(cfg.model.vocab_size, cfg.seq_len)
+    ckpt = Checkpointer(ck, save_every=2, async_save=False)
+    for step in (1, 2):
+        trainer.step(jnp.asarray(ds.batch(0, step, 4)))
+        ckpt.maybe_save(step, trainer.state)
+    ckpt.close()
+    jparams, jstep = jax_generate.load_params(ck)
+    assert jstep == 2 and "blocks_stacked" in jparams["params"]
+    out = str(tmp_path / "port_ck")
+    assert _export_module().main(["--config", "tiny", "--ckpt-dir", ck, "--out", out]) == 0
+    params, step = load_params(out)
+    assert step == 2 and "blocks.1.attn.wq.weight" in params
+    jmodel = JaxLM(jax_config("tiny"))
+    tokens = np.array(jax.random.randint(jax.random.PRNGKey(7), (2, 24), 0, 256))
+    ref = np.asarray(jmodel.apply(unstack_lm_params(jmodel, jparams), jnp.asarray(tokens)))
+    model, _ = load_model(TINY, out, "cpu")
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens).long()).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    # the older layout: each stacked element one block, no "sub_0"
+    legacy = {"params": dict(jparams["params"],
+                             blocks_stacked=jparams["params"]["blocks_stacked"]["sub_0"])}
+    monkeypatch.setattr(jax_generate, "load_params", lambda ckpt_dir, step=None: (legacy, 5))
+    out2 = str(tmp_path / "legacy_ck")
+    assert _export_module().export("unused", out2) == 5
+    params2, _ = load_params(out2)
+    assert params2.keys() == params.keys()
+    for n, t in params.items():
+        torch.testing.assert_close(params2[n], t, rtol=0, atol=0)

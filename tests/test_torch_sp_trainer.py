@@ -85,11 +85,14 @@ def test_sp_needs_its_process_group_and_sequence_parallel():
     cfg = TrainConfig(model=ModelConfig(**MODEL), mesh=MeshConfig(dp=1, sp=4), **KW)
     with pytest.raises(ValueError, match="init_distributed"):
         Trainer(cfg, device="cpu")
-    # tp is ported (tests/test_torch_tp*.py) and needs its group too; pp is not
+    # tp and pp are ported (tests/test_torch_tp*.py, tests/test_torch_pp*.py)
+    # and need their group too; ep is not
     with pytest.raises(ValueError, match="init_distributed"):
         Trainer(dataclasses.replace(cfg, mesh=MeshConfig(dp=1, sp=2, tp=2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="init_distributed"):
         Trainer(dataclasses.replace(cfg, mesh=MeshConfig(dp=1, sp=2, pp=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Trainer(dataclasses.replace(cfg, mesh=MeshConfig(dp=1, sp=2, ep=2)), device="cpu")
 
 
 def test_train_cli_under_torchrun_matches_one_rank(tmp_path):

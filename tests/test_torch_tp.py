@@ -21,7 +21,7 @@ the cut and gather of a model's params, and what a tp mesh refuses.
   one (d, f, s).
 - The refusals, each naming its A12 step: tp not dividing ``n_heads``,
   dropout (step 7), quant (step 8), ``adafactor`` / ``bfloat16_sr`` (step
-  9), LRA on a tp mesh (step 7), pp and ep, generate's ``--sp`` (step 6),
+  9, also under pp), LRA on a tp mesh (step 7), ep, generate's ``--sp`` (step 6),
   ``--dp`` / ``--fsdp`` (step 6b) and ``--tp`` without ``--distributed``.
 """
 
@@ -234,13 +234,23 @@ def test_adafactor_and_bf16_sr_under_tp_raise_naming_step_9(kw):
     cfg = TrainConfig(model=ModelConfig(**TINY), mesh=MeshConfig(dp=1, tp=2), batch_size=4,
                       seq_len=16, **kw)
     with pytest.raises(NotImplementedError, match="item 12.*A12 step 9"):
-        Trainer(cfg, mesh=_mesh(cfg.mesh))
+        Trainer(cfg, mesh=Mesh(cfg.mesh, 0, 4, torch.device("cpu"), "gloo", None))
 
 
 @pytest.mark.parametrize("axis", ["pp", "ep"])
 def test_pp_and_ep_still_raise(axis):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MeshConfig(dp=1, **{axis: 2}).check()
+    """ep raises for any use; pp is ported (tests/test_torch_pp*.py) and what
+    it still refuses raises: ``adafactor`` under pp x dp (A12 step 9)."""
+    if axis == "ep":
+        with pytest.raises(NotImplementedError, match="item 12"):
+            MeshConfig(dp=1, **{axis: 2}).check()
+        return
+    from orion_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig(model=ModelConfig(**TINY), mesh=MeshConfig(dp=2, pp=2),
+                      batch_size=4, seq_len=16, optimizer="adafactor")
+    with pytest.raises(NotImplementedError, match="under pp .*item 12.*A12 step 9"):
+        Trainer(cfg, mesh=Mesh(cfg.mesh, 0, 4, torch.device("cpu"), "gloo", None))
 
 
 def test_lra_on_a_tp_mesh_raises_naming_step_7():

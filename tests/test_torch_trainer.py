@@ -190,12 +190,15 @@ def test_train_cli_on_the_cpu():
 
 
 def test_what_is_not_ported_raises():
-    # the pp and ep axes are not ported; tp (ported, tests/test_torch_tp*.py)
-    # and dp (tests/test_torch_dp*.py) need their process group
+    # the ep axis is not ported; tp (ported, tests/test_torch_tp*.py), pp
+    # (tests/test_torch_pp*.py) and dp (tests/test_torch_dp*.py) need their
+    # process group
     with pytest.raises(ValueError, match="init_distributed"):
         Trainer(_cfg(mesh=MeshConfig(dp=1, tp=2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="init_distributed"):
         Trainer(_cfg(mesh=MeshConfig(dp=1, pp=2)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Trainer(_cfg(mesh=MeshConfig(dp=1, ep=2)), device="cpu")
     with pytest.raises(ValueError, match="init_distributed"):
         Trainer(_cfg(mesh=MeshConfig(dp=2)), device="cpu")
     # bf16 storage with stochastic rounding is ported
