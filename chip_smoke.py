@@ -1,6 +1,6 @@
 """Quickest proof that the PyTorch/CUDA port runs on an NVIDIA card.
 
-    python3 chip_smoke.py [--part fleet|train|tp|pp]
+    python3 chip_smoke.py [--part fleet|train|tp|pp|genmesh]
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``
 (``$CUDA_HOME/bin`` or on ``PATH``). It imports nothing of JAX or of the JAX
@@ -110,11 +110,19 @@ nonzero and no result line is printed):
    the pp=1 file, loaded by a pp=1 Trainer bitwise the gathered params,
    and its eval by ``orion_tpu_torch.evaluate`` against the pp Trainer's
    own; launches exact a rank, a stage's blocks once a microbatch, every
-   one recomputed, ``launches_pp``); each part runs alone as
-   ``cs.sp_phase(...)`` / ``cs.dp_phase(dev)`` / ``cs.tp_phase(dev)`` /
-   ``cs.pp_phase(dev)`` after ``cs.build(mods)``, and ``python3
-   chip_smoke.py --part tp`` (or ``--part pp``) runs the build, the kernel
-   checks and that part alone;
+   one recomputed, ``launches_pp``), then the genmesh part
+   (``genmesh_phase``: ``generate`` on the meshes the JAX CLI takes, in the
+   same two spawns: G1-G4 of ``GENMESH_2`` / ``GENMESH_4``, lm_1b3 at full
+   depth at sp 2, dp 2 and fsdp 2, the dropless MoE at dp 2, the hybrid at
+   sp 2, sp 4 on a padded prompt, int8 and int4 at dp 2 x tp 2, each
+   teacher-forced against its one-rank twin within tp's limits with every
+   launch of rows 1, 6, 9 and 14 held against its plain version, the
+   tokens bitwise across ranks, launches exact, ``launches_genmesh``);
+   each part runs alone as ``cs.sp_phase(...)`` / ``cs.dp_phase(dev)`` /
+   ``cs.tp_phase(dev)`` / ``cs.pp_phase(dev)`` / ``cs.genmesh_phase(dev)``
+   after ``cs.build(mods)``, and ``python3 chip_smoke.py --part tp`` (or
+   ``--part pp``, ``--part genmesh``) runs the build, the kernel checks and
+   that part alone;
 4. the public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
    backward through ``CausalDotProductFn`` at [B 8, H 16, T 1024, D 128]
    bf16 with an initial state and the returned state, then at Dk 128, Dv
@@ -2171,7 +2179,7 @@ def generate_phase(dev, mods, name, prompt_len, new_tokens, overrides=None, audi
     ref_model = TransformerLM(dataclasses.replace(cfg, backend="torch"), device=dev)
     ref_model = cast_params_for_inference(ref_model)
     ref_model.load_state_dict(model.state_dict())
-    launch_audit = LaunchAudit(mods[0]) if audit else contextlib.nullcontext()
+    launch_audit = LaunchAudit(mods) if audit else contextlib.nullcontext()
     with torch.inference_mode(), PinnedRouting() as pin:
         with launch_audit:
             logits, states = pin.attach(model).prefill_last(prompts)
@@ -2732,7 +2740,7 @@ def grad_check(dev, name, seq_len, batch_size=8, overrides=None, ref_overrides=N
     pin = PinnedRouting()
     ref_cfg = (dataclasses.replace(cfg, **ref_overrides) if ref_overrides
                else dataclasses.replace(cfg, backend="torch"))
-    launch_audit = LaunchAudit(causal_dot) if audit else contextlib.nullcontext()
+    launch_audit = LaunchAudit((causal_dot,)) if audit else contextlib.nullcontext()
     for backend, run_cfg in (("cuda", cfg), ("torch", ref_cfg)):
         model = TransformerLM(run_cfg, device=dev,
                               generator=torch.Generator(device=dev).manual_seed(3))
@@ -2875,72 +2883,133 @@ def plain_spread(dev, name, seq_len, overrides):
 
 
 class LaunchAudit:
-    """Every launch of rows 1, 3 and 4 inside ``with LaunchAudit(cd):``
-    held against its plain version on the same inputs, at the kernel
-    limits of ``compare_causal_dot`` / ``compare_training_kernels``: row 1's
-    out within ``OUT_ATOL + OUT_RTOL |ref|`` and its final state (and num,
-    den) within ``STATE_RTOL`` of their largest magnitude; rows 3 and 4's
-    dq, dk, dv by ``_grad_reading`` and dS0, dz0 within ``STATE_RTOL``. The
-    wrappers call the kernel once (its count moves once) and the plain
-    version beside it, uncounted. ``worst`` keeps each quantity's largest
-    share of its limit (above 1 fails ``check``)."""
+    """Every launch of the rows it wraps (``rows``, of 1, 3, 4, 6, 9 and 14)
+    inside ``with LaunchAudit(mods, rows):`` held against its plain version
+    on the same inputs, at the kernel checks' limits: row 1's out within
+    ``OUT_ATOL + rtol |ref|`` (``OUT_RTOL`` for bf16, ``OUT_RTOL_FP32`` for
+    fp32) and its S, z (num, den in the parts form) within ``STATE_RTOL``;
+    rows 3 and 4's dq, dk, dv by ``_grad_reading`` and dS0, dz0 within
+    ``STATE_RTOL``; row 6's out by ``_grad_reading`` at ``FLASH_RTOL`` /
+    ``FLASH_ATOL_OF_MAX`` and its lse within ``LSE_RTOL``; row 9's y at
+    ``GMM_RTOL`` / ``GMM_ATOL_OF_MAX``; row 14's y at ``Q4_RTOL`` /
+    ``Q4_ATOL_OF_MAX``. ``mods``: (causal_dot, flash_attention, gmm,
+    q4_matmul, ...), as far as the rows need. Each wrapper calls the kernel
+    once (its count moves once) and the plain version beside it, uncounted.
+    ``worst`` keeps each quantity's largest share of its limit (above 1
+    fails), ``launches`` each row's count, ``shapes`` each row's distinct
+    launches (shapes, dtype, variant, options)."""
 
-    def __init__(self, cd):
-        self.cd, self.worst, self.launches = cd, {}, 0
-        self.real = (cd.causal_dot_norm_cuda, cd.causal_dot_dq_den_cuda,
-                     cd.causal_dot_rev_den_cuda)
+    def __init__(self, mods, rows=(1, 3, 4)):
+        mod = {1: 0, 3: 0, 4: 0, 6: 1, 9: 2, 14: 3}
+        attr = {1: "causal_dot_norm_cuda", 3: "causal_dot_dq_den_cuda",
+                4: "causal_dot_rev_den_cuda", 6: "flash_fwd_cuda", 9: "gmm_cuda",
+                14: "q4_matmul_cuda"}
+        wrap = {1: self.norm, 3: self.dq_den, 4: self.rev_den, 6: self.flash, 9: self.gmm,
+                14: self.q4}
+        self.mods = mods
+        self.slots = [(mods[mod[r]], attr[r], wrap[r]) for r in rows]
+        self.real = {attr[r]: getattr(mods[mod[r]], attr[r]) for r in rows}
+        self.worst, self.launches, self.shapes = {}, {}, {}
 
-    def _note(self, key, share):
-        self.worst[key] = max(self.worst.get(key, 0.0), float(share))
+    def _note(self, row, key, share, shape):
+        name = f"{row} {key}"
+        self.worst[name] = max(self.worst.get(name, 0.0), float(share))
+        self.shapes.setdefault(row, set()).add(shape)
 
-    def _state(self, key, got, ref):
-        if got is not None:
-            self._note(key, _rel(got, ref) / STATE_RTOL)
+    def _count(self, row):
+        self.launches[row] = self.launches.get(row, 0) + 1
 
     def norm(self, q, k, v, s0=None, z0=None, *, eps=1e-6, with_parts=False):
-        res = self.real[0](q, k, v, s0, z0, eps=eps, with_parts=with_parts)
-        ref = self.cd.causal_dot_norm_plain(q, k, v, s0, z0, eps=eps, with_parts=with_parts)
+        cd = self.mods[0]
+        res = self.real["causal_dot_norm_cuda"](q, k, v, s0, z0, eps=eps, with_parts=with_parts)
+        ref = cd.causal_dot_norm_plain(q, k, v, s0, z0, eps=eps, with_parts=with_parts)
+        rtol = OUT_RTOL if q.dtype == torch.bfloat16 else OUT_RTOL_FP32
+        shape = (f"q {list(q.shape)} {str(q.dtype)[6:]} {cd.causal_dot_norm_variant(q, k, v)}"
+                 + (" with parts" if with_parts else ""))
         out, r_out = res[0].float(), ref[0].float()
-        self._note("row1 out", ((out - r_out).abs() / (OUT_ATOL + OUT_RTOL * r_out.abs())).max())
-        for key, got, r in zip(("row1 S", "row1 z", "row1 num", "row1 den"), res[1:], ref[1:]):
-            self._state(key, got, r)
-        self.launches += 1
+        self._note("row 1", "out", ((out - r_out).abs() / (OUT_ATOL + rtol * r_out.abs())).max(),
+                   shape)
+        for key, got, r in zip(("S", "z", "num", "den"), res[1:], ref[1:]):
+            if got is not None:
+                self._note("row 1", key, _rel(got, r) / STATE_RTOL, shape)
+        self._count("row 1")
         return res
 
     def dq_den(self, g, v, k, gden, s0=None, z0=None):
-        dq = self.real[1](g, v, k, gden, s0, z0)
-        self._note("row3 dq", _grad_reading(dq, self.cd.causal_dot_dq_den_plain(
-            g, v, k, gden, s0, z0))["over_limit"])
-        self.launches += 1
+        cd = self.mods[0]
+        dq = self.real["causal_dot_dq_den_cuda"](g, v, k, gden, s0, z0)
+        self._note("row 3", "dq", _grad_reading(dq, cd.causal_dot_dq_den_plain(
+            g, v, k, gden, s0, z0))["over_limit"], f"g {list(g.shape)} {str(g.dtype)[6:]}")
+        self._count("row 3")
         return dq
 
     def rev_den(self, q, k, v, g, gden, gsf=None, gzf=None):
-        res = self.real[2](q, k, v, g, gden, gsf, gzf)
-        ref = self.cd.causal_dot_rev_den_plain(q, k, v, g, gden, gsf, gzf)
-        for key, got, r in zip(("row4 dk", "row4 dv"), res[:2], ref[:2]):
-            self._note(key, _grad_reading(got, r)["over_limit"])
-        for key, got, r in zip(("row4 dS0", "row4 dz0"), res[2:], ref[2:]):
-            self._state(key, got, r)
-        self.launches += 1
+        cd = self.mods[0]
+        res = self.real["causal_dot_rev_den_cuda"](q, k, v, g, gden, gsf, gzf)
+        ref = cd.causal_dot_rev_den_plain(q, k, v, g, gden, gsf, gzf)
+        shape = f"q {list(q.shape)} {str(q.dtype)[6:]}"
+        for key, got, r in zip(("dk", "dv"), res[:2], ref[:2]):
+            self._note("row 4", key, _grad_reading(got, r)["over_limit"], shape)
+        for key, got, r in zip(("dS0", "dz0"), res[2:], ref[2:]):
+            if got is not None:
+                self._note("row 4", key, _rel(got, r) / STATE_RTOL, shape)
+        self._count("row 4")
         return res
 
+    def flash(self, q, k, v, **opts):
+        fa = self.mods[1]
+        out, lse = self.real["flash_fwd_cuda"](q, k, v, **opts)
+        r_out, r_lse = fa.flash_fwd_plain(q, k, v, **opts)
+        shape = (f"q {list(q.shape)} k {list(k.shape)} {str(q.dtype)[6:]} "
+                 f"{fa.flash_fwd_variant(q, k, v)} window={opts.get('window')} "
+                 f"shift={opts.get('shift', 0)} q_offset={opts.get('q_offset', 0)}")
+        self._note("row 6", "out", _grad_reading(out, r_out, FLASH_RTOL[q.dtype],
+                                                 FLASH_ATOL_OF_MAX)["over_limit"], shape)
+        diff = (lse - r_lse).abs()
+        self._note("row 6", "lse", (diff / (LSE_RTOL * r_lse.abs().clamp_min(1.0))).max(), shape)
+        self._count("row 6")
+        return out, lse
+
+    def gmm(self, x, w, tile_expert, transpose_w=False):
+        gm = self.mods[2]
+        y = self.real["gmm_cuda"](x, w, tile_expert, transpose_w)
+        shape = (f"x {list(x.shape)} w {list(w.shape)} {str(x.dtype)[6:]} "
+                 f"{gm.gmm_variant(x, w, transpose_w)}")
+        self._note("row 9", "y", _grad_reading(y, gm.gmm_torch(x, w, tile_expert, transpose_w),
+                                               GMM_RTOL[x.dtype], GMM_ATOL_OF_MAX)["over_limit"],
+                   shape)
+        self._count("row 9")
+        return y
+
+    def q4(self, x, p, s):
+        q4 = self.mods[3]
+        y = self.real["q4_matmul_cuda"](x, p, s)
+        shape = f"x {list(x.shape)} p {list(p.shape)} {q4.q4_matmul_variant(x, p, s)}"
+        self._note("row 14", "y", _grad_reading(y, q4.q4_matmul_torch(x, p, s), Q4_RTOL[x.dtype],
+                                                Q4_ATOL_OF_MAX)["over_limit"], shape)
+        self._count("row 14")
+        return y
+
     def __enter__(self):
-        cd = self.cd
-        cd.causal_dot_norm_cuda, cd.causal_dot_dq_den_cuda, cd.causal_dot_rev_den_cuda = (
-            self.norm, self.dq_den, self.rev_den)
+        for mod, attr, fn in self.slots:
+            setattr(mod, attr, fn)
         return self
 
     def __exit__(self, *exc):
-        cd = self.cd
-        cd.causal_dot_norm_cuda, cd.causal_dot_dq_den_cuda, cd.causal_dot_rev_den_cuda = self.real
+        for mod, attr, _ in self.slots:
+            setattr(mod, attr, self.real[attr])
+
+    def reading(self):
+        return {"worst": dict(self.worst), "launches": dict(self.launches),
+                "shapes": {row: sorted(s) for row, s in self.shapes.items()}}
 
     def check(self, label):
-        log(f"{label}: {self.launches} launches of rows 1, 3, 4 each held against its plain "
-            f"version on the same inputs; largest share of the kernel limit by quantity "
+        log(f"{label}: {self.launches} launches each held against its plain version on the "
+            f"same inputs; largest share of the kernel limit by quantity "
             f"{ {k: float(f'{v:.3g}') for k, v in self.worst.items()} }")
         if not self.launches or any(v > 1.0 or not np.isfinite(v) for v in self.worst.values()):
-            raise AssertionError(f"{label}: a launch of rows 1, 3, 4 disagrees with its plain "
-                                 f"version: {self.worst}")
+            raise AssertionError(f"{label}: a launch disagrees with its plain version: "
+                                 f"{self.worst}")
         return dict(self.worst)
 
 
@@ -5513,19 +5582,32 @@ def dp_expected_launches(cfg, variant):
     return want
 
 
+_CLOCK: dict = {}
+
+
 def _collective_clock():
     """Host milliseconds in the collectives, by kind: the fsdp gathers, the
     reduce-scatters of the gather's backward, the trainer's all-reduces
-    (the gradient sums, the norm's partial sum, the loss), and the
-    pipeline's receives (a stage waiting for its neighbour's activation or
-    gradient, and the hop). Each call is timed from a synchronized card to
-    its return (gloo stages through host memory, so the call itself waits
-    for the card)."""
+    (the gradient sums, the norm's partial sum, the loss), the pipeline's
+    receives (a stage waiting for its neighbour's activation or gradient,
+    and the hop), and "dist": every call of ``torch.distributed``'s
+    gathers, broadcasts, sums and batched exchanges (what ``generate`` on a
+    mesh calls; it also holds the calls the other kinds time). Each call is
+    timed from a synchronized card to its return (gloo stages through host
+    memory, so the call itself waits for the card). Installed once a
+    process; later calls hand back the same dict, which its readers zero or
+    difference."""
+    import torch.distributed as dist
+
     from orion_tpu_torch.parallel import collectives as co
     from orion_tpu_torch.parallel import pipeline as pipeline_mod
     from orion_tpu_torch.training import trainer as trainer_mod
 
-    ms = {"gather": 0.0, "reduce_scatter": 0.0, "all_reduce": 0.0, "p2p_recv": 0.0}
+    if _CLOCK:
+        return _CLOCK
+    ms = _CLOCK
+    ms.update({"gather": 0.0, "reduce_scatter": 0.0, "all_reduce": 0.0, "p2p_recv": 0.0,
+               "dist": 0.0})
 
     def timed(fn, key):
         def call(*a, **kw):
@@ -5542,6 +5624,9 @@ def _collective_clock():
     co._reduce_scatter_raw = timed(co._reduce_scatter_raw, "reduce_scatter")
     trainer_mod.all_reduce_sum_ = timed(co.all_reduce_sum_, "all_reduce")
     pipeline_mod.recv_from = timed(co.recv_from, "p2p_recv")
+    for name in ("all_gather", "all_gather_into_tensor", "broadcast", "all_reduce",
+                 "batch_isend_irecv"):
+        setattr(dist, name, timed(getattr(dist, name), "dist"))
     return ms
 
 
@@ -6347,14 +6432,339 @@ def pp_phase(dev):
     return mesh_parts(dev, ("pp",))["pp"]
 
 
+# ---------------------------------------------------------------------------
+# Generate on a mesh (A12 steps 6 and 6b): the port's ``generate`` on the
+# meshes the JAX CLI takes, ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# Each run: (label, config, overrides, mesh sizes, prompts (B, T), quant),
+# 4 prompts at full width with the weights cast for inference (or quantized
+# on the mesh: whole leaves quantized, then cut), against the one-rank twin
+# with the same weights on this rank's card. On the 2-rank spawn: G1, lm_1b3
+# at full depth (24 blocks), sp 2, 4 x 1024 (row 1 in its parts form on
+# token shards); G2, lm_1b3 at full depth at dp 2 and at fsdp 2 (2 of the 4
+# rows a rank; fsdp gathers each block's leaves at the prefill and at every
+# decode step, through host memory under gloo: ~5 s a step at full depth, so
+# its decode is cut to ``GENMESH_FSDP_NEW`` tokens), and the dropless
+# moe_1b3_4e at 4 blocks at dp 2 (row 9 on a data rank's 2 x 1024 rows);
+# G3, hybrid_1b3 at 4 blocks
+# (swa, softmax, swa, linear; striped ring) at sp 2 on 4 x 1536: row 6 in
+# the striped ring (shift) and in the halo (q_offset) of a prefill. On the
+# 4-rank spawn, G4 at 4 blocks: lm_1b3 at sp 4 on 1021 tokens (padded to
+# 1024: the padded path) and at int8 and int4 at dp 2 x tp 2 (row 14 on the
+# tp shards: wq..wv out 1024, wo in 1024, gate / up out 2752, down in 2752).
+#
+# Each run reads, on every rank: the twin's tokens teacher-forced through
+# the mesh model (the twin runs this rank's rows, so a data rank's run is
+# the one-rank run of its rows): each step's logits within
+# ``TP_LOGITS_ATOL`` of the twin's, every layer's state after the prefill and
+# after the last step within ``TP_S_RTOL`` / ``TP_KV_RTOL`` of the twin's
+# (this rank's rows and heads; the whole sequence's under sp), every launch
+# of rows 1, 6, 9 and 14 in that run held against its plain version
+# (``LaunchAudit``, the kernel checks' limits); then the free-running
+# greedy and sampled (temperature 0.8) tokens against the twin's at the
+# whole batch (matches counted: a reading), the tokens bitwise on every
+# rank, the logits bitwise on the ranks that share rows, exact launches,
+# prefill and decode ms a rank, host ms in the collectives and peak and
+# resident memory a rank beside the twin's. The limits are tp's (c): the
+# mesh paths round where tp does (each rank's partial wo / down outputs in
+# bf16 before their fp32 sum) or less (sp's prefix sums and state totals
+# run in fp32; dp and fsdp run the one-rank products on fewer rows), and a
+# wrong shard, head, row or sum moves them by the values' own size.
+GENMESH_NEW = 16
+GENMESH_FSDP_NEW = 2
+GENMESH_SAMPLE = dict(temperature=0.8)
+GENMESH_SEED = 7
+GENMESH_DEPTH = {"n_layers": 4}
+GENMESH_HYBRID = {"n_layers": 4, "layer_types": ("swa", "softmax", "swa", "linear"),
+                  "ring_striped": True}
+GENMESH_2 = (
+    ("G1 lm_1b3 at sp 2", "lm_1b3", {}, dict(sp=2), (4, 1024), ""),
+    ("G2 lm_1b3 at dp 2", "lm_1b3", {}, dict(dp=2), (4, 1024), ""),
+    ("G2 lm_1b3 at fsdp 2", "lm_1b3", {}, dict(fsdp=2), (4, 1024), ""),
+    ("G2 moe_1b3_4e (dropless, 4 blocks) at dp 2", "moe_1b3_4e",
+     {**GENMESH_DEPTH, "moe_dropless": True}, dict(dp=2), (4, 1024), ""),
+    ("G3 hybrid_1b3 (4 blocks) at sp 2", "hybrid_1b3", GENMESH_HYBRID, dict(sp=2), (4, 1536), ""),
+)
+GENMESH_4 = (
+    ("G4 lm_1b3 (4 blocks) at sp 4, 1021 tokens", "lm_1b3", GENMESH_DEPTH, dict(sp=4),
+     (4, 1021), ""),
+    ("G4 lm_1b3 (4 blocks) int8 at dp 2 x tp 2", "lm_1b3", GENMESH_DEPTH, dict(dp=2, tp=2),
+     (4, 1024), "int8"),
+    ("G4 lm_1b3 (4 blocks) int4 at dp 2 x tp 2", "lm_1b3", GENMESH_DEPTH, dict(dp=2, tp=2),
+     (4, 1024), "int4"),
+)
+# the kernels the genmesh part must launch (every one of its path)
+GENMESH_PATH = ("causal_dot_norm_wgmma", "flash_fwd_wgmma", "gmm_fwd_wgmma", "q4_matmul_mma")
+
+
+def genmesh_expected_launches(cfg, m, t_loc, rows, quant, prefills, steps):
+    """The exact launches of ``prefills`` prefills and ``steps`` decode steps
+    of the model at ``cfg`` on this rank of mesh ``m`` (``t_loc``: a
+    prefill's tokens on this rank, ``rows``: its rows): row 1 once a linear
+    layer and prefill (the parts form under sp), row 6 once a softmax / swa
+    layer and prefill, or under sp the striped ring's sp calls a softmax
+    layer (``shift`` 1 on the sp - 1 - s from later ranks) and the halo's
+    1 + min(s, h) a swa layer (``q_offset`` on min(s, h)); row 9 once a
+    dropless MoE layer's product and prefill of at least ``GMM_MIN_ROWS``
+    routed rows; row 14 once an int4 layer and decode step. All wgmma / mma:
+    bf16 at D 128 and widths the mma variant takes. -> (the ``KERNELS``
+    counts, the flash calls with shift or q_offset)."""
+    from orion_tpu_torch.models.moe import GMM_MIN_ROWS
+
+    lin, attn, _, _ = _layer_counts(cfg)
+    want = dict.fromkeys(KERNELS, 0)
+    want["causal_dot_norm_wgmma"] = prefills * lin
+    offset_calls = 0
+    if m.sp > 1 and attn:
+        s = m.sp_rank
+        calls = 0
+        for lt in cfg.resolved_layer_types:
+            if lt == "softmax":
+                calls, offset_calls = calls + m.sp, offset_calls + (m.sp - 1 - s)
+            elif lt == "swa":
+                h = min(-(-(cfg.window - 1) // t_loc), m.sp - 1)
+                calls, offset_calls = calls + 1 + min(s, h), offset_calls + min(s, h)
+        want["flash_fwd_wgmma"] = prefills * calls
+        offset_calls *= prefills
+    else:
+        want["flash_fwd_wgmma"] = prefills * attn
+    if rows * t_loc * max(cfg.moe_top_k, 1) >= GMM_MIN_ROWS and not quant:
+        want["gmm_fwd_wgmma"] = prefills * _gmm_counts(cfg)[0]
+    if quant == "int4":
+        want["q4_matmul_mma"] = steps * _q4_per_step(cfg)
+    return want, offset_calls
+
+
+def _held_bytes(model):
+    return sum(t.numel() * t.element_size() for t in model.state_dict().values())
+
+
+def genmesh_run(mesh, run, mods, device=None):
+    """One run of the genmesh part on this rank (the comment above
+    ``GENMESH_NEW``) -> its readings."""
+    from orion_tpu_torch.generate import (SampleConfig, cast_params_for_inference, generate,
+                                          prefill_prompt, quantize_for_decode, sp_multiple)
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.models.transformer import TransformerLM
+    from orion_tpu_torch.parallel.collectives import _gather_cat
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    label, name, over, sizes, (b, t), quant = run
+    dev = mesh.device
+    m = _remesh(mesh, MeshConfig(**{"dp": 1, **sizes}), device)
+    cfg = get_config(name, **over)
+    new = GENMESH_FSDP_NEW if m.fsdp > 1 else GENMESH_NEW
+    greedy, sampled_cfg = SampleConfig(temperature=0.0), SampleConfig(**GENMESH_SAMPLE)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (b, t), dtype=np.int64)).to(dev)
+    split = m.n_data > 1 and b % m.n_data == 0
+    rows = (torch.from_numpy(m.row_index(b)).to(dev) if split
+            else torch.arange(b, device=dev))
+    heads = cfg.n_heads // m.tp
+    lo = m.tp_rank * heads
+
+    def build(on):
+        model = TransformerLM(dataclasses.replace(cfg, sequence_parallel=on is not None
+                                                  and on.sp > 1), device=dev, mesh=on)
+        return quantize_for_decode(model, quant) if quant else cast_params_for_inference(model)
+
+    def mine(states):  # this rank's heads of the twin's states (of this rank's rows)
+        return [{k: v[:, lo:lo + heads].clone() for k, v in st.items()} for st in states]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = build(None)
+    twin_held = _held_bytes(twin)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        logits, states = twin.prefill_last(prompts[rows])
+        ref_logits, tokens, ref_first = [logits], [logits.argmax(-1)], mine(states)
+        for i in range(new - 1):
+            logits, states = twin.decode_step(tokens[-1], states, t + i)
+            ref_logits.append(logits)
+            tokens.append(logits.argmax(-1))
+        ref_last = mine(states)
+        del states, logits
+    twin_prefill_ms, _ = wall_ms(lambda: generate(twin, prompts, 1, greedy))
+    twin_gen_ms, twin_free = wall_ms(lambda: generate(twin, prompts, new, greedy))
+    twin_sampled = generate(twin, prompts, new, sampled_cfg, GENMESH_SEED)
+    twin_peak = torch.cuda.max_memory_allocated(dev)
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build(m)
+    held = _held_bytes(model)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa = mods[1]
+    m.barrier()
+    with torch.inference_mode():
+        _reset_counts(mods)
+        fa.launches_fwd_sp = 0
+        with LaunchAudit(mods, (1, 6, 9, 14)) as audit:
+            t0 = time.perf_counter()
+            logits, states = prefill_prompt(model, prompts[rows])
+            got, first_err = [logits], _state_err(states, ref_first)
+            for i in range(new - 1):
+                logits, states = model.decode_step(tokens[i], states, t + i)
+                got.append(logits)
+            torch.cuda.synchronize()
+            forced_ms = (time.perf_counter() - t0) * 1e3
+            last_err = _state_err(states, ref_last)
+            del states, logits
+        clock = _collective_clock()
+        before = clock["dist"]
+        prefill_ms, _ = wall_ms(lambda: generate(model, prompts, 1, greedy))
+        prefill_clock = clock["dist"] - before
+        gen_ms, free = wall_ms(lambda: generate(model, prompts, new, greedy))
+        gen_clock = clock["dist"] - before - prefill_clock
+        sampled = generate(model, prompts, new, sampled_cfg, GENMESH_SEED)
+        counts, offset_calls = _counts(mods), fa.launches_fwd_sp
+    peak = torch.cuda.max_memory_allocated(dev)
+    full = -(-t // sp_multiple(model)) * sp_multiple(model)
+    want, want_offset = genmesh_expected_launches(cfg, m, full // m.sp if m.sp > 1 else t,
+                                                  len(rows), quant, 4, 3 * (new - 1))
+    # the logits of the ranks that share rows: bitwise (one gather over the world)
+    digest = _logits_digest(got)
+    digests = _gather_cat(torch.tensor([[m.data_rank, digest]], device=dev), 0, None).tolist()
+    same = (free == twin_free).cpu()
+    out = {
+        "label": label, "mesh": sizes, "rank": m.rank, "coords": m.coords, "new": new,
+        "rows": rows.tolist(), "transport": m.transport,
+        "logits_err": [float((a - r).abs().max()) for a, r in zip(got, ref_logits)],
+        "logits_bitwise": all(torch.equal(a, r) for a, r in zip(got, ref_logits)),
+        "finite": all(bool(torch.isfinite(a).all()) for a in got),
+        "s_err": (first_err[0], last_err[0]), "kv_err": (first_err[1], last_err[1]),
+        "digests": digests, "tokens_digest": _logits_digest([free, sampled]),
+        "free_match": int(same.sum()), "free_of": same.numel(),
+        "free_prefix": [int(r.logical_not().nonzero()[0]) if not r.all() else new for r in same],
+        "sampled_match": int((sampled == twin_sampled).sum()),
+        "sampled_bitwise": bool(torch.equal(sampled, twin_sampled)),
+        "counts": counts, "want": want, "offset_calls": offset_calls,
+        "want_offset": want_offset, "audit": audit.reading(),
+        "forced_ms": forced_ms, "prefill_ms": prefill_ms,
+        "decode_ms_per_step": (gen_ms - prefill_ms) / max(new - 1, 1),
+        "twin_prefill_ms": twin_prefill_ms,
+        "twin_decode_ms_per_step": (twin_gen_ms - twin_prefill_ms) / max(new - 1, 1),
+        "collective_ms": {"prefill": prefill_clock, "generate": gen_clock},
+        "peak_gib": peak / 2**30, "twin_peak_gib": twin_peak / 2**30,
+        "held_gib": held / 2**30, "twin_held_gib": twin_held / 2**30,
+    }
+    del model, got, ref_logits, ref_first, ref_last
+    gc.collect()
+    torch.cuda.empty_cache()
+    m.barrier()
+    return out
+
+
+def genmesh_rank(mesh, payload):
+    """One rank of the genmesh part: each run of ``payload["genmesh"]`` on
+    its own mesh of the spawn's group, in order -> {label: readings}."""
+    from orion_tpu_torch.ops.kernels import adafactor, causal_dot, flash_attention, gmm, q4_matmul
+
+    mods = (causal_dot, flash_attention, gmm, q4_matmul, adafactor)
+    return {run[0]: genmesh_run(mesh, run, mods, payload.get("device"))
+            for run in payload["genmesh"]}
+
+
+def genmesh_verdict(label, ranks):
+    """Log one genmesh run's readings (every rank's); raise where a limit is
+    missed, a launch of rows 1, 6, 9, 14 disagrees with its plain version, a
+    launch count is off, or the ranks' tokens (or the logits of ranks that
+    share rows) differ."""
+    r0 = ranks[0]
+    audit = {}
+    for r in ranks:
+        for k, v in r["audit"]["worst"].items():
+            audit[k] = max(audit.get(k, 0.0), v)
+    shapes = sorted({s for r in ranks for ss in r["audit"]["shapes"].values() for s in ss})
+    log(f"genmesh {label} (transport {r0['transport']}): teacher-forced logits against the "
+        f"one-rank twin, max abs a step up to {max(max(r['logits_err']) for r in ranks):.4e} "
+        f"(limit {TP_LOGITS_ATOL}; bitwise on ranks {[r['rank'] for r in ranks if r['logits_bitwise']]}); "
+        f"states max rel after the prefill / the last step: S {[r['s_err'] for r in ranks]} "
+        f"(limit {TP_S_RTOL:g}), K/V {[r['kv_err'] for r in ranks]} (limit {TP_KV_RTOL:g}); "
+        f"free-running greedy tokens equal to the twin's {r0['free_match']} of {r0['free_of']} "
+        f"(first miss a row {r0['free_prefix']}); sampled (temperature 0.8) "
+        f"{r0['sampled_match']} of {r0['free_of']} (bitwise {r0['sampled_bitwise']})")
+    log(f"genmesh {label}: prefill {[round(r['prefill_ms'], 2) for r in ranks]} ms, decode "
+        f"{[round(r['decode_ms_per_step'], 3) for r in ranks]} ms/step a rank against the twin's "
+        f"{r0['twin_prefill_ms']:.2f} ms, {r0['twin_decode_ms_per_step']:.3f} ms/step; host ms "
+        f"in the collectives (prefill, {r0['new']}-token generate) "
+        f"{[(round(r['collective_ms']['prefill'], 1), round(r['collective_ms']['generate'], 1)) for r in ranks]}; "
+        f"peak {[round(r['peak_gib'], 2) for r in ranks]} GiB against the twin's "
+        f"{r0['twin_peak_gib']:.2f}, resident weights {[round(r['held_gib'], 3) for r in ranks]} "
+        f"GiB against {r0['twin_held_gib']:.3f}")
+    log(f"genmesh {label}: every launch of rows 1, 6, 9, 14 in the teacher-forced run held "
+        f"against its plain version ({[r['audit']['launches'] for r in ranks]}), largest share "
+        f"of its limit { {k: float(f'{v:.3g}') for k, v in audit.items()} }; shapes {shapes}; "
+        f"launches a rank {[{k: v for k, v in r['counts'].items() if v} for r in ranks]}, calls "
+        f"with shift / q_offset {[r['offset_calls'] for r in ranks]}")
+    for r in ranks:
+        if r["counts"] != r["want"] or r["offset_calls"] != r["want_offset"]:
+            raise AssertionError(f"genmesh {label} rank {r['rank']}: launches {r['counts']} "
+                                 f"({r['offset_calls']} with shift / q_offset), want "
+                                 f"{r['want']} ({r['want_offset']})")
+        missed = (not r["finite"] or max(r["logits_err"]) > TP_LOGITS_ATOL
+                  or max(e or 0.0 for e in r["s_err"]) > TP_S_RTOL
+                  or max(e or 0.0 for e in r["kv_err"]) > TP_KV_RTOL)
+        if missed:
+            raise AssertionError(f"genmesh {label} rank {r['rank']} misses its limits against "
+                                 f"the one-rank twin: {r}")
+    if not audit or any(v > 1.0 or not np.isfinite(v) for v in audit.values()):
+        raise AssertionError(f"genmesh {label}: a launch disagrees with its plain version: "
+                             f"{audit}")
+    if len({r["tokens_digest"] for r in ranks}) != 1:
+        raise AssertionError(f"genmesh {label}: the ranks' tokens differ")
+    by_rows = {}
+    for data_rank, digest in r0["digests"]:
+        by_rows.setdefault(data_rank, set()).add(digest)
+    if any(len(d) != 1 for d in by_rows.values()):
+        raise AssertionError(f"genmesh {label}: the logits of ranks that share rows differ: "
+                             f"{r0['digests']}")
+
+
+def genmesh_verdicts(two, four):
+    """The genmesh part's verdicts on the spawns' results (each rank's
+    {label: readings}). Returns (each kernel's launches over the part's runs
+    and ranks, by ``KERNELS`` name; the readings by label)."""
+    launches = dict.fromkeys(KERNELS, 0)
+    readings = {}
+    for spawn in (two, four):
+        for label in spawn[0]:
+            ranks = [r[label] for r in spawn]
+            genmesh_verdict(label, ranks)
+            for r in ranks:
+                for k in KERNELS:
+                    launches[k] += r["counts"][k]
+            readings[label] = [{k: r[k] for k in (
+                "prefill_ms", "decode_ms_per_step", "twin_prefill_ms", "twin_decode_ms_per_step",
+                "collective_ms", "peak_gib", "twin_peak_gib", "held_gib", "twin_held_gib",
+                "free_match", "free_of", "sampled_match", "sampled_bitwise", "logits_bitwise",
+                "transport")} for r in ranks]
+    missing = [k for k in GENMESH_PATH if not launches.get(k)]
+    log(f"genmesh part: launches over its runs: { {k: v for k, v in launches.items() if v} }")
+    if missing:
+        raise AssertionError(f"the genmesh part launched no {missing}")
+    return launches, readings
+
+
+def genmesh_phase(dev):
+    """The genmesh part alone (``mesh_parts``)."""
+    return mesh_parts(dev, ("genmesh",))["genmesh"]
+
+
 # -- the mesh parts' spawns --------------------------------------------------------------
 
 
 def two_rank(mesh, payload):
     """One rank of the 2-rank spawn: the tp part's (a) and (c) on the
     spawn's tp mesh, the pp part's (a) and (c) (``dp_train_rank`` remeshes
-    to pp 2), as ``payload["parts"]`` asks."""
+    to pp 2), the genmesh part's ``GENMESH_2``, as ``payload["parts"]``
+    asks."""
     out = {}
+    if "genmesh" in payload["parts"]:
+        out["genmesh"] = genmesh_rank(mesh, {**payload, "genmesh": GENMESH_2})
     if "tp" in payload["parts"]:
         out["tp_train"] = dp_train_rank(mesh, {**payload, "runs": TP_TRAIN_2})
         out["generate"] = tp_generate_rank(mesh, payload)
@@ -6367,7 +6777,8 @@ def two_rank(mesh, payload):
 
 def four_rank(mesh, payload):
     """One rank of the 4-rank spawn: the sp part's training runs (on the sp
-    4 mesh, when ``payload["sp"]``), then ``dp_train_rank``'s runs."""
+    4 mesh, when ``payload["sp"]``), the genmesh part's ``GENMESH_4`` (when
+    ``payload["genmesh"]``), then ``dp_train_rank``'s runs."""
     from orion_tpu_torch.parallel.mesh import MeshConfig
 
     out = {}
@@ -6375,19 +6786,22 @@ def four_rank(mesh, payload):
         out["sp_train"] = sp_train_rank(
             _remesh(mesh, MeshConfig(dp=1, sp=mesh.world), payload.get("device")),
             {"device": payload.get("device")})
-    out["mesh"] = dp_train_rank(mesh, payload)
+    if payload.get("genmesh"):
+        out["genmesh"] = genmesh_rank(mesh, {**payload, "genmesh": GENMESH_4})
+    out["mesh"] = dp_train_rank(mesh, payload) if payload["runs"] else {}
     return out
 
 
 def mesh_parts(dev, parts=("dp", "tp", "pp")):
-    """The dp, tp and pp parts (``parts``; "sp": also the sp part's training
-    runs), ranks of this script sharing the card over gloo, in at most two
-    spawns, so each rank's start and its first step's warm-up are paid once:
-    one of 2 ranks (tp's (a) and (c), pp's (a) and (c)) and one of 4 (the sp
-    training runs, ``DP_RUNS``, tp's and pp's (b)), each run on its own mesh
-    of the one process group. -> {part: (each kernel's launches over its
-    runs and ranks, its readings)}, and for "sp" each rank's
-    ``sp_train_rank`` results."""
+    """The dp, tp, pp and genmesh parts (``parts``; "sp": also the sp part's
+    training runs), ranks of this script sharing the card over gloo, in at
+    most two spawns, so each rank's start and its first step's warm-up are
+    paid once: one of 2 ranks (tp's (a) and (c), pp's (a) and (c),
+    ``GENMESH_2``) and one of 4 (the sp training runs, ``GENMESH_4``,
+    ``DP_RUNS``, tp's and pp's (b)), each run on its own mesh of the one
+    process group. -> {part: (each kernel's launches over its runs and
+    ranks, its readings)}, and for "sp" each rank's ``sp_train_rank``
+    results."""
     import shutil
     import tempfile
 
@@ -6402,21 +6816,25 @@ def mesh_parts(dev, parts=("dp", "tp", "pp")):
         if free < need:
             raise RuntimeError(f"the mesh parts' checkpoints (dp's fsdp 4 ~3.3 GB, pp's lm_1b3 "
                                f"~16 GB) need {need} GiB free; {free:.1f} GiB under {tmp}")
-        if "tp" in parts or "pp" in parts:
+        if "tp" in parts or "pp" in parts or "genmesh" in parts:
             two = sp_spawn(2, two_rank, {"parts": parts, "pp_save_dir": os.path.join(tmp, "pp")},
                            timeout=900, mesh=MeshConfig(dp=1, tp=2) if "tp" in parts
-                           else MeshConfig(dp=1, pp=2))
+                           else MeshConfig(dp=1, pp=2) if "pp" in parts else MeshConfig(dp=2))
         t1 = time.perf_counter()
         runs = ((DP_RUNS if "dp" in parts else ()) + (TP_TRAIN_4 if "tp" in parts else ())
                 + (PP_TRAIN_4 if "pp" in parts else ()))
         four = sp_spawn(4, four_rank, {"runs": runs, "save_dir": os.path.join(tmp, "dp"),
-                                       "sp": "sp" in parts}, timeout=1200, mesh=MeshConfig(dp=4))
+                                       "sp": "sp" in parts, "genmesh": "genmesh" in parts},
+                        timeout=1200, mesh=MeshConfig(dp=4))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     t2 = time.perf_counter()
     log(f"mesh parts {parts}: the 2-rank spawn {t1 - t0:.1f} s, the 4-rank spawn "
         f"{t2 - t1:.1f} s")
     out = {"sp": [r.get("sp_train") for r in four]}
+    if "genmesh" in parts:
+        out["genmesh"] = genmesh_verdicts([r["genmesh"] for r in two],
+                                          [r["genmesh"] for r in four])
     four = [r["mesh"] for r in four]
     if "dp" in parts:
         out["dp"] = dp_verdicts(four)
@@ -7143,10 +7561,12 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser("chip_smoke.py")
-    ap.add_argument("--part", choices=("all", "fleet", "train", "tp", "pp"), default="all",
-                    help="fleet / train / tp / pp: the build, the kernel checks and the fleet "
-                    "part, the training-resilience part (R1 in lm_1b3's adafactor_fused phase, "
-                    "R2, R3), the tensor-parallel part or the pipeline part, alone")
+    ap.add_argument("--part", choices=("all", "fleet", "train", "tp", "pp", "genmesh"),
+                    default="all",
+                    help="fleet / train / tp / pp / genmesh: the build, the kernel checks and the "
+                    "fleet part, the training-resilience part (R1 in lm_1b3's adafactor_fused "
+                    "phase, R2, R3), the tensor-parallel part, the pipeline part or generate on "
+                    "meshes, alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -7199,6 +7619,13 @@ def main(argv=None) -> int:
         for k in kernels:  # the main path of this part: its runs' launches over the ranks
             k["launches"] = k["launches_tp"] = tp_launches.get(k["name"], 0)
         return _finish(card, kernels)
+    if args.part == "genmesh":
+        gm_launches, gm_readings = genmesh_phase(dev)
+        log(f"genmesh phases done at {time.perf_counter() - t0:.1f} s; readings a rank: "
+            f"{gm_readings}")
+        for k in kernels:  # the main path of this part: its runs' launches over the ranks
+            k["launches"] = k["launches_genmesh"] = gm_launches.get(k["name"], 0)
+        return _finish(card, kernels)
     if args.part == "pp":
         # the sp pieces' entries (the parts of rows 1, 3, 4 that pp x sp runs
         # inside its stages), each held against its plain version
@@ -7214,14 +7641,16 @@ def main(argv=None) -> int:
     sp_lines = sp_phase(causal_dot, flash_attention, dev, train=False)
     # sp training, data, tensor and pipeline parallelism: ranks as processes
     # sharing this card, one spawn of 2 and one of 4 for the four parts
-    parts = mesh_parts(dev, ("sp", "dp", "tp", "pp"))
+    parts = mesh_parts(dev, ("sp", "dp", "tp", "pp", "genmesh"))
     sp_lines, sp_memory = sp_train_verdicts(sp_lines, parts["sp"])
     log(f"sp phases done at {time.perf_counter() - t0:.1f} s; transport and peak memory a rank: "
         f"{sp_memory}")
     (dp_launches, dp_memory), (tp_launches, tp_memory), (pp_launches, pp_memory) = (
         parts["dp"], parts["tp"], parts["pp"])
-    log(f"dp, tp and pp phases done at {time.perf_counter() - t0:.1f} s; peak memory, resident "
-        f"bytes, transport (and n_micro) a rank: dp {dp_memory}, tp {tp_memory}, pp {pp_memory}")
+    gm_launches, gm_readings = parts["genmesh"]
+    log(f"dp, tp, pp and genmesh phases done at {time.perf_counter() - t0:.1f} s; peak memory, "
+        f"resident bytes, transport (and n_micro) a rank: dp {dp_memory}, tp {tp_memory}, pp "
+        f"{pp_memory}; genmesh readings a rank: {gm_readings}")
     op = op_phase(dev, mods)
     tiny_hybrid = dataclasses.replace(TINY, layer_types=("swa", "linear"), window=16)
 
@@ -7452,6 +7881,7 @@ def main(argv=None) -> int:
         k["launches_dp"] = dp_launches.get(k["name"], 0)
         k["launches_tp"] = tp_launches.get(k["name"], 0)
         k["launches_pp"] = pp_launches.get(k["name"], 0)
+        k["launches_genmesh"] = gm_launches.get(k["name"], 0)
     return _finish(card, kernels)
 
 

@@ -47,6 +47,15 @@ one update against the plain formulas), prints, per kernel, its readings and whe
 ``agrees_adafactor`` accepts it, then all of it as one JSON line. Exits nonzero if a sound kernel is rejected or a kernel that
 must be rejected is not. Imports nothing of JAX.
 
+    python3 kernel_mutants.py --genmesh
+
+instead runs ``chip_smoke.py``'s G4 int4 run (lm_1b3 at 4 blocks, dp 2 x tp
+2, four ranks sharing the card) twice: as it is, and with each rank
+quantizing its own tp shard (a row-parallel scale then the max over the
+rank's slice of the input, not the whole input: ``GENMESH_MUTANT``), and
+exits nonzero unless ``chip_smoke.genmesh_verdict`` accepts the first and
+rejects the second.
+
     python3 kernel_mutants.py --sass-against DIR
 
 instead builds every source of this checkout and of the checkout ``DIR``
@@ -651,9 +660,77 @@ def sass_against(other):
     return 0
 
 
+# the genmesh part's mesh mutant: each rank quantizes its own tp shard, so a
+# row-parallel int4 scale (wo, down) is the max over the rank's slice of the
+# input instead of over the whole input (``generate.quantize_for_decode``
+# quantizes whole leaves, then cuts); run at G4's int4 dp 2 x tp 2
+GENMESH_MUTANT = "q4_row_scale_of_the_shard"
+GENMESH_RUN = next(run for run in chip_smoke.GENMESH_4 if run[5] == "int4")
+
+
+def _shard_quantize(model, mode):
+    """The mutant's ``quantize_for_decode``: each rank's shard of every leaf
+    quantized by itself."""
+    from orion_tpu_torch.models.transformer import TransformerLM
+    from orion_tpu_torch.quant import quantize_params_for_decode
+
+    qmodel = TransformerLM(model.cfg, device=model.device, quant=mode, mesh=model.mesh)
+    qmodel.load_state_dict(quantize_params_for_decode(qmodel, model.state_dict()), strict=True)
+    return qmodel
+
+
+def genmesh_mutant_rank(mesh, payload):
+    """One rank: G4's int4 run with the sound quantization, then with the
+    mutant's -> {"sound": readings, "mutant": readings}."""
+    from orion_tpu_torch import generate
+
+    out = {"sound": chip_smoke.genmesh_rank(mesh, {**payload, "genmesh": (GENMESH_RUN,)})}
+    sound = generate.quantize_for_decode
+    generate.quantize_for_decode = _shard_quantize
+    try:
+        out["mutant"] = chip_smoke.genmesh_rank(mesh, {**payload, "genmesh": (GENMESH_RUN,)})
+    finally:
+        generate.quantize_for_decode = sound
+    return out
+
+
+def genmesh_mutants(dev) -> int:
+    """The sound G4 int4 run and its mutant on 4 ranks sharing the card:
+    ``chip_smoke.genmesh_verdict`` must accept the first and reject the
+    second. Exits nonzero otherwise."""
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    ranks = chip_smoke.sp_spawn(4, genmesh_mutant_rank, {}, timeout=900, mesh=MeshConfig(dp=4))
+    verdicts = {}
+    for kind in ("sound", "mutant"):
+        chip_smoke.log(f"genmesh {kind}:")
+        try:
+            chip_smoke.genmesh_verdict(GENMESH_RUN[0], [r[kind][GENMESH_RUN[0]] for r in ranks])
+            verdicts[kind] = {"accepted": True}
+        except AssertionError as e:
+            verdicts[kind] = {"accepted": False, "why": str(e)[:2000]}
+    worst = {kind: {"logits_err": max(max(r[kind][GENMESH_RUN[0]]["logits_err"]) for r in ranks),
+                    "s_err": max(max(e or 0.0 for e in r[kind][GENMESH_RUN[0]]["s_err"])
+                                 for r in ranks)}
+             for kind in verdicts}
+    chip_smoke.log(json.dumps({"genmesh_mutant": GENMESH_MUTANT, "run": GENMESH_RUN[0],
+                               "limits": {"logits_atol": chip_smoke.TP_LOGITS_ATOL,
+                                          "s_rtol": chip_smoke.TP_S_RTOL,
+                                          "kv_rtol": chip_smoke.TP_KV_RTOL},
+                               "verdicts": verdicts, "readings": worst}))
+    return 0 if verdicts["sound"]["accepted"] and not verdicts["mutant"]["accepted"] else 1
+
+
 def main() -> int:
     if "--sass-against" in sys.argv[1:]:  # compare code with another checkout's, no card needed
         return sass_against(sys.argv[sys.argv.index("--sass-against") + 1])
+    if "--genmesh" in sys.argv[1:]:
+        if not torch.cuda.is_available():
+            print("kernel_mutants: needs a CUDA card", file=sys.stderr)
+            return 1
+        chip_smoke.card_info()
+        chip_smoke.build((causal_dot, flash_attention, gmm, q4_matmul, adafactor))
+        return genmesh_mutants(torch.device("cuda", 0))
     if not torch.cuda.is_available():
         print("kernel_mutants: needs a CUDA card", file=sys.stderr)
         return 1

@@ -42,17 +42,43 @@ a fallback to the newest intact step unless a step is pinned), and
 ``adapt_config_to_params`` fits the named config to the stored tables.
 Without a checkpoint the weights come from a seeded init.
 
-Tensor parallelism (``--distributed --tp N`` under torchrun, or a model
-built on a ``parallel.mesh.Mesh`` with tp above 1): each rank holds its
-share of the heads and of the MLPs' hidden dimension
-(``models/transformer.py``), so the prefill's and every decode step's
-states are that rank's heads [B, H / tp, ...], and two sums over the tp
-group a block (after ``wo`` and after ``down``) give every rank the same
-hidden state. The logits are the same bits on every rank, and every rank
-draws with the same keys, so the ranks emit the same tokens (the CLI checks
-it with one gather, and rank 0 prints). The reference CLI's ``--sp``,
-``--dp`` and ``--fsdp`` are not ported (ROADMAP.md A12 steps 6 and 6b) and
-raise, as does ``--quant`` under tp (step 8).
+On a mesh (a model built on a ``parallel.mesh.Mesh``; the CLI's
+``--distributed`` with ``--dp``, ``--fsdp``, ``--tp`` and ``--sp`` in any
+combination, as the reference CLI takes them) ``generate`` keeps the JAX
+package's semantics, where GSPMD places the work of a model built without a
+mesh:
+
+- dp / fsdp, rows over the data ranks: when the data ranks (dp x fsdp)
+  divide the batch, rank r takes its row block (``Mesh.row_index``) and
+  samples with the global rows' keys (``request_keys(seed, B)[rows]``), so
+  its tokens are a one-rank run's; otherwise every data rank runs the whole
+  batch (the CLI's one-row prompt). Every rank is handed the whole [B, new]
+  in row order (one gather over the data group), as JAX returns a global
+  array. Under fsdp each rank holds its shard of every fsdp leaf and a
+  block gathers its leaves at the prefill and at every decode step, as
+  GSPMD does;
+- sp, the prompt's tokens over the sp ranks for the prefill (a model with
+  ``cfg.sequence_parallel``; the CLI sets it with ``--sp``): the prompt is
+  right-padded to a multiple of sp (of sp^2 for a striped ring with softmax
+  layers) and each rank prefills its contiguous shard through the sp bodies
+  (linear: the parts form; softmax: the ring; swa: the halo on the card);
+  the decode state it leaves is the whole sequence's, the same bits on
+  every sp rank, and the first token's logits come from the rank holding
+  the prompt's last position (``TransformerLM.prefill_last``). The decode
+  then runs replicated on every sp rank, as GSPMD runs it: sp buys the
+  prefill's memory and time, not the decode's. A model on an sp mesh
+  without ``sequence_parallel`` runs whole on every sp rank;
+- tp: each rank holds its share of the heads and of the MLPs' hidden
+  dimension (``models/transformer.py``), so the states are that rank's heads
+  [B, H / tp, ...], and two sums over the tp group a block (after ``wo``
+  and after ``down``) give every rank the same hidden state.
+
+Every rank of the mesh ends with the same tokens (the CLI checks it with
+one gather over the world, and rank 0 prints). A quantized model on a mesh
+is quantized whole and then cut (``quantize_for_decode``), the JAX order.
+The serving engine on a mesh (the verify and prefill pieces on sp, any piece
+under fsdp) and the ep axis raise, naming ROADMAP.md's A12 step 8; MoE
+layers under sp raise, naming step 7.
 """
 
 from __future__ import annotations
@@ -69,6 +95,8 @@ import torch.nn.functional as F
 from orion_tpu_torch.models.configs import ModelConfig, get_config
 from orion_tpu_torch.models.moe import MoEMLP
 from orion_tpu_torch.models.transformer import Dense, TransformerLM
+from orion_tpu_torch.parallel.collectives import _gather_cat
+from orion_tpu_torch.parallel.sharding import whole_leaf
 from orion_tpu_torch.quant import MODES, check_mode, quantize_params_for_decode
 from orion_tpu_torch.resilience.retry import RetryPolicy
 from orion_tpu_torch.training.checkpoint import load_params
@@ -187,19 +215,34 @@ def cast_params_for_inference(model: TransformerLM) -> TransformerLM:
     return model
 
 
+class _WholeLeaves:
+    """A model's leaves, each whole on its device when it is read: on a mesh
+    gathered over the axes that cut it (a collective: every rank reads the
+    same leaves in the same order), without one as the model holds it."""
+
+    def __init__(self, model: TransformerLM):
+        self.state = model.state_dict()
+        self.axes = list(reversed(model.shard_axes))  # fsdp's cut first undone, then tp's
+
+    def __getitem__(self, name: str) -> Tensor:
+        return whole_leaf(name, self.state[name], self.axes)
+
+
 @torch.no_grad()
 def quantize_for_decode(model: TransformerLM, mode: str = "int8") -> TransformerLM:
     """A full-precision model -> its quantized counterpart on the same
-    device: every dense weight int8 (or nibble-packed int4 with
+    device (and mesh): every dense weight int8 (or nibble-packed int4 with
     ``mode="int4"``) with per-out-channel scales, the embedding table and
-    the expert stacks int8 in both modes. Quantize once, serve many."""
+    the expert stacks int8 in both modes. Quantize once, serve many. On a
+    mesh each leaf is gathered whole, quantized, and cut into this rank's
+    shard (the JAX package's ``quantize_for_decode`` then ``shard_params``):
+    a row-parallel scale is the max over the whole input dimension."""
     if check_mode(mode) == "" or model.quant:
         raise ValueError(f"quantize_for_decode takes a full-precision model and a mode "
                          f"'int8' / 'int4'; got quant={model.quant!r}, mode={mode!r}")
-    if model.tp is not None:
-        raise _not_ported("a quantized model under tp", "item 12 (parallelism), A12 step 8")
-    qmodel = TransformerLM(model.cfg, device=model.device, quant=mode)
-    qmodel.load_state_dict(quantize_params_for_decode(qmodel, model.state_dict()), strict=True)
+    qmodel = TransformerLM(model.cfg, device=model.device, quant=mode, mesh=model.mesh)
+    state = quantize_params_for_decode(qmodel, _WholeLeaves(model), cut=qmodel.shard_state)
+    qmodel.load_state_dict(state, strict=True)
     return qmodel
 
 
@@ -249,6 +292,10 @@ def generate(
     ``eos_token`` a row emits its EOS and pads after it. The JAX scan also
     runs one last decode step whose sample it drops; this loop skips it.
     A capacity-dispatch MoE model runs under ``no_drop_capacity``.
+
+    On a mesh (the module docstring) every rank passes the whole prompt and
+    is handed the whole [B, max_new_tokens]; the data ranks run their row
+    blocks when they divide B.
     """
     if check_mode(quant):
         if not model.quant:
@@ -292,7 +339,8 @@ def load_model(cfg: ModelConfig, ckpt_dir: str, device, step: Optional[int] = No
     """The model of a checkpoint's params (``load_params`` with
     ``attempts`` tries of each read), its config fitted to them
     (``adapt_config_to_params``) -> (model, step). Its weights stay fp32,
-    as trained. ``mesh``: a tp mesh; each rank then keeps its shards."""
+    as trained. ``mesh``: a mesh (``generate``'s); each rank then keeps its
+    shards of the whole (pp=1) file."""
     params, step = load_params(ckpt_dir, step, retry=RetryPolicy(attempts=max(attempts, 1)))
     cfg = adapt_config_to_params(cfg, params)
     model = TransformerLM(cfg, device=device, mesh=mesh)
@@ -300,35 +348,25 @@ def load_model(cfg: ModelConfig, ckpt_dir: str, device, step: Optional[int] = No
     return model, step
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to orion_tpu_torch yet (ROADMAP.md queue A, {item})")
+MESH_FLAGS = ("dp", "fsdp", "tp", "sp")
 
 
-# the reference CLI's mesh flags that the port refuses, with the A12 step
-# that ports each
-_NOT_PORTED_MESH = {"sp": "A12 step 6 (generate --sp: prefill and decode of a "
-                          "sequence-parallel model)",
-                    "dp": "A12 step 6b (generate --dp / --fsdp: rows over data ranks)",
-                    "fsdp": "A12 step 6b (generate --dp / --fsdp: rows over data ranks)"}
-
-
-def _tp_mesh(args):
-    """The tp mesh of the CLI's ``--distributed`` / ``--tp`` (None without
-    ``--distributed``); the other mesh flags above 1 raise, naming their
-    A12 step."""
-    for axis, step in _NOT_PORTED_MESH.items():
-        if getattr(args, axis) > 1:
-            raise _not_ported(f"generate --{axis} {getattr(args, axis)}",
-                              f"item 12 (parallelism), {step}")
+def _mesh(args):
+    """The mesh of the CLI's ``--distributed`` and its ``--dp`` / ``--fsdp``
+    / ``--tp`` / ``--sp`` (None without ``--distributed``)."""
+    sizes = {axis: getattr(args, axis) for axis in MESH_FLAGS}
+    for axis, n in sizes.items():
+        if n < 1:
+            raise ValueError(f"--{axis} must be >= 1, got {n}")
     if not args.distributed:
-        if args.tp > 1:
-            raise ValueError(f"--tp {args.tp} needs its process group: run under torchrun with "
-                             "--distributed")
+        above = [f"--{axis} {n}" for axis, n in sizes.items() if n > 1]
+        if above:
+            raise ValueError(f"{' '.join(above)} needs its process group: run under torchrun "
+                             "with --distributed")
         return None
     from orion_tpu_torch.parallel.mesh import MeshConfig, init_distributed
 
-    return init_distributed(MeshConfig(dp=1, tp=args.tp), device=args.device)
+    return init_distributed(MeshConfig(**sizes), device=args.device)
 
 
 def _generate(model, prompt, max_new_tokens, sample, generator) -> Tensor:
@@ -341,15 +379,20 @@ def _generate(model, prompt, max_new_tokens, sample, generator) -> Tensor:
     if t0 + max_new_tokens > cap:
         raise ValueError(f"prompt {t0} + new {max_new_tokens} exceeds max_seq_len {cap}")
     keys = request_keys(_seed(generator), prompt.shape[0], model.device)
+    mesh = model.mesh
+    split = mesh is not None and mesh.n_data > 1 and prompt.shape[0] % mesh.n_data == 0
+    if split:  # this data rank's rows, drawn with the global rows' keys
+        rows = torch.from_numpy(mesh.row_index(prompt.shape[0])).to(model.device)
+        prompt, keys = prompt[rows], keys[rows]
     carry = prefill_carry(model, prompt, sample, keys)
     out: List[Tensor] = []
     for i in range(max_new_tokens):
         carry, emitted = _decode_body(model, sample, keys, carry, i,
                                       advance=i + 1 < max_new_tokens)
         out.append(emitted)
-    if not out:
-        return prompt.new_zeros(prompt.shape[0], 0)
-    return torch.stack(out, dim=1)
+    tokens = torch.stack(out, dim=1) if out else prompt.new_zeros(prompt.shape[0], 0)
+    # the row blocks in data-rank order: the global rows in order
+    return _gather_cat(tokens, 0, mesh.data_group) if split else tokens
 
 
 # -- chunked decode (serving) -------------------------------------------------
@@ -406,12 +449,35 @@ def prefill_carry(model: TransformerLM, tokens, sample: SampleConfig, keys: Tens
     t = tokens.shape[1]
     pad_to = bucket_for(t, buckets) if buckets else None
     with no_drop_capacity(model):
-        if pad_to is None:
-            logits, states = model.prefill_last(tokens)
-        else:
-            logits, states = model.prefill_last(F.pad(tokens, (0, pad_to - t)), t)
+        logits, states = prefill_prompt(model, tokens, pad_to)
     nxt = sample_rows(logits, rngs.fold_keys(keys, sample_index), sample)
     return nxt, states, t, done
+
+
+def sp_multiple(model: TransformerLM) -> int:
+    """The multiple a sequence-parallel model's prompt is padded to: sp, or
+    sp^2 when a striped ring runs its softmax layers (each shard then splits
+    into sp stripes); 1 without sp."""
+    if model.sp is None:
+        return 1
+    n, cfg = model.sp.sp, model.cfg
+    return n * n if cfg.ring_striped and "softmax" in cfg.resolved_layer_types else n
+
+
+def prefill_prompt(model: TransformerLM, tokens: Tensor, pad_to: Optional[int] = None):
+    """``model.prefill_last`` of the whole prompt [B, T] on any mesh ->
+    (logits [B, V], states): right-padded to ``pad_to`` (and, on sp, to
+    ``sp_multiple``) with its real length passed; on a sequence-parallel
+    model each rank prefills its shard."""
+    t = tokens.shape[1]
+    full = pad_to or t
+    mult = sp_multiple(model)
+    full = -(-full // mult) * mult
+    if full != t:
+        tokens = F.pad(tokens, (0, full - t))
+    if model.sp is not None:
+        tokens = model.sp.shard(tokens)
+    return model.prefill_last(tokens, t if full != t else None)
 
 
 def reprefill_carry(model: TransformerLM, prompt, emitted: List[Tensor], sample: SampleConfig,
@@ -670,15 +736,22 @@ def main(argv=None) -> int:
                    help="weight-streamed decode: int8 quarters the weight bytes of fp32, int4 "
                         "halves them again (orion_tpu_torch/quant.py)")
     p.add_argument("--distributed", action="store_true",
-                   help="join the process group from torchrun's environment (the tp mesh)")
+                   help="join the process group from torchrun's environment (the mesh of "
+                        "--dp / --fsdp / --tp / --sp, whose product is the world)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data parallelism (with --distributed): the prompt's rows over the "
+                        "ranks when they divide them, else every rank runs them all")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="as --dp, each rank also holding its shard of the weights, gathered on "
+                        "use")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism over the ranks (with --distributed): the heads and "
-                        "the MLPs' hidden dimension split, every rank emitting the same tokens")
-    for axis in ("dp", "fsdp", "sp"):
-        p.add_argument(f"--{axis}", type=int, default=1,
-                       help=f"the reference CLI's {axis} axis: above 1 raises (not ported)")
+                   help="tensor parallelism (with --distributed): the heads and the MLPs' hidden "
+                        "dimension split")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence parallelism (with --distributed): the prompt's tokens over the "
+                        "ranks for the prefill; the decode runs on every sp rank")
     args = p.parse_args(argv)
-    mesh = _tp_mesh(args)
+    mesh = _mesh(args)
     try:
         return _main(args, mesh)
     finally:
@@ -696,6 +769,8 @@ def _main(args, mesh) -> int:
         from orion_tpu_torch.utils.config import apply_overrides, parse_set_overrides
 
         cfg = apply_overrides(cfg, parse_set_overrides(args.set))
+    if mesh is not None and mesh.sp > 1:  # the prefill over token shards
+        cfg = dataclasses.replace(cfg, sequence_parallel=True)
     eos_token = -1
     if args.tokenizer:
         from orion_tpu_torch.utils.bpe import BPETokenizer
@@ -730,11 +805,9 @@ def _main(args, mesh) -> int:
         args.seed,
     )
     if mesh is not None:
-        from orion_tpu_torch.parallel.collectives import _gather_cat
-
-        every = _gather_cat(out, 0, mesh.tp_group)  # each rank's tokens, in rank order
+        every = _gather_cat(out, 0, None)  # each rank's tokens, in rank order
         if not all(torch.equal(o, out) for o in every.split(out.shape[0])):
-            raise RuntimeError(f"the tp ranks emitted different tokens: {every.tolist()}")
+            raise RuntimeError(f"the ranks emitted different tokens: {every.tolist()}")
         if not main_rank:
             return 0
     ids = [int(t) for t in out[0]]

@@ -54,7 +54,10 @@ backward sums the cotangents) are averaged over the data group before the
 product, in both dispatch rules; the z-loss stays this rank's mean, and
 ``training/trainer.py::lm_loss`` adds the weighted aux over the number of
 data ranks, so the ranks' summed gradients count it once. The capacity
-form's groups lie inside one row, so its drops do not depend on the mesh.
+form's groups lie inside one row, so its drops do not depend on the mesh. In
+decode (``generate`` on a data mesh) a rank routes its own rows and takes
+no collective; its expert stacks, bf16 or ``_q`` with their scales, are the
+replicated ones or, under fsdp, gathered whole for the call.
 
 Under tp (``mesh`` with tp above 1 dividing the hidden width ``h``; ep
 stays 1) the router stays whole on every tp rank, and each rank holds its

@@ -132,13 +132,31 @@ pp=1 run's params. Such a model runs through the pipeline only
 (``pipeline_lm.pp_lm_loss``, ``pp_lm_logits``, ``pp_lm_eval_sums``): its
 ``features``, ``prefill`` and decode methods raise.
 
+Decode on a mesh (``generate`` on any dp x fsdp x tp x sp mesh): a
+sequence-parallel model's ``prefill`` / ``prefill_last`` take this rank's
+shard of the right-padded prompt and the prompt's real length; each layer's
+out is its shard's (the sp bodies: linear layers' parts form, the striped
+ring or the halo), and its decode state the whole sequence's, the same bits
+on every sp rank: (S, z) summed over the ranks' local states in rank order
+(``sequence.sp_linear_attention_prefill``: one gather), the KV caches and
+rings built from the gathered rotated keys and values (``ring.gather_kv``);
+the first token's logits come from the rank holding the last real position
+(a broadcast). ``decode_step`` then runs replicated on every sp rank, as
+the JAX package's GSPMD runs it. Under fsdp the prefill and every decode
+step run each block on its leaves gathered whole (``FsdpParams.call``). A
+quantized model (``quant``) takes any of these meshes: its ``_q`` / ``_p4``
+buffers and ``_s`` scales are cut by the rules (``parallel/sharding.py``'s
+``tp_dims`` / ``fsdp_dims`` with ``quant``), after the whole leaf was
+quantized (``generate.quantize_for_decode``).
+
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
 item): the ep mesh axis (A12 step 8), and with it the
-expert-parallel MoE forms; prefill and decode of a sequence-parallel model
-(``generate --sp``, step 6); a sequence-parallel MoE, dropout on a
-sequence-parallel, data or tp mesh (step 7), and a quantized model on a
-mesh (step 8). The JAX package's ``attn_block_q`` / ``attn_block_k`` size
-TPU tiles and are not read.
+expert-parallel MoE forms; the serving engine on a mesh (the verify and
+prefill pieces of a sequence-parallel model, any piece of an fsdp model:
+step 8); a sequence-parallel MoE, dropout on a sequence-parallel, data or
+tp mesh (step 7), and a quantized model under pp (step 8). The JAX
+package's ``attn_block_q`` / ``attn_block_k`` size TPU tiles and are not
+read.
 """
 
 from __future__ import annotations
@@ -417,17 +435,29 @@ class Attention(nn.Module):
     def _sp_forward(self, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
         """The sp_local branch of the JAX model's ``__call__``: q, k, v [B, H,
         T_loc, Dh] of this rank's token shard."""
-        from orion_tpu_torch.parallel.ring import ring_attention_local, swa_halo_attention_local
         from orion_tpu_torch.parallel.sequence import sp_linear_attention_local
 
         cfg, group = self.cfg, self.sp.sp_group
         if self.layer_type == "linear":
             return sp_linear_attention_local(self._phi_map(q), self._phi_map(k), v, group,
                                              backend=cfg.backend, chunk=cfg.chunk)
-        t = q.shape[-2]
-        r = self.sp.sp_rank
-        ang = self.freqs[r * t:(r + 1) * t]  # the global positions of this shard's rows
-        q, k = apply_rotary(q, ang), apply_rotary(k, ang)
+        ang = self.freqs[self._sp_positions(q.shape[-2], q.device)]
+        return self._sp_softmax(apply_rotary(q, ang), apply_rotary(k, ang), v)
+
+    def _sp_positions(self, t: int, device) -> Tensor:
+        """The global positions of this rank's T_loc rows, clipped at the
+        table's end (a padded prompt's pad rows may run past it; no real
+        row reads them)."""
+        first = self.sp.sp_rank * t
+        return torch.arange(first, first + t, device=device).clamp(max=self.cfg.max_seq_len - 1)
+
+    def _sp_softmax(self, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+        """Softmax / swa attention over the sp shards of rotated q, k: the
+        halo on the card for swa, else the ring (striped for full-causal
+        softmax when ``cfg.ring_striped``)."""
+        from orion_tpu_torch.parallel.ring import ring_attention_local, swa_halo_attention_local
+
+        cfg, group = self.cfg, self.sp.sp_group
         if self.window is not None and resolve(cfg.backend, q.device) == "cuda":
             return swa_halo_attention_local(q, k, v, group, window=self.window,
                                             backend=cfg.backend)
@@ -438,8 +468,55 @@ class Attention(nn.Module):
 
     def _not_sp(self, what: str) -> None:
         if self.sp is not None:
-            raise _not_ported(f"{what} of a sequence-parallel model (generate --sp)",
-                              "item 12 (parallelism)")
+            raise _not_ported(f"{what} of a sequence-parallel model (the serving engine on a "
+                              "mesh)", "item 12 (parallelism), A12 step 8")
+
+    def _sp_prefill(self, q: Tensor, k: Tensor, v: Tensor, length) -> Tuple[Tensor, State]:
+        """``prefill`` on a sequence-parallel layer: q, k, v [B, H, T_loc,
+        Dh] of this rank's shard of the (right-padded) prompt, ``length``
+        the real length of the whole prompt (None: every row real). The
+        out is this rank's shard; the decode state is the whole sequence's,
+        the same bits on every sp rank:
+
+        - linear: pad rows' phi(k) and v zeroed, then
+          ``sp_linear_attention_prefill`` (its fused parts form on the card):
+          one gather of the ranks' (S, z), summed in rank order;
+        - softmax: the ring (or halo) for the out, then the rotated k and v
+          of every rank gathered (``ring.gather_kv``) and placed at slots
+          [0, T) of the [B, H, max_seq_len, Dh] cache;
+        - swa: the ring of the ``window`` positions before ``length`` from
+          the gathered rows (``_swa_cache_from_prefill_dynamic``)."""
+        from orion_tpu_torch.parallel.ring import gather_kv
+        from orion_tpu_torch.parallel.sequence import sp_linear_attention_prefill
+
+        cfg, group = self.cfg, self.sp.sp_group
+        t = q.shape[-2]
+        if self.layer_type == "linear":
+            qf, kf = self._phi_map(q), self._phi_map(k)
+            if length is not None:
+                first = self.sp.sp_rank * t
+                pos = torch.arange(first, first + t, device=q.device)
+                real = (pos < length)[None, None, :, None]
+                kf = torch.where(real, kf, torch.zeros_like(kf))
+                v = torch.where(real, v, torch.zeros_like(v))
+            out, (s, z) = sp_linear_attention_prefill(qf, kf, v, group, backend=cfg.backend,
+                                                      chunk=cfg.chunk)
+            return self._merge(out, single=False), {"s": s, "z": z}
+        ang = self.freqs[self._sp_positions(t, q.device)]
+        qr, kr = apply_rotary(q, ang), apply_rotary(k, ang)
+        out = self._sp_softmax(qr, kr, v)
+        k_all, v_all = gather_kv(kr, v, group)
+        if self.layer_type == "softmax":
+            # the real rows only: a padded prompt's pad slots stay zero, as
+            # an unpadded prefill leaves them
+            keep = min(k_all.shape[-2] if length is None else int(length), cfg.max_seq_len)
+            pad = (0, 0, 0, cfg.max_seq_len - keep)
+            state = {"k": F.pad(k_all[..., :keep, :], pad), "v": F.pad(v_all[..., :keep, :], pad)}
+        elif length is None:
+            state = _swa_cache_from_prefill(k_all, v_all, k_all.shape[-2], self.window)
+        else:
+            state = _swa_cache_from_prefill_dynamic(k_all, v_all, length, self.window)
+        return self._merge(out, single=False), state
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
         """x [B, T, D] -> [B, T, D]. ``mask`` [B, T] (True = a real key)
@@ -471,9 +548,14 @@ class Attention(nn.Module):
           never reads (step t writes slot t before it attends and masks the
           slots past t);
         - swa: the ring is built from the last ``window`` real positions.
+
+        On a sequence-parallel layer ``x`` is this rank's shard of the
+        prompt and ``length`` the whole prompt's real length
+        (``_sp_prefill``).
         """
-        self._not_sp("prefill")
         q, k, v = self._heads(x)
+        if self.sp is not None:
+            return self._sp_prefill(q, k, v, length)
         t = x.shape[-2]
         if self.layer_type != "linear":
             ang = self.freqs[:t]
@@ -513,8 +595,9 @@ class Attention(nn.Module):
         a free row or one mid-prefill can ride in the batch. ``x`` may hold
         more rows than the state (``decode_rows``' padding): the products
         run on all of them, the attention on the state's rows, and the
-        output has x's rows."""
-        self._not_sp("decode")
+        output has x's rows. A sequence-parallel layer decodes the same way
+        on every sp rank: its prefill left the whole sequence's state on
+        each."""
         q, k, v = self._heads(x)
         b, rows = next(iter(state.values())).shape[0], x.shape[0]
         if self.layer_type == "linear":
@@ -942,29 +1025,25 @@ class TransformerLM(nn.Module):
                 raise _not_ported(f"a device mesh of type {type(mesh).__name__} (the port takes "
                                   "parallel.mesh.Mesh)", "item 12 (parallelism)")
             mesh.cfg.check()
+        self.mesh = mesh
         self.sp = mesh if (mesh is not None and cfg.sequence_parallel and mesh.sp > 1) else None
-        if self.sp is not None and (quant or cfg.n_experts or cfg.dropout > 0.0):
-            raise _not_ported("a sequence-parallel model with quant, MoE layers or dropout",
-                              "item 12 (parallelism)")
+        if self.sp is not None and (cfg.n_experts or cfg.dropout > 0.0):
+            raise _not_ported("a sequence-parallel model with MoE layers or dropout",
+                              "item 12 (parallelism), A12 step 7")
         self.tp = mesh if mesh is not None and mesh.tp > 1 else None
         if self.tp is not None:
             if cfg.dropout > 0.0:
                 raise _not_ported("dropout under tp (its masks are drawn at a rank's shape, so "
                                   "they cannot match a tp=1 run's)",
                                   "item 12 (parallelism), A12 step 7")
-            if quant:
-                raise _not_ported("a quantized model under tp", "item 12 (parallelism), A12 "
-                                  "step 8")
-            tp_table = tp_dims(cfg, mesh.tp)  # raises unless tp divides n_heads
+            # raises unless tp divides n_heads (and, int4, each row shard's packed rows)
+            tp_table = tp_dims(cfg, mesh.tp, quant)
         self.n_data = mesh.n_data if mesh is not None else 1
         self.data_group = mesh.data_group if mesh is not None else None
         if self.n_data > 1 and cfg.dropout > 0.0:
             raise _not_ported("dropout on a data mesh (dp x fsdp > 1: its masks are drawn at a "
                               "rank's shape, so they cannot match a dp=1 run's)",
                               "item 12 (parallelism), A12 step 7")
-        if self.n_data > 1 and quant:
-            raise _not_ported("a quantized model on a data mesh", "item 12 (parallelism), A12 "
-                              "step 8")
         self.pp = mesh if mesh is not None and mesh.pp > 1 else None
         self.stage = range(cfg.n_layers)
         if self.pp is not None:
@@ -1013,8 +1092,8 @@ class TransformerLM(nn.Module):
             self.tp_params.shard_module(self)
         self.fsdp = None
         if mesh is not None and mesh.fsdp > 1:
-            self.fsdp = FsdpParams(self._held(fsdp_dims(cfg, mesh.fsdp)), mesh.fsdp_group,
-                                   mesh.fsdp, mesh.fsdp_rank)
+            self.fsdp = FsdpParams(self._held(fsdp_dims(cfg, mesh.fsdp, quant)),
+                                   mesh.fsdp_group, mesh.fsdp, mesh.fsdp_rank)
             self.fsdp.shard_module(self)
 
     def holds(self, name: str) -> bool:
@@ -1065,15 +1144,30 @@ class TransformerLM(nn.Module):
 
     def _embed(self, tokens: Tensor, positions) -> Tensor:
         if self.fsdp is not None:
-            return (self._whole("embed.weight")[tokens]
-                    + self._whole("pos_embed.weight")[positions]).to(self.cdt)
+            # the int8 table is replicated (the rules' embedding_q)
+            tok = self.embed(tokens) if self.quant else self._whole("embed.weight")[tokens]
+            return (tok + self._whole("pos_embed.weight")[positions]).to(self.cdt)
         return (self.embed(tokens) + self.pos_embed(positions)).to(self.cdt)
 
     def _whole(self, name: str) -> Tensor:
-        """The parameter ``name``, gathered over the fsdp group if it is a
-        shard."""
-        p = self.get_parameter(name)
+        """The parameter (or buffer) ``name``, gathered over the fsdp group
+        if it is a shard."""
+        owner, _, attr = name.rpartition(".")
+        p = getattr(self.get_submodule(owner), attr)
         return p if self.fsdp is None else self.fsdp.full(name, p)
+
+    def _block(self, i: int, blk: nn.Module, method: str, *args):
+        """``blk.<method>(*args)`` for block ``i``; under fsdp on its leaves
+        gathered whole for the call (a prefill's and every decode step's, as
+        GSPMD gathers them)."""
+        if self.fsdp is None:
+            return getattr(blk, method)(*args)
+        return self.fsdp.call(blk, f"blocks.{i}.", *args, method=method)
+
+    def _not_fsdp(self, what: str) -> None:
+        if self.fsdp is not None:
+            raise _not_ported(f"{what} of an fsdp model (the serving engine on a mesh)",
+                              "item 12 (parallelism), A12 step 8")
 
     def _head_operand(self) -> Tensor:
         """The head's weight (the tied table [V, D] or the untied
@@ -1104,7 +1198,8 @@ class TransformerLM(nn.Module):
         if self.quant:
             if self.cfg.tie_embeddings:
                 return self.embed.attend(x, self.cdt)
-            return (x.to(self.cdt).float() @ self.lm_head_kernel_q.float()) * self.lm_head_kernel_s
+            return ((x.to(self.cdt).float() @ self._whole("lm_head_kernel_q").float())
+                    * self.lm_head_kernel_s)
         w = self._head_operand()
         return x.to(self.cdt).float() @ (w.t() if self.cfg.tie_embeddings else w)
 
@@ -1158,24 +1253,48 @@ class TransformerLM(nn.Module):
 
     def _prefill_trunk(self, tokens: Tensor, length=None) -> Tuple[Tensor, List[State]]:
         self._whole_depth("prefill")
-        x = self._embed(tokens, torch.arange(tokens.shape[-1], device=tokens.device))
+        t = tokens.shape[-1]
+        first = self.sp.sp_rank * t if self.sp is not None else 0
+        # a padded sp prompt's pad rows may run past the table: clipped, never read
+        pos = torch.arange(first, first + t, device=tokens.device).clamp(
+            max=self.cfg.max_seq_len - 1)
+        x = self._embed(tokens, pos)
         states = []
-        for blk in self.blocks:
-            x, st = blk.prefill(x, length)
+        for i, blk in enumerate(self.blocks):
+            x, st = self._block(i, blk, "prefill", x, length)
             states.append(st)
         return x, states
 
     def prefill(self, tokens: Tensor, length=None) -> Tuple[Tensor, List[State]]:
-        """tokens [B, T] -> (logits [B, T, V], per-layer decode states)."""
+        """tokens [B, T] -> (logits [B, T, V], per-layer decode states). On a
+        sequence-parallel model ``tokens`` is this rank's shard [B, T / sp]
+        of the (right-padded) prompt and ``length`` the whole prompt's real
+        length (None: every row real); the logits are this shard's rows, the
+        states the whole sequence's, the same bits on every sp rank
+        (``Attention.prefill``)."""
         x, states = self._prefill_trunk(tokens, length)
         return self._head(x), states
 
     def prefill_last(self, tokens: Tensor, length=None) -> Tuple[Tensor, List[State]]:
         """prefill with the head on the last (real) position only ->
-        (logits [B, V], states)."""
+        (logits [B, V], states). On a sequence-parallel model (``prefill``)
+        the sp rank that holds position ``length - 1`` runs the head on it
+        and broadcasts the logits to the others, so every sp rank holds the
+        same bits."""
         x, states = self._prefill_trunk(tokens, length)
-        last = tokens.shape[-1] if length is None else length
-        return self._head(x[:, last - 1]), states
+        t = tokens.shape[-1]
+        if self.sp is None:
+            last = t if length is None else length
+            return self._head(x[:, last - 1]), states
+        from orion_tpu_torch.parallel.collectives import broadcast_from
+
+        last = int(t * self.sp.sp if length is None else length) - 1
+        owner = last // t
+        if self.sp.sp_rank == owner:
+            logits = self._head(x[:, last % t])
+        else:
+            logits = torch.empty(tokens.shape[0], self.cfg.vocab_size, device=x.device)
+        return broadcast_from(logits, self.sp.sp_group, owner), states
 
     def decode_step(
         self, token: Tensor, states: List[State], t, write: Optional[Tensor] = None
@@ -1188,8 +1307,8 @@ class TransformerLM(nn.Module):
         self._whole_depth("decode_step")
         x = decode_rows(self._embed(token, t))
         new_states = []
-        for blk, st in zip(self.blocks, states):
-            x, st = blk.decode_step(x, st, t, write)
+        for i, (blk, st) in enumerate(zip(self.blocks, states)):
+            x, st = self._block(i, blk, "decode_step", x, st, t, write)
             new_states.append(st)
         return self._head(x)[:token.shape[0]], new_states
 
@@ -1204,6 +1323,7 @@ class TransformerLM(nn.Module):
         returned, the given ones left as they were. Rows padded to
         ``DECODE_ROWS`` as ``decode_step``'s."""
         self._whole_depth("draft_step")
+        self._not_fsdp("draft_step")
         x = decode_rows(self._embed(token, t))
         new_states: List[State] = []
         it = iter(lin_states)
@@ -1231,6 +1351,7 @@ class TransformerLM(nn.Module):
         clamp a decode step's, so no index leaves the tables; the JAX
         package's lookup gives NaN there. Such rows are never emitted."""
         self._whole_depth("verify_step")
+        self._not_fsdp("verify_step")
         b, p = tokens.shape
         pos = self._piece_positions(t, b, p, tokens.device)
         n = b * p
@@ -1270,6 +1391,7 @@ class TransformerLM(nn.Module):
         piece they are what ``prefill_last`` hands the first sample.
         Positions are clipped, not sliced."""
         self._whole_depth("prefill_extend_step")
+        self._not_fsdp("prefill_extend_step")
         dev = tokens.device
         p = tokens.shape[-1]
         offset = torch.as_tensor(offset, device=dev).long()

@@ -128,7 +128,8 @@ def _nccl(group) -> bool:
 
 
 def _gather_cat(x: Tensor, dim: int, group) -> Tensor:
-    """The group's tensors concatenated along ``dim`` in group-rank order."""
+    """The group's tensors concatenated along ``dim`` in group-rank order
+    (``group`` None: the world). Not differentiable (``all_gather`` is)."""
     n, _ = _size_rank(group)
     if _nccl(group):
         moved = x.detach().movedim(dim, 0).contiguous()
@@ -382,6 +383,16 @@ def recv_from(shape, dtype: torch.dtype, device, group, src: int) -> Tensor:
     return buf.to(dev)
 
 
+def broadcast_from(x: Tensor, group, src: int) -> Tensor:
+    """Group rank ``src``'s ``x`` on every rank of the group (the others pass
+    a tensor of its shape and dtype, whose values are not read): one
+    broadcast, staged through host memory for a CUDA tensor under gloo. Not
+    differentiable."""
+    wire = _to_wire(x, group).clone()
+    dist.broadcast(wire, dist.get_global_rank(group, src), group=group)
+    return wire.to(x.device)
+
+
 def any_rank(flag: bool, device, group: Optional[dist.ProcessGroup] = None) -> bool:
     """Is ``flag`` set on any rank of the group? One int reduced with MAX
     (on the host for gloo, on ``device`` for NCCL): the ranks of a mesh
@@ -395,4 +406,4 @@ def any_rank(flag: bool, device, group: Optional[dist.ProcessGroup] = None) -> b
 
 __all__ = ["ppermute_shift", "exclusive_prefix_sum", "exchange", "touch", "all_reduce_sum_",
            "all_gather", "reduce_scatter", "all_reduce_mean", "any_rank", "copy_to_tp",
-           "reduce_from_tp", "send_to", "recv_from"]
+           "reduce_from_tp", "send_to", "recv_from", "broadcast_from"]

@@ -26,6 +26,9 @@ into a running online-softmax accumulator (m, l, acc).
   before it: h shifts and h + 1 flash calls, the halo block m at
   ``q_offset = m T_loc``, merged by log-sum-exp.
 
+A prefill on sp (``gather_kv``) hands decode the whole sequence's keys and
+values: one all_gather of the rotated shards, the same on every rank.
+
 The einsum folds of the contiguous and the XLA-striped bodies run outside
 any kernel in the reference too, so they are plain torch here. Blocks are
 merged in fp32. Gradients flow through every fold, the flash kernels' own
@@ -44,7 +47,7 @@ import torch.distributed as dist
 
 from orion_tpu_torch.ops.dispatch import resolve
 from orion_tpu_torch.ops.kernels.flash_attention import flash_attention_lse
-from orion_tpu_torch.parallel.collectives import exchange, ppermute_shift, touch
+from orion_tpu_torch.parallel.collectives import _gather_cat, exchange, ppermute_shift, touch
 
 Tensor = torch.Tensor
 
@@ -220,4 +223,16 @@ def ring_attention_local(
     return _from_striped(out, group, n) if striped else out
 
 
-__all__ = ["ring_attention_local", "swa_halo_attention_local"]
+def gather_kv(k: Tensor, v: Tensor, group):
+    """The prefill's cache gather: this rank's rotated keys and values [...,
+    T_loc, D] -> the whole sequence's [..., sp T_loc, D], the same on every
+    rank of the group. One all_gather (k and v packed along the last
+    dimension), the shards concatenated in rank order, which is the global
+    order of contiguous shards. The caller places them into a softmax
+    layer's KV cache or builds a swa layer's ring from them. Not
+    differentiable (decode only)."""
+    kv = _gather_cat(torch.cat([k, v.to(k.dtype)], dim=-1), -2, group)
+    return kv[..., :k.shape[-1]], kv[..., k.shape[-1]:].to(v.dtype)
+
+
+__all__ = ["ring_attention_local", "swa_halo_attention_local", "gather_kv"]

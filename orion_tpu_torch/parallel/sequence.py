@@ -22,6 +22,11 @@ Two forms, as in the JAX package:
 - two_pass (its XLA form): the shard's states by einsum, the prefix, then
   the causal dot product seeded with S_0 and the denominator from a cumsum.
 
+The prefill (``sp_linear_attention_prefill``) also needs the whole
+sequence's state for decode, the same bits on every rank: one all_gather of
+the ranks' (S, z) gives each rank both its exclusive prefix and the total,
+summed in rank order.
+
 Differentiable end to end: the exclusive prefix's backward is the reverse
 exclusive sum (``collectives.py``), and every rank's output depends on the
 prefix (rank 0's is a masked sum of zeros), so its backward runs on every
@@ -35,9 +40,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from orion_tpu_torch.ops.dispatch import causal_dot_product, resolve
-from orion_tpu_torch.parallel.collectives import exclusive_prefix_sum
+from orion_tpu_torch.parallel.collectives import _gather_cat, exclusive_prefix_sum
 
 Tensor = torch.Tensor
 
@@ -45,6 +51,33 @@ Tensor = torch.Tensor
 def _local_states(k: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
     kf, vf = k.float(), v.float()
     return torch.einsum("...td,...te->...de", kf, vf), kf.sum(dim=-2)
+
+
+def _sp_linear(q: Tensor, k: Tensor, v: Tensor, prefix, *, backend: str, chunk: Optional[int],
+               eps: float, form: Optional[str]):
+    """The body both public forms share: the shard's pass, the prefix
+    (S_0, z_0) from ``prefix(S_loc, z_loc) -> (S_0, z_0, extra)``, and the
+    corrected, normalized output -> (out in q's dtype, extra)."""
+    from orion_tpu_torch.ops.kernels.causal_dot import linear_attention_parts
+
+    if form is None:
+        form = "parts" if resolve(backend, q.device) == "cuda" else "two_pass"
+    if form not in ("parts", "two_pass"):
+        raise ValueError(f"form must be 'parts', 'two_pass' or None, got {form!r}")
+    qf = q.float()
+    q_in = qf.to(q.dtype)  # the pass's operand: its gradient meets the prefix's in fp32
+    if form == "parts":
+        num_loc, den_loc, (s_loc, z_loc) = linear_attention_parts(
+            q_in, k, v, chunk=chunk, backend=backend)
+        s0, z0, extra = prefix(s_loc, z_loc)
+        num = num_loc + torch.einsum("...td,...de->...te", qf, s0)
+        den = den_loc + torch.einsum("...td,...d->...t", qf, z0)
+        return (num / (den + eps)[..., None]).to(q.dtype), extra
+    s0, z0, extra = prefix(*_local_states(k, v))
+    num = causal_dot_product(q_in, k, v, backend=backend, chunk=chunk, initial_state=s0)
+    zcum = torch.cumsum(k.float(), dim=-2) + z0[..., None, :]
+    den = torch.einsum("...td,...td->...t", qf, zcum)
+    return (num.float() / (den[..., None] + eps)).to(q.dtype), extra
 
 
 def sp_linear_attention_local(
@@ -60,30 +93,45 @@ def sp_linear_attention_local(
     ``backend`` resolves to the kernels (CUDA tensors) and "two_pass"
     otherwise, as the JAX package takes its Pallas form with a Pallas
     backend. Either form runs on either backend."""
-    from orion_tpu_torch.ops.kernels.causal_dot import linear_attention_parts
 
-    if form is None:
-        form = "parts" if resolve(backend, q.device) == "cuda" else "two_pass"
-    qf = q.float()
-    q_in = qf.to(q.dtype)  # the pass's operand: its gradient meets the prefix's in fp32
-    if form == "parts":
-        num_loc, den_loc, (s_loc, z_loc) = linear_attention_parts(
-            q_in, k, v, chunk=chunk, backend=backend)
-        s0 = exclusive_prefix_sum(s_loc, group)
-        z0 = exclusive_prefix_sum(z_loc, group)
-        num = num_loc + torch.einsum("...td,...de->...te", qf, s0)
-        den = den_loc + torch.einsum("...td,...d->...t", qf, z0)
-        return (num / (den + eps)[..., None]).to(q.dtype)
-    if form != "two_pass":
-        raise ValueError(f"form must be 'parts', 'two_pass' or None, got {form!r}")
-    s_loc, z_loc = _local_states(k, v)
-    s0 = exclusive_prefix_sum(s_loc, group)
-    z0 = exclusive_prefix_sum(z_loc, group)
-    num = causal_dot_product(q_in, k, v, backend=backend, chunk=chunk, initial_state=s0)
-    kf = k.float()
-    zcum = torch.cumsum(kf, dim=-2) + z0[..., None, :]
-    den = torch.einsum("...td,...td->...t", qf, zcum)
-    return (num.float() / (den[..., None] + eps)).to(q.dtype)
+    def prefix(s_loc, z_loc):  # differentiable: the reverse exclusive sum is its backward
+        return exclusive_prefix_sum(s_loc, group), exclusive_prefix_sum(z_loc, group), None
+
+    return _sp_linear(q, k, v, prefix, backend=backend, chunk=chunk, eps=eps, form=form)[0]
 
 
-__all__ = ["sp_linear_attention_local"]
+def sp_linear_attention_prefill(
+    q: Tensor, k: Tensor, v: Tensor, group, *, backend: str = "auto",
+    chunk: Optional[int] = None, eps: float = 1e-6, form: Optional[str] = None,
+) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+    """The prefill's form of ``sp_linear_attention_local``: (this rank's
+    shard of the output, the whole sequence's (S, z)), the state the same
+    bits on every rank of the group. One all_gather of the ranks' local
+    (S, z) (packed into one fp32 buffer); from it each rank takes the
+    exclusive prefix (S_0, z_0) for its output and the total for the decode
+    state, both summed in rank order. Rows the caller zeroed in k and v (a
+    right-padded prompt's pad rows) add nothing to either. Not
+    differentiable (decode only); ``form`` as ``sp_linear_attention_local``
+    takes it."""
+
+    def prefix(s_loc, z_loc):
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        flat = torch.cat([s_loc.float().reshape(-1), z_loc.float().reshape(-1)])
+        parts = _gather_cat(flat[None], 0, group)  # [n, |S| + |z|], rank order
+        total = torch.zeros_like(flat)
+        before = total
+        for j in range(n):
+            if j == me:
+                before = total
+            total = total + parts[j]
+        ns = s_loc.numel()
+
+        def unpack(buf):
+            return buf[:ns].view_as(s_loc), buf[ns:].view_as(z_loc)
+
+        return (*unpack(before), unpack(total))
+
+    return _sp_linear(q, k, v, prefix, backend=backend, chunk=chunk, eps=eps, form=form)
+
+
+__all__ = ["sp_linear_attention_local", "sp_linear_attention_prefill"]

@@ -21,6 +21,15 @@ Layouts (what ``convert.py`` maps the JAX package's quantized tree onto):
 - a MoE layer's expert stacks ``experts_{gate,up,down}_q`` [E, in, out] int8
   with ``_s`` [E, out] fp32 (``models/moe.py``).
 
+On a mesh a layer holds this rank's shard of its buffers
+(``parallel/sharding.py``): a column-parallel layer (``wq`` / ``wk`` / ``wv``
+/ ``gate`` / ``up``) its output channels and their scales, a row-parallel
+one (``wo`` / ``down``) its input rows, packed rows for int4, with every
+scale whole. So ``Int4Dense`` runs row 14 on the shard, and
+``q4_matmul_variant`` picks the mma or the simt kernel from the shard's
+widths (mma: d % 8 == 0, out % 16 == 0); at lm_1b3's widths (d 2048, heads
+2048, hidden 5504) every shard of tp 2 and tp 4 takes mma.
+
 Quantized tensors are buffers, not parameters: a quantized model serves and
 is not trained. ``Int4Dense`` takes the hand-written kernel
 (``ops/kernels/q4_matmul.py``, ``csrc/q4_matmul.cu``) for at most
@@ -32,7 +41,7 @@ in the compute dtype, a product the JAX package leaves to XLA and the port to
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -175,15 +184,26 @@ _REDUCE_AXES = {
 
 
 @torch.no_grad()
-def quantize_params_for_decode(qmodel: nn.Module, params: Dict[str, Tensor]) -> Dict[str, Tensor]:
+def quantize_params_for_decode(qmodel: nn.Module, params: Mapping[str, Tensor],
+                               cut: Optional[Callable[[Dict[str, Tensor]], Dict[str, Tensor]]]
+                               = None) -> Dict[str, Tensor]:
     """The fp32 (or compute-dtype) state_dict of a full-precision model ->
     the state_dict of ``qmodel``, its quantized counterpart: every tensor
     ``qmodel`` holds as ``*_q`` / ``*_p4`` is quantized from the tensor of the
     same name without the suffix, its ``*_s`` made beside it; everything else
     (norms, the positional table, routers) is copied. Driven by ``qmodel``'s
-    own state_dict, so the rules follow what its modules hold."""
+    own state_dict, so the rules follow what its modules hold.
+
+    On a mesh (the JAX package's order: quantize, then shard) ``params``
+    hands out each whole leaf when it is read, in ``qmodel``'s key order, and
+    ``cut`` takes the whole leaves made from it (the tensor and its scales)
+    to this rank's shards (``TransformerLM.shard_state``): a leaf is never
+    quantized from a shard, since a row-parallel scale is the max over the
+    whole input dimension."""
     out: Dict[str, Tensor] = {}
-    for key, leaf in qmodel.state_dict().items():
+    cut = cut or (lambda leaves: leaves)
+    held = qmodel.state_dict()
+    for key, leaf in held.items():
         name = key.rsplit(".", 1)[-1]
         if name.endswith("_s"):
             continue  # made with its _q / _p4 twin
@@ -194,12 +214,14 @@ def quantize_params_for_decode(qmodel: nn.Module, params: Dict[str, Tensor]) -> 
             src = key[: -len("_q")]
             q, s = quantize_int8(params[src], _REDUCE_AXES[name])
         else:
-            out[key] = params[key]
+            out.update(cut({key: params[key]}))
             continue
-        if q.shape != leaf.shape or q.dtype != leaf.dtype:
-            raise ValueError(f"{key}: quantized {tuple(q.shape)} {q.dtype}, the model holds "
-                             f"{tuple(leaf.shape)} {leaf.dtype}")
-        out[key], out[src + "_s"] = q, s
+        mine = cut({key: q, src + "_s": s})
+        for k, t in mine.items():
+            if t.shape != held[k].shape or t.dtype != held[k].dtype:
+                raise ValueError(f"{k}: quantized {tuple(t.shape)} {t.dtype}, the model holds "
+                                 f"{tuple(held[k].shape)} {held[k].dtype}")
+        out.update(mine)
     missing = set(qmodel.state_dict()) - set(out)
     if missing:
         raise KeyError(f"no source for {sorted(missing)}")

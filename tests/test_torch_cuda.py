@@ -609,6 +609,30 @@ def test_linear_attention_parts_on_the_kernels(dev, dtype):
         _max_close(got, ref, rtol)
 
 
+@pytest.mark.parametrize("t", [512, 256])
+def test_parts_forward_on_a_prefill_shard_matches_plain(dev, t):
+    """Row 1 with its parts (the sp prefill's form, ``parallel/sequence.py``)
+    at one rank's token shard of lm_1b3's 1024-token prefill (sp 2: T 512;
+    sp 4: T 256), B 4, 16 heads, D 128, bf16, from a zero state, some rows
+    zeroed as a right-padded prompt's pad rows: the wgmma variant; out
+    within one bf16 step plus 1e-4, num, den, S, z within 1e-4 of their
+    largest magnitude, against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(t)
+    q, k = (torch.nn.functional.elu(torch.randn(64, t, 128, device=dev, generator=g))
+            .add(1.0).to(torch.bfloat16) for _ in range(2))
+    v = torch.randn(64, t, 128, device=dev, generator=g).to(torch.bfloat16)
+    k[:, t - 3:] = 0  # pad rows: phi(k) and v zeroed before the pass
+    v[:, t - 3:] = 0
+    assert causal_dot.causal_dot_norm_variant(q, k, v) == "wgmma"
+    before = _norm_counts()
+    out, sf, zf, num, den = causal_dot.causal_dot_norm_cuda(q, k, v, with_parts=True)
+    assert _norm_counts() == (before[0] + 1, before[1] + 1, before[2])
+    r_out, r_s, r_z, r_num, r_den = causal_dot.causal_dot_norm_plain(q, k, v, with_parts=True)
+    _max_close(out, r_out, 2**-7)
+    for got, ref in ((sf, r_s), (zf, r_z), (num, r_num), (den, r_den)):
+        torch.testing.assert_close(got, ref, rtol=0.0, atol=1e-4 * float(ref.abs().max()))
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_fwd_wgmma_layout_on_one_tile(dev, causal):
     """The wgmma forward on one 64 x 64 tile (one head, T 64, D 128): S = q
@@ -918,6 +942,46 @@ def test_q4_matmul_kernel_matches_plain(dev, dtype, b, d, out):
 
 def _q4_counts():
     return q4m.launches, q4m.launches_mma, q4m.launches_simt
+
+
+# lm_1b3's int4 layers as a tp rank holds them, at decode's 64 padded rows:
+# column shards (wq / wk / wv, gate / up) cut along their output channels,
+# row shards (wo, down) along their packed input rows
+@pytest.mark.parametrize("tp,d,out", [(2, 2048, 1024), (2, 1024, 2048), (2, 2048, 2752),
+                                      (2, 2752, 2048), (4, 2048, 512), (4, 512, 2048),
+                                      (4, 2048, 1376), (4, 1376, 2048)])
+def test_q4_on_a_tp_shard_matches_plain(dev, tp, d, out):
+    """Row 14 at a tp rank's shard of lm_1b3's widths (tp 2: wq..wv out
+    1024, wo in 1024, gate / up out 2752, down in 2752; tp 4 halves them),
+    64 rows: the mma variant, within the kernel limits of
+    ``test_q4_matmul_kernel_matches_plain``."""
+    g = torch.Generator(device=dev).manual_seed(tp * d + out)
+    x, p, s = _q4_problem(g, dev, 64, d, out, torch.bfloat16)
+    assert q4m.q4_matmul_variant(x, p, s) == "mma"
+    before = _q4_counts()
+    y = q4m.q4_matmul_cuda(x, p, s)
+    assert _q4_counts() == (before[0] + 1, before[1] + 1, before[2])
+    _max_close(y, q4m.q4_matmul_torch(x, p, s), 2**-7)
+
+
+def test_q4_row_shards_sum_to_the_whole_layer(dev):
+    """An int4 ``down`` of lm_1b3 quantized whole, then cut along its packed
+    input rows as tp 2 cuts it (``parallel/sharding.py``: the scales whole):
+    the two ranks' kernel outputs, summed in fp32, within the kernel limit
+    of the whole layer's plain product (each rank's partial sum is rounded
+    to bf16 once, as under tp)."""
+    from orion_tpu_torch.quant import quantize_int4_packed
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    w = torch.randn(5504, 2048, device=dev, generator=g) * 0.02  # [in, out]
+    p, s = quantize_int4_packed(w)
+    x = torch.randn(64, 5504, device=dev, generator=g).to(torch.bfloat16)
+    parts = [q4m.q4_matmul_cuda(x[:, i * 2752:(i + 1) * 2752].contiguous(),
+                                p[i * 1376:(i + 1) * 1376].contiguous(), s) for i in (0, 1)]
+    whole = q4m.q4_matmul_torch(x, p, s).float()
+    got = parts[0].float() + parts[1].float()
+    err = float((got - whole).abs().max())
+    assert err <= 2 * 2**-7 * float(whole.abs().max()), err
 
 
 def test_q4_outside_the_mma_conditions_takes_simt(dev):

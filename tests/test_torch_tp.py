@@ -21,8 +21,9 @@ the cut and gather of a model's params, and what a tp mesh refuses.
   one (d, f, s).
 - The refusals, each naming its A12 step: tp not dividing ``n_heads``,
   dropout (step 7), quant (step 8), ``adafactor`` / ``bfloat16_sr`` (step
-  9, also under pp), LRA on a tp mesh (step 7), ep, generate's ``--sp`` (step 6),
-  ``--dp`` / ``--fsdp`` (step 6b) and ``--tp`` without ``--distributed``.
+  9, also under pp), LRA on a tp mesh (step 7), ep, a quantized model under
+  pp (step 8), an int4 row shard tp cannot cut, and generate's mesh flags
+  without ``--distributed``.
 """
 
 import dataclasses
@@ -221,8 +222,13 @@ def test_dropout_quant_and_odd_heads_under_tp_raise():
     mesh = _mesh(MeshConfig(dp=1, tp=2))
     with pytest.raises(NotImplementedError, match="item 12.*A12 step 7"):
         TransformerLM(ModelConfig(**dict(TINY, dropout=0.1)), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 12.*A12 step 8"):
-        TransformerLM(ModelConfig(**TINY), device="cpu", mesh=mesh, quant="int8")
+    # a quantized model under tp is ported (tests/test_torch_genmesh_quant.py);
+    # int4 refuses a row shard whose packed rows tp does not divide: hidden
+    # 66 splits over tp 2, its 33 packed rows of down do not
+    TransformerLM(ModelConfig(**TINY), device="cpu", mesh=mesh, quant="int8")
+    with pytest.raises(ValueError, match="blocks.0.mlp.down.weight_p4"):
+        TransformerLM(ModelConfig(**dict(TINY, mlp_hidden=66)), device="cpu", mesh=mesh,
+                      quant="int4")
     with pytest.raises(ValueError, match="n_heads"):
         TransformerLM(ModelConfig(**dict(TINY, n_heads=1)), device="cpu", mesh=mesh)
 
@@ -265,10 +271,13 @@ def test_lra_on_a_tp_mesh_raises_naming_step_7():
 @pytest.mark.parametrize("flag,step", [("--sp", "A12 step 6 "), ("--dp", "A12 step 6b"),
                                        ("--fsdp", "A12 step 6b")])
 def test_generate_refuses_the_mesh_flags_it_does_not_port(flag, step):
+    """Each mesh flag is ported (``step`` ported it: tests/test_torch_genmesh*.py);
+    without ``--distributed`` it is refused, for want of its process group."""
     from orion_tpu_torch.generate import main
 
-    with pytest.raises(NotImplementedError, match=step):
+    with pytest.raises(ValueError, match=f"{flag} 2 needs its process group") as err:
         main(["--device", "cpu", flag, "2"])
+    assert step not in str(err.value)
 
 
 def test_generate_tp_needs_distributed():
@@ -279,8 +288,12 @@ def test_generate_tp_needs_distributed():
 
 
 def test_generate_quant_under_tp_raises_naming_step_8():
+    """Quantizing under tp is ported (tests/test_torch_genmesh_quant.py);
+    what still refuses names step 8: a quantized model under pp."""
     from orion_tpu_torch.generate import quantize_for_decode
 
-    model = dataclasses.make_dataclass("M", [("quant", str), ("tp", object)])("", object())
-    with pytest.raises(NotImplementedError, match="A12 step 8"):
+    model = dataclasses.make_dataclass("M", [("quant", str), ("cfg", object), ("device", object),
+                                             ("mesh", object)])(
+        "", ModelConfig(**TINY), torch.device("cpu"), _mesh(MeshConfig(dp=1, tp=2, pp=2)))
+    with pytest.raises(NotImplementedError, match="under pp.*A12 step 8"):
         quantize_for_decode(model, "int8")
