@@ -1,6 +1,6 @@
 """Quickest proof that the PyTorch/CUDA port runs on an NVIDIA card.
 
-    python3 chip_smoke.py [--part fleet|train|tp|pp|genmesh]
+    python3 chip_smoke.py [--part fleet|train|tp|pp|genmesh|combos]
 
 From the root of a checkout, on a machine with one CUDA card and ``nvcc``
 (``$CUDA_HOME/bin`` or on ``PATH``). It imports nothing of JAX or of the JAX
@@ -99,7 +99,7 @@ nonzero and no result line is printed):
    that match counted; launches exact a rank, counted by kernel name,
    ``launches_tp``), then the pp part (``pp_phase``: GPipe stages over
    depth, ranks of this script sharing the card over gloo: (a) lm_1b3 at
-   full width and depth, B 8 x 1024, two AdamW steps at pp 2 (12 blocks a
+   full width, 4 blocks, B 8 x 1024, two AdamW steps at pp 2 (2 blocks a
    stage, 8 microbatches) on 2 ranks against its pp=1 twin within the dp
    part's limits, each rank's peak memory below the twin's, the leaves
    every stage holds bitwise on both ranks, the host ms a rank waits on its
@@ -112,17 +112,23 @@ nonzero and no result line is printed):
    own; launches exact a rank, a stage's blocks once a microbatch, every
    one recomputed, ``launches_pp``), then the genmesh part
    (``genmesh_phase``: ``generate`` on the meshes the JAX CLI takes, in the
-   same two spawns: G1-G4 of ``GENMESH_2`` / ``GENMESH_4``, lm_1b3 at full
-   depth at sp 2, dp 2 and fsdp 2, the dropless MoE at dp 2, the hybrid at
+   same two spawns: G1-G4 of ``GENMESH_2`` / ``GENMESH_4``, lm_1b3 at 4
+   blocks at sp 2, dp 2 and fsdp 2, the dropless MoE at dp 2, the hybrid at
    sp 2, sp 4 on a padded prompt, int8 and int4 at dp 2 x tp 2, each
    teacher-forced against its one-rank twin within tp's limits with every
    launch of rows 1, 6, 9 and 14 held against its plain version, the
-   tokens bitwise across ranks, launches exact, ``launches_genmesh``);
+   tokens bitwise across ranks, launches exact, ``launches_genmesh``), then
+   the combos part (``combos_phase``: the mesh combinations of A12 step 7
+   in the same two spawns, the comment above ``COMBOS_DEPTH``: M1 the
+   dropless MoE trained at sp 2, rows 9-10 on each rank's token shard; M2
+   its ``generate`` at sp 2; M3 lm_1b3 with dropout at dp 2 x tp 2 and sp
+   2 x dp 2, every mask bitwise the twin's; M4 ``train_lra`` at dp 2; each
+   against its one-rank twin, ``launches_combos``);
    each part runs alone as ``cs.sp_phase(...)`` / ``cs.dp_phase(dev)`` /
    ``cs.tp_phase(dev)`` / ``cs.pp_phase(dev)`` / ``cs.genmesh_phase(dev)``
-   after ``cs.build(mods)``, and ``python3 chip_smoke.py --part tp`` (or
-   ``--part pp``, ``--part genmesh``) runs the build, the kernel checks and
-   that part alone;
+   / ``cs.combos_phase(dev)`` after ``cs.build(mods)``, and ``python3
+   chip_smoke.py --part tp`` (or ``--part pp``, ``--part genmesh``, ``--part
+   combos``) runs the build, the kernel checks and that part alone;
 4. the public op ``orion_tpu_torch.ops.causal_dot_product``, forward and
    backward through ``CausalDotProductFn`` at [B 8, H 16, T 1024, D 128]
    bf16 with an initial state and the returned state, then at Dk 128, Dv
@@ -2114,6 +2120,105 @@ class PipelinePinnedRouting(PinnedRouting):
         return pinned, g / g.sum(-1, keepdim=True).clamp_min(1e-9)
 
 
+class ShardPinnedRouting(PinnedRouting):
+    """``PinnedRouting`` for ``generate`` on an sp mesh against its one-rank
+    twin: each MoE layer's calls are keyed by their order (the prefill, then
+    one a decode step), recorded on the twin's run and replayed on the sp
+    rank's, whose prefill routes its shard of the prompt's tokens (the
+    twin's [B T, k] choices cut to tokens [s T / sp, (s + 1) T / sp) of
+    each row). ``restart()`` before the replayed run."""
+
+    def __init__(self, t, sp, sp_rank):
+        super().__init__()
+        self.t, self.sp, self.s, self.calls = t, sp, sp_rank, {}
+
+    def restart(self):
+        self.calls = {}
+
+    def choice(self, probs, k):
+        c = self.calls[self.current] = self.calls.get(self.current, -1) + 1
+        ids, _ = self.real(probs, k)
+        pinned = self.routes.setdefault((self.current, c), ids)
+        if pinned is not ids:
+            if pinned.shape[0] != ids.shape[0]:  # the sp prefill: this rank's tokens
+                t_loc = self.t // self.sp
+                pinned = pinned.reshape(-1, self.t, k)[:, self.s * t_loc:(self.s + 1) * t_loc]
+                pinned = pinned.reshape(-1, k)
+            self.flips += int((pinned != ids).any(-1).sum())
+            self.choices += ids.shape[0]
+        g = probs.gather(-1, pinned)
+        return pinned, g / g.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
+class MaskTap:
+    """Every dropout mask ``models/transformer.py`` draws within ``with
+    tap:`` (``dropout_keep``), by its block key, site, first global row and
+    token, and shape: with ``keep_full`` the masks themselves on the host
+    (a twin's), else a crc32 of each (a mesh rank's). A draw equal to an
+    earlier one of the same key, position and shape (a recomputation's)
+    counts in ``redraws``, one that differs in ``differs``."""
+
+    def __init__(self, keep_full=False):
+        from orion_tpu_torch.models import transformer
+
+        self.mod, self.real, self.keep_full = transformer, transformer.dropout_keep, keep_full
+        self.draws, self.redraws, self.differs = {}, 0, 0
+
+    def keep(self, key, site, shape, rate, device=None):
+        import zlib
+
+        keep = self.real(key, site, shape, rate, device)
+        host = keep.cpu()
+        val = host if self.keep_full else zlib.crc32(host.numpy().tobytes())
+        ident = (key.seed, site, key.row, key.token, tuple(keep.shape))
+        old = self.draws.setdefault(ident, val)
+        if old is not val:
+            same = torch.equal(old, val) if self.keep_full else old == val
+            self.redraws += int(same)
+            self.differs += int(not same)
+        return keep
+
+    def __enter__(self):
+        self.mod.dropout_keep = self.keep
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dropout_keep = self.real
+
+    def gather(self):
+        """Every rank's draws (crc32s) and counts, in rank order: a
+        collective over the world."""
+        import torch.distributed as dist
+
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, {"draws": self.draws, "redraws": self.redraws,
+                                     "differs": self.differs})
+        return out
+
+    def check(self, ranks, m):
+        """This (full) tap's masks cut at each rank's rows and tokens against
+        the ranks' draws (``gather``) -> {"compared", "equal", "missing",
+        "redraws", "differs", "keys"}: every key a rank drew must be the
+        twin's, every draw equal to the twin mask's slice."""
+        import zlib
+
+        whole = {(seed, site): mask for (seed, site, _, _, _), mask in self.draws.items()}
+        out = {"compared": 0, "equal": 0, "missing": 0, "keys": len(whole),
+               "redraws": self.redraws + sum(r["redraws"] for r in ranks),
+               "differs": self.differs + sum(r["differs"] for r in ranks)}
+        for r in ranks:
+            for (seed, site, row, token, shape), crc in r["draws"].items():
+                full = whole.get((seed, site))
+                if full is None:
+                    out["missing"] += 1
+                    continue
+                cut = full[row:row + shape[0], token:token + shape[1], :shape[2]]
+                out["compared"] += 1
+                out["equal"] += int(tuple(cut.shape) == shape and zlib.crc32(
+                    cut.contiguous().numpy().tobytes()) == crc)
+        return out
+
+
 def generate_phase(dev, mods, name, prompt_len, new_tokens, overrides=None, audit=False,
                    model_limits=True):
     """``generate`` on ``name`` (with ``overrides``) at full width: prefill
@@ -2883,7 +2988,7 @@ def plain_spread(dev, name, seq_len, overrides):
 
 
 class LaunchAudit:
-    """Every launch of the rows it wraps (``rows``, of 1, 3, 4, 6, 9 and 14)
+    """Every launch of the rows it wraps (``rows``, of 1, 3, 4, 6, 9, 10 and 14)
     inside ``with LaunchAudit(mods, rows):`` held against its plain version
     on the same inputs, at the kernel checks' limits: row 1's out within
     ``OUT_ATOL + rtol |ref|`` (``OUT_RTOL`` for bf16, ``OUT_RTOL_FP32`` for
@@ -2891,8 +2996,9 @@ class LaunchAudit:
     rows 3 and 4's dq, dk, dv by ``_grad_reading`` and dS0, dz0 within
     ``STATE_RTOL``; row 6's out by ``_grad_reading`` at ``FLASH_RTOL`` /
     ``FLASH_ATOL_OF_MAX`` and its lse within ``LSE_RTOL``; row 9's y at
-    ``GMM_RTOL`` / ``GMM_ATOL_OF_MAX``; row 14's y at ``Q4_RTOL`` /
-    ``Q4_ATOL_OF_MAX``. ``mods``: (causal_dot, flash_attention, gmm,
+    ``GMM_RTOL`` / ``GMM_ATOL_OF_MAX``; row 10's dw by ``_dw_reading``
+    (``GMM_DW_RTOL_OF_MAX`` of each expert's largest); row 14's y at
+    ``Q4_RTOL`` / ``Q4_ATOL_OF_MAX``. ``mods``: (causal_dot, flash_attention, gmm,
     q4_matmul, ...), as far as the rows need. Each wrapper calls the kernel
     once (its count moves once) and the plain version beside it, uncounted.
     ``worst`` keeps each quantity's largest share of its limit (above 1
@@ -2900,12 +3006,12 @@ class LaunchAudit:
     launches (shapes, dtype, variant, options)."""
 
     def __init__(self, mods, rows=(1, 3, 4)):
-        mod = {1: 0, 3: 0, 4: 0, 6: 1, 9: 2, 14: 3}
+        mod = {1: 0, 3: 0, 4: 0, 6: 1, 9: 2, 10: 2, 14: 3}
         attr = {1: "causal_dot_norm_cuda", 3: "causal_dot_dq_den_cuda",
                 4: "causal_dot_rev_den_cuda", 6: "flash_fwd_cuda", 9: "gmm_cuda",
-                14: "q4_matmul_cuda"}
+                10: "gmm_dw_cuda", 14: "q4_matmul_cuda"}
         wrap = {1: self.norm, 3: self.dq_den, 4: self.rev_den, 6: self.flash, 9: self.gmm,
-                14: self.q4}
+                10: self.gmm_dw, 14: self.q4}
         self.mods = mods
         self.slots = [(mods[mod[r]], attr[r], wrap[r]) for r in rows]
         self.real = {attr[r]: getattr(mods[mod[r]], attr[r]) for r in rows}
@@ -2980,6 +3086,17 @@ class LaunchAudit:
                    shape)
         self._count("row 9")
         return y
+
+    def gmm_dw(self, x, g, tile_expert, n_experts):
+        gm = self.mods[2]
+        dw = self.real["gmm_dw_cuda"](x, g, tile_expert, n_experts)
+        reading = _dw_reading(dw, gm.gmm_dw_torch(x, g, tile_expert, n_experts), tile_expert)
+        shape = (f"x {list(x.shape)} g {list(g.shape)} {str(x.dtype)[6:]} "
+                 f"{gm.gmm_dw_variant(x, g)}")
+        self._note("row 10", "dw", reading["over_limit"] if reading["absent_zero"]
+                   and reading["well_formed"] else float("inf"), shape)
+        self._count("row 10")
+        return dw
 
     def q4(self, x, p, s):
         q4 = self.mods[3]
@@ -5827,9 +5944,11 @@ def _dp_mesh_run(m, cfg, batches, mods, clock, pin, save_dir, tiny):
     return res
 
 
-def _gather_routes(pin, m):
+def _gather_routes(pin, m, t_loc=None):
     """The mesh run's pinned choices, each rank's rows gathered over the
-    data group in data-rank order (the global batch's row order); under pp
+    data group in data-rank order (the global batch's row order), a
+    sequence-parallel rank's tokens first over the sp group in sp-rank order
+    (each row's ``t_loc`` tokens a rank: the global token order); under pp
     each (layer, epoch)'s microbatches joined in order (partial-manual:
     microbatch m is every data rank's share of the global microbatch m, so
     microbatch-major, then data-rank order, is the global row order), and
@@ -5839,6 +5958,9 @@ def _gather_routes(pin, m):
     from orion_tpu_torch.parallel.collectives import _gather_cat
 
     def rows(ids):
+        if m.sp > 1:  # [B T_loc, k] -> [B T, k]: each row's shards in token order
+            k = ids.shape[-1]
+            ids = _gather_cat(ids.reshape(-1, t_loc, k), 1, m.sp_group).reshape(-1, k)
         return ids if m.data_group is None else _gather_cat(ids, 0, m.data_group)
 
     if m.pp == 1:
@@ -5893,7 +6015,11 @@ def dp_train_rank(mesh, payload):
     (default ``DP_RUNS``) every mesh of it on this process group, with rank
     0's twin before (or, for a MoE, after) them -> per run and mesh: the
     rank's readings; rank 0's against the twin. A mesh is (dp, fsdp, sp) or
-    (dp, fsdp, tp, sp) (the tp part's runs)."""
+    (dp, fsdp, tp, sp) (the tp part's runs). A run's optional fifth item
+    (the combos part's) asks for more: ``"audit"``, the rows whose every
+    launch in the mesh run is held against its plain version
+    (``LaunchAudit``); ``"masks"``, every dropout mask of the mesh run held
+    bitwise against the twin's (``MaskTap``, ``res["masks"]``)."""
     from orion_tpu_torch.ops.kernels import adafactor, causal_dot, flash_attention, gmm, q4_matmul
     from orion_tpu_torch.parallel.mesh import MeshConfig
     from orion_tpu_torch.training.data import SyntheticDataset, device_batch
@@ -5903,20 +6029,37 @@ def dp_train_rank(mesh, payload):
     dev = mesh.device
     clock = _collective_clock()
     results = {}
-    for name, over, kw, meshes in payload.get("runs", DP_RUNS):
+    for name, over, kw, meshes, *extra in payload.get("runs", DP_RUNS):
+        opts = extra[0] if extra else {}
         model = _dp_model(name, over)
         cfg = TrainConfig(model=model, **kw)
         ds = SyntheticDataset(model.vocab_size, cfg.seq_len)
         batches = [device_batch(ds, cfg.seed, i, cfg.batch_size, dev) for i in range(cfg.steps)]
         routed = bool(model.n_experts)
-        twin = _dp_twin(cfg, batches, dev) if mesh.is_main and not routed else None
+        twin_masks = MaskTap(keep_full=True) if opts.get("masks") else None
+        twin = None
+        if mesh.is_main and not routed:
+            with twin_masks if twin_masks is not None else contextlib.nullcontext():
+                twin = _dp_twin(cfg, batches, dev)
         mesh.barrier()
         for shape in meshes:
             m = _remesh(mesh, _shape_mesh(shape), payload.get("device"))
             pin = (PipelinePinnedRouting() if m.pp > 1 else PinnedRouting()) if routed else None
             save = (payload.get("save_dir") if name == "lm_1b3"
                     and shape in payload.get("save_shapes", ((1, 4, 1),)) else None)
-            res = _dp_mesh_run(m, cfg, batches, mods, clock, pin, save, over is None)
+            audit = LaunchAudit(mods, opts["audit"]) if opts.get("audit") else None
+            tap = MaskTap() if opts.get("masks") else None
+            with contextlib.ExitStack() as stack:
+                for ctx in (audit, tap):
+                    if ctx is not None:
+                        stack.enter_context(ctx)
+                res = _dp_mesh_run(m, cfg, batches, mods, clock, pin, save, over is None)
+            if audit is not None:
+                res["audit"] = audit.reading()
+            if tap is not None:  # every rank's draws, held against the twin's on rank 0
+                res["masks"] = twin_masks.check(tap.gather(), m) if mesh.is_main else None
+                if not mesh.is_main:
+                    tap.gather()
             # under pp a rank's step is its stage's blocks, every one recomputed,
             # once a microbatch
             stage = _stage_model(model, m) if m.pp > 1 else model
@@ -5926,7 +6069,10 @@ def dp_train_rank(mesh, payload):
                 stage, m.sp_rank, m.sp, cfg.seq_len // m.sp).items()} if m.sp > 1 else None)
             res.update(want={k: times * v for k, v in dp_expected_launches(stage, variant).items()}
                        if m.sp == 1 else None, want_sp=want_sp, tiny=over is None)
-            routes = _gather_routes(pin, m) if routed else None
+            if m.sp > 1 and routed:  # rows 9-10 on a rank's token shard, as at sp 1
+                res["want_gmm"] = {k: times * v for k, v in dp_expected_launches(
+                    stage, variant).items() if k.startswith("gmm")}
+            routes = _gather_routes(pin, m, cfg.seq_len // m.sp) if routed else None
             mesh.barrier()
             if mesh.is_main:
                 loss, grads, whole = res.pop("whole")
@@ -6280,8 +6426,9 @@ def tp_phase(dev):
 # recomputed, once a microbatch --, the ranks' params bitwise, each rank's
 # resident params and moments within ``DP_RESIDENT_RTOL`` of its stage's
 # blocks plus the leaves every stage holds). (a), on 2 ranks: lm_1b3 at full
-# width and depth (24 blocks, 12 a stage), B 8 x 1024, two AdamW steps at pp
-# 2 with the auto n_micro (8); each rank's peak memory also below the twin's,
+# width, 4 blocks (2 a stage; full depth, 12 a stage, until the combos part
+# took its time), B 8 x 1024, two AdamW steps at pp 2 with the auto n_micro
+# (8); each rank's peak memory also below the twin's,
 # the leaves every stage holds bitwise on both ranks, each rank's host ms
 # waiting on its neighbour beside the bubble (pp - 1) / (n_micro + pp - 1).
 # (c) on (a)'s ranks: the step-2 checkpoint (the pp=1 file: each stage's
@@ -6300,7 +6447,7 @@ def tp_phase(dev):
 # at 4 blocks at pp 2 x sp 2, T
 # 2048, B 2 (the sp parts inside the stages). pp x tp runs on the CPU only
 # (``tests/test_torch_pp_trainer.py``).
-PP_TRAIN_2 = (("lm_1b3", {}, DP_TRAIN, ((1, 1, 1, 1, 2),)),)
+PP_TRAIN_2 = (("lm_1b3", {"n_layers": 4}, DP_TRAIN, ((1, 1, 1, 1, 2),)),)
 PP_TRAIN_4 = (
     ("hybrid_1b3", {"n_layers": 8, "remat_skip": 2,
                     "layer_types": ("swa", "swa", "swa", "linear") * 2}, DP_TRAIN,
@@ -6441,11 +6588,12 @@ def pp_phase(dev):
 # 4 prompts at full width with the weights cast for inference (or quantized
 # on the mesh: whole leaves quantized, then cut), against the one-rank twin
 # with the same weights on this rank's card. On the 2-rank spawn: G1, lm_1b3
-# at full depth (24 blocks), sp 2, 4 x 1024 (row 1 in its parts form on
-# token shards); G2, lm_1b3 at full depth at dp 2 and at fsdp 2 (2 of the 4
-# rows a rank; fsdp gathers each block's leaves at the prefill and at every
-# decode step, through host memory under gloo: ~5 s a step at full depth, so
-# its decode is cut to ``GENMESH_FSDP_NEW`` tokens), and the dropless
+# at 4 blocks (24 until the combos part took its time), sp 2, 4 x 1024 (row
+# 1 in its parts form on token shards); G2, lm_1b3 at 4 blocks at dp 2 and at
+# fsdp 2 (2 of the 4 rows a rank; fsdp gathers each block's leaves at the
+# prefill and at every decode step, through host memory under gloo: ~5 s a
+# step at full depth, so its decode is cut to ``GENMESH_FSDP_NEW`` tokens),
+# and the dropless
 # moe_1b3_4e at 4 blocks at dp 2 (row 9 on a data rank's 2 x 1024 rows);
 # G3, hybrid_1b3 at 4 blocks
 # (swa, softmax, swa, linear; striped ring) at sp 2 on 4 x 1536: row 6 in
@@ -6479,9 +6627,9 @@ GENMESH_DEPTH = {"n_layers": 4}
 GENMESH_HYBRID = {"n_layers": 4, "layer_types": ("swa", "softmax", "swa", "linear"),
                   "ring_striped": True}
 GENMESH_2 = (
-    ("G1 lm_1b3 at sp 2", "lm_1b3", {}, dict(sp=2), (4, 1024), ""),
-    ("G2 lm_1b3 at dp 2", "lm_1b3", {}, dict(dp=2), (4, 1024), ""),
-    ("G2 lm_1b3 at fsdp 2", "lm_1b3", {}, dict(fsdp=2), (4, 1024), ""),
+    ("G1 lm_1b3 (4 blocks) at sp 2", "lm_1b3", GENMESH_DEPTH, dict(sp=2), (4, 1024), ""),
+    ("G2 lm_1b3 (4 blocks) at dp 2", "lm_1b3", GENMESH_DEPTH, dict(dp=2), (4, 1024), ""),
+    ("G2 lm_1b3 (4 blocks) at fsdp 2", "lm_1b3", GENMESH_DEPTH, dict(fsdp=2), (4, 1024), ""),
     ("G2 moe_1b3_4e (dropless, 4 blocks) at dp 2", "moe_1b3_4e",
      {**GENMESH_DEPTH, "moe_dropless": True}, dict(dp=2), (4, 1024), ""),
     ("G3 hybrid_1b3 (4 blocks) at sp 2", "hybrid_1b3", GENMESH_HYBRID, dict(sp=2), (4, 1536), ""),
@@ -6550,9 +6698,13 @@ def genmesh_run(mesh, run, mods, device=None):
     from orion_tpu_torch.parallel.collectives import _gather_cat
     from orion_tpu_torch.parallel.mesh import MeshConfig
 
-    label, name, over, sizes, (b, t), quant = run
+    label, name, over, sizes, (b, t), quant, *pinned = run
     dev = mesh.device
     m = _remesh(mesh, MeshConfig(**{"dp": 1, **sizes}), device)
+    # a MoE's teacher-forced runs on the twin's expert choices (the combos
+    # part's M2: a near-tie flipped by the sp prefill's roundings moves a
+    # token's whole contribution to another expert)
+    pin = ShardPinnedRouting(t, m.sp, m.sp_rank) if pinned and pinned[0] == "pin" else None
     cfg = get_config(name, **over)
     new = GENMESH_FSDP_NEW if m.fsdp > 1 else GENMESH_NEW
     greedy, sampled_cfg = SampleConfig(temperature=0.0), SampleConfig(**GENMESH_SAMPLE)
@@ -6577,7 +6729,9 @@ def genmesh_run(mesh, run, mods, device=None):
     twin = build(None)
     twin_held = _held_bytes(twin)
     torch.cuda.reset_peak_memory_stats(dev)
-    with torch.inference_mode():
+    with torch.inference_mode(), pin if pin is not None else contextlib.nullcontext():
+        if pin is not None:
+            pin.attach(twin)
         logits, states = twin.prefill_last(prompts[rows])
         ref_logits, tokens, ref_first = [logits], [logits.argmax(-1)], mine(states)
         for i in range(new - 1):
@@ -6602,7 +6756,11 @@ def genmesh_run(mesh, run, mods, device=None):
     with torch.inference_mode():
         _reset_counts(mods)
         fa.launches_fwd_sp = 0
-        with LaunchAudit(mods, (1, 6, 9, 14)) as audit:
+        with LaunchAudit(mods, (1, 6, 9, 14)) as audit, \
+                pin if pin is not None else contextlib.nullcontext():
+            if pin is not None:
+                pin.attach(model)
+                pin.restart()
             t0 = time.perf_counter()
             logits, states = prefill_prompt(model, prompts[rows])
             got, first_err = [logits], _state_err(states, ref_first)
@@ -6644,6 +6802,7 @@ def genmesh_run(mesh, run, mods, device=None):
         "counts": counts, "want": want, "offset_calls": offset_calls,
         "want_offset": want_offset, "audit": audit.reading(),
         "forced_ms": forced_ms, "prefill_ms": prefill_ms,
+        "flips": (pin.flips, pin.choices) if pin is not None else None,
         "decode_ms_per_step": (gen_ms - prefill_ms) / max(new - 1, 1),
         "twin_prefill_ms": twin_prefill_ms,
         "twin_decode_ms_per_step": (twin_gen_ms - twin_prefill_ms) / max(new - 1, 1),
@@ -6754,17 +6913,278 @@ def genmesh_phase(dev):
     return mesh_parts(dev, ("genmesh",))["genmesh"]
 
 
+# -- the combos part: the mesh combinations A12 step 7 ported ------------------------------
+#
+# Ranks of this script sharing the card over gloo, inside the mesh parts'
+# 2-rank and 4-rank spawns, each run against its one-rank twin at the
+# limits of the part it extends. (M1, 2 ranks) the dropless moe_1b3_4e at 4
+# blocks (block 3 the MoE: d 2048, 4 experts, hidden 5504), trained 2 steps
+# at sp 2 on B 4 x 2048: each rank routes its 4 x 1024 tokens, 4096 rows at
+# top-1 (4608 with the tile padding), through rows 9 and 10; the dp part's readings and limits against
+# the twin replaying the mesh run's routing (gathered over sp in token
+# order), exact launches a step (the sp part's counts of rows 1, 3, 4 and the
+# dp part's of rows 9-10), and every launch of rows 1, 3, 4, 9 and 10 held
+# against its plain version. (M2, 2 ranks) ``generate`` at sp 2 on the same
+# MoE, 4 prompts of 1024: the genmesh part's G1 readings and limits, the
+# teacher-forced runs on the twin's expert choices (``ShardPinnedRouting``).
+# (M3, 4 ranks) lm_1b3 at 4 blocks with ``dropout=0.1`` at dp 2 x tp 2 and
+# sp 2 x dp 2, B 8 x 1024, 2 steps: the dp / sp readings and limits against
+# the one-rank twin, and every mask each rank draws bitwise the twin's at
+# its rows and tokens (``MaskTap``), every recomputation redrawing its
+# mask. (M4, 2 ranks) ``train_lra`` of lra_text_linear at LRA's length, B 16
+# x 4000, fp32, 4 steps at dp 2 against the one-rank run from the same seed:
+# each step's loss within ``LRA_ATOL_OF_MAX`` of max(1, |loss|), the final
+# params within ``LRA_ATOL_OF_MAX`` of max(1, each leaf's largest), the eval
+# accuracy equal, and no kernel launched (the classifier's attention is
+# plain torch).
+COMBOS_DEPTH = {"n_layers": 4, "remat_skip": 2}
+COMBOS_TRAIN_2 = (
+    ("moe_1b3_4e", {**COMBOS_DEPTH, "moe_dropless": True, "sequence_parallel": True},
+     dict(steps=2, batch_size=4, seq_len=2048, warmup_steps=1), ((1, 1, 2),),
+     {"audit": (1, 3, 4, 9, 10), "label": "M1"}),
+)
+COMBOS_GENERATE = (
+    ("M2 moe_1b3_4e (dropless, 4 blocks) at sp 2", "moe_1b3_4e",
+     {**GENMESH_DEPTH, "moe_dropless": True}, dict(sp=2), (4, 1024), "", "pin"),
+)
+COMBOS_TRAIN_4 = (
+    ("lm_1b3", {**COMBOS_DEPTH, "dropout": 0.1, "sequence_parallel": True}, DP_TRAIN,
+     ((2, 1, 2, 1), (2, 1, 2)), {"masks": True, "label": "M3"}),
+)
+COMBOS_LRA = ("M4 lra_text_linear at dp 2", "lra_text_linear", 4000, 16, 4)
+# the kernels the combos part must launch (rows 1, 3, 4, 9 and 10 on the sp
+# shards; the sp parts' entries under their own names)
+COMBOS_PATH = ("causal_dot_norm_wgmma", "causal_dot_dq_den_wgmma", "causal_dot_rev_den_wgmma",
+               "gmm_fwd_wgmma", "gmm_dw_wgmma")
+
+
+def combos_lra_rank(mesh, run, mods, device=None):
+    """M4 on this rank: the one-rank ``train_lra`` on rank 0 (the others
+    wait), then the dp 2 run on every rank -> readings (rank 0's against the
+    one-rank run)."""
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+    from orion_tpu_torch.train_lra import LRATrainConfig, train_lra
+
+    label, name, seq_len, batch, steps = run
+    m = _remesh(mesh, MeshConfig(dp=2), device)
+    cfg = LRATrainConfig(model=get_config(name, max_seq_len=seq_len + 8), task="text",
+                         steps=steps, batch_size=batch, seq_len=seq_len, log_every=1,
+                         eval_every=steps, eval_batches=2, seed=0)
+    twin = None
+    if m.is_main:
+        clock = StepClock()
+        params, last = train_lra(cfg, clock, device=m.device)
+        twin = ([c["loss"] for c in clock.metrics], clock.times, last,
+                {n: t.detach().to("cpu", copy=True) for n, t in params.items()})
+        del params
+    m.barrier()
+    gc.collect()
+    _reset_counts(mods)
+    clock = StepClock()
+    params, last = train_lra(dataclasses.replace(cfg, mesh=m.cfg), clock, mesh=m)
+    launched = {k: v for k, v in _counts(mods).items() if v}
+    out = {"label": label, "rank": m.rank, "transport": m.transport, "launched": launched,
+           "eval_acc": last["eval_acc"], "finite": all(bool(torch.isfinite(p).all())
+                                                      for p in params.values())}
+    if m.is_main:
+        losses = [c["loss"] for c in clock.metrics]
+        t_losses, t_times, t_last, t_params = twin
+        out.update(losses=losses, twin_losses=t_losses, twin_eval_acc=t_last["eval_acc"],
+                   step_ms=[1e3 * (b - a) for a, b in zip(clock.times, clock.times[1:])],
+                   twin_step_ms=[1e3 * (b - a) for a, b in zip(t_times, t_times[1:])],
+                   loss_err=max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses, t_losses)),
+                   param_err=max(float((params[n].cpu() - t).abs().max())
+                                 / max(1.0, float(t.abs().max())) for n, t in t_params.items()))
+    del params
+    m.barrier()
+    return out
+
+
+def combos_rank(mesh, payload):
+    """One rank of the combos part: the training runs of ``payload["runs"]``
+    (``dp_train_rank`` with their options), then on 2 ranks M2
+    (``genmesh_run``) and M4 (``combos_lra_rank``) -> {"train", "generate",
+    "lra"}."""
+    from orion_tpu_torch.ops.kernels import adafactor, causal_dot, flash_attention, gmm, q4_matmul
+
+    mods = (causal_dot, flash_attention, gmm, q4_matmul, adafactor)
+    out = {"train": dp_train_rank(mesh, payload)}
+    if payload.get("generate"):
+        out["generate"] = {run[0]: genmesh_run(mesh, run, mods, payload.get("device"))
+                           for run in payload["generate"]}
+    if payload.get("lra"):
+        out["lra"] = combos_lra_rank(mesh, payload["lra"], mods, payload.get("device"))
+    return out
+
+
+def combos_train_verdict(label, ranks, opts):
+    """``dp_train_verdict``, then the combos options' readings: the audit
+    (every launch of its rows within its kernel limit, each row launched),
+    the masks (every rank's draws bitwise the twin's slices, no missing key,
+    every recomputation equal), the gmm launches of a MoE under sp."""
+    dp_train_verdict(label, ranks)
+    tag = opts.get("label", "")
+    if opts.get("audit"):
+        worst, launched = {}, {}
+        for r in ranks:
+            for k, v in r["audit"]["worst"].items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            for k, v in r["audit"]["launches"].items():
+                launched[k] = launched.get(k, 0) + v
+        shapes = sorted({s for r in ranks for ss in r["audit"]["shapes"].values() for s in ss})
+        log(f"combos {tag} {label}: every launch of rows {opts['audit']} held against its plain "
+            f"version ({launched}), largest share of its limit "
+            f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }; shapes {shapes}")
+        rows = {f"row {r}" for r in opts["audit"]}
+        if set(launched) != rows or any(v > 1.0 or not np.isfinite(v) for v in worst.values()):
+            raise AssertionError(f"combos {tag} {label}: a launch disagrees with its plain version "
+                                 f"or a row did not launch: {launched}, {worst}")
+    for r, res in enumerate(ranks):
+        if "want_gmm" in res:
+            got = [{k: c[k] for k in res["want_gmm"]} for c in res["per_step"]]
+            if any(g != res["want_gmm"] for g in got):
+                raise AssertionError(f"combos {tag} {label} rank {r}: gmm launches {got}, want "
+                                     f"{res['want_gmm']} a step")
+    if opts.get("masks"):
+        mk = ranks[0]["masks"]
+        log(f"combos {tag} {label}: dropout masks, {mk['compared']} draws of the ranks against "
+            f"the twin's {mk['keys']} (block, site) masks cut at their rows and tokens, "
+            f"{mk['equal']} bitwise equal, {mk['missing']} keys the twin never drew; "
+            f"recomputations {mk['redraws']} equal, {mk['differs']} not")
+        if not mk["compared"] or mk["equal"] != mk["compared"] or mk["missing"] or \
+                mk["differs"] or not mk["redraws"]:
+            raise AssertionError(f"combos {tag} {label}: the masks are not the twin's: {mk}")
+
+
+def combos_lra_verdict(ranks):
+    """M4's readings (every rank's); raise where a limit is missed."""
+    r0 = ranks[0]
+    log(f"combos {r0['label']} (transport {r0['transport']}): step losses {r0['losses']} vs the "
+        f"one-rank run's {r0['twin_losses']} (largest error {r0['loss_err']:.3e} of max(1, "
+        f"|loss|), limit {LRA_ATOL_OF_MAX:g}); final params within {r0['param_err']:.3e} of "
+        f"max(1, each leaf's largest) (limit {LRA_ATOL_OF_MAX:g}); eval accuracy "
+        f"{[r['eval_acc'] for r in ranks]} vs {r0['twin_eval_acc']}; step ms "
+        f"{[round(x, 1) for x in r0['step_ms']]} vs {[round(x, 1) for x in r0['twin_step_ms']]}; "
+        f"kernel launches {[r['launched'] for r in ranks]}")
+    if r0["loss_err"] > LRA_ATOL_OF_MAX or r0["param_err"] > LRA_ATOL_OF_MAX or any(
+            r["eval_acc"] != r0["twin_eval_acc"] or r["launched"] or not r["finite"]
+            for r in ranks):
+        raise AssertionError(f"combos {r0['label']} misses its limits against the one-rank run: "
+                             f"{r0}")
+
+
+def combos_verdicts(two, four):
+    """The combos part's verdicts on the spawns' results (each rank's
+    ``combos_rank`` result). Returns (each kernel's launches over the part's
+    runs and ranks, by ``KERNELS`` name and the sp entries' names; the
+    readings)."""
+    launches = dict.fromkeys(KERNELS, 0)
+    readings = {}
+    for spawn, runs in ((two, COMBOS_TRAIN_2), (four, COMBOS_TRAIN_4)):
+        for name, _, _, meshes, opts in runs:
+            for shape in meshes:
+                label = _mesh_label(name, shape)
+                ranks = [r["train"][label] for r in spawn]
+                combos_train_verdict(label, ranks, opts)
+                readings[f"{opts['label']} {label}"] = [
+                    {k: r[k] for k in ("peak_gib", "held", "transport")} for r in ranks]
+        _mesh_launches([r["train"] for r in spawn], launches)
+    for label in two[0]["generate"]:
+        ranks = [r["generate"][label] for r in two]
+        genmesh_verdict(label, ranks)
+        log(f"combos {label}: routing choices the teacher-forced runs replayed from the twin, "
+            f"flipped / made a rank {[r['flips'] for r in ranks]}")
+        for r in ranks:
+            for k in KERNELS:
+                launches[k] += r["counts"][k]
+        readings[label] = [{k: r[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                              "twin_prefill_ms", "free_match", "free_of",
+                                              "flips")} for r in ranks]
+    lra = [r["lra"] for r in two]
+    combos_lra_verdict(lra)
+    readings[lra[0]["label"]] = {k: lra[0][k] for k in ("loss_err", "param_err", "step_ms",
+                                                        "twin_step_ms")}
+    missing = [k for k in COMBOS_PATH if not launches.get(k)]
+    log(f"combos part: launches over its runs: { {k: v for k, v in launches.items() if v} }")
+    if missing:
+        raise AssertionError(f"the combos part launched no {missing}")
+    return launches, readings
+
+
+def dropout_cost(dev, shape=(8, 1024, 2048), rate=0.1):
+    """One dropout mask at lm_1b3's training shape on the card, in three
+    forms: ``dropout_keep`` (the int32 hash, ``utils/rng.py``'s
+    ``counter_below``), the same keys through the int64 ``counter_bits``
+    (which must give the same mask bitwise, else AssertionError), and a
+    ``torch.rand`` draw of the shape and its compare (the rank-shaped draw
+    dropout took before masks were keyed by position). For each: its ms
+    (CUDA events, 20 calls after a warm-up) and the memory it takes beyond
+    its bool mask while it is drawn (the peak above the allocated bytes
+    before the call) -> a reading, logged. A mask a block site; lm_1b3's
+    step draws 2 x 24, and 2 x 20 again in the recomputation."""
+    from orion_tpu_torch.models.transformer import DropoutKey, dropout_keep
+    from orion_tpu_torch.utils import rng as rngs
+
+    key, (b, t, d) = DropoutKey(123, 0, 0), shape
+    bound = round((1.0 - rate) * 2 ** 32)
+
+    def int64_form():
+        k = torch.tensor(rngs.key_words(rngs.fold(key.seed, 1)), dtype=torch.int64, device=dev)
+        k = rngs.fold_keys(k, torch.arange(b, device=dev))
+        k = rngs.fold_keys(k[:, None], torch.arange(t, device=dev))
+        return rngs.counter_bits(k, d) < bound
+
+    gen = torch.Generator(device=dev).manual_seed(123)
+    forms = {"int32": lambda: dropout_keep(key, 1, shape, rate, dev), "int64": int64_form,
+             "rand": lambda: torch.rand(shape, generator=gen, device=dev) < 1.0 - rate}
+    out, masks = {"shape": list(shape)}, {}
+    for name, fn in forms.items():
+        fn()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        masks[name] = fn()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(dev) - before - masks[name].numel()
+        ms = cuda_ms(fn, 20)
+        out[name] = {"ms": ms, "transient_gib": extra / 2**30,
+                     "keep_share": float(masks[name].float().mean()),
+                     "per_step_ms": ms * 2 * (24 + 20)}
+    if not torch.equal(masks["int32"], masks["int64"]):
+        raise AssertionError("dropout_keep's int32 hash differs from the int64 counter_bits")
+    log(f"dropout mask at {list(shape)} (lm_1b3's training shape; 88 masks a full-depth step: "
+        f"2 sites x 24 blocks, 20 recomputed): " + "; ".join(
+            f"{n} {r['ms']:.4f} ms a mask, {r['transient_gib']:.3f} GiB transient beyond the "
+            f"mask, keep share {r['keep_share']:.6f}, {r['per_step_ms']:.1f} ms a step"
+            for n, r in ((n, out[n]) for n in forms)) + " (int32 bitwise int64)")
+    del masks
+    return out
+
+
+def combos_phase(dev):
+    """The combos part alone (``mesh_parts``), after the dropout mask's cost
+    (``dropout_cost``)."""
+    dropout_cost(dev)
+    return mesh_parts(dev, ("combos",))["combos"]
+
+
 # -- the mesh parts' spawns --------------------------------------------------------------
 
 
 def two_rank(mesh, payload):
     """One rank of the 2-rank spawn: the tp part's (a) and (c) on the
     spawn's tp mesh, the pp part's (a) and (c) (``dp_train_rank`` remeshes
-    to pp 2), the genmesh part's ``GENMESH_2``, as ``payload["parts"]``
-    asks."""
+    to pp 2), the genmesh part's ``GENMESH_2``, the combos part's M1, M2 and
+    M4, as ``payload["parts"]`` asks."""
     out = {}
     if "genmesh" in payload["parts"]:
         out["genmesh"] = genmesh_rank(mesh, {**payload, "genmesh": GENMESH_2})
+    if "combos" in payload["parts"]:
+        out["combos"] = combos_rank(mesh, {**payload, "runs": COMBOS_TRAIN_2,
+                                           "generate": COMBOS_GENERATE, "lra": COMBOS_LRA})
     if "tp" in payload["parts"]:
         out["tp_train"] = dp_train_rank(mesh, {**payload, "runs": TP_TRAIN_2})
         out["generate"] = tp_generate_rank(mesh, payload)
@@ -6778,7 +7198,8 @@ def two_rank(mesh, payload):
 def four_rank(mesh, payload):
     """One rank of the 4-rank spawn: the sp part's training runs (on the sp
     4 mesh, when ``payload["sp"]``), the genmesh part's ``GENMESH_4`` (when
-    ``payload["genmesh"]``), then ``dp_train_rank``'s runs."""
+    ``payload["genmesh"]``), the combos part's M3 (when
+    ``payload["combos"]``), then ``dp_train_rank``'s runs."""
     from orion_tpu_torch.parallel.mesh import MeshConfig
 
     out = {}
@@ -6788,17 +7209,20 @@ def four_rank(mesh, payload):
             {"device": payload.get("device")})
     if payload.get("genmesh"):
         out["genmesh"] = genmesh_rank(mesh, {**payload, "genmesh": GENMESH_4})
+    if payload.get("combos"):
+        out["combos"] = combos_rank(mesh, {**payload, "runs": COMBOS_TRAIN_4})
     out["mesh"] = dp_train_rank(mesh, payload) if payload["runs"] else {}
     return out
 
 
 def mesh_parts(dev, parts=("dp", "tp", "pp")):
-    """The dp, tp, pp and genmesh parts (``parts``; "sp": also the sp part's
-    training runs), ranks of this script sharing the card over gloo, in at
-    most two spawns, so each rank's start and its first step's warm-up are
-    paid once: one of 2 ranks (tp's (a) and (c), pp's (a) and (c),
-    ``GENMESH_2``) and one of 4 (the sp training runs, ``GENMESH_4``,
-    ``DP_RUNS``, tp's and pp's (b)), each run on its own mesh of the one
+    """The dp, tp, pp, genmesh and combos parts (``parts``; "sp": also the sp
+    part's training runs), ranks of this script sharing the card over gloo,
+    in at most two spawns, so each rank's start and its first step's warm-up
+    are paid once: one of 2 ranks (tp's (a) and (c), pp's (a) and (c),
+    ``GENMESH_2``, the combos part's M1, M2 and M4) and one of 4 (the sp
+    training runs, ``GENMESH_4``, the combos part's M3, ``DP_RUNS``, tp's
+    and pp's (b)), each run on its own mesh of the one
     process group. -> {part: (each kernel's launches over its runs and
     ranks, its readings)}, and for "sp" each rank's ``sp_train_rank``
     results."""
@@ -6816,7 +7240,7 @@ def mesh_parts(dev, parts=("dp", "tp", "pp")):
         if free < need:
             raise RuntimeError(f"the mesh parts' checkpoints (dp's fsdp 4 ~3.3 GB, pp's lm_1b3 "
                                f"~16 GB) need {need} GiB free; {free:.1f} GiB under {tmp}")
-        if "tp" in parts or "pp" in parts or "genmesh" in parts:
+        if "tp" in parts or "pp" in parts or "genmesh" in parts or "combos" in parts:
             two = sp_spawn(2, two_rank, {"parts": parts, "pp_save_dir": os.path.join(tmp, "pp")},
                            timeout=900, mesh=MeshConfig(dp=1, tp=2) if "tp" in parts
                            else MeshConfig(dp=1, pp=2) if "pp" in parts else MeshConfig(dp=2))
@@ -6824,7 +7248,8 @@ def mesh_parts(dev, parts=("dp", "tp", "pp")):
         runs = ((DP_RUNS if "dp" in parts else ()) + (TP_TRAIN_4 if "tp" in parts else ())
                 + (PP_TRAIN_4 if "pp" in parts else ()))
         four = sp_spawn(4, four_rank, {"runs": runs, "save_dir": os.path.join(tmp, "dp"),
-                                       "sp": "sp" in parts, "genmesh": "genmesh" in parts},
+                                       "sp": "sp" in parts, "genmesh": "genmesh" in parts,
+                                       "combos": "combos" in parts},
                         timeout=1200, mesh=MeshConfig(dp=4))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6835,6 +7260,8 @@ def mesh_parts(dev, parts=("dp", "tp", "pp")):
     if "genmesh" in parts:
         out["genmesh"] = genmesh_verdicts([r["genmesh"] for r in two],
                                           [r["genmesh"] for r in four])
+    if "combos" in parts:
+        out["combos"] = combos_verdicts([r["combos"] for r in two], [r["combos"] for r in four])
     four = [r["mesh"] for r in four]
     if "dp" in parts:
         out["dp"] = dp_verdicts(four)
@@ -7561,12 +7988,13 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser("chip_smoke.py")
-    ap.add_argument("--part", choices=("all", "fleet", "train", "tp", "pp", "genmesh"),
+    ap.add_argument("--part", choices=("all", "fleet", "train", "tp", "pp", "genmesh", "combos"),
                     default="all",
-                    help="fleet / train / tp / pp / genmesh: the build, the kernel checks and the "
-                    "fleet part, the training-resilience part (R1 in lm_1b3's adafactor_fused "
-                    "phase, R2, R3), the tensor-parallel part, the pipeline part or generate on "
-                    "meshes, alone")
+                    help="fleet / train / tp / pp / genmesh / combos: the build, the kernel checks "
+                    "and the fleet part, the training-resilience part (R1 in lm_1b3's "
+                    "adafactor_fused phase, R2, R3), the tensor-parallel part, the pipeline part, "
+                    "generate on meshes or the mesh combinations (MoE under sp, dropout on "
+                    "meshes, LRA on a mesh), alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card", file=sys.stderr)
@@ -7626,6 +8054,18 @@ def main(argv=None) -> int:
         for k in kernels:  # the main path of this part: its runs' launches over the ranks
             k["launches"] = k["launches_genmesh"] = gm_launches.get(k["name"], 0)
         return _finish(card, kernels)
+    if args.part == "combos":
+        # the sp pieces' entries (the parts of rows 1, 3, 4 that M1's and M3's
+        # sp runs launch), each held against its plain version
+        kernels += check_sp_kernels(causal_dot, flash_attention, dev)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        co_launches, co_readings = combos_phase(dev)
+        log(f"combos phases done at {time.perf_counter() - t0:.1f} s ({time.perf_counter() - t1:.1f}"
+            f" s); readings a rank: {co_readings}")
+        for k in kernels:  # the main path of this part: its runs' launches over the ranks
+            k["launches"] = k["launches_combos"] = co_launches.get(k["name"], 0)
+        return _finish(card, kernels)
     if args.part == "pp":
         # the sp pieces' entries (the parts of rows 1, 3, 4 that pp x sp runs
         # inside its stages), each held against its plain version
@@ -7641,16 +8081,19 @@ def main(argv=None) -> int:
     sp_lines = sp_phase(causal_dot, flash_attention, dev, train=False)
     # sp training, data, tensor and pipeline parallelism: ranks as processes
     # sharing this card, one spawn of 2 and one of 4 for the four parts
-    parts = mesh_parts(dev, ("sp", "dp", "tp", "pp", "genmesh"))
+    dropout_cost(dev)
+    parts = mesh_parts(dev, ("sp", "dp", "tp", "pp", "genmesh", "combos"))
     sp_lines, sp_memory = sp_train_verdicts(sp_lines, parts["sp"])
     log(f"sp phases done at {time.perf_counter() - t0:.1f} s; transport and peak memory a rank: "
         f"{sp_memory}")
     (dp_launches, dp_memory), (tp_launches, tp_memory), (pp_launches, pp_memory) = (
         parts["dp"], parts["tp"], parts["pp"])
     gm_launches, gm_readings = parts["genmesh"]
-    log(f"dp, tp, pp and genmesh phases done at {time.perf_counter() - t0:.1f} s; peak memory, "
-        f"resident bytes, transport (and n_micro) a rank: dp {dp_memory}, tp {tp_memory}, pp "
-        f"{pp_memory}; genmesh readings a rank: {gm_readings}")
+    co_launches, co_readings = parts["combos"]
+    log(f"dp, tp, pp, genmesh and combos phases done at {time.perf_counter() - t0:.1f} s; peak "
+        f"memory, resident bytes, transport (and n_micro) a rank: dp {dp_memory}, tp "
+        f"{tp_memory}, pp {pp_memory}; genmesh readings a rank: {gm_readings}; combos "
+        f"readings: {co_readings}")
     op = op_phase(dev, mods)
     tiny_hybrid = dataclasses.replace(TINY, layer_types=("swa", "linear"), window=16)
 
@@ -7882,6 +8325,7 @@ def main(argv=None) -> int:
         k["launches_tp"] = tp_launches.get(k["name"], 0)
         k["launches_pp"] = pp_launches.get(k["name"], 0)
         k["launches_genmesh"] = gm_launches.get(k["name"], 0)
+        k["launches_combos"] = co_launches.get(k["name"], 0)
     return _finish(card, kernels)
 
 

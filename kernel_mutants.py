@@ -56,6 +56,22 @@ rank's slice of the input, not the whole input: ``GENMESH_MUTANT``), and
 exits nonzero unless ``chip_smoke.genmesh_verdict`` accepts the first and
 rejects the second.
 
+    python3 kernel_mutants.py --combos
+
+instead runs ``chip_smoke.py``'s combos part's training runs twice, four
+ranks sharing the card for M3 (lm_1b3 at 4 blocks with dropout, dp 2 x tp 2
+and sp 2 x dp 2) and two for M1 (the dropless MoE trained at sp 2): as they
+are, and with a wrong copy of the port (``COMBOS_MUTANTS``): M3's masks
+drawn at each rank's shape (its rows and tokens counted from 0, the port's
+behaviour before its masks were keyed by position), M1's load-balance
+statistics taken over each rank's own tokens (no mean over the data x sp
+ranks). Exits nonzero unless ``chip_smoke.combos_train_verdict`` accepts
+every sound run and rejects every mutant run that must be rejected: M3's.
+M1's is printed and may pass: at ``moe_aux_weight`` 1e-2 it moves only the
+router's gradient, by about 3e-2 relative L2 at full width, inside the
+gradient limit (5e-2); the CPU tests (``tests/test_torch_sp_moe.py``, at the
+JAX Trainer's 3e-5) are its guard.
+
     python3 kernel_mutants.py --sass-against DIR
 
 instead builds every source of this checkout and of the checkout ``DIR``
@@ -721,6 +737,75 @@ def genmesh_mutants(dev) -> int:
     return 0 if verdicts["sound"]["accepted"] and not verdicts["mutant"]["accepted"] else 1
 
 
+# the combos part's mutants, (name, must the limits reject it): (M3) each
+# rank's dropout masks drawn at its own shape, rows and tokens from 0; (M1)
+# a MoE layer's load-balance statistics over the rank's own tokens
+COMBOS_MUTANTS = {"M3": ("masks_at_the_rank_shape", True),
+                  "M1": ("moe_stats_of_the_rank", False)}
+
+
+class _ComboMutant:
+    """Within ``with``: the port with mutant ``kind`` (``COMBOS_MUTANTS``)."""
+
+    def __init__(self, kind):
+        from orion_tpu_torch.models import moe, transformer
+
+        self.kind, self.moe, self.tf = kind, moe, transformer
+        self.real = (transformer.dropout_keep, moe.all_reduce_mean)
+
+    def __enter__(self):
+        keep, _ = self.real
+        if self.kind == "M3":
+            self.tf.dropout_keep = lambda key, site, shape, rate, device=None: keep(
+                self.tf.DropoutKey(key.seed), site, shape, rate, device)
+        else:
+            self.moe.all_reduce_mean = lambda x, group: x
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.dropout_keep, self.moe.all_reduce_mean = self.real
+
+
+def combos_mutant_rank(mesh, payload):
+    """One rank: the combos runs of ``payload["runs"]`` as they are, then
+    under the mutant ``payload["kind"]`` -> {"sound": ..., "mutant": ...}
+    (``dp_train_rank``'s results)."""
+    out = {"sound": chip_smoke.dp_train_rank(mesh, payload)}
+    with _ComboMutant(payload["kind"]):
+        out["mutant"] = chip_smoke.dp_train_rank(mesh, payload)
+    return out
+
+
+def combos_mutants() -> int:
+    """M1's and M3's sound runs and their mutants: every sound run must be
+    accepted by ``chip_smoke.combos_train_verdict``, every mutant run that
+    ``COMBOS_MUTANTS`` marks rejected. Exits nonzero otherwise."""
+    from orion_tpu_torch.parallel.mesh import MeshConfig
+
+    verdicts = {}
+    for kind, world, runs in (("M1", 2, chip_smoke.COMBOS_TRAIN_2),
+                              ("M3", 4, chip_smoke.COMBOS_TRAIN_4)):
+        ranks = chip_smoke.sp_spawn(world, combos_mutant_rank, {"runs": runs, "kind": kind},
+                                    timeout=1200, mesh=MeshConfig(dp=world))
+        for name, _, _, meshes, opts in runs:
+            for shape in meshes:
+                label = chip_smoke._mesh_label(name, shape)
+                for which in ("sound", "mutant"):
+                    chip_smoke.log(f"combos {kind} {which} {label}:")
+                    try:
+                        chip_smoke.combos_train_verdict(label, [r[which][label] for r in ranks],
+                                                        opts)
+                        v = {"accepted": True}
+                    except AssertionError as e:
+                        v = {"accepted": False, "why": str(e)[:2000]}
+                    verdicts[f"{kind} {which} {label}"] = v
+    chip_smoke.log(json.dumps({"combos_mutants": COMBOS_MUTANTS, "verdicts": verdicts}))
+    ok = all(v["accepted"] if k.split()[1] == "sound"
+             else not (COMBOS_MUTANTS[k.split()[0]][1] and v["accepted"])
+             for k, v in verdicts.items())
+    return 0 if ok else 1
+
+
 def main() -> int:
     if "--sass-against" in sys.argv[1:]:  # compare code with another checkout's, no card needed
         return sass_against(sys.argv[sys.argv.index("--sass-against") + 1])
@@ -731,6 +816,13 @@ def main() -> int:
         chip_smoke.card_info()
         chip_smoke.build((causal_dot, flash_attention, gmm, q4_matmul, adafactor))
         return genmesh_mutants(torch.device("cuda", 0))
+    if "--combos" in sys.argv[1:]:
+        if not torch.cuda.is_available():
+            print("kernel_mutants: needs a CUDA card", file=sys.stderr)
+            return 1
+        chip_smoke.card_info()
+        chip_smoke.build((causal_dot, flash_attention, gmm, q4_matmul, adafactor))
+        return combos_mutants()
     if not torch.cuda.is_available():
         print("kernel_mutants: needs a CUDA card", file=sys.stderr)
         return 1

@@ -66,8 +66,11 @@ mesh:
   every sp rank, and the first token's logits come from the rank holding
   the prompt's last position (``TransformerLM.prefill_last``). The decode
   then runs replicated on every sp rank, as GSPMD runs it: sp buys the
-  prefill's memory and time, not the decode's. A model on an sp mesh
-  without ``sequence_parallel`` runs whole on every sp rank;
+  prefill's memory and time, not the decode's. A MoE layer routes each
+  rank's token shard in the prefill (the dropless form's grouped matmuls on
+  the shard's rows on the card; the capacity form at its serving capacity,
+  where no token drops) and its rows token-locally in the decode. A model
+  on an sp mesh without ``sequence_parallel`` runs whole on every sp rank;
 - tp: each rank holds its share of the heads and of the MLPs' hidden
   dimension (``models/transformer.py``), so the states are that rank's heads
   [B, H / tp, ...], and two sums over the tp group a block (after ``wo``
@@ -77,8 +80,7 @@ Every rank of the mesh ends with the same tokens (the CLI checks it with
 one gather over the world, and rank 0 prints). A quantized model on a mesh
 is quantized whole and then cut (``quantize_for_decode``), the JAX order.
 The serving engine on a mesh (the verify and prefill pieces on sp, any piece
-under fsdp) and the ep axis raise, naming ROADMAP.md's A12 step 8; MoE
-layers under sp raise, naming step 7.
+under fsdp) and the ep axis raise, naming ROADMAP.md's A12 step 8.
 """
 
 from __future__ import annotations

@@ -46,18 +46,37 @@ form's einsums, the ragged form's segments, the dense form's experts). A
 quantized layer never takes the gmm kernels, as in JAX: on the card its
 dropless rows take the dense form at any row count.
 
-On a data mesh (``mesh`` with dp x fsdp above 1: each rank holds its rows
-of the batch) the load-balance term is the JAX package's over the global
-batch, E sum_e f_e P_e of the global means, which is not the mean of the
-ranks' terms: f (no gradient) and P (``collectives.all_reduce_mean``, whose
-backward sums the cotangents) are averaged over the data group before the
-product, in both dispatch rules; the z-loss stays this rank's mean, and
-``training/trainer.py::lm_loss`` adds the weighted aux over the number of
-data ranks, so the ranks' summed gradients count it once. The capacity
-form's groups lie inside one row, so its drops do not depend on the mesh. In
-decode (``generate`` on a data mesh) a rank routes its own rows and takes
-no collective; its expert stacks, bf16 or ``_q`` with their scales, are the
-replicated ones or, under fsdp, gathered whole for the call.
+On a mesh whose ranks hold distinct tokens (dp x fsdp above 1: each rank
+its rows of the batch; a sequence-parallel model, ``sp``: each rank its
+contiguous shard of every row's tokens) the load-balance term is the JAX
+package's over the global batch, E sum_e f_e P_e of the global means, which
+is not the mean of the ranks' terms: f (no gradient) and P
+(``collectives.all_reduce_mean``, whose backward sums the cotangents) are
+averaged over ``stats_group`` before the product, in both dispatch rules.
+That group is ``Mesh.replica_group`` (the data ranks times the sp ranks of
+this tp and pp rank: the ranks that hold distinct tokens) for a
+sequence-parallel model, and the data group otherwise; every rank holds as
+many tokens, so the mean of the ranks' means is the global mean. The
+z-loss stays this rank's mean, and ``training/trainer.py::lm_loss`` adds
+the weighted aux over the number of ranks in the group, so the ranks'
+summed gradients count it once. Under pp the pipeline body computes the
+term per sp shard, as the JAX pipeline does (its sp axis is manual there):
+a stage's layers then average over the data group alone, and
+``parallel/pipeline_lm.py`` averages the shards' terms.
+
+The capacity form groups the tokens of one row by ``group_size`` of the
+row's length, the global T under sp (the JAX package's ``_group_size`` of
+the global sequence). Its groups must then lie inside one sp shard: where
+T / sp is not a multiple of the group size S and the capacity C < S can
+drop tokens, ``forward`` raises ``ValueError`` (pick a ``moe_group_size``
+dividing T / sp). Where C = S (the serving capacity ``generate`` sets) no
+token drops, every grouping computes the same function, and a straddling
+shard is grouped by gcd(S, T / sp). The dropless forms route each token on
+its own, so a rank routes its shard (on the card the tile-aligned form at
+``GMM_MIN_ROWS`` routed rows, rows 9-10 on the shard's rows). A decode step
+routes its rows token-locally and takes no collective; its expert stacks,
+bf16 or ``_q`` with their scales, are the replicated ones or, under fsdp,
+gathered whole for the call.
 
 Under tp (``mesh`` with tp above 1 dividing the hidden width ``h``; ep
 stays 1) the router stays whole on every tp rank, and each rank holds its
@@ -73,7 +92,7 @@ has no such constraint, and the function is the same.
 
 Not ported (each raises ``NotImplementedError`` naming ROADMAP.md's item):
 the expert-parallel forms (``_dropless_ep``, ``_dropless_ep_gmm``, the
-``ep`` layout constraint: item 12).
+``ep`` layout constraint: item 12, A12 step 8).
 """
 
 from __future__ import annotations
@@ -178,18 +197,27 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class MoEMLP(nn.Module):
     """The routed-expert MLP; see the module docstring. ``cdt`` is the
     compute dtype of the expert products (the router runs in fp32).
-    ``mesh``: a ``parallel.mesh.Mesh``, whose data group averages the
-    load-balance statistics and whose tp group, when tp divides the hidden
-    width, splits the expert stacks' hidden dimension."""
+    ``mesh``: a ``parallel.mesh.Mesh``, over whose ``stats_group`` the
+    load-balance statistics are averaged and whose tp group, when tp divides
+    the hidden width, splits the expert stacks' hidden dimension. ``sp``:
+    the mesh when the model is sequence-parallel (this layer then sees a
+    shard of each row's tokens), else None."""
 
     def __init__(self, cfg: ModelConfig, cdt: torch.dtype, device=None, *,
-                 mesh=None, quant: str = ""):
+                 mesh=None, quant: str = "", sp=None):
         super().__init__()
         if mesh is not None and (not isinstance(mesh, Mesh) or mesh.cfg.ep > 1):
             # a JAX-style mesh, or an ep axis: the expert-parallel forms
             raise _not_ported("expert parallelism (the ep forms of MoEMLP)",
-                              "item 12 (parallelism)")
-        self.data_group = mesh.data_group if mesh is not None and mesh.n_data > 1 else None
+                              "item 12 (parallelism), A12 step 8")
+        self.sp = sp.sp if sp is not None else 1
+        # the ranks holding distinct tokens: under sp the replica group, the
+        # data x sp ranks of this tp rank (under pp, a stage's body takes the
+        # term per sp shard, as the JAX pipeline does, so the data ranks)
+        self.stats_group = None
+        if mesh is not None:
+            self.stats_group = (mesh.replica_group if sp is not None and mesh.pp == 1
+                                else mesh.data_group)
         self.quant = check_mode(quant)
         e, k, h, d = cfg.n_experts, cfg.moe_top_k, cfg.resolved_mlp_hidden, cfg.d_model
         # the stacks are built whole and cut by the model (TransformerLM)
@@ -229,9 +257,9 @@ class MoEMLP(nn.Module):
 
     def _weighted_aux(self, f: Tensor, p: Tensor, logits: Tensor) -> Tensor:
         cfg = self.cfg
-        if self.data_group is not None:  # the global batch's means
-            f = all_reduce_mean(f.detach(), self.data_group)
-            p = all_reduce_mean(p, self.data_group)
+        if self.stats_group is not None:  # the global batch's means
+            f = all_reduce_mean(f.detach(), self.stats_group)
+            p = all_reduce_mean(p, self.stats_group)
         aux = cfg.n_experts * (f * p).sum()
         z = (torch.logsumexp(logits, -1) ** 2).mean()
         return cfg.moe_aux_weight * aux + cfg.moe_zloss_weight * z
@@ -269,15 +297,33 @@ class MoEMLP(nn.Module):
 
     # -- capacity dispatch ---------------------------------------------------
 
+    def _groups(self, t_loc: int) -> Tuple[int, int]:
+        """(group size, capacity) for a row of ``t_loc`` tokens on this rank:
+        the JAX package's groups of the global row (T = t_loc sp); see the
+        module docstring for a group that straddles an sp shard."""
+        cfg, k, e = self.cfg, self.cfg.moe_top_k, self.cfg.n_experts
+        s = group_size(t_loc * self.sp, cfg.moe_group_size)
+        cap = min(s, max(k, math.ceil(self.capacity_factor * k * s / e)))
+        if t_loc % s == 0:
+            return s, cap
+        if cap < s:
+            raise ValueError(
+                f"moe capacity groups of {s} tokens (moe_group_size={cfg.moe_group_size} over "
+                f"the global sequence of {t_loc * self.sp}) straddle the sp shards of {t_loc} "
+                f"tokens, and a capacity of {cap} < {s} drops tokens by group: pick a "
+                f"moe_group_size dividing {t_loc} (the JAX package's groups would span two "
+                "ranks)")
+        g = math.gcd(s, t_loc)  # no token drops at C = S: any grouping is the same function
+        return g, g
+
     def _capacity(self, x: Tensor, with_aux: bool) -> Tuple[Tensor, Optional[Tensor]]:
         cfg, dt = self.cfg, self.cdt
         e, k, d = cfg.n_experts, cfg.moe_top_k, x.shape[-1]
         if x.dim() == 2:  # decode: one group of B tokens, never dropping
             xg, cap = x[None], x.shape[0]
         else:
-            s = group_size(x.shape[-2], cfg.moe_group_size)
+            s, cap = self._groups(x.shape[-2])
             xg = x.reshape(-1, s, d)  # [G, S, D]: consecutive tokens of one row
-            cap = min(s, max(k, math.ceil(self.capacity_factor * k * s / e)))
         logits = self._logits(xg)  # [G, S, E]
         probs = torch.softmax(logits, -1)
         dispatch, combine, assign = top_k_routing(probs, k, cap)

@@ -25,8 +25,7 @@ elu+1). Three entry methods, as in the JAX package:
   last ``remat_skip`` are recomputed in the backward when ``cfg.remat``
   (``torch.utils.checkpoint``; ``remat_policy="dots"`` keeps the matrix
   products' outputs and recomputes the rest), and ``deterministic=False``
-  applies block
-  dropout drawn from generators seeded per layer from ``dropout_seed``;
+  applies block dropout keyed by position (``dropout_keep``, below);
 - ``prefill(tokens)`` / ``prefill_last(tokens)`` -- the same forward, also
   returning each layer's decode state: (S, z) for a linear layer, a KV
   cache for a softmax layer (capacity ``max_seq_len``) and a ring of the
@@ -65,6 +64,18 @@ variance as E[x^2] - E[x]^2, as flax) and cast the result; the two
 embeddings add in fp32 and then cast; the head multiplies bf16-rounded
 operands with fp32 accumulation into fp32 logits; (S, z) stay fp32.
 
+Dropout masks are a function of position, not of a generator's stream:
+block i's two masks (after the attention, after the MLP) keep element (row,
+token, feature) when the JAX package's counter hash (``utils/rng.py``'s
+``counter_bits``, over the feature) under the key ``fold(dropout_seed, i)``
+folded with the site, the global row and the global token is below (1 -
+rate) 2^32 (``dropout_keep``). So a rank of any mesh (rows over the data
+ranks, tokens over sp, the same whole activations on every tp rank) draws
+exactly its slice of the one-rank masks, and a recomputation under
+``checkpoint`` draws the same masks. The bits are the port's own (the JAX
+package's threefry masks are not reproduced); the keep share is 1 - rate
+and kept values are scaled by 1 / (1 - rate), as flax ``nn.Dropout``.
+
 ``features`` also returns the summed auxiliary loss of the MoE layers
 (0 without them), which the training loss adds and the eval loss leaves out,
 as the JAX package does with its ``"losses"`` collection.
@@ -98,8 +109,10 @@ its leaves on use, inside its remat region (``FsdpParams.call``:
 gathers them again and the whole weights of one block at a time are live;
 the embeddings and the head gather theirs where they are read, and the tied
 table's two uses each reduce-scatter a gradient into the one shard. A MoE
-layer averages its load-balance statistics over the data group
-(``models/moe.py``).
+layer averages its load-balance statistics over the ranks holding distinct
+tokens: the data group, times the sp group on a sequence-parallel model
+(``models/moe.py``), whose expert products then run on a rank's token
+shard.
 
 Tensor parallelism (``mesh`` with tp above 1; any combination with dp,
 fsdp and sp): the Megatron layout of the JAX package's rules. Each rank
@@ -153,14 +166,14 @@ Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
 item): the ep mesh axis (A12 step 8), and with it the
 expert-parallel MoE forms; the serving engine on a mesh (the verify and
 prefill pieces of a sequence-parallel model, any piece of an fsdp model:
-step 8); a sequence-parallel MoE, dropout on a sequence-parallel, data or
-tp mesh (step 7), and a quantized model under pp (step 8). The JAX
+step 8), and a quantized model under pp (step 8). The JAX
 package's ``attn_block_q`` / ``attn_block_k`` size TPU tiles and are not
 read.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Dict, List, Optional, Tuple, Union
@@ -889,12 +902,39 @@ class MLP(nn.Module):
         return y if self.tp_group is None else reduce_from_tp(y, self.tp_group)
 
 
-def _dropout(x: Tensor, rate: float, gen: torch.Generator) -> Tensor:
-    """flax ``nn.Dropout``: keep with probability 1 - rate and scale the
-    kept values by 1 / (1 - rate); a select, so a dropped inf is 0."""
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+@dataclasses.dataclass(frozen=True)
+class DropoutKey:
+    """The key of one block's dropout masks: the block's ``seed`` and the
+    global index of the first row (``row``) and the first token (``token``)
+    of the activations this rank holds."""
+
+    seed: int
+    row: int = 0
+    token: int = 0
+
+
+def dropout_keep(key: DropoutKey, site: int, shape, rate: float, device=None) -> Tensor:
+    """The keep mask [B, T, D] (bool) of dropout site ``site`` of the block
+    ``key`` names, for activations of ``shape`` (B, T, D): element (b, t, f)
+    is kept when word f of ``counter_bits`` under the key ``fold(key.seed,
+    site)`` folded with the global row ``key.row + b`` and then the global
+    token ``key.token + t`` is below (1 - rate) 2^32. A function of those
+    indices alone, so any slice of rows and tokens is the same slice of the
+    one-rank mask."""
+    b, t, d = shape[0], shape[-2], shape[-1]
+    k = torch.tensor(rngs.key_words(rngs.fold(key.seed, site)), dtype=torch.int64,
+                     device=device)
+    k = rngs.fold_keys(k, torch.arange(key.row, key.row + b, device=device))
+    k = rngs.fold_keys(k[:, None], torch.arange(key.token, key.token + t, device=device))
+    return rngs.counter_below(k, d, round((1.0 - rate) * 2 ** 32))
+
+
+def _dropout(x: Tensor, rate: float, key: DropoutKey, site: int) -> Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate (``dropout_keep``)
+    and scale the kept values by 1 / (1 - rate); a select, so a dropped inf
+    is 0."""
+    keep = dropout_keep(key, site, x.shape, rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Block(nn.Module):
@@ -902,8 +942,9 @@ class Block(nn.Module):
     the MLP a ``MoEMLP`` when ``use_moe``; ``causal=False``: bidirectional
     attention over the keys a mask keeps (the LRA classifier).
 
-    Dropout (``cfg.dropout``) applies when ``dropout_seed`` is given: both
-    masks come from one generator seeded with it, so a recomputation under
+    Dropout (``cfg.dropout``) applies when ``dropout`` (a ``DropoutKey``)
+    is given: its two masks (sites 0 and 1) are ``dropout_keep``'s, a
+    function of the key and the position, so a recomputation under
     ``checkpoint`` redraws the same masks."""
 
     def __init__(self, cfg: ModelConfig, layer_type: str = "linear", device=None,
@@ -916,7 +957,7 @@ class Block(nn.Module):
         self.attn = Attention(cfg, layer_type, device, quant, causal, sp,
                               tp=tp_of(mesh, cfg.n_heads))
         self.norm2 = make_norm(cfg, device)
-        self.mlp = (MoEMLP(cfg, cdt, device, quant=quant, mesh=mesh) if use_moe
+        self.mlp = (MoEMLP(cfg, cdt, device, quant=quant, mesh=mesh, sp=sp) if use_moe
                     else MLP(cfg, device, quant, tp=tp_of(mesh, cfg.resolved_mlp_hidden)))
 
     def _mlp_aux(self, x: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
@@ -925,20 +966,19 @@ class Block(nn.Module):
         return self.mlp(x), None
 
     def forward(
-        self, x: Tensor, dropout_seed: Optional[int] = None, mask: Optional[Tensor] = None,
+        self, x: Tensor, dropout: Optional[DropoutKey] = None, mask: Optional[Tensor] = None,
     ) -> Tuple[Tensor, Optional[Tensor]]:
         """-> (output, the MoE layer's auxiliary loss or None). The loss
         leaves as an output, so ``checkpoint`` carries it and a
         recomputation cannot add it twice. ``mask`` [B, T]: the keys a
         bidirectional block attends to."""
-        if dropout_seed is None or self.rate == 0.0:
+        if dropout is None or self.rate == 0.0:
             x = x + self.attn(self.norm1(x), mask)
             h, aux = self._mlp_aux(self.norm2(x))
             return x + h, aux
-        gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
-        x = x + _dropout(self.attn(self.norm1(x), mask), self.rate, gen)
+        x = x + _dropout(self.attn(self.norm1(x), mask), self.rate, dropout, 0)
         h, aux = self._mlp_aux(self.norm2(x))
-        return x + _dropout(h, self.rate, gen), aux
+        return x + _dropout(h, self.rate, dropout, 1), aux
 
     def prefill(self, x: Tensor, length=None) -> Tuple[Tensor, State]:
         h, state = self.attn.prefill(self.norm1(x), length)
@@ -1027,23 +1067,12 @@ class TransformerLM(nn.Module):
             mesh.cfg.check()
         self.mesh = mesh
         self.sp = mesh if (mesh is not None and cfg.sequence_parallel and mesh.sp > 1) else None
-        if self.sp is not None and (cfg.n_experts or cfg.dropout > 0.0):
-            raise _not_ported("a sequence-parallel model with MoE layers or dropout",
-                              "item 12 (parallelism), A12 step 7")
         self.tp = mesh if mesh is not None and mesh.tp > 1 else None
         if self.tp is not None:
-            if cfg.dropout > 0.0:
-                raise _not_ported("dropout under tp (its masks are drawn at a rank's shape, so "
-                                  "they cannot match a tp=1 run's)",
-                                  "item 12 (parallelism), A12 step 7")
             # raises unless tp divides n_heads (and, int4, each row shard's packed rows)
             tp_table = tp_dims(cfg, mesh.tp, quant)
         self.n_data = mesh.n_data if mesh is not None else 1
         self.data_group = mesh.data_group if mesh is not None else None
-        if self.n_data > 1 and cfg.dropout > 0.0:
-            raise _not_ported("dropout on a data mesh (dp x fsdp > 1: its masks are drawn at a "
-                              "rank's shape, so they cannot match a dp=1 run's)",
-                              "item 12 (parallelism), A12 step 7")
         self.pp = mesh if mesh is not None and mesh.pp > 1 else None
         self.stage = range(cfg.n_layers)
         if self.pp is not None:
@@ -1212,7 +1241,8 @@ class TransformerLM(nn.Module):
         """tokens [B, T] -> (final-normed hidden states [B, T, D], the head's
         input; the MoE layers' summed auxiliary loss, an fp32 scalar, 0
         without them). ``deterministic=False`` applies dropout (``cfg.dropout``),
-        block i drawing from ``rng.fold(dropout_seed, i)``. With grad enabled
+        block i's masks keyed by ``rng.fold(dropout_seed, i)`` and the global
+        rows and tokens of ``tokens`` (``dropout_origin``). With grad enabled
         and ``cfg.remat``, blocks ``i < n_layers - remat_skip`` are
         recomputed in the backward (the JAX model's ``nn.remat``):
         ``remat_policy="full"`` keeps only their input, ``"dots"`` also the
@@ -1228,8 +1258,18 @@ class TransformerLM(nn.Module):
             def call(i, blk):
                 return functools.partial(self.fsdp.call, blk, f"blocks.{i}.")
         x, aux_total = run_blocks(self.blocks, self.cfg, x, deterministic, dropout_seed,
-                                  call=call)
+                                  call=call, origin=self.dropout_origin(*tokens.shape))
         return self.final_norm(x), aux_total
+
+    def dropout_origin(self, b: int, t: int) -> Tuple[int, int]:
+        """The global (row, token) of the first element of this rank's B
+        rows and T tokens of a (micro)batch: row block ``data_rank`` of
+        B-row blocks, token shard ``sp_rank`` of T-token shards (the key of
+        its dropout masks, ``DropoutKey``)."""
+        mesh = self.mesh
+        if mesh is None:
+            return 0, 0
+        return mesh.data_rank * b, (self.sp.sp_rank * t if self.sp is not None else 0)
 
     def head_weight(self) -> Tuple[Tensor, bool]:
         """(head weight, w_is_vd) for ``ops/fused_ce.py``: the tied
@@ -1444,11 +1484,12 @@ def init_blocks(root: nn.Module, generator: torch.Generator) -> None:
 
 def run_blocks(blocks, cfg: ModelConfig, x: Tensor, deterministic: bool = True,
                dropout_seed: Optional[int] = None, mask: Optional[Tensor] = None,
-               call=None) -> Tuple[Tensor, Tensor]:
+               call=None, origin: Tuple[int, int] = (0, 0)) -> Tuple[Tensor, Tensor]:
     """x through ``blocks`` -> (x, the MoE layers' summed auxiliary loss, an
-    fp32 scalar). Dropout, block i drawing from ``rng.fold(dropout_seed,
-    i)``, and rematerialization (``cfg.remat`` / ``remat_skip`` /
-    ``remat_policy``) as ``TransformerLM.features`` describes. ``call(i,
+    fp32 scalar). Dropout, block i's masks keyed by ``DropoutKey(
+    rng.fold(dropout_seed, i), *origin)`` (``origin``: the global row and
+    token of x[0, 0]), and rematerialization (``cfg.remat`` / ``remat_skip``
+    / ``remat_policy``) as ``TransformerLM.features`` describes. ``call(i,
     block)``: the callable that runs block i (default the block itself;
     under fsdp one that gathers its leaves first, inside the remat
     region)."""
@@ -1460,11 +1501,11 @@ def run_blocks(blocks, cfg: ModelConfig, x: Tensor, deterministic: bool = True,
     kwargs = {} if context_fn is None else {"context_fn": context_fn}
     aux_total = torch.zeros((), device=x.device)
     for i, blk in enumerate(blocks):
-        seed = rngs.fold(dropout_seed, i) if use_dropout else None
+        seed = DropoutKey(rngs.fold(dropout_seed, i), *origin) if use_dropout else None
         fn = blk if call is None else call(i, blk)
         if i < first_remat and torch.is_grad_enabled():
-            # the masks come from ``seed``, not the global RNG, so there
-            # is no RNG state to preserve for the recomputation
+            # the masks are a function of the key and the position, not of
+            # the global RNG: there is no RNG state to preserve
             x, aux = checkpoint(fn, x, seed, mask, use_reentrant=False,
                                 preserve_rng_state=False, **kwargs)
         else:
@@ -1559,4 +1600,5 @@ __all__ = [
     "check_supported", "snapshot_decode_state", "decode_state_finite",
     "decode_state_finite_per_slot", "insert_decode_slot", "extract_decode_slot",
     "DECODE_ROWS", "decode_rows", "pad_rows", "verify_rows", "linear_layer_indices",
+    "DropoutKey", "dropout_keep",
 ]

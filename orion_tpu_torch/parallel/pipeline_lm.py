@@ -19,17 +19,27 @@ on every stage, as the JAX package replicates them over pp.
   gradients. The loss a rank returns is its share of the global mean: the
   last stage's token losses over the accumulation micro-batch's global
   token count, plus on every stage its blocks' MoE auxiliary loss,
-  averaged over the microbatches (and over the data ranks, whose shares the
-  Trainer sums). Summed over the stages (and the data and sp ranks) it is
-  the JAX package's ``pp_lm_loss``: the cross entropy plus the stages'
-  summed aux averaged over the microbatches.
+  averaged over the microbatches (and over the data and sp ranks, whose
+  shares the Trainer sums). Summed over the stages (and the data and sp
+  ranks) it is the JAX package's ``pp_lm_loss``: the cross entropy plus the
+  stages' summed aux averaged over the microbatches. Under pp x sp the
+  load-balance term is the JAX pipeline body's, taken per sp shard (its sp
+  axis is manual there: each shard's statistics over its own tokens, and
+  the data ranks' under the partial-manual form) and averaged over the sp
+  ranks; that differs from a pp=1 run's global term (JAX's
+  ``test_moe_composes_with_pp_and_sp`` bounds it at 5e-3), while the cross
+  entropy and the z-loss are linear in the shards' means and agree.
 - ``pp_lm_logits`` / ``pp_lm_eval_sums``: the forward alone, the last
   stage's logits or cross-entropy sums.
-- Dropout: block j of group slot s of stage p on microbatch m draws from
-  ``fold(fold(fold(fold(seed, m), p), s), j)``, the JAX package's key
+- Dropout: block j of group slot s of stage p on microbatch m takes the
+  seed ``fold(fold(fold(fold(seed, m), p), s), j)``, the JAX package's key
   folding (microbatch, then stage, then slot, then the group's block) on the
-  port's ``utils/rng.fold``. The masks are the pipeline's own, as in the
-  JAX package (not a pp=1 run's).
+  port's ``utils/rng.fold``, and its masks are ``dropout_keep``'s under
+  that seed at the global row of the global microbatch m (every data rank's
+  share of it, in data-rank order) and the global token. The masks are the
+  pipeline's own, as in the JAX package (not a pp=1 run's), and a rank's
+  are its slice of a pp run's without the data and sp axes (under the
+  partial-manual form, whose microbatches are the global ones).
 - ``unstack_lm_params``: a JAX pipeline-layout param tree (``blocks_stacked``:
   every group's leaves stacked on a leading axis, ``{"sub_j": ...}`` a
   group, or the older layout without ``sub_0`` whose stacked elements are
@@ -81,18 +91,20 @@ def _stage_forward(model, m: int, h: Tensor, seed: Optional[int]) -> Tuple[Tenso
     under pp); under fsdp a block gathers its leaves inside that region."""
     from torch.utils.checkpoint import checkpoint
 
-    from orion_tpu_torch.models.transformer import _remat_context
+    from orion_tpu_torch.models.transformer import DropoutKey, _remat_context
 
     cfg = model.cfg
     g = stage_group(cfg)
     key = None
     if seed is not None:
         key = rngs.fold(rngs.fold(seed, m), model.pp.pp_rank)
+        origin = model.dropout_origin(h.shape[0], h.shape[1])
     context_fn = _remat_context(cfg.remat_policy)
     kwargs = {} if context_fn is None else {"context_fn": context_fn}
     aux_total = torch.zeros((), device=h.device)
     for k, (i, blk) in enumerate(model.blocks.items()):
-        s = None if key is None else rngs.fold(rngs.fold(key, k // g), k % g)
+        s = None if key is None else DropoutKey(rngs.fold(rngs.fold(key, k // g), k % g),
+                                                *origin)
         fn = blk if model.fsdp is None else (
             lambda x, sd, mask, _b=blk, _i=i: model.fsdp.call(_b, f"blocks.{_i}.", x, sd, mask))
         if cfg.remat and torch.is_grad_enabled():
@@ -160,8 +172,11 @@ def pp_lm_loss(model, batch: Tensor, n_micro: int, dropout_seed: Optional[int] =
     def last(m, h):
         return _token_losses(model, h, ys[m]).sum() / count
 
+    # the aux is the same on the data ranks of the partial-manual form (its
+    # statistics are global over them) and a shard's own under sp
+    n_sp = model.sp.sp if model.sp is not None else 1
     results, auxes = _run(model, x, n_micro, last, True, dropout_seed,
-                          aux_weight=1.0 / (n_micro * n_data))
+                          aux_weight=1.0 / (n_micro * n_data * n_sp))
     total = torch.zeros((), device=model.device)
     for r in results + auxes:
         total = total + r
@@ -172,7 +187,8 @@ def pp_lm_logits(model, tokens: Tensor, n_micro: int, return_aux: bool = False):
     """tokens [B, T] -> the logits [B, T, V] (fp32) on the last stage, None
     on the others: the forward alone through the schedule. ``return_aux``:
     also the blocks' MoE auxiliary loss summed over the stages and averaged
-    over the microbatches, on every stage (a sum over the pp group)."""
+    over the microbatches (and the sp shards), on every stage (a sum over
+    the pp group)."""
     from orion_tpu_torch.parallel.collectives import all_reduce_sum_
 
     with torch.no_grad():
@@ -186,6 +202,9 @@ def pp_lm_logits(model, tokens: Tensor, n_micro: int, return_aux: bool = False):
     aux = (aux / n_micro).reshape(1)
     if model.pp.pp_group is not None:
         all_reduce_sum_([aux], model.pp.pp_group)
+    if model.sp is not None:  # each sp shard's term, averaged (the JAX pipeline's pmean)
+        all_reduce_sum_([aux], model.sp.sp_group)
+        aux = aux / model.sp.sp
     return logits, aux[0]
 
 

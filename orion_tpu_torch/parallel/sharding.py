@@ -95,18 +95,18 @@ TP_WHOLE = (r"phi_proj/kernel", r"lm_head_kernel")
 
 
 def _axis_dims(cfg, axis: str, size: int, skip: Tuple[str, ...] = (),
-               quant: str = "") -> Dict[str, int]:
+               quant: str = "", classifier: bool = False) -> Dict[str, int]:
     """port state_dict key -> the dimension (in the port's layout) along
     which ``axis`` of ``size`` shards the leaf, for each leaf whose rule
     names the axis at a dimension the size divides; ``quant``: the leaves of
     that quantized model (``_q`` / ``_p4`` as their rules say, ``_s``
-    replicated)."""
+    replicated); ``classifier``: the leaves of its ``LRAClassifier``."""
     from orion_tpu_torch.convert import expected_params  # convert imports the model
 
     out: Dict[str, int] = {}
     if size <= 1:
         return out
-    for path, (key, shape, transpose) in expected_params(cfg, quant).items():
+    for path, (key, shape, transpose) in expected_params(cfg, quant, classifier).items():
         spec = spec_for_path(path)
         if axis not in spec or any(re.search(pat, path) for pat in skip):
             continue
@@ -119,13 +119,15 @@ def _axis_dims(cfg, axis: str, size: int, skip: Tuple[str, ...] = (),
     return out
 
 
-def fsdp_dims(cfg, fsdp: int, quant: str = "") -> Dict[str, int]:
+def fsdp_dims(cfg, fsdp: int, quant: str = "", classifier: bool = False) -> Dict[str, int]:
     """The model's fsdp leaves at an fsdp size of ``fsdp`` (of its
-    quantized form with ``quant``): port state_dict key -> the dimension it
-    is sharded along (in the port's layout). A leaf absent from the table is
-    replicated: its rule names no fsdp dimension (the int8 token table, every
-    ``_s`` scale), or the fsdp size does not divide that dimension."""
-    return _axis_dims(cfg, "fsdp", fsdp, quant=quant)
+    quantized form with ``quant``; of its ``LRAClassifier`` with
+    ``classifier``, whose head kernel the rules cut along d): port
+    state_dict key -> the dimension it is sharded along (in the port's
+    layout). A leaf absent from the table is replicated: its rule names no
+    fsdp dimension (the int8 token table, every ``_s`` scale, ``cls``, the
+    classifier's bias), or the fsdp size does not divide that dimension."""
+    return _axis_dims(cfg, "fsdp", fsdp, quant=quant, classifier=classifier)
 
 
 def _out_dim(key: str, ndim: int) -> int:
@@ -135,14 +137,14 @@ def _out_dim(key: str, ndim: int) -> int:
     return 0 if key.endswith("weight_q") else ndim - 1
 
 
-def tp_dims(cfg, tp: int, quant: str = "") -> Dict[str, int]:
+def tp_dims(cfg, tp: int, quant: str = "", classifier: bool = False) -> Dict[str, int]:
     """The model's tp leaves at a tp size of ``tp`` (of its quantized form
     with ``quant``): port state_dict key -> the dimension it is cut along
     (in the port's layout). A leaf absent from the table is whole on every
     tp rank: its rule names no tp dimension, it is one of ``TP_WHOLE``, or
     tp does not divide that dimension (an MLP or an expert stack whose
-    hidden width tp does not divide). Raises ``ValueError`` when tp does not
-    divide ``n_heads``.
+    hidden width tp does not divide; the classifier's head, whose rule names
+    no tp). Raises ``ValueError`` when tp does not divide ``n_heads``.
 
     Quantized leaves follow their full-precision twins: a column-parallel
     ``_q`` / ``_p4`` leaf is cut along its output channels and its ``_s``
@@ -155,7 +157,7 @@ def tp_dims(cfg, tp: int, quant: str = "") -> Dict[str, int]:
     if tp > 1 and cfg.n_heads % tp:
         raise ValueError(f"tp={tp} does not divide n_heads={cfg.n_heads}: each tp rank holds "
                          "whole heads (the reference's per-head kernel calls need the same)")
-    dims = _axis_dims(cfg, "tp", tp, TP_WHOLE, quant)
+    dims = _axis_dims(cfg, "tp", tp, TP_WHOLE, quant, classifier)
     if not quant or tp <= 1:
         return dims
     from orion_tpu_torch.convert import expected_params

@@ -46,9 +46,10 @@ train and eval loaders the same stall budget. ``--metrics-path`` writes the
 training registry (Prometheus text + ``.json``) on every exit path. With
 ``--ckpt-dir`` the flight recorder dumps into ``<ckpt-dir>/flight``.
 ``--ep`` above 1 raises (item 12: A12 step 8), and so does any axis above
-1 without ``--distributed``. Under ``--tp`` dropout (A12 step 7), and under
-``--fsdp``, ``--tp`` or ``--pp`` ``optimizer=adafactor`` and
-``param_storage=bfloat16_sr`` (step 9) raise.
+1 without ``--distributed``. Under ``--fsdp``, ``--tp`` or ``--pp``
+``optimizer=adafactor`` and ``param_storage=bfloat16_sr`` (step 9) raise.
+Dropout (``--set model.dropout=...``) and MoE configs run on every mesh;
+under ``--sp`` a MoE layer's load-balance statistics are the global batch's.
 """
 
 from __future__ import annotations

@@ -26,8 +26,26 @@ loss, accuracy, the gradients' global norm, a step that keeps the params
 and the optimizer state when the loss or the norm is not finite, and the
 optimizer chain ``clip_by_global_norm`` then the optimizer (``adamw`` /
 ``lion`` / ``adafactor``; ``adafactor_fused`` takes the plain Adafactor, as
-the JAX package's optax twin does). A mesh other than one device raises
-(ROADMAP.md queue A, item 12).
+the JAX package's optax twin does).
+
+On a mesh (``LRATrainConfig.mesh`` with ``train_lra(..., mesh=)``, the
+``parallel.mesh.Mesh`` of ``init_distributed``) the step computes the
+one-device function, as the JAX package's does (its classifier takes no
+mesh; ``param_shardings`` places the state and ``batch_sharding`` the rows
+over (dp, fsdp)): every rank builds the same params from the seed and takes
+its rows of the global batch (``Mesh.rows``); fsdp and tp cut the
+classifier's leaves by the LM's rules (``models/classifier.py``). A rank's
+loss is its rows' cross-entropy sum over the global batch (plus the aux
+over the data ranks), so the sums over the data group give the global mean
+and its gradient: the whole leaves' gradients are summed over the data
+group, the fsdp shards' (reduce-scattered over the fsdp group by the
+gather's backward) over the dp group, ``phi_proj``'s (whole on every tp
+rank, read by its heads) also over the tp group; the global norm counts
+each shard once, so every rank clips and skips alike. The train accuracy
+and the eval accuracy are the data ranks' correct counts summed over the
+global batch. The sp and pp axes replicate, as over the JAX classifier:
+their ranks compute the same rows whole. The ep axis raises (A12 step 8),
+and so do ``adafactor`` under fsdp or tp (A12 step 9, as the LM Trainer).
 """
 
 from __future__ import annotations
@@ -46,6 +64,8 @@ import torch.nn.functional as F
 from orion_tpu_torch.convert import expected_params
 from orion_tpu_torch.models.classifier import LRAClassifier
 from orion_tpu_torch.models.configs import ModelConfig, get_config
+from orion_tpu_torch.parallel.collectives import all_reduce_sum_
+from orion_tpu_torch.parallel.sharding import tp_whole_grads, whole_leaf
 from orion_tpu_torch.training.metrics import MetricsLogger
 from orion_tpu_torch.training.trainer import (MeshConfig, TrainConfig, global_norm,
                                               make_optimizer, make_schedule, param_grads)
@@ -209,12 +229,16 @@ def lra_shim(cfg: LRATrainConfig) -> TrainConfig:
 
 def lra_loss(model: LRAClassifier, toks: Tensor, labels: Tensor, mask: Tensor,
              dropout_seed: Optional[int] = None) -> Tuple[Tensor, Tensor]:
-    """(mean cross entropy plus the MoE layers' auxiliary loss, accuracy)."""
+    """(mean cross entropy plus the MoE layers' auxiliary loss, accuracy).
+    On a data mesh (``toks`` this rank's rows) this rank's share of each:
+    its rows' sums over the global batch, the aux over the data ranks."""
     logits, aux = model(toks, mask, deterministic=dropout_seed is None,
                         dropout_seed=dropout_seed, return_aux=True)
-    loss = F.cross_entropy(logits, labels.long()) + aux
-    acc = (logits.argmax(-1) == labels).float().mean()
-    return loss, acc
+    right = (logits.argmax(-1) == labels).float()
+    n = model.n_data
+    rows = toks.shape[0] * n
+    loss = F.cross_entropy(logits, labels.long(), reduction="sum") / rows + aux / n
+    return loss, right.sum() / rows
 
 
 def make_lra_step(model: LRAClassifier, opt, sched, root: int, dropout: float = 0.0,
@@ -226,6 +250,26 @@ def make_lra_step(model: LRAClassifier, opt, sched, root: int, dropout: float = 
     accuracy."""
     params = dict(model.named_parameters())
     dropout_root = rngs.stream(root, "dropout")
+    mesh = model.mesh
+    tp_whole = set(tp_whole_grads(model.cfg)) if model.tp_params is not None else set()
+
+    def reduce(loss: Tensor, acc: Tensor, grads: Dict[str, Tensor]) -> Tuple[Tensor, Tensor]:
+        """On a mesh: the loss, the accuracy and every gradient summed over
+        the ranks that hold other rows (the module docstring's groups)."""
+        if mesh is None:
+            return loss, acc
+        sums = torch.stack([loss.detach(), acc]).float()
+        cut = model.fsdp.dims if model.fsdp is not None else {}
+        if mesh.data_group is not None:
+            all_reduce_sum_([sums] + [g for n, g in grads.items() if n not in cut],
+                            mesh.data_group)
+        shards = [g for n, g in grads.items() if n in cut]
+        if shards and mesh.dp_group is not None:
+            all_reduce_sum_(shards, mesh.dp_group)
+        heads = [g for n, g in grads.items() if n in tp_whole]
+        if heads:
+            all_reduce_sum_(heads, mesh.tp_group)
+        return sums[0], sums[1]
 
     def step_fn(step: int, toks: Tensor, labels: Tensor, mask: Tensor) -> Dict[str, float]:
         seed = rngs.at_step(dropout_root, step) if dropout > 0.0 else None
@@ -234,7 +278,8 @@ def make_lra_step(model: LRAClassifier, opt, sched, root: int, dropout: float = 
         loss, acc = lra_loss(model, toks, labels, mask, seed)
         loss.backward()
         grads = param_grads(params)
-        gnorm = global_norm(grads)
+        loss, acc = reduce(loss, acc, grads)
+        gnorm = global_norm(grads, model.fsdp, model.tp_params)
         finite = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         if finite:
             # optax.clip_by_global_norm: (g / norm) * max_norm above the limit
@@ -248,31 +293,54 @@ def make_lra_step(model: LRAClassifier, opt, sched, root: int, dropout: float = 
 
     @torch.no_grad()
     def eval_fn(toks: Tensor, labels: Tensor, mask: Tensor) -> float:
-        return float((model(toks, mask).argmax(-1) == labels).float().mean())
+        hits = (model(toks, mask).argmax(-1) == labels).float().sum().reshape(1)
+        if mesh is not None and mesh.data_group is not None:
+            all_reduce_sum_([hits], mesh.data_group)
+        return float(hits[0]) / (toks.shape[0] * model.n_data)
 
     return step_fn, eval_fn
 
 
-def _put(batch, device):
-    toks, labels, mask = batch
-    return (torch.from_numpy(toks).long().to(device), torch.from_numpy(labels).long().to(device),
-            torch.from_numpy(mask).to(device))
+def _put(batch, device, mesh=None):
+    """A host batch on ``device``: this rank's rows of it on a data mesh."""
+    out = tuple(torch.from_numpy(a).to(device) for a in batch)
+    toks, labels, mask = out if mesh is None else tuple(mesh.rows(a) for a in out)
+    return toks.long(), labels.long(), mask
 
 
-def train_lra(cfg: LRATrainConfig, logger: Optional[MetricsLogger] = None, device=None
-              ) -> Tuple[Dict[str, Tensor], Dict[str, float]]:
-    """Train ``cfg`` -> (the params by name, the last logged metrics with
-    ``eval_acc``). ``device`` defaults to ``"cuda"``."""
-    if any(n > 1 for n in cfg.mesh.shape):  # sp too: the classifier is bidirectional
-        raise NotImplementedError(f"a device mesh {cfg.mesh.shape} is not ported to "
-                                  "orion_tpu_torch's LRA (ROADMAP.md queue A, item 12 "
-                                  "(parallelism), A12 step 7)")
+def train_lra(cfg: LRATrainConfig, logger: Optional[MetricsLogger] = None, device=None,
+              mesh=None) -> Tuple[Dict[str, Tensor], Dict[str, float]]:
+    """Train ``cfg`` -> (the params by name, whole, the last logged metrics
+    with ``eval_acc``). ``device`` defaults to ``"cuda"``. ``mesh``: the
+    ``parallel.mesh.Mesh`` of ``init_distributed`` that a ``cfg.mesh`` with
+    an axis above 1 needs (the module docstring); the model then runs on
+    the mesh's device and only rank 0 logs."""
+    cfg.mesh.check()  # ep raises, naming A12 step 8
     if cfg.accum_steps != 1:
         raise ValueError("train_lra takes accum_steps=1, as the JAX package's step does")
+    if mesh is None and any(n > 1 for n in cfg.mesh.shape):
+        raise ValueError(f"mesh {cfg.mesh.shape} needs its process group: pass the Mesh of "
+                         "parallel.init_distributed")
+    if mesh is not None:
+        want = cfg.mesh.resolve(mesh.world)
+        if mesh.cfg != want:
+            raise ValueError(f"cfg.mesh resolves to {want.shape} on {mesh.world} ranks, the "
+                             f"Mesh is {mesh.cfg.shape}")
+        if (want.fsdp > 1 or want.tp > 1) and cfg.optimizer in ("adafactor", "adafactor_fused"):
+            raise NotImplementedError(
+                f"optimizer={cfg.optimizer!r} under fsdp or tp (factored statistics take the "
+                "whole leaf) is not ported to orion_tpu_torch yet (ROADMAP.md queue A, item 12 "
+                "(parallelism), A12 step 9)")
+        if cfg.batch_size % mesh.n_data:
+            raise ValueError(f"batch_size {cfg.batch_size} does not divide into dp * fsdp = "
+                             f"{mesh.n_data} row blocks")
+        device = mesh.device
+        mesh = mesh if mesh.world > 1 else None
     dev = resolve_device(device)
     root = rngs.root_key(cfg.seed)
     model = LRAClassifier(cfg.model, device=dev,
-                          generator=rngs.generator(rngs.stream(root, "init"), dev))
+                          generator=rngs.generator(rngs.stream(root, "init"), dev), mesh=mesh)
+    logger = logger if mesh is None or mesh.is_main else None
     shim = lra_shim(cfg)
     params = dict(model.named_parameters())
     transposed = {key: t for key, _, t in
@@ -287,7 +355,8 @@ def train_lra(cfg: LRATrainConfig, logger: Optional[MetricsLogger] = None, devic
 
     last: Dict[str, float] = {}
     for step in range(1, cfg.steps + 1):
-        metrics = step_fn(step - 1, *_put(ds.batch(cfg.seed, step - 1, cfg.batch_size), dev))
+        metrics = step_fn(step - 1, *_put(ds.batch(cfg.seed, step - 1, cfg.batch_size), dev,
+                                          mesh))
         if step % cfg.log_every == 0 or step == cfg.steps:
             last = dict(metrics)
             if logger:
@@ -295,12 +364,13 @@ def train_lra(cfg: LRATrainConfig, logger: Optional[MetricsLogger] = None, devic
         if cfg.eval_every and (step % cfg.eval_every == 0 or step == cfg.steps):
             eval_ds = make_lra_dataset(cfg, "val") if os.path.isdir(cfg.task) else ds
             accs = [eval_fn(*_put(eval_ds.batch(cfg.seed + 99, 10_000_000 + i, cfg.batch_size),
-                                  dev))
+                                  dev, mesh))
                     for i in range(cfg.eval_batches)]
             last["eval_acc"] = sum(accs) / len(accs)
             if logger:
                 logger.log(step, {"eval_acc": last["eval_acc"]})
-    return {n: p.detach() for n, p in model.named_parameters()}, last
+    axes = list(reversed(model.shard_axes))  # fsdp's cut first undone, then tp's
+    return {n: whole_leaf(n, p.detach(), axes) for n, p in model.named_parameters()}, last
 
 
 def main(argv=None) -> int:

@@ -58,7 +58,8 @@ package's micro-batch partition (the batch split into ``accum_steps``
 contiguous micro-batches, each rank its row block of each,
 ``Mesh.row_index``), so ``batch_size`` and ``micro_batch`` must divide by dp
 x fsdp. The loss is the global token mean (a rank's backward starts from its
-sum over the global count; a MoE layer's aux over the data ranks). After the
+sum over the global count; a MoE layer's aux over the data x sp ranks, whose
+load-balance statistics it averages: ``models/moe.py``). After the
 backward, the replicated leaves' gradients are summed over every rank (one
 flat buffer a dtype) and the fsdp shards' -- reduce-scattered over the fsdp
 group by the gather's backward -- over the ranks that hold the same shard
@@ -145,8 +146,11 @@ raise ``NotImplementedError`` naming A12 step 9: the JAX Trainer's stacked
 leaves change what they compute (the block-RMS clip over a whole stacked
 leaf, the bf16 cast of a stacked norm scale, the rounding counter keyed by
 the stacked tree), so its pp run of either differs from its pp=1 run.
-Dropout runs under pp alone (the pipeline's own masks, folded per
-microbatch, stage and block as the JAX package folds its keys).
+Dropout on any mesh: each block's masks are keyed by the block's seed and
+the global row and token (``models/transformer.py``'s ``dropout_keep``), so
+a rank draws its slice of the masks of the run without the data, sp and tp
+axes; under pp the pipeline's own keys (folded per microbatch, stage and
+block as the JAX package folds them) with a microbatch's global rows.
 
 Not ported yet (it raises ``NotImplementedError`` naming ROADMAP.md's
 item): the ep mesh axis (A12 step 8).
@@ -499,7 +503,9 @@ def lm_loss(
     on a data mesh (``batch`` then this rank's rows), it is this rank's part
     of the global mean: its sum of token losses over the global token count
     (the inputs and labels shifted before sharding), plus the aux over the
-    number of data ranks (each rank's aux is the global batch's already)."""
+    number of ranks holding distinct tokens, data x sp (each rank's
+    load-balance term is the global batch's already, its z-loss its own
+    tokens' mean), so the ranks' summed gradients count it once."""
     x, y = batch[:, :-1], batch[:, 1:]
     sp = model.sp
     if sp is not None:
@@ -515,7 +521,8 @@ def lm_loss(
             logits.transpose(1, 2), y.long(), reduction="none")
     n_data = model.n_data
     if sp is not None or n_data > 1:
-        return losses.sum() / (batch.shape[0] * n_data * (batch.shape[1] - 1)) + aux / n_data
+        n_token = n_data * (sp.sp if sp is not None else 1)
+        return losses.sum() / (batch.shape[0] * n_data * (batch.shape[1] - 1)) + aux / n_token
     return losses.mean() + aux
 
 
@@ -643,7 +650,7 @@ class Trainer:
             # aux over the data ranks)
             for m in self.model.modules():
                 if isinstance(m, MoEMLP):
-                    m.data_group = None
+                    m.stats_group = None
         storage_cast(self.model, cfg.param_storage)
         self.fsdp = self.model.fsdp
         self.tp = self.model.tp_params

@@ -112,5 +112,40 @@ def counter_bits(keys: Tensor, n: int) -> Tensor:
     return h ^ (h >> 16)
 
 
+def _as_i32(x):
+    """32-bit words (a Python int or an int64 tensor in [0, 2^32)) as the
+    int32 values with their bits."""
+    if isinstance(x, int):
+        return x - (1 << 32) if x >= 1 << 31 else x
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def _xor_shr(h: Tensor, s: int) -> Tensor:
+    """h ^ (h >>> s) in place, on int32 words (torch's >> is arithmetic, so
+    the shifted-in sign bits are masked off)."""
+    t = h >> s
+    t &= (1 << (32 - s)) - 1
+    h ^= t
+    return h
+
+
+def counter_below(keys: Tensor, n: int, bound: int) -> Tensor:
+    """keys [..., 2] -> bool [..., n]: word i of ``counter_bits(keys, n)``
+    below ``bound`` (in [0, 2^32)). The same hash on int32 words (products
+    wrap mod 2^32, shifts masked, the compare offset by 2^31 to order the
+    words unsigned, every step in place but the shifts): the same mask at
+    a fraction of the int64 form's bytes."""
+    k0, k1 = _as_i32(keys[..., 0, None]), _as_i32(keys[..., 1, None])
+    h = _as_i32(_mul32(torch.arange(n, dtype=torch.int64, device=keys.device), 0x9E3779B9)) + k0
+    _xor_shr(h, 16)
+    h *= _as_i32(0x85EBCA6B)
+    h ^= k1
+    _xor_shr(h, 13)
+    h *= _as_i32(0xC2B2AE35)
+    _xor_shr(h, 16)
+    h ^= _as_i32(1 << 31)
+    return h < bound - (1 << 31)
+
+
 __all__ = ["root_key", "stream", "at_step", "fold", "generator", "key_words", "fold_keys",
-           "counter_bits"]
+           "counter_bits", "counter_below"]

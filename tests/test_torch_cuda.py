@@ -1935,3 +1935,49 @@ def test_train_resilience_native_loader_on_the_card_machine(dev, tmp_path):
     for step, b in enumerate(got):
         assert b.device.type == "cuda" and b.dtype == torch.int64
         np.testing.assert_array_equal(b.cpu().numpy(), twin.batch(3, step, 8))
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_moe_on_an_sp_shard_takes_rows_9_and_10(dev, sp):
+    """A dropless MoE layer of moe_1b3_4e (d 2048, 4 experts, hidden 5504,
+    top-1, bf16) on one sp rank's token shard of B 4 x 2048 (sp 2: 1024
+    tokens, 4096 routed rows; sp 4: 512 tokens, 2048): the tile-aligned
+    form, rows 9 and 10 in their wgmma variant (3 forward products, 3 dx and
+    3 dw a backward), against the same layer on ``backend="torch"``. The
+    routing is the same (the router runs in fp32 in both); y and dx within
+    one bf16 step plus 1e-4 of the largest magnitude, every weight's
+    gradient within 1e-2 relative L2 (the products' cotangents already
+    differ by a bf16 rounding)."""
+    from orion_tpu_torch.models.configs import get_config
+    from orion_tpu_torch.models.moe import GMM_MIN_ROWS, MoEMLP
+
+    cfg = dataclasses.replace(get_config("moe_1b3_4e"), moe_dropless=True)
+    g = torch.Generator(device=dev).manual_seed(sp)
+    layers = []
+    for backend in ("auto", "torch"):
+        layer = MoEMLP(dataclasses.replace(cfg, backend=backend), torch.bfloat16, dev)
+        for p in layer.parameters():
+            p.data.normal_(0.0, cfg.d_model ** -0.5, generator=torch.Generator(
+                device=dev).manual_seed(7))
+        layers.append(layer)
+    x = torch.randn(4, 2048 // sp, cfg.d_model, device=dev, generator=g).to(torch.bfloat16)
+    cot = torch.randn(x.shape, device=dev, generator=g).to(torch.bfloat16)
+    assert x.shape[0] * x.shape[1] * cfg.moe_top_k >= GMM_MIN_ROWS
+    outs = []
+    for layer in layers:
+        xx = x.clone().requires_grad_()
+        before = (gm.launches_fwd_wgmma, gm.launches_dw_wgmma, gm.launches_fwd_simt,
+                  gm.launches_dw_simt)
+        y, aux = layer(xx, with_aux=True)
+        (y.float() * cot.float()).sum().backward()
+        moved = tuple(a - b for a, b in zip((gm.launches_fwd_wgmma, gm.launches_dw_wgmma,
+                                             gm.launches_fwd_simt, gm.launches_dw_simt), before))
+        outs.append((y.detach(), xx.grad, {n: p.grad for n, p in layer.named_parameters()},
+                     moved))
+    (y, dx, grads, moved), (y_r, dx_r, grads_r, moved_r) = outs
+    assert moved == (6, 3, 0, 0) and moved_r == (0, 0, 0, 0)
+    _max_close(y, y_r, 2**-7)
+    _max_close(dx, dx_r, 2**-7)
+    for n, gr in grads_r.items():
+        rel = float((grads[n].float() - gr.float()).norm() / gr.float().norm())
+        assert rel <= 1e-2, (n, rel)

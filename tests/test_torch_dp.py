@@ -19,7 +19,8 @@ rows, and what this slice refuses.
 - The loader: a rank's rows of each dataset bitwise the JAX package's
   global batch's rows, and a token-bin dataset reads only their windows.
 - The refusals: ep (tp and pp are ported and need their process group),
-  dropout and quant on a data mesh,
+  quant on a data mesh (a dropout model builds there and draws its rows'
+  slice of the one-rank masks),
   ``adafactor`` and ``bfloat16_sr`` under fsdp (``NotImplementedError``
   naming item 12), ``adafactor_fused`` on two ranks beside the JAX Trainer
   raising for the same mesh, an axis above 1 without a process group.
@@ -276,12 +277,24 @@ def test_tp_pp_and_ep_above_1_raise_naming_item_12():
 
 
 def test_dropout_and_quant_on_a_data_mesh_raise_naming_item_12():
+    """Dropout on a data mesh is ported: the model builds on both meshes,
+    and at dp 2 rank 1's features with dropout are the one-rank run's rows
+    2..3 (its masks the one-rank masks' slice: tests/test_torch_mesh_dropout.py
+    holds the training runs). A quantized model's serving pieces under fsdp
+    still raise, naming A12 step 8."""
     from orion_tpu_torch.models.transformer import TransformerLM
 
+    drop = ModelConfig(**dict(TINY, dropout=0.1, dtype="float32"))
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, TINY["vocab_size"], (4, 16)))
+    with torch.no_grad():
+        one, _ = TransformerLM(drop, device="cpu").features(tokens, False, 77)
     for mesh_cfg in (MeshConfig(dp=2), MeshConfig(dp=1, fsdp=2)):
-        mesh = _mesh(mesh_cfg, 0)
-        with pytest.raises(NotImplementedError, match="item 12.*A12 step 7"):
-            TransformerLM(ModelConfig(**dict(TINY, dropout=0.1)), device="cpu", mesh=mesh)
+        mesh = _mesh(mesh_cfg, 1 if mesh_cfg.dp == 2 else 0)
+        model = TransformerLM(drop, device="cpu", mesh=mesh)
+        if mesh_cfg.dp == 2:  # no collective in a dense dp model's forward
+            with torch.no_grad():
+                mine, _ = model.features(tokens[2:], False, 77)
+            np.testing.assert_allclose(mine.numpy(), one[2:].numpy(), rtol=1e-6, atol=1e-6)
         # a quantized model on a data mesh serves generate
         # (tests/test_torch_genmesh_quant.py); under fsdp the serving
         # engine's pieces still raise, naming step 8

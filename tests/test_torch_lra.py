@@ -263,7 +263,11 @@ def test_train_lra_on_a_tsv_directory_and_the_cli(tmp_path):
 
 
 def test_a_mesh_raises():
+    """A mesh runs through its process group (tests/test_torch_lra_mesh.py):
+    without one it raises, and the ep axis raises naming A12 step 8."""
     from orion_tpu_torch.training.trainer import MeshConfig
 
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="init_distributed"):
         lra.train_lra(lra.LRATrainConfig(mesh=MeshConfig(dp=2), steps=1), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12.*A12 step 8"):
+        lra.train_lra(lra.LRATrainConfig(mesh=MeshConfig(dp=1, ep=2), steps=1), device="cpu")

@@ -243,7 +243,7 @@ def test_the_trainers_pp_rules_refuse_what_does_not_divide():
                       mesh=MeshConfig(dp=2, pp=2), batch_size=8, seq_len=32, pp_full_manual=True)
     tr = Trainer(cfg, mesh=_fake_mesh(cfg.mesh))
     assert tr.pp_full_manual and tr.pp_n_micro == 4
-    assert all(m.data_group is None for m in tr.model.modules() if hasattr(m, "router"))
+    assert all(m.stats_group is None for m in tr.model.modules() if hasattr(m, "router"))
 
 
 @pytest.mark.parametrize("kw", [dict(optimizer="adafactor"), dict(param_storage="bfloat16_sr")])

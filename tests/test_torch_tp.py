@@ -20,10 +20,11 @@ the cut and gather of a model's params, and what a tp mesh refuses.
 - The rows and the token shard a rank reads: the same on every tp rank of
   one (d, f, s).
 - The refusals, each naming its A12 step: tp not dividing ``n_heads``,
-  dropout (step 7), quant (step 8), ``adafactor`` / ``bfloat16_sr`` (step
-  9, also under pp), LRA on a tp mesh (step 7), ep, a quantized model under
-  pp (step 8), an int4 row shard tp cannot cut, and generate's mesh flags
-  without ``--distributed``.
+  quant (step 8), ``adafactor`` / ``bfloat16_sr`` (step 9, also under pp),
+  ep, a quantized model under pp (step 8), an int4 row shard tp cannot cut,
+  and generate's mesh flags without ``--distributed``. Dropout under tp and
+  LRA on a tp mesh build (their runs: tests/test_torch_mesh_dropout.py,
+  tests/test_torch_lra_mesh.py).
 """
 
 import dataclasses
@@ -220,8 +221,10 @@ def test_dropout_quant_and_odd_heads_under_tp_raise():
     from orion_tpu_torch.models.transformer import TransformerLM
 
     mesh = _mesh(MeshConfig(dp=1, tp=2))
-    with pytest.raises(NotImplementedError, match="item 12.*A12 step 7"):
-        TransformerLM(ModelConfig(**dict(TINY, dropout=0.1)), device="cpu", mesh=mesh)
+    # dropout under tp builds (its masks are every tp rank's alike: the
+    # runs are in tests/test_torch_mesh_dropout.py); each rank its heads
+    model = TransformerLM(ModelConfig(**dict(TINY, dropout=0.1)), device="cpu", mesh=mesh)
+    assert model.blocks[0].attn.heads == TINY["n_heads"] // 2
     # a quantized model under tp is ported (tests/test_torch_genmesh_quant.py);
     # int4 refuses a row shard whose packed rows tp does not divide: hidden
     # 66 splits over tp 2, its 33 packed rows of down do not
@@ -260,12 +263,24 @@ def test_pp_and_ep_still_raise(axis):
 
 
 def test_lra_on_a_tp_mesh_raises_naming_step_7():
+    """LRA on a tp mesh is ported (tests/test_torch_lra_mesh.py): the
+    classifier builds with half the heads a rank and its head whole;
+    ``train_lra`` without the mesh's process group raises, and so does
+    ``adafactor`` under tp, naming A12 step 9."""
+    from orion_tpu_torch.models.classifier import LRAClassifier
     from orion_tpu_torch.models.configs import get_config
     from orion_tpu_torch.train_lra import LRATrainConfig, train_lra
 
-    cfg = LRATrainConfig(model=get_config("lra_listops_linear"), mesh=MeshConfig(dp=1, tp=2))
-    with pytest.raises(NotImplementedError, match="item 12.*A12 step 7"):
+    model_cfg = get_config("lra_listops_linear")
+    cfg = LRATrainConfig(model=model_cfg, mesh=MeshConfig(dp=1, tp=2))
+    with pytest.raises(ValueError, match="init_distributed"):
         train_lra(cfg, device="cpu")
+    mesh = _mesh(MeshConfig(dp=1, tp=2))
+    clf = LRAClassifier(model_cfg, device="cpu", mesh=mesh)
+    assert clf.blocks[0].attn.wq.weight.shape[0] == model_cfg.d_model // 2
+    assert clf.head.weight.shape == (model_cfg.n_classes, model_cfg.d_model)
+    with pytest.raises(NotImplementedError, match="item 12.*A12 step 9"):
+        train_lra(dataclasses.replace(cfg, optimizer="adafactor"), device="cpu", mesh=mesh)
 
 
 @pytest.mark.parametrize("flag,step", [("--sp", "A12 step 6 "), ("--dp", "A12 step 6b"),

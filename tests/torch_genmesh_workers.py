@@ -75,9 +75,9 @@ def generate_cases(mesh, payload):
 
 def refusals(mesh, payload):
     """What still refuses on a mesh, each caught on every rank -> {case: the
-    exception's type and message}: MoE layers under sp; a verify piece and
-    a prefill piece of a sequence-parallel model; a decode-piece of an fsdp
-    model."""
+    exception's type and message, None where it ran}: a verify piece and a
+    prefill piece of a sequence-parallel model. MoE layers under sp run (a
+    prefill of a prompt's shard: "moe under sp" is None)."""
     from orion_tpu_torch.models.transformer import TransformerLM
 
     out = {}
@@ -91,8 +91,14 @@ def refusals(mesh, payload):
         except Exception as e:  # noqa: BLE001 -- the message is the result
             out[name] = (type(e).__name__, str(e))
 
-    catch("moe under sp", lambda: TransformerLM(dataclasses.replace(sp, n_experts=4, moe_period=2),
-                                                device="cpu", mesh=mesh))
+    def moe_prefill():
+        moe = TransformerLM(dataclasses.replace(sp, n_experts=4, moe_period=2, moe_dropless=True),
+                            device="cpu", mesh=mesh)
+        with torch.inference_mode():
+            logits, _ = moe.prefill_last(mesh.shard(torch.zeros(1, 8, dtype=torch.long)))
+        assert bool(torch.isfinite(logits).all())
+
+    catch("moe under sp", moe_prefill)
     model = TransformerLM(sp, device="cpu", mesh=mesh)
     prompt = torch.zeros(1, 8, dtype=torch.long)
     with torch.inference_mode():
